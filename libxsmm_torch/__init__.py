@@ -1,0 +1,105 @@
+"""libxsmm_torch — the PyTorch/CUDA port of libxsmm_tpu for NVIDIA Hopper.
+
+The port keeps the JAX package's contract: `dispatch_*` is expensive and
+cached (descriptor-keyed registry, the analogue of the reference's JIT code
+registry, src/libxsmm_main.c:2730-2969); the returned kernel is a bare
+callable over torch tensors. Module and public names match
+`libxsmm_tpu`'s, so each module's counterpart is found by name.
+
+This slice ports the dense small-GEMM main path: descriptors, registry,
+GEMM/BRGEMM dispatch, and the batched, lane-packed batched and lane-packed
+batch-reduce GEMMs, whose kernels are hand-written CUDA for sm_90a
+(kernels/csrc/gemm_kernels.cu). A kernel follows the device of its tensors:
+CUDA tensors launch the CUDA kernel, CPU tensors run its plain torch
+version. libxsmm_torch never imports jax or libxsmm_tpu.
+"""
+
+from .config import get_config, set_target, set_verbosity
+from .descriptor import (BatchReduceConfig, BatchReduceType, BinaryFlags,
+                         BinaryPostops, BinaryType, GemmDescriptor, GemmFlags,
+                         GemmShape, MeltwBinaryShape, MeltwDescriptor,
+                         MeltwTernaryShape, MeltwUnaryShape, SparsePattern,
+                         SpgemmConfig, TernaryFlags, TernaryType, UnaryArgops,
+                         UnaryFlags, UnaryType, create_gemm_batch_reduce_config,
+                         create_gemm_ext_binary_postops,
+                         create_gemm_ext_unary_argops, create_gemm_shape,
+                         create_meltw_binary_shape, create_meltw_ternary_shape,
+                         create_meltw_unary_shape)
+from .descriptor import (gemm_descriptor_init, gemm_descriptor_init_brgemm,
+                         gemm_descriptor_init_brgemm_ext,
+                         gemm_descriptor_init_gemm, meltw_descriptor_init,
+                         meltw_descriptor_init2, meqn_descriptor_init)
+from .device import (cpuid_arm, cpuid_dot_pack_factor, cpuid_id, cpuid_name,
+                     cpuid_rv64, cpuid_vlen32, cpuid_x86, default_device,
+                     get_geometry, get_target_archid, on_gpu,
+                     set_target_archid)
+from .dtypes import (Datatype, from_torch, get_typename, to_torch, typesize)
+from .matdiff import (MatdiffInfo, matdiff, matdiff_clear, matdiff_epsilon,
+                      matdiff_reduce)
+from .registry import (Kernel, KernelInfo, finalize, get_kernel_info,
+                       get_meltwkernel_info, get_mmkernel_info,
+                       get_registry, get_registry_begin, get_registry_next,
+                       init)
+from .ops.gemm import (brgemm_pack_factor, dgemm, xmmdispatch,
+                       dispatch_brgemm,
+                       dispatch_brgemm_ext, dispatch_brgemm_ext_packed,
+                       dispatch_brgemm_packed,
+                       dispatch_gemm, dispatch_gemm_batched,
+                       dispatch_gemm_batched_packed, dispatch_tilecfg_gemm,
+                       gemm, pack_batched, sgemm, smm_pack_factor,
+                       unpack_batched)
+
+__version__ = "0.1.0"
+
+
+def get_verbosity() -> int:
+    """libxsmm_get_verbosity analogue."""
+    from .config import CONFIG
+    return CONFIG.verbose
+
+
+def get_registry_info():
+    """libxsmm_get_registry_info analogue."""
+    return get_registry().get_registry_info()
+
+
+def xregister(key: bytes, value):
+    """libxsmm_xregister analogue (user key-value registry)."""
+    return get_registry().xregister(key, value)
+
+
+def xdispatch(key: bytes):
+    return get_registry().xdispatch(key)
+
+
+def xrelease(key: bytes):
+    return get_registry().xrelease(key)
+
+
+def release_kernel(kernel_or_descriptor):
+    """libxsmm_release_kernel analogue."""
+    desc = getattr(kernel_or_descriptor, "descriptor", kernel_or_descriptor)
+    get_registry().release(desc)
+
+
+def xclear():
+    """libxsmm_xclear analogue: release every user key-value entry."""
+    reg = get_registry()
+    for key, _ in list(reg.items()):
+        reg.xrelease(key)
+
+
+def cpuid():
+    """libxsmm_cpuid analogue: the detected device name (see
+    device.GpuGeometry for the per-device knobs)."""
+    return get_geometry().name
+
+
+def get_target_arch() -> str:
+    """libxsmm_get_target_arch analogue."""
+    return get_geometry().name
+
+
+def set_target_arch(target) -> None:
+    """libxsmm_set_target_arch analogue (None restores auto-detect)."""
+    set_target(target)

@@ -1,0 +1,537 @@
+"""Batched small-GEMM kernels — the wrappers around the hand-written CUDA
+kernels of csrc/gemm_kernels.cu, each with its plain torch version.
+
+The port of `libxsmm_tpu/kernels/gemm_pallas.py`. The same three kernels,
+the same support predicates and the same fused epilogues:
+
+* build_batched_gemm — (B,m,k)x(B,k,n) [+C] -> (B,m,n), f32/bf16, m <= 256,
+  n,k <= 128, no transposes; other descriptors take the torch route in
+  ops.gemm (the reference routes them to XLA).
+* build_packed_batched_gemm — the lane-packed batched SMM (the headline):
+  P = 128//n problems side by side along the last axis (ops.gemm.
+  pack_batched); f32/bf16/int8.
+* build_packed_brgemm — the lane-packed batch-reduce GEMM with the fused
+  cp epilogue and the ADD bias operand.
+
+Every builder returns a wrapper object. Calling it checks the operands'
+shape and dtype, then follows their device: on CUDA tensors it allocates the
+output with torch.empty and launches the kernel on the current stream (a
+build failure, a refused launch or a combination the kernel lacks raises —
+there is no fallback); on CPU tensors it runs `.plain`, the plain torch
+version of the same function, which is also what chip_smoke.py holds each
+kernel against on the card. `launches` counts kernel launches per kernel,
+and only those.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..descriptor import GemmDescriptor
+from ..dtypes import Datatype, to_torch
+
+# kernel launches per kernel since the last reset_launches(); the wrappers
+# add one where they launch their CUDA kernel, and nowhere else
+launches = {"batched_gemm": 0, "packed_batched_gemm": 0, "packed_brgemm": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+_TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.int32: 3}
+_EPI_CODE = {"NONE": 0, "IDENTITY": 0, "RELU": 1, "X2": 2, "TANH": 3,
+             "SIGMOID": 4, "GELU": 5}
+
+_lib = None
+
+
+def _kernels() -> ctypes.CDLL:
+    """The CUDA library, built and loaded on first use."""
+    global _lib
+    if _lib is None:
+        from . import _build
+        lib = _build.load("gemm_kernels")
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.xsmm_packed_smm.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
+        lib.xsmm_batched_gemm.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
+                                          I, P]
+        lib.xsmm_packed_brgemm.argtypes = [P, P, P, P, P, P, I, I, I, I, LL,
+                                           I, I, I, I, P]
+        for f in (lib.xsmm_packed_smm, lib.xsmm_batched_gemm,
+                  lib.xsmm_packed_brgemm):
+            f.restype = I
+        lib.xsmm_error_string.argtypes = [I]
+        lib.xsmm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _raise_on_error(err: int, what: str) -> None:
+    if err != 0:
+        msg = _kernels().xsmm_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed, error {err} ({msg})")
+
+
+def _on_cuda(*tensors) -> bool:
+    """True when the operands lie on one CUDA device, False when they lie
+    on the CPU (the plain version's device); raises on a mix."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on different devices: "
+                         f"{sorted(str(d) for d in devices)}")
+    device = devices.pop()
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cuda"
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device: torch.device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _type_code(dtype: torch.dtype, what: str) -> int:
+    code = _TYPE_CODE.get(dtype)
+    if code is None:
+        raise ValueError(f"{what}: no CUDA kernel for dtype {dtype}")
+    return code
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype=None) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name}: expected dtype {dtype}, got {t.dtype}")
+
+
+def wrap_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wraparound (the reference's
+    int32 arithmetic)."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def contract(fn, a: torch.Tensor, b: torch.Tensor,
+             comp: torch.dtype) -> torch.Tensor:
+    """fn(a, b) (a matmul or einsum) accumulated in `comp`. Integer operands
+    run through float64 (exact while |sum| < 2**53; CUDA has no integer
+    matmul) and wrap to int32."""
+    if comp.is_floating_point:
+        return fn(a.to(comp), b.to(comp))
+    return wrap_i32(fn(a.double(), b.double()).to(torch.int64))
+
+
+def add_acc(acc: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """acc + c in acc's type (int32 wraps)."""
+    if acc.is_floating_point():
+        return acc + c.to(acc.dtype)
+    return wrap_i32(acc.to(torch.int64) + c.to(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# support predicates (the reference's, libxsmm_tpu/kernels/gemm_pallas.py)
+# ---------------------------------------------------------------------------
+
+def _supported(desc: GemmDescriptor) -> bool:
+    s = desc.shape
+    if desc.trans_a or desc.trans_b:
+        return False  # the torch route handles transposes
+    # the reference has no f16 kernel (Mosaic lacks f16); F16 descriptors
+    # take the torch route, as they take XLA's there
+    if s.a_in_type not in (Datatype.F32, Datatype.BF16):
+        return False
+    if s.b_in_type != s.a_in_type:
+        return False
+    if s.out_type not in (Datatype.F32, Datatype.BF16):
+        return False
+    if s.m > 256 or s.n > 128 or s.k > 128:
+        return False
+    return True
+
+
+def packed_brgemm_supported(desc: GemmDescriptor) -> bool:
+    """Lane-packed BRGEMM needs k | 128 and f32/bf16 operands."""
+    s = desc.shape
+    if desc.trans_a or desc.trans_b:
+        return False
+    if s.a_in_type not in (Datatype.F32, Datatype.BF16):
+        return False
+    if s.b_in_type != s.a_in_type:
+        return False
+    if 128 % s.k or s.k > 128:
+        return False
+    return s.m <= 1024 and s.n <= 1024
+
+
+def packed_smm_supported(desc: GemmDescriptor) -> bool:
+    """Lane-packing needs k == n, n dividing 128, and f32/bf16/int8."""
+    s = desc.shape
+    if desc.trans_a or desc.trans_b:
+        return False
+    if s.a_in_type not in (Datatype.F32, Datatype.BF16, Datatype.I8):
+        return False
+    if s.b_in_type != s.a_in_type:
+        return False
+    if s.k != s.n or 128 % s.n or s.n > 128:
+        return False
+    return s.m <= 512
+
+
+# ---------------------------------------------------------------------------
+# fused output epilogues (the BRGEMM-ext cp_type subset that is elementwise
+# on the accumulator; csrc/gemm_kernels.cu apply_epi is the CUDA side)
+# ---------------------------------------------------------------------------
+
+def _erf_approx(x: torch.Tensor) -> torch.Tensor:
+    """erf via Abramowitz-Stegun 7.1.26 (|err| <= 1.5e-7), the reference's
+    in-kernel approximation (libxsmm_tpu/kernels/gemm_pallas.py:443)."""
+    sign = torch.where(x < 0, -torch.ones((), dtype=x.dtype, device=x.device),
+                       torch.ones((), dtype=x.dtype, device=x.device))
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return sign * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def _x2(x: torch.Tensor) -> torch.Tensor:
+    if x.is_floating_point():
+        return x * x
+    return wrap_i32(x.to(torch.int64) * x.to(torch.int64))
+
+
+_EPILOGUES = {
+    "NONE": lambda x: x,
+    "IDENTITY": lambda x: x,
+    "RELU": lambda x: torch.maximum(x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device)),
+    "X2": _x2,
+    "TANH": torch.tanh,
+    "SIGMOID": lambda x: 1.0 / (1.0 + torch.exp(-x)),
+    "GELU": lambda x: 0.5 * x * (1.0 + _erf_approx(x * 0.7071067811865476)),
+}
+
+
+# ---------------------------------------------------------------------------
+# 1. unpacked batched SMM
+# ---------------------------------------------------------------------------
+
+def batched_gemm_configs(m: int):
+    """Launch configurations (rows per block, threads per block) that
+    tune=True chooses among; the first is the default. A thread keeps eight
+    rows of one column, so 32 rows x 32 columns fill 128 threads exactly;
+    256 threads on that tile would leave half of each thread's rows
+    clamped (computed, never stored)."""
+    cands = [(min(32, m), 128), (min(64, m), 256), (min(128, m), 256)]
+    return list(dict.fromkeys(cands))
+
+
+class BatchedGemm:
+    """fn(a, b[, c]) for a:(B,m,k) b:(B,k,n) [c:(B,m,n)] -> (B,m,n)."""
+
+    def __init__(self, desc: GemmDescriptor, batch: int, config=None):
+        s = desc.shape
+        self.m, self.n, self.k = s.m, s.n, s.k
+        self.batch = batch
+        self.in_dt = to_torch(s.a_in_type)
+        self.out_dt = to_torch(s.out_type)
+        self.beta0 = desc.beta == 0
+        self.config = tuple(config) if config else batched_gemm_configs(s.m)[0]
+        self.name = desc.name() + "_batched_cuda"
+
+    def _operands(self, a, b, c):
+        _check("a", a, (self.batch, self.m, self.k), self.in_dt)
+        _check("b", b, (self.batch, self.k, self.n), self.in_dt)
+        if self.beta0:
+            return None
+        if c is None:
+            raise ValueError("beta=1 batched GEMM needs the C operand")
+        _check("c", c, (self.batch, self.m, self.n))
+        return c
+
+    def __call__(self, a, b, c=None):
+        c = self._operands(a, b, c)
+        if not _on_cuda(a, b, c):
+            return self.plain(a, b, c)
+        mt, threads = self.config
+        out = torch.empty((self.batch, self.m, self.n), dtype=self.out_dt,
+                          device=a.device)
+        a, b = a.contiguous(), b.contiguous()
+        c = None if c is None else c.to(torch.float32).contiguous()
+        lib = _kernels()
+        with torch.cuda.device(a.device):
+            err = lib.xsmm_batched_gemm(
+                _ptr(a), _ptr(b), _ptr(c), _ptr(out), self.batch, self.m,
+                self.n, self.k, _type_code(self.in_dt, self.name),
+                _type_code(self.out_dt, self.name), mt, threads,
+                _stream(a.device))
+        _raise_on_error(err, self.name)
+        launches["batched_gemm"] += 1
+        return out
+
+    def plain(self, a, b, c=None):
+        acc = torch.matmul(a.float(), b.float())
+        if c is not None:
+            acc = acc + c.float()
+        return acc.to(self.out_dt)
+
+
+def build_batched_gemm(desc: GemmDescriptor, batch: int,
+                       config=None) -> Optional[BatchedGemm]:
+    """Return fn(a, b[, c]) for a:(B,m,k) b:(B,k,n), or None if the
+    descriptor should take the torch route. `config` is a launch
+    configuration from batched_gemm_configs (default: the first)."""
+    if not _supported(desc) or batch <= 0:
+        return None
+    return BatchedGemm(desc, batch, config)
+
+
+# ---------------------------------------------------------------------------
+# 2. lane-packed BRGEMM
+# ---------------------------------------------------------------------------
+
+_BR_BK = 16     # K slice of one partial-sum step (csrc BR_BK)
+_BR_TILE = 64   # output tile edge (csrc BR_BM == BR_BN)
+
+
+class PackedBrgemm:
+    """fn(a, b[, c][, d]) with a:(br/Q, m, Q*k) packed, b:(br, k, n),
+    c/d:(m, n) -> (m, n) = epi(sum_i A_i B_i + C0 + D)."""
+
+    def __init__(self, desc: GemmDescriptor, br: int, q: int,
+                 step_groups: Optional[int], cp_type: str, with_bias: bool):
+        s = desc.shape
+        self.m, self.n, self.k = s.m, s.n, s.k
+        self.q, self.groups = q, br // q
+        self.br = br
+        self.in_dt = to_torch(s.a_in_type)
+        self.out_dt = to_torch(s.out_type)
+        self.beta0 = desc.beta == 0
+        self.cp_type = cp_type
+        self.epilogue = _EPILOGUES[cp_type]
+        self.with_bias = with_bias
+        self.step_groups = step_groups
+        self.name = (desc.name() + "_packed_brgemm"
+                     + ("" if cp_type == "NONE" else f"_{cp_type.lower()}")
+                     + ("_bias" if with_bias else ""))
+
+    def splits(self, num_sms: int):
+        """(K per block, number of blocks along K). step_groups, when
+        given, is the number of groups one block reduces; otherwise the K
+        range is cut so that about four blocks per SM are in flight."""
+        qk = self.q * self.k
+        total = self.groups * qk
+        if self.step_groups:
+            kchunk = max(1, int(self.step_groups)) * qk
+        else:
+            tiles = (-(-self.m // _BR_TILE)) * (-(-self.n // _BR_TILE))
+            want = max(1, -(-4 * num_sms // tiles))
+            kchunk = -(-total // want)
+            kchunk = -(-kchunk // _BR_BK) * _BR_BK
+        return kchunk, -(-total // kchunk)
+
+    def __call__(self, a, b, c=None, d=None):
+        m, n, k, q = self.m, self.n, self.k, self.q
+        _check("a", a, (self.groups, m, q * k), self.in_dt)
+        _check("b", b, (self.br, k, n), self.in_dt)
+        c0 = None
+        if not self.beta0:
+            if c is None:
+                raise ValueError("beta=1 packed BRGEMM needs the C operand")
+            _check("c", c, (m, n))
+            c0 = c
+        if self.with_bias:
+            if d is None:
+                raise ValueError("bias-fused packed BRGEMM needs the D "
+                                 "operand")
+            _check("d", d, (m, n))
+        else:
+            d = None
+        # legacy convenience: beta-0 callers may still pass c for an add
+        # after the kernel, in f32 before the final cast
+        late_c = c if self.beta0 else None
+        out_dt = torch.float32 if late_c is not None else self.out_dt
+        if _on_cuda(a, b, c0, d, late_c):
+            out = self._launch(a, b, c0, d, out_dt)
+        else:
+            out = self.plain(a, b, c0, d, out_dt)
+        if late_c is not None:
+            out = (out + late_c.to(torch.float32)).to(self.out_dt)
+        return out
+
+    def _launch(self, a, b, c0, d, out_dt):
+        m, n = self.m, self.n
+        props = torch.cuda.get_device_properties(a.device)
+        kchunk, splits = self.splits(props.multi_processor_count)
+        if splits > 65535:
+            raise ValueError(f"{self.name}: {splits} K splits exceed the "
+                             "grid's z limit (raise step_groups)")
+        a, b = a.contiguous(), b.contiguous()
+        c0 = None if c0 is None else c0.to(torch.float32).contiguous()
+        d = None if d is None else d.to(torch.float32).contiguous()
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+        out = torch.empty((m, n), dtype=out_dt, device=a.device)
+        lib = _kernels()
+        with torch.cuda.device(a.device):
+            err = lib.xsmm_packed_brgemm(
+                _ptr(a), _ptr(b), _ptr(ws), _ptr(c0), _ptr(d), _ptr(out),
+                self.groups, m, n, self.q * self.k, kchunk, splits,
+                _type_code(self.in_dt, self.name),
+                _type_code(out_dt, self.name), _EPI_CODE[self.cp_type],
+                _stream(a.device))
+        _raise_on_error(err, self.name)
+        launches["packed_brgemm"] += 1
+        return out
+
+    def plain(self, a, b, c0=None, d=None, out_dt=None):
+        m, n = self.m, self.n
+        qk = self.q * self.k
+        # contraction index K = g*Q*k + j pairs a[g, :, j] with row K of b
+        # viewed as (br*k, n): the whole batch-reduce is one matmul
+        a2 = a.permute(1, 0, 2).reshape(m, self.groups * qk)
+        acc = torch.matmul(a2.float(), b.reshape(self.groups * qk, n).float())
+        if c0 is not None:
+            acc = c0.float() + acc
+        if d is not None:
+            acc = acc + d.float()
+        return self.epilogue(acc).to(out_dt or self.out_dt)
+
+
+def build_packed_brgemm(desc: GemmDescriptor, br: int,
+                        step_groups: Optional[int] = None,
+                        cp_type: str = "NONE",
+                        with_bias: bool = False,
+                        pack_q: Optional[int] = None,
+                        acc_scratch: bool = False) -> Optional[PackedBrgemm]:
+    """Lane-packed batch-reduce GEMM: C = epi(sum_i A_i @ B_i + C0 + D).
+
+    fn(a, b[, c][, d]) with a: (br/Q, m, Q*k) packed (Q = pack_q or
+    128//k), b: (br, k, n), c/d: (m, n) -> (m, n). beta=1's C0 seeds the
+    sum before the epilogue; `with_bias` adds D before it.
+
+    The CUDA kernel splits the K range over blocks and adds the partial
+    sums in a fixed order (csrc/gemm_kernels.cu); `step_groups` sets the
+    groups per block. `acc_scratch` names a TPU accumulator schedule and
+    changes nothing here: the partial sums always live in registers."""
+    del acc_scratch
+    if not packed_brgemm_supported(desc) or br <= 0:
+        return None
+    if cp_type not in _EPILOGUES:
+        return None
+    q_min = 128 // desc.shape.k
+    q = int(pack_q) if pack_q else q_min
+    if q < q_min or q % q_min or br % q:
+        return None
+    return PackedBrgemm(desc, br, q, step_groups, cp_type, with_bias)
+
+
+# ---------------------------------------------------------------------------
+# 3. lane-packed batched SMM (the headline)
+# ---------------------------------------------------------------------------
+
+def packed_smm_configs(m: int):
+    """Rows per thread (a block holds 2x that many rows) that tune=True
+    chooses among; the first is the default for this m."""
+    first = 16 if m >= 32 else 8 if m >= 16 else 4
+    return [first] + [r for r in (4, 8, 16) if r != first]
+
+
+class PackedBatchedGemm:
+    """fn(a, b[, c]) with a:(G,m,P*k), b:(G,k,P*n) [c:(G,m,P*n)] ->
+    (G,m,P*n) = [epi(A_0B_0 [+C_0]) | ... | epi(A_{P-1}B_{P-1} [+...])]."""
+
+    def __init__(self, desc: GemmDescriptor, groups: int, cp_type: str,
+                 rpt: Optional[int] = None):
+        s = desc.shape
+        self.m, self.n, self.k = s.m, s.n, s.k
+        self.p = 128 // s.n
+        self.groups = groups
+        self.in_dt = to_torch(s.a_in_type)
+        self.out_dt = to_torch(s.out_type)
+        self.comp_dt = (torch.int32 if s.a_in_type == Datatype.I8
+                        else torch.float32)
+        self.beta0 = desc.beta == 0
+        self.cp_type = cp_type
+        self.epilogue = _EPILOGUES[cp_type]
+        self.rpt = int(rpt) if rpt else packed_smm_configs(s.m)[0]
+        self.name = desc.name() + "_packed_smm"
+
+    def _operands(self, a, b, c):
+        g, m, w = self.groups, self.m, self.p * self.n
+        _check("a", a, (g, m, self.p * self.k), self.in_dt)
+        _check("b", b, (g, self.k, w), self.in_dt)
+        if self.beta0:
+            return None
+        if c is None:
+            raise ValueError("beta=1 packed SMM needs the C operand")
+        _check("c", c, (g, m, w))
+        return c
+
+    def __call__(self, a, b, c=None):
+        c = self._operands(a, b, c)
+        if not _on_cuda(a, b, c):
+            return self.plain(a, b, c)
+        a, b = a.contiguous(), b.contiguous()
+        c = None if c is None else c.to(self.comp_dt).contiguous()
+        for name, t in (("a", a), ("b", b), ("c", c)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{self.name}: operand {name} is not "
+                                 "16-byte aligned")
+        out = torch.empty((self.groups, self.m, self.p * self.n),
+                          dtype=self.out_dt, device=a.device)
+        lib = _kernels()
+        with torch.cuda.device(a.device):
+            err = lib.xsmm_packed_smm(
+                _ptr(a), _ptr(b), _ptr(c), _ptr(out), self.groups, self.m,
+                self.k, _type_code(self.in_dt, self.name),
+                _type_code(self.out_dt, self.name), _EPI_CODE[self.cp_type],
+                self.rpt, _stream(a.device))
+        _raise_on_error(err, self.name)
+        launches["packed_batched_gemm"] += 1
+        return out
+
+    def plain(self, a, b, c=None):
+        g, m, n, k, p = self.groups, self.m, self.n, self.k, self.p
+        ai = a.reshape(g, m, p, k).permute(0, 2, 1, 3)     # (G, P, m, k)
+        bi = b.reshape(g, k, p, n).permute(0, 2, 1, 3)     # (G, P, k, n)
+        acc = contract(torch.matmul, ai, bi, self.comp_dt)
+        acc = acc.permute(0, 2, 1, 3).reshape(g, m, p * n)
+        if c is not None:
+            acc = add_acc(acc, c)
+        return self.epilogue(acc).to(self.out_dt)
+
+
+def build_packed_batched_gemm(desc: GemmDescriptor,
+                              groups: int,
+                              cp_type: str = "NONE",
+                              step_groups: Optional[int] = None,
+                              rpt: Optional[int] = None
+                              ) -> Optional[PackedBatchedGemm]:
+    """Lane-packed batched SMM: P = 128//n problems per lane group.
+
+    fn(a, b[, c]) with PACKED operands (see ops.gemm.pack_batched):
+      a: (G, m, P*k), b: (G, k, P*n), c: (G, m, P*n) (beta=1 only)
+    -> (G, m, P*n) = [A_0B_0 | ... | A_{P-1}B_{P-1}]
+
+    The CUDA kernel runs one block per (group, row tile) and each slot's
+    product directly on the packed layout (csrc/gemm_kernels.cu). `rpt`
+    (rows per thread, from packed_smm_configs) is its launch
+    configuration. `step_groups` names the TPU's groups per grid step and
+    changes nothing here: one block always takes one group."""
+    del step_groups
+    if not packed_smm_supported(desc) or groups <= 0:
+        return None
+    if desc.shape.a_in_type == Datatype.I8 and cp_type not in (
+            "NONE", "IDENTITY", "RELU", "X2"):
+        return None   # transcendental epilogues are float-only
+    return PackedBatchedGemm(desc, groups, cp_type, rpt)
