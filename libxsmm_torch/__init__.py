@@ -6,12 +6,18 @@ registry, src/libxsmm_main.c:2730-2969); the returned kernel is a bare
 callable over torch tensors. Module and public names match
 `libxsmm_tpu`'s, so each module's counterpart is found by name.
 
-This slice ports the dense small-GEMM main path: descriptors, registry,
-GEMM/BRGEMM dispatch, and the batched, lane-packed batched and lane-packed
-batch-reduce GEMMs, whose kernels are hand-written CUDA for sm_90a
-(kernels/csrc/gemm_kernels.cu). A kernel follows the device of its tensors:
-CUDA tensors launch the CUDA kernel, CPU tensors run its plain torch
-version. libxsmm_torch never imports jax or libxsmm_tpu.
+Ported so far:
+  * the dense small-GEMM main path: descriptors, registry, GEMM/BRGEMM
+    dispatch, and the batched, lane-packed batched and lane-packed
+    batch-reduce GEMMs (kernels/csrc/gemm_kernels.cu);
+  * the element-wise TPPs (ops/eltwise.py, dispatch_meltw*), with the
+    dropout kernel (kernels/csrc/eltwise_kernels.cu);
+  * dispatch_flash_attention with the flash-attention forward kernel
+    (kernels/csrc/attention_kernels.cu), and the TPP-Attention encoder
+    block's serving path (models/tpp_attention.py).
+The kernels are hand-written CUDA for sm_90a. A kernel follows the device of
+its tensors: CUDA tensors launch the CUDA kernel, CPU tensors run its plain
+torch version. libxsmm_torch never imports jax or libxsmm_tpu.
 """
 
 from .config import get_config, set_target, set_verbosity
@@ -48,8 +54,38 @@ from .ops.gemm import (brgemm_pack_factor, dgemm, xmmdispatch,
                        dispatch_gemm_batched_packed, dispatch_tilecfg_gemm,
                        gemm, pack_batched, sgemm, smm_pack_factor,
                        unpack_batched)
+from .ops.eltwise import (bitmask_ld, dispatch_meltw_binary,
+                          dispatch_meltw_ternary, dispatch_meltw_unary,
+                          pack_bitmask, unpack_bitmask)
+from .ops.attention import dispatch_flash_attention
 
 __version__ = "0.1.0"
+
+
+def dispatch_meltw(descriptor: MeltwDescriptor) -> Kernel:
+    """libxsmm_dispatch_meltw analogue (src/libxsmm_main.c:3449): generic
+    dispatch from a MeltwDescriptor (meltw_descriptor_init/2), routing on
+    the descriptor's operation arity like the reference routes on
+    descriptor->operation."""
+    d = descriptor
+    if d.operation == "unary":
+        return dispatch_meltw_unary(
+            d.op_type, d.m, d.n, d.flags, d.in_type, d.out_type,
+            d.comp_type, d.extra)
+    if d.operation == "binary":
+        shape = MeltwBinaryShape(
+            d.m, d.n, in0_type=d.in_type,
+            in1_type=d.in1_type if d.in1_type is not None else d.in_type,
+            out_type=d.out_type, comp_type=d.comp_type)
+        return dispatch_meltw_binary(d.op_type, shape, int(d.flags))
+    if d.operation == "ternary":
+        shape = MeltwTernaryShape(
+            d.m, d.n, in0_type=d.in_type,
+            in1_type=d.in1_type if d.in1_type is not None else d.in_type,
+            in2_type=d.in2_type if d.in2_type is not None else d.in_type,
+            out_type=d.out_type, comp_type=d.comp_type)
+        return dispatch_meltw_ternary(d.op_type, shape, int(d.flags))
+    raise ValueError(f"unknown meltw operation {d.operation!r}")
 
 
 def get_verbosity() -> int:

@@ -8,8 +8,9 @@ headers, so nvcc compiles it in seconds:
 
 The build happens at first use, into `kernels/build/` (listed in
 .gitignore), one nvcc process per source, all started together. The
-library name carries a hash of its source, so an edited source is rebuilt
-and a stale library is never loaded. Libraries are loaded with ctypes;
+library name carries a hash of its source and of the shared headers
+(`csrc/*.cuh`), so an edited source is rebuilt and a stale library is never
+loaded. Libraries are loaded with ctypes;
 kernels/gemm.py declares the argument types. A failed build raises: there
 is no fallback to the plain torch versions for CUDA tensors.
 """
@@ -50,7 +51,11 @@ def _nvcc() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha1(src.read_bytes() + ARCH.encode()).hexdigest()[:12]
+    """The library built from `src`, named by a hash of the source, the
+    shared headers (csrc/*.cuh) and the target."""
+    data = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))) + ARCH.encode()
+    digest = hashlib.sha1(data).hexdigest()[:12]
     return BUILD / f"{src.stem}-{digest}.so"
 
 

@@ -72,9 +72,11 @@ def _kernels() -> ctypes.CDLL:
     return _lib
 
 
-def _raise_on_error(err: int, what: str) -> None:
+def _raise_on_error(err: int, what: str, lib=None) -> None:
+    """Raise when a launch returned a CUDA error; `lib` (default: this
+    module's library) names the error."""
     if err != 0:
-        msg = _kernels().xsmm_error_string(err).decode()
+        msg = (lib or _kernels()).xsmm_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed, error {err} ({msg})")
 
 
