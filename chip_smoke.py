@@ -42,12 +42,32 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
      and the LSE output; f32 at (4, 1024, 64) and hd=256 at (2, 256, 256);
    - dispatch_meltw_unary(DROPOUT, BITMASK_2BYTEMULT) at the FFN shape
      4096 x 3072 in bf16, f32 and f16;
-   then fails unless both kernels were launched, and times every phase;
-6. holds each kernel against its plain version once more at its main-path
+   then fails unless both kernels were launched and no backward kernel
+   was, and times every phase;
+6. drives the block's training path the same way, with every count set to
+   0 just before:
+   - three train_steps at BERT-base width, bf16, flash, dropout_p=0.1,
+     batch 8 x seq 512, seeds 7, 8, 9 (lr 0.1), each launching the flash
+     forward, dropout and both flash-backward kernels: finite loss and
+     update, the same seed giving the same update, and the served loss on
+     the batch lower after the steps than before;
+   - one unseeded loss_and_grads at the same width, and in f32 causal at
+     batch 2, held against the gradients of a float64 torch composition of
+     the same block;
+   - build_flash_attention_bwd at bench.py's serving shape (plain, causal,
+     dropout, bias per head with bias_grad, broadcast bias) and in f32 at
+     (4, 1024, 64) and hd=256 at (2, 256, 256), each against its plain
+     version;
+   - TPP-MLP splitSGD steps at MlpConfig()'s widths: the loss falls;
+   then fails unless all four kernels were launched, times every phase,
+   splits one train step into forward, backward and update, and traces
+   three steps with torch.profiler (device busy share, kernel time by
+   name);
+7. holds each kernel against its plain version once more at its main-path
    shape, and times kernel, plain version and one library call computing
    the same function (a yardstick the port never calls), and each launch
    configuration the kernel chooses among;
-7. prints one JSON line with the per-kernel numbers and, last, the result
+8. prints one JSON line with the per-kernel numbers and, last, the result
    line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
@@ -57,6 +77,7 @@ device it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -76,6 +97,17 @@ TOL_BF16_OUT = 1e-2   # bf16 out: flash rounds its probabilities to bf16
 TOL_BLOCK_BF16 = 2e-2  # bf16 encoder block against its float64 composition:
                        # activations rounded to bf16 between the stages
 TOL_BLOCK_F32 = 1e-5   # f32 encoder block against its float64 composition
+TOL_BWD_F32 = 1e-4     # f32 flash backward against its plain version:
+                       # dS = p * (dP - delta) cancels, so the order of the
+                       # products' sums shows more than in the forward
+TOL_GRAD_BF16 = 5e-2   # bf16 block gradients against float64: activations
+                       # and dS rounded to bf16 on the way back too
+TOL_GRAD_F32 = 1e-4    # f32 block gradients against float64
+
+SERVE_KERNELS = ("flash_attention_fwd", "dropout")
+BWD_KERNELS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+TRAIN_KERNELS = SERVE_KERNELS + BWD_KERNELS
+TRAIN_LR = 0.1         # visible in bf16 weights after three steps
 
 
 def _smi() -> str:
@@ -119,6 +151,19 @@ def _count(name):
     raise KeyError(name)
 
 
+def _counted(phases, name, kernels, fn, *fargs):
+    """Run one phase of a counted path: fn(*fargs), then fail unless each
+    of `kernels` was launched in it; the phase is kept for timing."""
+    before = {k: _count(k) for k in kernels}
+    out = fn(*fargs)
+    torch.cuda.synchronize()
+    for k in kernels:
+        if _count(k) <= before[k]:
+            raise AssertionError(f"{name}: {k} was not launched")
+    phases.append((name, fn, fargs))
+    return out
+
+
 def encoder_path(randn, dev):
     """The TPP-Attention encoder block's serving path, driven through the
     public entry points with the flash-attention and dropout launch counts
@@ -135,16 +180,7 @@ def encoder_path(randn, dev):
 
     bf16, f32 = torch.bfloat16, torch.float32
     phases = []
-
-    def run(name, kernels, fn, *fargs):
-        before = {k: _count(k) for k in kernels}
-        out = fn(*fargs)
-        torch.cuda.synchronize()
-        for k in kernels:
-            if _count(k) <= before[k]:
-                raise AssertionError(f"{name}: {k} was not launched")
-        phases.append((name, fn, fargs))
-        return out
+    run = functools.partial(_counted, phases)
 
     def block64(block, x):
         """The same block as a float64 torch composition (flash=False)."""
@@ -262,10 +298,14 @@ def encoder_path(randn, dev):
     counts = {**KA.launches, **KE.launches}
     print(f"encoder path: {len(phases)} phases in "
           f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}")
-    missing = [k for k, c in counts.items() if c == 0]
+    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the encoder path: "
                              f"{missing}")
+    trained = [k for k in counts if k not in SERVE_KERNELS and counts[k]]
+    if trained:
+        raise AssertionError(f"the serving path launched {trained}")
+    counts = {k: counts[k] for k in SERVE_KERNELS}
     # the block's attention shape: 8 x 12 heads, s=512, hd=64
     block_ops = (randn(96, 512, 64, dtype=bf16), randn(96, 64, 512, dtype=bf16),
                  randn(96, 512, 64, dtype=bf16))
@@ -273,6 +313,230 @@ def encoder_path(randn, dev):
             "flash_operands": (q, kT, v), "block_operands": block_ops,
             "dropout_operand": randn(m, n, dtype=bf16),
             "block": (block, x)}
+
+
+def training_path(randn, dev):
+    """The TPP-Attention block's training path, driven through the public
+    entry points with every launch count set to 0 just before and read just
+    after: three seeded BERT-base train steps, block gradients against
+    float64, the backward kernels alone at bench.py's serving shape, and
+    TPP-MLP splitSGD steps. Returns the phases (to time), the counts, and
+    the operands the per-kernel rows reuse."""
+    import dataclasses
+
+    from libxsmm_torch.kernels import attention as KA
+    from libxsmm_torch.kernels import eltwise as KE
+    from libxsmm_torch.models import tpp_attention as TA
+    from libxsmm_torch.models import tpp_mlp as TM
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    phases = []
+    run = functools.partial(_counted, phases)
+
+    def finite(name, tensors):
+        for k, v in tensors.items():
+            if not bool(torch.isfinite(v.float()).all()):
+                raise AssertionError(f"{name}: non-finite {k}")
+
+    def grads64(params, x, y, cfg):
+        """The gradients of the same block as a float64 torch composition
+        (flash=False)."""
+        cfg64 = dataclasses.replace(cfg, dtype="float64", flash=False)
+        p64 = {k: v.double() for k, v in params.items()}
+        return TA.loss_and_grads(p64, x.double(), y.double(), cfg64)
+
+    def hold(name, want, got, tol):
+        worst = max(_check(f"{name} {k}", want[k], got[k], tol,
+                           tuple(want[k].shape)) for k in want)
+        print(f"  {name}: worst gradient normf_rel vs float64 {worst:.3e}")
+
+    KA.reset_launches()
+    KE.reset_launches()
+    t_path = time.perf_counter()
+    # BERT-base widths (Devlin et al. 2018, BERT_BASE), bf16, flash, dropout
+    # 0.1 on the probabilities and the FFN; batch 8 x seq 512
+    cfg = TA.AttentionConfig(dim=768, heads=12, ffn_mult=4, dtype="bfloat16",
+                             flash=True, dropout_p=0.1)
+    params = TA.init_params(cfg, seed=0, device=dev)
+    x, y = randn(8, 512, 768, dtype=bf16), randn(8, 512, 768, dtype=bf16)
+    with torch.inference_mode():
+        served0 = TA.loss_fn(params, x, y, cfg).item()
+    p = params
+    for sd in (7, 8, 9):
+        new, loss = run(f"train step bert-base bf16 8x512 seed {sd}",
+                        TRAIN_KERNELS, TA.train_step, p, x, y, cfg, TRAIN_LR,
+                        sd)
+        finite(f"train step seed {sd}", {"loss": loss, **new})
+        if sd == 7:
+            again, loss_again = TA.train_step(p, x, y, cfg, TRAIN_LR, 7)
+            if not (torch.equal(loss, loss_again) and all(
+                    torch.equal(new[k], again[k]) for k in new)):
+                raise AssertionError("train step: the same seed gave "
+                                     "another update")
+        print(f"  train step seed {sd}: loss {loss.item():.6f}")
+        p = new
+    with torch.inference_mode():
+        served1 = TA.loss_fn(p, x, y, cfg).item()
+    print(f"  served loss before the steps {served0:.6f}, after "
+          f"{served1:.6f}")
+    if not served1 < served0:
+        raise AssertionError("training did not lower the served loss")
+
+    # one unseeded gradient of the same block against float64, bf16 at batch
+    # 8 and f32 causal at batch 2
+    _, g = run("loss_and_grads bert-base bf16 8x512",
+               ("flash_attention_fwd",) + BWD_KERNELS, TA.loss_and_grads,
+               params, x, y, cfg)
+    finite("bf16 gradients", g)
+    hold("block bf16 gradients", grads64(params, x, y, cfg)[1], g,
+         TOL_GRAD_BF16)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", causal=True)
+    params32 = TA.init_params(cfg32, seed=1, device=dev)
+    x32, y32 = randn(2, 512, 768), randn(2, 512, 768)
+    _, g32 = run("loss_and_grads bert-base f32 causal 2x512",
+                 ("flash_attention_fwd",) + BWD_KERNELS, TA.loss_and_grads,
+                 params32, x32, y32, cfg32)
+    hold("block f32 causal gradients", grads64(params32, x32, y32, cfg32)[1],
+         g32, TOL_GRAD_F32)
+
+    # the backward kernels alone at bench.py's serving shape (bench.py:568),
+    # then f32 at (4, 1024, 64) and hd=256; lse from the LSE forward, delta
+    # = rowsum(dout * out) as the autograd node computes it
+    def bwd_operands(bh, s, hd, dt, kw, bias):
+        q, v = randn(bh, s, hd, dtype=dt), randn(bh, s, hd, dtype=dt)
+        kT, dout = randn(bh, hd, s, dtype=dt), randn(bh, s, hd, dtype=dt)
+        fwd = KA.build_flash_attention(bh, s, hd, dt, return_lse=True,
+                                       **{k: v_ for k, v_ in kw.items()
+                                          if k != "bias_grad"})
+        out, lse = fwd(5, q, kT, v, bias)
+        delta = (dout.float() * out.float()).sum(-1, keepdim=True).expand(
+            bh, s, 128)
+        return (5, q, kT, v, dout, lse, delta, bias)
+
+    bh, s, hd = 16, 2048, 128
+    cases = [("plain", {}, None), ("causal", {"causal": True}, None),
+             ("dropout", {"dropout_p": 0.1}, None),
+             ("bias per head + grad", {"bias_bh": bh, "bias_grad": True},
+              randn(bh, s, s, scale=0.5)),
+             ("bias broadcast", {"bias_bh": 1}, randn(1, s, s, scale=0.5))]
+    bench_ops = None
+    for name, kw, bias in cases:
+        args = bwd_operands(bh, s, hd, bf16, kw, bias)
+        fn = KA.build_flash_attention_bwd(bh, s, hd, bf16, **kw)
+        got = run(f"flash bwd {name} bf16 {bh}x{s}x{hd}", BWD_KERNELS,
+                  fn, *args)
+        _check(f"flash bwd {name} vs plain", fn.plain(*args), got,
+               TOL_BF16_OUT)
+        bench_ops = bench_ops or args
+    for fbh, fs, fhd in ((4, 1024, 64), (2, 256, 256)):
+        for causal in (False, True):
+            kw = {"causal": causal, "dropout_p": 0.1}
+            args = bwd_operands(fbh, fs, fhd, f32, kw, None)
+            fn = KA.build_flash_attention_bwd(fbh, fs, fhd, f32, **kw)
+            got = run(f"flash bwd f32 {fbh}x{fs}x{fhd} causal={causal}",
+                      BWD_KERNELS, fn, *args)
+            _check(f"flash bwd f32 {fbh}x{fs}x{fhd} vs plain",
+                   fn.plain(*args), got, TOL_BWD_F32)
+
+    # TPP-MLP at MlpConfig()'s widths (256 -> 512 -> 512 -> 128): splitSGD
+    # steps, bf16 forward and backward on the hi halves; no kernel of its own
+    mcfg = TM.MlpConfig()
+    sp = TM.split_params(TM.init_params(mcfg, seed=0, device=dev))
+    mx, my = randn(512, 256), randn(512, 128, scale=0.1)
+    losses = []
+    for _ in range(10):
+        sp, mloss = TM.split_sgd_train_step(sp, mx, my, mcfg, lr=5e-2)
+        losses.append(mloss.item())
+    print(f"  tpp_mlp splitSGD: loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+          f"in 10 steps")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("tpp_mlp splitSGD did not lower the loss")
+
+    torch.cuda.synchronize()
+    counts = {**KA.launches, **KE.launches}
+    print(f"training path: {len(phases)} phases in "
+          f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}")
+    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the training path: "
+                             f"{missing}")
+    return {"phases": phases, "counts": counts, "bwd_operands": bench_ops,
+            "step": (params, x, y, cfg)}
+
+
+def step_breakdown(params, x, y, cfg, reps=5):
+    """One seeded train step at the path's shape, split into the forward
+    (loss with its graph), the backward (autograd) and the SGD update:
+    host clock around each part, closed by a device sync; mean of `reps`
+    after one warm-up."""
+    from libxsmm_torch.models import tpp_attention as TA
+
+    names = list(params)
+    parts = {"forward": 0.0, "backward": 0.0, "update": 0.0}
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = {n: params[n].detach().requires_grad_(True) for n in names}
+        loss = TA.loss_fn(leaves, x, y, cfg, seed=7)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        TA.sgd_update(params, dict(zip(names, grads)), TRAIN_LR)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i:
+            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k] += dt * 1e3 / reps
+    total = sum(parts.values())
+    print(f"  train step bf16 8x512 (ms per step, mean of {reps}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f"; total {total:.4f}")
+    return parts
+
+
+def step_trace(params, x, y, cfg, steps=3):
+    """Device time of seeded train steps by kernel, from torch.profiler's
+    CUDA kernel events, beside the steps' wall time (host clock, closed by
+    a device sync) with and without the profiler: the device's busy share
+    is read against the wall time without it, since the profiler's own
+    host cost idles the device. Prints "not measured" when the profiler
+    records no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from libxsmm_torch.models import tpp_attention as TA
+
+    def run_steps():
+        t0 = time.perf_counter()
+        for i in range(steps):
+            TA.train_step(params, x, y, cfg, TRAIN_LR, 7 + i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    run_steps()
+    wall = run_steps()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof = run_steps()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / steps)
+    busy = sum(by_name.values())
+    walls = (f"wall {wall:.4f} ms per step ({wall_prof:.4f} under the "
+             "profiler)")
+    if not busy:
+        print(f"  train step trace: {walls}; device time not measured "
+              "(the profiler recorded no kernel)")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"  train step trace: {walls}, device busy {busy:.4f} ms "
+          f"({100 * busy / wall:.1f}% of the wall, idle "
+          f"{100 * (1 - busy / wall):.1f}%), {len(by_name)} kernel names; "
+          "top: " + "; ".join(f"{n[:60]} {v:.4f}" for n, v in top))
 
 
 def block_breakdown(block, x, block_ops, ms):
@@ -539,7 +803,15 @@ def main() -> int:
     counts.update(enc["counts"])
     block_breakdown(*enc["block"], enc["block_operands"], ms)
 
-    # 6. each kernel against its plain version, and timed
+    # 6. the encoder block's training path, counted on its own
+    tr = training_path(randn, dev)
+    for name, fn, fargs in tr["phases"]:
+        print(f"  phase {name}: {ms(fn, *fargs):.4f} ms per call")
+    counts.update({k: tr["counts"][k] for k in BWD_KERNELS})
+    step_breakdown(*tr["step"])
+    step_trace(*tr["step"])
+
+    # 7. each kernel against its plain version, and timed
     rows = []
 
     def record(name, source, replaces, fn, fargs, ref_tol, nbytes, flops,
@@ -612,6 +884,37 @@ def main() -> int:
            geo.peak_bf16_tflops,
            ms(lambda t: torch.nn.functional.dropout(t, 0.1, True), dx))
 
+    # the flash backward at the same shape, one kernel per row: dK/dV runs
+    # four (s, s, hd) products, dQ three (the reference's CostEstimate
+    # counts 6 and 4 * bh * s^2 * hd); q, kT, v, dout and one column each of
+    # lse and delta read once, the kernel's outputs written once. The
+    # yardstick is the backward of PyTorch's fused attention on the same
+    # q, k, v and dout, which computes dq, dk and dv together: it stands
+    # beside both rows.
+    def sdpa_bwd_ms(q_, kT_, v_, dout_, causal=False):
+        """ms of the backward of PyTorch's fused attention alone."""
+        leaves = tuple(t_.detach().requires_grad_(True)
+                       for t_ in sdpa_operands(q_, kT_, v_))
+        out_ = sdpa(*leaves, causal)
+        return ms(lambda o, d: torch.autograd.grad(o, leaves, d,
+                                                   retain_graph=True),
+                  out_, dout_[None])
+
+    bargs = tr["bwd_operands"]
+    bwd = KA.build_flash_attention_bwd(fbh, fs, fhd, torch.bfloat16)
+    lib_bwd = sdpa_bwd_ms(*bargs[1:5])
+    ops_in = 4 * fbh * fs * fhd * 2 + 2 * fbh * fs * 4
+    for name, part, plain, nout, nmm in (
+            ("flash_attention_bwd_dkv", bwd.dkv, bwd.dkv_plain, 2, 8),
+            ("flash_attention_bwd_dq", bwd.dq, bwd.dq_plain, 1, 6)):
+        fn_ = functools.partial(part)
+        fn_.plain = plain
+        record(name, "attention_bwd_kernels.cu",
+               "attention_pallas.py:387" if nmm == 8
+               else "attention_pallas.py:485", fn_, bargs, TOL_BF16_OUT,
+               ops_in + nout * fbh * fs * fhd * 2,
+               nmm * fbh * fs * fs * fhd, geo.peak_bf16_tflops, lib_bwd)
+
     # the tile configurations of the flash kernel, at the bench shape and at
     # the encoder block's (bh=96, s=512, hd=64), with the yardstick beside
     bq, bkT, bv = enc["block_operands"]
@@ -627,6 +930,29 @@ def main() -> int:
                       f"tile={cfg_}: {ms(fn_, 0, q_, kT_, v_):.4f} ms")
             print(f"  sdpa {name} causal={causal}: "
                   f"{ms(sdpa, *sdpa_operands(q_, kT_, v_), causal):.4f} ms")
+
+    # the tile configurations of the backward kernels, at the bench shape
+    # and at the encoder block's, with PyTorch's fused backward beside
+    for name, (q_, kT_, v_) in (("bench", (fq, fkT, fv)),
+                                ("block", (bq, bkT, bv))):
+        bh_, s_, hd_ = q_.shape
+        dout_ = randn(bh_, s_, hd_, dtype=q_.dtype)
+        for causal in (False, True):
+            o_, lse_ = KA.build_flash_attention(
+                bh_, s_, hd_, q_.dtype, causal=causal,
+                return_lse=True)(0, q_, kT_, v_)
+            delta_ = (dout_.float() * o_.float()).sum(-1, keepdim=True) \
+                .expand(bh_, s_, 128)
+            bargs_ = (0, q_, kT_, v_, dout_, lse_, delta_)
+            for cfg_ in KA.bwd_configs(hd_):
+                fn_ = KA.build_flash_attention_bwd(bh_, s_, hd_, q_.dtype,
+                                                   causal=causal,
+                                                   block_override=cfg_)
+                print(f"  flash bwd {name} {tuple(q_.shape)} causal={causal}"
+                      f" tile={cfg_}: dkv {ms(fn_.dkv, *bargs_):.4f} ms, dq "
+                      f"{ms(fn_.dq, *bargs_):.4f} ms")
+            print(f"  sdpa backward {name} causal={causal}: "
+                  f"{sdpa_bwd_ms(q_, kT_, v_, dout_, causal):.4f} ms")
 
     # the launch configurations tune=True chooses among, at the headline
     for cfg_ in K.batched_gemm_configs(m):

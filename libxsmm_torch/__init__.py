@@ -13,8 +13,11 @@ Ported so far:
   * the element-wise TPPs (ops/eltwise.py, dispatch_meltw*), with the
     dropout kernel (kernels/csrc/eltwise_kernels.cu);
   * dispatch_flash_attention with the flash-attention forward kernel
-    (kernels/csrc/attention_kernels.cu), and the TPP-Attention encoder
-    block's serving path (models/tpp_attention.py).
+    (kernels/csrc/attention_kernels.cu) and its two backward kernels
+    (kernels/csrc/attention_bwd_kernels.cu), behind torch autograd;
+  * the TPP-Attention encoder block, served and trained
+    (models/tpp_attention.py), and the TPP-MLP with SGD and splitSGD
+    (models/tpp_mlp.py).
 The kernels are hand-written CUDA for sm_90a. A kernel follows the device of
 its tensors: CUDA tensors launch the CUDA kernel, CPU tensors run its plain
 torch version. libxsmm_torch never imports jax or libxsmm_tpu.

@@ -52,26 +52,6 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int NT = 256;       // threads per block: a 16 x 16 grid
 constexpr int QS = BQ + 4;    // row stride of Q^T and P^T in shared memory
 
-// v rounded to T and widened back: the reference's e_use.astype(dtype)
-__device__ __forceinline__ float round_as(float v, const float*) { return v; }
-__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-template <int N> struct VecF;
-template <> struct VecF<2> {
-  static __device__ __forceinline__ void load(const float* p, float* d) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    d[0] = v.x; d[1] = v.y;
-  }
-};
-template <> struct VecF<4> {
-  static __device__ __forceinline__ void load(const float* p, float* d) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-  }
-};
-
 template <typename T, int HDP, int BK>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ kT,

@@ -1,7 +1,7 @@
 """TPP-Attention: a transformer encoder block built from library primitives.
 
-The port of `libxsmm_tpu/models/tpp_attention.py`, serving path: the TPP
-paper's flagship composition (arXiv:2104.05755) — QKV projections,
+The port of `libxsmm_tpu/models/tpp_attention.py`, serving and training:
+the TPP paper's flagship composition (arXiv:2104.05755) — QKV projections,
 score/context products, softmax, bias+GELU, layernorm, dropout.
 
   * The plain products (QKV, output projection, FFN, and the non-flash
@@ -12,8 +12,12 @@ score/context products, softmax, bias+GELU, layernorm, dropout.
   * Softmax and layernorm are written as their equation trees
     (equation_softmax.c, equation_layernorm.c), with statistics in f32.
   * flash=True runs the attention core through dispatch_flash_attention,
-    the hand-written CUDA flash kernel on CUDA tensors; dropout runs the
-    hand-written CUDA dropout kernel (kernels/eltwise.py).
+    the hand-written CUDA flash kernel on CUDA tensors, and its gradient
+    through the two flash-backward kernels; dropout runs the hand-written
+    CUDA dropout kernel (kernels/eltwise.py), and its backward replays the
+    saved mask.
+  * train_step is the reference's jax.value_and_grad + SGD: torch autograd
+    over the parameter dict, then p - lr * g in the parameter dtype.
 
 Parameters are a dict of tensors with the reference's names and layouts
 (head-major fused QKV columns, (heads, 3, head_dim)); `EncoderBlock` wraps
@@ -21,8 +25,7 @@ them as an nn.Module. Seeds keep the reference's offsets: `seed` for the
 attention-probability dropout, `seed + 1` for the FFN dropout, `seed + 2`
 for the flash kernel's dropout.
 
-Not ported yet: train_step (the training slice, with the flash backward,
-ROADMAP.md queue 2, item 8) and the sharded step (ROADMAP.md queue 1,
+Not ported yet: shard_params and the sharded step (ROADMAP.md queue 1,
 item 13).
 """
 
@@ -218,6 +221,36 @@ def forward(params, x, cfg: AttentionConfig, seed=None):
 def loss_fn(params, x, y, cfg: AttentionConfig, seed=None):
     pred = forward(params, x, cfg, seed=seed)
     return torch.mean((pred.float() - y.float()) ** 2)
+
+
+def loss_and_grads(params, x, y, cfg: AttentionConfig, seed=None):
+    """(loss, grads): loss_fn and its gradient over the parameter dict, as
+    jax.value_and_grad(loss_fn) gives them; grads share the params' names
+    and dtypes. The params themselves are left untouched."""
+    leaves = {n: params[n].detach().requires_grad_(True)
+              for n in _PARAM_NAMES}
+    with torch.enable_grad():
+        loss = loss_fn(leaves, x, y, cfg, seed=seed)
+        grads = torch.autograd.grad(loss, [leaves[n] for n in _PARAM_NAMES])
+    return loss.detach(), dict(zip(_PARAM_NAMES, grads))
+
+
+def sgd_update(params, grads, lr: float):
+    """p - lr * g for every parameter, in the parameter dtype (the
+    reference's jax.tree.map over the pair)."""
+    with torch.no_grad():
+        return {n: (p - lr * grads[n]).to(p.dtype) for n, p in params.items()}
+
+
+def train_step(params, x, y, cfg: AttentionConfig, lr: float = 1e-3,
+               seed=None):
+    """One SGD step: returns (new_params, loss). With cfg.dropout_p > 0 a
+    seed is required: without one the step would silently train without
+    dropout (seed=None is the serving path)."""
+    if cfg.dropout_p > 0.0 and seed is None:
+        raise ValueError("cfg.dropout_p > 0 requires a seed in train_step")
+    loss, grads = loss_and_grads(params, x, y, cfg, seed)
+    return sgd_update(params, grads, lr), loss
 
 
 class EncoderBlock(torch.nn.Module):

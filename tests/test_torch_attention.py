@@ -256,13 +256,19 @@ def test_block_override_picks_a_cuda_tile():
 
 
 def test_backward_not_ported_yet():
+    """The flash backward is ported now: the autograd node's backward runs
+    the backward kernels' plain versions on CPU tensors and gives the
+    gradient of the float64 torch composition (1e-4: f32 against f64)."""
     pk = xp.dispatch_flash_attention(2, 128, 32)
     _, (q, kT, v) = operands(1, 2, 128, 32, F32)
     q.requires_grad_(True)
     out = pk(q, kT, v)
     assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
-        out.sum().backward()
+    out.sum().backward()
+    q64 = q.detach().double().requires_grad_(True)
+    po._naive(q64, kT.double(), v.double(), 32 ** -0.5, False).sum() \
+        .backward()
+    check(q64.grad, q.grad.double(), margin=1e-4)
 
 
 def test_cpu_never_counts_a_launch():
