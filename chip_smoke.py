@@ -63,11 +63,21 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    splits one train step into forward, backward and update, and traces
    three steps with torch.profiler (device busy share, kernel time by
    name);
-7. holds each kernel against its plain version once more at its main-path
+7. drives the block-sparse (BCSC) path the same way, with the four sparse
+   kernels' counts set to 0 just before: create_packed_spgemm_bcsc with
+   every strategy name and "auto" (which times every lowering on the card)
+   at bench.py's cases, uncut: bcsc20 and bcsc05 (m = k = n = 1024, 32 x
+   32 blocks at density 0.2 and 0.05, bf16 -> f32), bcsc_cluster (m = 1024,
+   k = 2048, n = 1024, bf16 -> bf16, the two-family pattern); a streaming
+   case (m = 32768 rows of A through the bcsc20 and bcsc05 patterns) and an
+   f32 case (m = 4096); each result against the float64 dense product;
+   prints the auto picks, the clustering decision and both union depths;
+   fails unless all four kernels were launched, then times every phase;
+8. holds each kernel against its plain version once more at its main-path
    shape, and times kernel, plain version and one library call computing
    the same function (a yardstick the port never calls), and each launch
    configuration the kernel chooses among;
-8. prints one JSON line with the per-kernel numbers and, last, the result
+9. prints one JSON line with the per-kernel numbers and, last, the result
    line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
@@ -104,10 +114,18 @@ TOL_GRAD_BF16 = 5e-2   # bf16 block gradients against float64: activations
                        # and dS rounded to bf16 on the way back too
 TOL_GRAD_F32 = 1e-4    # f32 block gradients against float64
 
+TOL_SPARSE_F32 = 1e-5  # f32 BCSC SpMM against the float64 dense product
+TOL_SPARSE_BF16 = 1e-4  # bf16 in, f32 out: products exact, order differs
+
 SERVE_KERNELS = ("flash_attention_fwd", "dropout")
 BWD_KERNELS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 TRAIN_KERNELS = SERVE_KERNELS + BWD_KERNELS
 TRAIN_LR = 0.1         # visible in bf16 weights after three steps
+SPARSE_KERNELS = ("bcsc_spmm", "bcsc_spmm_union", "bcsc_densify",
+                  "bcsc_spmm_super")
+# the kernel each BCSC strategy launches ("sparse" is torch ops alone)
+SPARSE_KERNEL_OF = {"pallas": "bcsc_spmm", "super": "bcsc_spmm_super",
+                    "dense": "bcsc_densify", "sparse": None}
 
 
 def _smi() -> str:
@@ -144,8 +162,9 @@ def _max_abs(ref, out):
 
 def _count(name):
     """The launch count of the kernel called `name`."""
-    from libxsmm_torch.kernels import attention, eltwise, gemm
-    for launches in (gemm.launches, attention.launches, eltwise.launches):
+    from libxsmm_torch.kernels import attention, eltwise, gemm, spmm
+    for launches in (gemm.launches, attention.launches, eltwise.launches,
+                     spmm.launches):
         if name in launches:
             return launches[name]
     raise KeyError(name)
@@ -462,6 +481,185 @@ def training_path(randn, dev):
                              f"{missing}")
     return {"phases": phases, "counts": counts, "bwd_operands": bench_ops,
             "step": (params, x, y, cfg)}
+
+
+def _bcsc_pattern(rng, k, n, bk, bn, density):
+    """bench.py's BCSC pattern (make_bcsc_cases, bench.py:694-697): a
+    standard-normal (k, n) whose (bk, bn) blocks are kept at `density`."""
+    import numpy as np
+
+    from libxsmm_torch.ops.sparse import BcscMatrix
+    bmat = rng.standard_normal((k, n)).astype(np.float32)
+    keep = rng.random((k // bk, n // bn)) < density
+    bmat *= np.kron(keep, np.ones((bk, bn), np.float32))
+    return BcscMatrix.from_dense(bmat, bk, bn)
+
+
+def _cluster_pattern(rng, k, n, bk, bn):
+    """bench.py's two-family pattern (make_bcsc_cluster_cases,
+    bench.py:756-767): even block columns draw from block rows [0, kb/2-2),
+    odd ones from [kb/2, kb-2), 64% of the family each."""
+    import numpy as np
+    kb, nb = k // bk, n // bn
+    fam_a, fam_b = np.arange(0, kb // 2 - 2), np.arange(kb // 2, kb - 2)
+    cols = []
+    for j in range(nb):
+        fam = fam_a if j % 2 == 0 else fam_b
+        take = min(int(0.64 * len(fam)) + (j % 2), len(fam))
+        cols.append(np.sort(rng.choice(fam, take, replace=False)))
+    indptr = np.concatenate(
+        [[0], np.cumsum([len(c) for c in cols])]).astype(np.int32)
+    return indptr, np.concatenate(cols).astype(np.int32)
+
+
+def sparse_path(randn, dev):
+    """The block-sparse (BCSC) path, driven through
+    create_packed_spgemm_bcsc with the four sparse kernels' launch counts
+    set to 0 just before and read just after: every strategy name and
+    "auto" at bench.py's bcsc20, bcsc05 and bcsc_cluster cases, a streaming
+    case and an f32 case, each against the float64 dense product. Returns
+    the phases (to time), the counts, and the streaming operands the
+    per-kernel rows reuse."""
+    import numpy as np
+
+    import libxsmm_torch as xt
+    from libxsmm_torch.descriptor import GemmFlags, GemmShape, SpgemmConfig
+    from libxsmm_torch.dtypes import Datatype
+    from libxsmm_torch.kernels import spmm as KS
+    from libxsmm_torch.ops.sparse import STRATEGIES
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    BF16, F32 = Datatype.BF16, Datatype.F32
+    phases = []
+    run = functools.partial(_counted, phases)
+
+    def on_dev(x, dt):
+        return torch.as_tensor(x, device=dev).to(dt)
+
+    def drive(case, shape, cfg, indptr, indices, a, v, tol):
+        """Every strategy name and auto on one case, each against the
+        float64 product with the densified B (plain version: no launch)."""
+        dense_b = KS.build_bcsc_densify(shape, cfg, indptr, indices,
+                                        dev).plain(v)
+        want = a.double() @ dense_b.double()
+        worst, pick = 0.0, None
+        for s in STRATEGIES + ("auto",):
+            kern = xt.create_packed_spgemm_bcsc(
+                shape, GemmFlags.BETA_0, cfg, indptr, indices, strategy=s)
+            tail = kern.name.split("_")[3]
+            got = "super" if tail.startswith("super") else tail
+            kernel = SPARSE_KERNEL_OF.get(got, "bcsc_spmm_union")
+            out = run(f"bcsc {case} {s}", [kernel] if kernel else [], kern,
+                      a, v)
+            worst = max(worst, _check(f"bcsc {case} {s} vs float64", want,
+                                      out, tol, (shape.m, shape.n)))
+            if s == "auto":
+                pick = kern.name
+        print(f"  bcsc {case} ({shape.m}x{shape.n}x{shape.k}, "
+              f"{len(indices)} blocks of {cfg.bk}x{cfg.bn}): "
+              f"{len(STRATEGIES) + 1} strategies, worst normf_rel vs "
+              f"float64 {worst:.3e}; auto -> {pick}")
+
+    KS.reset_launches()
+    t_path = time.perf_counter()
+    # bench.py's bcsc20 and bcsc05 (bench.py:691-707), uncut: m = k = n =
+    # 1024, 32 x 32 blocks, bf16 in, f32 out, pattern from default_rng(2)
+    bk = bn = 32
+    cfg = SpgemmConfig(1, bk, bn)
+    m = k = n = 1024
+    pats = {}
+    for case, density in (("bcsc20", 0.2), ("bcsc05", 0.05)):
+        rng = np.random.default_rng(2)
+        bcsc = _bcsc_pattern(rng, k, n, bk, bn, density)
+        v = on_dev(bcsc.data, bf16)
+        a0 = on_dev(rng.standard_normal((m, k)), bf16)
+        drive(case, GemmShape(m, n, k, BF16, BF16, F32), cfg, bcsc.indptr,
+              bcsc.indices, a0, v, TOL_SPARSE_BF16)
+        pats[density] = (bcsc, v)
+
+    # bench.py's bcsc_cluster (bench.py:748-770): k = 2048, bf16 out
+    rng = np.random.default_rng(7)
+    ck = 2048
+    indptr, indices = _cluster_pattern(rng, ck, n, bk, bn)
+    cshape = GemmShape(m, n, ck, BF16, BF16, BF16)
+    cv = on_dev(rng.standard_normal((len(indices), bk, bn)), bf16)
+    ca = on_dev(rng.standard_normal((m, ck)), bf16)
+    plans = {cl: KS.build_bcsc_spmm_union(cshape, cfg, indptr, indices, dev,
+                                          cluster=cl) for cl in (True, False)}
+    print(f"  bcsc_cluster: clustered {plans[True].clustered}; union depth "
+          f"{plans[True].union_panels} panels with clustering, "
+          f"{plans[False].union_panels} without")
+    drive("bcsc_cluster", cshape, cfg, indptr, indices, ca, cv, TOL_BF16_OUT)
+
+    # streaming: 32768 rows of A (64 MiB bf16; C 128 MiB f32) through the
+    # bcsc20 and bcsc05 patterns
+    ms_rows = 32768
+    a_stream = randn(ms_rows, k, dtype=bf16)
+    sshape = GemmShape(ms_rows, n, k, BF16, BF16, F32)
+    for density in (0.2, 0.05):
+        bcsc, v = pats[density]
+        drive(f"stream{round(density * 100):02d}", sshape, cfg, bcsc.indptr,
+              bcsc.indices, a_stream, v, TOL_SPARSE_BF16)
+
+    # f32 in and out at m = 4096 on the bcsc20 pattern
+    bcsc, _ = pats[0.2]
+    drive("f32", GemmShape(4096, n, k), cfg, bcsc.indptr, bcsc.indices,
+          randn(4096, k), on_dev(bcsc.data, f32), TOL_SPARSE_F32)
+
+    torch.cuda.synchronize()
+    counts = dict(KS.launches)
+    print(f"sparse path: {len(phases)} phases in "
+          f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}")
+    missing = [k_ for k_ in SPARSE_KERNELS if counts[k_] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the sparse path: "
+                             f"{missing}")
+    bcsc, v = pats[0.2]
+    return {"phases": phases, "counts": counts,
+            "stream": (sshape, cfg, bcsc, a_stream, v)}
+
+
+def sparse_rows(record, stream, ms, geo):
+    """The four sparse kernels at the streaming case, each against its
+    plain version. Bound: A, the kernel's value operand and C each moved
+    once, and the useful products 2 * nblocks * bk * bn * m at the bf16
+    tensor cores' peak. Yardstick for the SpMM kernels: torch.mm on the
+    densified B with an f32 output; for densify: PyTorch's BSC tensor
+    to_dense."""
+    from libxsmm_torch.kernels import spmm as KS
+    from libxsmm_torch.ops.sparse import assemble_supertiles, supertile_plan
+
+    shape, cfg, bcsc, a, v = stream
+    dev = a.device
+    m, n, k = shape.m, shape.n, shape.k
+    indptr, indices = bcsc.indptr, bcsc.indices
+    useful = 2 * bcsc.nblocks * cfg.bk * cfg.bn * m
+    io = 2 * m * k + 4 * m * n               # A bf16 in, C f32 out
+    densify = KS.build_bcsc_densify(shape, cfg, indptr, indices, dev)
+    dense_b = densify.plain(v)
+    lib_mm = ms(lambda x, y: torch.mm(x, y, out_dtype=torch.float32), a,
+                dense_b)
+    src = "spmm_kernels.cu"
+    peak = geo.peak_bf16_tflops
+    record("bcsc_spmm", src, "spmm_pallas.py:88",
+           KS.build_bcsc_spmm(shape, cfg, indptr, indices, dev), (a, v),
+           TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak, lib_mm)
+    record("bcsc_spmm_union", src, "spmm_pallas.py:258",
+           KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev),
+           (a, v), TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak, lib_mm)
+    s_indptr, s_indices, sgmap = supertile_plan(shape, cfg, indptr, indices)
+    sup = assemble_supertiles(v, torch.as_tensor(sgmap, device=dev),
+                              torch.bfloat16)
+    record("bcsc_spmm_super", src, "spmm_pallas.py:942",
+           KS.build_bcsc_spmm_super(shape, s_indptr, s_indices, dev),
+           (a, sup), TOL_SPARSE_BF16, io + 2 * sup.numel(), useful, peak,
+           lib_mm)
+    ccol = torch.as_tensor(indptr.astype("int64"), device=dev)
+    rows = torch.as_tensor(indices.astype("int64"), device=dev)
+    record("bcsc_densify", src, "spmm_pallas.py:800", densify, (v,),
+           TOL_EXACT, 2 * v.numel() + 2 * k * n, 0, peak,
+           ms(lambda vv: torch.sparse_bsc_tensor(ccol, rows, vv,
+                                                 (k, n)).to_dense(), v))
 
 
 def step_breakdown(params, x, y, cfg, reps=5):
@@ -811,7 +1009,13 @@ def main() -> int:
     step_breakdown(*tr["step"])
     step_trace(*tr["step"])
 
-    # 7. each kernel against its plain version, and timed
+    # 7. the block-sparse path, counted on its own
+    sp = sparse_path(randn, dev)
+    for name, fn, fargs in sp["phases"]:
+        print(f"  phase {name}: {ms(fn, *fargs):.4f} ms per call")
+    counts.update(sp["counts"])
+
+    # 8. each kernel against its plain version, and timed
     rows = []
 
     def record(name, source, replaces, fn, fargs, ref_tol, nbytes, flops,
@@ -914,6 +1118,8 @@ def main() -> int:
                else "attention_pallas.py:485", fn_, bargs, TOL_BF16_OUT,
                ops_in + nout * fbh * fs * fhd * 2,
                nmm * fbh * fs * fs * fhd, geo.peak_bf16_tflops, lib_bwd)
+
+    sparse_rows(record, sp["stream"], ms, geo)
 
     # the tile configurations of the flash kernel, at the bench shape and at
     # the encoder block's (bh=96, s=512, hd=64), with the yardstick beside

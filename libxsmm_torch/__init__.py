@@ -17,7 +17,11 @@ Ported so far:
     (kernels/csrc/attention_bwd_kernels.cu), behind torch autograd;
   * the TPP-Attention encoder block, served and trained
     (models/tpp_attention.py), and the TPP-MLP with SGD and splitSGD
-    (models/tpp_mlp.py).
+    (models/tpp_mlp.py);
+  * the host sparse containers and the block-sparse packed SpGEMM,
+    create_packed_spgemm_bcsc with every strategy (ops/sparse.py), with the
+    scheduled, k-union, supertile and densify kernels
+    (kernels/csrc/spmm_kernels.cu).
 The kernels are hand-written CUDA for sm_90a. A kernel follows the device of
 its tensors: CUDA tensors launch the CUDA kernel, CPU tensors run its plain
 torch version. libxsmm_torch never imports jax or libxsmm_tpu.
@@ -61,6 +65,9 @@ from .ops.eltwise import (bitmask_ld, dispatch_meltw_binary,
                           dispatch_meltw_ternary, dispatch_meltw_unary,
                           pack_bitmask, unpack_bitmask)
 from .ops.attention import dispatch_flash_attention
+from .ops.sparse import (BcscMatrix, BsrMatrix, CscMatrix, CsrMatrix,
+                         create_packed_spgemm_bcsc,
+                         create_tilecfg_packed_spgemm_bcsc)
 
 __version__ = "0.1.0"
 
