@@ -73,12 +73,30 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    f32 case (m = 4096); each result against the float64 dense product;
    prints the auto picks, the clustering decision and both union depths;
    fails unless all four kernels were launched, then times every phase;
-8. holds each kernel against its plain version once more at its main-path
+8. drives the fused GEMM-ext path the same way, with every count set to 0
+   just before: the stochastic-round kernel alone at the BERT-base FFN
+   shape (4096 x 3072 f32) into bf16, f16, bf8 and hf8, bit for bit against
+   its plain version and each output one of x's two neighbours;
+   dispatch_brgemm_ext at the FFN1 product (m 4096, n 3072, k 768 as
+   STRIDE br 12 x k 64) f32 -> bf16 with the SR store and a bias (within
+   one bf16 ulp of float64), and bf16 -> f32 with RELU + bias + bitmask;
+   meltw STOCHASTIC_ROUND and quant.stochastic_convert_fp32_bf16/_bf8 at
+   the same shape; meltw QUANT/DEQUANT with MXFP4X2, NVFP4X2 and MXBF8
+   (bytes equal to the same call on CPU copies); the 24 packed, 47 ext and
+   4 ext_packed classes of samples/xgemm.py against float64; TPP-CNN's
+   conv2d_kernel with fused bias + relu at samples/cnn.py's layer (32 x 56
+   x 56 x 64 -> 64, 3x3, stride 1) in f32 and bf16 against float64, and
+   three SGD steps of the model at those widths (1000 classes); fails
+   unless the SR kernel was launched, then times every phase, the tap
+   stack's share of a conv, cuDNN's conv (a yardstick), a forward and a
+   step;
+9. holds each kernel against its plain version once more at its main-path
    shape, and times kernel, plain version and one library call computing
-   the same function (a yardstick the port never calls), and each launch
-   configuration the kernel chooses among;
-9. prints one JSON line with the per-kernel numbers and, last, the result
-   line {"ok": true, "device": {...}}.
+   the same function (a yardstick the port never calls; none exists for
+   stochastic rounding, whose row carries the RNE cast's time instead), and
+   each launch configuration the kernel chooses among;
+10. prints one JSON line with the per-kernel numbers and, last, the result
+    line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
 device it exits 2 and prints no result.
@@ -116,6 +134,21 @@ TOL_GRAD_F32 = 1e-4    # f32 block gradients against float64
 
 TOL_SPARSE_F32 = 1e-5  # f32 BCSC SpMM against the float64 dense product
 TOL_SPARSE_BF16 = 1e-4  # bf16 in, f32 out: products exact, order differs
+
+TOL_SR_BF16 = 2.0 ** -7  # the SR store against float64: within one bf16 ulp
+TOL_CONV_F32 = 1e-5    # f32 conv against float64 (samples/cnn.py:52)
+TOL_CONV_BF16 = 5e-3   # bf16 conv: exact products, the output rounded once
+EXT_KERNELS = ("stochastic_round",)
+# stochastic-rounding targets: (Datatype name, mantissa bits, least normal
+# exponent)
+SR_TARGETS = (("BF16", 7, -126), ("F16", 10, -14), ("BF8", 2, -14),
+              ("HF8", 3, -6))
+CNN_LR = 0.1           # the loss visibly lower after three SGD steps
+# the GEMM-ext path's shapes: the BERT-base FFN (8 x 512 tokens, FFN 3072;
+# Devlin et al. 2018) as m x n, FFN1's k 768 as br 12 x k 64; samples/
+# cnn.py's default layer (N, H, W, C, K, R)
+EXT_SHAPES = {"ffn": (8 * 512, 3072), "br_k": (12, 64),
+              "cnn": (32, 56, 56, 64, 64, 3)}
 
 SERVE_KERNELS = ("flash_attention_fwd", "dropout")
 BWD_KERNELS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
@@ -619,6 +652,258 @@ def sparse_path(randn, dev):
             "stream": (sshape, cfg, bcsc, a_stream, v)}
 
 
+def _bytes_equal(name, want, got):
+    """Bit-exact comparison of two tensors of any type (f8 included)."""
+    if want.dtype != got.dtype or want.shape != got.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} != "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.equal(want.view(torch.uint8), got.view(torch.uint8)):
+        raise AssertionError(f"{name}: the bytes differ")
+
+
+def _sr_neighbours(name, x, y, mant, emin):
+    """Each output is one of x's two neighbours in the target: representable
+    (held by the bit-exact check against the plain version) and less than
+    one target ulp away from x."""
+    x64, y64 = x.double(), y.double()
+    e = torch.floor(torch.log2(x64.abs().clamp_min(2.0 ** -200)))
+    ulp = torch.exp2(torch.clamp_min(e, emin) - mant)
+    if not bool(((y64 - x64).abs() < ulp).all()):
+        raise AssertionError(f"{name}: an output is not a neighbour of x")
+
+
+def gemm_ext_path(randn, dev):
+    """The fused GEMM-ext path with stochastic rounding, driven through the
+    public entry points with every launch count set to 0 just before and
+    read just after: the stochastic-round kernel alone at the BERT-base FFN
+    shape into every target; dispatch_brgemm_ext at the FFN1 product with
+    the SR store and a bias, and with RELU + bias + bitmask; the other SR
+    entry points; meltw QUANT/DEQUANT with the MX types; the packed, ext
+    and ext_packed classes of samples/xgemm.py; TPP-CNN's conv2d_kernel at
+    samples/cnn.py's layer and three SGD steps of the model. Returns the
+    phases (to time), the counts, and the operands the per-kernel row and
+    the CNN timings reuse."""
+    import numpy as np
+
+    import libxsmm_torch as xt
+    from libxsmm_torch import quant as Q
+    from libxsmm_torch import xgemm as X
+    from libxsmm_torch.descriptor import (BatchReduceConfig, BatchReduceType,
+                                          BinaryPostops, BinaryType,
+                                          GemmFlags, GemmShape, UnaryArgops,
+                                          UnaryFlags, UnaryType)
+    from libxsmm_torch.dtypes import Datatype
+    from libxsmm_torch.kernels import attention as KA
+    from libxsmm_torch.kernels import eltwise as KE
+    from libxsmm_torch.kernels import gemm as K
+    from libxsmm_torch.kernels import spmm as KS
+    from libxsmm_torch.models import tpp_cnn as TC
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    phases = []
+    run = functools.partial(_counted, phases)
+    for mod in (K, KA, KE, KS):
+        mod.reset_launches()
+    t_path = time.perf_counter()
+
+    # the stochastic-round kernel alone at the BERT-base FFN shape, f32 in
+    m, n = EXT_SHAPES["ffn"]
+    x = randn(m, n)
+    for tname, mant, emin in SR_TARGETS:
+        dt = Datatype[tname]
+        y = run(f"sr f32->{tname.lower()} {m}x{n}", EXT_KERNELS,
+                KE.stochastic_round, x, 7, dt)
+        _bytes_equal(f"sr {tname} vs plain", KE.stochastic_round.plain(
+            x, 7, dt), y)
+        _sr_neighbours(f"sr {tname}", x, y, mant, emin)
+
+    # dispatch_brgemm_ext at the BERT-base FFN1 product: m 4096, n 3072,
+    # k 768 as STRIDE br 12 x k 64
+    br, kk = EXT_SHAPES["br_k"]
+    cfg = BatchReduceConfig(BatchReduceType.STRIDE, br)
+    a32, b32 = randn(br, m, kk), randn(br, kk, n, scale=0.125)
+    bias = randn(1, n)
+    acc64 = torch.einsum("bmk,bkn->mn", a32.double(), b32.double()) \
+        + bias.double()
+    sr_kern = xt.dispatch_brgemm_ext(
+        GemmShape(m, n, kk, out_type=Datatype.BF16), GemmFlags.BETA_0, cfg,
+        argops=UnaryArgops(cp_type=UnaryType.STOCHASTIC_ROUND),
+        postops=BinaryPostops(d_type=BinaryType.ADD))
+    out = run(f"brgemm_ext f32->bf16 sr+bias {m}x{n}x{br * kk}", EXT_KERNELS,
+              lambda a, b, d: sr_kern(a, b, d, seed=11), a32, b32, bias)
+    e_sr = _check("brgemm_ext sr vs float64", acc64, out, TOL_SR_BF16,
+                  (m, n))
+    ulp = torch.exp2(torch.floor(torch.log2(acc64.abs().clamp_min(1e-30)))
+                     - 7)
+    # plus 1e-5 of the largest magnitude: the f32 accumulator's rounding
+    if not bool(((out.double() - acc64).abs()
+                 <= ulp + 1e-5 * acc64.abs().max()).all()):
+        raise AssertionError("brgemm_ext sr: an output is more than one "
+                             "bf16 ulp from the float64 accumulator")
+    ab, bb = a32.to(bf16), b32.to(bf16)
+    relu_kern = xt.dispatch_brgemm_ext(
+        GemmShape(m, n, kk, a_in_type=Datatype.BF16, b_in_type=Datatype.BF16,
+                  out_type=Datatype.F32), GemmFlags.BETA_0, cfg,
+        argops=UnaryArgops(cp_type=UnaryType.RELU,
+                           cp_flags=UnaryFlags.BITMASK_2BYTEMULT),
+        postops=BinaryPostops(d_type=BinaryType.ADD))
+    out_r, extra = run(f"brgemm_ext bf16->f32 relu+bias+mask {m}x{n}"
+                       f"x{br * kk}", [], relu_kern, ab, bb, bias)
+    acc_b = torch.einsum("bmk,bkn->mn", ab.double(), bb.double()) \
+        + bias.double()
+    e_relu = _check("brgemm_ext relu vs float64", acc_b.clamp_min(0.0),
+                    out_r, TOL_BF16_IN, (m, n))
+    if not torch.equal(xt.unpack_bitmask(extra["cp_bitmask"], m, n),
+                       out_r > 0):
+        raise AssertionError("brgemm_ext relu: the bitmask is not acc > 0")
+    print(f"  brgemm_ext FFN1: sr+bias normf_rel vs float64 {e_sr:.3e}, "
+          f"relu+bias {e_relu:.3e}")
+
+    # the other SR entry points at the same shape
+    sr_meltw = xt.dispatch_meltw_unary(UnaryType.STOCHASTIC_ROUND, m, n,
+                                       out_type=Datatype.BF16)
+    for name, fn, dt in (
+            ("meltw stochastic_round bf16", lambda t: sr_meltw(t, 7),
+             Datatype.BF16),
+            ("stochastic_convert_fp32_bf16",
+             lambda t: Q.stochastic_convert_fp32_bf16(t, 7), Datatype.BF16),
+            ("stochastic_convert_fp32_bf8",
+             lambda t: Q.stochastic_convert_fp32_bf8(t, 7), Datatype.BF8)):
+        got = run(f"{name} {m}x{n}", EXT_KERNELS, fn, x)
+        _bytes_equal(f"{name} vs plain", KE.stochastic_round.plain(
+            x, 7, dt), got)
+
+    # meltw QUANT/DEQUANT with the MX types: the bytes of the same call on
+    # CPU copies
+    xq, xq_cpu = x * 4.0, (x * 4.0).cpu()
+    for tname in ("MXFP4X2", "NVFP4X2", "MXBF8"):
+        dt = Datatype[tname]
+        qk = xt.dispatch_meltw_unary(UnaryType.QUANT, m, n, out_type=dt)
+        dk = xt.dispatch_meltw_unary(UnaryType.DEQUANT, m, n, in_type=dt)
+        payload, scales = run(f"meltw quant {tname.lower()} {m}x{n}", [],
+                              qk, xq)
+        deq = run(f"meltw dequant {tname.lower()} {m}x{n}", [], dk, payload,
+                  scales)
+        p_cpu, s_cpu = qk(xq_cpu)
+        _bytes_equal(f"quant {tname} payload vs cpu", p_cpu, payload.cpu())
+        _bytes_equal(f"quant {tname} scales vs cpu", s_cpu, scales.cpu())
+        _bytes_equal(f"dequant {tname} vs cpu", dk(p_cpu, s_cpu), deq.cpu())
+
+    # the packed (24), ext (47) and ext_packed (4) classes of
+    # samples/xgemm.py at its shapes and margins, against float64
+    worst, nclass = {}, 0
+    for i, cls in enumerate(X.build_class_list()):
+        if cls["kind"] not in ("packed", "ext", "ext_packed"):
+            continue
+        ok, label, err = X.run_class(cls, np.random.default_rng(i), dev)
+        if not ok:
+            raise AssertionError(f"xgemm class {i} failed: {label} "
+                                 f"normf_rel {err}")
+        worst[cls["kind"]] = max(worst.get(cls["kind"], 0.0), err)
+        nclass += 1
+    torch.cuda.synchronize()
+    print(f"  xgemm: {nclass} packed/ext/ext_packed classes passed on the "
+          f"card; worst normf_rel " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # TPP-CNN: conv2d_kernel at samples/cnn.py's default layer (N=32,
+    # 56x56x64 -> 64, 3x3, stride 1: a ResNet-50 conv2_x 3x3 layer, He et
+    # al. 2016) with fused bias + relu, f32 and bf16, against float64
+    cn, ch, cw, cc, ck, cr = EXT_SHAPES["cnn"]
+    xc = randn(cn, ch, cw, cc)
+    wc = randn(cr, cr, cc, ck, scale=(cr * cr * cc) ** -0.5)
+    bc = randn(ck)
+    convs = {}
+    for dt, tol in ((f32, TOL_CONV_F32), (bf16, TOL_CONV_BF16)):
+        fn = TC.conv2d_kernel(tuple(xc.shape), tuple(wc.shape), 1,
+                              fused_bias=True, relu=True, dtype=dt)
+        xd, wd, bd = xc.to(dt), wc.to(dt), bc.to(dt)
+        got = run(f"conv2d_kernel {str(dt)[6:]} {cn}x{ch}x{cw}x{cc}->{ck}",
+                  [], fn, xd, wd, bd)
+        want = TC.conv2d_tpp(xd.double(), wd.double(), bd.double(), 1,
+                             "relu")
+        if dt == f32:
+            err = float((got.double() - want).abs().max()
+                        / want.abs().max())
+            if not err < tol:
+                raise AssertionError(f"conv2d_kernel f32: {err} vs float64")
+        else:
+            err = _check("conv2d_kernel bf16 vs float64", want, got, tol,
+                         tuple(want.shape))
+        print(f"  conv2d_kernel {dt}: error vs float64 {err:.3e}")
+        convs[dt] = (fn, (xd, wd, bd))
+
+    # the model at that layer's widths: two 3x3 convs (stride 1, 2), 1000
+    # classes, batch 32; three SGD steps lower the loss on the batch
+    ccfg = TC.CnnConfig(height=ch, width=cw, channels=cc,
+                        filters=((cr, ck), (cr, ck)), strides=(1, 2),
+                        classes=1000)
+    cparams = TC.init_params(ccfg, seed=0, device=dev)
+    labels = torch.randint(0, 1000, (cn,), device=dev)
+    logits = run(f"tpp_cnn forward {cn}x{ch}x{cw}x{cc}", [], TC.forward,
+                 cparams, xc, ccfg)
+    if tuple(logits.shape) != (cn, 1000) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("tpp_cnn forward: bad logits")
+    p, losses = cparams, []
+    for _ in range(3):
+        p, loss = TC.train_step(p, xc, labels, ccfg, lr=CNN_LR)
+        losses.append(loss.item())
+    with torch.inference_mode():
+        after = TC.loss_fn(p, xc, labels, ccfg).item()
+    print(f"  tpp_cnn: loss {losses[0]:.6f} -> {after:.6f} after three SGD "
+          f"steps (lr {CNN_LR})")
+    if not after < losses[0]:
+        raise AssertionError("tpp_cnn: three SGD steps did not lower the "
+                             "loss")
+
+    torch.cuda.synchronize()
+    counts = {k: KE.launches[k] for k in EXT_KERNELS}
+    launched = {k: v for mod in (K, KA, KS) for k, v in mod.launches.items()
+                if v}
+    launched.update({k: v for k, v in KE.launches.items()
+                     if v and k not in EXT_KERNELS})
+    print(f"gemm-ext path: {len(phases)} phases in "
+          f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}; "
+          f"other kernels {launched}")
+    missing = [k for k in EXT_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the gemm-ext path: "
+                             f"{missing}")
+    return {"phases": phases, "counts": counts, "sr_operand": x,
+            "convs": convs, "cnn": (cparams, xc, labels, ccfg)}
+
+
+def cnn_breakdown(convs, cnn, ms):
+    """Where the conv's time goes: the 9x tap stack alone beside the whole
+    conv2d_kernel call, a forward and a train step, and cuDNN's
+    convolution (no TF32) with bias and relu on the same values as the
+    yardstick (the port never calls it)."""
+    from libxsmm_torch.models import tpp_cnn as TC
+
+    for dt, (fn, (x, w, b)) in convs.items():
+        t_conv = ms(fn, x, w, b)
+        r = w.shape[0]
+        t_taps = ms(TC._tap_stack, x, r, r, 1)
+        stack_mb = r * r * x.shape[0] * (x.shape[1] - r + 1) \
+            * (x.shape[2] - r + 1) * x.shape[3] * x.element_size() / 1e6
+        xn = x.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        wn = w.permute(3, 2, 0, 1).contiguous()
+        t_cudnn = ms(lambda a, k, c: torch.relu(
+            torch.nn.functional.conv2d(a, k, c)), xn, wn, b)
+        print(f"  conv {dt}: conv2d_kernel {t_conv:.4f} ms, of it the tap "
+              f"stack alone {t_taps:.4f} ms ({stack_mb:.1f} MB, "
+              f"{100 * t_taps / t_conv:.1f}%); cudnn conv2d+bias+relu "
+              f"{t_cudnn:.4f} ms")
+    params, x, labels, cfg = cnn
+    t_fwd = ms(TC.forward, params, x, cfg)
+    t_step = ms(lambda p, xx, yy: TC.train_step(p, xx, yy, cfg, CNN_LR),
+                params, x, labels)
+    print(f"  tpp_cnn {'x'.join(map(str, x.shape))}: forward {t_fwd:.4f} ms,"
+          f" train step {t_step:.4f} ms")
+
+
 def sparse_rows(record, stream, ms, geo):
     """The four sparse kernels at the streaming case, each against its
     plain version. Bound: A, the kernel's value operand and C each moved
@@ -1015,11 +1300,18 @@ def main() -> int:
         print(f"  phase {name}: {ms(fn, *fargs):.4f} ms per call")
     counts.update(sp["counts"])
 
-    # 8. each kernel against its plain version, and timed
+    # 8. the fused GEMM-ext path with stochastic rounding, counted on its own
+    ext = gemm_ext_path(randn, dev)
+    for name, fn, fargs in ext["phases"]:
+        print(f"  phase {name}: {ms(fn, *fargs):.4f} ms per call")
+    counts.update(ext["counts"])
+    cnn_breakdown(ext["convs"], ext["cnn"], ms)
+
+    # 9. each kernel against its plain version, and timed
     rows = []
 
     def record(name, source, replaces, fn, fargs, ref_tol, nbytes, flops,
-               peak, lib):
+               peak, lib, **more):
         got, want = fn(*fargs), fn.plain(*fargs)
         torch.cuda.synchronize()
         _check(f"{name} kernel vs plain", want, got, ref_tol)
@@ -1032,7 +1324,7 @@ def main() -> int:
             "ms": ms(fn, *fargs), "plain_ms": ms(fn.plain, *fargs),
             "bound_ms": geo.bound_ms(nbytes, flops, peak),
             "bound_by": geo.bound_by(nbytes, flops, peak),
-            "library_ms": lib,
+            "library_ms": lib, **more,
         })
 
     gemm_src = "gemm_kernels.cu"
@@ -1121,6 +1413,19 @@ def main() -> int:
 
     sparse_rows(record, sp["stream"], ms, geo)
 
+    # stochastic rounding at the FFN shape, f32 -> bf16: x read once, out
+    # written once. No PyTorch call computes stochastic rounding
+    # (library_ms null); the RNE cast x.to(bf16) moves the same bytes and is
+    # printed beside it as "rne_cast_ms"
+    sx = ext["sr_operand"]
+    record("stochastic_round", "eltwise_kernels.cu", "eltwise_pallas.py:50",
+           KE.stochastic_round, (sx, 7, Datatype.BF16), TOL_EXACT,
+           sx.numel() * (4 + 2), 0, geo.peak_bf16_tflops, None,
+           rne_cast_ms=ms(lambda t: t.to(torch.bfloat16), sx))
+    for tname in ("F16", "BF8", "HF8"):
+        print(f"  stochastic_round f32->{tname.lower()} {tuple(sx.shape)}: "
+              f"{ms(KE.stochastic_round, sx, 7, Datatype[tname]):.4f} ms")
+
     # the tile configurations of the flash kernel, at the bench shape and at
     # the encoder block's (bh=96, s=512, hd=64), with the yardstick beside
     bq, bkT, bv = enc["block_operands"]
@@ -1170,9 +1475,13 @@ def main() -> int:
               " ms")
 
     for r in rows:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        cast = (f"; rne cast {r['rne_cast_ms']:.4f} ms"
+                if "rne_cast_ms" in r else "")
         print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "
-              f"{r['library_ms']:.4f} ms); max_abs_err {r['max_abs_err']:.3e}"
+              f"{lib}{cast}); max_abs_err {r['max_abs_err']:.3e}"
               f"; {r['launches']} main-path launches")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

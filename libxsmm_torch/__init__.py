@@ -21,7 +21,12 @@ Ported so far:
   * the host sparse containers and the block-sparse packed SpGEMM,
     create_packed_spgemm_bcsc with every strategy (ops/sparse.py), with the
     scheduled, k-union, supertile and densify kernels
-    (kernels/csrc/spmm_kernels.cu).
+    (kernels/csrc/spmm_kernels.cu);
+  * the fused GEMM-ext (dispatch_brgemm_ext, ops/gemm.py), the quant, MX
+    and sub-byte operands (quant.py, the MX/sub-byte GEMM decoders), the
+    rng module, and stochastic rounding with its kernel
+    (kernels/csrc/eltwise_kernels.cu);
+  * the TPP-CNN model (models/tpp_cnn.py), its conv as the BRGEMM-ext.
 The kernels are hand-written CUDA for sm_90a. A kernel follows the device of
 its tensors: CUDA tensors launch the CUDA kernel, CPU tensors run its plain
 torch version. libxsmm_torch never imports jax or libxsmm_tpu.
@@ -53,6 +58,27 @@ from .registry import (Kernel, KernelInfo, finalize, get_kernel_info,
                        get_meltwkernel_info, get_mmkernel_info,
                        get_registry, get_registry_begin, get_registry_next,
                        init)
+from .rng import (RngState, create_extstate as rng_create_extstate,
+                  destroy_extstate as rng_destroy_extstate,
+                  f32_seq as rng_f32_seq,
+                  get_extstate_size as rng_get_extstate_size,
+                  lsfr_i32, rand_u32 as rng_u32, rand_u64 as rng_u64,
+                  rng_f64, rng_seq, set_seed as rng_set_seed)
+from .quant import (convert_bf16_f32, convert_bf16_fp32, convert_bf8_f32,
+                    convert_bf8_fp32, convert_bf16_to_f32, convert_bf8_to_f32,
+                    convert_f16_to_f32, convert_hf8_to_f32,
+                    convert_f16_to_hf8_rne, convert_f32_to_bf16_rnaz,
+                    convert_f32_to_bf16_rne, convert_f32_to_bf16_truncate,
+                    convert_f32_to_bf8_rne, convert_f32_to_bf8_stochastic,
+                    convert_f32_to_f16, convert_f32_to_hf8_rne,
+                    convert_f16_f32, convert_f16_fp32,
+                    convert_fp32_f16, convert_hf8_f32, convert_hf8_fp32,
+                    dequantize_i16, quantize_i16, rnaz_convert_fp32_bf16,
+                    rne_convert_f16_hf8, rne_convert_fp32_bf16,
+                    rne_convert_fp32_bf8, rne_convert_fp32_f16,
+                    rne_convert_fp32_hf8, stochastic_convert_fp32_bf16,
+                    stochastic_convert_fp32_bf8, truncate_convert_f32_bf16,
+                    truncate_convert_fp32_bf16)
 from .ops.gemm import (brgemm_pack_factor, dgemm, xmmdispatch,
                        dispatch_brgemm,
                        dispatch_brgemm_ext, dispatch_brgemm_ext_packed,

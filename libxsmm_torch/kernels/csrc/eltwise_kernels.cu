@@ -1,6 +1,8 @@
-// Hand-written Hopper (sm_90a) dropout kernel for libxsmm_torch. Replaces
-// the Pallas TPU kernel _dropout_tpu (libxsmm_tpu/kernels/eltwise_pallas.py:
-// 103).
+// Hand-written Hopper (sm_90a) element-wise kernels for libxsmm_torch:
+// dropout, which replaces the Pallas TPU kernel _dropout_tpu
+// (libxsmm_tpu/kernels/eltwise_pallas.py:103), and stochastic rounding,
+// which replaces _sr_tpu (eltwise_pallas.py:50); the second is described
+// above its kernel below.
 //
 // Plain C interface, no torch headers (see kernels/_build.py); the wrapper in
 // kernels/eltwise.py allocates the outputs, and the entry point launches on
@@ -30,6 +32,7 @@
 // 16-byte store of out and one 4- or 8-byte store of the mask; a ragged tail,
 // or an x that is not 16-byte aligned, takes the element-wise path.
 
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include "xsmm_common.cuh"
@@ -109,6 +112,177 @@ static int launch_dropout(const void* x, void* out, void* mask, long long n,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Stochastic rounding (replaces _sr_tpu, eltwise_pallas.py:50)
+//
+// The TPU kernel seeds the core's PRNG and calls the hardware's exact
+// stochastic round. Here, for every element i of x (f32, bf16 or f16,
+// widened to f32):
+//   r    = rand_bits(seed, 0, i mod 2^32, i div 2^32)  (dropout's hash)
+//   |x| is rounded onto the target (bf16, f16, e5m2 or e4m3fn) by adding
+//   the bits of r below the target's ulp to |x|'s f32 bits and cutting them
+//   off: the upper neighbour is taken with probability (|x| - lower) / ulp.
+//   Above the target's least normal exponent the ulp is 2^-M of x's binade
+//   (M mantissa bits): add r's low 23-M bits, mask them off (a carry moves
+//   into the next binade). Below it (the target's subnormals) the ulp is
+//   fixed at 2^(emin - M): the 24-bit significand is shifted right by
+//   d = 23 - M + (emin_b - e) bits with d bits of r added first (past 32
+//   bits, the significand's lowest bits are cut before the add).
+//   NaN stays NaN (the target's quiet NaN with x's sign); an f8 value past
+//   the largest finite takes the round-to-nearest-even cast (e5m2: 57344
+//   below 61440, Inf from there; e4m3fn: 448 up to 464, NaN above).
+// For bf16 this is the reference's add-16-random-bits-and-truncate
+// (eltwise_pallas.py:41-47). The plain torch version in kernels/eltwise.py
+// runs the same integer arithmetic on the same bits, so the two agree bit
+// for bit.
+//
+// Bound: device memory. At the FFN shape (4096 x 3072 f32 -> bf16) the pass
+// reads 50.3 MB and writes 25.2 MB: 0.0225 ms at 3.35 TB/s (0.0188 ms with
+// an f8 output); the hash and the rounding are about 25 integer operations
+// per element. Design: as dropout, a grid-stride loop in which each thread
+// takes 16 bytes of x per step in one load and stores its E results in one
+// 4-, 8- or 16-byte store; a ragged tail, or an x that is not 16-byte
+// aligned, takes the element-wise path.
+// ---------------------------------------------------------------------------
+
+enum { SR_BF16 = 0, SR_F16 = 1, SR_E5M2 = 2, SR_E4M3 = 3 };
+
+template <int TGT> struct SrTarget;
+template <> struct SrTarget<SR_BF16> {
+  typedef uint16_t bits_t;
+  static constexpr int M = 7, EMIN = -126;
+};
+template <> struct SrTarget<SR_F16> {
+  typedef uint16_t bits_t;
+  static constexpr int M = 10, EMIN = -14;
+};
+template <> struct SrTarget<SR_E5M2> {
+  typedef uint8_t bits_t;
+  static constexpr int M = 2, EMIN = -14;
+};
+template <> struct SrTarget<SR_E4M3> {
+  typedef uint8_t bits_t;
+  static constexpr int M = 3, EMIN = -6;
+};
+
+// the f32 bits of 2^e (a subnormal below 2^-126)
+__host__ __device__ constexpr uint32_t pow2_bits(int e) {
+  return e >= -126 ? (uint32_t)(e + 127) << 23 : 1u << (e + 149);
+}
+
+// |x| (f32 bits a, sign cleared) rounded stochastically onto the target,
+// returned as f32 bits
+template <int TGT>
+__device__ __forceinline__ uint32_t sr_magnitude(uint32_t a, uint32_t r) {
+  constexpr int M = SrTarget<TGT>::M;
+  constexpr int DROP = 23 - M;
+  constexpr int EMIN_B = SrTarget<TGT>::EMIN + 127;
+  const int e = (int)(a >> 23);
+  if (e >= EMIN_B) {
+    constexpr uint32_t mask = (1u << DROP) - 1u;
+    return (a + (r & mask)) & ~mask;
+  }
+  const int e_eff = e > 0 ? e : 1;
+  const int d = DROP + (EMIN_B - e_eff);
+  const uint64_t m24 = (a & 0x7FFFFFu) | (e > 0 ? 0x800000u : 0u);
+  const int d_lo = d < 32 ? d : 32;
+  const int cut = d - 32 < 0 ? 0 : (d - 32 > 31 ? 31 : d - 32);
+  const uint64_t rr = (uint64_t)r & ((1ull << d_lo) - 1ull);
+  const uint64_t q = ((m24 >> cut) + rr) >> d_lo;
+  // q target ulps of 2^(EMIN - M): exact in f32 (q <= 2^(M+1))
+  constexpr uint32_t ulp = pow2_bits(SrTarget<TGT>::EMIN - M);
+  return __float_as_uint((float)q * __uint_as_float(ulp));
+}
+
+template <int TGT>
+__device__ __forceinline__ typename SrTarget<TGT>::bits_t sr_one(
+    float x, long long i, uint32_t seed) {
+  const uint32_t r = rand_bits(seed, 0u, (uint32_t)i,
+                               (uint32_t)((unsigned long long)i >> 32));
+  const uint32_t bits = __float_as_uint(x);
+  const uint32_t sign = bits & 0x80000000u;
+  const uint32_t a = bits & 0x7FFFFFFFu;
+  const bool nan = a > 0x7F800000u;
+  const float v = __uint_as_float(sr_magnitude<TGT>(a, r) | sign);
+  if constexpr (TGT == SR_BF16) {
+    return (uint16_t)(nan ? 0x7FC0u | (sign >> 16) : __float_as_uint(v) >> 16);
+  } else if constexpr (TGT == SR_F16) {
+    return nan ? (uint16_t)(0x7E00u | (sign >> 16))
+               : __half_as_ushort(__float2half_rn(v));
+  } else if constexpr (TGT == SR_E5M2) {
+    if (nan) return (uint8_t)(0x7Fu | (sign >> 24));
+    if (a > 0x47600000u)        // past 57344: RNE, Inf from 61440
+      return (uint8_t)((a >= 0x47700000u ? 0x7Cu : 0x7Bu) | (sign >> 24));
+    return (uint8_t)__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E5M2);
+  } else {
+    if (nan) return (uint8_t)(0x7Fu | (sign >> 24));
+    if (a > 0x43E00000u)        // past 448: RNE, NaN above 464
+      return (uint8_t)((a > 0x43E80000u ? 0x7Fu : 0x7Eu) | (sign >> 24));
+    return (uint8_t)__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
+  }
+}
+
+template <int BYTES> struct VecBytes;
+template <> struct VecBytes<4> { typedef uint32_t type; };
+template <> struct VecBytes<8> { typedef uint2 type; };
+template <> struct VecBytes<16> { typedef uint4 type; };
+
+template <typename T, int TGT>
+__global__ void __launch_bounds__(256) sr_kernel(
+    const T* __restrict__ x, typename SrTarget<TGT>::bits_t* __restrict__ out,
+    long long n, uint32_t seed, int aligned) {
+  typedef typename SrTarget<TGT>::bits_t O;
+  constexpr int E = 16 / sizeof(T);
+  typedef typename VecBytes<E * sizeof(O)>::type V;
+  const long long stride = (long long)gridDim.x * blockDim.x * E;
+  for (long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * E;
+       i0 < n; i0 += stride) {
+    if (aligned && i0 + E <= n) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(x + i0);
+      const T* xe = reinterpret_cast<const T*>(&raw);
+      V res;
+      O* oe = reinterpret_cast<O*>(&res);
+#pragma unroll
+      for (int e = 0; e < E; ++e) oe[e] = sr_one<TGT>(to_f32(xe[e]), i0 + e, seed);
+      *reinterpret_cast<V*>(out + i0) = res;
+    } else {
+      for (long long i = i0; i < i0 + E && i < n; ++i)
+        out[i] = sr_one<TGT>(to_f32(x[i]), i, seed);
+    }
+  }
+}
+
+template <typename T, int TGT>
+static int launch_sr(const void* x, void* out, long long n, uint32_t seed,
+                     int aligned, int num_sms, cudaStream_t st) {
+  constexpr int E = 16 / sizeof(T);
+  const long long groups = (n + E - 1) / E;
+  long long blocks = (groups + 255) / 256;
+  const long long cap = (long long)num_sms * 16;   // grid-stride beyond
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  sr_kernel<T, TGT><<<(unsigned)blocks, 256, 0, st>>>(
+      static_cast<const T*>(x),
+      static_cast<typename SrTarget<TGT>::bits_t*>(out), n, seed, aligned);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static int launch_sr_to(int target, const void* x, void* out, long long n,
+                        uint32_t seed, int aligned, int num_sms,
+                        cudaStream_t st) {
+  if (target == SR_BF16)
+    return launch_sr<T, SR_BF16>(x, out, n, seed, aligned, num_sms, st);
+  if (target == SR_F16)
+    return launch_sr<T, SR_F16>(x, out, n, seed, aligned, num_sms, st);
+  if (target == SR_E5M2)
+    return launch_sr<T, SR_E5M2>(x, out, n, seed, aligned, num_sms, st);
+  if (target == SR_E4M3)
+    return launch_sr<T, SR_E4M3>(x, out, n, seed, aligned, num_sms, st);
+  return cudaErrorInvalidValue;
+}
+
 extern "C" {
 
 const char* xsmm_error_string(int err) {
@@ -129,6 +303,25 @@ int xsmm_dropout(const void* x, void* out, void* mask, long long n, int type,
     return launch_dropout<__nv_bfloat16>(x, out, mask, n, p, scale, seed, aligned, num_sms, st);
   if (type == T_F16)
     return launch_dropout<__half>(x, out, mask, n, p, scale, seed, aligned, num_sms, st);
+  return cudaErrorInvalidValue;
+}
+
+// x: n elements of `type`; out: n elements of `target` (16-byte aligned, a
+// fresh allocation); `aligned` says x is 16-byte aligned too.
+int xsmm_stochastic_round(const void* x, void* out, long long n, int type,
+                          int target, unsigned seed, int aligned, int num_sms,
+                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  if (type == T_F32)
+    return launch_sr_to<float>(target, x, out, n, seed, aligned, num_sms, st);
+  if (type == T_BF16)
+    return launch_sr_to<__nv_bfloat16>(target, x, out, n, seed, aligned,
+                                       num_sms, st);
+  if (type == T_F16)
+    return launch_sr_to<__half>(target, x, out, n, seed, aligned, num_sms,
+                                st);
   return cudaErrorInvalidValue;
 }
 

@@ -8,8 +8,8 @@ zip/unzip, decompress.
 
 Policy, as the reference's: memory-bound element-wise math is plain torch
 ops (the reference leaves it to XLA); the ops that need a random stream or
-saturating conversions go through kernels/eltwise.py, whose dropout is a
-hand-written CUDA kernel on CUDA tensors. VNNI2/4/8 transforms are real data
+saturating conversions go through kernels/eltwise.py, whose dropout and
+stochastic rounding are hand-written CUDA kernels on CUDA tensors. VNNI2/4/8 transforms are real data
 transforms, bit-exact with the reference's definition.
 
 Dispatch mirrors libxsmm_dispatch_meltw_{unary,binary,ternary}

@@ -31,9 +31,17 @@ Invoke contract (functional, no aliasing):
   BRGEMM OFFSET/ADDRESS: kernel(a, b, [c,] a_idx, b_idx) — index arrays into
   the stacked leading dim.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): MX and sub-byte operands (queue 1, item 8), dispatch_brgemm_ext and
-xmmdispatch of a GemmExtDescriptor (queue 1, item 7).
+MX and sub-byte operands (GemmShape types MXFP4X2 ... I1X8) arrive packed
+along k — A as a payload (..., m, k/pack) [+ scales (..., m, k/32)], B as
+(..., k/pack, n) [+ scales (..., k/32, n)] — and are decoded to NORM in
+torch before the contraction (bf16, or f32 when a partner is F32), as the
+reference decodes in XLA.
+
+dispatch_brgemm_ext is the fused-epilogue BRGEMM: a/b/c unary argops (with
+store_ap/store_bp/store_cp side outputs), a binary postop on the f32
+accumulator, the RELU bitmask side output and the stochastic-round store,
+whose rounding runs the stochastic-round kernel of kernels/eltwise.py on
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -44,14 +52,18 @@ import functools
 import numpy as np
 import torch
 
+from .. import quant as q_
 from ..descriptor import (BatchReduceConfig, BatchReduceType, BinaryPostops,
                           BinaryType, GemmDescriptor, GemmExtDescriptor,
-                          GemmFlags, GemmShape, UnaryArgops, UnaryType)
+                          GemmFlags, GemmShape, UnaryArgops, UnaryFlags,
+                          UnaryType)
 from ..device import resolve_device
 from ..dtypes import Datatype, bits, from_torch, to_torch
 from ..kernels import gemm as gemm_kernels
+from ..kernels.eltwise import stochastic_round
 from ..kernels.gemm import add_acc, contract
 from ..registry import Kernel, KernelInfo, get_registry, memo_dispatch
+from .eltwise import apply_binary_op, apply_unary_op, pack_bitmask
 
 
 _INT_IN = (Datatype.I8, Datatype.U8, Datatype.I16, Datatype.U16,
@@ -85,13 +97,107 @@ def _comp_dtype(shape: GemmShape) -> torch.dtype:
     return torch.float32
 
 
-def _reject_packed_dtypes(shape: GemmShape) -> None:
-    if (shape.a_in_type in _MX_FLOAT + _INT_SUB
-            or shape.b_in_type in _MX_FLOAT + _INT_SUB):
-        raise NotImplementedError(
-            f"MX/sub-byte GEMM operands ({shape.a_in_type.value} x "
-            f"{shape.b_in_type.value}) are not ported yet (ROADMAP.md "
-            "queue 1, item 8: quant, MX and sub-byte GEMM operands)")
+def _is_packed(shape: GemmShape) -> bool:
+    return (shape.a_in_type in _MX_FLOAT + _INT_SUB
+            or shape.b_in_type in _MX_FLOAT + _INT_SUB)
+
+
+def _mx_decode(dt: Datatype, payload, scales) -> torch.Tensor:
+    """Decode an MX (payload, scales) pair along the LAST axis -> f32."""
+    if dt == Datatype.MXFP4X2:
+        return q_.mxfp4_dequantize_blocks(payload, scales)
+    if dt == Datatype.NVFP4X2:
+        return q_.nvfp4_dequantize_blocks(payload, scales)
+    if dt == Datatype.MXBF8:
+        return q_.mxbf8_dequantize_blocks(payload, scales)
+    if dt == Datatype.MXBF6:
+        return q_.mxfp6_dequantize_blocks(payload, scales, "e3m2")
+    if dt == Datatype.MXHF6:
+        return q_.mxfp6_dequantize_blocks(payload, scales, "e2m3")
+    raise ValueError(dt)
+
+
+def _validate_packed_combo(shape: GemmShape, flags: GemmFlags) -> None:
+    """Dtype gating for MX/sub-byte GEMMs, the reference's
+    generator_gemm.c:272-296 (MX x MX -> F32 comp) and :41-57, 472-488
+    (sub-byte A with I8/U8 or F16 B). Transposes are refused: packed
+    payloads are k-contiguous by contract (VNNI_A is accepted and means
+    'packed along k', the canonical layout)."""
+    a, b, o = shape.a_in_type, shape.b_in_type, shape.out_type
+    if flags & (GemmFlags.TRANS_A | GemmFlags.TRANS_B):
+        raise ValueError("transposes are unsupported for packed MX/sub-byte "
+                         "GEMM operands (k-contiguous payload contract)")
+    if a in _MX_FLOAT or b in _MX_FLOAT:
+        # MX x MX as the reference; BF16/F32 partners as the JAX package
+        # (the decode target follows the partner); F16 partners are refused:
+        # MX scales up to 2^127 overflow f16
+        if b not in _MX_FLOAT + (Datatype.BF16, Datatype.F32):
+            raise ValueError(f"MX GEMM needs an MX, BF16 or F32 B "
+                             f"operand (got {b})")
+        if a not in _MX_FLOAT + (Datatype.BF16, Datatype.F32):
+            raise ValueError(f"MX GEMM needs an MX, BF16 or F32 A "
+                             f"operand (got {a})")
+        if o not in (Datatype.F32, Datatype.BF16, Datatype.F16):
+            raise ValueError(f"MX GEMM output must be F32/BF16/F16 (got {o};"
+                             " requantize via UNARY_QUANT if MX storage is"
+                             " needed)")
+        return
+    if a in _INT_SUB:
+        if a in (Datatype.I4X2, Datatype.U4X2) and b == Datatype.F16:
+            if o not in (Datatype.F16, Datatype.F32):
+                raise ValueError("i4 x f16 GEMM outputs F16/F32")
+            return
+        ok_b = ((Datatype.I8, Datatype.U8) if a != Datatype.I1X8
+                else (Datatype.I8,))
+        if b not in ok_b:
+            raise ValueError(f"{a} GEMM needs B in {ok_b} (got {b}); "
+                             "reference gating generator_gemm.c:472-488")
+        if o not in (Datatype.I32,):
+            raise ValueError(f"{a} x {b} GEMM accumulates to I32 (got {o})")
+        return
+    raise ValueError(f"unsupported packed combo a={a} b={b}")
+
+
+def _packed_operand_decoders(shape: GemmShape):
+    """(decode_a, decode_b): each turns its operand into a NORM tensor
+    (identity for native dtypes).
+
+    Payload layouts (row-major; packing always along k):
+      A: payload (..., m, k/pack) [+ scales (..., m, k/32) for MX]
+      B: payload (..., k/pack, n) [+ scales (..., k/32, n) for MX]
+    MX values decode exactly into bf16 (grid x power-of-two scale carries
+    <= 8 significand bits); into f32 when a partner carries f32 data, so
+    the two operands share a type. Sub-byte ints decode to int8 (f16 beside
+    an F16 B)."""
+
+    a_dt, b_dt = shape.a_in_type, shape.b_in_type
+    mx_target = (torch.float32 if Datatype.F32 in (a_dt, b_dt)
+                 else torch.bfloat16)
+
+    def _decode(dt, operand, is_b, device):
+        if dt in _MX_FLOAT:
+            payload, scales = (_as_tensor(v, device) for v in operand)
+            if is_b:
+                payload, scales = payload.transpose(-1, -2), scales.transpose(
+                    -1, -2)
+            dec = _mx_decode(dt, payload.contiguous(),
+                             scales.contiguous()).to(mx_target)
+            return dec.transpose(-1, -2) if is_b else dec
+        p = _as_tensor(operand, device)
+        p = p.transpose(-1, -2) if is_b else p
+        dec = q_.unpack_subbyte_gemm(dt, p)
+        if b_dt == Datatype.F16:
+            dec = dec.to(torch.float16)
+        return dec.transpose(-1, -2) if is_b else dec
+
+    def decoder(dt, is_b):
+        if dt not in _MX_FLOAT + _INT_SUB:
+            return lambda x, device=None: _as_tensor(x, device)
+        return lambda x, device=None: _decode(dt, x, is_b, device)
+
+    return decoder(a_dt, False), decoder(b_dt, True)
+
+
 
 
 def matmul_precision(shape: GemmShape) -> str:
@@ -159,10 +265,14 @@ def _gemm_core(desc: GemmDescriptor, a, b, c=None, a_idx=None, b_idx=None):
 
     # VNNI_A/VNNI_B are functional layout contracts: the operand arrives
     # packed as TRANSFORM_NORM_TO_VNNIk produced it and is unpacked to NORM
-    # before the contraction (before transposes, the reference's order)
-    if desc.flags & GemmFlags.VNNI_A:
+    # before the contraction (before transposes, the reference's order).
+    # For MX/sub-byte storage the flag means "packed along k": those
+    # operands were decoded to NORM already.
+    if desc.flags & GemmFlags.VNNI_A and shape.a_in_type not in (
+            _MX_FLOAT + _INT_SUB):
         a = _undo_vnni(a, shape.a_in_type)
-    if desc.flags & GemmFlags.VNNI_B:
+    if desc.flags & GemmFlags.VNNI_B and shape.b_in_type not in (
+            _MX_FLOAT + _INT_SUB):
         b = _undo_vnni(b, shape.b_in_type)
 
     if br_type == BatchReduceType.NONE:
@@ -193,19 +303,28 @@ def _finalize_out(acc, shape: GemmShape, flags: GemmFlags = GemmFlags.NONE):
     return out
 
 
-def _build_gemm(desc: GemmDescriptor) -> Kernel:
-    shape = desc.shape
-    _reject_packed_dtypes(shape)
+def _decoders(shape: GemmShape, flags: GemmFlags):
+    """Validate the operand types at dispatch and return the operand
+    decoders (the packed ones for MX/sub-byte storage)."""
+    if _is_packed(shape):
+        _validate_packed_combo(shape, flags)
+        return _packed_operand_decoders(shape)
     for dt in (shape.a_in_type, shape.b_in_type, shape.out_type):
         to_torch(dt)  # raises for unsupported storage types
+    return (lambda x, device=None: _as_tensor(x, device),) * 2
+
+
+def _build_gemm(desc: GemmDescriptor) -> Kernel:
+    shape = desc.shape
+    decode_a, decode_b = _decoders(shape, desc.flags)
 
     beta0 = desc.beta == 0
     needs_idx = desc.br.br_type in (BatchReduceType.ADDRESS,
                                     BatchReduceType.OFFSET)
 
     def run(a, b, c=None, a_idx=None, b_idx=None):
-        a = _as_tensor(a)
-        b = _as_tensor(b, a.device)
+        a = decode_a(a)
+        b = decode_b(b, a.device)
         if c is not None:
             c = _as_tensor(c, a.device)
         acc = _gemm_core(desc, a, b, c, a_idx, b_idx)
@@ -256,17 +375,104 @@ def dispatch_brgemm(shape: GemmShape,
         _build_gemm)
 
 
+# ---------------------------------------------------------------------------
+# BRGEMM-ext: fused argops/postops epilogues
+# ---------------------------------------------------------------------------
+
+def _build_gemm_ext(desc: GemmExtDescriptor) -> Kernel:
+    base = desc.base
+    shape = base.shape
+    argops, postops = desc.argops, desc.postops
+    # MX/sub-byte packed operands are decoded to NORM as _build_gemm does;
+    # a/b argops on them are refused: a unary on an undecoded payload has
+    # no reference meaning
+    if _is_packed(shape) and (argops.ap_type != UnaryType.NONE
+                              or argops.bp_type != UnaryType.NONE):
+        _validate_packed_combo(shape, base.flags)
+        raise ValueError("a/b argops are not supported on MX/sub-byte "
+                         "packed operands (decode happens inside the "
+                         "kernel; apply eltwise ops to NORM data)")
+    decode_a, decode_b = _decoders(shape, base.flags)
+    beta0 = base.beta == 0
+    needs_idx = base.br.br_type in (BatchReduceType.ADDRESS,
+                                    BatchReduceType.OFFSET)
+    has_d = postops.d_type != BinaryType.NONE
+    cp_bitmask = bool(argops.cp_flags & UnaryFlags.BITMASK_2BYTEMULT)
+    cp_stochastic = argops.cp_type == UnaryType.STOCHASTIC_ROUND
+
+    def run(a, b, c=None, d=None, a_idx=None, b_idx=None, seed=0):
+        extra = {}
+        a = decode_a(a)
+        b = decode_b(b, a.device)
+        if c is not None:
+            c = _as_tensor(c, a.device)
+        if argops.ap_type != UnaryType.NONE:
+            a = apply_unary_op(argops.ap_type, argops.ap_flags, a)
+            if argops.store_ap:
+                extra["ap"] = a
+        if argops.bp_type != UnaryType.NONE:
+            b = apply_unary_op(argops.bp_type, argops.bp_flags, b)
+            if argops.store_bp:
+                extra["bp"] = b
+        acc = _gemm_core(base, a, b, c, a_idx, b_idx)
+        if argops.store_cp:
+            # cp is stored before the postops
+            extra["cp"] = _finalize_out(acc, shape, base.flags)
+        if has_d:
+            if d is None:
+                raise ValueError("postop configured but no d operand passed")
+            acc = apply_binary_op(postops.d_type, postops.d_flags, acc,
+                                  _as_tensor(d, acc.device).to(acc.dtype))
+        if cp_stochastic:
+            # the fused stochastic-round store, after the postops
+            out = stochastic_round(acc, seed, shape.out_type)
+            if base.flags & GemmFlags.VNNI_C:
+                out = _to_vnni(out, shape.out_type)
+        else:
+            if argops.cp_type != UnaryType.NONE:
+                if argops.cp_type == UnaryType.RELU and cp_bitmask:
+                    # the mask of acc > 0 before the relu, in the
+                    # reference's packed bit layout (RELU_INV reads it)
+                    extra["cp_bitmask"] = pack_bitmask(acc > 0)
+                acc = apply_unary_op(argops.cp_type, argops.cp_flags, acc)
+            out = _finalize_out(acc, shape, base.flags)
+        return (out, extra) if extra else out
+
+    def fn(a, b, *rest, seed=0):
+        rest = list(rest)
+        c = rest.pop(0) if not beta0 else None
+        d = rest.pop(0) if has_d else None
+        a_idx, b_idx = (rest[0], rest[1]) if needs_idx else (None, None)
+        return run(a, b, c, d, a_idx, b_idx, seed)
+
+    nflops = shape.nflops(base.br.br_count_hint or 1)
+    info = KernelInfo(kind="gemm_ext", nflops=nflops)
+    return Kernel(fn=fn, descriptor=desc, info=info, name=desc.name())
+
+
 def dispatch_brgemm_ext(shape: GemmShape,
                         flags: GemmFlags = GemmFlags.NONE,
                         br_config: BatchReduceConfig = None,
                         argops: UnaryArgops = UnaryArgops(),
                         postops: BinaryPostops = BinaryPostops()) -> Kernel:
-    """libxsmm_dispatch_brgemm_ext analogue (src/libxsmm_main.c:3428). Not
-    ported yet: its argops and postops need ops/eltwise.py."""
-    raise NotImplementedError(
-        "dispatch_brgemm_ext is not ported yet (ROADMAP.md queue 1, item 7:"
-        " fused GEMM-ext; dispatch_brgemm_ext_packed covers the packed "
-        "cp-epilogue + bias subset)")
+    """libxsmm_dispatch_brgemm_ext analogue (src/libxsmm_main.c:3428).
+
+    The fused-epilogue factory: C = store(cp(postop(sum_i ap(A_i) bp(B_i)
+    [+ C0], D))). Invoke: kernel(a, b, [c,] [d,] [a_idx, b_idx,] seed=0)
+    — c when beta=1, d when a binary postop is set (any operand
+    broadcastable to (m, n), e.g. a (1, n) bias), the index arrays in
+    OFFSET/ADDRESS mode. Returns the output, or (output, extra) when a
+    side output is configured: extra["ap"]/["bp"]/["cp"] under
+    store_ap/store_bp/store_cp (cp before the postops), extra["cp_bitmask"]
+    for RELU with BITMASK_2BYTEMULT. cp STOCHASTIC_ROUND stores the
+    postop'd f32 accumulator to out_type by stochastic rounding with
+    `seed` (the kernel of kernels/eltwise.py on CUDA tensors)."""
+    if br_config is None:
+        br_config = BatchReduceConfig(br_type=BatchReduceType.STRIDE)
+    desc = GemmExtDescriptor(
+        base=GemmDescriptor(shape=shape, flags=GemmFlags(flags), br=br_config),
+        argops=argops, postops=postops)
+    return get_registry().dispatch(desc, _build_gemm_ext)
 
 
 def dispatch_tilecfg_gemm(shape: GemmShape,
@@ -795,11 +1001,9 @@ def dispatch_gemm_batched_packed(shape: GemmShape,
 def xmmdispatch(descriptor):
     """libxsmm_xmmdispatch analogue (src/libxsmm_main.c:3323): dispatch
     directly from a pre-built descriptor."""
-    if isinstance(descriptor, GemmExtDescriptor):
-        raise NotImplementedError(
-            "xmmdispatch of a GemmExtDescriptor is not ported yet "
-            "(ROADMAP.md queue 1, item 7: fused GEMM-ext)")
-    return get_registry().dispatch(descriptor, _build_gemm)
+    builder = (_build_gemm_ext if isinstance(descriptor, GemmExtDescriptor)
+               else _build_gemm)
+    return get_registry().dispatch(descriptor, builder)
 
 
 def gemm(a, b, c=None, *, trans_a: bool = False, trans_b: bool = False,

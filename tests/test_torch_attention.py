@@ -255,8 +255,8 @@ def test_block_override_picks_a_cuda_tile():
                                  block_override=(128, 96))
 
 
-def test_backward_not_ported_yet():
-    """The flash backward is ported now: the autograd node's backward runs
+def test_backward_matches_float64_composition():
+    """The flash backward: the autograd node's backward runs
     the backward kernels' plain versions on CPU tensors and gives the
     gradient of the float64 torch composition (1e-4: f32 against f64)."""
     pk = xp.dispatch_flash_attention(2, 128, 32)

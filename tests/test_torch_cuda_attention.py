@@ -175,7 +175,13 @@ def test_dropout_kernel_statistics(gen):
 def test_dropout_and_sr_refusals(gen):
     with pytest.raises(ValueError, match="no CUDA kernel"):
         ke.dropout(randn(gen, 8, 8).double(), 0, 0.1)
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        ke.stochastic_round(randn(gen, 8, 8), 0, Datatype.BF16)
+    # stochastic rounding runs its kernel on the card now
+    x = randn(gen, 8, 8)
+    before = ke.launches["stochastic_round"]
+    y = ke.stochastic_round(x, 0, Datatype.BF16)
+    assert ke.launches["stochastic_round"] == before + 1
+    assert torch.equal(y, ke.stochastic_round.plain(x, 0, Datatype.BF16))
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        ke.stochastic_round(x.double(), 0, Datatype.BF16)
     with pytest.raises(ValueError):
         ke.dropout(randn(gen, 8, 8), 0, 1.0)

@@ -562,13 +562,18 @@ def test_quant_stochastic_statistics():
 
 @pytest.mark.parametrize("out_type", [Datatype.MXFP4X2, Datatype.MXBF8])
 def test_mx_quant_not_ported(out_type):
-    _, p = unary_both(UnaryType.QUANT, 32, 32,
-                      out_type=out_type)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        p(torch.zeros(32, 32))
-    _, p = unary_both(UnaryType.DEQUANT, 32, 32, in_type=out_type)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        p(torch.zeros(32, 16, dtype=torch.uint8), torch.zeros(32, 1))
+    """MX QUANT/DEQUANT (ported now): the (payload, scales) bytes and the
+    dequantized values equal the JAX package's (at magnitudes whose block
+    scales stay where XLA's exp2 is exact, tests/test_torch_quant.py)."""
+    x = rand(32, 64) * (4.0 if out_type == Datatype.MXFP4X2 else 4096.0)
+    xj, xt_ = pair(x)
+    j, p = unary_both(UnaryType.QUANT, 32, 64, out_type=out_type)
+    (pj, sj), (pp, sp) = j(xj), p(xt_)
+    np.testing.assert_array_equal(pp.view(torch.uint8).numpy(),
+                                  np.asarray(pj).view(np.uint8))
+    np.testing.assert_array_equal(sp.numpy(), np.asarray(sj))
+    j, p = unary_both(UnaryType.DEQUANT, 32, 64, in_type=out_type)
+    same(j(pj, sj), p(pp, sp))
 
 
 @pytest.mark.parametrize("packed", [True, False])

@@ -271,16 +271,23 @@ def test_xmmdispatch_tilecfg_and_cache():
 
 
 def test_unported_parts_raise():
+    """Only the tooling (queue 1, item 14) still raises; GEMM-ext and the MX
+    operands dispatch and run."""
     shape = xp.GemmShape(16, 16, 16)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        xp.dispatch_brgemm_ext(shape)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        xp.xmmdispatch(xp.descriptor.GemmExtDescriptor(
-            xp.GemmDescriptor(shape)))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        xp.dispatch_gemm(xp.GemmShape(16, 64, 64,
-                                      a_in_type=xp.Datatype.MXFP4X2,
-                                      b_in_type=xp.Datatype.BF16))
+    a, b = torch.ones(1, 16, 16), torch.ones(1, 16, 16)
+    assert torch.equal(xp.dispatch_brgemm_ext(shape)(a, b, a[0]),
+                       torch.full((16, 16), 17.0))
+    ext = xp.xmmdispatch(xp.descriptor.GemmExtDescriptor(
+        xp.GemmDescriptor(shape, xp.GemmFlags.BETA_0)))
+    assert ext.info.kind == "gemm_ext"
+    assert torch.equal(ext(a[0], b[0]), torch.full((16, 16), 16.0))
+    mx = xp.dispatch_gemm(xp.GemmShape(16, 64, 64,
+                                       a_in_type=xp.Datatype.MXFP4X2,
+                                       b_in_type=xp.Datatype.BF16),
+                          xp.GemmFlags.BETA_0)
+    payload, scales = xp.quant.mxfp4_quantize_blocks(torch.ones(16, 64))
+    out = mx((payload, scales), torch.ones(64, 64, dtype=torch.bfloat16))
+    assert torch.equal(out, torch.full((16, 64), 64.0))
     kern = xp.dispatch_gemm(shape, xp.GemmFlags.BETA_0)
     with pytest.raises(NotImplementedError, match="item 14"):
         kern.lower_text()

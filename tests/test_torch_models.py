@@ -199,8 +199,8 @@ def test_dropout_backward_replays_mask():
     assert pm._dropout(x, 0.0, 5) is x
 
 
-def test_flash_block_backward_not_ported_yet():
-    """The flash block's backward is ported now: its input gradient equals
+def test_flash_block_backward_matches_composition():
+    """The flash block's backward: its input gradient equals
     the flash=False block's (1e-4: f32, sums in another order)."""
     _, cp = configs(flash=True)
     pp = pm.init_params(cp, seed=0, device="cpu")
