@@ -63,16 +63,19 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    splits one train step into forward, backward and update, and traces
    three steps with torch.profiler (device busy share, kernel time by
    name);
-7. drives the block-sparse (BCSC) path the same way, with the four sparse
+7. drives the block-sparse (BCSC) path the same way, with the five sparse
    kernels' counts set to 0 just before: create_packed_spgemm_bcsc with
    every strategy name and "auto" (which times every lowering on the card)
    at bench.py's cases, uncut: bcsc20 and bcsc05 (m = k = n = 1024, 32 x
    32 blocks at density 0.2 and 0.05, bf16 -> f32), bcsc_cluster (m = 1024,
    k = 2048, n = 1024, bf16 -> bf16, the two-family pattern); a streaming
-   case (m = 32768 rows of A through the bcsc20 and bcsc05 patterns) and an
-   f32 case (m = 4096); each result against the float64 dense product;
-   prints the auto picks, the clustering decision and both union depths;
-   fails unless all four kernels were launched, then times every phase;
+   case (m = 32768 rows of A through the bcsc20 and bcsc05 patterns), an
+   f32 case (m = 4096) and a ragged one (m = 1000); each result against
+   the float64 dense product; union, union2 and union3 must launch the RHS
+   compactor and the union4 names and union5 must not (the counter read
+   around each call); prints the auto picks, the clustering decision and
+   both union depths; fails unless all five kernels were launched, then
+   times every phase;
 8. drives the fused GEMM-ext path the same way, with every count set to 0
    just before: the stochastic-round kernel alone at the BERT-base FFN
    shape (4096 x 3072 f32) into bf16, f16, bf8 and hf8, bit for bit against
@@ -90,13 +93,31 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    unless the SR kernel was launched, then times every phase, the tap
    stack's share of a conv, cuDNN's conv (a yardstick), a forward and a
    step;
-9. holds each kernel against its plain version once more at its main-path
-   shape, and times kernel, plain version and one library call computing
-   the same function (a yardstick the port never calls; none exists for
-   stochastic rounding, whose row carries the RNE cast's time instead), and
-   each launch configuration the kernel chooses among;
-10. prints one JSON line with the per-kernel numbers and, last, the result
-    line {"ok": true, "device": {...}}.
+9. drives the rest of the sparse layer the same way, with every count set
+   to 0 just before (these entry points are torch ops, as the reference
+   leaves them to XLA; the counts are printed): fsspmdm at bench.py's cases
+   (125 x 75 at 30%, N = 4800; m = 32, k = 8192 at 1%, N = 4096 under hints
+   dense, sparse and auto) and samples/pyfr.py's synthetic hex operators
+   p = 1..4 at N = 4800, each against float64 within 1e-5, its kind,
+   tuned_us and Gnnz/s printed, then the autotune twice through a
+   temporary KV log (the second create must read the first's history); the
+   CSR/CSC routings and create_spgemm_csr_areg at m = k = n = 1024 with 5%
+   of the elements (csr sparse/dense/auto at packed width 1 and 8, csc,
+   csr_bsparse, the csc_csparse SDDMM at k = 256, areg at its 65,536-nnz
+   cap), f32 and bf16 -> f32, against float64; the packed SOA GEMM and its
+   AC_RM/BC_RM variants at 32^3 x 16; the BCSC autotune's persisted pick;
+   TPP-GCN at the published GCN widths (Kipf & Welling 2017, Cora: 2708
+   nodes, 1433 features, hidden 16, 7 classes) on a seeded random graph
+   with Cora's 5278 edges, the forward against float64 and three train
+   steps lowering the loss; times every phase, a forward and a step;
+10. holds each kernel against its plain version once more at its main-path
+    shape, and times kernel, plain version and one library call computing
+    the same function (a yardstick the port never calls; none exists for
+    stochastic rounding and the union RHS compactor, whose rows carry the
+    RNE cast's and an output clone's time instead), and each launch
+    configuration the kernel chooses among;
+11. prints one JSON line with the per-kernel numbers (thirteen rows) and,
+    last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
 device it exits 2 and prints no result.
@@ -135,6 +156,9 @@ TOL_GRAD_F32 = 1e-4    # f32 block gradients against float64
 TOL_SPARSE_F32 = 1e-5  # f32 BCSC SpMM against the float64 dense product
 TOL_SPARSE_BF16 = 1e-4  # bf16 in, f32 out: products exact, order differs
 
+TOL_FSSPMDM = 1e-5     # f32 fsspmdm against float64: samples/pyfr.py's margin
+TOL_GCN = 1e-5         # the f32 GCN forward against its float64 oracle
+
 TOL_SR_BF16 = 2.0 ** -7  # the SR store against float64: within one bf16 ulp
 TOL_CONV_F32 = 1e-5    # f32 conv against float64 (samples/cnn.py:52)
 TOL_CONV_BF16 = 5e-3   # bf16 conv: exact products, the output rounded once
@@ -155,10 +179,13 @@ BWD_KERNELS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 TRAIN_KERNELS = SERVE_KERNELS + BWD_KERNELS
 TRAIN_LR = 0.1         # visible in bf16 weights after three steps
 SPARSE_KERNELS = ("bcsc_spmm", "bcsc_spmm_union", "bcsc_densify",
-                  "bcsc_spmm_super")
-# the kernel each BCSC strategy launches ("sparse" is torch ops alone)
-SPARSE_KERNEL_OF = {"pallas": "bcsc_spmm", "super": "bcsc_spmm_super",
-                    "dense": "bcsc_densify", "sparse": None}
+                  "bcsc_spmm_super", "bcsc_union_compact")
+# the kernels each BCSC strategy launches ("sparse" is torch ops alone);
+# union, union2 and union3 compact the RHS first, the other union names
+# assemble it in the union kernel
+SPARSE_KERNEL_OF = {"pallas": ("bcsc_spmm",), "super": ("bcsc_spmm_super",),
+                    "dense": ("bcsc_densify",), "sparse": ()}
+COMPACTED = ("union", "union2", "union3")
 
 
 def _smi() -> str:
@@ -581,9 +608,15 @@ def sparse_path(randn, dev):
                 shape, GemmFlags.BETA_0, cfg, indptr, indices, strategy=s)
             tail = kern.name.split("_")[3]
             got = "super" if tail.startswith("super") else tail
-            kernel = SPARSE_KERNEL_OF.get(got, "bcsc_spmm_union")
-            out = run(f"bcsc {case} {s}", [kernel] if kernel else [], kern,
-                      a, v)
+            kernels = SPARSE_KERNEL_OF.get(got, ("bcsc_spmm_union",))
+            if got in COMPACTED:
+                kernels += ("bcsc_union_compact",)
+            compactions = _count("bcsc_union_compact")
+            out = run(f"bcsc {case} {s}", kernels, kern, a, v)
+            if (got not in COMPACTED
+                    and _count("bcsc_union_compact") != compactions):
+                raise AssertionError(f"bcsc {case} {s}: the compactor ran "
+                                     f"for {got}")
             worst = max(worst, _check(f"bcsc {case} {s} vs float64", want,
                                       out, tol, (shape.m, shape.n)))
             if s == "auto":
@@ -639,6 +672,11 @@ def sparse_path(randn, dev):
     drive("f32", GemmShape(4096, n, k), cfg, bcsc.indptr, bcsc.indices,
           randn(4096, k), on_dev(bcsc.data, f32), TOL_SPARSE_F32)
 
+    # ragged: 1000 rows (the last 64-row tile cut) through bcsc05
+    bcsc, v = pats[0.05]
+    drive("ragged", GemmShape(1000, n, k, BF16, BF16, F32), cfg, bcsc.indptr,
+          bcsc.indices, randn(1000, k, dtype=bf16), v, TOL_SPARSE_BF16)
+
     torch.cuda.synchronize()
     counts = dict(KS.launches)
     print(f"sparse path: {len(phases)} phases in "
@@ -650,6 +688,298 @@ def sparse_path(randn, dev):
     bcsc, v = pats[0.2]
     return {"phases": phases, "counts": counts,
             "stream": (sshape, cfg, bcsc, a_stream, v)}
+
+
+def _reset_all_launches():
+    from libxsmm_torch.kernels import attention, eltwise, gemm, spmm
+    for mod in (gemm, attention, eltwise, spmm):
+        mod.reset_launches()
+
+
+def _all_launches():
+    from libxsmm_torch.kernels import attention, eltwise, gemm, spmm
+    return {k: v for mod in (gemm, attention, eltwise, spmm)
+            for k, v in mod.launches.items()}
+
+
+def _sparse_rows(rng, m, k, density):
+    """A (m, k) f32 matrix with each element kept at `density`; every row
+    keeps at least one element."""
+    import numpy as np
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    a[rng.random((m, k)) > density] = 0.0
+    for i in range(m):
+        if not np.abs(a[i]).max():
+            a[i, rng.integers(k)] = 1.0
+    return a
+
+
+def _fsspmdm(rng, dev, ms):
+    """fsspmdm at bench.py's cases (bench.py:614-676) and samples/pyfr.py's
+    synthetic hex operators, each against float64; then the autotune twice
+    through a temporary KV log. Returns the handles' lines."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import libxsmm_torch as xt
+    from libxsmm_torch.config import CONFIG
+    from libxsmm_torch.utils.testmats import (hex_derivative_operator,
+                                              hex_interp_operator)
+
+    def drive(name, a, n, hint=None):
+        prior = os.environ.pop("XSMM_TPU_FSSPMDM_HINT", None)
+        if hint is not None:
+            os.environ["XSMM_TPU_FSSPMDM_HINT"] = hint
+        try:
+            h = xt.fsspmdm_create(n, a)
+        finally:
+            os.environ.pop("XSMM_TPU_FSSPMDM_HINT", None)
+            if prior is not None:
+                os.environ["XSMM_TPU_FSSPMDM_HINT"] = prior
+        b = torch.as_tensor(rng.standard_normal((a.shape[1], n)),
+                            dtype=torch.float32, device=dev)
+        want = torch.as_tensor(a, dtype=torch.float64, device=dev) @ b.double()
+        err = _check(f"fsspmdm {name} vs float64", want, h.execute(b),
+                     TOL_FSSPMDM, (a.shape[0], n))
+        t = ms(h.kernel.fn, b)
+        tuned = {k_: (round(v_, 2) if isinstance(v_, float) else v_)
+                 for k_, v_ in h.tuned_us.items()}
+        print(f"  fsspmdm {name} {a.shape[0]}x{a.shape[1]} N={n} "
+              f"nnz={h.nnz}: {h.kind}, {t:.4f} ms, "
+              f"{h.nnz * n / (t * 1e-3) / 1e9:.1f} Gnnz/s, normf_rel "
+              f"{err:.2e}; tuned_us {tuned}")
+        return h
+
+    # bench.py's PyFR-class case: 125 x 75 at 30%, N = 4800
+    a = rng.standard_normal((125, 75)).astype(np.float32)
+    a[rng.random((125, 75)) > 0.3] = 0.0
+    drive("pyfr 30%", a, 4800)
+    # the tall-sparse regime: m = 32, k = 8192, 1%, N = 4096
+    at = _sparse_rows(rng, 32, 8192, 0.01)
+    for hint, label in (("2", "dense"), ("1", "sparse"), (None, "auto")):
+        drive(f"tall {label}", at, 4096, hint)
+    # samples/pyfr.py's synthetic hex operators, p = 1..4, N = 4800
+    for p in (1, 2, 3, 4):
+        drive(f"p{p} hex deriv", hex_derivative_operator(p).astype(
+            np.float32), 4800)
+        drive(f"p{p} hex interp", hex_interp_operator(p).astype(np.float32),
+              4800)
+    # the autotune twice through one KV log: the second create reads the
+    # first's ratio history
+    prior = CONFIG.autotune_cache_path
+    with tempfile.TemporaryDirectory() as tmp:
+        CONFIG.autotune_cache_path = os.path.join(tmp, "autotune.xkv")
+        try:
+            h1 = drive("pyfr 30% tune 1", a, 4800)
+            h2 = drive("pyfr 30% tune 2", a, 4800)
+        finally:
+            CONFIG.autotune_cache_path = prior
+    if "cached" in h1.tuned_us or not h2.tuned_us.get("cached"):
+        raise AssertionError("fsspmdm: the second create did not read the "
+                             "first's history")
+    if len(h2.tuned_us["ratio_history"]) != 2:
+        raise AssertionError(f"fsspmdm: history {h2.tuned_us}")
+
+
+def sparse_layer_path(randn, dev, ms):
+    """The rest of the sparse layer, through its public entry points at the
+    repo's own sizes, with every kernel's launch count set to 0 just before
+    and read just after (these entry points are torch ops in the port, as
+    the reference leaves them to XLA): fsspmdm (_fsspmdm), the CSR/CSC
+    routings and create_spgemm_csr_areg at bench.py's bcsc05 scale but
+    element-sparse, the packed SOA GEMM, the BCSC autotune's persisted
+    pick, and TPP-GCN at the published GCN widths. Each result is held
+    against float64. Returns the phases (to time) and the counts."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import libxsmm_torch as xt
+    from libxsmm_torch.config import CONFIG
+    from libxsmm_torch.descriptor import GemmFlags, GemmShape, SpgemmConfig
+    from libxsmm_torch.dtypes import Datatype
+    from libxsmm_torch.models import tpp_gcn as TG
+    from libxsmm_torch.ops.fsspmdm import _autotune_cache
+
+    B0 = GemmFlags.BETA_0
+    F32, BF16 = Datatype.F32, Datatype.BF16
+    phases = []
+    run = functools.partial(_counted, phases)
+    rng = np.random.default_rng(11)
+    _reset_all_launches()
+    t_path = time.perf_counter()
+
+    _fsspmdm(rng, dev, ms)
+
+    # the CSR/CSC routings: m = k = n = 1024 at 5% element density
+    m = k = n = 1024
+    for dt, tol in ((F32, TOL_SPARSE_F32), (BF16, TOL_SPARSE_BF16)):
+        tdt = xt.to_torch(dt)
+        shape = GemmShape(m, n, k, dt, dt, F32)
+
+        def operand(x):
+            t_ = torch.as_tensor(x, device=dev).to(tdt)
+            return t_, t_.double()
+
+        apat = _sparse_rows(rng, m, k, 0.05)
+        csr = xt.CsrMatrix.from_dense(apat)
+        vals, vals64 = operand(csr.data)
+        a64 = torch.zeros(m * k, dtype=torch.float64, device=dev)
+        rows = np.repeat(np.arange(m), np.diff(csr.indptr))
+        a64[torch.as_tensor(rows * k + csr.indices, device=dev)] = vals64
+        a64 = a64.reshape(m, k)
+        for p in (1, 8):
+            b, b64 = operand(rng.standard_normal((k, n, p) if p > 1
+                                                 else (k, n)))
+            want = (a64 @ b64 if p == 1
+                    else torch.einsum("mk,knp->mnp", a64, b64))
+            for s in ("sparse", "dense", "auto"):
+                kern = xt.create_packed_spgemm_csr(shape, B0, p, csr.indptr,
+                                                   csr.indices, s)
+                out = run(f"csr {dt.value} p{p} {s}", [], kern, vals, b)
+                _check(f"csr {dt.value} p{p} {s} vs float64", want, out, tol,
+                       tuple(want.shape))
+        dense_a, dense_a64 = operand(rng.standard_normal((m, k)))
+        bpat = _sparse_rows(rng, k, n, 0.05)
+        csc = xt.CscMatrix.from_dense(bpat)
+        bcsr = xt.CsrMatrix.from_dense(bpat)
+        b64 = torch.as_tensor(bpat, device=dev).to(tdt).double()
+        want = dense_a64 @ b64
+        kern = xt.create_packed_spgemm_csc(shape, B0, 1, csc.indptr,
+                                           csc.indices)
+        _check(f"csc {dt.value} vs float64", want,
+               run(f"csc {dt.value}", [], kern, dense_a,
+                   operand(csc.data)[0]), tol, (m, n))
+        for s in ("sparse", "dense"):
+            kern = xt.create_packed_spgemm_csr_bsparse(
+                shape, B0, 1, bcsr.indptr, bcsr.indices, s)
+            _check(f"csr_bsparse {dt.value} {s} vs float64", want,
+                   run(f"csr_bsparse {dt.value} {s}", [], kern, dense_a,
+                       operand(bcsr.data)[0]), tol, (m, n))
+        # the SDDMM: C 5% dense, k = 256
+        kc = 256
+        cpat = xt.CscMatrix.from_dense(_sparse_rows(rng, m, n, 0.05))
+        ac, ac64 = operand(rng.standard_normal((m, kc)))
+        bc, bc64 = operand(rng.standard_normal((kc, n)))
+        ccols = np.repeat(np.arange(n), np.diff(cpat.indptr))
+        want_c = (ac64 @ bc64)[torch.as_tensor(cpat.indices.astype(np.int64),
+                                               device=dev),
+                               torch.as_tensor(ccols, device=dev)]
+        for s in ("gather", "dense"):
+            kern = xt.create_packed_spgemm_csc_csparse(
+                GemmShape(m, n, kc, dt, dt, F32), B0, 1, cpat.indptr,
+                cpat.indices, s)
+            _check(f"csc_csparse {dt.value} {s} vs float64", want_c,
+                   run(f"csc_csparse {dt.value} {s}", [], kern, ac, bc), tol,
+                   (cpat.nnz,))
+    # create_spgemm_csr_areg at its cap: 64 of 1024 columns in each row
+    areg = np.zeros((m, k), np.float32)
+    for i in range(m):
+        areg[i, rng.choice(k, 64, replace=False)] = rng.standard_normal(64)
+    csr = xt.CsrMatrix.from_dense(areg)
+    kern = xt.create_spgemm_csr_areg(GemmShape(m, n, k), B0, csr.indptr,
+                                     csr.indices, csr.data)
+    b = randn(k, n)
+    _check("csr_areg 65536 nnz vs float64",
+           torch.as_tensor(areg, dtype=torch.float64, device=dev) @ b.double(),
+           run(f"csr_areg nnz {csr.nnz}", [], kern, b), TOL_SPARSE_F32,
+           (m, n))
+    print(f"  csr/csc routings (1024^3, 5% elements) and csr_areg "
+          f"({csr.nnz} nnz): each against float64")
+
+    # the packed SOA GEMM at 32^3, packed width 16
+    pm = pw = 32
+    p = 16
+    ap, bp, cp = randn(pm, pm, p), randn(pm, pm, p), randn(pm, pm, p)
+    a2, b2 = randn(pm, pm), randn(pm, pm)
+    shp = GemmShape(pm, pm, pm)
+    for name, kern, fargs, want in (
+            ("packed", xt.create_packed_gemm(shp, B0, p), (ap, bp),
+             torch.einsum("mkp,knp->mnp", ap.double(), bp.double())),
+            ("packed beta=1", xt.create_packed_gemm(shp, GemmFlags.NONE, p),
+             (ap, bp, cp), torch.einsum("mkp,knp->mnp", ap.double(),
+                                        bp.double()) + cp.double()),
+            ("packed ac_rm", xt.create_packed_gemm_ac_rm(shp, B0, p),
+             (ap, b2), torch.einsum("mkp,kn->mnp", ap.double(), b2.double())),
+            ("packed bc_rm", xt.create_packed_gemm_bc_rm(shp, B0, p),
+             (a2, bp), torch.einsum("mk,knp->mnp", a2.double(),
+                                    bp.double()))):
+        _check(f"{name} vs float64", want, run(name, [], kern, *fargs),
+               TOL_F32, (pm, pw, p))
+
+    # the BCSC autotune's pick, persisted: bench.py's bcsc20 at m = 1024
+    bcsc = _bcsc_pattern(np.random.default_rng(2), k, n, 32, 32, 0.2)
+    bshape = GemmShape(m, n, k, BF16, BF16, F32)
+    prior = CONFIG.autotune_cache_path
+    with tempfile.TemporaryDirectory() as tmp:
+        CONFIG.autotune_cache_path = os.path.join(tmp, "autotune.xkv")
+        try:
+            picks = [xt.create_packed_spgemm_bcsc(
+                bshape, B0, SpgemmConfig(1, 32, 32), bcsc.indptr,
+                bcsc.indices, strategy="auto").name for _ in range(2)]
+            key = (f"bcsc2:{m}:{n}:{k}:32:32:bf16:"
+                   f"{bcsc.fingerprint():x}").encode()
+            stored = _autotune_cache().get(key)
+        finally:
+            CONFIG.autotune_cache_path = prior
+    if not stored:
+        raise AssertionError("bcsc auto: no pick persisted")
+    print(f"  bcsc20 auto with a KV log: persisted {stored.decode()!r}; "
+          f"creates -> {picks}")
+
+    # TPP-GCN at the published GCN widths (Kipf & Welling 2017, Cora: 2708
+    # nodes, 1433 features, hidden 16, 7 classes, two layers) on a seeded
+    # random symmetric graph with Cora's 5278 undirected edges; synthetic
+    # features and labels
+    nodes, edges = 2708, 5278
+    pairs = set()
+    while len(pairs) < edges:
+        i, j = (int(x) for x in rng.integers(0, nodes, 2))
+        if i != j:
+            pairs.add((min(i, j), max(i, j)))
+    adj = np.zeros((nodes, nodes), np.float32)
+    ij = np.asarray(sorted(pairs))
+    adj[ij[:, 0], ij[:, 1]] = adj[ij[:, 1], ij[:, 0]] = 1.0
+    bsr = TG.normalize_adjacency(adj, 4)
+    plan = TG._bsr_plan(bsr, dev)
+    nbr = nodes // 4
+    cfg = TG.GcnConfig(in_dim=1433, hidden=(16,), out_dim=7)
+    params = TG.init_params(cfg, seed=0, device=dev)
+    h = torch.as_tensor(rng.standard_normal((nodes, 1433)),
+                        dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(rng.integers(0, 7, nodes), device=dev)
+    out = run("gcn forward", [], TG.forward, params, plan, nbr, h, cfg)
+    ahat = torch.as_tensor(bsr.to_dense(), dtype=torch.float64, device=dev)
+    x = h.double()
+    for i, layer in enumerate(params):
+        x = ahat @ (x @ layer["w"].double()) + layer["b"].double()[None, :]
+        if i < len(params) - 1:
+            x = x.clamp_min(0.0)
+    err = _check("gcn forward vs float64", x, out, TOL_GCN, (nodes, 7))
+    loss0 = float(TG.loss_fn(params, plan, nbr, h, labels, cfg))
+    step_params = params
+    for _ in range(3):
+        step_params, _loss = run("gcn train_step", [], TG.train_step,
+                                 step_params, plan, nbr, h, labels, cfg,
+                                 1e-2)
+    loss3 = float(TG.loss_fn(step_params, plan, nbr, h, labels, cfg))
+    if not loss3 < loss0:
+        raise AssertionError(f"gcn: loss {loss0} -> {loss3} after 3 steps")
+    t_fwd = ms(TG.forward, params, plan, nbr, h, cfg)
+    t_step = ms(TG.train_step, params, plan, nbr, h, labels, cfg, 1e-2)
+    print(f"  tpp_gcn {nodes} nodes ({bsr.nblocks} 4x4 blocks) 1433-16-7: "
+          f"forward normf_rel {err:.2e} vs float64, loss {loss0:.6f} -> "
+          f"{loss3:.6f} in 3 steps (lr 1e-2); forward {t_fwd:.4f} ms, "
+          f"train step {t_step:.4f} ms")
+
+    torch.cuda.synchronize()
+    counts = {k_: v_ for k_, v_ in _all_launches().items() if v_}
+    print(f"sparse layer path: {len(phases)} phases in "
+          f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}")
+    return {"phases": phases}
 
 
 def _bytes_equal(name, want, got):
@@ -905,12 +1235,17 @@ def cnn_breakdown(convs, cnn, ms):
 
 
 def sparse_rows(record, stream, ms, geo):
-    """The four sparse kernels at the streaming case, each against its
+    """The five sparse kernels at the streaming case, each against its
     plain version. Bound: A, the kernel's value operand and C each moved
     once, and the useful products 2 * nblocks * bk * bn * m at the bf16
     tensor cores' peak. Yardstick for the SpMM kernels: torch.mm on the
     densified B with an f32 output; for densify: PyTorch's BSC tensor
-    to_dense."""
+    to_dense. The union row carries the compacted form's time (compactor,
+    then the kernel over its RHS) as "compact_ms"; the compactor's row
+    moves the value store once and writes the compacted RHS once, and since
+    no PyTorch call computes the compaction its library time is null and a
+    clone of the compacted RHS (the same bytes written) stands beside it as
+    "clone_ms"."""
     from libxsmm_torch.kernels import spmm as KS
     from libxsmm_torch.ops.sparse import assemble_supertiles, supertile_plan
 
@@ -929,9 +1264,19 @@ def sparse_rows(record, stream, ms, geo):
     record("bcsc_spmm", src, "spmm_pallas.py:88",
            KS.build_bcsc_spmm(shape, cfg, indptr, indices, dev), (a, v),
            TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak, lib_mm)
-    record("bcsc_spmm_union", src, "spmm_pallas.py:258",
-           KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev),
-           (a, v), TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak, lib_mm)
+    union = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev)
+    union_c = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev,
+                                       compact=True)
+    _check("bcsc_spmm_union compacted form vs fused form", union(a, v),
+           union_c(a, v), TOL_SPARSE_BF16)
+    record("bcsc_spmm_union", src, "spmm_pallas.py:258", union, (a, v),
+           TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak, lib_mm,
+           compact_ms=ms(union_c, a, v))
+    rhs = union_c.compactor(v)
+    record("bcsc_union_compact", src, "spmm_pallas.py:885",
+           union_c.compactor, (v,), TOL_EXACT,
+           v.numel() * v.element_size() + rhs.numel() * rhs.element_size(),
+           0, peak, None, clone_ms=ms(torch.clone, rhs))
     s_indptr, s_indices, sgmap = supertile_plan(shape, cfg, indptr, indices)
     sup = assemble_supertiles(v, torch.as_tensor(sgmap, device=dev),
                               torch.bfloat16)
@@ -1307,7 +1652,12 @@ def main() -> int:
     counts.update(ext["counts"])
     cnn_breakdown(ext["convs"], ext["cnn"], ms)
 
-    # 9. each kernel against its plain version, and timed
+    # 9. the rest of the sparse layer, counted on its own
+    layer = sparse_layer_path(randn, dev, ms)
+    for name, fn, fargs in layer["phases"]:
+        print(f"  phase {name}: {ms(fn, *fargs):.4f} ms per call")
+
+    # 10. each kernel against its plain version, and timed
     rows = []
 
     def record(name, source, replaces, fn, fargs, ref_tol, nbytes, flops,
@@ -1477,8 +1827,9 @@ def main() -> int:
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        cast = (f"; rne cast {r['rne_cast_ms']:.4f} ms"
-                if "rne_cast_ms" in r else "")
+        cast = "".join(f"; {label} {r[key]:.4f} ms" for key, label in (
+            ("rne_cast_ms", "rne cast"), ("compact_ms", "compacted form"),
+            ("clone_ms", "clone of the output")) if key in r)
         print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "
               f"{lib}{cast}); max_abs_err {r['max_abs_err']:.3e}"

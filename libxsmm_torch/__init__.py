@@ -18,15 +18,19 @@ Ported so far:
   * the TPP-Attention encoder block, served and trained
     (models/tpp_attention.py), and the TPP-MLP with SGD and splitSGD
     (models/tpp_mlp.py);
-  * the host sparse containers and the block-sparse packed SpGEMM,
-    create_packed_spgemm_bcsc with every strategy (ops/sparse.py), with the
-    scheduled, k-union, supertile and densify kernels
-    (kernels/csrc/spmm_kernels.cu);
+  * the sparse layer (ops/sparse.py): the host containers, the CSR/CSC
+    packed SpGEMM routings, create_spgemm_csr_areg and the block-sparse
+    create_packed_spgemm_bcsc with every strategy, its autotuned pick
+    persisted in the native KV log (native.py); the scheduled, k-union,
+    union RHS compactor, supertile and densify kernels
+    (kernels/csrc/spmm_kernels.cu); fsspmdm (ops/fsspmdm.py) and the packed
+    SOA GEMM (ops/packed.py);
   * the fused GEMM-ext (dispatch_brgemm_ext, ops/gemm.py), the quant, MX
     and sub-byte operands (quant.py, the MX/sub-byte GEMM decoders), the
     rng module, and stochastic rounding with its kernel
     (kernels/csrc/eltwise_kernels.cu);
-  * the TPP-CNN model (models/tpp_cnn.py), its conv as the BRGEMM-ext.
+  * the TPP-CNN model (models/tpp_cnn.py), its conv as the BRGEMM-ext,
+    and the TPP-GCN model on one device (models/tpp_gcn.py).
 The kernels are hand-written CUDA for sm_90a. A kernel follows the device of
 its tensors: CUDA tensors launch the CUDA kernel, CPU tensors run its plain
 torch version. libxsmm_torch never imports jax or libxsmm_tpu.
@@ -91,9 +95,18 @@ from .ops.eltwise import (bitmask_ld, dispatch_meltw_binary,
                           dispatch_meltw_ternary, dispatch_meltw_unary,
                           pack_bitmask, unpack_bitmask)
 from .ops.attention import dispatch_flash_attention
+from .ops.fsspmdm import (Fsspmdm, dfsspmdm_create, dfsspmdm_destroy,
+                          dfsspmdm_execute, fsspmdm_create, fsspmdm_destroy,
+                          fsspmdm_execute, sfsspmdm_create, sfsspmdm_destroy,
+                          sfsspmdm_execute)
 from .ops.sparse import (BcscMatrix, BsrMatrix, CscMatrix, CsrMatrix,
-                         create_packed_spgemm_bcsc,
-                         create_tilecfg_packed_spgemm_bcsc)
+                         create_packed_spgemm_bcsc, create_packed_spgemm_csc,
+                         create_packed_spgemm_csc_csparse,
+                         create_packed_spgemm_csr_bsparse,
+                         create_tilecfg_packed_spgemm_bcsc,
+                         create_packed_spgemm_csr, create_spgemm_csr_areg)
+from .ops.packed import (create_packed_gemm, create_packed_gemm_ac_rm,
+                         create_packed_gemm_bc_rm)
 
 __version__ = "0.1.0"
 

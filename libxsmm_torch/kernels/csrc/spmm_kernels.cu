@@ -1,10 +1,12 @@
 // Hand-written Hopper (sm_90a) kernels of the block-sparse (BCSC) SpMM path
-// of libxsmm_torch. They replace four Pallas TPU kernels of
+// of libxsmm_torch. They replace five Pallas TPU kernels of
 // libxsmm_tpu/kernels/spmm_pallas.py:
-//   xsmm_bcsc_spmm        build_bcsc_spmm        (:88,  strategy "pallas")
-//   xsmm_bcsc_spmm_union  build_bcsc_spmm_union  (:258, union ... union5)
-//   xsmm_bcsc_densify     build_bcsc_densify     (:800, strategy "dense")
-//   xsmm_bcsc_spmm_super  build_bcsc_spmm_super  (:942, strategy "super")
+//   xsmm_bcsc_spmm         build_bcsc_spmm         (:88,  strategy "pallas")
+//   xsmm_bcsc_spmm_union   build_bcsc_spmm_union   (:258, union ... union5)
+//     and xsmm_bcsc_spmm_union_compact, its form over a compacted RHS
+//   xsmm_bcsc_densify      build_bcsc_densify      (:800, strategy "dense")
+//   xsmm_bcsc_union_compact  build_union_compact_rhs (:885, union/2/3's RHS)
+//   xsmm_bcsc_spmm_super   build_bcsc_spmm_super   (:942, strategy "super")
 //
 // Plain C interface, no torch headers (see kernels/_build.py); the wrappers
 // in kernels/spmm.py allocate the outputs and hold the create-time schedule
@@ -26,11 +28,14 @@
 // Design: the scheduled and supertile kernels keep a 64 x 32 f32 tile in
 // registers (4 x 4 per thread) and stage 32-deep slices of A's panel and of
 // the value block in shared memory; the union kernel keeps a 64 x 128 tile
-// (4 x 8 per thread) and assembles its group's compacted right-hand side in
-// shared memory from the value store, slot by slot, so the compacted RHS
-// never exists in device memory. A is re-read from L2 for every block of a
-// column; the kernels are bound by their shared-memory traffic, not by
-// device memory.
+// (4 x 8 per thread). Its fused form (union4, union4a, union4d, union5)
+// assembles each slot's right-hand side in shared memory from the value
+// store through the gather map; its compacted form (union, union2, union3)
+// reads contiguous rows of the (n/128, U*bk, 128) RHS that the compactor
+// wrote just before, on the same stream, as the reference splits the work.
+// A is re-read from L2 for every block of a column; the kernels are bound by
+// their shared-memory traffic, not by device memory. The compactor moves
+// bytes only (values read once, the compacted RHS written once).
 
 #include <cuda_runtime.h>
 
@@ -123,15 +128,18 @@ __global__ void __launch_bounds__(128) bcsc_spmm_kernel(
 //
 // Block (x, y): column group g = x (W = 128 / bn block columns), rows
 // [64 y, 64 y + 64). For each union slot u < U it stages A's panel at block
-// row krows[g U + u] and the slot's (bk x 128) right-hand side, whose block
-// w is the value block gmap[(g U + u) W + w] (nzero: zeros), and accumulates
-// the 64 x 128 tile. A slot whose W entries are all the zero block is
-// padding (u_align, or a union smaller than U) and is skipped. Group
-// position w holds the caller's block column ocol[g W + w]: the clustering's
-// column restore is folded into the store.
+// row krows[g U + u] and the slot's (bk x 128) right-hand side, and
+// accumulates the 64 x 128 tile. Fused form (COMPACT false): block w of the
+// slot's RHS is the value block gmap[(g U + u) W + w] (nzero: zeros), found
+// per element. Compacted form (COMPACT true): `vals` is the compacted RHS
+// (n/128, U*bk, 128) and the slot's rows are (g U + u) bk + [0, bk),
+// contiguous. In both forms a slot whose W map entries are all the zero
+// block is padding (u_align, or a union smaller than U) and is skipped.
+// Group position w holds the caller's block column ocol[g W + w]: the
+// clustering's column restore is folded into the store.
 // ---------------------------------------------------------------------------
 
-template <typename TI, typename TO>
+template <typename TI, typename TO, bool COMPACT>
 __global__ void __launch_bounds__(256) bcsc_union_kernel(
     const TI* __restrict__ a, const TI* __restrict__ vals,
     const int* __restrict__ krows, const int* __restrict__ gmap,
@@ -152,11 +160,12 @@ __global__ void __launch_bounds__(256) bcsc_union_kernel(
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
   for (int u = 0; u < U; ++u) {
-    const int* gm = gmap + ((long long)g * U + u) * W;
+    const long long slot = (long long)g * U + u;
+    const int* gm = gmap + slot * W;
     bool live = false;
     for (int w = 0; w < W; ++w) live |= gm[w] != nzero;
     if (!live) continue;   // block-uniform: every thread reads the same map
-    const TI* ap = a + (long long)krows[(long long)g * U + u] * bk;
+    const TI* ap = a + (long long)krows[slot] * bk;
     for (int k0 = 0; k0 < bk; k0 += KC) {
       const int kc = min(KC, bk - k0);
       for (int i = tid; i < TM * KC; i += 256) {
@@ -166,11 +175,17 @@ __global__ void __launch_bounds__(256) bcsc_union_kernel(
       }
       for (int i = tid; i < KC * GW; i += 256) {
         const int kk = i / GW, c = i % GW;
-        const int v = gm[c / bn];
-        Rs[kk][c] = (v != nzero && kk < kc)
-                        ? to_f32(vals[((long long)v * bk + k0 + kk) * bn +
-                                      c % bn])
-                        : 0.0f;
+        float x = 0.0f;
+        if (kk < kc) {
+          if constexpr (COMPACT) {
+            x = to_f32(vals[(slot * bk + k0 + kk) * GW + c]);
+          } else {
+            const int v = gm[c / bn];
+            if (v != nzero)
+              x = to_f32(vals[((long long)v * bk + k0 + kk) * bn + c % bn]);
+          }
+        }
+        Rs[kk][c] = x;
       }
       __syncthreads();
 #pragma unroll 4
@@ -197,6 +212,37 @@ __global__ void __launch_bounds__(256) bcsc_union_kernel(
       const int gr = row0 + ty * 4 + i;
       if (gr < m) store_as(acc[i][j], out + (long long)gr * n + col);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Union RHS compactor (build_union_compact_rhs): out (n/128, U*bk, 128) from
+// the gather map (n/128, U, W) of value indices, out[g, u bk + r, w bn + c]
+// = vals[gmap[g, u, w], r, c] (nzero: zeros, so pad slots hold zeros and
+// never stale memory). Block x owns slot x = g U + u and copies its W
+// (bk x bn) blocks as raw units V of 1-16 bytes (V divides a block row's
+// bn * itemsize bytes and both base addresses), so it serves any element
+// type; `cpr` is the units per block row.
+// ---------------------------------------------------------------------------
+
+template <typename V>
+__global__ void __launch_bounds__(256) bcsc_union_compact_kernel(
+    const V* __restrict__ vals, const int* __restrict__ gmap,
+    V* __restrict__ out, int W, int bk, int cpr, int nzero) {
+  __shared__ int gm[GW];
+  const long long slot = blockIdx.x;
+  for (int w = threadIdx.x; w < W; w += blockDim.x) gm[w] = gmap[slot * W + w];
+  __syncthreads();
+  const int row_units = W * cpr;       // units per 128-column output row
+  const int total = bk * row_units;
+  V* op = out + slot * total;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = i / row_units, cu = i - r * row_units;
+    const int w = cu / cpr, c = cu - w * cpr;
+    const int v = gm[w];
+    V x{};
+    if (v != nzero) x = vals[((long long)v * bk + r) * cpr + c];
+    op[i] = x;
   }
 }
 
@@ -243,12 +289,29 @@ template <typename TI, typename TO>
 static int launch_union(const void* a, const void* vals, const int* krows,
                         const int* gmap, const int* ocol, void* out, int m,
                         int k, int n, int bk, int bn, int U, int nzero,
-                        cudaStream_t st) {
+                        bool compact, cudaStream_t st) {
   const long long gy = (m + TM - 1) / TM;
   if (gy > 65535) return cudaErrorInvalidConfiguration;
-  bcsc_union_kernel<TI, TO><<<dim3(n / GW, (unsigned)gy), 256, 0, st>>>(
-      static_cast<const TI*>(a), static_cast<const TI*>(vals), krows, gmap,
-      ocol, static_cast<TO*>(out), m, k, n, bk, bn, U, nzero);
+  const dim3 grid(n / GW, (unsigned)gy);
+  if (compact)
+    bcsc_union_kernel<TI, TO, true><<<grid, 256, 0, st>>>(
+        static_cast<const TI*>(a), static_cast<const TI*>(vals), krows, gmap,
+        ocol, static_cast<TO*>(out), m, k, n, bk, bn, U, nzero);
+  else
+    bcsc_union_kernel<TI, TO, false><<<grid, 256, 0, st>>>(
+        static_cast<const TI*>(a), static_cast<const TI*>(vals), krows, gmap,
+        ocol, static_cast<TO*>(out), m, k, n, bk, bn, U, nzero);
+  return cudaGetLastError();
+}
+
+template <typename V>
+static int launch_compact(const void* vals, const int* gmap, void* out,
+                          long long slots, int W, int bk, int cpr, int nzero,
+                          cudaStream_t st) {
+  if (slots > 2147483647LL) return cudaErrorInvalidConfiguration;
+  bcsc_union_compact_kernel<V><<<(unsigned)slots, 256, 0, st>>>(
+      static_cast<const V*>(vals), gmap, static_cast<V*>(out), W, bk, cpr,
+      nzero);
   return cudaGetLastError();
 }
 
@@ -311,18 +374,76 @@ int xsmm_bcsc_spmm_super(const void* a, const void* sup, const int* ptr,
                     in_type, out_type, stream);
 }
 
-// krows (n/128 * U); gmap (n/128 * U * 128/bn); ocol (n/bn)
-int xsmm_bcsc_spmm_union(const void* a, const void* vals, const int* krows,
-                         const int* gmap, const int* ocol, void* out, int m,
-                         int k, int n, int bk, int bn, int U, int nzero,
-                         int in_type, int out_type, void* stream) {
+static int union_entry(const void* a, const void* vals, const int* krows,
+                       const int* gmap, const int* ocol, void* out, int m,
+                       int k, int n, int bk, int bn, int U, int nzero,
+                       int in_type, int out_type, bool compact, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m < 0 || k <= 0 || bk <= 0 || bn <= 0 || U <= 0 || k % bk ||
       GW % bn || n <= 0 || n % GW)
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   XSMM_SPMM_DISPATCH(launch_union, a, vals, krows, gmap, ocol, out, m, k, n,
-                     bk, bn, U, nzero, st)
+                     bk, bn, U, nzero, compact, st)
+}
+
+// krows (n/128 * U); gmap (n/128 * U * 128/bn); ocol (n/bn)
+int xsmm_bcsc_spmm_union(const void* a, const void* vals, const int* krows,
+                         const int* gmap, const int* ocol, void* out, int m,
+                         int k, int n, int bk, int bn, int U, int nzero,
+                         int in_type, int out_type, void* stream) {
+  return union_entry(a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U,
+                     nzero, in_type, out_type, false, stream);
+}
+
+// the same over the compacted RHS rhs (n/128, U*bk, 128) of
+// xsmm_bcsc_union_compact; gmap still marks the dead slots
+int xsmm_bcsc_spmm_union_compact(const void* a, const void* rhs,
+                                 const int* krows, const int* gmap,
+                                 const int* ocol, void* out, int m, int k,
+                                 int n, int bk, int bn, int U, int nzero,
+                                 int in_type, int out_type, void* stream) {
+  return union_entry(a, rhs, krows, gmap, ocol, out, m, k, n, bk, bn, U,
+                     nzero, in_type, out_type, true, stream);
+}
+
+// vals (nblocks, bk, bn); gmap (nsg * U * 128/bn); out (nsg, U*bk, 128);
+// elem_size: bytes per element of vals and out
+int xsmm_bcsc_union_compact(const void* vals, const int* gmap, void* out,
+                            int nsg, int U, int bk, int bn, int nzero,
+                            int elem_size, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nsg < 0 || U <= 0 || bk <= 0 || bn <= 0 || GW % bn || elem_size <= 0)
+    return cudaErrorInvalidValue;
+  if (nsg == 0) return cudaSuccess;
+  const int W = GW / bn;
+  const long long slots = (long long)nsg * U;
+  const int row_bytes = bn * elem_size;
+  const unsigned long long addr =
+      reinterpret_cast<unsigned long long>(vals) |
+      reinterpret_cast<unsigned long long>(out);
+  for (int unit = 16; unit >= 1; unit /= 2) {
+    if (row_bytes % unit || addr % unit) continue;
+    const int cpr = row_bytes / unit;
+    switch (unit) {
+      case 16:
+        return launch_compact<uint4>(vals, gmap, out, slots, W, bk, cpr,
+                                     nzero, st);
+      case 8:
+        return launch_compact<uint2>(vals, gmap, out, slots, W, bk, cpr,
+                                     nzero, st);
+      case 4:
+        return launch_compact<uint32_t>(vals, gmap, out, slots, W, bk, cpr,
+                                        nzero, st);
+      case 2:
+        return launch_compact<uint16_t>(vals, gmap, out, slots, W, bk, cpr,
+                                        nzero, st);
+      default:
+        return launch_compact<uint8_t>(vals, gmap, out, slots, W, bk, cpr,
+                                       nzero, st);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 // gmap (k/bk * n/bn); elem_size: bytes per element of vals and out

@@ -3,15 +3,24 @@ CUDA kernels of csrc/spmm_kernels.cu, each with its plain torch version.
 
 The port of `libxsmm_tpu/kernels/spmm_pallas.py`: the schedule helpers
 (`_pad_empty_columns`, `_block_schedule`), the clustering of block columns
-(`_cluster_union_groups`, host numpy, as the reference's) and four kernels:
+(`_cluster_union_groups`, host numpy, as the reference's) and five kernels:
 
 * build_bcsc_spmm — strategy "pallas": one schedule step per (block column,
   nonzero block) in CSC order, an empty block column padded with one zero
   block.
 * build_bcsc_spmm_union — the union strategies: per 128-column group, A's
   compacted k-union times the group's compacted values. The reference's
-  TPU schedules (double buffering, DMA assembly, fused RHS, A in HBM) are
-  one CUDA kernel here; its seven strategy names differ only in `u_align`.
+  TPU schedules (double buffering, DMA assembly, A in HBM) are one CUDA
+  kernel here, in two forms: the fused form assembles each slot's RHS from
+  the value store itself (union4, union4a, union4d, union5); the compacted
+  form (compact=True: union, union2, union3) first launches the compactor,
+  then reads its contiguous RHS, as the reference runs its separate pass.
+* BcscUnionCompact (a union plan's `.compactor`), the port of
+  build_union_compact_rhs (:885): values -> the per-group compacted RHS
+  (nsg, U*bk, 128) through the plan's gather map. The reference refuses a
+  value store larger than a quarter of VMEM and falls back to XLA
+  (:899-900, :777-783), a Mosaic limit: the compactor serves every plan the
+  union kernel takes.
 * build_bcsc_densify — strategy "dense": values -> dense B (k, n) through
   the create-time gather map.
 * build_bcsc_spmm_super — strategy "super": the scheduled kernel over the
@@ -48,7 +57,7 @@ from .gemm import _check, _on_cuda, _ptr, _raise_on_error, _stream
 # kernel launches since the last reset_launches(); the wrappers add one where
 # they launch their CUDA kernel, and nowhere else
 launches = {"bcsc_spmm": 0, "bcsc_spmm_union": 0, "bcsc_densify": 0,
-            "bcsc_spmm_super": 0}
+            "bcsc_spmm_super": 0, "bcsc_union_compact": 0}
 
 
 def reset_launches() -> None:
@@ -75,9 +84,13 @@ def _kernels() -> ctypes.CDLL:
         lib.xsmm_bcsc_spmm.argtypes = [P, P, P, P, P, P] + [I] * 8 + [P]
         lib.xsmm_bcsc_spmm_super.argtypes = [P, P, P, P, P, P] + [I] * 6 + [P]
         lib.xsmm_bcsc_spmm_union.argtypes = [P, P, P, P, P, P] + [I] * 9 + [P]
+        lib.xsmm_bcsc_spmm_union_compact.argtypes = (
+            [P, P, P, P, P, P] + [I] * 9 + [P])
         lib.xsmm_bcsc_densify.argtypes = [P, P, P] + [I] * 6 + [P]
+        lib.xsmm_bcsc_union_compact.argtypes = [P, P, P] + [I] * 6 + [P]
         for f in (lib.xsmm_bcsc_spmm, lib.xsmm_bcsc_spmm_super,
-                  lib.xsmm_bcsc_spmm_union, lib.xsmm_bcsc_densify):
+                  lib.xsmm_bcsc_spmm_union, lib.xsmm_bcsc_spmm_union_compact,
+                  lib.xsmm_bcsc_densify, lib.xsmm_bcsc_union_compact):
             f.restype = I
         lib.xsmm_error_string.argtypes = [I]
         lib.xsmm_error_string.restype = ctypes.c_char_p
@@ -328,30 +341,81 @@ def _cluster_union_groups(indptr: np.ndarray, indices: np.ndarray,
     return np.asarray([j for g in groups for j in g], np.int32)
 
 
+class BcscUnionCompact:
+    """fn(values (nblocks, bk, bn)) -> the compacted RHS (nsg, U*bk, 128) in
+    the operand type: out[g, u*bk:(u+1)*bk, w*bn:(w+1)*bn] =
+    values[gmap[g, u, w]], the zero block where the map says nblocks. gmap
+    is the union plan's flattened (nsg, U, W) map, on the plan's device."""
+
+    def __init__(self, nsg: int, U: int, W: int, bk: int, bn: int,
+                 nblocks: int, gmap: torch.Tensor, in_dt: torch.dtype):
+        self.nsg, self.U, self.W, self.bk, self.bn = nsg, U, W, bk, bn
+        self.nblocks = nblocks
+        self.gmap = gmap
+        self.in_dt = in_dt
+        self.name = f"bcsc_union_compact_{nsg}x{U}x{W}_b{bk}x{bn}"
+
+    def __call__(self, values):
+        _check("values", values, (self.nblocks, self.bk, self.bn))
+        values = values.to(self.in_dt)
+        if not _on_cuda(values, self.gmap):
+            return self.plain(values)
+        values = values.contiguous()
+        out = torch.empty((self.nsg, self.U * self.bk, GROUP),
+                          dtype=self.in_dt, device=values.device)
+        lib = _kernels()
+        with torch.cuda.device(values.device):
+            err = lib.xsmm_bcsc_union_compact(
+                _ptr(values), _ptr(self.gmap), _ptr(out), self.nsg, self.U,
+                self.bk, self.bn, self.nblocks, values.element_size(),
+                _stream(values.device))
+        _raise_on_error(err, self.name, lib)
+        launches["bcsc_union_compact"] += 1
+        return out
+
+    def plain(self, values):
+        """The padded value store gathered by the map, each slot's W blocks
+        laid side by side (BcscSpmmUnion.plain's right-hand side)."""
+        vpad = _zero_block(values.to(self.in_dt))
+        rhs = vpad[self.gmap.long()].reshape(self.nsg, self.U, self.W,
+                                             self.bk, self.bn)
+        return rhs.permute(0, 1, 3, 2, 4).reshape(self.nsg, self.U * self.bk,
+                                                  GROUP)
+
+
 class BcscSpmmUnion(_SpmmKernel):
     """The k-union kernel over the create-time union plan: krows (nsg, U)
     block rows, gmap (nsg, U, W) value indices (nblocks = the zero block),
-    ocol (nb,) the caller's block column at each group position."""
+    ocol (nb,) the caller's block column at each group position. With
+    `compact` each call launches the compactor, then the kernel's compacted
+    form; `launches["bcsc_spmm_union"]` counts both forms."""
 
     counter = "bcsc_spmm_union"
 
     def __init__(self, shape: GemmShape, bk: int, bn: int,
                  krows: np.ndarray, gmap: np.ndarray, ocol: np.ndarray,
-                 nblocks: int, clustered: bool, device):
+                 nblocks: int, clustered: bool, device, compact: bool = False):
         super().__init__(shape, bk, bn, nblocks)
         self.nsg, self.U, self.W = gmap.shape
         self.union_panels = self.U      # introspection for tests and logs
         self.clustered = clustered
+        self.compact = compact
         self.krows = _index(krows.reshape(-1), device)
         self.gmap = _index(gmap.reshape(-1), device)
         self.ocol = _index(ocol, device)
         self.plan = self.krows
+        self.compactor = BcscUnionCompact(self.nsg, self.U, self.W, bk, bn,
+                                          nblocks, self.gmap, self.in_dt)
         self.name = (f"{self.counter}_{self.m}x{self.n}x{self.k}"
                      f"_b{bk}x{bn}_U{self.U}")
 
     def _launch(self, lib, a, values, out):
-        return lib.xsmm_bcsc_spmm_union(
-            _ptr(a), _ptr(values), _ptr(self.krows), _ptr(self.gmap),
+        entry, rhs = lib.xsmm_bcsc_spmm_union, values
+        if self.compact:
+            entry, rhs = (lib.xsmm_bcsc_spmm_union_compact,
+                          self.compactor(values))
+        return entry(
+            _ptr(a), _ptr(rhs), _ptr(self.krows), _ptr(self.gmap),
             _ptr(self.ocol), _ptr(out), self.m, self.k, self.n, self.bk,
             self.bn, self.U, self.nblocks, _TYPE_CODE[self.in_dt],
             _TYPE_CODE[self.kout_dt], _stream(a.device))
@@ -361,14 +425,12 @@ class BcscSpmmUnion(_SpmmKernel):
         (U*bk, 128) compacted values in f32, pad slots included; each
         group position stored at its caller's block column; cast once."""
         m, n, k, bk, bn = self.m, self.n, self.k, self.bk, self.bn
-        nsg, U, W = self.nsg, self.U, self.W
+        nsg, U = self.nsg, self.U
         a, values = self._operands(a, values)
-        vpad = _zero_block(values, torch.float32)
         panels = a.float().reshape(m, k // bk, bk).transpose(0, 1)
         pa = panels[self.krows.long()].reshape(nsg, U, m, bk)
         pa = pa.permute(0, 2, 1, 3).reshape(nsg, m, U * bk)
-        rhs = vpad[self.gmap.long()].reshape(nsg, U, W, bk, bn)
-        rhs = rhs.permute(0, 1, 3, 2, 4).reshape(nsg, U * bk, GROUP)
+        rhs = self.compactor.plain(values).float()
         grouped = torch.bmm(pa, rhs).transpose(0, 1).reshape(m, n // bn, bn)
         out = torch.empty_like(grouped).index_copy_(1, self.ocol.long(),
                                                     grouped)
@@ -378,10 +440,12 @@ class BcscSpmmUnion(_SpmmKernel):
 def build_bcsc_spmm_union(shape: GemmShape, config: SpgemmConfig,
                           indptr: np.ndarray, indices: np.ndarray,
                           device, cluster: bool = True,
-                          u_align: int = 1) -> Optional[BcscSpmmUnion]:
+                          u_align: int = 1,
+                          compact: bool = False) -> Optional[BcscSpmmUnion]:
     """K-union-compacted BCSC SpMM: fn(a, values) -> C(m, n), beta=0, or
     None when the blocking does not tile 128-column groups (bn | 128,
-    128 | n, bk | k) or the operand type is not f32/bf16.
+    128 | n, bk | k) or the operand type is not f32/bf16. `compact` selects
+    the two-launch form (compactor, then the kernel over its RHS).
 
     The create-time plan is the reference's (spmm_pallas.py:339-407): the
     optional clustering permutation, the per-group unions of block rows,
@@ -453,7 +517,7 @@ def build_bcsc_spmm_union(shape: GemmShape, config: SpgemmConfig,
                     gmap[g, rpos[r], wj] = (int(vmap[pos])
                                             if vmap is not None else pos)
     return BcscSpmmUnion(shape, bk, bn, krows, gmap, ocol, nblocks,
-                         perm is not None, device)
+                         perm is not None, device, compact)
 
 
 # ---------------------------------------------------------------------------

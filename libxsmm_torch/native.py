@@ -1,0 +1,137 @@
+"""ctypes bridge to the native host runtime (native/xsmm_native.cpp).
+
+The port's own copy of the part of `libxsmm_tpu/native_bridge.py` that the
+sparse layer needs: `load`, `crc32` and `PersistentKv`, the append-only,
+CRC-checked key-value log in which the autotuners persist their picks. The
+log format is the C++ code's, so a log written by either package is read by
+the other.
+
+The library is built at first use from the tracked source with the flags of
+`native/Makefile`,
+
+    g++ -O2 -fPIC -std=c++17 -shared -pthread -o <lib> native/xsmm_native.cpp
+
+into `libxsmm_torch/kernels/build/` (listed in .gitignore), named by a hash
+of the source as kernels/_build.py names the CUDA libraries. The tracked
+`native/libxsmm_native.so` is never rebuilt or written here. `load()`
+returns None when the library cannot be built or loaded; callers treat that
+as "no persistent store", as the reference's do. This is a host cache, not
+part of any device path.
+
+Not ported yet (ROADMAP.md queue 1, item 14): the registry bindings and
+`read_mtx_coo`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import threading
+from typing import Optional
+
+_REPO = pathlib.Path(__file__).resolve().parents[1]
+SRC = _REPO / "native" / "xsmm_native.cpp"
+BUILD = pathlib.Path(__file__).resolve().parent / "kernels" / "build"
+FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared", "-pthread"]
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def library_path() -> pathlib.Path:
+    """The library built from SRC, named by a hash of the source and the
+    flags."""
+    data = SRC.read_bytes() + " ".join(FLAGS).encode()
+    return BUILD / f"xsmm_native-{hashlib.sha1(data).hexdigest()[:12]}.so"
+
+
+def _build(out: pathlib.Path) -> bool:
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run(["g++", *FLAGS, "-o", str(tmp), str(SRC)], check=True,
+                       capture_output=True, timeout=120)
+        os.replace(tmp, out)     # atomic publish: never load a partial .so
+        return True
+    except (OSError, subprocess.SubprocessError):
+        return False
+
+
+def load() -> Optional[ctypes.CDLL]:
+    """The native library (built on first use); None when unavailable."""
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if not SRC.exists():
+            return None
+        out = library_path()
+        if not out.exists() and not _build(out):
+            return None
+        try:
+            lib = ctypes.CDLL(str(out))
+        except OSError:
+            return None
+        P, U64 = ctypes.c_void_p, ctypes.c_uint64
+        lib.xsmm_crc32.restype = ctypes.c_uint32
+        lib.xsmm_crc32.argtypes = [P, U64, ctypes.c_uint32]
+        lib.xsmm_kv_append.restype = ctypes.c_int
+        lib.xsmm_kv_append.argtypes = [ctypes.c_char_p, P, U64, P, U64]
+        lib.xsmm_kv_lookup.restype = ctypes.c_int64
+        lib.xsmm_kv_lookup.argtypes = [ctypes.c_char_p, P, U64, P, U64]
+        _lib = lib
+        return _lib
+
+
+def crc32(data: bytes, seed: int = 0) -> Optional[int]:
+    """CRC32C of `data` (the native runtime's hash); None without the
+    library."""
+    lib = load()
+    if lib is None:
+        return None
+    buf = ctypes.create_string_buffer(data, len(data))
+    return int(lib.xsmm_crc32(ctypes.cast(buf, ctypes.c_void_p), len(data),
+                              seed))
+
+
+class PersistentKv:
+    """File-backed KV log (autotune decisions): put appends a record, get
+    returns the value of the last record with the key."""
+
+    def __init__(self, path):
+        self._lib = load()
+        if self._lib is None:
+            raise RuntimeError("native library unavailable")
+        self.path = os.fsencode(str(path))
+
+    def put(self, key: bytes, value: bytes) -> bool:
+        kbuf = ctypes.create_string_buffer(key, len(key))
+        vbuf = ctypes.create_string_buffer(value, len(value))
+        rc = self._lib.xsmm_kv_append(
+            self.path, ctypes.cast(kbuf, ctypes.c_void_p), len(key),
+            ctypes.cast(vbuf, ctypes.c_void_p), len(value))
+        return rc == 0
+
+    def get(self, key: bytes) -> Optional[bytes]:
+        kbuf = ctypes.create_string_buffer(key, len(key))
+        n = self._lib.xsmm_kv_lookup(
+            self.path, ctypes.cast(kbuf, ctypes.c_void_p), len(key), None, 0)
+        # the size probe and the fill are two scans of a log other processes
+        # may append to between them (later record wins): retry until the
+        # fill sees the same length, so a grown record is never truncated
+        for _ in range(4):
+            if n < 0:
+                return None
+            out = ctypes.create_string_buffer(int(n))
+            got = self._lib.xsmm_kv_lookup(
+                self.path, ctypes.cast(kbuf, ctypes.c_void_p), len(key),
+                ctypes.cast(out, ctypes.c_void_p), int(n))
+            if got == n:
+                return out.raw
+            n = got
+        return None

@@ -1,28 +1,37 @@
-"""Sparse GEMM: the host containers and the block-sparse (BCSC) packed
-SpGEMM.
+"""Sparse GEMM: the host containers, the packed SpGEMM routings (CSR, CSC,
+BCSC) and the pattern-baked SpMM.
 
-The port of the BCSC part of `libxsmm_tpu/ops/sparse.py` (the reference's
-libxsmm_create_packed_spgemm_bcsc family,
-generator_packed_spgemm_bcsc_bsparse*.c):
+The port of `libxsmm_tpu/ops/sparse.py` (the reference's generator family
+generator_packed_spgemm.c:24-101, *_csr_asparse.c, *_csr_bsparse.c,
+*_csc_bsparse.c, *_csc_csparse*.c, *_bcsc_bsparse*.c,
+generator_spgemm_csr_asparse_reg.c):
 
   * The sparsity PATTERN is a create-time constant, fingerprinted into the
     kernel key (descriptor.SparsePattern), so identical patterns share one
-    kernel; the VALUES are runtime operands.
-  * `create_packed_spgemm_bcsc` resolves a strategy ("auto" times every
-    lowering on the card, or takes the roofline rule on the CPU), makes the
-    chosen lowering's plan once, in numpy, and puts it on the create's
+    kernel; the VALUES are runtime operands, except in
+    create_spgemm_csr_areg, which bakes them as the reference does.
+  * Every create makes its plan once, in numpy, and puts it on the create's
     device (default: the GPU, raising without one; device="cpu" runs the
-    plain torch versions). The lowerings: "pallas", the union family and
-    "super" run the hand-written CUDA kernels of kernels/spmm.py; "dense"
-    runs the densify kernel, then one library matmul (the reference leaves
-    that product to XLA); "sparse" is torch ops (panel gather, bmm,
-    index_add_).
-  * Rounding follows each of the reference's routes: the kernel routes
+    plain torch versions). Operands that are tensors stay on their device;
+    numpy arrays are loaded onto the create's.
+  * The CSR/CSC routings and csr_areg are jnp in the reference, so they are
+    torch ops here: gathers, einsum contractions, and `index_add_` where
+    the reference takes `jax.ops.segment_sum`. Packed operands keep the
+    packed width as the trailing dimension ([row][col][packed]); beta per
+    flags; "auto" takes the roofline rule (_dense_beats_sparse) with the
+    reference's traffic formulas.
+  * `create_packed_spgemm_bcsc` resolves a strategy ("auto" times every
+    lowering on the card, with its pick persisted in the native KV log, or
+    takes the roofline rule on the CPU) and builds it. "pallas", the union
+    family and "super" run the hand-written CUDA kernels of kernels/spmm.py
+    (union, union2 and union3 as two launches: the RHS compactor, then the
+    union kernel over its output); "dense" runs the densify kernel, then
+    one library matmul (the reference leaves that product to XLA);
+    "sparse" is torch ops (panel gather, bmm, index_add_).
+  * Rounding follows each of the reference's routes: the BCSC kernel routes
     compute in f32, round to the output type, then add `c` in the output
-    type; "dense" and "sparse" add `c` in the compute type, then round.
+    type; every torch route adds `c` in the compute type, then rounds.
 
-Not ported yet (ROADMAP.md queue 1, item 11): the CSR/CSC routings,
-create_spgemm_csr_areg, ops/fsspmdm.py and ops/packed.py.
 Layouts are row-major; alpha=1, beta in {0,1} as everywhere in this library.
 """
 
@@ -42,7 +51,7 @@ from ..dtypes import Datatype, itemsize, to_torch
 from ..kernels import spmm as spmm_kernels
 from ..kernels.gemm import add_acc, contract, wrap_i32
 from ..registry import Kernel, KernelInfo, get_registry
-from .gemm import _as_tensor, _comp_dtype
+from .gemm import _as_tensor, _comp_dtype, _index
 
 _UNION = ("union", "union2", "union3", "union4", "union4a", "union4d",
           "union5")
@@ -257,6 +266,342 @@ class BsrMatrix:
 
 
 # ---------------------------------------------------------------------------
+# helpers of the CSR/CSC routings (torch ops, the reference's jnp)
+# ---------------------------------------------------------------------------
+
+def _finish(acc: torch.Tensor, c, out_dt: torch.dtype, dev) -> torch.Tensor:
+    """acc (+ c in acc's type, for beta=1), rounded once to the output."""
+    if c is not None:
+        acc = add_acc(acc, _as_tensor(c, dev))
+    return acc.to(out_dt).contiguous()
+
+
+def _einsum(eq: str, x: torch.Tensor, y: torch.Tensor,
+            comp: torch.dtype) -> torch.Tensor:
+    """torch.einsum(eq, x, y) accumulated in `comp` (kernels.gemm.contract:
+    widened operands, integers exact through float64)."""
+    return contract(lambda u, v: torch.einsum(eq, u, v), x, y, comp)
+
+
+def _gather_map(rows: np.ndarray, cols: np.ndarray, shape, nnz: int):
+    """posmat (rows * cols,) of the densifying gather: the value index at
+    each nonzero, nnz (the appended zero slot) elsewhere."""
+    posmat = np.full(shape[0] * shape[1], nnz, np.int64)
+    posmat[rows.astype(np.int64) * shape[1] + cols] = np.arange(nnz)
+    return posmat
+
+
+def _densify(values: torch.Tensor, posmat: torch.Tensor,
+             shape) -> torch.Tensor:
+    """The dense operand of a "dense" lowering: the values with a zero
+    appended, gathered by the create-time map."""
+    vpad = torch.cat([values, values.new_zeros(1)])
+    return vpad[posmat].reshape(shape)
+
+
+def _segment_columns(a: torch.Tensor, kid: torch.Tensor,
+                     values: torch.Tensor, seg: torch.Tensor, n: int,
+                     comp: torch.dtype) -> torch.Tensor:
+    """sum over nonzeros t of a[:, kid[t]] * values[t] into output column
+    seg[t]: a (m, k[, p]) -> (m, n[, p]) in `comp`. index_add_ stands in
+    for jax.ops.segment_sum (the ids need not be sorted); integers sum
+    exactly in float64 and wrap to int32 at the end."""
+    acc_dt = comp if comp.is_floating_point else torch.float64
+    cols = a.index_select(1, kid).to(acc_dt)                 # (m, nnz[, p])
+    v = values.to(acc_dt)
+    contrib = cols * (v[None, :] if a.ndim == 2 else v[None, :, None])
+    contrib = contrib.transpose(0, 1)                        # (nnz, m[, p])
+    acc = contrib.new_zeros((n,) + tuple(contrib.shape[1:]))
+    acc = acc.index_add_(0, seg, contrib).transpose(0, 1)
+    if not comp.is_floating_point:
+        acc = wrap_i32(acc.to(torch.int64))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# packed SpGEMM, A sparse (CSR): C[m,n(,p)] += A_sp[m,k] * B[k,n(,p)]
+# ---------------------------------------------------------------------------
+
+def create_packed_spgemm_csr(shape: GemmShape,
+                             flags: GemmFlags = GemmFlags.NONE,
+                             packed_width: int = 1,
+                             row_ptr: np.ndarray = None,
+                             column_idx: np.ndarray = None,
+                             strategy: str = "auto",
+                             sparse_operand: str = "a",
+                             device=None) -> Kernel:
+    """libxsmm_create_packed_spgemm_csr analogue (src/libxsmm_main.c:3553).
+
+    The reference routes two kernels by which leading dimension is zero
+    (generator_packed_spgemm.c:24-56); here `sparse_operand` names the
+    sparse operand: "a" keeps A sparse, "b" routes to
+    create_packed_spgemm_csr_bsparse with the same CSR index contract over
+    B's (k, n).
+
+    A-sparse kernel: kernel(values, b[, c]) with values (nnz,), b (k, n) or
+    (k, n, p), c (m, n[, p]). strategy: "sparse" = ELL gather of B's rows +
+    one contraction; "dense" = the create-time gather map densifies A, then
+    one product; "auto" = the roofline rule. An empty pattern takes
+    "dense" (its zero slot)."""
+    if sparse_operand == "b":
+        return create_packed_spgemm_csr_bsparse(
+            shape, flags, packed_width, row_ptr, column_idx, strategy,
+            device=device)
+    if sparse_operand != "a":
+        raise ValueError(f"sparse_operand must be 'a' or 'b', got "
+                         f"{sparse_operand!r}")
+    m, n, k = shape.m, shape.n, shape.k
+    csr = CsrMatrix((m, k), np.asarray(row_ptr, np.int32),
+                    np.asarray(column_idx, np.int32))
+    dev = resolve_device(device)
+    if csr.nnz == 0:
+        strategy = "dense"
+    elif strategy == "auto":
+        rmax = int(np.diff(csr.indptr).max(initial=0))
+        sparse_bytes = (m * rmax * n * max(1, packed_width)
+                        * itemsize(shape.b_in_type))
+        strategy = ("dense" if _dense_beats_sparse(shape, sparse_bytes)
+                    else "sparse")
+    pattern = SparsePattern(format="csr", rows=m, cols=k, nnz=csr.nnz,
+                            fingerprint=csr.fingerprint())
+    desc = ("pspgemm_csr", shape, GemmFlags(flags), packed_width, pattern,
+            strategy, dev)
+
+    def _build(_key):
+        comp = _comp_dtype(shape)
+        out_dt = to_torch(shape.out_type)
+        # only the chosen strategy's plan is built and kept on the device
+        if strategy == "dense":
+            rows = np.repeat(np.arange(m), np.diff(csr.indptr))
+            posd = _index(_gather_map(rows, csr.indices, (m, k), csr.nnz),
+                         dev)
+
+            def fn(values, b, c=None):
+                b = _as_tensor(b, dev)
+                adense = _densify(_as_tensor(values, dev), posd, (m, k))
+                if b.ndim == 2:
+                    acc = _dense_product(adense, b, comp)
+                else:
+                    acc = _einsum("mk,knp->mnp", adense, b, comp)
+                return _finish(acc, c, out_dt, dev)
+        else:
+            col, pos, mask, rmax = csr.ell()
+            cold = _index(col.reshape(-1), dev)
+            posd = _index(pos.reshape(-1), dev)
+            padd = torch.as_tensor(mask == 0, device=dev)
+
+            def fn(values, b, c=None):
+                b = _as_tensor(b, dev)
+                vals = _as_tensor(values, dev)[posd].reshape(m, rmax)
+                vals = vals.masked_fill(padd, 0)
+                gb = b[cold].reshape((m, rmax) + tuple(b.shape[1:]))
+                eq = "mr,mrn->mn" if b.ndim == 2 else "mr,mrnp->mnp"
+                return _finish(_einsum(eq, vals, gb, comp), c, out_dt, dev)
+
+        info = KernelInfo(kind="pspgemm_csr",
+                          nflops=2 * csr.nnz * n * max(1, packed_width))
+        return Kernel(fn=fn, descriptor=desc, info=info,
+                      name=f"pspgemm_csr_{m}x{n}x{k}")
+
+    return get_registry().dispatch(desc, _build)
+
+
+# ---------------------------------------------------------------------------
+# packed SpGEMM, B sparse (CSC): C[m,n(,p)] += A[m,k(,p)] * B_sp[k,n]
+# ---------------------------------------------------------------------------
+
+def create_packed_spgemm_csc(shape: GemmShape,
+                             flags: GemmFlags = GemmFlags.NONE,
+                             packed_width: int = 1,
+                             column_ptr: np.ndarray = None,
+                             row_idx: np.ndarray = None,
+                             sparse_operand: str = "b",
+                             strategy: str = "auto",
+                             device=None) -> Kernel:
+    """libxsmm_create_packed_spgemm_csc analogue (src/libxsmm_main.c:3597).
+
+    `sparse_operand` "b" keeps B sparse; "c" routes to
+    create_packed_spgemm_csc_csparse (SDDMM) with the same CSC index
+    contract over C's (m, n) (generator_packed_spgemm.c:61-101).
+
+    B-sparse kernel: kernel(a, values[, c]) with a (m, k) or (m, k, p) and
+    values (nnz,): A's columns gathered per nonzero, scaled, summed into
+    their output columns. It has one lowering, so a strategy other than
+    "auto" raises rather than being ignored."""
+    if sparse_operand == "c":
+        return create_packed_spgemm_csc_csparse(
+            shape, flags, packed_width, column_ptr, row_idx, strategy,
+            device=device)
+    if sparse_operand != "b":
+        raise ValueError(f"sparse_operand must be 'b' or 'c', got "
+                         f"{sparse_operand!r}")
+    if strategy != "auto":
+        raise ValueError("strategy applies only to the C-sparse routing "
+                         f"(sparse_operand='c'); got {strategy!r}")
+    m, n, k = shape.m, shape.n, shape.k
+    csc = CscMatrix((k, n), np.asarray(column_ptr, np.int32),
+                    np.asarray(row_idx, np.int32))
+    dev = resolve_device(device)
+    pattern = SparsePattern(format="csc", rows=k, cols=n, nnz=csc.nnz,
+                            fingerprint=csc.fingerprint())
+    desc = ("pspgemm_csc", shape, GemmFlags(flags), packed_width, pattern,
+            dev)
+
+    def _build(_key):
+        rowd = _index(csc.indices, dev)
+        segd = _index(np.repeat(np.arange(n), np.diff(csc.indptr)), dev)
+        comp = _comp_dtype(shape)
+        out_dt = to_torch(shape.out_type)
+
+        def fn(a, values, c=None):
+            acc = _segment_columns(_as_tensor(a, dev), rowd,
+                                   _as_tensor(values, dev), segd, n, comp)
+            return _finish(acc, c, out_dt, dev)
+
+        info = KernelInfo(kind="pspgemm_csc",
+                          nflops=2 * csc.nnz * m * max(1, packed_width))
+        return Kernel(fn=fn, descriptor=desc, info=info,
+                      name=f"pspgemm_csc_{m}x{n}x{k}")
+
+    return get_registry().dispatch(desc, _build)
+
+
+# ---------------------------------------------------------------------------
+# packed SpGEMM, B sparse in CSR: C[m,n(,p)] += A[m,k(,p)] * B_sp[k,n]
+# ---------------------------------------------------------------------------
+
+def create_packed_spgemm_csr_bsparse(shape: GemmShape,
+                                     flags: GemmFlags = GemmFlags.NONE,
+                                     packed_width: int = 1,
+                                     row_ptr: np.ndarray = None,
+                                     column_idx: np.ndarray = None,
+                                     strategy: str = "auto",
+                                     device=None) -> Kernel:
+    """The reference's ldb==0 routing of libxsmm_create_packed_spgemm_csr
+    (generator_packed_spgemm.c:39-53): B is sparse in CSR, row_ptr (k+1,)
+    over B's rows and column_idx (nnz,) in [0, n); A and C are dense.
+
+    kernel(a, values[, c]) with a (m, k) or (m, k, p). strategy: "sparse" =
+    A's columns gathered per nonzero and summed into their output columns
+    (the ids follow CSR's row-major order, unsorted); "dense" = the
+    create-time gather map densifies B, then one product; "auto" = the
+    roofline rule."""
+    m, n, k = shape.m, shape.n, shape.k
+    indptr = np.asarray(row_ptr, np.int32)
+    indices = np.asarray(column_idx, np.int32)
+    nnz = int(indptr[-1])
+    p = max(1, packed_width)
+    dev = resolve_device(device)
+    if strategy == "auto":
+        sparse_bytes = m * nnz * p * itemsize(shape.a_in_type)
+        strategy = ("dense" if _dense_beats_sparse(shape, sparse_bytes)
+                    else "sparse")
+    pattern = SparsePattern(format="csr_b", rows=k, cols=n, nnz=nnz,
+                            fingerprint=SparsePattern.fingerprint_of(
+                                indptr, indices))
+    desc = ("pspgemm_csr_b", shape, GemmFlags(flags), packed_width, pattern,
+            strategy, dev)
+
+    def _build(_key):
+        kidx = np.repeat(np.arange(k), np.diff(indptr))   # row of each nnz
+        comp = _comp_dtype(shape)
+        out_dt = to_torch(shape.out_type)
+        if strategy == "dense":
+            posd = _index(_gather_map(kidx, indices, (k, n), nnz), dev)
+
+            def fn(a, values, c=None):
+                a = _as_tensor(a, dev)
+                bdense = _densify(_as_tensor(values, dev), posd, (k, n))
+                if a.ndim == 2:
+                    acc = _dense_product(a, bdense, comp)
+                else:
+                    acc = _einsum("mkp,kn->mnp", a, bdense, comp)
+                return _finish(acc, c, out_dt, dev)
+        else:
+            kidd, segd = _index(kidx, dev), _index(indices, dev)
+
+            def fn(a, values, c=None):
+                acc = _segment_columns(_as_tensor(a, dev), kidd,
+                                       _as_tensor(values, dev), segd, n,
+                                       comp)
+                return _finish(acc, c, out_dt, dev)
+
+        info = KernelInfo(kind="pspgemm_csr_b", nflops=2 * nnz * m * p)
+        return Kernel(fn=fn, descriptor=desc, info=info,
+                      name=f"pspgemm_csr_b_{m}x{n}x{k}")
+
+    return get_registry().dispatch(desc, _build)
+
+
+# ---------------------------------------------------------------------------
+# packed SpGEMM, C sparse in CSC (SDDMM): values at C's nonzeros only
+# ---------------------------------------------------------------------------
+
+def create_packed_spgemm_csc_csparse(shape: GemmShape,
+                                     flags: GemmFlags = GemmFlags.NONE,
+                                     packed_width: int = 1,
+                                     column_ptr: np.ndarray = None,
+                                     row_idx: np.ndarray = None,
+                                     strategy: str = "auto",
+                                     device=None) -> Kernel:
+    """The reference's ldc==0 routing of libxsmm_create_packed_spgemm_csc
+    (generator_packed_spgemm.c:81-95): sampled dense-dense product (SDDMM),
+    only C's baked nonzeros computed. Pattern: column_ptr (n+1,) over C's
+    columns, row_idx (nnz,) in [0, m).
+
+    kernel(a, b[, c_vals]) -> values (nnz,), a (m, k) or (m, k, p), b (k, n)
+    or (k, n, p). As the reference's kernel does, the packed dimension is
+    reduced into each value: value[t] = sum_k sum_p A[row_t, k, p] *
+    B[k, col_t, p]; beta=1 adds c_vals (nnz,). strategy: "gather" = one dot
+    per nonzero of A's row and B's column; "dense" = one product, then the
+    pattern's positions; "auto" = the roofline rule."""
+    m, n, k = shape.m, shape.n, shape.k
+    indptr = np.asarray(column_ptr, np.int32)
+    indices = np.asarray(row_idx, np.int32)
+    nnz = int(indptr[-1])
+    p = max(1, packed_width)
+    dev = resolve_device(device)
+    if strategy == "auto":
+        sparse_bytes = 2 * nnz * k * p * itemsize(shape.a_in_type)
+        strategy = ("dense" if _dense_beats_sparse(shape, sparse_bytes)
+                    else "gather")
+    pattern = SparsePattern(format="csc_c", rows=m, cols=n, nnz=nnz,
+                            fingerprint=SparsePattern.fingerprint_of(
+                                indptr, indices))
+    desc = ("pspgemm_csc_c", shape, GemmFlags(flags), packed_width, pattern,
+            strategy, dev)
+
+    def _build(_key):
+        cols = np.repeat(np.arange(n), np.diff(indptr))
+        comp = _comp_dtype(shape)
+        out_dt = to_torch(shape.out_type)
+        if strategy == "dense":
+            flatd = _index(indices.astype(np.int64) * n + cols, dev)
+
+            def fn(a, b, c=None):
+                a, b = _as_tensor(a, dev), _as_tensor(b, dev)
+                if a.ndim == 2:
+                    dense = _dense_product(a, b, comp)
+                else:
+                    dense = _einsum("mkp,knp->mn", a, b, comp)
+                return _finish(dense.reshape(-1)[flatd], c, out_dt, dev)
+        else:
+            rowd, cold = _index(indices, dev), _index(cols, dev)
+
+            def fn(a, b, c=None):
+                a, b = _as_tensor(a, dev), _as_tensor(b, dev)
+                ar, bc = a[rowd], b[:, cold]          # (nnz, k[, p]) each
+                eq = "tk,kt->t" if a.ndim == 2 else "tkp,ktp->t"
+                return _finish(_einsum(eq, ar, bc, comp), c, out_dt, dev)
+
+        info = KernelInfo(kind="pspgemm_csc_c", nflops=2 * nnz * k * p)
+        return Kernel(fn=fn, descriptor=desc, info=info,
+                      name=f"pspgemm_csc_c_{m}x{n}x{k}")
+
+    return get_registry().dispatch(desc, _build)
+
+
+# ---------------------------------------------------------------------------
 # packed SpGEMM, B block-sparse (BCSC)
 # ---------------------------------------------------------------------------
 
@@ -373,10 +718,13 @@ def _bcsc_autotune(shape: GemmShape, flags: GemmFlags, config: SpgemmConfig,
     On a CUDA device: build every lowering that takes the descriptor and
     time them on the card with CUDA events, their windows interleaved round
     by round (the reference's fsspmdm autotune-then-select pattern,
-    libxsmm_fsspmdm.c:285-382); keep the fastest. On the CPU: the roofline
-    rule (_dense_beats_sparse), as the reference takes off its TPU. The
-    reference persists its picks in the native KV store; the port tunes at
-    every create, as the reference does without that store.
+    libxsmm_fsspmdm.c:285-382); keep the fastest. The pick persists in the
+    autotune KV log (XSMM_TPU_AUTOTUNE_CACHE) under the reference's key
+    bcsc2:m:n:k:bk:bn:type:fingerprint with value "pick:us". A later create
+    that finds it times the pick against one rival, interleaved ("dense",
+    or "union4" when the pick is dense), and keeps it unless the rival wins
+    by more than 10%; otherwise it tunes afresh. On the CPU: the roofline
+    rule (_dense_beats_sparse), as the reference takes off its TPU.
     """
     nblocks = bcsc.nblocks
     bk, bn = config.bk, config.bn
@@ -386,20 +734,49 @@ def _bcsc_autotune(shape: GemmShape, flags: GemmFlags, config: SpgemmConfig,
                 else "sparse")
 
     from ..utils.timer import bench_chain_interleaved
+    from .fsspmdm import _autotune_cache     # lazy: fsspmdm imports this
+    cache = _autotune_cache()
+    key = (f"bcsc2:{shape.m}:{shape.n}:{shape.k}:{bk}:{bn}:"
+           f"{shape.a_in_type.value}:{bcsc.fingerprint():x}").encode()
+    cached = None
+    raw = cache.get(key) if cache is not None else None
+    if raw:
+        pick, _, us = raw.decode().partition(":")
+        cached = pick if pick in STRATEGIES and us else None
+
     rng = np.random.default_rng(0)
     in_dt = to_torch(shape.a_in_type)
     a = torch.as_tensor(rng.standard_normal((shape.m, shape.k)),
                         device=dev).to(in_dt)
     v = torch.as_tensor(rng.standard_normal((nblocks, bk, bn)),
                         device=dev).to(in_dt)
+
+    def make(s):
+        return create_packed_spgemm_bcsc(shape, flags, config, indptr,
+                                         indices, strategy=s, device=dev)
+
+    if cached is not None:
+        rival = "dense" if cached != "dense" else "union4"
+        try:
+            kern = make(cached)
+        except ValueError:
+            kern = None                  # a stale pick: tune afresh
+        if kern is not None:
+            try:
+                rkern = make(rival)
+            except ValueError:
+                return cached            # no rival to hold it against
+            probe = bench_chain_interleaved([(kern, (a, v)), (rkern, (a, v))],
+                                            reps=8, rounds=2)
+            if probe[0] <= probe[1] * 1.10:
+                return cached
+
     cands = []
     for s in STRATEGIES:
         try:
-            kern = create_packed_spgemm_bcsc(shape, flags, config, indptr,
-                                             indices, strategy=s, device=dev)
+            cands.append((s, make(s)))
         except ValueError:
             continue          # a lowering that refuses this descriptor
-        cands.append((s, kern))
     times = bench_chain_interleaved([(kern, (a, v)) for _s, kern in cands],
                                     reps=12, rounds=3)
     tuned = {s: t for (s, _k), t in zip(cands, times)}
@@ -408,6 +785,8 @@ def _bcsc_autotune(shape: GemmShape, flags: GemmFlags, config: SpgemmConfig,
         us = {s: round(t * 1e6, 1) for s, t in tuned.items()}
         print(f"libxsmm_torch: bcsc {shape.m}x{shape.n}x{shape.k} "
               f"b{bk}x{bn} nblk={nblocks} -> {pick} ({us})")
+    if cache is not None:
+        cache.put(key, f"{pick}:{tuned[pick] * 1e6:.3f}".encode())
     return pick
 
 
@@ -427,7 +806,7 @@ def create_packed_spgemm_bcsc(shape: GemmShape,
     Lowerings, picked by `strategy` ("auto"|"sparse"|"dense"|"pallas"|
     "super"|"union"|"union2"|"union3"|"union4"|"union4a"|"union4d"|
     "union5"); "auto" times all of them on a CUDA device at create time and
-    keeps the fastest (_bcsc_autotune):
+    keeps the fastest, persisting the pick (_bcsc_autotune):
       * sparse: gather A panels per nonzero block -> one batched matmul ->
         index_add_ per block column.
       * dense: densify the blocks (kernels/spmm.py build_bcsc_densify),
@@ -435,10 +814,13 @@ def create_packed_spgemm_bcsc(shape: GemmShape,
       * pallas: the scheduled kernel at the native (bk, bn) granularity.
       * super: the scheduled kernel over the occupied 128x128 supertiles.
       * union...union5: per 128-column group, A's compacted k-union times
-        the group's compacted values in one kernel; union4a pads the union
-        depth to a multiple of 128/bk, union4d takes the full depth k/bk,
-        and the other names are the same kernel (their TPU schedules have
-        no counterpart).
+        the group's compacted values. union, union2 and union3 run the RHS
+        compactor, then the union kernel over its output (the reference's
+        separate pass); union4, union4a, union4d and union5 assemble the
+        RHS inside the kernel (the reference's fuse_rhs). union4a pads the
+        union depth to a multiple of 128/bk, union4d takes the full depth
+        k/bk; the TPU schedules that otherwise tell the names apart
+        (double buffering, DMA assembly, A in HBM) have no counterpart.
     """
     bk, bn = config.bk, config.bn
     indptr = np.asarray(column_ptr, np.int32)
@@ -478,7 +860,8 @@ def create_packed_spgemm_bcsc(shape: GemmShape,
             ua = {"union4a": max(1, 128 // bk),
                   "union4d": max(1, shape.k // bk)}.get(strategy, 1)
             pfn = spmm_kernels.build_bcsc_spmm_union(
-                shape, config, indptr, indices, dev, u_align=ua)
+                shape, config, indptr, indices, dev, u_align=ua,
+                compact=strategy in ("union", "union2", "union3"))
             if pfn is None:
                 raise ValueError("descriptor unsupported by the k-union "
                                  "BCSC kernel (need bn|128, 128|n, bk|k, "
@@ -508,7 +891,7 @@ def _dense_product(a: torch.Tensor, b: torch.Tensor,
     preferred_element_type): 16-bit float operands on the card go to one
     matmul with an f32 output; elsewhere kernels.gemm.contract (widened
     operands, integers exact through float64)."""
-    if (a.is_cuda and comp == torch.float32
+    if (a.is_cuda and comp == torch.float32 and a.dtype == b.dtype
             and a.dtype in (torch.bfloat16, torch.float16)):
         return torch.mm(a, b, out_dtype=torch.float32)
     return contract(torch.mm, a, b, comp)
@@ -554,3 +937,59 @@ def _torch_route(shape: GemmShape, config: SpgemmConfig, indptr: np.ndarray,
         return acc.to(out_dt)
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# CSR A "in registers": values baked at create time (the fsspmdm backend)
+# ---------------------------------------------------------------------------
+
+# cap on the baked pattern, the reference's 65,536-op limit
+# (generator_spgemm_csr_asparse_reg.c:23)
+MAX_BAKED_NNZ = 65536
+
+
+def create_spgemm_csr_areg(shape: GemmShape,
+                           flags: GemmFlags = GemmFlags.NONE,
+                           row_ptr: np.ndarray = None,
+                           column_idx: np.ndarray = None,
+                           values: np.ndarray = None,
+                           device=None) -> Kernel:
+    """libxsmm_create_spgemm_csr_areg analogue (src/libxsmm_main.c:3842).
+
+    Pattern AND values are create-time constants: the values live on the
+    device as an ELL array in the compute type (the reference's
+    deduplication of unique values into vector registers,
+    generator_spgemm_csr_asparse_reg.c:66-96, has no counterpart, as in the
+    JAX package). The values enter the fingerprint, so other values make
+    another kernel. kernel(b[, c]) -> (m, n)."""
+    m, n, k = shape.m, shape.n, shape.k
+    csr = CsrMatrix((m, k), np.asarray(row_ptr, np.int32),
+                    np.asarray(column_idx, np.int32), np.asarray(values))
+    if csr.nnz > MAX_BAKED_NNZ:
+        raise ValueError(f"nnz {csr.nnz} exceeds baked-kernel cap "
+                         f"{MAX_BAKED_NNZ}")
+    dev = resolve_device(device)
+    pattern = SparsePattern(format="csr", rows=m, cols=k, nnz=csr.nnz,
+                            fingerprint=csr.fingerprint(include_values=True))
+    desc = ("spgemm_areg", shape, GemmFlags(flags), pattern, dev)
+
+    def _build(_key):
+        col, pos, mask, rmax = csr.ell()
+        comp = _comp_dtype(shape)
+        out_dt = to_torch(shape.out_type)
+        # an empty pattern has no value to gather: bake zeros
+        vals_ell = (csr.data[pos.reshape(-1)].reshape(m, rmax) * mask
+                    if csr.nnz else np.zeros((m, rmax), np.float32))
+        valsd = torch.as_tensor(vals_ell, device=dev).to(comp)
+        cold = _index(col.reshape(-1), dev)
+
+        def fn(b, c=None):
+            gb = _as_tensor(b, dev)[cold].reshape(m, rmax, n)
+            return _finish(_einsum("mr,mrn->mn", valsd, gb, comp), c, out_dt,
+                           dev)
+
+        info = KernelInfo(kind="spgemm_areg", nflops=2 * csr.nnz * n)
+        return Kernel(fn=fn, descriptor=desc, info=info,
+                      name=f"spgemm_areg_{m}x{n}x{k}")
+
+    return get_registry().dispatch(desc, _build)

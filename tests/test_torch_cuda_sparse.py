@@ -11,7 +11,8 @@ package's tests, and this file imports nothing of JAX or libxsmm_tpu.)
 Tolerances (matdiff normf_rel): 1e-5 for f32 in and out and 1e-4 for bf16
 in / f32 out (the sums run in another order than the plain version's);
 1e-2 for bf16 outputs (one rounding, at another point of the sum); the
-densify kernel, empty block columns and empty patterns exact.
+densify kernel, the union RHS compactor, empty block columns and empty
+patterns exact.
 """
 
 import numpy as np
@@ -161,6 +162,83 @@ def test_bcsc_spmm_union_clustered(gen, a_dt, o_dt, clusters):
     got = launched("bcsc_spmm_union", fn, a, v)
     same(fn.plain(a, v), got, tol(a_dt, o_dt))
     same(base(a, v), got, tol(a_dt, o_dt))
+
+
+def cluster_pattern(k=2048, n=1024, bk=32, bn=32):
+    """bench.py's two-family pattern (bcsc_cluster): even block columns
+    draw from the first half of the block rows, odd ones from the second."""
+    kb, nb = k // bk, n // bn
+    rng = np.random.default_rng(7)
+    fam_a, fam_b = np.arange(0, kb // 2 - 2), np.arange(kb // 2, kb - 2)
+    cols = []
+    for j in range(nb):
+        fam = fam_a if j % 2 == 0 else fam_b
+        take = min(int(0.64 * len(fam)) + (j % 2), len(fam))
+        cols.append(np.sort(rng.choice(fam, take, replace=False)))
+    indptr = np.concatenate(
+        [[0], np.cumsum([len(c) for c in cols])]).astype(np.int32)
+    return indptr, np.concatenate(cols).astype(np.int32)
+
+
+# (m, k, n, bk, bn, u_align) of the compactor cases: the CPU cases' union
+# blockings (tests/test_torch_sparse.py), odd rows, pad slots, bn = 4 (the
+# 8-byte and 4-byte copy units) and the clustered plan
+COMPACT_CASES = [(32, 32, 128, 4, 4, 1), (32, 128, 128, 8, 16, 1),
+                 (64, 128, 128, 32, 32, 1), (37, 256, 384, 32, 32, 4),
+                 (200, 128, 256, 16, 64, 8), (96, 2048, 1024, 32, 32, 1)]
+
+
+@pytest.mark.parametrize("a_dt,o_dt", [(F32, F32), (BF16, F32),
+                                       (BF16, BF16)])
+@pytest.mark.parametrize("m,k,n,bk,bn,u_align", COMPACT_CASES)
+def test_union_compactor_and_compact_form(gen, m, k, n, bk, bn, u_align,
+                                          a_dt, o_dt):
+    """The compactor byte-equal to its plain version; the compacted union
+    form (two launches) against the fused form and the plain version."""
+    if k == 2048:
+        indptr, indices = cluster_pattern(k, n, bk, bn)
+    else:
+        indptr, indices = pattern(k, n, bk, bn, 0.3, seed=m,
+                                  empty_cols=range(128 // bn))
+    shape = GemmShape(m, n, k, a_dt, a_dt, o_dt)
+    cfg = SpgemmConfig(1, bk, bn)
+    fused = pk.build_bcsc_spmm_union(shape, cfg, indptr, indices, "cuda",
+                                     u_align=u_align)
+    comp = pk.build_bcsc_spmm_union(shape, cfg, indptr, indices, "cuda",
+                                    u_align=u_align, compact=True)
+    if k == 2048:         # the H100 gate keeps bf16 -> f32 unclustered
+        assert comp.clustered == (a_dt == F32 or o_dt == BF16)
+    a, v = rand(gen, (m, k), a_dt), rand(gen, (len(indices), bk, bn), a_dt)
+    rhs = launched("bcsc_union_compact", comp.compactor, v)
+    torch.cuda.synchronize()
+    want_rhs = comp.compactor.plain(v)
+    assert rhs.dtype == want_rhs.dtype and rhs.shape == want_rhs.shape
+    assert torch.equal(rhs.view(torch.uint8), want_rhs.view(torch.uint8))
+    before = dict(pk.launches)
+    got = comp(a, v)
+    torch.cuda.synchronize()
+    assert pk.launches["bcsc_union_compact"] == before[
+        "bcsc_union_compact"] + 1
+    assert pk.launches["bcsc_spmm_union"] == before["bcsc_spmm_union"] + 1
+    t = tol(a_dt, o_dt)
+    same(fused(a, v), got, t)
+    same(comp.plain(a, v), got, t)
+    assert pk.launches["bcsc_union_compact"] == before[
+        "bcsc_union_compact"] + 1             # the fused form: no compactor
+
+
+def test_compactor_unaligned_values(gen):
+    """A value tensor that starts 4 bytes past an aligned address takes the
+    4-byte copy unit and still matches its plain version."""
+    indptr, indices = pattern(128, 256, 32, 32, 0.4, seed=5)
+    fn = pk.build_bcsc_spmm_union(GemmShape(16, 256, 128), SpgemmConfig(
+        1, 32, 32), indptr, indices, "cuda", compact=True)
+    store = rand(gen, (len(indices) * 32 * 32 + 1,))
+    v = store[1:].view(len(indices), 32, 32)
+    assert v.data_ptr() % 16 == 4
+    got = fn.compactor(v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fn.compactor.plain(v))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

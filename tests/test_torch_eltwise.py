@@ -34,8 +34,8 @@ from libxsmm_tpu.kernels import eltwise_pallas as rk
 torch.set_num_threads(1)
 
 RNG = np.random.default_rng(11)
-F32, BF16 = Datatype.F32, Datatype.BF16
-TOL = {F32: 1e-5, BF16: 1e-2}
+F32, BF16, F16 = Datatype.F32, Datatype.BF16, Datatype.F16
+TOL = {F32: 1e-5, BF16: 1e-2, F16: 2e-3}
 
 
 def rand(*shape, positive=False):
@@ -49,21 +49,24 @@ def pair(x, dt=F32):
         xj = jnp.asarray(x, jnp.bfloat16)
         return xj, interop.tensor_from_numpy(np.asarray(xj), xp.Datatype.BF16,
                                              device="cpu")
+    if dt == F16:
+        x = np.ascontiguousarray(x.astype(np.float16))
+        return jnp.asarray(x), torch.from_numpy(x.copy())
     x = np.ascontiguousarray(x)
     return jnp.asarray(x), torch.from_numpy(x.copy())
 
 
 def np_of(x):
-    """A result of either package as a numpy array (bf16 widened to f32,
-    16-bit unsigned words to int32)."""
+    """A result of either package as a numpy array (bf16 and f16 widened to
+    f32, 16-bit unsigned words to int32)."""
     if isinstance(x, torch.Tensor):
-        if x.dtype == torch.bfloat16:
+        if x.dtype in (torch.bfloat16, torch.float16):
             x = x.float()
         if x.dtype == torch.uint16:
             x = x.to(torch.int32)
         return x.numpy()
     x = np.asarray(x)
-    if x.dtype.name == "bfloat16":
+    if x.dtype.name in ("bfloat16", "float16"):
         return x.astype(np.float32)
     if x.dtype == np.uint16:
         return x.astype(np.int32)
@@ -114,6 +117,27 @@ def test_unary_math_parity(op, dt):
     xj, xt_ = pair(rand(m, n, positive=op.name in POSITIVE), dt)
     j, p = unary_both(op, m, n, in_type=dt)
     same(j(xj), p(xt_), TOL[dt])
+
+
+# (in, out) type pairs beyond F32/BF16 with an IMPLICIT output: f16 input,
+# and explicit outputs that widen, narrow or cross between 16-bit types
+UNARY_TYPES = [(F16, Datatype.IMPLICIT), (F32, BF16), (F32, F16),
+               (BF16, F32), (F16, F32), (BF16, F16)]
+
+
+@pytest.mark.parametrize("in_dt,out_dt", UNARY_TYPES,
+                         ids=lambda d: d.value)
+@pytest.mark.parametrize("op", MATH_OPS, ids=lambda o: o.name)
+def test_unary_math_types(op, in_dt, out_dt):
+    """The tolerance is the output type's (an f32 output of a 16-bit input
+    is exact up to the transcendentals' last bits)."""
+    m, n = 8, 24
+    xj, xt_ = pair(rand(m, n, positive=op.name in POSITIVE), in_dt)
+    j, p = unary_both(op, m, n, in_type=in_dt, out_type=out_dt)
+    got = p(xt_)
+    out = in_dt if out_dt == Datatype.IMPLICIT else out_dt
+    assert got.dtype == xp.to_torch(xp.Datatype(out.value))
+    same(j(xj), got, TOL[out])
 
 
 @pytest.mark.parametrize("op", ["RELU", "LEAKY_RELU", "ELU"])
@@ -392,6 +416,39 @@ def test_binary_parity(op, dt):
     same(j(aj, bj), p(at, bt), TOL[dt])
 
 
+# (in0, in1, out): mixed input types, f16, explicit outputs
+BINARY_TYPES = [(F32, BF16, F32), (BF16, F32, F32), (F16, F32, F32),
+                (F16, F16, Datatype.IMPLICIT), (BF16, BF16, F32),
+                (F32, F32, BF16), (F32, F16, F16), (BF16, F16, F32)]
+
+
+@pytest.mark.parametrize("in0,in1,out", BINARY_TYPES,
+                         ids=lambda d: d.value)
+@pytest.mark.parametrize("op", ["ADD", "MUL", "SUB", "DIV", "MAX", "MIN"])
+def test_binary_mixed_types(op, in0, in1, out):
+    """A MeltwBinaryShape with in0/in1/out types of their own (the
+    reference's v2 call form), both packages."""
+    m, n = 7, 12
+    a, b = rand(m, n), rand(m, n)
+    if op == "DIV":
+        b = b + np.sign(b) * 0.5
+    aj, at = pair(a, in0)
+    bj, bt = pair(b, in1)
+    j = xt.dispatch_meltw_binary(
+        BinaryType[op], xt.MeltwBinaryShape(m, n, in0_type=in0,
+                                            in1_type=in1, out_type=out),
+        int(BinaryFlags.NONE))
+    p = xp.dispatch_meltw_binary(
+        xp.BinaryType[op], xp.MeltwBinaryShape(
+            m, n, in0_type=xp.Datatype(in0.value),
+            in1_type=xp.Datatype(in1.value), out_type=xp.Datatype(out.value)),
+        int(xp.BinaryFlags.NONE))
+    want, got = j(aj, bj), p(at, bt)
+    res = in0 if out == Datatype.IMPLICIT else out
+    assert got.dtype == xp.to_torch(xp.Datatype(res.value))
+    same(want, got, TOL[res])
+
+
 def test_binary_muladd_parity():
     m, n = 8, 8
     (aj, at), (bj, bt), (cj, ct) = (pair(rand(m, n)) for _ in range(3))
@@ -561,10 +618,10 @@ def test_quant_stochastic_statistics():
 
 
 @pytest.mark.parametrize("out_type", [Datatype.MXFP4X2, Datatype.MXBF8])
-def test_mx_quant_not_ported(out_type):
-    """MX QUANT/DEQUANT (ported now): the (payload, scales) bytes and the
-    dequantized values equal the JAX package's (at magnitudes whose block
-    scales stay where XLA's exp2 is exact, tests/test_torch_quant.py)."""
+def test_mx_quant_dequant_parity(out_type):
+    """MX QUANT/DEQUANT: the (payload, scales) bytes and the dequantized
+    values equal the JAX package's (at magnitudes whose block scales stay
+    where XLA's exp2 is exact, tests/test_torch_quant.py)."""
     x = rand(32, 64) * (4.0 if out_type == Datatype.MXFP4X2 else 4096.0)
     xj, xt_ = pair(x)
     j, p = unary_both(UnaryType.QUANT, 32, 64, out_type=out_type)

@@ -287,6 +287,73 @@ def test_clustered_union_matches_reference():
               margin=1e-5)
 
 
+def _bits(x):
+    """The bytes of a reference array or a port tensor, as unsigned ints."""
+    if isinstance(x, torch.Tensor):
+        x = x.contiguous()
+        return x.view({2: torch.int16, 4: torch.int32}[x.element_size()]
+                      ).numpy().view({2: np.uint16, 4: np.uint32}[
+                          x.element_size()])
+    x = np.asarray(x)
+    return x.view({2: np.uint16, 4: np.uint32}[x.dtype.itemsize])
+
+
+@pytest.mark.parametrize("case", list(CASES) + ["bcsc_cluster"])
+def test_union_compactor_matches_reference(case):
+    """The compactor's plain version is byte-equal to the reference's
+    build_union_compact_rhs (interpret mode) on the case's union plan, the
+    clustered plan included: the same gather map, the zero block in every
+    pad slot. Where the union kernel refuses the blocking, both do."""
+    if case == "bcsc_cluster":
+        (m, n, k, bk, bn), indptr, indices, values, a = cluster_pattern()
+        shape, config = GemmShape(m, n, k), SpgemmConfig(1, bk, bn)
+        v = pair(values, F32)
+    else:
+        shape, config, bm, _, v, _, _ = case_data(case)
+        indptr, indices = bm.indptr, bm.indices
+    bk, bn = config.bk, config.bn
+    port = pk.build_bcsc_spmm_union(pshape(shape), pconfig(config), indptr,
+                                    indices, "cpu", compact=True)
+    if port is None:
+        assert rk.build_bcsc_spmm_union(shape, config, indptr,
+                                        indices) is None
+        return
+    assert port.clustered == (case == "bcsc_cluster")
+    nblocks = len(indices)
+    in_dt = JNP[shape.a_in_type]
+    gmap = port.gmap.numpy().reshape(port.nsg, port.U, port.W)
+    ref = rk.build_union_compact_rhs(port.nsg, port.U, port.W, bk, bn,
+                                     nblocks, gmap, in_dt)
+    vpad = jnp.concatenate([jnp.asarray(v[0], in_dt),
+                            jnp.zeros((1, bk, bn), in_dt)])
+    want = ref(ref.gmap, vpad.reshape((nblocks + 1) * bk, bn))
+    got = port.compactor(v[1])
+    assert tuple(got.shape) == (port.nsg, port.U * bk, 128)
+    assert got.dtype == TORCH[shape.a_in_type]
+    np.testing.assert_array_equal(_bits(want), _bits(got))
+
+
+def test_union_forms_agree():
+    """Every union name through create_packed_spgemm_bcsc equals
+    build_bcsc_spmm_union's result in the form the name selects (compacted
+    for union, union2 and union3, fused for the others), and the two forms
+    agree."""
+    shape, config, bm, a, v, _, want = case_data("32x256x384_3groups")
+    outs = {}
+    for s in ("union", "union2", "union3", "union4", "union4a", "union5"):
+        kern = port_create(shape, config, bm, s)
+        fn = pk.build_bcsc_spmm_union(
+            pshape(shape), pconfig(config), bm.indptr, bm.indices, "cpu",
+            u_align=max(1, 128 // config.bk) if s == "union4a" else 1,
+            compact=s in ("union", "union2", "union3"))
+        outs[s] = kern(a[1], v[1])
+        np.testing.assert_array_equal(fn(a[1], v[1]).numpy(),
+                                      outs[s].numpy())
+    check(want, as64(outs["union"]), margin=1e-5)
+    np.testing.assert_array_equal(outs["union"].numpy(),
+                                  outs["union4"].numpy())
+
+
 def empty_column_pattern():
     """32x128x256, bk = bn = 32: block columns 1, 4, 5, 6 and 7 empty, so
     the second 128-column group has no block."""
