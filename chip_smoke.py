@@ -110,13 +110,23 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    nodes, 1433 features, hidden 16, 7 classes) on a seeded random graph
    with Cora's 5278 edges, the forward against float64 and three train
    steps lowering the loss; times every phase, a forward and a step;
-10. holds each kernel against its plain version once more at its main-path
+10. runs the labs the same way, with the five twin and probe kernels'
+    counts set to 0 just before: libxsmm_torch.scripts.brgemm_lab (the
+    packed BRGEMM's four variants at br = 1024, 256 x 256 x 64 bf16, each
+    against its streaming twin, t_sol / t_brg printed), the packed SMM's
+    passthrough twin at the headline's (4096, 32, 128) f32 (bit for bit
+    against a + b; t_passthrough / t_packed_smm, bench.py:869's fraction)
+    and libxsmm_torch.scripts.bcsc_lab at densities 0.2 and 0.05 (the
+    union kernel's probes beside the library's strategies, held against
+    float64 and their plain versions, the lab's table printed); fails
+    unless all five kernels were launched;
+11. holds each kernel against its plain version once more at its main-path
     shape, and times kernel, plain version and one library call computing
     the same function (a yardstick the port never calls; none exists for
-    stochastic rounding and the union RHS compactor, whose rows carry the
-    RNE cast's and an output clone's time instead), and each launch
-    configuration the kernel chooses among;
-11. prints one JSON line with the per-kernel numbers (thirteen rows) and,
+    stochastic rounding, the union RHS compactor and the BRGEMM's twin,
+    whose rows carry the RNE cast's, an output clone's and the BRGEMM's
+    time instead), and each launch configuration the kernel chooses among;
+12. prints one JSON line with the per-kernel numbers (eighteen rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
@@ -174,10 +184,13 @@ CNN_LR = 0.1           # the loss visibly lower after three SGD steps
 EXT_SHAPES = {"ffn": (8 * 512, 3072), "br_k": (12, 64),
               "cnn": (32, 56, 56, 64, 64, 3)}
 
+MAIN_KERNELS = ("batched_gemm", "packed_batched_gemm", "packed_brgemm")
 SERVE_KERNELS = ("flash_attention_fwd", "dropout")
 BWD_KERNELS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 TRAIN_KERNELS = SERVE_KERNELS + BWD_KERNELS
 TRAIN_LR = 0.1         # visible in bf16 weights after three steps
+LAB_KERNELS = ("packed_brgemm_sol", "packed_smm_passthrough",
+               "bcsc_lab_minimal", "bcsc_lab_chunk", "bcsc_lab_dspipe")
 SPARSE_KERNELS = ("bcsc_spmm", "bcsc_spmm_union", "bcsc_densify",
                   "bcsc_spmm_super", "bcsc_union_compact")
 # the kernels each BCSC strategy launches ("sparse" is torch ops alone);
@@ -222,11 +235,9 @@ def _max_abs(ref, out):
 
 def _count(name):
     """The launch count of the kernel called `name`."""
-    from libxsmm_torch.kernels import attention, eltwise, gemm, spmm
-    for launches in (gemm.launches, attention.launches, eltwise.launches,
-                     spmm.launches):
-        if name in launches:
-            return launches[name]
+    for mod in _kernel_modules():
+        if name in mod.launches:
+            return mod.launches[name]
     raise KeyError(name)
 
 
@@ -690,16 +701,18 @@ def sparse_path(randn, dev):
             "stream": (sshape, cfg, bcsc, a_stream, v)}
 
 
+def _kernel_modules():
+    from libxsmm_torch.kernels import attention, eltwise, gemm, spmm, spmm_lab
+    return gemm, attention, eltwise, spmm, spmm_lab
+
+
 def _reset_all_launches():
-    from libxsmm_torch.kernels import attention, eltwise, gemm, spmm
-    for mod in (gemm, attention, eltwise, spmm):
+    for mod in _kernel_modules():
         mod.reset_launches()
 
 
 def _all_launches():
-    from libxsmm_torch.kernels import attention, eltwise, gemm, spmm
-    return {k: v for mod in (gemm, attention, eltwise, spmm)
-            for k, v in mod.launches.items()}
+    return {k: v for mod in _kernel_modules() for k, v in mod.launches.items()}
 
 
 def _sparse_rows(rng, m, k, density):
@@ -1261,7 +1274,7 @@ def sparse_rows(record, stream, ms, geo):
                 dense_b)
     src = "spmm_kernels.cu"
     peak = geo.peak_bf16_tflops
-    record("bcsc_spmm", src, "spmm_pallas.py:88",
+    record("bcsc_spmm", src, "libxsmm_tpu/kernels/spmm_pallas.py:88",
            KS.build_bcsc_spmm(shape, cfg, indptr, indices, dev), (a, v),
            TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak, lib_mm)
     union = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev)
@@ -1269,27 +1282,145 @@ def sparse_rows(record, stream, ms, geo):
                                        compact=True)
     _check("bcsc_spmm_union compacted form vs fused form", union(a, v),
            union_c(a, v), TOL_SPARSE_BF16)
-    record("bcsc_spmm_union", src, "spmm_pallas.py:258", union, (a, v),
-           TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak, lib_mm,
-           compact_ms=ms(union_c, a, v))
+    record("bcsc_spmm_union", src, "libxsmm_tpu/kernels/spmm_pallas.py:258",
+           union, (a, v), TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak,
+           lib_mm, compact_ms=ms(union_c, a, v))
     rhs = union_c.compactor(v)
-    record("bcsc_union_compact", src, "spmm_pallas.py:885",
+    record("bcsc_union_compact", src, "libxsmm_tpu/kernels/spmm_pallas.py:885",
            union_c.compactor, (v,), TOL_EXACT,
            v.numel() * v.element_size() + rhs.numel() * rhs.element_size(),
            0, peak, None, clone_ms=ms(torch.clone, rhs))
     s_indptr, s_indices, sgmap = supertile_plan(shape, cfg, indptr, indices)
     sup = assemble_supertiles(v, torch.as_tensor(sgmap, device=dev),
                               torch.bfloat16)
-    record("bcsc_spmm_super", src, "spmm_pallas.py:942",
+    record("bcsc_spmm_super", src, "libxsmm_tpu/kernels/spmm_pallas.py:942",
            KS.build_bcsc_spmm_super(shape, s_indptr, s_indices, dev),
            (a, sup), TOL_SPARSE_BF16, io + 2 * sup.numel(), useful, peak,
            lib_mm)
     ccol = torch.as_tensor(indptr.astype("int64"), device=dev)
     rows = torch.as_tensor(indices.astype("int64"), device=dev)
-    record("bcsc_densify", src, "spmm_pallas.py:800", densify, (v,),
-           TOL_EXACT, 2 * v.numel() + 2 * k * n, 0, peak,
+    record("bcsc_densify", src, "libxsmm_tpu/kernels/spmm_pallas.py:800",
+           densify, (v,), TOL_EXACT, 2 * v.numel() + 2 * k * n, 0, peak,
            ms(lambda vv: torch.sparse_bsc_tensor(ccol, rows, vv,
                                                  (k, n)).to_dense(), v))
+
+
+def labs_path(randn, headline):
+    """The labs, with the five twin and probe kernels' launch counts set to
+    0 just before and read just after: the BRGEMM lab (its four variants at
+    br = 1024, 256 x 256 x 64 bf16, each twin held against its plain
+    version inside the lab), the packed SMM's passthrough twin at the
+    headline's (4096, 32, 128) f32, bit for bit against a + b and timed
+    interleaved with the headline kernel (bench.py:869's fraction), and the
+    BCSC lab at densities 0.2 and 0.05 (its probes held against the float64
+    product and their plain versions inside the lab). Returns the counts
+    and the passthrough's operands."""
+    import numpy as np
+
+    from libxsmm_torch.kernels import gemm as K
+    from libxsmm_torch.kernels import spmm_lab as KL
+    from libxsmm_torch.scripts import bcsc_lab, brgemm_lab
+    from libxsmm_torch.utils.timer import bench_chain_interleaved
+
+    smm, (ap, bp) = headline
+    G, m = ap.shape[0], ap.shape[1]
+    pa, pb = randn(G, m, 128), randn(G, m, 128, scale=0.1)
+    K.launches.update(packed_brgemm_sol=0, packed_smm_passthrough=0)
+    KL.reset_launches()
+    t_path = time.perf_counter()
+
+    for r in brgemm_lab.main(["--rounds", "3"]):
+        print(f"  brgemm lab {r['variant']}: t_sol / t_brg {r['sol_frac']:.4f}"
+              f" (brgemm {r['brg_us']:.1f} us, sol {r['sol_us']:.1f} us; "
+              f"sol vs plain normf_rel {r['sol_normf_rel']:.2e})")
+
+    pt = K.build_packed_smm_passthrough(G, m)
+    _check("passthrough vs a + b", pa + pb, pt(pa, pb), TOL_EXACT,
+           (G, m, 128))
+    (t_smm, t_pt), rounds = bench_chain_interleaved(
+        [(smm, (ap, bp)), (pt, (pa, pb))], rounds=5, per_round=True)
+    paired = float(np.median([p_ / s_ for s_, p_ in zip(*rounds)]))
+    print(f"  headline fraction t_passthrough / t_packed_smm "
+          f"{G}x{m}x128 f32: {t_pt / t_smm:.4f} over the best windows, "
+          f"{paired:.4f} paired median (packed SMM {t_smm * 1e3:.4f} ms, "
+          f"passthrough {t_pt * 1e3:.4f} ms)")
+
+    for density in (0.2, 0.05):
+        bcsc_lab.main(["--density", str(density), "--rounds", "3"])
+
+    torch.cuda.synchronize()
+    counts = {k: _count(k) for k in LAB_KERNELS}
+    print(f"labs: {time.perf_counter() - t_path:.2f} s, kernel launches "
+          f"{counts}")
+    missing = [k for k in LAB_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the labs: {missing}")
+    return {"counts": counts, "passthrough": (pt, pa, pb)}
+
+
+def lab_rows(record, ms, geo, dev, passthrough, brgemm):
+    """The two twins and the three BCSC probes, each against its plain
+    version. The BRGEMM twin is bound by the packed BRGEMM row's bytes, so
+    the two rows compare like with like; no PyTorch call computes it
+    (library_ms null) and the BRGEMM's time stands beside it as
+    "brgemm_ms". The passthrough moves 3 * G * m * 128 * 4 bytes; its
+    yardstick is torch.add. The probes at the BCSC lab's shape (m = k = n =
+    1024, density 0.2) are bound by the larger of their bytes (A, the
+    values or minimal's constant RHS, and C, each once) and the union's
+    2 * m * U * 32 * n products at the bf16 tensor cores' peak; their
+    yardstick is torch.mm(out_dtype=f32) on the densified B, for minimal on
+    its own panel and RHS. chunk2 and chunk4 stand beside the chunk1 row."""
+    import numpy as np
+
+    from libxsmm_torch.descriptor import GemmShape, SpgemmConfig
+    from libxsmm_torch.dtypes import Datatype
+    from libxsmm_torch.kernels.spmm import build_bcsc_densify
+    from libxsmm_torch.scripts import bcsc_lab
+
+    sol, br_args, br_bytes, br_ms = brgemm
+    record("packed_brgemm_sol", "gemm_kernels.cu",
+           "libxsmm_tpu/kernels/gemm_pallas.py:334", sol, br_args, TOL_F32,
+           br_bytes, 0, geo.peak_bf16_tflops, None, brgemm_ms=br_ms)
+    pt, pa, pb = passthrough
+    record("packed_smm_passthrough", "gemm_kernels.cu", "bench.py:441", pt,
+           (pa, pb), TOL_EXACT, 3 * pa.numel() * 4, 0, geo.peak_f32_tflops,
+           ms(torch.add, pa, pb))
+
+    m = k = n = 1024
+    bcsc, rng = bcsc_lab.build_pattern(0.2)
+    a = torch.as_tensor(rng.standard_normal((m, k)),
+                        device=dev).to(torch.bfloat16)
+    v = torch.as_tensor(bcsc.data, device=dev).to(torch.bfloat16)
+    probes = bcsc_lab.make_variants((m, n, k), bcsc, 0.2, dev)
+    U = probes["dspipe"].U
+    union_ops = 2 * m * U * 32 * n
+    out_bytes = 4 * m * n
+    shape = GemmShape(m, n, k, Datatype.BF16, Datatype.BF16, Datatype.F32)
+    dense_b = build_bcsc_densify(shape, SpgemmConfig(1, 32, 32),
+                                 bcsc.indptr, bcsc.indices, dev).plain(v)
+
+    def mm_f32(x, y):
+        return torch.mm(x, y, out_dtype=torch.float32)
+
+    lib_mm = ms(mm_f32, a, dense_b)
+    fused_bytes = 2 * a.numel() + 2 * v.numel() + out_bytes
+    src, lab = "spmm_lab_kernels.cu", "scripts/bcsc_lab.py"
+    record("bcsc_lab_chunk", src, f"{lab}:173", probes["chunk1"], (a, v),
+           TOL_SPARSE_BF16, fused_bytes, union_ops, geo.peak_bf16_tflops,
+           lib_mm, chunk2_ms=ms(probes["chunk2"], a, v),
+           chunk4_ms=ms(probes["chunk4"], a, v))
+    record("bcsc_lab_dspipe", src, f"{lab}:236", probes["dspipe"], (a, v),
+           TOL_SPARSE_BF16, fused_bytes, union_ops, geo.peak_bf16_tflops,
+           lib_mm)
+    minimal = probes["minimal"]
+    rhs = minimal.rhs
+    panel = a[:, :U * 32].contiguous()
+    rhs_cat = rhs.permute(1, 0, 2).reshape(U * 32, n).contiguous()
+    record("bcsc_lab_minimal", src, f"{lab}:100", minimal, (a, v),
+           TOL_SPARSE_BF16, 2 * panel.numel() + 2 * rhs.numel() + out_bytes,
+           union_ops, geo.peak_bf16_tflops, ms(mm_f32, panel, rhs_cat))
+    print(f"  bcsc lab probes at 1024^3, density 0.2: U = {U}, "
+          f"{int(np.asarray(bcsc.indices).size)} blocks")
 
 
 def step_breakdown(params, x, y, cfg, reps=5):
@@ -1608,7 +1739,7 @@ def main() -> int:
                   BatchReduceType.STRIDE, gbr)), (a3, b3), ident, ref3, None,
               tol, (gm, gn))
     torch.cuda.synchronize()
-    counts = dict(K.launches)
+    counts = {k: K.launches[k] for k in MAIN_KERNELS}
     print(f"main path: {len(phases)} phases in "
           f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}")
 
@@ -1657,7 +1788,12 @@ def main() -> int:
     for name, fn, fargs in layer["phases"]:
         print(f"  phase {name}: {ms(fn, *fargs):.4f} ms per call")
 
-    # 10. each kernel against its plain version, and timed
+    # 10. the labs, counted on their own
+    labs = labs_path(randn, (K.build_packed_batched_gemm(GemmDescriptor(
+        smm, B0), G), (ap, bp)))
+    counts.update(labs["counts"])
+
+    # 11. each kernel against its plain version, and timed
     rows = []
 
     def record(name, source, replaces, fn, fargs, ref_tol, nbytes, flops,
@@ -1668,7 +1804,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda",
             "source": f"libxsmm_torch/kernels/csrc/{source}",
-            "replaces": f"libxsmm_tpu/kernels/{replaces}",
+            "replaces": replaces,
             "launches": counts[name],
             "max_abs_err": _max_abs(want, got),
             "ms": ms(fn, *fargs), "plain_ms": ms(fn.plain, *fargs),
@@ -1680,11 +1816,12 @@ def main() -> int:
     gemm_src = "gemm_kernels.cu"
     desc = GemmDescriptor(smm, B0)
     smm_bytes, smm_flops = 3 * B * m * n * 4, 2 * B * m * n * k
-    record("packed_batched_gemm", gemm_src, "gemm_pallas.py:467",
+    record("packed_batched_gemm", gemm_src,
+           "libxsmm_tpu/kernels/gemm_pallas.py:467",
            K.build_packed_batched_gemm(desc, G), (ap, bp), TOL_F32,
            smm_bytes, smm_flops, geo.peak_f32_tflops,
            ms(torch.bmm, a_u, b_u))
-    record("batched_gemm", gemm_src, "gemm_pallas.py:67",
+    record("batched_gemm", gemm_src, "libxsmm_tpu/kernels/gemm_pallas.py:67",
            K.build_batched_gemm(desc, B), (a_u, b_u),
            TOL_F32, smm_bytes, smm_flops, geo.peak_f32_tflops,
            ms(torch.bmm, a_u, b_u))
@@ -1698,10 +1835,14 @@ def main() -> int:
         return torch.mm(x, y, out_dtype=torch.float32)
 
     br_bytes = 2 * br * KK * (M + N) + 4 * M * N
-    record("packed_brgemm", gemm_src, "gemm_pallas.py:163",
+    record("packed_brgemm", gemm_src,
+           "libxsmm_tpu/kernels/gemm_pallas.py:163",
            K.build_packed_brgemm(desc_br, br),
            (ap_br, b_br), TOL_BF16_IN, br_bytes, 2 * M * N * KK * br,
            geo.peak_bf16_tflops, ms(mm_f32, a_lib, b_lib))
+    lab_rows(record, ms, geo, dev, labs["passthrough"],
+             (K.build_packed_brgemm_sol(desc_br, br), (ap_br, b_br), br_bytes,
+              rows[-1]["ms"]))
 
     # flash forward at bench.py's serving shape: two (s, s, hd) products
     # over the bf16 tensor cores' peak; q, kT and v read once, out written
@@ -1719,14 +1860,16 @@ def main() -> int:
             q4, k4, v4, is_causal=causal)
 
     record("flash_attention_fwd", "attention_kernels.cu",
-           "attention_pallas.py:159", flash, (0, fq, fkT, fv), TOL_BF16_OUT,
+           "libxsmm_tpu/kernels/attention_pallas.py:159", flash,
+           (0, fq, fkT, fv), TOL_BF16_OUT,
            4 * fbh * fs * fhd * 2, 4 * fbh * fs * fs * fhd,
            geo.peak_bf16_tflops, ms(sdpa, *sdpa_operands(fq, fkT, fv)))
     # dropout at the FFN shape: x read once, out and the byte mask written
     # once; the yardstick is torch's dropout (its own random bits)
     dx = enc["dropout_operand"]
-    record("dropout", "eltwise_kernels.cu", "eltwise_pallas.py:103",
-           KE.dropout, (dx, 7, 0.1), TOL_EXACT, dx.numel() * (2 + 2 + 1), 0,
+    record("dropout", "eltwise_kernels.cu",
+           "libxsmm_tpu/kernels/eltwise_pallas.py:103", KE.dropout,
+           (dx, 7, 0.1), TOL_EXACT, dx.numel() * (2 + 2 + 1), 0,
            geo.peak_bf16_tflops,
            ms(lambda t: torch.nn.functional.dropout(t, 0.1, True), dx))
 
@@ -1756,8 +1899,9 @@ def main() -> int:
         fn_ = functools.partial(part)
         fn_.plain = plain
         record(name, "attention_bwd_kernels.cu",
-               "attention_pallas.py:387" if nmm == 8
-               else "attention_pallas.py:485", fn_, bargs, TOL_BF16_OUT,
+               "libxsmm_tpu/kernels/attention_pallas.py:387" if nmm == 8
+               else "libxsmm_tpu/kernels/attention_pallas.py:485", fn_,
+               bargs, TOL_BF16_OUT,
                ops_in + nout * fbh * fs * fhd * 2,
                nmm * fbh * fs * fs * fhd, geo.peak_bf16_tflops, lib_bwd)
 
@@ -1768,10 +1912,10 @@ def main() -> int:
     # (library_ms null); the RNE cast x.to(bf16) moves the same bytes and is
     # printed beside it as "rne_cast_ms"
     sx = ext["sr_operand"]
-    record("stochastic_round", "eltwise_kernels.cu", "eltwise_pallas.py:50",
-           KE.stochastic_round, (sx, 7, Datatype.BF16), TOL_EXACT,
-           sx.numel() * (4 + 2), 0, geo.peak_bf16_tflops, None,
-           rne_cast_ms=ms(lambda t: t.to(torch.bfloat16), sx))
+    record("stochastic_round", "eltwise_kernels.cu",
+           "libxsmm_tpu/kernels/eltwise_pallas.py:50", KE.stochastic_round,
+           (sx, 7, Datatype.BF16), TOL_EXACT, sx.numel() * (4 + 2), 0,
+           geo.peak_bf16_tflops, None, rne_cast_ms=ms(lambda t: t.to(torch.bfloat16), sx))
     for tname in ("F16", "BF8", "HF8"):
         print(f"  stochastic_round f32->{tname.lower()} {tuple(sx.shape)}: "
               f"{ms(KE.stochastic_round, sx, 7, Datatype[tname]):.4f} ms")
@@ -1829,7 +1973,9 @@ def main() -> int:
                else f"{r['library_ms']:.4f} ms")
         cast = "".join(f"; {label} {r[key]:.4f} ms" for key, label in (
             ("rne_cast_ms", "rne cast"), ("compact_ms", "compacted form"),
-            ("clone_ms", "clone of the output")) if key in r)
+            ("clone_ms", "clone of the output"),
+            ("brgemm_ms", "the packed BRGEMM"), ("chunk2_ms", "chunk2"),
+            ("chunk4_ms", "chunk4")) if key in r)
         print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "
               f"{lib}{cast}); max_abs_err {r['max_abs_err']:.3e}"

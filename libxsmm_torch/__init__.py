@@ -30,7 +30,11 @@ Ported so far:
     rng module, and stochastic rounding with its kernel
     (kernels/csrc/eltwise_kernels.cu);
   * the TPP-CNN model (models/tpp_cnn.py), its conv as the BRGEMM-ext,
-    and the TPP-GCN model on one device (models/tpp_gcn.py).
+    and the TPP-GCN model on one device (models/tpp_gcn.py);
+  * the timer (utils/timer.py), the streaming twins of the packed BRGEMM
+    and the packed SMM (kernels/gemm.py), and the two labs
+    (scripts/brgemm_lab.py, scripts/bcsc_lab.py, with the BCSC probe
+    kernels of kernels/csrc/spmm_lab_kernels.cu).
 The kernels are hand-written CUDA for sm_90a. A kernel follows the device of
 its tensors: CUDA tensors launch the CUDA kernel, CPU tensors run its plain
 torch version. libxsmm_torch never imports jax or libxsmm_tpu.
@@ -107,6 +111,10 @@ from .ops.sparse import (BcscMatrix, BsrMatrix, CscMatrix, CsrMatrix,
                          create_packed_spgemm_csr, create_spgemm_csr_areg)
 from .ops.packed import (create_packed_gemm, create_packed_gemm_ac_rm,
                          create_packed_gemm_bc_rm)
+from .utils.timer import (TimerInfo, get_timer_info,
+                          tick as timer_tick, duration as timer_duration,
+                          tickint as timer_tickint,
+                          ncycles as timer_ncycles)
 
 __version__ = "0.1.0"
 

@@ -1,7 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for libxsmm_torch's dense small-GEMM
 // main path: the lane-packed batched SMM, the unpacked batched SMM and the
 // lane-packed batch-reduce GEMM (BRGEMM). They replace the three Pallas TPU
-// kernels of libxsmm_tpu/kernels/gemm_pallas.py.
+// kernels of libxsmm_tpu/kernels/gemm_pallas.py. Beside them stand the two
+// streaming twins the JAX package times its kernels against: the BRGEMM's
+// (gemm_pallas.py:334 build_packed_brgemm_sol) and the packed SMM's
+// passthrough (bench.py:438-448).
 //
 // Plain C interface, no torch headers: kernels/_build.py compiles this file
 // with nvcc into a shared library and kernels/gemm.py calls it through
@@ -326,11 +329,21 @@ static cudaError_t launch_batched_gemm(const void* a, const void* b,
 // (seeded with C0, then + D, epilogue, one cast). No atomics: the epilogue
 // sees the full sum and the result is the same every run. The last chunk
 // is ragged; its K bound masks it.
+//
+// SOL = true is the streaming twin (build_packed_brgemm_sol,
+// gemm_pallas.py:334): out = rowsum(A)[:, None] + colsum(B)[None, :] over
+// the whole contraction, f32. It keeps this kernel's grid, K split, shared
+// memory loads and K-bound mask (the TPU twin's ragged-step select), then
+// the same fixed-order reduce with no C0, no D and no epilogue; only the 16
+// FMAs of the outer product per k become 4 + 4 adds into running row and
+// column sums. The BRGEMM runs on the CUDA cores' FMAs, so one add per
+// product would cost what the math costs and the twin would time the math,
+// not the stream. Bound: the BRGEMM's bytes (20 us at the shape above).
 // ---------------------------------------------------------------------------
 
 constexpr int BR_BM = 64, BR_BN = 64, BR_BK = 16;
 
-template <typename TIn>
+template <typename TIn, bool SOL>
 __global__ void __launch_bounds__(256)
 brgemm_partial_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
                       float* __restrict__ ws, int m, int n, int qk, long K,
@@ -344,10 +357,13 @@ brgemm_partial_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
   const int la_row = tid >> 2, la_k = (tid & 3) * 4;     // A: 64 rows x 16
   const int lb_k = tid >> 4, lb_col = (tid & 15) * 4;    // B: 16 x 64 cols
   float acc[4][4];
+  float sa[4], sb[4];   // SOL: running sums of this thread's rows and columns
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    sa[i] = sb[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
 
   for (long kb = kb0; kb < kb1; kb += BR_BK) {
     // a BK slice never crosses a group: Q*k is a multiple of 128
@@ -374,10 +390,18 @@ brgemm_partial_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
       const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
       const float ar[4] = {av.x, av.y, av.z, av.w};
       const float bc[4] = {bv.x, bv.y, bv.z, bv.w};
+      if constexpr (SOL) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          sa[i] += ar[i];
+          sb[i] += bc[i];
+        }
+      } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += ar[i] * bc[j];
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += ar[i] * bc[j];
+      }
     }
     __syncthreads();
   }
@@ -390,7 +414,7 @@ brgemm_partial_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx * 4 + j;
-      if (col < n) wz[(long)row * n + col] = acc[i][j];
+      if (col < n) wz[(long)row * n + col] = SOL ? sa[i] + sb[j] : acc[i][j];
     }
   }
 }
@@ -409,7 +433,7 @@ __global__ void brgemm_reduce_kernel(const float* __restrict__ ws,
   store_cvt(apply_epi(s, epi), out + i);
 }
 
-template <typename TIn, typename TOut>
+template <typename TIn, typename TOut, bool SOL = false>
 static cudaError_t launch_packed_brgemm(const void* a, const void* b,
                                         void* ws, const void* c0,
                                         const void* d, void* out, int G,
@@ -417,7 +441,7 @@ static cudaError_t launch_packed_brgemm(const void* a, const void* b,
                                         int splits, int epi, cudaStream_t s) {
   const long K = (long)G * qk;
   const dim3 grid((n + BR_BN - 1) / BR_BN, (m + BR_BM - 1) / BR_BM, splits);
-  brgemm_partial_kernel<TIn><<<grid, 256, 0, s>>>(
+  brgemm_partial_kernel<TIn, SOL><<<grid, 256, 0, s>>>(
       static_cast<const TIn*>(a), static_cast<const TIn*>(b),
       static_cast<float*>(ws), m, n, qk, K, kchunk);
   cudaError_t e = cudaGetLastError();
@@ -426,6 +450,52 @@ static cudaError_t launch_packed_brgemm(const void* a, const void* b,
   brgemm_reduce_kernel<TOut><<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(ws), static_cast<const float*>(c0),
       static_cast<const float*>(d), static_cast<TOut*>(out), mn, splits, epi);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 4. Passthrough twin of the lane-packed batched SMM. Replaces the Pallas
+//    passthrough of bench.py:438-448 (`make`, kernel `pkern`), the
+//    denominator of the headline fraction (bench.py:869).
+//
+// out = a + b over (G, m, 128) f32, bit for bit as torch's a + b. It keeps
+// packed_smm_kernel's grid (one block of 256 threads per (group, 2*RPT-row
+// tile)) and its 16-byte coalesced loads, and computes nothing, so it moves
+// the headline kernel's bytes (3 * G * m * 128 * 4; 201 MB at 4096 x 32 x
+// 128, 60 us at 3.35 TB/s) with the headline kernel's access pattern. The
+// TPU twin's block-group count S has no counterpart: one block always takes
+// one group.
+// ---------------------------------------------------------------------------
+
+template <int RPT>
+__global__ void __launch_bounds__(256)
+packed_smm_passthrough_kernel(const float* __restrict__ a,
+                              const float* __restrict__ b,
+                              float* __restrict__ out, int m) {
+  constexpr int W = 128;        // packed row width, as packed_smm_kernel
+  constexpr int MT = 2 * RPT;   // rows per block
+  const long g = blockIdx.x;
+  const int row0 = blockIdx.y * MT;
+  const int rows = min(MT, m - row0);
+  const long base = (g * m + row0) * (long)W / 4;
+  const float4* a4 = reinterpret_cast<const float4*>(a) + base;
+  const float4* b4 = reinterpret_cast<const float4*>(b) + base;
+  float4* o4 = reinterpret_cast<float4*>(out) + base;
+  for (int i = threadIdx.x; i < rows * W / 4; i += 256) {
+    const float4 x = a4[i], y = b4[i];
+    o4[i] = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+  }
+}
+
+template <int RPT>
+static cudaError_t launch_passthrough(const void* a, const void* b,
+                                      void* out, int G, int m,
+                                      cudaStream_t s) {
+  constexpr int MT = 2 * RPT;
+  const dim3 grid(G, (m + MT - 1) / MT);
+  packed_smm_passthrough_kernel<RPT><<<grid, 256, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(out), m);
   return cudaGetLastError();
 }
 
@@ -486,6 +556,30 @@ int xsmm_packed_brgemm(const void* a, const void* b, void* ws, const void* c0,
   if (in_t == T_BF16 && out_t == T_BF16)
     return launch_packed_brgemm<__nv_bfloat16, __nv_bfloat16>(a, b, ws, c0, d, out, G, m, n, qk, kchunk, splits, epi, s);
   return cudaErrorInvalidValue;
+}
+
+// the BRGEMM's streaming twin: f32 out, no C0, D or epilogue
+int xsmm_packed_brgemm_sol(const void* a, const void* b, void* ws, void* out,
+                           int G, int m, int n, int qk, long long kchunk,
+                           int splits, int in_t, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_t == T_F32)
+    return launch_packed_brgemm<float, float, true>(a, b, ws, nullptr, nullptr, out, G, m, n, qk, kchunk, splits, EPI_NONE, s);
+  if (in_t == T_BF16)
+    return launch_packed_brgemm<__nv_bfloat16, float, true>(a, b, ws, nullptr, nullptr, out, G, m, n, qk, kchunk, splits, EPI_NONE, s);
+  return cudaErrorInvalidValue;
+}
+
+// a, b, out (G, m, 128) f32, 16-byte aligned; rpt as xsmm_packed_smm's
+int xsmm_packed_smm_passthrough(const void* a, const void* b, void* out,
+                                int G, int m, int rpt, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rpt) {
+    case 4: return launch_passthrough<4>(a, b, out, G, m, s);
+    case 8: return launch_passthrough<8>(a, b, out, G, m, s);
+    case 16: return launch_passthrough<16>(a, b, out, G, m, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

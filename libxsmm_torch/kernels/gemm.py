@@ -13,6 +13,11 @@ the same support predicates and the same fused epilogues:
 * build_packed_brgemm — the lane-packed batch-reduce GEMM with the fused
   cp epilogue and the ADD bias operand.
 
+Beside them, the two streaming twins the JAX package times its kernels
+against: build_packed_brgemm_sol (gemm_pallas.py:334), the BRGEMM's grid and
+loads without the products, and build_packed_smm_passthrough (bench.py:438),
+o = a + b with the packed SMM's grid and bytes.
+
 Every builder returns a wrapper object. Calling it checks the operands'
 shape and dtype, then follows their device: on CUDA tensors it allocates the
 output with torch.empty and launches the kernel on the current stream (a
@@ -35,7 +40,8 @@ from ..dtypes import Datatype, to_torch
 
 # kernel launches per kernel since the last reset_launches(); the wrappers
 # add one where they launch their CUDA kernel, and nowhere else
-launches = {"batched_gemm": 0, "packed_batched_gemm": 0, "packed_brgemm": 0}
+launches = {"batched_gemm": 0, "packed_batched_gemm": 0, "packed_brgemm": 0,
+            "packed_brgemm_sol": 0, "packed_smm_passthrough": 0}
 
 
 def reset_launches() -> None:
@@ -63,8 +69,12 @@ def _kernels() -> ctypes.CDLL:
                                           I, P]
         lib.xsmm_packed_brgemm.argtypes = [P, P, P, P, P, P, I, I, I, I, LL,
                                            I, I, I, I, P]
+        lib.xsmm_packed_brgemm_sol.argtypes = [P, P, P, P, I, I, I, I, LL, I,
+                                               I, P]
+        lib.xsmm_packed_smm_passthrough.argtypes = [P, P, P, I, I, I, P]
         for f in (lib.xsmm_packed_smm, lib.xsmm_batched_gemm,
-                  lib.xsmm_packed_brgemm):
+                  lib.xsmm_packed_brgemm, lib.xsmm_packed_brgemm_sol,
+                  lib.xsmm_packed_smm_passthrough):
             f.restype = I
         lib.xsmm_error_string.argtypes = [I]
         lib.xsmm_error_string.restype = ctypes.c_char_p
@@ -371,17 +381,24 @@ class PackedBrgemm:
             out = (out + late_c.to(torch.float32)).to(self.out_dt)
         return out
 
-    def _launch(self, a, b, c0, d, out_dt):
-        m, n = self.m, self.n
-        props = torch.cuda.get_device_properties(a.device)
+    def _workspace(self, device):
+        """(K per block, K splits, the f32 partial-sum workspace) of a
+        launch on `device`."""
+        props = torch.cuda.get_device_properties(device)
         kchunk, splits = self.splits(props.multi_processor_count)
         if splits > 65535:
             raise ValueError(f"{self.name}: {splits} K splits exceed the "
                              "grid's z limit (raise step_groups)")
+        ws = torch.empty((splits, self.m, self.n), dtype=torch.float32,
+                         device=device)
+        return kchunk, splits, ws
+
+    def _launch(self, a, b, c0, d, out_dt):
+        m, n = self.m, self.n
+        kchunk, splits, ws = self._workspace(a.device)
         a, b = a.contiguous(), b.contiguous()
         c0 = None if c0 is None else c0.to(torch.float32).contiguous()
         d = None if d is None else d.to(torch.float32).contiguous()
-        ws = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
         out = torch.empty((m, n), dtype=out_dt, device=a.device)
         lib = _kernels()
         with torch.cuda.device(a.device):
@@ -409,6 +426,19 @@ class PackedBrgemm:
         return self.epilogue(acc).to(out_dt or self.out_dt)
 
 
+def _brgemm_pack(desc: GemmDescriptor, br: int,
+                 pack_q: Optional[int]) -> Optional[int]:
+    """The lane-pack factor Q of a packed BRGEMM (pack_q or 128//k), or
+    None where the reference refuses the build."""
+    if not packed_brgemm_supported(desc) or br <= 0:
+        return None
+    q_min = 128 // desc.shape.k
+    q = int(pack_q) if pack_q else q_min
+    if q < q_min or q % q_min or br % q:
+        return None
+    return q
+
+
 def build_packed_brgemm(desc: GemmDescriptor, br: int,
                         step_groups: Optional[int] = None,
                         cp_type: str = "NONE",
@@ -426,15 +456,64 @@ def build_packed_brgemm(desc: GemmDescriptor, br: int,
     groups per block. `acc_scratch` names a TPU accumulator schedule and
     changes nothing here: the partial sums always live in registers."""
     del acc_scratch
-    if not packed_brgemm_supported(desc) or br <= 0:
-        return None
-    if cp_type not in _EPILOGUES:
-        return None
-    q_min = 128 // desc.shape.k
-    q = int(pack_q) if pack_q else q_min
-    if q < q_min or q % q_min or br % q:
+    q = _brgemm_pack(desc, br, pack_q)
+    if q is None or cp_type not in _EPILOGUES:
         return None
     return PackedBrgemm(desc, br, q, step_groups, cp_type, with_bias)
+
+
+class PackedBrgemmSol(PackedBrgemm):
+    """fn(a, b) with a:(br/Q, m, Q*k) packed, b:(br, k, n) -> (m, n) f32 =
+    rowsum(A)[:, None] + colsum(B)[None, :] over the whole contraction: the
+    streaming twin of PackedBrgemm, with its K split and workspace."""
+
+    def __init__(self, desc: GemmDescriptor, br: int, q: int,
+                 step_groups: Optional[int]):
+        super().__init__(desc, br, q, step_groups, "NONE", False)
+        self.out_dt = torch.float32
+        self.name = desc.name() + "_packed_brgemm_sol"
+
+    def __call__(self, a, b):
+        _check("a", a, (self.groups, self.m, self.q * self.k), self.in_dt)
+        _check("b", b, (self.br, self.k, self.n), self.in_dt)
+        if not _on_cuda(a, b):
+            return self.plain(a, b)
+        kchunk, splits, ws = self._workspace(a.device)
+        a, b = a.contiguous(), b.contiguous()
+        out = torch.empty((self.m, self.n), dtype=torch.float32,
+                          device=a.device)
+        lib = _kernels()
+        with torch.cuda.device(a.device):
+            err = lib.xsmm_packed_brgemm_sol(
+                _ptr(a), _ptr(b), _ptr(ws), _ptr(out), self.groups, self.m,
+                self.n, self.q * self.k, kchunk, splits,
+                _type_code(self.in_dt, self.name), _stream(a.device))
+        _raise_on_error(err, self.name)
+        launches["packed_brgemm_sol"] += 1
+        return out
+
+    def plain(self, a, b):
+        return (a.float().sum((0, 2))[:, None]
+                + b.float().reshape(-1, self.n).sum(0)[None, :])
+
+
+def build_packed_brgemm_sol(desc: GemmDescriptor, br: int,
+                            step_groups: Optional[int] = None,
+                            pack_q: Optional[int] = None
+                            ) -> Optional[PackedBrgemmSol]:
+    """The streaming twin of build_packed_brgemm (the reference's
+    structural speed-of-light twin, gemm_pallas.py:334): fn(a, b) -> (m, n)
+    f32 = rowsum(A)[:, None] + colsum(B)[None, :], with a: (br/Q, m, Q*k)
+    packed and b: (br, k, n).
+
+    The kernel keeps the BRGEMM kernel's grid, K split (step_groups as
+    there), shared-memory loads and K-bound mask, and its fixed-order
+    reduce, with the products replaced by running row and column sums
+    (csrc/gemm_kernels.cu), so t_sol / t_brgemm says how far the BRGEMM is
+    from its own streaming floor. Returns None where the reference's twin
+    refuses."""
+    q = _brgemm_pack(desc, br, pack_q)
+    return None if q is None else PackedBrgemmSol(desc, br, q, step_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -537,3 +616,52 @@ def build_packed_batched_gemm(desc: GemmDescriptor,
             "NONE", "IDENTITY", "RELU", "X2"):
         return None   # transcendental epilogues are float-only
     return PackedBatchedGemm(desc, groups, cp_type, rpt)
+
+
+class PackedSmmPassthrough:
+    """fn(a, b) -> a + b over (G, m, 128) f32, bit for bit as torch's: the
+    packed SMM's grid and 16-byte loads with nothing computed."""
+
+    def __init__(self, groups: int, m: int):
+        self.groups, self.m = groups, m
+        self.rpt = packed_smm_configs(m)[0]   # the packed SMM's default grid
+        self.name = f"packed_smm_passthrough_{groups}x{m}x128"
+
+    def __call__(self, a, b):
+        shape = (self.groups, self.m, 128)
+        _check("a", a, shape, torch.float32)
+        _check("b", b, shape, torch.float32)
+        if not _on_cuda(a, b):
+            return self.plain(a, b)
+        a, b = a.contiguous(), b.contiguous()
+        for name, t in (("a", a), ("b", b)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{self.name}: operand {name} is not "
+                                 "16-byte aligned")
+        out = torch.empty(shape, dtype=torch.float32, device=a.device)
+        lib = _kernels()
+        with torch.cuda.device(a.device):
+            err = lib.xsmm_packed_smm_passthrough(
+                _ptr(a), _ptr(b), _ptr(out), self.groups, self.m, self.rpt,
+                _stream(a.device))
+        _raise_on_error(err, self.name)
+        launches["packed_smm_passthrough"] += 1
+        return out
+
+    def plain(self, a, b):
+        return a + b
+
+
+def build_packed_smm_passthrough(groups: int, m: int, S: Optional[int] = None
+                                 ) -> Optional[PackedSmmPassthrough]:
+    """The packed SMM's passthrough twin (bench.py:438-448, the denominator
+    of the headline fraction t_passthrough / t_packed_smm, bench.py:869):
+    fn(a, b) -> a + b over (G, m, 128) f32, with the packed SMM kernel's
+    grid, loads and bytes (csrc/gemm_kernels.cu), at the rows per thread
+    the packed SMM takes by default for this m. `S` is the TPU twin's
+    groups per block and changes nothing. None when there is nothing to
+    launch (groups or m not positive)."""
+    del S
+    if groups <= 0 or m <= 0:
+        return None
+    return PackedSmmPassthrough(groups, m)

@@ -1,21 +1,68 @@
-"""Kernel timing on the card.
+"""Timing utilities: the port of `libxsmm_tpu/utils/timer.py`.
 
-The part of `libxsmm_tpu/utils/timer.py` that the port's tuners need:
-`bench_chain` (tune=True of the batched GEMMs) and `bench_chain_interleaved`
-(the BCSC and fsspmdm autotuners). PyTorch runs eagerly and does not
-memoise repeated calls, so no data dependency needs chaining through the
-reps; each timed window is a pair of CUDA events around `reps` calls, closed
-by a host sync. `bench_host_interleaved` is the same discipline on the host
-clock for CPU operands: fsspmdm's create-time autotune times whatever device
-its handle lives on, as the reference's does.
+The libxsmm timer analogues (`tick`, `duration`, `tickint`, `ncycles`,
+`TimerInfo`, `get_timer_info`; the host's monotonic nanosecond clock, so
+`tsc` is 0, as in the JAX package), `gflops`, and the kernel timers:
+`bench` (mean seconds per call), `launch_overhead` (a trivial launch with
+its sync), `bench_chain` (tune=True of the batched GEMMs) and
+`bench_chain_interleaved` (the BCSC and fsspmdm autotuners, the labs).
+PyTorch runs eagerly and does not memoise repeated calls, so no data
+dependency needs chaining through the reps; each timed window is a pair of
+CUDA events around `reps` calls, closed by a host sync. For CPU operands
+`bench` and `bench_host_interleaved` keep the same discipline on the host
+clock: fsspmdm's create-time autotune times whatever device its handle lives
+on, as the reference's does. A call that raises is never dropped: the error
+propagates.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
+
+
+def tick() -> float:
+    """libxsmm_timer_tick analogue (seconds, monotonic)."""
+    return time.perf_counter()
+
+
+def duration(t0: float, t1: float) -> float:
+    """libxsmm_timer_duration analogue."""
+    return t1 - t0
+
+
+def tickint() -> int:
+    """libxsmm_timer_tickint analogue (integer nanosecond ticks)."""
+    return time.perf_counter_ns()
+
+
+def ncycles(t0: int, t1: int) -> int:
+    """libxsmm_timer_ncycles analogue: the monotonic tick delta, in ns (the
+    reference counts TSC cycles; the host clock here has no cycle
+    counter)."""
+    return max(0, int(t1) - int(t0))
+
+
+class TimerInfo:
+    """libxsmm_timer_info analogue (include/utils/libxsmm_timer.h): tsc=1
+    would mean tickint() counts hardware cycles; it counts the OS monotonic
+    nanosecond clock, so tsc is always 0."""
+
+    __slots__ = ("tsc",)
+
+    def __init__(self, tsc: int = 0):
+        self.tsc = tsc
+
+
+def get_timer_info() -> TimerInfo:
+    """libxsmm_get_timer_info (src/libxsmm_timer.c:21)."""
+    return TimerInfo(tsc=0)
+
+
+def gflops(nflops: int, seconds: float) -> float:
+    return nflops / max(seconds, 1e-12) / 1e9
 
 
 def _devices(cands) -> set:
@@ -50,6 +97,57 @@ def _host_window(fn: Callable, args: Tuple, reps: int) -> float:
     for _ in range(reps):
         fn(*args)
     return (time.perf_counter() - t0) / reps
+
+
+def bench(fn: Callable, args: Tuple = (), reps: int = 50,
+          warmup: int = 2) -> float:
+    """Mean seconds per call of fn(*args) over one window of `reps` calls
+    after `warmup` calls: CUDA events closed by a sync when the tensors
+    among args lie on one CUDA device, the host clock when they lie on the
+    CPU (or there are none); raises on a mix."""
+    cands = [(fn, tuple(args))]
+    devices = _devices(cands)
+    if not devices or devices == {torch.device("cpu")}:
+        _warm(cands, warmup)
+        return _host_window(fn, tuple(args), max(1, reps))
+    device = _cuda_device(cands)
+    with torch.cuda.device(device):
+        _warm(cands, warmup)
+        torch.cuda.synchronize()
+        return _cuda_window(fn, tuple(args), max(1, reps))
+
+
+_LAUNCH_OVERHEAD: Dict[str, float] = {}
+
+
+def launch_overhead(refresh: bool = False, device=None) -> float:
+    """Best of 3 times of one trivial launch (an (8, 128) f32 scale) and the
+    sync after it, on the host clock: the per-launch cost a timing of few
+    calls pays. On the card by default (raising without one); device="cpu"
+    times the host's own op. Cached per process and device; refresh=True
+    measures again."""
+    from ..device import resolve_device
+    device = resolve_device(device)
+    key = str(device)
+    if key in _LAUNCH_OVERHEAD and not refresh:
+        return _LAUNCH_OVERHEAD[key]
+    on_cuda = device.type == "cuda"
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize(device)
+
+    x = torch.ones((8, 128), dtype=torch.float32, device=device)
+    x = x * 1.0000001
+    sync()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        x = x * 1.0000001
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    _LAUNCH_OVERHEAD[key] = best
+    return best
 
 
 def _warm(cands, warmup: int) -> None:

@@ -48,6 +48,27 @@ def test_import_leaves_jax_out():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_labs_leave_jax_out():
+    """The labs (libxsmm_torch.scripts) import and parse their arguments
+    without JAX or the JAX package, as `python3 -m` runs them."""
+    code = ("import sys\n"
+            "from libxsmm_torch.scripts import bcsc_lab, brgemm_lab\n"
+            "for lab in (bcsc_lab, brgemm_lab):\n"
+            "    try:\n"
+            "        lab.main(['--help'])\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code == 0\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print('LOADED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_env(True), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+    assert "--density" in out.stdout and "--rounds" in out.stdout
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
