@@ -9,7 +9,8 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written kernels from libxsmm_torch/kernels/csrc/ with
    nvcc for sm_90a (one nvcc per source, all started together) and prints
-   the build time;
+   the build time, the spills per source and the registers and spills of
+   each tensor-core kernel (the bf16 flash forward and BCSC SpMM);
 3. drives the small-GEMM main path through the public entry points, with
    every kernel's launch count set to 0 just before and read just after:
    - the headline: dispatch_gemm_batched_packed(GemmShape(32,32,32),
@@ -38,8 +39,9 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    - the bf16 block seeded (dropout_p=0.1, seed=7): finite, repeatable,
      the FFN keep rate within 4 sigma of 0.9;
    - dispatch_flash_attention at bench.py's serving shape (bh=16, s=2048,
-     hd=128, bf16): plain, causal, dropout, bias per head and broadcast,
-     and the LSE output; f32 at (4, 1024, 64) and hd=256 at (2, 256, 256);
+     hd=128, bf16, the tensor-core kernel, asserted): plain, causal,
+     dropout, bias per head and broadcast, and the LSE output; f32 (the FMA
+     kernel) at (4, 1024, 64) and hd=256 at (2, 256, 256);
    - dispatch_meltw_unary(DROPOUT, BITMASK_2BYTEMULT) at the FFN shape
      4096 x 3072 in bf16, f32 and f16;
    then fails unless both kernels were launched and no backward kernel
@@ -71,7 +73,9 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    k = 2048, n = 1024, bf16 -> bf16, the two-family pattern); a streaming
    case (m = 32768 rows of A through the bcsc20 and bcsc05 patterns), an
    f32 case (m = 4096) and a ragged one (m = 1000); each result against
-   the float64 dense product; union, union2 and union3 must launch the RHS
+   the float64 dense product; the bf16 cases' "pallas" and "super" must
+   take the tensor-core kernel and the f32 case the FMA kernel (the path
+   predicate, asserted); union, union2 and union3 must launch the RHS
    compactor and the union4 names and union5 must not (the counter read
    around each call); prints the auto picks, the clustering decision and
    both union depths; fails unless all five kernels were launched, then
@@ -126,6 +130,9 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     stochastic rounding, the union RHS compactor and the BRGEMM's twin,
     whose rows carry the RNE cast's, an output clone's and the BRGEMM's
     time instead), and each launch configuration the kernel chooses among;
+    for the three tensor-core rows (flash forward, scheduled and supertile
+    SpMM) it asserts the path and prints the achieved TFLOP/s and the
+    kernel / library ratio;
 12. prints one JSON line with the per-kernel numbers (eighteen rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
@@ -199,6 +206,9 @@ SPARSE_KERNELS = ("bcsc_spmm", "bcsc_spmm_union", "bcsc_densify",
 SPARSE_KERNEL_OF = {"pallas": ("bcsc_spmm",), "super": ("bcsc_spmm_super",),
                     "dense": ("bcsc_densify",), "sparse": ()}
 COMPACTED = ("union", "union2", "union3")
+# the tensor-core kernels: (source stem, kernel name in the ptxas report)
+MMA_KERNELS = (("spmm_kernels", "bcsc_spmm_mma_kernel"),
+               ("attention_kernels", "flash_fwd_mma_kernel"))
 
 
 def _smi() -> str:
@@ -338,6 +348,11 @@ def encoder_path(randn, dev):
     q, v = randn(bh, s, hd, dtype=bf16), randn(bh, s, hd, dtype=bf16)
     kT = randn(bh, hd, s, dtype=bf16)
     bias_h, bias_1 = randn(bh, s, s, scale=0.5), randn(1, s, s, scale=0.5)
+    # bf16 takes the tensor-core kernel, f32 the FMA kernel
+    for dt, want in ((bf16, "mma"), (f32, "fma")):
+        if KA.flash_path(dt) != want:
+            raise AssertionError(f"flash {dt}: path {KA.flash_path(dt)}, "
+                                 f"expected {want}")
     for name, kw, call in (
             ("plain", {}, {}), ("causal", {"causal": True}, {}),
             ("dropout", {"dropout_p": 0.1}, {"seed": 5}),
@@ -613,6 +628,14 @@ def sparse_path(randn, dev):
         dense_b = KS.build_bcsc_densify(shape, cfg, indptr, indices,
                                         dev).plain(v)
         want = a.double() @ dense_b.double()
+        # bf16 operands take the tensor-core kernel at the case's blocking
+        # ("pallas") and at the supertiles ("super"); f32 the FMA kernel
+        path = "mma" if a.dtype == bf16 else "fma"
+        for bk_, bn_ in ((cfg.bk, cfg.bn), (KS.SUPER, KS.SUPER)):
+            if KS.spmm_path(a.dtype, bk_, bn_) != path:
+                raise AssertionError(f"bcsc {case}: {bk_}x{bn_} blocks take "
+                                     f"{KS.spmm_path(a.dtype, bk_, bn_)}, "
+                                     f"expected {path}")
         worst, pick = 0.0, None
         for s in STRATEGIES + ("auto",):
             kern = xt.create_packed_spgemm_bcsc(
@@ -635,7 +658,8 @@ def sparse_path(randn, dev):
         print(f"  bcsc {case} ({shape.m}x{shape.n}x{shape.k}, "
               f"{len(indices)} blocks of {cfg.bk}x{cfg.bn}): "
               f"{len(STRATEGIES) + 1} strategies, worst normf_rel vs "
-              f"float64 {worst:.3e}; auto -> {pick}")
+              f"float64 {worst:.3e}; pallas/super path {path}; auto -> "
+              f"{pick}")
 
     KS.reset_launches()
     t_path = time.perf_counter()
@@ -1247,7 +1271,17 @@ def cnn_breakdown(convs, cnn, ms):
           f" train step {t_step:.4f} ms")
 
 
-def sparse_rows(record, stream, ms, geo):
+def mma_rate(row, flops, useful):
+    """Print a tensor-core kernel's achieved rate (its own products and the
+    useful ones, over its time in this run) and its ratio to the library
+    call timed beside it; keep the rate in the row."""
+    row["tflops"] = flops / row["ms"] / 1e9
+    print(f"  {row['name']}: {row['tflops']:.1f} TFLOP/s of its own "
+          f"products, {useful / row['ms'] / 1e9:.1f} TFLOP/s useful; "
+          f"kernel / library {row['ms'] / row['library_ms']:.3f}")
+
+
+def sparse_rows(record, rows, stream, ms, geo):
     """The five sparse kernels at the streaming case, each against its
     plain version. Bound: A, the kernel's value operand and C each moved
     once, and the useful products 2 * nblocks * bk * bn * m at the bf16
@@ -1274,9 +1308,14 @@ def sparse_rows(record, stream, ms, geo):
                 dense_b)
     src = "spmm_kernels.cu"
     peak = geo.peak_bf16_tflops
+    sched = KS.build_bcsc_spmm(shape, cfg, indptr, indices, dev)
+    if sched.path != "mma":
+        raise AssertionError(f"bcsc_spmm at the streaming case took "
+                             f"{sched.path}")
     record("bcsc_spmm", src, "libxsmm_tpu/kernels/spmm_pallas.py:88",
-           KS.build_bcsc_spmm(shape, cfg, indptr, indices, dev), (a, v),
-           TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak, lib_mm)
+           sched, (a, v), TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak,
+           lib_mm)
+    mma_rate(rows[-1], useful, useful)
     union = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev)
     union_c = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev,
                                        compact=True)
@@ -1293,10 +1332,14 @@ def sparse_rows(record, stream, ms, geo):
     s_indptr, s_indices, sgmap = supertile_plan(shape, cfg, indptr, indices)
     sup = assemble_supertiles(v, torch.as_tensor(sgmap, device=dev),
                               torch.bfloat16)
+    sfn = KS.build_bcsc_spmm_super(shape, s_indptr, s_indices, dev)
+    if sfn.path != "mma":
+        raise AssertionError(f"bcsc_spmm_super took {sfn.path}")
     record("bcsc_spmm_super", src, "libxsmm_tpu/kernels/spmm_pallas.py:942",
-           KS.build_bcsc_spmm_super(shape, s_indptr, s_indices, dev),
-           (a, sup), TOL_SPARSE_BF16, io + 2 * sup.numel(), useful, peak,
+           sfn, (a, sup), TOL_SPARSE_BF16, io + 2 * sup.numel(), useful, peak,
            lib_mm)
+    # its own products: every occupied supertile in full
+    mma_rate(rows[-1], 2 * m * KS.SUPER * KS.SUPER * len(s_indices), useful)
     ccol = torch.as_tensor(indptr.astype("int64"), device=dev)
     rows = torch.as_tensor(indices.astype("int64"), device=dev)
     record("bcsc_densify", src, "libxsmm_tpu/kernels/spmm_pallas.py:800",
@@ -1569,6 +1612,11 @@ def main() -> int:
                   if "spill" in ln and not ln.strip().startswith("0 bytes")]
         print(f"  {stem}: {log.count('Used ')} kernels compiled, "
               f"{len(spills)} with spills {spills}")
+    # the tensor-core kernels, one line per instantiation
+    for stem, needle in MMA_KERNELS:
+        for name, regs, st, ld in _build.kernel_resources(stem, needle):
+            print(f"  {stem} {name}: {regs} registers, spill stores {st} "
+                  f"B, spill loads {ld} B")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
@@ -1859,11 +1907,15 @@ def main() -> int:
         return torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal)
 
+    if flash.path != "mma":
+        raise AssertionError(f"flash forward bf16 took {flash.path}")
+    flash_ops = 4 * fbh * fs * fs * fhd
     record("flash_attention_fwd", "attention_kernels.cu",
            "libxsmm_tpu/kernels/attention_pallas.py:159", flash,
            (0, fq, fkT, fv), TOL_BF16_OUT,
-           4 * fbh * fs * fhd * 2, 4 * fbh * fs * fs * fhd,
+           4 * fbh * fs * fhd * 2, flash_ops,
            geo.peak_bf16_tflops, ms(sdpa, *sdpa_operands(fq, fkT, fv)))
+    mma_rate(rows[-1], flash_ops, flash_ops)
     # dropout at the FFN shape: x read once, out and the byte mask written
     # once; the yardstick is torch's dropout (its own random bits)
     dx = enc["dropout_operand"]
@@ -1905,7 +1957,7 @@ def main() -> int:
                ops_in + nout * fbh * fs * fhd * 2,
                nmm * fbh * fs * fs * fhd, geo.peak_bf16_tflops, lib_bwd)
 
-    sparse_rows(record, sp["stream"], ms, geo)
+    sparse_rows(record, rows, sp["stream"], ms, geo)
 
     # stochastic rounding at the FFN shape, f32 -> bf16: x read once, out
     # written once. No PyTorch call computes stochastic rounding
@@ -1927,14 +1979,18 @@ def main() -> int:
                                 ("block", (bq, bkT, bv))):
         bh_, s_, hd_ = q_.shape
         for causal in (False, True):
-            for cfg_ in KA.flash_configs(hd_):
+            t_lib = ms(sdpa, *sdpa_operands(q_, kT_, v_), causal)
+            for cfg_ in KA.flash_configs(hd_, q_.dtype):
                 fn_ = KA.build_flash_attention(bh_, s_, hd_, q_.dtype,
                                                causal=causal,
                                                block_override=cfg_)
+                t_ = ms(fn_, 0, q_, kT_, v_)
+                ops_ = 4 * bh_ * s_ * s_ * hd_ / (2 if causal else 1)
                 print(f"  flash {name} {tuple(q_.shape)} causal={causal} "
-                      f"tile={cfg_}: {ms(fn_, 0, q_, kT_, v_):.4f} ms")
-            print(f"  sdpa {name} causal={causal}: "
-                  f"{ms(sdpa, *sdpa_operands(q_, kT_, v_), causal):.4f} ms")
+                      f"tile={cfg_} path={fn_.path}: {t_:.4f} ms, "
+                      f"{ops_ / t_ / 1e9:.1f} TFLOP/s, kernel / sdpa "
+                      f"{t_ / t_lib:.3f}")
+            print(f"  sdpa {name} causal={causal}: {t_lib:.4f} ms")
 
     # the tile configurations of the backward kernels, at the bench shape
     # and at the encoder block's, with PyTorch's fused backward beside

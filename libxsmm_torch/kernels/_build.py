@@ -21,11 +21,12 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -97,6 +98,30 @@ def build_all(timeout: float = 600.0) -> Dict[str, float]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return times
+
+
+def kernel_resources(stem: str, needle: str = "") -> List[tuple]:
+    """(mangled name, registers, spill store bytes, spill load bytes) of
+    each kernel of csrc/<stem>.cu whose mangled name holds `needle`, read
+    from nvcc's -Xptxas -v report of this process's build (empty when the
+    library was already built)."""
+    found, name, spill = [], None, (0, 0)
+    for line in build_log.get(stem, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            if needle in name:
+                found.append((name, int(m.group(1))) + spill)
+            name = None
+    return found
 
 
 def load(stem: str) -> ctypes.CDLL:

@@ -15,6 +15,12 @@ which chip_smoke.py also holds the kernel against on the card.
 `build_flash_attention_bwd(...)` returns a FlashAttentionBwd object that
 works the same way with `(seed, q, kT, v, dout, lse, delta[, bias])`.
 `launches` counts kernel launches, and only those.
+
+The forward has two CUDA kernels: bf16 operands run on the tensor cores
+(mma.sync, f32 accumulators, hd padded to a bucket of `_MMA_HDP`), f32
+operands on the CUDA cores' f32 FMAs; `flash_path` names the one a dtype
+takes, and each has its own tile configurations (`flash_configs`). The
+backward kernels run f32 FMAs for both types.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .gemm import _check, _on_cuda, _ptr, _raise_on_error, _stream
+from .gemm import _aligned16, _check, _on_cuda, _ptr, _raise_on_error, _stream
 
 _NEG = float(np.finfo(np.float32).min)
 _M32 = 0xFFFFFFFF
@@ -137,19 +143,46 @@ def _rand_bits(seed, b, row, col):
 # launch configurations
 # ---------------------------------------------------------------------------
 
-def _smem_bytes(hd: int, bk: int) -> int:
-    """Shared memory of one block (csrc launch_flash): Q^T and P^T at a
-    64+4 row stride, the K^T and V tiles, in f32, hd padded to 64."""
+_MMA_HDP = (32, 64, 96, 128, 192, 256)   # csrc launch_mma_hd's buckets
+_SMEM_MAX = 232448                        # a block's shared memory on sm_90
+
+
+def flash_path(dtype: torch.dtype) -> str:
+    """The forward kernel that serves `dtype` (csrc xsmm_flash_fwd): "mma",
+    the bf16 tensor-core kernel, or "fma", the f32 kernel on the CUDA cores
+    (f32 means f32: no TF32)."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def _mma_hdp(hd: int) -> int:
+    """hd padded with zeros to the tensor-core kernel's bucket."""
+    return next(p for p in _MMA_HDP if hd <= p)
+
+
+def _smem_bytes(hd: int, bk: int, dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one forward block (csrc launch_flash,
+    mma_smem_bytes). f32: Q^T and P^T at a 64+4 row stride, the K^T and V
+    tiles, in f32, hd padded to 64. bf16: Q and two K^T and V tiles each,
+    in bf16, hd padded to its bucket, every row padded by 16 bytes."""
+    if flash_path(dtype) == "mma":
+        hdp = _mma_hdp(hd)
+        return (_BQ * (hdp + 8) + 2 * hdp * (bk + 8)
+                + 2 * bk * (hdp + 8)) * 2
     hdp = -(-hd // 64) * 64
     return (hdp * (_BQ + 4) + 2 * hdp * bk + bk * (_BQ + 4)) * 4
 
 
-def flash_configs(hd: int) -> list:
-    """(rows, K columns) per block the CUDA kernel is built for; the first
-    is the default for this head dim: 64-column K tiles while two blocks
-    still fit an SM's shared memory, else 32."""
+def flash_configs(hd: int, dtype: torch.dtype = torch.float32) -> list:
+    """(rows, K columns) per block the CUDA kernel for `dtype` is built
+    for; the first is the default for this head dim. f32: 64-column K tiles
+    while two blocks still fit an SM's shared memory, else 32. bf16: 64
+    columns up to hd = 128, where the f32 S fragments cost 32 registers a
+    thread beside O's 64; past it O alone takes up to 128, so 32 columns."""
     wide = (_BQ, 64)
     narrow = (_BQ, 32)
+    if flash_path(dtype) == "mma":
+        order = [wide, narrow] if _mma_hdp(hd) <= 128 else [narrow, wide]
+        return [c for c in order if _smem_bytes(hd, c[1], dtype) <= _SMEM_MAX]
     return [wide, narrow] if 2 * _smem_bytes(hd, 64) <= 228 * 1024 \
         else [narrow, wide]
 
@@ -214,6 +247,7 @@ class FlashAttention:
         self.dropout_p = float(dropout_p)
         self.return_lse = bool(return_lse)
         self.block_q, self.block_k = config
+        self.path = flash_path(dtype)
         self.thr = (_dropout_threshold(self.dropout_p)
                     if self.dropout_p > 0.0 else None)
         self.inv_keep = (1.0 / (1.0 - self.dropout_p)
@@ -242,7 +276,7 @@ class FlashAttention:
         if not _on_cuda(q, kT, v, bias):
             return self.plain(seed, q, kT, v, bias)
         bh, s, hd = self.bh, self.s, self.hd
-        q, kT, v = q.contiguous(), kT.contiguous(), v.contiguous()
+        q, kT, v = (_aligned16(t) for t in (q, kT, v))
         if bias is not None:
             bias = bias.to(torch.float32).contiguous()
         out = torch.empty((bh, s, hd), dtype=self.dtype, device=q.device)
@@ -314,7 +348,8 @@ def build_flash_attention(bh: int, s: int, hd: int, dtype: torch.dtype,
     sc = float(scale) if scale is not None else float(hd) ** -0.5
     return FlashAttention(bh, s, hd, dtype, causal, sc, bias_bh, dropout_p,
                           return_lse,
-                          _pick_config(s, flash_configs(hd), block_override))
+                          _pick_config(s, flash_configs(hd, dtype),
+                                       block_override))
 
 
 # ---------------------------------------------------------------------------

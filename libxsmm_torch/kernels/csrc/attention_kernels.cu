@@ -21,18 +21,33 @@
 // Bound. At bench.py's serving shape (bh=16, s=2048, hd=128, bf16) the two
 // products are 34.4 GFLOP against 33.5 MB of operands: far above the card's
 // balance point, so operations bound it (0.035 ms on the bf16 tensor
-// cores). This first version runs f32 FMAs on the CUDA cores (67 TFLOP/s,
-// a 0.51 ms floor there): every product is an f32 FMA, so f32 inputs get
-// full f32 (no TF32) and bf16 inputs are widened exactly on load. The
-// tensor-core version (mma / wgmma on bf16 tiles) is later work.
+// cores). Two kernels, by operand type (kernels/attention.py flash_path):
 //
-// Design. The TPU kernel's (bq, 128) lane-broadcast scratch and its VMEM
-// budget have no meaning here. One block of 256 threads takes one
-// (b, 64-row Q tile) and loops over K tiles of BK columns, bounded at the
-// diagonal when causal (the reference visits every step and masks). The Q
-// tile is staged once, transposed, in shared memory; each K^T tile
-// (hd rows of BK contiguous columns of kT) and V tile (BK rows of hd) is
-// staged per step, widened to f32. Thread (ty, tx) of a 16 x 16 grid owns
+// flash_fwd_mma_kernel, bf16 (the FlashAttention-2 shape). One block of
+// four warps takes one (b, 64-row Q tile); each warp owns 16 query rows. Q
+// is staged once; K^T tiles (hd rows of BK contiguous key columns of kT)
+// and V tiles (BK rows of hd) arrive in bf16 through a 2-stage cp.async
+// ring, tile t+1's copies in flight while tile t is multiplied. S = Q K^T
+// runs on the tensor cores (mma.sync m16n8k16, Q's fragments by ldmatrix,
+// kept in registers up to hd = 128, K^T's by ldmatrix.trans) into f32
+// register fragments; the online softmax works on those fragments in log2
+// units (scores times log2(e): one exp2 per exponential), the row
+// max and sum by shuffles within the quad of lanes that shares a row, m, l
+// and the f32 O accumulator in registers. The dropped, rescaled
+// exponentials are rounded to bf16 in registers (the reference's astype)
+// and feed P V as the A operand with no trip through shared memory; V's
+// fragments by ldmatrix.trans. hd is padded with zeros to a multiple of 16
+// (exact); rows in shared memory are padded by 16 bytes so ldmatrix's rows
+// fall in distinct banks.
+//
+// flash_fwd_kernel, f32: f32 FMAs on the CUDA cores (67 TFLOP/s, a 0.51 ms
+// floor at the bench shape), so f32 inputs get full f32 (no TF32). The
+// TPU kernel's (bq, 128) lane-broadcast scratch and its VMEM budget have no
+// meaning here. One block of 256 threads takes one (b, 64-row Q tile) and
+// loops over K tiles of BK columns, bounded at the diagonal when causal
+// (both kernels; the reference visits every step and masks). The Q tile is
+// staged once, transposed, in shared memory; each K^T tile and V tile is
+// staged per step. Thread (ty, tx) of a 16 x 16 grid owns
 // score rows 4ty..4ty+3 and columns tx*CPT.., reading four Q rows and CPT
 // K columns with one vector load each per step of the hd loop; the row
 // statistics reduce over the 16 lanes of a half-warp with shuffles. The
@@ -45,6 +60,7 @@
 #include <float.h>
 
 #include "xsmm_common.cuh"
+#include "xsmm_mma.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
@@ -219,6 +235,273 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores. HDP: hd padded to a multiple of 16 (a bucket of
+// kernels/attention.py _mma_hdp); BK: key columns per tile.
+// ---------------------------------------------------------------------------
+
+constexpr int MQ_THREADS = 128;   // four warps of 16 query rows: BQ rows
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__host__ __device__ constexpr int mma_smem_bytes(int hdp, int bk) {
+  // Q (BQ x hdp), two K^T tiles (hdp x bk), two V tiles (bk x hdp), bf16,
+  // every row padded by 16 bytes
+  return (BQ * (hdp + 8) + 2 * hdp * (bk + 8) + 2 * bk * (hdp + 8)) * 2;
+}
+
+template <int HDP, int BK>
+__global__ void __launch_bounds__(MQ_THREADS) flash_fwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kT,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    long long bias_stride, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int s, int hd, float scale, int causal,
+    int dropout, uint32_t seed, uint32_t thr, float inv_keep) {
+  constexpr int LDQ = HDP + 8, LDK = BK + 8;  // LDQ is also V's row stride
+  constexpr int DT = HDP / 8;                 // n8 tiles of O
+  constexpr int KT = BK / 8;                  // n8 tiles of S
+  constexpr int DU = HDP / 8, KU = BK / 8;    // 16-byte units per row
+  constexpr bool QREG = HDP <= 128;           // Q's fragments in registers
+  extern __shared__ __align__(16) unsigned char mq_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mq_smem);
+  __nv_bfloat16* ks = qs + BQ * LDQ;          // [2][HDP][LDK]
+  __nv_bfloat16* vs = ks + 2 * HDP * LDK;     // [2][BK][LDQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nq = s / BQ;
+  // causal: the tiles nearest the bottom have the most K steps; start them
+  // first so the short ones fill in behind
+  const int qi = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int b = blockIdx.x;
+  const int q0 = qi * BQ;
+  const int wrow = q0 + warp * 16;            // this warp's first row
+  const size_t head = (size_t)b * s * hd;
+  const __nv_bfloat16* qh = q + head;
+  const __nv_bfloat16* kh = kT + head;
+  const __nv_bfloat16* vh = v + head;
+  const float* bias_h = bias ? bias + (size_t)b * bias_stride : nullptr;
+
+  // group 0: Q, K^T tile 0, V tile 0; columns of hd's padding read zeros
+  for (int i = tid; i < BQ * DU; i += MQ_THREADS) {
+    const int r = i / DU, d = (i - r * DU) * 8;
+    const bool ok = d < hd;
+    cp_async16(qs + r * LDQ + d, ok ? qh + (size_t)(q0 + r) * hd + d : qh,
+               ok);
+  }
+  auto stage_kv = [&](int t) {
+    const int k0 = t * BK;
+    __nv_bfloat16* kd = ks + (t & 1) * HDP * LDK;
+    __nv_bfloat16* vd = vs + (t & 1) * BK * LDQ;
+    for (int i = tid; i < HDP * KU; i += MQ_THREADS) {
+      const int d = i / KU, c = (i - d * KU) * 8;
+      const bool ok = d < hd;
+      cp_async16(kd + d * LDK + c, ok ? kh + (size_t)d * s + k0 + c : kh, ok);
+    }
+    for (int i = tid; i < BK * DU; i += MQ_THREADS) {
+      const int r = i / DU, d = (i - r * DU) * 8;
+      const bool ok = d < hd;
+      cp_async16(vd + r * LDQ + d, ok ? vh + (size_t)(k0 + r) * hd + d : vh,
+                 ok);
+    }
+  };
+  stage_kv(0);
+  cp_async_commit();
+
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  const float scale_l2 = scale * LOG2E;
+  float m_r[2] = {-FLT_MAX, -FLT_MAX};   // rows g and g + 8, log2 units
+  float l_r[2] = {0.f, 0.f};             // this lane's share of the sums
+  uint32_t qf[QREG ? HDP / 16 : 1][4];
+
+  // a K tile is visited iff its first column is <= the tile's last row
+  const int ntiles = causal ? (q0 + BQ) / BK : s / BK;
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();    // tile t has landed ...
+    __syncthreads();       // ... for every thread, and tile t - 1's buffers
+                           // are free
+    if (t + 1 < ntiles) stage_kv(t + 1);
+    cp_async_commit();
+    if (QREG && t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk)
+        ldsm_x4(qf[QREG ? kk : 0],
+                qs + (warp * 16 + (lane & 15)) * LDQ + kk * 16 +
+                    (lane >> 4) * 8);
+    }
+    const int k0 = t * BK;
+    if (causal && k0 > wrow + 15) continue;   // above this warp's diagonal
+    const __nv_bfloat16* kb = ks + (t & 1) * HDP * LDK;
+    const __nv_bfloat16* vb = vs + (t & 1) * BK * LDQ;
+
+    // S = Q K^T
+    float sc[KT][4];
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      uint32_t qa[4];
+      if (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[QREG ? kk : 0][e];
+      } else {
+        ldsm_x4(qa, qs + (warp * 16 + (lane & 15)) * LDQ + kk * 16 +
+                        (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int p = 0; p < KT / 2; ++p) {
+        uint32_t kf[4];
+        ldsm_x4_trans(kf, kb + (kk * 16 + (lane & 7) + (lane & 8)) * LDK +
+                              p * 16 + (lane >> 4) * 8);
+        mma_bf16(sc[2 * p], qa, kf[0], kf[1]);
+        mma_bf16(sc[2 * p + 1], qa, kf[2], kf[3]);
+      }
+    }
+
+    // scale, bias, causal mask, in log2 units (x log2(e), so exp2 is one
+    // instruction); the row max over the quad
+    const bool masked = causal && k0 + BK - 1 > wrow;
+    float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = wrow + g + (e >> 1) * 8;
+        const int col = k0 + j * 8 + t4 * 2 + (e & 1);
+        float x = bias_h ? (sc[j][e] * scale + bias_h[(size_t)row * s + col])
+                             * LOG2E
+                         : sc[j][e] * scale_l2;
+        if (masked && col > row) x = -FLT_MAX;
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], m_new[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      m_new[h] = fmaxf(m_r[h], mx[h]);
+      alpha[h] = exp2f(m_r[h] - m_new[h]);
+      m_r[h] = m_new[h];
+    }
+
+    // exponentials: l sums the undropped ones; P (dropped, rescaled,
+    // rounded to bf16) is packed as the A operand of P V
+    uint32_t pf[KT][2];
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float e0 = exp2f(sc[j][2 * h] - m_new[h]);
+        float e1 = exp2f(sc[j][2 * h + 1] - m_new[h]);
+        rs[h] += e0 + e1;
+        if (dropout) {
+          const uint32_t row = (uint32_t)(wrow + g + h * 8);
+          const uint32_t col = (uint32_t)(k0 + j * 8 + t4 * 2);
+          e0 = rand_bits(seed, (uint32_t)b, row, col) >= thr ? e0 * inv_keep
+                                                              : 0.f;
+          e1 = rand_bits(seed, (uint32_t)b, row, col + 1) >= thr
+                   ? e1 * inv_keep : 0.f;
+        }
+        pf[j][h] = pack_bf16x2(e0, e1);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_r[h] = l_r[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P V
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
+                              pf[2 * kk + 1][1]};
+#pragma unroll
+      for (int p = 0; p < DT / 2; ++p) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, vb + (kk * 16 + (lane & 7) + (lane & 8)) * LDQ +
+                              p * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * p], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * p + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = wrow + g + h * 8;
+    __nv_bfloat16* orow = out + head + (size_t)row * hd;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int d = j * 8 + t4 * 2;   // hd % 8 == 0: the pair is all in or
+      if (d < hd)                     // all out
+        store_pair(orow + d, o[j][2 * h] / l, o[j][2 * h + 1] / l);
+    }
+    if (lse) {   // the quad's four lanes write the row's 128 columns
+      const float val = m_r[h] * LN2 + logf(l);   // m back in natural units
+      float4* lrow = reinterpret_cast<float4*>(
+          lse + ((size_t)b * s + row) * 128 + t4 * 32);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) lrow[c] = make_float4(val, val, val, val);
+    }
+  }
+}
+
+template <int HDP, int BK>
+static int launch_flash_mma(const void* q, const void* kT, const void* v,
+                            const void* bias, long long bias_stride,
+                            void* out, void* lse, int bh, int s, int hd,
+                            float scale, int causal, int dropout,
+                            uint32_t seed, uint32_t thr, float inv_keep,
+                            cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes(HDP, BK);
+  auto kern = flash_fwd_mma_kernel<HDP, BK>;
+  // above 48 KB only as dynamic shared memory, after the opt-in; set on
+  // every launch, since the attribute is held per device
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, s / BQ);   // x runs fastest: every head's tile qi, then qi+1
+  kern<<<grid, MQ_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kT),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      bias_stride, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), s, hd, scale, causal, dropout, seed, thr,
+      inv_keep);
+  return cudaGetLastError();
+}
+
+template <int BK>
+static int launch_mma_hd(int hd, const void* q, const void* kT, const void* v,
+                         const void* bias, long long bias_stride, void* out,
+                         void* lse, int bh, int s, float scale, int causal,
+                         int dropout, uint32_t seed, uint32_t thr,
+                         float inv_keep, cudaStream_t st) {
+  // the buckets of kernels/attention.py _MMA_HDP
+  if (hd <= 32) return launch_flash_mma<32, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+  if (hd <= 64) return launch_flash_mma<64, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+  if (hd <= 96) return launch_flash_mma<96, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+  if (hd <= 128) return launch_flash_mma<128, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+  if (hd <= 192) return launch_flash_mma<192, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+  return launch_flash_mma<256, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+}
+
 template <typename T, int HDP, int BK>
 static int launch_flash(const void* q, const void* kT, const void* v,
                         const void* bias, long long bias_stride, void* out,
@@ -266,7 +549,8 @@ const char* xsmm_error_string(int err) {
 
 // q, v: (bh, s, hd); kT: (bh, hd, s); bias: f32 (s, s) per head at
 // bias + b * bias_stride, or null; out: (bh, s, hd); lse: (bh, s, 128) f32
-// or null. s % 64 == 0, hd % 8 == 0, hd <= 256; bk in {32, 64}.
+// or null. s % 64 == 0, hd % 8 == 0, hd <= 256; bk in {32, 64}. bf16 runs
+// the tensor-core kernel (its operands 16-byte aligned), f32 the FMA one.
 int xsmm_flash_fwd(const void* q, const void* kT, const void* v,
                    const void* bias, long long bias_stride, void* out,
                    void* lse, int bh, int s, int hd, int type, int bk,
@@ -282,9 +566,9 @@ int xsmm_flash_fwd(const void* q, const void* kT, const void* v,
   if (type == T_F32 && bk == 32)
     return launch_hd<float, 32>(hdp, q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
   if (type == T_BF16 && bk == 64)
-    return launch_hd<__nv_bfloat16, 64>(hdp, q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+    return launch_mma_hd<64>(hd, q, kT, v, bias, bias_stride, out, lse, bh, s, scale, causal, dropout, seed, thr, inv_keep, st);
   if (type == T_BF16 && bk == 32)
-    return launch_hd<__nv_bfloat16, 32>(hdp, q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+    return launch_mma_hd<32>(hd, q, kT, v, bias, bias_stride, out, lse, bh, s, scale, causal, dropout, seed, thr, inv_keep, st);
   return cudaErrorInvalidValue;
 }
 

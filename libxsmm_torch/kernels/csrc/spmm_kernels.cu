@@ -16,19 +16,42 @@
 // Operands: A (m, k) row-major; the BCSC values (nblocks, bk, bn), each block
 // row-major; C (m, n) row-major. A value index equal to `nzero` (= nblocks)
 // names the reference's appended zero block: it reads as zeros and is never
-// loaded. bf16 operands are widened exactly to f32 on load; every product
-// and sum is an f32 FMA (no tensor cores yet) and the output is rounded once
-// to its type on the store. One block owns each output tile and writes it
-// once: no atomics, so results repeat bit for bit from run to run.
+// loaded. The output is rounded once to its type on the store. One block
+// owns each output tile and writes it once: no atomics, so results repeat
+// bit for bit from run to run.
+//
+// Two kernels serve the scheduled and supertile strategies; spmm_entry picks
+// one (kernels/spmm.py spmm_path mirrors the choice):
+// - bcsc_spmm_mma_kernel, for bf16 operands wherever bk % 16 == 0 and
+//   bn % 8 == 0 (32 x 32, 16 x 64, the 128 x 128 supertiles): bf16 tiles
+//   staged unwidened by cp.async in a 3-slice ring, products on the tensor
+//   cores (mma.sync m16n8k16, f32 accumulator in registers);
+// - bcsc_spmm_kernel for every other case (f32 operands: f32 means f32, no
+//   TF32; blockings such as 8 x 8 or 4 x 48): bf16 widened exactly to f32
+//   on load, every product and sum an f32 FMA.
 //
 // Bound, at the bench's streaming shape (m = 32768, k = n = 1024, bk = bn =
 // 32, block density 0.2, bf16 in, f32 out): device memory, 201 MB of A and C
 // (0.060 ms at 3.35 TB/s) against 13.8 GFLOP of useful products (0.014 ms on
-// the bf16 tensor cores, 0.21 ms on the f32 FMA units these kernels use).
-// Design: the scheduled and supertile kernels keep a 64 x 32 f32 tile in
-// registers (4 x 4 per thread) and stage 32-deep slices of A's panel and of
-// the value block in shared memory; the union kernel keeps a 64 x 128 tile
-// (4 x 8 per thread). Its fused form (union4, union4a, union4d, union5)
+// the bf16 tensor cores, 0.21 ms on the f32 FMA units). The supertile
+// strategy multiplies whole occupied 128 x 128 supertiles: at that density
+// 97% of them, 67 GFLOP (0.068 ms on the tensor cores).
+// Design of the tensor-core kernel: one 256-thread block owns a 128-row tile
+// of one block column (32, 64 or 128 columns wide; a wider block column is
+// cut into 128-column chunks) and walks the column's schedule in slices of
+// 16-64 rows of depth. Slices of A's panel (128 x kc) and of the value block
+// (kc x bn) are in flight two slices ahead of the one being multiplied;
+// rows past m, columns past bn and the zero block arrive as cp.async's zero
+// fill. Eight warps each keep a 32 x (width/2) f32 tile in
+// registers; A's fragments come from ldmatrix, the row-major value block's
+// from ldmatrix.trans. Rows are padded by 16 bytes in shared memory so the
+// ldmatrix rows fall in distinct banks. The grid's x runs over the block
+// columns, so the blocks that share a row panel of A run together and read
+// it from L2 (A is 64 MB at the streaming case, more than the 50 MB L2).
+// The FMA kernel keeps a 64 x 32 f32 tile in registers (4 x 4 per thread)
+// and stages 32-deep slices of A's panel and of the value block, widened, in
+// shared memory; the union kernel keeps a 64 x 128 tile (4 x 8 per
+// thread). Its fused form (union4, union4a, union4d, union5)
 // assembles each slot's right-hand side in shared memory from the value
 // store through the gather map; its compacted form (union, union2, union3)
 // reads contiguous rows of the (n/128, U*bk, 128) RHS that the compactor
@@ -40,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include "xsmm_common.cuh"
+#include "xsmm_mma.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
@@ -120,6 +144,132 @@ __global__ void __launch_bounds__(128) bcsc_spmm_kernel(
       const int cc = tx * 4 + j;
       if (cc < width) store_as(acc[i][j], op + (long long)gr * n + cc);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The same schedule on the bf16 tensor cores (bk % 16 == 0, bn % 8 == 0)
+//
+// Block (x, y): block column jb = x / nchunk, columns [c0, c0 + TN) of it
+// with c0 = (x % nchunk) * TN, rows [128 y, 128 y + 128). Iteration i of the
+// block covers schedule step ptr[jb] + i / nsl, depth [k0, k0 + kc) of its
+// blocks with k0 = (i % nsl) kc. Warp w multiplies rows 32 (w / 2) .. +32
+// by columns (TN / 2) (w % 2) .. + TN / 2.
+// ---------------------------------------------------------------------------
+
+constexpr int MM_TM = 128;     // output rows per block
+constexpr int MM_THREADS = 256;
+constexpr int MM_STAGES = 3;   // slices in the shared-memory ring
+
+__host__ __device__ constexpr int mm_stage_elems(int kc, int tn) {
+  return MM_TM * (kc + 8) + kc * (tn + 8);    // rows padded by 16 bytes
+}
+
+template <typename TO, int TN>
+__global__ void __launch_bounds__(MM_THREADS, 2) bcsc_spmm_mma_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ vals,
+    const int* __restrict__ ptr, const int* __restrict__ rows,
+    const int* __restrict__ vidx, TO* __restrict__ out, int m, int k, int n,
+    int bk, int bn, int nzero, int nchunk, int kc) {
+  constexpr int WN = TN / 2;     // columns per warp
+  constexpr int NT = WN / 8;     // its n8 tiles
+  constexpr int MT = 2;          // its m16 tiles: 32 rows
+  extern __shared__ __align__(16) unsigned char mm_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(mm_smem);
+  const int lda = kc + 8, ldv = TN + 8;
+  const int a_elems = MM_TM * lda;
+  const int st_elems = mm_stage_elems(kc, TN);
+
+  const int jb = blockIdx.x / nchunk;
+  const int c0 = (blockIdx.x % nchunk) * TN;
+  const int row0 = blockIdx.y * MM_TM;
+  const int width = min(TN, bn - c0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int s0 = ptr[jb];
+  const int nsl = bk / kc;
+  const int total = (ptr[jb + 1] - s0) * nsl;
+
+  // stage iteration `it` into its ring slot; always commits a group, empty
+  // past the end, so the wait below counts groups uniformly
+  auto stage = [&](int it) {
+    if (it < total) {
+      __nv_bfloat16* as = ring + (it % MM_STAGES) * st_elems;
+      __nv_bfloat16* vs = as + a_elems;
+      const int s = s0 + it / nsl, k0 = (it % nsl) * kc;
+      const __nv_bfloat16* ap = a + (long long)rows[s] * bk + k0;
+      const int v = vidx[s];
+      const int cpr = kc / 8;                 // 16-byte units per A row
+      for (int i = tid; i < MM_TM * cpr; i += MM_THREADS) {
+        const int r = i / cpr, c = (i - r * cpr) * 8, gr = row0 + r;
+        const bool ok = gr < m;
+        cp_async16(as + r * lda + c, ok ? ap + (long long)gr * k + c : a, ok);
+      }
+      constexpr int vpr = TN / 8;             // 16-byte units per value row
+      for (int i = tid; i < kc * vpr; i += MM_THREADS) {
+        const int r = i / vpr, c = (i - r * vpr) * 8;
+        const bool ok = v != nzero && c < width;
+        cp_async16(vs + r * ldv + c,
+                   ok ? vals + ((long long)v * bk + k0 + r) * bn + c0 + c : a,
+                   ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int i = 0; i < MM_STAGES - 1; ++i) stage(i);
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<MM_STAGES - 2>();   // slice `it` has landed ...
+    __syncthreads();                  // ... for every thread, and slot
+                                      // it - 1 is free
+    stage(it + MM_STAGES - 1);
+    const __nv_bfloat16* as = ring + (it % MM_STAGES) * st_elems;
+    const __nv_bfloat16* vs = as + a_elems;
+    for (int kk = 0; kk < kc; kk += 16) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldsm_x4(af[i], as + (wm * 32 + i * 16 + (lane & 15)) * lda + kk +
+                           (lane >> 4) * 8);
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, vs + (kk + (lane & 7) + (lane & 8)) * ldv + wn * WN +
+                              p * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][2 * p], af[i], bf[0], bf[1]);
+          mma_bf16(acc[i][2 * p + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int g = lane >> 2, t4 = lane & 3;
+  TO* op = out + (long long)jb * bn + c0;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = wn * WN + j * 8 + t4 * 2;   // width % 8 == 0: the pair
+    if (col >= width) continue;                 // is all in or all out
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gr = row0 + wm * 32 + i * 16 + g + h * 8;
+        if (gr < m)
+          store_pair(op + (long long)gr * n + col, acc[i][j][2 * h],
+                     acc[i][j][2 * h + 1]);
+      }
   }
 }
 
@@ -285,6 +435,46 @@ static int launch_spmm(const void* a, const void* vals, const int* ptr,
   return cudaGetLastError();
 }
 
+// the tensor-core kernel at one column width TN (32, 64 or 128)
+template <typename TO, int TN>
+static int launch_spmm_mma_tn(const void* a, const void* vals, const int* ptr,
+                              const int* rows, const int* vidx, void* out,
+                              int m, int k, int n, int bk, int bn, int nzero,
+                              cudaStream_t st) {
+  const int nchunk = (bn + TN - 1) / TN;
+  const int kc = bk % 64 == 0 ? 64 : bk % 32 == 0 ? 32 : 16;
+  const long long gx = (long long)(n / bn) * nchunk;
+  const long long gy = (m + MM_TM - 1) / MM_TM;
+  if (gx > 2147483647LL || gy > 65535) return cudaErrorInvalidConfiguration;
+  const int smem = MM_STAGES * mm_stage_elems(kc, TN) * 2;
+  auto kern = bcsc_spmm_mma_kernel<TO, TN>;
+  // above 48 KB only as dynamic shared memory, after the opt-in; set on
+  // every launch, since the attribute is held per device
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((unsigned)gx, (unsigned)gy), MM_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(vals), ptr, rows, vidx,
+      static_cast<TO*>(out), m, k, n, bk, bn, nzero, nchunk, kc);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+static int launch_spmm_mma(const void* a, const void* vals, const int* ptr,
+                           const int* rows, const int* vidx, void* out, int m,
+                           int k, int n, int bk, int bn, int nzero,
+                           cudaStream_t st) {
+  if (bn <= 32)
+    return launch_spmm_mma_tn<TO, 32>(a, vals, ptr, rows, vidx, out, m, k, n,
+                                      bk, bn, nzero, st);
+  if (bn <= 64)
+    return launch_spmm_mma_tn<TO, 64>(a, vals, ptr, rows, vidx, out, m, k, n,
+                                      bk, bn, nzero, st);
+  return launch_spmm_mma_tn<TO, 128>(a, vals, ptr, rows, vidx, out, m, k, n,
+                                     bk, bn, nzero, st);
+}
+
 template <typename TI, typename TO>
 static int launch_union(const void* a, const void* vals, const int* krows,
                         const int* gmap, const int* ocol, void* out, int m,
@@ -345,6 +535,17 @@ static int spmm_entry(const void* a, const void* vals, const int* ptr,
   if (m < 0 || k <= 0 || n < 0 || bk <= 0 || bn <= 0 || k % bk || n % bn)
     return cudaErrorInvalidValue;
   if (m == 0 || n == 0) return cudaSuccess;
+  // the tensor-core kernel for bf16 tiles whose depth is whole k16 steps and
+  // whose rows are whole 16-byte units (kernels/spmm.py spmm_path)
+  if (in_type == T_BF16 && bk % 16 == 0 && bn % 8 == 0) {
+    if (out_type == T_F32)
+      return launch_spmm_mma<float>(a, vals, ptr, rows, vidx, out, m, k, n,
+                                    bk, bn, nzero, st);
+    if (out_type == T_BF16)
+      return launch_spmm_mma<__nv_bfloat16>(a, vals, ptr, rows, vidx, out, m,
+                                            k, n, bk, bn, nzero, st);
+    return cudaErrorInvalidValue;
+  }
   XSMM_SPMM_DISPATCH(launch_spmm, a, vals, ptr, rows, vidx, out, m, k, n, bk,
                      bn, nzero, st)
 }

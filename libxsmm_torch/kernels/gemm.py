@@ -126,6 +126,15 @@ def _check(name: str, t: torch.Tensor, shape, dtype=None) -> None:
         raise ValueError(f"{name}: expected dtype {dtype}, got {t.dtype}")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and starting on a 16-byte boundary, for kernels that
+    stage in 16-byte units: a view off that alignment is copied into a
+    fresh (aligned) tensor."""
+    if t.data_ptr() % 16 == 0:
+        return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def wrap_i32(v: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 with two's-complement wraparound (the reference's
     int32 arithmetic)."""

@@ -26,6 +26,13 @@ The port of `libxsmm_tpu/kernels/spmm_pallas.py`: the schedule helpers
 * build_bcsc_spmm_super — strategy "super": the scheduled kernel over the
   occupied 128 x 128 supertiles.
 
+The scheduled and supertile strategies run on the bf16 tensor cores
+wherever the operands are bf16 and the blocks are whole k16 steps deep and
+whole 16-byte units wide (bk % 16 == 0, bn % 8 == 0: 32 x 32, 16 x 64, the
+128 x 128 supertiles); every other case, f32 operands among them, runs the
+f32 FMA kernel. `spmm_path` names the kernel a call takes, as csrc
+spmm_entry chooses it; there is no fallback between the two.
+
 Every builder makes its plan (schedule, unions, gather maps) once, in numpy,
 and puts it on `device`; a call never re-uploads it. Calling the returned
 object checks the operands' shapes, then follows their device: on CUDA
@@ -36,9 +43,10 @@ also holds the kernel against on the card. Operands and plan must lie on
 one device. `launches` counts kernel launches, and only those.
 
 The reference's row-tile choice (`_pick_m_tile`, and the union builder's
-VMEM budget) exists for Mosaic's block shapes; the CUDA kernels take 64-row
-tiles and mask the ragged last one, so any m is served and nothing here
-picks a tile.
+VMEM budget) exists for Mosaic's block shapes; the CUDA kernels take 64- or
+128-row tiles and mask the ragged last one, so any m is served and nothing
+here picks a tile. The kernels stage in 16-byte units: an operand off
+16-byte alignment is copied into a fresh tensor first.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ import torch
 from .. import device as device_mod
 from ..descriptor import GemmShape, SpgemmConfig
 from ..dtypes import Datatype, to_torch
-from .gemm import _check, _on_cuda, _ptr, _raise_on_error, _stream
+from .gemm import _aligned16, _check, _on_cuda, _ptr, _raise_on_error, _stream
 
 # kernel launches since the last reset_launches(); the wrappers add one where
 # they launch their CUDA kernel, and nowhere else
@@ -96,6 +104,17 @@ def _kernels() -> ctypes.CDLL:
         lib.xsmm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def spmm_path(in_dtype: torch.dtype, bk: int, bn: int) -> str:
+    """The kernel that serves the scheduled and supertile SpMM (csrc
+    spmm_entry): "mma", the bf16 tensor-core kernel, for bf16 operands whose
+    blocks are whole k16 steps deep (bk % 16 == 0) and whole 16-byte units
+    wide (bn % 8 == 0); "fma", the f32 FMA kernel, for every other case
+    (f32 operands, f32 meaning f32; blockings such as 8 x 8 or 4 x 48)."""
+    if in_dtype == torch.bfloat16 and bk % 16 == 0 and bn % 8 == 0:
+        return "mma"
+    return "fma"
 
 
 def _index(x, device) -> torch.Tensor:
@@ -190,7 +209,7 @@ class _SpmmKernel:
         a, values = self._operands(a, values)
         if not _on_cuda(a, values, self.plan):
             return self.plain(a, values)
-        a, values = a.contiguous(), values.contiguous()
+        a, values = _aligned16(a), _aligned16(values)
         out = torch.empty((self.m, self.n), dtype=self.kout_dt,
                           device=a.device)
         lib = _kernels()
@@ -202,13 +221,15 @@ class _SpmmKernel:
 
 
 class BcscSpmm(_SpmmKernel):
-    """The scheduled kernel over the padded block schedule."""
+    """The scheduled kernel over the padded block schedule; `path` names
+    the CUDA kernel that serves it (spmm_path)."""
 
     counter = "bcsc_spmm"
 
     def __init__(self, shape: GemmShape, bk: int, bn: int,
                  indptr: np.ndarray, indices: np.ndarray, device):
         super().__init__(shape, bk, bn, len(indices))
+        self.path = spmm_path(self.in_dt, bk, bn)
         self.ptr, self.rows, self.cols, self.vidx = _block_schedule(
             indptr, indices, self.nblocks, device)
         self.plan = self.ptr

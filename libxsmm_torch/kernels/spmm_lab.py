@@ -31,7 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .gemm import _check, _on_cuda, _ptr, _raise_on_error, _stream
+from .gemm import _aligned16, _check, _on_cuda, _ptr, _raise_on_error, _stream
 from .spmm import GROUP, BcscUnionCompact, _index
 
 # kernel launches since the last reset_launches(); the wrappers add one where
@@ -94,10 +94,7 @@ class _LabProbe:
         a, values = self._operands(a, values)
         if not _on_cuda(a, values, self.plan):
             return self.plain(a, values)
-        # the kernels stage in 16-byte units: a view off that alignment is
-        # copied into a fresh (aligned) tensor
-        a, values = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
-            memory_format=torch.contiguous_format) for t in (a, values))
+        a, values = _aligned16(a), _aligned16(values)
         out = torch.empty((self.m, self.n), dtype=torch.float32,
                           device=a.device)
         lib = _kernels()

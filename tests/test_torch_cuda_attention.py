@@ -14,7 +14,9 @@ Tolerances (matdiff normf_rel, kernel against plain on the same inputs):
 tile where the plain version takes the row's max at once: rounding only);
 1e-2 for bf16 flash outputs (the exponentials are rounded to bf16 against a
 per-tile running max, so they round at other points than the plain
-version's, then the output is rounded to bf16). Dropout is bit-exact: the
+version's, then the output is rounded to bf16; the same margin for the
+bf16 tensor-core kernel, whose bf16 products are exact in its f32
+accumulator). Dropout is bit-exact: the
 kernel and its plain version compute the same hash and the same f32
 arithmetic.
 """
@@ -74,11 +76,14 @@ def _flash_case(gen, bh, s, hd, dtype, flag, block_override=None):
 
 
 @pytest.mark.parametrize("flag", FLAGS)
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 40, 64, 72, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_kernel_matches_plain(gen, dtype, hd, flag):
+    """Every flag at every depth; bf16 on the tensor cores (hd 40 and 72
+    padded with zeros to 64 and 96), f32 on the FMA kernel."""
     fn, args = _flash_case(gen, 3, 256, hd, dtype, flag)
+    assert fn.path == ("mma" if dtype == torch.bfloat16 else "fma")
     before = ka.launches["flash_attention_fwd"]
     got = fn(*args)
     assert ka.launches["flash_attention_fwd"] == before + 1
@@ -103,6 +108,38 @@ def test_flash_tile_configs(gen, dtype, flag, config):
     assert (fn.block_q, fn.block_k) == config
     got = fn(*args)
     check(fn.plain(*args).float(), got.float(), margin=TOL[dtype])
+
+
+@pytest.mark.parametrize("flag", ["plain", "causal_dropout_bias", "lse"])
+@pytest.mark.parametrize("hd", [40, 128, 256])
+def test_flash_bf16_tile_configs(gen, hd, flag):
+    """Each tile configuration of the bf16 tensor-core kernel, reached
+    through block_override."""
+    for config in ka.flash_configs(hd, torch.bfloat16):
+        fn, args = _flash_case(gen, 2, 384, hd, torch.bfloat16, flag,
+                               block_override=config)
+        assert (fn.block_q, fn.block_k) == config and fn.path == "mma"
+        got, want = fn(*args), fn.plain(*args)
+        torch.cuda.synchronize()
+        if flag == "lse":
+            (got, got_lse), (want, want_lse) = got, want
+            check(want_lse, got_lse, margin=1e-5)
+        check(want.float(), got.float(), margin=TOL[torch.bfloat16])
+
+
+def test_flash_bf16_unaligned_views(gen):
+    """q, kT and v 2 bytes past a 16-byte boundary: the wrapper copies them
+    into fresh tensors for the kernel's 16-byte staging."""
+    bh, s, hd = 2, 256, 64
+    n = bh * s * hd
+    q, kT, v = (randn(gen, n + 1, dtype=torch.bfloat16)[1:] for _ in range(3))
+    q, v = q.view(bh, s, hd), v.view(bh, s, hd)
+    kT = kT.view(bh, hd, s)
+    assert q.data_ptr() % 16 == 2
+    fn = ka.build_flash_attention(bh, s, hd, torch.bfloat16, causal=True)
+    got = fn(0, q, kT, v)
+    check(fn.plain(0, q, kT, v).float(), got.float(),
+          margin=TOL[torch.bfloat16])
 
 
 def test_flash_deterministic_and_seeded(gen):

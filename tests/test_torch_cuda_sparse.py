@@ -12,7 +12,9 @@ Tolerances (matdiff normf_rel): 1e-5 for f32 in and out and 1e-4 for bf16
 in / f32 out (the sums run in another order than the plain version's);
 1e-2 for bf16 outputs (one rounding, at another point of the sum); the
 densify kernel, the union RHS compactor, empty block columns and empty
-patterns exact.
+patterns exact. bf16 operands at blockings of whole k16 steps and 16-byte
+rows (32 x 32, 16 x 64, 128 x 128) run the tensor-core kernel, at the same
+margins: its bf16 products are exact in the f32 accumulator.
 """
 
 import numpy as np
@@ -109,6 +111,82 @@ def test_bcsc_spmm_super(gen, m, a_dt, o_dt):
     got = launched("bcsc_spmm_super", fn, a, sup)
     same(fn.plain(a, sup), got, tol(a_dt, o_dt))
     assert bool((got[:, 128:256] == 0).all())
+
+
+# blockings the tensor-core kernel serves with bf16 operands (bk % 16 == 0,
+# bn % 8 == 0)
+MMA_BLOCKINGS = [(32, 32), (16, 64), (128, 128)]
+
+
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("m", [1, 37, 200, 32768])
+@pytest.mark.parametrize("bk,bn", MMA_BLOCKINGS)
+def test_bcsc_spmm_mma(gen, bk, bn, m, o_dt):
+    """The tensor-core kernel: ragged and streaming m, an empty block
+    column (its zero-block step multiplied), both output types."""
+    k, n = 512, 384
+    indptr, indices = pattern(k, n, bk, bn, 0.3, seed=m + bk,
+                              empty_cols=(1,))
+    shape = GemmShape(m, n, k, BF16, BF16, o_dt)
+    fn = pk.build_bcsc_spmm(shape, SpgemmConfig(1, bk, bn), indptr, indices,
+                            "cuda")
+    assert fn.path == "mma"
+    a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
+    got = launched("bcsc_spmm", fn, a, v)
+    same(fn.plain(a, v), got, tol(BF16, o_dt))
+    assert bool((got[:, bn:2 * bn] == 0).all())
+
+
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("m", [37, 32768])
+def test_bcsc_spmm_super_mma(gen, m, o_dt):
+    k, n = 512, 384
+    indptr, indices = pattern(k, n, 128, 128, 0.6, seed=m, empty_cols=(2,))
+    shape = GemmShape(m, n, k, BF16, BF16, o_dt)
+    fn = pk.build_bcsc_spmm_super(shape, indptr, indices, "cuda")
+    assert fn.path == "mma"
+    a = rand(gen, (m, k), BF16)
+    sup = rand(gen, (len(indices), 128, 128), BF16)
+    got = launched("bcsc_spmm_super", fn, a, sup)
+    same(fn.plain(a, sup), got, tol(BF16, o_dt))
+    assert bool((got[:, 256:] == 0).all())
+
+
+@pytest.mark.parametrize("bk,bn", MMA_BLOCKINGS)
+def test_bcsc_spmm_mma_nan_in_block_row_0(gen, bk, bn):
+    """An empty block column multiplies A's block row 0 by the zero block,
+    as the reference does: a NaN there gives NaN, as the plain version."""
+    m, k, n = 70, 256, 256
+    indptr, indices = pattern(k, n, bk, bn, 0.4, seed=bk, empty_cols=(0,))
+    fn = pk.build_bcsc_spmm(GemmShape(m, n, k, BF16, BF16, F32),
+                            SpgemmConfig(1, bk, bn), indptr, indices, "cuda")
+    a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
+    a[5, 3] = float("nan")
+    got = launched("bcsc_spmm", fn, a, v)
+    want = fn.plain(a, v)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[5, :bn]).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    check(want[keep].double().cpu().numpy(), got[keep].double().cpu().numpy(),
+          margin=1e-4)
+    assert bool((got[torch.arange(m, device="cuda") != 5, :bn] == 0).all())
+
+
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+def test_bcsc_spmm_mma_unaligned_views(gen, o_dt):
+    """A and the values 6 and 2 bytes past a 16-byte boundary: the wrapper
+    copies them into fresh tensors for the kernel's 16-byte staging."""
+    m, k, n, bk, bn = 100, 256, 256, 32, 32
+    indptr, indices = pattern(k, n, bk, bn, 0.4, seed=9)
+    fn = pk.build_bcsc_spmm(GemmShape(m, n, k, BF16, BF16, o_dt),
+                            SpgemmConfig(1, bk, bn), indptr, indices, "cuda")
+    a = rand(gen, (m * k + 3,), BF16)[3:].view(m, k)
+    v = rand(gen, (len(indices) * bk * bn + 1,), BF16)[1:].view(
+        len(indices), bk, bn)
+    assert a.data_ptr() % 16 == 6 and v.data_ptr() % 16 == 2
+    got = launched("bcsc_spmm", fn, a, v)
+    same(fn.plain(a, v), got, tol(BF16, o_dt))
 
 
 @pytest.mark.parametrize("a_dt,o_dt", DTYPES)

@@ -1,6 +1,7 @@
 """libxsmm_torch stands alone: it never imports jax or libxsmm_tpu, its
-CUDA source uses no library GEMM, its entry points default to the GPU
-(raising without one), and chip_smoke.py refuses to report without a GPU.
+CUDA source uses no library GEMM and no TF32, its entry points default to
+the GPU (raising without one), and chip_smoke.py refuses to report without
+a GPU.
 """
 
 import ast
@@ -88,11 +89,16 @@ def test_no_forbidden_import(path):
 
 
 def test_cuda_source_is_hand_written():
-    for src in (PKG / "kernels" / "csrc").glob("*.cu"):
+    """No library GEMM and no PyTorch headers in the sources or the shared
+    headers. The tensor cores are reached only through hand-written PTX on
+    bf16 tiles (csrc/xsmm_mma.cuh), never in TF32: f32 means f32."""
+    for src in (PKG / "kernels" / "csrc").glob("*.cu*"):
         text = src.read_text().lower()
-        for word in ("cublas", "cudnn", "cutlass", "torch/", "at::",
-                     "mma.sync", "wmma"):
+        for word in ("cublas", "cudnn", "cutlass", "cute/", "torch/", "at::",
+                     "wmma", ".tf32"):
             assert word not in text, f"{src.name} uses {word}"
+    mma = (PKG / "kernels" / "csrc" / "xsmm_mma.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
 
 
 def test_device_defaults_raise_without_gpu():
