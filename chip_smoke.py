@@ -10,7 +10,8 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
 2. builds the hand-written kernels from libxsmm_torch/kernels/csrc/ with
    nvcc for sm_90a (one nvcc per source, all started together) and prints
    the build time, the spills per source and the registers and spills of
-   each tensor-core kernel (the bf16 flash forward and BCSC SpMM);
+   each tensor-core kernel (the bf16 flash forward and backward, the BCSC
+   SpMM and the k-union SpMM);
 3. drives the small-GEMM main path through the public entry points, with
    every kernel's launch count set to 0 just before and read just after:
    - the headline: dispatch_gemm_batched_packed(GemmShape(32,32,32),
@@ -57,8 +58,9 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
      batch 2, held against the gradients of a float64 torch composition of
      the same block;
    - build_flash_attention_bwd at bench.py's serving shape (plain, causal,
-     dropout, bias per head with bias_grad, broadcast bias) and in f32 at
-     (4, 1024, 64) and hd=256 at (2, 256, 256), each against its plain
+     dropout, bias per head with bias_grad, broadcast bias; bf16, the
+     tensor-core kernels, asserted) and in f32 at (4, 1024, 64) and hd=256
+     at (2, 256, 256) (the FMA kernels, asserted), each against its plain
      version;
    - TPP-MLP splitSGD steps at MlpConfig()'s widths: the loss falls;
    then fails unless all four kernels were launched, times every phase,
@@ -73,13 +75,13 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    k = 2048, n = 1024, bf16 -> bf16, the two-family pattern); a streaming
    case (m = 32768 rows of A through the bcsc20 and bcsc05 patterns), an
    f32 case (m = 4096) and a ragged one (m = 1000); each result against
-   the float64 dense product; the bf16 cases' "pallas" and "super" must
-   take the tensor-core kernel and the f32 case the FMA kernel (the path
-   predicate, asserted); union, union2 and union3 must launch the RHS
-   compactor and the union4 names and union5 must not (the counter read
-   around each call); prints the auto picks, the clustering decision and
-   both union depths; fails unless all five kernels were launched, then
-   times every phase;
+   the float64 dense product; the bf16 cases' "pallas", "super" and union
+   strategies must take the tensor-core kernels and the f32 case the FMA
+   kernels (the path predicate, asserted); union, union2 and union3 must
+   launch the RHS compactor and the union4 names and union5 must not (the
+   counter read around each call); prints the auto picks, the clustering
+   decision and both union depths; fails unless all five kernels were
+   launched, then times every phase;
 8. drives the fused GEMM-ext path the same way, with every count set to 0
    just before: the stochastic-round kernel alone at the BERT-base FFN
    shape (4096 x 3072 f32) into bf16, f16, bf8 and hf8, bit for bit against
@@ -129,10 +131,13 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     the same function (a yardstick the port never calls; none exists for
     stochastic rounding, the union RHS compactor and the BRGEMM's twin,
     whose rows carry the RNE cast's, an output clone's and the BRGEMM's
-    time instead), and each launch configuration the kernel chooses among;
-    for the three tensor-core rows (flash forward, scheduled and supertile
-    SpMM) it asserts the path and prints the achieved TFLOP/s and the
-    kernel / library ratio;
+    time instead; the flash backward's, reached through autograd, by its
+    device time from torch.profiler), and each launch configuration the
+    kernel chooses among; for the six tensor-core rows (flash forward, the
+    flash backward's dK/dV and dQ, the scheduled, union and supertile
+    SpMM) it asserts the path and prints the achieved TFLOP/s (of the
+    kernel's own products and of the useful ones) and the kernel / library
+    ratio;
 12. prints one JSON line with the per-kernel numbers (eighteen rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
@@ -208,7 +213,10 @@ SPARSE_KERNEL_OF = {"pallas": ("bcsc_spmm",), "super": ("bcsc_spmm_super",),
 COMPACTED = ("union", "union2", "union3")
 # the tensor-core kernels: (source stem, kernel name in the ptxas report)
 MMA_KERNELS = (("spmm_kernels", "bcsc_spmm_mma_kernel"),
-               ("attention_kernels", "flash_fwd_mma_kernel"))
+               ("spmm_kernels", "bcsc_union_mma_kernel"),
+               ("attention_kernels", "flash_fwd_mma_kernel"),
+               ("attention_bwd_kernels", "flash_bwd_dkv_mma_kernel"),
+               ("attention_bwd_kernels", "flash_bwd_dq_mma_kernel"))
 
 
 def _smi() -> str:
@@ -528,6 +536,8 @@ def training_path(randn, dev):
     for name, kw, bias in cases:
         args = bwd_operands(bh, s, hd, bf16, kw, bias)
         fn = KA.build_flash_attention_bwd(bh, s, hd, bf16, **kw)
+        if fn.path != "mma":
+            raise AssertionError(f"flash bwd {name} bf16 took {fn.path}")
         got = run(f"flash bwd {name} bf16 {bh}x{s}x{hd}", BWD_KERNELS,
                   fn, *args)
         _check(f"flash bwd {name} vs plain", fn.plain(*args), got,
@@ -538,6 +548,8 @@ def training_path(randn, dev):
             kw = {"causal": causal, "dropout_p": 0.1}
             args = bwd_operands(fbh, fs, fhd, f32, kw, None)
             fn = KA.build_flash_attention_bwd(fbh, fs, fhd, f32, **kw)
+            if fn.path != "fma":
+                raise AssertionError(f"flash bwd f32 took {fn.path}")
             got = run(f"flash bwd f32 {fbh}x{fs}x{fhd} causal={causal}",
                       BWD_KERNELS, fn, *args)
             _check(f"flash bwd f32 {fbh}x{fs}x{fhd} vs plain",
@@ -628,14 +640,20 @@ def sparse_path(randn, dev):
         dense_b = KS.build_bcsc_densify(shape, cfg, indptr, indices,
                                         dev).plain(v)
         want = a.double() @ dense_b.double()
-        # bf16 operands take the tensor-core kernel at the case's blocking
-        # ("pallas") and at the supertiles ("super"); f32 the FMA kernel
+        # bf16 operands take the tensor-core kernels at the case's blocking
+        # ("pallas" and the union strategies) and at the supertiles
+        # ("super"); f32 the FMA kernels
         path = "mma" if a.dtype == bf16 else "fma"
         for bk_, bn_ in ((cfg.bk, cfg.bn), (KS.SUPER, KS.SUPER)):
             if KS.spmm_path(a.dtype, bk_, bn_) != path:
                 raise AssertionError(f"bcsc {case}: {bk_}x{bn_} blocks take "
                                      f"{KS.spmm_path(a.dtype, bk_, bn_)}, "
                                      f"expected {path}")
+        union_path = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices,
+                                              dev).path
+        if union_path != path:
+            raise AssertionError(f"bcsc {case}: the union takes "
+                                 f"{union_path}, expected {path}")
         worst, pick = 0.0, None
         for s in STRATEGIES + ("auto",):
             kern = xt.create_packed_spgemm_bcsc(
@@ -1271,6 +1289,26 @@ def cnn_breakdown(convs, cnn, ms):
           f" train step {t_step:.4f} ms")
 
 
+def device_ms(fn, reps=20):
+    """Device time per call of fn(): the CUDA kernels' summed time over
+    `reps` calls, from torch.profiler, after one call to warm up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    if not total:
+        raise AssertionError("device_ms: the profiler recorded no kernel")
+    return total / reps / 1e3
+
+
 def mma_rate(row, flops, useful):
     """Print a tensor-core kernel's achieved rate (its own products and the
     useful ones, over its time in this run) and its ratio to the library
@@ -1319,11 +1357,25 @@ def sparse_rows(record, rows, stream, ms, geo):
     union = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev)
     union_c = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev,
                                        compact=True)
+    if (union.path, union_c.path) != ("mma", "mma"):
+        raise AssertionError(f"bcsc_spmm_union at the streaming case took "
+                             f"{union.path} / {union_c.path}")
     _check("bcsc_spmm_union compacted form vs fused form", union(a, v),
            union_c(a, v), TOL_SPARSE_BF16)
     record("bcsc_spmm_union", src, "libxsmm_tpu/kernels/spmm_pallas.py:258",
            union, (a, v), TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak,
            lib_mm, compact_ms=ms(union_c, a, v))
+    # its own products: every live union slot of every group, bk deep and
+    # 128 wide (the pad slots are skipped)
+    live = (union.gmap.view(union.nsg, union.U, union.W)
+            != union.nblocks).any(-1).sum().item()
+    own = 2 * m * live * cfg.bk * KS.GROUP
+    mma_rate(rows[-1], own, useful)
+    t_c = rows[-1]["compact_ms"]
+    print(f"  bcsc_spmm_union compacted form (compactor included): "
+          f"{t_c:.4f} ms, {own / t_c / 1e9:.1f} TFLOP/s of its own products,"
+          f" {useful / t_c / 1e9:.1f} TFLOP/s useful; kernel / library "
+          f"{t_c / lib_mm:.3f}; {live} live slots of {union.nsg * union.U}")
     rhs = union_c.compactor(v)
     record("bcsc_union_compact", src, "libxsmm_tpu/kernels/spmm_pallas.py:885",
            union_c.compactor, (v,), TOL_EXACT,
@@ -1539,6 +1591,12 @@ def step_trace(params, x, y, cfg, steps=3):
           f"({100 * busy / wall:.1f}% of the wall, idle "
           f"{100 * (1 - busy / wall):.1f}%), {len(by_name)} kernel names; "
           "top: " + "; ".join(f"{n[:60]} {v:.4f}" for n, v in top))
+    # the busy split: the port's flash kernels against everything else
+    flash = {n: v for n, v in by_name.items() if "flash" in n}
+    print("  train step busy split: " + "; ".join(
+        f"{n.split('(')[0]} {v:.4f} ms "
+        f"({100 * v / busy:.1f}%)" for n, v in sorted(flash.items()))
+        + f"; the rest {busy - sum(flash.values()):.4f} ms")
 
 
 def block_breakdown(block, x, block_ops, ms):
@@ -1931,18 +1989,24 @@ def main() -> int:
     # lse and delta read once, the kernel's outputs written once. The
     # yardstick is the backward of PyTorch's fused attention on the same
     # q, k, v and dout, which computes dq, dk and dv together: it stands
-    # beside both rows.
-    def sdpa_bwd_ms(q_, kT_, v_, dout_, causal=False):
-        """ms of the backward of PyTorch's fused attention alone."""
+    # beside both rows. It is reached through autograd, whose host cost
+    # sets a CUDA-event time of back-to-back calls (0.19-0.44 ms at the
+    # bench shape across runs), so its device time is taken instead.
+    def sdpa_bwd(q_, kT_, v_, dout_, causal=False):
+        """The backward of PyTorch's fused attention alone, as a call."""
         leaves = tuple(t_.detach().requires_grad_(True)
                        for t_ in sdpa_operands(q_, kT_, v_))
         out_ = sdpa(*leaves, causal)
-        return ms(lambda o, d: torch.autograd.grad(o, leaves, d,
-                                                   retain_graph=True),
-                  out_, dout_[None])
+        return lambda: torch.autograd.grad(out_, leaves, dout_[None],
+                                           retain_graph=True)
+
+    def sdpa_bwd_ms(*operands, causal=False):
+        return device_ms(sdpa_bwd(*operands, causal))
 
     bargs = tr["bwd_operands"]
     bwd = KA.build_flash_attention_bwd(fbh, fs, fhd, torch.bfloat16)
+    if bwd.path != "mma":
+        raise AssertionError(f"flash backward bf16 took {bwd.path}")
     lib_bwd = sdpa_bwd_ms(*bargs[1:5])
     ops_in = 4 * fbh * fs * fhd * 2 + 2 * fbh * fs * 4
     for name, part, plain, nout, nmm in (
@@ -1950,12 +2014,22 @@ def main() -> int:
             ("flash_attention_bwd_dq", bwd.dq, bwd.dq_plain, 1, 6)):
         fn_ = functools.partial(part)
         fn_.plain = plain
+        useful_ = nmm * fbh * fs * fs * fhd
         record(name, "attention_bwd_kernels.cu",
                "libxsmm_tpu/kernels/attention_pallas.py:387" if nmm == 8
                else "libxsmm_tpu/kernels/attention_pallas.py:485", fn_,
                bargs, TOL_BF16_OUT,
                ops_in + nout * fbh * fs * fhd * 2,
-               nmm * fbh * fs * fs * fhd, geo.peak_bf16_tflops, lib_bwd)
+               useful_, geo.peak_bf16_tflops, lib_bwd)
+        # its own products, hd padded to its bucket; at 32-column K tiles
+        # the dK/dV kernel's two warps of a key group both form S^T and dP^T
+        hdp = KA._mma_hdp(fhd)
+        redo = 64 // bwd.block_k if nmm == 8 else 1
+        mma_rate(rows[-1], (4 * redo + nmm - 4) * fbh * fs * fs * hdp,
+                 useful_)
+    t_pair = rows[-2]["ms"] + rows[-1]["ms"]
+    print(f"  flash backward dkv + dq {t_pair:.4f} ms; kernels / sdpa "
+          f"backward {t_pair / lib_bwd:.3f}")
 
     sparse_rows(record, rows, sp["stream"], ms, geo)
 
@@ -2005,15 +2079,24 @@ def main() -> int:
             delta_ = (dout_.float() * o_.float()).sum(-1, keepdim=True) \
                 .expand(bh_, s_, 128)
             bargs_ = (0, q_, kT_, v_, dout_, lse_, delta_)
-            for cfg_ in KA.bwd_configs(hd_):
+            for cfg_ in KA.bwd_configs(hd_, "dkv", q_.dtype):
                 fn_ = KA.build_flash_attention_bwd(bh_, s_, hd_, q_.dtype,
                                                    causal=causal,
                                                    block_override=cfg_)
                 print(f"  flash bwd {name} {tuple(q_.shape)} causal={causal}"
-                      f" tile={cfg_}: dkv {ms(fn_.dkv, *bargs_):.4f} ms, dq "
+                      f" tile={cfg_} path={fn_.path}: dkv "
+                      f"{ms(fn_.dkv, *bargs_):.4f} ms, dq "
                       f"{ms(fn_.dq, *bargs_):.4f} ms")
             print(f"  sdpa backward {name} causal={causal}: "
-                  f"{sdpa_bwd_ms(q_, kT_, v_, dout_, causal):.4f} ms")
+                  f"{sdpa_bwd_ms(q_, kT_, v_, dout_, causal=causal):.4f} "
+                  "ms (device time)")
+    # the yardstick of the backward rows once more, by device time and by
+    # CUDA events around back-to-back calls (host cost included)
+    call_ = sdpa_bwd(*bargs[1:5])
+    print(f"  sdpa backward on the backward rows' operands: device "
+          f"{sdpa_bwd_ms(*bargs[1:5]):.4f} ms per call (in the rows "
+          f"{lib_bwd:.4f}); CUDA events "
+          f"{ms(lambda _q: call_(), bargs[1]):.4f} ms per call")
 
     # the launch configurations tune=True chooses among, at the headline
     for cfg_ in K.batched_gemm_configs(m):

@@ -16,11 +16,12 @@ which chip_smoke.py also holds the kernel against on the card.
 works the same way with `(seed, q, kT, v, dout, lse, delta[, bias])`.
 `launches` counts kernel launches, and only those.
 
-The forward has two CUDA kernels: bf16 operands run on the tensor cores
-(mma.sync, f32 accumulators, hd padded to a bucket of `_MMA_HDP`), f32
-operands on the CUDA cores' f32 FMAs; `flash_path` names the one a dtype
-takes, and each has its own tile configurations (`flash_configs`). The
-backward kernels run f32 FMAs for both types.
+The forward and each backward kernel have two CUDA forms: bf16 operands
+run on the tensor cores (mma.sync, f32 accumulators, hd padded to a bucket
+of `_MMA_HDP`), f32 operands on the CUDA cores' f32 FMAs (f32 means f32: no
+TF32). `flash_path` and `flash_bwd_path` name the form a dtype takes, as
+the C entry points choose it; there is no fallback between the two. Each
+form has its own tile configurations (`flash_configs`, `bwd_configs`).
 """
 
 from __future__ import annotations
@@ -187,24 +188,56 @@ def flash_configs(hd: int, dtype: torch.dtype = torch.float32) -> list:
         else [narrow, wide]
 
 
-def _bwd_smem_bytes(hd: int, bk: int, kernel: str = "dkv") -> int:
-    """Shared memory of one backward block (csrc dkv_smem, dq_smem): Q, dO,
-    K and V tiles at a row stride of hd + 4 (hd padded to 64), plus the
-    dK/dV kernel's p~ and dS tiles or the dQ kernel's dS^T tile, in f32."""
+def flash_bwd_path(dtype: torch.dtype) -> str:
+    """The backward kernels that serve `dtype` (csrc run): "mma", the bf16
+    tensor-core dK/dV and dQ kernels, or "fma", the f32 kernels on the CUDA
+    cores."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def _bwd_smem_bytes(hd: int, bk: int, kernel: str = "dkv",
+                    dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one backward block. f32 (csrc dkv_smem, dq_smem):
+    Q, dO, K and V tiles at a row stride of hd + 4 (hd padded to 64), plus
+    the dK/dV kernel's p~ and dS tiles or the dQ kernel's dS^T tile, in f32.
+    bf16 (csrc dkv_mma_smem, dq_mma_smem), hd padded to its bucket and
+    every row by 16 bytes: the dK/dV kernel's K^T and V tiles, two Q and two
+    dO tiles and two lse and delta rows (f32); the dQ kernel's Q and dO
+    tiles and two K^T and two V tiles."""
+    if flash_bwd_path(dtype) == "mma":
+        hdp = _mma_hdp(hd)
+        if kernel == "dkv":
+            return (hdp * (bk + 8) + bk * (hdp + 8)
+                    + 4 * _BQ * (hdp + 8)) * 2 + 4 * _BQ * 4
+        return (2 * _BQ * (hdp + 8) + 2 * hdp * (bk + 8)
+                + 2 * bk * (hdp + 8)) * 2
     ld = -(-hd // 64) * 64 + 4
     tiles = 2 * _BQ * ld + 2 * bk * ld
     extra = 2 * _BQ * (bk + 4) if kernel == "dkv" else bk * (_BQ + 4)
     return (tiles + extra) * 4
 
 
-def bwd_configs(hd: int, kernel: str = "dkv") -> list:
+def bwd_configs(hd: int, kernel: str = "dkv",
+                dtype: torch.dtype = torch.float32) -> list:
     """(rows, K columns) per block the backward kernel `kernel` ("dkv" or
-    "dq") is built for, the default first. Both take 64-column K tiles where
-    a block's shared memory holds them (hd <= 128) and 32 columns up to
-    hd = 256. The dK/dV kernel prefers 64 wherever it fits: each Q tile it
-    stages then serves twice the columns. The dQ kernel prefers 64 only
-    while two blocks still fit an SM's shared memory, else 32 (at hd = 128
-    the 32-column tile keeps two blocks per SM and runs faster)."""
+    "dq") for `dtype` is built for, the default first.
+
+    f32: both take 64-column K tiles where a block's shared memory holds
+    them (hd <= 128) and 32 columns up to hd = 256. The dK/dV kernel
+    prefers 64 wherever it fits: each Q tile it stages then serves twice the
+    columns. The dQ kernel prefers 64 only while two blocks still fit an
+    SM's shared memory, else 32 (at hd = 128 the 32-column tile keeps two
+    blocks per SM and runs faster).
+
+    bf16: 64 then 32 columns up to a padded hd of 128, 32 alone past it. At
+    64 columns each of the dK/dV kernel's four warps owns 16 keys and all of
+    hd, two accumulators of 16 x hd; past a padded 128 those would not fit
+    the registers, so there the 32-column tile splits hd's columns over the
+    two warps of each key group."""
+    if flash_bwd_path(dtype) == "mma":
+        both = [(_BQ, 64), (_BQ, 32)] if _mma_hdp(hd) <= 128 else [(_BQ, 32)]
+        return [c for c in both
+                if _bwd_smem_bytes(hd, c[1], kernel, dtype) <= _SMEM_MAX]
     fits = [c for c in ((_BQ, 64), (_BQ, 32))
             if _bwd_smem_bytes(hd, c[1], kernel) <= 227 * 1024]
     if kernel == "dq" and len(fits) == 2 and \
@@ -365,7 +398,8 @@ class FlashAttentionBwd:
     `dkv` and `dq` run the two kernels one at a time (each with its plain
     version, `dkv_plain` and `dq_plain`); calling the object runs both.
     Each kernel has its own K-tile width: `block_k` (dK/dV) and
-    `block_k_dq`."""
+    `block_k_dq`; `path` names the form both kernels take
+    (flash_bwd_path)."""
 
     def __init__(self, bh: int, s: int, hd: int, dtype: torch.dtype,
                  causal: bool, scale: float, bias_bh: int, dropout_p: float,
@@ -379,6 +413,7 @@ class FlashAttentionBwd:
         self.bias_grad = bool(bias_grad)
         self.block_q, self.block_k = config
         self.block_k_dq = config_dq[1]
+        self.path = flash_bwd_path(dtype)
         self.thr = (_dropout_threshold(self.dropout_p)
                     if self.dropout_p > 0.0 else None)
         self.inv_keep = (1.0 / (1.0 - self.dropout_p)
@@ -408,9 +443,11 @@ class FlashAttentionBwd:
     def _launch(self, which, seed, q, kT, v, dout, lse, delta, bias):
         """Launch one kernel on CUDA operands; returns its outputs."""
         bh, s, hd = self.bh, self.s, self.hd
-        q, kT, v, dout = (t.contiguous() for t in (q, kT, v, dout))
+        # the tensor-core kernels stage in 16-byte units: an operand off
+        # that alignment is copied first
+        q, kT, v, dout = (_aligned16(t) for t in (q, kT, v, dout))
         # one column of each lane-broadcast statistic: (bh, s) f32
-        lse, delta = lse[..., 0].contiguous(), delta[..., 0].contiguous()
+        lse, delta = _aligned16(lse[..., 0]), _aligned16(delta[..., 0])
         if bias is not None:
             bias = bias.to(torch.float32).contiguous()
         head = (_ptr(q), _ptr(kT), _ptr(v), _ptr(dout), _ptr(lse),
@@ -529,7 +566,7 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     chosen independently of the forward's: the dropout mask depends only on
     global coordinates. block_override=(bq, bk), the reference's TPU tile,
     picks for each kernel the largest CUDA tile configuration within it
-    (bwd_configs)."""
+    (bwd_configs for `dtype`)."""
     if not supported(s, hd, dtype):
         raise ValueError(f"unsupported flash shape s={s} hd={hd} {dtype}")
     if not 0.0 <= dropout_p < 1.0:
@@ -539,5 +576,5 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     sc = float(scale) if scale is not None else float(hd) ** -0.5
     return FlashAttentionBwd(
         bh, s, hd, dtype, causal, sc, bias_bh, dropout_p, bias_grad,
-        _pick_config(s, bwd_configs(hd, "dkv"), block_override),
-        _pick_config(s, bwd_configs(hd, "dq"), block_override))
+        _pick_config(s, bwd_configs(hd, "dkv", dtype), block_override),
+        _pick_config(s, bwd_configs(hd, "dq", dtype), block_override))

@@ -20,15 +20,17 @@
 // owns each output tile and writes it once: no atomics, so results repeat
 // bit for bit from run to run.
 //
-// Two kernels serve the scheduled and supertile strategies; spmm_entry picks
-// one (kernels/spmm.py spmm_path mirrors the choice):
-// - bcsc_spmm_mma_kernel, for bf16 operands wherever bk % 16 == 0 and
-//   bn % 8 == 0 (32 x 32, 16 x 64, the 128 x 128 supertiles): bf16 tiles
-//   staged unwidened by cp.async in a 3-slice ring, products on the tensor
-//   cores (mma.sync m16n8k16, f32 accumulator in registers);
-// - bcsc_spmm_kernel for every other case (f32 operands: f32 means f32, no
-//   TF32; blockings such as 8 x 8 or 4 x 48): bf16 widened exactly to f32
-//   on load, every product and sum an f32 FMA.
+// Two kernels serve the scheduled and supertile strategies, and two the
+// union strategies; spmm_entry and union_entry pick one by the same rule
+// (kernels/spmm.py spmm_path mirrors it):
+// - bcsc_spmm_mma_kernel and bcsc_union_mma_kernel, for bf16 operands
+//   wherever bk % 16 == 0 and bn % 8 == 0 (32 x 32, 16 x 64, 64 x 128,
+//   16 x 8, the 128 x 128 supertiles): bf16 tiles staged unwidened by
+//   cp.async in a 3-slice ring, products on the tensor cores (mma.sync
+//   m16n8k16, f32 accumulator in registers);
+// - bcsc_spmm_kernel and bcsc_union_kernel for every other case (f32
+//   operands: f32 means f32, no TF32; blockings such as 8 x 8 or 4 x 48):
+//   bf16 widened exactly to f32 on load, every product and sum an f32 FMA.
 //
 // Bound, at the bench's streaming shape (m = 32768, k = n = 1024, bk = bn =
 // 32, block density 0.2, bf16 in, f32 out): device memory, 201 MB of A and C
@@ -48,17 +50,26 @@
 // ldmatrix rows fall in distinct banks. The grid's x runs over the block
 // columns, so the blocks that share a row panel of A run together and read
 // it from L2 (A is 64 MB at the streaming case, more than the 50 MB L2).
+// The tensor-core union kernel runs the same pipeline over a 128 x 128
+// tile (one row tile of one 128-column group): its schedule is the
+// flattened (live union slot, depth slice) list of the group, so a slice
+// never straddles two slots. Its fused form (union4, union4a, union4d,
+// union5) assembles each slice of the slot's right-hand side in the ring
+// from the W = 128 / bn value blocks of the slot's gather map, one 16-byte
+// cp.async per bn-wide row piece (the zero block arrives as zero fill); its
+// compacted form (union, union2, union3) copies contiguous rows of the
+// (n/128, U*bk, 128) RHS that the compactor wrote just before, on the same
+// stream, as the reference splits the work. At the streaming case
+// (U = 21) the union products are 45 GFLOP, 0.046 ms at the tensor cores'
+// peak, so the kernel is bound by the rate of its mma.sync steps and the
+// shared-memory reads that feed them, not by device memory.
 // The FMA kernel keeps a 64 x 32 f32 tile in registers (4 x 4 per thread)
 // and stages 32-deep slices of A's panel and of the value block, widened, in
-// shared memory; the union kernel keeps a 64 x 128 tile (4 x 8 per
-// thread). Its fused form (union4, union4a, union4d, union5)
-// assembles each slot's right-hand side in shared memory from the value
-// store through the gather map; its compacted form (union, union2, union3)
-// reads contiguous rows of the (n/128, U*bk, 128) RHS that the compactor
-// wrote just before, on the same stream, as the reference splits the work.
-// A is re-read from L2 for every block of a column; the kernels are bound by
-// their shared-memory traffic, not by device memory. The compactor moves
-// bytes only (values read once, the compacted RHS written once).
+// shared memory; the FMA union kernel keeps a 64 x 128 tile (4 x 8 per
+// thread) and assembles each slot's RHS the same way, element by element.
+// A is re-read from L2 for every block of a column; the FMA kernels are
+// bound by their shared-memory traffic, not by device memory. The compactor
+// moves bytes only (values read once, the compacted RHS written once).
 
 #include <cuda_runtime.h>
 
@@ -165,6 +176,42 @@ __host__ __device__ constexpr int mm_stage_elems(int kc, int tn) {
   return MM_TM * (kc + 8) + kc * (tn + 8);    // rows padded by 16 bytes
 }
 
+// one kc-deep slice of a 128 x TN tile: warp (wm, wn) adds A's rows
+// 32 wm .. +32 (as: 128 x kc at row stride kc + 8) times the RHS's columns
+// (TN / 2) wn .. + TN / 2 (vs: kc x TN at row stride TN + 8) into acc
+template <int TN>
+__device__ __forceinline__ void mma_slice(float (&acc)[2][TN / 16][4],
+                                          const __nv_bfloat16* as,
+                                          const __nv_bfloat16* vs, int kc,
+                                          int wm, int wn, int lane) {
+  constexpr int WN = TN / 2, NT = WN / 8, ldv = TN + 8;
+  const int lda = kc + 8;
+  for (int kk = 0; kk < kc; kk += 16) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      ldsm_x4(af[i], as + (wm * 32 + i * 16 + (lane & 15)) * lda + kk +
+                         (lane >> 4) * 8);
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, vs + (kk + (lane & 7) + (lane & 8)) * ldv + wn * WN +
+                            p * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_bf16(acc[i][2 * p], af[i], bf[0], bf[1]);
+        mma_bf16(acc[i][2 * p + 1], af[i], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// depth of one staged slice: the largest of 64, 32, 16 that divides bk, so
+// a slice never straddles two value blocks
+__host__ __device__ constexpr int mm_kc(int bk) {
+  return bk % 64 == 0 ? 64 : bk % 32 == 0 ? 32 : 16;
+}
+
 template <typename TO, int TN>
 __global__ void __launch_bounds__(MM_THREADS, 2) bcsc_spmm_mma_kernel(
     const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ vals,
@@ -233,25 +280,7 @@ __global__ void __launch_bounds__(MM_THREADS, 2) bcsc_spmm_mma_kernel(
                                       // it - 1 is free
     stage(it + MM_STAGES - 1);
     const __nv_bfloat16* as = ring + (it % MM_STAGES) * st_elems;
-    const __nv_bfloat16* vs = as + a_elems;
-    for (int kk = 0; kk < kc; kk += 16) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldsm_x4(af[i], as + (wm * 32 + i * 16 + (lane & 15)) * lda + kk +
-                           (lane >> 4) * 8);
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, vs + (kk + (lane & 7) + (lane & 8)) * ldv + wn * WN +
-                              p * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          mma_bf16(acc[i][2 * p], af[i], bf[0], bf[1]);
-          mma_bf16(acc[i][2 * p + 1], af[i], bf[2], bf[3]);
-        }
-      }
-    }
+    mma_slice<TN>(acc, as, as + a_elems, kc, wm, wn, lane);
   }
   cp_async_wait<0>();
 
@@ -366,6 +395,130 @@ __global__ void __launch_bounds__(256) bcsc_union_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// The k-union on the bf16 tensor cores (bk % 16 == 0, bn % 8 == 0)
+//
+// Block (x, y): column group grp = x, rows [128 y, 128 y + 128). Its
+// schedule is the flattened list of (live slot u, depth slice) of the
+// group, nsl = bk / kc slices per slot; iteration i stages A's 128 x kc
+// slice at block row krows[grp U + u] and the slot's kc x 128 RHS slice
+// into ring slot i % 3, two iterations ahead of the one multiplied. Every
+// thread reads the same map to find the live slots, so the schedule (and
+// the ring's cp.async group count) is block-uniform. Warp w multiplies
+// rows 32 (w / 2) .. +32 by group columns 64 (w % 2) .. +64.
+// ---------------------------------------------------------------------------
+
+template <typename TO, bool COMPACT>
+__global__ void __launch_bounds__(MM_THREADS, 2) bcsc_union_mma_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ vals,
+    const int* __restrict__ krows, const int* __restrict__ gmap,
+    const int* __restrict__ ocol, TO* __restrict__ out, int m, int k, int n,
+    int bk, int bn, int U, int nzero, int kc) {
+  constexpr int TN = GW;
+  constexpr int WN = TN / 2, NT = WN / 8, MT = 2;
+  extern __shared__ __align__(16) unsigned char mm_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(mm_smem);
+  const int lda = kc + 8, ldv = TN + 8;
+  const int a_elems = MM_TM * lda;
+  const int st_elems = mm_stage_elems(kc, TN);
+
+  const int grp = blockIdx.x;
+  const int row0 = blockIdx.y * MM_TM;
+  const int W = GW / bn;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int nsl = bk / kc;
+  const long long slot0 = (long long)grp * U;
+  const int* gm = gmap + slot0 * W;
+  // a slot whose W map entries are all the zero block is padding
+  auto live = [&](int u) {
+    for (int w = 0; w < W; ++w)
+      if (gm[u * W + w] != nzero) return true;
+    return false;
+  };
+  int nlive = 0;   // the threads test the slots in parallel
+  for (int u0 = 0; u0 < U; u0 += MM_THREADS)
+    nlive += __syncthreads_count(u0 + tid < U && live(u0 + tid));
+  const int total = nlive * nsl;
+
+  // the next iteration to stage: slice pk of slot pu
+  int pu = 0, pk = 0;
+  while (pu < U && !live(pu)) ++pu;
+  // this thread's RHS units all lie in one 16-byte column c of the group
+  // (256 threads, 16 units per row), so in one value block w = c / bn
+  const int rc = (tid & 15) * 8;
+  auto stage = [&](int it) {
+    if (it < total) {
+      __nv_bfloat16* as = ring + (it % MM_STAGES) * st_elems;
+      __nv_bfloat16* vs = as + a_elems;
+      const long long slot = slot0 + pu;
+      const int k0 = pk * kc;
+      const __nv_bfloat16* ap = a + (long long)krows[slot] * bk + k0;
+      const int cpr = kc / 8;                 // 16-byte units per A row
+      for (int i = tid; i < MM_TM * cpr; i += MM_THREADS) {
+        const int r = i / cpr, c = (i - r * cpr) * 8, gr = row0 + r;
+        const bool ok = gr < m;
+        cp_async16(as + r * lda + c, ok ? ap + (long long)gr * k + c : a, ok);
+      }
+      if constexpr (COMPACT) {
+        const __nv_bfloat16* rp = vals + (slot * bk + k0) * GW + rc;
+        for (int r = tid >> 4; r < kc; r += MM_THREADS / 16)
+          cp_async16(vs + r * ldv + rc, rp + (long long)r * GW, true);
+      } else {
+        const int v = gm[pu * W + rc / bn];
+        const bool ok = v != nzero;
+        const __nv_bfloat16* rp =
+            ok ? vals + ((long long)v * bk + k0) * bn + rc % bn : a;
+        for (int r = tid >> 4; r < kc; r += MM_THREADS / 16)
+          cp_async16(vs + r * ldv + rc, ok ? rp + (long long)r * bn : a, ok);
+      }
+      if (++pk == nsl) {
+        pk = 0;
+        do ++pu; while (pu < U && !live(pu));
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int i = 0; i < MM_STAGES - 1; ++i) stage(i);
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<MM_STAGES - 2>();   // slice `it` has landed ...
+    __syncthreads();                  // ... for every thread, and slot
+                                      // it - 1 is free
+    stage(it + MM_STAGES - 1);
+    const __nv_bfloat16* as = ring + (it % MM_STAGES) * st_elems;
+    mma_slice<TN>(acc, as, as + a_elems, kc, wm, wn, lane);
+  }
+  cp_async_wait<0>();
+
+  // group column c holds the caller's column ocol[grp W + c / bn] * bn +
+  // c % bn; bn % 8 == 0, so a pair never straddles two block columns
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = wn * WN + j * 8 + t4 * 2;
+    const long long col = (long long)ocol[grp * W + c / bn] * bn + c % bn;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gr = row0 + wm * 32 + i * 16 + g + h * 8;
+        if (gr < m)
+          store_pair(out + (long long)gr * n + col, acc[i][j][2 * h],
+                     acc[i][j][2 * h + 1]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Union RHS compactor (build_union_compact_rhs): out (n/128, U*bk, 128) from
 // the gather map (n/128, U, W) of value indices, out[g, u bk + r, w bn + c]
 // = vals[gmap[g, u, w], r, c] (nzero: zeros, so pad slots hold zeros and
@@ -442,7 +595,7 @@ static int launch_spmm_mma_tn(const void* a, const void* vals, const int* ptr,
                               int m, int k, int n, int bk, int bn, int nzero,
                               cudaStream_t st) {
   const int nchunk = (bn + TN - 1) / TN;
-  const int kc = bk % 64 == 0 ? 64 : bk % 32 == 0 ? 32 : 16;
+  const int kc = mm_kc(bk);
   const long long gx = (long long)(n / bn) * nchunk;
   const long long gy = (m + MM_TM - 1) / MM_TM;
   if (gx > 2147483647LL || gy > 65535) return cudaErrorInvalidConfiguration;
@@ -473,6 +626,29 @@ static int launch_spmm_mma(const void* a, const void* vals, const int* ptr,
                                       bk, bn, nzero, st);
   return launch_spmm_mma_tn<TO, 128>(a, vals, ptr, rows, vidx, out, m, k, n,
                                      bk, bn, nzero, st);
+}
+
+// the tensor-core union kernel
+template <typename TO>
+static int launch_union_mma(const void* a, const void* vals, const int* krows,
+                            const int* gmap, const int* ocol, void* out, int m,
+                            int k, int n, int bk, int bn, int U, int nzero,
+                            bool compact, cudaStream_t st) {
+  const long long gy = (m + MM_TM - 1) / MM_TM;
+  if (gy > 65535) return cudaErrorInvalidConfiguration;
+  const int kc = mm_kc(bk);
+  const int smem = MM_STAGES * mm_stage_elems(kc, GW) * 2;
+  auto kern = compact ? bcsc_union_mma_kernel<TO, true>
+                      : bcsc_union_mma_kernel<TO, false>;
+  // above 48 KB only as dynamic shared memory, after the opt-in
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(n / GW, (unsigned)gy), MM_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(vals), krows, gmap, ocol,
+      static_cast<TO*>(out), m, k, n, bk, bn, U, nzero, kc);
+  return cudaGetLastError();
 }
 
 template <typename TI, typename TO>
@@ -584,6 +760,17 @@ static int union_entry(const void* a, const void* vals, const int* krows,
       GW % bn || n <= 0 || n % GW)
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
+  // the tensor-core kernel by spmm_entry's rule (kernels/spmm.py spmm_path)
+  if (in_type == T_BF16 && bk % 16 == 0 && bn % 8 == 0) {
+    if (out_type == T_F32)
+      return launch_union_mma<float>(a, vals, krows, gmap, ocol, out, m, k, n,
+                                     bk, bn, U, nzero, compact, st);
+    if (out_type == T_BF16)
+      return launch_union_mma<__nv_bfloat16>(a, vals, krows, gmap, ocol, out,
+                                             m, k, n, bk, bn, U, nzero,
+                                             compact, st);
+    return cudaErrorInvalidValue;
+  }
   XSMM_SPMM_DISPATCH(launch_union, a, vals, krows, gmap, ocol, out, m, k, n,
                      bk, bn, U, nzero, compact, st)
 }

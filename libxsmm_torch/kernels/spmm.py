@@ -26,12 +26,13 @@ The port of `libxsmm_tpu/kernels/spmm_pallas.py`: the schedule helpers
 * build_bcsc_spmm_super — strategy "super": the scheduled kernel over the
   occupied 128 x 128 supertiles.
 
-The scheduled and supertile strategies run on the bf16 tensor cores
-wherever the operands are bf16 and the blocks are whole k16 steps deep and
-whole 16-byte units wide (bk % 16 == 0, bn % 8 == 0: 32 x 32, 16 x 64, the
-128 x 128 supertiles); every other case, f32 operands among them, runs the
-f32 FMA kernel. `spmm_path` names the kernel a call takes, as csrc
-spmm_entry chooses it; there is no fallback between the two.
+The scheduled, supertile and union strategies run on the bf16 tensor
+cores wherever the operands are bf16 and the blocks are whole k16 steps
+deep and whole 16-byte units wide (bk % 16 == 0, bn % 8 == 0: 32 x 32,
+16 x 64, 64 x 128, 16 x 8, the 128 x 128 supertiles); every other case, f32
+operands among them, runs the f32 FMA kernel. `spmm_path` names the kernel
+a call takes, as csrc spmm_entry and union_entry choose it; there is no
+fallback between the two.
 
 Every builder makes its plan (schedule, unions, gather maps) once, in numpy,
 and puts it on `device`; a call never re-uploads it. Calling the returned
@@ -107,11 +108,12 @@ def _kernels() -> ctypes.CDLL:
 
 
 def spmm_path(in_dtype: torch.dtype, bk: int, bn: int) -> str:
-    """The kernel that serves the scheduled and supertile SpMM (csrc
-    spmm_entry): "mma", the bf16 tensor-core kernel, for bf16 operands whose
-    blocks are whole k16 steps deep (bk % 16 == 0) and whole 16-byte units
-    wide (bn % 8 == 0); "fma", the f32 FMA kernel, for every other case
-    (f32 operands, f32 meaning f32; blockings such as 8 x 8 or 4 x 48)."""
+    """The kernel that serves the scheduled, supertile and union SpMM (csrc
+    spmm_entry, union_entry): "mma", the bf16 tensor-core kernel, for bf16
+    operands whose blocks are whole k16 steps deep (bk % 16 == 0) and whole
+    16-byte units wide (bn % 8 == 0); "fma", the f32 FMA kernel, for every
+    other case (f32 operands, f32 meaning f32; blockings such as 8 x 8 or
+    4 x 48)."""
     if in_dtype == torch.bfloat16 and bk % 16 == 0 and bn % 8 == 0:
         return "mma"
     return "fma"
@@ -189,8 +191,9 @@ def _block_schedule(indptr: np.ndarray, indices: np.ndarray,
 class _SpmmKernel:
     """fn(a (m, k), values (nblocks, bk, bn)) -> C (m, n), beta=0: the
     operand checks, the device rule and the launch count of the three SpMM
-    kernels. A subclass sets `counter`, `name`, `plan` (a create-time tensor
-    on the kernel's device), `_launch` and `plain`."""
+    kernels, and `path`, the CUDA kernel that serves it (spmm_path). A
+    subclass sets `counter`, `name`, `plan` (a create-time tensor on the
+    kernel's device), `_launch` and `plain`."""
 
     counter = ""
 
@@ -199,6 +202,7 @@ class _SpmmKernel:
         self.bk, self.bn = bk, bn
         self.nblocks = nblocks
         self.in_dt, self.kout_dt, self.out_dt = _spmm_dtypes(shape)
+        self.path = spmm_path(self.in_dt, bk, bn)
 
     def _operands(self, a, values):
         _check("a", a, (self.m, self.k))
@@ -221,15 +225,13 @@ class _SpmmKernel:
 
 
 class BcscSpmm(_SpmmKernel):
-    """The scheduled kernel over the padded block schedule; `path` names
-    the CUDA kernel that serves it (spmm_path)."""
+    """The scheduled kernel over the padded block schedule."""
 
     counter = "bcsc_spmm"
 
     def __init__(self, shape: GemmShape, bk: int, bn: int,
                  indptr: np.ndarray, indices: np.ndarray, device):
         super().__init__(shape, bk, bn, len(indices))
-        self.path = spmm_path(self.in_dt, bk, bn)
         self.ptr, self.rows, self.cols, self.vidx = _block_schedule(
             indptr, indices, self.nblocks, device)
         self.plan = self.ptr

@@ -13,8 +13,9 @@ in / f32 out (the sums run in another order than the plain version's);
 1e-2 for bf16 outputs (one rounding, at another point of the sum); the
 densify kernel, the union RHS compactor, empty block columns and empty
 patterns exact. bf16 operands at blockings of whole k16 steps and 16-byte
-rows (32 x 32, 16 x 64, 128 x 128) run the tensor-core kernel, at the same
-margins: its bf16 products are exact in the f32 accumulator.
+rows (32 x 32, 16 x 64, 128 x 128; for the union also 64 x 128 and 16 x 8)
+run the tensor-core kernels, at the same margins: their bf16 products are
+exact in the f32 accumulator.
 """
 
 import numpy as np
@@ -317,6 +318,147 @@ def test_compactor_unaligned_values(gen):
     got = fn.compactor(v)
     torch.cuda.synchronize()
     assert torch.equal(got, fn.compactor.plain(v))
+
+
+# blockings the union's tensor-core form serves with bf16 operands
+# (bk % 16 == 0, bn % 8 == 0, bn | 128)
+UNION_MMA_BLOCKINGS = [(32, 32), (16, 64), (64, 128), (16, 8)]
+FORMS = {"fused": False, "compacted": True}
+
+
+def union_mma(gen, m, k, n, bk, bn, o_dt, form, seed, **kw):
+    """A bf16 union plan on the card in one form, with block group 0 empty,
+    and its operands."""
+    indptr, indices = pattern(k, n, bk, bn, 0.3, seed=seed,
+                              empty_cols=range(128 // bn))
+    fn = pk.build_bcsc_spmm_union(GemmShape(m, n, k, BF16, BF16, o_dt),
+                                  SpgemmConfig(1, bk, bn), indptr, indices,
+                                  "cuda", compact=FORMS[form], **kw)
+    assert fn.path == "mma"
+    a = rand(gen, (m, k), BF16)
+    v = rand(gen, (len(indices), bk, bn), BF16)
+    return fn, a, v
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("m", [1, 37, 200])
+@pytest.mark.parametrize("bk,bn", UNION_MMA_BLOCKINGS)
+def test_bcsc_spmm_union_mma(gen, bk, bn, m, o_dt, form):
+    """The union's tensor-core form at every blocking that takes it, both
+    forms, ragged m (rows past m neither computed into nor stored), an
+    empty group (all slots dead: zeros), both output types."""
+    fn, a, v = union_mma(gen, m, 512, 384, bk, bn, o_dt, form, seed=m + bk)
+    got = launched("bcsc_spmm_union", fn, a, v)
+    same(fn.plain(a, v), got, tol(BF16, o_dt))
+    assert bool((got[:, :128] == 0).all())
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("u_align", [4, 16])
+@pytest.mark.parametrize("bk,bn", [(32, 32), (16, 8)])
+def test_bcsc_spmm_union_mma_pad_slots(gen, bk, bn, u_align, form):
+    """u_align pads each group's union with dead slots (union4a; 16 is the
+    full depth at bk = 32, union4d): they are skipped, block-uniformly."""
+    fn, a, v = union_mma(gen, 100, 512, 384, bk, bn, F32, form, seed=u_align,
+                         u_align=u_align)
+    same(fn.plain(a, v), launched("bcsc_spmm_union", fn, a, v), 1e-4)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+def test_bcsc_spmm_union_mma_streaming(gen, o_dt, form):
+    """m = 32768 (256 row tiles) through a 0.2-density pattern."""
+    indptr, indices = pattern(1024, 1024, 32, 32, 0.2, seed=3)
+    fn = pk.build_bcsc_spmm_union(GemmShape(32768, 1024, 1024, BF16, BF16,
+                                            o_dt), SpgemmConfig(1, 32, 32),
+                                  indptr, indices, "cuda",
+                                  compact=FORMS[form])
+    a = rand(gen, (32768, 1024), BF16)
+    v = rand(gen, (len(indices), 32, 32), BF16)
+    same(fn.plain(a, v), launched("bcsc_spmm_union", fn, a, v),
+         tol(BF16, o_dt))
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+def test_bcsc_spmm_union_mma_clustered(gen, o_dt, form):
+    """bench.py's two-family pattern in bf16: bf16 out clusters (the column
+    restore folded into the store), f32 out keeps the plain plan."""
+    indptr, indices = cluster_pattern()
+    fn = pk.build_bcsc_spmm_union(GemmShape(96, 1024, 2048, BF16, BF16,
+                                            o_dt), SpgemmConfig(1, 32, 32),
+                                  indptr, indices, "cuda",
+                                  compact=FORMS[form])
+    assert fn.path == "mma" and fn.clustered == (o_dt == BF16)
+    a = rand(gen, (96, 2048), BF16)
+    v = rand(gen, (len(indices), 32, 32), BF16)
+    same(fn.plain(a, v), launched("bcsc_spmm_union", fn, a, v),
+         tol(BF16, o_dt))
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_bcsc_spmm_union_mma_unaligned_views(gen, form):
+    """A and the values 6 and 2 bytes past a 16-byte boundary: copied into
+    fresh tensors for the kernel's 16-byte staging."""
+    m, k, n, bk, bn = 100, 256, 256, 32, 32
+    indptr, indices = pattern(k, n, bk, bn, 0.4, seed=9)
+    fn = pk.build_bcsc_spmm_union(GemmShape(m, n, k, BF16, BF16, F32),
+                                  SpgemmConfig(1, bk, bn), indptr, indices,
+                                  "cuda", compact=FORMS[form])
+    a = rand(gen, (m * k + 3,), BF16)[3:].view(m, k)
+    v = rand(gen, (len(indices) * bk * bn + 1,), BF16)[1:].view(
+        len(indices), bk, bn)
+    assert a.data_ptr() % 16 == 6 and v.data_ptr() % 16 == 2
+    same(fn.plain(a, v), launched("bcsc_spmm_union", fn, a, v), 1e-4)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("bk,bn", [(32, 32), (16, 8)])
+def test_bcsc_spmm_union_mma_deterministic(gen, bk, bn, form):
+    """One writer per output tile, no atomics: two runs bit for bit."""
+    fn, a, v = union_mma(gen, 300, 512, 384, bk, bn, F32, form, seed=bk)
+    x, y = fn(a, v), fn(a, v)
+    torch.cuda.synchronize()
+    assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("bk,bn", [(32, 32), (16, 8)])
+def test_bcsc_spmm_union_mma_nan_in_block_row_0(gen, bk, bn, form):
+    """A NaN in A's block row 0, read by a live slot of group 1 (its union
+    holds block row 0): NaN across that group's row, as the plain version
+    (the slot's dead blocks are zeros, multiplied). Group 0 (no block: all
+    slots dead) and group 2 (block row 0 not in its union) stay finite:
+    their pad slots, which the plain version multiplies with krows 0, are
+    skipped (the recorded divergence of the union kernel)."""
+    m, k, n = 70, 256, 384
+    indptr, indices = pattern(k, n, bk, bn, 0.3, seed=bk,
+                              empty_cols=range(128 // bn))
+    # block row 0 in group 1's union and not in group 2's
+    keep = np.zeros((n // bn, k // bk), bool)
+    for j, (s0, s1) in enumerate(zip(indptr[:-1], indptr[1:])):
+        keep[j, indices[s0:s1]] = True
+    keep[128 // bn, 0] = True
+    keep[256 // bn:, 0] = False
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))]).astype(
+        np.int32)
+    indices = np.nonzero(keep)[1].astype(np.int32)
+    fn = pk.build_bcsc_spmm_union(GemmShape(m, n, k, BF16, BF16, F32),
+                                  SpgemmConfig(1, bk, bn), indptr, indices,
+                                  "cuda", cluster=False, compact=FORMS[form])
+    a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
+    a[5, 3] = float("nan")
+    got = launched("bcsc_spmm_union", fn, a, v)
+    want = fn.plain(a, v)
+    torch.cuda.synchronize()
+    nan = torch.zeros_like(got, dtype=torch.bool)
+    nan[5, 128:256] = True
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(torch.isnan(want[5, 128:256]).all())
+    keep_ = ~torch.isnan(want)
+    check(want[keep_].double().cpu().numpy(),
+          got[keep_].double().cpu().numpy(), margin=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

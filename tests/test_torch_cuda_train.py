@@ -14,6 +14,7 @@ Tolerances (matdiff normf_rel, kernel against plain on the same inputs):
 summation order shows more than in the forward); 1e-2 for bf16 outputs and
 for dbias from bf16 inputs (p~ and dS are rounded to bf16 against scores
 that differ in the last f32 bits, then the outputs are rounded to bf16).
+bf16 runs the tensor-core kernels, f32 the FMA ones.
 """
 
 import pytest
@@ -134,6 +135,91 @@ def test_bwd_causal_dbias_zero_above_diagonal(gen):
     torch.cuda.synchronize()
     upper = torch.ones(512, 512, dtype=torch.bool, device="cuda").triu(1)
     assert bool((dbias[:, upper] == 0).all())
+
+
+# bf16 head dims: every bucket of the tensor-core kernels
+# (kernels/attention.py _MMA_HDP: 32, 64, 96, 128, 192, 256) and head dims
+# zero-padded into them
+BUCKET_HDS = [32, 40, 64, 80, 96, 104, 128, 136, 192, 200, 256]
+
+
+@pytest.mark.parametrize("flag", ["plain", "causal_dropout_bias_grad"])
+@pytest.mark.parametrize("hd", BUCKET_HDS)
+def test_bwd_mma_every_bucket(gen, hd, flag):
+    """The tensor-core dK/dV and dQ kernels at every bucket and at each of
+    its tile widths (64 and 32 key columns up to a padded 128, 32 past it)
+    against their plain versions."""
+    for config in ka.bwd_configs(hd, "dkv", torch.bfloat16):
+        fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, flag,
+                             block_override=config)
+        assert fn.path == "mma" and fn.block_k == fn.block_k_dq == config[1]
+        _same(fn(*args), fn.plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("config", [(64, 64), (64, 32)])
+@pytest.mark.parametrize("s", [384, 640])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_bwd_mma_causal_odd_tile_counts(gen, hd, s, config):
+    """Causal at s = 384 and 640 (6 and 10 Q tiles, 6-20 K tiles: 128 | s
+    is the entry's envelope, so s is always a multiple of the key tile),
+    with dbias: the diagonal crosses each tile width's tiles differently,
+    and dbias is zero wherever the key follows the query."""
+    fn, args = _bwd_case(gen, 2, s, hd, torch.bfloat16,
+                         "causal_dropout_bias_grad", block_override=config)
+    got = fn(*args)
+    _same(got, fn.plain(*args), torch.bfloat16)
+    upper = torch.ones(s, s, dtype=torch.bool, device="cuda").triu(1)
+    assert bool((got[3][:, upper] == 0).all())
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_bwd_mma_dropout_each_gradient(gen, hd):
+    """Dropout: dQ, dK^T and dV each against the plain version's, whose
+    mask is the position hash of (query row i, key column j). The dK/dV
+    kernel's fragments hold keys as rows, so a swapped (i, j) there would
+    show in dK^T and dV even where dQ agrees."""
+    fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, "dropout")
+    want = fn.plain(*args)
+    dkT, dv = fn.dkv(*args)
+    dq = fn.dq(*args)
+    torch.cuda.synchronize()
+    for g, w in zip((dq, dkT, dv), want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        check(w.float(), g.float(), margin=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("flag", ["bias1", "bias_bh_grad"])
+@pytest.mark.parametrize("hd", [80, 128])
+def test_bwd_mma_bias(gen, hd, flag):
+    """Broadcast bias (bias_bh 1) and a per-head bias with dbias."""
+    fn, args = _bwd_case(gen, 3, 256, hd, torch.bfloat16, flag)
+    _same(fn(*args), fn.plain(*args), torch.bfloat16)
+
+
+def test_bwd_mma_unaligned_views(gen):
+    """q, kT, v and dout 2-14 bytes past a 16-byte boundary, lse and delta
+    4 bytes past one: the wrapper copies them for the 16-byte staging."""
+    fn, args = _bwd_case(gen, 2, 256, 96, torch.bfloat16, "causal")
+    seed, rest = args[0], args[1:7]
+
+    def shifted(t, elems):
+        store = torch.empty(t.numel() + elems, dtype=t.dtype, device="cuda")
+        view = store[elems:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    moved = [shifted(t, e) for t, e in zip(rest, (1, 3, 5, 7))]
+    moved += [shifted(t.contiguous(), 1) for t in rest[4:]]
+    assert [t.data_ptr() % 16 for t in moved] == [2, 6, 10, 14, 4, 4]
+    _same(fn(seed, *moved), fn.plain(*args), torch.bfloat16)
+
+
+def test_bwd_mma_deterministic(gen):
+    fn, args = _bwd_case(gen, 2, 256, 128, torch.bfloat16,
+                         "causal_dropout_bias_grad")
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("dtype", [Datatype.F32, Datatype.BF16])

@@ -1,8 +1,10 @@
 """The tensor-core paths of the port, on the CPU: which CUDA kernel a
-scheduled/supertile BCSC SpMM and a flash forward take (the predicates that
-mirror the choice csrc makes), the bf16 flash tile configurations and their
-shared memory, and the bf16 wrappers at shapes that reach the tensor-core
-kernels on the card, held against the JAX package on the same numpy inputs.
+scheduled/supertile/union BCSC SpMM and a flash forward take (the
+predicates that mirror the choice csrc makes), the bf16 flash tile
+configurations and their shared memory, and the bf16 wrappers at shapes
+that reach the tensor-core kernels on the card (the union in both forms,
+with pad slots, a clustered plan and ragged m), held against the JAX
+package on the same numpy inputs.
 The port's wrappers run their plain versions on CPU tensors; the JAX side
 runs as its own tests run it (the Pallas kernels in interpret mode).
 
@@ -176,6 +178,146 @@ def test_bf16_spmm_mma_shapes_parity(strategy, bk, bn, o_dt):
     got = port(at, vt)
     assert tuple(got.shape) == (m, n)
     assert bool((got[:, bn:2 * bn] == 0).all())     # the empty column
+    want = np.asarray(ref(a, v).astype(jnp.float32), np.float64)
+    check(want, got.float().numpy().astype(np.float64),
+          margin=1e-2 if o_dt == Datatype.BF16 else 1e-4)
+
+
+# the union strategies' tensor-core form: bf16 operands at blockings of
+# whole k16 steps and 16-byte rows; the reference's names run its own union
+# lowerings (interpret mode), the port's the compacted form (union) or the
+# fused one (union4, union4a with u_align pad slots, union4d at full depth)
+UNION_BLOCKINGS = [(32, 32), (16, 64), (64, 128), (16, 8)]
+
+
+@pytest.mark.parametrize("dtype,bk,bn,want", [
+    (BF16, 32, 32, "mma"), (BF16, 16, 64, "mma"), (BF16, 64, 128, "mma"),
+    (BF16, 16, 8, "mma"), (BF16, 8, 8, "fma"), (BF16, 16, 4, "fma"),
+    (BF16, 8, 32, "fma"), (F32, 32, 32, "fma"), (F32, 16, 8, "fma")])
+def test_union_wrapper_names_its_path(dtype, bk, bn, want):
+    """The union wrapper takes the tensor-core kernel exactly where the
+    scheduled SpMM does (spmm_path), in both forms."""
+    k, n = 256, 256
+    indptr = np.arange(n // bn + 1, dtype=np.int32)     # one block a column
+    indices = np.zeros(n // bn, np.int32)
+    a_dt = xp.Datatype.BF16 if dtype == BF16 else xp.Datatype.F32
+    shape = xp.GemmShape(40, n, k, a_dt, a_dt, xp.Datatype.F32)
+    for compact in (False, True):
+        fn = pk.build_bcsc_spmm_union(shape, xp.SpgemmConfig(1, bk, bn),
+                                      indptr, indices, "cpu",
+                                      compact=compact)
+        assert fn.path == want == pk.spmm_path(dtype, bk, bn)
+
+
+def union_case(m, k, n, bk, bn, seed, density=0.3):
+    """A bf16 block pattern with block column 1 and the last 128-column
+    group empty; (reference operands, CPU tensors, the BcscMatrix)."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((k // bk, n // bn)) < density
+    keep[:, 1] = False
+    keep[:, -(128 // bn):] = False
+    b = rng.standard_normal((k, n)) * np.kron(keep, np.ones((bk, bn)))
+    bm = ro.BcscMatrix.from_dense(b.astype(np.float32), bk, bn)
+    a = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+    v = jnp.asarray(bm.data, jnp.bfloat16)
+    at, vt = (torch.from_numpy(np.asarray(x, np.float32)).to(BF16)
+              for x in (a, v))
+    return (a, v), (at, vt), bm
+
+
+def union_pair(shape, bk, bn, bm, strategy):
+    """The reference's and the port's kernels for one strategy name (the
+    reference's None where it refuses the descriptor)."""
+    try:
+        ref = ro.create_packed_spgemm_bcsc(
+            shape, GemmFlags.BETA_0, SpgemmConfig(1, bk, bn),
+            column_ptr=bm.indptr, row_idx=bm.indices, strategy=strategy)
+    except ValueError:
+        ref = None
+    port = xp.create_packed_spgemm_bcsc(
+        xp.GemmShape(shape.m, shape.n, shape.k, xp.Datatype.BF16,
+                     xp.Datatype.BF16, xp.Datatype[shape.out_type.name]),
+        xp.GemmFlags.BETA_0, xp.SpgemmConfig(1, bk, bn),
+        column_ptr=bm.indptr, row_idx=bm.indices, strategy=strategy,
+        device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("o_dt", [Datatype.F32, Datatype.BF16])
+@pytest.mark.parametrize("strategy", ["union", "union4", "union4a"])
+@pytest.mark.parametrize("bk,bn", UNION_BLOCKINGS)
+def test_bf16_union_mma_shapes_parity(bk, bn, strategy, o_dt):
+    """bf16 union SpMM at the tensor-core blockings, compacted (union) and
+    fused (union4; union4a with u_align pad slots), m = 208 (a 128-row tile
+    and a ragged one on the card; the reference needs 16 | m for bf16), an
+    empty block column and an empty 128-column group, against the JAX
+    package's union lowering. 16 x 8 blocks run at k = 64, which keeps the
+    reference's interpret-mode gather of W = 16 blocks a slot short."""
+    m, k, n = 208, 64 if bn == 8 else 256, 384
+    (a, v), (at, vt), bm = union_case(m, k, n, bk, bn, seed=bk * 100 + bn)
+    shape = GemmShape(m, n, k, Datatype.BF16, Datatype.BF16, o_dt)
+    ref, port = union_pair(shape, bk, bn, bm, strategy)
+    assert port.name == ref.name
+    got = port(at, vt)
+    assert got.dtype == (BF16 if o_dt == Datatype.BF16 else F32)
+    assert tuple(got.shape) == (m, n)
+    assert bool((got[:, bn:2 * bn] == 0).all())     # the empty column
+    assert bool((got[:, 256:] == 0).all())          # the empty group
+    want = np.asarray(ref(a, v).astype(jnp.float32), np.float64)
+    check(want, got.float().numpy().astype(np.float64),
+          margin=1e-2 if o_dt == Datatype.BF16 else 1e-4)
+
+
+@pytest.mark.parametrize("strategy", ["union", "union4d"])
+@pytest.mark.parametrize("o_dt", [Datatype.F32, Datatype.BF16])
+def test_bf16_union_ragged_m(o_dt, strategy):
+    """m = 37: the reference refuses the sublane-unaligned m (a Mosaic
+    limit), the port serves it (on the card: rows past m zero-filled, not
+    stored); union4d pads every group to the full depth with dead slots.
+    Held against the float64 product."""
+    m, k, n, bk, bn = 37, 256, 384, 32, 32
+    (a, v), (at, vt), bm = union_case(m, k, n, bk, bn, seed=37)
+    shape = GemmShape(m, n, k, Datatype.BF16, Datatype.BF16, o_dt)
+    ref, port = union_pair(shape, bk, bn, bm, strategy)
+    assert ref is None
+    got = port(at, vt)
+    want = np.asarray(a, np.float64) @ ro.BcscMatrix(
+        bm.shape, bk, bn, bm.indptr, bm.indices,
+        np.asarray(v, np.float64)).to_dense()
+    check(want, got.float().numpy().astype(np.float64),
+          margin=1e-2 if o_dt == Datatype.BF16 else 1e-4)
+
+
+@pytest.mark.parametrize("o_dt", [Datatype.F32, Datatype.BF16])
+@pytest.mark.parametrize("strategy", ["union", "union4"])
+def test_bf16_union_clustered_parity(strategy, o_dt):
+    """The two-family pattern (tests/test_sparse.py's cluster case) in bf16:
+    the clustered plan's permuted groups restored in the store, against the
+    JAX package's union lowering on the same plan decision."""
+    bk = bn = 32
+    m, n, k = 64, 256, 1024
+    rng = np.random.default_rng(11)
+    cols = [np.sort(rng.choice(np.arange(0, 16) if j % 2 == 0
+                               else np.arange(16, 32), 10, replace=False))
+            for j in range(n // bn)]
+    indptr = np.arange(0, 10 * (n // bn) + 1, 10, dtype=np.int32)
+    indices = np.concatenate(cols).astype(np.int32)
+    values = rng.standard_normal((len(indices), bk, bn))
+    bm = ro.BcscMatrix((k, n), bk, bn, indptr, indices,
+                       values.astype(np.float32))
+    a = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+    v = jnp.asarray(values, jnp.bfloat16)
+    shape = GemmShape(m, n, k, Datatype.BF16, Datatype.BF16, o_dt)
+    ref, port = union_pair(shape, bk, bn, bm, strategy)
+    assert port.name == ref.name
+    plan = pk.build_bcsc_spmm_union(
+        xp.GemmShape(m, n, k, xp.Datatype.BF16, xp.Datatype.BF16,
+                     xp.Datatype[o_dt.name]), xp.SpgemmConfig(1, bk, bn),
+        indptr, indices, "cpu")
+    assert plan.path == "mma"
+    at, vt = (torch.from_numpy(np.asarray(x, np.float32)).to(BF16)
+              for x in (a, v))
+    got = port(at, vt)
     want = np.asarray(ref(a, v).astype(jnp.float32), np.float64)
     check(want, got.float().numpy().astype(np.float64),
           margin=1e-2 if o_dt == Datatype.BF16 else 1e-4)

@@ -1,0 +1,156 @@
+"""The flash backward's tensor-core form, on the CPU: which CUDA kernels a
+backward call takes (`flash_bwd_path`, the predicate that mirrors the
+choice csrc makes), the bf16 tile configurations and their shared memory at
+every head-dim bucket, the f32 configurations unchanged, and the bf16
+wrapper at shapes that reach the tensor-core kernels on the card (hd 64 and
+a padded 80), held against the JAX package on the same numpy inputs. The
+port's wrapper runs its plain version on CPU tensors; the JAX side runs as
+its own tests run it (the Pallas kernels in interpret mode).
+
+Tolerance (matdiff normf_rel): 1e-2 for the bf16 gradients (p~ and dS are
+rounded to bf16 against scores that differ in the last f32 bits, then each
+output is rounded to bf16) and for dbias from bf16 inputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from libxsmm_torch.kernels import attention as pa
+from libxsmm_torch.matdiff import check
+from libxsmm_tpu.kernels import attention_pallas as ra
+
+torch.set_num_threads(1)
+
+BF16, F32 = torch.bfloat16, torch.float32
+SMEM_MAX = 232448            # a block's shared memory on sm_90
+TOL = 1e-2
+
+
+def test_flash_bwd_path():
+    """bf16 takes the tensor-core kernels, f32 the FMA ones (no TF32)."""
+    assert pa.flash_bwd_path(BF16) == "mma"
+    assert pa.flash_bwd_path(F32) == "fma"
+    assert pa.build_flash_attention_bwd(2, 128, 40, BF16).path == "mma"
+    assert pa.build_flash_attention_bwd(2, 128, 40, F32).path == "fma"
+
+
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+@pytest.mark.parametrize("hd,hdp", [
+    (8, 32), (32, 32), (40, 64), (64, 64), (80, 96), (96, 96), (104, 128),
+    (128, 128), (136, 192), (192, 192), (200, 256), (256, 256)])
+def test_bf16_bwd_configs(hd, hdp, kernel):
+    """64- then 32-column K tiles up to a padded 128, 32 alone past it;
+    every configuration's shared memory fits a block."""
+    assert pa._mma_hdp(hd) == hdp
+    configs = pa.bwd_configs(hd, kernel, BF16)
+    want = [(64, 64), (64, 32)] if hdp <= 128 else [(64, 32)]
+    assert configs == want
+    for _, bk in configs:
+        assert pa._bwd_smem_bytes(hd, bk, kernel, BF16) <= SMEM_MAX
+    fn = pa.build_flash_attention_bwd(2, 256, hd, BF16)
+    assert (fn.block_q, fn.block_k, fn.block_k_dq) == (64,) + (want[0][1],) * 2
+
+
+def test_bf16_bwd_smem_bytes():
+    """dK/dV: K^T (hdp x bk), V (bk x hdp), two Q and two dO (64 x hdp),
+    bf16 with rows padded by 8 elements, and two lse and delta rows of 64
+    f32; dQ: Q and dO, two K^T and two V tiles (csrc dkv_mma_smem,
+    dq_mma_smem)."""
+    for hd, bk, dkv, dq in ((128, 64, 106496, 106496),
+                            (128, 32, 89600, 72704),
+                            (256, 32, 173568, 142336),
+                            (64, 64, 56320, 55296), (40, 32, 47616, 37888)):
+        assert pa._bwd_smem_bytes(hd, bk, "dkv", BF16) == dkv, (hd, bk)
+        assert pa._bwd_smem_bytes(hd, bk, "dq", BF16) == dq, (hd, bk)
+
+
+def test_f32_bwd_configs_keep_their_values():
+    """The f32 kernels keep their configurations and shared memory."""
+    for hd, want in ((32, [(64, 64), (64, 32)]), (128, [(64, 64), (64, 32)]),
+                     (192, [(64, 32)]), (256, [(64, 32)])):
+        assert pa.bwd_configs(hd) == pa.bwd_configs(hd, "dkv", F32) == want
+    assert pa.bwd_configs(128, "dq") == pa.bwd_configs(128, "dq", F32) == \
+        [(64, 32), (64, 64)]
+    assert pa._bwd_smem_bytes(128, 64) == \
+        pa._bwd_smem_bytes(128, 64, "dkv", F32) == 169984
+    fn = pa.build_flash_attention_bwd(2, 256, 128, F32)
+    assert fn.path == "fma" and (fn.block_k, fn.block_k_dq) == (64, 32)
+
+
+@pytest.mark.parametrize("hd", [40, 64, 128, 256])
+def test_bf16_bwd_block_override_picks(hd):
+    """The TPU tile stays an upper bound on each bf16 kernel's tile."""
+    wide = pa._mma_hdp(hd) <= 128
+    for override, want in (((128, 128), 64 if wide else 32),
+                           ((64, 32), 32), ((256, 64), 64 if wide else 32)):
+        fn = pa.build_flash_attention_bwd(2, 256, hd, BF16,
+                                          block_override=override)
+        assert (fn.block_q, fn.block_k, fn.block_k_dq) == (64, want, want)
+    with pytest.raises(ValueError, match="smaller than every"):
+        pa.build_flash_attention_bwd(2, 256, hd, BF16,
+                                     block_override=(64, 16))
+
+
+def bwd_operands(bh, s, hd, kw, seed):
+    """q, kT, v, dout as bf16 (JAX arrays, CPU tensors) of equal values, the
+    bias, and lse/delta from the JAX forward with return_lse."""
+    rng = np.random.default_rng(seed)
+    js, ts = [], []
+    for shape in ((bh, s, hd), (bh, hd, s), (bh, s, hd), (bh, s, hd)):
+        xj = jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+        js.append(xj)
+        ts.append(torch.from_numpy(np.asarray(xj, np.float32)).to(BF16))
+    bias = None
+    if kw.get("bias_bh"):
+        bias = (rng.standard_normal((kw["bias_bh"], s, s)) * 0.5
+                ).astype(np.float32)
+    fwd = ra.build_flash_attention(
+        bh, s, hd, jnp.bfloat16, return_lse=True,
+        **{k: v for k, v in kw.items() if k != "bias_grad"})
+    out, lse = fwd(-77, js[0], js[1], js[2],
+                   None if bias is None else jnp.asarray(bias))
+    delta = np.sum(np.asarray(js[3], np.float32) * np.asarray(out, np.float32),
+                   axis=-1)
+    delta = np.ascontiguousarray(np.broadcast_to(delta[..., None],
+                                                 (bh, s, 128)))
+    lse = np.array(lse)
+    tail_j = () if bias is None else (jnp.asarray(bias),)
+    tail_t = () if bias is None else (torch.from_numpy(bias),)
+    return ((-77, *js, lse, delta) + tail_j,
+            (-77, *ts, torch.from_numpy(lse), torch.from_numpy(delta))
+            + tail_t)
+
+
+FLAGS = {
+    "plain": {},
+    "causal": {"causal": True},
+    "dropout": {"dropout_p": 0.1},
+    "bias_bh_grad": {"bias_bh": "bh", "bias_grad": True},
+    "bias1": {"bias_bh": 1},
+}
+
+
+@pytest.mark.parametrize("flag", list(FLAGS))
+@pytest.mark.parametrize("hd,s", [(64, 256), (80, 128)])
+def test_bf16_bwd_mma_shapes_parity(hd, s, flag):
+    """bf16 backward at hd 64 and 80 (padded to 96 on the card), each flag,
+    against the JAX package's two backward kernels on the same operands:
+    dQ, dK^T and dV (and dbias) each within the margin."""
+    bh = 2
+    kw = dict(FLAGS[flag])
+    if kw.get("bias_bh") == "bh":
+        kw["bias_bh"] = bh
+    jargs, targs = bwd_operands(bh, s, hd, kw, seed=hd + s)
+    ref = ra.build_flash_attention_bwd(bh, s, hd, jnp.bfloat16, **kw)(*jargs)
+    fn = pa.build_flash_attention_bwd(bh, s, hd, BF16, **kw)
+    assert fn.path == "mma" and (fn.block_k, fn.block_k_dq) == (64, 64)
+    got = fn(*targs)
+    assert len(got) == len(ref) == (4 if kw.get("bias_grad") else 3)
+    for i, (r, g) in enumerate(zip(ref, got)):
+        assert g.dtype == (F32 if i == 3 else BF16), i
+        assert tuple(g.shape) == np.shape(r), i
+        check(np.asarray(jnp.asarray(r).astype(jnp.float32), np.float64),
+              g.float().numpy().astype(np.float64), margin=TOL)
