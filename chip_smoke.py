@@ -11,7 +11,7 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    nvcc for sm_90a (one nvcc per source, all started together) and prints
    the build time, the spills per source and the registers and spills of
    each tensor-core kernel (the bf16 flash forward and backward, the BCSC
-   SpMM and the k-union SpMM);
+   SpMM, the k-union SpMM and the packed BRGEMM's wgmma kernel and twin);
 3. drives the small-GEMM main path through the public entry points, with
    every kernel's launch count set to 0 just before and read just after:
    - the headline: dispatch_gemm_batched_packed(GemmShape(32,32,32),
@@ -21,7 +21,8 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
      leave ragged tiles;
    - dispatch_gemm_batched on 16384 x 32^3 f32;
    - dispatch_brgemm_packed at br=1024, m=n=256, k=64 bf16->f32, then
-     dispatch_brgemm_ext_packed with RELU + bias and with beta=1 GELU;
+     dispatch_brgemm_ext_packed with RELU + bias and with beta=1 GELU, all
+     three on the wgmma route (the per-route count must show it);
    - dispatch_gemm / dispatch_brgemm (the torch route) for f32, bf16->f32,
      f64 and i8->i32;
    each phase checks its output for shape and finiteness, holds it against
@@ -212,7 +213,8 @@ SPARSE_KERNEL_OF = {"pallas": ("bcsc_spmm",), "super": ("bcsc_spmm_super",),
                     "dense": ("bcsc_densify",), "sparse": ()}
 COMPACTED = ("union", "union2", "union3")
 # the tensor-core kernels: (source stem, kernel name in the ptxas report)
-MMA_KERNELS = (("spmm_kernels", "bcsc_spmm_mma_kernel"),
+MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
+               ("spmm_kernels", "bcsc_spmm_mma_kernel"),
                ("spmm_kernels", "bcsc_union_mma_kernel"),
                ("attention_kernels", "flash_fwd_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_mma_kernel"),
@@ -1289,9 +1291,10 @@ def cnn_breakdown(convs, cnn, ms):
           f" train step {t_step:.4f} ms")
 
 
-def device_ms(fn, reps=20):
-    """Device time per call of fn(): the CUDA kernels' summed time over
-    `reps` calls, from torch.profiler, after one call to warm up."""
+def device_split(fn, reps=20):
+    """Device time per call of fn() by kernel name, in ms: each CUDA
+    kernel's summed time over `reps` calls, from torch.profiler, after one
+    call to warm up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1302,11 +1305,49 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            split[e.name] = (split.get(e.name, 0.0)
+                             + e.time_range.elapsed_us() / reps / 1e3)
+    return split
+
+
+def graph_ms(fn, reps=20, rounds=5):
+    """Milliseconds per call of fn() replayed from a CUDA graph of `reps`
+    captured calls, the best of `rounds` replays timed with CUDA events:
+    the card's time per call with the launches back to back, no host cost
+    between them (the device stays busy, as under a loaded caller). Two
+    calls warm up on a side stream first, as capture asks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    best = float("inf")
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def device_ms(fn, reps=20):
+    """Device time per call of fn(): the CUDA kernels' summed time over
+    `reps` calls, from torch.profiler, after one call to warm up."""
+    total = sum(device_split(fn, reps).values())
     if not total:
         raise AssertionError("device_ms: the profiler recorded no kernel")
-    return total / reps / 1e3
+    return total
 
 
 def mma_rate(row, flops, useful):
@@ -1473,9 +1514,12 @@ def lab_rows(record, ms, geo, dev, passthrough, brgemm):
     from libxsmm_torch.scripts import bcsc_lab
 
     sol, br_args, br_bytes, br_ms = brgemm
-    record("packed_brgemm_sol", "gemm_kernels.cu",
-           "libxsmm_tpu/kernels/gemm_pallas.py:334", sol, br_args, TOL_F32,
-           br_bytes, 0, geo.peak_bf16_tflops, None, brgemm_ms=br_ms)
+    row = record("packed_brgemm_sol", "gemm_kernels.cu",
+                 "libxsmm_tpu/kernels/gemm_pallas.py:334", sol, br_args,
+                 TOL_F32, br_bytes, 0, geo.peak_bf16_tflops, None,
+                 brgemm_ms=br_ms, path=sol.path)
+    print(f"  packed_brgemm_sol on the {sol.path} route: {row['ms']:.4f} ms,"
+          f" t_sol / t_brg {row['ms'] / br_ms:.4f}")
     pt, pa, pb = passthrough
     record("packed_smm_passthrough", "gemm_kernels.cu", "bench.py:441", pt,
            (pa, pb), TOL_EXACT, 3 * pa.numel() * 4, 0, geo.peak_f32_tflops,
@@ -1847,7 +1891,13 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = {k: K.launches[k] for k in MAIN_KERNELS}
     print(f"main path: {len(phases)} phases in "
-          f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}")
+          f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}, "
+          f"packed_brgemm by route {K.path_launches['packed_brgemm']}")
+    # bf16 with n % 8 == 0 takes the tensor-core kernel, every time
+    if K.path_launches["packed_brgemm"] != {"wgmma": counts["packed_brgemm"],
+                                            "fma": 0}:
+        raise AssertionError("the bf16 BRGEMM left the wgmma route: "
+                             f"{K.path_launches['packed_brgemm']}")
 
     # 4. every kernel of the path ran
     missing = [name for name, c in counts.items() if c == 0]
@@ -1918,6 +1968,7 @@ def main() -> int:
             "bound_by": geo.bound_by(nbytes, flops, peak),
             "library_ms": lib, **more,
         })
+        return rows[-1]
 
     gemm_src = "gemm_kernels.cu"
     desc = GemmDescriptor(smm, B0)
@@ -1941,14 +1992,71 @@ def main() -> int:
         return torch.mm(x, y, out_dtype=torch.float32)
 
     br_bytes = 2 * br * KK * (M + N) + 4 * M * N
+    br_flops = 2 * M * N * KK * br
+    brg = K.build_packed_brgemm(desc_br, br)
+    if brg.path != "wgmma":
+        raise AssertionError(f"packed_brgemm at br={br} took {brg.path}")
     record("packed_brgemm", gemm_src,
-           "libxsmm_tpu/kernels/gemm_pallas.py:163",
-           K.build_packed_brgemm(desc_br, br),
-           (ap_br, b_br), TOL_BF16_IN, br_bytes, 2 * M * N * KK * br,
-           geo.peak_bf16_tflops, ms(mm_f32, a_lib, b_lib))
+           "libxsmm_tpu/kernels/gemm_pallas.py:163", brg,
+           (ap_br, b_br), TOL_BF16_IN, br_bytes, br_flops,
+           geo.peak_bf16_tflops, ms(mm_f32, a_lib, b_lib), path=brg.path)
+    mma_rate(rows[-1], br_flops, br_flops)
+    # the FMA route at the same shape in f32 (its own route: no TF32)
+    desc_f32 = GemmDescriptor(GemmShape(M, N, KK), B0, cfg)
+    brg_f32 = K.build_packed_brgemm(desc_f32, br)
+    t_f32 = ms(brg_f32, ap_br.float(), b_br.float())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"  packed_brgemm splits {brg.splits(sms)} on the "
+          f"{brg.path} route: {rows[-1]['ms']:.4f} ms bf16, "
+          f"{rows[-1]['ms'] / rows[-1]['bound_ms']:.2f}x its bound; the "
+          f"{brg_f32.path} route in f32 {t_f32:.4f} ms "
+          f"({br_flops / t_f32 / 1e9:.1f} TFLOP/s), splits "
+          f"{brg_f32.splits(sms)}")
+    # where a call's device time goes (the partial-tile kernel, the
+    # reduce), beside the event-timed row, which holds the host's cost too
+    row_br = rows[-1]
+    sol_br = K.build_packed_brgemm_sol(desc_br, br)
+    dev_ms, rep_ms = {}, {}
+    for name_, fn_ in (("packed_brgemm", brg), ("packed_brgemm_sol", sol_br)):
+        split = device_split(lambda f=fn_: f(ap_br, b_br))
+        dev_ms[name_] = sum(split.values())
+        rep_ms[name_] = graph_ms(lambda f=fn_: f(ap_br, b_br))
+        print(f"  {name_} device time by kernel: " + "; ".join(
+            f"{k_[:48]} {v_:.4f} ms" for k_, v_ in sorted(split.items()))
+            + f"; replayed from a CUDA graph {rep_ms[name_]:.4f} ms a call")
+    lib_dev = device_ms(lambda: mm_f32(a_lib, b_lib))
+    lib_rep = graph_ms(lambda: mm_f32(a_lib, b_lib))
+    row_br.update(device_ms=dev_ms["packed_brgemm"], library_device_ms=lib_dev,
+                  graph_ms=rep_ms["packed_brgemm"], library_graph_ms=lib_rep)
+    for how, t_b, t_s, t_l in (
+            ("device time", dev_ms["packed_brgemm"],
+             dev_ms["packed_brgemm_sol"], lib_dev),
+            ("graph replay", rep_ms["packed_brgemm"],
+             rep_ms["packed_brgemm_sol"], lib_rep)):
+        print(f"  packed_brgemm by {how}: {t_b:.4f} ms "
+              f"({br_flops / t_b / 1e9:.1f} TFLOP/s, "
+              f"{t_b / row_br['bound_ms']:.2f}x its bound), torch.mm "
+              f"{t_l:.4f} ms, kernel / library {t_b / t_l:.3f}; t_sol / "
+              f"t_brg {t_s / t_b:.4f}")
+    # the lab's variants replayed from CUDA graphs (the lab's own
+    # event-timed windows hold the host's cost): blocks, kernel, twin
+    from libxsmm_torch.scripts.brgemm_lab import VARIANTS
+    tiles = -(-M // 128) * -(-N // 128)
+    for mult, sg in dict.fromkeys((v[0], v[1]) for v in VARIANTS):
+        qv = q * mult
+        apv = xt.pack_batched(a_br, qv)
+        kv = K.build_packed_brgemm(desc_br, br, sg, pack_q=qv)
+        sv = K.build_packed_brgemm_sol(desc_br, br, sg, pack_q=qv)
+        tb = graph_ms(lambda: kv(apv, b_br))
+        ts = graph_ms(lambda: sv(apv, b_br))
+        print(f"  brgemm lab q{qv}_sg{sg} replayed ({kv.path}, "
+              f"{tiles * kv.splits(sms)[1]} blocks): brgemm {tb:.4f} ms, "
+              f"sol {ts:.4f} ms, t_sol / t_brg {ts / tb:.4f}")
     lab_rows(record, ms, geo, dev, labs["passthrough"],
-             (K.build_packed_brgemm_sol(desc_br, br), (ap_br, b_br), br_bytes,
-              rows[-1]["ms"]))
+             (sol_br, (ap_br, b_br), br_bytes, row_br["ms"]))
+    next(r for r in rows if r["name"] == "packed_brgemm_sol").update(
+        device_ms=dev_ms["packed_brgemm_sol"],
+        graph_ms=rep_ms["packed_brgemm_sol"])
 
     # flash forward at bench.py's serving shape: two (s, s, hd) products
     # over the bf16 tensor cores' peak; q, kT and v read once, out written
@@ -2114,8 +2222,12 @@ def main() -> int:
             ("rne_cast_ms", "rne cast"), ("compact_ms", "compacted form"),
             ("clone_ms", "clone of the output"),
             ("brgemm_ms", "the packed BRGEMM"), ("chunk2_ms", "chunk2"),
-            ("chunk4_ms", "chunk4")) if key in r)
-        print(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+            ("chunk4_ms", "chunk4"), ("device_ms", "device time"),
+            ("library_device_ms", "library device time"),
+            ("graph_ms", "replayed from a CUDA graph"),
+            ("library_graph_ms", "library replayed")) if key in r)
+        path = f" [{r['path']}]" if "path" in r else ""
+        print(f"{r['name']}{path}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "
               f"{lib}{cast}); max_abs_err {r['max_abs_err']:.3e}"
               f"; {r['launches']} main-path launches")

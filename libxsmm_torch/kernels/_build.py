@@ -11,8 +11,11 @@ The build happens at first use, into `kernels/build/` (listed in
 library name carries a hash of its source and of the shared headers
 (`csrc/*.cuh`), so an edited source is rebuilt and a stale library is never
 loaded. Libraries are loaded with ctypes;
-kernels/gemm.py declares the argument types. A failed build raises: there
-is no fallback to the plain torch versions for CUDA tensors.
+kernels/gemm.py declares the argument types. No library links against
+libcuda: the one call into it, cuTensorMapEncodeTiled for the BRGEMM's TMA
+maps, is looked up at run time (cudaGetDriverEntryPoint). A failed build
+raises: there is no fallback to the plain torch versions for CUDA
+tensors.
 """
 
 from __future__ import annotations

@@ -14,13 +14,17 @@
 // refused launch.
 //
 // Arithmetic: f32 operands multiply and add in f32 on the CUDA cores (no
-// TF32); bf16 operands are widened to f32 on load and accumulate in f32;
-// int8 operands accumulate in int32. Sums run in a fixed order, so a result
-// does not change from run to run.
+// TF32); bf16 operands are widened to f32 on load and accumulate in f32,
+// except the BRGEMM's tensor-core route (section 3b), where the tensor cores
+// multiply bf16 exactly and accumulate in f32; int8 operands accumulate in
+// int32. Sums run in a fixed order, so a result does not change from run to
+// run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "xsmm_wgmma.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1, T_I8 = 2, T_I32 = 3 };
 enum { EPI_NONE = 0, EPI_RELU = 1, EPI_X2 = 2, EPI_TANH = 3, EPI_SIGMOID = 4,
@@ -433,6 +437,289 @@ __global__ void brgemm_reduce_kernel(const float* __restrict__ ws,
   store_cvt(apply_epi(s, epi), out + i);
 }
 
+// the second pass of both routes: the partials of `splits` K ranges in z
+// order, then D, the epilogue and one cast
+template <typename TOut>
+static cudaError_t launch_brgemm_reduce(const void* ws, const void* c0,
+                                        const void* d, void* out, long mn,
+                                        int splits, int epi, cudaStream_t s) {
+  brgemm_reduce_kernel<TOut><<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(ws), static_cast<const float*>(c0),
+      static_cast<const float*>(d), static_cast<TOut*>(out), mn, splits, epi);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 3b. Lane-packed BRGEMM on the bf16 tensor cores, for bf16 operands with
+//     n % 8 == 0 (kernels/gemm.py brgemm_path; f32, and bf16 with another
+//     n, run the FMA kernel above). Replaces build_packed_brgemm
+//     (libxsmm_tpu/kernels/gemm_pallas.py:163) on that route; SOL = true is
+//     its streaming twin (gemm_pallas.py:334).
+//
+// Bound: the shape above reads 67 MB (20 us at 3.35 TB/s); its 8.6 GFLOP
+// take 8.7 us at the bf16 tensor cores' 989 TFLOP/s, so the stream bounds
+// it, and reaching that bound needs about 430 TFLOP/s of products: wgmma's
+// rate, not mma.sync's. Design: one block per (128 x 128 output tile, K
+// split) and about one block per SM (the wrapper's planner: 4 tiles x 32
+// splits at 256^2). One producer warp keeps a ring of TC_STAGES 64-deep
+// slices in flight with TMA: A's 128 x 64 slice from a 3-D map over (Q*k,
+// m, G) (a slice never crosses a group: Q*k is a multiple of 128) and B's
+// 64 x 128 slice as two 64 x 64 boxes of a 2-D map over (n, K), both with
+// the 128-byte swizzle, out-of-bounds rows and columns filled with zeros.
+// Two consumer warpgroups each own 64 rows x 128 columns of f32
+// accumulators in registers and run four wgmma.m64n128k16 per slice (A
+// K-major, B MN-major). Full and empty mbarriers pace the ring. Each block
+// writes its partial tile to the f32 workspace and brgemm_reduce_kernel adds
+// the partials in z order, as on the FMA route: no atomics, one result.
+//
+// The twin keeps the grid, split, maps, ring and barriers; its consumers
+// read each slice through the swizzle (eight 16-byte shared loads a thread
+// per slice) into running row sums of A and column sums of B, then write
+// rowsum + colsum of their K range to the workspace.
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 64, TC_STAGES = 4;
+constexpr int TC_A_BYTES = TC_BM * TC_BK * 2;             // 16 KB
+constexpr int TC_B_BOX = TC_BK * 64 * 2;                   // 8 KB, 64 columns
+constexpr int TC_STAGE_BYTES = TC_A_BYTES + 2 * TC_B_BOX;  // 32 KB
+constexpr int TC_CONSUMERS = 256;                          // two warpgroups
+constexpr int TC_THREADS = TC_CONSUMERS + 32;              // + the producer
+// the twin's reduction scratch: 16 partial column sums per column, the
+// row sums and the column sums of the tile
+constexpr int TC_SOL_FLOATS = 16 * TC_BN + TC_BM + TC_BN;
+
+constexpr size_t tc_smem_bytes(bool sol) {
+  return 1024 + (size_t)TC_STAGES * TC_STAGE_BYTES + 2 * TC_STAGES * 8 +
+         (sol ? TC_SOL_FLOATS * sizeof(float) : 0);
+}
+
+// the consumer warpgroups' own barrier (the producer warp never joins)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
+}
+
+template <bool SOL>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+brgemm_partial_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                            const __grid_constant__ CUtensorMap bmap,
+                            float* __restrict__ ws, int m, int n, int qk,
+                            long K, long kchunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzle is a function of the shared address: 1024-byte aligned ring
+  unsigned char* smem = smem_raw + ((1024 - (wg_smem(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TC_STAGES * TC_STAGE_BYTES);
+  uint64_t* empty = full + TC_STAGES;
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * TC_BN, m0 = blockIdx.y * TC_BM;
+  const long kb0 = (long)blockIdx.z * kchunk;
+  const long kb1 = kb0 + kchunk < K ? kb0 + kchunk : K;
+  const int slices = (int)((kb1 - kb0) / TC_BK);   // whole 64-deep slices
+
+  if (tid == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(&full[s], 1);                       // the producer's arrival
+      mbar_init(&empty[s], TC_CONSUMERS / 32);      // one per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= TC_CONSUMERS) {   // the producer warp: one thread starts TMA
+    if (tid == TC_CONSUMERS) {
+      for (int it = 0; it < slices; ++it) {
+        const int s = it % TC_STAGES;
+        if (it >= TC_STAGES) mbar_wait(&empty[s], ((it / TC_STAGES) - 1) & 1);
+        const long kb = kb0 + (long)it * TC_BK;
+        const int g = (int)(kb / qk);
+        const int kk = (int)(kb - (long)g * qk);
+        unsigned char* st = smem + s * TC_STAGE_BYTES;
+        mbar_arrive_expect_tx(&full[s], TC_STAGE_BYTES);
+        tma_load_3d(st, &amap, &full[s], kk, m0, g);
+        tma_load_2d(st + TC_A_BYTES, &bmap, &full[s], n0, (int)kb);
+        tma_load_2d(st + TC_A_BYTES + TC_B_BOX, &bmap, &full[s], n0 + 64,
+                    (int)kb);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;          // this warpgroup's 64 rows of the tile
+  const int lane = tid & 31;
+  float* wz = ws + (long)blockIdx.z * m * n;
+
+  if constexpr (!SOL) {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int it = 0; it < slices; ++it) {
+      const int s = it % TC_STAGES;
+      mbar_wait(&full[s], (it / TC_STAGES) & 1);
+      const unsigned char* st = smem + s * TC_STAGE_BYTES;
+      wgmma_fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < TC_BK / 16; ++j) {
+        const uint64_t da = wgmma_desc_sw128(st + wg * (TC_A_BYTES / 2) + 32 * j,
+                                             16, 1024);
+        const uint64_t db = wgmma_desc_sw128(st + TC_A_BYTES + 2048 * j,
+                                             TC_B_BOX, 1024);
+        wgmma_m64n128k16_bf16(acc, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_operands(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // the partial tile: fragment rows and column pairs as in xsmm_wgmma.cuh
+    const int w = (tid >> 5) & 3;
+    const int r0 = m0 + wg * 64 + w * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
+      if (col >= n) continue;   // n % 8 == 0: a pair is whole or out
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row < m)
+          *reinterpret_cast<float2*>(wz + (long)row * n + col) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  } else {
+    // A: thread t sums half (32 columns) of row t / 2; B: thread t sums the
+    // 8 columns of chunk t % 16 over rows 4 (t / 16) .. + 3
+    const int ar = tid >> 1, ah = tid & 1;
+    const int bc = tid & 15, bk = tid >> 4;
+    float sa = 0.f, sb[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sb[e] = 0.f;
+    for (int it = 0; it < slices; ++it) {
+      const int s = it % TC_STAGES;
+      mbar_wait(&full[s], (it / TC_STAGES) & 1);
+      const unsigned char* st = smem + s * TC_STAGE_BYTES;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int chunk = (ah * 4 + c) ^ (ar & 7);
+        const uint4 raw = *reinterpret_cast<const uint4*>(st + ar * 128 + chunk * 16);
+        const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sa += __bfloat162float(e8[e]);
+      }
+      const unsigned char* sbx = st + TC_A_BYTES + (bc >> 3) * TC_B_BOX;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kr = bk * 4 + r;
+        const int chunk = (bc & 7) ^ (kr & 7);
+        const uint4 raw = *reinterpret_cast<const uint4*>(sbx + kr * 128 + chunk * 16);
+        const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sb[e] += __bfloat162float(e8[e]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    float* part = reinterpret_cast<float*>(empty + TC_STAGES);   // 16 x 128
+    float* rows = part + 16 * TC_BN;
+    float* cols = rows + TC_BM;
+    sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+    if (ah == 0) rows[ar] = sa;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part[bk * TC_BN + bc * 8 + e] = sb[e];
+    consumers_sync();
+    if (tid < TC_BN) {
+      float c = 0.f;
+      for (int g = 0; g < 16; ++g) c += part[g * TC_BN + tid];   // fixed order
+      cols[tid] = c;
+    }
+    consumers_sync();
+    for (int i = tid; i < TC_BM * TC_BN; i += TC_CONSUMERS) {
+      const int r = i / TC_BN, c = i % TC_BN;
+      if (m0 + r < m && n0 + c < n)
+        wz[(long)(m0 + r) * n + n0 + c] = rows[r] + cols[c];
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (cudaGetDriverEntryPoint), so that the library needs no link to libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor map with 128-byte swizzle and zero fill out of bounds
+static bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a (G, m, qk) bf16 packed, b (G*qk, n) bf16, both 16-byte aligned; n % 8
+// == 0, qk and kchunk multiples of 64. A refused map or launch returns its
+// error; the wrapper raises.
+template <typename TOut, bool SOL = false>
+static cudaError_t launch_packed_brgemm_wgmma(const void* a, const void* b,
+                                              void* ws, const void* c0,
+                                              const void* d, void* out, int G,
+                                              int m, int n, int qk,
+                                              long kchunk, int splits,
+                                              int epi, cudaStream_t s) {
+  if (n % 8 || qk % TC_BK || kchunk % TC_BK || kchunk <= 0 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
+    return cudaErrorInvalidValue;
+  const long K = (long)G * qk;
+  CUtensorMap amap, bmap;
+  const cuuint64_t adims[3] = {(cuuint64_t)qk, (cuuint64_t)m, (cuuint64_t)G};
+  const cuuint64_t astrides[2] = {(cuuint64_t)qk * 2, (cuuint64_t)m * qk * 2};
+  const cuuint32_t abox[3] = {TC_BK, TC_BM, 1};
+  const cuuint64_t bdims[2] = {(cuuint64_t)n, (cuuint64_t)K};
+  const cuuint64_t bstrides[1] = {(cuuint64_t)n * 2};
+  const cuuint32_t bbox[2] = {64, TC_BK};
+  if (!encode_bf16(&amap, a, 3, adims, astrides, abox) ||
+      !encode_bf16(&bmap, b, 2, bdims, bstrides, bbox))
+    return cudaErrorInvalidValue;
+  const size_t smem = tc_smem_bytes(SOL);
+  auto kern = brgemm_partial_wgmma_kernel<SOL>;
+  cudaError_t e = ensure_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM, splits);
+  kern<<<grid, TC_THREADS, smem, s>>>(amap, bmap, static_cast<float*>(ws), m,
+                                      n, qk, K, kchunk);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_brgemm_reduce<TOut>(ws, c0, d, out, (long)m * n, splits, epi,
+                                    s);
+}
+
 template <typename TIn, typename TOut, bool SOL = false>
 static cudaError_t launch_packed_brgemm(const void* a, const void* b,
                                         void* ws, const void* c0,
@@ -444,13 +731,10 @@ static cudaError_t launch_packed_brgemm(const void* a, const void* b,
   brgemm_partial_kernel<TIn, SOL><<<grid, 256, 0, s>>>(
       static_cast<const TIn*>(a), static_cast<const TIn*>(b),
       static_cast<float*>(ws), m, n, qk, K, kchunk);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const long mn = (long)m * n;
-  brgemm_reduce_kernel<TOut><<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(c0),
-      static_cast<const float*>(d), static_cast<TOut*>(out), mn, splits, epi);
-  return cudaGetLastError();
+  return launch_brgemm_reduce<TOut>(ws, c0, d, out, (long)m * n, splits, epi,
+                                    s);
 }
 
 // ---------------------------------------------------------------------------
@@ -568,6 +852,33 @@ int xsmm_packed_brgemm_sol(const void* a, const void* b, void* ws, void* out,
   if (in_t == T_BF16)
     return launch_packed_brgemm<__nv_bfloat16, float, true>(a, b, ws, nullptr, nullptr, out, G, m, n, qk, kchunk, splits, EPI_NONE, s);
   return cudaErrorInvalidValue;
+}
+
+// the tensor-core route (kernels/gemm.py brgemm_path): arguments as
+// xsmm_packed_brgemm's, bf16 a and b only, n % 8 == 0; out f32 or bf16
+int xsmm_packed_brgemm_wgmma(const void* a, const void* b, void* ws,
+                             const void* c0, const void* d, void* out, int G,
+                             int m, int n, int qk, long long kchunk,
+                             int splits, int in_t, int out_t, int epi,
+                             void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_t == T_BF16 && out_t == T_F32)
+    return launch_packed_brgemm_wgmma<float>(a, b, ws, c0, d, out, G, m, n, qk, kchunk, splits, epi, s);
+  if (in_t == T_BF16 && out_t == T_BF16)
+    return launch_packed_brgemm_wgmma<__nv_bfloat16>(a, b, ws, c0, d, out, G, m, n, qk, kchunk, splits, epi, s);
+  return cudaErrorInvalidValue;
+}
+
+// the twin on the tensor-core route: arguments as xsmm_packed_brgemm_sol's,
+// bf16 a and b only, n % 8 == 0; f32 out
+int xsmm_packed_brgemm_sol_wgmma(const void* a, const void* b, void* ws,
+                                 void* out, int G, int m, int n, int qk,
+                                 long long kchunk, int splits, int in_t,
+                                 void* stream) {
+  if (in_t != T_BF16) return cudaErrorInvalidValue;
+  return launch_packed_brgemm_wgmma<float, true>(
+      a, b, ws, nullptr, nullptr, out, G, m, n, qk, kchunk, splits, EPI_NONE,
+      static_cast<cudaStream_t>(stream));
 }
 
 // a, b, out (G, m, 128) f32, 16-byte aligned; rpt as xsmm_packed_smm's

@@ -11,7 +11,8 @@ the same support predicates and the same fused epilogues:
   P = 128//n problems side by side along the last axis (ops.gemm.
   pack_batched); f32/bf16/int8.
 * build_packed_brgemm — the lane-packed batch-reduce GEMM with the fused
-  cp epilogue and the ADD bias operand.
+  cp epilogue and the ADD bias operand; bf16 with n % 8 == 0 runs a wgmma
+  kernel on TMA-fed tiles, the rest an FMA kernel (brgemm_path).
 
 Beside them, the two streaming twins the JAX package times its kernels
 against: build_packed_brgemm_sol (gemm_pallas.py:334), the BRGEMM's grid and
@@ -42,11 +43,18 @@ from ..dtypes import Datatype, to_torch
 # add one where they launch their CUDA kernel, and nowhere else
 launches = {"batched_gemm": 0, "packed_batched_gemm": 0, "packed_brgemm": 0,
             "packed_brgemm_sol": 0, "packed_smm_passthrough": 0}
+# the same launches of the BRGEMM and its twin, split by the CUDA kernel that
+# served them (brgemm_path)
+path_launches = {name: {"wgmma": 0, "fma": 0}
+                 for name in ("packed_brgemm", "packed_brgemm_sol")}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for counts in path_launches.values():
+        for path in counts:
+            counts[path] = 0
 
 
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -71,9 +79,15 @@ def _kernels() -> ctypes.CDLL:
                                            I, I, I, I, P]
         lib.xsmm_packed_brgemm_sol.argtypes = [P, P, P, P, I, I, I, I, LL, I,
                                                I, P]
+        lib.xsmm_packed_brgemm_wgmma.argtypes = \
+            lib.xsmm_packed_brgemm.argtypes
+        lib.xsmm_packed_brgemm_sol_wgmma.argtypes = \
+            lib.xsmm_packed_brgemm_sol.argtypes
         lib.xsmm_packed_smm_passthrough.argtypes = [P, P, P, I, I, I, P]
         for f in (lib.xsmm_packed_smm, lib.xsmm_batched_gemm,
                   lib.xsmm_packed_brgemm, lib.xsmm_packed_brgemm_sol,
+                  lib.xsmm_packed_brgemm_wgmma,
+                  lib.xsmm_packed_brgemm_sol_wgmma,
                   lib.xsmm_packed_smm_passthrough):
             f.restype = I
         lib.xsmm_error_string.argtypes = [I]
@@ -323,6 +337,17 @@ def build_batched_gemm(desc: GemmDescriptor, batch: int,
 
 _BR_BK = 16     # K slice of one partial-sum step (csrc BR_BK)
 _BR_TILE = 64   # output tile edge (csrc BR_BM == BR_BN)
+_TC_BK = 64     # the tensor-core kernel's K slice (csrc TC_BK)
+_TC_TILE = 128  # its output tile edge (csrc TC_BM == TC_BN)
+
+
+def brgemm_path(in_dtype: torch.dtype, n: int) -> str:
+    """The CUDA kernel that serves a packed BRGEMM (and its twin), as csrc
+    takes it: "wgmma" (bf16 tiles fed by TMA into the tensor cores) for bf16
+    operands whose B rows are whole 16-byte units (n % 8 == 0: TMA's global
+    stride), "fma" (f32 FMAs on the CUDA cores; f32 means f32, no TF32) for
+    the rest. A's row stride, Q*k*2 bytes, is always a multiple of 256."""
+    return "wgmma" if in_dtype == torch.bfloat16 and n % 8 == 0 else "fma"
 
 
 class PackedBrgemm:
@@ -342,6 +367,7 @@ class PackedBrgemm:
         self.epilogue = _EPILOGUES[cp_type]
         self.with_bias = with_bias
         self.step_groups = step_groups
+        self.path = brgemm_path(self.in_dt, self.n)
         self.name = (desc.name() + "_packed_brgemm"
                      + ("" if cp_type == "NONE" else f"_{cp_type.lower()}")
                      + ("_bias" if with_bias else ""))
@@ -349,16 +375,22 @@ class PackedBrgemm:
     def splits(self, num_sms: int):
         """(K per block, number of blocks along K). step_groups, when
         given, is the number of groups one block reduces; otherwise the K
-        range is cut so that about four blocks per SM are in flight."""
+        range is cut so that about four blocks per SM are in flight on the
+        FMA path, and on the wgmma path (128 x 128 tiles, whole 64-deep
+        slices, one block per SM) so that tiles x splits stays at or under
+        the SM count, as close to it as whole slices allow."""
         qk = self.q * self.k
         total = self.groups * qk
         if self.step_groups:
             kchunk = max(1, int(self.step_groups)) * qk
         else:
-            tiles = (-(-self.m // _BR_TILE)) * (-(-self.n // _BR_TILE))
-            want = max(1, -(-4 * num_sms // tiles))
+            wgmma = self.path == "wgmma"
+            tile, bk = (_TC_TILE, _TC_BK) if wgmma else (_BR_TILE, _BR_BK)
+            tiles = (-(-self.m // tile)) * (-(-self.n // tile))
+            want = max(1, num_sms // tiles if wgmma
+                       else -(-4 * num_sms // tiles))
             kchunk = -(-total // want)
-            kchunk = -(-kchunk // _BR_BK) * _BR_BK
+            kchunk = -(-kchunk // bk) * bk
         return kchunk, -(-total // kchunk)
 
     def __call__(self, a, b, c=None, d=None):
@@ -402,16 +434,25 @@ class PackedBrgemm:
                          device=device)
         return kchunk, splits, ws
 
+    def _operands(self, a, b):
+        """a and b as the kernel takes them: contiguous, and on the wgmma
+        path 16-byte aligned (TMA's base address)."""
+        if self.path == "wgmma":
+            return _aligned16(a), _aligned16(b)
+        return a.contiguous(), b.contiguous()
+
     def _launch(self, a, b, c0, d, out_dt):
         m, n = self.m, self.n
         kchunk, splits, ws = self._workspace(a.device)
-        a, b = a.contiguous(), b.contiguous()
+        a, b = self._operands(a, b)
         c0 = None if c0 is None else c0.to(torch.float32).contiguous()
         d = None if d is None else d.to(torch.float32).contiguous()
         out = torch.empty((m, n), dtype=out_dt, device=a.device)
         lib = _kernels()
+        launch = (lib.xsmm_packed_brgemm_wgmma if self.path == "wgmma"
+                  else lib.xsmm_packed_brgemm)
         with torch.cuda.device(a.device):
-            err = lib.xsmm_packed_brgemm(
+            err = launch(
                 _ptr(a), _ptr(b), _ptr(ws), _ptr(c0), _ptr(d), _ptr(out),
                 self.groups, m, n, self.q * self.k, kchunk, splits,
                 _type_code(self.in_dt, self.name),
@@ -419,6 +460,7 @@ class PackedBrgemm:
                 _stream(a.device))
         _raise_on_error(err, self.name)
         launches["packed_brgemm"] += 1
+        path_launches["packed_brgemm"][self.path] += 1
         return out
 
     def plain(self, a, b, c0=None, d=None, out_dt=None):
@@ -462,8 +504,12 @@ def build_packed_brgemm(desc: GemmDescriptor, br: int,
 
     The CUDA kernel splits the K range over blocks and adds the partial
     sums in a fixed order (csrc/gemm_kernels.cu); `step_groups` sets the
-    groups per block. `acc_scratch` names a TPU accumulator schedule and
-    changes nothing here: the partial sums always live in registers."""
+    groups per block. bf16 operands with n % 8 == 0 take the wgmma kernel
+    (128 x 128 tiles, one block per SM), the rest the FMA kernel
+    (`brgemm_path`; the wrapper's `path`); a refused launch raises, with no
+    retry on the other kernel. `acc_scratch` names a TPU accumulator
+    schedule and changes nothing here: the partial sums always live in
+    registers."""
     del acc_scratch
     q = _brgemm_pack(desc, br, pack_q)
     if q is None or cp_type not in _EPILOGUES:
@@ -488,17 +534,20 @@ class PackedBrgemmSol(PackedBrgemm):
         if not _on_cuda(a, b):
             return self.plain(a, b)
         kchunk, splits, ws = self._workspace(a.device)
-        a, b = a.contiguous(), b.contiguous()
+        a, b = self._operands(a, b)
         out = torch.empty((self.m, self.n), dtype=torch.float32,
                           device=a.device)
         lib = _kernels()
+        launch = (lib.xsmm_packed_brgemm_sol_wgmma if self.path == "wgmma"
+                  else lib.xsmm_packed_brgemm_sol)
         with torch.cuda.device(a.device):
-            err = lib.xsmm_packed_brgemm_sol(
+            err = launch(
                 _ptr(a), _ptr(b), _ptr(ws), _ptr(out), self.groups, self.m,
                 self.n, self.q * self.k, kchunk, splits,
                 _type_code(self.in_dt, self.name), _stream(a.device))
         _raise_on_error(err, self.name)
         launches["packed_brgemm_sol"] += 1
+        path_launches["packed_brgemm_sol"][self.path] += 1
         return out
 
     def plain(self, a, b):
@@ -515,12 +564,12 @@ def build_packed_brgemm_sol(desc: GemmDescriptor, br: int,
     f32 = rowsum(A)[:, None] + colsum(B)[None, :], with a: (br/Q, m, Q*k)
     packed and b: (br, k, n).
 
-    The kernel keeps the BRGEMM kernel's grid, K split (step_groups as
-    there), shared-memory loads and K-bound mask, and its fixed-order
-    reduce, with the products replaced by running row and column sums
-    (csrc/gemm_kernels.cu), so t_sol / t_brgemm says how far the BRGEMM is
-    from its own streaming floor. Returns None where the reference's twin
-    refuses."""
+    The kernel keeps the BRGEMM kernel's route (`brgemm_path`), grid, K
+    split (step_groups as there), loads (on the wgmma route its TMA ring
+    and barriers) and its fixed-order reduce, with the products replaced
+    by running row and column sums (csrc/gemm_kernels.cu), so t_sol /
+    t_brgemm says how far the BRGEMM is from its own streaming floor.
+    Returns None where the reference's twin refuses."""
     q = _brgemm_pack(desc, br, pack_q)
     return None if q is None else PackedBrgemmSol(desc, br, q, step_groups)
 

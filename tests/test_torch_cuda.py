@@ -174,19 +174,97 @@ def test_batched_gemm(gen, m, n, k, a_dt, o_dt, beta):
                                         (70, 40, 32, 12, 4),
                                         (1, 1, 128, 3, 1), (33, 65, 1, 256,
                                                             128),
-                                        (16, 32, 64, 16, 8)])
+                                        (16, 32, 64, 16, 8),
+                                        (1, 136, 16, 24, 8),
+                                        (130, 8, 128, 4, 1),
+                                        (129, 264, 64, 40, 4)])
 @pytest.mark.parametrize("step_groups", [None, 1, 5])
-def test_packed_brgemm_shapes(gen, m, n, k, br, q, step_groups):
-    d = GemmDescriptor(GemmShape(m, n, k), B0)
+@pytest.mark.parametrize("a_dt", [F32, BF16], ids=str)
+def test_packed_brgemm_shapes(gen, m, n, k, br, q, step_groups, a_dt):
+    """Both routes: bf16 with n % 8 == 0 on the tensor cores, the rest on
+    the FMA kernel (ragged m and n, one-column and one-row outputs, a
+    ragged last K chunk at step_groups 5)."""
+    d = GemmDescriptor(GemmShape(m, n, k, a_in_type=a_dt, b_in_type=a_dt),
+                       B0)
     fn = pk.build_packed_brgemm(d, br, step_groups, pack_q=q)
-    a, b = rand(gen, (br // q, m, q * k)), rand(gen, (br, k, n))
-    same(fn.plain(a, b), launched("packed_brgemm", lambda: fn(a, b)))
+    a = rand(gen, (br // q, m, q * k), a_dt)
+    b = rand(gen, (br, k, n), a_dt)
+    before = pk.path_launches["packed_brgemm"][fn.path]
+    same(fn.plain(a, b), launched("packed_brgemm", lambda: fn(a, b)), a_dt)
+    assert pk.path_launches["packed_brgemm"][fn.path] == before + 1
+
+
+@pytest.mark.parametrize("a_dt,n,want", [(BF16, 256, "wgmma"),
+                                         (BF16, 8, "wgmma"),
+                                         (BF16, 40, "wgmma"),
+                                         (BF16, 36, "fma"), (BF16, 1, "fma"),
+                                         (F32, 256, "fma")], ids=str)
+def test_packed_brgemm_path_launches(gen, a_dt, n, want):
+    """bf16 with n % 8 == 0 launches the tensor-core kernel, and only it;
+    the twin follows the same route."""
+    m, k, br = 64, 64, 8
+    d = GemmDescriptor(GemmShape(m, n, k, a_in_type=a_dt, b_in_type=a_dt),
+                       B0)
+    fn = pk.build_packed_brgemm(d, br)
+    sol = pk.build_packed_brgemm_sol(d, br)
+    assert fn.path == sol.path == want
+    a = rand(gen, (br // 2, m, 128), a_dt)
+    b = rand(gen, (br, k, n), a_dt)
+    pk.reset_launches()
+    same(fn.plain(a, b), fn(a, b), a_dt)
+    check(sol.plain(a, b), sol(a, b), margin=1e-5)
+    torch.cuda.synchronize()
+    other = "fma" if want == "wgmma" else "wgmma"
+    for name in ("packed_brgemm", "packed_brgemm_sol"):
+        assert pk.path_launches[name] == {want: 1, other: 0}
+        assert pk.launches[name] == 1
+
+
+@pytest.mark.parametrize("groups,step_groups,splits", [
+    (1, None, 2), (1, 1, 1), (6, 6, 1), (6, 50, 1)])
+def test_packed_brgemm_one_split(gen, groups, step_groups, splits):
+    """A K of a single group (two 64-deep slices, one block each or one
+    block for both), and step_groups covering every group (or more): one
+    block along K."""
+    m, n, k, q = 100, 72, 64, 2
+    d = GemmDescriptor(GemmShape(m, n, k, a_in_type=BF16, b_in_type=BF16),
+                       B0)
+    fn = pk.build_packed_brgemm(d, groups * q, step_groups)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fn.splits(sms)[1] == splits
+    a = rand(gen, (groups, m, q * k), BF16)
+    b = rand(gen, (groups * q, k, n), BF16)
+    same(fn.plain(a, b), launched("packed_brgemm", lambda: fn(a, b)), BF16)
+
+
+@pytest.mark.parametrize("offset", [1, 4])        # 2 and 8 bytes off
+@pytest.mark.parametrize("operand", ["a", "b"])
+def test_packed_brgemm_unaligned(gen, offset, operand):
+    """Operands off 16-byte alignment reach the tensor-core kernel through
+    aligned copies (TMA needs a 16-byte aligned base)."""
+    m, n, k, br = 64, 64, 64, 8
+    d = GemmDescriptor(GemmShape(m, n, k, a_in_type=BF16, b_in_type=BF16),
+                       B0)
+    fn = pk.build_packed_brgemm(d, br)
+    sol = pk.build_packed_brgemm_sol(d, br)
+    ops = {"a": rand(gen, (br // 2, m, 128), BF16),
+           "b": rand(gen, (br, k, n), BF16)}
+    x = ops[operand]
+    buf = torch.zeros(x.numel() + offset, dtype=x.dtype, device="cuda")
+    xu = buf[offset:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16
+    args = (xu, ops["b"]) if operand == "a" else (ops["a"], xu)
+    same(fn.plain(ops["a"], ops["b"]),
+         launched("packed_brgemm", lambda: fn(*args)), BF16)
+    check(sol.plain(ops["a"], ops["b"]), sol(*args), margin=1e-5)
 
 
 @pytest.mark.parametrize("cp", EPILOGUES)
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("beta", [0, 1])
-@pytest.mark.parametrize("a_dt,o_dt", [(BF16, F32), (F32, BF16)], ids=str)
+@pytest.mark.parametrize("a_dt,o_dt", [(BF16, F32), (F32, BF16),
+                                       (BF16, BF16)], ids=str)
 def test_packed_brgemm_epilogues(gen, cp, bias, beta, a_dt, o_dt):
     m, n, k, br = 48, 80, 64, 20
     d = GemmDescriptor(GemmShape(m, n, k, a_in_type=a_dt, b_in_type=a_dt,
@@ -203,6 +281,7 @@ def test_packed_brgemm_deterministic(gen):
     d = GemmDescriptor(GemmShape(256, 256, 64, a_in_type=BF16,
                                  b_in_type=BF16), B0)
     fn = pk.build_packed_brgemm(d, 512)
+    assert fn.path == "wgmma"
     a = rand(gen, (256, 256, 128), BF16)
     b = rand(gen, (512, 64, 256), BF16)
     assert torch.equal(fn(a, b), fn(a, b))

@@ -75,6 +75,8 @@ def launched(counts, kernel, fn):
     (64, 200, 64, 40, 3, 1),          # 20 groups at 3 a block
     (48, 96, 16, 64, None, 2),        # pack_q = 2 * 128/k
     (1, 1, 128, 3, None, 1),
+    (70, 36, 64, 16, None, 1),        # n % 8 != 0: the FMA route in bf16
+    (130, 136, 128, 8, 1, 1),         # ragged 128-row and 128-column tiles
 ])
 def test_brgemm_sol_matches_plain(gen, dt, m, n, k, br, sg, mult):
     shape = GemmShape(m, n, k, a_in_type=dt, b_in_type=dt, out_type=F32)
@@ -85,7 +87,11 @@ def test_brgemm_sol_matches_plain(gen, dt, m, n, k, br, sg, mult):
                                      pack_q=q if mult > 1 else None)
     a = rand(gen, (br // q, m, q * k), TORCH[dt])
     b = rand(gen, (br, k, n), TORCH[dt], 0.1)
+    path = "wgmma" if dt == BF16 and n % 8 == 0 else "fma"
+    assert sol.path == path
+    before = pk.path_launches["packed_brgemm_sol"][path]
     got = launched(pk.launches, "packed_brgemm_sol", lambda: sol(a, b))
+    assert pk.path_launches["packed_brgemm_sol"][path] == before + 1
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
     check(sol.plain(a, b), got, margin=1e-5)
 

@@ -101,6 +101,25 @@ def test_cuda_source_is_hand_written():
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
 
 
+def test_wgmma_header_is_hand_written():
+    """The Hopper path's PTX is the port's own: wgmma on bf16 tiles that
+    TMA (cp.async.bulk.tensor) stages, paced by mbarriers, with the tensor
+    map encoded through a run-time lookup of cuTensorMapEncodeTiled (no
+    -lcuda)."""
+    csrc = PKG / "kernels" / "csrc"
+    wg = (csrc / "xsmm_wgmma.cuh").read_text()
+    for needle in ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "cp.async.bulk.tensor.2d", "cp.async.bulk.tensor.3d",
+                   "mbarrier.try_wait.parity", "wgmma.fence",
+                   "wgmma.commit_group", "wgmma.wait_group"):
+        assert needle in wg, needle
+    gemm = (csrc / "gemm_kernels.cu").read_text()
+    assert '#include "xsmm_wgmma.cuh"' in gemm
+    assert "cuTensorMapEncodeTiled" in gemm and "__grid_constant__" in gemm
+    build = (PKG / "kernels" / "_build.py").read_text()
+    assert "-lcuda" not in build
+
+
 def test_device_defaults_raise_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
