@@ -10,8 +10,9 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
 2. builds the hand-written kernels from libxsmm_torch/kernels/csrc/ with
    nvcc for sm_90a (one nvcc per source, all started together) and prints
    the build time, the spills per source and the registers and spills of
-   each tensor-core kernel (the bf16 flash forward and backward, the BCSC
-   SpMM, the k-union SpMM and the packed BRGEMM's wgmma kernel and twin);
+   each pipelined kernel (the bf16 flash forward and backward, the BCSC
+   SpMM, the k-union SpMM, the packed BRGEMM's wgmma and tma_fma kernels
+   and twins, the batched SMM's ring kernel);
 3. drives the small-GEMM main path through the public entry points, with
    every kernel's launch count set to 0 just before and read just after:
    - the headline: dispatch_gemm_batched_packed(GemmShape(32,32,32),
@@ -19,10 +20,13 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
      unpack_batched; then smaller runs in bf16->f32, i8->i32, with RELU and
      GELU epilogues, with beta=1, and with a group count and row count that
      leave ragged tiles;
-   - dispatch_gemm_batched on 16384 x 32^3 f32;
+   - dispatch_gemm_batched on 16384 x 32^3 f32 (it must take the bulk-copy
+     route), then 4096 x (33, 31, 17) f32 (the cp.async route) and 4096 x
+     32^3 bf16 -> bf16 with beta=1 (bulk);
    - dispatch_brgemm_packed at br=1024, m=n=256, k=64 bf16->f32, then
      dispatch_brgemm_ext_packed with RELU + bias and with beta=1 GELU, all
-     three on the wgmma route (the per-route count must show it);
+     three on the wgmma route; the same shape in f32, plain and with RELU +
+     bias, on the tma_fma route (the per-route counts must show both);
    - dispatch_gemm / dispatch_brgemm (the torch route) for f32, bf16->f32,
      f64 and i8->i32;
    each phase checks its output for shape and finiteness, holds it against
@@ -134,12 +138,17 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     whose rows carry the RNE cast's, an output clone's and the BRGEMM's
     time instead; the flash backward's, reached through autograd, by its
     device time from torch.profiler), and each launch configuration the
-    kernel chooses among; for the six tensor-core rows (flash forward, the
+    kernel chooses among; the f32 packed BRGEMM gets a row of its own,
+    with torch.mm in f32 (TF32 off) as its yardstick and its twin's
+    t_sol / t_brg, by events, device time and CUDA-graph replay; the
+    batched SMM's odd shape and bf16 case are held against their plain
+    versions and timed beside torch.bmm; for the six tensor-core rows
+    (flash forward, the
     flash backward's dK/dV and dQ, the scheduled, union and supertile
     SpMM) it asserts the path and prints the achieved TFLOP/s (of the
     kernel's own products and of the useful ones) and the kernel / library
     ratio;
-12. prints one JSON line with the per-kernel numbers (eighteen rows) and,
+12. prints one JSON line with the per-kernel numbers (nineteen rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
@@ -212,8 +221,11 @@ SPARSE_KERNELS = ("bcsc_spmm", "bcsc_spmm_union", "bcsc_densify",
 SPARSE_KERNEL_OF = {"pallas": ("bcsc_spmm",), "super": ("bcsc_spmm_super",),
                     "dense": ("bcsc_densify",), "sparse": ()}
 COMPACTED = ("union", "union2", "union3")
-# the tensor-core kernels: (source stem, kernel name in the ptxas report)
+# the pipelined Hopper kernels (tensor-core, TMA- and bulk-copy-fed):
+# (source stem, kernel name in the ptxas report)
 MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
+               ("gemm_kernels", "brgemm_partial_tma_fma_kernel"),
+               ("gemm_kernels", "batched_gemm_ring_kernel"),
                ("spmm_kernels", "bcsc_spmm_mma_kernel"),
                ("spmm_kernels", "bcsc_union_mma_kernel"),
                ("attention_kernels", "flash_fwd_mma_kernel"),
@@ -1714,7 +1726,7 @@ def main() -> int:
                   if "spill" in ln and not ln.strip().startswith("0 bytes")]
         print(f"  {stem}: {log.count('Used ')} kernels compiled, "
               f"{len(spills)} with spills {spills}")
-    # the tensor-core kernels, one line per instantiation
+    # the pipelined kernels, one line per instantiation
     for stem, needle in MMA_KERNELS:
         for name, regs, st, ld in _build.kernel_resources(stem, needle):
             print(f"  {stem} {name}: {regs} registers, spill stores {st} "
@@ -1827,6 +1839,26 @@ def main() -> int:
           bmm64(a_u, b_u), K.build_batched_gemm(GemmDescriptor(smm, B0),
                                                 B).plain,
           TOL_F32, (B, m, n))
+    if K.path_launches["batched_gemm"] != {"bulk": 1, "cp_async": 0}:
+        raise AssertionError("the batched SMM at 32^3 f32 left the bulk-copy "
+                             f"route: {K.path_launches['batched_gemm']}")
+    # off the aligned path: odd k and n take the cp.async route; and bf16 in
+    # and out, with beta = 1, on the bulk route
+    for (bm, bn, bk), dt, flags, tol in (
+            ((33, 31, 17), torch.float32, B0, TOL_F32),
+            ((32, 32, 32), torch.bfloat16, GemmFlags.NONE, TOL_BF16_OUT)):
+        xd = xt.from_torch(dt)
+        sh = GemmShape(bm, bn, bk, a_in_type=xd, b_in_type=xd, out_type=xd)
+        xa, xb = randn(Bs * 4, bm, bk, dtype=dt), randn(Bs * 4, bk, bn,
+                                                        dtype=dt)
+        xargs, ref = (xa, xb), bmm64(xa, xb)
+        if flags != B0:
+            xc = randn(Bs * 4, bm, bn, dtype=dt)
+            xargs, ref = (xa, xb, xc), ref + xc.double()
+        phase(f"batched {xd.value} {bm}x{bn}x{bk}", "batched_gemm",
+              xt.dispatch_gemm_batched(sh, flags), xargs, ident, ref,
+              K.build_batched_gemm(GemmDescriptor(sh, flags), Bs * 4).plain,
+              tol, (Bs * 4, bm, bn))
 
     br, M, N, KK = 1024, 256, 256, 64
     q = xt.brgemm_pack_factor(GemmShape(M, N, KK))
@@ -1863,6 +1895,26 @@ def main() -> int:
           (ap_br, b_br, c0), ident, gelu(ref_br + c0.double()),
           br_plain(GemmFlags.NONE, "GELU"), TOL_BF16_IN, (M, N))
 
+    # f32 on the TMA-fed FMA route: plain, and RELU + bias
+    shape_f32 = GemmShape(M, N, KK)
+    ap_br32, b_br32 = ap_br.float(), b_br.float()
+
+    def br32_plain(cp="NONE", bias=False):
+        return K.build_packed_brgemm(GemmDescriptor(shape_f32, B0, cfg), br,
+                                     cp_type=cp, with_bias=bias).plain
+
+    phase("brgemm packed f32", "packed_brgemm",
+          xt.dispatch_brgemm_packed(shape_f32, B0, cfg), (ap_br32, b_br32),
+          ident, ref_br, br32_plain(), TOL_F32, (M, N))
+    kx32 = xt.dispatch_brgemm_ext_packed(
+        shape_f32, B0, cfg, argops=UnaryArgops(cp_type=UnaryType.RELU),
+        postops=BinaryPostops(d_type=BinaryType.ADD))
+    relu32_plain = br32_plain("RELU", True)
+    phase("brgemm ext f32 relu+bias", "packed_brgemm",
+          lambda a, b: kx32(a, b, d_op=bias), (ap_br32, b_br32), ident,
+          (ref_br + bias.double()).clamp_min(0.0),
+          lambda a, b: relu32_plain(a, b, None, bias_mn), TOL_F32, (M, N))
+
     # the torch route (the reference's XLA route): no kernel of its own
     gm, gn, gk, gbr = 64, 48, 32, 8
     for a_t, o_t, tol in ((F32, F32, TOL_F32), (BF16, F32, TOL_BF16_IN),
@@ -1890,14 +1942,21 @@ def main() -> int:
               tol, (gm, gn))
     torch.cuda.synchronize()
     counts = {k: K.launches[k] for k in MAIN_KERNELS}
+    by_route = {k: dict(K.path_launches[k])
+                for k in ("packed_brgemm", "batched_gemm")}
     print(f"main path: {len(phases)} phases in "
           f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}, "
-          f"packed_brgemm by route {K.path_launches['packed_brgemm']}")
-    # bf16 with n % 8 == 0 takes the tensor-core kernel, every time
-    if K.path_launches["packed_brgemm"] != {"wgmma": counts["packed_brgemm"],
-                                            "fma": 0}:
-        raise AssertionError("the bf16 BRGEMM left the wgmma route: "
-                             f"{K.path_launches['packed_brgemm']}")
+          f"by route {by_route}")
+    # bf16 with n % 8 == 0 takes the tensor-core kernel and f32 with n % 4
+    # == 0 the TMA-fed FMA kernel, every time; the batched SMM's odd shape
+    # the cp.async route, the others the bulk copies
+    if by_route["packed_brgemm"] != {"wgmma": 3, "tma_fma": 2, "fma": 0}:
+        raise AssertionError("the BRGEMM left its routes: "
+                             f"{by_route['packed_brgemm']}")
+    if by_route["batched_gemm"] != {"bulk": 2, "cp_async": 1}:
+        raise AssertionError("the batched SMM left its routes: "
+                             f"{by_route['batched_gemm']}")
+    counts["packed_brgemm_f32"] = by_route["packed_brgemm"]["tma_fma"]
 
     # 4. every kernel of the path ran
     missing = [name for name, c in counts.items() if c == 0]
@@ -1978,10 +2037,31 @@ def main() -> int:
            K.build_packed_batched_gemm(desc, G), (ap, bp), TOL_F32,
            smm_bytes, smm_flops, geo.peak_f32_tflops,
            ms(torch.bmm, a_u, b_u))
+    bgm = K.build_batched_gemm(desc, B)
     record("batched_gemm", gemm_src, "libxsmm_tpu/kernels/gemm_pallas.py:67",
-           K.build_batched_gemm(desc, B), (a_u, b_u),
-           TOL_F32, smm_bytes, smm_flops, geo.peak_f32_tflops,
-           ms(torch.bmm, a_u, b_u))
+           bgm, (a_u, b_u), TOL_F32, smm_bytes, smm_flops,
+           geo.peak_f32_tflops, ms(torch.bmm, a_u, b_u), path=bgm.route)
+    # the batched SMM off the aligned path (odd k and n: cp.async) and in
+    # bf16 in and out, each against its plain version and torch.bmm
+    for (bm, bn, bk), dt, tol in (((33, 31, 17), torch.float32, TOL_F32),
+                                  ((32, 32, 32), torch.bfloat16,
+                                   TOL_BF16_OUT)):
+        xd = xt.from_torch(dt)
+        sh = GemmShape(bm, bn, bk, a_in_type=xd, b_in_type=xd, out_type=xd)
+        nb = 4096
+        fn_ = K.build_batched_gemm(GemmDescriptor(sh, B0), nb)
+        xa, xb = randn(nb, bm, bk, dtype=dt), randn(nb, bk, bn, dtype=dt)
+        err = _check(f"batched {xd.value} {bm}x{bn}x{bk} kernel vs plain",
+                     fn_.plain(xa, xb), fn_(xa, xb), tol)
+        isz = xa.element_size()
+        bound = geo.bound_ms(nb * (bm * bk + bk * bn + bm * bn) * isz,
+                             2 * nb * bm * bn * bk, geo.peak_f32_tflops)
+        t_k = ms(fn_, xa, xb)
+        print(f"  batched_gemm {nb} x {bm}x{bn}x{bk} {xd.value} on the "
+              f"{fn_.route} route, plan {fn_.config}: {t_k:.4f} ms (bound "
+              f"{bound:.4f} ms, {t_k / bound:.2f}x; plain "
+              f"{ms(fn_.plain, xa, xb):.4f} ms; torch.bmm "
+              f"{ms(torch.bmm, xa, xb):.4f} ms); normf_rel {err:.2e}")
     desc_br = GemmDescriptor(shape_br, B0, cfg)
     # the library yardstick: one bf16 matmul with an f32 output over the
     # whole (m, br*k) x (br*k, n) contraction
@@ -2001,17 +2081,10 @@ def main() -> int:
            (ap_br, b_br), TOL_BF16_IN, br_bytes, br_flops,
            geo.peak_bf16_tflops, ms(mm_f32, a_lib, b_lib), path=brg.path)
     mma_rate(rows[-1], br_flops, br_flops)
-    # the FMA route at the same shape in f32 (its own route: no TF32)
-    desc_f32 = GemmDescriptor(GemmShape(M, N, KK), B0, cfg)
-    brg_f32 = K.build_packed_brgemm(desc_f32, br)
-    t_f32 = ms(brg_f32, ap_br.float(), b_br.float())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"  packed_brgemm splits {brg.splits(sms)} on the "
           f"{brg.path} route: {rows[-1]['ms']:.4f} ms bf16, "
-          f"{rows[-1]['ms'] / rows[-1]['bound_ms']:.2f}x its bound; the "
-          f"{brg_f32.path} route in f32 {t_f32:.4f} ms "
-          f"({br_flops / t_f32 / 1e9:.1f} TFLOP/s), splits "
-          f"{brg_f32.splits(sms)}")
+          f"{rows[-1]['ms'] / rows[-1]['bound_ms']:.2f}x its bound")
     # where a call's device time goes (the partial-tile kernel, the
     # reduce), beside the event-timed row, which holds the host's cost too
     row_br = rows[-1]
@@ -2038,6 +2111,52 @@ def main() -> int:
               f"{t_b / row_br['bound_ms']:.2f}x its bound), torch.mm "
               f"{t_l:.4f} ms, kernel / library {t_b / t_l:.3f}; t_sol / "
               f"t_brg {t_s / t_b:.4f}")
+    # the f32 packed BRGEMM, a row of its own, on the TMA-fed FMA route: f32
+    # operands read once and the f32 output written once, its products on
+    # the CUDA cores (no TF32). The yardstick is torch.mm in f32 with TF32
+    # off on the same contraction; kernel, twin and yardstick event-timed,
+    # by device time and replayed from a CUDA graph
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: f32 means f32")
+    desc_f32 = GemmDescriptor(shape_f32, B0, cfg)
+    brg_f32 = K.build_packed_brgemm(desc_f32, br)
+    sol_f32 = K.build_packed_brgemm_sol(desc_f32, br)
+    if (brg_f32.path, sol_f32.path) != ("tma_fma", "tma_fma"):
+        raise AssertionError(f"the f32 BRGEMM took {brg_f32.path}, its twin "
+                             f"{sol_f32.path}")
+    br32_args = (ap_br32, b_br32)
+    a_lib32, b_lib32 = a_lib.float(), b_lib.float()
+    row32 = record("packed_brgemm_f32", gemm_src,
+                   "libxsmm_tpu/kernels/gemm_pallas.py:163", brg_f32,
+                   br32_args, TOL_F32, 4 * br * KK * (M + N) + 4 * M * N,
+                   br_flops, geo.peak_f32_tflops,
+                   ms(torch.mm, a_lib32, b_lib32), path=brg_f32.path)
+    _check("packed_brgemm_sol f32 kernel vs plain", sol_f32.plain(*br32_args),
+           sol_f32(*br32_args), TOL_F32)
+    t32 = {}
+    for name_, call in (("brgemm", lambda: brg_f32(*br32_args)),
+                        ("sol", lambda: sol_f32(*br32_args)),
+                        ("torch.mm", lambda: torch.mm(a_lib32, b_lib32))):
+        split = device_split(call)
+        t32[name_] = (sum(split.values()), graph_ms(call))
+        print(f"  f32 {name_} device time by kernel: " + "; ".join(
+            f"{k_[:48]} {v_:.4f} ms" for k_, v_ in sorted(split.items()))
+            + f"; replayed from a CUDA graph {t32[name_][1]:.4f} ms a call")
+    row32.update(
+        tflops=br_flops / row32["ms"] / 1e9, device_ms=t32["brgemm"][0],
+        library_device_ms=t32["torch.mm"][0], graph_ms=t32["brgemm"][1],
+        library_graph_ms=t32["torch.mm"][1], sol_ms=ms(sol_f32, *br32_args),
+        sol_device_ms=t32["sol"][0], sol_graph_ms=t32["sol"][1])
+    for how, i_, t_e in (("events", None, row32["ms"]),
+                         ("device time", 0, None), ("graph replay", 1, None)):
+        t_b = t_e if i_ is None else t32["brgemm"][i_]
+        t_l = row32["library_ms"] if i_ is None else t32["torch.mm"][i_]
+        t_s = row32["sol_ms"] if i_ is None else t32["sol"][i_]
+        print(f"  packed_brgemm_f32 by {how}: {t_b:.4f} ms "
+              f"({br_flops / t_b / 1e9:.1f} TFLOP/s, "
+              f"{t_b / row32['bound_ms']:.2f}x its bound), torch.mm f32 "
+              f"{t_l:.4f} ms, kernel / library {t_b / t_l:.3f}; t_sol / "
+              f"t_brg {t_s / t_b:.4f}; splits {brg_f32.splits(sms)}")
     # the lab's variants replayed from CUDA graphs (the lab's own
     # event-timed windows hold the host's cost): blocks, kernel, twin
     from libxsmm_torch.scripts.brgemm_lab import VARIANTS
@@ -2207,8 +2326,8 @@ def main() -> int:
           f"{ms(lambda _q: call_(), bargs[1]):.4f} ms per call")
 
     # the launch configurations tune=True chooses among, at the headline
-    for cfg_ in K.batched_gemm_configs(m):
-        print(f"  batched_gemm (rows, threads)={cfg_}: "
+    for cfg_ in K.batched_gemm_configs(m, n, k):
+        print(f"  batched_gemm (rows, stages, blocks per SM)={cfg_}: "
               f"{ms(K.build_batched_gemm(desc, B, cfg_), a_u, b_u):.4f} ms")
     for rpt in K.packed_smm_configs(m):
         print(f"  packed_batched_gemm rows/thread={rpt}: "
@@ -2225,7 +2344,9 @@ def main() -> int:
             ("chunk4_ms", "chunk4"), ("device_ms", "device time"),
             ("library_device_ms", "library device time"),
             ("graph_ms", "replayed from a CUDA graph"),
-            ("library_graph_ms", "library replayed")) if key in r)
+            ("library_graph_ms", "library replayed"), ("sol_ms", "its twin"),
+            ("sol_device_ms", "twin device time"),
+            ("sol_graph_ms", "twin replayed")) if key in r)
         path = f" [{r['path']}]" if "path" in r else ""
         print(f"{r['name']}{path}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "

@@ -14,7 +14,8 @@
 // refused launch.
 //
 // Arithmetic: f32 operands multiply and add in f32 on the CUDA cores (no
-// TF32); bf16 operands are widened to f32 on load and accumulate in f32,
+// TF32, no bf16 split); bf16 operands are widened to f32 as they are read
+// and accumulate in f32,
 // except the BRGEMM's tensor-core route (section 3b), where the tensor cores
 // multiply bf16 exactly and accumulate in f32; int8 operands accumulate in
 // int32. Sums run in a fixed order, so a result does not change from run to
@@ -236,87 +237,343 @@ static cudaError_t packed_smm_rpt(int rpt, const void* a, const void* b,
 //    (libxsmm_tpu/kernels/gemm_pallas.py:67).
 //
 // a (B, m, k), b (B, k, n), c (B, m, n) f32 -> out (B, m, n); m <= 256,
-// n, k <= 128, f32/bf16 in and out.
+// n, k <= 128, f32/bf16 in and out. The TPU kernel moves gg problems (about
+// 0.75 MB) per grid step through VMEM.
 //
-// Bound: device memory for the small shapes it takes (32^3 f32 is 5.3
-// FLOP/byte). Design: one block per (problem, mt-row tile); the tile of A
-// (padded to an odd row stride, so rows that share a warp fall in distinct
-// banks) and all of B_i are staged in shared memory as f32; thread
-// (col, row group) keeps eight accumulators of column `col` in registers.
-// Rows past the tile are clamped, not branched on, and never stored.
+// Bound: device memory. At 16384 x 32^3 f32 the stream is 201 MB against
+// 1.07 GFLOP (5.3 FLOP/byte): 60 us at 3.35 TB/s. So the design keeps bytes
+// in flight and touches each byte once. A unit of work is one problem's
+// mt-row tile of A with the whole B_i (mt = m where it fits); up to four
+// blocks per SM walk the units u, u + gridDim.x, ... through a ring of
+// `stages` shared-memory stages. One producer warp fills the ring, paced by
+// full and empty mbarriers: where a problem's A and B runs are whole
+// 16-byte units (m*k and k*n bytes multiples of 16, bases aligned: route
+// BG_BULK) one thread issues two 1-D bulk copies per unit (two 4 KB copies
+// at 32^3 f32); otherwise (odd k or n: BG_CPASYNC) the warp copies each run
+// with 16-byte cp.async over its aligned interior, 4-byte cp.async at its
+// ends and a plain load for a 2-byte bf16 head or tail, and each lane's
+// copies arrive on the full barrier when they land. The route follows the
+// shape alone (kernels/gemm.py batched_plan mirrors bg_route and
+// bg_stage_bytes); no route falls back to the other. Four consumer warps
+// each keep an RM x 4 strip of f32 accumulators per thread (RM the least of
+// 1, 2, 4 that covers the tile in one pass, else 4 and more passes; 2 at
+// 32^3); small blocks, many per SM, keep several units in compute at once,
+// and the unit's indices step without a division. bf16 is widened as it is
+// read from shared memory; A is read as broadcasts (four k at a time where
+// k % 4 == 0) and B as four-column vectors; C0 is read and the output
+// stored as 16-byte (bf16: 8-byte) accesses where n % 4 == 0. The sum runs
+// in a fixed order, so a result does not change from run to run.
 // ---------------------------------------------------------------------------
 
-template <typename TIn, typename TOut>
-__global__ void batched_gemm_kernel(const TIn* __restrict__ a,
-                                    const TIn* __restrict__ b,
-                                    const float* __restrict__ c,
-                                    TOut* __restrict__ out,
-                                    int m, int n, int k, int mt) {
-  constexpr int R = 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ka = k + 1;
-  float* As = reinterpret_cast<float*>(smem_raw);   // mt x ka
-  float* Bs = As + mt * ka;                          // k x n
+constexpr int BG_CONSUMERS = 128;                  // four consumer warps
+constexpr int BG_THREADS = BG_CONSUMERS + 32;      // + the producer warp
+constexpr int BG_SMEM_MAX = 232448;   // a block's dynamic shared memory
+constexpr int BG_SMEM_SM = 233472;    // an SM's, 1 KB of it kept per block
+constexpr int BG_MAX_BLOCKS = 4;      // blocks per SM: the launch bounds'
+enum { BG_BULK = 0, BG_CPASYNC = 1 };
 
-  const long p = blockIdx.x;
-  const int row0 = blockIdx.y * mt;
-  const int rows = min(mt, m - row0);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const TIn* ap = a + (p * m + row0) * (long)k;
-  const TIn* bp = b + p * (long)k * n;
-  for (int i = tid; i < rows * k; i += nthr) As[(i / k) * ka + i % k] = load_cvt(ap[i]);
-  for (int i = tid; i < k * n; i += nthr) Bs[i] = load_cvt(bp[i]);
+static inline long bg_align16(long x) { return (x + 15) / 16 * 16; }
+
+// the route of a shape: 1-D bulk copies where every A and B run is whole
+// 16-byte units, cp.async otherwise
+static inline int bg_route(int m, int n, int k, int sz) {
+  return ((long)m * k * sz) % 16 == 0 && ((long)k * n * sz) % 16 == 0
+             ? BG_BULK : BG_CPASYNC;
+}
+
+// bytes of A's region of a stage (an mt-row tile), and of a whole stage;
+// the cp.async route keeps 16 spare bytes per run: it places each run at
+// its global address mod 16
+static inline long bg_a_region(int route, int mt, int k, int sz) {
+  return bg_align16((long)mt * k * sz) + (route == BG_CPASYNC ? 16 : 0);
+}
+static inline long bg_stage_bytes(int route, int mt, int n, int k, int sz) {
+  return bg_a_region(route, mt, k, sz) + bg_align16((long)k * n * sz) +
+         (route == BG_CPASYNC ? 16 : 0);
+}
+
+// the run [src, src + bytes) into dst + (src % 16), over the lanes of the
+// producer warp: its 16-byte aligned interior in 16-byte cp.async units,
+// the rest in 4-byte units, and a 2-byte head or tail (bf16 runs that start
+// or end off 4 bytes) by a plain load and store
+__device__ __forceinline__ void bg_copy_run(unsigned char* dst,
+                                            const unsigned char* src,
+                                            int bytes, int lane) {
+  const int off = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+  unsigned char* d = dst + off;
+  const int h4 = (4 - (off & 3)) & 3;             // 0 or 2
+  const int e4 = h4 + ((bytes - h4) & ~3);        // end of the 4-byte units
+  int h16 = (16 - off) & 15;                      // 16-byte interior
+  if (h16 > e4) h16 = e4;
+  const int e16 = h16 + ((e4 - h16) & ~15);
+  if (h4 && lane == 0)
+    *reinterpret_cast<uint16_t*>(d) =
+        __ldg(reinterpret_cast<const unsigned short*>(src));
+  if (e4 < bytes && lane == 31)
+    *reinterpret_cast<uint16_t*>(d + e4) =
+        __ldg(reinterpret_cast<const unsigned short*>(src + e4));
+  for (int i = h16 + 16 * lane; i < e16; i += 512) cp_async16_cg(d + i, src + i);
+  const int i4 = h4 + 4 * lane;                   // at most 3 + 3 units
+  if (i4 < h16) cp_async4(d + i4, src + i4);
+  if (e16 + 4 * lane < e4) cp_async4(d + e16 + 4 * lane, src + e16 + 4 * lane);
+}
+
+// four consecutive elements at p, widened to f32 (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ void bg_load4(const float* p, float* d) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+}
+__device__ __forceinline__ void bg_load4(const __nv_bfloat16* p, float* d) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  d[0] = __low2float(lo); d[1] = __high2float(lo);
+  d[2] = __low2float(hi); d[3] = __high2float(hi);
+}
+
+__device__ __forceinline__ void bg_store4(const float* v, float* p) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void bg_store4(const float* v, __nv_bfloat16* p) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 w;
+  w.x = *reinterpret_cast<uint32_t*>(&lo);
+  w.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = w;
+}
+
+// the units a block walks, u = blockIdx.x, + gridDim.x, ...: problem p and
+// tile t of u, stepped without a division per unit
+struct BgCursor {
+  long p;
+  int t, tiles, dp, dt;
+  __device__ BgCursor(int tiles_) : tiles(tiles_) {
+    p = blockIdx.x / tiles;
+    t = blockIdx.x - (int)p * tiles;
+    dp = gridDim.x / tiles;
+    dt = gridDim.x - dp * tiles;
+  }
+  __device__ void next() {
+    p += dp;
+    t += dt;
+    if (t >= tiles) { t -= tiles; ++p; }
+  }
+};
+
+// VEC: the bulk route with k % 4 == 0 and n % 4 == 0 (vector reads of A and
+// B, vector C0 and output); otherwise element reads with clamped indices
+template <typename TIn, typename TOut, int RM, bool VEC>
+__global__ void __launch_bounds__(BG_THREADS, BG_MAX_BLOCKS)
+batched_gemm_ring_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
+                         const float* __restrict__ c, TOut* __restrict__ out,
+                         int B, int m, int n, int k, int mt, int stages,
+                         int route, int stage_bytes, int a_region) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (long)stages * stage_bytes);
+  uint64_t* empty = full + stages;
+  const int tiles = (m + mt - 1) / mt;
+  const int tid = threadIdx.x;
+  constexpr int SZ = sizeof(TIn);
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      // bulk: the producer's one arrival; cp.async: each lane's copies and
+      // each lane's own arrival after its plain stores
+      mbar_init(&full[s], route == BG_BULK ? 1 : 64);
+      mbar_init(&empty[s], BG_CONSUMERS / 32);   // one per consumer warp
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  const int groups = nthr / n;   // n <= 128 <= blockDim.x
-  const int col = tid % n, rg = tid / n;
-  if (rg >= groups) return;
-  for (int rb = rg; rb < rows; rb += R * groups) {
-    float acc[R];
-    int rr[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      acc[j] = 0.f;
-      rr[j] = min(rb + j * groups, rows - 1) * ka;
+  BgCursor cur(tiles);
+  int s = 0;
+  uint32_t phase = 0;   // parity of the ring's current pass
+  if (tid >= BG_CONSUMERS) {   // the producer warp
+    const int lane = tid - BG_CONSUMERS;
+    if (route == BG_BULK && lane != 0) return;   // one thread issues
+    for (int it = 0; cur.p < B; cur.next(), ++it) {
+      if (it >= stages) mbar_wait(&empty[s], phase ^ 1);
+      const int row0 = cur.t * mt;
+      const int rows = min(mt, m - row0);
+      const unsigned char* ga = reinterpret_cast<const unsigned char*>(
+          a + (cur.p * m + row0) * (long)k);
+      const unsigned char* gb =
+          reinterpret_cast<const unsigned char*>(b + cur.p * k * (long)n);
+      unsigned char* st = smem + (long)s * stage_bytes;
+      const int abytes = rows * k * SZ, bbytes = k * n * SZ;
+      if (route == BG_BULK) {
+        mbar_arrive_expect_tx(&full[s], abytes + bbytes);
+        bulk_load_1d(st, ga, abytes, &full[s]);
+        bulk_load_1d(st + a_region, gb, bbytes, &full[s]);
+      } else {
+        bg_copy_run(st, ga, abytes, lane);
+        bg_copy_run(st + a_region, gb, bbytes, lane);
+        cp_async_mbar_arrive(&full[s]);
+        mbar_arrive(&full[s]);   // releases this lane's plain stores
+      }
+      if (++s == stages) { s = 0; phase ^= 1; }
     }
-    for (int l = 0; l < k; ++l) {
-      const float bv = Bs[l * n + col];
+    if (route == BG_CPASYNC) cp_async_wait_all();
+    return;
+  }
+
+  const int lane = tid & 31;
+  const int nq = (n + 3) / 4;   // four-column quads of the output
+  const int rs0 = tid / nq, cq0 = tid - rs0 * nq;   // this thread's first item
+  for (; cur.p < B; cur.next()) {
+    mbar_wait(&full[s], phase);
+    const int row0 = cur.t * mt;
+    const int rows = min(mt, m - row0);
+    const TIn* ag = a + (cur.p * m + row0) * (long)k;
+    const TIn* bg = b + cur.p * k * (long)n;
+    const unsigned char* st = smem + (long)s * stage_bytes;
+    // the producer's placement: each run at its global address mod 16
+    const TIn* As = reinterpret_cast<const TIn*>(
+        st + (reinterpret_cast<uintptr_t>(ag) & 15));
+    const TIn* Bs = reinterpret_cast<const TIn*>(
+        st + a_region + (reinterpret_cast<uintptr_t>(bg) & 15));
+    const long obase = (cur.p * m + row0) * (long)n;
+    const int items = (rows + RM - 1) / RM * nq;
+    int rs = rs0, cq = cq0;
+    for (int w = tid; w < items; w += BG_CONSUMERS) {
+      if (w != tid) { rs = w / nq; cq = w - rs * nq; }
+      const int r0 = rs * RM, c0 = cq * 4;
+      float acc[RM][4];
+      int ar[RM];   // A's row offsets; rows past the tile clamped, not stored
 #pragma unroll
-      for (int j = 0; j < R; ++j) acc[j] += As[rr[j] + l] * bv;
-    }
+      for (int i = 0; i < RM; ++i) {
+        ar[i] = min(r0 + i, rows - 1) * k;
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int row = rb + j * groups;
-      if (row < rows) {
-        const long o = (p * m + row0 + row) * (long)n + col;
-        float v = acc[j];
-        if (c != nullptr) v += c[o];
-        store_cvt(v, out + o);
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      }
+      if constexpr (VEC) {
+        const TIn* bp = Bs + c0;
+#pragma unroll 2
+        for (int l = 0; l < k; l += 4, bp += 4 * n) {
+          float bv[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bg_load4(bp + j * n, bv[j]);
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            float av[4];
+            bg_load4(As + ar[i] + l, av);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[i][q] += av[j] * bv[j][q];
+          }
+        }
+      } else {
+        int cc[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cc[q] = min(c0 + q, n - 1);
+        for (int l = 0; l < k; ++l) {
+          float bv[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) bv[q] = load_cvt(Bs[l * n + cc[q]]);
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            const float av = load_cvt(As[ar[i] + l]);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][q] += av * bv[q];
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        if (r0 + i >= rows) break;
+        const long o = obase + (long)(r0 + i) * n + c0;
+        if constexpr (VEC) {
+          if (c != nullptr) {
+            float cv[4];
+            bg_load4(c + o, cv);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][q] += cv[q];
+          }
+          bg_store4(acc[i], out + o);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (c0 + q < n) {
+              float v = acc[i][q];
+              if (c != nullptr) v += c[o + q];
+              store_cvt(v, out + o + q);
+            }
+          }
+        }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (++s == stages) { s = 0; phase ^= 1; }
   }
 }
 
+template <typename TIn, typename TOut, int RM>
+static cudaError_t launch_batched_rm(bool vec, const void* a, const void* b,
+                                     const void* c, void* out, int B, int m,
+                                     int n, int k, int mt, int stages,
+                                     int route, int grid, long stage_bytes,
+                                     long a_region, size_t smem,
+                                     cudaStream_t s) {
+  auto kern = vec ? batched_gemm_ring_kernel<TIn, TOut, RM, true>
+                  : batched_gemm_ring_kernel<TIn, TOut, RM, false>;
+  const cudaError_t e = ensure_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, BG_THREADS, smem, s>>>(
+      static_cast<const TIn*>(a), static_cast<const TIn*>(b),
+      static_cast<const float*>(c), static_cast<TOut*>(out), B, m, n, k, mt,
+      stages, route, (int)stage_bytes, (int)a_region);
+  return cudaGetLastError();
+}
+
+// the wrapper's plan (route, mt, stages, grid); a route other than the
+// shape's, a stage that does not fit or an operand off the alignment its
+// route reads returns cudaErrorInvalidValue
 template <typename TIn, typename TOut>
 static cudaError_t launch_batched_gemm(const void* a, const void* b,
                                        const void* c, void* out, int B,
-                                       int m, int n, int k, int mt,
-                                       int threads, cudaStream_t s) {
-  const size_t smem = ((size_t)mt * (k + 1) + (size_t)k * n) * sizeof(float);
-  auto kern = batched_gemm_kernel<TIn, TOut>;
-  const cudaError_t e = ensure_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(B, (m + mt - 1) / mt);
-  kern<<<grid, threads, smem, s>>>(static_cast<const TIn*>(a),
-                                   static_cast<const TIn*>(b),
-                                   static_cast<const float*>(c),
-                                   static_cast<TOut*>(out), m, n, k, mt);
-  return cudaGetLastError();
+                                       int m, int n, int k, int route,
+                                       int mt, int stages, int grid,
+                                       cudaStream_t s) {
+  constexpr int SZ = sizeof(TIn);
+  const uintptr_t ab = reinterpret_cast<uintptr_t>(a) |
+                       reinterpret_cast<uintptr_t>(b);
+  if (route != bg_route(m, n, k, SZ) || mt <= 0 || mt > m || stages < 2 ||
+      grid <= 0 || (route == BG_BULK && (ab % 16 || ((long)mt * k * SZ) % 16)) ||
+      ab % SZ)
+    return cudaErrorInvalidValue;
+  const bool vec = route == BG_BULK && k % 4 == 0 && n % 4 == 0;
+  if (vec && reinterpret_cast<uintptr_t>(c) % 16) return cudaErrorInvalidValue;
+  const long stage_bytes = bg_stage_bytes(route, mt, n, k, SZ);
+  const size_t smem = (size_t)stages * (stage_bytes + 16);   // + barriers
+  if (smem > (size_t)BG_SMEM_MAX) return cudaErrorInvalidValue;
+  const long a_region = bg_a_region(route, mt, k, SZ);
+  const int nq = (n + 3) / 4;
+  int rm = 1;
+  while (rm < 4 && (mt + rm - 1) / rm * nq > BG_CONSUMERS) rm *= 2;
+  switch (rm) {
+#define BG_RM(R)                                                              \
+  case R:                                                                     \
+    return launch_batched_rm<TIn, TOut, R>(vec, a, b, c, out, B, m, n, k, mt, \
+                                           stages, route, grid, stage_bytes,  \
+                                           a_region, smem, s);
+    BG_RM(1) BG_RM(2) BG_RM(4)
+#undef BG_RM
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // 3. Lane-packed BRGEMM. Replaces build_packed_brgemm
-//    (libxsmm_tpu/kernels/gemm_pallas.py:163).
+//    (libxsmm_tpu/kernels/gemm_pallas.py:163). Three routes
+//    (kernels/gemm.py brgemm_path), none falling back to another: bf16
+//    with n % 8 == 0 on the tensor cores (3b), f32 with n % 4 == 0 on
+//    TMA-fed FMA tiles (3c), and the rest (f32 with n % 4 != 0, bf16 with
+//    n % 8 != 0: B's rows are not whole 16-byte units, TMA's global stride)
+//    on the FMA kernel below.
 //
 // C = epi(sum_i A_i B_i + C0 + D) -> (m, n), with a (G, m, Q*k) packed and
 // b (G*Q, k, n). Contraction index K = g*Q*k + j runs over a[g, :, j] and
@@ -451,8 +708,8 @@ static cudaError_t launch_brgemm_reduce(const void* ws, const void* c0,
 
 // ---------------------------------------------------------------------------
 // 3b. Lane-packed BRGEMM on the bf16 tensor cores, for bf16 operands with
-//     n % 8 == 0 (kernels/gemm.py brgemm_path; f32, and bf16 with another
-//     n, run the FMA kernel above). Replaces build_packed_brgemm
+//     n % 8 == 0 (kernels/gemm.py brgemm_path "wgmma"; f32 runs 3c or the
+//     FMA kernel above, bf16 with another n the latter). Replaces build_packed_brgemm
 //     (libxsmm_tpu/kernels/gemm_pallas.py:163) on that route; SOL = true is
 //     its streaming twin (gemm_pallas.py:334).
 //
@@ -642,6 +899,208 @@ brgemm_partial_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 3c. Lane-packed BRGEMM in f32 on TMA-fed tiles, for f32 operands with n %
+//     4 == 0 (kernels/gemm.py brgemm_path "tma_fma"; other n keep the FMA
+//     kernel of section 3). Replaces the f32 instantiation of
+//     build_packed_brgemm (libxsmm_tpu/kernels/gemm_pallas.py:163); SOL =
+//     true is its streaming twin (gemm_pallas.py:334).
+//
+// Bound: at br=1024, m=n=256, k=64 f32 it reads 134 MB (40 us at 3.35
+// TB/s) for 8.6 GFLOP: 128 us on the CUDA cores' 67 TFLOP/s, so the
+// operations bound it. f32 means f32: no TF32 and no bf16 split, so the
+// products run on the FMAs, and the kernel has to keep them fed. It takes
+// section 3b's pipeline, not its math: one block per (128 x 128 output
+// tile, K split), tiles x splits at or under the SM count; one producer
+// warp keeps a ring of TF_STAGES 32-deep slices in flight with TMA (A's 128
+// x 32 slice from the 3-D map over (Q*k, m, G), B's 32 x 128 slice as four
+// 32 x 32 boxes of the 2-D map over (n, K), f32, 128-byte swizzle, zero
+// fill out of bounds); full and empty mbarriers pace the ring. 256 consumer
+// threads each keep an 8 x 8 block of f32 accumulators: rows ty + 16 i and
+// columns 4 tx + 64 h + (0..3), so that the rows a warp reads fall in
+// distinct swizzle phases and its columns in one box. Per four k a thread
+// reads one 16-byte A chunk per row (k 4c..4c+3, chunk c at c ^ (r % 8))
+// and two 16-byte B chunks per k, 16 shared loads for 256 FMAs. Partials
+// go to the f32 workspace and brgemm_reduce_kernel adds them in z order.
+//
+// The twin keeps grid, split, maps, ring and barriers; its consumers read
+// each slice through the swizzle (four 16-byte loads of A and four of B a
+// thread) into running row sums of A and column sums of B, then write
+// rowsum + colsum of their K range to the workspace.
+// ---------------------------------------------------------------------------
+
+constexpr int TF_BM = 128, TF_BN = 128, TF_BK = 32, TF_STAGES = 4;
+constexpr int TF_A_BYTES = TF_BM * TF_BK * 4;              // 16 KB
+constexpr int TF_B_BOX = TF_BK * 32 * 4;                    // 4 KB, 32 columns
+constexpr int TF_STAGE_BYTES = TF_A_BYTES + 4 * TF_B_BOX;   // 32 KB
+constexpr int TF_CONSUMERS = 256;
+constexpr int TF_THREADS = TF_CONSUMERS + 32;               // + the producer
+// the twin's scratch: 8 partial column sums per column, row and column sums
+constexpr int TF_SOL_FLOATS = 8 * TF_BN + TF_BM + TF_BN;
+
+constexpr size_t tf_smem_bytes(bool sol) {
+  return 1024 + (size_t)TF_STAGES * TF_STAGE_BYTES + 2 * TF_STAGES * 8 +
+         (sol ? TF_SOL_FLOATS * sizeof(float) : 0);
+}
+
+__device__ __forceinline__ float4 lds128(const unsigned char* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <bool SOL>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+brgemm_partial_tma_fma_kernel(const __grid_constant__ CUtensorMap amap,
+                              const __grid_constant__ CUtensorMap bmap,
+                              float* __restrict__ ws, int m, int n, int qk,
+                              long K, long kchunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzle is a function of the shared address: 1024-byte aligned ring
+  unsigned char* smem = smem_raw + ((1024 - (wg_smem(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TF_STAGES * TF_STAGE_BYTES);
+  uint64_t* empty = full + TF_STAGES;
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * TF_BN, m0 = blockIdx.y * TF_BM;
+  const long kb0 = (long)blockIdx.z * kchunk;
+  const long kb1 = kb0 + kchunk < K ? kb0 + kchunk : K;
+  const int slices = (int)((kb1 - kb0) / TF_BK);   // whole 32-deep slices
+
+  if (tid == 0) {
+    for (int s = 0; s < TF_STAGES; ++s) {
+      mbar_init(&full[s], 1);                       // the producer's arrival
+      mbar_init(&empty[s], TF_CONSUMERS / 32);      // one per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= TF_CONSUMERS) {   // the producer warp: one thread starts TMA
+    if (tid == TF_CONSUMERS) {
+      for (int it = 0; it < slices; ++it) {
+        const int s = it % TF_STAGES;
+        if (it >= TF_STAGES) mbar_wait(&empty[s], ((it / TF_STAGES) - 1) & 1);
+        const long kb = kb0 + (long)it * TF_BK;
+        const int g = (int)(kb / qk);
+        const int kk = (int)(kb - (long)g * qk);
+        unsigned char* st = smem + s * TF_STAGE_BYTES;
+        mbar_arrive_expect_tx(&full[s], TF_STAGE_BYTES);
+        tma_load_3d(st, &amap, &full[s], kk, m0, g);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tma_load_2d(st + TF_A_BYTES + j * TF_B_BOX, &bmap, &full[s],
+                      n0 + 32 * j, (int)kb);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid & 31, warp = tid >> 5;
+  float* wz = ws + (long)blockIdx.z * m * n;
+
+  if constexpr (!SOL) {
+    // warp w: rows ty in 4 (w / 2) .. + 3, columns tx in 8 (w % 2) .. + 7
+    const int ty = (warp >> 1) * 4 + (lane >> 3);
+    const int tx = (warp & 1) * 8 + (lane & 7);
+    const int sw = ty & 7;        // the swizzle phase of every row ty + 16 i
+    const int bx = tx & 7;        // B's chunk inside its 32-column box
+    const int bbox = (tx >> 3) * TF_B_BOX;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    for (int it = 0; it < slices; ++it) {
+      const int s = it % TF_STAGES;
+      mbar_wait(&full[s], (it / TF_STAGES) & 1);
+      const unsigned char* As = smem + s * TF_STAGE_BYTES + ty * 128;
+      const unsigned char* Bs = smem + s * TF_STAGE_BYTES + TF_A_BYTES + bbox;
+#pragma unroll
+      for (int c = 0; c < TF_BK / 4; ++c) {
+        float4 av[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          av[i] = lds128(As + i * 16 * 128 + 16 * (c ^ sw));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kr = 4 * c + j;
+          const unsigned char* br = Bs + kr * 128 + 16 * (bx ^ (kr & 7));
+          const float4 b0 = lds128(br), b1 = lds128(br + 2 * TF_B_BOX);
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float a_ = j == 0 ? av[i].x : j == 1 ? av[i].y
+                             : j == 2 ? av[i].z : av[i].w;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(a_, bv[q], acc[i][q]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // the partial tile: n % 4 == 0, so a four-column chunk is whole or out
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = m0 + ty + 16 * i;
+      if (row >= m) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + 64 * h + 4 * tx;
+        if (col < n)
+          *reinterpret_cast<float4*>(wz + (long)row * n + col) = make_float4(
+              acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+              acc[i][4 * h + 3]);
+      }
+    }
+  } else {
+    // A: thread t sums half (16 k) of row t / 2, chunks 4 (t % 2) .. + 3;
+    // B: thread t sums the four columns of chunk t % 32 (box t % 32 / 8)
+    // over k rows 4 (t / 32) .. + 3
+    const int ar = tid >> 1, ah = tid & 1;
+    const int bc = tid & 31, bk = tid >> 5;
+    float sa = 0.f, sb[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int it = 0; it < slices; ++it) {
+      const int s = it % TF_STAGES;
+      mbar_wait(&full[s], (it / TF_STAGES) & 1);
+      const unsigned char* st = smem + s * TF_STAGE_BYTES;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 v = lds128(st + ar * 128 + 16 * ((ah * 4 + c) ^ (ar & 7)));
+        sa += v.x + v.y + v.z + v.w;
+      }
+      const unsigned char* sbx = st + TF_A_BYTES + (bc >> 3) * TF_B_BOX;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kr = bk * 4 + r;
+        const float4 v = lds128(sbx + kr * 128 + 16 * ((bc & 7) ^ (kr & 7)));
+        sb[0] += v.x; sb[1] += v.y; sb[2] += v.z; sb[3] += v.w;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    float* part = reinterpret_cast<float*>(empty + TF_STAGES);   // 8 x 128
+    float* rows = part + 8 * TF_BN;
+    float* cols = rows + TF_BM;
+    sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+    if (ah == 0) rows[ar] = sa;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[bk * TF_BN + bc * 4 + e] = sb[e];
+    consumers_sync();
+    if (tid < TF_BN) {
+      float c = 0.f;
+      for (int g = 0; g < 8; ++g) c += part[g * TF_BN + tid];   // fixed order
+      cols[tid] = c;
+    }
+    consumers_sync();
+    for (int i = tid; i < TF_BM * TF_BN; i += TF_CONSUMERS) {
+      const int r = i / TF_BN, c = i % TF_BN;
+      if (m0 + r < m && n0 + c < n)
+        wz[(long)(m0 + r) * n + n0 + c] = rows[r] + cols[c];
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
 // (cudaGetDriverEntryPoint), so that the library needs no link to libcuda
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -669,16 +1128,15 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor map with 128-byte swizzle and zero fill out of bounds
-static bool encode_bf16(CUtensorMap* map, const void* base, int rank,
-                        const cuuint64_t* dims, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
+// a bf16 or f32 tensor map with 128-byte swizzle and zero fill out of bounds
+static bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* base, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-             const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return enc(map, type, rank, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -704,8 +1162,10 @@ static cudaError_t launch_packed_brgemm_wgmma(const void* a, const void* b,
   const cuuint64_t bdims[2] = {(cuuint64_t)n, (cuuint64_t)K};
   const cuuint64_t bstrides[1] = {(cuuint64_t)n * 2};
   const cuuint32_t bbox[2] = {64, TC_BK};
-  if (!encode_bf16(&amap, a, 3, adims, astrides, abox) ||
-      !encode_bf16(&bmap, b, 2, bdims, bstrides, bbox))
+  if (!encode_map(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, 3, adims,
+                  astrides, abox) ||
+      !encode_map(&bmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, 2, bdims,
+                  bstrides, bbox))
     return cudaErrorInvalidValue;
   const size_t smem = tc_smem_bytes(SOL);
   auto kern = brgemm_partial_wgmma_kernel<SOL>;
@@ -718,6 +1178,40 @@ static cudaError_t launch_packed_brgemm_wgmma(const void* a, const void* b,
   if (e != cudaSuccess) return e;
   return launch_brgemm_reduce<TOut>(ws, c0, d, out, (long)m * n, splits, epi,
                                     s);
+}
+
+// a (G, m, qk) f32 packed, b (G*qk, n) f32, both 16-byte aligned; n % 4 ==
+// 0, qk and kchunk multiples of 32. A refused map or launch returns its
+// error; the wrapper raises.
+template <bool SOL = false>
+static cudaError_t launch_packed_brgemm_tma_fma(const void* a, const void* b,
+                                                void* ws, int G, int m, int n,
+                                                int qk, long kchunk,
+                                                int splits, cudaStream_t s) {
+  if (n % 4 || qk % TF_BK || kchunk % TF_BK || kchunk <= 0 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
+    return cudaErrorInvalidValue;
+  const long K = (long)G * qk;
+  CUtensorMap amap, bmap;
+  const cuuint64_t adims[3] = {(cuuint64_t)qk, (cuuint64_t)m, (cuuint64_t)G};
+  const cuuint64_t astrides[2] = {(cuuint64_t)qk * 4, (cuuint64_t)m * qk * 4};
+  const cuuint32_t abox[3] = {TF_BK, TF_BM, 1};
+  const cuuint64_t bdims[2] = {(cuuint64_t)n, (cuuint64_t)K};
+  const cuuint64_t bstrides[1] = {(cuuint64_t)n * 4};
+  const cuuint32_t bbox[2] = {32, TF_BK};
+  if (!encode_map(&amap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a, 3, adims,
+                  astrides, abox) ||
+      !encode_map(&bmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, b, 2, bdims,
+                  bstrides, bbox))
+    return cudaErrorInvalidValue;
+  const size_t smem = tf_smem_bytes(SOL);
+  auto kern = brgemm_partial_tma_fma_kernel<SOL>;
+  const cudaError_t e = ensure_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + TF_BN - 1) / TF_BN, (m + TF_BM - 1) / TF_BM, splits);
+  kern<<<grid, TF_THREADS, smem, s>>>(amap, bmap, static_cast<float*>(ws), m,
+                                      n, qk, K, kchunk);
+  return cudaGetLastError();
 }
 
 template <typename TIn, typename TOut, bool SOL = false>
@@ -811,18 +1305,20 @@ int xsmm_packed_smm(const void* a, const void* b, const void* c, void* out,
   return cudaErrorInvalidValue;
 }
 
+// route (0 bulk, 1 cp.async), mt rows per stage, stages and grid from the
+// wrapper's plan (kernels/gemm.py batched_plan)
 int xsmm_batched_gemm(const void* a, const void* b, const void* c, void* out,
                       int B, int m, int n, int k, int in_t, int out_t,
-                      int mt, int threads, void* stream) {
+                      int route, int mt, int stages, int grid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_t == T_F32 && out_t == T_F32)
-    return launch_batched_gemm<float, float>(a, b, c, out, B, m, n, k, mt, threads, s);
+    return launch_batched_gemm<float, float>(a, b, c, out, B, m, n, k, route, mt, stages, grid, s);
   if (in_t == T_F32 && out_t == T_BF16)
-    return launch_batched_gemm<float, __nv_bfloat16>(a, b, c, out, B, m, n, k, mt, threads, s);
+    return launch_batched_gemm<float, __nv_bfloat16>(a, b, c, out, B, m, n, k, route, mt, stages, grid, s);
   if (in_t == T_BF16 && out_t == T_F32)
-    return launch_batched_gemm<__nv_bfloat16, float>(a, b, c, out, B, m, n, k, mt, threads, s);
+    return launch_batched_gemm<__nv_bfloat16, float>(a, b, c, out, B, m, n, k, route, mt, stages, grid, s);
   if (in_t == T_BF16 && out_t == T_BF16)
-    return launch_batched_gemm<__nv_bfloat16, __nv_bfloat16>(a, b, c, out, B, m, n, k, mt, threads, s);
+    return launch_batched_gemm<__nv_bfloat16, __nv_bfloat16>(a, b, c, out, B, m, n, k, route, mt, stages, grid, s);
   return cudaErrorInvalidValue;
 }
 
@@ -879,6 +1375,42 @@ int xsmm_packed_brgemm_sol_wgmma(const void* a, const void* b, void* ws,
   return launch_packed_brgemm_wgmma<float, true>(
       a, b, ws, nullptr, nullptr, out, G, m, n, qk, kchunk, splits, EPI_NONE,
       static_cast<cudaStream_t>(stream));
+}
+
+// the f32 route on TMA-fed FMA tiles (kernels/gemm.py brgemm_path
+// "tma_fma"): arguments as xsmm_packed_brgemm's, f32 a and b only, n % 4 ==
+// 0; out f32 or bf16
+int xsmm_packed_brgemm_tma_fma(const void* a, const void* b, void* ws,
+                               const void* c0, const void* d, void* out,
+                               int G, int m, int n, int qk,
+                               long long kchunk, int splits, int in_t,
+                               int out_t, int epi, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_t != T_F32 || (out_t != T_F32 && out_t != T_BF16))
+    return cudaErrorInvalidValue;
+  const cudaError_t e =
+      launch_packed_brgemm_tma_fma(a, b, ws, G, m, n, qk, kchunk, splits, s);
+  if (e != cudaSuccess) return e;
+  const long mn = (long)m * n;
+  return out_t == T_F32
+             ? launch_brgemm_reduce<float>(ws, c0, d, out, mn, splits, epi, s)
+             : launch_brgemm_reduce<__nv_bfloat16>(ws, c0, d, out, mn, splits,
+                                                   epi, s);
+}
+
+// the twin on that route: arguments as xsmm_packed_brgemm_sol's, f32 a and
+// b only, n % 4 == 0; f32 out
+int xsmm_packed_brgemm_sol_tma_fma(const void* a, const void* b, void* ws,
+                                   void* out, int G, int m, int n, int qk,
+                                   long long kchunk, int splits, int in_t,
+                                   void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_t != T_F32) return cudaErrorInvalidValue;
+  const cudaError_t e = launch_packed_brgemm_tma_fma<true>(
+      a, b, ws, G, m, n, qk, kchunk, splits, s);
+  if (e != cudaSuccess) return e;
+  return launch_brgemm_reduce<float>(ws, nullptr, nullptr, out, (long)m * n,
+                                     splits, EPI_NONE, s);
 }
 
 // a, b, out (G, m, 128) f32, 16-byte aligned; rpt as xsmm_packed_smm's

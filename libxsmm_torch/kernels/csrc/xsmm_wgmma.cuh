@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the warp-specialised tensor-core
-// kernels: mbarrier init/arrive/expect_tx/try_wait, the 2-D and 3-D
-// cp.async.bulk.tensor (TMA) loads that complete on an mbarrier, the wgmma
+// Hopper (sm_90a) building blocks of the warp-specialised kernels: mbarrier
+// init/arrive/expect_tx/try_wait, the 2-D and 3-D cp.async.bulk.tensor
+// (TMA) loads and the 1-D bulk copy that complete on an mbarrier, 4- and
+// 16-byte cp.async whose completion arrives on an mbarrier, the wgmma
 // fence/commit/wait, the shared-memory matrix descriptor of a 128-byte
 // swizzled tile and wgmma.m64n128k16 with bf16 operands and f32
 // accumulators. kernels/_build.py hashes this header into the name of every
@@ -106,6 +107,47 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(wg_smem(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// a 1-D bulk copy of `bytes` contiguous bytes, global -> shared, completing
+// on the barrier; dst, src and bytes are multiples of 16
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(wg_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(wg_smem(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 4- and 16-byte cp.async paced by an mbarrier (for runs that are not whole
+// 16-byte units): the copies of this thread so far arrive on the barrier
+// once they have landed (one of the barrier's expected arrivals: .noinc)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   wg_smem(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_cg(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   wg_smem(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   wg_smem(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -5,14 +5,16 @@ The port of `libxsmm_tpu/kernels/gemm_pallas.py`. The same three kernels,
 the same support predicates and the same fused epilogues:
 
 * build_batched_gemm — (B,m,k)x(B,k,n) [+C] -> (B,m,n), f32/bf16, m <= 256,
-  n,k <= 128, no transposes; other descriptors take the torch route in
-  ops.gemm (the reference routes them to XLA).
+  n,k <= 128, no transposes, problems streamed through a ring of shared
+  memory by bulk copies or cp.async (batched_plan); other descriptors take
+  the torch route in ops.gemm (the reference routes them to XLA).
 * build_packed_batched_gemm — the lane-packed batched SMM (the headline):
   P = 128//n problems side by side along the last axis (ops.gemm.
   pack_batched); f32/bf16/int8.
 * build_packed_brgemm — the lane-packed batch-reduce GEMM with the fused
   cp epilogue and the ADD bias operand; bf16 with n % 8 == 0 runs a wgmma
-  kernel on TMA-fed tiles, the rest an FMA kernel (brgemm_path).
+  kernel on TMA-fed tiles, f32 with n % 4 == 0 an FMA kernel on TMA-fed
+  tiles, the rest an FMA kernel with its own loads (brgemm_path).
 
 Beside them, the two streaming twins the JAX package times its kernels
 against: build_packed_brgemm_sol (gemm_pallas.py:334), the BRGEMM's grid and
@@ -43,10 +45,12 @@ from ..dtypes import Datatype, to_torch
 # add one where they launch their CUDA kernel, and nowhere else
 launches = {"batched_gemm": 0, "packed_batched_gemm": 0, "packed_brgemm": 0,
             "packed_brgemm_sol": 0, "packed_smm_passthrough": 0}
-# the same launches of the BRGEMM and its twin, split by the CUDA kernel that
-# served them (brgemm_path)
-path_launches = {name: {"wgmma": 0, "fma": 0}
+# the same launches split by the CUDA route that served them: the BRGEMM's
+# and its twin's kernel (brgemm_path), the batched SMM's copy route
+# (batched_route)
+path_launches = {name: {"wgmma": 0, "tma_fma": 0, "fma": 0}
                  for name in ("packed_brgemm", "packed_brgemm_sol")}
+path_launches["batched_gemm"] = {"bulk": 0, "cp_async": 0}
 
 
 def reset_launches() -> None:
@@ -73,8 +77,7 @@ def _kernels() -> ctypes.CDLL:
         lib = _build.load("gemm_kernels")
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.xsmm_packed_smm.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
-        lib.xsmm_batched_gemm.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
-                                          I, P]
+        lib.xsmm_batched_gemm.argtypes = [P, P, P, P] + [I] * 10 + [P]
         lib.xsmm_packed_brgemm.argtypes = [P, P, P, P, P, P, I, I, I, I, LL,
                                            I, I, I, I, P]
         lib.xsmm_packed_brgemm_sol.argtypes = [P, P, P, P, I, I, I, I, LL, I,
@@ -83,11 +86,17 @@ def _kernels() -> ctypes.CDLL:
             lib.xsmm_packed_brgemm.argtypes
         lib.xsmm_packed_brgemm_sol_wgmma.argtypes = \
             lib.xsmm_packed_brgemm_sol.argtypes
+        lib.xsmm_packed_brgemm_tma_fma.argtypes = \
+            lib.xsmm_packed_brgemm.argtypes
+        lib.xsmm_packed_brgemm_sol_tma_fma.argtypes = \
+            lib.xsmm_packed_brgemm_sol.argtypes
         lib.xsmm_packed_smm_passthrough.argtypes = [P, P, P, I, I, I, P]
         for f in (lib.xsmm_packed_smm, lib.xsmm_batched_gemm,
                   lib.xsmm_packed_brgemm, lib.xsmm_packed_brgemm_sol,
                   lib.xsmm_packed_brgemm_wgmma,
                   lib.xsmm_packed_brgemm_sol_wgmma,
+                  lib.xsmm_packed_brgemm_tma_fma,
+                  lib.xsmm_packed_brgemm_sol_tma_fma,
                   lib.xsmm_packed_smm_passthrough):
             f.restype = I
         lib.xsmm_error_string.argtypes = [I]
@@ -261,14 +270,77 @@ _EPILOGUES = {
 # 1. unpacked batched SMM
 # ---------------------------------------------------------------------------
 
-def batched_gemm_configs(m: int):
-    """Launch configurations (rows per block, threads per block) that
-    tune=True chooses among; the first is the default. A thread keeps eight
-    rows of one column, so 32 rows x 32 columns fill 128 threads exactly;
-    256 threads on that tile would leave half of each thread's rows
-    clamped (computed, never stored)."""
-    cands = [(min(32, m), 128), (min(64, m), 256), (min(128, m), 256)]
+_BG_CONSUMERS = 128      # consumer threads of a block (csrc BG_CONSUMERS)
+_BG_SMEM_MAX = 232448    # a block's dynamic shared memory (csrc BG_SMEM_MAX)
+_BG_SMEM_SM = 233472     # an SM's, 1 KB kept per block (csrc BG_SMEM_SM)
+_BG_MAX_BLOCKS = 4       # blocks per SM, the launch bounds' (csrc BG_MAX_BLOCKS)
+_BG_ROUTES = {"bulk": 0, "cp_async": 1}   # csrc BG_BULK, BG_CPASYNC
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def batched_route(m: int, n: int, k: int, in_dtype: torch.dtype) -> str:
+    """The batched SMM's copy route, as csrc bg_route takes it: "bulk"
+    (1-D bulk copies) where every problem's A and B runs are whole 16-byte
+    units, "cp_async" (16- and 4-byte cp.async) otherwise. It follows the
+    shape
+    alone; neither falls back to the other."""
+    sz = in_dtype.itemsize
+    return ("bulk" if (m * k * sz) % 16 == 0 and (k * n * sz) % 16 == 0
+            else "cp_async")
+
+
+def batched_smem(route: str, mt: int, stages: int, n: int, k: int,
+                 in_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block (csrc bg_stage_bytes): `stages`
+    stages of an mt-row tile of A and the whole B, each run padded to 16
+    bytes (and 16 more on the cp.async route, which places each run at
+    its address mod 16), plus
+    a full and an empty mbarrier per stage."""
+    sz = in_dtype.itemsize
+    pad = 16 if route == "cp_async" else 0
+    stage = _align16(mt * k * sz) + pad + _align16(k * n * sz) + pad
+    return stages * (stage + 16)
+
+
+def batched_gemm_configs(m: int, n: int, k: int,
+                         in_dtype: torch.dtype = torch.float32):
+    """Launch configurations (rows per stage, stages, blocks per SM) that
+    tune=True chooses among; the first is the plan's (batched_plan). The
+    plan takes the largest tile of rows (all m, else 128, 64, ... 8) whose
+    two-stage ring fits a block's shared memory (one unit's copies land
+    while the other is computed; deeper rings ran slower at 32^3 f32 on an
+    H100, `chip_smoke.py`'s configuration lines), and as many blocks per SM
+    (up to four, the kernel's launch bounds) as the SM's shared memory
+    holds. The other candidates are the deepest ring of 3 or 4 stages that
+    fits that tile, and the next smaller tile."""
+    route = batched_route(m, n, k, in_dtype)
+
+    def config(mt, stages):
+        smem = batched_smem(route, mt, stages, n, k, in_dtype)
+        if smem > _BG_SMEM_MAX:
+            return None
+        return mt, stages, max(1, min(_BG_MAX_BLOCKS,
+                                      _BG_SMEM_SM // (smem + 1024)))
+
+    tiles = [c for c in (config(mt, 2) for mt in [m] + [
+        r for r in (128, 64, 32, 16, 8) if r < m]) if c is not None]
+    deep = next((c for c in (config(tiles[0][0], s) for s in (4, 3))
+                 if c is not None), None)
+    cands = [tiles[0]] + ([deep] if deep else []) + tiles[1:2]
     return list(dict.fromkeys(cands))
+
+
+def batched_plan(m: int, n: int, k: int, in_dtype: torch.dtype):
+    """(route, rows per stage, stages, blocks per SM) of the batched SMM
+    for a shape the reference accepts (m <= 256, n and k <= 128, f32/bf16
+    in and out). Every such shape fits: at worst an 8-row tile of A and all
+    of B (n = k = 128 f32: 68 KB) twice. The output type does not enter:
+    outputs go from registers to device memory."""
+    return (batched_route(m, n, k, in_dtype),) + batched_gemm_configs(
+        m, n, k, in_dtype)[0]
 
 
 class BatchedGemm:
@@ -281,7 +353,9 @@ class BatchedGemm:
         self.in_dt = to_torch(s.a_in_type)
         self.out_dt = to_torch(s.out_type)
         self.beta0 = desc.beta == 0
-        self.config = tuple(config) if config else batched_gemm_configs(s.m)[0]
+        self.route = batched_route(s.m, s.n, s.k, self.in_dt)
+        self.config = (tuple(config) if config else
+                       batched_gemm_configs(s.m, s.n, s.k, self.in_dt)[0])
         self.name = desc.name() + "_batched_cuda"
 
     def _operands(self, a, b, c):
@@ -298,20 +372,29 @@ class BatchedGemm:
         c = self._operands(a, b, c)
         if not _on_cuda(a, b, c):
             return self.plain(a, b, c)
-        mt, threads = self.config
+        mt, stages, blocks = self.config
+        props = torch.cuda.get_device_properties(a.device)
+        units = self.batch * -(-self.m // mt)
+        grid = min(units, props.multi_processor_count * blocks)
         out = torch.empty((self.batch, self.m, self.n), dtype=self.out_dt,
                           device=a.device)
-        a, b = a.contiguous(), b.contiguous()
-        c = None if c is None else c.to(torch.float32).contiguous()
+        # the bulk route copies from 16-byte aligned bases and reads C0 in
+        # 16-byte units: views off that alignment are copied
+        if self.route == "bulk":
+            a, b = _aligned16(a), _aligned16(b)
+        else:
+            a, b = a.contiguous(), b.contiguous()
+        c = None if c is None else _aligned16(c.to(torch.float32))
         lib = _kernels()
         with torch.cuda.device(a.device):
             err = lib.xsmm_batched_gemm(
                 _ptr(a), _ptr(b), _ptr(c), _ptr(out), self.batch, self.m,
                 self.n, self.k, _type_code(self.in_dt, self.name),
-                _type_code(self.out_dt, self.name), mt, threads,
-                _stream(a.device))
+                _type_code(self.out_dt, self.name), _BG_ROUTES[self.route],
+                mt, stages, grid, _stream(a.device))
         _raise_on_error(err, self.name)
         launches["batched_gemm"] += 1
+        path_launches["batched_gemm"][self.route] += 1
         return out
 
     def plain(self, a, b, c=None):
@@ -325,7 +408,7 @@ def build_batched_gemm(desc: GemmDescriptor, batch: int,
                        config=None) -> Optional[BatchedGemm]:
     """Return fn(a, b[, c]) for a:(B,m,k) b:(B,k,n), or None if the
     descriptor should take the torch route. `config` is a launch
-    configuration from batched_gemm_configs (default: the first)."""
+    configuration from batched_gemm_configs (default: the plan's)."""
     if not _supported(desc) or batch <= 0:
         return None
     return BatchedGemm(desc, batch, config)
@@ -339,15 +422,25 @@ _BR_BK = 16     # K slice of one partial-sum step (csrc BR_BK)
 _BR_TILE = 64   # output tile edge (csrc BR_BM == BR_BN)
 _TC_BK = 64     # the tensor-core kernel's K slice (csrc TC_BK)
 _TC_TILE = 128  # its output tile edge (csrc TC_BM == TC_BN)
+_TF_BK = 32     # the f32 TMA-fed kernel's K slice (csrc TF_BK)
+_TF_TILE = 128  # its output tile edge (csrc TF_BM == TF_BN)
+# (output tile edge, K slice) of the routes that plan one block per SM
+_ONE_PER_SM = {"wgmma": (_TC_TILE, _TC_BK), "tma_fma": (_TF_TILE, _TF_BK)}
 
 
 def brgemm_path(in_dtype: torch.dtype, n: int) -> str:
     """The CUDA kernel that serves a packed BRGEMM (and its twin), as csrc
     takes it: "wgmma" (bf16 tiles fed by TMA into the tensor cores) for bf16
     operands whose B rows are whole 16-byte units (n % 8 == 0: TMA's global
-    stride), "fma" (f32 FMAs on the CUDA cores; f32 means f32, no TF32) for
-    the rest. A's row stride, Q*k*2 bytes, is always a multiple of 256."""
-    return "wgmma" if in_dtype == torch.bfloat16 and n % 8 == 0 else "fma"
+    stride), "tma_fma" (f32 tiles fed by TMA into the CUDA cores' FMAs; f32
+    means f32, no TF32) for f32 operands with n % 4 == 0, "fma" (the FMA
+    kernel with its own loads) for the rest. A's row stride, Q*k elements,
+    is always a multiple of 128. No route falls back to another."""
+    if in_dtype == torch.bfloat16 and n % 8 == 0:
+        return "wgmma"
+    if in_dtype == torch.float32 and n % 4 == 0:
+        return "tma_fma"
+    return "fma"
 
 
 class PackedBrgemm:
@@ -376,18 +469,19 @@ class PackedBrgemm:
         """(K per block, number of blocks along K). step_groups, when
         given, is the number of groups one block reduces; otherwise the K
         range is cut so that about four blocks per SM are in flight on the
-        FMA path, and on the wgmma path (128 x 128 tiles, whole 64-deep
-        slices, one block per SM) so that tiles x splits stays at or under
-        the SM count, as close to it as whole slices allow."""
+        FMA path, and on the TMA-fed paths (128 x 128 tiles, whole 64-deep
+        bf16 or 32-deep f32 slices, one block per SM) so that tiles x
+        splits stays at or under the SM count, as close to it as whole
+        slices allow."""
         qk = self.q * self.k
         total = self.groups * qk
         if self.step_groups:
             kchunk = max(1, int(self.step_groups)) * qk
         else:
-            wgmma = self.path == "wgmma"
-            tile, bk = (_TC_TILE, _TC_BK) if wgmma else (_BR_TILE, _BR_BK)
+            one = _ONE_PER_SM.get(self.path)
+            tile, bk = one or (_BR_TILE, _BR_BK)
             tiles = (-(-self.m // tile)) * (-(-self.n // tile))
-            want = max(1, num_sms // tiles if wgmma
+            want = max(1, num_sms // tiles if one
                        else -(-4 * num_sms // tiles))
             kchunk = -(-total // want)
             kchunk = -(-kchunk // bk) * bk
@@ -435,9 +529,9 @@ class PackedBrgemm:
         return kchunk, splits, ws
 
     def _operands(self, a, b):
-        """a and b as the kernel takes them: contiguous, and on the wgmma
-        path 16-byte aligned (TMA's base address)."""
-        if self.path == "wgmma":
+        """a and b as the kernel takes them: contiguous, and on the TMA-fed
+        paths 16-byte aligned (TMA's base address)."""
+        if self.path in _ONE_PER_SM:
             return _aligned16(a), _aligned16(b)
         return a.contiguous(), b.contiguous()
 
@@ -449,8 +543,9 @@ class PackedBrgemm:
         d = None if d is None else d.to(torch.float32).contiguous()
         out = torch.empty((m, n), dtype=out_dt, device=a.device)
         lib = _kernels()
-        launch = (lib.xsmm_packed_brgemm_wgmma if self.path == "wgmma"
-                  else lib.xsmm_packed_brgemm)
+        launch = {"wgmma": lib.xsmm_packed_brgemm_wgmma,
+                  "tma_fma": lib.xsmm_packed_brgemm_tma_fma,
+                  "fma": lib.xsmm_packed_brgemm}[self.path]
         with torch.cuda.device(a.device):
             err = launch(
                 _ptr(a), _ptr(b), _ptr(ws), _ptr(c0), _ptr(d), _ptr(out),
@@ -505,9 +600,10 @@ def build_packed_brgemm(desc: GemmDescriptor, br: int,
     The CUDA kernel splits the K range over blocks and adds the partial
     sums in a fixed order (csrc/gemm_kernels.cu); `step_groups` sets the
     groups per block. bf16 operands with n % 8 == 0 take the wgmma kernel
-    (128 x 128 tiles, one block per SM), the rest the FMA kernel
-    (`brgemm_path`; the wrapper's `path`); a refused launch raises, with no
-    retry on the other kernel. `acc_scratch` names a TPU accumulator
+    and f32 operands with n % 4 == 0 the TMA-fed FMA kernel (both 128 x 128
+    tiles, one block per SM), the rest the FMA kernel (`brgemm_path`; the
+    wrapper's `path`); a refused launch raises, with no retry on another
+    kernel. `acc_scratch` names a TPU accumulator
     schedule and changes nothing here: the partial sums always live in
     registers."""
     del acc_scratch
@@ -538,8 +634,9 @@ class PackedBrgemmSol(PackedBrgemm):
         out = torch.empty((self.m, self.n), dtype=torch.float32,
                           device=a.device)
         lib = _kernels()
-        launch = (lib.xsmm_packed_brgemm_sol_wgmma if self.path == "wgmma"
-                  else lib.xsmm_packed_brgemm_sol)
+        launch = {"wgmma": lib.xsmm_packed_brgemm_sol_wgmma,
+                  "tma_fma": lib.xsmm_packed_brgemm_sol_tma_fma,
+                  "fma": lib.xsmm_packed_brgemm_sol}[self.path]
         with torch.cuda.device(a.device):
             err = launch(
                 _ptr(a), _ptr(b), _ptr(ws), _ptr(out), self.groups, self.m,
@@ -565,7 +662,7 @@ def build_packed_brgemm_sol(desc: GemmDescriptor, br: int,
     packed and b: (br, k, n).
 
     The kernel keeps the BRGEMM kernel's route (`brgemm_path`), grid, K
-    split (step_groups as there), loads (on the wgmma route its TMA ring
+    split (step_groups as there), loads (on the TMA-fed routes its ring
     and barriers) and its fixed-order reduce, with the products replaced
     by running row and column sums (csrc/gemm_kernels.cu), so t_sol /
     t_brgemm says how far the BRGEMM is from its own streaming floor.

@@ -529,9 +529,9 @@ def dispatch_gemm_batched(shape: GemmShape,
                           tune: bool = False) -> Kernel:
     """Batched independent small GEMMs: C[i] = A[i]@B[i] (+ C0[i]).
 
-    One CUDA kernel streams (A_i, B_i, C_i) through shared memory
-    (kernels/gemm.py build_batched_gemm); descriptors it does not take run
-    one batched torch contraction. a:(B,m,k) b:(B,k,n).
+    One CUDA kernel streams the problems through a ring of shared memory
+    (kernels/gemm.py build_batched_gemm, batched_plan); descriptors it does
+    not take run one batched torch contraction. a:(B,m,k) b:(B,k,n).
 
     tune=True times the kernel's launch configurations on CUDA operands at
     the first invocation per batch size and keeps the fastest; it never
@@ -555,7 +555,9 @@ def dispatch_gemm_batched(shape: GemmShape,
                 return default
             args = (a, b) if c is None else (a, b, c)
             best_fn, best_t = default, float("inf")
-            for cfg in gemm_kernels.batched_gemm_configs(d.shape.m):
+            sh = d.shape
+            for cfg in gemm_kernels.batched_gemm_configs(
+                    sh.m, sh.n, sh.k, to_torch(sh.a_in_type)):
                 fn_ = _batched_kernel(d, bsz, True, cfg)
                 t = bench_chain(fn_, args, reps=6)
                 if t < best_t:

@@ -160,7 +160,7 @@ def test_batched_gemm(gen, m, n, k, a_dt, o_dt, beta):
     args = [rand(gen, (batch, m, k), a_dt), rand(gen, (batch, k, n), a_dt)]
     if beta:
         args.append(rand(gen, (batch, m, n), o_dt))
-    for cfg in pk.batched_gemm_configs(m):
+    for cfg in pk.batched_gemm_configs(m, n, k, TORCH[a_dt]):
         fn = pk.build_batched_gemm(d, batch, cfg)
         same(fn.plain(*args), launched("batched_gemm", lambda: fn(*args)),
              a_dt, o_dt)
@@ -198,10 +198,13 @@ def test_packed_brgemm_shapes(gen, m, n, k, br, q, step_groups, a_dt):
                                          (BF16, 8, "wgmma"),
                                          (BF16, 40, "wgmma"),
                                          (BF16, 36, "fma"), (BF16, 1, "fma"),
-                                         (F32, 256, "fma")], ids=str)
+                                         (F32, 256, "tma_fma"),
+                                         (F32, 4, "tma_fma"),
+                                         (F32, 6, "fma")], ids=str)
 def test_packed_brgemm_path_launches(gen, a_dt, n, want):
-    """bf16 with n % 8 == 0 launches the tensor-core kernel, and only it;
-    the twin follows the same route."""
+    """bf16 with n % 8 == 0 launches the tensor-core kernel, f32 with n % 4
+    == 0 the TMA-fed FMA kernel, the rest the FMA kernel, and only it; the
+    twin follows the same route."""
     m, k, br = 64, 64, 8
     d = GemmDescriptor(GemmShape(m, n, k, a_in_type=a_dt, b_in_type=a_dt),
                        B0)
@@ -214,9 +217,9 @@ def test_packed_brgemm_path_launches(gen, a_dt, n, want):
     same(fn.plain(a, b), fn(a, b), a_dt)
     check(sol.plain(a, b), sol(a, b), margin=1e-5)
     torch.cuda.synchronize()
-    other = "fma" if want == "wgmma" else "wgmma"
     for name in ("packed_brgemm", "packed_brgemm_sol"):
-        assert pk.path_launches[name] == {want: 1, other: 0}
+        assert pk.path_launches[name] == {
+            path: int(path == want) for path in ("wgmma", "tma_fma", "fma")}
         assert pk.launches[name] == 1
 
 

@@ -87,7 +87,8 @@ def test_brgemm_sol_matches_plain(gen, dt, m, n, k, br, sg, mult):
                                      pack_q=q if mult > 1 else None)
     a = rand(gen, (br // q, m, q * k), TORCH[dt])
     b = rand(gen, (br, k, n), TORCH[dt], 0.1)
-    path = "wgmma" if dt == BF16 and n % 8 == 0 else "fma"
+    path = ("wgmma" if dt == BF16 and n % 8 == 0 else
+            "tma_fma" if dt == F32 and n % 4 == 0 else "fma")
     assert sol.path == path
     before = pk.path_launches["packed_brgemm_sol"][path]
     got = launched(pk.launches, "packed_brgemm_sol", lambda: sol(a, b))

@@ -74,18 +74,24 @@ def _operands(rng, br, q, m, n, k):
     (torch.bfloat16, 136, "wgmma"), (torch.bfloat16, 256, "wgmma"),
     (torch.bfloat16, 1024, "wgmma"), (torch.bfloat16, 1, "fma"),
     (torch.bfloat16, 4, "fma"), (torch.bfloat16, 36, "fma"),
-    (torch.bfloat16, 65, "fma"), (torch.float32, 8, "fma"),
-    (torch.float32, 256, "fma"), (torch.float16, 256, "fma")])
+    (torch.bfloat16, 65, "fma"), (torch.float32, 8, "tma_fma"),
+    (torch.float32, 256, "tma_fma"), (torch.float16, 256, "fma"),
+    (torch.float32, 4, "tma_fma"), (torch.float32, 36, "tma_fma"),
+    (torch.float32, 1, "fma"), (torch.float32, 6, "fma"),
+    (torch.float32, 130, "fma"), (torch.float32, 1023, "fma")])
 def test_brgemm_path(dtype, n, want):
-    """bf16 with whole 16-byte rows of B takes the tensor-core kernel; f32
-    (no TF32) and other widths the FMA kernel."""
+    """bf16 with whole 16-byte rows of B takes the tensor-core kernel, f32
+    with whole 16-byte rows (n % 4 == 0) the TMA-fed FMA kernel (no TF32),
+    other widths and types the FMA kernel with its own loads."""
     assert pk.brgemm_path(dtype, n) == want
 
 
 @pytest.mark.parametrize("a_dt,n,want", [(BF16, 256, "wgmma"),
                                          (BF16, 72, "wgmma"),
                                          (BF16, 20, "fma"),
-                                         (F32, 256, "fma")], ids=str)
+                                         (F32, 256, "tma_fma"),
+                                         (F32, 36, "tma_fma"),
+                                         (F32, 254, "fma")], ids=str)
 def test_wrappers_name_their_path(a_dt, n, want):
     d = port(_desc(64, n, 64, a_dt))
     fn = pk.build_packed_brgemm(d, 8)
@@ -158,7 +164,7 @@ def test_wgmma_planner_at_the_lab_shape(sms, want):
 
 
 @pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("a_dt,n", [(F32, 256), (BF16, 36)], ids=str)
+@pytest.mark.parametrize("a_dt,n", [(F32, 254), (BF16, 36)], ids=str)
 def test_fma_planner_keeps_its_split(a_dt, n, sms):
     """The FMA route keeps its own plan: 64 x 64 tiles, 16-deep slices,
     about four blocks per SM."""
