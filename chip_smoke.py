@@ -12,7 +12,8 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    the build time, the spills per source and the registers and spills of
    each pipelined kernel (the bf16 flash forward and backward, the BCSC
    SpMM, the k-union SpMM, the packed BRGEMM's wgmma and tma_fma kernels
-   and twins, the batched SMM's ring kernel);
+   and twins, the batched SMM's ring kernel, the BCSC lab's chunkN and
+   dspipe probes);
 3. drives the small-GEMM main path through the public entry points, with
    every kernel's launch count set to 0 just before and read just after:
    - the headline: dispatch_gemm_batched_packed(GemmShape(32,32,32),
@@ -142,7 +143,11 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     with torch.mm in f32 (TF32 off) as its yardstick and its twin's
     t_sol / t_brg, by events, device time and CUDA-graph replay; the
     batched SMM's odd shape and bf16 case are held against their plain
-    versions and timed beside torch.bmm; for the six tensor-core rows
+    versions and timed beside torch.bmm; the BCSC lab's chunkN and dspipe
+    probes must take the tensor cores, and their rows carry the path, the
+    kernel / library ratio by events, device time and CUDA-graph replay,
+    the staging plan and the lab's paired t / t(union4); for the six
+    tensor-core rows
     (flash forward, the
     flash backward's dK/dV and dQ, the scheduled, union and supertile
     SpMM) it asserts the path and prints the achieved TFLOP/s (of the
@@ -230,7 +235,9 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("spmm_kernels", "bcsc_union_mma_kernel"),
                ("attention_kernels", "flash_fwd_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_mma_kernel"),
-               ("attention_bwd_kernels", "flash_bwd_dq_mma_kernel"))
+               ("attention_bwd_kernels", "flash_bwd_dq_mma_kernel"),
+               ("spmm_lab_kernels", "bcsc_lab_chunk_kernel"),
+               ("spmm_lab_kernels", "bcsc_lab_dspipe_kernel"))
 
 
 def _smi() -> str:
@@ -1461,8 +1468,8 @@ def labs_path(randn, headline):
     headline's (4096, 32, 128) f32, bit for bit against a + b and timed
     interleaved with the headline kernel (bench.py:869's fraction), and the
     BCSC lab at densities 0.2 and 0.05 (its probes held against the float64
-    product and their plain versions inside the lab). Returns the counts
-    and the passthrough's operands."""
+    product and their plain versions inside the lab). Returns the counts,
+    the passthrough's operands and the BCSC lab's rows by density."""
     import numpy as np
 
     from libxsmm_torch.kernels import gemm as K
@@ -1493,8 +1500,9 @@ def labs_path(randn, headline):
           f"{paired:.4f} paired median (packed SMM {t_smm * 1e3:.4f} ms, "
           f"passthrough {t_pt * 1e3:.4f} ms)")
 
-    for density in (0.2, 0.05):
-        bcsc_lab.main(["--density", str(density), "--rounds", "3"])
+    bcsc_rows = {density: bcsc_lab.main(["--density", str(density),
+                                          "--rounds", "3"])
+                 for density in (0.2, 0.05)}
 
     torch.cuda.synchronize()
     counts = {k: _count(k) for k in LAB_KERNELS}
@@ -1503,10 +1511,11 @@ def labs_path(randn, headline):
     missing = [k for k in LAB_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched in the labs: {missing}")
-    return {"counts": counts, "passthrough": (pt, pa, pb)}
+    return {"counts": counts, "passthrough": (pt, pa, pb),
+            "bcsc_lab": bcsc_rows}
 
 
-def lab_rows(record, ms, geo, dev, passthrough, brgemm):
+def lab_rows(record, ms, geo, dev, passthrough, brgemm, bcsc_lab_rows):
     """The two twins and the three BCSC probes, each against its plain
     version. The BRGEMM twin is bound by the packed BRGEMM row's bytes, so
     the two rows compare like with like; no PyTorch call computes it
@@ -1517,7 +1526,10 @@ def lab_rows(record, ms, geo, dev, passthrough, brgemm):
     values or minimal's constant RHS, and C, each once) and the union's
     2 * m * U * 32 * n products at the bf16 tensor cores' peak; their
     yardstick is torch.mm(out_dtype=f32) on the densified B, for minimal on
-    its own panel and RHS. chunk2 and chunk4 stand beside the chunk1 row."""
+    its own panel and RHS. chunk2 and chunk4 stand beside the chunk1 row.
+    Each probe's row carries its kernel's path (chunkN and dspipe must take
+    the tensor cores), its kernel / library ratio ("kl") and the BCSC lab's
+    paired t / t(union4) at density 0.2 (`bcsc_lab_rows`, labs_path's)."""
     import numpy as np
 
     from libxsmm_torch.descriptor import GemmShape, SpgemmConfig
@@ -1556,22 +1568,63 @@ def lab_rows(record, ms, geo, dev, passthrough, brgemm):
     lib_mm = ms(mm_f32, a, dense_b)
     fused_bytes = 2 * a.numel() + 2 * v.numel() + out_bytes
     src, lab = "spmm_lab_kernels.cu", "scripts/bcsc_lab.py"
-    record("bcsc_lab_chunk", src, f"{lab}:173", probes["chunk1"], (a, v),
-           TOL_SPARSE_BF16, fused_bytes, union_ops, geo.peak_bf16_tflops,
-           lib_mm, chunk2_ms=ms(probes["chunk2"], a, v),
-           chunk4_ms=ms(probes["chunk4"], a, v))
-    record("bcsc_lab_dspipe", src, f"{lab}:236", probes["dspipe"], (a, v),
-           TOL_SPARSE_BF16, fused_bytes, union_ops, geo.peak_bf16_tflops,
-           lib_mm)
+    vs = {r["name"]: r["vs_union4"] for r in bcsc_lab_rows}
+    for name in ("chunk1", "chunk2", "chunk4", "dspipe"):
+        if probes[name].path != "mma":
+            raise AssertionError(f"bcsc lab {name} took {probes[name].path}")
+    # events around back-to-back calls carry the host's cost of a call;
+    # the profiler's device time and a CUDA graph's replay leave it out
+    dev_t = {nm: device_ms(lambda f=fn: f(a, v))
+             for nm, fn in probes.items() if nm != "minimal"}
+    rep_t = {nm: graph_ms(lambda f=fn: f(a, v))
+             for nm, fn in probes.items() if nm != "minimal"}
+    lib_dev = device_ms(lambda: mm_f32(a, dense_b))
+    lib_rep = graph_ms(lambda: mm_f32(a, dense_b))
+    timing = {"library_device_ms": lib_dev, "library_graph_ms": lib_rep}
+    more = {}
+    for name in ("chunk2", "chunk4"):
+        t = ms(probes[name], a, v)
+        more.update({f"{name}_ms": t, f"{name}_kl": t / lib_mm,
+                     f"{name}_vs_union4": vs[name],
+                     f"{name}_device_ms": dev_t[name],
+                     f"{name}_graph_ms": rep_t[name]})
+    rows = [record("bcsc_lab_chunk", src, f"{lab}:173", probes["chunk1"],
+                   (a, v), TOL_SPARSE_BF16, fused_bytes, union_ops,
+                   geo.peak_bf16_tflops, lib_mm, path="mma",
+                   vs_union4=vs["chunk1"],
+                   stage=probes["chunk1"].stage._asdict(),
+                   device_ms=dev_t["chunk1"], graph_ms=rep_t["chunk1"],
+                   **timing, **more),
+            record("bcsc_lab_dspipe", src, f"{lab}:236", probes["dspipe"],
+                   (a, v), TOL_SPARSE_BF16, fused_bytes, union_ops,
+                   geo.peak_bf16_tflops, lib_mm, path="mma",
+                   vs_union4=vs["dspipe"],
+                   stage=probes["dspipe"].stage._asdict(),
+                   device_ms=dev_t["dspipe"], graph_ms=rep_t["dspipe"],
+                   **timing)]
     minimal = probes["minimal"]
     rhs = minimal.rhs
     panel = a[:, :U * 32].contiguous()
     rhs_cat = rhs.permute(1, 0, 2).reshape(U * 32, n).contiguous()
-    record("bcsc_lab_minimal", src, f"{lab}:100", minimal, (a, v),
-           TOL_SPARSE_BF16, 2 * panel.numel() + 2 * rhs.numel() + out_bytes,
-           union_ops, geo.peak_bf16_tflops, ms(mm_f32, panel, rhs_cat))
+    rows.append(record("bcsc_lab_minimal", src, f"{lab}:100", minimal,
+                       (a, v), TOL_SPARSE_BF16,
+                       2 * panel.numel() + 2 * rhs.numel() + out_bytes,
+                       union_ops, geo.peak_bf16_tflops,
+                       ms(mm_f32, panel, rhs_cat), path=minimal.path,
+                       vs_union4=vs["minimal"]))
+    for r in rows:
+        r["kl"] = r["ms"] / r["library_ms"]
     print(f"  bcsc lab probes at 1024^3, density 0.2: U = {U}, "
-          f"{int(np.asarray(bcsc.indices).size)} blocks")
+          f"{int(np.asarray(bcsc.indices).size)} blocks; torch.mm "
+          f"{lib_mm:.4f} ms, device {lib_dev:.4f}, replayed {lib_rep:.4f}")
+    events = {"chunk1": rows[0]["ms"], "dspipe": rows[1]["ms"],
+              "chunk2": more["chunk2_ms"], "chunk4": more["chunk4_ms"]}
+    for nm, t in events.items():
+        print(f"  bcsc lab {nm} [{probes[nm].path}]: {t:.4f} ms, device "
+              f"{dev_t[nm]:.4f}, replayed {rep_t[nm]:.4f}; k/l {t / lib_mm:.3f}"
+              f", device {dev_t[nm] / lib_dev:.3f}, replayed "
+              f"{rep_t[nm] / lib_rep:.3f}; t / t(union4) {vs[nm]:.3f}; "
+              f"staging {probes[nm].stage._asdict()}")
 
 
 def step_breakdown(params, x, y, cfg, reps=5):
@@ -2172,7 +2225,8 @@ def main() -> int:
               f"{tiles * kv.splits(sms)[1]} blocks): brgemm {tb:.4f} ms, "
               f"sol {ts:.4f} ms, t_sol / t_brg {ts / tb:.4f}")
     lab_rows(record, ms, geo, dev, labs["passthrough"],
-             (sol_br, (ap_br, b_br), br_bytes, row_br["ms"]))
+             (sol_br, (ap_br, b_br), br_bytes, row_br["ms"]),
+             labs["bcsc_lab"][0.2])
     next(r for r in rows if r["name"] == "packed_brgemm_sol").update(
         device_ms=dev_ms["packed_brgemm_sol"],
         graph_ms=rep_ms["packed_brgemm_sol"])

@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels of libxsmm_torch's BCSC lab (the
 // port's scripts/bcsc_lab.py): probes of the k-union SpMM kernel
-// (spmm_kernels.cu bcsc_union_kernel), each keeping one property of a
+// (spmm_kernels.cu bcsc_union_mma_kernel), each keeping one property of a
 // candidate schedule so the lab can time it against the union kernel. They
 // replace the Pallas probes of scripts/bcsc_lab.py make_variants (:67):
 //   xsmm_bcsc_lab_minimal  `minimal` (:100): the dot floor over a constant,
@@ -19,34 +19,58 @@
 // (nblocks, 32, 32) bf16, 32 x 32 blocks; out (m, n) f32. The union plan is
 // the union kernel's without clustering: krows (n/128, U) block rows of A,
 // gmap (n/128, U, 4) value indices, nblocks naming the zero block (zeros,
-// never loaded). Every product and sum is an f32 FMA, as in the union
-// kernel; each block writes its output tile once.
+// never loaded; pad slots are multiplied, not skipped). Each block writes
+// its output tile once, with no atomics: a repeat is bit for bit.
+//
+// Math. chunkN and dspipe run on the bf16 tensor cores, as the library's
+// union kernel does since it moved there: mma.sync m16n8k16 with an f32
+// accumulator on fragments that ldmatrix loads from the staged bf16 tiles
+// (xsmm_mma.cuh). Consumer warps own (16 MT) x 16 strips of the tile (MT
+// m16 tiles, two n8 tiles): two warps down a tile of 32 rows or more, one
+// for every 16 of its columns. minimal stays the f32 FMA loop of the union
+// kernel's old form (a floor of that loop, not of the tensor-core kernel)
+// until it is redesigned in turn.
 //
 // Bound, at the lab's shape (m = k = n = 1024, density 0.2: U = 21 union
-// slots of 32 rows, 199 blocks): the union's 2 * m * U * 32 * n = 1.41
-// GFLOP at the bf16 tensor cores' peak (1.4 us) against 4.6 MB moved (1.4
-// us); on the f32 FMAs these probes use, the operations bound them (21 us
-// at 67 TFLOP/s).
+// slots of 32 rows, about 200 blocks): A (2.1 MB bf16), the values (0.4
+// MB) and the f32 out (4.2 MB), each moved once, 6.7 MB: 2.0 us at 3.35
+// TB/s, above the union's 2 * m * U * 32 * n = 1.41 GFLOP at the bf16
+// tensor cores' peak (1.4 us). On the tensor cores the math shrinks about
+// tenfold from the f32 FMAs' 21 us, and what bounds the probes is their
+// staging: every tile fetches its own panels of A and its own RHS from L2,
+// 44 MB for chunkN's 64 x 64 tiles and 88 MB for dspipe's 32 x 32 (the
+// tile that two whole unions leave room for), and one or two blocks an SM
+// is all the staging leaves. So the staging is warp-specialised:
+// producer warps (CHUNK_PRODUCERS, DSPIPE_PRODUCERS threads) only issue
+// cp.async, enough of them to keep the SM's copies in flight; each
+// producer's copies of a step arrive on an mbarrier as they land, so the
+// consumers start on step c while step c + 1 is still on its way.
 //
 // Shared memory. The TPU stages the whole union of A (all m rows) and of
 // the RHS in VMEM, dspipe twice; here one union's RHS alone (672 x 128 bf16,
 // 172 KB at U = 21) nearly fills the 227 KB a block may have. So the fused
 // probes stage bf16 (16-byte cp.async, zeros for the zero block and rows
-// past m) at a smaller grain:
-//   chunkN  a 32-row x 64-column tile (half a group): per chunk of
-//           ceil(U/N) slots, 6.5 KB a slot, two buffers when N > 1
-//           (chunk1 at U = 21: 137 KB; chunk2: 2 x 72 KB; chunk4: 2 x 39 KB);
-//   dspipe  a 32-row x 32-column tile (one block column of a group), both
-//           buffers holding a whole union, 4.5 KB a slot each (189 KB at
-//           U = 21); past 25 slots the tile drops to 16 rows (3.5 KB).
-// A staging that does not fit returns cudaErrorInvalidValue. minimal keeps
-// the union kernel's own tile (64 x 128, 32-deep f32 slices, synchronous).
-// The fused probes take A and the values 16-byte aligned (the wrappers copy
-// an operand that is not).
+// past m; every row padded by 16 bytes, so ldmatrix's eight row addresses
+// fall on eight bank groups) at a smaller grain:
+//   chunkN  a TM x 64 tile (half a group): per chunk of ceil(U/N) slots,
+//           TM * 64 + 4608 bytes a slot, two buffers when N > 1. TM is the
+//           first of 64, 32, 16 whose staging fits (chunk1 at U = 21: 64
+//           rows, 183 KB, one block an SM; chunk2: 2 x 97 KB; chunk4: 2 x
+//           53 KB, two blocks an SM);
+//   dspipe  a TM x 32 tile (one block column of a group), both buffers
+//           holding a whole union, TM * 64 + 2560 bytes a slot each; TM is
+//           32 up to U = 25 (194 KB at U = 21), 16 up to U = 32.
+// kernels/spmm_lab.py chunk_plan and dspipe_plan are the same planner. A
+// staging that does not fit even at 16 rows returns cudaErrorInvalidValue.
+// minimal keeps the union kernel's old tile (64 x 128, 32-deep f32 slices,
+// synchronous). The fused probes take A and the values 16-byte aligned (the
+// wrappers copy an operand that is not).
 
 #include <cuda_runtime.h>
 
 #include "xsmm_common.cuh"
+#include "xsmm_mma.cuh"
+#include "xsmm_wgmma.cuh"
 
 namespace {
 
@@ -116,225 +140,288 @@ __global__ void __launch_bounds__(256) bcsc_lab_minimal_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// staging helpers of the fused probes
+// the fused probes' staging plan and tensor-core tile
 // ---------------------------------------------------------------------------
 
-// one 16-byte unit from global to shared memory (cp.async, which does not
-// block the thread); a unit that is not valid is written as zeros (cp.async
-// with no source bytes)
-__device__ __forceinline__ void stage_unit(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+constexpr int CHUNK_CW = 64;   // chunkN's tile columns (half a group)
+constexpr int DSPIPE_CW = 32;  // dspipe's tile columns (one block column)
+
+constexpr int BAR_BYTES = 16;  // the ring's two mbarriers, before its buffers
+
+// bytes of shared memory of a staging plan: the ring's barriers and
+// `buffers` buffers, each `slots` union slots deep for a rows x cw tile: A
+// (rows x 32 slots) and the RHS (32 slots x cw), every row padded by 8
+// elements (16 bytes)
+__host__ __device__ constexpr size_t stage_bytes(int rows, int cw, int slots,
+                                                 int buffers) {
+  return BAR_BYTES + (size_t)buffers * sizeof(bf16) *
+         ((size_t)rows * (slots * BK + 8) + (size_t)slots * BK * (cw + 8));
 }
 
-__device__ __forceinline__ void stage_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// The warps of a TM x CW tile. Consumers (NC threads, warps 0 ..): two
+// down its rows (one for a 16-row tile), one for every 16 of its columns,
+// each owning MT m16 tiles by two n8 tiles. Producers (NP threads, the
+// warps after them): the cp.async staging alone.
+constexpr int CHUNK_PRODUCERS = 256;
+constexpr int DSPIPE_PRODUCERS = 384;
+
+template <int TM, int CW, int PRODUCERS>
+struct Tile {
+  static constexpr int WARPS_M = TM >= 32 ? 2 : 1;
+  static constexpr int WARPS_N = CW / 16;
+  static constexpr int NC = 32 * WARPS_M * WARPS_N;
+  static constexpr int MT = TM / (16 * WARPS_M);
+  static constexpr int NP = PRODUCERS;
+  static constexpr int THREADS = NC + NP;
+};
+template <int TM>
+using ChunkTile = Tile<TM, CHUNK_CW, CHUNK_PRODUCERS>;
+template <int TM>
+using DspipeTile = Tile<TM, DSPIPE_CW, DSPIPE_PRODUCERS>;
+
+// The two-buffer ring. Step c lives in buffer c & 1. Each producer thread's
+// copies of a step arrive on that buffer's mbarrier (`full`, NP arrivals a
+// phase) once they have landed, so the consumers start on a step as soon
+// as it is in, while the producers already issue the next one; the
+// consumers hand a buffer back through named barrier EMPTY + b (0 is
+// __syncthreads') when a later step refills it.
+constexpr int BAR_EMPTY = 1;
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void stage_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+// the producers' side over `count` steps, THREADS threads in the block:
+// stage(c) issues step c into buffer c & 1 once the consumers have released
+// step c - 2 from it
+template <int THREADS, typename Stage>
+__device__ __forceinline__ void produce(uint64_t* full, int count,
+                                        Stage stage) {
+  for (int c = 0; c < count; ++c) {
+    if (c >= 2) bar_sync(BAR_EMPTY + (c & 1), THREADS);
+    stage(c);
+    cp_async_mbar_arrive(&full[c & 1]);
+  }
+  cp_async_wait_all();
+}
+
+// the consumers' side: use(c) once step c has landed, then release its
+// buffer if a later step refills it
+template <int THREADS, typename Use>
+__device__ __forceinline__ void consume(uint64_t* full, int count, Use use) {
+  for (int c = 0; c < count; ++c) {
+    mbar_wait(&full[c & 1], (c >> 1) & 1);
+    use(c);
+    if (c + 2 < count) bar_arrive(BAR_EMPTY + (c & 1), THREADS);
+  }
+}
+
+// the ring's barriers at the head of dynamic shared memory, initialised for
+// NP producer arrivals a phase; returns the first buffer
+template <int NP>
+__device__ __forceinline__ bf16* ring_init(unsigned char* smem,
+                                           uint64_t*& full) {
+  full = reinterpret_cast<uint64_t*>(smem);
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0], NP);
+    mbar_init(&full[1], NP);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return reinterpret_cast<bf16*>(smem + BAR_BYTES);
 }
 
 // Stage union slots [u0, u1) of group g for the tile at (row0, column c0 of
 // the group), CW columns wide: A's rows at the slots' block rows into sA
 // (TM x (u1-u0)*32, row stride AS) and the slots' right-hand side into sR
 // ((u1-u0)*32 x CW, row stride RS), every 64-byte block row in four 16-byte
-// units. Slots past the range cost nothing: an empty range issues nothing.
+// units, by NT producer threads (this one is tid). Slots past the range
+// cost nothing: an empty range issues nothing.
 template <int TM, int CW, int NT>
 __device__ __forceinline__ void stage_slots(
-    bf16* sA, int AS, bf16* sR, int RS, const bf16* __restrict__ a,
+    int tid, bf16* sA, int AS, bf16* sR, int RS, const bf16* __restrict__ a,
     const bf16* __restrict__ vals, const int* __restrict__ krows,
     const int* __restrict__ gmap, int g, int U, int u0, int u1, int row0,
     int c0, int m, int k, int nzero) {
-  constexpr int upr = 4;         // units per 64-byte block row
-  constexpr int ue = 8;          // elements per unit
+  constexpr int upr = 4;           // units per 64-byte block row
+  constexpr int ue = 8;            // elements per unit
+  constexpr int NB = CW / BN;      // value blocks across the tile
+  constexpr int AU = TM * upr;     // A units a slot: unit e of row r
+  constexpr int RU = BK * NB * upr;  // RHS units a slot: unit e of row rr
+                                     // of value block w
   const int cu = u1 - u0;
   const long long slot0 = (long long)g * U + u0;
-  const int na = TM * cu * upr;
-  for (int i = threadIdx.x; i < na; i += NT) {
-    const int e = i % upr, t = i / upr, s = t % cu, r = t / cu;
+  for (int i = tid; i < cu * AU; i += NT) {
+    const int s = i / AU, r = i % AU / upr, e = i % upr;
     const bool ok = row0 + r < m;
     const bf16* src = a + (long long)(row0 + r) * k + krows[slot0 + s] * BK
                       + e * ue;
-    stage_unit(sA + r * AS + s * BK + e * ue, ok ? src : a, ok);
+    cp_async16(sA + r * AS + s * BK + e * ue, ok ? src : a, ok);
   }
-  constexpr int NB = CW / BN;    // value blocks across the tile
-  const int nr = cu * BK * NB * upr;
-  for (int i = threadIdx.x; i < nr; i += NT) {
-    int t = i / upr;
-    const int e = i % upr, w = t % NB;
-    t /= NB;
-    const int rr = t % BK, s = t / BK;
+  for (int i = tid; i < cu * RU; i += NT) {
+    const int s = i / RU, rr = i % RU / (NB * upr), w = i / upr % NB,
+              e = i % upr;
     const int v = gmap[(slot0 + s) * W + c0 / BN + w];
     const bool ok = v != nzero;
     const bf16* src = vals + ((long long)v * BK + rr) * BN + e * ue;
-    stage_unit(sR + (s * BK + rr) * RS + w * BN + e * ue, ok ? src : vals,
+    cp_async16(sR + (s * BK + rr) * RS + w * BN + e * ue, ok ? src : vals,
                ok);
   }
 }
 
-// acc += sA[thread's RM rows, :depth] @ sR[:depth, thread's 4 columns]:
-// thread (tx, ty) owns rows ty*RM .. +RM-1 and columns tx*4 .. +3, and reads
-// two k steps of A per 4-byte load and four columns of B per 8-byte load
-template <int RM>
-__device__ __forceinline__ void fma_slots(float (&acc)[RM][4], const bf16* sA,
-                                          int AS, const bf16* sR, int RS,
-                                          int depth, int tx, int ty) {
-  for (int kk = 0; kk < depth; kk += 2) {
-    float2 av[RM];
+template <int MT>
+__device__ __forceinline__ void zero(float (&acc)[MT][2][4]) {
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
-      av[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          sA + (ty * RM + i) * AS + kk));
-    float b0[4], b1[4];
-    const __nv_bfloat162* r0 =
-        reinterpret_cast<const __nv_bfloat162*>(sR + kk * RS + tx * 4);
-    const __nv_bfloat162* r1 =
-        reinterpret_cast<const __nv_bfloat162*>(sR + (kk + 1) * RS + tx * 4);
-    const float2 x0 = __bfloat1622float2(r0[0]), x1 = __bfloat1622float2(r0[1]);
-    const float2 y0 = __bfloat1622float2(r1[0]), y1 = __bfloat1622float2(r1[1]);
-    b0[0] = x0.x; b0[1] = x0.y; b0[2] = x1.x; b0[3] = x1.y;
-    b1[0] = y0.x; b1[1] = y0.y; b1[2] = y1.x; b1[3] = y1.y;
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(av[i].x, b0[j], acc[i][j]);
-        acc[i][j] = fmaf(av[i].y, b1[j], acc[i][j]);
-      }
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+}
+
+// acc += sA[the warp's rows, :depth] @ sR[:depth, the warp's 16 columns]
+// on the tensor cores: warp (wm, wn) owns rows 16 MT wm .. +16 MT and
+// columns 16 wn .. +16, one k16 step at a time (depth % 32 == 0), four
+// steps unrolled so the fragment loads of one overlap the products of
+// another
+template <int MT>
+__device__ __forceinline__ void mma_slots(float (&acc)[MT][2][4],
+                                          const bf16* sA, int AS,
+                                          const bf16* sR, int RS, int depth,
+                                          int wm, int wn, int lane) {
+#pragma unroll 4
+  for (int kk = 0; kk < depth; kk += 16) {
+    uint32_t af[MT][4], bf[4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldsm_x4(af[i], sA + ((wm * MT + i) * 16 + (lane & 15)) * AS + kk +
+                         (lane >> 4) * 8);
+    ldsm_x4_trans(bf, sR + (kk + (lane & 7) + (lane & 8)) * RS + wn * 16 +
+                          (lane >> 4) * 8);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      mma_bf16(acc[i][0], af[i], bf[0], bf[1]);
+      mma_bf16(acc[i][1], af[i], bf[2], bf[3]);
+    }
   }
 }
 
-template <int RM>
-__device__ __forceinline__ void store_tile(const float (&acc)[RM][4],
+// the warp's strip of the tile at (row0, col0) of out, rows past m masked
+template <int MT>
+__device__ __forceinline__ void store_tile(const float (&acc)[MT][2][4],
                                            float* __restrict__ out, int row0,
-                                           int col0, int m, int n, int tx,
-                                           int ty) {
+                                           int col0, int m, int n, int wm,
+                                           int wn, int lane) {
+  const int gq = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int gr = row0 + ty * RM + i;
-    if (gr < m)
-      *reinterpret_cast<float4*>(out + (long long)gr * n + col0 + tx * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-}
-
-// elements of one staging buffer, `slots` deep: TM rows of A, and the RHS
-// CW columns wide (rows padded by 8 elements: 16 bytes, off the banks of
-// the row above)
-template <int TM>
-__host__ __device__ constexpr int stage_elems_a(int slots) {
-  return TM * (slots * BK + 8);
-}
-template <int CW>
-__host__ __device__ constexpr int stage_elems_r(int slots) {
-  return slots * BK * (CW + 8);
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = row0 + (wm * MT + i) * 16 + gq + h * 8;
+      if (gr >= m) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        store_pair(out + (long long)gr * n + col0 + wn * 16 + j * 8 + t4 * 2,
+                   acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    }
 }
 
 // ---------------------------------------------------------------------------
-// chunkN: block (2 g + h, y) owns rows [32 y, 32 y + 32) and columns
+// chunkN: block (2 g + h, y) owns rows [TM y, TM y + TM) and columns
 // [64 h, 64 h + 64) of group g. The U slots are cut into N chunks of
-// ceil(U/N); chunk c + 1 is staged (cp.async) into the other buffer before
-// the math of chunk c. One code path: the buffer is an offset of the chunk's
-// parity, the last chunk's "next" stage is an empty range, and every
-// iteration commits a group and waits for all but the newest.
+// ceil(U/N); chunk c + 1 is staged (cp.async) into the other buffer while
+// the consumers multiply chunk c. One code path: the buffer is the chunk's
+// parity, as in the TPU kernel's static parity.
 // ---------------------------------------------------------------------------
 
-constexpr int CTM = 32, CCW = 64, CNT = 256;
-
-template <int N>
-__global__ void __launch_bounds__(CNT) bcsc_lab_chunk_kernel(
-    const bf16* __restrict__ a, const bf16* __restrict__ vals,
-    const int* __restrict__ krows, const int* __restrict__ gmap,
-    float* __restrict__ out, int m, int k, int n, int U, int nzero) {
-  constexpr int TX = CCW / 4, RM = CTM / (CNT / TX);
+template <int N, int TM>
+__global__ void __launch_bounds__(ChunkTile<TM>::THREADS)
+    bcsc_lab_chunk_kernel(const bf16* __restrict__ a,
+                          const bf16* __restrict__ vals,
+                          const int* __restrict__ krows,
+                          const int* __restrict__ gmap,
+                          float* __restrict__ out, int m, int k, int n, int U,
+                          int nzero) {
+  using T = ChunkTile<TM>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* base = reinterpret_cast<bf16*>(smem_raw);
+  uint64_t* full;
+  bf16* base = ring_init<T::NP>(smem_raw, full);
   const int csl = (U + N - 1) / N;
-  const int AS = csl * BK + 8, RS = CCW + 8;
-  const int abuf = stage_elems_a<CTM>(csl);
-  const int buf = abuf + stage_elems_r<CCW>(csl);
-  const int g = blockIdx.x / (GW / CCW);
-  const int c0 = (blockIdx.x % (GW / CCW)) * CCW;
-  const int row0 = blockIdx.y * CTM;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  float acc[RM][4];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  stage_slots<CTM, CCW, CNT>(base, AS, base + abuf, RS, a, vals, krows, gmap,
-                             g, U, 0, min(U, csl), row0, c0, m, k, nzero);
-  stage_commit();
-  for (int c = 0; c < N; ++c) {
-    bf16* nb = base + ((c + 1) & 1) * buf;
-    stage_slots<CTM, CCW, CNT>(nb, AS, nb + abuf, RS, a, vals, krows, gmap, g,
-                               U, min(U, (c + 1) * csl),
-                               min(U, (c + 2) * csl), row0, c0, m, k, nzero);
-    stage_commit();
-    stage_wait_all_but_one();
-    __syncthreads();
-    const bf16* cb = base + (c & 1) * buf;
-    const int depth = (min(U, (c + 1) * csl) - min(U, c * csl)) * BK;
-    fma_slots<RM>(acc, cb, AS, cb + abuf, RS, depth, tx, ty);
-    __syncthreads();
+  const int AS = csl * BK + 8, RS = CHUNK_CW + 8;
+  const int abuf = TM * AS;
+  const int buf = abuf + csl * BK * RS;
+  const int g = blockIdx.x / (GW / CHUNK_CW);
+  const int c0 = (blockIdx.x % (GW / CHUNK_CW)) * CHUNK_CW;
+  const int row0 = blockIdx.y * TM;
+  if (threadIdx.x >= T::NC) {
+    produce<T::THREADS>(full, N, [&](int c) {
+      bf16* b = base + (c & 1) * buf;
+      stage_slots<TM, CHUNK_CW, T::NP>(
+          threadIdx.x - T::NC, b, AS, b + abuf, RS, a, vals, krows, gmap, g,
+          U, min(U, c * csl), min(U, (c + 1) * csl), row0, c0, m, k, nzero);
+    });
+    return;
   }
-  store_tile<RM>(acc, out, row0, g * GW + c0, m, n, tx, ty);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
+  float acc[T::MT][2][4];
+  zero(acc);
+  consume<T::THREADS>(full, N, [&](int c) {
+    const bf16* b = base + (c & 1) * buf;
+    const int depth = (min(U, (c + 1) * csl) - min(U, c * csl)) * BK;
+    mma_slots<T::MT>(acc, b, AS, b + abuf, RS, depth, wm, wn, lane);
+  });
+  store_tile<T::MT>(acc, out, row0, g * GW + c0, m, n, wm, wn, lane);
 }
 
 // ---------------------------------------------------------------------------
 // dspipe: block (h, y) owns rows [TM y, TM y + TM) and columns [32 h,
 // 32 h + 32) of every group, and walks the groups in order: the whole union
-// of group g + 1 is staged into the other buffer before the math of group
-// g, the double buffering the TPU's sequential grid does across grid steps
-// (Hopper blocks run in no order, so the loop over groups lives inside the
-// block). One code path, as chunkN's.
+// of group g + 1 is staged into the other buffer while the consumers
+// multiply group g, the double buffering the TPU's sequential grid does
+// across grid steps (Hopper blocks run in no order, so the loop over groups
+// lives inside the block). One code path, as chunkN's.
 // ---------------------------------------------------------------------------
 
-constexpr int DCW = 32;
-
-template <int TM, int NT>
-__global__ void __launch_bounds__(NT) bcsc_lab_dspipe_kernel(
-    const bf16* __restrict__ a, const bf16* __restrict__ vals,
-    const int* __restrict__ krows, const int* __restrict__ gmap,
-    float* __restrict__ out, int m, int k, int n, int U, int nzero) {
-  constexpr int TX = DCW / 4, RM = TM / (NT / TX);
+template <int TM>
+__global__ void __launch_bounds__(DspipeTile<TM>::THREADS)
+    bcsc_lab_dspipe_kernel(const bf16* __restrict__ a,
+                           const bf16* __restrict__ vals,
+                           const int* __restrict__ krows,
+                           const int* __restrict__ gmap,
+                           float* __restrict__ out, int m, int k, int n,
+                           int U, int nzero) {
+  using T = DspipeTile<TM>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* base = reinterpret_cast<bf16*>(smem_raw);
+  uint64_t* full;
+  bf16* base = ring_init<T::NP>(smem_raw, full);
   const int nsg = n / GW;
-  const int AS = U * BK + 8, RS = DCW + 8;
-  const int abuf = stage_elems_a<TM>(U);
-  const int buf = abuf + stage_elems_r<DCW>(U);
-  const int c0 = blockIdx.x * DCW;
+  const int AS = U * BK + 8, RS = DSPIPE_CW + 8;
+  const int abuf = TM * AS;
+  const int buf = abuf + U * BK * RS;
+  const int c0 = blockIdx.x * DSPIPE_CW;
   const int row0 = blockIdx.y * TM;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-
-  stage_slots<TM, DCW, NT>(base, AS, base + abuf, RS, a, vals, krows, gmap,
-                           0, U, 0, U, row0, c0, m, k, nzero);
-  stage_commit();
-  for (int g = 0; g < nsg; ++g) {
-    bf16* nb = base + ((g + 1) & 1) * buf;
-    const int gn = min(g + 1, nsg - 1);
-    stage_slots<TM, DCW, NT>(nb, AS, nb + abuf, RS, a, vals, krows, gmap, gn,
-                             U, 0, g + 1 < nsg ? U : 0, row0, c0, m, k,
-                             nzero);
-    stage_commit();
-    stage_wait_all_but_one();
-    __syncthreads();
-    float acc[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    const bf16* cb = base + (g & 1) * buf;
-    fma_slots<RM>(acc, cb, AS, cb + abuf, RS, U * BK, tx, ty);
-    store_tile<RM>(acc, out, row0, g * GW + c0, m, n, tx, ty);
-    __syncthreads();
+  if (threadIdx.x >= T::NC) {
+    produce<T::THREADS>(full, nsg, [&](int g) {
+      bf16* b = base + (g & 1) * buf;
+      stage_slots<TM, DSPIPE_CW, T::NP>(threadIdx.x - T::NC, b, AS, b + abuf,
+                                        RS, a, vals, krows, gmap, g, U, 0, U,
+                                        row0, c0, m, k, nzero);
+    });
+    return;
   }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
+  consume<T::THREADS>(full, nsg, [&](int g) {
+    const bf16* b = base + (g & 1) * buf;
+    float acc[T::MT][2][4];
+    zero(acc);
+    mma_slots<T::MT>(acc, b, AS, b + abuf, RS, U * BK, wm, wn, lane);
+    store_tile<T::MT>(acc, out, row0, g * GW + c0, m, n, wm, wn, lane);
+  });
 }
 
 template <typename K>
@@ -354,38 +441,53 @@ bool misaligned(const void* a, const void* vals, const void* out) {
            reinterpret_cast<uintptr_t>(out)) & 15) != 0;
 }
 
+struct Args {
+  const bf16* a;
+  const bf16* vals;
+  const int* krows;
+  const int* gmap;
+  float* out;
+  int m, k, n, U, nzero;
+  cudaStream_t st;
+};
+
+// launch `kern` over `x` block columns and the row tiles of a TM x CW
+// tile T, with `smem` bytes of staging (refused past SMEM_MAX)
+template <int TM, typename T, typename K>
+int launch(K kern, const Args& p, int x, size_t smem) {
+  const cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(x, (p.m + TM - 1) / TM);
+  kern<<<grid, T::THREADS, smem, p.st>>>(
+      p.a, p.vals, p.krows, p.gmap, p.out, p.m, p.k, p.n, p.U, p.nzero);
+  return cudaGetLastError();
+}
+
+// chunkN's plan: the first of 64, 32, 16 rows whose staging fits
+// (kernels/spmm_lab.py chunk_plan)
 template <int N>
-int launch_chunk(const bf16* a, const bf16* vals, const int* krows,
-                 const int* gmap, float* out, int m, int k, int n, int U,
-                 int nzero, cudaStream_t st) {
-  const int csl = (U + N - 1) / N;
-  const size_t smem = (N > 1 ? 2 : 1) * sizeof(bf16) *
-      (size_t)(stage_elems_a<CTM>(csl) + stage_elems_r<CCW>(csl));
-  auto kern = bcsc_lab_chunk_kernel<N>;
-  const cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((n / GW) * (GW / CCW), (m + CTM - 1) / CTM);
-  kern<<<grid, CNT, smem, st>>>(a, vals, krows, gmap, out, m, k, n, U, nzero);
-  return cudaGetLastError();
+int launch_chunk(const Args& p) {
+  const int csl = (p.U + N - 1) / N, nbuf = N > 1 ? 2 : 1;
+  const int x = (p.n / GW) * (GW / CHUNK_CW);
+  const size_t s64 = stage_bytes(64, CHUNK_CW, csl, nbuf);
+  const size_t s32 = stage_bytes(32, CHUNK_CW, csl, nbuf);
+  if (s64 <= SMEM_MAX)
+    return launch<64, ChunkTile<64>>(bcsc_lab_chunk_kernel<N, 64>, p, x, s64);
+  if (s32 <= SMEM_MAX)
+    return launch<32, ChunkTile<32>>(bcsc_lab_chunk_kernel<N, 32>, p, x, s32);
+  return launch<16, ChunkTile<16>>(bcsc_lab_chunk_kernel<N, 16>, p, x,
+                                   stage_bytes(16, CHUNK_CW, csl, nbuf));
 }
 
-template <int TM>
-size_t dspipe_smem(int U) {
-  return 2 * sizeof(bf16) *
-         (size_t)(stage_elems_a<TM>(U) + stage_elems_r<DCW>(U));
-}
-
-template <int TM, int NT>
-int launch_dspipe(const bf16* a, const bf16* vals, const int* krows,
-                  const int* gmap, float* out, int m, int k, int n, int U,
-                  int nzero, cudaStream_t st) {
-  const size_t smem = dspipe_smem<TM>(U);
-  auto kern = bcsc_lab_dspipe_kernel<TM, NT>;
-  const cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(GW / DCW, (m + TM - 1) / TM);
-  kern<<<grid, NT, smem, st>>>(a, vals, krows, gmap, out, m, k, n, U, nzero);
-  return cudaGetLastError();
+// dspipe's plan: 32 rows if two whole unions fit, else 16
+// (kernels/spmm_lab.py dspipe_plan)
+int launch_dspipe(const Args& p) {
+  const int x = GW / DSPIPE_CW;
+  const size_t s32 = stage_bytes(32, DSPIPE_CW, p.U, 2);
+  if (s32 <= SMEM_MAX)
+    return launch<32, DspipeTile<32>>(bcsc_lab_dspipe_kernel<32>, p, x, s32);
+  return launch<16, DspipeTile<16>>(bcsc_lab_dspipe_kernel<16>, p, x,
+                                    stage_bytes(16, DSPIPE_CW, p.U, 2));
 }
 
 }  // namespace
@@ -417,14 +519,13 @@ int xsmm_bcsc_lab_chunk(const void* a, const void* vals, const int* krows,
   if (bad_shape(m, k, n, U) || misaligned(a, vals, out))
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* pa = static_cast<const bf16*>(a);
-  const bf16* pv = static_cast<const bf16*>(vals);
-  float* po = static_cast<float*>(out);
+  const Args p{static_cast<const bf16*>(a), static_cast<const bf16*>(vals),
+               krows, gmap, static_cast<float*>(out), m, k, n, U, nzero,
+               static_cast<cudaStream_t>(stream)};
   switch (nchunks) {
-    case 1: return launch_chunk<1>(pa, pv, krows, gmap, po, m, k, n, U, nzero, st);
-    case 2: return launch_chunk<2>(pa, pv, krows, gmap, po, m, k, n, U, nzero, st);
-    case 4: return launch_chunk<4>(pa, pv, krows, gmap, po, m, k, n, U, nzero, st);
+    case 1: return launch_chunk<1>(p);
+    case 2: return launch_chunk<2>(p);
+    case 4: return launch_chunk<4>(p);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -436,13 +537,10 @@ int xsmm_bcsc_lab_dspipe(const void* a, const void* vals, const int* krows,
   if (bad_shape(m, k, n, U) || misaligned(a, vals, out))
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* pa = static_cast<const bf16*>(a);
-  const bf16* pv = static_cast<const bf16*>(vals);
-  float* po = static_cast<float*>(out);
-  if (dspipe_smem<32>(U) <= SMEM_MAX)
-    return launch_dspipe<32, 128>(pa, pv, krows, gmap, po, m, k, n, U, nzero, st);
-  return launch_dspipe<16, 64>(pa, pv, krows, gmap, po, m, k, n, U, nzero, st);
+  return launch_dspipe(Args{static_cast<const bf16*>(a),
+                            static_cast<const bf16*>(vals), krows, gmap,
+                            static_cast<float*>(out), m, k, n, U, nzero,
+                            static_cast<cudaStream_t>(stream)});
 }
 
 }  // extern "C"

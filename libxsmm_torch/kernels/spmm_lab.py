@@ -9,12 +9,19 @@ strategies. All take the lab's operands: A (m, k) and the BCSC values
 clustering (krows (n/128, U), gmap (n/128, U, 4), nblocks = the zero block):
 
 * BcscLabMinimal — `minimal`: out[:, 128g:128g+128] = A[:, :32U] @ rhs[g]
-  over a constant (n/128, 32U, 128) RHS; the union kernel's tile and loop
-  with no gather and no slot skip, the floor of the port's own kernel.
+  over a constant (n/128, 32U, 128) RHS; the union kernel's old f32 FMA
+  tile and loop with no gather and no slot skip. It stays that FMA floor
+  (path "fma") until it is redesigned in turn.
 * BcscLabChunk — `chunk1/2/4`: the union product with the fused gather, the
   U slots in N chunks, the fill of chunk c+1 issued before chunk c's math.
 * BcscLabDspipe — `dspipe`: the same product, the fill of the next group's
   union issued before this group's math.
+
+chunkN and dspipe multiply on the bf16 tensor cores (path "mma": mma.sync
+m16n8k16, f32 accumulators), as the library's union kernel does, over a
+cp.async staging whose tile `chunk_plan` and `dspipe_plan` choose (the
+launcher in the CUDA source mirrors them); a union too deep for any of
+their tiles is refused.
 
 Calling a probe checks the operands' shapes, then follows their device: on
 CUDA tensors it launches its kernel on the current stream (a build failure
@@ -27,6 +34,7 @@ launches, and only those.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,7 +53,62 @@ def reset_launches() -> None:
 
 
 BLOCK = 32           # the lab's block edge (bk = bn)
+SMEM_MAX = 232448    # bytes of shared memory a block may use (csrc SMEM_MAX)
+CHUNK_CW = 64        # chunkN's tile columns, half a group (csrc CHUNK_CW)
+DSPIPE_CW = 32       # dspipe's tile columns, one block column (csrc DSPIPE_CW)
+CHUNK_ROWS = (64, 32, 16)   # chunkN's tile heights, tried in order
+DSPIPE_ROWS = (32, 16)      # dspipe's
+CHUNK_PRODUCERS = 256   # staging threads beside the consumers (csrc)
+DSPIPE_PRODUCERS = 384
+BAR_BYTES = 16       # the staging ring's barriers (csrc BAR_BYTES)
 _lib = None
+
+
+class StagePlan(NamedTuple):
+    """A fused probe's tile and staging: `rows` x `cols` output tile,
+    `buffers` buffers of `slots` union slots each, `smem` bytes of shared
+    memory, `threads` per block: the consumers (a warp per 16 columns, two
+    warps down the rows of a tile of 32 rows or more) and the producers
+    (CHUNK_PRODUCERS or DSPIPE_PRODUCERS)."""
+    rows: int
+    cols: int
+    slots: int
+    buffers: int
+    threads: int
+    smem: int
+
+
+def stage_bytes(rows: int, cols: int, slots: int, buffers: int) -> int:
+    """csrc stage_bytes: the ring's two 8-byte barriers, then per buffer A
+    (rows x 32 slots) and the RHS (32 slots x cols) in bf16, every row
+    padded by 8 elements (16 bytes)."""
+    return BAR_BYTES + buffers * 2 * (rows * (slots * BLOCK + 8)
+                                      + slots * BLOCK * (cols + 8))
+
+
+def _plan(heights, cols: int, slots: int, buffers: int,
+          producers: int) -> Optional[StagePlan]:
+    for rows in heights:
+        smem = stage_bytes(rows, cols, slots, buffers)
+        if smem <= SMEM_MAX:
+            threads = (32 * (2 if rows >= 32 else 1) * (cols // 16)
+                       + producers)
+            return StagePlan(rows, cols, slots, buffers, threads, smem)
+    return None
+
+
+def chunk_plan(U: int, nchunks: int) -> Optional[StagePlan]:
+    """chunkN's staging (csrc launch_chunk): chunks of ceil(U/N) slots, two
+    buffers when N > 1, the first of 64, 32, 16 rows that fits; None when
+    none does (the launch is refused)."""
+    return _plan(CHUNK_ROWS, CHUNK_CW, -(-U // nchunks),
+                 2 if nchunks > 1 else 1, CHUNK_PRODUCERS)
+
+
+def dspipe_plan(U: int) -> Optional[StagePlan]:
+    """dspipe's staging (csrc launch_dspipe): two buffers of the whole
+    union, 32 rows if they fit, else 16; None when neither does."""
+    return _plan(DSPIPE_ROWS, DSPIPE_CW, U, 2, DSPIPE_PRODUCERS)
 
 
 def _kernels() -> ctypes.CDLL:
@@ -111,6 +174,7 @@ class BcscLabMinimal(_LabProbe):
     `values` is checked and not read."""
 
     counter = "bcsc_lab_minimal"
+    path = "fma"
 
     def __init__(self, m: int, n: int, k: int, nblocks: int,
                  rhs: torch.Tensor):
@@ -137,7 +201,10 @@ class _UnionProbe(_LabProbe):
     """The union product over the create-time plan (krows, gmap on
     `device`): per group, A's (m, 32U) panel stack at the union's block rows
     times the (32U, 128) RHS gathered through gmap, in f32, pad slots
-    included; the plain version of chunkN and dspipe."""
+    included; the plain version of chunkN and dspipe. Both run on the bf16
+    tensor cores; `stage` is the kernel's staging plan (None: refused)."""
+
+    path = "mma"
 
     def __init__(self, m: int, n: int, k: int, nblocks: int,
                  krows: np.ndarray, gmap: np.ndarray, device):
@@ -172,6 +239,7 @@ class BcscLabChunk(_UnionProbe):
             raise ValueError(f"chunkN: N must be 1, 2 or 4 (got {nchunks})")
         super().__init__(m, n, k, nblocks, krows, gmap, device)
         self.nchunks = nchunks
+        self.stage = chunk_plan(self.U, nchunks)
         self.name = f"{self.name}_chunk{nchunks}"
 
     def _launch(self, lib, a, values, out):
@@ -186,6 +254,10 @@ class BcscLabDspipe(_UnionProbe):
     union staged while this group's is multiplied."""
 
     counter = "bcsc_lab_dspipe"
+
+    def __init__(self, m, n, k, nblocks, krows, gmap, device):
+        super().__init__(m, n, k, nblocks, krows, gmap, device)
+        self.stage = dspipe_plan(self.U)
 
     def _launch(self, lib, a, values, out):
         return lib.xsmm_bcsc_lab_dspipe(

@@ -6,12 +6,16 @@ blocks, bf16 -> f32, the pattern of build_pattern(density, seed=2). The
 probes are variants of the port's own union kernel (kernels/spmm_lab.py,
 kernels/csrc/spmm_lab_kernels.cu), each keeping one property:
 
-  minimal   the union kernel's tile and loop over a constant, already
-            compacted RHS: no gather, no slot skip (the kernel's dot floor)
+  minimal   the union kernel's old f32 FMA tile and loop over a constant,
+            already compacted RHS: no gather, no slot skip. It stays that
+            FMA floor until it is redesigned in turn
   chunkN    the fused gather with the union slots in N = 1, 2 or 4 chunks,
             the fill of chunk c + 1 issued before the math of chunk c
   dspipe    the fill of the next group's union issued before the math of
             this group
+
+chunkN and dspipe multiply on the bf16 tensor cores, as the library's union
+kernel does, so t / t(union4) compares staging schedules, not arithmetic.
 
 main() builds the library strategies dense, union, union4, union4a, union4d
 and union5 (create_packed_spgemm_bcsc) and the probes, holds every result
@@ -25,7 +29,9 @@ raises propagates.
     python3 -m libxsmm_torch.scripts.bcsc_lab [--density 0.2] [--rounds 5]
 
 --device cpu runs the plain versions on the host clock, a rehearsal of the
-control flow. main(argv) returns the printed rows.
+control flow. main(argv) returns the printed rows; a probe's row names its
+kernel's path ("mma": the tensor cores, "fma": the f32 FMAs; None for the
+library's strategies).
 """
 
 from __future__ import annotations
@@ -186,11 +192,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     for i, (nm, t) in enumerate(zip(names, times)):
         vs = None if base is None else float(np.median(
             [ti / tb for ti, tb in zip(rounds[i], rounds[base])]))
+        path = fns[nm].path if nm in probes else None
         rows.append({"name": nm, "density": args.density, "us": t * 1e6,
                      "useful_tflops": useful / t / 1e12, "vs_union4": vs,
-                     "normf_rel": errs.get(nm)})
+                     "normf_rel": errs.get(nm), "path": path})
         print(f"{nm:>10}: {t * 1e6:8.2f} us  useful "
-              f"{useful / t / 1e12:6.2f} TF/s")
+              f"{useful / t / 1e12:6.2f} TF/s" + (f"  [{path}]" if path
+                                                   else ""))
     for r in rows:
         if r["vs_union4"] is not None:
             print(f"median paired t({r['name']})/t(union4): "

@@ -10,10 +10,14 @@ machine run:
 package's tests, and this file imports nothing of JAX or libxsmm_tpu.)
 
 Shapes are ragged on purpose: row counts that are not a multiple of any
-tile, a ragged last K chunk of the BRGEMM twin, odd union depths, a column
-group with no block (every slot padded), the deepest union k = 1024 allows
-(dspipe's 16-row tile), and value tensors 2 and 8 bytes off 16-byte
-alignment (the wrappers copy them into aligned tensors).
+tile (the lab's U = 21 at m = 1000 among them), a ragged last K chunk of the
+BRGEMM twin, odd union depths, a column group with no block (every slot
+padded), the deepest union k = 1024 allows (dspipe's 16-row tile), the
+unions at each edge of the fused probes' staging plans (the last that fits
+a tile height and the first that does not; past the last height the launch
+is refused and raises), and value tensors 2 and 8 bytes off 16-byte
+alignment (the wrappers copy them into aligned tensors). chunkN and dspipe
+must run on the tensor cores (path "mma"), minimal on the FMAs ("fma").
 
 Tolerances (matdiff normf_rel): 1e-5 for the BRGEMM twin (f32 sums of the
 same values in another order); bit for bit for the passthrough; 1e-4 for the
@@ -154,6 +158,7 @@ def _cases():
     small, _ = bcsc_lab.build_pattern(0.3, m=256, k=256, n=256)
     return {
         "lab20_m1024": (1024, 1024, 1024, lab20),           # U = 21
+        "lab20_m1000": (1000, 1024, 1024, lab20),           # ragged m
         "lab05_m1000": (1000, 1024, 1024, lab05),           # U = 10
         "lab30_256_m100": (100, 256, 256, small),
         # three groups: unions of 3 and 5 (odd), the middle one empty
@@ -195,6 +200,7 @@ def _counter(probe):
 def test_probe_matches_plain(probes, case, probe):
     variants, a, v = probes[case]
     fn = variants[probe]
+    assert fn.path == ("fma" if probe == "minimal" else "mma")
     got = launched(pl.launches, _counter(probe), lambda: fn(a, v))
     assert got.dtype == torch.float32 and got.shape == (a.shape[0],
                                                         fn.n)
@@ -227,3 +233,54 @@ def test_probe_repeats_bit_for_bit(probes):
     variants, a, v = probes["lab20_m1024"]
     for probe in PROBES:
         assert torch.equal(variants[probe](a, v), variants[probe](a, v))
+
+
+PLANS = {"chunk1": lambda U: pl.chunk_plan(U, 1),
+         "chunk2": lambda U: pl.chunk_plan(U, 2),
+         "chunk4": lambda U: pl.chunk_plan(U, 4),
+         "dspipe": pl.dspipe_plan}
+
+
+def _edges(plan):
+    """The unions at each edge of a staging plan: the last U of each tile
+    height and the first U after it (the next height, or the refusal)."""
+    out, prev = [], plan(1)
+    for U in range(2, 200):
+        cur = plan(U)
+        if (cur and cur.rows) != (prev and prev.rows):
+            out += [U - 1, U]
+        if cur is None:
+            return out
+        prev = cur
+    raise AssertionError("the plan never refuses")
+
+
+EDGES = [(probe, U) for probe, plan in PLANS.items() for U in _edges(plan)]
+
+
+@pytest.mark.parametrize("probe,U", EDGES, ids=lambda x: str(x))
+def test_probe_at_staging_edges(gen, probe, U):
+    """One group whose union holds all U block rows of k = 32 U, m = 50:
+    each tile height at its deepest union and the next one's shallowest
+    match the plain version and float64; past the last height the launch
+    raises and nothing runs in its place."""
+    del gen
+    m, k, n = 50, 32 * U, 128
+    bcsc = _pattern(U, 4, {0: range(0, U, 2), 3: range(1, U, 2)})
+    fn = bcsc_lab.make_variants((m, n, k), bcsc, 0.0, "cuda")[probe]
+    assert fn.U == U and fn.path == "mma"
+    assert fn.stage == PLANS[probe](U)
+    rng = np.random.default_rng(3)
+    a = torch.as_tensor(rng.standard_normal((m, k)),
+                        device="cuda").to(torch.bfloat16)
+    v = torch.as_tensor(bcsc.data, device="cuda").to(torch.bfloat16)
+    if fn.stage is None:
+        before = dict(pl.launches)
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            fn(a, v)
+        assert pl.launches == before
+        return
+    got = launched(pl.launches, _counter(probe), lambda: fn(a, v))
+    check(fn.plain(a, v), got, margin=1e-4)
+    dense = torch.as_tensor(bcsc.to_dense(), device="cuda")
+    check(a.double() @ dense.to(torch.bfloat16).double(), got, margin=1e-4)

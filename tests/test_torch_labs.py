@@ -288,9 +288,12 @@ def test_bcsc_lab_runs_on_cpu(capsys):
                           "0.05"])
     names = [r["name"] for r in rows]
     assert names == list(bcsc_lab.LIBRARY) + list(PROBES)
+    paths = {"minimal": "fma", "chunk1": "mma", "chunk2": "mma",
+             "chunk4": "mma", "dspipe": "mma"}
     for r in rows:
         assert r["us"] > 0 and r["vs_union4"] > 0
         assert (r["normf_rel"] is None) == (r["name"] == "minimal")
+        assert r["path"] == paths.get(r["name"])
     assert next(r for r in rows if r["name"] == "union4")["vs_union4"] == 1.0
     out = capsys.readouterr().out
     assert "useful flops/call" in out and "check dspipe" in out
