@@ -50,7 +50,9 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
      dropout, bias per head and broadcast, and the LSE output; f32 (the FMA
      kernel) at (4, 1024, 64) and hd=256 at (2, 256, 256);
    - dispatch_meltw_unary(DROPOUT, BITMASK_2BYTEMULT) at the FFN shape
-     4096 x 3072 in bf16, f32 and f16;
+     4096 x 3072 and at 1000 x 1001 with x off 16-byte alignment, in
+     bf16, f32 and f16, the kernel's packed mask against pack_bitmask of
+     the plain mask bit for bit; without the flag (no mask) at 4096 x 3072;
    then fails unless both kernels were launched and no backward kernel
    was, and times every phase;
 6. drives the block's training path the same way, with every count set to
@@ -144,9 +146,15 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     t_sol / t_brg, by events, device time and CUDA-graph replay; the
     batched SMM's odd shape and bf16 case are held against their plain
     versions and timed beside torch.bmm; the BCSC lab's chunkN and dspipe
-    probes must take the tensor cores, and their rows carry the path, the
-    kernel / library ratio by events, device time and CUDA-graph replay,
-    the staging plan and the lab's paired t / t(union4); for the six
+    probes must take the tensor cores (mma.sync) and minimal wgmma, and
+    their rows carry the path, the kernel / library ratio by events,
+    device time and CUDA-graph replay (minimal's library: torch.mm on its
+    own panel and RHS), the staging plan and the lab's paired t /
+    t(union4); the dropout row carries its byte, packed and mask-less
+    forms and F.dropout, each by events, replay and the host's own time per
+    call (minimal's row and its torch.mm that too); these two rows leave
+    out the profiler's device time, which read minimal at under half its
+    replayed time and the dropout below its bytes bound; for the six
     tensor-core rows
     (flash forward, the
     flash backward's dK/dV and dQ, the scheduled, union and supertile
@@ -237,7 +245,9 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dq_mma_kernel"),
                ("spmm_lab_kernels", "bcsc_lab_chunk_kernel"),
-               ("spmm_lab_kernels", "bcsc_lab_dspipe_kernel"))
+               ("spmm_lab_kernels", "bcsc_lab_dspipe_kernel"),
+               ("spmm_lab_kernels", "bcsc_lab_minimal_wgmma_kernel"),
+               ("eltwise_kernels", "dropout"))
 
 
 def _smi() -> str:
@@ -412,21 +422,37 @@ def encoder_path(randn, dev):
                KA.build_flash_attention(fbh, fs, fhd, f32).plain(
                    0, fq, fkT, fv), out, TOL_F32, (fbh, fs, fhd))
 
-    # dispatch_meltw_unary(DROPOUT) with the packed bitmask at the FFN shape
+    # dispatch_meltw_unary(DROPOUT) with the packed bitmask, which the
+    # kernel writes, at the FFN shape, then at a ragged n (not a multiple of
+    # 16) with x off 16-byte alignment; without the flag, out alone. Each
+    # phase's time per call through the entry point is printed with the
+    # path's phases
     m, n = 8 * 512, 3072
     for dt, dtn in ((bf16, "BF16"), (f32, "F32"), (torch.float16, "F16")):
-        kern = xt.dispatch_meltw_unary(
-            UnaryType.DROPOUT, m, n, UnaryFlags.BITMASK_2BYTEMULT,
-            in_type=Datatype[dtn], extra=(0.1,))
+        for rows, cols, off in ((m, n, 0), (1000, 1001, 1)):
+            kern = xt.dispatch_meltw_unary(
+                UnaryType.DROPOUT, rows, cols, UnaryFlags.BITMASK_2BYTEMULT,
+                in_type=Datatype[dtn], extra=(0.1,))
+            xd = randn(rows * cols + off, dtype=dt)[off:].view(rows, cols)
+            if bool(xd.data_ptr() % 16) != bool(off):
+                raise AssertionError("meltw dropout: operand alignment")
+            tag = f"{dtn.lower()} {rows}x{cols}" + (" unaligned" if off
+                                                   else "")
+            out, packed = run(f"meltw dropout {tag}", ["dropout"], kern, xd,
+                              7)
+            want_out, want_mask = KE.dropout.plain(xd, 7, 0.1)
+            _check(f"meltw dropout {tag}: out vs plain", want_out, out,
+                   TOL_EXACT, (rows, cols))
+            _check(f"meltw dropout {tag}: packed mask vs "
+                   f"pack_bitmask(plain)", xt.pack_bitmask(want_mask != 0),
+                   packed, TOL_EXACT, (rows, (cols + 15) // 16 * 2))
+        bare = xt.dispatch_meltw_unary(UnaryType.DROPOUT, m, n,
+                                       in_type=Datatype[dtn], extra=(0.1,))
         xd = randn(m, n, dtype=dt)
-        out, packed = run(f"meltw dropout {dtn.lower()} {m}x{n}", ["dropout"],
-                          kern, xd, 7)
-        want_out, want_mask = KE.dropout.plain(xd, 7, 0.1)
-        _check(f"meltw dropout {dtn}: out vs plain", want_out, out,
-               TOL_EXACT, (m, n))
-        _check(f"meltw dropout {dtn}: mask vs plain",
-               xt.pack_bitmask(want_mask != 0), packed, TOL_EXACT,
-               (m, n // 8))
+        out = run(f"meltw dropout {dtn.lower()} {m}x{n} no mask",
+                  ["dropout"], bare, xd, 7)
+        _check(f"meltw dropout {dtn} no mask: out vs plain",
+               KE.dropout.plain(xd, 7, 0.1)[0], out, TOL_EXACT, (m, n))
 
     torch.cuda.synchronize()
     counts = {**KA.launches, **KE.launches}
@@ -1360,6 +1386,25 @@ def graph_ms(fn, reps=20, rounds=5):
     return best
 
 
+def host_ms(fn, reps=100, rounds=5):
+    """Milliseconds of the host's own time per call of fn(): the best of
+    `rounds` windows of `reps` back-to-back calls on the host clock, with no
+    synchronize inside a window (the card drains the queue after it). Where
+    this exceeds the device's time per call, the host sets an event-timed
+    row."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / reps)
+        torch.cuda.synchronize()
+    return best * 1e3
+
+
 def device_ms(fn, reps=20):
     """Device time per call of fn(): the CUDA kernels' summed time over
     `reps` calls, from torch.profiler, after one call to warm up."""
@@ -1535,6 +1580,7 @@ def lab_rows(record, ms, geo, dev, passthrough, brgemm, bcsc_lab_rows):
     from libxsmm_torch.descriptor import GemmShape, SpgemmConfig
     from libxsmm_torch.dtypes import Datatype
     from libxsmm_torch.kernels.spmm import build_bcsc_densify
+    from libxsmm_torch.kernels.spmm_lab import minimal_plan
     from libxsmm_torch.scripts import bcsc_lab
 
     sol, br_args, br_bytes, br_ms = brgemm
@@ -1572,12 +1618,15 @@ def lab_rows(record, ms, geo, dev, passthrough, brgemm, bcsc_lab_rows):
     for name in ("chunk1", "chunk2", "chunk4", "dspipe"):
         if probes[name].path != "mma":
             raise AssertionError(f"bcsc lab {name} took {probes[name].path}")
+    if probes["minimal"].path != "wgmma":
+        raise AssertionError(f"bcsc lab minimal took {probes['minimal'].path}")
     # events around back-to-back calls carry the host's cost of a call;
     # the profiler's device time and a CUDA graph's replay leave it out
+    # (minimal's row takes replay alone: the profiler read its kernel at
+    # under half its replayed time, a gap no trace explains yet)
     dev_t = {nm: device_ms(lambda f=fn: f(a, v))
              for nm, fn in probes.items() if nm != "minimal"}
-    rep_t = {nm: graph_ms(lambda f=fn: f(a, v))
-             for nm, fn in probes.items() if nm != "minimal"}
+    rep_t = {nm: graph_ms(lambda f=fn: f(a, v)) for nm, fn in probes.items()}
     lib_dev = device_ms(lambda: mm_f32(a, dense_b))
     lib_rep = graph_ms(lambda: mm_f32(a, dense_b))
     timing = {"library_device_ms": lib_dev, "library_graph_ms": lib_rep}
@@ -1602,18 +1651,33 @@ def lab_rows(record, ms, geo, dev, passthrough, brgemm, bcsc_lab_rows):
                    stage=probes["dspipe"].stage._asdict(),
                    device_ms=dev_t["dspipe"], graph_ms=rep_t["dspipe"],
                    **timing)]
+    # minimal's yardstick: torch.mm on its own panel and RHS, by events and
+    # replay
     minimal = probes["minimal"]
     rhs = minimal.rhs
     panel = a[:, :U * 32].contiguous()
     rhs_cat = rhs.permute(1, 0, 2).reshape(U * 32, n).contiguous()
+    min_lib = {"library_graph_ms": graph_ms(lambda: mm_f32(panel, rhs_cat)),
+               "host_ms": host_ms(lambda: minimal(a, v)),
+               "library_host_ms": host_ms(lambda: mm_f32(panel, rhs_cat))}
     rows.append(record("bcsc_lab_minimal", src, f"{lab}:100", minimal,
                        (a, v), TOL_SPARSE_BF16,
                        2 * panel.numel() + 2 * rhs.numel() + out_bytes,
                        union_ops, geo.peak_bf16_tflops,
                        ms(mm_f32, panel, rhs_cat), path=minimal.path,
-                       vs_union4=vs["minimal"]))
+                       vs_union4=vs["minimal"],
+                       plan=minimal_plan(m, n, U)._asdict(),
+                       graph_ms=rep_t["minimal"], **min_lib))
     for r in rows:
         r["kl"] = r["ms"] / r["library_ms"]
+    r = rows[-1]
+    print(f"  bcsc lab minimal [{minimal.path}]: {r['ms']:.4f} ms, "
+          f"replayed {r['graph_ms']:.4f}; torch.mm on its panel "
+          f"{r['library_ms']:.4f} ms, replayed {r['library_graph_ms']:.4f}; "
+          f"k/l {r['kl']:.3f}, replayed "
+          f"{r['graph_ms'] / r['library_graph_ms']:.3f}; host "
+          f"{r['host_ms']:.4f} ms a call (torch.mm {r['library_host_ms']:.4f})"
+          f"; t / t(union4) {vs['minimal']:.3f}; plan {r['plan']}")
     print(f"  bcsc lab probes at 1024^3, density 0.2: U = {U}, "
           f"{int(np.asarray(bcsc.indices).size)} blocks; torch.mm "
           f"{lib_mm:.4f} ms, device {lib_dev:.4f}, replayed {lib_rep:.4f}")
@@ -2255,14 +2319,47 @@ def main() -> int:
            4 * fbh * fs * fhd * 2, flash_ops,
            geo.peak_bf16_tflops, ms(sdpa, *sdpa_operands(fq, fkT, fv)))
     mma_rate(rows[-1], flash_ops, flash_ops)
-    # dropout at the FFN shape: x read once, out and the byte mask written
-    # once; the yardstick is torch's dropout (its own random bits)
+    # dropout at the FFN shape: x read once, out and the mask written once
+    # (bytes: one a element; packed: the BITMASK_2BYTEMULT bits; none); the
+    # yardstick is torch's dropout (its own random bits, no mask). The row
+    # is the byte form's; the other forms stand beside it, each held
+    # against the plain version bit for bit; events, replay and the host's
+    # time a call split each call's time between the host and the card (the
+    # profiler's kernel time is left out: it read the byte form below its
+    # bytes bound)
     dx = enc["dropout_operand"]
-    record("dropout", "eltwise_kernels.cu",
-           "libxsmm_tpu/kernels/eltwise_pallas.py:103", KE.dropout,
-           (dx, 7, 0.1), TOL_EXACT, dx.numel() * (2 + 2 + 1), 0,
-           geo.peak_bf16_tflops,
-           ms(lambda t: torch.nn.functional.dropout(t, 0.1, True), dx))
+
+    def f_dropout(t):
+        return torch.nn.functional.dropout(t, 0.1, True)
+
+    rowd = record("dropout", "eltwise_kernels.cu",
+                  "libxsmm_tpu/kernels/eltwise_pallas.py:103", KE.dropout,
+                  (dx, 7, 0.1), TOL_EXACT, dx.numel() * (2 + 2 + 1), 0,
+                  geo.peak_bf16_tflops, ms(f_dropout, dx),
+                  graph_ms=graph_ms(lambda: KE.dropout(dx, 7, 0.1)),
+                  host_ms=host_ms(lambda: KE.dropout(dx, 7, 0.1)),
+                  library_graph_ms=graph_ms(lambda: f_dropout(dx)),
+                  library_host_ms=host_ms(lambda: f_dropout(dx)))
+    mask_bytes = {"packed": dx.shape[0] * ((dx.shape[1] + 15) // 16 * 2),
+                  "none": 0}
+    for form, nb in mask_bytes.items():
+        def call(t, form=form):
+            return KE.dropout(t, 7, 0.1, mask=form)
+        _check(f"dropout {form} kernel vs plain",
+               KE.dropout.plain(dx, 7, 0.1, mask=form), call(dx), TOL_EXACT)
+        rowd.update({f"{form}_ms": ms(call, dx),
+                     f"{form}_graph_ms": graph_ms(lambda: call(dx)),
+                     f"{form}_host_ms": host_ms(lambda: call(dx)),
+                     f"{form}_bound_ms": geo.bound_ms(
+                         dx.numel() * 4 + nb, 0, geo.peak_bf16_tflops)})
+    print("  dropout 4096x3072 bf16 (ms; events / replayed / host a call / "
+          "bound): " + "; ".join(
+              f"{label} {rowd[k + 'ms']:.4f} / {rowd[k + 'graph_ms']:.4f} / {rowd[k + 'host_ms']:.4f} / "
+              f"{rowd[k + 'bound_ms']:.4f}"
+              for label, k in (("bytes", ""), ("packed", "packed_"),
+                               ("none", "none_"))) +
+          f"; F.dropout {rowd['library_ms']:.4f} / "
+          f"{rowd['library_graph_ms']:.4f} / {rowd['library_host_ms']:.4f}")
 
     # the flash backward at the same shape, one kernel per row: dK/dV runs
     # four (s, s, hd) products, dQ three (the reference's CostEstimate
@@ -2398,7 +2495,10 @@ def main() -> int:
             ("chunk4_ms", "chunk4"), ("device_ms", "device time"),
             ("library_device_ms", "library device time"),
             ("graph_ms", "replayed from a CUDA graph"),
-            ("library_graph_ms", "library replayed"), ("sol_ms", "its twin"),
+            ("library_graph_ms", "library replayed"),
+            ("host_ms", "host a call"), ("library_host_ms", "library host"),
+            ("packed_ms", "packed mask"), ("none_ms", "no mask"),
+            ("sol_ms", "its twin"),
             ("sol_device_ms", "twin device time"),
             ("sol_graph_ms", "twin replayed")) if key in r)
         path = f" [{r['path']}]" if "path" in r else ""

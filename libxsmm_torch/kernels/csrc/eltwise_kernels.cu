@@ -15,7 +15,14 @@
 //   u    = float((bits >> 9) | 0x3F800000) - 1          (the reference's
 //          mantissa fill, eltwise_pallas.py:121-122: u in [0, 1))
 //   keep = u >= p;  out = keep ? float(x) * scale : 0, cast to x's type;
-//   mask = keep (one byte per element).
+//   mask = keep, in one of three forms (`form`):
+//     bytes   one byte per element (what the encoder block's _Dropout
+//             saves for its backward);
+//     packed  x viewed as (rows, cols): the reference's BITMASK_2BYTEMULT
+//             layout (ops/eltwise.py bitmask_ld / pack_bitmask):
+//             the bit of (r, c) is bit c % 8 of byte c / 8 + r * ld / 8,
+//             ld = ceil(cols / 16) * 16 bits, pad bits 0;
+//     none    no mask (the meltw DROPOUT without the flag).
 // p and scale = 1/(1-p) (computed in f32 by the wrapper) are runtime
 // arguments. f16 and bf16 are widened to f32 and the product is rounded
 // once, which is what the reference's f32 view of f16 input gives.
@@ -25,12 +32,18 @@
 // kernel and plain agree bit for bit.
 //
 // Bound: device memory. At the encoder block's FFN shape (4096 x 3072 bf16)
-// the pass reads 25.2 MB and writes 25.2 MB + 12.6 MB of mask: 62.9 MB,
-// 0.0188 ms at 3.35 TB/s; the hash is about 12 integer operations per
-// element. Design: each thread takes 16 bytes of x (4 f32 or 8 16-bit
-// elements) per step of a grid-stride loop, with one 16-byte load, one
-// 16-byte store of out and one 4- or 8-byte store of the mask; a ragged tail,
-// or an x that is not 16-byte aligned, takes the element-wise path.
+// the pass reads 25.2 MB and writes 25.2 MB of out, plus 12.6 MB of byte
+// mask (62.9 MB, 0.0188 ms at 3.35 TB/s), 1.6 MB of packed mask (51.9 MB,
+// 0.0155 ms) or none (50.3 MB, 0.0150 ms); the hash is about 12 integer
+// operations per element. Design, bytes and none: each thread takes 16
+// bytes of x (4 f32 or 8 16-bit elements) per step of a grid-stride loop,
+// with one 16-byte load, one 16-byte store of out and one 4- or 8-byte
+// store of the mask; a ragged tail, or an x that is not 16-byte aligned,
+// takes the element-wise path. Packed: a thread owns 16 consecutive
+// columns of one row and writes their bits as one aligned 16-bit word, so
+// the mask costs no pass of its own (the reference packs it with jnp ops
+// that XLA fuses); x goes by 16-byte vectors where its address and row
+// stride allow, element by element otherwise (and in a ragged last word).
 
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -70,6 +83,9 @@ template <> struct MaskVec<8> {
   }
 };
 
+enum { MASK_BYTES = 0, MASK_PACKED = 1, MASK_NONE = 2 };
+
+// bytes and none (mask == nullptr)
 template <typename T>
 __global__ void __launch_bounds__(256) dropout_kernel(
     const T* __restrict__ x, T* __restrict__ out, uint8_t* __restrict__ mask,
@@ -88,27 +104,83 @@ __global__ void __launch_bounds__(256) dropout_kernel(
       for (int e = 0; e < E; ++e)
         m[e] = drop_one(xe[e], oe + e, i0 + e, seed, p, scale);
       *reinterpret_cast<uint4*>(out + i0) = res;
-      MaskVec<E>::store(mask + i0, m);
+      if (mask) MaskVec<E>::store(mask + i0, m);
     } else {
-      for (long long i = i0; i < i0 + E && i < n; ++i)
-        mask[i] = drop_one(x[i], out + i, i, seed, p, scale);
+      for (long long i = i0; i < i0 + E && i < n; ++i) {
+        const uint8_t k = drop_one(x[i], out + i, i, seed, p, scale);
+        if (mask) mask[i] = k;
+      }
     }
+  }
+}
+
+// packed: x viewed as (rows, cols); step t of the grid-stride loop owns
+// columns [16 w, 16 w + 16) of row r, t = r * W + w, W = ceil(cols / 16),
+// and stores their keep bits as the 16-bit word t of the mask (bit e is
+// column 16 w + e: little-endian, so byte 2 t + e / 8, bit e % 8). `vec`:
+// x and its row stride are 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(256) dropout_packed_kernel(
+    const T* __restrict__ x, T* __restrict__ out,
+    uint16_t* __restrict__ mask, long long rows, int cols, float p,
+    float scale, uint32_t seed, int vec) {
+  constexpr int E = 16 / sizeof(T);
+  const int W = (cols + 15) / 16;
+  const long long units = rows * W;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < units; t += stride) {
+    const long long r = t / W;
+    const int c0 = (int)(t - r * W) * 16;
+    const long long i0 = r * cols + c0;
+    uint32_t word = 0;
+    if (vec && c0 + 16 <= cols) {
+#pragma unroll
+      for (int v = 0; v < 16 / E; ++v) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(x + i0 + v * E);
+        const T* xe = reinterpret_cast<const T*>(&raw);
+        uint4 res;
+        T* oe = reinterpret_cast<T*>(&res);
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          word |= (uint32_t)drop_one(xe[e], oe + e, i0 + v * E + e, seed, p,
+                                     scale) << (v * E + e);
+        *reinterpret_cast<uint4*>(out + i0 + v * E) = res;
+      }
+    } else {
+      const int ce = cols - c0 < 16 ? cols - c0 : 16;
+      for (int e = 0; e < ce; ++e)
+        word |= (uint32_t)drop_one(x[i0 + e], out + i0 + e, i0 + e, seed, p,
+                                   scale) << e;
+    }
+    mask[t] = (uint16_t)word;
   }
 }
 
 template <typename T>
 static int launch_dropout(const void* x, void* out, void* mask, long long n,
-                          float p, float scale, uint32_t seed, int aligned,
-                          int num_sms, cudaStream_t st) {
+                          int cols, int form, float p, float scale,
+                          uint32_t seed, int aligned, int num_sms,
+                          cudaStream_t st) {
   constexpr int E = 16 / sizeof(T);
-  const long long groups = (n + E - 1) / E;
-  long long blocks = (groups + 255) / 256;
+  // a thread's units: 16-byte groups of x, or 16-column words when packed
+  const long long units = form == MASK_PACKED
+                              ? (n / cols) * ((cols + 15) / 16)
+                              : (n + E - 1) / E;
+  long long blocks = (units + 255) / 256;
   const long long cap = (long long)num_sms * 16;   // grid-stride beyond
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  dropout_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<uint8_t*>(mask), n, p, scale, seed, aligned);
+  if (form == MASK_PACKED)
+    dropout_packed_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
+        static_cast<const T*>(x), static_cast<T*>(out),
+        static_cast<uint16_t*>(mask), n / cols, cols, p, scale, seed,
+        aligned && (cols * sizeof(T)) % 16 == 0);
+  else
+    dropout_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
+        static_cast<const T*>(x), static_cast<T*>(out),
+        form == MASK_BYTES ? static_cast<uint8_t*>(mask) : nullptr, n, p,
+        scale, seed, aligned);
   return cudaGetLastError();
 }
 
@@ -289,20 +361,24 @@ const char* xsmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x, out: n elements of `type`; mask: n bytes. out and mask 16-byte aligned
-// (fresh allocations); `aligned` says x is too.
-int xsmm_dropout(const void* x, void* out, void* mask, long long n, int type,
-                 float p, float scale, unsigned seed, int aligned, int num_sms,
-                 void* stream) {
+// x, out: n elements of `type`, out 16-byte aligned (a fresh allocation);
+// `aligned` says x is too. The mask by `form`: MASK_BYTES n bytes, 16-byte
+// aligned; MASK_PACKED (n / cols) x ceil(cols / 16) 16-bit words, x viewed
+// as (n / cols, cols); MASK_NONE none (mask unused).
+int xsmm_dropout(const void* x, void* out, void* mask, long long n, int cols,
+                 int type, int form, float p, float scale, unsigned seed,
+                 int aligned, int num_sms, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n < 0) return cudaErrorInvalidValue;
+  if (n < 0 || form < MASK_BYTES || form > MASK_NONE ||
+      (form == MASK_PACKED && (cols <= 0 || n % cols)))
+    return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   if (type == T_F32)
-    return launch_dropout<float>(x, out, mask, n, p, scale, seed, aligned, num_sms, st);
+    return launch_dropout<float>(x, out, mask, n, cols, form, p, scale, seed, aligned, num_sms, st);
   if (type == T_BF16)
-    return launch_dropout<__nv_bfloat16>(x, out, mask, n, p, scale, seed, aligned, num_sms, st);
+    return launch_dropout<__nv_bfloat16>(x, out, mask, n, cols, form, p, scale, seed, aligned, num_sms, st);
   if (type == T_F16)
-    return launch_dropout<__half>(x, out, mask, n, p, scale, seed, aligned, num_sms, st);
+    return launch_dropout<__half>(x, out, mask, n, cols, form, p, scale, seed, aligned, num_sms, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1101,46 +1101,6 @@ brgemm_partial_tma_fma_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (cudaGetDriverEntryPoint), so that the library needs no link to libcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// a bf16 or f32 tensor map with 128-byte swizzle and zero fill out of bounds
-static bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
-                       const void* base, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, type, rank, const_cast<void*>(base), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // a (G, m, qk) bf16 packed, b (G*qk, n) bf16, both 16-byte aligned; n % 8
 // == 0, qk and kchunk multiples of 64. A refused map or launch returns its
 // error; the wrapper raises.

@@ -5,6 +5,8 @@
 // replace the Pallas probes of scripts/bcsc_lab.py make_variants (:67):
 //   xsmm_bcsc_lab_minimal  `minimal` (:100): the dot floor over a constant,
 //                          already compacted RHS; no gather, no slot skip
+//                          (xsmm_bcsc_lab_minimal_rhs_map encodes that
+//                          RHS's TMA map once)
 //   xsmm_bcsc_lab_chunk    `chunkN` (:125-186): the fused gather, with the U
 //                          union slots cut into N chunks and the fill of
 //                          chunk c + 1 issued before the math of chunk c
@@ -22,14 +24,15 @@
 // never loaded; pad slots are multiplied, not skipped). Each block writes
 // its output tile once, with no atomics: a repeat is bit for bit.
 //
-// Math. chunkN and dspipe run on the bf16 tensor cores, as the library's
-// union kernel does since it moved there: mma.sync m16n8k16 with an f32
-// accumulator on fragments that ldmatrix loads from the staged bf16 tiles
-// (xsmm_mma.cuh). Consumer warps own (16 MT) x 16 strips of the tile (MT
-// m16 tiles, two n8 tiles): two warps down a tile of 32 rows or more, one
-// for every 16 of its columns. minimal stays the f32 FMA loop of the union
-// kernel's old form (a floor of that loop, not of the tensor-core kernel)
-// until it is redesigned in turn.
+// Math. All three run on the bf16 tensor cores, as the library's union
+// kernel does since it moved there. chunkN and dspipe: mma.sync m16n8k16
+// with an f32 accumulator on fragments that ldmatrix loads from the staged
+// bf16 tiles (xsmm_mma.cuh); consumer warps own (16 MT) x 16 strips of the
+// tile (MT m16 tiles, two n8 tiles): two warps down a tile of 32 rows or
+// more, one for every 16 of its columns. minimal, whose operands are
+// contiguous, takes Hopper's own path (xsmm_wgmma.cuh): TMA loads into
+// 128-byte swizzled stages and wgmma.m64n128k16 by whole warpgroups, so it
+// is a floor of the tensor-core union kernel's loop.
 //
 // Bound, at the lab's shape (m = k = n = 1024, density 0.2: U = 21 union
 // slots of 32 rows, about 200 blocks): A (2.1 MB bf16), the values (0.4
@@ -62,11 +65,17 @@
 //           32 up to U = 25 (194 KB at U = 21), 16 up to U = 32.
 // kernels/spmm_lab.py chunk_plan and dspipe_plan are the same planner. A
 // staging that does not fit even at 16 rows returns cudaErrorInvalidValue.
-// minimal keeps the union kernel's old tile (64 x 128, 32-deep f32 slices,
-// synchronous). The fused probes take A and the values 16-byte aligned (the
-// wrappers copy an operand that is not).
+// minimal stages no union: its ring holds 64-deep slices of a 64 x 128
+// tile, 24 KB a stage, at most MIN_STAGES deep (kernels/spmm_lab.py
+// minimal_plan is its planner). At the lab's shape its
+// blocks fetch 33 MB from L2 (A's panel and rhs[g] once per 64 x 128
+// tile), which with the ramp of its one wave sets its time; the math (1.4
+// us at peak) and device memory (2.1 us) do not. Every probe takes A and
+// its RHS or values 16-byte aligned (the wrappers copy an operand that is
+// not).
 
 #include <cuda_runtime.h>
+#include <string.h>
 
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
@@ -82,61 +91,150 @@ constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use
 
 typedef __nv_bfloat16 bf16;
 
+// a kernel's dynamic shared memory, refused past SMEM_MAX
+template <typename K>
+cudaError_t set_smem(K kern, size_t bytes) {
+  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // ---------------------------------------------------------------------------
 // minimal: out[:, 128 g : 128 g + 128] = A[:, :32 U] @ rhs[g], rhs (n/128,
-// 32 U, 128). Block (g, y) owns rows [64 y, 64 y + 64) of group g and walks
-// all U slots: the union kernel's loop with contiguous A columns and RHS
-// rows in place of the gather.
+// 32 U, 128). Block (y, g) owns rows [64 y, 64 y + 64) of group g and
+// walks the 32 U deep panel in 64-deep slices through a ring of `stages`
+// TMA stages: A's 64 x 64 box (a 2-D map over A's first 32 U columns,
+// row stride k: columns past 32 U and rows past m are filled with zeros)
+// and rhs[g]'s 64 x 128 slice as two 64 x 64 boxes of a 3-D map over
+// (128, 32 U, n/128) (rows past 32 U zero-filled), all 128-byte swizzled.
+// One producer thread issues the loads; one consumer warpgroup owns the 64
+// x 128 tile's f32 accumulators and runs four wgmma.m64n128k16 per
+// slice (A K-major, B MN-major), as the packed BRGEMM's tensor-core kernel
+// (gemm_kernels.cu 3b), keeping one slice's products in flight while the
+// next stage is awaited (measured faster than waiting for them). Full and
+// empty mbarriers pace the ring; each block writes its tile once. A cluster
+// of two row tiles multicasting rhs[g] (a third less L2 traffic) measured
+// slower at every shape tried (PERF.md) and is not used.
 // ---------------------------------------------------------------------------
 
-constexpr int MTM = 64;
+constexpr int MIN_BK = 64;                   // K of a ring stage
+constexpr int MIN_B_BOX = MIN_BK * 64 * 2;   // 8 KB: 64 K rows x 64 columns
+constexpr int MIN_STAGES = 4;                // the ring's depth, at most
+constexpr int MIN_ROWS = 64;                 // rows of a block's tile
+constexpr int MIN_A_BOX = MIN_ROWS * MIN_BK * 2;   // 8 KB: A's 64 x 64 box
+// bytes of one ring stage: A's box and the RHS's two boxes, bf16
+constexpr int MIN_STAGE = MIN_A_BOX + 2 * MIN_B_BOX;
 
-__global__ void __launch_bounds__(256) bcsc_lab_minimal_kernel(
-    const bf16* __restrict__ a, const bf16* __restrict__ rhs,
-    float* __restrict__ out, int m, int k, int n, int U) {
-  __shared__ float As[MTM][BK + 1];
-  __shared__ __align__(16) float Rs[BK][GW];
-  const int g = blockIdx.x;
-  const int row0 = blockIdx.y * MTM;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+// the block's dynamic shared memory: 1024 bytes of alignment slack, the
+// stages, then a full and an empty mbarrier per stage
+__host__ __device__ constexpr size_t min_smem_bytes(int stages) {
+  return 1024 + (size_t)stages * MIN_STAGE + 2 * stages * 8;
+}
 
-  const bf16* rg = rhs + (long long)g * U * BK * GW;
-  for (int u = 0; u < U; ++u) {
-    for (int i = tid; i < MTM * BK; i += 256) {
-      const int r = i / BK, kk = i % BK, gr = row0 + r;
-      As[r][kk] = gr < m ? to_f32(a[(long long)gr * k + u * BK + kk]) : 0.0f;
+// one consumer warpgroup and one producer warp
+__global__ void __launch_bounds__(128 + 32, 1)
+    bcsc_lab_minimal_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                                  const __grid_constant__ CUtensorMap rmap,
+                                  float* __restrict__ out, int m, int n,
+                                  int U, int stages) {
+  constexpr int CONSUMERS = 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzle is a function of the shared address: 1024-byte aligned ring
+  unsigned char* smem =
+      smem_raw + ((1024 - (wg_smem(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * MIN_STAGE);
+  uint64_t* empty = full + stages;
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * MIN_ROWS, g = blockIdx.y;
+  const int slices = (U * BK + MIN_BK - 1) / MIN_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);                  // the producer's arrival
+      mbar_init(&empty[s], CONSUMERS / 32);    // one per consumer warp
     }
-    const bf16* ru = rg + (long long)u * BK * GW;
-    for (int i = tid; i < BK * GW; i += 256) Rs[i / GW][i % GW] = to_f32(ru[i]);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[ty * 4 + i][kk];
-      VecF<4>::load(&Rs[kk][tx * 4], bv);
-      VecF<4>::load(&Rs[kk][64 + tx * 4], bv + 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = g * GW + (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gr = row0 + ty * 4 + i;
-      if (gr < m) out[(long long)gr * n + c] = acc[i][j];
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {   // the producer warp: one thread starts TMA
+    if (tid == CONSUMERS) {
+      for (int it = 0; it < slices; ++it) {
+        const int s = it % stages;
+        if (it >= stages) mbar_wait(&empty[s], ((it / stages) - 1) & 1);
+        unsigned char* st = smem + s * MIN_STAGE;
+        mbar_arrive_expect_tx(&full[s], MIN_STAGE);
+        tma_load_2d(st, &amap, &full[s], it * MIN_BK, row0);
+        tma_load_3d(st + MIN_A_BOX, &rmap, &full[s], 0, it * MIN_BK, g);
+        tma_load_3d(st + MIN_A_BOX + MIN_B_BOX, &rmap, &full[s], 64,
+                    it * MIN_BK, g);
+      }
     }
+    return;
   }
+
+  const int lane = tid & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // one slice's products stay in flight while the next stage is awaited;
+  // a stage is freed once the products after it are issued (so a ring of
+  // more than one slice needs two stages: minimal_plan gives them)
+  for (int it = 0; it < slices; ++it) {
+    const int s = it % stages;
+    mbar_wait(&full[s], (it / stages) & 1);
+    const unsigned char* st = smem + s * MIN_STAGE;
+    wgmma_fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < MIN_BK / 16; ++j) {
+      const uint64_t da = wgmma_desc_sw128(st + 32 * j, 16, 1024);
+      const uint64_t db = wgmma_desc_sw128(st + MIN_A_BOX + 2048 * j,
+                                           MIN_B_BOX, 1024);
+      wgmma_m64n128k16_bf16(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    wgmma_fence_operands(acc);
+    __syncwarp();
+    if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % stages]);
+  }
+  wgmma_wait<0>();
+  wgmma_fence_operands(acc);
+  // the tile: fragment rows and column pairs as in xsmm_wgmma.cuh
+  const int w = tid >> 5;
+  const int r0 = row0 + w * 16 + (lane >> 2);
+  float* og = out + (long long)g * GW + 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(og + (long long)row * n + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// minimal's ring (kernels/spmm_lab.py minimal_plan): min(MIN_STAGES,
+// slices) stages; a block per 64-row tile and group (at the lab's 1024^3,
+// 16 x 8 = 128 blocks, one wave on 132 SMs)
+int minimal_stages(int U) {
+  const int slices = (U * BK + MIN_BK - 1) / MIN_BK;
+  return slices < MIN_STAGES ? slices : MIN_STAGES;
+}
+
+cudaError_t launch_minimal(const CUtensorMap& amap, const CUtensorMap& rmap,
+                           float* out, int m, int n, int U, cudaStream_t st) {
+  const int stages = minimal_stages(U);
+  const size_t smem = min_smem_bytes(stages);
+  const cudaError_t e = set_smem(bcsc_lab_minimal_wgmma_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((m + MIN_ROWS - 1) / MIN_ROWS, n / GW);
+  bcsc_lab_minimal_wgmma_kernel<<<grid, 128 + 32, smem, st>>>(
+      amap, rmap, out, m, n, U, stages);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -424,13 +522,6 @@ __global__ void __launch_bounds__(DspipeTile<TM>::THREADS)
   });
 }
 
-template <typename K>
-cudaError_t set_smem(K kern, size_t bytes) {
-  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 bool bad_shape(int m, int k, int n, int U) {
   return m < 0 || k <= 0 || n <= 0 || U <= 0 || k % BK || n % GW ||
          (m + 15) / 16 > 65535;
@@ -498,16 +589,43 @@ const char* xsmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// a (m, k) bf16; rhs (n/128, 32 U, 128) bf16; out (m, n) f32
-int xsmm_bcsc_lab_minimal(const void* a, const void* rhs, void* out, int m,
-                          int k, int n, int U, void* stream) {
-  if (bad_shape(m, k, n, U) || U * BK > k) return cudaErrorInvalidValue;
+// rhs (n/128, 32 U, 128) bf16, 16-byte aligned: its TMA map (64 x 64
+// boxes), written to `map`, sizeof(CUtensorMap) = 128 bytes of host memory.
+// The probe's RHS is constant, so the wrapper encodes it once.
+int xsmm_bcsc_lab_minimal_rhs_map(const void* rhs, int n, int U, void* map) {
+  if (n <= 0 || n % GW || U <= 0 || misaligned(rhs, rhs, rhs))
+    return cudaErrorInvalidValue;
+  CUtensorMap t;
+  const cuuint64_t dims[3] = {(cuuint64_t)GW, (cuuint64_t)U * BK,
+                              (cuuint64_t)(n / GW)};
+  const cuuint64_t strides[2] = {(cuuint64_t)GW * 2,
+                                 (cuuint64_t)U * BK * GW * 2};
+  const cuuint32_t box[3] = {64, MIN_BK, 1};
+  if (!encode_map(&t, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rhs, 3, dims,
+                  strides, box))
+    return cudaErrorInvalidValue;
+  memcpy(map, &t, sizeof t);
+  return cudaSuccess;
+}
+
+// a (m, k) bf16, 16-byte aligned; rhs_map from xsmm_bcsc_lab_minimal_rhs_map;
+// out (m, n) f32, 8-byte aligned
+int xsmm_bcsc_lab_minimal(const void* a, const void* rhs_map, void* out,
+                          int m, int k, int n, int U, void* stream) {
+  if (bad_shape(m, k, n, U) || U * BK > k ||
+      misaligned(a, a, a) || reinterpret_cast<uintptr_t>(out) % 8)
+    return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const dim3 grid(n / GW, (m + MTM - 1) / MTM);
-  bcsc_lab_minimal_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(rhs),
-      static_cast<float*>(out), m, k, n, U);
-  return cudaGetLastError();
+  CUtensorMap amap, rmap;
+  memcpy(&rmap, rhs_map, sizeof rmap);
+  const cuuint64_t dims[2] = {(cuuint64_t)U * BK, (cuuint64_t)m};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t box[2] = {MIN_BK, MIN_ROWS};
+  if (!encode_map(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, 2, dims,
+                  strides, box))
+    return cudaErrorInvalidValue;
+  return launch_minimal(amap, rmap, static_cast<float*>(out), m, n, U,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // a (m, k) bf16; vals (nblocks, 32, 32) bf16; krows (n/128 * U); gmap

@@ -4,8 +4,10 @@
 // 16-byte cp.async whose completion arrives on an mbarrier, the wgmma
 // fence/commit/wait, the shared-memory matrix descriptor of a 128-byte
 // swizzled tile and wgmma.m64n128k16 with bf16 operands and f32
-// accumulators. kernels/_build.py hashes this header into the name of every
-// library it builds, so an edit here rebuilds them all.
+// accumulators; on the host, encode_map (cuTensorMapEncodeTiled) for the
+// TMA maps of every source that includes it (gemm_kernels.cu,
+// spmm_lab_kernels.cu). kernels/_build.py hashes this header into the name
+// of every library it builds, so an edit here rebuilds them all.
 //
 // Layouts (PTX ISA, "Matrix Descriptor" and "Shared Memory Matrix Layout"):
 // a TMA box whose inner extent is 128 bytes, loaded with
@@ -25,7 +27,8 @@
 
 #pragma once
 
-#include <cuda.h>   // CUtensorMap (a type only: the map is encoded on the host)
+#include <cuda.h>   // CUtensorMap (encode_map looks its encoder up)
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t wg_smem(const void* p) {
@@ -218,4 +221,47 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// Host: cuTensorMapEncodeTiled, looked up at run time through the CUDA
+// runtime (cudaGetDriverEntryPoint), so that no library links to libcuda
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a bf16 or f32 tensor map with 128-byte swizzle and zero fill out of bounds
+static bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* base, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, type, rank, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -4,10 +4,15 @@ The port of `libxsmm_tpu/kernels/eltwise_pallas.py`: the meltw ops whose
 semantics need a random stream (dropout, stochastic rounding) or a
 saturating integer conversion (quant).
 
-* `dropout(x, seed, p)` -> (out, keep mask uint8) is the hand-written CUDA
-  kernel of csrc/eltwise_kernels.cu on CUDA tensors (it replaces
-  `_dropout_tpu`) and `dropout.plain`, the plain torch version of the same
-  function, on CPU tensors. Its random bits are a stateless counter hash of
+* `dropout(x, seed, p, mask="bytes")` -> (out, keep mask) is the
+  hand-written CUDA kernel of csrc/eltwise_kernels.cu on CUDA tensors (it
+  replaces `_dropout_tpu`) and `dropout.plain`, the plain torch version of
+  the same function, on CPU tensors. The kernel writes the mask in the
+  form asked for: "bytes", one uint8 per element (the encoder block's
+  _Dropout saves it); "packed", the reference's BITMASK_2BYTEMULT bit
+  matrix of a 2-D x (ops/eltwise.py pack_bitmask's layout), which the
+  meltw DROPOUT with that flag returns; "none", out alone, for the meltw
+  DROPOUT without it. Its random bits are a stateless counter hash of
   (seed, flat index), the flash kernel's `_rand_bits` avalanche, so kernel
   and plain agree bit for bit; they are not the TPU's bits, nor jax.random's
   (the reference does not promise the same bits across backends either,
@@ -26,6 +31,7 @@ saturating integer conversion (quant).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -33,7 +39,8 @@ import torch
 from ..descriptor import MeltwDescriptor, UnaryFlags, UnaryType
 from ..dtypes import Datatype, to_torch
 from .attention import _M32, _rand_bits
-from .gemm import _on_cuda, _ptr, _raise_on_error, _stream
+from .gemm import (_num_sms, _on_cuda, _on_device, _ptr, _raise_on_error,
+                   _stream)
 
 launches = {"dropout": 0, "stochastic_round": 0}
 
@@ -55,7 +62,7 @@ def _kernels() -> ctypes.CDLL:
         lib = _build.load("eltwise_kernels")
         P, I, LL, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint)
-        lib.xsmm_dropout.argtypes = [P, P, P, LL, I, F, F, U, I, I, P]
+        lib.xsmm_dropout.argtypes = [P, P, P, LL, I, I, I, F, F, U, I, I, P]
         lib.xsmm_dropout.restype = I
         lib.xsmm_stochastic_round.argtypes = [P, P, LL, I, I, U, I, I, P]
         lib.xsmm_stochastic_round.restype = I
@@ -210,11 +217,10 @@ def stochastic_round(x: torch.Tensor, seed, target):
     if x.numel() == 0:
         return out
     lib = _kernels()
-    props = torch.cuda.get_device_properties(x.device)
-    with torch.cuda.device(x.device):
+    with _on_device(x.device):
         err = lib.xsmm_stochastic_round(
             _ptr(x), _ptr(out), x.numel(), code, _SR_TARGETS[tdt][0], seed,
-            int(x.data_ptr() % 16 == 0), props.multi_processor_count,
+            int(x.data_ptr() % 16 == 0), _num_sms(x.device),
             _stream(x.device))
     _raise_on_error(err, "stochastic_round", lib)
     launches["stochastic_round"] += 1
@@ -228,6 +234,7 @@ stochastic_round.plain = _sr_plain
 # dropout
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=64)
 def _p_and_scale(p: float):
     """p and 1/(1-p) in f32, the reference kernel's arithmetic (p rides as
     an f32 operand, eltwise_pallas.py:126-128)."""
@@ -235,41 +242,74 @@ def _p_and_scale(p: float):
     return p32, np.float32(1.0) / (np.float32(1.0) - p32)
 
 
-def _dropout_plain(x: torch.Tensor, seed, p):
+# the kernel's mask forms (csrc MASK_BYTES, MASK_PACKED, MASK_NONE)
+MASK_FORMS = {"bytes": 0, "packed": 1, "none": 2}
+
+
+def _mask_form(mask: str, x: torch.Tensor) -> int:
+    form = MASK_FORMS.get(mask)
+    if form is None:
+        raise ValueError(f"dropout: mask must be one of {list(MASK_FORMS)}, "
+                         f"got {mask!r}")
+    if mask == "packed" and x.dim() != 2:
+        raise ValueError(f"dropout: the packed bitmask takes a 2-D x, got "
+                         f"shape {tuple(x.shape)}")
+    return form
+
+
+def _dropout_plain(x: torch.Tensor, seed, p, mask: str = "bytes"):
     """The plain torch version of the dropout kernel: the same bits, the
-    same keep rule and the same f32 arithmetic."""
+    same keep rule and the same f32 arithmetic; the mask in the same form
+    (packed by ops/eltwise.py pack_bitmask)."""
+    _mask_form(mask, x)
     p32, scale = _p_and_scale(_check_p(p))
     keep = _uniform(_flat_bits(seed, tuple(x.shape), x.device)) >= float(p32)
     scaled = x.float() * torch.tensor(scale, device=x.device)
     out = torch.where(keep, scaled, torch.zeros((), device=x.device))
-    return out.to(x.dtype), keep.to(torch.uint8)
+    out = out.to(x.dtype)
+    if mask == "none":
+        return out
+    if mask == "packed":
+        from ..ops.eltwise import pack_bitmask
+        return out, pack_bitmask(keep, two_byte_mult=True)
+    return out, keep.to(torch.uint8)
 
 
-def dropout(x: torch.Tensor, seed, p):
-    """UNARY_DROPOUT: returns (out, keep_mask uint8). Keeps an element iff
-    u >= p and scales it by 1/(1-p); p is a runtime value (a float or a
-    0-d tensor). CUDA tensors (f32, bf16, f16) launch the kernel; CPU
-    tensors run dropout.plain."""
+def dropout(x: torch.Tensor, seed, p, mask: str = "bytes"):
+    """UNARY_DROPOUT: keeps an element iff u >= p and scales it by
+    1/(1-p); p is a runtime value (a float or a 0-d tensor). Returns (out,
+    keep mask): mask="bytes" one uint8 per element; "packed" the
+    (m, ceil(n/16)*2) uint8 BITMASK_2BYTEMULT bit matrix of a 2-D x; "none"
+    returns out alone. CUDA tensors (f32, bf16, f16) launch the kernel,
+    which writes the mask in that form; CPU tensors run dropout.plain."""
     p = _check_p(p)
+    form = _mask_form(mask, x)
     if not _on_cuda(x):
-        return _dropout_plain(x, seed, p)
+        return _dropout_plain(x, seed, p, mask)
     code = _TYPE_CODE.get(x.dtype)
     if code is None:
         raise ValueError(f"dropout: no CUDA kernel for dtype {x.dtype}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    cols = 1
+    keep = None
+    if mask == "packed":
+        rows, cols = x.shape
+        keep = torch.empty((rows, (cols + 15) // 16 * 2), dtype=torch.uint8,
+                           device=x.device)
+    elif mask == "bytes":
+        keep = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     p32, scale = _p_and_scale(p)
     lib = _kernels()
-    props = torch.cuda.get_device_properties(x.device)
-    with torch.cuda.device(x.device):
+    with _on_device(x.device):
         err = lib.xsmm_dropout(
-            _ptr(x), _ptr(out), _ptr(mask), x.numel(), code, float(p32),
-            float(scale), int(seed) & _M32, int(x.data_ptr() % 16 == 0),
-            props.multi_processor_count, _stream(x.device))
+            _ptr(x), _ptr(out), _ptr(keep), x.numel(), max(cols, 1), code,
+            form, float(p32), float(scale), int(seed) & _M32,
+            int(x.data_ptr() % 16 == 0), _num_sms(x.device),
+            _stream(x.device))
     _raise_on_error(err, "dropout", lib)
     launches["dropout"] += 1
-    return out, mask
+    return out if keep is None else (out, keep)
 
 
 dropout.plain = _dropout_plain
@@ -379,13 +419,11 @@ def run_stateful_unary(desc: MeltwDescriptor, x, *args, **state):
         p = state.get("p", desc.extra[0] if desc.extra else 0.5)
         # a positional seed is accepted as for STOCHASTIC_ROUND
         seed = state.get("seed", args[0] if args else 0)
-        out, mask = dropout(x, seed, p)
         if desc.flags & UnaryFlags.BITMASK_2BYTEMULT:
             # reference contract: the side output is a PACKED bit matrix
-            # with UPDIV(ldo,16)*16-bit row stride
-            from ..ops.eltwise import pack_bitmask
-            return out, pack_bitmask(mask != 0, two_byte_mult=True)
-        return out
+            # with UPDIV(ldo,16)*16-bit row stride, which the kernel writes
+            return dropout(x, seed, p, mask="packed")
+        return dropout(x, seed, p, mask="none")
     if op == UnaryType.DROPOUT_INV:
         p = state.get("p", desc.extra[0] if desc.extra else 0.5)
         (mask,) = args

@@ -33,8 +33,9 @@ and only those.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -132,6 +133,29 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _stream(device: torch.device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _on_device(device: torch.device):
+    """The context a launch on `device` runs in: torch.cuda.device(device),
+    or none when `device` is already the current device (a launch's usual
+    case, which then pays no device switch on the host)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def _num_sms(device: torch.device) -> int:
+    """The SM count of a CUDA device, read from its properties once."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    count = _sm_counts.get(index)
+    if count is None:
+        count = _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return count
 
 
 def _type_code(dtype: torch.dtype, what: str) -> int:
@@ -373,9 +397,8 @@ class BatchedGemm:
         if not _on_cuda(a, b, c):
             return self.plain(a, b, c)
         mt, stages, blocks = self.config
-        props = torch.cuda.get_device_properties(a.device)
         units = self.batch * -(-self.m // mt)
-        grid = min(units, props.multi_processor_count * blocks)
+        grid = min(units, _num_sms(a.device) * blocks)
         out = torch.empty((self.batch, self.m, self.n), dtype=self.out_dt,
                           device=a.device)
         # the bulk route copies from 16-byte aligned bases and reads C0 in
@@ -519,8 +542,7 @@ class PackedBrgemm:
     def _workspace(self, device):
         """(K per block, K splits, the f32 partial-sum workspace) of a
         launch on `device`."""
-        props = torch.cuda.get_device_properties(device)
-        kchunk, splits = self.splits(props.multi_processor_count)
+        kchunk, splits = self.splits(_num_sms(device))
         if splits > 65535:
             raise ValueError(f"{self.name}: {splits} K splits exceed the "
                              "grid's z limit (raise step_groups)")

@@ -9,19 +9,24 @@ strategies. All take the lab's operands: A (m, k) and the BCSC values
 clustering (krows (n/128, U), gmap (n/128, U, 4), nblocks = the zero block):
 
 * BcscLabMinimal — `minimal`: out[:, 128g:128g+128] = A[:, :32U] @ rhs[g]
-  over a constant (n/128, 32U, 128) RHS; the union kernel's old f32 FMA
-  tile and loop with no gather and no slot skip. It stays that FMA floor
-  (path "fma") until it is redesigned in turn.
+  over a constant (n/128, 32U, 128) RHS, no gather and no slot skip: the
+  floor of the union kernel's loop. It runs Hopper's own tensor-core path
+  (path "wgmma"): TMA loads of A's panel and rhs[g] into a ring of
+  128-byte swizzled stages and wgmma.m64n128k16 by one warpgroup a 64 x
+  128 tile, over a ring that `minimal_plan` sizes (the launcher mirrors
+  it). The RHS's
+  tensor map is encoded once, when the probe is built on the card; A's on
+  every call.
 * BcscLabChunk — `chunk1/2/4`: the union product with the fused gather, the
   U slots in N chunks, the fill of chunk c+1 issued before chunk c's math.
 * BcscLabDspipe — `dspipe`: the same product, the fill of the next group's
   union issued before this group's math.
 
-chunkN and dspipe multiply on the bf16 tensor cores (path "mma": mma.sync
-m16n8k16, f32 accumulators), as the library's union kernel does, over a
-cp.async staging whose tile `chunk_plan` and `dspipe_plan` choose (the
-launcher in the CUDA source mirrors them); a union too deep for any of
-their tiles is refused.
+chunkN and dspipe multiply on the bf16 tensor cores too (path "mma":
+mma.sync m16n8k16, f32 accumulators), as the library's union kernel does,
+over a cp.async staging whose tile `chunk_plan` and `dspipe_plan` choose
+(the launcher in the CUDA source mirrors them); a union too deep for any
+of their tiles is refused.
 
 Calling a probe checks the operands' shapes, then follows their device: on
 CUDA tensors it launches its kernel on the current stream (a build failure
@@ -39,7 +44,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .gemm import _aligned16, _check, _on_cuda, _ptr, _raise_on_error, _stream
+from .gemm import (_aligned16, _check, _on_cuda, _on_device, _ptr,
+                   _raise_on_error, _stream)
 from .spmm import GROUP, BcscUnionCompact, _index
 
 # kernel launches since the last reset_launches(); the wrappers add one where
@@ -61,6 +67,10 @@ DSPIPE_ROWS = (32, 16)      # dspipe's
 CHUNK_PRODUCERS = 256   # staging threads beside the consumers (csrc)
 DSPIPE_PRODUCERS = 384
 BAR_BYTES = 16       # the staging ring's barriers (csrc BAR_BYTES)
+MIN_BK = 64          # minimal's K per ring stage (csrc MIN_BK)
+MIN_STAGES = 4       # minimal's ring depth, at most (csrc MIN_STAGES)
+MIN_ROWS = 64        # minimal's tile rows (csrc MIN_ROWS)
+TENSOR_MAP_BYTES = 128   # sizeof(CUtensorMap)
 _lib = None
 
 
@@ -111,6 +121,26 @@ def dspipe_plan(U: int) -> Optional[StagePlan]:
     return _plan(DSPIPE_ROWS, DSPIPE_CW, U, 2, DSPIPE_PRODUCERS)
 
 
+class MinimalPlan(NamedTuple):
+    """minimal's launch: a ring of `stages` 64-deep stages, `blocks` in
+    the grid (64-row tiles times groups, 160 threads each: one consumer
+    warpgroup and one producer warp), `smem` bytes of dynamic shared
+    memory (csrc min_smem_bytes: 1024 bytes of alignment slack, the
+    stages, two mbarriers a stage)."""
+    stages: int
+    blocks: int
+    smem: int
+
+
+def minimal_plan(m: int, n: int, U: int) -> MinimalPlan:
+    """csrc minimal_stages and launch_minimal: min(MIN_STAGES,
+    ceil(32U / 64)) stages of 24 KB, a block per 64-row tile and group."""
+    stages = min(MIN_STAGES, -(-U * BLOCK // MIN_BK))
+    stage = MIN_ROWS * MIN_BK * 2 + 2 * MIN_BK * 64 * 2
+    return MinimalPlan(stages, -(-m // MIN_ROWS) * (n // GROUP),
+                       1024 + stages * stage + 2 * stages * 8)
+
+
 def _kernels() -> ctypes.CDLL:
     """The CUDA library, built and loaded on first use."""
     global _lib
@@ -118,10 +148,12 @@ def _kernels() -> ctypes.CDLL:
         from . import _build
         lib = _build.load("spmm_lab_kernels")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.xsmm_bcsc_lab_minimal.argtypes = [P, P, P, I, I, I, I, P]
+        lib.xsmm_bcsc_lab_minimal_rhs_map.argtypes = [P, I, I, P]
+        lib.xsmm_bcsc_lab_minimal.argtypes = [P, P, P] + [I] * 4 + [P]
         lib.xsmm_bcsc_lab_chunk.argtypes = [P] * 5 + [I] * 6 + [P]
         lib.xsmm_bcsc_lab_dspipe.argtypes = [P] * 5 + [I] * 5 + [P]
-        for f in (lib.xsmm_bcsc_lab_minimal, lib.xsmm_bcsc_lab_chunk,
+        for f in (lib.xsmm_bcsc_lab_minimal_rhs_map,
+                  lib.xsmm_bcsc_lab_minimal, lib.xsmm_bcsc_lab_chunk,
                   lib.xsmm_bcsc_lab_dspipe):
             f.restype = I
         lib.xsmm_error_string.argtypes = [I]
@@ -161,7 +193,7 @@ class _LabProbe:
         out = torch.empty((self.m, self.n), dtype=torch.float32,
                           device=a.device)
         lib = _kernels()
-        with torch.cuda.device(a.device):
+        with _on_device(a.device):
             err = self._launch(lib, a, values, out)
         _raise_on_error(err, self.name, lib)
         launches[self.counter] += 1
@@ -170,11 +202,12 @@ class _LabProbe:
 
 class BcscLabMinimal(_LabProbe):
     """`minimal`: per group g, A[:, :32U] @ rhs[g] in f32 over the constant
-    RHS `rhs` (n/128, 32U, 128) bf16, which lives on the probe's device;
-    `values` is checked and not read."""
+    RHS `rhs` (n/128, 32U, 128) bf16, which lives on the probe's device
+    (on the card, its TMA map is encoded here, once); `values` is checked
+    and not read."""
 
     counter = "bcsc_lab_minimal"
-    path = "fma"
+    path = "wgmma"
 
     def __init__(self, m: int, n: int, k: int, nblocks: int,
                  rhs: torch.Tensor):
@@ -182,12 +215,19 @@ class BcscLabMinimal(_LabProbe):
         if tuple(rhs.shape) != (n // GROUP, U * BLOCK, GROUP) or U * BLOCK > k:
             raise ValueError(f"minimal: rhs of shape {tuple(rhs.shape)} does "
                              f"not fit m={m}, n={n}, k={k}")
-        self.rhs = rhs.to(torch.bfloat16).contiguous()
+        self.rhs = _aligned16(rhs.to(torch.bfloat16))
         super().__init__(m, n, k, nblocks, U, self.rhs)
+        self.rhs_map = None
+        if self.rhs.is_cuda:
+            lib = _kernels()
+            self.rhs_map = ctypes.create_string_buffer(TENSOR_MAP_BYTES)
+            err = lib.xsmm_bcsc_lab_minimal_rhs_map(
+                _ptr(self.rhs), n, U, self.rhs_map)
+            _raise_on_error(err, f"{self.name}: the RHS's tensor map", lib)
 
     def _launch(self, lib, a, values, out):
         return lib.xsmm_bcsc_lab_minimal(
-            _ptr(a), _ptr(self.rhs), _ptr(out), self.m, self.k, self.n,
+            _ptr(a), self.rhs_map, _ptr(out), self.m, self.k, self.n,
             self.U, _stream(a.device))
 
     def plain(self, a, values):

@@ -6,16 +6,16 @@ blocks, bf16 -> f32, the pattern of build_pattern(density, seed=2). The
 probes are variants of the port's own union kernel (kernels/spmm_lab.py,
 kernels/csrc/spmm_lab_kernels.cu), each keeping one property:
 
-  minimal   the union kernel's old f32 FMA tile and loop over a constant,
-            already compacted RHS: no gather, no slot skip. It stays that
-            FMA floor until it is redesigned in turn
+  minimal   the union product over a constant, already compacted RHS: no
+            gather, no slot skip; the floor of the union kernel's loop,
+            on wgmma fed by TMA
   chunkN    the fused gather with the union slots in N = 1, 2 or 4 chunks,
             the fill of chunk c + 1 issued before the math of chunk c
   dspipe    the fill of the next group's union issued before the math of
             this group
 
-chunkN and dspipe multiply on the bf16 tensor cores, as the library's union
-kernel does, so t / t(union4) compares staging schedules, not arithmetic.
+All three multiply on the bf16 tensor cores, as the library's union kernel
+does, so t / t(union4) compares staging schedules, not arithmetic.
 
 main() builds the library strategies dense, union, union4, union4a, union4d
 and union5 (create_packed_spgemm_bcsc) and the probes, holds every result
@@ -30,8 +30,8 @@ raises propagates.
 
 --device cpu runs the plain versions on the host clock, a rehearsal of the
 control flow. main(argv) returns the printed rows; a probe's row names its
-kernel's path ("mma": the tensor cores, "fma": the f32 FMAs; None for the
-library's strategies).
+kernel's path ("mma": mma.sync on the tensor cores, "wgmma": Hopper's
+warpgroup products on TMA-fed tiles; None for the library's strategies).
 """
 
 from __future__ import annotations

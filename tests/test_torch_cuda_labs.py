@@ -17,7 +17,7 @@ unions at each edge of the fused probes' staging plans (the last that fits
 a tile height and the first that does not; past the last height the launch
 is refused and raises), and value tensors 2 and 8 bytes off 16-byte
 alignment (the wrappers copy them into aligned tensors). chunkN and dspipe
-must run on the tensor cores (path "mma"), minimal on the FMAs ("fma").
+must run on the tensor cores (path "mma"), minimal on wgmma ("wgmma").
 
 Tolerances (matdiff normf_rel): 1e-5 for the BRGEMM twin (f32 sums of the
 same values in another order); bit for bit for the passthrough; 1e-4 for the
@@ -200,7 +200,7 @@ def _counter(probe):
 def test_probe_matches_plain(probes, case, probe):
     variants, a, v = probes[case]
     fn = variants[probe]
-    assert fn.path == ("fma" if probe == "minimal" else "mma")
+    assert fn.path == ("wgmma" if probe == "minimal" else "mma")
     got = launched(pl.launches, _counter(probe), lambda: fn(a, v))
     assert got.dtype == torch.float32 and got.shape == (a.shape[0],
                                                         fn.n)

@@ -113,9 +113,12 @@ def test_wgmma_header_is_hand_written():
                    "mbarrier.try_wait.parity", "wgmma.fence",
                    "wgmma.commit_group", "wgmma.wait_group"):
         assert needle in wg, needle
-    gemm = (csrc / "gemm_kernels.cu").read_text()
-    assert '#include "xsmm_wgmma.cuh"' in gemm
-    assert "cuTensorMapEncodeTiled" in gemm and "__grid_constant__" in gemm
+    assert "cuTensorMapEncodeTiled" in wg and "static bool encode_map(" in wg
+    for name in ("gemm_kernels.cu", "spmm_lab_kernels.cu"):
+        src = (csrc / name).read_text()
+        assert '#include "xsmm_wgmma.cuh"' in src
+        assert "encode_map(" in src and "__grid_constant__" in src
+        assert "cudaGetDriverEntryPoint" not in src   # the header's only
     build = (PKG / "kernels" / "_build.py").read_text()
     assert "-lcuda" not in build
 

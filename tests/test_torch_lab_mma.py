@@ -127,14 +127,17 @@ def test_constants_mirror_the_cuda_source():
 
 
 def test_fused_probes_have_no_fma_loop():
-    """chunkN and dspipe multiply with mma.sync only; the FMA loop left in
-    the source is minimal's."""
+    """chunkN and dspipe multiply with mma.sync only, minimal with wgmma
+    only: no FMA loop is left in the source."""
     src = _src()
     for kern in ("bcsc_lab_chunk_kernel", "bcsc_lab_dspipe_kernel"):
         start = src.index(f"    {kern}(")
         body = src[start:src.index("\n}\n", start)]
         assert "mma_slots<T::MT>" in body and "fmaf" not in body
-    assert src.count("fmaf(") == 1
+    start = src.index("    bcsc_lab_minimal_wgmma_kernel(")
+    body = src[start:src.index("\n}\n", start)]
+    assert "wgmma_m64n128k16_bf16(acc, da, db);" in body
+    assert "fmaf" not in src
     assert "fma_slots" not in src
 
 
@@ -151,7 +154,7 @@ def _deep(U, m=50):
 def test_probes_report_path_and_plan(U):
     shape, bcsc = _deep(U)
     probes = bcsc_lab.make_variants(shape, bcsc, 0.0, "cpu")
-    assert probes["minimal"].path == "fma"
+    assert probes["minimal"].path == "wgmma"
     for name, plan in PLANS.items():
         assert probes[name].U == U
         assert probes[name].path == "mma"

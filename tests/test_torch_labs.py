@@ -288,7 +288,7 @@ def test_bcsc_lab_runs_on_cpu(capsys):
                           "0.05"])
     names = [r["name"] for r in rows]
     assert names == list(bcsc_lab.LIBRARY) + list(PROBES)
-    paths = {"minimal": "fma", "chunk1": "mma", "chunk2": "mma",
+    paths = {"minimal": "wgmma", "chunk1": "mma", "chunk2": "mma",
              "chunk4": "mma", "dspipe": "mma"}
     for r in rows:
         assert r["us"] > 0 and r["vs_union4"] > 0

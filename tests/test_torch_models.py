@@ -166,9 +166,10 @@ def test_seeded_forward_runs_both_dropouts(monkeypatch):
         calls.append(("flash", seed, self.dropout_p))
         return orig_flash(self, seed, *args)
 
-    def spy_drop(x, seed, p):
+    def spy_drop(x, seed, p, *mask):
         calls.append(("dropout", seed, p, tuple(x.shape)))
-        return orig_drop(x, seed, p)
+        assert mask == ("bytes",)      # the block saves the byte mask
+        return orig_drop(x, seed, p, *mask)
 
     monkeypatch.setattr(pa.FlashAttention, "plain", spy_flash)
     monkeypatch.setattr(pe, "_dropout_plain", spy_drop)
