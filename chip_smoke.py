@@ -141,7 +141,12 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     whose rows carry the RNE cast's, an output clone's and the BRGEMM's
     time instead; the flash backward's, reached through autograd, by its
     device time from torch.profiler), and each launch configuration the
-    kernel chooses among; the f32 packed BRGEMM gets a row of its own,
+    kernel chooses among; the passthrough's row and torch.add, the
+    compactor's (with its route) and the clone of its output, and
+    densify's carry CUDA-graph replay and the host's own time per call
+    beside their events; the union kernel's compacted form (compactor and
+    product from one host call) is timed beside its fused form at the
+    m = 1024 cases (bcsc20, bcsc05, ragged) by events, replay and host; the f32 packed BRGEMM gets a row of its own,
     with torch.mm in f32 (TF32 off) as its yardstick and its twin's
     t_sol / t_brg, by events, device time and CUDA-graph replay; the
     batched SMM's odd shape and bf16 case are held against their plain
@@ -173,11 +178,13 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import subprocess
 import sys
 import time
 
 import torch
+
+from libxsmm_torch.scripts.timing import (card, device_ms, device_split,
+                                          graph_ms, host_ms)
 
 # tolerances (matdiff normf_rel bound; 0 means bit-exact):
 TOL_F32 = 1e-5        # f32 in and out: products and sums in f32, only the
@@ -248,13 +255,6 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("spmm_lab_kernels", "bcsc_lab_dspipe_kernel"),
                ("spmm_lab_kernels", "bcsc_lab_minimal_wgmma_kernel"),
                ("eltwise_kernels", "dropout"))
-
-
-def _smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
 
 
 def _check(name, ref, out, margin, shape=None):
@@ -734,14 +734,17 @@ def sparse_path(randn, dev):
     cfg = SpgemmConfig(1, bk, bn)
     m = k = n = 1024
     pats = {}
+    small = {}    # the m ~ 1024 cases the union's two forms are timed at
     for case, density in (("bcsc20", 0.2), ("bcsc05", 0.05)):
         rng = np.random.default_rng(2)
         bcsc = _bcsc_pattern(rng, k, n, bk, bn, density)
         v = on_dev(bcsc.data, bf16)
         a0 = on_dev(rng.standard_normal((m, k)), bf16)
-        drive(case, GemmShape(m, n, k, BF16, BF16, F32), cfg, bcsc.indptr,
-              bcsc.indices, a0, v, TOL_SPARSE_BF16)
+        shape = GemmShape(m, n, k, BF16, BF16, F32)
+        drive(case, shape, cfg, bcsc.indptr, bcsc.indices, a0, v,
+              TOL_SPARSE_BF16)
         pats[density] = (bcsc, v)
+        small[case] = (shape, bcsc, a0, v)
 
     # bench.py's bcsc_cluster (bench.py:748-770): k = 2048, bf16 out
     rng = np.random.default_rng(7)
@@ -774,8 +777,11 @@ def sparse_path(randn, dev):
 
     # ragged: 1000 rows (the last 64-row tile cut) through bcsc05
     bcsc, v = pats[0.05]
-    drive("ragged", GemmShape(1000, n, k, BF16, BF16, F32), cfg, bcsc.indptr,
-          bcsc.indices, randn(1000, k, dtype=bf16), v, TOL_SPARSE_BF16)
+    rshape, ra = GemmShape(1000, n, k, BF16, BF16, F32), randn(1000, k,
+                                                               dtype=bf16)
+    drive("ragged", rshape, cfg, bcsc.indptr, bcsc.indices, ra, v,
+          TOL_SPARSE_BF16)
+    small["ragged"] = (rshape, bcsc, ra, v)
 
     torch.cuda.synchronize()
     counts = dict(KS.launches)
@@ -787,7 +793,7 @@ def sparse_path(randn, dev):
                              f"{missing}")
     bcsc, v = pats[0.2]
     return {"phases": phases, "counts": counts,
-            "stream": (sshape, cfg, bcsc, a_stream, v)}
+            "stream": (sshape, cfg, bcsc, a_stream, v), "small": small}
 
 
 def _kernel_modules():
@@ -1336,84 +1342,6 @@ def cnn_breakdown(convs, cnn, ms):
           f" train step {t_step:.4f} ms")
 
 
-def device_split(fn, reps=20):
-    """Device time per call of fn() by kernel name, in ms: each CUDA
-    kernel's summed time over `reps` calls, from torch.profiler, after one
-    call to warm up."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            split[e.name] = (split.get(e.name, 0.0)
-                             + e.time_range.elapsed_us() / reps / 1e3)
-    return split
-
-
-def graph_ms(fn, reps=20, rounds=5):
-    """Milliseconds per call of fn() replayed from a CUDA graph of `reps`
-    captured calls, the best of `rounds` replays timed with CUDA events:
-    the card's time per call with the launches back to back, no host cost
-    between them (the device stays busy, as under a loaded caller). Two
-    calls warm up on a side stream first, as capture asks."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    best = float("inf")
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / reps)
-    return best
-
-
-def host_ms(fn, reps=100, rounds=5):
-    """Milliseconds of the host's own time per call of fn(): the best of
-    `rounds` windows of `reps` back-to-back calls on the host clock, with no
-    synchronize inside a window (the card drains the queue after it). Where
-    this exceeds the device's time per call, the host sets an event-timed
-    row."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(rounds):
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        best = min(best, (time.perf_counter() - t0) / reps)
-        torch.cuda.synchronize()
-    return best * 1e3
-
-
-def device_ms(fn, reps=20):
-    """Device time per call of fn(): the CUDA kernels' summed time over
-    `reps` calls, from torch.profiler, after one call to warm up."""
-    total = sum(device_split(fn, reps).values())
-    if not total:
-        raise AssertionError("device_ms: the profiler recorded no kernel")
-    return total
-
-
 def mma_rate(row, flops, useful):
     """Print a tensor-core kernel's achieved rate (its own products and the
     useful ones, over its time in this run) and its ratio to the library
@@ -1424,7 +1352,7 @@ def mma_rate(row, flops, useful):
           f"kernel / library {row['ms'] / row['library_ms']:.3f}")
 
 
-def sparse_rows(record, rows, stream, ms, geo):
+def sparse_rows(record, rows, stream, small, ms, geo):
     """The five sparse kernels at the streaming case, each against its
     plain version. Bound: A, the kernel's value operand and C each moved
     once, and the useful products 2 * nblocks * bk * bn * m at the bf16
@@ -1435,7 +1363,11 @@ def sparse_rows(record, rows, stream, ms, geo):
     moves the value store once and writes the compacted RHS once, and since
     no PyTorch call computes the compaction its library time is null and a
     clone of the compacted RHS (the same bytes written) stands beside it as
-    "clone_ms"."""
+    "clone_ms". The compactor's row, its clone and densify's row carry
+    CUDA-graph replay and the host's own time a call beside their events;
+    the compactor's row its route. At the m ~ 1024 cases (`small`:
+    bcsc20, bcsc05, ragged) the compacted form is held against the fused
+    form and both are timed by events, replay and host."""
     from libxsmm_torch.kernels import spmm as KS
     from libxsmm_torch.ops.sparse import assemble_supertiles, supertile_plan
 
@@ -1469,7 +1401,8 @@ def sparse_rows(record, rows, stream, ms, geo):
            union_c(a, v), TOL_SPARSE_BF16)
     record("bcsc_spmm_union", src, "libxsmm_tpu/kernels/spmm_pallas.py:258",
            union, (a, v), TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak,
-           lib_mm, compact_ms=ms(union_c, a, v))
+           lib_mm, compact_ms=ms(union_c, a, v),
+           compact_graph_ms=graph_ms(lambda: union_c(a, v)))
     # its own products: every live union slot of every group, bk deep and
     # 128 wide (the pad slots are skipped)
     live = (union.gmap.view(union.nsg, union.U, union.W)
@@ -1481,11 +1414,35 @@ def sparse_rows(record, rows, stream, ms, geo):
           f"{t_c:.4f} ms, {own / t_c / 1e9:.1f} TFLOP/s of its own products,"
           f" {useful / t_c / 1e9:.1f} TFLOP/s useful; kernel / library "
           f"{t_c / lib_mm:.3f}; {live} live slots of {union.nsg * union.U}")
-    rhs = union_c.compactor(v)
+    comp = union_c.compactor
+    rhs = comp(v)
+    route = comp.route(v, rhs)[0]
+    if route != "bulk":
+        raise AssertionError(f"the compactor at the streaming case took "
+                             f"the {route} route")
     record("bcsc_union_compact", src, "libxsmm_tpu/kernels/spmm_pallas.py:885",
-           union_c.compactor, (v,), TOL_EXACT,
+           comp, (v,), TOL_EXACT,
            v.numel() * v.element_size() + rhs.numel() * rhs.element_size(),
-           0, peak, None, clone_ms=ms(torch.clone, rhs))
+           0, peak, None, path=route, clone_ms=ms(torch.clone, rhs),
+           graph_ms=graph_ms(lambda: comp(v)), host_ms=host_ms(lambda: comp(v)),
+           clone_graph_ms=graph_ms(lambda: torch.clone(rhs)),
+           clone_host_ms=host_ms(lambda: torch.clone(rhs)))
+    for case, (shape_, pat, a_, v_) in small.items():
+        forms = {nm: KS.build_bcsc_spmm_union(shape_, cfg, pat.indptr,
+                                              pat.indices, dev, compact=c)
+                 for nm, c in (("compacted", True), ("fused", False))}
+        _check(f"bcsc_spmm_union {case} compacted form vs fused form",
+               forms["fused"](a_, v_), forms["compacted"](a_, v_),
+               TOL_SPARSE_BF16)
+        t = {nm: (ms(fn, a_, v_), graph_ms(lambda fn=fn: fn(a_, v_)),
+                  host_ms(lambda fn=fn: fn(a_, v_)))
+             for nm, fn in forms.items()}
+        print(f"  bcsc_spmm_union {case} (m {shape_.m}, U "
+              f"{forms['fused'].U}): compacted form (compact_ms) "
+              f"{t['compacted'][0]:.4f} ms, replayed {t['compacted'][1]:.4f},"
+              f" host {t['compacted'][2]:.4f} a call; fused form "
+              f"{t['fused'][0]:.4f} ms, replayed {t['fused'][1]:.4f}, host "
+              f"{t['fused'][2]:.4f}")
     s_indptr, s_indices, sgmap = supertile_plan(shape, cfg, indptr, indices)
     sup = assemble_supertiles(v, torch.as_tensor(sgmap, device=dev),
                               torch.bfloat16)
@@ -1502,7 +1459,9 @@ def sparse_rows(record, rows, stream, ms, geo):
     record("bcsc_densify", src, "libxsmm_tpu/kernels/spmm_pallas.py:800",
            densify, (v,), TOL_EXACT, 2 * v.numel() + 2 * k * n, 0, peak,
            ms(lambda vv: torch.sparse_bsc_tensor(ccol, rows, vv,
-                                                 (k, n)).to_dense(), v))
+                                                 (k, n)).to_dense(), v),
+           graph_ms=graph_ms(lambda: densify(v)),
+           host_ms=host_ms(lambda: densify(v)))
 
 
 def labs_path(randn, headline):
@@ -1591,9 +1550,17 @@ def lab_rows(record, ms, geo, dev, passthrough, brgemm, bcsc_lab_rows):
     print(f"  packed_brgemm_sol on the {sol.path} route: {row['ms']:.4f} ms,"
           f" t_sol / t_brg {row['ms'] / br_ms:.4f}")
     pt, pa, pb = passthrough
-    record("packed_smm_passthrough", "gemm_kernels.cu", "bench.py:441", pt,
-           (pa, pb), TOL_EXACT, 3 * pa.numel() * 4, 0, geo.peak_f32_tflops,
-           ms(torch.add, pa, pb))
+    row = record("packed_smm_passthrough", "gemm_kernels.cu", "bench.py:441",
+                 pt, (pa, pb), TOL_EXACT, 3 * pa.numel() * 4, 0,
+                 geo.peak_f32_tflops, ms(torch.add, pa, pb),
+                 graph_ms=graph_ms(lambda: pt(pa, pb)),
+                 host_ms=host_ms(lambda: pt(pa, pb)),
+                 library_graph_ms=graph_ms(lambda: torch.add(pa, pb)),
+                 library_host_ms=host_ms(lambda: torch.add(pa, pb)))
+    print(f"  packed_smm_passthrough: k/l {row['ms'] / row['library_ms']:.3f}"
+          f" by events, {row['graph_ms'] / row['library_graph_ms']:.3f} "
+          f"replayed; bound share {row['bound_ms'] / row['graph_ms']:.3f} "
+          f"replayed")
 
     m = k = n = 1024
     bcsc, rng = bcsc_lab.build_pattern(0.2)
@@ -1828,7 +1795,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. the card
-    smi = _smi()
+    smi = card()
     print(smi)
     dev = torch.device("cuda", 0)
     geo = GEOMETRY_TABLE["h100"]
@@ -2409,7 +2376,7 @@ def main() -> int:
     print(f"  flash backward dkv + dq {t_pair:.4f} ms; kernels / sdpa "
           f"backward {t_pair / lib_bwd:.3f}")
 
-    sparse_rows(record, rows, sp["stream"], ms, geo)
+    sparse_rows(record, rows, sp["stream"], sp["small"], ms, geo)
 
     # stochastic rounding at the FFN shape, f32 -> bf16: x read once, out
     # written once. No PyTorch call computes stochastic rounding
@@ -2491,6 +2458,9 @@ def main() -> int:
         cast = "".join(f"; {label} {r[key]:.4f} ms" for key, label in (
             ("rne_cast_ms", "rne cast"), ("compact_ms", "compacted form"),
             ("clone_ms", "clone of the output"),
+            ("clone_graph_ms", "clone replayed"),
+            ("clone_host_ms", "clone host"),
+            ("compact_graph_ms", "compacted form replayed"),
             ("brgemm_ms", "the packed BRGEMM"), ("chunk2_ms", "chunk2"),
             ("chunk4_ms", "chunk4"), ("device_ms", "device time"),
             ("library_device_ms", "library device time"),

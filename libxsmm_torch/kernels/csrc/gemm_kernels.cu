@@ -1196,45 +1196,33 @@ static cudaError_t launch_packed_brgemm(const void* a, const void* b,
 //    passthrough of bench.py:438-448 (`make`, kernel `pkern`), the
 //    denominator of the headline fraction (bench.py:869).
 //
-// out = a + b over (G, m, 128) f32, bit for bit as torch's a + b. It keeps
-// packed_smm_kernel's grid (one block of 256 threads per (group, 2*RPT-row
-// tile)) and its 16-byte coalesced loads, and computes nothing, so it moves
-// the headline kernel's bytes (3 * G * m * 128 * 4; 201 MB at 4096 x 32 x
-// 128, 60 us at 3.35 TB/s) with the headline kernel's access pattern. The
-// TPU twin's block-group count S has no counterpart: one block always takes
-// one group.
+// out = a + b over (G, m, 128) f32, bit for bit as torch's a + b: the
+// fastest streaming pass over the headline kernel's bytes (3 * G * m * 128
+// * 4; 201 MB at 4096 x 32 x 128, 60 us at 3.35 TB/s), as bench.py:865-867
+// defines the twin ("true DMA speed of light"); the packed SMM's tiling
+// does not shape it. Bound: device memory. Each thread adds one float4
+// pair (two 16-byte loads in flight, one store), blocks of PT_THREADS
+// threads cover the operands' flat run of float4 units in order, the last
+// block masked (kernels/gemm.py passthrough_plan). On an H100 this one-shot
+// grid streamed faster than a persistent grid with 2-8 pairs a thread and
+// streaming cache hints, and than a ring of bulk copies through shared
+// memory (scripts/passthrough_designs.cu, timed by scripts/stream_time.py
+// --rows designs; PERF.md, section 6), and as fast as torch.add. The TPU
+// twin's block-group count S has no counterpart.
 // ---------------------------------------------------------------------------
 
-template <int RPT>
-__global__ void __launch_bounds__(256)
-packed_smm_passthrough_kernel(const float* __restrict__ a,
-                              const float* __restrict__ b,
-                              float* __restrict__ out, int m) {
-  constexpr int W = 128;        // packed row width, as packed_smm_kernel
-  constexpr int MT = 2 * RPT;   // rows per block
-  const long g = blockIdx.x;
-  const int row0 = blockIdx.y * MT;
-  const int rows = min(MT, m - row0);
-  const long base = (g * m + row0) * (long)W / 4;
-  const float4* a4 = reinterpret_cast<const float4*>(a) + base;
-  const float4* b4 = reinterpret_cast<const float4*>(b) + base;
-  float4* o4 = reinterpret_cast<float4*>(out) + base;
-  for (int i = threadIdx.x; i < rows * W / 4; i += 256) {
-    const float4 x = a4[i], y = b4[i];
-    o4[i] = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
-  }
-}
+constexpr int PT_THREADS = 1024;   // float4 units a block
 
-template <int RPT>
-static cudaError_t launch_passthrough(const void* a, const void* b,
-                                      void* out, int G, int m,
-                                      cudaStream_t s) {
-  constexpr int MT = 2 * RPT;
-  const dim3 grid(G, (m + MT - 1) / MT);
-  packed_smm_passthrough_kernel<RPT><<<grid, 256, 0, s>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(out), m);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(PT_THREADS)
+packed_smm_passthrough_kernel(const float4* __restrict__ a,
+                              const float4* __restrict__ b,
+                              float4* __restrict__ out, long long units) {
+  const long long i = (long long)blockIdx.x * PT_THREADS + threadIdx.x;
+  if (i < units) {
+    const float4 x = a[i], y = b[i];
+    out[i] = make_float4(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y),
+                         __fadd_rn(x.z, y.z), __fadd_rn(x.w, y.w));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1373,16 +1361,18 @@ int xsmm_packed_brgemm_sol_tma_fma(const void* a, const void* b, void* ws,
                                      splits, EPI_NONE, s);
 }
 
-// a, b, out (G, m, 128) f32, 16-byte aligned; rpt as xsmm_packed_smm's
+// a, b, out: `units` float4 units of f32 ((G, m, 128): G * m * 32), each
+// 16-byte aligned
 int xsmm_packed_smm_passthrough(const void* a, const void* b, void* out,
-                                int G, int m, int rpt, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rpt) {
-    case 4: return launch_passthrough<4>(a, b, out, G, m, s);
-    case 8: return launch_passthrough<8>(a, b, out, G, m, s);
-    case 16: return launch_passthrough<16>(a, b, out, G, m, s);
-    default: return cudaErrorInvalidValue;
-  }
+                                long long units, void* stream) {
+  const long long grid = (units + PT_THREADS - 1) / PT_THREADS;
+  if (units < 0 || grid > 2147483647LL) return cudaErrorInvalidValue;
+  if (units == 0) return cudaSuccess;
+  packed_smm_passthrough_kernel<<<(unsigned)grid, PT_THREADS, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(a), static_cast<const float4*>(b),
+      static_cast<float4*>(out), units);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 // libxsmm_tpu/kernels/spmm_pallas.py:
 //   xsmm_bcsc_spmm         build_bcsc_spmm         (:88,  strategy "pallas")
 //   xsmm_bcsc_spmm_union   build_bcsc_spmm_union   (:258, union ... union5)
-//     and xsmm_bcsc_spmm_union_compact, its form over a compacted RHS
+//     and xsmm_bcsc_spmm_union_compacted, the compactor and its form over
+//     the compacted RHS from one call
 //   xsmm_bcsc_densify      build_bcsc_densify      (:800, strategy "dense")
 //   xsmm_bcsc_union_compact  build_union_compact_rhs (:885, union/2/3's RHS)
 //   xsmm_bcsc_spmm_super   build_bcsc_spmm_super   (:942, strategy "super")
@@ -58,8 +59,10 @@
 // from the W = 128 / bn value blocks of the slot's gather map, one 16-byte
 // cp.async per bn-wide row piece (the zero block arrives as zero fill); its
 // compacted form (union, union2, union3) copies contiguous rows of the
-// (n/128, U*bk, 128) RHS that the compactor wrote just before, on the same
-// stream, as the reference splits the work. At the streaming case
+// (n/128, U*bk, 128) RHS that the compactor writes just before, on the same
+// stream and from the same host call, as the reference splits the work; it
+// is a programmatic dependent launch that waits for the compactor only
+// before its first read of that RHS. At the streaming case
 // (U = 21) the union products are 45 GFLOP, 0.046 ms at the tensor cores'
 // peak, so the kernel is bound by the rate of its mma.sync steps and the
 // shared-memory reads that feed them, not by device memory.
@@ -69,12 +72,14 @@
 // thread) and assembles each slot's RHS the same way, element by element.
 // A is re-read from L2 for every block of a column; the FMA kernels are
 // bound by their shared-memory traffic, not by device memory. The compactor
-// moves bytes only (values read once, the compacted RHS written once).
+// moves bytes only (values read once, the compacted RHS written once) on
+// the bulk-copy engine where the blocks' rows are whole 16-byte units.
 
 #include <cuda_runtime.h>
 
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
+#include "xsmm_wgmma.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
@@ -338,6 +343,7 @@ __global__ void __launch_bounds__(256) bcsc_union_kernel(
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
+  if constexpr (COMPACT) pdl_wait();   // as the tensor-core kernel's
   for (int u = 0; u < U; ++u) {
     const long long slot = (long long)g * U + u;
     const int* gm = gmap + slot * W;
@@ -487,6 +493,9 @@ __global__ void __launch_bounds__(MM_THREADS, 2) bcsc_union_mma_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
+  // the compacted RHS is the compactor's output: with a programmatic
+  // launch this block may start before the compactor ends
+  if constexpr (COMPACT) pdl_wait();
 #pragma unroll
   for (int i = 0; i < MM_STAGES - 1; ++i) stage(i);
   for (int it = 0; it < total; ++it) {
@@ -522,19 +531,146 @@ __global__ void __launch_bounds__(MM_THREADS, 2) bcsc_union_mma_kernel(
 // Union RHS compactor (build_union_compact_rhs): out (n/128, U*bk, 128) from
 // the gather map (n/128, U, W) of value indices, out[g, u bk + r, w bn + c]
 // = vals[gmap[g, u, w], r, c] (nzero: zeros, so pad slots hold zeros and
-// never stale memory). Block x owns slot x = g U + u and copies its W
-// (bk x bn) blocks as raw units V of 1-16 bytes (V divides a block row's
-// bn * itemsize bytes and both base addresses), so it serves any element
-// type; `cpr` is the units per block row.
+// never stale memory). Bound: latency, not bytes (at the streaming case 168
+// slots of 8 KB, 1.8 MB of traffic: 0.5 us at 3.35 TB/s against a round
+// trip to device memory per dependent step). Two routes, chosen by shape
+// and alignment alone (kernels/spmm.py compact_route); neither falls back
+// to the other:
+// - CP_BULK, where a block row of a value block is whole 16-byte units (bn
+//   * itemsize % 16 == 0) and vals and out start on 16-byte boundaries: a
+//   tile is rb rows of one slot (all bk where the stage holds them). A
+//   grid of at most CP_BLOCKS blocks an SM walks the tiles t = blockIdx.x,
+//   + gridDim.x, ... through two stages of shared memory: lane w < W reads
+//   the tile's w-th map entry and issues one 1-D bulk copy of that value
+//   block (rb contiguous rows of it), all W completing on the stage's
+//   mbarrier; a pad entry is loaded not at all and stored as zeros (the W
+//   lanes issuing side by side replayed faster on an H100 than one thread
+//   issuing all W copies, or than 16-byte loads straight into registers:
+//   PERF.md, section 6). The block's threads then write the tile's rows to
+//   `out` as coalesced 16-byte stores (the index math is shifts: bn and the
+//   row's units are powers of two) while the next tile's copies are in
+//   flight. The W pieces
+//   of a stage sit ps bytes apart, ps = rb * bn * itemsize plus a pad that
+//   puts the eight 16-byte reads of a quarter warp in distinct banks.
+// - CP_ELEM otherwise: one block per slot copies its W blocks as raw units V
+//   of 1-16 bytes (V divides a block row's bn * itemsize bytes and both
+//   base addresses), so it serves any element type and address; `cpr` is
+//   the units per block row.
+// Both are programmatic dependent launches themselves: a block reads its
+// map entries (fixed when the plan is made) while the kernel before it on
+// the stream ends, and waits for that kernel before it reads the values or
+// writes `out`. Both trigger, as they start, the programmatic launch of the
+// union kernel that reads their output (xsmm_bcsc_spmm_union_compacted):
+// its blocks launch and read their plan while the copies run, and wait for
+// them before the first read of the RHS.
 // ---------------------------------------------------------------------------
 
+constexpr int CP_THREADS = 256;
+constexpr int CP_BLOCKS = 4;        // blocks an SM of the bulk route's grid
+constexpr int CP_STAGE = 16384;     // bytes of one stage, pads included
+enum { CP_BULK = 0, CP_ELEM = 1 };
+
+// rows of a slot in one bulk tile: all bk where a stage holds them, with a
+// pad of under 128 bytes for each of the W pieces
+__host__ __device__ inline int cp_rows(int bk, int bn, int esz) {
+  const int W = GW / bn, row = GW * esz;
+  const int fit = (CP_STAGE - W * 128) / row;
+  return bk < fit ? bk : fit;
+}
+
+// bytes between two pieces of a stage: rb rows of cpr 16-byte units, padded
+// so that it is cpr * 16 bytes past a multiple of 128
+__host__ __device__ inline int cp_piece(int rb, int cpr) {
+  return rb * cpr * 16 + (((cpr * 16 * (1 - rb)) % 128) + 128) % 128;
+}
+
+// the bulk route's dynamic shared memory: two mbarriers, the two stages'
+// W map entries, then the two stages, 128-byte aligned
+__host__ __device__ inline int cp_head(int W) {
+  return (16 + 8 * W + 127) / 128 * 128;
+}
+
+__global__ void __launch_bounds__(CP_THREADS) bcsc_union_compact_bulk_kernel(
+    const unsigned char* __restrict__ vals, const int* __restrict__ gmap,
+    uint4* __restrict__ out, long long tiles, int tps, int W, int bk, int rb,
+    int lg_cpr, int lg_upr, int ps, int nzero) {
+  extern __shared__ __align__(128) unsigned char cp_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(cp_smem);
+  int* gms = reinterpret_cast<int*>(cp_smem + 16);   // stage s: gms[s W + w]
+  unsigned char* stages = cp_smem + cp_head(W);
+  const int tid = threadIdx.x;
+  const int cpr = 1 << lg_cpr, upr = 1 << lg_upr;
+  const int piece_row = cpr * 16;                     // bytes of a block row
+  const long long block_bytes = (long long)bk * piece_row;
+  const long long step = gridDim.x;
+  pdl_trigger();
+  auto slot_of = [&](long long t) { return tps == 1 ? t : t / tps; };
+
+  // lane w < W: piece w of stage s <- rows [r0, r0 + rows) of value block
+  // v, tile t's w-th map entry (nzero: nothing loaded, zeros stored); each
+  // lane's arrival expects its own bytes
+  auto load = [&](long long t, int s, int v) {
+    const int r0 = (int)(t - slot_of(t) * tps) * rb;
+    const uint32_t bytes = (uint32_t)min(rb, bk - r0) * piece_row;
+    gms[s * W + tid] = v;
+    mbar_arrive_expect_tx(&full[s], v != nzero ? bytes : 0);
+    if (v != nzero)
+      bulk_load_1d(stages + (long long)s * W * ps + tid * ps,
+                   vals + v * block_bytes + r0 * piece_row, bytes, &full[s]);
+  };
+
+  // the map is fixed when the plan is made, so the first two tiles' entries
+  // are read, and the barriers set up, before the wait: with a programmatic
+  // launch they overlap the kernel before, whose output the values may be
+  // and whose inputs `out` may reuse
+  long long t = blockIdx.x;
+  int v0 = nzero, v1 = nzero;
+  if (tid < W) {
+    if (t < tiles) v0 = gmap[slot_of(t) * W + tid];
+    if (t + step < tiles) v1 = gmap[slot_of(t + step) * W + tid];
+  }
+  if (tid == 0) {
+    mbar_init(&full[0], W);
+    mbar_init(&full[1], W);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  pdl_wait();
+  if (tid < W) {
+    if (t < tiles) load(t, 0, v0);
+    if (t + step < tiles) load(t + step, 1, v1);
+  }
+  for (int i = 0; t < tiles; t += step, ++i) {
+    const int s = i & 1;
+    mbar_wait(&full[s], (i >> 1) & 1);
+    const long long slot = slot_of(t);
+    const int r0 = (int)(t - slot * tps) * rb;
+    const int units = min(rb, bk - r0) << lg_upr;
+    const unsigned char* st = stages + (long long)s * W * ps;
+    uint4* op = out + (slot * bk + r0) * upr;
+    for (int u = tid; u < units; u += CP_THREADS) {
+      const int r = u >> lg_upr, cu = u & (upr - 1);
+      const int w = cu >> lg_cpr, c = cu & (cpr - 1);
+      uint4 x = make_uint4(0, 0, 0, 0);
+      if (gms[s * W + w] != nzero)
+        x = *reinterpret_cast<const uint4*>(st + w * ps + (r * cpr + c) * 16);
+      op[u] = x;
+    }
+    __syncthreads();   // stage s and its map entries are read out
+    const long long tn = t + 2 * step;
+    if (tid < W && tn < tiles) load(tn, s, gmap[slot_of(tn) * W + tid]);
+  }
+}
+
 template <typename V>
-__global__ void __launch_bounds__(256) bcsc_union_compact_kernel(
+__global__ void __launch_bounds__(CP_THREADS) bcsc_union_compact_kernel(
     const V* __restrict__ vals, const int* __restrict__ gmap,
     V* __restrict__ out, int W, int bk, int cpr, int nzero) {
   __shared__ int gm[GW];
+  pdl_trigger();
   const long long slot = blockIdx.x;
   for (int w = threadIdx.x; w < W; w += blockDim.x) gm[w] = gmap[slot * W + w];
+  pdl_wait();   // as the bulk route's: the map before, the values after
   __syncthreads();
   const int row_units = W * cpr;       // units per 128-column output row
   const int total = bk * row_units;
@@ -628,7 +764,29 @@ static int launch_spmm_mma(const void* a, const void* vals, const int* ptr,
                                      bk, bn, nzero, st);
 }
 
-// the tensor-core union kernel
+// a launch on `st`; with `pdl` a programmatic dependent launch, which may
+// begin while the kernel before it on the stream still runs (the kernel
+// calls pdl_wait before it reads that kernel's output)
+template <typename... Exp, typename... Act>
+static int launch_pdl(void (*kern)(Exp...), dim3 grid, int threads, int smem,
+                      cudaStream_t st, bool pdl, Act... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? e : last;
+}
+
+// the tensor-core union kernel; its compacted form runs right after the
+// compactor and is launched programmatically
 template <typename TO>
 static int launch_union_mma(const void* a, const void* vals, const int* krows,
                             const int* gmap, const int* ocol, void* out, int m,
@@ -644,11 +802,11 @@ static int launch_union_mma(const void* a, const void* vals, const int* krows,
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(n / GW, (unsigned)gy), MM_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(vals), krows, gmap, ocol,
-      static_cast<TO*>(out), m, k, n, bk, bn, U, nzero, kc);
-  return cudaGetLastError();
+  return launch_pdl(kern, dim3(n / GW, (unsigned)gy), MM_THREADS, smem, st,
+                    compact, static_cast<const __nv_bfloat16*>(a),
+                    static_cast<const __nv_bfloat16*>(vals), krows, gmap,
+                    ocol, static_cast<TO*>(out), m, k, n, bk, bn, U, nzero,
+                    kc);
 }
 
 template <typename TI, typename TO>
@@ -658,16 +816,22 @@ static int launch_union(const void* a, const void* vals, const int* krows,
                         bool compact, cudaStream_t st) {
   const long long gy = (m + TM - 1) / TM;
   if (gy > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 grid(n / GW, (unsigned)gy);
-  if (compact)
-    bcsc_union_kernel<TI, TO, true><<<grid, 256, 0, st>>>(
-        static_cast<const TI*>(a), static_cast<const TI*>(vals), krows, gmap,
-        ocol, static_cast<TO*>(out), m, k, n, bk, bn, U, nzero);
-  else
-    bcsc_union_kernel<TI, TO, false><<<grid, 256, 0, st>>>(
-        static_cast<const TI*>(a), static_cast<const TI*>(vals), krows, gmap,
-        ocol, static_cast<TO*>(out), m, k, n, bk, bn, U, nzero);
-  return cudaGetLastError();
+  auto kern = compact ? bcsc_union_kernel<TI, TO, true>
+                      : bcsc_union_kernel<TI, TO, false>;
+  return launch_pdl(kern, dim3(n / GW, (unsigned)gy), 256, 0, st, compact,
+                    static_cast<const TI*>(a), static_cast<const TI*>(vals),
+                    krows, gmap, ocol, static_cast<TO*>(out), m, k, n, bk, bn,
+                    U, nzero);
+}
+
+static int ilog2(int x) { return 31 - __builtin_clz((unsigned)x); }
+
+// the compactor's route (kernels/spmm.py compact_route mirrors it)
+static int compact_route(int bn, int esz, const void* vals, const void* out) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(vals) |
+                         reinterpret_cast<uintptr_t>(out);
+  const bool sized = esz == 1 || esz == 2 || esz == 4 || esz == 8;
+  return sized && (bn * esz) % 16 == 0 && addr % 16 == 0 ? CP_BULK : CP_ELEM;
 }
 
 template <typename V>
@@ -675,10 +839,61 @@ static int launch_compact(const void* vals, const int* gmap, void* out,
                           long long slots, int W, int bk, int cpr, int nzero,
                           cudaStream_t st) {
   if (slots > 2147483647LL) return cudaErrorInvalidConfiguration;
-  bcsc_union_compact_kernel<V><<<(unsigned)slots, 256, 0, st>>>(
-      static_cast<const V*>(vals), gmap, static_cast<V*>(out), W, bk, cpr,
-      nzero);
-  return cudaGetLastError();
+  return launch_pdl(bcsc_union_compact_kernel<V>, dim3((unsigned)slots),
+                    CP_THREADS, 0, st, true, static_cast<const V*>(vals), gmap,
+                    static_cast<V*>(out), W, bk, cpr, nzero);
+}
+
+// route as the wrapper chose it (compact_route): CP_BULK only where
+// compact_route allows it, CP_ELEM on any input (the wrapper takes it only
+// where bulk copies cannot serve; scripts/stream_time.py times it on
+// aligned values too); grid: the bulk route's, from the wrapper's plan
+// (kernels/spmm.py compact_plan)
+static int compact_entry(const void* vals, const int* gmap, void* out,
+                         int nsg, int U, int bk, int bn, int nzero, int esz,
+                         int route, int grid, cudaStream_t st) {
+  if (nsg < 0 || U <= 0 || bk <= 0 || bn <= 0 || GW % bn || esz <= 0 ||
+      (route != CP_BULK && route != CP_ELEM) ||
+      (route == CP_BULK && compact_route(bn, esz, vals, out) != CP_BULK))
+    return cudaErrorInvalidValue;
+  if (nsg == 0) return cudaSuccess;
+  const int W = GW / bn;
+  const long long slots = (long long)nsg * U;
+  if (route == CP_BULK) {
+    if (grid <= 0) return cudaErrorInvalidValue;
+    const int cpr = bn * esz / 16, rb = cp_rows(bk, bn, esz);
+    const int tps = (bk + rb - 1) / rb, ps = cp_piece(rb, cpr);
+    return launch_pdl(bcsc_union_compact_bulk_kernel, dim3(grid), CP_THREADS,
+                      cp_head(W) + 2 * W * ps, st, true,
+                      static_cast<const unsigned char*>(vals), gmap,
+                      static_cast<uint4*>(out), slots * tps, tps, W, bk, rb,
+                      ilog2(cpr), ilog2(GW * esz / 16), ps, nzero);
+  }
+  const int row_bytes = bn * esz;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(vals) |
+                         reinterpret_cast<uintptr_t>(out);
+  for (int unit = 16; unit >= 1; unit /= 2) {
+    if (row_bytes % unit || addr % unit) continue;
+    const int cpr = row_bytes / unit;
+    switch (unit) {
+      case 16:
+        return launch_compact<uint4>(vals, gmap, out, slots, W, bk, cpr,
+                                     nzero, st);
+      case 8:
+        return launch_compact<uint2>(vals, gmap, out, slots, W, bk, cpr,
+                                     nzero, st);
+      case 4:
+        return launch_compact<uint32_t>(vals, gmap, out, slots, W, bk, cpr,
+                                        nzero, st);
+      case 2:
+        return launch_compact<uint16_t>(vals, gmap, out, slots, W, bk, cpr,
+                                        nzero, st);
+      default:
+        return launch_compact<uint8_t>(vals, gmap, out, slots, W, bk, cpr,
+                                       nzero, st);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename E>
@@ -751,13 +966,20 @@ int xsmm_bcsc_spmm_super(const void* a, const void* sup, const int* ptr,
                     in_type, out_type, stream);
 }
 
+static bool union_args_ok(int m, int k, int n, int bk, int bn, int U,
+                          int in_type, int out_type) {
+  return m >= 0 && k > 0 && bk > 0 && bn > 0 && U > 0 && k % bk == 0 &&
+         GW % bn == 0 && n > 0 && n % GW == 0 &&
+         (in_type == T_F32 || in_type == T_BF16) &&
+         (out_type == T_F32 || out_type == T_BF16);
+}
+
 static int union_entry(const void* a, const void* vals, const int* krows,
                        const int* gmap, const int* ocol, void* out, int m,
                        int k, int n, int bk, int bn, int U, int nzero,
-                       int in_type, int out_type, bool compact, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m < 0 || k <= 0 || bk <= 0 || bn <= 0 || U <= 0 || k % bk ||
-      GW % bn || n <= 0 || n % GW)
+                       int in_type, int out_type, bool compact,
+                       cudaStream_t st) {
+  if (!union_args_ok(m, k, n, bk, bn, U, in_type, out_type))
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   // the tensor-core kernel by spmm_entry's rule (kernels/spmm.py spmm_path)
@@ -765,11 +987,9 @@ static int union_entry(const void* a, const void* vals, const int* krows,
     if (out_type == T_F32)
       return launch_union_mma<float>(a, vals, krows, gmap, ocol, out, m, k, n,
                                      bk, bn, U, nzero, compact, st);
-    if (out_type == T_BF16)
-      return launch_union_mma<__nv_bfloat16>(a, vals, krows, gmap, ocol, out,
-                                             m, k, n, bk, bn, U, nzero,
-                                             compact, st);
-    return cudaErrorInvalidValue;
+    return launch_union_mma<__nv_bfloat16>(a, vals, krows, gmap, ocol, out, m,
+                                           k, n, bk, bn, U, nzero, compact,
+                                           st);
   }
   XSMM_SPMM_DISPATCH(launch_union, a, vals, krows, gmap, ocol, out, m, k, n,
                      bk, bn, U, nzero, compact, st)
@@ -781,57 +1001,42 @@ int xsmm_bcsc_spmm_union(const void* a, const void* vals, const int* krows,
                          int k, int n, int bk, int bn, int U, int nzero,
                          int in_type, int out_type, void* stream) {
   return union_entry(a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U,
-                     nzero, in_type, out_type, false, stream);
+                     nzero, in_type, out_type, false,
+                     static_cast<cudaStream_t>(stream));
 }
 
-// the same over the compacted RHS rhs (n/128, U*bk, 128) of
-// xsmm_bcsc_union_compact; gmap still marks the dead slots
-int xsmm_bcsc_spmm_union_compact(const void* a, const void* rhs,
-                                 const int* krows, const int* gmap,
-                                 const int* ocol, void* out, int m, int k,
-                                 int n, int bk, int bn, int U, int nzero,
-                                 int in_type, int out_type, void* stream) {
+// the compacted form (union, union2, union3) from one call: the compactor
+// writes the RHS into the workspace rhs (n/128, U*bk, 128), then the union
+// kernel reads it, launched programmatically so that its launch and plan
+// overlap the compactor's tail; gmap still marks the dead slots. route and
+// grid: the compactor's (xsmm_bcsc_union_compact)
+int xsmm_bcsc_spmm_union_compacted(const void* a, const void* vals,
+                                   const int* krows, const int* gmap,
+                                   const int* ocol, void* rhs, void* out,
+                                   int m, int k, int n, int bk, int bn, int U,
+                                   int nzero, int in_type, int out_type,
+                                   int route, int grid, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!union_args_ok(m, k, n, bk, bn, U, in_type, out_type))
+    return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  const int e = compact_entry(vals, gmap, rhs, n / GW, U, bk, bn, nzero,
+                              in_type == T_F32 ? 4 : 2, route, grid, st);
+  if (e != cudaSuccess) return e;
   return union_entry(a, rhs, krows, gmap, ocol, out, m, k, n, bk, bn, U,
-                     nzero, in_type, out_type, true, stream);
+                     nzero, in_type, out_type, true, st);
 }
 
 // vals (nblocks, bk, bn); gmap (nsg * U * 128/bn); out (nsg, U*bk, 128);
-// elem_size: bytes per element of vals and out
+// elem_size: bytes per element of vals and out; route (0 bulk, 1 element
+// units) as compact_entry takes it, grid the bulk route's (kernels/spmm.py
+// compact_plan)
 int xsmm_bcsc_union_compact(const void* vals, const int* gmap, void* out,
                             int nsg, int U, int bk, int bn, int nzero,
-                            int elem_size, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nsg < 0 || U <= 0 || bk <= 0 || bn <= 0 || GW % bn || elem_size <= 0)
-    return cudaErrorInvalidValue;
-  if (nsg == 0) return cudaSuccess;
-  const int W = GW / bn;
-  const long long slots = (long long)nsg * U;
-  const int row_bytes = bn * elem_size;
-  const unsigned long long addr =
-      reinterpret_cast<unsigned long long>(vals) |
-      reinterpret_cast<unsigned long long>(out);
-  for (int unit = 16; unit >= 1; unit /= 2) {
-    if (row_bytes % unit || addr % unit) continue;
-    const int cpr = row_bytes / unit;
-    switch (unit) {
-      case 16:
-        return launch_compact<uint4>(vals, gmap, out, slots, W, bk, cpr,
-                                     nzero, st);
-      case 8:
-        return launch_compact<uint2>(vals, gmap, out, slots, W, bk, cpr,
-                                     nzero, st);
-      case 4:
-        return launch_compact<uint32_t>(vals, gmap, out, slots, W, bk, cpr,
-                                        nzero, st);
-      case 2:
-        return launch_compact<uint16_t>(vals, gmap, out, slots, W, bk, cpr,
-                                        nzero, st);
-      default:
-        return launch_compact<uint8_t>(vals, gmap, out, slots, W, bk, cpr,
-                                       nzero, st);
-    }
-  }
-  return cudaErrorInvalidValue;
+                            int elem_size, int route, int grid,
+                            void* stream) {
+  return compact_entry(vals, gmap, out, nsg, U, bk, bn, nzero, elem_size,
+                       route, grid, static_cast<cudaStream_t>(stream));
 }
 
 // gmap (k/bk * n/bn); elem_size: bytes per element of vals and out

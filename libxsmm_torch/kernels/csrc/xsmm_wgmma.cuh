@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels: mbarrier
 // init/arrive/expect_tx/try_wait, the 2-D and 3-D cp.async.bulk.tensor
 // (TMA) loads and the 1-D bulk copy that complete on an mbarrier, 4- and
-// 16-byte cp.async whose completion arrives on an mbarrier, the wgmma
+// 16-byte cp.async whose completion arrives on an mbarrier, the
+// programmatic dependent launch's wait and trigger, the wgmma
 // fence/commit/wait, the shared-memory matrix descriptor of a 128-byte
 // swizzled tile and wgmma.m64n128k16 with bf16 operands and f32
 // accumulators; on the host, encode_map (cuTensorMapEncodeTiled) for the
@@ -151,6 +152,23 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Programmatic dependent launch: a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it on the stream still runs, once every block of that one
+// has triggered (or exited); pdl_wait then blocks until that kernel has
+// completed and its writes are visible. Both are no-ops in a kernel
+// launched the usual way.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ the same support predicates and the same fused epilogues:
 Beside them, the two streaming twins the JAX package times its kernels
 against: build_packed_brgemm_sol (gemm_pallas.py:334), the BRGEMM's grid and
 loads without the products, and build_packed_smm_passthrough (bench.py:438),
-o = a + b with the packed SMM's grid and bytes.
+o = a + b over the packed SMM's bytes as one streaming pass
+(passthrough_plan).
 
 Every builder returns a wrapper object. Calling it checks the operands'
 shape and dtype, then follows their device: on CUDA tensors it allocates the
@@ -91,7 +92,7 @@ def _kernels() -> ctypes.CDLL:
             lib.xsmm_packed_brgemm.argtypes
         lib.xsmm_packed_brgemm_sol_tma_fma.argtypes = \
             lib.xsmm_packed_brgemm_sol.argtypes
-        lib.xsmm_packed_smm_passthrough.argtypes = [P, P, P, I, I, I, P]
+        lib.xsmm_packed_smm_passthrough.argtypes = [P, P, P, LL, P]
         for f in (lib.xsmm_packed_smm, lib.xsmm_batched_gemm,
                   lib.xsmm_packed_brgemm, lib.xsmm_packed_brgemm_sol,
                   lib.xsmm_packed_brgemm_wgmma,
@@ -128,11 +129,18 @@ def _on_cuda(*tensors) -> bool:
 
 
 def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    """A tensor's address for a ctypes pointer argument (every entry
+    declares its argtypes, so a plain int converts; None is NULL)."""
+    return None if t is None else t.data_ptr()
 
 
-def _stream(device: torch.device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream(device: torch.device) -> int:
+    """The address of the current CUDA stream of `device`, read without
+    building a torch.cuda.Stream (a few microseconds of host time a
+    call)."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _on_device(device: torch.device):
@@ -795,32 +803,47 @@ def build_packed_batched_gemm(desc: GemmDescriptor,
     return PackedBatchedGemm(desc, groups, cp_type, rpt)
 
 
+_PT_THREADS = 1024   # float4 units a block (csrc PT_THREADS)
+
+
+def passthrough_plan(groups: int, m: int):
+    """(float4 units, grid) of the passthrough over (groups, m, 128) f32:
+    one float4 pair a thread, block x covering units x * _PT_THREADS ...
+    + _PT_THREADS - 1, the last block masked."""
+    units = groups * m * 32
+    return units, -(-units // _PT_THREADS)
+
+
 class PackedSmmPassthrough:
-    """fn(a, b) -> a + b over (G, m, 128) f32, bit for bit as torch's: the
-    packed SMM's grid and 16-byte loads with nothing computed."""
+    """fn(a, b) -> a + b over (G, m, 128) f32, bit for bit as torch's: one
+    streaming pass over the packed SMM's bytes (passthrough_plan)."""
 
     def __init__(self, groups: int, m: int):
         self.groups, self.m = groups, m
-        self.rpt = packed_smm_configs(m)[0]   # the packed SMM's default grid
+        self.shape = (groups, m, 128)
+        self.units = passthrough_plan(groups, m)[0]
         self.name = f"packed_smm_passthrough_{groups}x{m}x128"
 
     def __call__(self, a, b):
-        shape = (self.groups, self.m, 128)
-        _check("a", a, shape, torch.float32)
-        _check("b", b, shape, torch.float32)
-        if not _on_cuda(a, b):
-            return self.plain(a, b)
+        f32 = torch.float32
+        if (a.shape != self.shape or b.shape != self.shape
+                or a.dtype != f32 or b.dtype != f32):
+            _check("a", a, self.shape, f32)
+            _check("b", b, self.shape, f32)
+        dev = a.device
+        if dev.type != "cuda" or b.device != dev:
+            if not _on_cuda(a, b):
+                return self.plain(a, b)
         a, b = a.contiguous(), b.contiguous()
-        for name, t in (("a", a), ("b", b)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{self.name}: operand {name} is not "
-                                 "16-byte aligned")
-        out = torch.empty(shape, dtype=torch.float32, device=a.device)
+        pa, pb = a.data_ptr(), b.data_ptr()
+        if (pa | pb) % 16:
+            raise ValueError(f"{self.name}: operand {'a' if pa % 16 else 'b'}"
+                             " is not 16-byte aligned")
+        out = torch.empty_like(a)
         lib = _kernels()
-        with torch.cuda.device(a.device):
+        with _on_device(dev):
             err = lib.xsmm_packed_smm_passthrough(
-                _ptr(a), _ptr(b), _ptr(out), self.groups, self.m, self.rpt,
-                _stream(a.device))
+                pa, pb, out.data_ptr(), self.units, _stream(dev))
         _raise_on_error(err, self.name)
         launches["packed_smm_passthrough"] += 1
         return out
@@ -833,11 +856,11 @@ def build_packed_smm_passthrough(groups: int, m: int, S: Optional[int] = None
                                  ) -> Optional[PackedSmmPassthrough]:
     """The packed SMM's passthrough twin (bench.py:438-448, the denominator
     of the headline fraction t_passthrough / t_packed_smm, bench.py:869):
-    fn(a, b) -> a + b over (G, m, 128) f32, with the packed SMM kernel's
-    grid, loads and bytes (csrc/gemm_kernels.cu), at the rows per thread
-    the packed SMM takes by default for this m. `S` is the TPU twin's
-    groups per block and changes nothing. None when there is nothing to
-    launch (groups or m not positive)."""
+    fn(a, b) -> a + b over (G, m, 128) f32, the fastest streaming pass over
+    the headline kernel's bytes (bench.py:865-867's "true DMA speed of
+    light"; csrc/gemm_kernels.cu). `S` is the TPU twin's groups per block
+    and changes nothing. None when there is nothing to launch (groups or m
+    not positive)."""
     del S
     if groups <= 0 or m <= 0:
         return None

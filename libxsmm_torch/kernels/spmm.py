@@ -13,11 +13,15 @@ The port of `libxsmm_tpu/kernels/spmm_pallas.py`: the schedule helpers
   TPU schedules (double buffering, DMA assembly, A in HBM) are one CUDA
   kernel here, in two forms: the fused form assembles each slot's RHS from
   the value store itself (union4, union4a, union4d, union5); the compacted
-  form (compact=True: union, union2, union3) first launches the compactor,
-  then reads its contiguous RHS, as the reference runs its separate pass.
+  form (compact=True: union, union2, union3) launches the compactor, then
+  reads its contiguous RHS, as the reference runs its separate pass: both
+  from one host call, the kernel launched programmatically so that its
+  launch overlaps the compactor's tail.
 * BcscUnionCompact (a union plan's `.compactor`), the port of
   build_union_compact_rhs (:885): values -> the per-group compacted RHS
-  (nsg, U*bk, 128) through the plan's gather map. The reference refuses a
+  (nsg, U*bk, 128) through the plan's gather map, on the bulk-copy engine
+  where the blocks' rows are whole 16-byte units (compact_route,
+  compact_plan). The reference refuses a
   value store larger than a quarter of VMEM and falls back to XLA
   (:899-900, :777-783), a Mosaic limit: the compactor serves every plan the
   union kernel takes.
@@ -61,7 +65,8 @@ import torch
 from .. import device as device_mod
 from ..descriptor import GemmShape, SpgemmConfig
 from ..dtypes import Datatype, to_torch
-from .gemm import _aligned16, _check, _on_cuda, _ptr, _raise_on_error, _stream
+from .gemm import (_aligned16, _check, _num_sms, _on_cuda, _on_device, _ptr,
+                   _raise_on_error, _stream)
 
 # kernel launches since the last reset_launches(); the wrappers add one where
 # they launch their CUDA kernel, and nowhere else
@@ -93,12 +98,13 @@ def _kernels() -> ctypes.CDLL:
         lib.xsmm_bcsc_spmm.argtypes = [P, P, P, P, P, P] + [I] * 8 + [P]
         lib.xsmm_bcsc_spmm_super.argtypes = [P, P, P, P, P, P] + [I] * 6 + [P]
         lib.xsmm_bcsc_spmm_union.argtypes = [P, P, P, P, P, P] + [I] * 9 + [P]
-        lib.xsmm_bcsc_spmm_union_compact.argtypes = (
-            [P, P, P, P, P, P] + [I] * 9 + [P])
+        lib.xsmm_bcsc_spmm_union_compacted.argtypes = (
+            [P] * 7 + [I] * 11 + [P])
         lib.xsmm_bcsc_densify.argtypes = [P, P, P] + [I] * 6 + [P]
-        lib.xsmm_bcsc_union_compact.argtypes = [P, P, P] + [I] * 6 + [P]
+        lib.xsmm_bcsc_union_compact.argtypes = [P, P, P] + [I] * 8 + [P]
         for f in (lib.xsmm_bcsc_spmm, lib.xsmm_bcsc_spmm_super,
-                  lib.xsmm_bcsc_spmm_union, lib.xsmm_bcsc_spmm_union_compact,
+                  lib.xsmm_bcsc_spmm_union,
+                  lib.xsmm_bcsc_spmm_union_compacted,
                   lib.xsmm_bcsc_densify, lib.xsmm_bcsc_union_compact):
             f.restype = I
         lib.xsmm_error_string.argtypes = [I]
@@ -205,23 +211,33 @@ class _SpmmKernel:
         self.path = spmm_path(self.in_dt, bk, bn)
 
     def _operands(self, a, values):
-        _check("a", a, (self.m, self.k))
-        _check("values", values, (self.nblocks, self.bk, self.bn))
-        return a.to(self.in_dt), values.to(self.in_dt)
+        if (a.shape != (self.m, self.k)
+                or values.shape != (self.nblocks, self.bk, self.bn)):
+            _check("a", a, (self.m, self.k))
+            _check("values", values, (self.nblocks, self.bk, self.bn))
+        if a.dtype != self.in_dt:
+            a = a.to(self.in_dt)
+        if values.dtype != self.in_dt:
+            values = values.to(self.in_dt)
+        return a, values
 
     def __call__(self, a, values):
         a, values = self._operands(a, values)
-        if not _on_cuda(a, values, self.plan):
-            return self.plain(a, values)
+        dev = a.device
+        if (dev.type != "cuda" or values.device != dev
+                or self.plan.device != dev):
+            if not _on_cuda(a, values, self.plan):
+                return self.plain(a, values)
+        if self.m == 0 or self.n == 0:   # an empty C: nothing is launched
+            return a.new_empty((self.m, self.n), dtype=self.out_dt)
         a, values = _aligned16(a), _aligned16(values)
-        out = torch.empty((self.m, self.n), dtype=self.kout_dt,
-                          device=a.device)
+        out = a.new_empty((self.m, self.n), dtype=self.kout_dt)
         lib = _kernels()
-        with torch.cuda.device(a.device):
+        with _on_device(dev):
             err = self._launch(lib, a, values, out)
         _raise_on_error(err, self.name, lib)
         launches[self.counter] += 1
-        return out.to(self.out_dt)
+        return out if self.kout_dt == self.out_dt else out.to(self.out_dt)
 
 
 class BcscSpmm(_SpmmKernel):
@@ -364,11 +380,54 @@ def _cluster_union_groups(indptr: np.ndarray, indices: np.ndarray,
     return np.asarray([j for g in groups for j in g], np.int32)
 
 
+_CP_THREADS = 256    # threads of a block (csrc CP_THREADS)
+_CP_BLOCKS = 4       # blocks an SM of the bulk route's grid (csrc CP_BLOCKS)
+_CP_STAGE = 16384    # bytes of one stage, pads included (csrc CP_STAGE)
+_CP_ROUTES = {"bulk": 0, "element": 1}   # csrc CP_BULK, CP_ELEM
+
+
+def compact_route(bn: int, itemsize: int, *addresses: int) -> str:
+    """The compactor's route, as csrc compact_route takes it: "bulk" (1-D
+    bulk copies into shared memory, 16-byte stores out) where a block row
+    is whole 16-byte units (bn * itemsize % 16 == 0, itemsize 1, 2, 4 or 8)
+    and every address is 16-byte aligned; "element" (raw units of 1-16
+    bytes, one block a slot) otherwise. It follows the shape and the
+    addresses alone; neither route falls back to the other."""
+    addr = 0
+    for x in addresses:
+        addr |= x
+    sized = itemsize in (1, 2, 4, 8) and (bn * itemsize) % 16 == 0
+    return "bulk" if sized and addr % 16 == 0 else "element"
+
+
+def compact_plan(nsg: int, U: int, bk: int, bn: int, itemsize: int,
+                 sms: int):
+    """(rows a tile, tiles a slot, tiles, grid, piece stride, shared memory)
+    of the compactor's bulk route (csrc cp_rows, cp_piece, cp_head): a tile
+    is up to `rows` rows of one slot, all bk where one stage holds them
+    (W pieces of rows * bn * itemsize bytes, each padded so a quarter
+    warp's 16-byte reads fall in distinct banks); block x walks tiles x, x
+    + grid, ... through two stages, the grid the least of at most
+    _CP_BLOCKS blocks an SM that keeps the number of rounds."""
+    W, cpr, row = GROUP // bn, bn * itemsize // 16, GROUP * itemsize
+    rows = min(bk, (_CP_STAGE - W * 128) // row)
+    per_slot = -(-bk // rows)
+    tiles = nsg * U * per_slot
+    rounds = max(1, -(-tiles // (sms * _CP_BLOCKS)))
+    grid = -(-tiles // rounds)
+    piece = rows * cpr * 16 + (cpr * 16 * (1 - rows)) % 128
+    smem = -(-(16 + 8 * W) // 128) * 128 + 2 * W * piece
+    return rows, per_slot, tiles, grid, piece, smem
+
+
 class BcscUnionCompact:
     """fn(values (nblocks, bk, bn)) -> the compacted RHS (nsg, U*bk, 128) in
     the operand type: out[g, u*bk:(u+1)*bk, w*bn:(w+1)*bn] =
     values[gmap[g, u, w]], the zero block where the map says nblocks. gmap
-    is the union plan's flattened (nsg, U, W) map, on the plan's device."""
+    is the union plan's flattened (nsg, U, W) map, on the plan's device.
+    Values of another element type are converted to the operand type
+    first; the kernel copies bytes, so any operand type of 1-8 bytes takes
+    the bulk route where compact_route allows it."""
 
     def __init__(self, nsg: int, U: int, W: int, bk: int, bn: int,
                  nblocks: int, gmap: torch.Tensor, in_dt: torch.dtype):
@@ -376,22 +435,47 @@ class BcscUnionCompact:
         self.nblocks = nblocks
         self.gmap = gmap
         self.in_dt = in_dt
+        self.itemsize = in_dt.itemsize
         self.name = f"bcsc_union_compact_{nsg}x{U}x{W}_b{bk}x{bn}"
+        self._grid = None    # the bulk route's, on the map's device
+
+    def route(self, values: torch.Tensor, out: torch.Tensor):
+        """(route, grid) of a launch that reads `values` and writes `out`
+        (both on the map's card)."""
+        route = compact_route(self.bn, self.itemsize, values.data_ptr(),
+                              out.data_ptr())
+        if route == "element":
+            return route, 0
+        if self._grid is None:
+            self._grid = compact_plan(self.nsg, self.U, self.bk, self.bn,
+                                      self.itemsize,
+                                      _num_sms(self.gmap.device))[3]
+        return route, self._grid
+
+    def rhs(self, like: torch.Tensor) -> torch.Tensor:
+        """An uninitialised compacted RHS on `like`'s device (the output)."""
+        return like.new_empty((self.nsg, self.U * self.bk, GROUP),
+                              dtype=self.in_dt)
 
     def __call__(self, values):
-        _check("values", values, (self.nblocks, self.bk, self.bn))
-        values = values.to(self.in_dt)
-        if not _on_cuda(values, self.gmap):
-            return self.plain(values)
-        values = values.contiguous()
-        out = torch.empty((self.nsg, self.U * self.bk, GROUP),
-                          dtype=self.in_dt, device=values.device)
+        if values.shape != (self.nblocks, self.bk, self.bn):
+            _check("values", values, (self.nblocks, self.bk, self.bn))
+        if values.dtype != self.in_dt:
+            values = values.to(self.in_dt)
+        dev = values.device
+        if dev.type != "cuda" or self.gmap.device != dev:
+            if not _on_cuda(values, self.gmap):
+                return self.plain(values)
+        if not values.is_contiguous():
+            values = values.contiguous()
+        out = self.rhs(values)
+        route, grid = self.route(values, out)
         lib = _kernels()
-        with torch.cuda.device(values.device):
+        with _on_device(dev):
             err = lib.xsmm_bcsc_union_compact(
-                _ptr(values), _ptr(self.gmap), _ptr(out), self.nsg, self.U,
-                self.bk, self.bn, self.nblocks, values.element_size(),
-                _stream(values.device))
+                values.data_ptr(), self.gmap.data_ptr(), out.data_ptr(),
+                self.nsg, self.U, self.bk, self.bn, self.nblocks,
+                self.itemsize, _CP_ROUTES[route], grid, _stream(dev))
         _raise_on_error(err, self.name, lib)
         launches["bcsc_union_compact"] += 1
         return out
@@ -411,7 +495,9 @@ class BcscSpmmUnion(_SpmmKernel):
     block rows, gmap (nsg, U, W) value indices (nblocks = the zero block),
     ocol (nb,) the caller's block column at each group position. With
     `compact` each call launches the compactor, then the kernel's compacted
-    form; `launches["bcsc_spmm_union"]` counts both forms."""
+    form, from one host call into a workspace for the RHS;
+    `launches["bcsc_spmm_union"]` counts both forms, and
+    `launches["bcsc_union_compact"]` the compactor's launches."""
 
     counter = "bcsc_spmm_union"
 
@@ -431,17 +517,26 @@ class BcscSpmmUnion(_SpmmKernel):
                                           nblocks, self.gmap, self.in_dt)
         self.name = (f"{self.counter}_{self.m}x{self.n}x{self.k}"
                      f"_b{bk}x{bn}_U{self.U}")
+        # the launch's arguments that no call changes
+        self._plan_ptrs = tuple(t.data_ptr() for t in (self.krows, self.gmap,
+                                                       self.ocol))
+        self._dims = (self.m, self.k, self.n, bk, bn, self.U, nblocks,
+                      _TYPE_CODE[self.in_dt], _TYPE_CODE[self.kout_dt])
 
     def _launch(self, lib, a, values, out):
-        entry, rhs = lib.xsmm_bcsc_spmm_union, values
-        if self.compact:
-            entry, rhs = (lib.xsmm_bcsc_spmm_union_compact,
-                          self.compactor(values))
-        return entry(
-            _ptr(a), _ptr(rhs), _ptr(self.krows), _ptr(self.gmap),
-            _ptr(self.ocol), _ptr(out), self.m, self.k, self.n, self.bk,
-            self.bn, self.U, self.nblocks, _TYPE_CODE[self.in_dt],
-            _TYPE_CODE[self.kout_dt], _stream(a.device))
+        if not self.compact:
+            return lib.xsmm_bcsc_spmm_union(
+                a.data_ptr(), values.data_ptr(), *self._plan_ptrs,
+                out.data_ptr(), *self._dims, _stream(a.device))
+        rhs = self.compactor.rhs(a)
+        route, grid = self.compactor.route(values, rhs)
+        err = lib.xsmm_bcsc_spmm_union_compacted(
+            a.data_ptr(), values.data_ptr(), *self._plan_ptrs,
+            rhs.data_ptr(), out.data_ptr(), *self._dims, _CP_ROUTES[route],
+            grid, _stream(a.device))
+        if err == 0:
+            launches["bcsc_union_compact"] += 1
+        return err
 
     def plain(self, a, values):
         """Per group, A's (m, U*bk) compacted panel stack times the group's
@@ -468,7 +563,7 @@ def build_bcsc_spmm_union(shape: GemmShape, config: SpgemmConfig,
     """K-union-compacted BCSC SpMM: fn(a, values) -> C(m, n), beta=0, or
     None when the blocking does not tile 128-column groups (bn | 128,
     128 | n, bk | k) or the operand type is not f32/bf16. `compact` selects
-    the two-launch form (compactor, then the kernel over its RHS).
+    the compacted form (the compactor, then the kernel over its RHS).
 
     The create-time plan is the reference's (spmm_pallas.py:339-407): the
     optional clustering permutation, the per-group unions of block rows,

@@ -29,73 +29,18 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 from typing import List, Optional, Sequence
 
 import torch
 
+if __package__:
+    from . import timing
+else:   # run by its path (a checkout first on PYTHONPATH): its directory
+    import timing   # is sys.path[0]
+
 SHAPE = (4096, 3072)
 SEED, P = 7, 0.1
-REPS, ROUNDS = 20, 5
-
-
-def _events_ms(fn) -> float:
-    for _ in range(2):
-        fn()
-    best = float("inf")
-    for _ in range(ROUNDS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / REPS)
-    return best
-
-
-def _replay_ms(calls) -> float:
-    """Best replay of a graph holding `calls` (a list of thunks), per call."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in calls[:2]:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in calls:
-            fn()
-    best = float("inf")
-    for _ in range(ROUNDS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / len(calls))
-    return best
-
-
-def _profiler_ms(calls) -> float:
-    """The CUDA kernels' summed time over `calls`, per call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    calls[0]()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for fn in calls:
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    if not total:
-        raise AssertionError("the profiler recorded no kernel")
-    return total / len(calls) / 1e3
+REPS = 20
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
@@ -109,10 +54,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     from libxsmm_torch.device import get_geometry
     from libxsmm_torch.kernels import eltwise as KE
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    smi = timing.card()
     print(smi)
     geo = get_geometry()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -140,11 +82,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         warm = [lambda: call(x)] * REPS
         rotated = [lambda t=t: call(t) for t in xs] * max(1, REPS // copies)
         nbytes = x.numel() * 4 + mask_bytes[form]
-        row = {"form": form, "events_ms": _events_ms(lambda: call(x)),
-               "replay_ms": _replay_ms(warm),
-               "replay_rotated_ms": _replay_ms(rotated),
-               "profiler_ms": _profiler_ms(warm),
-               "profiler_rotated_ms": _profiler_ms(rotated),
+        row = {"form": form, "events_ms": timing.events_ms(lambda: call(x)),
+               "replay_ms": timing.graph_ms(warm),
+               "replay_rotated_ms": timing.graph_ms(rotated),
+               "profiler_ms": timing.device_ms(warm),
+               "profiler_rotated_ms": timing.device_ms(rotated),
                "bound_ms": geo.bound_ms(nbytes, 0, geo.peak_bf16_tflops)}
         rows.append(row)
         print(f"dropout {m}x{n} bf16 {form}: events {row['events_ms']:.4f} "

@@ -119,20 +119,28 @@ def test_brgemm_sol_views_and_refusals(gen):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("G,m", [(4096, 32), (7, 40), (3, 5), (1, 1),
-                                 (5, 33), (6, 20), (9, 16), (2, 15)])
+                                 (5, 33), (6, 20), (9, 16), (2, 15),
+                                 (4096, 33), (3, 17), (1, 8), (4096, 1),
+                                 (16384, 32)])
 def test_passthrough_bit_exact(gen, G, m):
-    pt = pk.build_packed_smm_passthrough(G, m)   # rows per thread 16, 8, 4
+    """Whole chunks, a masked last chunk (G m 32 not a multiple of 1024
+    units) and grids of one block to a full card."""
+    pt = pk.build_packed_smm_passthrough(G, m)
     a, b = rand(gen, (G, m, 128)), rand(gen, (G, m, 128), scale=0.1)
     got = launched(pk.launches, "packed_smm_passthrough", lambda: pt(a, b))
     assert torch.equal(got, a + b)
 
 
-def test_passthrough_refuses_misaligned(gen):
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_passthrough_refuses_misaligned(gen, which):
     pt = pk.build_packed_smm_passthrough(2, 8)
     buf = rand(gen, (2 * 8 * 128 + 1,))
-    a = buf[1:].view(2, 8, 128)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        pt(a, a)
+    off = buf[1:].view(2, 8, 128)
+    ok = rand(gen, (2, 8, 128))
+    before = pk.launches["packed_smm_passthrough"]
+    with pytest.raises(ValueError, match=f"operand {which} is not 16-byte"):
+        pt(off, ok) if which == "a" else pt(ok, off)
+    assert pk.launches["packed_smm_passthrough"] == before
 
 
 # ---------------------------------------------------------------------------

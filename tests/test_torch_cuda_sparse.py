@@ -308,16 +308,162 @@ def test_union_compactor_and_compact_form(gen, m, k, n, bk, bn, u_align,
 
 def test_compactor_unaligned_values(gen):
     """A value tensor that starts 4 bytes past an aligned address takes the
-    4-byte copy unit and still matches its plain version."""
+    element route (4-byte units) and still matches its plain version."""
     indptr, indices = pattern(128, 256, 32, 32, 0.4, seed=5)
     fn = pk.build_bcsc_spmm_union(GemmShape(16, 256, 128), SpgemmConfig(
         1, 32, 32), indptr, indices, "cuda", compact=True)
     store = rand(gen, (len(indices) * 32 * 32 + 1,))
     v = store[1:].view(len(indices), 32, 32)
     assert v.data_ptr() % 16 == 4
-    got = fn.compactor(v)
+    assert fn.compactor.route(v, fn.compactor.rhs(v))[0] == "element"
+    got = launched("bcsc_union_compact", fn.compactor, v)
     torch.cuda.synchronize()
     assert torch.equal(got, fn.compactor.plain(v))
+
+
+def _compactor(nsg, U, bk, bn, nblocks, dtype, pad=0.2, seed=0):
+    """A compactor over a random (nsg, U, 128/bn) map into `nblocks` value
+    blocks of `dtype`, a `pad` share of its entries the zero block and
+    group 0's slots all pad."""
+    rng = np.random.default_rng(seed)
+    W = 128 // bn
+    gmap = rng.integers(0, nblocks, (nsg, U, W))
+    gmap[rng.random(gmap.shape) < pad] = nblocks
+    gmap[0] = nblocks
+    return pk.BcscUnionCompact(
+        nsg, U, W, bk, bn, nblocks,
+        torch.as_tensor(gmap.reshape(-1), dtype=torch.int32, device="cuda"),
+        dtype)
+
+
+def _values(gen, shape, dtype):
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("nsg,U,bk,bn,route", [
+    (8, 21, 32, 32, "bulk"),        # the streaming case's plan
+    (16, 40, 32, 32, "bulk"),       # 640 slots, more than 4 x 132
+    (1, 1, 32, 32, "bulk"),         # one slot (all pad: group 0)
+    (2, 3, 256, 128, "bulk"),       # deep blocks, several tiles a slot
+    (3, 5, 16, 64, "bulk"),
+    (2, 4, 16, 4, None)])           # 4-16 byte rows: by element size
+def test_compactor_routes_byte_equal(gen, nsg, U, bk, bn, route, dtype):
+    """The compactor byte-equal to its plain version on both routes, f32,
+    bf16 and int8 values, with pad slots and an all-pad group; the route
+    the shape and alignment choose."""
+    nblocks = 37
+    fn = _compactor(nsg, U, bk, bn, nblocks, dtype, seed=U)
+    v = _values(gen, (nblocks, bk, bn), dtype)
+    want_route = route or ("bulk" if (bn * v.element_size()) % 16 == 0
+                           else "element")
+    assert fn.route(v, fn.rhs(v))[0] == want_route
+    got = launched("bcsc_union_compact", fn, v)
+    torch.cuda.synchronize()
+    want = fn.plain(v)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert not got[0].any()                     # the all-pad group
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_compactor_offset_view_takes_element_route(gen, dtype):
+    """A value view one element past an aligned base goes the element
+    route, byte-equal to the plain version."""
+    nblocks, bk, bn = 21, 32, 32
+    fn = _compactor(4, 9, bk, bn, nblocks, dtype, seed=3)
+    store = _values(gen, (nblocks * bk * bn + 1,), dtype)
+    v = store[1:].view(nblocks, bk, bn)
+    assert fn.route(v, fn.rhs(v))[0] == "element"
+    got = launched("bcsc_union_compact", fn, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8), fn.plain(v).view(torch.uint8))
+
+
+@pytest.mark.parametrize("a_dt", [BF16, F32])
+def test_compacted_form_replays_from_a_cuda_graph(gen, a_dt):
+    """The compacted form's one host call (the compactor, then the union
+    kernel as a programmatic dependent launch) captured in a CUDA graph:
+    each replay gives the eager result bit for bit, and the capture counts
+    both kernels once."""
+    indptr, indices = pattern(1024, 1024, 32, 32, 0.2, seed=2)
+    shape = GemmShape(256, 1024, 1024, a_dt, a_dt, F32)
+    fn = pk.build_bcsc_spmm_union(shape, SpgemmConfig(1, 32, 32), indptr,
+                                  indices, "cuda", compact=True)
+    a = rand(gen, (256, 1024), a_dt)
+    v = rand(gen, (len(indices), 32, 32), a_dt)
+    want = fn(a, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(a, v)
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(pk.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn(a, v)
+    for name in ("bcsc_union_compact", "bcsc_spmm_union"):
+        assert pk.launches[name] == before[name] + 1
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("build,kw", [
+    (pk.build_bcsc_spmm_union, {"compact": True}),
+    (pk.build_bcsc_spmm_union, {"compact": False}),
+    (pk.build_bcsc_spmm, {})])
+def test_empty_m_launches_nothing(gen, build, kw):
+    """m = 0: an empty C on the card, and no kernel counted, since none is
+    launched (the compactor included)."""
+    indptr, indices = pattern(128, 256, 32, 32, 0.4, seed=4)
+    fn = build(GemmShape(0, 256, 128, BF16, BF16, F32),
+               SpgemmConfig(1, 32, 32), indptr, indices, "cuda", **kw)
+    before = dict(pk.launches)
+    got = fn(rand(gen, (0, 128), BF16), rand(gen, (len(indices), 32, 32),
+                                             BF16))
+    assert got.is_cuda and got.shape == (0, 256) and got.dtype == torch.float32
+    assert dict(pk.launches) == before
+
+
+def test_compactor_element_route_on_aligned_values(gen):
+    """The C entry takes the element route on any input (the wrapper picks
+    it only where bulk copies cannot serve; scripts/stream_time.py times it
+    beside the bulk route): byte-equal to the bulk route and the plain
+    version on 16-byte-aligned bf16 values; the bulk route on misaligned
+    values is refused."""
+    fn = _compactor(8, 21, 32, 32, 37, torch.bfloat16, seed=2)
+    v = _values(gen, (37, 32, 32), torch.bfloat16)
+    lib = pk._kernels()
+    outs = {}
+    for route in ("bulk", "element"):
+        out = fn.rhs(v)
+        grid = fn.route(v, out)[1]
+        err = lib.xsmm_bcsc_union_compact(
+            v.data_ptr(), fn.gmap.data_ptr(), out.data_ptr(), fn.nsg, fn.U,
+            fn.bk, fn.bn, fn.nblocks, 2, pk._CP_ROUTES[route], grid,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        outs[route] = out
+    torch.cuda.synchronize()
+    want = fn.plain(v).view(torch.uint8)
+    for out in outs.values():
+        assert torch.equal(out.view(torch.uint8), want)
+    store = _values(gen, (37 * 32 * 32 + 1,), torch.bfloat16)
+    bad = store[1:].view(37, 32, 32)          # 2 bytes past an aligned base
+    out = fn.rhs(v)
+    grid = fn.route(v, out)[1]
+    assert lib.xsmm_bcsc_union_compact(
+        bad.data_ptr(), fn.gmap.data_ptr(), out.data_ptr(), fn.nsg, fn.U,
+        fn.bk, fn.bn, fn.nblocks, 2, pk._CP_ROUTES["bulk"], grid,
+        torch.cuda.current_stream().cuda_stream) != 0
 
 
 # blockings the union's tensor-core form serves with bf16 operands

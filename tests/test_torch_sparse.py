@@ -298,16 +298,46 @@ def _bits(x):
     return x.view({2: np.uint16, 4: np.uint32}[x.dtype.itemsize])
 
 
-@pytest.mark.parametrize("case", list(CASES) + ["bcsc_cluster"])
+def _compact_edge(case):
+    """(shape, config, indptr, indices, values) of the compactor's edge
+    plans: U = 1 (every block in block row 2), one 128-column group, and a
+    group without a block (all its slots pad), each at 32 x 32 blocks."""
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    bk = bn = 32
+    if case == "compact_u1":
+        k, n, dt = 128, 256, F32
+        cols = [[2]] * (n // bn)
+    elif case == "compact_nsg1":
+        k, n, dt = 128, 128, BF16
+        cols = [sorted(rng.choice(4, 2, replace=False)) for _ in range(4)]
+    else:                                   # compact_allpad: group 1 empty
+        k, n, dt = 128, 384, F32
+        cols = [[0, 1]] * 4 + [[]] * 4 + [[2, 3]] * 4
+    indptr = np.concatenate([[0], np.cumsum([len(c) for c in cols])])
+    indices = np.asarray([r for c in cols for r in c], np.int32)
+    shape = GemmShape(16, n, k, a_in_type=dt, b_in_type=dt, out_type=F32)
+    values = pair(rng.standard_normal((len(indices), bk, bn)), dt)
+    return shape, SpgemmConfig(1, bk, bn), indptr.astype(np.int32), \
+        indices, values
+
+
+COMPACT_EDGES = ("compact_u1", "compact_nsg1", "compact_allpad")
+
+
+@pytest.mark.parametrize("case", list(CASES) + ["bcsc_cluster"]
+                         + list(COMPACT_EDGES))
 def test_union_compactor_matches_reference(case):
     """The compactor's plain version is byte-equal to the reference's
     build_union_compact_rhs (interpret mode) on the case's union plan, the
     clustered plan included: the same gather map, the zero block in every
-    pad slot. Where the union kernel refuses the blocking, both do."""
+    pad slot. Where the union kernel refuses the blocking, both do. The
+    edge plans: U = 1, one group, and a group whose slots are all pad."""
     if case == "bcsc_cluster":
         (m, n, k, bk, bn), indptr, indices, values, a = cluster_pattern()
         shape, config = GemmShape(m, n, k), SpgemmConfig(1, bk, bn)
         v = pair(values, F32)
+    elif case in COMPACT_EDGES:
+        shape, config, indptr, indices, v = _compact_edge(case)
     else:
         shape, config, bm, _, v, _, _ = case_data(case)
         indptr, indices = bm.indptr, bm.indices
@@ -331,6 +361,12 @@ def test_union_compactor_matches_reference(case):
     assert tuple(got.shape) == (port.nsg, port.U * bk, 128)
     assert got.dtype == TORCH[shape.a_in_type]
     np.testing.assert_array_equal(_bits(want), _bits(got))
+    if case == "compact_u1":
+        assert port.U == 1
+    elif case == "compact_nsg1":
+        assert port.nsg == 1
+    elif case == "compact_allpad":
+        assert (gmap[1] == nblocks).all() and not got[1].any()
 
 
 def test_union_forms_agree():
