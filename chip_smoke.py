@@ -13,7 +13,7 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    each pipelined kernel (the bf16 flash forward and backward, the BCSC
    SpMM, the k-union SpMM, the packed BRGEMM's wgmma and tma_fma kernels
    and twins, the batched SMM's ring kernel, the BCSC lab's chunkN and
-   dspipe probes);
+   dspipe probes, the BCSC densifier's two routes);
 3. drives the small-GEMM main path through the public entry points, with
    every kernel's launch count set to 0 just before and read just after:
    - the headline: dispatch_gemm_batched_packed(GemmShape(32,32,32),
@@ -143,7 +143,8 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     device time from torch.profiler), and each launch configuration the
     kernel chooses among; the passthrough's row and torch.add, the
     compactor's (with its route) and the clone of its output, and
-    densify's carry CUDA-graph replay and the host's own time per call
+    densify's (with its route, which must be "vector" at the streaming
+    case) carry CUDA-graph replay and the host's own time per call
     beside their events; the union kernel's compacted form (compactor and
     product from one host call) is timed beside its fused form at the
     m = 1024 cases (bcsc20, bcsc05, ragged) by events, replay and host; the f32 packed BRGEMM gets a row of its own,
@@ -241,7 +242,8 @@ SPARSE_KERNELS = ("bcsc_spmm", "bcsc_spmm_union", "bcsc_densify",
 SPARSE_KERNEL_OF = {"pallas": ("bcsc_spmm",), "super": ("bcsc_spmm_super",),
                     "dense": ("bcsc_densify",), "sparse": ()}
 COMPACTED = ("union", "union2", "union3")
-# the pipelined Hopper kernels (tensor-core, TMA- and bulk-copy-fed):
+# the pipelined Hopper kernels (tensor-core, TMA- and bulk-copy-fed) and
+# the densifier's two routes:
 # (source stem, kernel name in the ptxas report)
 MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("gemm_kernels", "brgemm_partial_tma_fma_kernel"),
@@ -254,7 +256,8 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("spmm_lab_kernels", "bcsc_lab_chunk_kernel"),
                ("spmm_lab_kernels", "bcsc_lab_dspipe_kernel"),
                ("spmm_lab_kernels", "bcsc_lab_minimal_wgmma_kernel"),
-               ("eltwise_kernels", "dropout"))
+               ("eltwise_kernels", "dropout"),
+               ("spmm_kernels", "bcsc_densify_kernel"))
 
 
 def _check(name, ref, out, margin, shape=None):
@@ -1365,7 +1368,8 @@ def sparse_rows(record, rows, stream, small, ms, geo):
     clone of the compacted RHS (the same bytes written) stands beside it as
     "clone_ms". The compactor's row, its clone and densify's row carry
     CUDA-graph replay and the host's own time a call beside their events;
-    the compactor's row its route. At the m ~ 1024 cases (`small`:
+    the compactor's and densify's rows their routes (bulk and vector at
+    this case, or it fails). At the m ~ 1024 cases (`small`:
     bcsc20, bcsc05, ragged) the compacted form is held against the fused
     form and both are timed by events, replay and host."""
     from libxsmm_torch.kernels import spmm as KS
@@ -1456,11 +1460,15 @@ def sparse_rows(record, rows, stream, small, ms, geo):
     mma_rate(rows[-1], 2 * m * KS.SUPER * KS.SUPER * len(s_indices), useful)
     ccol = torch.as_tensor(indptr.astype("int64"), device=dev)
     rows = torch.as_tensor(indices.astype("int64"), device=dev)
+    d_route = densify.route(v, densify(v))
+    if d_route != "vector":
+        raise AssertionError(f"densify at the streaming case took the "
+                             f"{d_route} route")
     record("bcsc_densify", src, "libxsmm_tpu/kernels/spmm_pallas.py:800",
            densify, (v,), TOL_EXACT, 2 * v.numel() + 2 * k * n, 0, peak,
            ms(lambda vv: torch.sparse_bsc_tensor(ccol, rows, vv,
                                                  (k, n)).to_dense(), v),
-           graph_ms=graph_ms(lambda: densify(v)),
+           path=d_route, graph_ms=graph_ms(lambda: densify(v)),
            host_ms=host_ms(lambda: densify(v)))
 
 
@@ -1810,7 +1818,7 @@ def main() -> int:
                   if "spill" in ln and not ln.strip().startswith("0 bytes")]
         print(f"  {stem}: {log.count('Used ')} kernels compiled, "
               f"{len(spills)} with spills {spills}")
-    # the pipelined kernels, one line per instantiation
+    # the pipelined kernels and the densifier, one line per instantiation
     for stem, needle in MMA_KERNELS:
         for name, regs, st, ld in _build.kernel_resources(stem, needle):
             print(f"  {stem} {name}: {regs} registers, spill stores {st} "

@@ -687,21 +687,78 @@ __global__ void __launch_bounds__(CP_THREADS) bcsc_union_compact_kernel(
 
 // ---------------------------------------------------------------------------
 // Densify (build_bcsc_densify): out (k, n) from the gather map (kb, nb) of
-// value indices. It copies elements as raw bytes of their size, so it serves
-// every element type; the zero block reads as all-zero bits.
+// value indices, out[i bk + r, j bn + c] = vals[gmap[i, j], r, c], zeros
+// where the map says nzero. It copies raw units V of whole elements, so it
+// serves every element type; a zero tile is all-zero bits. Bound: bytes
+// (the live value blocks read once, out written once: 2.5 MB at the
+// streaming case, 0.7 us at 3.35 TB/s); at that size a launch's latency
+// and one round trip to device memory set its time. The reference writes
+// one (bk, n) row panel a grid step from a value store held whole in VMEM:
+// only kb steps (32 at the streaming case, fewer than the 132 SMs). Here
+// the work is a gather of whole tiles: an output tile is bk rows of cpr
+// units at the output's row stride, its source one contiguous value block
+// or nothing. Two routes, chosen by shape and alignment alone
+// (kernels/spmm.py BcscDensify.route, by compact_route's test); neither
+// falls back to the other:
+// - DN_VECTOR where a tile row is whole 16-byte units (bn * esz % 16 == 0)
+//   and vals and out start on 16-byte boundaries: V = uint4, cpr = bn *
+//   esz / 16;
+// - DN_ELEM otherwise: V the element's own type, cpr = bn.
+// Block b owns a run of tb whole tiles of one block row (i = b / runs,
+// tiles j0 .. j0 + tb - 1, the row's last run shorter) and reads their map
+// entries once, into shared memory. Thread (q, r0) = (tid % qb, tid / qb)
+// owns unit columns q, q + qb, ... of the run (tile cq / cpr, unit cq %
+// cpr: one division a column, never one a unit) and copies rows r0, r0 +
+// rs, ... of each: a zero tile is stores of zeros with no read of the
+// value store; a live tile is loads from its value block, DN_ROWS rows'
+// loads issued before their stores (the plan gives a thread DN_ROWS rows
+// where the block has threads for it). The grid is one-shot (every run at once, tb
+// halved on the host until the runs cover the SMs: kernels/spmm.py
+// densify_plan). A programmatic dependent launch: the map entries (fixed
+// when the plan is made) are read while the kernel before it ends, the
+// values and `out` after the wait.
 // ---------------------------------------------------------------------------
 
-template <typename E>
-__global__ void __launch_bounds__(256) bcsc_densify_kernel(
-    const E* __restrict__ vals, const int* __restrict__ gmap,
-    E* __restrict__ out, int k, int n, int bk, int bn, int nzero) {
-  const int c = blockIdx.x * 256 + threadIdx.x;
-  if (c >= n) return;
-  const int nb = n / bn, jb = c / bn, cc = c % bn;
-  for (int r = blockIdx.y; r < k; r += gridDim.y) {
-    const int v = gmap[(r / bk) * nb + jb];
-    out[(long long)r * n + c] =
-        v == nzero ? E(0) : vals[((long long)v * bk + r % bk) * bn + cc];
+constexpr int DN_THREADS = 256;     // threads of a block, at most
+constexpr int DN_ROWS = 4;          // rows' loads a thread issues at once
+enum { DN_VECTOR = 0, DN_ELEM = 1 };
+
+template <typename V>
+__global__ void __launch_bounds__(DN_THREADS) bcsc_densify_kernel(
+    const V* __restrict__ vals, const int* __restrict__ gmap,
+    V* __restrict__ out, int nb, int bk, int cpr, int tb, int qb, int rs,
+    int nzero) {
+  __shared__ int gm[DN_THREADS];
+  pdl_trigger();
+  const int runs = (nb + tb - 1) / tb;
+  const long long b = blockIdx.x, i = b / runs;
+  const int j0 = (int)(b - i * runs) * tb;
+  const int nt = min(tb, nb - j0);
+  for (int t = threadIdx.x; t < nt; t += blockDim.x)
+    gm[t] = gmap[i * nb + j0 + t];
+  __syncthreads();
+  pdl_wait();
+  const long long orow = (long long)nb * cpr;   // units of an output row
+  V* panel = out + i * bk * orow + (long long)j0 * cpr;
+  const int q = threadIdx.x % qb, r0 = threadIdx.x / qb;
+  for (int cq = q; cq < nt * cpr; cq += qb) {
+    const int t = cq / cpr, c = cq - t * cpr;
+    const int v = gm[t];
+    V* op = panel + cq;
+    if (v == nzero) {
+      for (int r = r0; r < bk; r += rs) op[r * orow] = V{};
+      continue;
+    }
+    const V* sp = vals + (long long)v * bk * cpr + c;
+    for (int r = r0; r < bk; r += DN_ROWS * rs) {
+      V x[DN_ROWS];
+#pragma unroll
+      for (int u = 0; u < DN_ROWS; ++u)
+        if (r + u * rs < bk) x[u] = sp[(r + u * rs) * cpr];
+#pragma unroll
+      for (int u = 0; u < DN_ROWS; ++u)
+        if (r + u * rs < bk) op[(r + u * rs) * orow] = x[u];
+    }
   }
 }
 
@@ -896,14 +953,22 @@ static int compact_entry(const void* vals, const int* gmap, void* out,
   return cudaErrorInvalidValue;
 }
 
-template <typename E>
-static int launch_densify(const void* vals, const int* gmap, void* out, int k,
-                          int n, int bk, int bn, int nzero, cudaStream_t st) {
-  const int gy = k < 65535 ? k : 65535;
-  bcsc_densify_kernel<E><<<dim3((n + 255) / 256, gy), 256, 0, st>>>(
-      static_cast<const E*>(vals), gmap, static_cast<E*>(out), k, n, bk, bn,
-      nzero);
-  return cudaGetLastError();
+// tb tiles a block and rs row threads as the wrapper planned them
+// (kernels/spmm.py densify_plan); qb = min(tb * cpr, DN_THREADS) column
+// threads
+template <typename V>
+static int launch_densify(const void* vals, const int* gmap, void* out,
+                          int kb, int nb, int bk, int cpr, int tb, int rs,
+                          int nzero, cudaStream_t st) {
+  const long long cols = (long long)tb * cpr;
+  const long long qb = cols < DN_THREADS ? cols : DN_THREADS;
+  const long long grid = (long long)kb * ((nb + tb - 1) / tb);
+  if (qb * rs > DN_THREADS) return cudaErrorInvalidValue;
+  if (grid > 2147483647LL) return cudaErrorInvalidConfiguration;
+  return launch_pdl(bcsc_densify_kernel<V>, dim3((unsigned)grid),
+                    (int)(qb * rs), 0, st, true, static_cast<const V*>(vals),
+                    gmap, static_cast<V*>(out), nb, bk, cpr, tb, (int)qb, rs,
+                    nzero);
 }
 
 // the (in, out) type combinations of the two SpMM kernels
@@ -1039,19 +1104,39 @@ int xsmm_bcsc_union_compact(const void* vals, const int* gmap, void* out,
                        route, grid, static_cast<cudaStream_t>(stream));
 }
 
-// gmap (k/bk * n/bn); elem_size: bytes per element of vals and out
+// gmap (k/bk * n/bn); elem_size: bytes per element of vals and out; route
+// (0 vector, 1 element units) as the wrapper chose it (BcscDensify.route):
+// DN_VECTOR only where compact_route allows it, DN_ELEM on any input
+// (scripts/stream_time.py times it on aligned values too); tb, rs: the
+// wrapper's plan (kernels/spmm.py densify_plan)
 int xsmm_bcsc_densify(const void* vals, const int* gmap, void* out, int k,
                       int n, int bk, int bn, int nzero, int elem_size,
-                      void* stream) {
+                      int route, int tb, int rs, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k < 0 || n < 0 || bk <= 0 || bn <= 0 || k % bk || n % bn)
+  if (k < 0 || n < 0 || bk <= 0 || bn <= 0 || k % bk || n % bn ||
+      tb <= 0 || tb > DN_THREADS || rs <= 0 ||
+      (route != DN_VECTOR && route != DN_ELEM) ||
+      (route == DN_VECTOR &&
+       compact_route(bn, elem_size, vals, out) != CP_BULK))
     return cudaErrorInvalidValue;
   if (k == 0 || n == 0) return cudaSuccess;
+  const int kb = k / bk, nb = n / bn;
+  if (route == DN_VECTOR)
+    return launch_densify<uint4>(vals, gmap, out, kb, nb, bk,
+                                 bn * elem_size / 16, tb, rs, nzero, st);
   switch (elem_size) {
-    case 1: return launch_densify<uint8_t>(vals, gmap, out, k, n, bk, bn, nzero, st);
-    case 2: return launch_densify<uint16_t>(vals, gmap, out, k, n, bk, bn, nzero, st);
-    case 4: return launch_densify<uint32_t>(vals, gmap, out, k, n, bk, bn, nzero, st);
-    case 8: return launch_densify<unsigned long long>(vals, gmap, out, k, n, bk, bn, nzero, st);
+    case 1:
+      return launch_densify<uint8_t>(vals, gmap, out, kb, nb, bk, bn, tb, rs,
+                                     nzero, st);
+    case 2:
+      return launch_densify<uint16_t>(vals, gmap, out, kb, nb, bk, bn, tb,
+                                      rs, nzero, st);
+    case 4:
+      return launch_densify<uint32_t>(vals, gmap, out, kb, nb, bk, bn, tb,
+                                      rs, nzero, st);
+    case 8:
+      return launch_densify<unsigned long long>(vals, gmap, out, kb, nb, bk,
+                                                bn, tb, rs, nzero, st);
   }
   return cudaErrorInvalidValue;
 }

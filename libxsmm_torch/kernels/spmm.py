@@ -26,7 +26,9 @@ The port of `libxsmm_tpu/kernels/spmm_pallas.py`: the schedule helpers
   (:899-900, :777-783), a Mosaic limit: the compactor serves every plan the
   union kernel takes.
 * build_bcsc_densify — strategy "dense": values -> dense B (k, n) through
-  the create-time gather map.
+  the create-time gather map, whole tiles copied in 16-byte units where
+  their rows are whole units and the addresses aligned (BcscDensify.route),
+  in element units otherwise, on densify_plan's one-shot grid.
 * build_bcsc_spmm_super — strategy "super": the scheduled kernel over the
   occupied 128 x 128 supertiles.
 
@@ -100,7 +102,7 @@ def _kernels() -> ctypes.CDLL:
         lib.xsmm_bcsc_spmm_union.argtypes = [P, P, P, P, P, P] + [I] * 9 + [P]
         lib.xsmm_bcsc_spmm_union_compacted.argtypes = (
             [P] * 7 + [I] * 11 + [P])
-        lib.xsmm_bcsc_densify.argtypes = [P, P, P] + [I] * 6 + [P]
+        lib.xsmm_bcsc_densify.argtypes = [P, P, P] + [I] * 9 + [P]
         lib.xsmm_bcsc_union_compact.argtypes = [P, P, P] + [I] * 8 + [P]
         for f in (lib.xsmm_bcsc_spmm, lib.xsmm_bcsc_spmm_super,
                   lib.xsmm_bcsc_spmm_union,
@@ -642,10 +644,38 @@ def build_bcsc_spmm_union(shape: GemmShape, config: SpgemmConfig,
 # 3. densify (strategy "dense")
 # ---------------------------------------------------------------------------
 
+_DN_THREADS = 256    # threads of a block at most (csrc DN_THREADS)
+_DN_ROWS = 4         # rows' loads a thread issues at once (csrc DN_ROWS)
+_DN_ROUTES = {"vector": 0, "element": 1}   # csrc DN_VECTOR, DN_ELEM
+
+
+def densify_plan(kb: int, nb: int, bk: int, cpr: int, sms: int):
+    """(tiles a block, column threads, row threads, grid) of the densifier
+    (csrc bcsc_densify_kernel) over kb x nb tiles of bk rows of cpr units:
+    block b copies the run of tiles j0 .. j0 + tb - 1 of block row b // runs
+    (runs = ceil(nb / tb) a block row); thread (tid % qb, tid // qb) copies
+    unit columns q, q + qb, ... of the run, rows r0, r0 + rs, .... tb is the
+    most tiles whose rows one pass of _DN_THREADS threads covers, halved
+    while the grid has fewer blocks than the card has SMs; rs gives each
+    thread _DN_ROWS rows where the block has threads for it (at the
+    streaming case 128-thread blocks of four rows a thread replayed
+    faster than 256 of two: `scripts/stream_time.py --rows dplans`,
+    PERF.md section 6)."""
+    tb = max(1, min(nb, _DN_THREADS // cpr))
+    while tb > 1 and kb * -(-nb // tb) < sms:
+        tb = -(-tb // 2)
+    qb = min(tb * cpr, _DN_THREADS)
+    rs = max(1, min(-(-bk // _DN_ROWS), _DN_THREADS // qb))
+    return tb, qb, rs, kb * -(-nb // tb)
+
+
 class BcscDensify:
     """fn(values (nblocks, bk, bn)) -> dense B (k, n) in the values' type,
     through the create-time gather map gmap (kb, nb) (nblocks = the zero
-    block)."""
+    block). On the card a launch takes one of two routes (`route`):
+    "vector", 16-byte units, where a tile row is whole 16-byte units and
+    both addresses are 16-byte aligned (compact_route's test), "element",
+    units of the element's size, otherwise; its grid is densify_plan's."""
 
     def __init__(self, k: int, n: int, bk: int, bn: int, gmap: np.ndarray,
                  nblocks: int, device):
@@ -653,23 +683,51 @@ class BcscDensify:
         self.nblocks = nblocks
         self.gmap = _index(gmap.reshape(-1), device)
         self.name = f"bcsc_densify_{k}x{n}_b{bk}x{bn}"
+        self._vshape = (nblocks, bk, bn)
+        self._plans = {}     # (route, itemsize) -> (tb, rs) for the card
+        # the launch's arguments that no call changes
+        self._gmap_ptr = self.gmap.data_ptr()
+        self._dims = (k, n, bk, bn, nblocks)
+
+    def route(self, values: torch.Tensor, out: torch.Tensor) -> str:
+        """The route of a launch that reads `values` and writes `out`."""
+        bulk = compact_route(self.bn, values.element_size(),
+                             values.data_ptr(), out.data_ptr()) == "bulk"
+        return "vector" if bulk else "element"
+
+    def launch_plan(self, route: str, itemsize: int):
+        """(tiles a block, row threads) of a launch on `route`
+        (densify_plan's), for the map's card."""
+        plan = self._plans.get((route, itemsize))
+        if plan is None:
+            cpr = self.bn * itemsize // 16 if route == "vector" else self.bn
+            tb, _, rs, _ = densify_plan(self.k // self.bk, self.n // self.bn,
+                                        self.bk, cpr,
+                                        _num_sms(self.gmap.device))
+            plan = self._plans[(route, itemsize)] = (tb, rs)
+        return plan
 
     def __call__(self, values):
-        _check("values", values, (self.nblocks, self.bk, self.bn))
-        if not _on_cuda(values, self.gmap):
-            return self.plain(values)
-        if values.element_size() not in (1, 2, 4, 8):
+        if values.shape != self._vshape:
+            _check("values", values, self._vshape)
+        dev = values.device
+        if dev.type != "cuda" or self.gmap.device != dev:
+            if not _on_cuda(values, self.gmap):
+                return self.plain(values)
+        itemsize = values.element_size()
+        if itemsize not in (1, 2, 4, 8):
             raise ValueError(f"{self.name}: no CUDA kernel for dtype "
                              f"{values.dtype}")
-        values = values.contiguous()
-        out = torch.empty((self.k, self.n), dtype=values.dtype,
-                          device=values.device)
+        if not values.is_contiguous():
+            values = values.contiguous()
+        out = values.new_empty((self.k, self.n))
+        route = self.route(values, out)
         lib = _kernels()
-        with torch.cuda.device(values.device):
+        with _on_device(dev):
             err = lib.xsmm_bcsc_densify(
-                _ptr(values), _ptr(self.gmap), _ptr(out), self.k, self.n,
-                self.bk, self.bn, self.nblocks, values.element_size(),
-                _stream(values.device))
+                values.data_ptr(), self._gmap_ptr, out.data_ptr(),
+                *self._dims, itemsize, _DN_ROUTES[route],
+                *self.launch_plan(route, itemsize), _stream(dev))
         _raise_on_error(err, self.name, lib)
         launches["bcsc_densify"] += 1
         return out

@@ -921,8 +921,14 @@ def _torch_route(shape: GemmShape, config: SpgemmConfig, indptr: np.ndarray,
         a = _as_tensor(a, dev)
         values = _as_tensor(values, dev)
         if strategy == "dense":
-            bdense = densifier(values.to(b_dt))
-            acc = _dense_product(a, bdense.to(a.dtype), comp)
+            # .to() of a tensor already of the type returns it, yet costs
+            # about a microsecond of host time a call: skipped then
+            if values.dtype != b_dt:
+                values = values.to(b_dt)
+            bdense = densifier(values)
+            if bdense.dtype != a.dtype:
+                bdense = bdense.to(a.dtype)
+            acc = _dense_product(a, bdense, comp)
         else:
             # A panels: (m, k) -> (kb, m, bk) -> gather by block row
             panels = a.reshape(m, kb, bk).transpose(0, 1)
@@ -934,7 +940,7 @@ def _torch_route(shape: GemmShape, config: SpgemmConfig, indptr: np.ndarray,
                 acc = wrap_i32(acc.to(torch.int64))
         if c is not None:
             acc = add_acc(acc, _as_tensor(c, dev))
-        return acc.to(out_dt)
+        return acc if acc.dtype == out_dt else acc.to(out_dt)
 
     return fn
 

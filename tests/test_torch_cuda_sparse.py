@@ -607,11 +607,21 @@ def test_bcsc_spmm_union_mma_nan_in_block_row_0(gen, bk, bn, form):
           got[keep_].double().cpu().numpy(), margin=1e-4)
 
 
+def densify_route(bn, dtype):
+    """The densifier's route for 16-byte-aligned operands: 16-byte units
+    where a tile row is whole units, elements otherwise."""
+    return "vector" if (bn * dtype.itemsize) % 16 == 0 else "element"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8, torch.float64])
 @pytest.mark.parametrize("k,n,bk,bn", [(128, 256, 32, 32), (96, 80, 8, 16),
-                                       (64, 64, 4, 4)])
+                                       (64, 64, 4, 4), (1024, 1024, 32, 32),
+                                       (65552, 32, 16, 16)])
 def test_bcsc_densify_exact(gen, dtype, k, n, bk, bn):
+    """Byte-equal to the plain version, one launch, for element sizes 1-8
+    on both routes (bn = 4 in int8 and bf16: element units) and for k past
+    65,535 rows."""
     indptr, indices = pattern(k, n, bk, bn, 0.4, seed=k, empty_cols=(0,))
     shape = GemmShape(8, n, k)
     fn = pk.build_bcsc_densify(shape, SpgemmConfig(1, bk, bn), indptr,
@@ -621,7 +631,73 @@ def test_bcsc_densify_exact(gen, dtype, k, n, bk, bn):
     got = launched("bcsc_densify", fn, v)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (k, n)
+    assert fn.route(v, got) == densify_route(bn, dtype)
     assert torch.equal(fn.plain(v), got)
+
+
+def test_bcsc_densify_stream_pattern(gen):
+    """The streaming case's pattern (k = n = 1024, 32 x 32 blocks, density
+    0.2, bf16) takes the vector route, byte-equal to the plain version."""
+    indptr, indices = pattern(1024, 1024, 32, 32, 0.2, seed=2)
+    fn = pk.build_bcsc_densify(GemmShape(8, 1024, 1024),
+                               SpgemmConfig(1, 32, 32), indptr, indices,
+                               "cuda")
+    v = rand(gen, (len(indices), 32, 32), BF16)
+    got = launched("bcsc_densify", fn, v)
+    torch.cuda.synchronize()
+    assert fn.route(v, got) == "vector"
+    assert torch.equal(fn.plain(v).view(torch.int16), got.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8, torch.float64])
+def test_bcsc_densify_values_off_alignment(gen, dtype):
+    """A contiguous values view one element past a 16-byte boundary takes
+    the element route (it is not copied), byte-equal to the plain
+    version."""
+    k, n, bk, bn = 128, 256, 32, 32
+    indptr, indices = pattern(k, n, bk, bn, 0.4, seed=5, empty_cols=(2,))
+    fn = pk.build_bcsc_densify(GemmShape(8, n, k), SpgemmConfig(1, bk, bn),
+                               indptr, indices, "cuda")
+    base = (torch.randn(len(indices) * bk * bn + 1, generator=gen,
+                        device="cuda") * 50).to(dtype)
+    v = base[1:].view(len(indices), bk, bn)
+    assert v.is_contiguous() and v.data_ptr() % 16
+    got = launched("bcsc_densify", fn, v)
+    torch.cuda.synchronize()
+    assert fn.route(v, got) == "element"
+    assert torch.equal(fn.plain(v), got)
+
+
+@pytest.mark.parametrize("bn", [4, 32])
+def test_bcsc_densify_all_zero_pattern(gen, bn):
+    """No block at all: zeros on either route (bf16, bn = 4 element units,
+    bn = 32 vector units), written over memory that held other values."""
+    k, n, bk = 64, 128, 16
+    fn = pk.build_bcsc_densify(GemmShape(8, n, k), SpgemmConfig(1, bk, bn),
+                               np.zeros(n // bn + 1, np.int32),
+                               np.zeros(0, np.int32), "cuda")
+    junk = torch.full((k, n), 7.0, device="cuda", dtype=torch.bfloat16)
+    del junk                    # its block goes back to the allocator
+    v = torch.zeros(0, bk, bn, device="cuda", dtype=torch.bfloat16)
+    got = launched("bcsc_densify", fn, v)
+    torch.cuda.synchronize()
+    assert fn.route(v, got) == densify_route(bn, torch.bfloat16)
+    assert got.shape == (k, n) and not bool(got.any())
+
+
+def test_bcsc_densify_refuses_16_byte_elements(gen):
+    """A CUDA tensor the kernel does not take raises: complex128 values
+    (16-byte elements) never reach the plain version."""
+    indptr, indices = pattern(64, 64, 8, 8, 0.5)
+    fn = pk.build_bcsc_densify(GemmShape(8, 64, 64), SpgemmConfig(1, 8, 8),
+                               indptr, indices, "cuda")
+    v = torch.zeros(len(indices), 8, 8, device="cuda",
+                    dtype=torch.complex128)
+    before = pk.launches["bcsc_densify"]
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        fn(v)
+    assert pk.launches["bcsc_densify"] == before
 
 
 @pytest.mark.parametrize("strategy", po.STRATEGIES)

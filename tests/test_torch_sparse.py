@@ -574,22 +574,42 @@ def test_auto_pick_follows_the_roofline_rule():
     assert picks == {"dense", "sparse"}
 
 
-@pytest.mark.parametrize("dt", [F32, BF16])
-def test_densify_matches_reference_exactly(dt):
+# (k, n, bk, bn, type, block density, empty block columns): blockings the
+# reference's densifier takes (bk % 16 in bf16 and % 8 in f32, bn % 8,
+# n % 128); density 0 is the empty pattern
+DENSIFY_CASES = [
+    pytest.param(128, 256, 16, 32, F32, 0.3, (), id="Datatype.F32"),
+    pytest.param(128, 256, 16, 32, BF16, 0.3, (), id="Datatype.BF16"),
+    pytest.param(64, 128, 8, 8, F32, 0.3, (), id="64x128_b8x8_f32"),
+    pytest.param(256, 384, 32, 32, BF16, 0.3, (5,),
+                 id="256x384_b32x32_bf16_empty_column"),
+    pytest.param(128, 128, 16, 128, BF16, 0.5, (), id="128x128_b16x128_bf16"),
+    pytest.param(128, 256, 32, 32, BF16, 0.0, (), id="empty_pattern"),
+]
+
+
+@pytest.mark.parametrize("k,n,bk,bn,dt,density,empty", DENSIFY_CASES)
+def test_densify_matches_reference_exactly(k, n, bk, bn, dt, density, empty):
     """The densify kernel's plain version against the reference's
     densifier (interpret mode): the same values, bit for bit."""
     rng = np.random.default_rng(13)
-    k, n, bk, bn = 128, 256, 16, 32
-    bm = block_pattern(rng, k, n, bk, bn, 0.3)
+    keep = rng.random((k // bk, n // bn)) < density
+    keep[:, list(empty)] = False
+    b = rng.standard_normal((k, n)) * np.kron(keep, np.ones((bk, bn)))
+    bm = ro.BcscMatrix.from_dense(b.astype(np.float32), bk, bn)
+    assert all(bm.indptr[j] == bm.indptr[j + 1] for j in empty)
     shape = GemmShape(32, n, k, a_in_type=dt, b_in_type=dt)
     config = SpgemmConfig(1, bk, bn)
     ref = rk.build_bcsc_densify(shape, config, bm.indptr, bm.indices)
+    assert ref is not None
     vj, vt = pair(bm.data, dt)
     want = np.asarray(jnp.asarray(ref(ref.gmap, vj)).astype(jnp.float32))
     got = pk.build_bcsc_densify(pshape(shape), pconfig(config), bm.indptr,
                                 bm.indices, "cpu")(vt)
-    assert got.dtype == TORCH[dt]
+    assert got.dtype == TORCH[dt] and got.shape == (k, n)
     np.testing.assert_array_equal(want, got.float().numpy())
+    if density == 0.0:
+        assert not got.any()
 
 
 def test_schedule_matches_reference():
