@@ -124,7 +124,32 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    nodes, 1433 features, hidden 16, 7 classes) on a seeded random graph
    with Cora's 5278 edges, the forward against float64 and three train
    steps lowering the loss; times every phase, a forward and a step;
-10. runs the labs the same way, with the five twin and probe kernels'
+10. drives matrix equations through the public entry points (meqn_create,
+    meqn_push_back_*, dispatch_meqn), with every count set to 0 just before
+    and read just after (the trees run on torch ops: no count may change):
+    the reference samples' trees at BERT-base widths, each against a
+    float64 torch composition on the card: simple (a + b) * c, relu(x +
+    bias) and layernorm at 4096 x 768 in f32 and bf16; relu(A @ B + bias)
+    at 4096 x 768 x 3072 in f32 and bf16 -> f32; softmax at 49152 x 512
+    (8 x 12 heads x 512 rows); splitSGD by UNZIP/ZIP on a 768 x 3072 f32
+    weight, bit for bit against the plain update's bits; a GATHER of 4096
+    rows from a 30522 x 768 table with negative and out-of-range indices
+    (jnp.take's fill); a BRGEMM node over tensor sets, br 12 x (4096 x 64)
+    x (64 x 3072) bf16 -> f32; an f64 tree. For each it prints the time per
+    call (events), the host's time per call and the torch operators one
+    call dispatches;
+11. drives TPP-MoE at Switch-Base-8's widths (Fedus, Zoph and Shazeer 2021,
+    google/switch-base-8: d 768, FFN 3072, 8 experts, ReLU), capacity
+    factor 1.25, 8 x 512 tokens, the same way (torch ops: no count may
+    change): served top-1 and top-2 in bf16 and top-1 in f32 at 2 x 512,
+    each against a float64 forward with the run's own dispatch and
+    combine, the routing checked on the host (each seated token's expert
+    the top of its f32 gates, seats in arrival order, first choices before
+    second); f32 at a capacity covering the draw against
+    reference_forward; three bf16 train_steps (finite losses, the weights
+    changed, the first step's gradients against float64); prints the time
+    per forward and per step and the device's busy share over three steps;
+12. runs the labs the same way, with the five twin and probe kernels'
     counts set to 0 just before: libxsmm_torch.scripts.brgemm_lab (the
     packed BRGEMM's four variants at br = 1024, 256 x 256 x 64 bf16, each
     against its streaming twin, t_sol / t_brg printed), the packed SMM's
@@ -134,7 +159,7 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     union kernel's probes beside the library's strategies, held against
     float64 and their plain versions, the lab's table printed); fails
     unless all five kernels were launched;
-11. holds each kernel against its plain version once more at its main-path
+13. holds each kernel against its plain version once more at its main-path
     shape, and times kernel, plain version and one library call computing
     the same function (a yardstick the port never calls; none exists for
     stochastic rounding, the union RHS compactor and the BRGEMM's twin,
@@ -167,7 +192,7 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     SpMM) it asserts the path and prints the achieved TFLOP/s (of the
     kernel's own products and of the useful ones) and the kernel / library
     ratio;
-12. prints one JSON line with the per-kernel numbers (nineteen rows) and,
+14. prints one JSON line with the per-kernel numbers (nineteen rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
@@ -210,6 +235,11 @@ TOL_SPARSE_F32 = 1e-5  # f32 BCSC SpMM against the float64 dense product
 TOL_SPARSE_BF16 = 1e-4  # bf16 in, f32 out: products exact, order differs
 
 TOL_FSSPMDM = 1e-5     # f32 fsspmdm against float64: samples/pyfr.py's margin
+TOL_MEQN_BF16 = 1e-2   # a bf16 equation tree against float64: every node
+                       # rounds to bf16 (at most four roundings a tree)
+TOL_F64 = 1e-12        # an f64 equation tree against its float64 composition
+TOL_MOE_BF16 = 2e-2    # the bf16 MoE forward against float64 with the run's
+                       # routing: hidden and expert outputs rounded to bf16
 TOL_GCN = 1e-5         # the f32 GCN forward against its float64 oracle
 
 TOL_SR_BF16 = 2.0 ** -7  # the SR store against float64: within one bf16 ulp
@@ -1472,6 +1502,457 @@ def sparse_rows(record, rows, stream, small, ms, geo):
            host_ms=host_ms(lambda: densify(v)))
 
 
+def _aten_ops(fn, *fargs):
+    """The torch operators (aten ops, views included) that one call of
+    fn(*fargs) dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn(*fargs)
+    torch.cuda.synchronize()
+    return Count.n
+
+
+def _no_launches(path):
+    """Fail unless no kernel of the port was launched since the counts were
+    set to 0: the path runs on torch ops alone."""
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _all_launches().items() if v}
+    if launched:
+        raise AssertionError(f"{path}: kernel launches changed: {launched}")
+
+
+def equation_path(randn, dev, ms):
+    """Matrix equations through the public entry points (meqn_create, the
+    meqn_push_back_* builders, dispatch_meqn), the reference samples' trees
+    at BERT-base widths (Devlin et al. 2018: 8 x 512 tokens, d 768, FFN
+    3072, 12 heads, vocabulary 30522), each held against a float64 torch
+    composition on the card, with every kernel's launch count set to 0 just
+    before and read just after (the trees run on torch ops: none may
+    change). Prints each tree's time per call (events), the host's time per
+    call and the torch operators one call dispatches."""
+    import libxsmm_torch as xt
+    from libxsmm_torch.descriptor import (BinaryType as B, TernaryFlags as TF,
+                                          TernaryType as T, UnaryFlags as UF,
+                                          UnaryType as U)
+    from libxsmm_torch.dtypes import Datatype as D
+
+    phases = []
+    _reset_all_launches()
+    t_path = time.perf_counter()
+    tokens, d, ffn = 8 * 512, 768, 3072
+    f64 = torch.float64
+
+    def tree(name, build, out, args, check):
+        idx = xt.meqn_create()
+        build(idx)
+        kern = xt.dispatch_meqn(idx, *out)
+        got = kern(*args)
+        torch.cuda.synchronize()
+        err = check(got)
+        t = ms(kern, *args)
+        host = host_ms(lambda: kern(*args))
+        nops = _aten_ops(kern, *args)
+        nf = xt.get_kernel_info(kern).nflops
+        print(f"  meqn {name}: {t:.4f} ms per call (events), host "
+              f"{host:.4f} ms a call, {nops} torch ops a call, nflops {nf}, "
+              f"{err}")
+        phases.append((f"meqn {name}", kern, args))
+        xt.meqn_destroy(idx)
+
+    def against(ref, tol, shape):
+        def check(got):
+            e = _check("meqn vs float64", ref, got, tol, shape)
+            return f"normf_rel {e:.2e} vs float64"
+        return check
+
+    def push_args(idx, shapes, dt):
+        for p, (m_, n_) in enumerate(shapes):
+            xt.meqn_push_back_arg(idx, m_, n_, in_pos=p, dtype=dt)
+
+    for dt, tdt, tol in ((D.F32, torch.float32, TOL_F32),
+                         (D.BF16, torch.bfloat16, TOL_MEQN_BF16)):
+        tag = dt.value
+        a, b, c = (randn(tokens, d, dtype=tdt) for _ in range(3))
+        A, Bv, C = (v.to(f64) for v in (a, b, c))
+
+        def simple(idx, dt=dt):
+            xt.meqn_push_back_binary_op(idx, B.MUL, dtype=dt)
+            xt.meqn_push_back_binary_op(idx, B.ADD, dtype=dt)
+            push_args(idx, [(tokens, d)] * 3, dt)
+
+        tree(f"simple (a + b) * c {tokens}x{d} {tag}", simple,
+             (tokens, d, dt), (a, b, c), against((A + Bv) * C, tol,
+                                                 (tokens, d)))
+        bias = randn(1, d, dtype=tdt)
+
+        def relu(idx, dt=dt):
+            xt.meqn_push_back_unary_op(idx, U.RELU, dtype=dt)
+            xt.meqn_push_back_binary_op(idx, B.ADD, dtype=dt)
+            push_args(idx, [(tokens, d), (1, d)], dt)
+
+        tree(f"relu(x + bias) {tokens}x{d} {tag}", relu, (tokens, d, dt),
+             (a, bias), against((A + bias.to(f64)).clamp_min(0), tol,
+                                (tokens, d)))
+        # layernorm, the equation_layernorm tree: statistics in f32 first
+        mean = a.float().mean(dim=1, keepdim=True)
+        rstd = torch.rsqrt(a.float().var(dim=1, unbiased=False,
+                                         keepdim=True) + 1e-5)
+        gamma, beta = randn(1, d, dtype=tdt), randn(1, d, dtype=tdt)
+        ln_args = (a, mean.to(tdt), rstd.to(tdt), gamma, beta)
+
+        def layernorm(idx, dt=dt):
+            xt.meqn_push_back_ternary_op(idx, T.MULADD, dtype=dt)
+            xt.meqn_push_back_binary_op(idx, B.MUL, dtype=dt)
+            xt.meqn_push_back_binary_op(idx, B.SUB, dtype=dt)
+            push_args(idx, [(tokens, d), (tokens, 1), (tokens, 1), (1, d),
+                            (1, d)], dt)
+
+        X, Mn, Rs, G, Be = (v.to(f64) for v in ln_args)
+        tree(f"layernorm {tokens}x{d} {tag}", layernorm, (tokens, d, dt),
+             ln_args, against((X - Mn) * Rs * G + Be, tol, (tokens, d)))
+
+    # relu(A @ B + bias) at the FFN1 product: f32, and bf16 in with the
+    # product and the node in f32
+    for dt, tdt, tol in ((D.F32, torch.float32, TOL_F32),
+                         (D.BF16, torch.bfloat16, TOL_BF16_IN)):
+        a_, b_ = randn(tokens, d, dtype=tdt), randn(d, ffn, dtype=tdt)
+        bias = randn(1, ffn)
+
+        def relu_mm(idx, dt=dt):
+            xt.meqn_push_back_unary_op(idx, U.RELU)
+            xt.meqn_push_back_binary_op(idx, B.ADD)
+            xt.meqn_push_back_binary_op(idx, B.MATMUL)
+            xt.meqn_push_back_arg(idx, tokens, d, in_pos=0, dtype=dt)
+            xt.meqn_push_back_arg(idx, d, ffn, in_pos=1, dtype=dt)
+            xt.meqn_push_back_arg(idx, 1, ffn, in_pos=2)
+
+        ref = (a_.to(f64) @ b_.to(f64) + bias.to(f64)).clamp_min(0)
+        tree(f"relu(A @ B + bias) {tokens}x{d}x{ffn} {dt.value} -> f32",
+             relu_mm, (tokens, ffn, D.F32), (a_, b_, bias),
+             against(ref, tol, (tokens, ffn)))
+
+    # softmax over 8 x 12 heads x 512 rows of 512 scores (equation_softmax)
+    rows = 8 * 12 * 512
+    s = randn(rows, 512)
+    mx = s.amax(dim=1, keepdim=True)
+    den = torch.exp(s - mx).sum(dim=1, keepdim=True)
+
+    def softmax(idx):
+        xt.meqn_push_back_binary_op(idx, B.DIV)
+        xt.meqn_push_back_unary_op(idx, U.EXP)
+        xt.meqn_push_back_binary_op(idx, B.SUB)
+        push_args(idx, [(rows, 512), (rows, 1), (rows, 1)], D.F32)
+
+    S64 = s.to(f64)
+    tree(f"softmax {rows}x512 f32", softmax, (rows, 512, D.F32),
+         (s, mx, den), against(torch.exp(S64 - mx.to(f64)) / den.to(f64),
+                               TOL_F32, (rows, 512)))
+
+    # splitSGD by UNZIP(NMULADD(lr, g, ZIP(lo, hi))) on a 768 x 3072 f32
+    # weight (equation_splitSGD), bit for bit against the plain update's
+    # bits
+    w, g = randn(d, ffn), randn(d, ffn)
+    lr = torch.full((1, 1), 0.01, device=dev)
+    bits = w.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    lo, hi = (bits & 0xFFFF).to(torch.uint16), (bits >> 16).to(torch.uint16)
+
+    def split_sgd(idx):
+        xt.meqn_push_back_unary_op(idx, U.UNZIP)
+        xt.meqn_push_back_ternary_op(idx, T.NMULADD,
+                                     flags=TF.BCAST_SCALAR_IN_0)
+        xt.meqn_push_back_arg(idx, 1, 1, in_pos=0)
+        xt.meqn_push_back_arg(idx, d, ffn, in_pos=1)
+        xt.meqn_push_back_binary_op(idx, B.ZIP)
+        xt.meqn_push_back_arg(idx, d, ffn, in_pos=2, dtype=D.U16)
+        xt.meqn_push_back_arg(idx, d, ffn, in_pos=3, dtype=D.U16)
+
+    new_bits = ((w - lr * g).view(torch.int32).to(torch.int64)
+                & 0xFFFFFFFF)
+
+    def bit_for_bit(got):
+        for half, want in zip(got, (new_bits & 0xFFFF, new_bits >> 16)):
+            if half.dtype != torch.uint16 or not torch.equal(
+                    half.to(torch.int64), want):
+                raise AssertionError("meqn splitSGD: bits differ from the "
+                                     "plain update's")
+        return "bit for bit against w - lr * g"
+
+    tree(f"splitSGD UNZIP/ZIP {d}x{ffn} f32", split_sgd, (d, ffn, D.U16),
+         (lr, g, lo, hi), bit_for_bit)
+
+    # GATHER of 4096 rows from BERT's 30522 x 768 embedding table: indices
+    # from the seed, with negative ones (counted from the end) and ones out
+    # of range (NaN rows), as jnp.take's fill mode gives them
+    vocab = 30522
+    table = randn(vocab, d)
+    ids = torch.randint(0, vocab, (tokens,), device=dev, dtype=torch.int32)
+    ids[5], ids[17], ids[100], ids[200] = -1, -vocab, vocab, -vocab - 1
+
+    def gather(idx):
+        xt.meqn_push_back_unary_op(idx, U.GATHER, flags=UF.GS_ROWS,
+                                   op_arg_pos=1)
+        xt.meqn_push_back_arg(idx, vocab, d, in_pos=0)
+
+    wrapped = torch.where(ids < 0, ids + vocab, ids).long()
+    valid = (wrapped >= 0) & (wrapped < vocab)
+    want = torch.where(valid[:, None], table[wrapped.clamp(0, vocab - 1)],
+                       torch.nan)
+
+    def gathered(got):
+        nan = torch.isnan(got)
+        if (tuple(got.shape) != (tokens, d)
+                or not torch.equal(nan, torch.isnan(want))
+                or not torch.equal(got[~nan], want[~nan])):
+            raise AssertionError("meqn gather differs from jnp.take's fill")
+        return (f"bit for bit, {int((~valid).sum())} rows filled, "
+                f"{int(((ids < 0) & valid).sum())} counted from the end")
+
+    tree(f"gather {tokens} of {vocab}x{d} f32", gather, (tokens, d, D.F32),
+         (table, ids), gathered)
+
+    # a BRGEMM node over tensor sets: br 12 x (4096 x 64) x (64 x 3072),
+    # bf16 in, f32 node (FFN1's k 768 as 12 x 64)
+    br, kb = 12, 64
+    attr = xt.create_matrix_arg_attributes(arg_type=1, set_type=3,
+                                           set_cardinality_hint=br)
+    sa = randn(br, tokens, kb, dtype=torch.bfloat16)
+    sb = randn(br, kb, ffn, dtype=torch.bfloat16)
+
+    def brgemm_set(idx):
+        xt.meqn_push_back_binary_op(idx, B.BRGEMM)
+        xt.meqn_push_back_arg(xt.create_meqn_arg_metadata(idx, 0),
+                              xt.create_meqn_arg_shape(tokens, kb, kb,
+                                                       D.BF16), attr)
+        xt.meqn_push_back_arg(xt.create_meqn_arg_metadata(idx, 1),
+                              xt.create_meqn_arg_shape(kb, ffn, ffn,
+                                                       D.BF16), attr)
+
+    tree(f"BRGEMM set br {br} x {tokens}x{kb}x{ffn} bf16 -> f32",
+         brgemm_set, (tokens, ffn, D.F32), (sa, sb),
+         against(torch.einsum("bmk,bkn->mn", sa.to(f64), sb.to(f64)),
+                 TOL_BF16_IN, (tokens, ffn)))
+
+    # an f64 tree: (x - mean) * rstd at 4096 x 768
+    x64 = randn(tokens, d).to(f64) * 1e3
+    m64 = x64.mean(dim=1, keepdim=True)
+    r64 = torch.rsqrt(x64.var(dim=1, unbiased=False, keepdim=True) + 1e-12)
+
+    def norm64(idx):
+        xt.meqn_push_back_binary_op(idx, B.MUL, dtype=D.F64)
+        xt.meqn_push_back_binary_op(idx, B.SUB, dtype=D.F64)
+        push_args(idx, [(tokens, d), (tokens, 1), (tokens, 1)], D.F64)
+
+    tree(f"(x - mean) * rstd {tokens}x{d} f64", norm64, (tokens, d, D.F64),
+         (x64, m64, r64), against((x64 - m64) * r64, TOL_F64, (tokens, d)))
+
+    _no_launches("equation path")
+    print(f"equation path: {len(phases)} trees in "
+          f"{time.perf_counter() - t_path:.2f} s, no kernel launch")
+
+
+def _moe_reference(params, x, dispatch, combine):
+    """The MoE forward in float64 with the run's own dispatch and combine
+    tensors (a near-tie decided the other way in float64 does not count):
+    panels, the ReLU expert FFN, the combine."""
+    f64 = torch.float64
+    xe = torch.einsum("sec,sd->ecd", dispatch.to(f64), x.to(f64))
+    h = torch.matmul(xe, params["w1"].to(f64)) + params["b1"].to(f64)[:, None]
+    ye = (torch.matmul(h.clamp_min(0), params["w2"].to(f64))
+          + params["b2"].to(f64)[:, None])
+    return torch.einsum("sec,ecd->sd", combine.to(f64), ye)
+
+
+def _moe_seating(gates, top_k, cap, dispatch, combine):
+    """The routing, checked on the host: each token's experts are the top of
+    its f32 gates (the lower index first among ties), and each expert seats
+    its tokens in arrival order (every first choice before any second
+    choice) until its capacity is full; the combine weight is the seated
+    gate (renormalized over the top two for top-2). Returns the tokens
+    dropped (choices not seated)."""
+    import numpy as np
+
+    g = gates.cpu().numpy()
+    order = np.argsort(-g, axis=-1, kind="stable")[:, :top_k]
+    vals = np.take_along_axis(g, order, axis=-1)
+    if top_k > 1:
+        vals = vals / vals.sum(axis=-1, keepdims=True)
+    s, e = g.shape
+    want_d = np.zeros((s, e, cap), np.float32)
+    want_c = np.zeros((s, e, cap), np.float32)
+    fill = np.zeros(e, np.int64)
+    dropped = 0
+    for r in range(top_k):
+        for t in range(s):
+            ex = order[t, r]
+            if fill[ex] < cap:
+                want_d[t, ex, fill[ex]] = 1.0
+                want_c[t, ex, fill[ex]] = vals[t, r]
+                fill[ex] += 1
+            else:
+                dropped += 1
+    if not np.array_equal(dispatch.cpu().numpy(), want_d):
+        raise AssertionError("moe: the dispatch left the gates' top choices "
+                             "or the arrival order")
+    if np.abs(combine.cpu().numpy() - want_c).max() > 1e-6:
+        raise AssertionError("moe: combine weights differ from the gates")
+    return dropped
+
+
+def moe_path(randn, dev, ms):
+    """TPP-MoE at Switch-Base-8's widths (Fedus, Zoph and Shazeer 2021,
+    google/switch-base-8: d_model 768, d_ff 3072, 8 experts, ReLU FFN),
+    capacity factor 1.25, 8 x 512 tokens, with every kernel's launch count
+    set to 0 just before and read just after (the model runs on torch ops:
+    none may change): served top-1 (Switch) in bf16, top-2 (GShard) at the
+    same widths, f32 at 2 x 512, each against a float64 forward with the
+    run's own dispatch and combine; the routing checked on the host; f32 at
+    a capacity that covers the draw against reference_forward; three bf16
+    train_steps (finite losses, the parameters changed, the first step's
+    gradients against float64's). Prints the time per forward and per
+    step and the device's busy share over three steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from libxsmm_torch.descriptor import UnaryType
+    from libxsmm_torch.models import tpp_moe as MOE
+
+    phases = []
+    _reset_all_launches()
+    t_path = time.perf_counter()
+    d, ffn, experts = 768, 3072, 8
+    base = dict(dim=d, hidden=ffn, n_experts=experts, capacity_factor=1.25,
+                activation=UnaryType.RELU)
+
+    def route(params, x, cfg):
+        logits = torch.matmul(x.float(), params["wg"].float())
+        gates = torch.softmax(logits, dim=-1)
+        cap = MOE.capacity(cfg, x.shape[0])
+        return gates, cap, MOE._route(logits, experts, cap, cfg.top_k)
+
+    def serve(name, cfg, tokens, tol):
+        params = MOE.init_params(cfg, seed=0, device=dev)
+        x = randn(tokens, d, dtype=getattr(torch, cfg.dtype))
+        y, aux = MOE.forward(params, x, cfg)
+        torch.cuda.synchronize()
+        gates, cap, (dsp, cmb, aux2) = route(params, x, cfg)
+        if not torch.equal(aux, aux2):
+            raise AssertionError(f"moe {name}: aux loss not repeatable")
+        dropped = _moe_seating(gates, cfg.top_k, cap, dsp, cmb)
+        err = _check(f"moe {name} vs float64", _moe_reference(
+            params, x, dsp, cmb), y, tol, (tokens, d))
+        t = ms(MOE.forward, params, x, cfg)
+        print(f"  moe {name}: {t:.4f} ms per forward, normf_rel {err:.2e} "
+              f"vs float64 (the run's routing), capacity {cap}, "
+              f"{dropped} of {cfg.top_k * tokens} choices dropped, aux "
+              f"{float(aux):.4f}")
+        phases.append((f"moe {name}", MOE.forward, (params, x, cfg)))
+        return params, x
+
+    tokens = 8 * 512
+    top1 = MOE.MoeConfig(**base, top_k=1, dtype="bfloat16")
+    params, x = serve(f"top-1 bf16 {tokens} tokens", top1, tokens,
+                      TOL_MOE_BF16)
+    # where a forward's device time goes, by kernel (torch.profiler)
+    split = device_split(lambda: MOE.forward(params, x, top1), reps=5)
+    busy = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  moe top-1 bf16 forward by kernel: {busy:.4f} ms of device "
+          f"time in {len(split)} kernel names; top: " + "; ".join(
+              f"{n[:50]} {v:.4f} ({100 * v / busy:.1f}%)" for n, v in top)
+          if busy else "  moe top-1 bf16 forward by kernel: not measured "
+          "(the profiler recorded no kernel)")
+    serve(f"top-2 bf16 {tokens} tokens", MOE.MoeConfig(
+        **base, top_k=2, dtype="bfloat16"), tokens, TOL_MOE_BF16)
+    serve("top-1 f32 1024 tokens", MOE.MoeConfig(**base, top_k=1), 1024,
+          TOL_F32)
+
+    # capacity covering the draw (C = S): the per-token oracle
+    wide = MOE.MoeConfig(**{**base, "capacity_factor": float(experts)},
+                         top_k=1)
+    wp = MOE.init_params(wide, seed=1, device=dev)
+    wx = randn(1024, d)
+    wy, _ = MOE.forward(wp, wx, wide)
+    want = torch.as_tensor(MOE.reference_forward(wp, wx, wide), device=dev)
+    err = _check("moe f32 vs reference_forward", want, wy, TOL_F32,
+                 (1024, d))
+    print(f"  moe f32 1024 tokens, capacity {MOE.capacity(wide, 1024)} (no "
+          f"drop): normf_rel {err:.2e} vs reference_forward")
+
+    # three bf16 train steps (Switch top-1): the first step's gradients
+    # against a float64 loss with the run's routing, then the steps
+    y = randn(tokens, d, dtype=torch.bfloat16)
+    loss0, grads = MOE.loss_and_grads(params, x, y, top1)
+    gates, cap, (dsp, _, _) = route(params, x, top1)
+    leaves = {k: v.detach().to(torch.float64).requires_grad_(True)
+              for k, v in params.items()}
+    with torch.enable_grad():
+        g64 = torch.softmax(x.to(torch.float64) @ leaves["wg"], dim=-1)
+        pred = _moe_reference(leaves, x, dsp, dsp * g64[:, :, None])
+        first = torch.nn.functional.one_hot(
+            MOE._top_k(gates, 1)[1][:, 0], experts).to(torch.float64)
+        aux64 = experts * torch.sum(first.mean(dim=0) * g64.mean(dim=0))
+        loss64 = (torch.mean((pred - y.to(torch.float64)) ** 2)
+                  + top1.aux_loss_weight * aux64)
+        want = torch.autograd.grad(loss64, [leaves[k] for k in grads])
+    errs = {k: _check(f"moe grad {k} vs float64", w_, grads[k],
+                      TOL_GRAD_BF16) for k, w_ in zip(grads, want)}
+    loss64 = loss64.detach()
+    if abs(float(loss0) - float(loss64)) > 1e-2 * abs(float(loss64)):
+        raise AssertionError(f"moe: loss {float(loss0)} vs float64 "
+                             f"{float(loss64)}")
+    step_params, losses = params, []
+    for _ in range(3):
+        new, loss = MOE.train_step(step_params, x, y, top1, 1e-1)
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError("moe train_step: non-finite loss")
+        if any(torch.equal(new[k], step_params[k]) for k in ("wg", "w1",
+                                                              "w2")):
+            raise AssertionError("moe train_step: a weight did not change")
+        step_params = new
+        losses.append(float(loss))
+    phases.append(("moe train_step bf16", MOE.train_step,
+                   (params, x, y, top1, 1e-1)))
+    t_step = ms(MOE.train_step, params, x, y, top1, 1e-1)
+
+    def steps(n=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = params
+        for _ in range(n):
+            p, _ = MOE.train_step(p, x, y, top1, 1e-1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    steps()
+    wall = steps()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / 3
+    share = (f"device busy {busy:.4f} ms a step, {100 * busy / wall:.1f}% "
+             "of the wall" if busy else "device busy not measured (the "
+             "profiler recorded no kernel)")
+    print(f"  moe train_step bf16 {tokens} tokens: losses "
+          + ", ".join(f"{v:.6f}" for v in losses)
+          + f"; grads vs float64 normf_rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; {t_step:.4f} ms per step (events), wall {wall:.4f} ms a "
+          f"step over 3, {share}")
+
+    _no_launches("moe path")
+    print(f"moe path: {len(phases)} phases in "
+          f"{time.perf_counter() - t_path:.2f} s, no kernel launch")
+
+
 def labs_path(randn, headline):
     """The labs, with the five twin and probe kernels' launch counts set to
     0 just before and read just after: the BRGEMM lab (its four variants at
@@ -2095,12 +2576,18 @@ def main() -> int:
     for name, fn, fargs in layer["phases"]:
         print(f"  phase {name}: {ms(fn, *fargs):.4f} ms per call")
 
-    # 10. the labs, counted on their own
+    # 10. matrix equations, counted on their own (torch ops: no launch)
+    equation_path(randn, dev, ms)
+
+    # 11. TPP-MoE at Switch-Base-8's widths, counted on its own
+    moe_path(randn, dev, ms)
+
+    # 12. the labs, counted on their own
     labs = labs_path(randn, (K.build_packed_batched_gemm(GemmDescriptor(
         smm, B0), G), (ap, bp)))
     counts.update(labs["counts"])
 
-    # 11. each kernel against its plain version, and timed
+    # 13. each kernel against its plain version, and timed
     rows = []
 
     def record(name, source, replaces, fn, fargs, ref_tol, nbytes, flops,

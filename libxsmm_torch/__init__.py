@@ -34,7 +34,10 @@ Ported so far:
   * the timer (utils/timer.py), the streaming twins of the packed BRGEMM
     and the packed SMM (kernels/gemm.py), and the two labs
     (scripts/brgemm_lab.py, scripts/bcsc_lab.py, with the BCSC probe
-    kernels of kernels/csrc/spmm_lab_kernels.cu).
+    kernels of kernels/csrc/spmm_lab_kernels.cu);
+  * matrix equations (ops/equation.py, dispatch_meqn: the tree evaluated
+    on torch ops), the TPP-MoE model on one device (models/tpp_moe.py),
+    and the host utilities utils/{mathx,sync,memutil,mtx}.py.
 The kernels are hand-written CUDA for sm_90a. A kernel follows the device of
 its tensors: CUDA tensors launch the CUDA kernel, CPU tensors run its plain
 torch version. libxsmm_torch never imports jax or libxsmm_tpu.
@@ -87,6 +90,19 @@ from .quant import (convert_bf16_f32, convert_bf16_fp32, convert_bf8_f32,
                     rne_convert_fp32_hf8, stochastic_convert_fp32_bf16,
                     stochastic_convert_fp32_bf8, truncate_convert_f32_bf16,
                     truncate_convert_fp32_bf16)
+from .utils.mathx import (coprime, coprime2, dsqrt, gcd, icbrt_u32,
+                          icbrt_u64, isqrt2_u32, isqrt_u32, isqrt_u64,
+                          kahan_sum, lcm, nearbyint, nearbyintf, primes_u32,
+                          product_limit, remainder, sexp2, sexp2_i8,
+                          sexp2_i8i, sexp2_u8, ssqrt, stanh_pade78,
+                          widen_u32i64, widen_u32u64)
+from .utils.sync import (Barrier, barrier_create, barrier_destroy,
+                         barrier_init, barrier_wait, get_pid, get_tid,
+                         stdio_acquire, stdio_release)
+from .utils.memutil import (aligned, aligned_malloc, diff, diff_n, free,
+                            get_malloc_info, hash, hash8, hash16, hash32,
+                            hash_string, memcmp, offset, realloc, strimatch,
+                            stristr, stristrn)
 from .ops.gemm import (brgemm_pack_factor, dgemm, xmmdispatch,
                        dispatch_brgemm,
                        dispatch_brgemm_ext, dispatch_brgemm_ext_packed,
@@ -99,6 +115,15 @@ from .ops.eltwise import (bitmask_ld, dispatch_meltw_binary,
                           dispatch_meltw_ternary, dispatch_meltw_unary,
                           pack_bitmask, unpack_bitmask)
 from .ops.attention import dispatch_flash_attention
+from .ops.equation import (MatrixArgAttributes, MeqnArgMetadata,
+                           MeqnArgShape, MeqnDescriptor, MeqnOpMetadata,
+                           create_matrix_arg_attributes,
+                           create_meqn_arg_metadata, create_meqn_arg_shape,
+                           create_meqn_op_metadata, dispatch_meqn,
+                           dispatch_meqn_desc, meqn_create, meqn_destroy,
+                           meqn_push_back_arg, meqn_push_back_binary_op,
+                           meqn_push_back_ternary_op, meqn_push_back_unary_op,
+                           meqn_rpn_print, meqn_tree_print)
 from .ops.fsspmdm import (Fsspmdm, dfsspmdm_create, dfsspmdm_destroy,
                           dfsspmdm_execute, fsspmdm_create, fsspmdm_destroy,
                           fsspmdm_execute, sfsspmdm_create, sfsspmdm_destroy,
@@ -180,6 +205,12 @@ def xclear():
     reg = get_registry()
     for key, _ in list(reg.items()):
         reg.xrelease(key)
+
+
+def malloc(size: int):
+    """libxsmm_malloc analogue (include/libxsmm_malloc.h:17): default-
+    aligned host buffer; pair with free()."""
+    return aligned_malloc(size)
 
 
 def cpuid():

@@ -1,7 +1,8 @@
 """ctypes bridge to the native host runtime (native/xsmm_native.cpp).
 
 The port's own copy of the part of `libxsmm_tpu/native_bridge.py` that the
-sparse layer needs: `load`, `crc32` and `PersistentKv`, the append-only,
+port uses: `load`, `crc32` (utils/memutil.py's hash), `read_mtx_coo`
+(utils/mtx.py's MatrixMarket reader) and `PersistentKv`, the append-only,
 CRC-checked key-value log in which the autotuners persist their picks. The
 log format is the C++ code's, so a log written by either package is read by
 the other.
@@ -18,8 +19,7 @@ returns None when the library cannot be built or loaded; callers treat that
 as "no persistent store", as the reference's do. This is a host cache, not
 part of any device path.
 
-Not ported yet (ROADMAP.md queue 1, item 14): the registry bindings and
-`read_mtx_coo`.
+Not ported yet (ROADMAP.md queue 1, item 14): the registry bindings.
 """
 
 from __future__ import annotations
@@ -84,6 +84,15 @@ def load() -> Optional[ctypes.CDLL]:
         lib.xsmm_kv_append.argtypes = [ctypes.c_char_p, P, U64, P, U64]
         lib.xsmm_kv_lookup.restype = ctypes.c_int64
         lib.xsmm_kv_lookup.argtypes = [ctypes.c_char_p, P, U64, P, U64]
+        I64P = ctypes.POINTER(ctypes.c_int64)
+        lib.xsmm_mtx_open.restype = ctypes.c_int
+        lib.xsmm_mtx_open.argtypes = [ctypes.c_char_p,
+                                      ctypes.POINTER(ctypes.c_void_p),
+                                      I64P, I64P, I64P]
+        lib.xsmm_mtx_fill.restype = None
+        lib.xsmm_mtx_fill.argtypes = [P, P, P, P]
+        lib.xsmm_mtx_close.restype = None
+        lib.xsmm_mtx_close.argtypes = [P]
         _lib = lib
         return _lib
 
@@ -97,6 +106,39 @@ def crc32(data: bytes, seed: int = 0) -> Optional[int]:
     buf = ctypes.create_string_buffer(data, len(data))
     return int(lib.xsmm_crc32(ctypes.cast(buf, ctypes.c_void_p), len(data),
                               seed))
+
+
+def read_mtx_coo(path):
+    """Parse a MatrixMarket file with the native reader (the counterpart of
+    the reference's generator_spgemm_{csr,csc}_reader.c). Returns
+    (m, n, rows, cols, vals) COO arrays (0-based, symmetric/pattern storage
+    expanded), or None when the library is unavailable or the format needs
+    the Python reader (complex fields, malformed files); raises
+    FileNotFoundError when the file cannot be read."""
+    lib = load()
+    if lib is None:
+        return None
+    import numpy as np
+
+    handle = ctypes.c_void_p()
+    m, n, nnz = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.xsmm_mtx_open(os.fsencode(str(path)), ctypes.byref(handle),
+                           ctypes.byref(m), ctypes.byref(n),
+                           ctypes.byref(nnz))
+    if rc == -1:
+        raise FileNotFoundError(path)
+    if rc != 0:
+        return None
+    try:
+        rows = np.empty(nnz.value, np.int32)
+        cols = np.empty(nnz.value, np.int32)
+        vals = np.empty(nnz.value, np.float64)
+        if nnz.value:
+            lib.xsmm_mtx_fill(handle, rows.ctypes.data, cols.ctypes.data,
+                              vals.ctypes.data)
+    finally:
+        lib.xsmm_mtx_close(handle)
+    return int(m.value), int(n.value), rows, cols, vals
 
 
 class PersistentKv:

@@ -27,7 +27,9 @@ import torch
 
 from ..descriptor import (BinaryFlags, BinaryType, MeltwDescriptor,
                           TernaryFlags, TernaryType, UnaryFlags, UnaryType)
+from ..device import resolve_device
 from ..dtypes import Datatype, to_torch
+from ..interop import tensor_from_numpy
 from ..registry import Kernel, KernelInfo, get_registry
 
 # ---------------------------------------------------------------------------
@@ -201,13 +203,22 @@ def _bcast_in(x, m, n, row, col, scalar):
     return x
 
 
-def _as_tensor(x, like: torch.Tensor = None) -> torch.Tensor:
-    """Index arrays and other side operands: a tensor stays as it is; numpy
-    data lands on `like`'s device."""
+# numpy types without a torch counterpart by name (ml_dtypes', as
+# np.asarray of a JAX array gives them), moved bit for bit
+_ML_DTYPES = {"bfloat16": Datatype.BF16, "float8_e5m2": Datatype.BF8,
+              "float8_e4m3fn": Datatype.HF8}
+
+
+def load_operand(x, device=None) -> torch.Tensor:
+    """A kernel's operand: a tensor stays on its own device; numpy data
+    loads onto `device` (default: the GPU, raising without one)."""
     if isinstance(x, torch.Tensor):
         return x
-    device = like.device if like is not None else None
-    return torch.as_tensor(np.asarray(x), device=device)
+    arr = np.asarray(x)
+    dt = _ML_DTYPES.get(arr.dtype.name)
+    if dt is not None:
+        return tensor_from_numpy(arr, dt, device)
+    return torch.as_tensor(arr, device=resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +353,7 @@ def _build_unary(desc: MeltwDescriptor) -> Kernel:
     comp = to_torch(desc.comp_type)
 
     def base(x, *args, **state):
+        x = load_operand(x)
         xb = _bcast_unary(x, flags, m, n)
         two_byte = bool(flags & UnaryFlags.BITMASK_2BYTEMULT)
 
@@ -363,7 +375,7 @@ def _build_unary(desc: MeltwDescriptor) -> Kernel:
             if not args:
                 raise ValueError(f"{op.name} needs the saved relu bitmask: "
                                  "kernel(grad, mask[, alpha])")
-            bits = unpack_bitmask(_as_tensor(args[0], x), m, n)
+            bits = unpack_bitmask(load_operand(args[0], x.device), m, n)
             g = xb.to(comp)
             if op == UnaryType.RELU_INV:
                 y = torch.where(bits, g, torch.zeros_like(g))
@@ -378,7 +390,7 @@ def _build_unary(desc: MeltwDescriptor) -> Kernel:
             if not args:
                 raise ValueError("ELU_INV needs the saved forward output: "
                                  "kernel(grad, out_fwd[, alpha])")
-            out_fwd = _as_tensor(args[0], x).to(comp)
+            out_fwd = load_operand(args[0], x.device).to(comp)
             alpha = state.get("alpha", args[1] if len(args) > 1 else 1.0)
             g = xb.to(comp)
             y = torch.where(out_fwd > 0, g, g * (out_fwd + alpha))
@@ -401,10 +413,10 @@ def _build_unary(desc: MeltwDescriptor) -> Kernel:
                             f"{op.name} with REDUCE_INIT_ACC needs one "
                             f"accumulator per output: kernel(x, acc_x, "
                             f"acc_x2)")
-                    y = tuple(t + _as_tensor(a, x).to(comp)
+                    y = tuple(t + load_operand(a, x.device).to(comp)
                               for t, a in zip(y, args))
                 else:
-                    y = y + _as_tensor(args[0], x).to(comp)
+                    y = y + load_operand(args[0], x.device).to(comp)
             if isinstance(y, tuple):
                 # argop index outputs stay integer
                 return tuple(t if not (t.is_floating_point()
@@ -469,12 +481,12 @@ def _build_unary(desc: MeltwDescriptor) -> Kernel:
             ncols = state.get("ncols", n)
             return x.reshape(m, 1).expand(m, ncols).contiguous()
         if op == UnaryType.GATHER:
-            idx = _as_tensor(args[0], x).to(torch.long)
+            idx = load_operand(args[0], x.device).to(torch.long)
             dim = 1 if flags & UnaryFlags.GS_COLS else 0
             return torch.index_select(xb, dim, idx)
         if op == UnaryType.SCATTER:
-            idx = _as_tensor(args[0], x).to(torch.long)
-            out = _as_tensor(args[1], x).clone()
+            idx = load_operand(args[0], x.device).to(torch.long)
+            out = load_operand(args[1], x.device).clone()
             if flags & UnaryFlags.GS_COLS:
                 out[:, idx] = xb.to(out.dtype)
             else:
@@ -483,7 +495,7 @@ def _build_unary(desc: MeltwDescriptor) -> Kernel:
         if op in (UnaryType.REDUCE_COLS_IDX_OP_ADD,
                   UnaryType.REDUCE_COLS_IDX_OP_MAX,
                   UnaryType.REDUCE_COLS_IDX_OP_MIN):
-            idx = _as_tensor(args[0], x).to(torch.long)
+            idx = load_operand(args[0], x.device).to(torch.long)
             rows = torch.index_select(xb, 0, idx).to(comp)
             red = {UnaryType.REDUCE_COLS_IDX_OP_ADD: torch.sum,
                    UnaryType.REDUCE_COLS_IDX_OP_MAX: torch.amax,
@@ -497,7 +509,7 @@ def _build_unary(desc: MeltwDescriptor) -> Kernel:
             return stateful.run_stateful_unary(desc, x, *args, **state)
         if op.name.startswith("DECOMPRESS_SPARSE_FACTOR"):
             (mask,) = args
-            return _decompress_sparse(xb, _as_tensor(mask, x), m, n, x.dtype)
+            return _decompress_sparse(xb, load_operand(mask, x.device), m, n, x.dtype)
         if op == UnaryType.DECOMP_FP32_TO_BF16X2:
             # split f32 into (hi, lo) bf16 with x ~= hi + lo (splitSGD); hi
             # by truncating x's own bits
@@ -514,6 +526,7 @@ def _build_unary(desc: MeltwDescriptor) -> Kernel:
     if op == UnaryType.DUMP:
         # host-side print, as the reference's LIBXSMM_DUMP
         def dump_fn(x, *args, **state):
+            x = load_operand(x)
             print(f"xsmm dump {desc.name()}:\n{x.detach().cpu().numpy()}")
             return x
 
@@ -562,6 +575,10 @@ def _build_binary(desc: MeltwDescriptor) -> Kernel:
     contraction = op.name.startswith(("MATMUL", "BRGEMM"))
 
     def base(in0, in1, c_prev=None):
+        in0 = load_operand(in0)
+        in1 = load_operand(in1, in0.device)
+        if c_prev is not None:
+            c_prev = load_operand(c_prev, in0.device)
         if contraction:
             # contraction ops take natural (not broadcast) operand shapes
             y = apply_matmul_node(op, in0.to(comp), in1.to(comp),
@@ -601,6 +618,8 @@ def _build_ternary(desc: MeltwDescriptor) -> Kernel:
     contraction = op.name.startswith(("MATMUL", "BRGEMM"))
 
     def base(in0, in1, in2):
+        in0 = load_operand(in0)
+        in1, in2 = load_operand(in1, in0.device), load_operand(in2, in0.device)
         if contraction:
             y = (apply_matmul_node(op, in0.to(comp), in1.to(comp),
                                    desc.in_type, comp) + in2.to(comp))
@@ -613,7 +632,7 @@ def _build_ternary(desc: MeltwDescriptor) -> Kernel:
                       flags & TernaryFlags.BCAST_SCALAR_IN_1)
         if op == TernaryType.SELECT:
             # in2 is a PACKED 2BYTEMULT bitmask: bit CLEAR -> in0, SET -> in1
-            mask = unpack_bitmask(_as_tensor(in2, in0), m, n)
+            mask = unpack_bitmask(load_operand(in2, in0.device), m, n)
             y = torch.where(mask, b.to(comp), a.to(comp))
         else:
             c = _bcast_in(in2, m, n, flags & TernaryFlags.BCAST_ROW_IN_2,

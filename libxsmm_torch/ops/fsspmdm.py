@@ -45,7 +45,7 @@ from ..device import resolve_device
 from ..dtypes import Datatype, to_torch
 from ..interop import tensor_from_numpy
 from ..registry import Kernel, KernelInfo
-from .gemm import _as_tensor
+from .eltwise import load_operand
 from .sparse import CsrMatrix, create_spgemm_csr_areg
 
 _HISTORY_CAP = 9
@@ -121,9 +121,9 @@ def _dense_kernel(av: torch.Tensor, shape: GemmShape, dev) -> Kernel:
     a_c = av.to(comp)
 
     def fn(b, c=None):
-        acc = torch.matmul(a_c, _as_tensor(b, dev).to(comp))
+        acc = torch.matmul(a_c, load_operand(b, dev).to(comp))
         if c is not None:
-            acc = acc + _as_tensor(c, dev).to(comp)
+            acc = acc + load_operand(c, dev).to(comp)
         return acc.to(out_dt)
 
     return Kernel(fn=fn, descriptor=("fsspmdm_dense", shape, dev),

@@ -57,13 +57,13 @@ from ..descriptor import (BatchReduceConfig, BatchReduceType, BinaryPostops,
                           BinaryType, GemmDescriptor, GemmExtDescriptor,
                           GemmFlags, GemmShape, UnaryArgops, UnaryFlags,
                           UnaryType)
-from ..device import resolve_device
 from ..dtypes import Datatype, bits, from_torch, to_torch
 from ..kernels import gemm as gemm_kernels
 from ..kernels.eltwise import stochastic_round
 from ..kernels.gemm import add_acc, contract
 from ..registry import Kernel, KernelInfo, get_registry, memo_dispatch
-from .eltwise import apply_binary_op, apply_unary_op, pack_bitmask
+from .eltwise import (apply_binary_op, apply_unary_op, load_operand,
+                      pack_bitmask)
 
 
 _INT_IN = (Datatype.I8, Datatype.U8, Datatype.I16, Datatype.U16,
@@ -76,14 +76,6 @@ _MX_FLOAT = (Datatype.MXFP4X2, Datatype.NVFP4X2, Datatype.MXBF8,
 _INT_SUB = (Datatype.I4X2, Datatype.U4X2, Datatype.I2X4, Datatype.I1X8)
 
 _VNNI = GemmFlags.VNNI_A | GemmFlags.VNNI_B | GemmFlags.VNNI_C
-
-
-def _as_tensor(x, device=None) -> torch.Tensor:
-    """A tensor stays as it is, on its device; anything else is loaded from
-    numpy onto `device` (default: the GPU, raising without one)."""
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
 
 
 def _comp_dtype(shape: GemmShape) -> torch.dtype:
@@ -176,14 +168,14 @@ def _packed_operand_decoders(shape: GemmShape):
 
     def _decode(dt, operand, is_b, device):
         if dt in _MX_FLOAT:
-            payload, scales = (_as_tensor(v, device) for v in operand)
+            payload, scales = (load_operand(v, device) for v in operand)
             if is_b:
                 payload, scales = payload.transpose(-1, -2), scales.transpose(
                     -1, -2)
             dec = _mx_decode(dt, payload.contiguous(),
                              scales.contiguous()).to(mx_target)
             return dec.transpose(-1, -2) if is_b else dec
-        p = _as_tensor(operand, device)
+        p = load_operand(operand, device)
         p = p.transpose(-1, -2) if is_b else p
         dec = q_.unpack_subbyte_gemm(dt, p)
         if b_dt == Datatype.F16:
@@ -192,7 +184,7 @@ def _packed_operand_decoders(shape: GemmShape):
 
     def decoder(dt, is_b):
         if dt not in _MX_FLOAT + _INT_SUB:
-            return lambda x, device=None: _as_tensor(x, device)
+            return lambda x, device=None: load_operand(x, device)
         return lambda x, device=None: _decode(dt, x, is_b, device)
 
     return decoder(a_dt, False), decoder(b_dt, True)
@@ -311,7 +303,7 @@ def _decoders(shape: GemmShape, flags: GemmFlags):
         return _packed_operand_decoders(shape)
     for dt in (shape.a_in_type, shape.b_in_type, shape.out_type):
         to_torch(dt)  # raises for unsupported storage types
-    return (lambda x, device=None: _as_tensor(x, device),) * 2
+    return (lambda x, device=None: load_operand(x, device),) * 2
 
 
 def _build_gemm(desc: GemmDescriptor) -> Kernel:
@@ -326,7 +318,7 @@ def _build_gemm(desc: GemmDescriptor) -> Kernel:
         a = decode_a(a)
         b = decode_b(b, a.device)
         if c is not None:
-            c = _as_tensor(c, a.device)
+            c = load_operand(c, a.device)
         acc = _gemm_core(desc, a, b, c, a_idx, b_idx)
         return _finalize_out(acc, shape, desc.flags)
 
@@ -405,7 +397,7 @@ def _build_gemm_ext(desc: GemmExtDescriptor) -> Kernel:
         a = decode_a(a)
         b = decode_b(b, a.device)
         if c is not None:
-            c = _as_tensor(c, a.device)
+            c = load_operand(c, a.device)
         if argops.ap_type != UnaryType.NONE:
             a = apply_unary_op(argops.ap_type, argops.ap_flags, a)
             if argops.store_ap:
@@ -422,7 +414,7 @@ def _build_gemm_ext(desc: GemmExtDescriptor) -> Kernel:
             if d is None:
                 raise ValueError("postop configured but no d operand passed")
             acc = apply_binary_op(postops.d_type, postops.d_flags, acc,
-                                  _as_tensor(d, acc.device).to(acc.dtype))
+                                  load_operand(d, acc.device).to(acc.dtype))
         if cp_stochastic:
             # the fused stochastic-round store, after the postops
             out = stochastic_round(acc, seed, shape.out_type)
@@ -571,9 +563,9 @@ def dispatch_gemm_batched(shape: GemmShape,
             if c is None and d.beta != 0:
                 raise ValueError("beta=1 batched GEMM needs the C operand "
                                  "(dispatch with BETA_0 for C=)")
-            a = _as_tensor(a)
-            b = _as_tensor(b, a.device)
-            c = None if c is None else _as_tensor(c, a.device)
+            a = load_operand(a)
+            b = load_operand(b, a.device)
+            c = None if c is None else load_operand(c, a.device)
             bsz = a.shape[0]
             inner = chosen.get(bsz)
             if inner is None:
@@ -689,9 +681,9 @@ def dispatch_brgemm_packed(shape: GemmShape,
             if c is None and d.beta != 0:
                 raise ValueError("beta=1 packed BRGEMM needs the C operand "
                                  "(dispatch with BETA_0 for C=)")
-            a = _as_tensor(a)
-            b = _as_tensor(b, a.device)
-            c = None if c is None else _as_tensor(c, a.device)
+            a = load_operand(a)
+            b = load_operand(b, a.device)
+            c = None if c is None else load_operand(c, a.device)
             br = b.shape[0]
             inner = built.get(br)
             if inner is None:
@@ -757,9 +749,9 @@ def dispatch_brgemm_ext_packed(shape: GemmShape,
         m, n = shape.m, shape.n
 
         def fn(a, b, c=None, d_op=None):
-            a = _as_tensor(a)
-            b = _as_tensor(b, a.device)
-            c = None if c is None else _as_tensor(c, a.device)
+            a = load_operand(a)
+            b = load_operand(b, a.device)
+            c = None if c is None else load_operand(c, a.device)
             br = b.shape[0]
             inner = built.get(br)
             if inner is None:
@@ -782,7 +774,7 @@ def dispatch_brgemm_ext_packed(shape: GemmShape,
             if with_bias:
                 if d_op is None:
                     raise ValueError("ADD postop requires the D operand")
-                d_full = torch.broadcast_to(_as_tensor(d_op, a.device),
+                d_full = torch.broadcast_to(load_operand(d_op, a.device),
                                             (m, n))
             return inner(a, b, c, d_full)
 
@@ -813,7 +805,7 @@ def pack_batched(x, p: int, device=None) -> torch.Tensor:
     src/generator_packed_gemm_common.c); inverse: unpack_batched. A tensor
     stays on its device (`device` is ignored); a numpy array is loaded onto
     `device` (default: the GPU)."""
-    x = _as_tensor(x, device)
+    x = load_operand(x, device)
     bsz, r, c = x.shape
     if bsz % p:
         raise ValueError(f"batch {bsz} not divisible by pack factor {p}")
@@ -823,7 +815,7 @@ def pack_batched(x, p: int, device=None) -> torch.Tensor:
 
 def unpack_batched(x, p: int, device=None) -> torch.Tensor:
     """Inverse of pack_batched: (G, r, p*c) -> (G*p, r, c)."""
-    x = _as_tensor(x, device)
+    x = load_operand(x, device)
     g, r, pc = x.shape
     c = pc // p
     return (x.reshape(g, r, p, c).permute(0, 2, 1, 3)
@@ -908,9 +900,9 @@ def _dispatch_packed_smm(shape: GemmShape, flags: GemmFlags, cp: str,
             if c is None and d.beta != 0:
                 raise ValueError("beta=1 packed SMM needs the C operand "
                                  "(dispatch with BETA_0 for C=)")
-            a = _as_tensor(a)
-            b = _as_tensor(b, a.device)
-            c = None if c is None else _as_tensor(c, a.device)
+            a = load_operand(a)
+            b = load_operand(b, a.device)
+            c = None if c is None else load_operand(c, a.device)
             g = a.shape[0]
             if g == 0:            # empty batch: no kernel to launch
                 return torch.zeros((0, d.shape.m, p * d.shape.n),
@@ -1013,9 +1005,9 @@ def gemm(a, b, c=None, *, trans_a: bool = False, trans_b: bool = False,
     """Dispatch+invoke in one call, like libxsmm_dgemm/sgemm. Tensors stay
     on their device; numpy operands are loaded onto `device` (default: the
     GPU)."""
-    a = _as_tensor(a, device)
-    b = _as_tensor(b, a.device)
-    c = None if c is None else _as_tensor(c, a.device)
+    a = load_operand(a, device)
+    b = load_operand(b, a.device)
+    c = None if c is None else load_operand(c, a.device)
     m = a.shape[1] if trans_a else a.shape[0]
     k = a.shape[0] if trans_a else a.shape[1]
     n = b.shape[0] if trans_b else b.shape[1]
@@ -1040,7 +1032,7 @@ def gemm(a, b, c=None, *, trans_a: bool = False, trans_b: bool = False,
 
 
 def _typed(x, dtype, device):
-    return None if x is None else _as_tensor(x, device).to(dtype)
+    return None if x is None else load_operand(x, device).to(dtype)
 
 
 def sgemm(a, b, c=None, device=None, **kw):

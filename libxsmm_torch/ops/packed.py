@@ -22,7 +22,8 @@ from ..descriptor import GemmFlags, GemmShape
 from ..dtypes import to_torch
 from ..kernels.gemm import add_acc, contract
 from ..registry import Kernel, KernelInfo, get_registry
-from .gemm import _as_tensor, _comp_dtype
+from .eltwise import load_operand
+from .gemm import _comp_dtype
 
 _SPEC = {
     "packed": "mkp,knp->mnp",     # all operands packed
@@ -54,11 +55,11 @@ def _build_packed(desc):
         if not beta0 and c is None:
             raise ValueError("beta=1 packed GEMM needs the C operand "
                              "(pass GemmFlags.BETA_0 for C=)")
-        a = _as_tensor(a)
+        a = load_operand(a)
         acc = contract(lambda x, y: torch.einsum(spec, x, y), a,
-                       _as_tensor(b, a.device), comp)
+                       load_operand(b, a.device), comp)
         if c is not None:
-            acc = add_acc(acc, _as_tensor(c, a.device))
+            acc = add_acc(acc, load_operand(c, a.device))
         return acc.to(out_dt)
 
     nflops = 2 * shape.m * shape.n * shape.k * packed_width

@@ -51,7 +51,8 @@ from ..dtypes import Datatype, itemsize, to_torch
 from ..kernels import spmm as spmm_kernels
 from ..kernels.gemm import add_acc, contract, wrap_i32
 from ..registry import Kernel, KernelInfo, get_registry
-from .gemm import _as_tensor, _comp_dtype, _index
+from .eltwise import load_operand
+from .gemm import _comp_dtype, _index
 
 _UNION = ("union", "union2", "union3", "union4", "union4a", "union4d",
           "union5")
@@ -272,7 +273,7 @@ class BsrMatrix:
 def _finish(acc: torch.Tensor, c, out_dt: torch.dtype, dev) -> torch.Tensor:
     """acc (+ c in acc's type, for beta=1), rounded once to the output."""
     if c is not None:
-        acc = add_acc(acc, _as_tensor(c, dev))
+        acc = add_acc(acc, load_operand(c, dev))
     return acc.to(out_dt).contiguous()
 
 
@@ -377,8 +378,8 @@ def create_packed_spgemm_csr(shape: GemmShape,
                          dev)
 
             def fn(values, b, c=None):
-                b = _as_tensor(b, dev)
-                adense = _densify(_as_tensor(values, dev), posd, (m, k))
+                b = load_operand(b, dev)
+                adense = _densify(load_operand(values, dev), posd, (m, k))
                 if b.ndim == 2:
                     acc = _dense_product(adense, b, comp)
                 else:
@@ -391,8 +392,8 @@ def create_packed_spgemm_csr(shape: GemmShape,
             padd = torch.as_tensor(mask == 0, device=dev)
 
             def fn(values, b, c=None):
-                b = _as_tensor(b, dev)
-                vals = _as_tensor(values, dev)[posd].reshape(m, rmax)
+                b = load_operand(b, dev)
+                vals = load_operand(values, dev)[posd].reshape(m, rmax)
                 vals = vals.masked_fill(padd, 0)
                 gb = b[cold].reshape((m, rmax) + tuple(b.shape[1:]))
                 eq = "mr,mrn->mn" if b.ndim == 2 else "mr,mrnp->mnp"
@@ -454,8 +455,8 @@ def create_packed_spgemm_csc(shape: GemmShape,
         out_dt = to_torch(shape.out_type)
 
         def fn(a, values, c=None):
-            acc = _segment_columns(_as_tensor(a, dev), rowd,
-                                   _as_tensor(values, dev), segd, n, comp)
+            acc = _segment_columns(load_operand(a, dev), rowd,
+                                   load_operand(values, dev), segd, n, comp)
             return _finish(acc, c, out_dt, dev)
 
         info = KernelInfo(kind="pspgemm_csc",
@@ -510,8 +511,8 @@ def create_packed_spgemm_csr_bsparse(shape: GemmShape,
             posd = _index(_gather_map(kidx, indices, (k, n), nnz), dev)
 
             def fn(a, values, c=None):
-                a = _as_tensor(a, dev)
-                bdense = _densify(_as_tensor(values, dev), posd, (k, n))
+                a = load_operand(a, dev)
+                bdense = _densify(load_operand(values, dev), posd, (k, n))
                 if a.ndim == 2:
                     acc = _dense_product(a, bdense, comp)
                 else:
@@ -521,8 +522,8 @@ def create_packed_spgemm_csr_bsparse(shape: GemmShape,
             kidd, segd = _index(kidx, dev), _index(indices, dev)
 
             def fn(a, values, c=None):
-                acc = _segment_columns(_as_tensor(a, dev), kidd,
-                                       _as_tensor(values, dev), segd, n,
+                acc = _segment_columns(load_operand(a, dev), kidd,
+                                       load_operand(values, dev), segd, n,
                                        comp)
                 return _finish(acc, c, out_dt, dev)
 
@@ -579,7 +580,7 @@ def create_packed_spgemm_csc_csparse(shape: GemmShape,
             flatd = _index(indices.astype(np.int64) * n + cols, dev)
 
             def fn(a, b, c=None):
-                a, b = _as_tensor(a, dev), _as_tensor(b, dev)
+                a, b = load_operand(a, dev), load_operand(b, dev)
                 if a.ndim == 2:
                     dense = _dense_product(a, b, comp)
                 else:
@@ -589,7 +590,7 @@ def create_packed_spgemm_csc_csparse(shape: GemmShape,
             rowd, cold = _index(indices, dev), _index(cols, dev)
 
             def fn(a, b, c=None):
-                a, b = _as_tensor(a, dev), _as_tensor(b, dev)
+                a, b = load_operand(a, dev), load_operand(b, dev)
                 ar, bc = a[rowd], b[:, cold]          # (nnz, k[, p]) each
                 eq = "tk,kt->t" if a.ndim == 2 else "tkp,ktp->t"
                 return _finish(_einsum(eq, ar, bc, comp), c, out_dt, dev)
@@ -619,9 +620,9 @@ def _kernel_route(pfn, dev):
     """fn(a, values[, c]) around a kernel wrapper: the kernel's output in
     the output type, then c added in that type."""
     def fn(a, values, c=None):
-        out = pfn(_as_tensor(a, dev), _as_tensor(values, dev))
+        out = pfn(load_operand(a, dev), load_operand(values, dev))
         if c is not None:
-            out = out + _as_tensor(c, dev).to(out.dtype)
+            out = out + load_operand(c, dev).to(out.dtype)
         return out
     return fn
 
@@ -699,7 +700,7 @@ def _build_bcsc_super(shape: GemmShape, config: SpgemmConfig,
     run = _kernel_route(pfn, dev)
 
     def fn(a, values, c=None):
-        sup = assemble_supertiles(_as_tensor(values, dev), gmap_d, in_dt)
+        sup = assemble_supertiles(load_operand(values, dev), gmap_d, in_dt)
         return run(a, sup, c)
 
     occupancy = ns / max(1, tiles)
@@ -918,8 +919,8 @@ def _torch_route(shape: GemmShape, config: SpgemmConfig, indptr: np.ndarray,
         acc_dt = torch.float64 if not comp.is_floating_point else comp
 
     def fn(a, values, c=None):
-        a = _as_tensor(a, dev)
-        values = _as_tensor(values, dev)
+        a = load_operand(a, dev)
+        values = load_operand(values, dev)
         if strategy == "dense":
             # .to() of a tensor already of the type returns it, yet costs
             # about a microsecond of host time a call: skipped then
@@ -939,7 +940,7 @@ def _torch_route(shape: GemmShape, config: SpgemmConfig, indptr: np.ndarray,
             if not comp.is_floating_point:
                 acc = wrap_i32(acc.to(torch.int64))
         if c is not None:
-            acc = add_acc(acc, _as_tensor(c, dev))
+            acc = add_acc(acc, load_operand(c, dev))
         return acc if acc.dtype == out_dt else acc.to(out_dt)
 
     return fn
@@ -990,7 +991,7 @@ def create_spgemm_csr_areg(shape: GemmShape,
         cold = _index(col.reshape(-1), dev)
 
         def fn(b, c=None):
-            gb = _as_tensor(b, dev)[cold].reshape(m, rmax, n)
+            gb = load_operand(b, dev)[cold].reshape(m, rmax, n)
             return _finish(_einsum("mr,mrn->mn", valsd, gb, comp), c, out_dt,
                            dev)
 

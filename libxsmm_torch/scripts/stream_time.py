@@ -556,8 +556,8 @@ def _split(dev, gen, geo, K) -> list:
     acc = po._dense_product(a, out, torch.float32)
     dsteps = [
         ("entry (registry Kernel)", lambda: kern(a, v)),
-        ("as_tensor a, values", lambda: (po._as_tensor(a, dev),
-                                         po._as_tensor(v, dev))),
+        ("as_tensor a, values", lambda: (po.load_operand(a, dev),
+                                         po.load_operand(v, dev))),
         ("values.to(b_dt)", lambda: v.to(torch.bfloat16)),
         ("densify", lambda: fn(v)),
         ("bdense.to(a.dtype)", lambda: out.to(torch.bfloat16)),

@@ -99,22 +99,69 @@ def edge_fluxmatrix(m: int = 20, k: int = 35, seed: int = 0,
 # ---------------------------------------------------------------------------
 # The upstream project's own sample matrices (PyFR/GiMMiK operators, EDGE
 # seismic matrices), read in place from a libxsmm checkout named by
-# XSMM_TPU_REFERENCE_DIR; without one both probes return False. Reading the
-# matrices (.mtx) waits for the tooling (ROADMAP.md queue 1, item 14).
+# XSMM_TPU_REFERENCE_DIR (utils/mtx.py reads the .mtx files); without one
+# both probes return False and both readers return no matrix.
 # ---------------------------------------------------------------------------
 
 PYFR_MATS = os.path.join("samples", "xgemm_sparse_Ainregs", "mats")
 EDGE_MATS = os.path.join("samples", "xgemm_norm_packed", "mats")
 
 
-def _has(sub: str) -> bool:
+def _dir(sub: str):
+    """The checkout's `sub` directory, or None."""
     root = os.environ.get("XSMM_TPU_REFERENCE_DIR")
-    return bool(root) and os.path.isdir(os.path.join(root, sub))
+    path = os.path.join(root, sub) if root else None
+    return path if path and os.path.isdir(path) else None
 
 
 def have_reference_pyfr_mats() -> bool:
-    return _has(PYFR_MATS)
+    return _dir(PYFR_MATS) is not None
 
 
 def have_reference_edge_mats() -> bool:
-    return _has(EDGE_MATS)
+    return _dir(EDGE_MATS) is not None
+
+
+def reference_pyfr_operators(orders=("p2", "p3", "p4"),
+                             elems=("hex", "tet"),
+                             kinds=("sp",)):
+    """The PyFR operator matrices of the checkout: [(label, dense ndarray)],
+    labelled "p{order}/{elem}/m{N}-{kind}".
+
+    kinds: 'sp' = the sparse operators the reference's fsspmdm test sweeps
+    (tests/fsspmdm.sh), 'de' = their dense counterparts."""
+    import glob
+
+    from .mtx import read_mtx
+
+    root = _dir(PYFR_MATS)
+    out = []
+    if root is None:
+        return out
+    for p in orders:
+        for elem in elems:
+            d = os.path.join(root, p, elem)
+            if not os.path.isdir(d):
+                continue
+            for path in sorted(glob.glob(os.path.join(d, "m*.mtx"))):
+                base = os.path.basename(path)[:-4]       # mN-sp / mN-de
+                if base.rsplit("-", 1)[1] not in kinds:
+                    continue
+                out.append((f"{p}/{elem}/{base}", read_mtx(path)))
+    return out
+
+
+def reference_edge_operators(fmt="csr", limit=None):
+    """The EDGE (seismic ADER-DG) matrices of the checkout:
+    [(label, dense ndarray)], the `*_{fmt}.mtx` files in name order."""
+    import glob
+
+    from .mtx import read_mtx
+
+    root = _dir(EDGE_MATS)
+    if root is None:
+        return []
+    paths = sorted(glob.glob(os.path.join(root, f"*_{fmt}.mtx")))
+    if limit:
+        paths = paths[:limit]
+    return [(os.path.basename(p)[:-4], read_mtx(p)) for p in paths]

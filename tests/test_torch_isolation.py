@@ -144,6 +144,20 @@ def test_device_defaults_raise_without_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         k(np.zeros((1, 2, 128), np.float32), np.zeros((1, 2, 128),
                                                       np.float32))
+    # the meltw kernels, an equation and the MoE model
+    relu = xp.dispatch_meltw_unary(xp.UnaryType.RELU, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        relu(x[0])
+    idx = xp.meqn_create()
+    xp.meqn_push_back_binary_op(idx, xp.BinaryType.ADD)
+    xp.meqn_push_back_arg(idx, 2, 2, in_pos=0)
+    xp.meqn_push_back_arg(idx, 2, 2, in_pos=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        xp.dispatch_meqn(idx, 2, 2)(x[0], x[0])
+    xp.meqn_destroy(idx)
+    from libxsmm_torch.models import tpp_moe
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpp_moe.init_params(tpp_moe.MoeConfig(dim=4, hidden=8, n_experts=2))
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
