@@ -149,7 +149,26 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     reference_forward; three bf16 train_steps (finite losses, the weights
     changed, the first step's gradients against float64); prints the time
     per forward and per step and the device's busy share over three steps;
-12. runs the labs the same way, with the five twin and probe kernels'
+12. drives the parallel layer (libxsmm_torch.parallel) at full width,
+    twice. (a) In a one-rank NCCL world in this process, with every launch
+    count set to 0 just before and read just after: ring and Ulysses
+    attention at the flash shape (bh 16, s 2048, hd 128) in bf16 and f32,
+    causal and not, forwards and gradients; DistributedBsrSpmm at bcsc20
+    (m = k = 1024, 32 x 32 blocks, density 0.2, n = 1024, f32) with ring,
+    ring2 and allgather, and the two-level form; the GPipe pipeline at d
+    768, 8 microbatches of 512 rows, bf16 and f32, GELU: a forward, the
+    gradients and three train steps that lower the loss. (b) The same
+    cases in four ranks over gloo on the card (run_ranks; the pipeline's
+    pp x dp and the two-level SpMM at 2 x 2, collectives staged through
+    host memory). Every rank holds its outputs against the plain
+    single-device composition (bf16 1e-2, f32 1e-5, gradients 1e-4 in f32
+    and 5e-2 in bf16 against float64), its logged collective bytes against
+    the comm models, and requires the flash forward and both backward
+    kernels to have launched in it. Prints NCCL's init time, (a)'s time
+    per call beside flash alone at the same shape, the overlap reports and
+    (b)'s times, labelled as staged and no scaling figure; (a)'s flash
+    launches join the flash rows' counts;
+13. runs the labs the same way, with the five twin and probe kernels'
     counts set to 0 just before: libxsmm_torch.scripts.brgemm_lab (the
     packed BRGEMM's four variants at br = 1024, 256 x 256 x 64 bf16, each
     against its streaming twin, t_sol / t_brg printed), the packed SMM's
@@ -159,7 +178,7 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     union kernel's probes beside the library's strategies, held against
     float64 and their plain versions, the lab's table printed); fails
     unless all five kernels were launched;
-13. holds each kernel against its plain version once more at its main-path
+14. holds each kernel against its plain version once more at its main-path
     shape, and times kernel, plain version and one library call computing
     the same function (a yardstick the port never calls; none exists for
     stochastic rounding, the union RHS compactor and the BRGEMM's twin,
@@ -192,7 +211,7 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     SpMM) it asserts the path and prints the achieved TFLOP/s (of the
     kernel's own products and of the useful ones) and the kernel / library
     ratio;
-14. prints one JSON line with the per-kernel numbers (nineteen rows) and,
+15. prints one JSON line with the per-kernel numbers (nineteen rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
@@ -261,6 +280,7 @@ MAIN_KERNELS = ("batched_gemm", "packed_batched_gemm", "packed_brgemm")
 SERVE_KERNELS = ("flash_attention_fwd", "dropout")
 BWD_KERNELS = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 TRAIN_KERNELS = SERVE_KERNELS + BWD_KERNELS
+FLASH_KERNELS = ("flash_attention_fwd",) + BWD_KERNELS
 TRAIN_LR = 0.1         # visible in bf16 weights after three steps
 LAB_KERNELS = ("packed_brgemm_sol", "packed_smm_passthrough",
                "bcsc_lab_minimal", "bcsc_lab_chunk", "bcsc_lab_dspipe")
@@ -1953,6 +1973,364 @@ def moe_path(randn, dev, ms):
           f"{time.perf_counter() - t_path:.2f} s, no kernel launch")
 
 
+# the parallel layer's full-width cases: bench.py:558's flash shape (bh,
+# s, hd); bench.py:691's bcsc20 (m = k, block, density) with n = 1024;
+# the pipeline at BERT-base's width, 8 microbatches of 512 rows
+PAR_ATTN = (16, 2048, 128)
+PAR_SPMM = (1024, 32, 0.2, 1024)
+PAR_PIPE = (768, 8, 512)
+PIPE_LR = 10.0        # the loss visibly lower after three steps in bf16
+PAR_WORLD = 4         # the gloo world on the one card
+
+
+def _par_check(res, name, ref, out, margin):
+    res["err"][name] = _check(name, ref, out, margin)
+
+
+def _par_attention(res, randn, world, dev):
+    """Ring and Ulysses attention: bf16 and f32 forwards (causal and not)
+    and gradients (bf16 causal, f32 not), each rank's block against the
+    float64 composition on the full inputs; the logged bytes of every
+    forward against its comm model. Returns the timed calls."""
+    from libxsmm_torch.ops.attention import _naive
+    from libxsmm_torch.parallel import collectives as C
+    from libxsmm_torch.parallel.mesh import make_mesh
+    from libxsmm_torch.parallel.ring_attention import (
+        make_ring_attention, ring_comm_bytes_per_device)
+    from libxsmm_torch.parallel.ulysses import (
+        make_ulysses_attention, ulysses_comm_bytes_per_device)
+
+    bh, s, hd = PAR_ATTN
+    mesh = make_mesh([("sp", world)])
+    idx, s_loc = mesh.index("sp"), s // world
+    seq = slice(idx * s_loc, (idx + 1) * s_loc)
+    full = [randn(bh, s, hd), randn(bh, hd, s), randn(bh, s, hd)]
+    dout = randn(bh, s, hd)
+    # the gradients' blocks: q and v split on the sequence, kT on its last
+    blocks = ((slice(None), seq), (slice(None), slice(None), seq),
+              (slice(None), seq))
+    calls = []
+    for dt, tol, tol_g, grad_causal in (
+            (torch.bfloat16, TOL_BF16_OUT, TOL_GRAD_BF16, True),
+            (torch.float32, TOL_F32, TOL_GRAD_F32, False)):
+        ops = [t.to(dt) for t in full]
+        for causal in (False, True):
+            leaves = [t.double().requires_grad_(causal == grad_causal)
+                      for t in ops]
+            ref = _naive(*leaves, hd ** -0.5, causal)
+            if causal == grad_causal:
+                rgrads = torch.autograd.grad((ref * dout.double()).sum(),
+                                             leaves)
+            ref = ref.detach()
+            for name, make, model in (
+                    ("ring", make_ring_attention,
+                     ring_comm_bytes_per_device),
+                    ("ulysses", make_ulysses_attention,
+                     ulysses_comm_bytes_per_device)):
+                tag = f"{name} {str(dt)[6:]} causal={causal}"
+                fn, _ = make(mesh, "sp", bh, s, hd, dt, causal=causal)
+                C.reset_log()
+                out = fn(*ops).to_local()
+                torch.cuda.synchronize()
+                want = model(bh, s, hd, world, dt)
+                if C.logged_bytes() != want:
+                    raise AssertionError(f"{tag}: logged "
+                                         f"{C.logged_bytes()} B, model "
+                                         f"{want} B")
+                _par_check(res, tag, ref[:, seq], out, tol)
+                calls.append((f"{tag} forward", fn, ops))
+                if causal != grad_causal:
+                    continue
+                gl = [t.clone().requires_grad_(True) for t in ops]
+                o = fn(*gl).to_local()
+                grads = torch.autograd.grad(
+                    (o.float() * dout[:, seq]).sum(), gl)
+                torch.cuda.synchronize()
+                for i, (g, r, blk) in enumerate(zip(grads, rgrads, blocks)):
+                    _par_check(res, f"{tag} grad[{i}]", r[blk], g[blk],
+                               tol_g)
+                calls.append((f"{tag} forward+backward", _fwd_bwd(fn, dout,
+                                                                   seq), ops))
+    return calls
+
+
+def _fwd_bwd(fn, dout, seq):
+    def call(*ops):
+        gl = [t.detach().requires_grad_(True) for t in ops]
+        o = fn(*gl).to_local()
+        return torch.autograd.grad((o.float() * dout[:, seq]).sum(), gl)
+    return call
+
+
+def _par_spmm(res, world, dev, seed):
+    """DistributedBsrSpmm at bcsc20 (ring, ring2, allgather) and the
+    two-level form, each rank's rows against the float64 product, the
+    logged bytes against comm_bytes_per_device; prints rank 0's overlap
+    reports. Returns the timed calls."""
+    import numpy as np
+
+    from libxsmm_torch.ops.sparse import BsrMatrix
+    from libxsmm_torch.parallel import collectives as C
+    from libxsmm_torch.parallel import spmm_dist as SD
+    from libxsmm_torch.parallel.mesh import make_mesh
+
+    m, blk, density, n = PAR_SPMM
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, m)).astype(np.float32)
+    keep = rng.random((m // blk, m // blk)) < density
+    a *= np.kron(keep, np.ones((blk, blk), np.float32))
+    bsr = BsrMatrix.from_dense(a, blk, blk)
+    x = torch.as_tensor(rng.standard_normal((m, n)).astype(np.float32),
+                        device=dev)
+    ref = torch.as_tensor(a, device=dev).double() @ x.double()
+    flat = make_mesh([("x", world)])
+    two = make_mesh([("dcn", max(world // 2, 1)), ("ici", min(world, 2))])
+    calls = []
+    for name, spmm, band in (
+            [(f"spmm {c}", SD.DistributedBsrSpmm(bsr, n, flat, comm=c),
+              flat.index("x")) for c in ("ring", "ring2", "allgather")]
+            + [(f"spmm 2-level {c}",
+                SD.DistributedBsrSpmm2Level(bsr, n, two, comm=c),
+                two.index("dcn") * two.shape["ici"] + two.index("ici"))
+               for c in ("ring2", "ring")]):
+        C.reset_log()
+        out = spmm(x).to_local()
+        torch.cuda.synchronize()
+        if C.logged_bytes() != spmm.comm_bytes_per_device():
+            raise AssertionError(f"{name}: logged {C.logged_bytes()} B, "
+                                 f"model {spmm.comm_bytes_per_device()} B")
+        rows = m // spmm.num_devices
+        _par_check(res, name, ref[band * rows:(band + 1) * rows], out,
+                   TOL_SPARSE_F32)
+        res["reports"][name] = spmm.overlap_report(x)
+        calls.append((name, spmm, (x,)))
+    res["nnz"] = bsr.nnz
+    return calls
+
+
+def _pipe_reference(params, xs, ys, cfg):
+    """The plain single-device composition in float64: (loss, the
+    gradients of w and b)."""
+    from libxsmm_torch.descriptor import UnaryFlags
+    from libxsmm_torch.ops.eltwise import apply_unary_op
+    w, b = (params[k].double().requires_grad_(True) for k in ("w", "b"))
+    x = xs.double()
+    for p in range(cfg.n_stages):
+        x = apply_unary_op(cfg.activation, UnaryFlags.NONE, x @ w[p] + b[p])
+    loss = torch.mean((x - ys.double()) ** 2)
+    return (loss.detach(),) + torch.autograd.grad(loss, (w, b))
+
+
+def _par_pipeline(res, randn, world, dev, seed):
+    """The GPipe pipeline at BERT-base's width in bf16 and f32: a forward
+    on P stages (P = the world) and, on pp x dp (2 x 2 in a world of 4),
+    a forward, the gradients against float64 and three train steps that
+    lower the loss. Returns the timed calls."""
+    from libxsmm_torch.parallel import collectives as C
+    from libxsmm_torch.parallel import pipeline as PP
+    from libxsmm_torch.parallel.mesh import make_mesh
+
+    d, micro, rows = PAR_PIPE
+    meshes = [([("pp", world)], None)]
+    if world == 4:
+        meshes.append(([("pp", 2), ("dp", 2)], "dp"))
+    calls = []
+    for shape, dp in meshes:
+        mesh = make_mesh(shape)
+        pn = mesh.shape["pp"]
+        ndp = mesh.shape[dp] if dp else 1
+        didx = mesh.index(dp) if dp else 0
+        last = mesh.index("pp") == pn - 1
+        rsl = slice(didx * rows // ndp, (didx + 1) * rows // ndp)
+        for dtype, tol, tol_g in (("bfloat16", TOL_BF16_OUT, TOL_GRAD_BF16),
+                                  ("float32", TOL_F32, TOL_GRAD_F32)):
+            cfg = PP.PipelineConfig(dim=d, n_stages=pn, n_micro=micro,
+                                    micro_batch=rows, dtype=dtype)
+            dt = getattr(torch, dtype)
+            params = PP.init_params(cfg, seed=seed, device=dev)
+            xs, ys = randn(micro, rows, d).to(dt), randn(micro, rows, d).to(dt)
+            tag = f"pipeline {'x'.join(str(s_) for _, s_ in shape)} {dtype}"
+            fwd = PP.make_pipeline_forward(cfg, mesh, dp_axis=dp)
+            sharded = PP.shard_params(params, mesh)
+            C.reset_log()
+            out = fwd(sharded, xs).to_local()
+            torch.cuda.synchronize()
+            model = PP.pipeline_comm_bytes_per_device(cfg, ndp)
+            if C.logged_bytes() != model:
+                raise AssertionError(f"{tag}: logged {C.logged_bytes()} B, "
+                                     f"model {model} B")
+            want = (PP.reference_forward(params, xs, cfg)[:, rsl] if last
+                    else torch.zeros_like(out))
+            _par_check(res, f"{tag} forward", want, out,
+                       tol if last else TOL_EXACT)
+            calls.append((f"{tag} forward", fwd, (sharded, xs)))
+            if dp is None and world > 1:
+                continue
+            vg = PP.make_pipeline_value_and_grad(cfg, mesh, dp_axis=dp)
+            loss, grads = vg(sharded, xs, ys)
+            rloss, rgw, rgb = _pipe_reference(params, xs, ys, cfg)
+            st = mesh.index("pp")
+            _par_check(res, f"{tag} loss", rloss.reshape(1),
+                       loss.reshape(1), tol)
+            _par_check(res, f"{tag} grad w", rgw[st], grads["w"][0], tol_g)
+            _par_check(res, f"{tag} grad b", rgb[st], grads["b"][0], tol_g)
+            step, _ = PP.make_pipeline_train_step(cfg, mesh, dp_axis=dp,
+                                                  lr=PIPE_LR)
+            # three steps, then the loss at the stepped parameters
+            p, losses = sharded, []
+            for _ in range(3):
+                p, loss = step(p, xs, ys)
+                losses.append(float(loss))
+            losses.append(float(vg(p, xs, ys)[0]))
+            if not all(b_ < a_ for a_, b_ in zip(losses, losses[1:])):
+                raise AssertionError(f"{tag}: losses {losses} do not fall")
+            res["losses"][tag] = losses
+            calls.append((f"{tag} train step", step, (sharded, xs, ys)))
+    return calls
+
+
+def parallel_cases(seed, reps=20, rounds=3):
+    """The parallel layer at full width in this process's world (a one-rank
+    NCCL world, or a rank of the gloo world on the card): ring and Ulysses
+    attention, the distributed SpMM (flat and two-level) and the pipeline,
+    each rank's outputs held against the plain single-device composition,
+    its logged collective bytes against the comm models, and the flash
+    forward and backward kernels' launch counts (set to 0 just before)
+    required to have moved. Then times every call (CUDA events, the best of
+    `rounds` windows of `reps` calls; every rank makes the same calls, so
+    their collectives match). Any failure raises."""
+    import torch.distributed as dist
+
+    from libxsmm_torch.kernels import attention as KA
+    from libxsmm_torch.scripts.timing import events_ms
+
+    world = dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    res = {"rank": dist.get_rank(), "world": world,
+           "backend": dist.get_backend(), "err": {}, "reports": {},
+           "losses": {}, "ms": {}}
+    _reset_all_launches()
+    calls = _par_attention(res, randn, world, dev)
+    res["counts"] = {k: KA.launches[k] for k in KA.launches}
+    missing = [k for k, c in res["counts"].items() if c == 0]
+    if missing:
+        raise AssertionError(f"rank {res['rank']}: {missing} not launched "
+                             f"in the ring and Ulysses")
+    calls += _par_spmm(res, world, dev, seed)
+    calls += _par_pipeline(res, randn, world, dev, seed)
+    torch.cuda.synchronize()
+    # the SpMM and the pipeline run on torch ops: no kernel count moved
+    after = {k: v for k, v in _all_launches().items() if v}
+    if after != {k: v for k, v in res["counts"].items() if v}:
+        raise AssertionError(f"launch counts moved past the attention: "
+                             f"{after}")
+    for name, fn, fargs in calls:
+        res["ms"][name] = events_ms(lambda: fn(*fargs), reps, rounds)
+    return res
+
+
+def parallel_rank(seed):
+    """One rank of the gloo world on the card (run by run_ranks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return parallel_cases(seed, reps=5, rounds=2)
+
+
+def parallel_path(seed, smi):
+    """The parallel layer twice: (a) a one-rank NCCL world in this process,
+    with every kernel's launch count set to 0 just before and read just
+    after; (b) four ranks over gloo on the card (the pipeline's pp x dp at
+    2 x 2, the two-level SpMM at 2 x 2), each rank checking its outputs,
+    bytes and launch counts. Prints NCCL's init time, (a)'s times beside
+    flash alone at the same shape, and (b)'s times, which carry host
+    staging and are no scaling figure. Returns (a)'s launch counts."""
+    import torch.distributed as dist
+
+    from libxsmm_torch.kernels import attention as KA
+    from libxsmm_torch.parallel.mesh import distributed_init
+    from libxsmm_torch.scripts.ranks import run_ranks
+    from libxsmm_torch.scripts.timing import events_ms
+
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    distributed_init(backend="nccl", device_type="cuda")
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    print(f"  parallel (a): NCCL one-rank world up in {t_init:.3f} s "
+          f"(init_process_group and a first all-reduce) [{smi}]")
+    res = parallel_cases(seed)
+    # what the port's one-rank collectives leave out: NCCL's own one-rank
+    # all-to-all of a Ulysses operand (8 MB bf16), called directly on the
+    # world's group and on a mesh axis's group
+    from libxsmm_torch.parallel.mesh import make_mesh
+    x8 = torch.zeros(PAR_ATTN, dtype=torch.bfloat16, device="cuda")
+    y8 = torch.empty_like(x8)
+    for label, group in (("the world's group", None),
+                         ("a mesh axis's group",
+                          make_mesh([("sp", 1)]).group("sp"))):
+        t_a2a = events_ms(lambda: dist.all_to_all_single(y8, x8,
+                                                         group=group))
+        print(f"  parallel (a): NCCL's one-rank all_to_all_single of 8 MB "
+              f"on {label}, called directly (the port issues none on one "
+              f"rank): {t_a2a:.4f} ms per call")
+    dist.destroy_process_group()
+    print(f"  parallel (a) launches in the ring and Ulysses: "
+          f"{res['counts']}")
+    print("  parallel (a) checks (normf_rel): " + "; ".join(
+        f"{k} {v:.2e}" for k, v in res["err"].items()))
+    for name, rep in res["reports"].items():
+        print(f"  parallel (a) {name} overlap_report: {rep}")
+    for name, losses in res["losses"].items():
+        print(f"  parallel (a) {name} losses: "
+              + ", ".join(f"{v:.6f}" for v in losses))
+    bh, s, hd = PAR_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ops = [torch.randn(*sh, generator=gen, device="cuda").to(torch.bfloat16)
+           for sh in ((bh, s, hd), (bh, hd, s), (bh, s, hd))]
+    alone = {}
+    for causal in (False, True):
+        k = KA.build_flash_attention(bh, s, hd, torch.bfloat16,
+                                     causal=causal)
+        alone[causal] = events_ms(lambda: k(0, *ops))
+        print(f"  flash alone bf16 {PAR_ATTN} causal={causal}: "
+              f"{alone[causal]:.4f} ms per call")
+    for name, t in res["ms"].items():
+        beside = ""
+        for causal in (False, True):
+            if (name.endswith(f"bfloat16 causal={causal} forward")):
+                beside = (f" ({t / alone[causal]:.2f}x flash alone, "
+                          f"{t - alone[causal]:.4f} ms of ring machinery)")
+        print(f"  parallel (a) {name}: {t:.4f} ms per call{beside}")
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, PAR_WORLD, (seed,), device_type="cuda",
+                      backend="gloo", timeout=600.0)
+    print(f"  parallel (b): {PAR_WORLD} gloo ranks on one card in "
+          f"{time.perf_counter() - t0:.2f} s; launches by rank "
+          + "; ".join(f"{r['rank']}: {r['counts']}" for r in ranks))
+    print("  parallel (b) worst check by case (normf_rel over the ranks): "
+          + "; ".join(f"{k} {max(r['err'][k] for r in ranks):.2e}"
+                      for k in ranks[0]["err"]))
+    for name, rep in ranks[0]["reports"].items():
+        print(f"  parallel (b) rank 0 {name} overlap_report: {rep}")
+    for name, losses in ranks[0]["losses"].items():
+        print(f"  parallel (b) {name} losses: "
+              + ", ".join(f"{v:.6f}" for v in losses))
+    for name in ranks[0]["ms"]:
+        print(f"  parallel (b) {name}: "
+              f"{max(r['ms'][name] for r in ranks):.4f} ms per call, the "
+              f"slowest rank (gloo, staged, not scaling)")
+    print(f"parallel path: {time.perf_counter() - t_path:.2f} s [{smi}]")
+    return res["counts"]
+
+
 def labs_path(randn, headline):
     """The labs, with the five twin and probe kernels' launch counts set to
     0 just before and read just after: the BRGEMM lab (its four variants at
@@ -2582,12 +2960,19 @@ def main() -> int:
     # 11. TPP-MoE at Switch-Base-8's widths, counted on its own
     moe_path(randn, dev, ms)
 
-    # 12. the labs, counted on their own
+    # 12. the parallel layer: a one-rank NCCL world here, counted on its
+    # own (the flash kernels' launches join their rows), then four gloo
+    # ranks on the card
+    par = parallel_path(args.seed, smi)
+    for name in FLASH_KERNELS:
+        counts[name] += par[name]
+
+    # 13. the labs, counted on their own
     labs = labs_path(randn, (K.build_packed_batched_gemm(GemmDescriptor(
         smm, B0), G), (ap, bp)))
     counts.update(labs["counts"])
 
-    # 13. each kernel against its plain version, and timed
+    # 14. each kernel against its plain version, and timed
     rows = []
 
     def record(name, source, replaces, fn, fargs, ref_tol, nbytes, flops,

@@ -37,6 +37,7 @@ class GpuGeometry:
     peak_bf16_tflops: float = 1.0        # tensor cores, bf16/fp16 inputs
     peak_f32_tflops: float = 1.0         # CUDA cores, f32 FMA
     warp: int = 32
+    nvlink_gbps: float = 1.0             # NVLink to the other cards, one way
 
     def bound_ms(self, nbytes: int, flops: int, peak_tflops: float) -> float:
         """Least time for the work: the larger of bytes over the memory
@@ -50,11 +51,13 @@ class GpuGeometry:
         return "bytes" if t_bytes >= t_ops else "operations"
 
 
-# NVIDIA's data sheet for the H100 SXM (dense rates, 700 W power limit).
+# NVIDIA's data sheet for the H100 SXM (dense rates, 700 W power limit;
+# NVLink 900 GB/s to the other cards of the host, 450 GB/s each way).
 GEOMETRY_TABLE = {
     "h100": GpuGeometry("h100", num_sms=132, smem_per_block=232448,
                         l2_bytes=50 * 2**20, hbm_gbps=3350.0,
-                        peak_bf16_tflops=989.0, peak_f32_tflops=67.0),
+                        peak_bf16_tflops=989.0, peak_f32_tflops=67.0,
+                        nvlink_gbps=450.0),
     # the CPU runs the plain torch versions; no rates are promised
     "cpu": GpuGeometry("cpu"),
 }

@@ -81,7 +81,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "tests" / "torch_parallel_ranks.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
@@ -174,3 +175,48 @@ def test_chip_smoke_fails_without_gpu(where, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _ranks():
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:
+        import torch_parallel_ranks
+    finally:
+        sys.path.pop(0)
+    from libxsmm_torch.scripts.ranks import run_ranks
+    return torch_parallel_ranks, run_ranks
+
+
+def test_spawned_ranks_leave_jax_out():
+    """A rank of the launcher (scripts/ranks.py) imports the rank functions'
+    module and the port afresh, and no JAX: this process has JAX loaded."""
+    R, run_ranks = _ranks()
+    assert run_ranks(R.world_modules, 2, timeout=120.0) == [[], []]
+
+
+def test_hanging_rank_is_killed_at_the_timeout(tmp_path):
+    """A world whose ranks outlive the launcher's timeout raises
+    TimeoutError (the test fails, not the session), and every rank process
+    is gone afterwards."""
+    import time
+    R, run_ranks = _ranks()
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="ranks killed"):
+        run_ranks(R.world_hang, 2, (600, str(tmp_path)), timeout=30.0)
+    assert time.monotonic() - t0 < 60.0
+    pids = [int(p.read_text()) for p in sorted(tmp_path.glob("*.pid"))]
+    assert len(pids) == 2
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+
+
+def test_failing_rank_ends_the_world():
+    """One rank's exception ends the world at once (the other, waiting in a
+    collective, is killed) and raises with the failing rank's stderr."""
+    import time
+    R, run_ranks = _ranks()
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 gives up"):
+        run_ranks(R.world_fail, 2, timeout=120.0)
+    assert time.monotonic() - t0 < 60.0
