@@ -167,7 +167,29 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     kernels to have launched in it. Prints NCCL's init time, (a)'s time
     per call beside flash alone at the same shape, the overlap reports and
     (b)'s times, labelled as staged and no scaling figure; (a)'s flash
-    launches join the flash rows' counts;
+    launches join the flash rows' counts. Then, in the same two worlds,
+    phase 13, the sharded models (make_sharded_train_step of each model
+    on libxsmm_torch.parallel), each rank's loss and parameter blocks held
+    against the single-device train step on the card from the same seed
+    (bf16 1e-2 and updates 5e-2, f32 1e-5 and updates 1e-4): the TPP
+    encoder block at BERT-base widths (d 768, 12 heads, FFN 3072), 8 x 512
+    bf16, flash, dropout 0.1, on dp 2 x tp 2 ((a): 1 x 1), with the flash
+    forward, dK/dV, dQ and dropout counts set to 0 just before its step and
+    required to have moved just after, and its logged bytes equal to
+    encoder_comm_bytes_per_device; TPP-MLP at MlpConfig()'s widths in f32
+    and bf16 (dp 2 x tp 2), TPP-CNN at the GEMM-ext path's model (dp 4),
+    TPP-GCN at Cora's widths (sp 4), TPP-MoE at Switch-Base-8 in bf16
+    (einsum on dp 2 x ep 2; a2a on ep 4 against its single-device
+    emulation, its all-to-all bytes against moe_a2a_comm_bytes_per_device;
+    pick_moe_variant's pick), all on torch ops (no launch count may move);
+    in (a) also the kernels in a block: the dropout's four dp 2 x tp 2
+    blocks of the FFN's (4096, 3072) bf16 layer bit for bit against its
+    plain version and together the whole mask, flash forward and backward
+    with a head map against their plain versions and, bit for bit, the
+    whole tensor's kernels cut to the block. Prints each step's time by
+    CUDA events, (a)'s beside the single-device step, (b)'s labelled
+    staged, not scaling; the encoder's flash and dropout launches join
+    their rows' counts;
 13. runs the labs the same way, with the five twin and probe kernels'
     counts set to 0 just before: libxsmm_torch.scripts.brgemm_lab (the
     packed BRGEMM's four variants at br = 1024, 256 x 256 x 64 bf16, each
@@ -202,9 +224,12 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     own panel and RHS), the staging plan and the lab's paired t /
     t(union4); the dropout row carries its byte, packed and mask-less
     forms and F.dropout, each by events, replay and the host's own time per
-    call (minimal's row and its torch.mm that too); these two rows leave
-    out the profiler's device time, which read minimal at under half its
-    replayed time and the dropout below its bytes bound; for the six
+    call (minimal's row and its torch.mm that too), and its form on a block
+    of a global tensor (block_ms); the flash rows their forms with dropout
+    0.1 without and with a head map (drop_ms, head_map_ms); minimal's and
+    the dropout's rows leave out the profiler's device time, which read
+    minimal at under half its replayed time and the dropout below its
+    bytes bound; for the six
     tensor-core rows
     (flash forward, the
     flash backward's dK/dV and dQ, the scheduled, union and supertile
@@ -221,6 +246,7 @@ device it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import sys
@@ -1095,15 +1121,8 @@ def sparse_layer_path(randn, dev, ms):
     # nodes, 1433 features, hidden 16, 7 classes, two layers) on a seeded
     # random symmetric graph with Cora's 5278 undirected edges; synthetic
     # features and labels
-    nodes, edges = 2708, 5278
-    pairs = set()
-    while len(pairs) < edges:
-        i, j = (int(x) for x in rng.integers(0, nodes, 2))
-        if i != j:
-            pairs.add((min(i, j), max(i, j)))
-    adj = np.zeros((nodes, nodes), np.float32)
-    ij = np.asarray(sorted(pairs))
-    adj[ij[:, 0], ij[:, 1]] = adj[ij[:, 1], ij[:, 0]] = 1.0
+    nodes, edges = CORA
+    adj = _cora_adjacency(rng)
     bsr = TG.normalize_adjacency(adj, 4)
     plan = TG._bsr_plan(bsr, dev)
     nbr = nodes // 4
@@ -1141,6 +1160,25 @@ def sparse_layer_path(randn, dev, ms):
     print(f"sparse layer path: {len(phases)} phases in "
           f"{time.perf_counter() - t_path:.2f} s, kernel launches {counts}")
     return {"phases": phases}
+
+
+CORA = (2708, 5278)     # Cora's nodes and undirected edges
+
+
+def _cora_adjacency(rng):
+    """A seeded random symmetric graph with Cora's nodes and edges (Kipf
+    & Welling 2017), dense f32."""
+    import numpy as np
+    nodes, edges = CORA
+    pairs = set()
+    while len(pairs) < edges:
+        i, j = (int(x) for x in rng.integers(0, nodes, 2))
+        if i != j:
+            pairs.add((min(i, j), max(i, j)))
+    adj = np.zeros((nodes, nodes), np.float32)
+    ij = np.asarray(sorted(pairs))
+    adj[ij[:, 0], ij[:, 1]] = adj[ij[:, 1], ij[:, 0]] = 1.0
+    return adj
 
 
 def _bytes_equal(name, want, got):
@@ -2234,11 +2272,448 @@ def parallel_cases(seed, reps=20, rounds=3):
     return res
 
 
+# phase 13, the sharded models at full width, each against the port's
+# single-device step on the same card from the same seed: the TPP paper's
+# encoder block at BERT-base widths (Devlin et al. 2018: d 768, 12 heads of
+# 64, FFN 3072), 8 x 512 tokens, bf16, flash, dropout 0.1; TPP-MLP at
+# MlpConfig()'s widths (batch 512) in f32 and bf16; TPP-CNN at the GEMM-ext
+# path's model (EXT_SHAPES["cnn"]: batch 32, 56 x 56 x 64, two 3x3 convs);
+# TPP-GCN at Cora's widths (1433-16-7) on the seeded graph, 1 x 1 blocks so
+# its 2708 rows split over 4; TPP-MoE at Switch-Base-8 (d 768, FFN 3072, 8
+# experts, capacity 1.25, ReLU), 8 x 512 tokens, bf16
+SH_ENC = (768, 12, 4, 8, 512)   # dim, heads, ffn_mult, batch, seq
+SH_LR = 0.1                     # updates visible in bf16 weights
+SH_MLP_BATCH = 512
+SH_MOE = (768, 3072, 8, 1.25, 8 * 512)
+SHARD_KERNELS = FLASH_KERNELS + ("dropout",)
+TOL_SHARD_F32 = 1e-5   # f32 sharded step against the single-device step:
+                       # the tp and dp sums add f32 partials in another order
+TOL_SHARD_UPD = 1e-4   # f32 updates (new - old) against the single-device
+                       # step's, relative over all blocks: the gradients
+                       # differ by the sums' order alone
+
+
+def _sh_hold(res, tag, mesh, specs, new, loss, want_new, want_loss, old,
+             tol, tol_upd):
+    """Hold a sharded step against the single-device one: the loss and
+    each parameter block within `tol` (matdiff), and the update (new -
+    old) over all blocks together within `tol_upd` of the single-device
+    step's, as ||got - want|| / ||want||, with no absolute escape (an
+    update is small beside its weight). tol_upd None records the update's
+    error and holds it to nothing: a bf16 weight rounds its update to a
+    few ulps, and a partial sum's order moves some by one."""
+    from libxsmm_torch.parallel import spmd
+    shards = spmd.shardings(mesh, specs)
+    got = spmd._items(spmd.local_tree(new, shards))
+    want = dict(spmd._items(spmd.local_tree(want_new, shards)))
+    before = dict(spmd._items(spmd.local_tree(old, shards)))
+    res["err"][f"{tag} loss"] = _check(f"{tag} loss", want_loss.reshape(1),
+                                       loss.reshape(1), tol)
+    worst, diff, norm = 0.0, 0.0, 0.0
+    for path, g in got:
+        name = f"{tag} {'.'.join(map(str, path))}"
+        worst = max(worst, _check(name, want[path], g, tol))
+        upd_w = want[path].double() - before[path].double()
+        upd_g = g.double() - before[path].double()
+        diff += float(((upd_g - upd_w) ** 2).sum())
+        norm += float((upd_w ** 2).sum())
+    rel = (diff / norm) ** 0.5 if norm else 0.0
+    if tol_upd is not None and not rel <= tol_upd:
+        raise AssertionError(f"{tag}: the update differs from the "
+                             f"single-device step's by {rel:.3e} (> "
+                             f"{tol_upd})")
+    res["err"][f"{tag} params"] = worst
+    res["err"][f"{tag} updates"] = rel
+
+
+def _sh_encoder(res, randn, world, dev, seed):
+    """The encoder block's sharded step (dp 2 x tp 2 in a world of 4, dp 1
+    x tp 1 in one): the launch counts of the flash kernels and the dropout
+    set to 0 just before it and read just after; the loss and this rank's
+    parameter blocks against the single-device train_step; the logged
+    bytes against encoder_comm_bytes_per_device. Returns the timed calls."""
+    from libxsmm_torch.models import tpp_attention as TA
+    from libxsmm_torch.parallel import collectives as C
+    from libxsmm_torch.parallel.mesh import make_mesh
+
+    d, nh, mult, b, s = SH_ENC
+    dp, tp = (2, 2) if world == 4 else (1, 1)
+    mesh = make_mesh([("dp", dp), ("tp", tp)])
+    cfg = TA.AttentionConfig(dim=d, heads=nh, ffn_mult=mult, dropout_p=0.1,
+                             dtype="bfloat16", flash=True)
+    params = TA.init_params(cfg, seed=seed, device=dev)
+    x = randn(b, s, d).to(torch.bfloat16)
+    y = randn(b, s, d, scale=0.1).to(torch.bfloat16)
+    step, _ = TA.make_sharded_train_step(cfg, mesh, lr=SH_LR, seed=seed)
+    sharded = TA.shard_params(params, mesh)
+    _reset_all_launches()
+    C.reset_log()
+    new, loss = step(sharded, x, y)
+    torch.cuda.synchronize()
+    res["counts"] = {k: _count(k) for k in SHARD_KERNELS}
+    missing = [k for k, c in res["counts"].items() if c == 0]
+    if missing:
+        raise AssertionError(f"rank {res['rank']}: {missing} not launched "
+                             f"in the sharded encoder step")
+    model = TA.encoder_comm_bytes_per_device(cfg, b, s, dp, tp)
+    if C.logged_bytes() != model:
+        raise AssertionError(f"encoder dp {dp} x tp {tp}: logged "
+                             f"{C.logged_bytes()} B, model {model} B")
+    res["bytes"]["encoder"] = model
+    want_new, want_loss = TA.train_step(params, x, y, cfg, lr=SH_LR,
+                                        seed=seed)
+    tag = f"encoder dp {dp} x tp {tp}"
+    _sh_hold(res, tag, mesh, TA._PARAM_SPECS, new, loss, want_new,
+             want_loss, params, TOL_BF16_OUT, None)
+    res["losses"][tag] = (float(loss), float(want_loss))
+    calls = [(f"{tag} step", step, (sharded, x, y)),
+             ("encoder single-device step",
+              lambda *a: TA.train_step(*a, cfg, lr=SH_LR, seed=seed),
+              (params, x, y))]
+    # the same step in f32 (the f32 flash kernels), where the update is
+    # held to the single-device step's: bf16 weights round it away
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = TA.init_params(cfg32, seed=seed, device=dev)
+    x32, y32 = x.float(), y.float()
+    step32, _ = TA.make_sharded_train_step(cfg32, mesh, lr=SH_LR, seed=seed)
+    new, loss = step32(TA.shard_params(p32, mesh), x32, y32)
+    want_new, want_loss = TA.train_step(p32, x32, y32, cfg32, lr=SH_LR,
+                                        seed=seed)
+    _sh_hold(res, f"{tag} f32", mesh, TA._PARAM_SPECS, new, loss, want_new,
+             want_loss, p32, TOL_SHARD_F32, TOL_SHARD_UPD)
+    return calls
+
+
+def _sh_models(res, randn, world, dev, seed):
+    """TPP-MLP (dp 2 x tp 2), TPP-CNN (dp 4) and TPP-GCN (sp 4), or one
+    rank of each: each sharded step against its single-device step.
+    Returns the timed calls."""
+    import numpy as np
+
+    from libxsmm_torch.models import tpp_cnn as TC
+    from libxsmm_torch.models import tpp_gcn as TG
+    from libxsmm_torch.models import tpp_mlp as TM
+    from libxsmm_torch.parallel.mesh import P, make_mesh
+
+    calls = []
+    two = 2 if world == 4 else 1
+    mesh = make_mesh([("dp", two), ("tp", two)])
+    for dtype, tol, tol_u in (("float32", TOL_SHARD_F32, TOL_SHARD_UPD),
+                              ("bfloat16", TOL_BF16_OUT, None)):
+        cfg = TM.MlpConfig(dtype=dtype)
+        dt = getattr(torch, dtype)
+        params = TM.init_params(cfg, seed=seed, device=dev)
+        x = randn(SH_MLP_BATCH, cfg.in_dim).to(dt)
+        y = randn(SH_MLP_BATCH, cfg.out_dim, scale=0.1).to(dt)
+        step, _ = TM.make_sharded_train_step(cfg, mesh, lr=SH_LR)
+        sharded = TM.shard_params(params, mesh)
+        new, loss = step(sharded, x, y)
+        want_new, want_loss = TM.train_step(params, x, y, cfg, lr=SH_LR)
+        tag = f"mlp {dtype} dp {two} x tp {two}"
+        _sh_hold(res, tag, mesh, TM._specs(len(params)), new, loss,
+                 want_new, want_loss, params, tol, tol_u)
+        calls.append((f"{tag} step", step, (sharded, x, y)))
+
+    n, h, w, c, k, r = EXT_SHAPES["cnn"]
+    cfg = TC.CnnConfig(height=h, width=w, channels=c,
+                       filters=((r, k), (r, k)), strides=(1, 2),
+                       classes=1000)
+    mesh = make_mesh([("dp", world)])
+    params = TC.init_params(cfg, seed=seed, device=dev)
+    x = randn(n, h, w, c)
+    labels = torch.randint(0, 1000, (n,), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed))
+    step, _ = TC.make_sharded_train_step(cfg, mesh, lr=CNN_LR)
+    new, loss = step(params, x, labels)
+    want_new, want_loss = TC.train_step(params, x, labels, cfg, lr=CNN_LR)
+    tag = f"cnn dp {world}"
+    specs = [{"w": P(None), "b": P(None)} for _ in params]
+    _sh_hold(res, tag, mesh, specs, new, loss, want_new, want_loss, params,
+             TOL_SHARD_F32, TOL_SHARD_UPD)
+    calls.append((f"{tag} step", step, (params, x, labels)))
+
+    rng = np.random.default_rng(seed)
+    nodes = CORA[0]
+    bsr = TG.normalize_adjacency(_cora_adjacency(rng), 1)
+    plan = TG._bsr_plan(bsr, dev)
+    cfg = TG.GcnConfig(in_dim=1433, hidden=(16,), out_dim=7)
+    mesh = make_mesh([("sp", world)])
+    params = TG.init_params(cfg, seed=seed, device=dev)
+    hx = randn(nodes, 1433)
+    labels = torch.as_tensor(rng.integers(0, 7, nodes), device=dev)
+    step, _, _ = TG.make_sharded_train_step(cfg, mesh, plan, nodes, 1e-2)
+    new, loss = step(params, hx, labels)
+    want_new, want_loss = TG.train_step(params, plan, nodes, hx, labels, cfg,
+                                        1e-2)
+    tag = f"gcn sp {world}"
+    specs = [{"w": P(None), "b": P(None)} for _ in params]
+    _sh_hold(res, tag, mesh, specs, new, loss, want_new, want_loss, params,
+             TOL_SHARD_F32, TOL_SHARD_UPD)
+    calls.append((f"{tag} step", step, (params, hx, labels)))
+    return calls
+
+
+def _a2a_emulated_step(MOE, params, x, y, cfg, shards, lr):
+    """The a2a step's semantics on one device: each of `shards` token
+    blocks routed alone (its local capacity, MOE.forward on its tokens),
+    the squared error over the global batch plus the mean of the blocks'
+    aux, one SGD step."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        mse, aux = 0.0, 0.0
+        for xs, ys in zip(x.chunk(shards), y.chunk(shards)):
+            pred, a = MOE.forward(leaves, xs, cfg)
+            mse = mse + torch.sum((pred.float() - ys.float()) ** 2)
+            aux = aux + a
+        loss = mse / (x.shape[0] * cfg.dim) + cfg.aux_loss_weight * aux \
+            / shards
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    with torch.no_grad():
+        new = {k: (params[k] - lr * g).to(params[k].dtype)
+               for k, g in zip(leaves, grads)}
+    return new, loss.detach()
+
+
+def _sh_moe(res, randn, world, dev, seed):
+    """TPP-MoE at Switch-Base-8 in bf16: the einsum variant on dp 2 x ep 2
+    against the unsharded train_step, the a2a variant on ep 4 (forward
+    against the unsharded forward on each rank's tokens, the step against
+    its single-device emulation), and pick_moe_variant's pick (or one rank
+    of each). Returns the timed calls."""
+    from libxsmm_torch.descriptor import UnaryType
+    from libxsmm_torch.models import tpp_moe as MOE
+    from libxsmm_torch.parallel import collectives as C
+    from libxsmm_torch.parallel.mesh import make_mesh
+
+    d, ffn, experts, cf, tokens = SH_MOE
+    cfg = MOE.MoeConfig(dim=d, hidden=ffn, n_experts=experts,
+                        capacity_factor=cf, activation=UnaryType.RELU,
+                        dtype="bfloat16")
+    params = MOE.init_params(cfg, seed=seed, device=dev)
+    x = randn(tokens, d).to(torch.bfloat16)
+    y = randn(tokens, d, scale=0.1).to(torch.bfloat16)
+    calls = []
+    two = 2 if world == 4 else 1
+    mesh = make_mesh([("dp", two), ("ep", two)])
+    step, _ = MOE.make_sharded_train_step(cfg, mesh, lr=SH_LR)
+    sharded = MOE.shard_params(params, mesh)
+    new, loss = step(sharded, x, y)
+    want_new, want_loss = MOE.train_step(params, x, y, cfg, lr=SH_LR)
+    tag = f"moe einsum dp {two} x ep {two}"
+    _sh_hold(res, tag, mesh, MOE._param_specs("ep"), new, loss, want_new,
+             want_loss, params, TOL_BF16_OUT, None)
+    calls.append((f"{tag} step", step, (sharded, x, y)))
+
+    mesh = make_mesh([("ep", world)])
+    sharded = MOE.shard_params(params, mesh)
+    C.reset_log()
+    ya2a, aux = MOE.forward_a2a(sharded, x, cfg, mesh)
+    idx = mesh.index("ep")
+    mine = x.chunk(world)[idx]
+    want_y, _ = MOE.forward(params, mine, cfg)
+    tag = f"moe a2a ep {world}"
+    res["err"][f"{tag} forward"] = _check(f"{tag} forward", want_y,
+                                          ya2a.to_local(), TOL_BF16_OUT)
+    model = MOE.moe_a2a_comm_bytes_per_device(cfg, tokens // world, world)
+    got = C.logged_bytes("all_to_all")
+    if got != model:
+        raise AssertionError(f"{tag}: logged {got} B of all-to-alls, model "
+                             f"{model} B")
+    res["bytes"]["moe a2a"] = model
+    step, _ = MOE.make_sharded_train_step(cfg, mesh, dp_axis=None,
+                                          lr=SH_LR, variant="a2a")
+    new, loss = step(sharded, x, y)
+    want_new, want_loss = _a2a_emulated_step(MOE, params, x, y, cfg, world,
+                                             SH_LR)
+    _sh_hold(res, tag, mesh, MOE._param_specs("ep"), new, loss, want_new,
+             want_loss, params, TOL_BF16_OUT, None)
+    calls.append((f"{tag} step", step, (sharded, x, y)))
+    calls.append(("moe single-device step",
+                  lambda *a: MOE.train_step(*a, cfg, lr=SH_LR),
+                  (params, x, y)))
+    pick = MOE.pick_moe_variant(cfg, make_mesh([("dp", two), ("ep", two)]),
+                                tokens)
+    res["pick"] = pick
+    return calls
+
+
+def sharded_cases(seed, reps=5, rounds=2):
+    """Phase 13 in this process's world (a one-rank NCCL world, or a rank
+    of the gloo world on the card): the encoder block's sharded step, with
+    the flash forward, dK/dV, dQ and dropout launch counts set to 0 just
+    before and read just after, then TPP-MLP, TPP-CNN, TPP-GCN and TPP-MoE
+    (torch ops: no launch count may move), each rank's loss and parameter
+    blocks held against the single-device step on the card, logged bytes
+    against their analytic counts; then each step timed (CUDA events, the
+    best of `rounds` windows of `reps` calls; every rank makes the same
+    calls). Any failure raises."""
+    import torch.distributed as dist
+
+    from libxsmm_torch.scripts.timing import events_ms
+
+    world = dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    res = {"rank": dist.get_rank(), "world": world, "err": {}, "bytes": {},
+           "losses": {}, "ms": {}}
+    calls = _sh_encoder(res, randn, world, dev, seed)
+    _reset_all_launches()
+    calls += _sh_models(res, randn, world, dev, seed)
+    calls += _sh_moe(res, randn, world, dev, seed)
+    torch.cuda.synchronize()
+    moved = {k: v for k, v in _all_launches().items() if v}
+    if moved:
+        raise AssertionError(f"launch counts moved in the torch-op models: "
+                             f"{moved}")
+    for name, fn, fargs in calls:
+        res["ms"][name] = events_ms(lambda: fn(*fargs), reps, rounds)
+    return res
+
+
+def sharded_kernels(seed, smi):
+    """The kernels of phase 13 in a block, on the card: the dropout on each
+    of the four (dp 2 x tp 2) blocks of the FFN's (8 * 512, 3072) bf16
+    hidden layer, bit for bit against its plain version, the four masks put
+    together against the whole tensor's; flash forward and backward with
+    the head map of rank (dp 1, tp 1)'s block of 8 x 12 heads at s 512, hd
+    64, dropout 0.1, against their plain versions and, bit for bit, the
+    whole tensor's kernels cut to the block's heads."""
+    from libxsmm_torch.kernels import attention as KA
+    from libxsmm_torch.kernels import eltwise as KE
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    d, nh, mult, b, s = SH_ENC
+    rows, cols = b * s, mult * d
+    full = randn(rows, cols).to(torch.bfloat16)
+    _, whole = KE.dropout(full, 8, 0.1)
+    grid = []
+    for i in range(2):
+        for j in range(2):
+            off = (i * rows // 2, j * cols // 2)
+            blk = full[off[0]:off[0] + rows // 2,
+                       off[1]:off[1] + cols // 2].contiguous()
+            block = ((rows, cols), off)
+            got = KE.dropout(blk, 8, 0.1, block=block)
+            _check(f"dropout block {off} kernel vs plain",
+                   KE.dropout.plain(blk, 8, 0.1, block=block), got,
+                   TOL_EXACT)
+            grid.append(got[1])
+    together = torch.cat([torch.cat(grid[:2], 1), torch.cat(grid[2:], 1)])
+    if not torch.equal(together, whole):
+        raise AssertionError("the four blocks' masks are not the whole mask")
+    hd = d // nh
+    q, kT, v, dout = (randn(*sh).to(torch.bfloat16) for sh in (
+        (b * nh, s, hd), (b * nh, hd, s), (b * nh, s, hd), (b * nh, s, hd)))
+    bl, nhl = b // 2, nh // 2
+    idx = torch.tensor([(bl + i) * nh + nhl + h for i in range(bl)
+                        for h in range(nhl)], device=q.device)
+    hm = (bl, nhl, nhl, nh)
+    kw = dict(dropout_p=0.1)
+    fwd = KA.build_flash_attention(bl * nhl, s, hd, torch.bfloat16,
+                                   return_lse=True, head_map=hm, **kw)
+    ops = [t[idx].contiguous() for t in (q, kT, v)]
+    out, lse = fwd(9, *ops)
+    _check("flash head map vs plain", fwd.plain(9, *ops), (out, lse),
+           TOL_BF16_OUT)
+    whole_fwd = KA.build_flash_attention(b * nh, s, hd, torch.bfloat16,
+                                         return_lse=True, **kw)
+    w_out, w_lse = whole_fwd(9, q, kT, v)
+    if not (torch.equal(out, w_out[idx]) and torch.equal(lse, w_lse[idx])):
+        raise AssertionError("flash with a head map is not the whole "
+                             "tensor's flash cut to the block")
+    dl = dout[idx].contiguous()
+    delta = (dl.float() * out.float()).sum(-1, keepdim=True).expand(
+        bl * nhl, s, 128)
+    bwd = KA.build_flash_attention_bwd(bl * nhl, s, hd, torch.bfloat16,
+                                       head_map=hm, **kw)
+    got = bwd(9, *ops, dl, lse, delta)
+    _check("flash bwd head map vs plain", bwd.plain(9, *ops, dl, lse, delta),
+           got, TOL_BF16_OUT)
+    w_delta = (dout.float() * w_out.float()).sum(-1, keepdim=True).expand(
+        b * nh, s, 128)
+    w_bwd = KA.build_flash_attention_bwd(b * nh, s, hd, torch.bfloat16, **kw)
+    for g, w in zip(got, w_bwd(9, q, kT, v, dout, w_lse, w_delta)):
+        if not torch.equal(g, w[idx]):
+            raise AssertionError("the flash backward with a head map is not "
+                                 "the whole tensor's cut to the block")
+    print(f"  sharded kernels: the dropout's four (dp 2 x tp 2) blocks of "
+          f"({rows}, {cols}) bf16 bit-exact against their plain version and "
+          f"together the whole mask; flash forward and backward with head "
+          f"map {hm} at bh {bl * nhl}, s {s}, hd {hd}, dropout 0.1, within "
+          f"{TOL_BF16_OUT} of their plain versions and bit for bit the "
+          f"whole tensor's kernels cut to the block [{smi}]")
+
+
+def global_position_forms(rows, ms, KA, KE, fq, fkT, fv, bargs, dx):
+    """The dropout's and the flash kernels' rows beside their forms that
+    hash global positions (phase 13's): the dropout on the same (4096,
+    3072) bf16 x as the lower block of an (8192, 3072) tensor (block_ms,
+    replayed block_graph_ms, block_host_ms); flash forward, dK/dV and dQ at
+    the row's shape with dropout 0.1, without a head map (drop_ms) and
+    with the head map (1, 4, 8, 16) (head_map_ms). Each form is held
+    against its plain version first."""
+    row = {r["name"]: r for r in rows}
+    block = ((2 * dx.shape[0], dx.shape[1]), (dx.shape[0], 0))
+
+    def blocked(t):
+        return KE.dropout(t, 7, 0.1, block=block)
+
+    _check("dropout block kernel vs plain",
+           KE.dropout.plain(dx, 7, 0.1, block=block), blocked(dx), TOL_EXACT)
+    row["dropout"].update(block_ms=ms(blocked, dx),
+                          block_graph_ms=graph_ms(lambda: blocked(dx)),
+                          block_host_ms=host_ms(lambda: blocked(dx)))
+    bh, s, hd = fq.shape
+    hm = (1, 4, 8, 16)
+    for key, head_map in (("drop_ms", None), ("head_map_ms", hm)):
+        fwd = KA.build_flash_attention(bh, s, hd, torch.bfloat16,
+                                       dropout_p=0.1, head_map=head_map)
+        _check(f"flash {key} kernel vs plain", fwd.plain(3, fq, fkT, fv),
+               fwd(3, fq, fkT, fv), TOL_BF16_OUT)
+        row["flash_attention_fwd"][key] = ms(fwd, 3, fq, fkT, fv)
+        bwd = KA.build_flash_attention_bwd(bh, s, hd, torch.bfloat16,
+                                           dropout_p=0.1, head_map=head_map)
+        ops = (3,) + tuple(bargs[1:])
+        _check(f"flash bwd {key} kernel vs plain", bwd.plain(*ops),
+               bwd(*ops), TOL_BF16_OUT)
+        row["flash_attention_bwd_dkv"][key] = ms(bwd.dkv, *ops)
+        row["flash_attention_bwd_dq"][key] = ms(bwd.dq, *ops)
+    r = row["dropout"]
+    print(f"  global-position forms: dropout block {r['block_ms']:.4f} / "
+          f"{r['block_graph_ms']:.4f} / {r['block_host_ms']:.4f} ms (events "
+          f"/ replayed / host) beside bytes {r['ms']:.4f} / "
+          f"{r['graph_ms']:.4f} / {r['host_ms']:.4f}; flash at dropout 0.1 "
+          f"without / with head map {hm}: " + "; ".join(
+              f"{n} {row[n]['drop_ms']:.4f} / {row[n]['head_map_ms']:.4f}"
+              for n in FLASH_KERNELS))
+
+
+def _sh_print(res, label):
+    """Print phase 13's checks, bytes and times for one world."""
+    print(f"  sharded ({label}) checks (normf_rel): " + "; ".join(
+        f"{k} {v:.2e}" for k, v in res["err"].items()))
+    print(f"  sharded ({label}) logged bytes a rank: {res['bytes']}; "
+          f"losses (sharded, single device): {res['losses']}; "
+          f"pick_moe_variant: {res['pick']}")
+
+
 def parallel_rank(seed):
-    """One rank of the gloo world on the card (run by run_ranks)."""
+    """One rank of the gloo world on the card (run by run_ranks): phase
+    12's cases, then phase 13's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return parallel_cases(seed, reps=5, rounds=2)
+    res = parallel_cases(seed, reps=5, rounds=2)
+    res["sharded"] = sharded_cases(seed, reps=3, rounds=2)
+    return res
 
 
 def parallel_path(seed, smi):
@@ -2280,6 +2755,9 @@ def parallel_path(seed, smi):
         print(f"  parallel (a): NCCL's one-rank all_to_all_single of 8 MB "
               f"on {label}, called directly (the port issues none on one "
               f"rank): {t_a2a:.4f} ms per call")
+    # phase 13 in the same one-rank world
+    t_sh = time.perf_counter()
+    sh = sharded_cases(seed)
     dist.destroy_process_group()
     print(f"  parallel (a) launches in the ring and Ulysses: "
           f"{res['counts']}")
@@ -2328,7 +2806,42 @@ def parallel_path(seed, smi):
               f"{max(r['ms'][name] for r in ranks):.4f} ms per call, the "
               f"slowest rank (gloo, staged, not scaling)")
     print(f"parallel path: {time.perf_counter() - t_path:.2f} s [{smi}]")
-    return res["counts"]
+
+    # phase 13: the sharded models, (a) in the one-rank NCCL world above,
+    # (b) in the four gloo ranks
+    print(f"sharded models (a), one-rank NCCL world: launches in the "
+          f"encoder's sharded step {sh['counts']} [{smi}]")
+    _sh_print(sh, "a")
+    single = {"encoder": sh["ms"]["encoder single-device step"],
+              "moe": sh["ms"]["moe single-device step"]}
+    for name, t in sh["ms"].items():
+        if "single-device" in name:
+            continue
+        base = single["moe" if name.startswith("moe") else "encoder"]
+        beside = (f" ({t / base:.2f}x the single-device step's "
+                  f"{base:.4f} ms)" if name.startswith(("encoder", "moe"))
+                  else "")
+        print(f"  sharded (a) {name}: {t:.4f} ms per step{beside}")
+    print(f"  sharded (a) single-device steps: encoder {single['encoder']:.4f}"
+          f" ms, moe {single['moe']:.4f} ms")
+    sharded_kernels(seed, smi)
+    print(f"  sharded (a): {time.perf_counter() - t_sh:.2f} s")
+    sb = [r["sharded"] for r in ranks]
+    print("sharded models (b), 4 gloo ranks on one card: launches in the "
+          "encoder's sharded step by rank " + "; ".join(
+              f"{r['rank']}: {r['counts']}" for r in sb))
+    print("  sharded (b) worst check by case (normf_rel over the ranks): "
+          + "; ".join(f"{k} {max(r['err'][k] for r in sb):.2e}"
+                      for k in sb[0]["err"]))
+    _sh_print(sb[0], "b, rank 0")
+    for name in sb[0]["ms"]:
+        print(f"  sharded (b) {name}: "
+              f"{max(r['ms'][name] for r in sb):.4f} ms per step, the "
+              f"slowest rank (gloo, staged, not scaling)")
+    counts = dict(res["counts"])
+    for k, v in sh["counts"].items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
 
 
 def labs_path(randn, headline):
@@ -2960,12 +3473,13 @@ def main() -> int:
     # 11. TPP-MoE at Switch-Base-8's widths, counted on its own
     moe_path(randn, dev, ms)
 
-    # 12. the parallel layer: a one-rank NCCL world here, counted on its
-    # own (the flash kernels' launches join their rows), then four gloo
-    # ranks on the card
+    # 12. the parallel layer and 13. the sharded models: a one-rank NCCL
+    # world here, counted on their own (the flash kernels' and, from the
+    # sharded encoder step, the dropout's launches join their rows), then
+    # four gloo ranks on the card
     par = parallel_path(args.seed, smi)
-    for name in FLASH_KERNELS:
-        counts[name] += par[name]
+    for name in SHARD_KERNELS:
+        counts[name] += par.get(name, 0)
 
     # 13. the labs, counted on their own
     labs = labs_path(randn, (K.build_packed_batched_gemm(GemmDescriptor(
@@ -3255,6 +3769,7 @@ def main() -> int:
     t_pair = rows[-2]["ms"] + rows[-1]["ms"]
     print(f"  flash backward dkv + dq {t_pair:.4f} ms; kernels / sdpa "
           f"backward {t_pair / lib_bwd:.3f}")
+    global_position_forms(rows, ms, KA, KE, fq, fkT, fv, bargs, dx)
 
     sparse_rows(record, rows, sp["stream"], sp["small"], ms, geo)
 

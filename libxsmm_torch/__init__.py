@@ -36,8 +36,11 @@ Ported so far:
     (scripts/brgemm_lab.py, scripts/bcsc_lab.py, with the BCSC probe
     kernels of kernels/csrc/spmm_lab_kernels.cu);
   * matrix equations (ops/equation.py, dispatch_meqn: the tree evaluated
-    on torch ops), the TPP-MoE model on one device (models/tpp_moe.py),
-    and the host utilities utils/{mathx,sync,memutil,mtx}.py.
+    on torch ops), the TPP-MoE model (models/tpp_moe.py), and the host
+    utilities utils/{mathx,sync,memutil,mtx}.py;
+  * the parallel layer on torch.distributed (parallel/), and the sharded
+    train steps of the five models on it (parallel/spmd.py, each model's
+    shard_params / make_sharded_train_step).
 The kernels are hand-written CUDA for sm_90a. A kernel follows the device of
 its tensors: CUDA tensors launch the CUDA kernel, CPU tensors run its plain
 torch version. libxsmm_torch never imports jax or libxsmm_tpu.

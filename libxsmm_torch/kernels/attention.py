@@ -14,7 +14,11 @@ tensors it runs `.plain`, the plain torch version of the same function,
 which chip_smoke.py also holds the kernel against on the card.
 `build_flash_attention_bwd(...)` returns a FlashAttentionBwd object that
 works the same way with `(seed, q, kT, v, dout, lse, delta[, bias])`.
-`launches` counts kernel launches, and only those.
+`launches` counts kernel launches, and only those. Both factories take a
+`head_map` (check_head_map): an attention whose batch-heads are a block of
+a larger one (a rank's share of a data- and head-sharded attention)
+hashes each head's global batch-head index, so its dropout mask is its
+block of the whole attention's; without one, the local index is hashed.
 
 The forward and each backward kernel have two CUDA forms: bf16 operands
 run on the tensor cores (mma.sync, f32 accumulators, hd padded to a bucket
@@ -63,7 +67,7 @@ def _kernels() -> ctypes.CDLL:
         P, I, LL, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint)
         lib.xsmm_flash_fwd.argtypes = [P, P, P, P, LL, P, P, I, I, I, I, I,
-                                       F, I, I, U, U, F, P]
+                                       F, I, I, U, U, F, U, U, U, U, P]
         lib.xsmm_flash_fwd.restype = I
         lib.xsmm_error_string.argtypes = [I]
         lib.xsmm_error_string.restype = ctypes.c_char_p
@@ -80,7 +84,7 @@ def _bwd_kernels() -> ctypes.CDLL:
         P, I, LL, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint)
         head = [P, P, P, P, P, P, P, LL]    # q kT v dout lse delta bias stride
-        tail = [I, I, I, I, I, F, I, I, U, U, F, P]
+        tail = [I, I, I, I, I, F, I, I, U, U, F, U, U, U, U, P]
         lib.xsmm_flash_bwd_dkv.argtypes = head + [P, P, P] + tail
         lib.xsmm_flash_bwd_dkv.restype = I
         lib.xsmm_flash_bwd_dq.argtypes = head + [P] + tail
@@ -125,6 +129,34 @@ def _mul32(a, c: int):
     """(a * c) mod 2**32 for a in [0, 2**32) and a constant c < 2**32,
     computed in 16-bit halves so no int64 product overflows."""
     return ((a & 0xFFFF) * c + (((a >> 16) * (c & 0xFFFF)) << 16)) & _M32
+
+
+# the identity head map: the hash reads the local batch-head index
+NO_HEAD_MAP = (0, 0, 1, 1)
+
+
+def check_head_map(head_map, bh: int) -> tuple:
+    """(b0, h0, nh_local, nh_global) of an attention over bh = batches *
+    nh_local local heads that is a block of one over nh_global heads: its
+    local batch-head i hashes global batch-head (b0 + i // nh_local) *
+    nh_global + h0 + i % nh_local (a rank of a sharded attention draws the
+    unsharded attention's dropout bits). None is NO_HEAD_MAP."""
+    if head_map is None:
+        return NO_HEAD_MAP
+    b0, h0, nhl, nhg = (int(v) for v in head_map)
+    if min(b0, h0) < 0 or nhl <= 0 or h0 + nhl > nhg or bh % nhl:
+        raise ValueError(f"head_map {tuple(head_map)}: needs b0, h0 >= 0, "
+                         f"h0 + nh_local <= nh_global and nh_local dividing "
+                         f"bh={bh}")
+    return b0, h0, nhl, nhg
+
+
+def head_index(bh: int, head_map, device) -> torch.Tensor:
+    """The batch-head index the dropout hash reads for each local
+    batch-head, (bh, 1, 1) int64 (check_head_map's mapping)."""
+    b0, h0, nhl, nhg = check_head_map(head_map, bh)
+    i = torch.arange(bh, device=device)
+    return ((b0 + i // nhl) * nhg + h0 + i % nhl)[:, None, None]
 
 
 def _rand_bits(seed, b, row, col):
@@ -272,8 +304,10 @@ class FlashAttention:
 
     def __init__(self, bh: int, s: int, hd: int, dtype: torch.dtype,
                  causal: bool, scale: float, bias_bh: int, dropout_p: float,
-                 return_lse: bool, config: Tuple[int, int]):
+                 return_lse: bool, config: Tuple[int, int],
+                 head_map=None):
         self.bh, self.s, self.hd, self.dtype = bh, s, hd, dtype
+        self.head_map = check_head_map(head_map, bh)
         self.causal = bool(causal)
         self.scale = float(scale)
         self.bias_bh = int(bias_bh)
@@ -323,7 +357,8 @@ class FlashAttention:
                 bh, s, hd, _TYPE_CODE[self.dtype], self.block_k, self.scale,
                 int(self.causal), int(self.thr is not None),
                 int(seed) & _M32 if self.thr is not None else 0,
-                self.thr or 0, self.inv_keep, _stream(q.device))
+                self.thr or 0, self.inv_keep, *self.head_map,
+                _stream(q.device))
         _raise_on_error(err, self.name, lib)
         launches["flash_attention_fwd"] += 1
         return (out, lse) if self.return_lse else out
@@ -347,7 +382,7 @@ class FlashAttention:
         e = torch.exp(scores - m)
         l = e.sum(dim=-1, keepdim=True)
         if self.thr is not None:
-            b = torch.arange(bh, device=q.device)[:, None, None]
+            b = head_index(bh, self.head_map, q.device)
             keep = _rand_bits(int(seed), b, row, col) >= self.thr
             e = torch.where(keep, e * self.inv_keep,
                             torch.zeros((), device=q.device))
@@ -365,7 +400,8 @@ def build_flash_attention(bh: int, s: int, hd: int, dtype: torch.dtype,
                           bias_bh: int = 0,
                           dropout_p: float = 0.0,
                           return_lse: bool = False,
-                          block_override=None) -> FlashAttention:
+                          block_override=None,
+                          head_map=None) -> FlashAttention:
     """Forward kernel factory (attention_pallas.py:159).
 
     Returns fn(seed, q, kT, v[, bias]) -> out or (out, lse) for
@@ -373,7 +409,10 @@ def build_flash_attention(bh: int, s: int, hd: int, dtype: torch.dtype,
     in {0 (none), 1 (broadcast), bh}; lse is (bh, s, 128) f32, the row's
     log-sum-exp in every column. seed is an int (read only when
     dropout_p > 0). block_override=(bq, bk), the reference's TPU tile,
-    picks the largest CUDA tile configuration within it (flash_configs)."""
+    picks the largest CUDA tile configuration within it (flash_configs).
+    head_map=(b0, h0, nh_local, nh_global): the dropout hash reads each
+    local batch-head's global index (check_head_map); None hashes the local
+    index, as before."""
     if not supported(s, hd, dtype):
         raise ValueError(f"unsupported flash shape s={s} hd={hd} {dtype}")
     if not 0.0 <= dropout_p < 1.0:
@@ -382,7 +421,7 @@ def build_flash_attention(bh: int, s: int, hd: int, dtype: torch.dtype,
     return FlashAttention(bh, s, hd, dtype, causal, sc, bias_bh, dropout_p,
                           return_lse,
                           _pick_config(s, flash_configs(hd, dtype),
-                                       block_override))
+                                       block_override), head_map)
 
 
 # ---------------------------------------------------------------------------
@@ -404,8 +443,9 @@ class FlashAttentionBwd:
     def __init__(self, bh: int, s: int, hd: int, dtype: torch.dtype,
                  causal: bool, scale: float, bias_bh: int, dropout_p: float,
                  bias_grad: bool, config: Tuple[int, int],
-                 config_dq: Tuple[int, int]):
+                 config_dq: Tuple[int, int], head_map=None):
         self.bh, self.s, self.hd, self.dtype = bh, s, hd, dtype
+        self.head_map = check_head_map(head_map, bh)
         self.causal = bool(causal)
         self.scale = float(scale)
         self.bias_bh = int(bias_bh)
@@ -456,7 +496,8 @@ class FlashAttentionBwd:
         tail = (bh, s, hd, _TYPE_CODE[self.dtype], bk, self.scale,
                 int(self.causal), int(self.thr is not None),
                 int(seed) & _M32 if self.thr is not None else 0,
-                self.thr or 0, self.inv_keep, _stream(q.device))
+                self.thr or 0, self.inv_keep, *self.head_map,
+                _stream(q.device))
         lib = _bwd_kernels()
         if which == "dkv":
             dkT, dv = torch.empty_like(kT), torch.empty_like(v)
@@ -513,7 +554,7 @@ class FlashAttentionBwd:
         p = torch.exp(scores - lse[..., :1])
         dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
         if self.thr is not None:
-            b = torch.arange(bh, device=dev)[:, None, None]
+            b = head_index(bh, self.head_map, dev)
             keep = _rand_bits(int(seed), b, row, col) >= self.thr
             zero = torch.zeros((), device=dev)
             p_drop = torch.where(keep, p * self.inv_keep, zero)
@@ -555,7 +596,8 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
                               bias_bh: int = 0,
                               dropout_p: float = 0.0,
                               bias_grad: bool = False,
-                              block_override=None) -> FlashAttentionBwd:
+                              block_override=None,
+                              head_map=None) -> FlashAttentionBwd:
     """Backward kernel factory (attention_pallas.py:322).
 
     Returns fn(seed, q, kT, v, dout, lse, delta[, bias]) -> (dq, dkT, dv) or,
@@ -566,7 +608,8 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     chosen independently of the forward's: the dropout mask depends only on
     global coordinates. block_override=(bq, bk), the reference's TPU tile,
     picks for each kernel the largest CUDA tile configuration within it
-    (bwd_configs for `dtype`)."""
+    (bwd_configs for `dtype`). head_map as build_flash_attention's: the
+    mask replayed is the one the forward with that map drew."""
     if not supported(s, hd, dtype):
         raise ValueError(f"unsupported flash shape s={s} hd={hd} {dtype}")
     if not 0.0 <= dropout_p < 1.0:
@@ -577,4 +620,5 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     return FlashAttentionBwd(
         bh, s, hd, dtype, causal, sc, bias_bh, dropout_p, bias_grad,
         _pick_config(s, bwd_configs(hd, "dkv", dtype), block_override),
-        _pick_config(s, bwd_configs(hd, "dq", dtype), block_override))
+        _pick_config(s, bwd_configs(hd, "dq", dtype), block_override),
+        head_map)

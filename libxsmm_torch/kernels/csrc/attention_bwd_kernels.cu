@@ -19,8 +19,9 @@
 //   s    = (q_i . k_j) * scale [+ bias_ij (f32)]   [causal: j > i -> masked]
 //   p    = exp(s - lse_i)          (masked: 0, as exp(f32 min - lse) is)
 //   dp   = dout_i . v_j
-//   dropout: keep = rand_bits(seed, b, i, j) >= thr; p~ = keep ? p/(1-p_drop)
-//            : 0 and dp = keep ? dp/(1-p_drop) : 0; without dropout p~ = p
+//   dropout: keep = rand_bits(seed, hb, i, j) >= thr, hb = b under the
+//            head map (HeadMap); p~ = keep ? p/(1-p_drop) : 0 and
+//            dp = keep ? dp/(1-p_drop) : 0; without dropout p~ = p
 //   ds   = p * (dp - delta_i)      (the UNDROPPED p)
 //   dV_j  += round(p~_ij) dout_i       dK_j += round(ds_ij) q_i
 //   dQ_i  += round(ds_ij) k_j          round(): to the input type
@@ -107,6 +108,7 @@ struct BwdArgs {
   int causal, dropout;
   uint32_t seed, thr;
   float inv_keep;
+  HeadMap hm;           // the hash's head map (xsmm_common.cuh)
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -176,14 +178,15 @@ __device__ __forceinline__ void two_products(
 // p, the dropped p~ and ds of one score element (attention_pallas.py:356-384)
 struct Grad { float p_drop, ds; };
 __device__ __forceinline__ Grad score_grad(const BwdArgs& a, const float* bias_h,
-                                           int b, int row, int col, float sc,
-                                           float dp, float lse, float delta) {
+                                           uint32_t hb, int row, int col,
+                                           float sc, float dp, float lse,
+                                           float delta) {
   float x = sc * a.scale;
   if (bias_h) x += bias_h[(size_t)row * a.s + col];
   const float p = (a.causal && col > row) ? 0.f : expf(x - lse);
   float p_drop = p;
   if (a.dropout) {
-    const bool keep = rand_bits(a.seed, (uint32_t)b, (uint32_t)row,
+    const bool keep = rand_bits(a.seed, hb, (uint32_t)row,
                                 (uint32_t)col) >= a.thr;
     p_drop = keep ? p * a.inv_keep : 0.f;
     dp = keep ? dp * a.inv_keep : 0.f;
@@ -216,6 +219,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const BwdArgs a) {
   const int ty = tid >> 4;
   const int s = a.s, hd = a.hd;
   const int b = blockIdx.x;
+  const uint32_t hb = a.hm(b);    // the hash's batch-head
   const int k0 = blockIdx.y * BK;   // causal: the first tiles have most work
   const size_t head = (size_t)b * s * hd;
   const float* qh = static_cast<const float*>(a.q) + head;
@@ -267,7 +271,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const BwdArgs a) {
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int col = k0 + tx + 16 * c;
-        const Grad gr = score_grad(a, bias_h, b, row, col, sc[r][c],
+        const Grad gr = score_grad(a, bias_h, hb, row, col, sc[r][c],
                                    dp[r][c], lse_r[r], del_r[r]);
         if (dbias_h) dbias_h[(size_t)row * s + col] = gr.ds;
         p_s[(ty * 4 + r) * PS + tx + 16 * c] = gr.p_drop;
@@ -353,6 +357,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const BwdArgs a) {
   // causal: the bottom tiles have the most K steps; start them first
   const int qi = a.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
   const int b = blockIdx.x;
+  const uint32_t hb = a.hm(b);    // the hash's batch-head
   const int q0 = qi * BQ;
   const size_t head = (size_t)b * s * hd;
   const float* kh = static_cast<const float*>(a.kT) + head;
@@ -397,7 +402,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const BwdArgs a) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = q0 + ty * 4 + r;
-        ds[r] = score_grad(a, bias_h, b, row, col, sc[r][c], dp[r][c],
+        ds[r] = score_grad(a, bias_h, hb, row, col, sc[r][c], dp[r][c],
                            lse_r[r], del_r[r]).ds;
       }
       *reinterpret_cast<float4*>(st_s + (tx + 16 * c) * QS + ty * 4) =
@@ -504,16 +509,17 @@ __device__ __forceinline__ int kn_col(int l) { return (l >> 4) * 8; }
 // p~ and ds of one score element from its raw dot products (sc = q . k,
 // dp = dout . v), in log2 units: lse2 = lse_i log2(e)
 __device__ __forceinline__ void grad_mma(const BwdArgs& a, const float* bias_h,
-                                         int b, int row, int col, float sc,
-                                         float dp, float lse2, float delta,
-                                         float& p_drop, float& ds) {
+                                         uint32_t hb, int row, int col,
+                                         float sc, float dp, float lse2,
+                                         float delta, float& p_drop,
+                                         float& ds) {
   const float x = bias_h ? (sc * a.scale + bias_h[(size_t)row * a.s + col]) *
                                LOG2E
                          : sc * (a.scale * LOG2E);
   const float p = (a.causal && col > row) ? 0.f : exp2f(x - lse2);
   p_drop = p;
   if (a.dropout) {
-    const bool keep = rand_bits(a.seed, (uint32_t)b, (uint32_t)row,
+    const bool keep = rand_bits(a.seed, hb, (uint32_t)row,
                                 (uint32_t)col) >= a.thr;
     p_drop = keep ? p * a.inv_keep : 0.f;
     dp = keep ? dp * a.inv_keep : 0.f;
@@ -554,6 +560,7 @@ __global__ void __launch_bounds__(MB_THREADS) flash_bwd_dkv_mma_kernel(
   const int cw = (warp / KG) * DW;     // and its first dK/dV column
   const int s = a.s, hd = a.hd;
   const int b = blockIdx.x;
+  const uint32_t hb = a.hm(b);    // the hash's batch-head
   const int k0 = blockIdx.y * BK;      // causal: the first tiles have most work
   const size_t head = (size_t)b * s * hd;
   const __nv_bfloat16* qh = static_cast<const __nv_bfloat16*>(a.q) + head;
@@ -654,7 +661,7 @@ __global__ void __launch_bounds__(MB_THREADS) flash_bwd_dkv_mma_kernel(
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int qc = q1 + j * 8 + t4 * 2 + e;   // query in the tile
-            grad_mma(a, bias_h, b, q0 + qc, key, st[j][2 * h + e],
+            grad_mma(a, bias_h, hb, q0 + qc, key, st[j][2 * h + e],
                      dpt[j][2 * h + e], lb[qc] * LOG2E, db[qc], pd[e], ds[e]);
             if (dbias_h) dbias_h[(size_t)(q0 + qc) * s + key] = ds[e];
           }
@@ -738,6 +745,7 @@ __global__ void __launch_bounds__(MB_THREADS) flash_bwd_dq_mma_kernel(
   // causal: the bottom tiles have the most K steps; start them first
   const int qi = a.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
   const int b = blockIdx.x;
+  const uint32_t hb = a.hm(b);    // the hash's batch-head
   const int q0 = qi * BQ;
   const int wrow = q0 + warp * 16;     // this warp's first row
   const size_t head = (size_t)b * s * hd;
@@ -818,7 +826,7 @@ __global__ void __launch_bounds__(MB_THREADS) flash_bwd_dq_mma_kernel(
         float pd[2], ds[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          grad_mma(a, bias_h, b, row, k0 + j * 8 + t4 * 2 + e,
+          grad_mma(a, bias_h, hb, row, k0 + j * 8 + t4 * 2 + e,
                    sc[j][2 * h + e], dp[j][2 * h + e], lse2[h], del[h],
                    pd[e], ds[e]);
         sf[j][h] = pack_bf16x2(ds[0], ds[1]);
@@ -973,16 +981,20 @@ const char* xsmm_error_string(int err) {
 // dv: (bh, s, hd); dbias: f32 (bh, s, s) or null. s % 64 == 0, s % bk == 0,
 // hd % 8 == 0, hd <= 256; bk in {32, 64} (64 only for hd <= 128). bf16 runs
 // the tensor-core kernels (q, kT, v, dout, lse and delta 16-byte aligned),
-// f32 the FMA ones.
+// f32 the FMA ones. (b0, h0, nhl, nhg): the dropout hash's head map
+// (HeadMap, xsmm_common.cuh); 0, 0, 1, 1 hashes the local batch-head.
 int xsmm_flash_bwd_dkv(const void* q, const void* kT, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const float* bias, long long bias_stride, void* dkT,
                        void* dv, float* dbias, int bh, int s, int hd, int type,
                        int bk, float scale, int causal, int dropout,
                        unsigned seed, unsigned thr, float inv_keep,
+                       unsigned b0, unsigned h0, unsigned nhl, unsigned nhg,
                        void* stream) {
+  if (nhl == 0 || nhg == 0) return cudaErrorInvalidValue;
   BwdArgs a{q, kT, v, dout, lse, delta, bias, bias_stride, nullptr, dkT, dv,
-            dbias, s, hd, scale, causal, dropout, seed, thr, inv_keep};
+            dbias, s, hd, scale, causal, dropout, seed, thr, inv_keep,
+            HeadMap{b0, h0, nhl, nhg}};
   return run(0, a, bh, type, bk, stream);
 }
 
@@ -992,10 +1004,12 @@ int xsmm_flash_bwd_dq(const void* q, const void* kT, const void* v,
                       const float* bias, long long bias_stride, void* dq,
                       int bh, int s, int hd, int type, int bk, float scale,
                       int causal, int dropout, unsigned seed, unsigned thr,
-                      float inv_keep, void* stream) {
+                      float inv_keep, unsigned b0, unsigned h0, unsigned nhl,
+                      unsigned nhg, void* stream) {
+  if (nhl == 0 || nhg == 0) return cudaErrorInvalidValue;
   BwdArgs a{q, kT, v, dout, lse, delta, bias, bias_stride, dq, nullptr,
             nullptr, nullptr, s, hd, scale, causal, dropout, seed, thr,
-            inv_keep};
+            inv_keep, HeadMap{b0, h0, nhl, nhg}};
   return run(1, a, bh, type, bk, stream);
 }
 

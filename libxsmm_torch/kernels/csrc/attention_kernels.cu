@@ -13,7 +13,10 @@
 //   scores = (q . kT) * scale  [+ bias (f32)]  [causal: col > row -> f32 min]
 //   online softmax over K tiles: running max m, denominator l of the
 //   UNDROPPED exponentials, f32 accumulator acc = sum e_use . v, where
-//   e_use = e, or e * 1/(1-p) where keep(rand_bits(seed, b, row, col) >= thr)
+//   e_use = e, or e * 1/(1-p) where keep(rand_bits(seed, hb, row, col) >= thr)
+//   and hb = b, or b's global batch-head under a head map (HeadMap,
+//   xsmm_common.cuh: a rank's block of a sharded attention hashes the
+//   positions the unsharded attention hashes)
 //   and 0 elsewhere; e_use is rounded to the input type before the product;
 //   out = acc / l cast once; lse = m + log(l), written to all 128 columns of
 //   the (bh, s, 128) f32 output when asked for.
@@ -74,7 +77,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ v, const float* __restrict__ bias,
     long long bias_stride, T* __restrict__ out, float* __restrict__ lse,
     int s, int hd, float scale, int causal, int dropout, uint32_t seed,
-    uint32_t thr, float inv_keep) {
+    HeadMap hm, uint32_t thr, float inv_keep) {
   constexpr int CPT = BK / 16;    // score columns per thread
   constexpr int DG = HDP / 64;    // 4-column output groups per thread
   extern __shared__ float4 smem4[];
@@ -91,6 +94,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   // first so the short ones fill in behind
   const int qi = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
   const int b = blockIdx.x;
+  const uint32_t hb = hm(b);      // the hash's batch-head
   const int q0 = qi * BQ;
   const size_t head = (size_t)b * s * hd;
   const T* qh = q + head;
@@ -172,7 +176,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
         rs += e;
         float e_use = e;
         if (dropout) {
-          const uint32_t bits = rand_bits(seed, (uint32_t)b, (uint32_t)row,
+          const uint32_t bits = rand_bits(seed, hb, (uint32_t)row,
                                           (uint32_t)(col0 + j));
           e_use = bits >= thr ? e * inv_keep : 0.f;
         }
@@ -256,7 +260,8 @@ __global__ void __launch_bounds__(MQ_THREADS) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
     long long bias_stride, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, int s, int hd, float scale, int causal,
-    int dropout, uint32_t seed, uint32_t thr, float inv_keep) {
+    int dropout, uint32_t seed, HeadMap hm, uint32_t thr,
+    float inv_keep) {
   constexpr int LDQ = HDP + 8, LDK = BK + 8;  // LDQ is also V's row stride
   constexpr int DT = HDP / 8;                 // n8 tiles of O
   constexpr int KT = BK / 8;                  // n8 tiles of S
@@ -274,6 +279,7 @@ __global__ void __launch_bounds__(MQ_THREADS) flash_fwd_mma_kernel(
   // first so the short ones fill in behind
   const int qi = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
   const int b = blockIdx.x;
+  const uint32_t hb = hm(b);      // the hash's batch-head
   const int q0 = qi * BQ;
   const int wrow = q0 + warp * 16;            // this warp's first row
   const size_t head = (size_t)b * s * hd;
@@ -405,9 +411,9 @@ __global__ void __launch_bounds__(MQ_THREADS) flash_fwd_mma_kernel(
         if (dropout) {
           const uint32_t row = (uint32_t)(wrow + g + h * 8);
           const uint32_t col = (uint32_t)(k0 + j * 8 + t4 * 2);
-          e0 = rand_bits(seed, (uint32_t)b, row, col) >= thr ? e0 * inv_keep
+          e0 = rand_bits(seed, hb, row, col) >= thr ? e0 * inv_keep
                                                               : 0.f;
-          e1 = rand_bits(seed, (uint32_t)b, row, col + 1) >= thr
+          e1 = rand_bits(seed, hb, row, col + 1) >= thr
                    ? e1 * inv_keep : 0.f;
         }
         pf[j][h] = pack_bf16x2(e0, e1);
@@ -467,7 +473,8 @@ static int launch_flash_mma(const void* q, const void* kT, const void* v,
                             const void* bias, long long bias_stride,
                             void* out, void* lse, int bh, int s, int hd,
                             float scale, int causal, int dropout,
-                            uint32_t seed, uint32_t thr, float inv_keep,
+                            uint32_t seed, HeadMap hm, uint32_t thr,
+                            float inv_keep,
                             cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes(HDP, BK);
   auto kern = flash_fwd_mma_kernel<HDP, BK>;
@@ -482,7 +489,7 @@ static int launch_flash_mma(const void* q, const void* kT, const void* v,
       static_cast<const __nv_bfloat16*>(kT),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
       bias_stride, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), s, hd, scale, causal, dropout, seed, thr,
+      static_cast<float*>(lse), s, hd, scale, causal, dropout, seed, hm, thr,
       inv_keep);
   return cudaGetLastError();
 }
@@ -491,22 +498,23 @@ template <int BK>
 static int launch_mma_hd(int hd, const void* q, const void* kT, const void* v,
                          const void* bias, long long bias_stride, void* out,
                          void* lse, int bh, int s, float scale, int causal,
-                         int dropout, uint32_t seed, uint32_t thr,
+                         int dropout, uint32_t seed, HeadMap hm, uint32_t thr,
                          float inv_keep, cudaStream_t st) {
   // the buckets of kernels/attention.py _MMA_HDP
-  if (hd <= 32) return launch_flash_mma<32, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
-  if (hd <= 64) return launch_flash_mma<64, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
-  if (hd <= 96) return launch_flash_mma<96, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
-  if (hd <= 128) return launch_flash_mma<128, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
-  if (hd <= 192) return launch_flash_mma<192, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
-  return launch_flash_mma<256, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+  if (hd <= 32) return launch_flash_mma<32, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+  if (hd <= 64) return launch_flash_mma<64, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+  if (hd <= 96) return launch_flash_mma<96, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+  if (hd <= 128) return launch_flash_mma<128, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+  if (hd <= 192) return launch_flash_mma<192, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+  return launch_flash_mma<256, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
 }
 
 template <typename T, int HDP, int BK>
 static int launch_flash(const void* q, const void* kT, const void* v,
                         const void* bias, long long bias_stride, void* out,
                         void* lse, int bh, int s, int hd, float scale,
-                        int causal, int dropout, uint32_t seed, uint32_t thr,
+                        int causal, int dropout, uint32_t seed, HeadMap hm,
+                        uint32_t thr,
                         float inv_keep, cudaStream_t stream) {
   const size_t smem = (size_t)(HDP * QS + 2 * HDP * BK + BK * QS) * sizeof(float);
   auto kern = flash_fwd_kernel<T, HDP, BK>;
@@ -522,7 +530,7 @@ static int launch_flash(const void* q, const void* kT, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(kT),
       static_cast<const T*>(v), static_cast<const float*>(bias), bias_stride,
       static_cast<T*>(out), static_cast<float*>(lse), s, hd, scale, causal,
-      dropout, seed, thr, inv_keep);
+      dropout, seed, hm, thr, inv_keep);
   return cudaGetLastError();
 }
 
@@ -530,13 +538,14 @@ template <typename T, int BK>
 static int launch_hd(int hdp, const void* q, const void* kT, const void* v,
                      const void* bias, long long bias_stride, void* out,
                      void* lse, int bh, int s, int hd, float scale, int causal,
-                     int dropout, uint32_t seed, uint32_t thr, float inv_keep,
+                     int dropout, uint32_t seed, HeadMap hm, uint32_t thr,
+                     float inv_keep,
                      cudaStream_t st) {
   switch (hdp) {
-    case 64: return launch_flash<T, 64, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
-    case 128: return launch_flash<T, 128, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
-    case 192: return launch_flash<T, 192, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
-    case 256: return launch_flash<T, 256, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+    case 64: return launch_flash<T, 64, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+    case 128: return launch_flash<T, 128, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+    case 192: return launch_flash<T, 192, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+    case 256: return launch_flash<T, 256, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -551,24 +560,28 @@ const char* xsmm_error_string(int err) {
 // bias + b * bias_stride, or null; out: (bh, s, hd); lse: (bh, s, 128) f32
 // or null. s % 64 == 0, hd % 8 == 0, hd <= 256; bk in {32, 64}. bf16 runs
 // the tensor-core kernel (its operands 16-byte aligned), f32 the FMA one.
+// (b0, h0, nhl, nhg): the dropout hash's head map (HeadMap); 0, 0, 1, 1
+// hashes the local batch-head index.
 int xsmm_flash_fwd(const void* q, const void* kT, const void* v,
                    const void* bias, long long bias_stride, void* out,
                    void* lse, int bh, int s, int hd, int type, int bk,
                    float scale, int causal, int dropout, unsigned seed,
-                   unsigned thr, float inv_keep, void* stream) {
+                   unsigned thr, float inv_keep, unsigned b0, unsigned h0,
+                   unsigned nhl, unsigned nhg, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s <= 0 || s % BQ || s / BQ > 65535 || hd <= 0 || hd % 8 || hd > 256 ||
-      bh <= 0)
+      bh <= 0 || nhl == 0 || nhg == 0)
     return cudaErrorInvalidValue;
+  const HeadMap hm{b0, h0, nhl, nhg};
   const int hdp = (hd + 63) / 64 * 64;
   if (type == T_F32 && bk == 64)
-    return launch_hd<float, 64>(hdp, q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+    return launch_hd<float, 64>(hdp, q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
   if (type == T_F32 && bk == 32)
-    return launch_hd<float, 32>(hdp, q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, thr, inv_keep, st);
+    return launch_hd<float, 32>(hdp, q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
   if (type == T_BF16 && bk == 64)
-    return launch_mma_hd<64>(hd, q, kT, v, bias, bias_stride, out, lse, bh, s, scale, causal, dropout, seed, thr, inv_keep, st);
+    return launch_mma_hd<64>(hd, q, kT, v, bias, bias_stride, out, lse, bh, s, scale, causal, dropout, seed, hm, thr, inv_keep, st);
   if (type == T_BF16 && bk == 32)
-    return launch_mma_hd<32>(hd, q, kT, v, bias, bias_stride, out, lse, bh, s, scale, causal, dropout, seed, thr, inv_keep, st);
+    return launch_mma_hd<32>(hd, q, kT, v, bias, bias_stride, out, lse, bh, s, scale, causal, dropout, seed, hm, thr, inv_keep, st);
   return cudaErrorInvalidValue;
 }
 

@@ -44,6 +44,18 @@
 // the mask costs no pass of its own (the reference packs it with jnp ops
 // that XLA fuses); x goes by 16-byte vectors where its address and row
 // stride allow, element by element otherwise (and in a ragged last word).
+//
+// A block (xsmm_dropout_block): x is a block of a global tensor of up to 4
+// dimensions (a rank's shard), and element i hashes its global row-major
+// flat index instead of i, so the ranks' masks put together are the mask
+// of the unsharded tensor bit for bit. The global index of a local row's
+// first element is worked out once a row (DropBlock::row_base: three
+// divisions; once a 16-column word in the packed form), the row's elements
+// add their column. Bytes and none go to
+// dropout_block_kernel, where a group of threads (a power of two, enough
+// for one pass over a row's 16-byte units) owns a row; packed is the
+// packed kernel with the row base hashed. Without a block xsmm_dropout
+// runs the kernels above unchanged.
 
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -85,6 +97,24 @@ template <> struct MaskVec<8> {
 
 enum { MASK_BYTES = 0, MASK_PACKED = 1, MASK_NONE = 2 };
 
+// A block of a global row-major tensor of up to 4 dimensions (leading
+// dimensions padded with extent 1 and offset 0): x is the block, of shape
+// lshape at offset off in the global tensor, and each of its elements
+// hashes its GLOBAL flat index, so the blocks of a sharded tensor draw,
+// together, the bits of the whole tensor. row_base(r) is the global index
+// of the first element of local row r (x viewed as (rows, lshape[3])),
+// worked out once a row.
+struct DropBlock {
+  long long lshape[4], off[4], gstride[4];
+  __device__ __forceinline__ long long row_base(long long r) const {
+    const long long i2 = r % lshape[2];
+    r /= lshape[2];
+    const long long i1 = r % lshape[1], i0 = r / lshape[1];
+    return (off[0] + i0) * gstride[0] + (off[1] + i1) * gstride[1] +
+           (off[2] + i2) * gstride[2] + off[3];
+  }
+};
+
 // bytes and none (mask == nullptr)
 template <typename T>
 __global__ void __launch_bounds__(256) dropout_kernel(
@@ -119,11 +149,11 @@ __global__ void __launch_bounds__(256) dropout_kernel(
 // and stores their keep bits as the 16-bit word t of the mask (bit e is
 // column 16 w + e: little-endian, so byte 2 t + e / 8, bit e % 8). `vec`:
 // x and its row stride are 16-byte aligned.
-template <typename T>
+template <typename T, bool BLOCK>
 __global__ void __launch_bounds__(256) dropout_packed_kernel(
     const T* __restrict__ x, T* __restrict__ out,
     uint16_t* __restrict__ mask, long long rows, int cols, float p,
-    float scale, uint32_t seed, int vec) {
+    float scale, uint32_t seed, int vec, DropBlock blk) {
   constexpr int E = 16 / sizeof(T);
   const int W = (cols + 15) / 16;
   const long long units = rows * W;
@@ -133,6 +163,7 @@ __global__ void __launch_bounds__(256) dropout_packed_kernel(
     const long long r = t / W;
     const int c0 = (int)(t - r * W) * 16;
     const long long i0 = r * cols + c0;
+    const long long h0 = BLOCK ? blk.row_base(r) + c0 : i0;   // hashed
     uint32_t word = 0;
     if (vec && c0 + 16 <= cols) {
 #pragma unroll
@@ -143,17 +174,61 @@ __global__ void __launch_bounds__(256) dropout_packed_kernel(
         T* oe = reinterpret_cast<T*>(&res);
 #pragma unroll
         for (int e = 0; e < E; ++e)
-          word |= (uint32_t)drop_one(xe[e], oe + e, i0 + v * E + e, seed, p,
+          word |= (uint32_t)drop_one(xe[e], oe + e, h0 + v * E + e, seed, p,
                                      scale) << (v * E + e);
         *reinterpret_cast<uint4*>(out + i0 + v * E) = res;
       }
     } else {
       const int ce = cols - c0 < 16 ? cols - c0 : 16;
       for (int e = 0; e < ce; ++e)
-        word |= (uint32_t)drop_one(x[i0 + e], out + i0 + e, i0 + e, seed, p,
+        word |= (uint32_t)drop_one(x[i0 + e], out + i0 + e, h0 + e, seed, p,
                                    scale) << e;
     }
     mask[t] = (uint16_t)word;
+  }
+}
+
+// bytes and none (mask == nullptr) of a block (DropBlock): x viewed as
+// (rows, cols), cols = lshape[3]. A row goes to a group of 2^tpr_log2
+// threads, which works out its global row base once and walks the row in
+// 16-byte units (E elements) at a stride of the group's width; groups take
+// rows at a grid stride. `vec`: x and its row stride are 16-byte aligned,
+// so every full unit goes by one 16-byte load and store (and one 4- or
+// 8-byte store of the mask); a ragged last unit goes element by element.
+template <typename T>
+__global__ void __launch_bounds__(256) dropout_block_kernel(
+    const T* __restrict__ x, T* __restrict__ out, uint8_t* __restrict__ mask,
+    long long rows, long long cols, float p, float scale, uint32_t seed,
+    int vec, int tpr_log2, DropBlock blk) {
+  constexpr int E = 16 / sizeof(T);
+  const int lane = threadIdx.x & ((1 << tpr_log2) - 1);
+  const long long groups = 256 >> tpr_log2;
+  const long long step = (long long)E << tpr_log2;
+  for (long long r = (long long)blockIdx.x * groups +
+                     (threadIdx.x >> tpr_log2);
+       r < rows; r += (long long)gridDim.x * groups) {
+    const long long base = blk.row_base(r);
+    const long long m0 = r * cols;
+    for (long long c0 = (long long)lane * E; c0 < cols; c0 += step) {
+      if (vec && c0 + E <= cols) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(x + m0 + c0);
+        const T* xe = reinterpret_cast<const T*>(&raw);
+        uint4 res;
+        T* oe = reinterpret_cast<T*>(&res);
+        uint8_t m[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          m[e] = drop_one(xe[e], oe + e, base + c0 + e, seed, p, scale);
+        *reinterpret_cast<uint4*>(out + m0 + c0) = res;
+        if (mask) MaskVec<E>::store(mask + m0 + c0, m);
+      } else {
+        for (long long c = c0; c < c0 + E && c < cols; ++c) {
+          const uint8_t k = drop_one(x[m0 + c], out + m0 + c, base + c, seed,
+                                     p, scale);
+          if (mask) mask[m0 + c] = k;
+        }
+      }
+    }
   }
 }
 
@@ -172,15 +247,54 @@ static int launch_dropout(const void* x, void* out, void* mask, long long n,
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   if (form == MASK_PACKED)
-    dropout_packed_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
+    dropout_packed_kernel<T, false><<<(unsigned)blocks, 256, 0, st>>>(
         static_cast<const T*>(x), static_cast<T*>(out),
         static_cast<uint16_t*>(mask), n / cols, cols, p, scale, seed,
-        aligned && (cols * sizeof(T)) % 16 == 0);
+        aligned && (cols * sizeof(T)) % 16 == 0, DropBlock{});
   else
     dropout_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
         static_cast<const T*>(x), static_cast<T*>(out),
         form == MASK_BYTES ? static_cast<uint8_t*>(mask) : nullptr, n, p,
         scale, seed, aligned);
+  return cudaGetLastError();
+}
+
+
+// a block (DropBlock): packed as launch_dropout's packed form, with the
+// global index hashed; bytes and none by dropout_block_kernel
+template <typename T>
+static int launch_dropout_block(const void* x, void* out, void* mask,
+                                long long n, long long cols, int form,
+                                float p, float scale, uint32_t seed,
+                                int aligned, const DropBlock& blk,
+                                int num_sms, cudaStream_t st) {
+  constexpr int E = 16 / sizeof(T);
+  const long long rows = n / cols;
+  const long long cap = (long long)num_sms * 16;   // grid-stride beyond
+  const int vec = aligned && (cols * (long long)sizeof(T)) % 16 == 0;
+  long long blocks;
+  if (form == MASK_PACKED) {
+    blocks = (rows * ((cols + 15) / 16) + 255) / 256;
+    if (blocks > cap) blocks = cap;
+    if (blocks < 1) blocks = 1;
+    dropout_packed_kernel<T, true><<<(unsigned)blocks, 256, 0, st>>>(
+        static_cast<const T*>(x), static_cast<T*>(out),
+        static_cast<uint16_t*>(mask), rows, (int)cols, p, scale, seed, vec,
+        blk);
+    return cudaGetLastError();
+  }
+  // the fewest threads a row (a power of two, at most a block) that cover
+  // its 16-byte units in one pass
+  const long long units = (cols + E - 1) / E;
+  int tpr_log2 = 0;
+  while (tpr_log2 < 8 && (1ll << tpr_log2) < units) ++tpr_log2;
+  blocks = (rows + (256 >> tpr_log2) - 1) / (256 >> tpr_log2);
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  dropout_block_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
+      static_cast<const T*>(x), static_cast<T*>(out),
+      form == MASK_BYTES ? static_cast<uint8_t*>(mask) : nullptr, rows, cols,
+      p, scale, seed, vec, tpr_log2, blk);
   return cudaGetLastError();
 }
 
@@ -379,6 +493,47 @@ int xsmm_dropout(const void* x, void* out, void* mask, long long n, int cols,
     return launch_dropout<__nv_bfloat16>(x, out, mask, n, cols, form, p, scale, seed, aligned, num_sms, st);
   if (type == T_F16)
     return launch_dropout<__half>(x, out, mask, n, cols, form, p, scale, seed, aligned, num_sms, st);
+  return cudaErrorInvalidValue;
+}
+
+// dropout of a block (DropBlock) of a global tensor of nd <= 4 dimensions:
+// x is the block, of shape lshape[0..nd) at offset off[0..nd) in the
+// global shape gshape[0..nd); n and cols are its element count and last
+// extent (the packed form views x as (n / cols, cols)). The other
+// arguments as xsmm_dropout's; each element hashes its global row-major
+// flat index.
+int xsmm_dropout_block(const void* x, void* out, void* mask, long long n,
+                       int type, int form, float p, float scale,
+                       unsigned seed, int aligned, int nd,
+                       const long long* lshape, const long long* gshape,
+                       const long long* off, int num_sms, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nd < 1 || nd > 4 || n < 0 || form < MASK_BYTES || form > MASK_NONE)
+    return cudaErrorInvalidValue;
+  DropBlock blk;
+  long long count = 1, stride = 1;
+  for (int k = 3; k >= 0; --k) {
+    const int d = k - (4 - nd);     // the caller's dimension, or < 0
+    const long long ls = d >= 0 ? lshape[d] : 1;
+    const long long gs = d >= 0 ? gshape[d] : 1;
+    const long long of = d >= 0 ? off[d] : 0;
+    if (ls < 0 || of < 0 || of + ls > gs) return cudaErrorInvalidValue;
+    blk.lshape[k] = ls;
+    blk.off[k] = of;
+    blk.gstride[k] = stride;
+    stride *= gs;
+    count *= ls;
+  }
+  const long long cols = blk.lshape[3];
+  if (count != n || (form == MASK_PACKED && nd != 2))
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  if (type == T_F32)
+    return launch_dropout_block<float>(x, out, mask, n, cols, form, p, scale, seed, aligned, blk, num_sms, st);
+  if (type == T_BF16)
+    return launch_dropout_block<__nv_bfloat16>(x, out, mask, n, cols, form, p, scale, seed, aligned, blk, num_sms, st);
+  if (type == T_F16)
+    return launch_dropout_block<__half>(x, out, mask, n, cols, form, p, scale, seed, aligned, blk, num_sms, st);
   return cudaErrorInvalidValue;
 }
 

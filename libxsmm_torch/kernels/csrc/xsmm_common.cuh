@@ -58,3 +58,16 @@ __device__ __forceinline__ uint32_t rand_bits(uint32_t seed, uint32_t b,
   h = (h ^ (h >> 12)) * 0x297A2D39u;
   return h ^ (h >> 15);
 }
+
+// The batch-head index the dropout hash reads for local batch-head b of an
+// attention whose (batch, heads) are a block of a larger tensor: a rank
+// holding heads [h0, h0 + nhl) of nhg, for batches from b0 on, hashes
+// global batch-head (b0 + b / nhl) * nhg + h0 + b % nhl. The default
+// {0, 0, 1, 1} gives b itself. Worked out once a block.
+struct HeadMap {
+  uint32_t b0, h0, nhl, nhg;
+  __device__ __forceinline__ uint32_t operator()(int b) const {
+    const uint32_t u = (uint32_t)b;
+    return (b0 + u / nhl) * nhg + h0 + u % nhl;
+  }
+};

@@ -64,6 +64,9 @@ def _kernels() -> ctypes.CDLL:
                           ctypes.c_float, ctypes.c_uint)
         lib.xsmm_dropout.argtypes = [P, P, P, LL, I, I, I, F, F, U, I, I, P]
         lib.xsmm_dropout.restype = I
+        lib.xsmm_dropout_block.argtypes = [P, P, P, LL, I, I, F, F, U, I, I,
+                                           P, P, P, I, P]
+        lib.xsmm_dropout_block.restype = I
         lib.xsmm_stochastic_round.argtypes = [P, P, LL, I, I, U, I, I, P]
         lib.xsmm_stochastic_round.restype = I
         lib.xsmm_error_string.argtypes = [I]
@@ -72,13 +75,43 @@ def _kernels() -> ctypes.CDLL:
     return _lib
 
 
-def _flat_bits(seed, shape, device) -> torch.Tensor:
+def _flat_bits(seed, shape, device, block=None) -> torch.Tensor:
     """u32 bits (in int64) per element of `shape`: the counter hash of
     (seed, flat row-major index), with the index's low and high 32 bits as
-    the hash's row and column (csrc/eltwise_kernels.cu drop_one)."""
-    n = int(np.prod(shape, dtype=np.int64))
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    the hash's row and column (csrc/eltwise_kernels.cu drop_one). With a
+    block (global_shape, offset) the tensor of `shape` is that block of a
+    global tensor, and the index hashed is the element's global one."""
+    if block is None:
+        n = int(np.prod(shape, dtype=np.int64))
+        i = torch.arange(n, dtype=torch.int64, device=device)
+    else:
+        gshape, off = _check_block(block, shape)
+        i = torch.zeros((), dtype=torch.int64, device=device)
+        stride = 1
+        for d in reversed(range(len(shape))):
+            idx = off[d] + torch.arange(shape[d], dtype=torch.int64,
+                                        device=device)
+            i = i + (idx * stride).reshape(
+                (-1,) + (1,) * (len(shape) - 1 - d))
+            stride *= gshape[d]
+        i = i.expand(tuple(shape))
     return _rand_bits(int(seed), 0, i & _M32, i >> 32).reshape(shape)
+
+
+def _check_block(block, shape):
+    """(global_shape, offset) of a dropout block, checked against the
+    block's own shape: up to 4 dimensions, one entry each, the block inside
+    the global tensor."""
+    gshape, off = (tuple(int(v) for v in part) for part in block)
+    shape = tuple(shape)
+    if not (len(gshape) == len(off) == len(shape)) or not 1 <= len(shape) <= 4:
+        raise ValueError(f"dropout block: global shape {gshape} and offset "
+                         f"{off} need one entry per dimension of x "
+                         f"{shape}, 1 to 4 of them")
+    if any(o < 0 or o + n > g for g, o, n in zip(gshape, off, shape)):
+        raise ValueError(f"dropout block: x {shape} at offset {off} does not "
+                         f"lie inside the global shape {gshape}")
+    return gshape, off
 
 
 def _bits32(x: torch.Tensor) -> torch.Tensor:
@@ -257,13 +290,15 @@ def _mask_form(mask: str, x: torch.Tensor) -> int:
     return form
 
 
-def _dropout_plain(x: torch.Tensor, seed, p, mask: str = "bytes"):
+def _dropout_plain(x: torch.Tensor, seed, p, mask: str = "bytes",
+                   block=None):
     """The plain torch version of the dropout kernel: the same bits, the
     same keep rule and the same f32 arithmetic; the mask in the same form
     (packed by ops/eltwise.py pack_bitmask)."""
     _mask_form(mask, x)
     p32, scale = _p_and_scale(_check_p(p))
-    keep = _uniform(_flat_bits(seed, tuple(x.shape), x.device)) >= float(p32)
+    keep = _uniform(_flat_bits(seed, tuple(x.shape), x.device,
+                               block)) >= float(p32)
     scaled = x.float() * torch.tensor(scale, device=x.device)
     out = torch.where(keep, scaled, torch.zeros((), device=x.device))
     out = out.to(x.dtype)
@@ -275,17 +310,26 @@ def _dropout_plain(x: torch.Tensor, seed, p, mask: str = "bytes"):
     return out, keep.to(torch.uint8)
 
 
-def dropout(x: torch.Tensor, seed, p, mask: str = "bytes"):
+def dropout(x: torch.Tensor, seed, p, mask: str = "bytes", block=None):
     """UNARY_DROPOUT: keeps an element iff u >= p and scales it by
     1/(1-p); p is a runtime value (a float or a 0-d tensor). Returns (out,
     keep mask): mask="bytes" one uint8 per element; "packed" the
     (m, ceil(n/16)*2) uint8 BITMASK_2BYTEMULT bit matrix of a 2-D x; "none"
     returns out alone. CUDA tensors (f32, bf16, f16) launch the kernel,
-    which writes the mask in that form; CPU tensors run dropout.plain."""
+    which writes the mask in that form; CPU tensors run dropout.plain.
+
+    block=(global_shape, offset): x is the block at `offset` of a global
+    tensor of `global_shape` (one entry per dimension of x, up to 4), and
+    every element's bits are those of its global row-major flat index: the
+    blocks of a sharded tensor drop, together, what the whole tensor would
+    (csrc xsmm_dropout_block). Without one, the bits are those of x's own
+    flat index."""
     p = _check_p(p)
     form = _mask_form(mask, x)
     if not _on_cuda(x):
-        return _dropout_plain(x, seed, p, mask)
+        if block is None:
+            return _dropout_plain(x, seed, p, mask)
+        return _dropout_plain(x, seed, p, mask, block)
     code = _TYPE_CODE.get(x.dtype)
     if code is None:
         raise ValueError(f"dropout: no CUDA kernel for dtype {x.dtype}")
@@ -302,11 +346,21 @@ def dropout(x: torch.Tensor, seed, p, mask: str = "bytes"):
     p32, scale = _p_and_scale(p)
     lib = _kernels()
     with _on_device(x.device):
-        err = lib.xsmm_dropout(
-            _ptr(x), _ptr(out), _ptr(keep), x.numel(), max(cols, 1), code,
-            form, float(p32), float(scale), int(seed) & _M32,
-            int(x.data_ptr() % 16 == 0), _num_sms(x.device),
-            _stream(x.device))
+        if block is None:
+            err = lib.xsmm_dropout(
+                _ptr(x), _ptr(out), _ptr(keep), x.numel(), max(cols, 1),
+                code, form, float(p32), float(scale), int(seed) & _M32,
+                int(x.data_ptr() % 16 == 0), _num_sms(x.device),
+                _stream(x.device))
+        else:
+            dims = ctypes.c_longlong * x.dim()
+            gshape, off = _check_block(block, x.shape)
+            err = lib.xsmm_dropout_block(
+                _ptr(x), _ptr(out), _ptr(keep), x.numel(), code, form,
+                float(p32), float(scale), int(seed) & _M32,
+                int(x.data_ptr() % 16 == 0), x.dim(), dims(*x.shape),
+                dims(*gshape), dims(*off), _num_sms(x.device),
+                _stream(x.device))
     _raise_on_error(err, "dropout", lib)
     launches["dropout"] += 1
     return out if keep is None else (out, keep)
@@ -321,13 +375,14 @@ def dropout_inv(g: torch.Tensor, mask: torch.Tensor, p):
 
     `mask` is the PACKED bitmask the forward emitted (reference
     param->in.secondary bit layout); a same-shaped per-element mask is also
-    accepted."""
+    accepted, of any shape. The mask is the block's own, so a dropout in a
+    block (dropout's `block`) needs no description here."""
     from ..ops.eltwise import unpack_bitmask
     p = _check_p(p)
-    m, n = g.shape
     if tuple(mask.shape) == tuple(g.shape):
         bits = mask != 0
     else:
+        m, n = g.shape
         bits = unpack_bitmask(mask, m, n)
     scale = 1.0 / (1.0 - p)
     out = torch.where(bits, g.float() * scale,

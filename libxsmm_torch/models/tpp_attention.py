@@ -25,8 +25,16 @@ them as an nn.Module. Seeds keep the reference's offsets: `seed` for the
 attention-probability dropout, `seed + 1` for the FFN dropout, `seed + 2`
 for the flash kernel's dropout.
 
-Not ported yet: shard_params and the sharded step (ROADMAP.md queue 1,
-item 13).
+Sharded (shard_params, make_sharded_train_step), over a (dp, tp) mesh of
+the port's parallel layer: dp splits the batch; tp splits the heads of the
+attention (QKV column-parallel over the head-major fused columns, the
+output projection row-parallel) and the FFN's hidden features (column- then
+row-parallel); layernorms are replicated. The collectives GSPMD derives in
+the reference are written out (parallel/spmd.py), and the sharded step
+draws the single-device step's dropout masks: the flash kernels hash each
+local head's global batch-head index (a head map) and the dropouts hash
+each element's global index (a block), so a rank's masks are its blocks of
+the unsharded masks, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from ..descriptor import UnaryFlags, UnaryType
 from ..device import resolve_device
 from ..dtypes import Datatype, from_torch
 from ..ops.eltwise import apply_unary_op
+from ..parallel import spmd
+from ..parallel.mesh import NamedSharding, P, local
 
 _NEG = float(np.finfo(np.float32).min)
 
@@ -136,9 +146,9 @@ class _Dropout(torch.autograd.Function):
     pairing, models/tpp_attention.py:108-136)."""
 
     @staticmethod
-    def forward(ctx, flat, p, seed):
+    def forward(ctx, flat, p, seed, block):
         from ..kernels.eltwise import dropout
-        out, mask = dropout(flat, seed, p)
+        out, mask = dropout(flat, seed, p, block=block)
         ctx.save_for_backward(mask)
         ctx.p = p
         return out
@@ -147,15 +157,18 @@ class _Dropout(torch.autograd.Function):
     def backward(ctx, g):
         from ..kernels.eltwise import dropout_inv
         (mask,) = ctx.saved_tensors
-        return dropout_inv(g, mask, ctx.p), None, None
+        return dropout_inv(g, mask, ctx.p), None, None, None
 
 
-def _dropout(x, p: float, seed):
-    """Dropout over x viewed as (-1, last dim); identity when p <= 0."""
+def _dropout(x, p: float, seed, block=None):
+    """Dropout over x viewed as (-1, last dim); identity when p <= 0. With
+    a block (global_shape, offset), x is that block of a global tensor of
+    the same number of dimensions, and draws the global tensor's bits."""
     if p <= 0.0:
         return x
-    flat = x.reshape(-1, x.shape[-1])
-    return _Dropout.apply(flat, p, int(seed)).reshape(x.shape).to(x.dtype)
+    flat = x if block is not None else x.reshape(-1, x.shape[-1])
+    return _Dropout.apply(flat, p, int(seed), block).reshape(x.shape).to(
+        x.dtype)
 
 
 def _linear(x, w, b):
@@ -163,29 +176,62 @@ def _linear(x, w, b):
     return torch.matmul(x.float(), w.float()) + b.float()[None, :]
 
 
-def attention(params, x, cfg: AttentionConfig, seed=None):
-    """Multi-head self-attention over x: (batch, seq, dim)."""
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """Where a rank's block lies in the sharded block's tensors: the
+    tensor-parallel group (None: no tp axis), the global batch and this
+    rank's first batch row b0, its first head h0 and first FFN column f0."""
+    group: object
+    batch: int
+    b0: int
+    h0: int
+    f0: int
+
+
+def _linear_in(x, w, b, shard):
+    """QKV and the FFN's first product: column-parallel when sharded."""
+    if shard is None:
+        return _linear(x, w, b)
+    return spmd.column_linear(x, w, b, shard.group)
+
+
+def _linear_out(x, w, b, shard):
+    """The output projection and the FFN's second product: row-parallel
+    when sharded."""
+    if shard is None:
+        return _linear(x, w, b)
+    return spmd.row_linear(x, w, b, shard.group)
+
+
+def attention(params, x, cfg: AttentionConfig, seed=None, shard=None):
+    """Multi-head self-attention over x: (batch, seq, dim). Sharded
+    (`shard`), x is this rank's batch rows and the weights its heads."""
     b, s, d = x.shape
     hd, nh = cfg.head_dim, cfg.heads
+    nh_l = params["wqkv"].shape[1] // (3 * hd)          # this rank's heads
 
-    qkv = _linear(x.reshape(b * s, d), params["wqkv"], params["bqkv"])
+    qkv = _linear_in(x.reshape(b * s, d), params["wqkv"], params["bqkv"],
+                     shard)
     # head-major fused-QKV column layout (nh, 3, hd)
-    qkv = qkv.to(x.dtype).reshape(b, s, nh, 3, hd)
+    qkv = qkv.to(x.dtype).reshape(b, s, nh_l, 3, hd)
     q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
     if cfg.flash:
         from ..ops.attention import dispatch_flash_attention
 
         p_drop = cfg.dropout_p if seed is not None else 0.0
-        kern = dispatch_flash_attention(b * nh, s, hd, from_torch(x.dtype),
-                                        causal=cfg.causal, dropout_p=p_drop)
-        qb = q.permute(0, 2, 1, 3).reshape(b * nh, s, hd)
-        kTb = k.permute(0, 2, 3, 1).reshape(b * nh, hd, s)
-        vb = v.permute(0, 2, 1, 3).reshape(b * nh, s, hd)
+        head_map = (None if shard is None
+                    else (shard.b0, shard.h0, nh_l, nh))
+        kern = dispatch_flash_attention(b * nh_l, s, hd, from_torch(x.dtype),
+                                        causal=cfg.causal, dropout_p=p_drop,
+                                        head_map=head_map)
+        qb = q.permute(0, 2, 1, 3).reshape(b * nh_l, s, hd)
+        kTb = k.permute(0, 2, 3, 1).reshape(b * nh_l, hd, s)
+        vb = v.permute(0, 2, 1, 3).reshape(b * nh_l, s, hd)
         # seed + 2: decorrelated from the FFN/prob dropout streams
         ctxb = (kern(qb, kTb, vb, seed=seed + 2) if p_drop > 0.0
                 else kern(qb, kTb, vb))
-        ctx = ctxb.reshape(b, nh, s, hd).permute(0, 2, 1, 3)
+        ctx = ctxb.reshape(b, nh_l, s, hd).permute(0, 2, 1, 3)
     else:
         # score products per (b, head), f32 accumulation
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
@@ -196,25 +242,36 @@ def attention(params, x, cfg: AttentionConfig, seed=None):
                                  torch.full((), _NEG, device=x.device))
         probs = _softmax_rows(scores * float(1.0 / np.sqrt(hd))).to(x.dtype)
         if cfg.dropout_p > 0.0 and seed is not None:
-            probs = _dropout(probs, cfg.dropout_p, seed)
+            # sharded: (b, nh_l, s, s) is the block at (b0, h0) of the
+            # global (batch, nh, s, s) probabilities
+            block = (None if shard is None else
+                     ((shard.batch, nh, s, s), (shard.b0, shard.h0, 0, 0)))
+            probs = _dropout(probs, cfg.dropout_p, seed, block)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(),
                            v.float()).to(x.dtype)
-    out = _linear(ctx.reshape(b * s, d), params["wo"], params["bo"])
+    out = _linear_out(ctx.reshape(b * s, nh_l * hd), params["wo"],
+                      params["bo"], shard)
     return out.to(x.dtype).reshape(b, s, d)
 
 
-def forward(params, x, cfg: AttentionConfig, seed=None):
+def forward(params, x, cfg: AttentionConfig, seed=None, shard=None):
     """Pre-LN encoder block: x + MHA(LN(x)); then x + FFN(LN(x)). seed=None
-    serves (no dropout)."""
+    serves (no dropout). Sharded (`shard`), x is this rank's batch rows,
+    replicated over tp, and so is the result."""
     b, s, d = x.shape
     h = x + attention(params, _layernorm(x, params["ln1_g"], params["ln1_b"]),
-                      cfg, seed=seed)
+                      cfg, seed=seed, shard=shard)
     y = _layernorm(h, params["ln2_g"], params["ln2_b"])
-    y = _linear(y.reshape(b * s, d), params["w1"], params["b1"])
+    y = _linear_in(y.reshape(b * s, d), params["w1"], params["b1"], shard)
     y = apply_unary_op(UnaryType.GELU, UnaryFlags.NONE, y)
     if cfg.dropout_p > 0.0 and seed is not None:
-        y = _dropout(y.to(x.dtype), cfg.dropout_p, seed + 1)
-    y = _linear(y.to(x.dtype), params["w2"], params["b2"])
+        # sharded: (b * s, f_l) is the block at (b0 * s, f0) of the global
+        # (batch * s, ffn) hidden layer
+        block = (None if shard is None else
+                 ((shard.batch * s, cfg.ffn_mult * d),
+                  (shard.b0 * s, shard.f0)))
+        y = _dropout(y.to(x.dtype), cfg.dropout_p, seed + 1, block)
+    y = _linear_out(y.to(x.dtype), params["w2"], params["b2"], shard)
     return h + y.to(x.dtype).reshape(b, s, d)
 
 
@@ -274,3 +331,89 @@ class EncoderBlock(torch.nn.Module):
 
     def forward(self, x, seed=None):
         return forward(self.params(), x, self.cfg, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# sharding: dp = batch, tp = heads (attention) / hidden features (FFN)
+# ---------------------------------------------------------------------------
+
+_PARAM_SPECS = {
+    # QKV column-parallel: the head-major fused columns split on head
+    # boundaries over tp
+    "wqkv": P(None, "tp"), "bqkv": P("tp"),
+    # output projection row-parallel: its input features are the heads
+    "wo": P("tp", None), "bo": P(None),
+    "w1": P(None, "tp"), "b1": P("tp"),
+    "w2": P("tp", None), "b2": P(None),
+    "ln1_g": P(None), "ln1_b": P(None),
+    "ln2_g": P(None), "ln2_b": P(None),
+}
+
+
+def shard_params(params: dict, mesh) -> dict:
+    """The global parameters (init_params or params_from_numpy) placed on
+    the mesh by _PARAM_SPECS, as DTensors (mesh.shard; no collective)."""
+    return spmd.place(params, mesh, _PARAM_SPECS)
+
+
+def encoder_comm_bytes_per_device(cfg: AttentionConfig, batch: int, s: int,
+                                  dp: int, tp: int) -> int:
+    """The bytes the sharded step logs on each rank (collectives.py's
+    count): four all-reduces over tp of the f32 (batch / dp * s, dim)
+    activations (the output projection's and the FFN's partial products
+    forward, the gradients of the QKV and FFN inputs backward), the sum
+    over dp of this rank's gradients, one buffer a parameter dtype, and
+    the loss (one f32) over dp."""
+    def ring(nbytes, n):
+        return 2 * nbytes * (n - 1) // n
+
+    d, f = cfg.dim, cfg.ffn_mult * cfg.dim
+    isz = torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size()
+    act = batch // dp * s * d * 4
+    local = (d * 3 * d // tp + 3 * d // tp + d // tp * d + d
+             + d * f // tp + f // tp + f // tp * d + d + 4 * d)
+    return 4 * ring(act, tp) + ring(local * isz, dp) + ring(4, dp)
+
+
+def make_sharded_train_step(cfg: AttentionConfig, mesh, lr: float = 1e-3,
+                            seed=None):
+    """The full train step over a (dp, tp) mesh: (step, xsharding).
+    step(params, x, y) -> (new_params, loss) takes shard_params' params and
+    x, y placed by xsharding (or global tensors, cut locally); the new
+    parameters keep their shardings, the loss is on every rank. Local
+    flash runs on batch / dp * heads / tp heads with the head map of this
+    rank's block, the dropouts on their blocks of the global tensors (the
+    same masks as train_step's), and every gradient is summed over dp,
+    none over tp.
+
+    `seed` feeds the dropouts when cfg.dropout_p > 0, and is required
+    then: without one the step raises instead of training without
+    dropout."""
+    if cfg.dropout_p > 0.0 and seed is None:
+        raise ValueError("cfg.dropout_p > 0 requires seed= in "
+                         "make_sharded_train_step")
+    xsharding = NamedSharding(mesh, P("dp", None, None))
+    dp, tp = spmd.axis_size(mesh, "dp"), spmd.axis_size(mesh, "tp")
+    nh_l = spmd.divide(cfg.heads, tp, "heads")
+    f_l = spmd.divide(cfg.ffn_mult * cfg.dim, tp, "FFN width")
+    shards = spmd.shardings(mesh, _PARAM_SPECS)
+
+    def step(params, x, y):
+        batch, s, d = x.shape
+        b_l = spmd.divide(batch, dp, "batch")
+        shard = _Shard(spmd.group(mesh, "tp"), batch,
+                       spmd.axis_index(mesh, "dp") * b_l,
+                       spmd.axis_index(mesh, "tp") * nh_l,
+                       spmd.axis_index(mesh, "tp") * f_l)
+        xl, yl = local(x, xsharding), local(y, xsharding)
+        count = batch * s * d
+
+        def local_loss(lp):
+            pred = forward(lp, xl, cfg, seed=seed, shard=shard)
+            term = torch.sum((pred.float() - yl.float()) ** 2) / count
+            return term, term
+
+        return spmd.sgd_step(params, shards, mesh, lr, local_loss, ("dp",),
+                             ("dp",))
+
+    return step, xsharding

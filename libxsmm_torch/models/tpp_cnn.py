@@ -22,7 +22,10 @@ activations at a 3x3 layer, where XLA folds the strided tap slices into the
 operand windows. The products accumulate in f32 (bf16 products are exact
 there; f32 runs at full f32, no TF32).
 
-Not ported yet: make_sharded_train_step (ROADMAP.md queue 1, item 13).
+make_sharded_train_step runs over a dp mesh of the port's parallel layer:
+the batch split over dp, the parameters replicated, their gradients summed
+over dp by one explicit all-reduce (parallel/spmd.py), where the reference
+lets GSPMD derive it.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from ..descriptor import (BatchReduceConfig, BatchReduceType, BinaryPostops,
 from ..device import resolve_device
 from ..dtypes import from_torch
 from ..ops.gemm import dispatch_brgemm, dispatch_brgemm_ext
+from ..parallel import spmd
+from ..parallel.mesh import NamedSharding, P, local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,3 +212,35 @@ def train_step(params, x, labels, cfg: CnnConfig, lr: float = 1e-2):
         new = [{k: (p - lr * g[k]).to(p.dtype) for k, p in layer.items()}
                for layer, g in zip(params, grads)]
     return new, loss
+
+
+def make_sharded_train_step(cfg: CnnConfig, mesh, lr: float = 1e-2):
+    """The full train step over the mesh: (step, xsharding). The batch is
+    split over dp (x NHWC placed by xsharding, labels by P("dp")), the
+    parameters replicated (the global list, or DTensors placed with
+    P(None) everywhere); step(params, x, labels) -> (new_params, loss),
+    the loss the mean over the global batch on every rank, each gradient
+    summed over dp."""
+    xsharding = NamedSharding(mesh, P("dp", None, None, None))
+    lsharding = NamedSharding(mesh, P("dp"))
+    n_layers = len(cfg.filters) + 1
+    shards = spmd.shardings(mesh, [{"w": P(None), "b": P(None)}
+                                   for _ in range(n_layers)])
+
+    def step(params, x, labels):
+        batch = x.shape[0]
+        spmd.divide(batch, spmd.axis_size(mesh, "dp"), "batch")
+        xl, ll = local(x, xsharding), local(labels, lsharding)
+
+        def local_loss(lp):
+            logits = forward(lp, xl, cfg)
+            logz = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(logits, -1,
+                                  ll.to(torch.long)[:, None])[:, 0]
+            term = torch.sum(logz - picked) / batch
+            return term, term
+
+        return spmd.sgd_step(params, shards, mesh, lr, local_loss, ("dp",),
+                             ("dp",))
+
+    return step, xsharding

@@ -13,8 +13,13 @@ backward is torch autograd over the same ops (the reference's
 jax.value_and_grad); no kernel of the port runs here.
 
 Parameters are a list of {"w", "b"} dicts with the reference's layout
-(w: (fan_in, fan_out)). Not ported yet: make_sharded_train_step (ROADMAP.md
-queue 1, item 13).
+(w: (fan_in, fan_out)).
+
+make_sharded_train_step runs over a 1-D node mesh ("sp") of the port's
+parallel layer: H and the labels split by node rows, the weights
+replicated. The halo gather the reference leaves to GSPMD is written out:
+each layer all-gathers h @ W over sp (differentiable: its backward is a
+reduce-scatter) before this rank's block rows of the propagate.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ from ..device import resolve_device
 from ..ops.eltwise import apply_unary_op
 from ..ops.sparse import BsrMatrix
 from . import tpp_mlp
+from ..parallel import collectives as C
+from ..parallel import spmd
+from ..parallel.mesh import NamedSharding, P, local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,3 +157,61 @@ def train_step(params, plan, num_block_rows: int, h, labels, cfg: GcnConfig,
         new = [{k: (p - lr * g[k]).to(p.dtype) for k, p in layer.items()}
                for layer, g in zip(params, grads)]
     return new, loss
+
+
+def _local_plan(plan, r0: int, r1: int):
+    """The nonzero blocks of block rows [r0, r1), their rows counted from
+    r0: a rank's share of the propagate."""
+    rows, cols, blocks = plan
+    keep = (rows >= r0) & (rows < r1)
+    return rows[keep] - r0, cols[keep], blocks[keep]
+
+
+def make_sharded_train_step(cfg: GcnConfig, mesh, plan,
+                            num_block_rows: int, lr: float = 1e-2):
+    """The train step over a 1-D node mesh: (step, hsharding, lsharding).
+    H (n, in_dim) and the labels (n,) are node-sharded over "sp" (placed by
+    hsharding and lsharding, or global tensors cut locally), the weights
+    replicated; step(params, h, labels) -> (new_params, loss). Each layer
+    all-gathers h @ W over sp and multiplies this rank's block rows of the
+    operator; the loss is the mean over all nodes, the gradients summed
+    over sp. The plan is bound on the mesh's device once, here, and cut to
+    this rank's block rows."""
+    hsharding = NamedSharding(mesh, P("sp", None))
+    lsharding = NamedSharding(mesh, P("sp"))
+    sp = spmd.axis_size(mesh, "sp")
+    rows_l = spmd.divide(num_block_rows, sp, "block rows (nodes / block)")
+    r0 = spmd.axis_index(mesh, "sp") * rows_l
+    plan_dev = tuple(a.to(mesh.device) for a in plan)
+    mine = _local_plan(plan_dev, r0, r0 + rows_l)
+    group = spmd.group(mesh, "sp")
+    shards = spmd.shardings(mesh, [{"w": P(None), "b": P(None)}
+                                   for _ in range(len(cfg.hidden) + 1)])
+
+    def local_forward(lp, h):
+        for i, layer in enumerate(lp):
+            hw = torch.matmul(h.float(), layer["w"].float()).to(h.dtype)
+            if group is not None:
+                hw = C.all_gather(hw, group, axis=0)
+            hw = bsr_spmm(mine, hw, rows_l)
+            acc = hw.float() + layer["b"].float()[None, :]
+            if i < len(lp) - 1:
+                acc = apply_unary_op(cfg.activation, UnaryFlags.NONE, acc)
+            h = acc.to(h.dtype)
+        return h
+
+    def step(params, h, labels):
+        n = h.shape[0]
+        hl, ll = local(h, hsharding), local(labels, lsharding)
+
+        def local_loss(lp):
+            logits = local_forward(lp, hl).float()
+            logz = torch.logsumexp(logits, dim=1)
+            picked = logits.gather(1, ll.long()[:, None])[:, 0]
+            term = torch.sum(logz - picked) / n
+            return term, term
+
+        return spmd.sgd_step(params, shards, mesh, lr, local_loss, ("sp",),
+                             ("sp",))
+
+    return step, hsharding, lsharding

@@ -12,9 +12,12 @@ family (bf16 master weights held as two bf16 halves).
   * Parameters are a list of {"w", "b"} dicts with the reference's layout
     (w: (fan_in, fan_out)); init_params draws them from numpy's
     default_rng(seed) in the reference's order.
-
-Not ported yet: shard_params and the sharded step (ROADMAP.md queue 1,
-item 13).
+  * shard_params and make_sharded_train_step run over a (dp, tp) mesh of
+    the port's parallel layer: activations batch-sharded over dp, layers
+    alternately column- and row-parallel over tp (Megatron), with the
+    collectives GSPMD derives in the reference written out
+    (parallel/spmd.py). With an odd number of layers the last is
+    column-parallel and its output stays feature-sharded up to the loss.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import torch
 from ..descriptor import UnaryFlags, UnaryType
 from ..device import resolve_device
 from ..ops.eltwise import _trunc_f32_to_bf16_f32, apply_unary_op
+from ..parallel import spmd
+from ..parallel.mesh import NamedSharding, P, local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,3 +160,74 @@ def split_sgd_train_step(split_ps, x, y, cfg: MlpConfig, lr: float = 1e-3):
                    "b": split_sgd_update(*layer["b"], g["b"], lr)}
                   for layer, g in zip(split_ps, grads)]
     return new_ps, loss
+
+
+# ---------------------------------------------------------------------------
+# sharding: dp = batch, tp = features (Megatron column / row parallel)
+# ---------------------------------------------------------------------------
+
+def _specs(n_layers: int):
+    """The reference's alternating specs: even layers column-parallel
+    (output features over tp), odd layers row-parallel (input features)."""
+    return [{"w": P(None, "tp"), "b": P("tp")} if i % 2 == 0
+            else {"w": P("tp", None), "b": P(None)}
+            for i in range(n_layers)]
+
+
+def shard_params(params, mesh):
+    """Megatron-style alternating column/row parallel weight shardings: the
+    global parameter list (init_params or params_from_numpy) placed on the
+    mesh as DTensors (mesh.shard; no collective)."""
+    return spmd.place(params, mesh, _specs(len(params)))
+
+
+def _sharded_forward(params, x, cfg: MlpConfig, group):
+    """The local forward: this rank's batch rows through the column- and
+    row-parallel layers; returns this rank's block of the output (its
+    columns when the last layer is column-parallel)."""
+    h = x
+    for i, layer in enumerate(params):
+        linear = spmd.column_linear if i % 2 == 0 else spmd.row_linear
+        acc = linear(h, layer["w"], layer["b"], group)
+        if i < len(params) - 1:
+            acc = apply_unary_op(cfg.activation, UnaryFlags.NONE, acc)
+        h = acc.to(x.dtype)
+    return h
+
+
+def make_sharded_train_step(cfg: MlpConfig, mesh, lr: float = 1e-3):
+    """The full train step over a (dp, tp) mesh: (step, xsharding).
+    step(params, x, y) -> (new_params, loss) takes shard_params' params and
+    x, y placed by xsharding (or global tensors, cut locally); the new
+    parameters keep their shardings, the loss is on every rank. The mean
+    squared error is over the global batch (with the last layer
+    column-parallel, each rank's share over its columns); each layer's
+    gradient is summed over dp, never over tp."""
+    xsharding = NamedSharding(mesh, P("dp", None))
+    tp = spmd.axis_size(mesh, "tp")
+    dims = (cfg.in_dim, *cfg.hidden, cfg.out_dim)
+    for i in range(0, len(dims) - 1, 2):
+        spmd.divide(dims[i + 1], tp, f"layer {i} output features")
+    specs = _specs(len(dims) - 1)
+    shards = spmd.shardings(mesh, specs)
+    group = spmd.group(mesh, "tp")
+    feature_split = (len(dims) - 1) % 2 == 1       # last layer: column
+
+    def step(params, x, y):
+        xl, yl = local(x, xsharding), local(y, xsharding)
+        if feature_split:
+            # the output is this rank's columns: so is its target
+            yl = yl.tensor_split(tp, dim=1)[spmd.axis_index(mesh, "tp")]
+        spmd.divide(x.shape[0], spmd.axis_size(mesh, "dp"), "batch")
+        count = x.shape[0] * cfg.out_dim
+
+        def local_loss(lp):
+            pred = _sharded_forward(lp, xl, cfg, group)
+            term = torch.sum((pred.float() - yl.float()) ** 2) / count
+            return term, term
+
+        return spmd.sgd_step(
+            params, shards, mesh, lr, local_loss, ("dp",),
+            ("dp", "tp") if feature_split else ("dp",))
+
+    return step, xsharding

@@ -57,13 +57,13 @@ def _apply_mask_bias(scores, s, causal, bias):
     return scores
 
 
-def _hash_keep(bh, s, seed, thr, device):
+def _hash_keep(bh, s, seed, thr, device, head_map=None):
     """The kernel's position-hash dropout mask, evaluated by torch ops: keep
     iff hash(seed, b, row, col) >= thr (kernels/attention._rand_bits —
-    shared code, shared bits)."""
+    shared code, shared bits), b under the head map."""
     row = torch.arange(s, device=device)[None, :, None]
     col = torch.arange(s, device=device)[None, None, :]
-    b = torch.arange(bh, device=device)[:, None, None]
+    b = ka.head_index(bh, head_map, device)
     return ka._rand_bits(int(seed), b, row, col) >= thr
 
 
@@ -83,7 +83,8 @@ def _naive_probs(q, kT, scale, causal, bias=None):
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def _naive(q, kT, v, scale, causal, bias=None, dropout_p=0.0, seed=None):
+def _naive(q, kT, v, scale, causal, bias=None, dropout_p=0.0, seed=None,
+           head_map=None):
     """The reference composition: q(bh,s,hd) @ kT(bh,hd,s), +bias, mask,
     softmax, dropout, @ v — semantically the fused kernel (including the
     dropout mask bits)."""
@@ -91,7 +92,7 @@ def _naive(q, kT, v, scale, causal, bias=None, dropout_p=0.0, seed=None):
     probs = _naive_probs(q, kT, scale, causal, bias)
     if dropout_p > 0.0:
         keep = _hash_keep(bh, s, seed, ka._dropout_threshold(dropout_p),
-                          q.device)
+                          q.device, head_map)
         probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_p)),
                             torch.zeros((), device=q.device))
     acc = _acc_dtype(q.dtype)
@@ -99,7 +100,7 @@ def _naive(q, kT, v, scale, causal, bias=None, dropout_p=0.0, seed=None):
 
 
 def _naive_bwd(q, kT, v, bias, out, g, scale, causal, dropout_p, seed,
-               bias_grad):
+               bias_grad, head_map=None):
     """The reference's analytic backward of `_naive` (ops/attention.py
     :183-212), probabilities recomputed: returns (dq, dkT, dv, dbias or
     None). The products take f32 operands (f64 for f64 inputs); dbias is
@@ -111,7 +112,7 @@ def _naive_bwd(q, kT, v, bias, out, g, scale, causal, dropout_p, seed,
     zero = torch.zeros((), dtype=acc, device=q.device)
     if dropout_p > 0.0:
         keep = _hash_keep(bh, s, seed, ka._dropout_threshold(dropout_p),
-                          q.device)
+                          q.device, head_map)
         r = 1.0 / (1.0 - dropout_p)
         probs_d = torch.where(keep, probs * r, zero)
     else:
@@ -158,12 +159,13 @@ class _Core:
     for serving (no graph), the training forward and the backward."""
 
     def __init__(self, dtype, bh, s, hd, sc, causal, dropout_p, bias_bh,
-                 bias_requires_grad, use_fused):
+                 bias_requires_grad, use_fused, head_map=None):
         self.dtype, self.sc, self.causal = dtype, sc, causal
         self.dropout_p = dropout_p
+        self.head_map = head_map
         self.bias_grad = bias_requires_grad and bias_bh > 0
         kw = dict(causal=causal, scale=sc, bias_bh=bias_bh,
-                  dropout_p=dropout_p)
+                  dropout_p=dropout_p, head_map=head_map)
         self.fwd = self.fwd_lse = self.bwd = None
         if use_fused:
             self.fwd = ka.build_flash_attention(bh, s, hd, dtype, **kw)
@@ -176,7 +178,7 @@ class _Core:
         if self.fwd is not None:
             return self.fwd(seed, q, kT, v, bias)
         return _naive(q, kT, v, self.sc, self.causal, bias, self.dropout_p,
-                      seed)
+                      seed, self.head_map)
 
     def train_forward(self, seed, q, kT, v, bias):
         """(out, lse): the LSE-writing forward on the fused route; lse is
@@ -188,7 +190,8 @@ class _Core:
     def backward(self, seed, g, q, kT, v, bias, out, lse):
         if self.bwd is None:
             return _naive_bwd(q, kT, v, bias, out, g, self.sc, self.causal,
-                              self.dropout_p, seed, self.bias_grad)
+                              self.dropout_p, seed, self.bias_grad,
+                              self.head_map)
         # delta = rowsum(dout * out) in f32, lane-broadcast to the kernels'
         # (bh, s, 128) statistic layout (a view: the kernels read column 0)
         delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
@@ -202,7 +205,7 @@ class _Core:
 
 def _build_attention(desc) -> Kernel:
     (_, bh, s, hd, a_dt, causal, scale, dropout_p, bias_bh,
-     bias_requires_grad) = desc
+     bias_requires_grad, head_map) = desc
     dtype = to_torch(a_dt)
     sc = float(scale) if scale is not None else float(hd) ** -0.5
     has_bias = bias_bh > 0
@@ -211,7 +214,7 @@ def _build_attention(desc) -> Kernel:
     use_fused = ka.supported(s, hd, dtype) and not (
         bias_requires_grad and bias_bh == 1)
     core = _Core(dtype, bh, s, hd, sc, causal, dropout_p, bias_bh,
-                 bias_requires_grad, use_fused)
+                 bias_requires_grad, use_fused, head_map)
 
     def attn(q, kT, v, bias=None, seed=None):
         if has_bias and bias is None:
@@ -246,7 +249,8 @@ def dispatch_flash_attention(bh: int, s: int, hd: int,
                              scale: Optional[float] = None,
                              dropout_p: float = 0.0,
                              bias_bh: int = 0,
-                             bias_requires_grad: bool = False) -> Kernel:
+                             bias_requires_grad: bool = False,
+                             head_map=None) -> Kernel:
     """Fused attention kernel: kernel(q, kT, v[, bias=][, seed=]) -> out.
 
     q, v: (bh, s, hd); kT: (bh, hd, s) — K pre-transposed, as the
@@ -259,7 +263,14 @@ def dispatch_flash_attention(bh: int, s: int, hd: int,
     bias_requires_grad=True propagates exact bias gradients: directly for
     bias_bh == bh; for bias_bh == 1 the call takes the torch composition,
     which sums over the batch. Default False returns a zero bias cotangent
-    (the bias is treated as a constant)."""
+    (the bias is treated as a constant).
+
+    head_map=(b0, h0, nh_local, nh_global): this attention's bh = batches
+    x nh_local heads are a block of one over nh_global heads (a rank's
+    share of a data- and head-sharded attention), and the dropout mask is
+    drawn at each head's global batch-head index (b0 + i // nh_local) *
+    nh_global + h0 + i % nh_local, forward and backward, on both routes
+    (kernels/attention.check_head_map). None hashes the local index."""
     if bh <= 0 or s <= 0 or hd <= 0:
         raise ValueError(f"bad attention shape bh={bh} s={s} hd={hd}")
     if bias_bh not in (0, 1, bh):
@@ -270,7 +281,9 @@ def dispatch_flash_attention(bh: int, s: int, hd: int,
     if dtype not in (Datatype.F32, Datatype.BF16, Datatype.F16,
                      Datatype.F64):
         raise ValueError(f"unsupported attention dtype {dtype}")
+    head_map = (None if head_map is None
+                else ka.check_head_map(head_map, bh))
     desc = ("flash_attn", bh, s, hd, dtype, bool(causal),
             None if scale is None else float(scale), float(dropout_p),
-            int(bias_bh), bool(bias_requires_grad))
+            int(bias_bh), bool(bias_requires_grad), head_map)
     return get_registry().dispatch(desc, _build_attention)

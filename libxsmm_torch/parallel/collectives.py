@@ -17,23 +17,34 @@ Semantics, as `jax.lax`'s:
     source index (jax.lax.all_to_all(..., tiled=True));
   * all_gather(x, group, axis): the P blocks concatenated along `axis` in
     index order (tiled=True);
-  * all_reduce(x, group): the sum over the group.
-ppermute and all_to_all are autograd Functions: ppermute's backward is
-the inverse permutation, all_to_all's the reverse all-to-all.
+  * all_reduce(x, group): the sum over the group;
+  * reduce_scatter(x, group, axis): the sum over the group, cut into P
+    blocks along `axis`, block i to index i (jax.lax.psum_scatter, tiled).
+All of them are autograd Functions, for the collectives that GSPMD derives
+in the reference's sharded train steps and the port writes out
+(parallel/spmd.py): ppermute's backward is the inverse permutation,
+all_to_all's the reverse all-to-all, reduce_scatter's an all-gather;
+all_reduce's is the identity (the sum is consumed alike on every rank, as
+after a row-parallel product), all_gather's a reduce-scatter, or the rank's
+own block where the gathered tensor is consumed alike on every rank
+(replicated=True). copy_to (identity forward, all-reduce backward) is the
+other half of Megatron's pair, and psum (all-reduce both ways) the sum of a
+value whose consumers differ from rank to rank.
 
-The log. Every issued collective appends one entry to `log` with its kind
-in the reference's vocabulary ("collective_permute", "all_to_all",
-"all_gather", "all_reduce"), its payload bytes, shape, dtype and group
-size, whether it was staged (below), whether it was issued as a start with
-a separate wait (`ppermute_start`), and how many compute steps the caller
-marked (`mark_compute`) before it was issued and while it was in flight.
+The log. Every issued collective, forward or backward, appends one entry
+to `log` with its kind in the reference's vocabulary ("collective_permute",
+"all_to_all", "all_gather", "all_reduce", "reduce_scatter"), its payload
+bytes, shape, dtype and group size, whether it was staged (below), whether
+it was issued as a start with a separate wait (`ppermute_start`), and how
+many compute steps the caller marked (`mark_compute`) before it was issued
+and while it was in flight.
 The log stands where the reference parses lowered HLO (`lowered_text`):
 tests and chip_smoke.py hold its bytes against the comm models.
 "bytes" counts what the reference's comm models count: a permute's whole
 payload (a permute to this rank itself is a local copy, logged as the
 lowered program would hold it), the (P-1)/P of an all-to-all's operand that
-leaves the rank, the P-1 blocks an all-gather brings in, and 2 (P-1)/P of
-an all-reduce's operand (a ring all-reduce).
+leaves the rank, the P-1 blocks an all-gather brings in, 2 (P-1)/P of an
+all-reduce's operand (a ring all-reduce) and (P-1)/P of a reduce-scatter's.
 
 On a group of one rank every collective is local, as XLA elides it on one
 device: a permute to itself is a copy, an all-to-all or all-gather returns
@@ -242,8 +253,7 @@ def all_to_all(x: torch.Tensor, group, split_axis: int,
     return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
-def all_gather(x: torch.Tensor, group, axis: int = 0) -> torch.Tensor:
-    """jax.lax.all_gather(x, axis_name, axis=axis, tiled=True)."""
+def _all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     x = x.contiguous()
     if n == 1:
@@ -258,8 +268,7 @@ def all_gather(x: torch.Tensor, group, axis: int = 0) -> torch.Tensor:
     return out.to(x.device) if staged else out
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of x over `group` (jax.lax.psum), as a new tensor."""
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     if n == 1:
         _record("all_reduce", 0, x, group, False, peer="self")
@@ -269,3 +278,124 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     out = _host(x) if staged else x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=group)
     return out.to(x.device) if staged else out
+
+
+def _reduce_scatter(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """The sum over the group, cut into P blocks along `axis`, block i kept
+    by index i: one all-to-all of the P blocks (the (P-1)/P of the operand
+    a ring reduce-scatter moves), then the received blocks summed in index
+    order, so every rank adds the same terms in the same order."""
+    n = dist.get_world_size(group)
+    if x.shape[axis] % n:
+        raise ValueError(f"reduce_scatter: axis {axis} of size "
+                         f"{x.shape[axis]} does not split into {n}")
+    if n == 1:
+        _record("reduce_scatter", 0, x, group, False, peer="self")
+        return x.clone(memory_format=torch.contiguous_format)
+    send = torch.stack(torch.tensor_split(x, n, dim=axis))
+    staged = _staged(group, x)
+    _record("reduce_scatter", x.nbytes * (n - 1) // n, x, group, staged)
+    if staged:
+        send = _host(send)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if staged:
+        recv = recv.to(x.device)
+    out = recv[0].clone()
+    for i in range(1, n):
+        out += recv[i]
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis, replicated):
+        ctx.group, ctx.axis, ctx.replicated = group, axis, replicated
+        return _all_gather(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.replicated:
+            n = dist.get_world_size(ctx.group)
+            block = torch.tensor_split(g, n, dim=ctx.axis)[
+                dist.get_rank(ctx.group)]
+            return block.contiguous(), None, None, None
+        return _reduce_scatter(g, ctx.group, ctx.axis), None, None, None
+
+
+def all_gather(x: torch.Tensor, group, axis: int = 0,
+               replicated: bool = False) -> torch.Tensor:
+    """jax.lax.all_gather(x, axis_name, axis=axis, tiled=True);
+    differentiable. The backward gives each rank its block of the gradient
+    summed over the group (a reduce-scatter: every rank's consumers of the
+    gathered tensor differ, as the GCN's block rows do). replicated=True
+    says every rank of the group consumes the gathered tensor the same way
+    and holds the whole gradient already, so the backward takes this
+    rank's block of its own gradient and issues nothing."""
+    return _AllGather.apply(x, group, axis, bool(replicated))
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group` (jax.lax.psum), as a new tensor;
+    differentiable. The backward is the identity on each rank: the sum is
+    consumed the same way on every rank (replicated), each rank holds the
+    whole gradient of it, and a rank's own term gets exactly that
+    (Megatron's g: all-reduce forward, identity backward, after a
+    row-parallel product)."""
+    return _AllReduce.apply(x, group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: the identity forward, an all-reduce backward. Put
+    where a value replicated over the group enters work that each rank does
+    on its own share (a column-parallel product): each rank's gradient of
+    it is partial, and the backward sums them."""
+    return _CopyTo.apply(x, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group of a value whose consumers differ from rank
+    to rank: an all-reduce forward and an all-reduce backward (the
+    transpose of jax.lax.psum inside shard_map on an unreplicated
+    operand): all_reduce(copy_to(x))."""
+    return all_reduce(copy_to(x, group), group)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return _reduce_scatter(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.axis), None, None
+
+
+def reduce_scatter(x: torch.Tensor, group, axis: int = 0) -> torch.Tensor:
+    """jax.lax.psum_scatter(x, axis_name, scatter_dimension=axis,
+    tiled=True): the sum over the group, of which index i keeps block i
+    along `axis`; differentiable (the backward all-gathers the blocks'
+    gradients)."""
+    return _ReduceScatter.apply(x, group, axis)

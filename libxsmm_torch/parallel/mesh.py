@@ -39,6 +39,11 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):
+        # pickle rebuilds a tuple subclass from these: the entries, not
+        # the tuple of them
+        return tuple(self)
+
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(self)}"
 

@@ -82,11 +82,41 @@ def _imports(path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
-                            ROOT / "tests" / "torch_parallel_ranks.py"],
+                            ROOT / "tests" / "torch_parallel_ranks.py",
+                            ROOT / "tests" / "torch_sharded_ranks.py",
+                            ROOT / "tests" / "test_torch_cuda_sharded.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+# packages of finished kernels: the port's kernels are its own
+KERNEL_LIBRARIES = ("flash_attn", "xformers", "apex", "transformer_engine",
+                    "cupy", "triton", "deepspeed", "megatron", "fairscale")
+
+
+@pytest.mark.parametrize("path", [
+    PKG / "parallel" / "spmd.py", PKG / "parallel" / "collectives.py",
+    PKG / "models" / "tpp_attention.py", PKG / "models" / "tpp_mlp.py",
+    PKG / "models" / "tpp_cnn.py", PKG / "models" / "tpp_gcn.py",
+    PKG / "models" / "tpp_moe.py", ROOT / "tests" / "torch_sharded_ranks.py",
+    ROOT / "tests" / "test_torch_cuda_sharded.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_sharded_steps_import_no_kernel_library(path):
+    """The sharded train steps and their tests import no JAX and no
+    library of finished kernels (no library GEMM or attention, no
+    Megatron): the collectives are the port's own (parallel/collectives.py)
+    and the attention and dropout its hand-written kernels. No path calls
+    PyTorch's attention or dropout in their place, nor DTensor's
+    redistribution."""
+    mods = [m.split(".")[0] for m in _imports(path)]
+    bad = [m for m in mods if m in FORBIDDEN + KERNEL_LIBRARIES]
+    assert not bad, f"{path} imports {bad}"
+    text = path.read_text()
+    for word in ("scaled_dot_product_attention", "F.dropout(",
+                 "functional.dropout", "redistribute(", "torch.compile"):
+        assert word not in text, f"{path} uses {word}"
 
 
 def test_cuda_source_is_hand_written():

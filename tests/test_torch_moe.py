@@ -218,10 +218,21 @@ def test_per_token_oracle(top_k, cf):
 
 
 def test_mesh_is_not_ported_yet():
-    cfg_r, cfg_p = _cfgs(dim=8, hidden=16, n_experts=4)
-    _, pp = _params(cfg_r, seed=1)
-    x = torch.zeros((4, 8))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.forward(pp, x, cfg_p, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.train_step(pp, x, x, cfg_p, mesh=object())
+    """A mesh is now taken (the sharded MoE is ported: its cases are in
+    tests/test_torch_sharded_moe.py). On a one-rank (dp 1, ep 1) mesh, in
+    a gloo world of one, the einsum variant's forward and train step
+    equal the unsharded ones (forward within 1e-6, the step's loss and
+    parameters within 1e-6: the same routing, the same products)."""
+    import torch_sharded_ranks as SR
+    from libxsmm_torch.scripts.ranks import run_ranks
+    (got,) = run_ranks(SR.world_moe_one, 1, timeout=120.0)
+    cfg = SR.MOE_CFGS["step"]
+    params = P.init_params(cfg, seed=SR.MOE_SEEDS["step"], device="cpu")
+    x, y = (torch.as_tensor(a) for a in SR.moe_inputs("step"))
+    want_y, want_aux = P.forward(params, x, cfg)
+    new, loss = P.train_step(params, x, y, cfg)
+    assert float((got["y"] - want_y).abs().max()) < 1e-6
+    assert abs(float(got["aux"]) - float(want_aux)) < 1e-6
+    assert abs(float(got["loss"]) - float(loss)) < 1e-6
+    for k in new:
+        assert float((got["params"][k] - new[k]).abs().max()) < 1e-6
