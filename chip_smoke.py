@@ -236,7 +236,22 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     SpMM) it asserts the path and prints the achieved TFLOP/s (of the
     kernel's own products and of the useful ones) and the kernel / library
     ratio;
-15. prints one JSON line with the per-kernel numbers (nineteen rows) and,
+15. drives the tooling at full width: Kernel.lower_text of
+    dispatch_gemm_batched_packed at the headline (16384 x 32^3 f32) and of
+    dispatch_gemm_batched at the same shape (each text must name its one
+    launch, its route and each entry's registers and non-empty SASS, and
+    be the same twice), generator_packed_spgemm_bcsc_kernel at bcsc20
+    (1024^3, 32 x 32 blocks, density 0.2, bf16 -> f32, strategy "dense":
+    the densifier's launch and SASS), dump into a temporary directory, the
+    manifest CLI (libxsmm_torch.utils.cli) with --bench on one batched
+    gemm and the bcsc20 matrix, and the AOT warm start: the headline packed
+    SMM exported into a temporary KV log (libxsmm_torch.aot), then loaded
+    in a child process in a copy of the package without kernels/build/,
+    with no nvcc on PATH and no toolkit under CUDA_HOME
+    (libxsmm_torch.scripts.aot_warm), its result within 1e-5 of the plain
+    version; prints lower_text's host time per call and the cold nvcc
+    build time beside the child's time to its first result;
+16. prints one JSON line with the per-kernel numbers (nineteen rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
@@ -3148,6 +3163,171 @@ def block_breakdown(block, x, block_ops, ms):
           f"{sum(stages.values()):.4f}; whole forward {total:.4f}")
 
 
+def _lowered(name, text, kernel):
+    """Check a lower_text text on the card: exactly one launch of `kernel`,
+    and under it exactly the one entry that ran (the library's launch log),
+    with resources and non-empty SASS. Returns (its route, its entry and
+    registers, SASS lines)."""
+    import re
+    launches = re.findall(r"^// launch (\w+) x(\d+): route (\w+)(.*?),",
+                          text, re.M)
+    if [(n, c) for n, c, _, _ in launches] != [(kernel, "1")]:
+        raise AssertionError(f"{name}: launches {launches}, want one "
+                             f"{kernel}")
+    entries = re.findall(r"^// entry (\S+) x(\d+): registers (\d+)", text,
+                         re.M)
+    sass = [int(v) for v in re.findall(r"^// sass \S+: (\d+) lines", text,
+                                       re.M)]
+    if ([n for _, n, _ in entries] != ["1"] or len(sass) != 1
+            or sass[0] == 0):
+        raise AssertionError(f"{name}: entries {entries}, SASS lines {sass}")
+    return ((launches[0][2] + launches[0][3]).strip(),
+            (entries[0][0], entries[0][2]), sass[0])
+
+
+def tooling_path(dev, built, smi):
+    """The tooling at full width on the card (phase 15): lower_text of the
+    headline packed SMM and the batched SMM, the generator at bcsc20, dump,
+    the manifest CLI with --bench, and the AOT warm start in a child
+    process without nvcc. Every check raises."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import libxsmm_torch as xt
+    from libxsmm_torch import aot, native
+    from libxsmm_torch.config import CONFIG
+    from libxsmm_torch.descriptor import GemmFlags, GemmShape, SpgemmConfig
+    from libxsmm_torch.dtypes import Datatype
+    from libxsmm_torch.ops.sparse import BcscMatrix
+    from libxsmm_torch.scripts.aot_warm import cold_start
+    from libxsmm_torch.utils import cli
+    from libxsmm_torch.utils.mtx import write_mtx
+
+    t_path = time.perf_counter()
+    B, m = 16384, 32
+    G = B // 4
+    smm = GemmShape(m, m, m)
+    B0 = GemmFlags.BETA_0
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+
+    texts = {}
+    for name, kern, args, counter in (
+            ("packed SMM", xt.dispatch_gemm_batched_packed(smm, B0),
+             (meta(G, m, 128),) * 2, "packed_batched_gemm"),
+            ("batched SMM", xt.dispatch_gemm_batched(smm, B0),
+             (meta(B, m, m),) * 2, "batched_gemm")):
+        t0 = time.perf_counter()
+        text = kern.lower_text(*args, device=dev)
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = kern.lower_text(*args, device=dev)
+        t_again = time.perf_counter() - t0
+        if again != text:
+            raise AssertionError(f"lower_text of the {name} changed between "
+                                 "two calls")
+        route, (entry, regs), lines = _lowered(name, text, counter)
+        texts[name] = (kern, args, text)
+        print(f"  tooling lower_text {name} {kern.name}: {route}, entry "
+              f"{entry} ({regs} registers), {lines} SASS lines, {len(text)} "
+              f"characters; host time {t_first:.3f} s first, {t_again:.3f} "
+              f"s again")
+    if "route cuda bulk x1" not in texts["batched SMM"][2]:
+        raise AssertionError("the batched SMM's text left the bulk route")
+
+    # bcsc20 (bench.py:694-697): 1024^3, 32 x 32 blocks at density 0.2,
+    # bf16 -> f32, the densify lowering
+    rng = np.random.default_rng(2)
+    k = n = 1024
+    bmat = rng.standard_normal((k, n)).astype(np.float32)
+    keep = rng.random((k // 32, n // 32)) < 0.2
+    bmat *= np.kron(keep, np.ones((32, 32), np.float32))
+    bcsc = BcscMatrix.from_dense(bmat, 32, 32)
+    t0 = time.perf_counter()
+    gen = xt.generator_packed_spgemm_bcsc_kernel(
+        GemmShape(1024, n, k, a_in_type=Datatype.BF16,
+                  b_in_type=Datatype.BF16, out_type=Datatype.F32), B0,
+        SpgemmConfig(1, 32, 32), bcsc.indptr, bcsc.indices)
+    t_gen = time.perf_counter() - t0
+    route, (entry, regs), lines = _lowered("bcsc20 generator", gen.code,
+                                           "bcsc_densify")
+    if (gen.arch, gen.kind) != ("h100", "pspgemm_bcsc"):
+        raise AssertionError(f"generator: arch {gen.arch}, kind {gen.kind}")
+    print(f"  tooling generator_packed_spgemm_bcsc_kernel bcsc20 "
+          f"{gen.routine_name}: {route}, entry {entry} ({regs} registers), "
+          f"{lines} SASS lines, code_size {gen.code_size}; host time "
+          f"{t_gen:.3f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kern, args, text = texts["packed SMM"]
+        prev = CONFIG.dump_dir
+        CONFIG.dump_dir = os.path.join(tmp, "dump")
+        try:
+            path = kern.dump(*args, device=dev)
+        finally:
+            CONFIG.dump_dir = prev
+        with open(path) as f:
+            if f.read() != text:
+                raise AssertionError("dump wrote another text than "
+                                     "lower_text")
+        print(f"  tooling dump: {os.path.basename(path)}, "
+              f"{os.path.getsize(path)} bytes")
+
+        # the manifest CLI: one batched gemm and bcsc20 from its .mtx
+        mtx = os.path.join(tmp, "bcsc20.mtx")
+        write_mtx(mtx, bmat)
+        manifest = os.path.join(tmp, "manifest.json")
+        with open(manifest, "w") as f:
+            json.dump({"gemm": [{"m": m, "n": m, "k": m, "dtype": "f32",
+                                 "beta": 0, "batch": B}],
+                       "spgemm": [{"kind": "bcsc", "mtx": mtx, "m": 1024,
+                                   "bk": 32, "bn": 32, "dtype": "bf16",
+                                   "out_dtype": "f32",
+                                   "strategy": "dense"}]}, f)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([manifest, "--bench"])
+        t_cli = time.perf_counter() - t0
+        lines_ = out.getvalue().splitlines()
+        if (rc != 0 or lines_[-1] != "xsmm-gen: 2 kernels compiled"
+                or not lines_[0].endswith("GF/s")
+                or not lines_[1].endswith("Gnnz/s")):
+            raise AssertionError(f"the manifest CLI: rc {rc}, {lines_}")
+        for line in lines_:
+            print(f"  tooling cli: {line}")
+        print(f"  tooling cli: {t_cli:.2f} s for the manifest")
+
+        # AOT: export the headline packed SMM, load it in a child process
+        # from a copy of the package without kernels/build/ and without
+        # nvcc, and hold its result against the plain version
+        store = native.PersistentKv(os.path.join(tmp, "aot.xkv"))
+        gen_ = torch.Generator(device=dev).manual_seed(3)
+        a = torch.randn(G, m, 128, generator=gen_, device=dev)
+        key = aot.export_kernel(kern, (a, a), store)
+        res = cold_start(os.path.join(tmp, "aot.xkv"), key, G,
+                         os.path.join(tmp, "copy"))
+    from libxsmm_torch.kernels import _build
+    want = [_build.library_path("gemm_kernels").name]
+    if (res["normf_rel"] > TOL_F32 or res["restored"] != want
+            or res["build_log"]):
+        raise AssertionError(f"AOT child: {res}")
+    cold = built.get("gemm_kernels")
+    print(f"  tooling aot ({smi}): cold build of gemm_kernels.cu by nvcc "
+          + (f"{cold:.2f} s (in parallel with the other sources)"
+             if cold is not None else "not run (the library was built)")
+          + f"; the child's first result {res['first_result_s']:.3f} s "
+          f"after load_kernel, {res['process_s']:.2f} s for the whole "
+          f"process (interpreter and torch import included), no nvcc, "
+          f"normf_rel {res['normf_rel']:.2e}")
+    print(f"tooling path: {time.perf_counter() - t_path:.2f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3847,6 +4027,9 @@ def main() -> int:
               f"{ms(K.build_packed_batched_gemm(desc, G, rpt=rpt), ap, bp):.4f}"
               " ms")
 
+    # 15. the tooling, on its own
+    tooling_path(dev, built, smi)
+
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -3871,6 +4054,9 @@ def main() -> int:
               f"by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "
               f"{lib}{cast}); max_abs_err {r['max_abs_err']:.3e}"
               f"; {r['launches']} main-path launches")
+    from libxsmm_torch.scripts import timing
+    print(f"device_split: {timing.empty_sessions} profiler sessions recorded "
+          "no CUDA kernel and were run again")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

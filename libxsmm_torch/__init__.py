@@ -40,7 +40,13 @@ Ported so far:
     utilities utils/{mathx,sync,memutil,mtx}.py;
   * the parallel layer on torch.distributed (parallel/), and the sharded
     train steps of the five models on it (parallel/spmd.py, each model's
-    shard_params / make_sharded_train_step).
+    shard_params / make_sharded_train_step);
+  * the tooling: Kernel.lower_text / dump (lowering.py: one call's aten
+    operators and, on the card, its CUDA launches with their resources and
+    SASS), the generator entry points (generator.py), AOT export of built
+    kernels into the KV log (aot.py), the xsmm-gen CLI (utils/cli.py), the
+    native registry bindings (native.py), the reference-oracle loader
+    (utils/refimpl.py) and the multi-device dry run (scripts/dryrun.py).
 The kernels are hand-written CUDA for sm_90a. A kernel follows the device of
 its tensors: CUDA tensors launch the CUDA kernel, CPU tensors run its plain
 torch version. libxsmm_torch never imports jax or libxsmm_tpu.
@@ -139,6 +145,22 @@ from .ops.sparse import (BcscMatrix, BsrMatrix, CscMatrix, CsrMatrix,
                          create_packed_spgemm_csr, create_spgemm_csr_areg)
 from .ops.packed import (create_packed_gemm, create_packed_gemm_ac_rm,
                          create_packed_gemm_bc_rm)
+from .generator import (GeneratedCode, XsmmGeneratorError,
+                        generator_gemm_directasm, generator_gemm_inlineasm,
+                        generator_gemm_kernel,
+                        generator_gemm_reference_kernel,
+                        generator_mateltwise_kernel,
+                        generator_mateltwise_reference_kernel,
+                        generator_matequation_kernel,
+                        generator_matequation_reference_kernel,
+                        generator_packed_gemm, generator_packed_gemm_ac_rm,
+                        generator_packed_gemm_bc_rm,
+                        generator_packed_spgemm_bcsc_kernel,
+                        generator_packed_spgemm_csc_kernel,
+                        generator_packed_spgemm_csr_kernel,
+                        generator_spgemm, generator_spgemm_csc_kernel,
+                        generator_spgemm_csr_kernel,
+                        generator_spgemm_csr_reg_kernel, strerror)
 from .utils.timer import (TimerInfo, get_timer_info,
                           tick as timer_tick, duration as timer_duration,
                           tickint as timer_tickint,

@@ -10,10 +10,11 @@ The build happens at first use, into `kernels/build/` (listed in
 .gitignore), one nvcc process per source, all started together. The
 library name carries a hash of its source and of the shared headers
 (`csrc/*.cuh`), so an edited source is rebuilt and a stale library is never
-loaded. Libraries are loaded with ctypes;
-kernels/gemm.py declares the argument types. No library links against
-libcuda: the one call into it, cuTensorMapEncodeTiled for the BRGEMM's TMA
-maps, is looked up at run time (cudaGetDriverEntryPoint). A failed build
+loaded. Libraries are loaded with ctypes; kernels/gemm.py declares the
+argument types. Every library keeps a launch log (csrc/xsmm_launches.cuh),
+which launch_log() reads. No library links against libcuda: the one call
+into it, cuTensorMapEncodeTiled for the BRGEMM's TMA maps, is looked up at
+run time (cudaGetDriverEntryPoint). A failed build
 raises: there is no fallback to the plain torch versions for CUDA
 tensors.
 """
@@ -42,16 +43,18 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def tool(name: str) -> str:
+    """The path of one of the CUDA toolkit's programs (nvcc, cuobjdump),
+    looked up on PATH, then under CUDA_HOME and /usr/local/cuda; raises
+    when it is not found."""
+    found = shutil.which(name)
     if found:
         return found
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
-                       "CUDA toolkit's nvcc (PATH, CUDA_HOME or "
-                       "/usr/local/cuda)")
+        if root and os.path.exists(os.path.join(root, "bin", name)):
+            return os.path.join(root, "bin", name)
+    raise RuntimeError(f"{name} not found: it comes with the CUDA toolkit "
+                       "(PATH, CUDA_HOME or /usr/local/cuda)")
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
@@ -71,7 +74,7 @@ def build_all(timeout: float = 600.0) -> Dict[str, float]:
     if not todo:
         return {}
     BUILD.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = tool("nvcc")
     procs = []
     t0 = time.perf_counter()
     for src, out in todo:
@@ -127,6 +130,12 @@ def kernel_resources(stem: str, needle: str = "") -> List[tuple]:
     return found
 
 
+def library_path(stem: str) -> pathlib.Path:
+    """The path of the library built from csrc/<stem>.cu for this checkout's
+    sources (it need not exist yet)."""
+    return _target(CSRC / f"{stem}.cu")
+
+
 def load(stem: str) -> ctypes.CDLL:
     """The loaded library built from csrc/<stem>.cu (built on first use)."""
     lib: Optional[ctypes.CDLL] = _libs.get(stem)
@@ -141,3 +150,25 @@ def load(stem: str) -> ctypes.CDLL:
                 build_all()
             _libs[stem] = ctypes.CDLL(str(_target(src)))
         return _libs[stem]
+
+
+def read_launch_log(lib: ctypes.CDLL) -> Dict[int, int]:
+    """{host address of a kernel: launches so far} of one library's launch
+    log (csrc/xsmm_launches.cuh)."""
+    lib.xsmm_launch_log.restype = ctypes.c_int
+    lib.xsmm_launch_log.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.POINTER(ctypes.c_longlong),
+                                    ctypes.c_int]
+    cap = 256
+    fns = (ctypes.c_void_p * cap)()
+    counts = (ctypes.c_longlong * cap)()
+    n = lib.xsmm_launch_log(fns, counts, cap)
+    if not 0 <= n <= cap:
+        raise RuntimeError("the launch log overflowed: more kernels were "
+                           "launched than csrc/xsmm_launches.cuh holds")
+    return {fns[i]: counts[i] for i in range(n)}
+
+
+def launch_log() -> Dict[str, Dict[int, int]]:
+    """The launch log of every loaded library, by source stem."""
+    return {stem: read_launch_log(lib) for stem, lib in list(_libs.items())}

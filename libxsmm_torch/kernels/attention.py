@@ -45,6 +45,14 @@ _M32 = 0xFFFFFFFF
 # it launches its CUDA kernel, and nowhere else
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
             "flash_attention_bwd_dq": 0}
+# the source behind each counter and the CUDA kernels its launches run, by
+# name (lowering.py files each logged entry under its counter)
+ENTRIES = {"flash_attention_fwd": ("attention_kernels", (
+               "flash_fwd_kernel", "flash_fwd_mma_kernel")),
+           "flash_attention_bwd_dkv": ("attention_bwd_kernels", (
+               "flash_bwd_dkv_kernel", "flash_bwd_dkv_mma_kernel")),
+           "flash_attention_bwd_dq": ("attention_bwd_kernels", (
+               "flash_bwd_dq_kernel", "flash_bwd_dq_mma_kernel"))}
 
 
 def reset_launches() -> None:

@@ -83,6 +83,7 @@
 
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
+#include "xsmm_launches.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
@@ -887,6 +888,7 @@ static int launch(K kern, size_t smem, dim3 grid, int threads,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
+  note_launch(kern);
   kern<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }

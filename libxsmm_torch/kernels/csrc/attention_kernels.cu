@@ -64,6 +64,7 @@
 
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
+#include "xsmm_launches.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
@@ -484,6 +485,7 @@ static int launch_flash_mma(const void* q, const void* kT, const void* v,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, s / BQ);   // x runs fastest: every head's tile qi, then qi+1
+  note_launch(kern);
   kern<<<grid, MQ_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kT),
@@ -526,6 +528,7 @@ static int launch_flash(const void* q, const void* kT, const void* v,
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(bh, s / BQ);   // x runs fastest: every head's tile qi, then qi+1
+  note_launch(kern);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kT),
       static_cast<const T*>(v), static_cast<const float*>(bias), bias_stride,

@@ -61,6 +61,7 @@
 #include <cuda_runtime.h>
 
 #include "xsmm_common.cuh"
+#include "xsmm_launches.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1, T_F16 = 2 };
 
@@ -246,16 +247,19 @@ static int launch_dropout(const void* x, void* out, void* mask, long long n,
   const long long cap = (long long)num_sms * 16;   // grid-stride beyond
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  if (form == MASK_PACKED)
+  if (form == MASK_PACKED) {
+    note_launch(dropout_packed_kernel<T, false>);
     dropout_packed_kernel<T, false><<<(unsigned)blocks, 256, 0, st>>>(
         static_cast<const T*>(x), static_cast<T*>(out),
         static_cast<uint16_t*>(mask), n / cols, cols, p, scale, seed,
         aligned && (cols * sizeof(T)) % 16 == 0, DropBlock{});
-  else
+  } else {
+    note_launch(dropout_kernel<T>);
     dropout_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
         static_cast<const T*>(x), static_cast<T*>(out),
         form == MASK_BYTES ? static_cast<uint8_t*>(mask) : nullptr, n, p,
         scale, seed, aligned);
+  }
   return cudaGetLastError();
 }
 
@@ -277,6 +281,7 @@ static int launch_dropout_block(const void* x, void* out, void* mask,
     blocks = (rows * ((cols + 15) / 16) + 255) / 256;
     if (blocks > cap) blocks = cap;
     if (blocks < 1) blocks = 1;
+    note_launch(dropout_packed_kernel<T, true>);
     dropout_packed_kernel<T, true><<<(unsigned)blocks, 256, 0, st>>>(
         static_cast<const T*>(x), static_cast<T*>(out),
         static_cast<uint16_t*>(mask), rows, (int)cols, p, scale, seed, vec,
@@ -291,6 +296,7 @@ static int launch_dropout_block(const void* x, void* out, void* mask,
   blocks = (rows + (256 >> tpr_log2) - 1) / (256 >> tpr_log2);
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
+  note_launch(dropout_block_kernel<T>);
   dropout_block_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
       static_cast<const T*>(x), static_cast<T*>(out),
       form == MASK_BYTES ? static_cast<uint8_t*>(mask) : nullptr, rows, cols,
@@ -448,6 +454,7 @@ static int launch_sr(const void* x, void* out, long long n, uint32_t seed,
   const long long cap = (long long)num_sms * 16;   // grid-stride beyond
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
+  note_launch(sr_kernel<T, TGT>);
   sr_kernel<T, TGT><<<(unsigned)blocks, 256, 0, st>>>(
       static_cast<const T*>(x),
       static_cast<typename SrTarget<TGT>::bits_t*>(out), n, seed, aligned);

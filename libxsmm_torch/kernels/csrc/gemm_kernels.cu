@@ -26,6 +26,7 @@
 #include <stdint.h>
 
 #include "xsmm_wgmma.cuh"
+#include "xsmm_launches.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1, T_I8 = 2, T_I32 = 3 };
 enum { EPI_NONE = 0, EPI_RELU = 1, EPI_X2 = 2, EPI_TANH = 3, EPI_SIGMOID = 4,
@@ -213,6 +214,7 @@ static cudaError_t launch_packed_smm(const void* a, const void* b,
   const cudaError_t e = ensure_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(G, (m + MT - 1) / MT);
+  note_launch(kern);
   kern<<<grid, 256, smem, s>>>(static_cast<const TIn*>(a),
                                static_cast<const TIn*>(b),
                                static_cast<const Acc*>(c),
@@ -522,6 +524,7 @@ static cudaError_t launch_batched_rm(bool vec, const void* a, const void* b,
                   : batched_gemm_ring_kernel<TIn, TOut, RM, false>;
   const cudaError_t e = ensure_smem(kern, smem);
   if (e != cudaSuccess) return e;
+  note_launch(kern);
   kern<<<grid, BG_THREADS, smem, s>>>(
       static_cast<const TIn*>(a), static_cast<const TIn*>(b),
       static_cast<const float*>(c), static_cast<TOut*>(out), B, m, n, k, mt,
@@ -700,6 +703,7 @@ template <typename TOut>
 static cudaError_t launch_brgemm_reduce(const void* ws, const void* c0,
                                         const void* d, void* out, long mn,
                                         int splits, int epi, cudaStream_t s) {
+  note_launch(brgemm_reduce_kernel<TOut>);
   brgemm_reduce_kernel<TOut><<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(ws), static_cast<const float*>(c0),
       static_cast<const float*>(d), static_cast<TOut*>(out), mn, splits, epi);
@@ -1132,6 +1136,7 @@ static cudaError_t launch_packed_brgemm_wgmma(const void* a, const void* b,
   cudaError_t e = ensure_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM, splits);
+  note_launch(kern);
   kern<<<grid, TC_THREADS, smem, s>>>(amap, bmap, static_cast<float*>(ws), m,
                                       n, qk, K, kchunk);
   e = cudaGetLastError();
@@ -1169,6 +1174,7 @@ static cudaError_t launch_packed_brgemm_tma_fma(const void* a, const void* b,
   const cudaError_t e = ensure_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((n + TF_BN - 1) / TF_BN, (m + TF_BM - 1) / TF_BM, splits);
+  note_launch(kern);
   kern<<<grid, TF_THREADS, smem, s>>>(amap, bmap, static_cast<float*>(ws), m,
                                       n, qk, K, kchunk);
   return cudaGetLastError();
@@ -1182,6 +1188,7 @@ static cudaError_t launch_packed_brgemm(const void* a, const void* b,
                                         int splits, int epi, cudaStream_t s) {
   const long K = (long)G * qk;
   const dim3 grid((n + BR_BN - 1) / BR_BN, (m + BR_BM - 1) / BR_BM, splits);
+  note_launch(brgemm_partial_kernel<TIn, SOL>);
   brgemm_partial_kernel<TIn, SOL><<<grid, 256, 0, s>>>(
       static_cast<const TIn*>(a), static_cast<const TIn*>(b),
       static_cast<float*>(ws), m, n, qk, K, kchunk);
@@ -1368,6 +1375,7 @@ int xsmm_packed_smm_passthrough(const void* a, const void* b, void* out,
   const long long grid = (units + PT_THREADS - 1) / PT_THREADS;
   if (units < 0 || grid > 2147483647LL) return cudaErrorInvalidValue;
   if (units == 0) return cudaSuccess;
+  note_launch(packed_smm_passthrough_kernel);
   packed_smm_passthrough_kernel<<<(unsigned)grid, PT_THREADS, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(a), static_cast<const float4*>(b),

@@ -80,6 +80,7 @@
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
 #include "xsmm_wgmma.cuh"
+#include "xsmm_launches.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
@@ -775,6 +776,7 @@ static int launch_spmm(const void* a, const void* vals, const int* ptr,
   const long long gx = (long long)(n / bn) * nchunk;
   const long long gy = (m + TM - 1) / TM;
   if (gx > 2147483647LL || gy > 65535) return cudaErrorInvalidConfiguration;
+  note_launch(bcsc_spmm_kernel<TI, TO>);
   bcsc_spmm_kernel<TI, TO><<<dim3((unsigned)gx, (unsigned)gy), 128, 0, st>>>(
       static_cast<const TI*>(a), static_cast<const TI*>(vals), ptr, rows,
       vidx, static_cast<TO*>(out), m, k, n, bk, bn, nzero, nchunk);
@@ -799,6 +801,7 @@ static int launch_spmm_mma_tn(const void* a, const void* vals, const int* ptr,
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  note_launch(kern);
   kern<<<dim3((unsigned)gx, (unsigned)gy), MM_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(vals), ptr, rows, vidx,
@@ -837,6 +840,7 @@ static int launch_pdl(void (*kern)(Exp...), dim3 grid, int threads, int smem,
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = pdl ? 1 : 0;
+  note_launch(kern);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;

@@ -80,6 +80,7 @@
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
 #include "xsmm_wgmma.cuh"
+#include "xsmm_launches.cuh"
 
 namespace {
 
@@ -232,6 +233,7 @@ cudaError_t launch_minimal(const CUtensorMap& amap, const CUtensorMap& rmap,
   const cudaError_t e = set_smem(bcsc_lab_minimal_wgmma_kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((m + MIN_ROWS - 1) / MIN_ROWS, n / GW);
+  note_launch(bcsc_lab_minimal_wgmma_kernel);
   bcsc_lab_minimal_wgmma_kernel<<<grid, 128 + 32, smem, st>>>(
       amap, rmap, out, m, n, U, stages);
   return cudaGetLastError();
@@ -549,6 +551,7 @@ int launch(K kern, const Args& p, int x, size_t smem) {
   const cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(x, (p.m + TM - 1) / TM);
+  note_launch(kern);
   kern<<<grid, T::THREADS, smem, p.st>>>(
       p.a, p.vals, p.krows, p.gmap, p.out, p.m, p.k, p.n, p.U, p.nzero);
   return cudaGetLastError();

@@ -43,6 +43,12 @@ from .gemm import (_num_sms, _on_cuda, _on_device, _ptr, _raise_on_error,
                    _stream)
 
 launches = {"dropout": 0, "stochastic_round": 0}
+# the source behind each counter and the CUDA kernels its launches run, by
+# name (lowering.py files each logged entry under its counter)
+ENTRIES = {"dropout": ("eltwise_kernels", (
+               "dropout_kernel", "dropout_packed_kernel",
+               "dropout_block_kernel")),
+           "stochastic_round": ("eltwise_kernels", ("sr_kernel",))}
 
 
 def reset_launches() -> None:

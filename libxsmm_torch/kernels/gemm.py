@@ -53,6 +53,16 @@ launches = {"batched_gemm": 0, "packed_batched_gemm": 0, "packed_brgemm": 0,
 path_launches = {name: {"wgmma": 0, "tma_fma": 0, "fma": 0}
                  for name in ("packed_brgemm", "packed_brgemm_sol")}
 path_launches["batched_gemm"] = {"bulk": 0, "cp_async": 0}
+# the source behind each counter and the CUDA kernels its launches run, by
+# name (lowering.py files each logged entry under its counter)
+_BRGEMM = ("brgemm_partial_wgmma_kernel", "brgemm_partial_tma_fma_kernel",
+           "brgemm_partial_kernel", "brgemm_reduce_kernel")
+ENTRIES = {"batched_gemm": ("gemm_kernels", ("batched_gemm_ring_kernel",)),
+           "packed_batched_gemm": ("gemm_kernels", ("packed_smm_kernel",)),
+           "packed_brgemm": ("gemm_kernels", _BRGEMM),
+           "packed_brgemm_sol": ("gemm_kernels", _BRGEMM),
+           "packed_smm_passthrough": ("gemm_kernels",
+                                      ("packed_smm_passthrough_kernel",))}
 
 
 def reset_launches() -> None:

@@ -74,6 +74,18 @@ from .gemm import (_aligned16, _check, _num_sms, _on_cuda, _on_device, _ptr,
 # they launch their CUDA kernel, and nowhere else
 launches = {"bcsc_spmm": 0, "bcsc_spmm_union": 0, "bcsc_densify": 0,
             "bcsc_spmm_super": 0, "bcsc_union_compact": 0}
+# the source behind each counter and the CUDA kernels its launches run, by
+# name (lowering.py files each logged entry under its counter)
+ENTRIES = {"bcsc_spmm": ("spmm_kernels", ("bcsc_spmm_kernel",
+                                           "bcsc_spmm_mma_kernel")),
+           "bcsc_spmm_super": ("spmm_kernels", ("bcsc_spmm_kernel",
+                                                 "bcsc_spmm_mma_kernel")),
+           "bcsc_spmm_union": ("spmm_kernels", ("bcsc_union_kernel",
+                                                 "bcsc_union_mma_kernel")),
+           "bcsc_union_compact": ("spmm_kernels", (
+               "bcsc_union_compact_bulk_kernel",
+               "bcsc_union_compact_kernel")),
+           "bcsc_densify": ("spmm_kernels", ("bcsc_densify_kernel",))}
 
 
 def reset_launches() -> None:

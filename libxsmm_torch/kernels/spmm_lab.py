@@ -51,6 +51,13 @@ from .spmm import GROUP, BcscUnionCompact, _index
 # kernel launches since the last reset_launches(); the wrappers add one where
 # they launch their CUDA kernel, and nowhere else
 launches = {"bcsc_lab_minimal": 0, "bcsc_lab_chunk": 0, "bcsc_lab_dspipe": 0}
+# the source behind each counter and the CUDA kernels its launches run, by
+# name (lowering.py files each logged entry under its counter)
+ENTRIES = {"bcsc_lab_minimal": ("spmm_lab_kernels",
+                                ("bcsc_lab_minimal_wgmma_kernel",)),
+           "bcsc_lab_chunk": ("spmm_lab_kernels", ("bcsc_lab_chunk_kernel",)),
+           "bcsc_lab_dspipe": ("spmm_lab_kernels",
+                               ("bcsc_lab_dspipe_kernel",))}
 
 
 def reset_launches() -> None:

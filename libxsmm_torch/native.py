@@ -1,11 +1,12 @@
 """ctypes bridge to the native host runtime (native/xsmm_native.cpp).
 
-The port's own copy of the part of `libxsmm_tpu/native_bridge.py` that the
-port uses: `load`, `crc32` (utils/memutil.py's hash), `read_mtx_coo`
-(utils/mtx.py's MatrixMarket reader) and `PersistentKv`, the append-only,
-CRC-checked key-value log in which the autotuners persist their picks. The
-log format is the C++ code's, so a log written by either package is read by
-the other.
+The port's own copy of `libxsmm_tpu/native_bridge.py`: `load`, `crc32`
+(utils/memutil.py's hash), `read_mtx_coo` (utils/mtx.py's MatrixMarket
+reader), `NativeRegistry`, the C++ descriptor registry (a CRC32-hashed,
+open-addressed table with a canary per slot), and `PersistentKv`, the
+append-only, CRC-checked key-value log in which the autotuners persist their
+picks and aot.py its exported kernels. The log format is the C++ code's, so
+a log written by either package is read by the other.
 
 The library is built at first use from the tracked source with the flags of
 `native/Makefile`,
@@ -18,8 +19,6 @@ of the source as kernels/_build.py names the CUDA libraries. The tracked
 returns None when the library cannot be built or loaded; callers treat that
 as "no persistent store", as the reference's do. This is a host cache, not
 part of any device path.
-
-Not ported yet (ROADMAP.md queue 1, item 14): the registry bindings.
 """
 
 from __future__ import annotations
@@ -80,6 +79,23 @@ def load() -> Optional[ctypes.CDLL]:
         P, U64 = ctypes.c_void_p, ctypes.c_uint64
         lib.xsmm_crc32.restype = ctypes.c_uint32
         lib.xsmm_crc32.argtypes = [P, U64, ctypes.c_uint32]
+        U64P = ctypes.POINTER(U64)
+        lib.xsmm_registry_create.restype = P
+        lib.xsmm_registry_create.argtypes = []
+        lib.xsmm_registry_destroy.restype = None
+        lib.xsmm_registry_destroy.argtypes = [P]
+        lib.xsmm_registry_insert.restype = ctypes.c_int
+        lib.xsmm_registry_insert.argtypes = [P, P, U64, U64]
+        lib.xsmm_registry_find.restype = ctypes.c_int
+        lib.xsmm_registry_find.argtypes = [P, P, U64, U64P]
+        lib.xsmm_registry_stats.restype = None
+        lib.xsmm_registry_stats.argtypes = [P] + [U64P] * 4
+        lib.xsmm_registry_verify.restype = U64
+        lib.xsmm_registry_verify.argtypes = [P]
+        lib.xsmm_registry_ncorrupt.restype = U64
+        lib.xsmm_registry_ncorrupt.argtypes = [P]
+        lib.xsmm_registry_poison.restype = ctypes.c_int
+        lib.xsmm_registry_poison.argtypes = [P, P, U64]
         lib.xsmm_kv_append.restype = ctypes.c_int
         lib.xsmm_kv_append.argtypes = [ctypes.c_char_p, P, U64, P, U64]
         lib.xsmm_kv_lookup.restype = ctypes.c_int64
@@ -141,9 +157,67 @@ def read_mtx_coo(path):
     return int(m.value), int(n.value), rows, cols, vals
 
 
+class NativeRegistry:
+    """Descriptor-blob -> uint64 handle table backed by the C++ registry:
+    keys of 1-96 bytes, the first insert of a key wins."""
+
+    def __init__(self):
+        self._lib = load()
+        if self._lib is None:
+            raise RuntimeError("native library unavailable")
+        self._ptr = self._lib.xsmm_registry_create()
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        ptr = getattr(self, "_ptr", None)
+        if lib is not None and ptr:
+            lib.xsmm_registry_destroy(ptr)
+
+    @staticmethod
+    def _key(key: bytes):
+        return ctypes.cast(ctypes.create_string_buffer(key, len(key)),
+                           ctypes.c_void_p)
+
+    def insert(self, key: bytes, value: int) -> int:
+        """0 when inserted, 1 when the key was present (its value kept), -1
+        for a key the table refuses (empty or over 96 bytes)."""
+        return self._lib.xsmm_registry_insert(self._ptr, self._key(key),
+                                              len(key), value)
+
+    def find(self, key: bytes) -> Optional[int]:
+        """The key's value, or None when it is absent or its slot fails its
+        canary."""
+        out = ctypes.c_uint64()
+        hit = self._lib.xsmm_registry_find(self._ptr, self._key(key),
+                                           len(key), ctypes.byref(out))
+        return int(out.value) if hit else None
+
+    def stats(self) -> dict:
+        vals = [ctypes.c_uint64() for _ in range(4)]
+        self._lib.xsmm_registry_stats(self._ptr,
+                                      *[ctypes.byref(v) for v in vals])
+        return {"nentries": vals[0].value, "nhits": vals[1].value,
+                "ncollisions": vals[2].value, "capacity": vals[3].value,
+                "ncorrupt": int(self._lib.xsmm_registry_ncorrupt(self._ptr))}
+
+    def verify(self) -> int:
+        """Full-table canary sweep: every published slot carries crc32c(key
+        || value) written at publish, so a torn write or a stray store shows
+        up here (and as a find() miss) instead of a wrong handle. Returns
+        the number of corrupt slots."""
+        return int(self._lib.xsmm_registry_verify(self._ptr))
+
+    def _poison(self, key: bytes) -> bool:
+        """For tests: damage key's stored value without refreshing its
+        canary, so the detection path can be shown to work."""
+        return bool(self._lib.xsmm_registry_poison(self._ptr, self._key(key),
+                                                   len(key)))
+
+
 class PersistentKv:
-    """File-backed KV log (autotune decisions): put appends a record, get
-    returns the value of the last record with the key."""
+    """File-backed KV log (autotune decisions, exported kernels): put
+    appends a record, get returns the value of the last record with the
+    key."""
 
     def __init__(self, path):
         self._lib = load()

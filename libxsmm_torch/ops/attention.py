@@ -43,7 +43,7 @@ import torch
 
 from ..dtypes import Datatype, to_torch
 from ..kernels import attention as ka
-from ..registry import Kernel, KernelInfo, get_registry
+from ..registry import Kernel, KernelInfo, entry_point, get_registry
 
 
 def _apply_mask_bias(scores, s, causal, bias):
@@ -243,6 +243,7 @@ def _build_attention(desc) -> Kernel:
     return Kernel(fn=attn, descriptor=desc, info=info, name=name)
 
 
+@entry_point
 def dispatch_flash_attention(bh: int, s: int, hd: int,
                              dtype: Datatype = Datatype.F32,
                              causal: bool = False,

@@ -30,7 +30,7 @@ from ..descriptor import (BinaryFlags, BinaryType, MeltwDescriptor,
 from ..device import resolve_device
 from ..dtypes import Datatype, to_torch
 from ..interop import tensor_from_numpy
-from ..registry import Kernel, KernelInfo, get_registry
+from ..registry import Kernel, KernelInfo, entry_point, get_registry
 
 # ---------------------------------------------------------------------------
 # scalar/elementwise math
@@ -647,6 +647,7 @@ def _build_ternary(desc: MeltwDescriptor) -> Kernel:
     return Kernel(fn=fn, descriptor=desc, info=info, name=desc.name())
 
 
+@entry_point
 def dispatch_meltw_unary(op_type: UnaryType, m=None, n: int = None,
                          flags: UnaryFlags = UnaryFlags.NONE,
                          in_type: Datatype = Datatype.F32,
@@ -672,6 +673,7 @@ def dispatch_meltw_unary(op_type: UnaryType, m=None, n: int = None,
     return get_registry().dispatch(desc, _build_unary)
 
 
+@entry_point
 def dispatch_meltw_binary(op_type: BinaryType, m=None, n: int = None,
                           flags: BinaryFlags = BinaryFlags.NONE,
                           in_type: Datatype = Datatype.F32,
@@ -694,6 +696,7 @@ def dispatch_meltw_binary(op_type: BinaryType, m=None, n: int = None,
     return get_registry().dispatch(desc, _build_binary)
 
 
+@entry_point
 def dispatch_meltw_ternary(op_type: TernaryType, m=None, n: int = None,
                            flags: TernaryFlags = TernaryFlags.NONE,
                            in_type: Datatype = Datatype.F32,

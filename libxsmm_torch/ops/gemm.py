@@ -61,7 +61,8 @@ from ..dtypes import Datatype, bits, from_torch, to_torch
 from ..kernels import gemm as gemm_kernels
 from ..kernels.eltwise import stochastic_round
 from ..kernels.gemm import add_acc, contract
-from ..registry import Kernel, KernelInfo, get_registry, memo_dispatch
+from ..registry import (Kernel, KernelInfo, entry_point, get_registry,
+                        memo_dispatch)
 from .eltwise import (apply_binary_op, apply_unary_op, load_operand,
                       pack_bitmask)
 
@@ -342,6 +343,7 @@ def _build_gemm(desc: GemmDescriptor) -> Kernel:
     return Kernel(fn=fn, descriptor=desc, info=info, name=desc.name())
 
 
+@entry_point
 def dispatch_gemm(shape: GemmShape,
                   flags: GemmFlags = GemmFlags.NONE) -> Kernel:
     """libxsmm_dispatch_gemm analogue (src/libxsmm_main.c:3390).
@@ -354,6 +356,7 @@ def dispatch_gemm(shape: GemmShape,
         _build_gemm)
 
 
+@entry_point
 def dispatch_brgemm(shape: GemmShape,
                     flags: GemmFlags = GemmFlags.NONE,
                     br_config: BatchReduceConfig = None) -> Kernel:
@@ -442,6 +445,7 @@ def _build_gemm_ext(desc: GemmExtDescriptor) -> Kernel:
     return Kernel(fn=fn, descriptor=desc, info=info, name=desc.name())
 
 
+@entry_point
 def dispatch_brgemm_ext(shape: GemmShape,
                         flags: GemmFlags = GemmFlags.NONE,
                         br_config: BatchReduceConfig = None,
@@ -467,6 +471,7 @@ def dispatch_brgemm_ext(shape: GemmShape,
     return get_registry().dispatch(desc, _build_gemm_ext)
 
 
+@entry_point
 def dispatch_tilecfg_gemm(shape: GemmShape,
                           flags: GemmFlags = GemmFlags.NONE) -> Kernel:
     """API-parity analogue of libxsmm_dispatch_tilecfg_gemm
@@ -515,6 +520,7 @@ def _batched_kernel(desc: GemmDescriptor, batch: int, use_kernel: bool,
     return _batched_torch(desc)
 
 
+@entry_point
 def dispatch_gemm_batched(shape: GemmShape,
                           flags: GemmFlags = GemmFlags.NONE,
                           batch: int = 0,
@@ -626,6 +632,7 @@ class _PackedBrgemmGrad(torch.autograd.Function):
         return da.to(a.dtype), db.to(b.dtype), None, None
 
 
+@entry_point
 def dispatch_brgemm_packed(shape: GemmShape,
                            flags: GemmFlags = GemmFlags.NONE,
                            br_config: BatchReduceConfig = None,
@@ -698,6 +705,7 @@ def dispatch_brgemm_packed(shape: GemmShape,
     return get_registry().dispatch(key, lambda _k: _build(desc))
 
 
+@entry_point
 def dispatch_brgemm_ext_packed(shape: GemmShape,
                                flags: GemmFlags = GemmFlags.NONE,
                                br_config: BatchReduceConfig = None,
@@ -922,6 +930,7 @@ def _dispatch_packed_smm(shape: GemmShape, flags: GemmFlags, cp: str,
     return get_registry().dispatch(key, lambda _k: _build(desc))
 
 
+@entry_point
 def dispatch_gemm_batched_packed(shape: GemmShape,
                                  flags: GemmFlags = GemmFlags.NONE,
                                  cp_type: UnaryType = UnaryType.NONE,
@@ -992,6 +1001,7 @@ def dispatch_gemm_batched_packed(shape: GemmShape,
 # BLAS-style convenience (libxsmm_?gemm, src/libxsmm_main.c:3933)
 # ---------------------------------------------------------------------------
 
+@entry_point
 def xmmdispatch(descriptor):
     """libxsmm_xmmdispatch analogue (src/libxsmm_main.c:3323): dispatch
     directly from a pre-built descriptor."""

@@ -21,7 +21,7 @@ import torch
 from ..descriptor import GemmFlags, GemmShape
 from ..dtypes import to_torch
 from ..kernels.gemm import add_acc, contract
-from ..registry import Kernel, KernelInfo, get_registry
+from ..registry import Kernel, KernelInfo, entry_point, get_registry
 from .eltwise import load_operand
 from .gemm import _comp_dtype
 
@@ -69,6 +69,7 @@ def _build_packed(desc):
                        f"_p{packed_width}")
 
 
+@entry_point
 def create_packed_gemm(shape: GemmShape, flags: GemmFlags = GemmFlags.NONE,
                        packed_width: int = 1) -> Kernel:
     """libxsmm_create_packed_gemm analogue (src/libxsmm_main.c:3733).
@@ -77,6 +78,7 @@ def create_packed_gemm(shape: GemmShape, flags: GemmFlags = GemmFlags.NONE,
     return get_registry().dispatch(desc, _build_packed)
 
 
+@entry_point
 def create_packed_gemm_ac_rm(shape: GemmShape,
                              flags: GemmFlags = GemmFlags.NONE,
                              packed_width: int = 1) -> Kernel:
@@ -86,6 +88,7 @@ def create_packed_gemm_ac_rm(shape: GemmShape,
     return get_registry().dispatch(desc, _build_packed)
 
 
+@entry_point
 def create_packed_gemm_bc_rm(shape: GemmShape,
                              flags: GemmFlags = GemmFlags.NONE,
                              packed_width: int = 1) -> Kernel:

@@ -50,7 +50,7 @@ from ..device import resolve_device
 from ..dtypes import Datatype, itemsize, to_torch
 from ..kernels import spmm as spmm_kernels
 from ..kernels.gemm import add_acc, contract, wrap_i32
-from ..registry import Kernel, KernelInfo, get_registry
+from ..registry import Kernel, KernelInfo, entry_point, get_registry
 from .eltwise import load_operand
 from .gemm import _comp_dtype, _index
 
@@ -323,6 +323,7 @@ def _segment_columns(a: torch.Tensor, kid: torch.Tensor,
 # packed SpGEMM, A sparse (CSR): C[m,n(,p)] += A_sp[m,k] * B[k,n(,p)]
 # ---------------------------------------------------------------------------
 
+@entry_point
 def create_packed_spgemm_csr(shape: GemmShape,
                              flags: GemmFlags = GemmFlags.NONE,
                              packed_width: int = 1,
@@ -411,6 +412,7 @@ def create_packed_spgemm_csr(shape: GemmShape,
 # packed SpGEMM, B sparse (CSC): C[m,n(,p)] += A[m,k(,p)] * B_sp[k,n]
 # ---------------------------------------------------------------------------
 
+@entry_point
 def create_packed_spgemm_csc(shape: GemmShape,
                              flags: GemmFlags = GemmFlags.NONE,
                              packed_width: int = 1,
@@ -471,6 +473,7 @@ def create_packed_spgemm_csc(shape: GemmShape,
 # packed SpGEMM, B sparse in CSR: C[m,n(,p)] += A[m,k(,p)] * B_sp[k,n]
 # ---------------------------------------------------------------------------
 
+@entry_point
 def create_packed_spgemm_csr_bsparse(shape: GemmShape,
                                      flags: GemmFlags = GemmFlags.NONE,
                                      packed_width: int = 1,
@@ -538,6 +541,7 @@ def create_packed_spgemm_csr_bsparse(shape: GemmShape,
 # packed SpGEMM, C sparse in CSC (SDDMM): values at C's nonzeros only
 # ---------------------------------------------------------------------------
 
+@entry_point
 def create_packed_spgemm_csc_csparse(shape: GemmShape,
                                      flags: GemmFlags = GemmFlags.NONE,
                                      packed_width: int = 1,
@@ -606,6 +610,7 @@ def create_packed_spgemm_csc_csparse(shape: GemmShape,
 # packed SpGEMM, B block-sparse (BCSC)
 # ---------------------------------------------------------------------------
 
+@entry_point
 def create_tilecfg_packed_spgemm_bcsc(shape: GemmShape,
                                       flags: GemmFlags = GemmFlags.NONE,
                                       config: SpgemmConfig = SpgemmConfig()):
@@ -791,6 +796,7 @@ def _bcsc_autotune(shape: GemmShape, flags: GemmFlags, config: SpgemmConfig,
     return pick
 
 
+@entry_point
 def create_packed_spgemm_bcsc(shape: GemmShape,
                               flags: GemmFlags = GemmFlags.NONE,
                               config: SpgemmConfig = SpgemmConfig(),
@@ -955,6 +961,7 @@ def _torch_route(shape: GemmShape, config: SpgemmConfig, indptr: np.ndarray,
 MAX_BAKED_NNZ = 65536
 
 
+@entry_point
 def create_spgemm_csr_areg(shape: GemmShape,
                            flags: GemmFlags = GemmFlags.NONE,
                            row_ptr: np.ndarray = None,

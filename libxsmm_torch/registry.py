@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import atexit
 import dataclasses
+import functools
 import threading
 from collections import defaultdict
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
@@ -55,20 +56,48 @@ class Kernel:
     def __call__(self, *args, **kwargs):
         return self.fn(*args, **kwargs)
 
-    def lower_text(self, *args, **kwargs) -> str:
-        """The reference's JIT code dump (negative LIBXSMM_VERBOSE,
-        src/libxsmm_main.c internal_dump). Not ported yet: ROADMAP.md
-        queue 1, item 14 (tooling)."""
-        raise NotImplementedError(
-            "Kernel.lower_text is not ported yet (ROADMAP.md queue 1, "
-            "item 14: tooling)")
+    # (module:function, args, kwargs) of the public entry point that made
+    # this kernel (entry_point), so aot.load_kernel can make it again
+    entry: Optional[Tuple[str, tuple, dict]] = None
 
-    def dump(self, *args, **kwargs) -> Optional[str]:
-        """Write the kernel's code into CONFIG.dump_dir. Not ported yet:
-        ROADMAP.md queue 1, item 14 (tooling)."""
-        raise NotImplementedError(
-            "Kernel.dump is not ported yet (ROADMAP.md queue 1, item 14: "
-            "tooling)")
+    def lower_text(self, *args, device=None, **kwargs) -> str:
+        """The port's counterpart of the reference's JIT code dump
+        (negative LIBXSMM_VERBOSE, src/libxsmm_main.c internal_dump): the
+        text of one call of this kernel on zeros shaped like the example
+        args (tensors or meta tensors) on `device` — the aten operators it
+        dispatched and, on the card, the CUDA kernels it launched with their
+        resources and SASS (lowering.py). The JAX package lowers without
+        running; this runs the call once."""
+        from .lowering import lower_text
+        return lower_text(self, args, kwargs, device)
+
+    def dump(self, *args, device=None, **kwargs) -> Optional[str]:
+        """Write lower_text's text into CONFIG.dump_dir (XSMM_TPU_DUMP) as
+        <name>.cuda.txt; returns the file path, or None when dumping is
+        disabled."""
+        import os
+        if not CONFIG.dump_dir:
+            return None
+        os.makedirs(CONFIG.dump_dir, exist_ok=True)
+        path = os.path.join(CONFIG.dump_dir, f"{self.name}.cuda.txt")
+        with open(path, "w") as f:
+            f.write(self.lower_text(*args, device=device, **kwargs))
+        return path
+
+
+def entry_point(fn: Callable) -> Callable:
+    """Decorate a public dispatch or create function: the Kernel it returns
+    records (module:function, args, kwargs) of its first making."""
+    where = f"{fn.__module__}:{fn.__qualname__}"
+
+    @functools.wraps(fn)
+    def make(*args, **kwargs):
+        kernel = fn(*args, **kwargs)
+        if isinstance(kernel, Kernel) and kernel.entry is None:
+            kernel.entry = (where, args, kwargs)
+        return kernel
+
+    return make
 
 
 class _Stats:

@@ -17,8 +17,10 @@ rank order. The launcher:
   * hands each rank's result back through a file (torch.save in the rank,
     torch.load here: bytes only these processes wrote);
   * joins with a timeout: on expiry it kills every rank and raises
-    TimeoutError with their standard error; a rank that fails raises
-    RuntimeError with its standard error;
+    TimeoutError with their standard error; when a rank fails, the others
+    get GRACE seconds to exit before they are killed, and RuntimeError
+    names every failed rank with every rank's standard error in rank
+    order;
   * on the card (device_type "cuda") builds the CUDA kernels here first
     (kernels._build.build_all), so the ranks load them and none runs nvcc.
 
@@ -41,6 +43,8 @@ import time
 from typing import Any, Callable, List, Optional, Sequence
 
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
+# seconds the other ranks of a world get to exit after one rank failed
+GRACE = 5.0
 
 
 def _target(fn: Callable) -> tuple:
@@ -93,8 +97,7 @@ def run_ranks(fn: Callable, world: int, args: Sequence[Any] = (),
                     f"killed\n{_errors(tmp, world)}")
             time.sleep(0.05)
         if failed:
-            raise RuntimeError(f"ranks {failed} failed\n"
-                               f"{_errors(tmp, world, failed)}")
+            raise RuntimeError(_failure(procs, tmp, world))
         return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
                 for r in range(world)]
     finally:
@@ -105,9 +108,31 @@ def run_ranks(fn: Callable, world: int, args: Sequence[Any] = (),
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _errors(tmp: pathlib.Path, world: int, ranks=None) -> str:
+def _failure(procs, tmp: pathlib.Path, world: int) -> str:
+    """The message of a world in which a rank failed. The other ranks get
+    GRACE seconds to exit on their own before they are killed: a rank's
+    failure often ends its peers too (a collective's connection reset), and
+    a peer may exit before the rank that caused it, so the message names
+    every failed rank and holds every rank's standard error in rank
+    order."""
+    deadline = time.monotonic() + GRACE
+    while (any(p.poll() is None for p in procs)
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    killed = [r for r, p in enumerate(procs) if p.poll() is None]
+    for r in killed:
+        procs[r].kill()
+        procs[r].wait()
+    failed = [r for r, p in enumerate(procs)
+              if r not in killed and p.returncode != 0]
+    kill_note = (f"; ranks {killed} killed after {GRACE} s" if killed
+                 else "")
+    return f"ranks {failed} failed{kill_note}\n{_errors(tmp, world)}"
+
+
+def _errors(tmp: pathlib.Path, world: int) -> str:
     out = []
-    for r in (range(world) if ranks is None else ranks):
+    for r in range(world):
         path = tmp / f"rank{r}.err"
         text = path.read_text(errors="replace") if path.exists() else ""
         out.append(f"--- rank {r} ---\n{text[-4000:]}")

@@ -125,7 +125,7 @@ def _designs_lib() -> ctypes.CDLL:
     out = _build.BUILD / f"passthrough_designs-{digest[:12]}.so"
     if not out.exists():
         _build.BUILD.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), _build.ARCH, "-std=c++17", "-O3",
+        subprocess.run([_build.tool("nvcc"), _build.ARCH, "-std=c++17", "-O3",
                         "-shared", "-Xcompiler", "-fPIC", "-I", str(csrc),
                         "-o", str(out), str(src)], check=True)
     lib = ctypes.CDLL(str(out))

@@ -270,9 +270,12 @@ def test_xmmdispatch_tilecfg_and_cache():
     assert t.name == xt.dispatch_tilecfg_gemm(GemmShape(8, 8, 8)).name
 
 
-def test_unported_parts_raise():
-    """Only the tooling (queue 1, item 14) still raises; GEMM-ext and the MX
-    operands dispatch and run."""
+def test_unported_parts_raise(tmp_path, monkeypatch):
+    """Nothing of the GEMM family raises as unported any more: GEMM-ext and
+    the MX operands dispatch and run, and the tooling runs — lower_text
+    writes the text of one call (on the CPU its aten operators, no launch)
+    and dump writes it into the dump directory, or returns None without
+    one."""
     shape = xp.GemmShape(16, 16, 16)
     a, b = torch.ones(1, 16, 16), torch.ones(1, 16, 16)
     assert torch.equal(xp.dispatch_brgemm_ext(shape)(a, b, a[0]),
@@ -289,10 +292,17 @@ def test_unported_parts_raise():
     out = mx((payload, scales), torch.ones(64, 64, dtype=torch.bfloat16))
     assert torch.equal(out, torch.full((16, 64), 64.0))
     kern = xp.dispatch_gemm(shape, xp.GemmFlags.BETA_0)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        kern.lower_text()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        kern.dump()
+    meta = torch.empty(16, 16, device="meta")
+    text = kern.lower_text(meta, meta, device="cpu")
+    assert f"// libxsmm_torch kernel: {kern.name}" in text
+    assert "aten.mm.default(float32[16, 16], float32[16, 16])" in text
+    assert "// kernel launches: 0" in text
+    monkeypatch.setattr(xp.config.CONFIG, "dump_dir", None)
+    assert kern.dump(meta, meta, device="cpu") is None
+    monkeypatch.setattr(xp.config.CONFIG, "dump_dir", str(tmp_path))
+    path = kern.dump(meta, meta, device="cpu")
+    assert path == str(tmp_path / f"{kern.name}.cuda.txt")
+    assert open(path).read() == text
 
 
 def test_gemm_grad_through_torch_route():

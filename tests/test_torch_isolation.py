@@ -250,3 +250,16 @@ def test_failing_rank_ends_the_world():
     with pytest.raises(RuntimeError, match="rank 1 gives up"):
         run_ranks(R.world_fail, 2, timeout=120.0)
     assert time.monotonic() - t0 < 60.0
+
+
+def test_failing_ranks_all_reported():
+    """Every rank that fails is named and its standard error is in the
+    message, though the launcher sees the first rank's exit half a second
+    before the second's."""
+    R, run_ranks = _ranks()
+    with pytest.raises(RuntimeError) as ei:
+        run_ranks(R.world_fail_in_order, 2, timeout=120.0)
+    msg = str(ei.value)
+    assert "ranks [0, 1] failed" in msg
+    assert "rank 0 gives up first" in msg and "rank 1 gives up later" in msg
+    assert msg.index("--- rank 0 ---") < msg.index("--- rank 1 ---")

@@ -74,3 +74,81 @@ def test_kv_log_round_trip(both_loaded, tmp_path, writer):
 
 def test_missing_log_reads_none(both_loaded, tmp_path):
     assert native.PersistentKv(tmp_path / "none.xkv").get(b"k") is None
+
+
+# ---------------------------------------------------------------------------
+# the registry bindings (tests/test_native.py's five registry tests): the
+# same key sets through both packages' NativeRegistry, with equal insert
+# codes, find results and stats
+# ---------------------------------------------------------------------------
+
+def _both_registries():
+    return native.NativeRegistry(), native_bridge.NativeRegistry()
+
+
+def _same(fn):
+    """fn(registry) run on the port's and the JAX package's registries."""
+    port, ref = _both_registries()
+    got, want = fn(port), fn(ref)
+    assert got == want
+    assert port.stats() == ref.stats()
+    return got
+
+
+def test_registry_insert_find(both_loaded):
+    def run(reg):
+        return [reg.find(b"key"), reg.insert(b"key", 42), reg.find(b"key"),
+                reg.insert(b"key", 99), reg.find(b"key"), reg.stats()]
+    out = _same(run)
+    assert out[:5] == [None, 0, 42, 1, 42]
+    assert out[5]["nentries"] == 1 and out[5]["capacity"] == 131072
+
+
+def test_registry_many_keys(both_loaded):
+    import numpy as np
+    rng = np.random.default_rng(3)
+    keys = [rng.bytes(48) for _ in range(5000)]
+
+    def run(reg):
+        codes = [reg.insert(k, i) for i, k in enumerate(keys)]
+        return codes, [reg.find(k) for k in keys], reg.stats()["nentries"]
+    codes, found, n = _same(run)
+    assert codes == [0] * 5000 and found == list(range(5000)) and n == 5000
+
+
+def test_registry_threaded(both_loaded):
+    import concurrent.futures
+    keys = [f"desc-{i % 64}".encode() for i in range(2048)]
+
+    def run(reg):
+        def work(k):
+            reg.insert(k, hash(k) & 0xFFFFFFFF)
+            return reg.find(k)
+        with concurrent.futures.ThreadPoolExecutor(max_workers=16) as ex:
+            return list(ex.map(work, keys))
+    port, ref = _both_registries()
+    got, want = run(port), run(ref)
+    assert got == want == [hash(k) & 0xFFFFFFFF for k in keys]
+    # hits and collisions depend on the threads' interleaving
+    for key in ("nentries", "capacity", "ncorrupt"):
+        assert port.stats()[key] == ref.stats()[key]
+    assert port.stats()["nentries"] == 64
+
+
+def test_registry_key_limits(both_loaded):
+    def run(reg):
+        return [reg.insert(b"", 1), reg.insert(b"x" * 96, 7),
+                reg.insert(b"x" * 97, 7)]
+    assert _same(run) == [-1, 0, -1]
+
+
+def test_registry_canary_detects_damage(both_loaded):
+    def run(reg):
+        codes = [reg.insert(f"desc-{i}".encode(), 1000 + i)
+                 for i in range(32)]
+        return [codes, reg.verify(), reg.stats()["ncorrupt"],
+                reg._poison(b"desc-7"), reg.verify(), reg.find(b"desc-7"),
+                reg.find(b"desc-8"), reg.stats()["ncorrupt"]]
+    out = _same(run)
+    assert out[:7] == [[0] * 32, 0, 0, True, 1, None, 1008]
+    assert out[7] >= 2

@@ -397,6 +397,17 @@ def world_fail():
         raise RuntimeError("rank 1 gives up")
     dist.barrier()
 
+
+def world_fail_in_order():
+    """Rank 0 raises at once, rank 1 half a second later with a message of
+    its own: the launcher sees rank 0's exit first, and must still report
+    rank 1's."""
+    import time
+    if dist.get_rank() == 0:
+        raise RuntimeError("rank 0 gives up first")
+    time.sleep(0.5)
+    raise RuntimeError("rank 1 gives up later")
+
 # ---------------------------------------------------------------- the card
 
 
