@@ -251,7 +251,23 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     (libxsmm_torch.scripts.aot_warm), its result within 1e-5 of the plain
     version; prints lower_text's host time per call and the cold nvcc
     build time beside the child's time to its first result;
-16. prints one JSON line with the per-kernel numbers (nineteen rows) and,
+16. runs the samples (libxsmm_torch.samples) at their samples/
+    defaults on the card, each main in this process (spmm_scaling's worlds
+    and encoder's restoring process are processes of their own), with
+    every launch count set to 0 just before and read just after; each must
+    return 0, and the kernels each reaches must have launched: eltwise the
+    dropout (its DROPOUT_INV takes the mask as a numpy array), xgemm
+    --full the packed BRGEMM and stochastic rounding, smmbench the packed
+    SMM, spmm (and spmm --bench) the BCSC SpMM, supertile, union,
+    compactor and densifier, probe_bcsc the densifier, union and
+    compactor; hello, equation, xgemm's draw, dispatch_bench, utilities,
+    cnn, pyfr, spmm_scaling and encoder run to exit code 0. Prints each
+    sample's wall time and its figure lines with the card's name and
+    power limit; then the process-parallel runner
+    (libxsmm_torch.scripts.pexec) on three commands, one passing, one
+    failing and one past its 3 s timeout: exit code 2, three logs and the
+    summary;
+17. prints one JSON line with the per-kernel numbers (nineteen rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; nothing is caught. Without a CUDA
@@ -3328,6 +3344,105 @@ def tooling_path(dev, built, smi):
     print(f"tooling path: {time.perf_counter() - t_path:.2f} s")
 
 
+# phase 16, the samples at their samples/ defaults (libxsmm_torch.
+# samples): (module, arguments, the kernels each must launch)
+SAMPLE_RUNS = (
+    ("hello", [], ()),
+    ("eltwise", [], ("dropout",)),
+    ("equation", [], ()),
+    ("xgemm", [], ()),
+    ("xgemm", ["--full"], ("packed_brgemm", "stochastic_round")),
+    ("smmbench", [], ("packed_batched_gemm",)),
+    ("dispatch_bench", [], ()),
+    ("utilities", [], ()),
+    ("spmm", [], ("bcsc_spmm", "bcsc_spmm_super", "bcsc_spmm_union",
+                  "bcsc_union_compact", "bcsc_densify")),
+    ("spmm", ["--bench"], ("bcsc_spmm", "bcsc_spmm_super",
+                           "bcsc_spmm_union", "bcsc_union_compact",
+                           "bcsc_densify")),
+    ("probe_bcsc", [], ("bcsc_densify", "bcsc_spmm_union",
+                        "bcsc_union_compact")),
+    ("cnn", [], ()),
+    ("pyfr", [], ()),
+    ("spmm_scaling", [], ()),
+    ("encoder", [], ()),
+)
+# a line of a sample's output that carries a figure
+_FIGURE = ("GF/s", "GB/s", "Gflop/s", "GFLOP/s", "TF/s", "Gnnz/s", " us",
+           " ns", " ms", "ratio", "passed", "ALL OK",
+           "drivers OK", "checks:", "xgemm_full", "registry", "device:",
+           "union U=", "density=", "build (", "operators", "NOTE", "times:",
+           "devices=", "2-level")
+
+
+def samples_path(smi):
+    """Phase 16: each sample's main at its samples/ defaults on the
+    card, in this process (spmm_scaling and encoder start their own), with
+    every launch count set to 0 just before and the sample's kernels
+    required to have launched just after; then the process-parallel runner
+    on three commands (one passes, one fails, one outlives its timeout).
+    Prints each sample's wall time and its figure lines, the card beside
+    each."""
+    import contextlib
+    import importlib
+    import io
+    import pathlib
+    import subprocess
+    import tempfile
+
+    t_phase = time.perf_counter()
+    for name, args, kernels in SAMPLE_RUNS:
+        mod = importlib.import_module(f"libxsmm_torch.samples.{name}")
+        _reset_all_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(list(args))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_launches()
+        text = buf.getvalue()
+        if rc != 0:
+            raise AssertionError(f"sample {name} {args} returned {rc}:\n"
+                                 f"{text[-4000:]}")
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"sample {name} {args}: {missing} were not "
+                                 f"launched ({counts})")
+        lines = text.splitlines()
+        verdicts = sum(ln.startswith(("OK", "PASS")) for ln in lines)
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"  sample {name} {' '.join(args)}: rc 0, {wall:.2f} s wall, "
+              f"{verdicts} checks passed, launches {launched} [{smi}]")
+        for ln in lines:
+            if ln.strip() and any(u in ln for u in _FIGURE):
+                print(f"    {ln.rstrip()} [{smi}]")
+
+    # the runner: exit code = failed commands (the failure and the timeout)
+    with tempfile.TemporaryDirectory(prefix="xsmm_pexec_") as tmp:
+        lst = pathlib.Path(tmp) / "cmds.txt"
+        lst.write_text("true\nfalse\nsleep 60\n")
+        log = pathlib.Path(tmp) / "log"
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m",
+                            "libxsmm_torch.scripts.pexec", str(lst),
+                            "--log", str(log), "--timeout", "3"],
+                           capture_output=True, text=True, timeout=120)
+        wall = time.perf_counter() - t0
+        logs = sorted(q.name for q in log.glob("*.log"))
+        summary = (log / "summary.txt").read_text().splitlines()
+    if (p.returncode != 2 or logs != ["false.log", "sleep_60.log",
+                                      "true.log"]
+            or summary[-1] != "1/3 passed, 2 failed"
+            or "rc=timeout" not in summary[2]):
+        raise AssertionError(f"pexec: rc {p.returncode}, logs {logs}, "
+                             f"summary {summary}\n{p.stdout}{p.stderr}")
+    print(f"  pexec: rc 2 (one failed, one timed out at 3 s), logs {logs}, "
+          f"{wall:.2f} s wall [{smi}]")
+    print(f"phase 16 (samples): {time.perf_counter() - t_phase:.1f} s "
+          f"[{smi}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4029,6 +4144,9 @@ def main() -> int:
 
     # 15. the tooling, on its own
     tooling_path(dev, built, smi)
+
+    # 16. the samples and the runner
+    samples_path(smi)
 
     for r in rows:
         lib = ("none" if r["library_ms"] is None

@@ -486,9 +486,10 @@ def run_stateful_unary(desc: MeltwDescriptor, x, *args, **state):
             return dropout(x, seed, p, mask="packed")
         return dropout(x, seed, p, mask="none")
     if op == UnaryType.DROPOUT_INV:
+        from ..ops.eltwise import load_operand
         p = state.get("p", desc.extra[0] if desc.extra else 0.5)
         (mask,) = args
-        return dropout_inv(x, mask, p)
+        return dropout_inv(x, load_operand(mask, x.device), p)
     if op == UnaryType.QUANT:
         mx = _mx_converters(desc.out_type)
         if mx is not None:

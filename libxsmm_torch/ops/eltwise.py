@@ -99,8 +99,11 @@ def bitmask_ld(n: int, two_byte_mult: bool = True) -> int:
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
-def pack_bitmask(mask: torch.Tensor, two_byte_mult: bool = True):
-    """(m, n) boolean -> (m, bitmask_ld(n)//8) uint8, reference bit layout."""
+def pack_bitmask(mask, two_byte_mult: bool = True):
+    """(m, n) boolean -> (m, bitmask_ld(n)//8) uint8, reference bit layout.
+    A tensor stays on its device; numpy data loads onto the default device
+    (the GPU, raising without one)."""
+    mask = load_operand(mask)
     m, n = mask.shape
     ld = bitmask_ld(n, two_byte_mult)
     mb = torch.nn.functional.pad(mask.to(torch.int32), (0, ld - n))
@@ -108,9 +111,12 @@ def pack_bitmask(mask: torch.Tensor, two_byte_mult: bool = True):
     return (mb.reshape(m, ld // 8, 8) * w).sum(dim=-1).to(torch.uint8)
 
 
-def unpack_bitmask(packed: torch.Tensor, m: int, n: int):
+def unpack_bitmask(packed, m: int, n: int):
     """(m, nbytes) uint8 -> (m, n) bool; stride inferred from the packed
-    width (accepts both the 2BYTEMULT-padded and tight layouts)."""
+    width (accepts both the 2BYTEMULT-padded and tight layouts). A tensor
+    stays on its device; numpy data loads onto the default device (the GPU,
+    raising without one)."""
+    packed = load_operand(packed)
     nbytes = packed.shape[-1]
     shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
     bits = (packed.to(torch.uint8).reshape(m, nbytes, 1) >> shifts) & 1

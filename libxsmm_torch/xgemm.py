@@ -223,9 +223,12 @@ def _label(kind, adt, bdt, odt, m, n, k, br, br_mode, ta, tb, vnni, beta):
             f" beta={beta}")
 
 
-def run_class(cls, rng, device, verbose=False):
+def run_class(cls, rng, device, verbose=False, keep=None):
     """Run one class through the port's entry points on `device` against
-    its float64 oracle. Returns (ok, label, normf_rel)."""
+    its float64 oracle. Returns (ok, label, normf_rel). A dict `keep`
+    receives the GEMM/BRGEMM classes' kernel and operands ("kern", "args",
+    "extra": whether BR index arrays ride along), so a caller can time the
+    kernel after the check."""
     kind = cls["kind"]
     adt, bdt, odt, tol = cls.get("combo", (D.F32, D.F32, D.F32, "f32"))
     m, n, k = rand_mk(rng, cls)
@@ -301,7 +304,10 @@ def run_class(cls, rng, device, verbose=False):
     if kind in ("gemm", "packed"):
         kern = (G.dispatch_brgemm(shape, flags, br_cfg) if br
                 else G.dispatch_gemm(shape, flags))
-        out = kern(a, b, *((c,) if c is not None else ()), *extra_args)
+        args = (a, b, *((c,) if c is not None else ()), *extra_args)
+        out = kern(*args)
+        if keep is not None:
+            keep.update(kern=kern, args=args, extra=bool(extra_args))
     elif kind == "ext":
         cp = cls["cp"]
         argops = UnaryArgops(

@@ -124,3 +124,63 @@ def test_bf16_numpy_side_operand_matches_jax_kernel(main, monkeypatch):
     assert got.dtype == torch.bfloat16 and got.device.type == "cpu"
     np.testing.assert_array_equal(got.view(torch.int16).numpy(),
                                   want.view(np.int16))
+
+
+# numpy operands of the bitmask helpers and of DROPOUT_INV's mask (the
+# calls samples/eltwise.py makes): a numpy operand loads onto the default
+# device, a tensor stays where it is, and DROPOUT_INV's mask follows its
+# main operand
+MB, NB, PB = 5, 19, 0.3
+MASK = np.random.default_rng(32).random((MB, NB)) < 0.6
+G = np.random.default_rng(33).standard_normal((MB, NB)).astype(np.float32)
+
+
+def _packed_np():
+    return np.asarray(xt.pack_bitmask(jnp.asarray(MASK)))
+
+
+def _dropout_inv(pkg):
+    return pkg.dispatch_meltw_unary(pkg.UnaryType.DROPOUT_INV, MB, NB,
+                                    pkg.UnaryFlags.BITMASK_2BYTEMULT,
+                                    extra=(PB,))
+
+
+BITMASK_CALLS = {
+    "pack_bitmask": (lambda pkg: pkg.pack_bitmask(MASK)),
+    "unpack_bitmask": (lambda pkg: pkg.unpack_bitmask(_packed_np(), MB, NB)),
+    "DROPOUT_INV": (lambda pkg: _dropout_inv(pkg)(G, _packed_np())),
+}
+
+
+@pytest.mark.parametrize("call", sorted(BITMASK_CALLS))
+def test_bitmask_numpy_operand_matches_jax_bit_for_bit(call, monkeypatch):
+    monkeypatch.setattr(PDEV, "default_device", lambda: torch.device("cpu"))
+    got = BITMASK_CALLS[call](xp)
+    want = np.asarray(BITMASK_CALLS[call](xt))
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    got = got.numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+@pytest.mark.parametrize("call", ["pack_bitmask", "unpack_bitmask"])
+def test_bitmask_numpy_operand_without_gpu_raises_no_cuda(call):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: numpy operands load onto it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BITMASK_CALLS[call](xp)
+
+
+def test_bitmask_tensor_operands_stay_put():
+    """Without patching the default device: tensors stay on the CPU, and
+    DROPOUT_INV's numpy mask loads onto its tensor operand's device."""
+    packed = xp.pack_bitmask(torch.from_numpy(MASK))
+    assert packed.device.type == "cpu"
+    np.testing.assert_array_equal(packed.numpy(), _packed_np())
+    back = xp.unpack_bitmask(packed, MB, NB)
+    np.testing.assert_array_equal(back.numpy(), MASK)
+    got = _dropout_inv(xp)(torch.from_numpy(G.copy()), _packed_np())
+    want = np.asarray(_dropout_inv(xt)(G, _packed_np()))
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
