@@ -42,13 +42,18 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
      et al. 2018, BERT_BASE), bf16, flash=True, batch 8 x seq 512, served
      (seed=None), held against a float64 torch composition of the same
      block and against the port's own flash=False path;
-   - the same widths in f32, causal, batch 2;
+   - the same widths in f32, causal, batch 2; and in f32 (the config's
+     default dtype) at 8 x 512, non-causal, its flash on the tma_fma route
+     (route counts asserted), against float64;
    - the bf16 block seeded (dropout_p=0.1, seed=7): finite, repeatable,
      the FFN keep rate within 4 sigma of 0.9;
    - dispatch_flash_attention at bench.py's serving shape (bh=16, s=2048,
      hd=128, bf16, the tensor-core kernel, asserted): plain, causal,
-     dropout, bias per head and broadcast, and the LSE output; f32 (the FMA
-     kernel) at (4, 1024, 64) and hd=256 at (2, 256, 256);
+     dropout, bias per head and broadcast, and the LSE output; f32 at
+     (4, 1024, 64) and hd=256 at (2, 256, 256) on the tma_fma route
+     (asserted by route count): through the entry point, then plain,
+     causal, dropout with a head map, bias per head and broadcast, causal
+     with the LSE, each against its plain version;
    - dispatch_meltw_unary(DROPOUT, BITMASK_2BYTEMULT) at the FFN shape
      4096 x 3072 and at 1000 x 1001 with x off 16-byte alignment, in
      bf16, f32 and f16, the kernel's packed mask against pack_bitmask of
@@ -62,19 +67,21 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
      forward, dropout and both flash-backward kernels: finite loss and
      update, the same seed giving the same update, and the served loss on
      the batch lower after the steps than before;
-   - one unseeded loss_and_grads at the same width, and in f32 causal at
-     batch 2, held against the gradients of a float64 torch composition of
-     the same block;
+   - one unseeded loss_and_grads at the same width, in f32 causal at batch
+     2 and in f32 at 8 x 512 (the tma_fma route, asserted), held against
+     the gradients of a float64 torch composition of the same block, and
+     an f32 train step at 8 x 512;
    - build_flash_attention_bwd at bench.py's serving shape (plain, causal,
      dropout, bias per head with bias_grad, broadcast bias; bf16, the
      tensor-core kernels, asserted) and in f32 at (4, 1024, 64) and hd=256
-     at (2, 256, 256) (the FMA kernels, asserted), each against its plain
-     version;
+     at (2, 256, 256) (the tma_fma kernels, asserted: dropout causal and
+     not, dropout with a head map, bias per head with dbias, broadcast
+     bias), each against its plain version;
    - TPP-MLP splitSGD steps at MlpConfig()'s widths: the loss falls;
    then fails unless all four kernels were launched, times every phase,
    splits one train step into forward, backward and update, and traces
    three steps with torch.profiler (device busy share, kernel time by
-   name);
+   name), for the bf16 block and for the f32 block at 8 x 512;
 7. drives the block-sparse (BCSC) path the same way, with the five sparse
    kernels' counts set to 0 just before: create_packed_spgemm_bcsc with
    every strategy name and "auto" (which times every lowering on the card)
@@ -267,10 +274,20 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     (libxsmm_torch.scripts.pexec) on three commands, one passing, one
     failing and one past its 3 s timeout: exit code 2, three logs and the
     summary;
-17. prints one JSON line with the per-kernel numbers (nineteen rows) and,
+    The f32 routes get rows of their own: flash forward, dK/dV and dQ on
+    tma_fma beside the plain versions and SDPA's efficient
+    and math backends on f32 operands (TF32 off; each backend's normf_rel
+    against float64; one past TOL_F32 / TOL_BWD_F32 is not the yardstick),
+    at bench.py's serving shape and the encoder block's (96, 512, 64),
+    causal and not (f32_flash_rows); the f32 scheduled, supertile and
+    union SpMMs at the streaming case (m 32768) beside torch.mm in f32 on
+    the densified B (f32_spmm_rows);
+17. prints one JSON line with the per-kernel numbers (twenty-five rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
-Any failure raises and exits non-zero; nothing is caught. Without a CUDA
+Any failure raises and exits non-zero; nothing is caught but an SDPA
+backend's refusal of f32 operands ("No available kernel"), which its row
+records. Without a CUDA
 device it exits 2 and prints no result.
 """
 
@@ -360,6 +377,9 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("attention_kernels", "flash_fwd_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dq_mma_kernel"),
+               ("attention_kernels", "flash_fwd_tma_fma_kernel"),
+               ("attention_bwd_kernels", "flash_bwd_dkv_tma_fma_kernel"),
+               ("attention_bwd_kernels", "flash_bwd_dq_tma_fma_kernel"),
                ("spmm_lab_kernels", "bcsc_lab_chunk_kernel"),
                ("spmm_lab_kernels", "bcsc_lab_dspipe_kernel"),
                ("spmm_lab_kernels", "bcsc_lab_minimal_wgmma_kernel"),
@@ -411,6 +431,35 @@ def _counted(phases, name, kernels, fn, *fargs):
             raise AssertionError(f"{name}: {k} was not launched")
     phases.append((name, fn, fargs))
     return out
+
+
+def _f32_flash_forms(bh, bias):
+    """The f32 flash forms held against their plain versions on the
+    tma_fma route: (name, factory keywords, bias operand)."""
+    return [("plain", {}, None), ("causal", {"causal": True}, None),
+            ("dropout head map", {"dropout_p": 0.1,
+                                  "head_map": (1, 1, bh, bh + 2)}, None),
+            ("bias per head", {"bias_bh": bh}, bias),
+            ("bias broadcast", {"bias_bh": 1}, bias[:1]),
+            ("causal lse", {"causal": True, "return_lse": True}, None)]
+
+
+def _flash_routes():
+    """The flash kernels' launch counts by route (a copy)."""
+    from libxsmm_torch.kernels import attention as KA
+    return {k: dict(v) for k, v in KA.path_launches.items()}
+
+
+def _took_route(name, before, kernels, route):
+    """Fail unless each of `kernels` launched on `route`, and on no other
+    route, since the snapshot `before`."""
+    now = _flash_routes()
+    for k in kernels:
+        moved = {r: now[k][r] - before[k][r] for r in now[k]
+                 if now[k][r] != before[k][r]}
+        if set(moved) != {route}:
+            raise AssertionError(f"{name}: {k} launched by route {moved}, "
+                                 f"expected {route} alone")
 
 
 def encoder_path(randn, dev):
@@ -471,6 +520,20 @@ def encoder_path(randn, dev):
         print(f"  block f32 causal: normf_rel vs float64 {e64:.3e}, vs "
               f"flash=False {enf:.3e}")
 
+        # the f32 block at full width: BERT-base, 8 x 512, AttentionConfig's
+        # default dtype (f32), non-causal; its flash on the tma_fma route
+        cfg_f32 = TA.AttentionConfig(dim=768, heads=12, flash=True)
+        block_f32 = TA.EncoderBlock(cfg_f32, init_seed=2, device=dev)
+        x_f32 = randn(8, 512, 768)
+        routes0 = _flash_routes()
+        y_f32 = run("block bert-base f32 serve 8x512",
+                    ["flash_attention_fwd"], block_f32, x_f32)
+        _took_route("block f32 8x512", routes0, ("flash_attention_fwd",),
+                    "tma_fma")
+        e64 = _check("block f32 8x512 vs float64", block64(block_f32, x_f32),
+                     y_f32, TOL_BLOCK_F32, (8, 512, 768))
+        print(f"  block f32 8x512 (tma_fma): normf_rel vs float64 {e64:.3e}")
+
         cfg_d = dataclasses.replace(cfg, dropout_p=0.1)
         block_d = TA.EncoderBlock(cfg_d, params=block.params())
         yd = run("block bert-base bf16 seeded 8x512",
@@ -497,8 +560,8 @@ def encoder_path(randn, dev):
     q, v = randn(bh, s, hd, dtype=bf16), randn(bh, s, hd, dtype=bf16)
     kT = randn(bh, hd, s, dtype=bf16)
     bias_h, bias_1 = randn(bh, s, s, scale=0.5), randn(1, s, s, scale=0.5)
-    # bf16 takes the tensor-core kernel, f32 the FMA kernel
-    for dt, want in ((bf16, "mma"), (f32, "fma")):
+    # bf16 takes the tensor-core kernel, aligned f32 the TMA-fed FMA kernel
+    for dt, want in ((bf16, "mma"), (f32, "tma_fma")):
         if KA.flash_path(dt) != want:
             raise AssertionError(f"flash {dt}: path {KA.flash_path(dt)}, "
                                  f"expected {want}")
@@ -522,15 +585,32 @@ def encoder_path(randn, dev):
     _check("flash lse: out vs plain", want[0], got[0], TOL_BF16_OUT)
     _check("flash lse: lse vs plain", want[1], got[1], TOL_F32,
            (bh, s, 128))
+    # f32 on the tma_fma route (asserted by route count): through the entry
+    # point, then every form against the plain version, hd up to 256
     for fbh, fs, fhd in ((4, 1024, 64), (2, 256, 256)):
         fq, fv = randn(fbh, fs, fhd), randn(fbh, fs, fhd)
         fkT = randn(fbh, fhd, fs)
         kern = xt.dispatch_flash_attention(fbh, fs, fhd, Datatype.F32)
+        routes0 = _flash_routes()
         out = run(f"flash f32 {fbh}x{fs}x{fhd}", ["flash_attention_fwd"],
                   kern, fq, fkT, fv)
+        _took_route(f"flash f32 {fbh}x{fs}x{fhd}", routes0,
+                    ("flash_attention_fwd",), "tma_fma")
         _check(f"flash f32 {fbh}x{fs}x{fhd} vs plain",
                KA.build_flash_attention(fbh, fs, fhd, f32).plain(
                    0, fq, fkT, fv), out, TOL_F32, (fbh, fs, fhd))
+        fb = randn(fbh, fs, fs, scale=0.5)
+        for name, kw, bias in _f32_flash_forms(fbh, fb):
+            fn = KA.build_flash_attention(fbh, fs, fhd, f32, **kw)
+            got = run(f"flash f32 {name} {fbh}x{fs}x{fhd}",
+                      ["flash_attention_fwd"],
+                      lambda a, b_, c, fn=fn, bias=bias: fn(5, a, b_, c,
+                                                            bias),
+                      fq, fkT, fv)
+            if fn.path != "tma_fma":
+                raise AssertionError(f"flash f32 {name} took {fn.path}")
+            _check(f"flash f32 {name} {fbh}x{fs}x{fhd} vs plain",
+                   fn.plain(5, fq, fkT, fv, bias), got, TOL_F32)
 
     # dispatch_meltw_unary(DROPOUT) with the packed bitmask, which the
     # kernel writes, at the FFN shape, then at a ragged n (not a multiple of
@@ -579,10 +659,14 @@ def encoder_path(randn, dev):
     # the block's attention shape: 8 x 12 heads, s=512, hd=64
     block_ops = (randn(96, 512, 64, dtype=bf16), randn(96, 64, 512, dtype=bf16),
                  randn(96, 512, 64, dtype=bf16))
-    return {"phases": phases, "counts": counts,
+    return {"phases": phases, "counts": counts, "routes": _flash_routes(),
             "flash_operands": (q, kT, v), "block_operands": block_ops,
             "dropout_operand": randn(m, n, dtype=bf16),
-            "block": (block, x)}
+            "block": (block, x),
+            "block_f32": (block_f32, x_f32,
+                          tuple(randn(*sh) for sh in ((96, 512, 64),
+                                                      (96, 64, 512),
+                                                      (96, 512, 64))))}
 
 
 def training_path(randn, dev):
@@ -668,6 +752,27 @@ def training_path(randn, dev):
                  params32, x32, y32, cfg32)
     hold("block f32 causal gradients", grads64(params32, x32, y32, cfg32)[1],
          g32, TOL_GRAD_F32)
+    # the f32 block at full width (BERT-base, 8 x 512, the default f32,
+    # non-causal, no dropout): gradients against float64 and one train
+    # step, its flash kernels on the tma_fma route
+    cfg_f32 = TA.AttentionConfig(dim=768, heads=12, flash=True)
+    params_f32 = TA.init_params(cfg_f32, seed=2, device=dev)
+    xf, yf = randn(8, 512, 768), randn(8, 512, 768)
+    routes0 = _flash_routes()
+    _, gf = run("loss_and_grads bert-base f32 8x512",
+                ("flash_attention_fwd",) + BWD_KERNELS, TA.loss_and_grads,
+                params_f32, xf, yf, cfg_f32)
+    _took_route("f32 8x512 gradients", routes0, FLASH_KERNELS, "tma_fma")
+    finite("f32 gradients", gf)
+    hold("block f32 8x512 gradients", grads64(params_f32, xf, yf,
+                                              cfg_f32)[1], gf, TOL_GRAD_F32)
+    new_f32, loss_f32 = run("train step bert-base f32 8x512", FLASH_KERNELS,
+                            TA.train_step, params_f32, xf, yf, cfg_f32,
+                            TRAIN_LR, 7)
+    finite("f32 train step", {"loss": loss_f32, **new_f32})
+    if all(torch.equal(new_f32[k], params_f32[k]) for k in new_f32):
+        raise AssertionError("f32 train step: no parameter changed")
+    print(f"  train step bert-base f32 8x512: loss {loss_f32.item():.6f}")
 
     # the backward kernels alone at bench.py's serving shape (bench.py:568),
     # then f32 at (4, 1024, 64) and hd=256; lse from the LSE forward, delta
@@ -701,15 +806,20 @@ def training_path(randn, dev):
                TOL_BF16_OUT)
         bench_ops = bench_ops or args
     for fbh, fs, fhd in ((4, 1024, 64), (2, 256, 256)):
-        for causal in (False, True):
-            kw = {"causal": causal, "dropout_p": 0.1}
-            args = bwd_operands(fbh, fs, fhd, f32, kw, None)
+        fb = randn(fbh, fs, fs, scale=0.5)
+        forms = [(f"causal={c} dropout", {"causal": c, "dropout_p": 0.1},
+                  None) for c in (False, True)]
+        forms += [(name, dict(kw, bias_grad=kw.get("bias_bh") == fbh), bias)
+                  for name, kw, bias in _f32_flash_forms(fbh, fb)
+                  if "return_lse" not in kw]
+        for name, kw, bias in forms:
+            args = bwd_operands(fbh, fs, fhd, f32, kw, bias)
             fn = KA.build_flash_attention_bwd(fbh, fs, fhd, f32, **kw)
-            if fn.path != "fma":
-                raise AssertionError(f"flash bwd f32 took {fn.path}")
-            got = run(f"flash bwd f32 {fbh}x{fs}x{fhd} causal={causal}",
-                      BWD_KERNELS, fn, *args)
-            _check(f"flash bwd f32 {fbh}x{fs}x{fhd} vs plain",
+            got = run(f"flash bwd f32 {name} {fbh}x{fs}x{fhd}", BWD_KERNELS,
+                      fn, *args)
+            if fn.path != "tma_fma":
+                raise AssertionError(f"flash bwd f32 {name} took {fn.path}")
+            _check(f"flash bwd f32 {name} {fbh}x{fs}x{fhd} vs plain",
                    fn.plain(*args), got, TOL_BWD_F32)
 
     # TPP-MLP at MlpConfig()'s widths (256 -> 512 -> 512 -> 128): splitSGD
@@ -734,8 +844,9 @@ def training_path(randn, dev):
     if missing:
         raise AssertionError(f"kernels not launched on the training path: "
                              f"{missing}")
-    return {"phases": phases, "counts": counts, "bwd_operands": bench_ops,
-            "step": (params, x, y, cfg)}
+    return {"phases": phases, "counts": counts, "routes": _flash_routes(),
+            "bwd_operands": bench_ops, "step": (params, x, y, cfg),
+            "step_f32": (params_f32, xf, yf, cfg_f32)}
 
 
 def _bcsc_pattern(rng, k, n, bk, bn, density):
@@ -882,8 +993,10 @@ def sparse_path(randn, dev):
 
     # f32 in and out at m = 4096 on the bcsc20 pattern
     bcsc, _ = pats[0.2]
+    before = dict(KS.launches)
     drive("f32", GemmShape(4096, n, k), cfg, bcsc.indptr, bcsc.indices,
           randn(4096, k), on_dev(bcsc.data, f32), TOL_SPARSE_F32)
+    f32_counts = {k_: KS.launches[k_] - before[k_] for k_ in KS.launches}
 
     # ragged: 1000 rows (the last 64-row tile cut) through bcsc05
     bcsc, v = pats[0.05]
@@ -902,7 +1015,7 @@ def sparse_path(randn, dev):
         raise AssertionError(f"kernels not launched on the sparse path: "
                              f"{missing}")
     bcsc, v = pats[0.2]
-    return {"phases": phases, "counts": counts,
+    return {"phases": phases, "counts": counts, "f32_counts": f32_counts,
             "stream": (sshape, cfg, bcsc, a_stream, v), "small": small}
 
 
@@ -1591,6 +1704,295 @@ def sparse_rows(record, rows, stream, small, ms, geo):
            host_ms=host_ms(lambda: densify(v)))
 
 
+# the f32 routes' rows: flash at bench.py:568's shape and at the BERT-base
+# encoder block's (8 x 12 heads, s 512, hd 64), non-causal and causal; the
+# f32 SpMM forms at stream20's pattern
+F32_FLASH_SHAPES = {"bench": (16, 2048, 128), "encoder": (96, 512, 64)}
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "MATH")
+
+
+def _normf_rel(ref, got):
+    """matdiff's normf_rel of `got` against `ref` (no margin)."""
+    from libxsmm_torch.matdiff import matdiff
+    return float(matdiff(ref, got).normf_rel)
+
+
+def _attention64(q, kT, v, scale, causal):
+    """Attention as a float64 torch composition (the references' oracle)."""
+    sc = torch.matmul(q, kT) * scale
+    if causal:
+        s = sc.shape[-1]
+        upper = torch.ones(s, s, dtype=torch.bool, device=sc.device).triu(1)
+        sc = sc.masked_fill(upper, float("-inf"))
+    return torch.matmul(torch.softmax(sc, -1), v)
+
+
+def f32_flash_rows(randn, ms, geo):
+    """The f32 flash forward, dK/dV and dQ on the route flash_path and
+    flash_bwd_path name for f32, at both shapes of F32_FLASH_SHAPES,
+    non-causal and causal: each call's route asserted and its output held
+    against the plain version (TOL_F32,
+    TOL_BWD_F32), its error against float64, its time by CUDA events beside
+    the plain version's and the bound (operations at the f32 FMA peak:
+    4 (fwd), 8 (dK/dV) and 6 (dQ) x hd per (query, key) pair the data
+    needs, causal pairs only where causal; bytes each input once, each
+    output once). The library call is F.scaled_dot_product_attention on
+    the same f32 operands (TF32 off) under each backend of SDPA_BACKENDS
+    that takes them, forward by events and backward by device time
+    (torch.profiler; it runs through autograd), each with its normf_rel
+    against float64; a backend past TOL_F32 (forward) or TOL_BWD_F32
+    (backward, the margin the f32 backward kernels are held to) is printed
+    but is not the yardstick (`yardstick_fwd`, `yardstick_bwd`); a backend
+    that refuses f32 at the shape ("No available kernel") is recorded as
+    unavailable, and any other error raises. It reads only entry points
+    every tree of the port has had (build_flash_attention and its backward,
+    their plain versions), so with an older checkout first on sys.path it
+    times that tree's f32 kernels. Returns {(shape, causal): row}, the
+    kernel's figures under row["kernel"] and its route under row["route"]."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from libxsmm_torch.kernels import attention as KA
+
+    F = torch.nn.functional
+    f32 = torch.float32
+    route = KA.flash_path(f32)
+    out = {}
+    for shape_name, (bh, s, hd) in F32_FLASH_SHAPES.items():
+        q, v, dout = randn(bh, s, hd), randn(bh, s, hd), randn(bh, s, hd)
+        kT = randn(bh, hd, s)
+        q4, k4, v4 = q[None], kT.transpose(-1, -2).contiguous()[None], v[None]
+        for causal in (False, True):
+            pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+            io = 4 * bh * s * hd * 4
+            work = {"fwd": (io, 4 * pairs * hd),
+                    "dkv": (io + 2 * bh * s * 4 + 2 * bh * s * hd * 4,
+                            8 * pairs * hd),
+                    "dq": (io + 2 * bh * s * 4, 6 * pairs * hd)}
+            bound = {k: geo.bound_ms(*w, geo.peak_f32_tflops)
+                     for k, w in work.items()}
+            bound_by = {k: geo.bound_by(*w, geo.peak_f32_tflops)
+                        for k, w in work.items()}
+            leaves = [t.double().requires_grad_(True) for t in (q, kT, v)]
+            o64 = _attention64(*leaves, hd ** -0.5, causal)
+            g64 = torch.autograd.grad(o64, leaves, dout.double())
+            o64 = o64.detach()
+            del leaves
+            row = {"shape": (bh, s, hd), "causal": causal, "bound": bound,
+                   "bound_by": bound_by, "route": route}
+            fn = KA.build_flash_attention(bh, s, hd, f32, causal=causal,
+                                          return_lse=True)
+            bwd = KA.build_flash_attention_bwd(bh, s, hd, f32, causal=causal)
+            o, lse = fn(0, q, kT, v)
+            delta = (dout * o).sum(-1, keepdim=True).expand(bh, s, 128)
+            bargs = (0, q, kT, v, dout, lse, delta)
+            grads = bwd(*bargs)
+            torch.cuda.synchronize()
+            if (fn.path, bwd.path) != (route, KA.flash_bwd_path(f32)):
+                raise AssertionError(f"f32 flash {shape_name}: took "
+                                     f"{fn.path} / {bwd.path}, expected "
+                                     f"{route}")
+            tag = f"f32 flash {shape_name} causal={causal} {route}"
+            want, bwant = fn.plain(0, q, kT, v), bwd.plain(*bargs)
+            _check(f"{tag} fwd vs plain", want, (o, lse), TOL_F32)
+            _check(f"{tag} bwd vs plain", bwant, grads, TOL_BWD_F32)
+            row["kernel"] = {
+                "fwd_ms": ms(fn, 0, q, kT, v),
+                "dkv_ms": ms(bwd.dkv, *bargs),
+                "dq_ms": ms(bwd.dq, *bargs),
+                "max_abs_err": {"fwd": _max_abs(want, (o, lse)),
+                                "dq": _max_abs(bwant[0], grads[0]),
+                                "dkv": _max_abs(bwant[1:], grads[1:])},
+                "fwd_err64": _normf_rel(o64, o),
+                "bwd_err64": max(_normf_rel(w, g)
+                                 for w, g in zip(g64, grads))}
+            row["plain"] = {"fwd_ms": ms(fn.plain, 0, q, kT, v),
+                            "dkv_ms": ms(bwd.dkv_plain, *bargs),
+                            "dq_ms": ms(bwd.dq_plain, *bargs)}
+            for name in SDPA_BACKENDS:
+                backend = getattr(SDPBackend, name)
+
+                def call(a, b, c, backend=backend):
+                    with sdpa_kernel(backend):
+                        return F.scaled_dot_product_attention(
+                            a, b, c, is_causal=causal)
+
+                try:
+                    o_lib = call(q4, k4, v4)
+                except RuntimeError as e:
+                    # the backend's own refusal of these operands; any other
+                    # fault (out of memory, a failed launch) raises
+                    if "No available kernel" not in str(e):
+                        raise
+                    row[name] = {"unavailable": str(e).splitlines()[0][:160]}
+                    continue
+                lv = tuple(t_.detach().requires_grad_(True)
+                           for t_ in (q4, k4, v4))
+                with sdpa_kernel(backend):
+                    o_ = F.scaled_dot_product_attention(*lv,
+                                                        is_causal=causal)
+                g_ = torch.autograd.grad(o_, lv, dout[None],
+                                         retain_graph=True)
+                row[name] = {
+                    "fwd_ms": ms(call, q4, k4, v4),
+                    "bwd_device_ms": device_ms(
+                        lambda o_=o_, lv=lv: torch.autograd.grad(
+                            o_, lv, dout[None], retain_graph=True)),
+                    "fwd_err64": _normf_rel(o64, o_lib[0]),
+                    "bwd_err64": max(
+                        _normf_rel(g64[0], g_[0][0]),
+                        _normf_rel(g64[1], g_[1][0].transpose(-1, -2)),
+                        _normf_rel(g64[2], g_[2][0]))}
+                del o_, g_, lv
+            # the yardsticks: the fastest backend within the f32 kernels'
+            # own margins against float64, forward and backward apart
+            for part, key, tol in (("fwd", "fwd_ms", TOL_F32),
+                                   ("bwd", "bwd_device_ms", TOL_BWD_F32)):
+                fit = [n for n in SDPA_BACKENDS if key in row[n]
+                       and row[n][f"{part}_err64"] <= tol]
+                row[f"yardstick_{part}"] = min(
+                    fit, key=lambda n: row[n][key], default=None)
+            out[(shape_name, causal)] = row
+            _print_f32_flash(shape_name, row)
+            del o64, g64
+    return out
+
+
+def _print_f32_flash(shape_name, row):
+    bh, s, hd = row["shape"]
+    b = row["bound"]
+    head = (f"  f32 flash {shape_name} ({bh}, {s}, {hd}) causal="
+            f"{row['causal']}: bound fwd {b['fwd']:.4f} / dkv "
+            f"{b['dkv']:.4f} / dq {b['dq']:.4f} ms")
+    print(head)
+    for key, label in (("kernel", row["route"]), ("plain", "plain")):
+        x = row[key]
+        errs = (f"; normf_rel vs float64 fwd {x['fwd_err64']:.2e} bwd "
+                f"{x['bwd_err64']:.2e}" if "fwd_err64" in x else "")
+        print(f"    {label}: fwd {x['fwd_ms']:.4f} ms "
+              f"({b['fwd'] / x['fwd_ms']:.3f} of its bound), dkv {x['dkv_ms']:.4f} ms "
+              f"({b['dkv'] / x['dkv_ms']:.3f}), dq {x['dq_ms']:.4f} ms "
+              f"({b['dq'] / x['dq_ms']:.3f}){errs}")
+    for n in SDPA_BACKENDS:
+        x = row[n]
+        if "unavailable" in x:
+            print(f"    sdpa {n}: unavailable ({x['unavailable']})")
+            continue
+        marks = [f"not the {p} yardstick" for p in ("fwd", "bwd")
+                 if row[f"yardstick_{p}"] != n]
+        print(f"    sdpa {n}: fwd {x['fwd_ms']:.4f} ms, backward device "
+              f"{x['bwd_device_ms']:.4f} ms; normf_rel vs float64 fwd "
+              f"{x['fwd_err64']:.2e} bwd {x['bwd_err64']:.2e}"
+              + (f" ({', '.join(marks)})" if marks else ""))
+
+
+def f32_spmm_rows(randn, ms, geo):
+    """The f32 forms of the scheduled ("pallas"), supertile and k-union
+    BCSC SpMMs at stream20's pattern (m 32768, k = n = 1024, 32 x 32
+    blocks at density 0.2, bench.py's pattern from default_rng(2)) in f32:
+    each kernel against its plain version (TOL_SPARSE_F32), timed beside
+    the plain version, the bound (A, the values and C moved once; the
+    useful products 2 nblocks bk bn m at the f32 FMA peak) and torch.mm in
+    f32 (TF32 off) on the densified B. Returns {name: row}."""
+    import numpy as np
+
+    from libxsmm_torch.descriptor import GemmShape, SpgemmConfig
+    from libxsmm_torch.kernels import spmm as KS
+    from libxsmm_torch.ops.sparse import assemble_supertiles, supertile_plan
+
+    m, k, n, bk = 32768, 1024, 1024, 32
+    cfg = SpgemmConfig(1, bk, bk)
+    bcsc = _bcsc_pattern(np.random.default_rng(2), k, n, bk, bk, 0.2)
+    a = randn(m, k)
+    dev = a.device
+    v = torch.as_tensor(bcsc.data, device=dev).float()
+    shape = GemmShape(m, n, k)
+    dense_b = KS.build_bcsc_densify(shape, cfg, bcsc.indptr, bcsc.indices,
+                                    dev).plain(v)
+    lib = ms(torch.mm, a, dense_b)
+    useful = 2 * bcsc.nblocks * bk * bk * m
+    io = 4 * (m * k + m * n)
+    s_indptr, s_indices, sgmap = supertile_plan(shape, cfg, bcsc.indptr,
+                                                bcsc.indices)
+    sup = assemble_supertiles(v, torch.as_tensor(sgmap, device=dev),
+                              torch.float32)
+    kernels = {
+        "bcsc_spmm": (KS.build_bcsc_spmm(shape, cfg, bcsc.indptr,
+                                         bcsc.indices, dev), v),
+        "bcsc_spmm_super": (KS.build_bcsc_spmm_super(shape, s_indptr,
+                                                     s_indices, dev), sup),
+        "bcsc_spmm_union": (KS.build_bcsc_spmm_union(
+            shape, cfg, bcsc.indptr, bcsc.indices, dev), v)}
+    out = {}
+    for name, (fn, vals) in kernels.items():
+        if fn.path != "fma":
+            raise AssertionError(f"{name} f32 took {fn.path}")
+        got, want = fn(a, vals), fn.plain(a, vals)
+        torch.cuda.synchronize()
+        _check(f"{name} f32 stream20 kernel vs plain", want, got,
+               TOL_SPARSE_F32)
+        out[name] = {"ms": ms(fn, a, vals), "plain_ms": ms(fn.plain, a, vals),
+                     "bound_ms": geo.bound_ms(io + 4 * vals.numel(), useful,
+                                              geo.peak_f32_tflops),
+                     "bound_by": geo.bound_by(io + 4 * vals.numel(), useful,
+                                              geo.peak_f32_tflops),
+                     "library_ms": lib, "max_abs_err": _max_abs(want, got)}
+        r = out[name]
+        print(f"  {name} f32 stream20 ({m}x{n}x{k}, {bcsc.nblocks} blocks "
+              f"of 32x32): {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by"
+              f" {r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it; plain "
+              f"{r['plain_ms']:.4f} ms; torch.mm f32 on the densified B "
+              f"{lib:.4f} ms, kernel / library {r['ms'] / lib:.3f})")
+    return out
+
+
+def f32_kernel_rows(flash, spmm, routes, spmm_counts):
+    """The kernels-line rows of the f32 routes: the flash forward, dK/dV
+    and dQ on tma_fma at bench.py:568's shape (the other shape and causal
+    forms and SDPA's backends beside), launches their tma_fma launches on
+    the serving and training paths; the f32 SpMM forms at stream20,
+    launches those of the sparse path's f32 case."""
+    rows = []
+    b = flash[("bench", False)]
+    for part, counter, src, line in (
+            ("fwd", "flash_attention_fwd", "attention_kernels.cu", 159),
+            ("dkv", "flash_attention_bwd_dkv", "attention_bwd_kernels.cu",
+             387),
+            ("dq", "flash_attention_bwd_dq", "attention_bwd_kernels.cu",
+             485)):
+        yard = b["yardstick_fwd" if part == "fwd" else "yardstick_bwd"]
+        key = "fwd_ms" if part == "fwd" else "bwd_device_ms"
+        forms = {}
+        for (shape, causal), row in flash.items():
+            forms[f"{shape} causal={causal}"] = {
+                "ms": row["kernel"][f"{part}_ms"],
+                "plain_ms": row["plain"][f"{part}_ms"],
+                "bound_ms": row["bound"][part],
+                "sdpa": {n: row[n] for n in SDPA_BACKENDS},
+                "yardstick": row["yardstick_fwd" if part == "fwd"
+                                 else "yardstick_bwd"]}
+        rows.append({
+            "name": f"{counter}_f32", "route": "cuda",
+            "source": f"libxsmm_torch/kernels/csrc/{src}",
+            "replaces": f"libxsmm_tpu/kernels/attention_pallas.py:{line}",
+            "launches": routes[counter]["tma_fma"],
+            "max_abs_err": b["kernel"]["max_abs_err"][part],
+            "ms": b["kernel"][f"{part}_ms"],
+            "plain_ms": b["plain"][f"{part}_ms"],
+            "bound_ms": b["bound"][part], "bound_by": b["bound_by"][part],
+            "library_ms": None if yard is None else b[yard][key],
+            "path": b["route"],
+            "library": yard, "forms": forms})
+    for name, line in (("bcsc_spmm", 88), ("bcsc_spmm_super", 942),
+                       ("bcsc_spmm_union", 258)):
+        r = spmm[name]
+        rows.append({
+            "name": f"{name}_f32", "route": "cuda",
+            "source": "libxsmm_torch/kernels/csrc/spmm_kernels.cu",
+            "replaces": f"libxsmm_tpu/kernels/spmm_pallas.py:{line}",
+            "launches": spmm_counts.get(name, 0), "path": "fma", **r})
+    return rows
+
+
 def _aten_ops(fn, *fargs):
     """The torch operators (aten ops, views included) that one call of
     fn(*fargs) dispatches."""
@@ -2099,8 +2501,11 @@ def _par_attention(res, randn, world, dev):
                 tag = f"{name} {str(dt)[6:]} causal={causal}"
                 fn, _ = make(mesh, "sp", bh, s, hd, dt, causal=causal)
                 C.reset_log()
+                routes0 = _flash_routes()
                 out = fn(*ops).to_local()
                 torch.cuda.synchronize()
+                _took_route(tag, routes0, ("flash_attention_fwd",),
+                            "mma" if dt == torch.bfloat16 else "tma_fma")
                 want = model(bh, s, hd, world, dt)
                 if C.logged_bytes() != want:
                     raise AssertionError(f"{tag}: logged "
@@ -2111,10 +2516,13 @@ def _par_attention(res, randn, world, dev):
                 if causal != grad_causal:
                     continue
                 gl = [t.clone().requires_grad_(True) for t in ops]
+                routes0 = _flash_routes()
                 o = fn(*gl).to_local()
                 grads = torch.autograd.grad(
                     (o.float() * dout[:, seq]).sum(), gl)
                 torch.cuda.synchronize()
+                _took_route(f"{tag} backward", routes0, BWD_KERNELS,
+                            "mma" if dt == torch.bfloat16 else "tma_fma")
                 for i, (g, r, blk) in enumerate(zip(grads, rgrads, blocks)):
                     _par_check(res, f"{tag} grad[{i}]", r[blk], g[blk],
                                tol_g)
@@ -3069,7 +3477,7 @@ def lab_rows(record, ms, geo, dev, passthrough, brgemm, bcsc_lab_rows):
               f"staging {probes[nm].stage._asdict()}")
 
 
-def step_breakdown(params, x, y, cfg, reps=5):
+def step_breakdown(params, x, y, cfg, reps=5, label="bf16 8x512"):
     """One seeded train step at the path's shape, split into the forward
     (loss with its graph), the backward (autograd) and the SGD update:
     host clock around each part, closed by a device sync; mean of `reps`
@@ -3095,13 +3503,13 @@ def step_breakdown(params, x, y, cfg, reps=5):
             for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
                 parts[k] += dt * 1e3 / reps
     total = sum(parts.values())
-    print(f"  train step bf16 8x512 (ms per step, mean of {reps}): "
+    print(f"  train step {label} (ms per step, mean of {reps}): "
           + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
           + f"; total {total:.4f}")
     return parts
 
 
-def step_trace(params, x, y, cfg, steps=3):
+def step_trace(params, x, y, cfg, steps=3, label="bf16 8x512"):
     """Device time of seeded train steps by kernel, from torch.profiler's
     CUDA kernel events, beside the steps' wall time (host clock, closed by
     a device sync) with and without the profiler: the device's busy share
@@ -3134,23 +3542,23 @@ def step_trace(params, x, y, cfg, steps=3):
     walls = (f"wall {wall:.4f} ms per step ({wall_prof:.4f} under the "
              "profiler)")
     if not busy:
-        print(f"  train step trace: {walls}; device time not measured "
+        print(f"  train step trace {label}: {walls}; device time not measured "
               "(the profiler recorded no kernel)")
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"  train step trace: {walls}, device busy {busy:.4f} ms "
+    print(f"  train step trace {label}: {walls}, device busy {busy:.4f} ms "
           f"({100 * busy / wall:.1f}% of the wall, idle "
           f"{100 * (1 - busy / wall):.1f}%), {len(by_name)} kernel names; "
           "top: " + "; ".join(f"{n[:60]} {v:.4f}" for n, v in top))
     # the busy split: the port's flash kernels against everything else
     flash = {n: v for n, v in by_name.items() if "flash" in n}
-    print("  train step busy split: " + "; ".join(
+    print(f"  train step busy split {label}: " + "; ".join(
         f"{n.split('(')[0]} {v:.4f} ms "
         f"({100 * v / busy:.1f}%)" for n, v in sorted(flash.items()))
         + f"; the rest {busy - sum(flash.values()):.4f} ms")
 
 
-def block_breakdown(block, x, block_ops, ms):
+def block_breakdown(block, x, block_ops, ms, label="bf16 8x512"):
     """Where the served block's time goes: each stage of forward() timed
     alone at its shape, beside the whole forward."""
     from libxsmm_torch.descriptor import UnaryFlags, UnaryType
@@ -3175,7 +3583,8 @@ def block_breakdown(block, x, block_ops, ms):
     }
     total = ms(block, x)
     parts = ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
-    print(f"  block breakdown (ms, each stage alone): {parts}; sum "
+    print(f"  block breakdown {label} (ms, each stage alone; flash "
+          f"{flash.path}): {parts}; sum "
           f"{sum(stages.values()):.4f}; whole forward {total:.4f}")
 
 
@@ -3735,14 +4144,21 @@ def main() -> int:
         print(f"  phase {name}: {ms(fn, *fargs):.4f} ms per call")
     counts.update(enc["counts"])
     block_breakdown(*enc["block"], enc["block_operands"], ms)
+    block_breakdown(*enc["block_f32"], ms, label="f32 8x512")
 
     # 6. the encoder block's training path, counted on its own
     tr = training_path(randn, dev)
     for name, fn, fargs in tr["phases"]:
         print(f"  phase {name}: {ms(fn, *fargs):.4f} ms per call")
     counts.update({k: tr["counts"][k] for k in BWD_KERNELS})
+    # the flash launches of both paths by route (the f32 rows' launches)
+    flash_routes = {k: {r: enc["routes"][k][r] + tr["routes"][k][r]
+                        for r in v} for k, v in tr["routes"].items()}
+    print(f"  flash launches by route (serve + train): {flash_routes}")
     step_breakdown(*tr["step"])
     step_trace(*tr["step"])
+    step_breakdown(*tr["step_f32"], label="f32 8x512")
+    step_trace(*tr["step_f32"], label="f32 8x512")
 
     # 7. the block-sparse path, counted on its own
     sp = sparse_path(randn, dev)
@@ -4067,6 +4483,13 @@ def main() -> int:
     global_position_forms(rows, ms, KA, KE, fq, fkT, fv, bargs, dx)
 
     sparse_rows(record, rows, sp["stream"], sp["small"], ms, geo)
+
+    # the f32 routes: flash on tma_fma beside SDPA's backends at both
+    # shapes, the f32 SpMM forms at stream20
+    f32_flash = f32_flash_rows(randn, ms, geo)
+    f32_spmm = f32_spmm_rows(randn, ms, geo)
+    rows.extend(f32_kernel_rows(f32_flash, f32_spmm, flash_routes,
+                                sp["f32_counts"]))
 
     # stochastic rounding at the FFN shape, f32 -> bf16: x read once, out
     # written once. No PyTorch call computes stochastic rounding

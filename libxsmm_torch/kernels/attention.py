@@ -20,12 +20,16 @@ a larger one (a rank's share of a data- and head-sharded attention)
 hashes each head's global batch-head index, so its dropout mask is its
 block of the whole attention's; without one, the local index is hashed.
 
-The forward and each backward kernel have two CUDA forms: bf16 operands
-run on the tensor cores (mma.sync, f32 accumulators, hd padded to a bucket
-of `_MMA_HDP`), f32 operands on the CUDA cores' f32 FMAs (f32 means f32: no
-TF32). `flash_path` and `flash_bwd_path` name the form a dtype takes, as
-the C entry points choose it; there is no fallback between the two. Each
-form has its own tile configurations (`flash_configs`, `bwd_configs`).
+The forward and each backward kernel have two CUDA routes, one per
+operand type: bf16 runs on the tensor cores ("mma": mma.sync, f32
+accumulators, hd padded to a bucket of `_MMA_HDP`, tile configurations to
+choose among: `flash_configs`, `bwd_configs`), f32 on the CUDA cores' f32
+FMAs fed by TMA ("tma_fma": a producer warpgroup's ring of tiles, 8 x 8
+micro-tiles, one tile per hd bucket: 64, 128 or 256; f32 means f32, no
+TF32). `flash_path` and `flash_bwd_path` name the route a dtype takes, as
+the C entry points choose it, and each wrapper reports it as `.path`; an
+operand off 16-byte alignment is copied first, and a failed build or launch
+raises: there is no fallback between the routes.
 """
 
 from __future__ import annotations
@@ -45,23 +49,30 @@ _M32 = 0xFFFFFFFF
 # it launches its CUDA kernel, and nowhere else
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
             "flash_attention_bwd_dq": 0}
+ROUTES = ("mma", "tma_fma")
+# the same launches split by the route that served them (flash_path,
+# flash_bwd_path)
+path_launches = {name: dict.fromkeys(ROUTES, 0) for name in launches}
 # the source behind each counter and the CUDA kernels its launches run, by
 # name (lowering.py files each logged entry under its counter)
 ENTRIES = {"flash_attention_fwd": ("attention_kernels", (
-               "flash_fwd_kernel", "flash_fwd_mma_kernel")),
+               "flash_fwd_mma_kernel", "flash_fwd_tma_fma_kernel")),
            "flash_attention_bwd_dkv": ("attention_bwd_kernels", (
-               "flash_bwd_dkv_kernel", "flash_bwd_dkv_mma_kernel")),
+               "flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_tma_fma_kernel")),
            "flash_attention_bwd_dq": ("attention_bwd_kernels", (
-               "flash_bwd_dq_kernel", "flash_bwd_dq_mma_kernel"))}
+               "flash_bwd_dq_mma_kernel", "flash_bwd_dq_tma_fma_kernel"))}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for counts in path_launches.values():
+        for route in counts:
+            counts[route] = 0
 
 
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BQ = 64                      # query rows per block (csrc BQ)
+_BQ = 64                      # the bf16 kernels' query rows (csrc BQ)
 _lib = None
 _bwd_lib = None
 
@@ -189,10 +200,17 @@ _SMEM_MAX = 232448                        # a block's shared memory on sm_90
 
 
 def flash_path(dtype: torch.dtype) -> str:
-    """The forward kernel that serves `dtype` (csrc xsmm_flash_fwd): "mma",
-    the bf16 tensor-core kernel, or "fma", the f32 kernel on the CUDA cores
-    (f32 means f32: no TF32)."""
-    return "mma" if dtype == torch.bfloat16 else "fma"
+    """The forward route that serves `dtype` (csrc xsmm_flash_fwd): "mma",
+    the bf16 tensor-core kernel, or "tma_fma", the f32 kernel on the CUDA
+    cores' FMAs fed by TMA (f32 means f32: no TF32)."""
+    return "mma" if dtype == torch.bfloat16 else "tma_fma"
+
+
+def _bf16_only(dtype: torch.dtype) -> None:
+    if dtype != torch.bfloat16:
+        raise ValueError(f"{dtype}: only the bf16 kernels have tile "
+                         f"configurations; the f32 (tma_fma) kernels take "
+                         f"one tile per hd bucket")
 
 
 def _mma_hdp(hd: int) -> int:
@@ -200,101 +218,79 @@ def _mma_hdp(hd: int) -> int:
     return next(p for p in _MMA_HDP if hd <= p)
 
 
-def _smem_bytes(hd: int, bk: int, dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one forward block (csrc launch_flash,
-    mma_smem_bytes). f32: Q^T and P^T at a 64+4 row stride, the K^T and V
-    tiles, in f32, hd padded to 64. bf16: Q and two K^T and V tiles each,
-    in bf16, hd padded to its bucket, every row padded by 16 bytes."""
-    if flash_path(dtype) == "mma":
-        hdp = _mma_hdp(hd)
-        return (_BQ * (hdp + 8) + 2 * hdp * (bk + 8)
-                + 2 * bk * (hdp + 8)) * 2
-    hdp = -(-hd // 64) * 64
-    return (hdp * (_BQ + 4) + 2 * hdp * bk + bk * (_BQ + 4)) * 4
+def _smem_bytes(hd: int, bk: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one bf16 forward block (csrc mma_smem_bytes): Q and
+    two K^T and V tiles each, in bf16, hd padded to its bucket, every row
+    padded by 16 bytes."""
+    _bf16_only(dtype)
+    hdp = _mma_hdp(hd)
+    return (_BQ * (hdp + 8) + 2 * hdp * (bk + 8) + 2 * bk * (hdp + 8)) * 2
 
 
-def flash_configs(hd: int, dtype: torch.dtype = torch.float32) -> list:
-    """(rows, K columns) per block the CUDA kernel for `dtype` is built
-    for; the first is the default for this head dim. f32: 64-column K tiles
-    while two blocks still fit an SM's shared memory, else 32. bf16: 64
-    columns up to hd = 128, where the f32 S fragments cost 32 registers a
-    thread beside O's 64; past it O alone takes up to 128, so 32 columns."""
+def flash_configs(hd: int, dtype: torch.dtype = torch.bfloat16) -> list:
+    """(rows, K columns) per block the bf16 kernel is built for; the first
+    is the default for this head dim: 64 columns up to hd = 128, where the
+    f32 S fragments cost 32 registers a thread beside O's 64; past it O
+    alone takes up to 128, so 32 columns. f32 has none (ValueError)."""
+    _bf16_only(dtype)
     wide = (_BQ, 64)
     narrow = (_BQ, 32)
-    if flash_path(dtype) == "mma":
-        order = [wide, narrow] if _mma_hdp(hd) <= 128 else [narrow, wide]
-        return [c for c in order if _smem_bytes(hd, c[1], dtype) <= _SMEM_MAX]
-    return [wide, narrow] if 2 * _smem_bytes(hd, 64) <= 228 * 1024 \
-        else [narrow, wide]
+    order = [wide, narrow] if _mma_hdp(hd) <= 128 else [narrow, wide]
+    return [c for c in order if _smem_bytes(hd, c[1], dtype) <= _SMEM_MAX]
 
 
 def flash_bwd_path(dtype: torch.dtype) -> str:
-    """The backward kernels that serve `dtype` (csrc run): "mma", the bf16
-    tensor-core dK/dV and dQ kernels, or "fma", the f32 kernels on the CUDA
-    cores."""
-    return "mma" if dtype == torch.bfloat16 else "fma"
+    """The route both backward kernels take for `dtype` (csrc run): "mma",
+    the bf16 tensor-core dK/dV and dQ kernels, or "tma_fma", the f32 kernels
+    on TMA-fed FMA tiles."""
+    return "mma" if dtype == torch.bfloat16 else "tma_fma"
 
 
 def _bwd_smem_bytes(hd: int, bk: int, kernel: str = "dkv",
-                    dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one backward block. f32 (csrc dkv_smem, dq_smem):
-    Q, dO, K and V tiles at a row stride of hd + 4 (hd padded to 64), plus
-    the dK/dV kernel's p~ and dS tiles or the dQ kernel's dS^T tile, in f32.
-    bf16 (csrc dkv_mma_smem, dq_mma_smem), hd padded to its bucket and
-    every row by 16 bytes: the dK/dV kernel's K^T and V tiles, two Q and two
-    dO tiles and two lse and delta rows (f32); the dQ kernel's Q and dO
-    tiles and two K^T and two V tiles."""
-    if flash_bwd_path(dtype) == "mma":
-        hdp = _mma_hdp(hd)
-        if kernel == "dkv":
-            return (hdp * (bk + 8) + bk * (hdp + 8)
-                    + 4 * _BQ * (hdp + 8)) * 2 + 4 * _BQ * 4
-        return (2 * _BQ * (hdp + 8) + 2 * hdp * (bk + 8)
-                + 2 * bk * (hdp + 8)) * 2
-    ld = -(-hd // 64) * 64 + 4
-    tiles = 2 * _BQ * ld + 2 * bk * ld
-    extra = 2 * _BQ * (bk + 4) if kernel == "dkv" else bk * (_BQ + 4)
-    return (tiles + extra) * 4
+                    dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one bf16 backward block (csrc dkv_mma_smem,
+    dq_mma_smem), hd padded to its bucket and every row by 16 bytes: the
+    dK/dV kernel's K^T and V tiles, two Q and two dO tiles and two lse and
+    delta rows (f32); the dQ kernel's Q and dO tiles and two K^T and two V
+    tiles."""
+    _bf16_only(dtype)
+    hdp = _mma_hdp(hd)
+    if kernel == "dkv":
+        return (hdp * (bk + 8) + bk * (hdp + 8)
+                + 4 * _BQ * (hdp + 8)) * 2 + 4 * _BQ * 4
+    return (2 * _BQ * (hdp + 8) + 2 * hdp * (bk + 8)
+            + 2 * bk * (hdp + 8)) * 2
 
 
 def bwd_configs(hd: int, kernel: str = "dkv",
-                dtype: torch.dtype = torch.float32) -> list:
-    """(rows, K columns) per block the backward kernel `kernel` ("dkv" or
-    "dq") for `dtype` is built for, the default first.
-
-    f32: both take 64-column K tiles where a block's shared memory holds
-    them (hd <= 128) and 32 columns up to hd = 256. The dK/dV kernel
-    prefers 64 wherever it fits: each Q tile it stages then serves twice the
-    columns. The dQ kernel prefers 64 only while two blocks still fit an
-    SM's shared memory, else 32 (at hd = 128 the 32-column tile keeps two
-    blocks per SM and runs faster).
-
-    bf16: 64 then 32 columns up to a padded hd of 128, 32 alone past it. At
-    64 columns each of the dK/dV kernel's four warps owns 16 keys and all of
-    hd, two accumulators of 16 x hd; past a padded 128 those would not fit
-    the registers, so there the 32-column tile splits hd's columns over the
-    two warps of each key group."""
-    if flash_bwd_path(dtype) == "mma":
-        both = [(_BQ, 64), (_BQ, 32)] if _mma_hdp(hd) <= 128 else [(_BQ, 32)]
-        return [c for c in both
-                if _bwd_smem_bytes(hd, c[1], kernel, dtype) <= _SMEM_MAX]
-    fits = [c for c in ((_BQ, 64), (_BQ, 32))
-            if _bwd_smem_bytes(hd, c[1], kernel) <= 227 * 1024]
-    if kernel == "dq" and len(fits) == 2 and \
-            2 * _bwd_smem_bytes(hd, 64, "dq") > 228 * 1024:
-        fits.reverse()
-    return fits
+                dtype: torch.dtype = torch.bfloat16) -> list:
+    """(rows, K columns) per block the bf16 backward kernel `kernel` ("dkv"
+    or "dq") is built for, the default first: 64 then 32 columns up to a
+    padded hd of 128, 32 alone past it. At 64 columns each of the dK/dV
+    kernel's four warps owns 16 keys and all of hd, two accumulators of 16 x
+    hd; past a padded 128 those would not fit the registers, so there the
+    32-column tile splits hd's columns over the two warps of each key group.
+    f32 has none (ValueError)."""
+    _bf16_only(dtype)
+    both = [(_BQ, 64), (_BQ, 32)] if _mma_hdp(hd) <= 128 else [(_BQ, 32)]
+    return [c for c in both
+            if _bwd_smem_bytes(hd, c[1], kernel, dtype) <= _SMEM_MAX]
 
 
-def _pick_config(s: int, configs: list, block_override) -> Tuple[int, int]:
+def _pick_config(s: int, configs, block_override) -> Tuple:
+    """The bf16 kernel's (rows, K columns) within block_override (the
+    reference's TPU tile, an upper bound here), or its default. configs None
+    (f32: one tile per hd bucket) picks nothing: (None, None), after the
+    same check that the override tiles s."""
+    if block_override is not None:
+        bq, bk = (int(x) for x in block_override)
+        if bq <= 0 or bk <= 0 or s % bq or s % bk:
+            raise ValueError(f"block_override {block_override} does not "
+                             f"tile s={s}")
+    if configs is None:
+        return None, None
     if block_override is None:
         return configs[0]
-    bq, bk = (int(x) for x in block_override)
-    if bq <= 0 or bk <= 0 or s % bq or s % bk:
-        raise ValueError(f"block_override {block_override} does not tile "
-                         f"s={s}")
-    # the TPU's (bq, bk) is an upper bound here: take the kernel's largest
-    # tile within it
     for cbq, cbk in sorted(configs, key=lambda c: -c[1]):
         if cbq <= bq and cbk <= bk:
             return cbq, cbk
@@ -312,7 +308,7 @@ class FlashAttention:
 
     def __init__(self, bh: int, s: int, hd: int, dtype: torch.dtype,
                  causal: bool, scale: float, bias_bh: int, dropout_p: float,
-                 return_lse: bool, config: Tuple[int, int],
+                 return_lse: bool, config: Tuple,
                  head_map=None):
         self.bh, self.s, self.hd, self.dtype = bh, s, hd, dtype
         self.head_map = check_head_map(head_map, bh)
@@ -321,6 +317,7 @@ class FlashAttention:
         self.bias_bh = int(bias_bh)
         self.dropout_p = float(dropout_p)
         self.return_lse = bool(return_lse)
+        # the bf16 kernel's tile; None, None for f32 (one tile a hd bucket)
         self.block_q, self.block_k = config
         self.path = flash_path(dtype)
         self.thr = (_dropout_threshold(self.dropout_p)
@@ -328,7 +325,8 @@ class FlashAttention:
         self.inv_keep = (1.0 / (1.0 - self.dropout_p)
                          if self.dropout_p > 0.0 else 1.0)
         self.name = (f"flash_fwd_{bh}x{s}x{hd}_{str(dtype).split('.')[-1]}"
-                     f"_bk{self.block_k}")
+                     f"_{self.path}"
+                     + (f"_bk{self.block_k}" if self.block_k else ""))
 
     def _operands(self, q, kT, v, bias):
         bh, s, hd = self.bh, self.s, self.hd
@@ -351,6 +349,8 @@ class FlashAttention:
         if not _on_cuda(q, kT, v, bias):
             return self.plain(seed, q, kT, v, bias)
         bh, s, hd = self.bh, self.s, self.hd
+        # both kernels read 16-byte units (cp.async, TMA): an operand off
+        # that alignment is copied first
         q, kT, v = (_aligned16(t) for t in (q, kT, v))
         if bias is not None:
             bias = bias.to(torch.float32).contiguous()
@@ -362,13 +362,14 @@ class FlashAttention:
             err = lib.xsmm_flash_fwd(
                 _ptr(q), _ptr(kT), _ptr(v), _ptr(bias),
                 0 if self.bias_bh == 1 else s * s, _ptr(out), _ptr(lse),
-                bh, s, hd, _TYPE_CODE[self.dtype], self.block_k, self.scale,
-                int(self.causal), int(self.thr is not None),
+                bh, s, hd, _TYPE_CODE[self.dtype], self.block_k or 0,
+                self.scale, int(self.causal), int(self.thr is not None),
                 int(seed) & _M32 if self.thr is not None else 0,
                 self.thr or 0, self.inv_keep, *self.head_map,
                 _stream(q.device))
         _raise_on_error(err, self.name, lib)
         launches["flash_attention_fwd"] += 1
+        path_launches["flash_attention_fwd"][self.path] += 1
         return (out, lse) if self.return_lse else out
 
     def plain(self, seed, q, kT, v, bias=None):
@@ -420,16 +421,20 @@ def build_flash_attention(bh: int, s: int, hd: int, dtype: torch.dtype,
     picks the largest CUDA tile configuration within it (flash_configs).
     head_map=(b0, h0, nh_local, nh_global): the dropout hash reads each
     local batch-head's global index (check_head_map); None hashes the local
-    index, as before."""
+    index, as before. The dtype picks the kernel (flash_path): bf16 the
+    tensor-core kernel, with the tile block_override bounds; f32 the
+    tma_fma kernel, one tile per hd bucket (block_override must tile s and
+    changes nothing)."""
     if not supported(s, hd, dtype):
         raise ValueError(f"unsupported flash shape s={s} hd={hd} {dtype}")
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
     sc = float(scale) if scale is not None else float(hd) ** -0.5
+    bf16 = dtype == torch.bfloat16
+    config = _pick_config(s, flash_configs(hd, dtype) if bf16 else None,
+                          block_override)
     return FlashAttention(bh, s, hd, dtype, causal, sc, bias_bh, dropout_p,
-                          return_lse,
-                          _pick_config(s, flash_configs(hd, dtype),
-                                       block_override), head_map)
+                          return_lse, config, head_map)
 
 
 # ---------------------------------------------------------------------------
@@ -444,14 +449,14 @@ class FlashAttentionBwd:
 
     `dkv` and `dq` run the two kernels one at a time (each with its plain
     version, `dkv_plain` and `dq_plain`); calling the object runs both.
-    Each kernel has its own K-tile width: `block_k` (dK/dV) and
-    `block_k_dq`; `path` names the form both kernels take
-    (flash_bwd_path)."""
+    The bf16 kernels each have their own K-tile width: `block_k` (dK/dV)
+    and `block_k_dq` (None for f32: one tile per hd bucket); `path` names
+    the route both kernels take (flash_bwd_path)."""
 
     def __init__(self, bh: int, s: int, hd: int, dtype: torch.dtype,
                  causal: bool, scale: float, bias_bh: int, dropout_p: float,
-                 bias_grad: bool, config: Tuple[int, int],
-                 config_dq: Tuple[int, int], head_map=None):
+                 bias_grad: bool, config: Tuple, config_dq: Tuple,
+                 head_map=None):
         self.bh, self.s, self.hd, self.dtype = bh, s, hd, dtype
         self.head_map = check_head_map(head_map, bh)
         self.causal = bool(causal)
@@ -467,7 +472,9 @@ class FlashAttentionBwd:
         self.inv_keep = (1.0 / (1.0 - self.dropout_p)
                          if self.dropout_p > 0.0 else 1.0)
         self.name = (f"flash_bwd_{bh}x{s}x{hd}_{str(dtype).split('.')[-1]}"
-                     f"_bk{self.block_k}_{self.block_k_dq}")
+                     f"_{self.path}"
+                     + (f"_bk{self.block_k}_{self.block_k_dq}"
+                        if self.block_k else ""))
 
     def _operands(self, q, kT, v, dout, lse, delta, bias):
         bh, s, hd = self.bh, self.s, self.hd
@@ -491,7 +498,7 @@ class FlashAttentionBwd:
     def _launch(self, which, seed, q, kT, v, dout, lse, delta, bias):
         """Launch one kernel on CUDA operands; returns its outputs."""
         bh, s, hd = self.bh, self.s, self.hd
-        # the tensor-core kernels stage in 16-byte units: an operand off
+        # both routes read 16-byte units (cp.async, TMA): an operand off
         # that alignment is copied first
         q, kT, v, dout = (_aligned16(t) for t in (q, kT, v, dout))
         # one column of each lane-broadcast statistic: (bh, s) f32
@@ -501,7 +508,7 @@ class FlashAttentionBwd:
         head = (_ptr(q), _ptr(kT), _ptr(v), _ptr(dout), _ptr(lse),
                 _ptr(delta), _ptr(bias), 0 if self.bias_bh == 1 else s * s)
         bk = self.block_k if which == "dkv" else self.block_k_dq
-        tail = (bh, s, hd, _TYPE_CODE[self.dtype], bk, self.scale,
+        tail = (bh, s, hd, _TYPE_CODE[self.dtype], bk or 0, self.scale,
                 int(self.causal), int(self.thr is not None),
                 int(seed) & _M32 if self.thr is not None else 0,
                 self.thr or 0, self.inv_keep, *self.head_map,
@@ -516,12 +523,14 @@ class FlashAttentionBwd:
                                              _ptr(dbias), *tail)
             _raise_on_error(err, f"{self.name} dkv", lib)
             launches["flash_attention_bwd_dkv"] += 1
+            path_launches["flash_attention_bwd_dkv"][self.path] += 1
             return (dkT, dv, dbias) if self.bias_grad else (dkT, dv)
         dq = torch.empty_like(q)
         with torch.cuda.device(q.device):
             err = lib.xsmm_flash_bwd_dq(*head, _ptr(dq), *tail)
         _raise_on_error(err, f"{self.name} dq", lib)
         launches["flash_attention_bwd_dq"] += 1
+        path_launches["flash_attention_bwd_dq"][self.path] += 1
         return dq
 
     def dkv(self, seed, q, kT, v, dout, lse, delta, bias=None):
@@ -615,9 +624,10 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     per-(batch*head) bias (bias_bh == bh), as the reference's. The tiling is
     chosen independently of the forward's: the dropout mask depends only on
     global coordinates. block_override=(bq, bk), the reference's TPU tile,
-    picks for each kernel the largest CUDA tile configuration within it
-    (bwd_configs for `dtype`). head_map as build_flash_attention's: the
-    mask replayed is the one the forward with that map drew."""
+    picks for each bf16 kernel the largest CUDA tile configuration within
+    it (bwd_configs); f32 (tma_fma, one tile per hd bucket) only checks that
+    it tiles s. head_map as build_flash_attention's: the mask replayed is
+    the one the forward with that map drew."""
     if not supported(s, hd, dtype):
         raise ValueError(f"unsupported flash shape s={s} hd={hd} {dtype}")
     if not 0.0 <= dropout_p < 1.0:
@@ -625,8 +635,10 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     if bias_grad and bias_bh != bh:
         raise ValueError("bias_grad requires a per-(batch*head) bias")
     sc = float(scale) if scale is not None else float(hd) ** -0.5
+    bf16 = dtype == torch.bfloat16
+    config, config_dq = (
+        _pick_config(s, bwd_configs(hd, k, dtype) if bf16 else None,
+                     block_override) for k in ("dkv", "dq"))
     return FlashAttentionBwd(
         bh, s, hd, dtype, causal, sc, bias_bh, dropout_p, bias_grad,
-        _pick_config(s, bwd_configs(hd, "dkv", dtype), block_override),
-        _pick_config(s, bwd_configs(hd, "dq", dtype), block_override),
-        head_map)
+        config, config_dq, head_map)

@@ -4,9 +4,9 @@
 // kernels of build_flash_attention_bwd
 // (libxsmm_tpu/kernels/attention_pallas.py:322):
 //   dK^T, dV (+ dbias) <- dkv_kernel (:387): flash_bwd_dkv_mma_kernel (bf16),
-//                                            flash_bwd_dkv_kernel (f32)
+//                                            flash_bwd_dkv_tma_fma_kernel (f32)
 //   dQ                 <- dq_kernel  (:485): flash_bwd_dq_mma_kernel (bf16),
-//                                            flash_bwd_dq_kernel (f32)
+//                                            flash_bwd_dq_tma_fma_kernel (f32)
 //
 // Plain C interface, no torch headers: kernels/_build.py compiles this file
 // with nvcc into its own shared library (beside the forward's, built in
@@ -68,28 +68,50 @@
 //   dP = dO V^T (V by ldmatrix), dS = P (dP - delta) as A fragments, and
 //   dQ += dS K with K read from the K^T tile by a plain ldmatrix.
 //
-// f32, on the CUDA cores' FMAs (67 TFLOP/s: floors of 1.03 and 0.77 ms at
-// the bench shape; f32 means f32, no TF32). Every tile is staged row-major
-// in f32 at a row stride of hd + 4 floats. In the S and dP products thread
-// (ty, tx) of a 16 x 16 grid owns score rows 4ty..4ty+3 and columns
-// tx + 16c, and reads four consecutive hd entries of each operand row with
-// one 16-byte load (a quarter warp covers all 32 banks). The p~ and dS
-// tiles go through shared memory to the accumulating products, where each
-// thread owns a few output rows and four consecutive columns in each
-// 64-wide group of hd. Nothing of the (s, s) panels reaches device memory
-// except dbias when it is asked for.
+// f32 on TMA-fed FMA tiles (route "tma_fma"), on the CUDA cores' FMAs (67
+// TFLOP/s: floors of 1.03 and 0.77 ms at the bench shape; f32 means f32,
+// no TF32), the forward's design
+// (xsmm_flash_fma.cuh): one producer warpgroup keeps two 32 KB TMA stages
+// in flight (full and empty mbarriers), eight consumer warps compute on 8 x 8
+// micro-tiles, four FMAs per float read from shared memory, every read
+// either a quarter warp's broadcast or eight consecutive 16-byte units.
+// Consumer warps 0-3 (group A) and 4-7 (group B) split each step's score
+// products and hand p over through shared memory; B recomputes the
+// dropout hash for dP.
+//   dK/dV (TfDkv): one block owns BK = 8192 / HDP keys; K^T lands once as
+//   it lies and V once, transposed into V^T. Per Q tile of BQ = HDP rows
+//   the ring brings DS-column slices of Q and dO (and the tile's lse and
+//   delta rows): A forms S = Q K^T, B dP = dO V^T on (query set, key
+//   chunk) micro-tiles, Q and dO read four hd entries a row at a time (the
+//   lanes' common rows). A writes p~ and p, B turns p into dS in place
+//   (and writes dbias). Then IS-row slices of dO and Q: A accumulates
+//   dV += p~^T dO, B dK += dS^T Q on (key set, hd chunk) micro-tiles, both
+//   in registers across all Q tiles; the reference's order of products,
+//   dK^T scaled once at the end.
+//   dQ (TfDq): one block owns BQ = 128, 128, 64 query rows (hd buckets
+//   64, 128, 256); Q and dO land once and are transposed into Q^T and
+//   dO^T. Per K tile of BK = 8192 / BQ keys the ring brings DK-row slices
+//   of K^T with the same DK columns of V: A forms S^T = K Q^T, B dP^T =
+//   V dO^T on (key set, query chunk) micro-tiles; p and then dS pass
+//   through dS^T; then JS-column slices of K^T: all eight warps accumulate
+//   dQ^T += K^T-rows dS^T on (hd set, query chunk) micro-tiles (at bucket
+//   64 over two halves of the keys, added once at the end), scaled once at
+//   the end.
+// Tiles wider than the rest of s arrive zero-filled and contribute nothing.
+//
+// Nothing of the (s, s) panels reaches device memory except dbias when it
+// is asked for.
 
 #include <cuda_runtime.h>
 
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
+#include "xsmm_flash_fma.cuh"
 #include "xsmm_launches.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int NT = 256;       // threads per block: a 16 x 16 grid
-constexpr int QS = BQ + 4;    // row stride of the dS^T tile (dQ kernel)
+constexpr int BQ = 64;        // query rows per tile (the bf16 kernels)
 
 struct BwdArgs {
   const void* q;        // (bh, s, hd)
@@ -114,336 +136,6 @@ struct BwdArgs {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-// rows [0, ROWS) of a row-major (., hd) array into dst[ROWS][HDP + 4];
-// columns hd..HDP-1 are zero
-template <int HDP, int ROWS>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int hd) {
-  constexpr int LD = HDP + 4;
-  for (int i = threadIdx.x; i < ROWS * HDP; i += NT) {
-    const int r = i / HDP, d = i - r * HDP;
-    dst[r * LD + d] = d < hd ? src[(size_t)r * hd + d] : 0.f;
-  }
-}
-
-// columns [0, COLS) of a (hd, s) array (kT, pre-offset to the tile) into
-// dst[COLS][HDP + 4], transposed: dst[j][d] = src[d][j]
-template <int HDP, int COLS>
-__device__ __forceinline__ void stage_cols(float* dst, const float* src,
-                                           int hd, int s) {
-  constexpr int LD = HDP + 4;
-  for (int i = threadIdx.x; i < HDP * COLS; i += NT) {
-    const int d = i / COLS, j = i - d * COLS;
-    dst[j * LD + d] = d < hd ? src[(size_t)d * s + j] : 0.f;
-  }
-}
-
-// s0[r][c] = A0[4ty+r] . B0[tx+16c] and s1[r][c] = A1[4ty+r] . B1[tx+16c]
-// over hd, for row-major tiles at stride HDP + 4: S = Q K^T and dP = dO V^T
-template <int HDP, int CPT>
-__device__ __forceinline__ void two_products(
-    const float* a0, const float* b0, const float* a1, const float* b1,
-    int hd, int ty, int tx, float (&s0)[4][CPT], float (&s1)[4][CPT]) {
-  constexpr int LD = HDP + 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) s0[r][c] = s1[r][c] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < hd; d += 4) {
-    float4 x0[4], x1[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      x0[r] = ld4(a0 + (ty * 4 + r) * LD + d);
-      x1[r] = ld4(a1 + (ty * 4 + r) * LD + d);
-    }
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const float4 y0 = ld4(b0 + (tx + 16 * c) * LD + d);
-      const float4 y1 = ld4(b1 + (tx + 16 * c) * LD + d);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float u = s0[r][c], w = s1[r][c];
-        u = fmaf(x0[r].x, y0.x, u); w = fmaf(x1[r].x, y1.x, w);
-        u = fmaf(x0[r].y, y0.y, u); w = fmaf(x1[r].y, y1.y, w);
-        u = fmaf(x0[r].z, y0.z, u); w = fmaf(x1[r].z, y1.z, w);
-        u = fmaf(x0[r].w, y0.w, u); w = fmaf(x1[r].w, y1.w, w);
-        s0[r][c] = u; s1[r][c] = w;
-      }
-    }
-  }
-}
-
-// p, the dropped p~ and ds of one score element (attention_pallas.py:356-384)
-struct Grad { float p_drop, ds; };
-__device__ __forceinline__ Grad score_grad(const BwdArgs& a, const float* bias_h,
-                                           uint32_t hb, int row, int col,
-                                           float sc, float dp, float lse,
-                                           float delta) {
-  float x = sc * a.scale;
-  if (bias_h) x += bias_h[(size_t)row * a.s + col];
-  const float p = (a.causal && col > row) ? 0.f : expf(x - lse);
-  float p_drop = p;
-  if (a.dropout) {
-    const bool keep = rand_bits(a.seed, hb, (uint32_t)row,
-                                (uint32_t)col) >= a.thr;
-    p_drop = keep ? p * a.inv_keep : 0.f;
-    dp = keep ? dp * a.inv_keep : 0.f;
-  }
-  return {p_drop, p * (dp - delta)};
-}
-
-// ---------------------------------------------------------------------------
-// dK^T, dV (+ dbias): one block per (b, K tile), looping over the Q tiles
-// ---------------------------------------------------------------------------
-
-template <int HDP, int BK>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const BwdArgs a) {
-  constexpr int LD = HDP + 4;
-  constexpr int PS = BK + 4;     // row stride of the p~ and dS tiles
-  constexpr int KTS = BK + 1;    // row stride of the dK^T staging tile
-  constexpr int CPT = BK / 16;   // score columns per thread
-  constexpr int R = BK / 16;     // dK/dV rows per thread
-  constexpr int DG = HDP / 64;   // 4-column groups of hd per thread
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // [BQ][LD]  Q tile
-  float* o_s = q_s + BQ * LD;                     // [BQ][LD]  dO tile
-  float* k_s = o_s + BQ * LD;                     // [BK][LD]  K tile
-  float* v_s = k_s + BK * LD;                     // [BK][LD]  V tile
-  float* p_s = v_s + BK * LD;                     // [BQ][PS]  p~
-  float* d_s = p_s + BQ * PS;                     // [BQ][PS]  dS
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int s = a.s, hd = a.hd;
-  const int b = blockIdx.x;
-  const uint32_t hb = a.hm(b);    // the hash's batch-head
-  const int k0 = blockIdx.y * BK;   // causal: the first tiles have most work
-  const size_t head = (size_t)b * s * hd;
-  const float* qh = static_cast<const float*>(a.q) + head;
-  const float* oh = static_cast<const float*>(a.dout) + head;
-  const float* kh = static_cast<const float*>(a.kT) + head;
-  const float* vh = static_cast<const float*>(a.v) + head;
-  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
-  float* dbias_h = a.dbias ? a.dbias + (size_t)b * s * s : nullptr;
-
-  stage_cols<HDP, BK>(k_s, kh + k0, hd, s);
-  stage_rows<HDP, BK>(v_s, vh + (size_t)k0 * hd, hd);
-
-  float dk[R][DG][4], dv[R][DG][4];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int g = 0; g < DG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dk[r][g][c] = dv[r][g][c] = 0.f;
-
-  // Q tiles entirely above this K tile's diagonal contribute nothing; their
-  // dbias blocks are zero (attention_pallas.py:425-432)
-  const int qstart = a.causal ? k0 / BQ : 0;
-  if (dbias_h) {
-    for (int i = tid; i < qstart * BQ * BK; i += NT) {
-      const int r = i / BK, c = i - r * BK;
-      dbias_h[(size_t)r * s + k0 + c] = 0.f;
-    }
-  }
-
-  for (int qi = qstart; qi < s / BQ; ++qi) {
-    const int q0 = qi * BQ;
-    __syncthreads();   // the previous step is done with q_s, o_s, p_s, d_s
-    stage_rows<HDP, BQ>(q_s, qh + (size_t)q0 * hd, hd);
-    stage_rows<HDP, BQ>(o_s, oh + (size_t)q0 * hd, hd);
-    float lse_r[4], del_r[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      lse_r[r] = a.lse[(size_t)b * s + q0 + ty * 4 + r];
-      del_r[r] = a.delta[(size_t)b * s + q0 + ty * 4 + r];
-    }
-    __syncthreads();
-
-    float sc[4][CPT], dp[4][CPT];
-    two_products<HDP, CPT>(q_s, k_s, o_s, v_s, hd, ty, tx, sc, dp);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty * 4 + r;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int col = k0 + tx + 16 * c;
-        const Grad gr = score_grad(a, bias_h, hb, row, col, sc[r][c],
-                                   dp[r][c], lse_r[r], del_r[r]);
-        if (dbias_h) dbias_h[(size_t)row * s + col] = gr.ds;
-        p_s[(ty * 4 + r) * PS + tx + 16 * c] = gr.p_drop;
-        d_s[(ty * 4 + r) * PS + tx + 16 * c] = gr.ds;
-      }
-    }
-    __syncthreads();
-
-    // dV_j += p~_ij dO_i and dK_j += dS_ij Q_i over the tile's rows i
-#pragma unroll 2
-    for (int i = 0; i < BQ; ++i) {
-      float pv[R], sv[R];
-      VecF<R>::load(p_s + i * PS + ty * R, pv);
-      VecF<R>::load(d_s + i * PS + ty * R, sv);
-#pragma unroll
-      for (int g = 0; g < DG; ++g) {
-        const float4 ov = ld4(o_s + i * LD + g * 64 + tx * 4);
-        const float4 qv = ld4(q_s + i * LD + g * 64 + tx * 4);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          dv[r][g][0] = fmaf(pv[r], ov.x, dv[r][g][0]);
-          dv[r][g][1] = fmaf(pv[r], ov.y, dv[r][g][1]);
-          dv[r][g][2] = fmaf(pv[r], ov.z, dv[r][g][2]);
-          dv[r][g][3] = fmaf(pv[r], ov.w, dv[r][g][3]);
-          dk[r][g][0] = fmaf(sv[r], qv.x, dk[r][g][0]);
-          dk[r][g][1] = fmaf(sv[r], qv.y, dk[r][g][1]);
-          dk[r][g][2] = fmaf(sv[r], qv.z, dk[r][g][2]);
-          dk[r][g][3] = fmaf(sv[r], qv.w, dk[r][g][3]);
-        }
-      }
-    }
-  }
-
-  // dV rows straight out; dK^T through a transposed staging tile, so its
-  // (hd, s) rows are written along s
-  float* dvh = static_cast<float*>(a.dv) + head;
-  float* dkh = static_cast<float*>(a.dkT) + head;
-  __syncthreads();   // everyone is done with q_s: it becomes the staging tile
-  float* kt_s = q_s;   // [HDP][KTS]
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int j = ty * R + r;
-#pragma unroll
-    for (int g = 0; g < DG; ++g) {
-      const int d = g * 64 + tx * 4;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kt_s[(d + c) * KTS + j] = dk[r][g][c] * a.scale;
-      if (d < hd) {   // hd % 8 == 0: a 4-column group is all in or all out
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          store_as(dv[r][g][c], dvh + (size_t)(k0 + j) * hd + d + c);
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < hd * BK; i += NT) {
-    const int d = i / BK, j = i - d * BK;
-    store_as(kt_s[d * KTS + j], dkh + (size_t)d * s + k0 + j);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dQ: one block per (b, Q tile), looping over the K tiles
-// ---------------------------------------------------------------------------
-
-template <int HDP, int BK>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int LD = HDP + 4;
-  constexpr int CPT = BK / 16;   // score columns per thread
-  constexpr int DG = HDP / 64;   // 4-column groups of hd per thread
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // [BQ][LD]  Q tile
-  float* o_s = q_s + BQ * LD;                     // [BQ][LD]  dO tile
-  float* k_s = o_s + BQ * LD;                     // [BK][LD]  K tile
-  float* v_s = k_s + BK * LD;                     // [BK][LD]  V tile
-  float* st_s = v_s + BK * LD;                    // [BK][QS]  dS^T
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int s = a.s, hd = a.hd;
-  const int nq = s / BQ;
-  // causal: the bottom tiles have the most K steps; start them first
-  const int qi = a.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int b = blockIdx.x;
-  const uint32_t hb = a.hm(b);    // the hash's batch-head
-  const int q0 = qi * BQ;
-  const size_t head = (size_t)b * s * hd;
-  const float* kh = static_cast<const float*>(a.kT) + head;
-  const float* vh = static_cast<const float*>(a.v) + head;
-  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
-
-  stage_rows<HDP, BQ>(q_s, static_cast<const float*>(a.q) + head +
-                               (size_t)q0 * hd, hd);
-  stage_rows<HDP, BQ>(o_s, static_cast<const float*>(a.dout) + head +
-                               (size_t)q0 * hd, hd);
-  float lse_r[4], del_r[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    lse_r[r] = a.lse[(size_t)b * s + q0 + ty * 4 + r];
-    del_r[r] = a.delta[(size_t)b * s + q0 + ty * 4 + r];
-  }
-
-  float acc[4][DG][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int g = 0; g < DG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][g][c] = 0.f;
-
-  // a K tile is visited iff its first column is <= the tile's last row
-  const int kend = a.causal ? q0 + BQ : s;
-  const int ntiles = (kend + BK - 1) / BK;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();   // the previous step is done with k_s, v_s, st_s
-    stage_cols<HDP, BK>(k_s, kh + k0, hd, s);
-    stage_rows<HDP, BK>(v_s, vh + (size_t)k0 * hd, hd);
-    __syncthreads();
-
-    float sc[4][CPT], dp[4][CPT];
-    two_products<HDP, CPT>(q_s, k_s, o_s, v_s, hd, ty, tx, sc, dp);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = k0 + tx + 16 * c;
-      float ds[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = q0 + ty * 4 + r;
-        ds[r] = score_grad(a, bias_h, hb, row, col, sc[r][c], dp[r][c],
-                           lse_r[r], del_r[r]).ds;
-      }
-      *reinterpret_cast<float4*>(st_s + (tx + 16 * c) * QS + ty * 4) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();
-
-    // dQ_i += dS_ij K_j over the tile's columns j
-#pragma unroll 2
-    for (int j = 0; j < BK; ++j) {
-      const float4 s4 = ld4(st_s + j * QS + ty * 4);
-      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int g = 0; g < DG; ++g) {
-        const float4 kv = ld4(k_s + j * LD + g * 64 + tx * 4);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc[r][g][0] = fmaf(sv[r], kv.x, acc[r][g][0]);
-          acc[r][g][1] = fmaf(sv[r], kv.y, acc[r][g][1]);
-          acc[r][g][2] = fmaf(sv[r], kv.z, acc[r][g][2]);
-          acc[r][g][3] = fmaf(sv[r], kv.w, acc[r][g][3]);
-        }
-      }
-    }
-  }
-
-  float* dqh = static_cast<float*>(a.dq) + head;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
-#pragma unroll
-    for (int g = 0; g < DG; ++g) {
-      const int d = g * 64 + tx * 4;
-      if (d < hd) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          store_as(acc[r][g][c] * a.scale, dqh + (size_t)row * hd + d + c);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -863,20 +555,658 @@ __global__ void __launch_bounds__(MB_THREADS) flash_bwd_dq_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// launches
+// f32 on TMA-fed FMA tiles (route "tma_fma"). HDP: hd's bucket (64, 128,
+// 256); the tile plans are TfDkv<HDP> and TfDq<HDP> (xsmm_flash_fma.cuh).
 // ---------------------------------------------------------------------------
 
-template <int HDP, int BK>
-constexpr size_t dkv_smem() {
-  return (size_t)(2 * BQ * (HDP + 4) + 2 * BK * (HDP + 4) + 2 * BQ * (BK + 4)) *
-         sizeof(float);
+template <int HDP>
+__global__ void __launch_bounds__(TF_THREADS, 1) flash_bwd_dkv_tma_fma_kernel(
+    const __grid_constant__ CUtensorMap kmap,    // kT: the K tile, whole
+    const __grid_constant__ CUtensorMap vmap,    // v: the K tile, whole
+    const __grid_constant__ CUtensorMap qdmap,   // q: DS-column slices
+    const __grid_constant__ CUtensorMap odmap,   // dout: DS-column slices
+    const __grid_constant__ CUtensorMap qimap,   // q: IS-row slices
+    const __grid_constant__ CUtensorMap oimap,   // dout: IS-row slices
+    const __grid_constant__ CUtensorMap lmap,    // lse (bh, s): BQ rows
+    const __grid_constant__ CUtensorMap dmap,    // delta (bh, s): BQ rows
+    const BwdArgs a) {
+  using P = TfDkv<HDP>;
+  constexpr int BK = P::BK, BQ = P::BQ, GJ = P::GJ, GC = P::GC, DS = P::DS,
+                IS = P::IS;
+  constexpr int NIS = BQ / IS;                 // phase-2 stages a Q tile
+  extern __shared__ __align__(16) unsigned char tf_raw[];
+  unsigned char* base =
+      tf_raw + ((TF_ALIGN - (wg_smem(tf_raw) & (TF_ALIGN - 1))) &
+                (TF_ALIGN - 1));
+  float* kt = reinterpret_cast<float*>(base);  // [HDP][BK] K^T as it lies
+  float* vt = kt + HDP * BK;                   // [HDP][BK] V^T (tsw)
+  float* pd = vt + HDP * BK;                   // [BQ][BK] p~; V lands here
+  float* dsd = pd + BQ * BK;                   // [BQ][BK] p, then dS
+  unsigned char* ring = reinterpret_cast<unsigned char*>(dsd + BQ * BK);
+  float* ls = reinterpret_cast<float*>(ring + TF_BWD_STAGES * TF_BWD_STAGE);
+  float* dls = ls + 2 * BQ;                    // [2][BQ] lse and delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(dls + 2 * BQ);
+  uint64_t* empty = full + TF_BWD_STAGES;
+  uint64_t* kvbar = empty + TF_BWD_STAGES;
+
+  const int tid = threadIdx.x;
+  const int s = a.s, hd = a.hd;
+  const int b = blockIdx.x;
+  const int k0 = blockIdx.y * BK;   // causal: the first tiles have most work
+  const int nqt = (s + BQ - 1) / BQ;
+  // Q tiles entirely above this K tile's diagonal contribute nothing
+  const int qstart = a.causal ? k0 / BQ : 0;
+  const int nds = (hd + DS - 1) / DS;          // phase-1 stages a Q tile
+
+  if (tid == 0) {
+    for (int i = 0; i < TF_BWD_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TF_CONSUMERS / 32);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= TF_CONSUMERS) {   // the producer: one thread starts TMA
+    tf_producer_regs();
+    if (tid == TF_CONSUMERS) {
+      mbar_arrive_expect_tx(kvbar, 2 * HDP * BK * 4);
+      tma_load_3d(kt, &kmap, kvbar, k0, 0, b);
+      tma_load_3d(pd, &vmap, kvbar, 0, k0, b);
+      int it = 0;
+      for (int qs = qstart; qs < nqt; ++qs) {
+        const int q0 = qs * BQ, buf = (qs - qstart) & 1;
+        for (int j = 0; j < nds + NIS; ++j, ++it) {
+          const int st = it % TF_BWD_STAGES;
+          if (it >= TF_BWD_STAGES)
+            mbar_wait(&empty[st], ((it / TF_BWD_STAGES) - 1) & 1);
+          unsigned char* dst = ring + st * TF_BWD_STAGE;
+          if (j < nds) {
+            mbar_arrive_expect_tx(&full[st], 2 * BQ * DS * 4 +
+                                                 (j == 0 ? 2 * BQ * 4 : 0));
+            tma_load_3d(dst, &qdmap, &full[st], j * DS, q0, b);
+            tma_load_3d(dst + BQ * DS * 4, &odmap, &full[st], j * DS, q0, b);
+            if (j == 0) {
+              tma_load_2d(ls + buf * BQ, &lmap, &full[st], q0, b);
+              tma_load_2d(dls + buf * BQ, &dmap, &full[st], q0, b);
+            }
+          } else {
+            const int r0 = q0 + (j - nds) * IS;
+            mbar_arrive_expect_tx(&full[st], 2 * IS * HDP * 4);
+            tma_load_3d(dst, &oimap, &full[st], 0, r0, b);
+            tma_load_3d(dst + IS * HDP * 4, &qimap, &full[st], 0, r0, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  tf_consumer_regs();
+  const int lane = tid & 31;
+  const bool ga = tid < TF_CONSUMERS / 2;      // S and dV; B: dP and dK
+  const int tp = tid & (TF_CONSUMERS / 2 - 1);
+  const int jq = tp % GJ, iq = tp / GJ;        // key chunk (lanes), queries
+  const int wc = tp % GC, zk = tp / GC;        // hd chunk (lanes), keys
+  const uint32_t hb = a.hm(b);                 // the hash's batch-head
+  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
+  float* dbias_h = a.dbias ? a.dbias + (size_t)b * s * s : nullptr;
+  const float scale_l2 = a.scale * LOG2E;
+
+  mbar_wait(kvbar, 0);
+  transpose_tsw<BK, HDP>(vt, pd, tid);
+  if (dbias_h) {   // the skipped Q tiles' dbias blocks are zero
+    const int rows = min(s, qstart * BQ);
+    for (int i = tid; i < rows * BK / 4; i += TF_CONSUMERS) {
+      const int r = i / (BK / 4), c = (i - r * (BK / 4)) * 4;
+      st4s(dbias_h + (size_t)r * s + k0 + c, 0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  tf_sync();
+
+  float acc[8][8];   // A: dV, B: dK; [key][hd]
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
+
+  int it = 0;
+  for (int qs = qstart; qs < nqt; ++qs) {
+    const int q0 = qs * BQ, buf = (qs - qstart) & 1;
+    // S = Q K^T (A), dP = dO V^T (B) over hd: [query][key]
+    float sc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+    for (int js = 0; js < nds; ++js, ++it) {
+      const int st = it % TF_BWD_STAGES;
+      mbar_wait(&full[st], (it / TF_BWD_STAGES) & 1);
+      const float* src = reinterpret_cast<const float*>(
+          ring + st * TF_BWD_STAGE) + (ga ? 0 : BQ * DS);
+      const int d0 = js * DS;
+      const int dn = min(DS, hd - d0);   // a multiple of 8
+#pragma unroll 2
+      for (int dd = 0; dd < dn; dd += 4) {
+        float4 ar[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          ar[i] = ld4s(src + tf_at(iq, i, BQ) * DS + dd);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = d0 + dd + e;
+          float w[8];
+          if (ga)
+            ld8(w, kt + d * BK, jq, jq + BK / 8);
+          else
+            ld8(w, vt + d * BK, tsw(d, jq), tsw(d, jq + BK / 8));
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float x = comp(ar[i], e);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) sc[i][j] = fmaf(x, w[j], sc[i][j]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // every thread is done with the last tile's p~ and dS
+    tf_sync();
+    if (ga) {   // p from the LSE (undropped, into dS's slot) and p~
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = tf_at(iq, i, BQ), row = q0 + r;
+        const float l2 = ls[buf * BQ + r] * LOG2E;
+        float p[8], pdrop[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = k0 + tf_at(jq, j, BK);
+          float x = sc[i][j] * scale_l2;
+          if (bias_h && row < s)
+            x = (sc[i][j] * a.scale + bias_h[(size_t)row * s + col]) *
+                LOG2E;
+          p[j] = (a.causal && col > row) ? 0.f : exp2f(x - l2);
+          pdrop[j] = p[j];
+          if (a.dropout)
+            pdrop[j] = rand_bits(a.seed, hb, (uint32_t)row, (uint32_t)col) >=
+                               a.thr
+                           ? p[j] * a.inv_keep : 0.f;
+        }
+        float* prow = pd + r * BK;
+        float* drow = dsd + r * BK;
+        st4s(prow + 4 * jq, pdrop[0], pdrop[1], pdrop[2], pdrop[3]);
+        st4s(prow + BK / 2 + 4 * jq, pdrop[4], pdrop[5], pdrop[6], pdrop[7]);
+        st4s(drow + 4 * jq, p[0], p[1], p[2], p[3]);
+        st4s(drow + BK / 2 + 4 * jq, p[4], p[5], p[6], p[7]);
+      }
+    }
+    tf_sync();
+    if (!ga) {  // dS = p (dP~ - delta), dP~ the replayed mask's; dbias = dS
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = tf_at(iq, i, BQ), row = q0 + r;
+        const float del = dls[buf * BQ + r];
+        float* drow = dsd + r * BK;
+        float p[8];
+        ld8(p, drow, jq, jq + BK / 8);
+        float ds[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float dp = sc[i][j];
+          if (a.dropout) {
+            const int col = k0 + tf_at(jq, j, BK);
+            dp = rand_bits(a.seed, hb, (uint32_t)row, (uint32_t)col) >= a.thr
+                     ? dp * a.inv_keep : 0.f;
+          }
+          ds[j] = p[j] * (dp - del);
+        }
+        st4s(drow + 4 * jq, ds[0], ds[1], ds[2], ds[3]);
+        st4s(drow + BK / 2 + 4 * jq, ds[4], ds[5], ds[6], ds[7]);
+        if (dbias_h && row < s) {
+          float* brow = dbias_h + (size_t)row * s + k0;
+          st4s(brow + 4 * jq, ds[0], ds[1], ds[2], ds[3]);
+          st4s(brow + BK / 2 + 4 * jq, ds[4], ds[5], ds[6], ds[7]);
+        }
+      }
+    }
+    tf_sync();
+
+    // dV += p~^T dO (A), dK += dS^T Q (B) over the tile's rows
+    const float* at = ga ? pd : dsd;
+    for (int r = 0; r < NIS; ++r, ++it) {
+      const int st = it % TF_BWD_STAGES;
+      mbar_wait(&full[st], (it / TF_BWD_STAGES) & 1);
+      const float* bt = reinterpret_cast<const float*>(
+          ring + st * TF_BWD_STAGE) + (ga ? 0 : IS * HDP);
+#pragma unroll 8
+      for (int ii = 0; ii < IS; ++ii) {
+        float x[8], w[8];
+        ld8(x, at + (r * IS + ii) * BK, zk, zk + BK / 8);
+        ld8(w, bt + ii * HDP, wc, wc + HDP / 8);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[j][c] = fmaf(x[j], w[c], acc[j][c]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+  }
+
+  if (ga) {   // dV rows, cast once (f32: as they are)
+    float* dvh = static_cast<float*>(a.dv) + (size_t)b * s * hd;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* vrow = dvh + (size_t)(k0 + tf_at(zk, j, BK)) * hd;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = h * (HDP / 2) + 4 * wc;
+        if (c < hd)   // hd % 8 == 0: a 4-column group is all in or all out
+          st4s(vrow + c, acc[j][4 * h], acc[j][4 * h + 1], acc[j][4 * h + 2],
+               acc[j][4 * h + 3]);
+      }
+    }
+  } else {    // dK^T rows (hd, s), scaled once
+    float* dkh = static_cast<float*>(a.dkT) + (size_t)b * hd * s;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int d = tf_at(wc, c, HDP);
+      if (d >= hd) continue;
+      float* krow = dkh + (size_t)d * s + k0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        st4s(krow + h * (BK / 2) + 4 * zk, acc[4 * h][c] * a.scale,
+             acc[4 * h + 1][c] * a.scale, acc[4 * h + 2][c] * a.scale,
+             acc[4 * h + 3][c] * a.scale);
+    }
+  }
 }
 
-template <int HDP, int BK>
-constexpr size_t dq_smem() {
-  return (size_t)(2 * BQ * (HDP + 4) + 2 * BK * (HDP + 4) + BK * QS) *
-         sizeof(float);
+template <int HDP>
+__global__ void __launch_bounds__(TF_THREADS, 1) flash_bwd_dq_tma_fma_kernel(
+    const __grid_constant__ CUtensorMap qmap,    // q: the Q tile, whole
+    const __grid_constant__ CUtensorMap omap,    // dout: the dO tile, whole
+    const __grid_constant__ CUtensorMap kdmap,   // kT: DK-row slices
+    const __grid_constant__ CUtensorMap vdmap,   // v: DK-column slices
+    const __grid_constant__ CUtensorMap kjmap,   // kT: JS-column slices
+    const BwdArgs a) {
+  using P = TfDq<HDP>;
+  constexpr int BQ = P::BQ, BK = P::BK, GI = P::GI, KS = P::KS, DK = P::DK,
+                JS = P::JS;
+  constexpr int NJS = BK / JS;                 // phase-2 stages a K tile
+  constexpr int JH = JS / KS;                  // a stage's keys a half
+  extern __shared__ __align__(16) unsigned char tf_raw[];
+  unsigned char* base =
+      tf_raw + ((TF_ALIGN - (wg_smem(tf_raw) & (TF_ALIGN - 1))) &
+                (TF_ALIGN - 1));
+  float* qt = reinterpret_cast<float*>(base);  // [HDP][BQ] Q^T (tsw)
+  float* ot = qt + HDP * BQ;                   // [HDP][BQ] dO^T (tsw); the
+                                               // landed Q tile first
+  float* dst = ot + HDP * BQ;                  // [BK][BQ] p, then dS^T
+  unsigned char* ring = reinterpret_cast<unsigned char*>(dst + BK * BQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring +
+                                               TF_BWD_STAGES * TF_BWD_STAGE);
+  uint64_t* empty = full + TF_BWD_STAGES;
+  uint64_t* qbar = empty + TF_BWD_STAGES;
+  uint64_t* obar = qbar + 1;
+
+  const int tid = threadIdx.x;
+  const int s = a.s, hd = a.hd;
+  const int nq = (s + BQ - 1) / BQ;
+  // causal: the bottom tiles have the most K steps; start them first
+  const int qi = a.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int b = blockIdx.x;
+  const int q0 = qi * BQ;
+  // a K tile is visited iff its first column is <= the tile's last row
+  const int kend = a.causal ? min(s, q0 + BQ) : s;
+  const int ntiles = (kend + BK - 1) / BK;
+  const int nds = (hd + DK - 1) / DK;          // phase-1 stages a K tile
+
+  if (tid == 0) {
+    for (int i = 0; i < TF_BWD_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TF_CONSUMERS / 32);
+    }
+    mbar_init(qbar, 1);
+    mbar_init(obar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= TF_CONSUMERS) {   // the producer
+    tf_producer_regs();
+    if (tid >= TF_CONSUMERS + 32) return;
+    if (tid == TF_CONSUMERS) {   // Q into dO^T's place, dO into the ring
+      mbar_arrive_expect_tx(qbar, BQ * HDP * 4);
+      tma_load_3d(ot, &qmap, qbar, 0, q0, b);
+      mbar_arrive_expect_tx(obar, BQ * HDP * 4);
+      tma_load_3d(ring, &omap, obar, 0, q0, b);
+    }
+    tf_sync_all();   // the consumers are done with the landed tiles
+    if (tid == TF_CONSUMERS) {
+      int it = 0;
+      for (int t = 0; t < ntiles; ++t) {
+        const int k0 = t * BK;
+        for (int j = 0; j < nds + NJS; ++j, ++it) {
+          const int st = it % TF_BWD_STAGES;
+          if (it >= TF_BWD_STAGES)
+            mbar_wait(&empty[st], ((it / TF_BWD_STAGES) - 1) & 1);
+          unsigned char* d = ring + st * TF_BWD_STAGE;
+          if (j < nds) {
+            mbar_arrive_expect_tx(&full[st], 2 * DK * BK * 4);
+            tma_load_3d(d, &kdmap, &full[st], k0, j * DK, b);
+            tma_load_3d(d + DK * BK * 4, &vdmap, &full[st], j * DK, k0, b);
+          } else {
+            mbar_arrive_expect_tx(&full[st], HDP * JS * 4);
+            tma_load_3d(d, &kjmap, &full[st], k0 + (j - nds) * JS, 0, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  tf_consumer_regs();
+  const int lane = tid & 31;
+  const bool ga = tid < TF_CONSUMERS / 2;      // S^T; B: dP^T
+  const int tp = tid & (TF_CONSUMERS / 2 - 1);
+  const int u = tid % GI;                      // query chunk (lanes)
+  const int v = tp / GI;                       // key set (S^T, dP^T)
+  const int cv = (tid / GI) % (HDP / 8);       // hd set (dQ^T)
+  const int kh = tid / (GI * (HDP / 8));       // its half of the keys
+  const uint32_t hb = a.hm(b);                 // the hash's batch-head
+  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
+  const float scale_l2 = a.scale * LOG2E;
+
+  mbar_wait(qbar, 0);
+  transpose_tsw<BQ, HDP>(qt, ot, tid);
+  tf_sync();                                   // the landed Q is read
+  mbar_wait(obar, 0);
+  transpose_tsw<BQ, HDP>(ot, reinterpret_cast<const float*>(ring), tid);
+  tf_sync_all();
+
+  // A: lse (log2 units), B: delta, of the thread's eight query rows
+  float stat[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + tf_at(u, i, BQ);
+    stat[i] = row >= s ? 0.f
+              : ga     ? a.lse[(size_t)b * s + row] * LOG2E
+                       : a.delta[(size_t)b * s + row];
+  }
+
+  float acc[8][8];   // dQ^T: [hd][query]
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[c][i] = 0.f;
+
+  int it = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    // S^T = K Q^T (A), dP^T = V dO^T (B) over hd: [key][query]
+    float sc[8][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sc[j][i] = 0.f;
+    for (int js = 0; js < nds; ++js, ++it) {
+      const int st = it % TF_BWD_STAGES;
+      mbar_wait(&full[st], (it / TF_BWD_STAGES) & 1);
+      const float* kd =
+          reinterpret_cast<const float*>(ring + st * TF_BWD_STAGE);
+      const float* vd = kd + DK * BK;          // [BK][DK]
+      const int d0 = js * DK;
+      const int dn = min(DK, hd - d0);   // a multiple of 8
+      if (ga) {
+        for (int d8 = 0; d8 < dn; d8 += 8) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int dd = d8 + e, d = d0 + dd;
+            float w[8], x[8];
+            ld8(w, kd + dd * BK, v, v + BK / 8);
+            ld8(x, qt + d * BQ, tsw(d, u), tsw(d, u + BQ / 8));
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+                sc[j][i] = fmaf(w[j], x[i], sc[j][i]);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int dd = 0; dd < dn; dd += 4) {
+          float4 vr[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            vr[j] = ld4s(vd + tf_at(v, j, BK) * DK + dd);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int d = d0 + dd + e;
+            float x[8];
+            ld8(x, ot + d * BQ, tsw(d, u), tsw(d, u + BQ / 8));
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float w = comp(vr[j], e);
+#pragma unroll
+              for (int i = 0; i < 8; ++i) sc[j][i] = fmaf(w, x[i], sc[j][i]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // every thread is done with the last tile's dS^T
+    tf_sync();
+    if (ga) {   // p from the LSE, undropped
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kc = tf_at(v, j, BK), col = k0 + kc;
+        float p[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = q0 + tf_at(u, i, BQ);
+          float x = sc[j][i] * scale_l2;
+          if (bias_h && row < s)
+            x = (sc[j][i] * a.scale + bias_h[(size_t)row * s + col]) *
+                LOG2E;
+          p[i] = (a.causal && col > row) ? 0.f : exp2f(x - stat[i]);
+        }
+        float* drow = dst + kc * BQ;
+        st4s(drow + 4 * u, p[0], p[1], p[2], p[3]);
+        st4s(drow + BQ / 2 + 4 * u, p[4], p[5], p[6], p[7]);
+      }
+    }
+    tf_sync();
+    if (!ga) {  // dS = p (dP~ - delta), dP~ the replayed mask's
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kc = tf_at(v, j, BK), col = k0 + kc;
+        float* drow = dst + kc * BQ;
+        float p[8];
+        ld8(p, drow, u, u + BQ / 8);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float dp = sc[j][i];
+          if (a.dropout) {
+            const int row = q0 + tf_at(u, i, BQ);
+            dp = rand_bits(a.seed, hb, (uint32_t)row, (uint32_t)col) >= a.thr
+                     ? dp * a.inv_keep : 0.f;
+          }
+          p[i] = p[i] * (dp - stat[i]);
+        }
+        st4s(drow + 4 * u, p[0], p[1], p[2], p[3]);
+        st4s(drow + BQ / 2 + 4 * u, p[4], p[5], p[6], p[7]);
+      }
+    }
+    tf_sync();
+
+    // dQ^T += K^T-rows dS^T over the tile's keys
+    for (int js = 0; js < NJS; ++js, ++it) {
+      const int st = it % TF_BWD_STAGES;
+      mbar_wait(&full[st], (it / TF_BWD_STAGES) & 1);
+      const float* kj =
+          reinterpret_cast<const float*>(ring + st * TF_BWD_STAGE) + kh * JH;
+#pragma unroll 2
+      for (int jj = 0; jj < JH; jj += 4) {
+        float4 kr[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          kr[c] = ld4s(kj + tf_at(cv, c, HDP) * JS + jj);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x[8];
+          ld8(x, dst + (js * JS + kh * JH + jj + e) * BQ, u, u + BQ / 8);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const float w = comp(kr[c], e);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[c][i] = fmaf(w, x[i], acc[c][i]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+  }
+
+  if (KS > 1) {   // the second half's partial dQ^T onto the first's
+    float* red = qt;   // [HDP][BQ], every thread done with Q^T
+    tf_sync();
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (kh == 1) {
+        float* rrow = red + tf_at(cv, c, HDP) * BQ;
+        st4s(rrow + 4 * u, acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+        st4s(rrow + BQ / 2 + 4 * u, acc[c][4], acc[c][5], acc[c][6],
+             acc[c][7]);
+      }
+    tf_sync();
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float x[8];
+      ld8(x, red + tf_at(cv, c, HDP) * BQ, u, u + BQ / 8);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[c][i] += x[i];
+    }
+  }
+
+  // dQ = dQ^T's transpose, scaled once
+  float* dqh = static_cast<float*>(a.dq) + (size_t)b * s * hd;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + tf_at(u, i, BQ);
+    if (row >= s) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = h * (HDP / 2) + 4 * cv;
+      if (kh == 0 && c < hd)
+        st4s(dqh + (size_t)row * hd + c, acc[4 * h][i] * a.scale,
+             acc[4 * h + 1][i] * a.scale, acc[4 * h + 2][i] * a.scale,
+             acc[4 * h + 3][i] * a.scale);
+    }
+  }
 }
+
+// the TMA maps (f32, no swizzle) and the launches; q, kT, v, dout, lse and
+// delta 16-byte aligned
+struct TfMaps {
+  cuuint64_t rows[3], rstr[2], cols[3], cstr[2], stat[2], sstr[1];
+  TfMaps(int bh, int s, int hd) {
+    const cuuint64_t S = (cuuint64_t)s, H = (cuuint64_t)hd;
+    rows[0] = H; rows[1] = S; rows[2] = (cuuint64_t)bh;   // (bh, s, hd)
+    rstr[0] = H * 4; rstr[1] = S * H * 4;
+    cols[0] = S; cols[1] = H; cols[2] = (cuuint64_t)bh;   // (bh, hd, s)
+    cstr[0] = S * 4; cstr[1] = H * S * 4;
+    stat[0] = S; stat[1] = (cuuint64_t)bh;                // (bh, s)
+    sstr[0] = S * 4;
+  }
+  bool rowmap(CUtensorMap* m, const void* p, cuuint32_t w, cuuint32_t h) {
+    const cuuint32_t box[3] = {w, h, 1};
+    return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p, 3, rows, rstr,
+                      box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  bool colmap(CUtensorMap* m, const void* p, cuuint32_t w, cuuint32_t h) {
+    const cuuint32_t box[3] = {w, h, 1};
+    return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p, 3, cols, cstr,
+                      box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  bool statmap(CUtensorMap* m, const void* p, cuuint32_t w) {
+    const cuuint32_t box[2] = {w, 1};
+    return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p, 2, stat, sstr,
+                      box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+};
+
+template <int HDP>
+static int launch_dkv_tma_fma(int bh, const BwdArgs& a, cudaStream_t st) {
+  using P = TfDkv<HDP>;
+  TfMaps m(bh, a.s, a.hd);
+  CUtensorMap km, vm, qd, od, qi, oi, lm, dm;
+  if (!m.colmap(&km, a.kT, P::BK, HDP) || !m.rowmap(&vm, a.v, HDP, P::BK) ||
+      !m.rowmap(&qd, a.q, P::DS, P::BQ) ||
+      !m.rowmap(&od, a.dout, P::DS, P::BQ) ||
+      !m.rowmap(&qi, a.q, HDP, P::IS) || !m.rowmap(&oi, a.dout, HDP, P::IS) ||
+      !m.statmap(&lm, a.lse, P::BQ) || !m.statmap(&dm, a.delta, P::BQ))
+    return cudaErrorInvalidValue;
+  constexpr int smem = tf_dkv_smem(HDP);
+  auto kern = flash_bwd_dkv_tma_fma_kernel<HDP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  note_launch(kern);
+  kern<<<dim3(bh, a.s / P::BK), TF_THREADS, smem, st>>>(km, vm, qd, od, qi,
+                                                        oi, lm, dm, a);
+  return cudaGetLastError();
+}
+
+template <int HDP>
+static int launch_dq_tma_fma(int bh, const BwdArgs& a, cudaStream_t st) {
+  using P = TfDq<HDP>;
+  TfMaps m(bh, a.s, a.hd);
+  CUtensorMap qm, om, kd, vd, kj;
+  if (!m.rowmap(&qm, a.q, HDP, P::BQ) || !m.rowmap(&om, a.dout, HDP, P::BQ) ||
+      !m.colmap(&kd, a.kT, P::BK, P::DK) ||
+      !m.rowmap(&vd, a.v, P::DK, P::BK) || !m.colmap(&kj, a.kT, P::JS, HDP))
+    return cudaErrorInvalidValue;
+  constexpr int smem = tf_dq_smem();
+  auto kern = flash_bwd_dq_tma_fma_kernel<HDP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  note_launch(kern);
+  kern<<<dim3(bh, (a.s + P::BQ - 1) / P::BQ), TF_THREADS, smem, st>>>(
+      qm, om, kd, vd, kj, a);
+  return cudaGetLastError();
+}
+
+static int run_tma_fma(int which, const BwdArgs& a, int bh, void* stream) {
+  const int s = a.s, hd = a.hd;
+  if (s <= 0 || s % 128 || hd <= 0 || hd % 8 || hd > 256 || bh <= 0 ||
+      (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.kT) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout) |
+       reinterpret_cast<uintptr_t>(a.lse) |
+       reinterpret_cast<uintptr_t>(a.delta)) % 16)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (which == 0) {
+    if (hd <= 64) return launch_dkv_tma_fma<64>(bh, a, st);
+    if (hd <= 128) return launch_dkv_tma_fma<128>(bh, a, st);
+    return launch_dkv_tma_fma<256>(bh, a, st);
+  }
+  if (hd <= 64) return launch_dq_tma_fma<64>(bh, a, st);
+  if (hd <= 128) return launch_dq_tma_fma<128>(bh, a, st);
+  return launch_dq_tma_fma<256>(bh, a, st);
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 
 template <typename K>
 static int launch(K kern, size_t smem, dim3 grid, int threads,
@@ -891,38 +1221,6 @@ static int launch(K kern, size_t smem, dim3 grid, int threads,
   note_launch(kern);
   kern<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-template <int HDP, int BK>
-static int launch_pair(int which, int bh, const BwdArgs& a, cudaStream_t st) {
-  if (which == 0)
-    return launch(flash_bwd_dkv_kernel<HDP, BK>, dkv_smem<HDP, BK>(),
-                  dim3(bh, a.s / BK), NT, a, st);
-  return launch(flash_bwd_dq_kernel<HDP, BK>, dq_smem<HDP, BK>(),
-                dim3(bh, a.s / BQ), NT, a, st);
-}
-
-// f32: 64-column K tiles fit shared memory up to hd = 128; 32 columns serve
-// every hd up to 256 (kernels/attention.bwd_configs mirrors this)
-static int launch_hd(int which, int hdp, int bk, int bh, const BwdArgs& a,
-                     cudaStream_t st) {
-  if (bk == 64) {
-    switch (hdp) {
-      case 64: return launch_pair<64, 64>(which, bh, a, st);
-      case 128: return launch_pair<128, 64>(which, bh, a, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (bk == 32) {
-    switch (hdp) {
-      case 64: return launch_pair<64, 32>(which, bh, a, st);
-      case 128: return launch_pair<128, 32>(which, bh, a, st);
-      case 192: return launch_pair<192, 32>(which, bh, a, st);
-      case 256: return launch_pair<256, 32>(which, bh, a, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  return cudaErrorInvalidValue;
 }
 
 template <int HDP, int BK>
@@ -959,17 +1257,16 @@ static int launch_mma_hd(int which, int hd, int bk, int bh, const BwdArgs& a,
   return cudaErrorInvalidValue;
 }
 
+// the type picks the kernels: f32 the TMA-fed FMA ones (one tile per hd
+// bucket; bk unused), bf16 the tensor-core ones with bk-column K tiles
 static int run(int which, BwdArgs& a, int bh, int type, int bk,
                void* stream) {
+  if (type == T_F32) return run_tma_fma(which, a, bh, stream);
   const int s = a.s, hd = a.hd;
-  if (bk <= 0 || s <= 0 || s % BQ || s % bk || s / bk > 65535 || hd <= 0 ||
-      hd % 8 || hd > 256 || bh <= 0)
+  if (type != T_BF16 || bk <= 0 || s <= 0 || s % BQ || s % bk ||
+      s / bk > 65535 || hd <= 0 || hd % 8 || hd > 256 || bh <= 0)
     return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (type == T_F32)
-    return launch_hd(which, (hd + 63) / 64 * 64, bk, bh, a, st);
-  if (type == T_BF16) return launch_mma_hd(which, hd, bk, bh, a, st);
-  return cudaErrorInvalidValue;
+  return launch_mma_hd(which, hd, bk, bh, a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" {
@@ -980,11 +1277,13 @@ const char* xsmm_error_string(int err) {
 
 // q, v, dout: (bh, s, hd); kT: (bh, hd, s); lse, delta: f32 (bh, s); bias:
 // f32 (s, s) per head at bias + b * bias_stride, or null; dkT: (bh, hd, s);
-// dv: (bh, s, hd); dbias: f32 (bh, s, s) or null. s % 64 == 0, s % bk == 0,
-// hd % 8 == 0, hd <= 256; bk in {32, 64} (64 only for hd <= 128). bf16 runs
-// the tensor-core kernels (q, kT, v, dout, lse and delta 16-byte aligned),
-// f32 the FMA ones. (b0, h0, nhl, nhg): the dropout hash's head map
-// (HeadMap, xsmm_common.cuh); 0, 0, 1, 1 hashes the local batch-head.
+// dv: (bh, s, hd); dbias: f32 (bh, s, s) or null; q, kT, v, dout, lse and
+// delta 16-byte aligned. hd % 8 == 0, hd <= 256. bf16 runs the tensor-core
+// kernels (s % 64 == 0, s % bk == 0, bk in {32, 64}, 64 only for hd <=
+// 128), f32 the TMA-fed FMA ones (s % 128 == 0; bk unused). (b0, h0, nhl,
+// nhg): the dropout hash's head map (HeadMap, xsmm_common.cuh); 0, 0, 1, 1
+// hashes the local batch-head. A refused map or launch returns its error;
+// the wrapper raises.
 int xsmm_flash_bwd_dkv(const void* q, const void* kT, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const float* bias, long long bias_stride, void* dkT,

@@ -43,202 +43,49 @@
 // (exact); rows in shared memory are padded by 16 bytes so ldmatrix's rows
 // fall in distinct banks.
 //
-// flash_fwd_kernel, f32: f32 FMAs on the CUDA cores (67 TFLOP/s, a 0.51 ms
-// floor at the bench shape), so f32 inputs get full f32 (no TF32). The
-// TPU kernel's (bq, 128) lane-broadcast scratch and its VMEM budget have no
-// meaning here. One block of 256 threads takes one (b, 64-row Q tile) and
-// loops over K tiles of BK columns, bounded at the diagonal when causal
-// (both kernels; the reference visits every step and masks). The Q tile is
-// staged once, transposed, in shared memory; each K^T tile and V tile is
-// staged per step. Thread (ty, tx) of a 16 x 16 grid owns
-// score rows 4ty..4ty+3 and columns tx*CPT.., reading four Q rows and CPT
-// K columns with one vector load each per step of the hd loop; the row
-// statistics reduce over the 16 lanes of a half-warp with shuffles. The
-// exponentials go through shared memory (P^T) to the P.V product, where the
-// same thread owns the same four rows of the f32 accumulator, kept in
-// registers with m and l. Nothing of the (s, s) panels reaches device
-// memory.
+// flash_fwd_tma_fma_kernel, f32 (route "tma_fma"): f32 FMAs on the CUDA
+// cores (67 TFLOP/s, a 0.51 ms floor at the bench shape; f32
+// means f32, no TF32), fed by TMA (xsmm_flash_fma.cuh). One block of two
+// consumer warpgroups and a producer warpgroup takes one (b, BQ-row Q tile),
+// BQ = 128, 128, 64 rows at hd buckets 64, 128, 256, and walks K tiles of
+// BK = 128, 128, 256 columns, bounded at the diagonal when causal. The
+// producer lands the Q tile once by TMA and keeps a ring of four 16 KB
+// stages in flight: per K tile, slices of DK rows of K^T (all BK columns)
+// and of DV rows of V (all HDP columns), full and empty mbarriers pacing
+// it, so no consumer ever waits on a plain load. The consumers transpose Q
+// once into Q^T; thread (a, b) owns the 8 x 8 micro-tile of S at rows
+// 4a.., BQ/2 + 4a.. and columns 4b.., BK/2 + 4b.. and reads per hd step
+// two 16-byte units of Q^T (the same for the eight lanes of a quarter warp)
+// and two of K^T (consecutive across them): four FMAs a float, where 4 x 4
+// tiles give two. The online softmax stays in
+// registers in log2 units (the row max and sum by shuffles over the BK/8
+// lanes of a row), P goes through shared memory as P^T (its units
+// swizzled, tsw, so the lanes' stores of four-row groups fall in distinct
+// banks), and O += P V runs on the same rows and eight columns of hd: 64
+// accumulators a thread beside S's 64 (at bucket 64 the two halves of the
+// threads take the two halves of each tile's keys, and their partial O
+// tiles are added once at the end). hd is padded
+// to its bucket by the TMA boxes' zero fill; the K^T slices past hd are
+// not loaded. Rows and columns past s (a Q tile or a K tile wider than
+// the rest of s) arrive as zeros; their columns are masked, their rows not
+// stored.
+//
+// Both kernels bound causal tiles at the diagonal (the reference visits
+// every step and masks); the TPU kernel's (bq, 128) lane-broadcast scratch
+// and its VMEM budget have no meaning here. Nothing of the (s, s) panels
+// reaches device memory.
 
 #include <cuda_runtime.h>
 #include <float.h>
 
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
+#include "xsmm_flash_fma.cuh"
 #include "xsmm_launches.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int NT = 256;       // threads per block: a 16 x 16 grid
-constexpr int QS = BQ + 4;    // row stride of Q^T and P^T in shared memory
-
-template <typename T, int HDP, int BK>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ kT,
-    const T* __restrict__ v, const float* __restrict__ bias,
-    long long bias_stride, T* __restrict__ out, float* __restrict__ lse,
-    int s, int hd, float scale, int causal, int dropout, uint32_t seed,
-    HeadMap hm, uint32_t thr, float inv_keep) {
-  constexpr int CPT = BK / 16;    // score columns per thread
-  constexpr int DG = HDP / 64;    // 4-column output groups per thread
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);   // [HDP][QS]  Q^T
-  float* kt = qt + HDP * QS;                     // [HDP][BK]  K^T tile
-  float* vs = kt + HDP * BK;                     // [BK][HDP]  V tile
-  float* pt = vs + BK * HDP;                     // [BK][QS]   P^T tile
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int nq = s / BQ;
-  // causal: the tiles nearest the bottom have the most K steps; start them
-  // first so the short ones fill in behind
-  const int qi = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int b = blockIdx.x;
-  const uint32_t hb = hm(b);      // the hash's batch-head
-  const int q0 = qi * BQ;
-  const size_t head = (size_t)b * s * hd;
-  const T* qh = q + head;
-  const T* kh = kT + head;
-  const T* vh = v + head;
-  const float* bias_h = bias ? bias + (size_t)b * bias_stride : nullptr;
-
-  for (int i = tid; i < BQ * hd; i += NT) {
-    const int r = i / hd, d = i - r * hd;
-    qt[d * QS + r] = to_f32(qh[(size_t)(q0 + r) * hd + d]);
-  }
-
-  float m_i[4], l_i[4], acc[4][DG][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -FLT_MAX;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int g = 0; g < DG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][g][c] = 0.f;
-  }
-
-  // a K tile is visited iff its first column is <= the tile's last row
-  const int kend = causal ? q0 + BQ : s;
-  const int ntiles = (kend + BK - 1) / BK;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();   // the previous step is done with kt, vs and pt
-    for (int i = tid; i < hd * BK; i += NT) {
-      const int d = i / BK, c = i - d * BK;
-      kt[d * BK + c] = to_f32(kh[(size_t)d * s + k0 + c]);
-    }
-    for (int i = tid; i < BK * HDP; i += NT) {
-      const int c = i / HDP, d = i - c * HDP;
-      vs[c * HDP + d] = d < hd ? to_f32(vh[(size_t)(k0 + c) * hd + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][CPT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < hd; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * QS + ty * 4);
-      float kc[CPT];
-      VecF<CPT>::load(kt + d * BK + tx * CPT, kc);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) sc[i][j] = fmaf(av[i], kc[j], sc[i][j]);
-    }
-
-    const int col0 = k0 + tx * CPT;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -FLT_MAX;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        float x = sc[i][j] * scale;
-        if (bias_h) x += bias_h[(size_t)row * s + col0 + j];
-        if (causal && col0 + j > row) x = -FLT_MAX;
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float e = expf(sc[i][j] - m_new);
-        rs += e;
-        float e_use = e;
-        if (dropout) {
-          const uint32_t bits = rand_bits(seed, hb, (uint32_t)row,
-                                          (uint32_t)(col0 + j));
-          e_use = bits >= thr ? e * inv_keep : 0.f;
-        }
-        sc[i][j] = round_as(e_use, q);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < DG; ++g)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][g][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      *reinterpret_cast<float4*>(pt + (tx * CPT + j) * QS + ty * 4) =
-          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 p4 = *reinterpret_cast<const float4*>(pt + c * QS + ty * 4);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int g = 0; g < DG; ++g) {
-        const float4 w = *reinterpret_cast<const float4*>(
-            vs + c * HDP + g * 64 + tx * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][g][0] = fmaf(pv[i], w.x, acc[i][g][0]);
-          acc[i][g][1] = fmaf(pv[i], w.y, acc[i][g][1]);
-          acc[i][g][2] = fmaf(pv[i], w.z, acc[i][g][2]);
-          acc[i][g][3] = fmaf(pv[i], w.w, acc[i][g][3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    T* orow = out + head + (size_t)row * hd;
-#pragma unroll
-    for (int g = 0; g < DG; ++g) {
-      const int d = g * 64 + tx * 4;
-      if (d < hd) {   // hd % 8 == 0: a 4-column group is all in or all out
-#pragma unroll
-        for (int c = 0; c < 4; ++c) store_as(acc[i][g][c] / l_i[i], orow + d + c);
-      }
-    }
-    if (lse) {
-      const float val = m_i[i] + logf(l_i[i]);
-      float4* lrow = reinterpret_cast<float4*>(
-          lse + ((size_t)b * s + row) * 128 + tx * 8);
-      lrow[0] = make_float4(val, val, val, val);
-      lrow[1] = make_float4(val, val, val, val);
-    }
-  }
-}
+constexpr int BQ = 64;        // query rows per block (the bf16 kernel)
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores. HDP: hd padded to a multiple of 16 (a bucket of
@@ -511,46 +358,308 @@ static int launch_mma_hd(int hd, const void* q, const void* kT, const void* v,
   return launch_flash_mma<256, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
 }
 
-template <typename T, int HDP, int BK>
-static int launch_flash(const void* q, const void* kT, const void* v,
-                        const void* bias, long long bias_stride, void* out,
-                        void* lse, int bh, int s, int hd, float scale,
-                        int causal, int dropout, uint32_t seed, HeadMap hm,
-                        uint32_t thr,
-                        float inv_keep, cudaStream_t stream) {
-  const size_t smem = (size_t)(HDP * QS + 2 * HDP * BK + BK * QS) * sizeof(float);
-  auto kern = flash_fwd_kernel<T, HDP, BK>;
-  if (smem > 48 * 1024) {
-    // above 48 KB only as dynamic shared memory, after the opt-in; set on
-    // every launch, since the attribute is held per device
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+// ---------------------------------------------------------------------------
+// f32 on TMA-fed FMA tiles (route "tma_fma"). HDP: hd's bucket (64, 128,
+// 256); the tile plan is TfFwd<HDP> (xsmm_flash_fma.cuh).
+// ---------------------------------------------------------------------------
+
+template <int HDP>
+__global__ void __launch_bounds__(TF_THREADS, 1) flash_fwd_tma_fma_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias,
+    long long bias_stride, float* __restrict__ out, float* __restrict__ lse,
+    int s, int hd, float scale, int causal, int dropout, uint32_t seed,
+    HeadMap hm, uint32_t thr, float inv_keep) {
+  using P = TfFwd<HDP>;
+  constexpr int BQ = P::BQ, BK = P::BK, GB = P::GB, OC = P::OC, KS = P::KS,
+                DK = P::DK, DV = P::DV;
+  constexpr int NVS = BK / DV;                 // V stages a K tile
+  constexpr int DH = DV / KS;                  // a stage's V rows a half
+  extern __shared__ __align__(16) unsigned char tf_raw[];
+  unsigned char* base =
+      tf_raw + ((TF_ALIGN - (wg_smem(tf_raw) & (TF_ALIGN - 1))) &
+                (TF_ALIGN - 1));
+  float* qt = reinterpret_cast<float*>(base);  // [HDP][BQ] Q^T (tsw)
+  float* pt = qt + HDP * BQ;                   // [BK][BQ] P^T (tsw); the
+                                               // landed Q tile first
+  unsigned char* ring = reinterpret_cast<unsigned char*>(pt + BK * BQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring +
+                                               TF_FWD_STAGES * TF_FWD_STAGE);
+  uint64_t* empty = full + TF_FWD_STAGES;
+  uint64_t* qbar = empty + TF_FWD_STAGES;
+
+  const int tid = threadIdx.x;
+  const int nq = (s + BQ - 1) / BQ;
+  // causal: the tiles nearest the bottom have the most K steps; start them
+  // first so the short ones fill in behind
+  const int qi = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int b = blockIdx.x;
+  const int q0 = qi * BQ;
+  // a K tile is visited iff its first column is <= the tile's last row
+  const int kend = causal ? min(s, q0 + BQ) : s;
+  const int ntiles = (kend + BK - 1) / BK;
+  const int nks = (hd + DK - 1) / DK;          // K^T stages a K tile
+
+  if (tid == 0) {
+    for (int i = 0; i < TF_FWD_STAGES; ++i) {
+      mbar_init(&full[i], 1);                     // the producer's arrival
+      mbar_init(&empty[i], TF_CONSUMERS / 32);    // one per consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
   }
-  const dim3 grid(bh, s / BQ);   // x runs fastest: every head's tile qi, then qi+1
-  note_launch(kern);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kT),
-      static_cast<const T*>(v), static_cast<const float*>(bias), bias_stride,
-      static_cast<T*>(out), static_cast<float*>(lse), s, hd, scale, causal,
-      dropout, seed, hm, thr, inv_keep);
-  return cudaGetLastError();
+  __syncthreads();
+
+  if (tid >= TF_CONSUMERS) {   // the producer: one thread starts TMA
+    tf_producer_regs();
+    if (tid == TF_CONSUMERS) {
+      mbar_arrive_expect_tx(qbar, BQ * HDP * 4);
+      tma_load_3d(pt, &qmap, qbar, 0, q0, b);
+      int it = 0;
+      for (int t = 0; t < ntiles; ++t) {
+        const int k0 = t * BK;
+        for (int j = 0; j < nks + NVS; ++j, ++it) {
+          const int st = it % TF_FWD_STAGES;
+          if (it >= TF_FWD_STAGES)
+            mbar_wait(&empty[st], ((it / TF_FWD_STAGES) - 1) & 1);
+          unsigned char* dst = ring + st * TF_FWD_STAGE;
+          mbar_arrive_expect_tx(&full[st], TF_FWD_STAGE);
+          if (j < nks) {
+            tma_load_3d(dst, &kmap, &full[st], k0, j * DK, b);
+          } else {   // DH rows from each half of the tile's keys
+#pragma unroll
+            for (int h = 0; h < KS; ++h)
+              tma_load_3d(dst + h * DH * HDP * 4, &vmap, &full[st], 0,
+                          k0 + h * (BK / KS) + (j - nks) * DH, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  tf_consumer_regs();
+  const int lane = tid & 31;
+  const int bq = tid % GB, aq = tid / GB;   // column group (lanes), row group
+  const int oq = bq % OC, kh = bq / OC;     // O's column group, key half
+  const uint32_t hb = hm(b);                // the hash's batch-head
+  const float* bias_h = bias ? bias + (size_t)b * bias_stride : nullptr;
+  const float scale_l2 = scale * LOG2E;
+
+  mbar_wait(qbar, 0);
+  transpose_tsw<BQ, HDP>(qt, pt, tid);
+  tf_sync();
+
+  float acc[8][8], m_r[8], l_r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m_r[i] = -FLT_MAX;
+    l_r[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  }
+
+  int it = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    // S = Q K^T over hd, one K^T slice a stage
+    float sc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+    for (int js = 0; js < nks; ++js, ++it) {
+      const int st = it % TF_FWD_STAGES;
+      mbar_wait(&full[st], (it / TF_FWD_STAGES) & 1);
+      const float* kt =
+          reinterpret_cast<const float*>(ring + st * TF_FWD_STAGE);
+      const int d0 = js * DK;
+      const int dn = min(DK, hd - d0);   // a multiple of 8
+      for (int d8 = 0; d8 < dn; d8 += 8) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int dd = d8 + e, d = d0 + dd;
+          float a[8], w[8];
+          ld8(a, qt + d * BQ, tsw(d, aq), tsw(d, aq + BQ / 8));
+          ld8(w, kt + dd * BK, bq, bq + BK / 8);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) sc[i][j] = fmaf(a[i], w[j], sc[i][j]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // scale, bias, masks in log2 units; the row max and the sum over the
+    // GB lanes that share the row; l sums the undropped exponentials
+    const bool edge = (causal && k0 + BK - 1 > q0) || k0 + BK > s;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + tf_at(aq, i, BQ);
+      float mx = -FLT_MAX;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = k0 + tf_at(bq, j, BK);
+        float x = sc[i][j] * scale_l2;
+        if (bias_h && row < s && col < s)
+          x = (sc[i][j] * scale + bias_h[(size_t)row * s + col]) * LOG2E;
+        if (edge && ((causal && col > row) || col >= s)) x = -FLT_MAX;
+        sc[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = GB / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_r[i], mx);
+      const float alpha = exp2f(m_r[i] - m_new);
+      m_r[i] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float e = exp2f(sc[i][j] - m_new);
+        rs += e;
+        float e_use = e;
+        if (dropout) {
+          const int col = k0 + tf_at(bq, j, BK);
+          e_use = rand_bits(seed, hb, (uint32_t)row, (uint32_t)col) >= thr
+                      ? e * inv_keep : 0.f;
+        }
+        sc[i][j] = e_use;
+      }
+#pragma unroll
+      for (int off = GB / 2; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l_r[i] = l_r[i] * alpha + rs;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
+    }
+
+    // P^T into shared memory: every thread is done with the last tile's
+    tf_sync();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = tf_at(bq, j, BK);
+      float* prow = pt + c * BQ;
+      st4s(prow + 4 * tsw(c, aq), sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+      st4s(prow + 4 * tsw(c, aq + BQ / 8), sc[4][j], sc[5][j], sc[6][j],
+           sc[7][j]);
+    }
+    tf_sync();
+
+    // O += P V, one V slice a stage: this thread's half of its keys
+    for (int vs = 0; vs < NVS; ++vs, ++it) {
+      const int st = it % TF_FWD_STAGES;
+      mbar_wait(&full[st], (it / TF_FWD_STAGES) & 1);
+      const float* vt =
+          reinterpret_cast<const float*>(ring + st * TF_FWD_STAGE) +
+          kh * DH * HDP;
+#pragma unroll 8
+      for (int kk = 0; kk < DH; ++kk) {
+        const int kr = kh * (BK / KS) + vs * DH + kk;
+        float a[8], w[8];
+        ld8(a, pt + kr * BQ, tsw(kr, aq), tsw(kr, aq + BQ / 8));
+        ld8(w, vt + kk * HDP, oq, oq + HDP / 8);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[i], w[c], acc[i][c]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+  }
+
+  if (KS > 1) {   // the second half's partial O tile onto the first's
+    float* red = pt;   // [BQ][HDP], every thread done with P^T
+    tf_sync();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* rrow = red + tf_at(aq, i, BQ) * HDP;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (kh == 1)
+          st4s(rrow + h * (HDP / 2) + 4 * oq, acc[i][4 * h],
+               acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    }
+    tf_sync();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float* rrow = red + tf_at(aq, i, BQ) * HDP;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 x = ld4s(rrow + h * (HDP / 2) + 4 * oq);
+        acc[i][4 * h] += x.x;
+        acc[i][4 * h + 1] += x.y;
+        acc[i][4 * h + 2] += x.z;
+        acc[i][4 * h + 3] += x.w;
+      }
+    }
+  }
+
+  // out = acc / l, cast once (f32: stored as is); lse = m + log(l) in every
+  // one of the row's 128 columns, 128 / GB of them a lane
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + tf_at(aq, i, BQ);
+    if (row >= s) continue;
+    const float l = l_r[i];
+    float* orow = out + ((size_t)b * s + row) * hd;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = h * (HDP / 2) + 4 * oq;
+      if (kh == 0 && c < hd)   // hd % 8 == 0: a 4-column group is all in
+        st4s(orow + c, acc[i][4 * h] / l, acc[i][4 * h + 1] / l,   // or out
+             acc[i][4 * h + 2] / l, acc[i][4 * h + 3] / l);
+    }
+    if (lse) {
+      const float val = m_r[i] * LN2 + logf(l);   // m back in natural units
+      float* lrow = lse + ((size_t)b * s + row) * 128 + bq * (128 / GB);
+#pragma unroll
+      for (int c = 0; c < 128 / GB; c += 4) st4s(lrow + c, val, val, val, val);
+    }
+  }
 }
 
-template <typename T, int BK>
-static int launch_hd(int hdp, const void* q, const void* kT, const void* v,
-                     const void* bias, long long bias_stride, void* out,
-                     void* lse, int bh, int s, int hd, float scale, int causal,
-                     int dropout, uint32_t seed, HeadMap hm, uint32_t thr,
-                     float inv_keep,
-                     cudaStream_t st) {
-  switch (hdp) {
-    case 64: return launch_flash<T, 64, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-    case 128: return launch_flash<T, 128, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-    case 192: return launch_flash<T, 192, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-    case 256: return launch_flash<T, 256, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-    default: return cudaErrorInvalidValue;
-  }
+// q, kT, v f32 and 16-byte aligned: the three TMA maps (no swizzle: each
+// box lands as dense rows), then the launch
+template <int HDP>
+static int launch_flash_tma_fma(const void* q, const void* kT, const void* v,
+                                const void* bias, long long bias_stride,
+                                void* out, void* lse, int bh, int s, int hd,
+                                float scale, int causal, int dropout,
+                                uint32_t seed, HeadMap hm, uint32_t thr,
+                                float inv_keep, cudaStream_t stream) {
+  using P = TfFwd<HDP>;
+  const cuuint64_t S = (cuuint64_t)s, H = (cuuint64_t)hd;
+  const cuuint64_t rows[3] = {H, S, (cuuint64_t)bh};     // q, v: (bh, s, hd)
+  const cuuint64_t rstr[2] = {H * 4, S * H * 4};
+  const cuuint64_t cols[3] = {S, H, (cuuint64_t)bh};     // kT: (bh, hd, s)
+  const cuuint64_t cstr[2] = {S * 4, H * S * 4};
+  const cuuint32_t qbox[3] = {HDP, P::BQ, 1};
+  const cuuint32_t kbox[3] = {P::BK, P::DK, 1};
+  const cuuint32_t vbox[3] = {HDP, P::DV / P::KS, 1};
+  CUtensorMap qmap, kmap, vmap;
+  const CUtensorMapDataType F = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle NS = CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (!encode_map(&qmap, F, q, 3, rows, rstr, qbox, NS) ||
+      !encode_map(&kmap, F, kT, 3, cols, cstr, kbox, NS) ||
+      !encode_map(&vmap, F, v, 3, rows, rstr, vbox, NS))
+    return cudaErrorInvalidValue;
+  constexpr int smem = tf_fwd_smem();
+  auto kern = flash_fwd_tma_fma_kernel<HDP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (s + P::BQ - 1) / P::BQ);
+  note_launch(kern);
+  kern<<<grid, TF_THREADS, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<const float*>(bias), bias_stride,
+      static_cast<float*>(out), static_cast<float*>(lse), s, hd, scale,
+      causal, dropout, seed, hm, thr, inv_keep);
+  return cudaGetLastError();
 }
 
 extern "C" {
@@ -561,10 +670,12 @@ const char* xsmm_error_string(int err) {
 
 // q, v: (bh, s, hd); kT: (bh, hd, s); bias: f32 (s, s) per head at
 // bias + b * bias_stride, or null; out: (bh, s, hd); lse: (bh, s, 128) f32
-// or null. s % 64 == 0, hd % 8 == 0, hd <= 256; bk in {32, 64}. bf16 runs
-// the tensor-core kernel (its operands 16-byte aligned), f32 the FMA one.
-// (b0, h0, nhl, nhg): the dropout hash's head map (HeadMap); 0, 0, 1, 1
-// hashes the local batch-head index.
+// or null. s % 64 == 0, hd % 8 == 0, hd <= 256; q, kT and v 16-byte
+// aligned. The type picks the kernel: bf16 the tensor-core kernel with
+// bk-column K tiles (bk in {32, 64}), f32 the TMA-fed FMA kernel (one tile
+// per hd bucket; bk unused). (b0, h0, nhl, nhg): the dropout hash's head
+// map (HeadMap); 0, 0, 1, 1 hashes the local batch-head index. A refused
+// map or launch returns its error; the wrapper raises.
 int xsmm_flash_fwd(const void* q, const void* kT, const void* v,
                    const void* bias, long long bias_stride, void* out,
                    void* lse, int bh, int s, int hd, int type, int bk,
@@ -573,14 +684,18 @@ int xsmm_flash_fwd(const void* q, const void* kT, const void* v,
                    unsigned nhl, unsigned nhg, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s <= 0 || s % BQ || s / BQ > 65535 || hd <= 0 || hd % 8 || hd > 256 ||
-      bh <= 0 || nhl == 0 || nhg == 0)
+      bh <= 0 || nhl == 0 || nhg == 0 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kT) |
+       reinterpret_cast<uintptr_t>(v)) % 16)
     return cudaErrorInvalidValue;
   const HeadMap hm{b0, h0, nhl, nhg};
-  const int hdp = (hd + 63) / 64 * 64;
-  if (type == T_F32 && bk == 64)
-    return launch_hd<float, 64>(hdp, q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-  if (type == T_F32 && bk == 32)
-    return launch_hd<float, 32>(hdp, q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+  if (type == T_F32) {
+    if (hd <= 64)
+      return launch_flash_tma_fma<64>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+    if (hd <= 128)
+      return launch_flash_tma_fma<128>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+    return launch_flash_tma_fma<256>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
+  }
   if (type == T_BF16 && bk == 64)
     return launch_mma_hd<64>(hd, q, kT, v, bias, bias_stride, out, lse, bh, s, scale, causal, dropout, seed, hm, thr, inv_keep, st);
   if (type == T_BF16 && bk == 32)

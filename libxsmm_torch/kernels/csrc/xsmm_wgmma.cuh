@@ -7,7 +7,8 @@
 // swizzled tile and wgmma.m64n128k16 with bf16 operands and f32
 // accumulators; on the host, encode_map (cuTensorMapEncodeTiled) for the
 // TMA maps of every source that includes it (gemm_kernels.cu,
-// spmm_lab_kernels.cu). kernels/_build.py hashes this header into the name
+// spmm_lab_kernels.cu, and through xsmm_flash_fma.cuh the two attention
+// sources). kernels/_build.py hashes this header into the name
 // of every library it builds, so an edit here rebuilds them all.
 //
 // Layouts (PTX ISA, "Matrix Descriptor" and "Shared Memory Matrix Layout"):
@@ -271,15 +272,18 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a bf16 or f32 tensor map with 128-byte swizzle and zero fill out of bounds
-static bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
-                       const void* base, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box) {
+// a bf16 or f32 tensor map with zero fill out of bounds and, unless told
+// otherwise, 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_NONE lands a box as
+// dense rows of its inner extent, up to 256 elements)
+static bool encode_map(
+    CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint32_t unit[3] = {1, 1, 1};
   return enc(map, type, rank, const_cast<void*>(base), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

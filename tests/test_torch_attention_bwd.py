@@ -124,7 +124,8 @@ def test_bwd_plain_parity(dt, opt):
 def test_bwd_block_override_parity(dt):
     """The reference's multi-block schedule (block_override=(128, 128):
     dK/dV accumulate over two Q blocks, dQ over two K blocks, causal skips)
-    against the port at the same override, which picks a CUDA tile."""
+    against the port at the same override, which picks the bf16 kernels'
+    CUDA tile (the f32 kernels have one tile per hd bucket)."""
     bh, s, hd = 2, 256, 64
     kw = {"causal": True, "dropout_p": 0.1, "bias_bh": bh, "bias_grad": True}
     jargs, targs = bwd_operands(dt, bh, s, hd, kw, seed=7)
@@ -133,7 +134,8 @@ def test_bwd_block_override_parity(dt):
                                        **kw)(*jargs)
     fn = pa.build_flash_attention_bwd(bh, s, hd, TORCH[dt],
                                       block_override=(128, 128), **kw)
-    assert (fn.block_q, fn.block_k) == (64, 64)
+    assert (fn.block_q, fn.block_k) == ((64, 64) if dt == BF16
+                                        else (None, None))
     for r, g in zip(ref, fn(*targs)):
         same(r, g, dt)
     # the causal dbias above the diagonal is exactly zero on both sides
@@ -166,18 +168,22 @@ def test_bwd_factory_refusals_and_configs():
                                      bias_grad=True)
     with pytest.raises(ValueError, match="unsupported flash shape"):
         pa.build_flash_attention_bwd(2, 200, 32, torch.float32)
+    # the bf16 kernels' configurations; f32 takes one tile per hd bucket
     for hd, want in ((32, [(64, 64), (64, 32)]), (128, [(64, 64), (64, 32)]),
                      (192, [(64, 32)]), (256, [(64, 32)])):
-        assert pa.bwd_configs(hd) == want
+        assert pa.bwd_configs(hd) == pa.bwd_configs(hd, "dq") == want
         assert pa._bwd_smem_bytes(hd, want[-1][1]) <= 232448
-    assert pa._bwd_smem_bytes(256, 64) > 232448
-    # the dQ kernel keeps two blocks per SM where it can
-    assert pa.bwd_configs(64, "dq") == [(64, 64), (64, 32)]
-    assert pa.bwd_configs(128, "dq") == [(64, 32), (64, 64)]
-    assert pa.bwd_configs(256, "dq") == [(64, 32)]
+    with pytest.raises(ValueError, match="one tile per hd bucket"):
+        pa.bwd_configs(128, "dq", torch.float32)
     fn = pa.build_flash_attention_bwd(2, 256, 128, torch.float32)
-    assert (fn.block_k, fn.block_k_dq) == (64, 32)
+    assert (fn.path, fn.block_k, fn.block_k_dq) == ("tma_fma", None, None)
     fn = pa.build_flash_attention_bwd(2, 256, 128, torch.float32,
+                                      block_override=(128, 128))
+    assert (fn.path, fn.block_k, fn.block_k_dq) == ("tma_fma", None, None)
+    with pytest.raises(ValueError, match="does not tile"):
+        pa.build_flash_attention_bwd(2, 256, 128, torch.float32,
+                                     block_override=(100, 128))
+    fn = pa.build_flash_attention_bwd(2, 256, 128, torch.bfloat16,
                                       block_override=(128, 128))
     assert (fn.block_k, fn.block_k_dq) == (64, 64)
     fn = pa.build_flash_attention_bwd(2, 256, 256, torch.bfloat16,

@@ -9,6 +9,9 @@ machine run:
 (`--noconftest`: the repo's tests/conftest.py sets JAX up for the JAX
 package's tests, and this file imports nothing of JAX or libxsmm_tpu.)
 
+f32 runs the TMA-fed FMA kernel ("tma_fma"), held against the plain
+version at every form; the tests set and assert TF32 off.
+
 Tolerances (matdiff normf_rel, kernel against plain on the same inputs):
 1e-5 for f32 flash outputs and the LSE (the online softmax rescales per K
 tile where the plain version takes the row's max at once: rounding only);
@@ -65,6 +68,8 @@ def _flash_case(gen, bh, s, hd, dtype, flag, block_override=None):
         kw["return_lse"] = True
     if flag == "scale":
         kw["scale"] = 0.3
+    if flag == "dropout_head_map":
+        kw["head_map"] = (1, 2, bh, bh + 3)
     fn = ka.build_flash_attention(bh, s, hd, dtype,
                                   block_override=block_override, **kw)
     q, v = randn(gen, bh, s, hd, dtype=dtype), randn(gen, bh, s, hd, dtype=dtype)
@@ -81,9 +86,9 @@ def _flash_case(gen, bh, s, hd, dtype, flag, block_override=None):
                          ids=["f32", "bf16"])
 def test_flash_kernel_matches_plain(gen, dtype, hd, flag):
     """Every flag at every depth; bf16 on the tensor cores (hd 40 and 72
-    padded with zeros to 64 and 96), f32 on the FMA kernel."""
+    padded with zeros to 64 and 96), f32 on the TMA-fed FMA kernel."""
     fn, args = _flash_case(gen, 3, 256, hd, dtype, flag)
-    assert fn.path == ("mma" if dtype == torch.bfloat16 else "fma")
+    assert fn.path == ("mma" if dtype == torch.bfloat16 else "tma_fma")
     before = ka.launches["flash_attention_fwd"]
     got = fn(*args)
     assert ka.launches["flash_attention_fwd"] == before + 1
@@ -105,7 +110,9 @@ def test_flash_kernel_matches_plain(gen, dtype, hd, flag):
 def test_flash_tile_configs(gen, dtype, flag, config):
     fn, args = _flash_case(gen, 2, 384, 64, dtype, flag,
                            block_override=config)
-    assert (fn.block_q, fn.block_k) == config
+    # the bf16 kernel takes the override's tile; f32 keeps its own
+    assert (fn.block_q, fn.block_k) == (
+        config if dtype == torch.bfloat16 else (None, None))
     got = fn(*args)
     check(fn.plain(*args).float(), got.float(), margin=TOL[dtype])
 
@@ -169,6 +176,65 @@ def test_flash_dispatch_routes(gen):
     kT2 = randn(gen, 4, 64, 200)
     ref(q2, kT2, v2)
     assert ka.launches["flash_attention_fwd"] == before + 1
+
+
+# the tma_fma route: head dims at each bucket (64, 128, 256) and padded into
+# them (8, 120); s at one 128-row tile and at the bench's 2048
+TF_HDS = [8, 64, 120, 128, 256]
+TF_FLAGS = FLAGS + ["dropout_head_map"]
+
+
+@pytest.mark.parametrize("s", [128, 2048])
+@pytest.mark.parametrize("flag", TF_FLAGS)
+@pytest.mark.parametrize("hd", TF_HDS)
+def test_flash_tma_fma_matches_plain(gen, hd, flag, s):
+    """The TMA-fed f32 kernel at every form against its plain version; the
+    launch counts its route."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    fn, args = _flash_case(gen, 2, s, hd, torch.float32, flag)
+    assert fn.path == "tma_fma"
+    before = ka.path_launches["flash_attention_fwd"]["tma_fma"]
+    got = fn(*args)
+    assert fn.path == "tma_fma"
+    assert ka.path_launches["flash_attention_fwd"]["tma_fma"] == before + 1
+    want = fn.plain(*args)
+    torch.cuda.synchronize()
+    if flag == "lse":
+        (got, got_lse), (want, want_lse) = got, want
+        assert got_lse.shape == (2, s, 128)
+        check(want_lse, got_lse, margin=1e-5)
+    assert got.dtype == torch.float32 and got.shape == (2, s, hd)
+    assert bool(torch.isfinite(got).all())
+    check(want, got, margin=TOL[torch.float32])
+
+
+def test_flash_tma_fma_deterministic(gen):
+    """The tma_fma kernel gives the same bits twice on the same operands."""
+    fn, args = _flash_case(gen, 3, 512, 128, torch.float32,
+                           "causal_dropout_bias")
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert fn.path == "tma_fma"
+    assert torch.equal(a, b)
+    check(fn.plain(*args), a, margin=TOL[torch.float32])
+
+
+def test_flash_f32_offset_view(gen):
+    """q 4 bytes past a 16-byte boundary: TMA cannot take it, so the
+    wrapper copies it first and the call runs the tma_fma kernel."""
+    bh, s, hd = 2, 256, 64
+    n = bh * s * hd
+    q = randn(gen, n + 1)[1:].view(bh, s, hd)
+    kT, v = randn(gen, bh, hd, s), randn(gen, bh, s, hd)
+    assert q.data_ptr() % 16 == 4
+    fn = ka.build_flash_attention(bh, s, hd, torch.float32, causal=True)
+    before = dict(ka.path_launches["flash_attention_fwd"])
+    got = fn(0, q, kT, v)
+    after = ka.path_launches["flash_attention_fwd"]
+    assert fn.path == "tma_fma"
+    assert after == {"mma": before["mma"], "tma_fma": before["tma_fma"] + 1}
+    check(fn.plain(0, q, kT, v), got, margin=TOL[torch.float32])
+    assert torch.equal(got, fn(0, q.clone(), kT, v))
 
 
 @pytest.mark.parametrize("p", [0.0, 0.1, 0.5])

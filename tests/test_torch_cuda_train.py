@@ -14,7 +14,8 @@ Tolerances (matdiff normf_rel, kernel against plain on the same inputs):
 summation order shows more than in the forward); 1e-2 for bf16 outputs and
 for dbias from bf16 inputs (p~ and dS are rounded to bf16 against scores
 that differ in the last f32 bits, then the outputs are rounded to bf16).
-bf16 runs the tensor-core kernels, f32 the FMA ones.
+bf16 runs the tensor-core kernels, f32 the TMA-fed FMA ones (route
+"tma_fma"); the tests set and assert TF32 off.
 """
 
 import pytest
@@ -60,6 +61,8 @@ def _bwd_case(gen, bh, s, hd, dtype, flag, block_override=None):
         kw["bias_bh"] = 1
     if "bias_grad" in flag:
         kw["bias_bh"] = bh
+    if "head_map" in flag:
+        kw["head_map"] = (1, 2, bh, bh + 3)
     q, v = randn(gen, bh, s, hd, dtype=dtype), randn(gen, bh, s, hd, dtype=dtype)
     kT = randn(gen, bh, hd, s, dtype=dtype)
     dout = randn(gen, bh, s, hd, dtype=dtype)
@@ -90,6 +93,7 @@ def _same(got, want, dtype):
                          ids=["f32", "bf16"])
 def test_bwd_kernels_match_plain(gen, dtype, hd, flag):
     fn, args = _bwd_case(gen, 3, 256, hd, dtype, flag)
+    assert fn.path == ("mma" if dtype == torch.bfloat16 else "tma_fma")
     before = dict(ka.launches)
     got = fn(*args)
     assert ka.launches["flash_attention_bwd_dkv"] == \
@@ -109,7 +113,9 @@ def test_bwd_kernels_match_plain(gen, dtype, hd, flag):
 def test_bwd_tile_configs(gen, dtype, flag, hd, config):
     fn, args = _bwd_case(gen, 2, 384, hd, dtype, flag,
                          block_override=config)
-    assert (fn.block_q, fn.block_k, fn.block_k_dq) == config + config[1:]
+    # the bf16 kernels take the override's tile; f32 keeps its own
+    assert (fn.block_q, fn.block_k, fn.block_k_dq) == (
+        config + config[1:] if dtype == torch.bfloat16 else (None,) * 3)
     _same(fn(*args), fn.plain(*args), dtype)
 
 
@@ -135,6 +141,63 @@ def test_bwd_causal_dbias_zero_above_diagonal(gen):
     torch.cuda.synchronize()
     upper = torch.ones(512, 512, dtype=torch.bool, device="cuda").triu(1)
     assert bool((dbias[:, upper] == 0).all())
+
+
+# the tma_fma route: head dims at each bucket (64, 128, 256) and padded into
+# them (8, 120); s at one 128-row tile and at the bench's 2048
+TF_HDS = [8, 64, 120, 128, 256]
+TF_FLAGS = ["plain", "causal", "dropout", "dropout_head_map", "bias_bh_grad",
+            "bias1", "causal_dropout_bias_grad"]
+
+
+@pytest.mark.parametrize("s", [128, 2048])
+@pytest.mark.parametrize("flag", TF_FLAGS)
+@pytest.mark.parametrize("hd", TF_HDS)
+def test_bwd_tma_fma_matches_plain(gen, hd, flag, s):
+    """The TMA-fed f32 dK/dV and dQ kernels at every form against their
+    plain versions; the launch counts their route."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    fn, args = _bwd_case(gen, 2, s, hd, torch.float32, flag)
+    assert fn.path == "tma_fma"
+    before = {k: ka.path_launches[k]["tma_fma"] for k in ka.path_launches}
+    got = fn(*args)
+    assert fn.path == "tma_fma"
+    for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert ka.path_launches[k]["tma_fma"] == before[k] + 1
+    assert len(got) == (4 if "bias_grad" in flag else 3)
+    _same(got, fn.plain(*args), torch.float32)
+    if "causal" in flag and "bias_grad" in flag:
+        upper = torch.ones(s, s, dtype=torch.bool, device="cuda").triu(1)
+        assert bool((got[3][:, upper] == 0).all())
+
+
+def test_bwd_tma_fma_deterministic(gen):
+    """The tma_fma kernels give the same bits twice on the same operands."""
+    fn, args = _bwd_case(gen, 3, 512, 128, torch.float32,
+                         "causal_dropout_bias_grad")
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert fn.path == "tma_fma"
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _same(a, fn.plain(*args), torch.float32)
+
+
+def test_bwd_f32_offset_view(gen):
+    """dout 4 bytes past a 16-byte boundary: TMA cannot take it, so the
+    wrapper copies it first and both kernels run on tma_fma."""
+    fn, args = _bwd_case(gen, 2, 256, 64, torch.float32, "causal")
+    dout = args[4]
+    off = torch.empty(dout.numel() + 1, device="cuda")[1:].view(dout.shape)
+    off.copy_(dout)
+    assert off.data_ptr() % 16 == 4
+    args = args[:4] + (off,) + args[5:]
+    before = {k: dict(v) for k, v in ka.path_launches.items()}
+    got = fn(*args)
+    assert fn.path == "tma_fma"
+    for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert ka.path_launches[k] == {"mma": before[k]["mma"],
+                                       "tma_fma": before[k]["tma_fma"] + 1}
+    _same(got, fn.plain(*args), torch.float32)
 
 
 # bf16 head dims: every bucket of the tensor-core kernels
@@ -286,8 +349,11 @@ def test_bwd_refusals(gen):
                                      bias_grad=True)
     assert ka.bwd_configs(256) == [(64, 32)]
     with pytest.raises(ValueError, match="smaller than every"):
-        ka.build_flash_attention_bwd(4, 256, 256, torch.float32,
+        ka.build_flash_attention_bwd(4, 256, 256, torch.bfloat16,
                                      block_override=(64, 16))
+    with pytest.raises(ValueError, match="does not tile"):
+        ka.build_flash_attention_bwd(4, 256, 256, torch.float32,
+                                     block_override=(96, 16))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

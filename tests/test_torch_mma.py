@@ -63,10 +63,11 @@ def test_spmm_wrappers_name_their_path(a_dt, bk, bn, want):
 
 
 def test_flash_path():
+    """bf16 takes the tensor-core kernel, f32 the TMA-fed FMA kernel."""
     assert pa.flash_path(BF16) == "mma"
-    assert pa.flash_path(F32) == "fma"
+    assert pa.flash_path(F32) == "tma_fma"
     assert pa.build_flash_attention(2, 128, 40, BF16).path == "mma"
-    assert pa.build_flash_attention(2, 128, 40, F32).path == "fma"
+    assert pa.build_flash_attention(2, 128, 40, F32).path == "tma_fma"
 
 
 @pytest.mark.parametrize("hd,hdp", [
@@ -94,11 +95,22 @@ def test_bf16_smem_bytes():
 
 
 def test_f32_flash_configs_keep_their_values():
-    assert pa.flash_configs(64) == [(64, 64), (64, 32)]
-    assert pa.flash_configs(64, F32) == [(64, 64), (64, 32)]
-    assert pa.flash_configs(128) == [(64, 32), (64, 64)]
+    """The configurations are the bf16 kernel's (the default dtype); the
+    f32 kernel takes one tile per hd bucket, so f32 has none to pick and a
+    block_override only has to tile s."""
+    assert pa.flash_configs(64) == pa.flash_configs(64, BF16) == \
+        [(64, 64), (64, 32)]
     assert pa.flash_configs(256) == [(64, 32), (64, 64)]
-    assert pa._smem_bytes(128, 64) == pa._smem_bytes(128, 64, F32) == 117760
+    assert pa._smem_bytes(128, 64) == pa._smem_bytes(128, 64, BF16) == 89088
+    for call in (lambda: pa.flash_configs(64, F32),
+                 lambda: pa._smem_bytes(128, 64, F32)):
+        with pytest.raises(ValueError, match="one tile per hd bucket"):
+            call()
+    fn = pa.build_flash_attention(2, 256, 128, F32, block_override=(32, 32))
+    assert fn.path == "tma_fma" and (fn.block_q, fn.block_k) == (None, None)
+    assert fn.name == "flash_fwd_2x256x128_float32_tma_fma"
+    with pytest.raises(ValueError, match="does not tile"):
+        pa.build_flash_attention(2, 256, 128, F32, block_override=(96, 128))
 
 
 @pytest.mark.parametrize("hd", [40, 64, 128, 256])

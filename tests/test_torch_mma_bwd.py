@@ -30,11 +30,12 @@ TOL = 1e-2
 
 
 def test_flash_bwd_path():
-    """bf16 takes the tensor-core kernels, f32 the FMA ones (no TF32)."""
+    """bf16 takes the tensor-core kernels, f32 the TMA-fed FMA ones (no
+    TF32)."""
     assert pa.flash_bwd_path(BF16) == "mma"
-    assert pa.flash_bwd_path(F32) == "fma"
+    assert pa.flash_bwd_path(F32) == "tma_fma"
     assert pa.build_flash_attention_bwd(2, 128, 40, BF16).path == "mma"
-    assert pa.build_flash_attention_bwd(2, 128, 40, F32).path == "fma"
+    assert pa.build_flash_attention_bwd(2, 128, 40, F32).path == "tma_fma"
 
 
 @pytest.mark.parametrize("kernel", ["dkv", "dq"])
@@ -68,16 +69,20 @@ def test_bf16_bwd_smem_bytes():
 
 
 def test_f32_bwd_configs_keep_their_values():
-    """The f32 kernels keep their configurations and shared memory."""
+    """The configurations are the bf16 kernels' (the default dtype); the
+    f32 kernels take one tile per hd bucket, so f32 has none to pick."""
     for hd, want in ((32, [(64, 64), (64, 32)]), (128, [(64, 64), (64, 32)]),
                      (192, [(64, 32)]), (256, [(64, 32)])):
-        assert pa.bwd_configs(hd) == pa.bwd_configs(hd, "dkv", F32) == want
-    assert pa.bwd_configs(128, "dq") == pa.bwd_configs(128, "dq", F32) == \
-        [(64, 32), (64, 64)]
+        assert pa.bwd_configs(hd) == pa.bwd_configs(hd, "dkv", BF16) == want
     assert pa._bwd_smem_bytes(128, 64) == \
-        pa._bwd_smem_bytes(128, 64, "dkv", F32) == 169984
+        pa._bwd_smem_bytes(128, 64, "dkv", BF16) == 106496
+    for call in (lambda: pa.bwd_configs(128, "dq", F32),
+                 lambda: pa._bwd_smem_bytes(128, 64, "dkv", F32)):
+        with pytest.raises(ValueError, match="one tile per hd bucket"):
+            call()
     fn = pa.build_flash_attention_bwd(2, 256, 128, F32)
-    assert fn.path == "fma" and (fn.block_k, fn.block_k_dq) == (64, 32)
+    assert fn.path == "tma_fma" and (fn.block_k, fn.block_k_dq) == (None,
+                                                                     None)
 
 
 @pytest.mark.parametrize("hd", [40, 64, 128, 256])
