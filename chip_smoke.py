@@ -11,7 +11,8 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    nvcc for sm_90a (one nvcc per source, all started together) and prints
    the build time, the spills per source and the registers and spills of
    each pipelined kernel (the bf16 flash forward and backward, the BCSC
-   SpMM, the k-union SpMM, the packed BRGEMM's wgmma and tma_fma kernels
+   SpMM and the k-union SpMM on the tensor cores and on tma_fma (f32), the
+   packed BRGEMM's wgmma and tma_fma kernels
    and twins, the batched SMM's ring kernel, the BCSC lab's chunkN and
    dspipe probes, the BCSC densifier's two routes);
 3. drives the small-GEMM main path through the public entry points, with
@@ -89,10 +90,12 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    32 blocks at density 0.2 and 0.05, bf16 -> f32), bcsc_cluster (m = 1024,
    k = 2048, n = 1024, bf16 -> bf16, the two-family pattern); a streaming
    case (m = 32768 rows of A through the bcsc20 and bcsc05 patterns), an
-   f32 case (m = 4096) and a ragged one (m = 1000); each result against
-   the float64 dense product; the bf16 cases' "pallas", "super" and union
-   strategies must take the tensor-core kernels and the f32 case the FMA
-   kernels (the path predicate, asserted); union, union2 and union3 must
+   f32 case (m = 4096), the f32 streaming case at full width (m = 32768,
+   the bcsc20 pattern, f32 in and out) and a ragged one (m = 1000); each
+   result against the float64 dense product; the bf16 cases' "pallas",
+   "super" and union strategies must take the tensor-core kernels and the
+   f32 cases the TMA-fed FMA kernels (the path predicate and every call's
+   launch by route, asserted); union, union2 and union3 must
    launch the RHS compactor and the union4 names and union5 must not (the
    counter read around each call); prints the auto picks, the clustering
    decision and both union depths; fails unless all five kernels were
@@ -280,8 +283,11 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     against float64; one past TOL_F32 / TOL_BWD_F32 is not the yardstick),
     at bench.py's serving shape and the encoder block's (96, 512, 64),
     causal and not (f32_flash_rows); the f32 scheduled, supertile and
-    union SpMMs at the streaming case (m 32768) beside torch.mm in f32 on
-    the densified B (f32_spmm_rows);
+    union SpMMs (the union in both forms) at the streaming case (m 32768)
+    on tma_fma, their own products' time at the FMA peak and torch.mm in
+    f32 on the densified B, and auto's f32 pick (f32_spmm_rows); the FMA
+    kernels at blockings the route rule sends to them, against their
+    plain versions (fma_route_checks);
 17. prints one JSON line with the per-kernel numbers (twenty-five rows) and,
     last, the result line {"ok": true, "device": {...}}.
 
@@ -374,6 +380,8 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("gemm_kernels", "batched_gemm_ring_kernel"),
                ("spmm_kernels", "bcsc_spmm_mma_kernel"),
                ("spmm_kernels", "bcsc_union_mma_kernel"),
+               ("spmm_kernels", "bcsc_spmm_tma_fma_kernel"),
+               ("spmm_kernels", "bcsc_union_tma_fma_kernel"),
                ("attention_kernels", "flash_fwd_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dq_mma_kernel"),
@@ -444,16 +452,18 @@ def _f32_flash_forms(bh, bias):
             ("causal lse", {"causal": True, "return_lse": True}, None)]
 
 
-def _flash_routes():
-    """The flash kernels' launch counts by route (a copy)."""
-    from libxsmm_torch.kernels import attention as KA
-    return {k: dict(v) for k, v in KA.path_launches.items()}
+def _routes(mod=None):
+    """A kernel module's launch counts by route (a copy); the flash
+    kernels' unless `mod` is given."""
+    if mod is None:
+        from libxsmm_torch.kernels import attention as mod
+    return {k: dict(v) for k, v in mod.path_launches.items()}
 
 
-def _took_route(name, before, kernels, route):
+def _took_route(name, before, kernels, route, mod=None):
     """Fail unless each of `kernels` launched on `route`, and on no other
-    route, since the snapshot `before`."""
-    now = _flash_routes()
+    route, since the snapshot `before` (of `mod`'s counts)."""
+    now = _routes(mod)
     for k in kernels:
         moved = {r: now[k][r] - before[k][r] for r in now[k]
                  if now[k][r] != before[k][r]}
@@ -525,7 +535,7 @@ def encoder_path(randn, dev):
         cfg_f32 = TA.AttentionConfig(dim=768, heads=12, flash=True)
         block_f32 = TA.EncoderBlock(cfg_f32, init_seed=2, device=dev)
         x_f32 = randn(8, 512, 768)
-        routes0 = _flash_routes()
+        routes0 = _routes()
         y_f32 = run("block bert-base f32 serve 8x512",
                     ["flash_attention_fwd"], block_f32, x_f32)
         _took_route("block f32 8x512", routes0, ("flash_attention_fwd",),
@@ -591,7 +601,7 @@ def encoder_path(randn, dev):
         fq, fv = randn(fbh, fs, fhd), randn(fbh, fs, fhd)
         fkT = randn(fbh, fhd, fs)
         kern = xt.dispatch_flash_attention(fbh, fs, fhd, Datatype.F32)
-        routes0 = _flash_routes()
+        routes0 = _routes()
         out = run(f"flash f32 {fbh}x{fs}x{fhd}", ["flash_attention_fwd"],
                   kern, fq, fkT, fv)
         _took_route(f"flash f32 {fbh}x{fs}x{fhd}", routes0,
@@ -659,7 +669,7 @@ def encoder_path(randn, dev):
     # the block's attention shape: 8 x 12 heads, s=512, hd=64
     block_ops = (randn(96, 512, 64, dtype=bf16), randn(96, 64, 512, dtype=bf16),
                  randn(96, 512, 64, dtype=bf16))
-    return {"phases": phases, "counts": counts, "routes": _flash_routes(),
+    return {"phases": phases, "counts": counts, "routes": _routes(),
             "flash_operands": (q, kT, v), "block_operands": block_ops,
             "dropout_operand": randn(m, n, dtype=bf16),
             "block": (block, x),
@@ -758,7 +768,7 @@ def training_path(randn, dev):
     cfg_f32 = TA.AttentionConfig(dim=768, heads=12, flash=True)
     params_f32 = TA.init_params(cfg_f32, seed=2, device=dev)
     xf, yf = randn(8, 512, 768), randn(8, 512, 768)
-    routes0 = _flash_routes()
+    routes0 = _routes()
     _, gf = run("loss_and_grads bert-base f32 8x512",
                 ("flash_attention_fwd",) + BWD_KERNELS, TA.loss_and_grads,
                 params_f32, xf, yf, cfg_f32)
@@ -844,7 +854,7 @@ def training_path(randn, dev):
     if missing:
         raise AssertionError(f"kernels not launched on the training path: "
                              f"{missing}")
-    return {"phases": phases, "counts": counts, "routes": _flash_routes(),
+    return {"phases": phases, "counts": counts, "routes": _routes(),
             "bwd_operands": bench_ops, "step": (params, x, y, cfg),
             "step_f32": (params_f32, xf, yf, cfg_f32)}
 
@@ -883,9 +893,11 @@ def sparse_path(randn, dev):
     create_packed_spgemm_bcsc with the four sparse kernels' launch counts
     set to 0 just before and read just after: every strategy name and
     "auto" at bench.py's bcsc20, bcsc05 and bcsc_cluster cases, a streaming
-    case and an f32 case, each against the float64 dense product. Returns
-    the phases (to time), the counts, and the streaming operands the
-    per-kernel rows reuse."""
+    case, an f32 case at m 4096 and the f32 streaming case at full width
+    (m 32768), each against the float64 dense product, each SpMM call held
+    to its route (mma for bf16, tma_fma for f32). Returns the phases (to
+    time), the counts, the f32 cases' launches by route, auto's picks and
+    the streaming operands the per-kernel rows reuse."""
     import numpy as np
 
     import libxsmm_torch as xt
@@ -904,19 +916,24 @@ def sparse_path(randn, dev):
 
     def drive(case, shape, cfg, indptr, indices, a, v, tol):
         """Every strategy name and auto on one case, each against the
-        float64 product with the densified B (plain version: no launch)."""
+        float64 product with the densified B (plain version: no launch),
+        each SpMM kernel's launch on the route its operands take. Returns
+        auto's pick."""
         dense_b = KS.build_bcsc_densify(shape, cfg, indptr, indices,
                                         dev).plain(v)
         want = a.double() @ dense_b.double()
         # bf16 operands take the tensor-core kernels at the case's blocking
         # ("pallas" and the union strategies) and at the supertiles
-        # ("super"); f32 the FMA kernels
-        path = "mma" if a.dtype == bf16 else "fma"
-        for bk_, bn_ in ((cfg.bk, cfg.bn), (KS.SUPER, KS.SUPER)):
-            if KS.spmm_path(a.dtype, bk_, bn_) != path:
-                raise AssertionError(f"bcsc {case}: {bk_}x{bn_} blocks take "
-                                     f"{KS.spmm_path(a.dtype, bk_, bn_)}, "
-                                     f"expected {path}")
+        # ("super"); f32 the TMA-fed FMA kernels
+        path = "mma" if a.dtype == bf16 else "tma_fma"
+        for bk_, bn_, union in ((cfg.bk, cfg.bn, False),
+                                (KS.SUPER, KS.SUPER, False),
+                                (cfg.bk, cfg.bn, True)):
+            if KS.spmm_path(a.dtype, bk_, bn_, union) != path:
+                raise AssertionError(
+                    f"bcsc {case}: {bk_}x{bn_} blocks take "
+                    f"{KS.spmm_path(a.dtype, bk_, bn_, union)}"
+                    f"{' in the union' if union else ''}, expected {path}")
         union_path = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices,
                                               dev).path
         if union_path != path:
@@ -932,11 +949,15 @@ def sparse_path(randn, dev):
             if got in COMPACTED:
                 kernels += ("bcsc_union_compact",)
             compactions = _count("bcsc_union_compact")
+            routes = _routes(KS)
             out = run(f"bcsc {case} {s}", kernels, kern, a, v)
             if (got not in COMPACTED
                     and _count("bcsc_union_compact") != compactions):
                 raise AssertionError(f"bcsc {case} {s}: the compactor ran "
                                      f"for {got}")
+            _took_route(f"bcsc {case} {s}", routes,
+                        [k_ for k_ in kernels if k_ in KS.path_launches],
+                        path, KS)
             worst = max(worst, _check(f"bcsc {case} {s} vs float64", want,
                                       out, tol, (shape.m, shape.n)))
             if s == "auto":
@@ -944,8 +965,9 @@ def sparse_path(randn, dev):
         print(f"  bcsc {case} ({shape.m}x{shape.n}x{shape.k}, "
               f"{len(indices)} blocks of {cfg.bk}x{cfg.bn}): "
               f"{len(STRATEGIES) + 1} strategies, worst normf_rel vs "
-              f"float64 {worst:.3e}; pallas/super path {path}; auto -> "
-              f"{pick}")
+              f"float64 {worst:.3e}; pallas/super/union path {path}; auto "
+              f"-> {pick}")
+        return pick
 
     KS.reset_launches()
     t_path = time.perf_counter()
@@ -991,12 +1013,19 @@ def sparse_path(randn, dev):
         drive(f"stream{round(density * 100):02d}", sshape, cfg, bcsc.indptr,
               bcsc.indices, a_stream, v, TOL_SPARSE_BF16)
 
-    # f32 in and out at m = 4096 on the bcsc20 pattern
+    # f32 in and out at m = 4096 on the bcsc20 pattern, then at full width:
+    # stream20 (m 32768, k = n = 1024, 32 x 32 blocks at density 0.2, the
+    # pattern from default_rng(2)) in f32, A 128 MiB
     bcsc, _ = pats[0.2]
-    before = dict(KS.launches)
-    drive("f32", GemmShape(4096, n, k), cfg, bcsc.indptr, bcsc.indices,
-          randn(4096, k), on_dev(bcsc.data, f32), TOL_SPARSE_F32)
-    f32_counts = {k_: KS.launches[k_] - before[k_] for k_ in KS.launches}
+    f32_counts, picks = {}, {}
+    for case, rows_ in (("f32", 4096), ("f32 stream20", ms_rows)):
+        before = _routes(KS)
+        picks[case] = drive(case, GemmShape(rows_, n, k), cfg, bcsc.indptr,
+                            bcsc.indices, randn(rows_, k),
+                            on_dev(bcsc.data, f32), TOL_SPARSE_F32)
+        now = _routes(KS)
+        f32_counts[rows_] = {k_: {r: now[k_][r] - before[k_][r]
+                                  for r in now[k_]} for k_ in now}
 
     # ragged: 1000 rows (the last 64-row tile cut) through bcsc05
     bcsc, v = pats[0.05]
@@ -1016,7 +1045,8 @@ def sparse_path(randn, dev):
                              f"{missing}")
     bcsc, v = pats[0.2]
     return {"phases": phases, "counts": counts, "f32_counts": f32_counts,
-            "stream": (sshape, cfg, bcsc, a_stream, v), "small": small}
+            "auto": picks, "stream": (sshape, cfg, bcsc, a_stream, v),
+            "small": small}
 
 
 def _kernel_modules():
@@ -1885,14 +1915,20 @@ def _print_f32_flash(shape_name, row):
               + (f" ({', '.join(marks)})" if marks else ""))
 
 
-def f32_spmm_rows(randn, ms, geo):
+def f32_spmm_rows(randn, ms, geo, auto_pick):
     """The f32 forms of the scheduled ("pallas"), supertile and k-union
     BCSC SpMMs at stream20's pattern (m 32768, k = n = 1024, 32 x 32
-    blocks at density 0.2, bench.py's pattern from default_rng(2)) in f32:
-    each kernel against its plain version (TOL_SPARSE_F32), timed beside
-    the plain version, the bound (A, the values and C moved once; the
-    useful products 2 nblocks bk bn m at the f32 FMA peak) and torch.mm in
-    f32 (TF32 off) on the densified B. Returns {name: row}."""
+    blocks at density 0.2, bench.py's pattern from default_rng(2)) in f32,
+    on the planner's route (tma_fma, asserted): each against its plain
+    version (TOL_SPARSE_F32), timed beside the plain version, the bound
+    (A, the values and C moved once; the useful products 2 nblocks bk bn m
+    at the f32 FMA peak), its own products at that peak ("own_ms": every
+    schedule step, live union slot or occupied supertile in full) and
+    torch.mm in f32 (TF32 off) on the densified B. The union row carries
+    the compacted form's time (compactor included) and auto's pick at the
+    sparse path's full-width f32 case (`auto_pick`). Then the FMA kernels
+    at f32 and bf16 blockings the rule sends to them, each against its
+    plain version (fma_route_checks). Returns {name: row}."""
     import numpy as np
 
     from libxsmm_torch.descriptor import GemmShape, SpgemmConfig
@@ -1922,27 +1958,101 @@ def f32_spmm_rows(randn, ms, geo):
                                                      s_indices, dev), sup),
         "bcsc_spmm_union": (KS.build_bcsc_spmm_union(
             shape, cfg, bcsc.indptr, bcsc.indices, dev), v)}
+
+    def own(fn):
+        """2 m x the products of every block the kernel multiplies."""
+        if isinstance(fn, KS.BcscSpmmUnion):
+            live = (fn.gmap.view(fn.nsg, fn.U, fn.W)
+                    != fn.nblocks).any(-1).sum().item()
+            return 2 * m * live * fn.bk * KS.GROUP
+        return 2 * m * fn.rows.numel() * fn.bk * fn.bn
+
     out = {}
     for name, (fn, vals) in kernels.items():
-        if fn.path != "fma":
+        if fn.path != "tma_fma":
             raise AssertionError(f"{name} f32 took {fn.path}")
         got, want = fn(a, vals), fn.plain(a, vals)
         torch.cuda.synchronize()
         _check(f"{name} f32 stream20 kernel vs plain", want, got,
                TOL_SPARSE_F32)
-        out[name] = {"ms": ms(fn, a, vals), "plain_ms": ms(fn.plain, a, vals),
-                     "bound_ms": geo.bound_ms(io + 4 * vals.numel(), useful,
-                                              geo.peak_f32_tflops),
-                     "bound_by": geo.bound_by(io + 4 * vals.numel(), useful,
-                                              geo.peak_f32_tflops),
-                     "library_ms": lib, "max_abs_err": _max_abs(want, got)}
-        r = out[name]
+        products = own(fn)
+        nbytes = io + 4 * vals.numel()
+        r = out[name] = {
+            "ms": ms(fn, a, vals), "plain_ms": ms(fn.plain, a, vals),
+            "bound_ms": geo.bound_ms(nbytes, useful, geo.peak_f32_tflops),
+            "bound_by": geo.bound_by(nbytes, useful, geo.peak_f32_tflops),
+            "own_gflop": products / 1e9,
+            "own_ms": products / (geo.peak_f32_tflops * 1e9),
+            "library_ms": lib, "max_abs_err": _max_abs(want, got),
+            "path": fn.path}
+        r["tflops"] = products / r["ms"] / 1e9
+        extra = ""
+        if name == "bcsc_spmm_union":
+            comp = KS.build_bcsc_spmm_union(shape, cfg, bcsc.indptr,
+                                            bcsc.indices, dev, compact=True)
+            _check("bcsc_spmm_union f32 stream20 compacted vs fused",
+                   got, comp(a, v), TOL_SPARSE_F32)
+            r["compact_ms"] = ms(comp, a, v)
+            r["auto"] = auto_pick
+            extra = (f"; compacted form {r['compact_ms']:.4f} ms (k/l "
+                     f"{r['compact_ms'] / lib:.3f}); auto -> {auto_pick}")
         print(f"  {name} f32 stream20 ({m}x{n}x{k}, {bcsc.nblocks} blocks "
-              f"of 32x32): {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by"
-              f" {r['bound_by']}, {r['bound_ms'] / r['ms']:.3f} of it; plain "
-              f"{r['plain_ms']:.4f} ms; torch.mm f32 on the densified B "
-              f"{lib:.4f} ms, kernel / library {r['ms'] / lib:.3f})")
+              f"of 32x32) on tma_fma: {r['ms']:.4f} ms; bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.3f} of it; own products "
+              f"{r['own_gflop']:.2f} GFLOP, {r['own_ms']:.4f} ms at the FMA "
+              f"peak, {r['tflops']:.1f} TFLOP/s; plain {r['plain_ms']:.4f} "
+              f"ms; torch.mm f32 on the densified B {lib:.4f} ms, kernel / "
+              f"library {r['ms'] / lib:.3f}{extra}")
+    fma_route_checks(randn, dev)
     return out
+
+
+def fma_route_checks(randn, dev):
+    """The FMA kernels (route "fma") at blockings the rule sends to them:
+    f32 blocks whose depth is not whole 16-byte units (6 x 32), bf16 blocks
+    that are not whole k16 steps (8 x 8, 4 x 48), and f32 unions of more
+    than four value blocks a group (16 x 8, fused and compacted); m 4096,
+    each against its plain version, the launch on "fma" asserted."""
+    import numpy as np
+
+    from libxsmm_torch.descriptor import GemmShape, SpgemmConfig
+    from libxsmm_torch.dtypes import Datatype
+    from libxsmm_torch.kernels import spmm as KS
+
+    m, k = 4096, 1152
+    for dt, bk, bn, form in ((torch.float32, 6, 32, "scheduled"),
+                             (torch.bfloat16, 8, 8, "scheduled"),
+                             (torch.bfloat16, 4, 48, "scheduled"),
+                             (torch.float32, 16, 8, "fused"),
+                             (torch.float32, 16, 8, "compacted")):
+        n = 1152 if bn == 48 else 1024
+        bcsc = _bcsc_pattern(np.random.default_rng(3), k, n, bk, bn, 0.2)
+        dtype = Datatype.F32 if dt == torch.float32 else Datatype.BF16
+        shape = GemmShape(m, n, k, dtype, dtype, Datatype.F32)
+        cfg = SpgemmConfig(1, bk, bn)
+        if form == "scheduled":
+            fn, name = KS.build_bcsc_spmm(shape, cfg, bcsc.indptr,
+                                          bcsc.indices, dev), "bcsc_spmm"
+        else:
+            fn, name = KS.build_bcsc_spmm_union(
+                shape, cfg, bcsc.indptr, bcsc.indices, dev,
+                compact=form == "compacted"), "bcsc_spmm_union"
+        tag = f"{name} {form} {str(dt)[6:]} {bk}x{bn}"
+        if fn.path != "fma":
+            raise AssertionError(f"{tag} took {fn.path}, expected fma")
+        a = randn(m, k, dtype=dt)
+        v = torch.as_tensor(bcsc.data, device=dev).to(dt)
+        routes = _routes(KS)
+        got = fn(a, v)
+        _took_route(tag, routes, (name,), "fma", KS)
+        want = fn.plain(a, v)
+        torch.cuda.synchronize()
+        err = _check(f"{tag} kernel (fma) vs plain", want, got,
+                     TOL_SPARSE_F32 if dt == torch.float32
+                     else TOL_SPARSE_BF16)
+        print(f"  {tag} on fma: normf_rel vs plain {err:.3e}, max |diff| "
+              f"{_max_abs(want, got):.3e}")
 
 
 def f32_kernel_rows(flash, spmm, routes, spmm_counts):
@@ -1950,7 +2060,8 @@ def f32_kernel_rows(flash, spmm, routes, spmm_counts):
     and dQ on tma_fma at bench.py:568's shape (the other shape and causal
     forms and SDPA's backends beside), launches their tma_fma launches on
     the serving and training paths; the f32 SpMM forms at stream20,
-    launches those of the sparse path's f32 case."""
+    launches their tma_fma launches on the sparse path's two f32 cases (m
+    4096 and 32768, each also by m)."""
     rows = []
     b = flash[("bench", False)]
     for part, counter, src, line in (
@@ -1985,11 +2096,14 @@ def f32_kernel_rows(flash, spmm, routes, spmm_counts):
     for name, line in (("bcsc_spmm", 88), ("bcsc_spmm_super", 942),
                        ("bcsc_spmm_union", 258)):
         r = spmm[name]
+        by_case = {rows_: counts[name]["tma_fma"]
+                   for rows_, counts in spmm_counts.items()}
         rows.append({
             "name": f"{name}_f32", "route": "cuda",
             "source": "libxsmm_torch/kernels/csrc/spmm_kernels.cu",
             "replaces": f"libxsmm_tpu/kernels/spmm_pallas.py:{line}",
-            "launches": spmm_counts.get(name, 0), "path": "fma", **r})
+            "launches": sum(by_case.values()),
+            "launches_by_m": by_case, **r})
     return rows
 
 
@@ -2501,7 +2615,7 @@ def _par_attention(res, randn, world, dev):
                 tag = f"{name} {str(dt)[6:]} causal={causal}"
                 fn, _ = make(mesh, "sp", bh, s, hd, dt, causal=causal)
                 C.reset_log()
-                routes0 = _flash_routes()
+                routes0 = _routes()
                 out = fn(*ops).to_local()
                 torch.cuda.synchronize()
                 _took_route(tag, routes0, ("flash_attention_fwd",),
@@ -2516,7 +2630,7 @@ def _par_attention(res, randn, world, dev):
                 if causal != grad_causal:
                     continue
                 gl = [t.clone().requires_grad_(True) for t in ops]
-                routes0 = _flash_routes()
+                routes0 = _routes()
                 o = fn(*gl).to_local()
                 grads = torch.autograd.grad(
                     (o.float() * dout[:, seq]).sum(), gl)
@@ -4487,7 +4601,7 @@ def main() -> int:
     # the f32 routes: flash on tma_fma beside SDPA's backends at both
     # shapes, the f32 SpMM forms at stream20
     f32_flash = f32_flash_rows(randn, ms, geo)
-    f32_spmm = f32_spmm_rows(randn, ms, geo)
+    f32_spmm = f32_spmm_rows(randn, ms, geo, sp["auto"]["f32 stream20"])
     rows.extend(f32_kernel_rows(f32_flash, f32_spmm, flash_routes,
                                 sp["f32_counts"]))
 
@@ -4576,6 +4690,7 @@ def main() -> int:
                else f"{r['library_ms']:.4f} ms")
         cast = "".join(f"; {label} {r[key]:.4f} ms" for key, label in (
             ("rne_cast_ms", "rne cast"), ("compact_ms", "compacted form"),
+            ("own_ms", "own products at peak"),
             ("clone_ms", "clone of the output"),
             ("clone_graph_ms", "clone replayed"),
             ("clone_host_ms", "clone host"),

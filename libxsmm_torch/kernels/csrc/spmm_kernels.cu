@@ -21,17 +21,22 @@
 // owns each output tile and writes it once: no atomics, so results repeat
 // bit for bit from run to run.
 //
-// Two kernels serve the scheduled and supertile strategies, and two the
-// union strategies; spmm_entry and union_entry pick one by the same rule
-// (kernels/spmm.py spmm_path mirrors it):
-// - bcsc_spmm_mma_kernel and bcsc_union_mma_kernel, for bf16 operands
-//   wherever bk % 16 == 0 and bn % 8 == 0 (32 x 32, 16 x 64, 64 x 128,
-//   16 x 8, the 128 x 128 supertiles): bf16 tiles staged unwidened by
-//   cp.async in a 3-slice ring, products on the tensor cores (mma.sync
-//   m16n8k16, f32 accumulator in registers);
-// - bcsc_spmm_kernel and bcsc_union_kernel for every other case (f32
-//   operands: f32 means f32, no TF32; blockings such as 8 x 8 or 4 x 48):
-//   bf16 widened exactly to f32 on load, every product and sum an f32 FMA.
+// Three kernels serve the scheduled and supertile strategies, and three the
+// union strategies; spmm_entry and union_entry take the one spmm_route
+// names (kernels/spmm.py spmm_path mirrors the rule):
+// - bcsc_spmm_mma_kernel and bcsc_union_mma_kernel, route "mma", for bf16
+//   operands wherever bk % 16 == 0 and bn % 8 == 0 (32 x 32, 16 x 64,
+//   64 x 128, 16 x 8, the 128 x 128 supertiles): bf16 tiles staged
+//   unwidened by cp.async in a 3-slice ring, products on the tensor cores
+//   (mma.sync m16n8k16, f32 accumulator in registers);
+// - bcsc_spmm_tma_fma_kernel and bcsc_union_tma_fma_kernel, route
+//   "tma_fma", for f32 operands wherever bk % 4 == 0 and bn % 4 == 0 (the
+//   union: also bn >= 32): f32 tiles fed by TMA into the CUDA cores' FMAs
+//   (f32 means f32: no TF32), the f32 BRGEMM's design;
+// - bcsc_spmm_kernel and bcsc_union_kernel, route "fma", for every other
+//   case (bf16 blockings such as 8 x 8 or 4 x 48, f32 blocks that are not
+//   whole 16-byte units, f32 unions of blocks under 32 columns): bf16
+//   widened exactly to f32 on load, every product and sum an f32 FMA.
 //
 // Bound, at the bench's streaming shape (m = 32768, k = n = 1024, bk = bn =
 // 32, block density 0.2, bf16 in, f32 out): device memory, 201 MB of A and C
@@ -66,12 +71,14 @@
 // (U = 21) the union products are 45 GFLOP, 0.046 ms at the tensor cores'
 // peak, so the kernel is bound by the rate of its mma.sync steps and the
 // shared-memory reads that feed them, not by device memory.
-// The FMA kernel keeps a 64 x 32 f32 tile in registers (4 x 4 per thread)
-// and stages 32-deep slices of A's panel and of the value block, widened, in
-// shared memory; the FMA union kernel keeps a 64 x 128 tile (4 x 8 per
-// thread) and assembles each slot's RHS the same way, element by element.
-// A is re-read from L2 for every block of a column; the FMA kernels are
-// bound by their shared-memory traffic, not by device memory. The compactor
+// The TMA-fed FMA kernels: see their section below. The FMA kernel keeps a
+// 64 x 32 f32 tile in registers (4 x 4 per thread) and stages 32-deep
+// slices of A's panel and of the value block, widened, in shared memory by
+// plain loads between two barriers; the FMA union kernel keeps a 64 x 128
+// tile (4 x 8 per thread) and assembles each slot's RHS the same way,
+// element by element. A is re-read from L2 for every block of a column; the
+// FMA kernels are bound by their shared-memory traffic, not by device
+// memory. The compactor
 // moves bytes only (values read once, the compacted RHS written once) on
 // the bulk-copy engine where the blocks' rows are whole 16-byte units.
 
@@ -529,6 +536,363 @@ __global__ void __launch_bounds__(MM_THREADS, 2) bcsc_union_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// The scheduled, supertile and k-union SpMMs in f32 on TMA-fed FMA tiles
+// (route "tma_fma", kernels/spmm.py spmm_path: f32 operands whose blocks are
+// whole 16-byte units deep and wide, bk % 4 == 0 and bn % 4 == 0; the union
+// also at most SF_UNION_BOXES value blocks a group, bn >= 32). f32 means
+// f32: no TF32 and no bf16 split, every product and sum an f32 FMA, summed
+// in schedule order, rounded once on the store.
+//
+// Bound: at the streaming case in f32 (m = 32768, k = n = 1024, 199 blocks
+// of 32 x 32) the useful products are 13.35 GFLOP, 0.199 ms at the CUDA
+// cores' 67 TFLOP/s, against 0.08 ms for A, the values and C at 3.35 TB/s:
+// the operations bound the function. The union and supertile forms compute
+// 3.4x and 5.0x those products (the reference's algorithm). The kernels
+// take the f32 BRGEMM's design (gemm_kernels.cu, section 3c): one producer
+// warp keeps a ring of 32-deep slices in flight with TMA, paced by full and
+// empty mbarriers, so no consumer waits on a plain load; 256 consumer
+// threads each keep an 8 x 8 block of f32 accumulators, rows ty + TY i and
+// columns 4 tx + (TN / 2) h + (0..3), and per four k read one 16-byte unit
+// of A per row and two of the right-hand side per k: 16 shared loads for
+// 256 FMAs, four FMAs a float. A's slice lands 128-byte swizzled (unit c of
+// row r at c ^ (r % 8)), so the eight rows a warp reads at once fall in
+// distinct banks; the lanes that share a row read it as a broadcast. The
+// right-hand side lands unswizzled (dense rows of its box) and a warp reads
+// consecutive 16-byte units of one row. A slice past the end of a block
+// (bk % 32 != 0) or of A is zero-filled by TMA and its extra rows and
+// columns are never multiplied; the zero block (an empty block column's
+// step, a dead entry of a union slot) is loaded from rows past the value
+// map's extent, so TMA fills it with zeros and still counts its bytes:
+// nothing is read from the value store, and a non-finite A in the block row
+// still turns the column into NaN, as in the reference.
+//
+// Scheduled and supertile (bcsc_spmm_tma_fma_kernel): one block per output
+// tile of TM = 16384 / TN rows and TN columns (TN = 32, 64 or 128 by bn; a
+// wider block column is cut into TN-column chunks) walks its column's
+// schedule to the end, one writer per tile, no atomics. The grid's x runs
+// over the block columns, so the blocks that share A's row panel run
+// together and read it from L2 (A is 128 MB at the streaming case in f32).
+// At 32 x 32 blocks the tile is 512 x 32: a quarter warp's four column
+// threads read 64 contiguous bytes of the value slice, its two row groups
+// A's rows as broadcasts.
+//
+// K-union (bcsc_union_tma_fma_kernel): one block per 128 x 128 tile, one
+// row tile of one 128-column group, over the flattened list of (live slot,
+// 32-deep slice) of the group, found block-uniformly from the map as the
+// tensor-core kernel does (dead slots are skipped). A stage holds A's 128 x
+// 32 slice at column krows[slot] * bk + k0 and the slot's 32 x 128
+// right-hand side: in the fused form (union4, union4a, union4d, union5) W =
+// 128 / bn boxes of the value map, one per gather-map entry; in the
+// compacted form (union, union2, union3) one box of the compactor's RHS,
+// read after a programmatic launch's wait. The column restore through ocol
+// is folded into the store.
+// ---------------------------------------------------------------------------
+
+constexpr int SF_KC = 32;                       // depth of one slice
+constexpr int SF_CONSUMERS = 256;               // eight consumer warps
+constexpr int SF_THREADS = SF_CONSUMERS + 32;   // + the producer warp
+constexpr int SF_OUTS = 16384;                  // a tile: 8 x 8 a consumer
+constexpr int SF_BOX = 256;                     // TMA's largest box edge
+constexpr int SF_ALIGN = 1024;                  // slack to align the ring
+constexpr int SF_UNION_BOXES = 4;               // value blocks a group, at most
+constexpr int SF_SMEM_MAX = 232448;             // a block's on sm_90: 227 KB
+
+// the tile of TN output columns: TM rows, TX column threads, TY row threads
+// (consumer t: tx = t % TX, ty = t / TX), the stage's A slice and
+// right-hand side, the ring
+template <int TN>
+struct SfTile {
+  static constexpr int TM = SF_OUTS / TN;
+  static constexpr int TX = TN / 8;
+  static constexpr int TY = SF_CONSUMERS / TX;
+  static constexpr int A_BOX = TM < SF_BOX ? TM : SF_BOX;   // rows a box
+  static constexpr int A_BYTES = TM * SF_KC * 4;
+  static constexpr int B_BYTES = SF_KC * TN * 4;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int STAGES = TN == 32 ? 3 : 4;
+  static constexpr int SMEM = SF_ALIGN + STAGES * STAGE + 2 * STAGES * 8;
+  static_assert(TY * 8 == TM && TM % A_BOX == 0, "8 x 8 a consumer thread");
+  static_assert(SMEM <= SF_SMEM_MAX, "the ring fits 227 KB");
+};
+
+__device__ __forceinline__ float4 sf_ld(const unsigned char* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float sf_comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// k = 4c .. 4c + 3 of a slice into an 8 x 8 micro-tile: A's rows at `as`
+// + TY * 128 i (128-byte swizzled, phase sw), the right-hand side's two
+// column units at byte offsets b0 and b1 of each row of `bs` (row stride
+// ldb bytes)
+template <int TY>
+__device__ __forceinline__ void sf_chunk(float (&acc)[8][8],
+                                         const unsigned char* as,
+                                         const unsigned char* bs, int c,
+                                         int sw, int b0, int b1, int ldb) {
+  float4 av[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) av[i] = sf_ld(as + i * TY * 128 + 16 * (c ^ sw));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned char* br = bs + (4 * c + j) * ldb;
+    const float4 x = sf_ld(br + b0), y = sf_ld(br + b1);
+    const float bv[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float a_ = sf_comp(av[i], j);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(a_, bv[q], acc[i][q]);
+    }
+  }
+}
+
+// one slice, kc deep (kc % 4 == 0): the whole 32 unrolled, a shorter last
+// slice of a block in a loop
+template <int TY>
+__device__ __forceinline__ void sf_slice(float (&acc)[8][8],
+                                         const unsigned char* as,
+                                         const unsigned char* bs, int kc,
+                                         int sw, int b0, int b1, int ldb) {
+  if (kc == SF_KC) {
+#pragma unroll
+    for (int c = 0; c < SF_KC / 4; ++c)
+      sf_chunk<TY>(acc, as, bs, c, sw, b0, b1, ldb);
+  } else {
+#pragma unroll 1
+    for (int c = 0; c < kc / 4; ++c)
+      sf_chunk<TY>(acc, as, bs, c, sw, b0, b1, ldb);
+  }
+}
+
+// four consecutive outputs, rounded once to the output type
+__device__ __forceinline__ void store_quad(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_quad(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// the ring in dynamic shared memory, 1024-byte aligned (the swizzle is a
+// function of the shared address); its full and empty barriers after it
+__device__ __forceinline__ unsigned char* sf_ring(unsigned char* raw) {
+  return raw + ((SF_ALIGN - (wg_smem(raw) & (SF_ALIGN - 1))) & (SF_ALIGN - 1));
+}
+
+__device__ __forceinline__ void sf_init(uint64_t* full, uint64_t* empty,
+                                        int stages) {
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(&full[s], 1);                      // the producer's arrival
+    mbar_init(&empty[s], SF_CONSUMERS / 32);     // one per consumer warp
+  }
+  mbar_fence_init();
+}
+
+// Block (x, y): block column jb = x / nchunk, columns [c0, c0 + TN) of it
+// with c0 = (x % nchunk) TN, rows [TM y, TM y + TM). Iteration i covers
+// schedule step ptr[jb] + i / nsl, depth [32 (i % nsl), + 32) of its blocks.
+// amap: A over (k, m), boxes of 32 x A_BOX, 128-byte swizzle; vmap: the
+// values over (bn, nblocks bk), boxes of TN x 32, no swizzle; vzero: a row
+// of vmap past its extent (the zero block).
+template <typename TO, int TN>
+__global__ void __launch_bounds__(SF_THREADS, 1) bcsc_spmm_tma_fma_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap vmap, const int* __restrict__ ptr,
+    const int* __restrict__ rows, const int* __restrict__ vidx,
+    TO* __restrict__ out, int m, int n, int bk, int bn, int nzero,
+    int nchunk, int vzero) {
+  using T = SfTile<TN>;
+  extern __shared__ __align__(16) unsigned char sf_smem[];
+  unsigned char* ring = sf_ring(sf_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+
+  const int tid = threadIdx.x;
+  const int jb = blockIdx.x / nchunk;
+  const int c0 = (blockIdx.x % nchunk) * TN;
+  const int row0 = blockIdx.y * T::TM;
+  const int s0 = ptr[jb];
+  const int nsl = (bk + SF_KC - 1) / SF_KC;
+  const int total = (ptr[jb + 1] - s0) * nsl;
+
+  if (tid == 0) sf_init(full, empty, T::STAGES);
+  __syncthreads();
+
+  if (tid >= SF_CONSUMERS) {   // the producer warp: one thread starts TMA
+    if (tid == SF_CONSUMERS) {
+      for (int it = 0; it < total; ++it) {
+        const int st = it % T::STAGES;
+        if (it >= T::STAGES) mbar_wait(&empty[st], ((it / T::STAGES) - 1) & 1);
+        const int s = s0 + it / nsl, k0 = (it % nsl) * SF_KC;
+        const int v = vidx[s];
+        unsigned char* sp = ring + st * T::STAGE;
+        mbar_arrive_expect_tx(&full[st], T::STAGE);
+        const int ak = rows[s] * bk + k0;
+#pragma unroll
+        for (int b = 0; b < T::TM; b += T::A_BOX)
+          tma_load_2d(sp + b * 128, &amap, &full[st], ak, row0 + b);
+        tma_load_2d(sp + T::A_BYTES, &vmap, &full[st], c0,
+                    v == nzero ? vzero : v * bk + k0);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid & 31;
+  const int tx = tid % T::TX, ty = tid / T::TX;
+  const int sw = ty & 7;   // the swizzle phase of every row ty + TY i
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    const int st = it % T::STAGES;
+    mbar_wait(&full[st], (it / T::STAGES) & 1);
+    const int kc = min(SF_KC, bk - (it % nsl) * SF_KC);
+    const unsigned char* sp = ring + st * T::STAGE;
+    sf_slice<T::TY>(acc, sp + ty * 128, sp + T::A_BYTES, kc, sw, 16 * tx,
+                    16 * tx + 2 * TN, TN * 4);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // bn % 4 == 0: a four-column unit is whole or past the block column
+  const int width = min(TN, bn - c0);
+  TO* op = out + (long long)jb * bn + c0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gr = row0 + ty + T::TY * i;
+    if (gr >= m) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 4 * tx + (TN / 2) * h;
+      if (c < width) store_quad(op + (long long)gr * n + c, &acc[i][4 * h]);
+    }
+  }
+}
+
+// Block (x, y): column group grp = x, rows [128 y, 128 y + 128). amap as
+// above (128-row boxes); rmap: the fused form's values over (bn, nblocks
+// bk), boxes of bn x 32, or the compacted RHS over (128, n/128 U bk), boxes
+// of 128 x 32, no swizzle; vzero as above.
+template <typename TO, bool COMPACT>
+__global__ void __launch_bounds__(SF_THREADS, 1) bcsc_union_tma_fma_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap rmap, const int* __restrict__ krows,
+    const int* __restrict__ gmap, const int* __restrict__ ocol,
+    TO* __restrict__ out, int m, int n, int bk, int bn, int U, int nzero,
+    int vzero) {
+  using T = SfTile<GW>;
+  extern __shared__ __align__(16) unsigned char sf_smem[];
+  unsigned char* ring = sf_ring(sf_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+
+  const int tid = threadIdx.x;
+  const int grp = blockIdx.x;
+  const int row0 = blockIdx.y * T::TM;
+  const int W = GW / bn;
+  const int nsl = (bk + SF_KC - 1) / SF_KC;
+  const long long slot0 = (long long)grp * U;
+  const int* gm = gmap + slot0 * W;
+  // a slot whose W map entries are all the zero block is padding
+  auto live = [&](int u) {
+    for (int w = 0; w < W; ++w)
+      if (gm[u * W + w] != nzero) return true;
+    return false;
+  };
+  int nlive = 0;   // the threads test the slots in parallel
+  for (int u0 = 0; u0 < U; u0 += SF_THREADS)
+    nlive += __syncthreads_count(u0 + tid < U && live(u0 + tid));
+  const int total = nlive * nsl;
+
+  if (tid == 0) sf_init(full, empty, T::STAGES);
+  __syncthreads();
+  // the compacted RHS is the compactor's output: with a programmatic
+  // launch this block may start before the compactor ends
+  if constexpr (COMPACT) pdl_wait();
+
+  if (tid >= SF_CONSUMERS) {   // the producer warp: one thread starts TMA
+    if (tid == SF_CONSUMERS) {
+      int pu = 0, pk = 0;      // the next slice: pk of live slot pu
+      while (pu < U && !live(pu)) ++pu;
+      for (int it = 0; it < total; ++it) {
+        const int st = it % T::STAGES;
+        if (it >= T::STAGES) mbar_wait(&empty[st], ((it / T::STAGES) - 1) & 1);
+        const long long slot = slot0 + pu;
+        const int k0 = pk * SF_KC;
+        unsigned char* sp = ring + st * T::STAGE;
+        mbar_arrive_expect_tx(&full[st], T::STAGE);
+        tma_load_2d(sp, &amap, &full[st], krows[slot] * bk + k0, row0);
+        if constexpr (COMPACT) {
+          tma_load_2d(sp + T::A_BYTES, &rmap, &full[st], 0,
+                      (int)(slot * bk) + k0);
+        } else {
+          for (int w = 0; w < W; ++w) {
+            const int v = gm[pu * W + w];
+            tma_load_2d(sp + T::A_BYTES + w * bn * 128, &rmap, &full[st], 0,
+                        v == nzero ? vzero : v * bk + k0);
+          }
+        }
+        if (++pk == nsl) {
+          pk = 0;
+          do ++pu; while (pu < U && !live(pu));
+        }
+      }
+    }
+    return;
+  }
+
+  const int lane = tid & 31;
+  const int tx = tid % T::TX, ty = tid / T::TX;
+  const int sw = ty & 7;
+  // group column c lies in box c / lw at byte (c / lw) lw 128 + (c % lw) 4
+  // of a row; the RHS's rows are lw floats apart
+  const int lw = COMPACT ? GW : bn;
+  const int c0 = 4 * tx, c1 = 4 * tx + GW / 2;
+  const int b0 = (c0 / lw) * lw * 128 + (c0 % lw) * 4;
+  const int b1 = (c1 / lw) * lw * 128 + (c1 % lw) * 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    const int st = it % T::STAGES;
+    mbar_wait(&full[st], (it / T::STAGES) & 1);
+    const int kc = min(SF_KC, bk - (it % nsl) * SF_KC);
+    const unsigned char* sp = ring + st * T::STAGE;
+    sf_slice<T::TY>(acc, sp + ty * 128, sp + T::A_BYTES, kc, sw, b0, b1,
+                    lw * 4);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // group column c holds the caller's column ocol[grp W + c / bn] bn + c %
+  // bn; bn % 4 == 0, so a four-column unit never straddles two block columns
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = h ? c1 : c0;
+    const long long col = (long long)ocol[grp * W + c / bn] * bn + c % bn;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int gr = row0 + ty + T::TY * i;
+      if (gr < m) store_quad(out + (long long)gr * n + col, &acc[i][4 * h]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Union RHS compactor (build_union_compact_rhs): out (n/128, U*bk, 128) from
 // the gather map (n/128, U, W) of value indices, out[g, u bk + r, w bn + c]
 // = vals[gmap[g, u, w], r, c] (nzero: zeros, so pad slots hold zeros and
@@ -885,6 +1249,111 @@ static int launch_union(const void* a, const void* vals, const int* krows,
                     U, nzero);
 }
 
+// the ring's maps: A (m, k) f32 in boxes of 32 columns x `rows` rows,
+// 128-byte swizzled; a (rows, cols) f32 right-hand side in boxes of `bw`
+// columns x 32 rows, unswizzled (dense rows of the box)
+static bool sf_amap(CUtensorMap* map, const void* a, int m, int k, int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * 4};
+  const cuuint32_t box[2] = {SF_KC, (cuuint32_t)rows};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a, 2, dims,
+                    strides, box);
+}
+
+static bool sf_rmap(CUtensorMap* map, const void* base, long long rows,
+                    int cols, int bw) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)bw, SF_KC};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 2, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// rows of the value map: the store's nzero blocks of bk rows (an empty
+// store: one row of A's memory, never read in bounds); the zero block is
+// loaded at this row, past the extent
+static long long sf_value_rows(int nzero, int bk) {
+  return nzero > 0 ? (long long)nzero * bk : 1;
+}
+
+// the TMA-fed FMA kernel at one column width TN (32, 64 or 128); a, vals
+// 16-byte aligned, k % 4 == 0 and bn % 4 == 0
+template <typename TO, int TN>
+static int launch_spmm_tma_fma_tn(const void* a, const void* vals,
+                                  const int* ptr, const int* rows,
+                                  const int* vidx, void* out, int m, int k,
+                                  int n, int bk, int bn, int nzero,
+                                  cudaStream_t st) {
+  using T = SfTile<TN>;
+  const int nchunk = (bn + TN - 1) / TN;
+  const long long gx = (long long)(n / bn) * nchunk;
+  const long long gy = (m + T::TM - 1) / T::TM;
+  const long long vrows = sf_value_rows(nzero, bk);
+  if (gx > 2147483647LL || gy > 65535 || vrows > 2147483647LL - SF_KC)
+    return cudaErrorInvalidConfiguration;
+  CUtensorMap amap, vmap;
+  if (!sf_amap(&amap, a, m, k, T::A_BOX) ||
+      !sf_rmap(&vmap, nzero > 0 ? vals : a, vrows, bn, TN))
+    return cudaErrorInvalidValue;
+  auto kern = bcsc_spmm_tma_fma_kernel<TO, TN>;
+  // above 48 KB only as dynamic shared memory, after the opt-in
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  note_launch(kern);
+  kern<<<dim3((unsigned)gx, (unsigned)gy), SF_THREADS, T::SMEM, st>>>(
+      amap, vmap, ptr, rows, vidx, static_cast<TO*>(out), m, n, bk, bn,
+      nzero, nchunk, (int)vrows);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+static int launch_spmm_tma_fma(const void* a, const void* vals,
+                               const int* ptr, const int* rows,
+                               const int* vidx, void* out, int m, int k,
+                               int n, int bk, int bn, int nzero,
+                               cudaStream_t st) {
+  if (bn <= 32)
+    return launch_spmm_tma_fma_tn<TO, 32>(a, vals, ptr, rows, vidx, out, m,
+                                          k, n, bk, bn, nzero, st);
+  if (bn <= 64)
+    return launch_spmm_tma_fma_tn<TO, 64>(a, vals, ptr, rows, vidx, out, m,
+                                          k, n, bk, bn, nzero, st);
+  return launch_spmm_tma_fma_tn<TO, 128>(a, vals, ptr, rows, vidx, out, m, k,
+                                         n, bk, bn, nzero, st);
+}
+
+// the TMA-fed FMA union kernel; its compacted form runs right after the
+// compactor and is launched programmatically, its RHS map over the
+// compactor's (n/128, U*bk, 128) output
+template <typename TO>
+static int launch_union_tma_fma(const void* a, const void* vals,
+                                const int* krows, const int* gmap,
+                                const int* ocol, void* out, int m, int k,
+                                int n, int bk, int bn, int U, int nzero,
+                                bool compact, cudaStream_t st) {
+  using T = SfTile<GW>;
+  const long long gy = (m + T::TM - 1) / T::TM;
+  const long long vrows = compact ? (long long)(n / GW) * U * bk
+                                  : sf_value_rows(nzero, bk);
+  if (gy > 65535 || vrows > 2147483647LL - SF_KC)
+    return cudaErrorInvalidConfiguration;
+  CUtensorMap amap, rmap;
+  const int lw = compact ? GW : bn;
+  if (!sf_amap(&amap, a, m, k, T::TM) ||
+      !sf_rmap(&rmap, compact || nzero > 0 ? vals : a, vrows, lw, lw))
+    return cudaErrorInvalidValue;
+  auto kern = compact ? bcsc_union_tma_fma_kernel<TO, true>
+                      : bcsc_union_tma_fma_kernel<TO, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  return launch_pdl(kern, dim3(n / GW, (unsigned)gy), SF_THREADS, T::SMEM,
+                    st, compact, amap, rmap, krows, gmap, ocol,
+                    static_cast<TO*>(out), m, n, bk, bn, U, nzero,
+                    (int)vrows);
+}
+
 static int ilog2(int x) { return 31 - __builtin_clz((unsigned)x); }
 
 // the compactor's route (kernels/spmm.py compact_route mirrors it)
@@ -987,6 +1456,22 @@ static int launch_densify(const void* vals, const int* gmap, void* out,
     return LAUNCH<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);             \
   return cudaErrorInvalidValue;
 
+// the routes of the three SpMM entries
+enum { SP_FMA, SP_MMA, SP_TMA_FMA };
+
+// the kernel a call takes (kernels/spmm.py spmm_path mirrors it): the
+// tensor-core kernel for bf16 tiles whose depth is whole k16 steps and whose
+// rows are whole 16-byte units; the TMA-fed FMA kernel for f32 blocks whose rows and depth are whole 16-byte units (TMA's
+// strides), in the union at most SF_UNION_BOXES value blocks a group; the
+// FMA kernel for the rest
+static int spmm_route(int in_type, int bk, int bn, bool uni) {
+  if (in_type == T_BF16 && bk % 16 == 0 && bn % 8 == 0) return SP_MMA;
+  if (in_type == T_F32 && bk % 4 == 0 && bn % 4 == 0 &&
+      (!uni || GW / bn <= SF_UNION_BOXES))
+    return SP_TMA_FMA;
+  return SP_FMA;
+}
+
 static int spmm_entry(const void* a, const void* vals, const int* ptr,
                       const int* rows, const int* vidx, void* out, int m,
                       int k, int n, int bk, int bn, int nzero, int in_type,
@@ -995,15 +1480,24 @@ static int spmm_entry(const void* a, const void* vals, const int* ptr,
   if (m < 0 || k <= 0 || n < 0 || bk <= 0 || bn <= 0 || k % bk || n % bn)
     return cudaErrorInvalidValue;
   if (m == 0 || n == 0) return cudaSuccess;
-  // the tensor-core kernel for bf16 tiles whose depth is whole k16 steps and
-  // whose rows are whole 16-byte units (kernels/spmm.py spmm_path)
-  if (in_type == T_BF16 && bk % 16 == 0 && bn % 8 == 0) {
+  const int route = spmm_route(in_type, bk, bn, false);
+  if (route == SP_MMA) {
     if (out_type == T_F32)
       return launch_spmm_mma<float>(a, vals, ptr, rows, vidx, out, m, k, n,
                                     bk, bn, nzero, st);
     if (out_type == T_BF16)
       return launch_spmm_mma<__nv_bfloat16>(a, vals, ptr, rows, vidx, out, m,
                                             k, n, bk, bn, nzero, st);
+    return cudaErrorInvalidValue;
+  }
+  if (route == SP_TMA_FMA) {
+    if (out_type == T_F32)
+      return launch_spmm_tma_fma<float>(a, vals, ptr, rows, vidx, out, m, k,
+                                        n, bk, bn, nzero, st);
+    if (out_type == T_BF16)
+      return launch_spmm_tma_fma<__nv_bfloat16>(a, vals, ptr, rows, vidx,
+                                                out, m, k, n, bk, bn, nzero,
+                                                st);
     return cudaErrorInvalidValue;
   }
   XSMM_SPMM_DISPATCH(launch_spmm, a, vals, ptr, rows, vidx, out, m, k, n, bk,
@@ -1051,14 +1545,23 @@ static int union_entry(const void* a, const void* vals, const int* krows,
   if (!union_args_ok(m, k, n, bk, bn, U, in_type, out_type))
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  // the tensor-core kernel by spmm_entry's rule (kernels/spmm.py spmm_path)
-  if (in_type == T_BF16 && bk % 16 == 0 && bn % 8 == 0) {
+  // the route by spmm_entry's rule (kernels/spmm.py spmm_path)
+  const int route = spmm_route(in_type, bk, bn, true);
+  if (route == SP_MMA) {
     if (out_type == T_F32)
       return launch_union_mma<float>(a, vals, krows, gmap, ocol, out, m, k, n,
                                      bk, bn, U, nzero, compact, st);
     return launch_union_mma<__nv_bfloat16>(a, vals, krows, gmap, ocol, out, m,
                                            k, n, bk, bn, U, nzero, compact,
                                            st);
+  }
+  if (route == SP_TMA_FMA) {
+    if (out_type == T_F32)
+      return launch_union_tma_fma<float>(a, vals, krows, gmap, ocol, out, m,
+                                         k, n, bk, bn, U, nzero, compact, st);
+    return launch_union_tma_fma<__nv_bfloat16>(a, vals, krows, gmap, ocol,
+                                               out, m, k, n, bk, bn, U, nzero,
+                                               compact, st);
   }
   XSMM_SPMM_DISPATCH(launch_union, a, vals, krows, gmap, ocol, out, m, k, n,
                      bk, bn, U, nzero, compact, st)

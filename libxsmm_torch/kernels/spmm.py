@@ -32,13 +32,18 @@ The port of `libxsmm_tpu/kernels/spmm_pallas.py`: the schedule helpers
 * build_bcsc_spmm_super — strategy "super": the scheduled kernel over the
   occupied 128 x 128 supertiles.
 
-The scheduled, supertile and union strategies run on the bf16 tensor
-cores wherever the operands are bf16 and the blocks are whole k16 steps
-deep and whole 16-byte units wide (bk % 16 == 0, bn % 8 == 0: 32 x 32,
-16 x 64, 64 x 128, 16 x 8, the 128 x 128 supertiles); every other case, f32
-operands among them, runs the f32 FMA kernel. `spmm_path` names the kernel
-a call takes, as csrc spmm_entry and union_entry choose it; there is no
-fallback between the two.
+The scheduled, supertile and union strategies run on one of three CUDA
+kernels, the route (`spmm_path`, as csrc spmm_route takes it): "mma", the
+bf16 tensor cores, wherever the operands are bf16 and the blocks are whole
+k16 steps deep and whole 16-byte units wide (bk % 16 == 0, bn % 8 == 0:
+32 x 32, 16 x 64, 64 x 128, 16 x 8, the 128 x 128 supertiles); "tma_fma",
+f32 tiles fed by TMA into the CUDA cores' FMAs (f32 means f32, no TF32),
+wherever the operands are f32 and the blocks' rows and depth are whole
+16-byte units (bk % 4 == 0, bn % 4 == 0; the union also bn >= 32, at most
+four value blocks a stage); "fma", the FMA kernel with its own loads, for
+every other case. The route follows from the shape alone and is fixed
+at create time (`.path`); there is no fallback between the kernels: a
+build or launch that fails raises.
 
 Every builder makes its plan (schedule, unions, gather maps) once, in numpy,
 and puts it on `device`; a call never re-uploads it. Calling the returned
@@ -74,14 +79,21 @@ from .gemm import (_aligned16, _check, _num_sms, _on_cuda, _on_device, _ptr,
 # they launch their CUDA kernel, and nowhere else
 launches = {"bcsc_spmm": 0, "bcsc_spmm_union": 0, "bcsc_densify": 0,
             "bcsc_spmm_super": 0, "bcsc_union_compact": 0}
+# the SpMM kernels' launches split by the route that served them
+# (spmm_path)
+ROUTES = ("mma", "tma_fma", "fma")
+path_launches = {name: {r: 0 for r in ROUTES}
+                 for name in ("bcsc_spmm", "bcsc_spmm_super",
+                              "bcsc_spmm_union")}
 # the source behind each counter and the CUDA kernels its launches run, by
 # name (lowering.py files each logged entry under its counter)
-ENTRIES = {"bcsc_spmm": ("spmm_kernels", ("bcsc_spmm_kernel",
-                                           "bcsc_spmm_mma_kernel")),
-           "bcsc_spmm_super": ("spmm_kernels", ("bcsc_spmm_kernel",
-                                                 "bcsc_spmm_mma_kernel")),
+_SCHEDULED = ("bcsc_spmm_kernel", "bcsc_spmm_mma_kernel",
+              "bcsc_spmm_tma_fma_kernel")
+ENTRIES = {"bcsc_spmm": ("spmm_kernels", _SCHEDULED),
+           "bcsc_spmm_super": ("spmm_kernels", _SCHEDULED),
            "bcsc_spmm_union": ("spmm_kernels", ("bcsc_union_kernel",
-                                                 "bcsc_union_mma_kernel")),
+                                                 "bcsc_union_mma_kernel",
+                                                 "bcsc_union_tma_fma_kernel")),
            "bcsc_union_compact": ("spmm_kernels", (
                "bcsc_union_compact_bulk_kernel",
                "bcsc_union_compact_kernel")),
@@ -91,11 +103,16 @@ ENTRIES = {"bcsc_spmm": ("spmm_kernels", ("bcsc_spmm_kernel",
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for counts in path_launches.values():
+        for route in counts:
+            counts[route] = 0
 
 
 GROUP = 128          # output columns per union group (csrc GW)
 SUPER = 128          # supertile edge
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_UNION_BOXES = 4     # value blocks a tma_fma union stage, at most (csrc
+                     # SF_UNION_BOXES)
 # operand types of the SpMM kernels; f64 and integers are refused, as the
 # reference's builders refuse them (spmm_pallas.py:100, :322, :958)
 _SPMM_TYPES = (Datatype.F32, Datatype.BF16)
@@ -127,15 +144,24 @@ def _kernels() -> ctypes.CDLL:
     return _lib
 
 
-def spmm_path(in_dtype: torch.dtype, bk: int, bn: int) -> str:
-    """The kernel that serves the scheduled, supertile and union SpMM (csrc
-    spmm_entry, union_entry): "mma", the bf16 tensor-core kernel, for bf16
+def spmm_path(in_dtype: torch.dtype, bk: int, bn: int,
+              union: bool = False) -> str:
+    """The kernel that serves the scheduled, supertile and (`union`) k-union
+    SpMM (csrc spmm_route): "mma", the bf16 tensor-core kernel, for bf16
     operands whose blocks are whole k16 steps deep (bk % 16 == 0) and whole
-    16-byte units wide (bn % 8 == 0); "fma", the f32 FMA kernel, for every
-    other case (f32 operands, f32 meaning f32; blockings such as 8 x 8 or
-    4 x 48)."""
+    16-byte units wide (bn % 8 == 0);
+    "tma_fma", the f32 kernel on TMA-fed FMA tiles, for f32 operands whose
+    blocks' rows and depth are whole 16-byte units (bk % 4 == 0, bn % 4 ==
+    0: TMA's strides; f32 means f32, no TF32) and, in the union, at most
+    four value blocks a 128-column group (bn >= 32: each is one box of a
+    stage, read without bank conflicts); "fma", the FMA kernel with its own
+    loads, for every other case (blockings such as 8 x 8 or 4 x 48 in bf16,
+    2 x 2 in f32)."""
     if in_dtype == torch.bfloat16 and bk % 16 == 0 and bn % 8 == 0:
         return "mma"
+    if (in_dtype == torch.float32 and bk % 4 == 0 and bn % 4 == 0
+            and (not union or GROUP // bn <= _UNION_BOXES)):
+        return "tma_fma"
     return "fma"
 
 
@@ -217,12 +243,13 @@ class _SpmmKernel:
 
     counter = ""
 
-    def __init__(self, shape: GemmShape, bk: int, bn: int, nblocks: int):
+    def __init__(self, shape: GemmShape, bk: int, bn: int, nblocks: int,
+                 union: bool = False):
         self.m, self.n, self.k = shape.m, shape.n, shape.k
         self.bk, self.bn = bk, bn
         self.nblocks = nblocks
         self.in_dt, self.kout_dt, self.out_dt = _spmm_dtypes(shape)
-        self.path = spmm_path(self.in_dt, bk, bn)
+        self.path = spmm_path(self.in_dt, bk, bn, union)
 
     def _operands(self, a, values):
         if (a.shape != (self.m, self.k)
@@ -251,6 +278,7 @@ class _SpmmKernel:
             err = self._launch(lib, a, values, out)
         _raise_on_error(err, self.name, lib)
         launches[self.counter] += 1
+        path_launches[self.counter][self.path] += 1
         return out if self.kout_dt == self.out_dt else out.to(self.out_dt)
 
 
@@ -518,7 +546,7 @@ class BcscSpmmUnion(_SpmmKernel):
     def __init__(self, shape: GemmShape, bk: int, bn: int,
                  krows: np.ndarray, gmap: np.ndarray, ocol: np.ndarray,
                  nblocks: int, clustered: bool, device, compact: bool = False):
-        super().__init__(shape, bk, bn, nblocks)
+        super().__init__(shape, bk, bn, nblocks, union=True)
         self.nsg, self.U, self.W = gmap.shape
         self.union_panels = self.U      # introspection for tests and logs
         self.clustered = clustered

@@ -15,7 +15,10 @@ densify kernel, the union RHS compactor, empty block columns and empty
 patterns exact. bf16 operands at blockings of whole k16 steps and 16-byte
 rows (32 x 32, 16 x 64, 128 x 128; for the union also 64 x 128 and 16 x 8)
 run the tensor-core kernels, at the same margins: their bf16 products are
-exact in the f32 accumulator.
+exact in the f32 accumulator. f32 operands at blockings of whole 16-byte
+units run the TMA-fed FMA kernels ("tma_fma"; the union at bn >= 32), at
+the same margins; TF32 stays off. The FMA kernels ("fma") are held at the
+blockings the rule sends to them.
 """
 
 import numpy as np
@@ -605,6 +608,286 @@ def test_bcsc_spmm_union_mma_nan_in_block_row_0(gen, bk, bn, form):
     keep_ = ~torch.isnan(want)
     check(want[keep_].double().cpu().numpy(),
           got[keep_].double().cpu().numpy(), margin=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the f32 route on TMA-fed FMA tiles ("tma_fma"), and the FMA kernels
+# ("fma") at the blockings the rule sends to them
+# ---------------------------------------------------------------------------
+
+
+def on_route(name, route, fn, *args):
+    """fn(*args), which must launch `name` once, on `route` alone."""
+    before = dict(pk.path_launches[name])
+    out = launched(name, fn, *args)
+    after = pk.path_launches[name]
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    return out
+
+
+def test_tf32_is_off(gen):
+    """f32 means f32 here: the module turns TF32 off for the plain
+    versions' matmuls, and nothing turns it back on."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("m", [1, 37, 200, 32768])
+@pytest.mark.parametrize("bk,bn", MMA_BLOCKINGS)
+def test_bcsc_spmm_tma_fma(gen, bk, bn, m, o_dt):
+    """The f32 scheduled kernel at the tensor-core tests' blockings and m:
+    ragged and streaming m, an empty block column (its zero-block step
+    multiplied), both output types."""
+    k, n = 512, 384
+    indptr, indices = pattern(k, n, bk, bn, 0.3, seed=m + bk,
+                              empty_cols=(1,))
+    fn = pk.build_bcsc_spmm(GemmShape(m, n, k, F32, F32, o_dt),
+                            SpgemmConfig(1, bk, bn), indptr, indices, "cuda")
+    assert fn.path == "tma_fma"
+    a, v = rand(gen, (m, k)), rand(gen, (len(indices), bk, bn))
+    got = on_route("bcsc_spmm", "tma_fma", fn, a, v)
+    same(fn.plain(a, v), got, tol(F32, o_dt))
+    assert bool((got[:, bn:2 * bn] == 0).all())
+
+
+@pytest.mark.parametrize("m,k,n,bk,bn", [
+    (77, 384, 256, 48, 32), (65, 96, 64, 12, 8), (130, 256, 320, 16, 80),
+    (40, 256, 512, 32, 256)])
+def test_bcsc_spmm_tma_fma_blockings(gen, m, k, n, bk, bn):
+    """Blocks deeper than a slice and not a whole number of them (48),
+    shallower ones (12, 16), narrower than a tile (8) and wider (80: a
+    64-column chunk, columns past bn zero-filled; 256: two chunks)."""
+    indptr, indices = pattern(k, n, bk, bn, 0.4, seed=bk * bn,
+                              empty_cols=(0,))
+    fn = pk.build_bcsc_spmm(GemmShape(m, n, k), SpgemmConfig(1, bk, bn),
+                            indptr, indices, "cuda")
+    a, v = rand(gen, (m, k)), rand(gen, (len(indices), bk, bn))
+    got = on_route("bcsc_spmm", "tma_fma", fn, a, v)
+    same(fn.plain(a, v), got, 1e-5)
+    assert bool((got[:, :bn] == 0).all())
+
+
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("m", [37, 32768])
+def test_bcsc_spmm_super_tma_fma(gen, m, o_dt):
+    k, n = 512, 384
+    indptr, indices = pattern(k, n, 128, 128, 0.6, seed=m, empty_cols=(2,))
+    fn = pk.build_bcsc_spmm_super(GemmShape(m, n, k, F32, F32, o_dt),
+                                  indptr, indices, "cuda")
+    assert fn.path == "tma_fma"
+    a, sup = rand(gen, (m, k)), rand(gen, (len(indices), 128, 128))
+    got = on_route("bcsc_spmm_super", "tma_fma", fn, a, sup)
+    same(fn.plain(a, sup), got, tol(F32, o_dt))
+    assert bool((got[:, 256:] == 0).all())
+
+
+@pytest.mark.parametrize("bk,bn", MMA_BLOCKINGS)
+def test_bcsc_spmm_tma_fma_nan_in_block_row_0(gen, bk, bn):
+    """An empty block column multiplies A's block row 0 by the zero block:
+    a NaN there gives NaN, as the plain version and the reference."""
+    m, k, n = 70, 256, 256
+    indptr, indices = pattern(k, n, bk, bn, 0.4, seed=bk, empty_cols=(0,))
+    fn = pk.build_bcsc_spmm(GemmShape(m, n, k), SpgemmConfig(1, bk, bn),
+                            indptr, indices, "cuda")
+    a, v = rand(gen, (m, k)), rand(gen, (len(indices), bk, bn))
+    a[5, 3] = float("nan")
+    got = on_route("bcsc_spmm", "tma_fma", fn, a, v)
+    want = fn.plain(a, v)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[5, :bn]).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    check(want[keep].double().cpu().numpy(), got[keep].double().cpu().numpy(),
+          margin=1e-5)
+    assert bool((got[torch.arange(m, device="cuda") != 5, :bn] == 0).all())
+
+
+def test_bcsc_spmm_tma_fma_empty_store(gen):
+    """A pattern with no block: every column is one zero-block step, read
+    from past the value map's extent (a map over A's memory), never from
+    the empty store."""
+    m, k, n = 50, 128, 256
+    indptr = np.zeros(n // 32 + 1, np.int32)
+    fn = pk.build_bcsc_spmm(GemmShape(m, n, k), SpgemmConfig(1, 32, 32),
+                            indptr, np.zeros(0, np.int32), "cuda")
+    assert fn.path == "tma_fma"
+    got = on_route("bcsc_spmm", "tma_fma", fn, rand(gen, (m, k)),
+                   torch.zeros(0, 32, 32, device="cuda"))
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("union", [False, True])
+def test_bcsc_spmm_tma_fma_deterministic(gen, union):
+    """One writer per output tile, no atomics: two runs bit for bit."""
+    indptr, indices = pattern(512, 384, 32, 32, 0.3, seed=4)
+    cfg = SpgemmConfig(1, 32, 32)
+    build = pk.build_bcsc_spmm_union if union else pk.build_bcsc_spmm
+    fn = build(GemmShape(3000, 384, 512), cfg, indptr, indices, "cuda")
+    assert fn.path == "tma_fma"
+    a, v = rand(gen, (3000, 512)), rand(gen, (len(indices), 32, 32))
+    x, y = fn(a, v), fn(a, v)
+    torch.cuda.synchronize()
+    assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("form", list(FORMS) + ["scheduled"])
+def test_bcsc_spmm_tma_fma_offset_view(gen, form):
+    """A and the values 4 and 8 bytes past a 16-byte boundary: copied into
+    fresh tensors first, and still the tma_fma kernel."""
+    m, k, n, bk, bn = 100, 256, 256, 32, 32
+    indptr, indices = pattern(k, n, bk, bn, 0.4, seed=9)
+    cfg = SpgemmConfig(1, bk, bn)
+    if form == "scheduled":
+        fn, name = pk.build_bcsc_spmm(GemmShape(m, n, k), cfg, indptr,
+                                      indices, "cuda"), "bcsc_spmm"
+    else:
+        fn, name = pk.build_bcsc_spmm_union(
+            GemmShape(m, n, k), cfg, indptr, indices, "cuda",
+            compact=FORMS[form]), "bcsc_spmm_union"
+    a = rand(gen, (m * k + 1,))[1:].view(m, k)
+    v = rand(gen, (len(indices) * bk * bn + 2,))[2:].view(len(indices), bk,
+                                                          bn)
+    assert a.data_ptr() % 16 == 4 and v.data_ptr() % 16 == 8
+    same(fn.plain(a, v), on_route(name, "tma_fma", fn, a, v), 1e-5)
+
+
+# the union's tma_fma blockings (bn >= 32: at most four value blocks a
+# group), a slice-deep and a shallower and deeper block among them
+UNION_TMA_BLOCKINGS = [(32, 32), (16, 64), (64, 128), (48, 32), (12, 64)]
+
+
+def union_f32(gen, m, k, n, bk, bn, o_dt, form, seed, **kw):
+    """An f32 union plan on the card in one form, on tma_fma, with block
+    group 0 empty, and its operands."""
+    indptr, indices = pattern(k, n, bk, bn, 0.3, seed=seed,
+                              empty_cols=range(128 // bn))
+    fn = pk.build_bcsc_spmm_union(GemmShape(m, n, k, F32, F32, o_dt),
+                                  SpgemmConfig(1, bk, bn), indptr, indices,
+                                  "cuda", compact=FORMS[form], **kw)
+    assert fn.path == "tma_fma"
+    return fn, rand(gen, (m, k)), rand(gen, (len(indices), bk, bn))
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("m", [1, 37, 200, 32768])
+@pytest.mark.parametrize("bk,bn", UNION_TMA_BLOCKINGS)
+def test_bcsc_spmm_union_tma_fma(gen, bk, bn, m, o_dt, form):
+    """The f32 union at every blocking the route takes, both forms, ragged
+    and streaming m, an empty group (all slots dead: zeros), both output
+    types."""
+    fn, a, v = union_f32(gen, m, 384, 384, bk, bn, o_dt, form, m + bk)
+    got = on_route("bcsc_spmm_union", "tma_fma", fn, a, v)
+    same(fn.plain(a, v), got, tol(F32, o_dt))
+    assert bool((got[:, :128] == 0).all())
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("u_align", [4, 12])
+def test_bcsc_spmm_union_tma_fma_pad_slots(gen, u_align, form):
+    """u_align pads each group's union with dead slots (12: the full depth
+    at k = 384, union4d); they are skipped, block-uniformly."""
+    fn, a, v = union_f32(gen, 100, 384, 384, 32, 32, F32, form, u_align,
+                         u_align=u_align)
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", "tma_fma", fn, a, v),
+         1e-5)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+def test_bcsc_spmm_union_tma_fma_clustered(gen, o_dt, form):
+    """bench.py's two-family pattern in f32: clustered (the H100 gate is 3
+    panels for f32 in), the column restore folded into the store."""
+    indptr, indices = cluster_pattern()
+    fn = pk.build_bcsc_spmm_union(GemmShape(96, 1024, 2048, F32, F32, o_dt),
+                                  SpgemmConfig(1, 32, 32), indptr, indices,
+                                  "cuda", compact=FORMS[form])
+    assert fn.path == "tma_fma" and fn.clustered
+    a, v = rand(gen, (96, 2048)), rand(gen, (len(indices), 32, 32))
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", "tma_fma", fn, a, v),
+         tol(F32, o_dt))
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_bcsc_spmm_union_tma_fma_nan_in_block_row_0(gen, form):
+    """A NaN in A's block row 0 read by a live slot of group 1: NaN across
+    that group's row (the slot's dead blocks, zero-filled, are multiplied),
+    as the plain version; groups whose unions lack block row 0 stay
+    finite (their pad slots are skipped)."""
+    m, k, n, bk, bn = 70, 256, 384, 32, 32
+    indptr, indices = pattern(k, n, bk, bn, 0.3, seed=bk,
+                              empty_cols=range(128 // bn))
+    keep = np.zeros((n // bn, k // bk), bool)
+    for j, (s0, s1) in enumerate(zip(indptr[:-1], indptr[1:])):
+        keep[j, indices[s0:s1]] = True
+    keep[128 // bn, 0] = True
+    keep[256 // bn:, 0] = False
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))]).astype(
+        np.int32)
+    indices = np.nonzero(keep)[1].astype(np.int32)
+    fn = pk.build_bcsc_spmm_union(GemmShape(m, n, k), SpgemmConfig(1, bk, bn),
+                                  indptr, indices, "cuda", cluster=False,
+                                  compact=FORMS[form])
+    a, v = rand(gen, (m, k)), rand(gen, (len(indices), bk, bn))
+    a[5, 3] = float("nan")
+    got = on_route("bcsc_spmm_union", "tma_fma", fn, a, v)
+    want = fn.plain(a, v)
+    torch.cuda.synchronize()
+    nan = torch.zeros_like(got, dtype=torch.bool)
+    nan[5, 128:256] = True
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(torch.isnan(want[5, 128:256]).all())
+    keep_ = ~torch.isnan(want)
+    check(want[keep_].double().cpu().numpy(),
+          got[keep_].double().cpu().numpy(), margin=1e-5)
+
+
+# blockings the rule leaves to the FMA kernels: f32 blocks whose depth or
+# rows are not whole 16-byte units, bf16 blocks that are not whole k16 steps
+FMA_BLOCKINGS = [(F32, 6, 32), (F32, 2, 2), (F32, 32, 30), (BF16, 8, 8),
+                 (BF16, 4, 48)]
+
+
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("m", [1, 37, 200, 32768])
+@pytest.mark.parametrize("a_dt,bk,bn", FMA_BLOCKINGS)
+def test_bcsc_spmm_fma_route(gen, a_dt, bk, bn, m, o_dt):
+    """The scheduled FMA kernel where the rule sends it, at the tma_fma
+    tests' m: ragged and streaming m, an empty block column."""
+    k, n = 192, 480
+    indptr, indices = pattern(k, n, bk, bn, 0.3, seed=m + bk,
+                              empty_cols=(1,))
+    fn = pk.build_bcsc_spmm(GemmShape(m, n, k, a_dt, a_dt, o_dt),
+                            SpgemmConfig(1, bk, bn), indptr, indices, "cuda")
+    assert fn.path == "fma"
+    a, v = rand(gen, (m, k), a_dt), rand(gen, (len(indices), bk, bn), a_dt)
+    got = on_route("bcsc_spmm", "fma", fn, a, v)
+    same(fn.plain(a, v), got, tol(a_dt, o_dt))
+    assert bool((got[:, bn:2 * bn] == 0).all())
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("m", [1, 37, 32768])
+@pytest.mark.parametrize("a_dt,bk,bn", [(F32, 16, 8), (F32, 32, 16),
+                                        (F32, 6, 32), (BF16, 8, 8)])
+def test_bcsc_spmm_union_fma_route(gen, a_dt, bk, bn, m, form):
+    """The union's FMA kernel where the rule sends it: f32 unions of more
+    than four value blocks a group (16 x 8, 32 x 16), f32 blocks not whole
+    16-byte units deep (6 x 32), bf16 8 x 8; both forms, an empty group."""
+    k, n = 384, 384
+    indptr, indices = pattern(k, n, bk, bn, 0.3, seed=m + bn,
+                              empty_cols=range(128 // bn))
+    fn = pk.build_bcsc_spmm_union(GemmShape(m, n, k, a_dt, a_dt, F32),
+                                  SpgemmConfig(1, bk, bn), indptr, indices,
+                                  "cuda", compact=FORMS[form])
+    assert fn.path == "fma"
+    a, v = rand(gen, (m, k), a_dt), rand(gen, (len(indices), bk, bn), a_dt)
+    got = on_route("bcsc_spmm_union", "fma", fn, a, v)
+    same(fn.plain(a, v), got, tol(a_dt, F32))
+    assert bool((got[:, :128] == 0).all())
 
 
 def densify_route(bn, dtype):

@@ -38,17 +38,19 @@ SMEM_MAX = 232448            # a block's shared memory on sm_90
     (BF16, 32, 32, "mma"), (BF16, 16, 64, "mma"), (BF16, 128, 128, "mma"),
     (BF16, 48, 24, "mma"), (BF16, 16, 8, "mma"), (BF16, 64, 256, "mma"),
     (BF16, 8, 8, "fma"), (BF16, 4, 48, "fma"), (BF16, 32, 4, "fma"),
-    (BF16, 24, 32, "fma"), (F32, 32, 32, "fma"), (F32, 128, 128, "fma"),
+    (BF16, 24, 32, "fma"), (F32, 32, 32, "tma_fma"),
+    (F32, 128, 128, "tma_fma"), (F32, 2, 2, "fma"),
     (torch.float16, 32, 32, "fma")])
 def test_spmm_path(dtype, bk, bn, want):
     """bf16 tiles of whole k16 steps and whole 16-byte rows take the
-    tensor-core kernel; f32 (no TF32) and other blockings the FMA one."""
+    tensor-core kernel; f32 (no TF32) blocks of whole 16-byte units the
+    TMA-fed FMA kernel; other blockings the FMA one."""
     assert pk.spmm_path(dtype, bk, bn) == want
 
 
 @pytest.mark.parametrize("a_dt,bk,bn,want", [
     (xp.Datatype.BF16, 32, 32, "mma"), (xp.Datatype.BF16, 16, 64, "mma"),
-    (xp.Datatype.BF16, 8, 8, "fma"), (xp.Datatype.F32, 32, 32, "fma")])
+    (xp.Datatype.BF16, 8, 8, "fma"), (xp.Datatype.F32, 32, 32, "tma_fma")])
 def test_spmm_wrappers_name_their_path(a_dt, bk, bn, want):
     k, n = 256, 256
     indptr = np.arange(n // bn + 1, dtype=np.int32)     # one block a column
@@ -59,7 +61,7 @@ def test_spmm_wrappers_name_their_path(a_dt, bk, bn, want):
     assert fn.path == want
     sup = pk.build_bcsc_spmm_super(shape, np.array([0, 1, 1], np.int32),
                                    np.zeros(1, np.int32), "cpu")
-    assert sup.path == ("mma" if a_dt == xp.Datatype.BF16 else "fma")
+    assert sup.path == ("mma" if a_dt == xp.Datatype.BF16 else "tma_fma")
 
 
 def test_flash_path():
@@ -205,10 +207,13 @@ UNION_BLOCKINGS = [(32, 32), (16, 64), (64, 128), (16, 8)]
 @pytest.mark.parametrize("dtype,bk,bn,want", [
     (BF16, 32, 32, "mma"), (BF16, 16, 64, "mma"), (BF16, 64, 128, "mma"),
     (BF16, 16, 8, "mma"), (BF16, 8, 8, "fma"), (BF16, 16, 4, "fma"),
-    (BF16, 8, 32, "fma"), (F32, 32, 32, "fma"), (F32, 16, 8, "fma")])
+    (BF16, 8, 32, "fma"), (F32, 32, 32, "tma_fma"), (F32, 16, 8, "fma")])
 def test_union_wrapper_names_its_path(dtype, bk, bn, want):
     """The union wrapper takes the tensor-core kernel exactly where the
-    scheduled SpMM does (spmm_path), in both forms."""
+    scheduled SpMM does, and the TMA-fed FMA kernel where the scheduled
+    SpMM does and a group holds at most four value blocks (spmm_path with
+    union=True; f32 16 x 8: eight blocks a group, the FMA kernel), in both
+    forms."""
     k, n = 256, 256
     indptr = np.arange(n // bn + 1, dtype=np.int32)     # one block a column
     indices = np.zeros(n // bn, np.int32)
@@ -218,7 +223,7 @@ def test_union_wrapper_names_its_path(dtype, bk, bn, want):
         fn = pk.build_bcsc_spmm_union(shape, xp.SpgemmConfig(1, bk, bn),
                                       indptr, indices, "cpu",
                                       compact=compact)
-        assert fn.path == want == pk.spmm_path(dtype, bk, bn)
+        assert fn.path == want == pk.spmm_path(dtype, bk, bn, union=True)
 
 
 def union_case(m, k, n, bk, bn, seed, density=0.3):
