@@ -72,9 +72,12 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
      2 and in f32 at 8 x 512 (the tma_fma route, asserted), held against
      the gradients of a float64 torch composition of the same block, and
      an f32 train step at 8 x 512;
-   - build_flash_attention_bwd at bench.py's serving shape (plain, causal,
-     dropout, bias per head with bias_grad, broadcast bias; bf16, the
-     tensor-core kernels, asserted) and in f32 at (4, 1024, 64) and hd=256
+   - build_flash_attention_bwd at bench.py's serving shape and the
+     encoder block's (plain, causal, dropout, bias per head with
+     bias_grad, broadcast bias, dropout with a head map; bf16, the wgmma
+     kernels, asserted by launches), at hd 192 and 256 ((2, 256, 192),
+     (16, 1024, 256), the same forms on the mma.sync kernels, asserted by
+     launches), and in f32 at (4, 1024, 64) and hd=256
      at (2, 256, 256) (the tma_fma kernels, asserted: dropout causal and
      not, dropout with a head map, bias per head with dbias, broadcast
      bias), each against its plain version;
@@ -245,7 +248,10 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     flash backward's dK/dV and dQ, the scheduled, union and supertile
     SpMM) it asserts the path and prints the achieved TFLOP/s (of the
     kernel's own products and of the useful ones) and the kernel / library
-    ratio;
+    ratio; the bf16 backward's mma.sync kernels get rows of their own at
+    (16, 1024, 256), and its wgmma kernels' forms at both flash shapes,
+    causal and not, come from scripts/flash_bwd_time.rows_at beside SDPA's
+    bf16 backends;
 15. drives the tooling at full width: Kernel.lower_text of
     dispatch_gemm_batched_packed at the headline (16384 x 32^3 f32) and of
     dispatch_gemm_batched at the same shape (each text must name its one
@@ -385,6 +391,8 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("attention_kernels", "flash_fwd_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dq_mma_kernel"),
+               ("attention_bwd_kernels", "flash_bwd_dkv_wgmma_kernel"),
+               ("attention_bwd_kernels", "flash_bwd_dq_wgmma_kernel"),
                ("attention_kernels", "flash_fwd_tma_fma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_tma_fma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dq_tma_fma_kernel"),
@@ -679,6 +687,36 @@ def encoder_path(randn, dev):
                                                       (96, 512, 64))))}
 
 
+def _lowered_bwd(fn, args):
+    """lower_text of one backward call (both kernels) on the card: each
+    counter launched once on the route the object names, and under each
+    exactly one entry, an instantiation of that route's kernel."""
+    import re
+    import types
+
+    from libxsmm_torch import lowering
+
+    class Lowered:   # what lower_text reads of a kernel
+        name, descriptor = fn.name, None
+        info = types.SimpleNamespace(kind="flash_attention_bwd")
+
+        def __call__(self, *a):
+            return fn(*a)
+
+    text = lowering.lower_text(Lowered(), args)
+    launches = re.findall(r"^// launch (\w+) x(\d+): route cuda (\w+) x1,",
+                          text, re.M)
+    want = [(k, "1", fn.path) for k in BWD_KERNELS]
+    entries = [lowering.kernel_of(e) for e in
+               re.findall(r"^// entry (\S+) x1:", text, re.M)]
+    names = [f"flash_bwd_{k.rsplit('_', 1)[1]}_{fn.path}_kernel"
+             for k in BWD_KERNELS]
+    if sorted(launches) != want or sorted(entries) != sorted(names):
+        raise AssertionError(f"lower_text of {fn.name}: launches {launches}"
+                             f", entries {entries}; want {want}, {names}")
+    print(f"  lower_text {fn.name}: {', '.join(entries)}")
+
+
 def training_path(randn, dev):
     """The TPP-Attention block's training path, driven through the public
     entry points with every launch count set to 0 just before and read just
@@ -798,23 +836,40 @@ def training_path(randn, dev):
             bh, s, 128)
         return (5, q, kT, v, dout, lse, delta, bias)
 
-    bh, s, hd = 16, 2048, 128
-    cases = [("plain", {}, None), ("causal", {"causal": True}, None),
-             ("dropout", {"dropout_p": 0.1}, None),
-             ("bias per head + grad", {"bias_bh": bh, "bias_grad": True},
-              randn(bh, s, s, scale=0.5)),
-             ("bias broadcast", {"bias_bh": 1}, randn(1, s, s, scale=0.5))]
-    bench_ops = None
-    for name, kw, bias in cases:
-        args = bwd_operands(bh, s, hd, bf16, kw, bias)
-        fn = KA.build_flash_attention_bwd(bh, s, hd, bf16, **kw)
-        if fn.path != "mma":
-            raise AssertionError(f"flash bwd {name} bf16 took {fn.path}")
-        got = run(f"flash bwd {name} bf16 {bh}x{s}x{hd}", BWD_KERNELS,
-                  fn, *args)
-        _check(f"flash bwd {name} vs plain", fn.plain(*args), got,
-               TOL_BF16_OUT)
-        bench_ops = bench_ops or args
+    # bf16 at the bench's shape and the encoder block's (96, 512, 64), every
+    # form on the wgmma route, and at hd 192 and 256 on the mma.sync route
+    # (the launches counted by route); one call of each shape lowered:
+    # lower_text names the entries of the route that ran
+    ops = {}
+    for bh, s, hd, route in ((16, 2048, 128, "wgmma"), (96, 512, 64, "wgmma"),
+                             (2, 256, 192, "mma"), (16, 1024, 256, "mma")):
+        cases = [("plain", {}, None), ("causal", {"causal": True}, None),
+                 ("dropout", {"dropout_p": 0.1}, None),
+                 ("bias per head + grad", {"bias_bh": bh, "bias_grad": True},
+                  randn(bh, s, s, scale=0.5)),
+                 ("bias broadcast", {"bias_bh": 1},
+                  randn(1, s, s, scale=0.5)),
+                 ("dropout head map", {"dropout_p": 0.1,
+                                       "head_map": (1, 1, bh, bh + 2)},
+                  None)]
+        for name, kw, bias in cases:
+            args = bwd_operands(bh, s, hd, bf16, kw, bias)
+            fn = KA.build_flash_attention_bwd(bh, s, hd, bf16, **kw)
+            if fn.path != route:
+                raise AssertionError(f"flash bwd {name} bf16 {bh}x{s}x{hd} "
+                                     f"took {fn.path}")
+            routes0 = _routes()
+            got = run(f"flash bwd {name} bf16 {bh}x{s}x{hd}", BWD_KERNELS,
+                      fn, *args)
+            _took_route(f"flash bwd {name} bf16 {bh}x{s}x{hd}", routes0,
+                        BWD_KERNELS, route)
+            _check(f"flash bwd {name} {bh}x{s}x{hd} vs plain",
+                   fn.plain(*args), got, TOL_BF16_OUT)
+            if name == "plain":
+                _lowered_bwd(fn, args)
+            # the rows' operands: the bench shape's, the hd-256 shape's
+            if name == "plain" and (route == "mma" or route not in ops):
+                ops[route] = args
     for fbh, fs, fhd in ((4, 1024, 64), (2, 256, 256)):
         fb = randn(fbh, fs, fs, scale=0.5)
         forms = [(f"causal={c} dropout", {"causal": c, "dropout_p": 0.1},
@@ -855,7 +910,8 @@ def training_path(randn, dev):
         raise AssertionError(f"kernels not launched on the training path: "
                              f"{missing}")
     return {"phases": phases, "counts": counts, "routes": _routes(),
-            "bwd_operands": bench_ops, "step": (params, x, y, cfg),
+            "bwd_operands": ops["wgmma"], "bwd_operands_mma": ops["mma"],
+            "step": (params, x, y, cfg),
             "step_f32": (params_f32, xf, yf, cfg_f32)}
 
 
@@ -1915,6 +1971,67 @@ def _print_f32_flash(shape_name, row):
               + (f" ({', '.join(marks)})" if marks else ""))
 
 
+def bf16_flash_bwd_rows():
+    """The bf16 flash dK/dV and dQ at both shapes of F32_FLASH_SHAPES,
+    non-causal and causal, measured by scripts/flash_bwd_time.rows_at: each
+    kernel held against its plain version (normf_rel within TOL_BF16_OUT),
+    timed by CUDA events, CUDA-graph replay and device time beside its
+    bound (operations at the bf16 tensor-core peak: 8 (dK/dV) and 6 (dQ) x
+    hd per (query, key) pair the data needs, causal pairs only where
+    causal; bytes each input once, each output once), and the backward of
+    F.scaled_dot_product_attention on the same operands under each bf16
+    backend by device time, the fastest that takes them the yardstick.
+    In this long process the profiler has read about half of the events
+    time, for these kernels and SDPA alike, so the kernels' TFLOP/s and
+    share of the bound are taken from replay ("replay_tflops",
+    "replay_of_bound"), and device times are compared only with device
+    times. Every call takes the route flash_bwd_path names (wgmma),
+    asserted by its launches. Returns {(shape, form): {"dkv": row, "dq":
+    row, "sdpa": {backend: ms or its refusal}, "yardstick": backend}}."""
+    from libxsmm_torch.kernels import attention as KA
+    from libxsmm_torch.scripts import flash_bwd_time as FT
+
+    out = {}
+    for shape, (bh, s, hd) in F32_FLASH_SHAPES.items():
+        if FT.SHAPES[shape] != (bh, s, hd) or FT.TOL != TOL_BF16_OUT:
+            raise AssertionError("flash_bwd_time measures other shapes or "
+                                 "holds another margin")
+        for form in ("plain", "causal"):
+            tag = f"bf16 flash bwd {shape} {form}"
+            route = KA.flash_bwd_path(torch.bfloat16, hd)
+            routes0 = _routes()
+            dkv, dq = FT.rows_at(shape, form, seed=0)
+            if route != "wgmma" or {dkv["route"], dq["route"]} != {route}:
+                raise AssertionError(f"{tag}: took {dkv['route']}")
+            _took_route(tag, routes0, BWD_KERNELS, route)
+            sdpa = dq.pop("sdpa_ms")
+            took = {n: t_ for n, t_ in sdpa.items() if isinstance(t_, float)}
+            x = {"dkv": dkv, "dq": dq, "sdpa": sdpa,
+                 "yardstick": min(took, key=took.get, default=None)}
+            pairs = bh * (s * (s + 1) // 2 if form == "causal" else s * s)
+            for part, nmm in (("dkv", 8), ("dq", 6)):
+                r = x[part]
+                if not r["device_ms"]:
+                    raise AssertionError(f"{tag} {part}: the profiler "
+                                         "recorded no kernel")
+                r["replay_tflops"] = nmm * pairs * hd / r["graph_ms"] / 1e9
+                r["replay_of_bound"] = r["bound_ms"] / r["graph_ms"]
+                print(f"  {tag} ({bh}, {s}, {hd}) {part} [{route}]: "
+                      f"events {r['ms']:.4f} ms, replay {r['graph_ms']:.4f} "
+                      f"ms ({r['replay_tflops']:.1f} TFLOP/s, "
+                      f"{r['replay_of_bound']:.3f} of its bound "
+                      f"{r['bound_ms']:.4f} ms), device {r['device_ms']:.4f}"
+                      f" ms; max_abs_err {r['max_abs_err']:.3e}")
+            pair = dkv["device_ms"] + dq["device_ms"]
+            print(f"    sdpa backward device: " + "; ".join(
+                f"{n} {t_:.4f} ms (dkv + dq device / sdpa {pair / t_:.3f})"
+                if isinstance(t_, float) else f"{n} refused ({t_})"
+                for n, t_ in sdpa.items())
+                + f"; yardstick {x['yardstick']}")
+            out[(shape, form)] = x
+    return out
+
+
 def f32_spmm_rows(randn, ms, geo, auto_pick):
     """The f32 forms of the scheduled ("pallas"), supertile and k-union
     BCSC SpMMs at stream20's pattern (m 32768, k = n = 1024, 32 x 32
@@ -2577,6 +2694,7 @@ def _par_attention(res, randn, world, dev):
     and gradients (bf16 causal, f32 not), each rank's block against the
     float64 composition on the full inputs; the logged bytes of every
     forward against its comm model. Returns the timed calls."""
+    from libxsmm_torch.kernels import attention as KA
     from libxsmm_torch.ops.attention import _naive
     from libxsmm_torch.parallel import collectives as C
     from libxsmm_torch.parallel.mesh import make_mesh
@@ -2636,7 +2754,7 @@ def _par_attention(res, randn, world, dev):
                     (o.float() * dout[:, seq]).sum(), gl)
                 torch.cuda.synchronize()
                 _took_route(f"{tag} backward", routes0, BWD_KERNELS,
-                            "mma" if dt == torch.bfloat16 else "tma_fma")
+                            KA.flash_bwd_path(dt, hd))
                 for i, (g, r, blk) in enumerate(zip(grads, rgrads, blocks)):
                     _par_check(res, f"{tag} grad[{i}]", r[blk], g[blk],
                                tol_g)
@@ -4569,7 +4687,7 @@ def main() -> int:
 
     bargs = tr["bwd_operands"]
     bwd = KA.build_flash_attention_bwd(fbh, fs, fhd, torch.bfloat16)
-    if bwd.path != "mma":
+    if bwd.path != "wgmma":
         raise AssertionError(f"flash backward bf16 took {bwd.path}")
     lib_bwd = sdpa_bwd_ms(*bargs[1:5])
     ops_in = 4 * fbh * fs * fhd * 2 + 2 * fbh * fs * 4
@@ -4584,19 +4702,52 @@ def main() -> int:
                else "libxsmm_tpu/kernels/attention_pallas.py:485", fn_,
                bargs, TOL_BF16_OUT,
                ops_in + nout * fbh * fs * fhd * 2,
-               useful_, geo.peak_bf16_tflops, lib_bwd)
-        # its own products, hd padded to its bucket; at 32-column K tiles
-        # the dK/dV kernel's two warps of a key group both form S^T and dP^T
-        hdp = KA._mma_hdp(fhd)
-        redo = 64 // bwd.block_k if nmm == 8 else 1
-        mma_rate(rows[-1], (4 * redo + nmm - 4) * fbh * fs * fs * hdp,
-                 useful_)
+               useful_, geo.peak_bf16_tflops, lib_bwd, path=bwd.path)
+        rows[-1]["launches"] = flash_routes[name]["wgmma"]
+        # its own products, hd padded to its bucket (64 or 128)
+        mma_rate(rows[-1], nmm * fbh * fs * fs * 64 * -(-fhd // 64), useful_)
     t_pair = rows[-2]["ms"] + rows[-1]["ms"]
     print(f"  flash backward dkv + dq {t_pair:.4f} ms; kernels / sdpa "
           f"backward {t_pair / lib_bwd:.3f}")
+    # the mma.sync kernels (bf16 past hd 128) at the training path's hd-256
+    # shape; launches: theirs on the serving and training paths
+    margs = tr["bwd_operands_mma"]
+    hbh, hs, hhd = margs[1].shape
+    mbwd = KA.build_flash_attention_bwd(hbh, hs, hhd, torch.bfloat16)
+    if mbwd.path != "mma":
+        raise AssertionError(f"flash backward bf16 hd {hhd} took {mbwd.path}")
+    lib_mma = sdpa_bwd_ms(*margs[1:5])
+    hin = 4 * hbh * hs * hhd * 2 + 2 * hbh * hs * 4
+    for name, part, plain, nout, nmm in (
+            ("flash_attention_bwd_dkv", mbwd.dkv, mbwd.dkv_plain, 2, 8),
+            ("flash_attention_bwd_dq", mbwd.dq, mbwd.dq_plain, 1, 6)):
+        fn_ = functools.partial(part)
+        fn_.plain = plain
+        record(name, "attention_bwd_kernels.cu",
+               "libxsmm_tpu/kernels/attention_pallas.py:387" if nmm == 8
+               else "libxsmm_tpu/kernels/attention_pallas.py:485", fn_,
+               margs, TOL_BF16_OUT, hin + nout * hbh * hs * hhd * 2,
+               nmm * hbh * hs * hs * hhd, geo.peak_bf16_tflops, lib_mma,
+               path=mbwd.path, shape=[hbh, hs, hhd])
+        rows[-1].update(name=f"{name}_mma",
+                        launches=flash_routes[name]["mma"])
     global_position_forms(rows, ms, KA, KE, fq, fkT, fv, bargs, dx)
 
     sparse_rows(record, rows, sp["stream"], sp["small"], ms, geo)
+
+    # the bf16 backward on wgmma at both shapes, causal and not, beside
+    # SDPA's bf16 backends; its forms join the two backward rows
+    bf16_bwd = bf16_flash_bwd_rows()
+    for r in rows:
+        if r["name"] in BWD_KERNELS:
+            part = r["name"].rsplit("_", 1)[1]
+            r["forms"] = {
+                f"{sh} {form}": {
+                    **{k: x[part][k] for k in (
+                        "ms", "graph_ms", "device_ms", "bound_ms",
+                        "replay_tflops", "max_abs_err")},
+                    "sdpa": x["sdpa"], "yardstick": x["yardstick"]}
+                for (sh, form), x in bf16_bwd.items()}
 
     # the f32 routes: flash on tma_fma beside SDPA's backends at both
     # shapes, the f32 SpMM forms at stream20
@@ -4638,30 +4789,6 @@ def main() -> int:
                       f"{t_ / t_lib:.3f}")
             print(f"  sdpa {name} causal={causal}: {t_lib:.4f} ms")
 
-    # the tile configurations of the backward kernels, at the bench shape
-    # and at the encoder block's, with PyTorch's fused backward beside
-    for name, (q_, kT_, v_) in (("bench", (fq, fkT, fv)),
-                                ("block", (bq, bkT, bv))):
-        bh_, s_, hd_ = q_.shape
-        dout_ = randn(bh_, s_, hd_, dtype=q_.dtype)
-        for causal in (False, True):
-            o_, lse_ = KA.build_flash_attention(
-                bh_, s_, hd_, q_.dtype, causal=causal,
-                return_lse=True)(0, q_, kT_, v_)
-            delta_ = (dout_.float() * o_.float()).sum(-1, keepdim=True) \
-                .expand(bh_, s_, 128)
-            bargs_ = (0, q_, kT_, v_, dout_, lse_, delta_)
-            for cfg_ in KA.bwd_configs(hd_, "dkv", q_.dtype):
-                fn_ = KA.build_flash_attention_bwd(bh_, s_, hd_, q_.dtype,
-                                                   causal=causal,
-                                                   block_override=cfg_)
-                print(f"  flash bwd {name} {tuple(q_.shape)} causal={causal}"
-                      f" tile={cfg_} path={fn_.path}: dkv "
-                      f"{ms(fn_.dkv, *bargs_):.4f} ms, dq "
-                      f"{ms(fn_.dq, *bargs_):.4f} ms")
-            print(f"  sdpa backward {name} causal={causal}: "
-                  f"{sdpa_bwd_ms(q_, kT_, v_, dout_, causal=causal):.4f} "
-                  "ms (device time)")
     # the yardstick of the backward rows once more, by device time and by
     # CUDA events around back-to-back calls (host cost included)
     call_ = sdpa_bwd(*bargs[1:5])

@@ -20,16 +20,19 @@ a larger one (a rank's share of a data- and head-sharded attention)
 hashes each head's global batch-head index, so its dropout mask is its
 block of the whole attention's; without one, the local index is hashed.
 
-The forward and each backward kernel have two CUDA routes, one per
-operand type: bf16 runs on the tensor cores ("mma": mma.sync, f32
-accumulators, hd padded to a bucket of `_MMA_HDP`, tile configurations to
-choose among: `flash_configs`, `bwd_configs`), f32 on the CUDA cores' f32
-FMAs fed by TMA ("tma_fma": a producer warpgroup's ring of tiles, 8 x 8
-micro-tiles, one tile per hd bucket: 64, 128 or 256; f32 means f32, no
-TF32). `flash_path` and `flash_bwd_path` name the route a dtype takes, as
-the C entry points choose it, and each wrapper reports it as `.path`; an
-operand off 16-byte alignment is copied first, and a failed build or launch
-raises: there is no fallback between the routes.
+The forward has two CUDA routes, one per operand type: bf16 runs on the
+tensor cores ("mma": mma.sync, f32 accumulators, hd padded to a bucket of
+`_MMA_HDP`, tile configurations to choose among: `flash_configs`), f32 on
+the CUDA cores' f32 FMAs fed by TMA ("tma_fma": a producer warpgroup's ring
+of tiles, 8 x 8 micro-tiles, one tile per hd bucket: 64, 128 or 256; f32
+means f32, no TF32). The backward has three: f32 "tma_fma"; bf16 "wgmma"
+(Hopper's warpgroup products on TMA-fed 128-byte swizzled tiles, hd padded
+to 64 or 128, one tile per kernel: `_WG_TILES`) up to hd 128, and "mma"
+(mma.sync, 32-column K tiles) past it. `flash_path` and `flash_bwd_path`
+name the route a call takes, as the C entry points choose it (by dtype and
+hd, before any launch), and each wrapper reports it as `.path`; an operand
+off 16-byte alignment is copied first, and a failed build or launch raises:
+there is no fallback between the routes.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ _M32 = 0xFFFFFFFF
 # it launches its CUDA kernel, and nowhere else
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
             "flash_attention_bwd_dq": 0}
-ROUTES = ("mma", "tma_fma")
+ROUTES = ("mma", "tma_fma", "wgmma")
 # the same launches split by the route that served them (flash_path,
 # flash_bwd_path)
 path_launches = {name: dict.fromkeys(ROUTES, 0) for name in launches}
@@ -58,9 +61,11 @@ path_launches = {name: dict.fromkeys(ROUTES, 0) for name in launches}
 ENTRIES = {"flash_attention_fwd": ("attention_kernels", (
                "flash_fwd_mma_kernel", "flash_fwd_tma_fma_kernel")),
            "flash_attention_bwd_dkv": ("attention_bwd_kernels", (
-               "flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_tma_fma_kernel")),
+               "flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_tma_fma_kernel",
+               "flash_bwd_dkv_wgmma_kernel")),
            "flash_attention_bwd_dq": ("attention_bwd_kernels", (
-               "flash_bwd_dq_mma_kernel", "flash_bwd_dq_tma_fma_kernel"))}
+               "flash_bwd_dq_mma_kernel", "flash_bwd_dq_tma_fma_kernel",
+               "flash_bwd_dq_wgmma_kernel"))}
 
 
 def reset_launches() -> None:
@@ -103,7 +108,7 @@ def _bwd_kernels() -> ctypes.CDLL:
         P, I, LL, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint)
         head = [P, P, P, P, P, P, P, LL]    # q kT v dout lse delta bias stride
-        tail = [I, I, I, I, I, F, I, I, U, U, F, U, U, U, U, P]
+        tail = [I, I, I, I, F, I, I, U, U, F, U, U, U, U, P]
         lib.xsmm_flash_bwd_dkv.argtypes = head + [P, P, P] + tail
         lib.xsmm_flash_bwd_dkv.restype = I
         lib.xsmm_flash_bwd_dq.argtypes = head + [P] + tail
@@ -197,6 +202,12 @@ def _rand_bits(seed, b, row, col):
 
 _MMA_HDP = (32, 64, 96, 128, 192, 256)   # csrc launch_mma_hd's buckets
 _SMEM_MAX = 232448                        # a block's shared memory on sm_90
+# the backward's wgmma kernels (csrc xsmm_flash_wgmma.cuh) serve bf16 up to
+# hd 128 (FW_HDP_MAX), one tile each, (rows, K columns): dK/dV 64-row Q
+# tiles against a block of 128 keys, dQ a block of 128 rows against 128-key
+# tiles
+_WG_HD_MAX = 128
+_WG_TILES = {"dkv": (64, 128), "dq": (128, 128)}
 
 
 def flash_path(dtype: torch.dtype) -> str:
@@ -239,20 +250,28 @@ def flash_configs(hd: int, dtype: torch.dtype = torch.bfloat16) -> list:
     return [c for c in order if _smem_bytes(hd, c[1], dtype) <= _SMEM_MAX]
 
 
-def flash_bwd_path(dtype: torch.dtype) -> str:
-    """The route both backward kernels take for `dtype` (csrc run): "mma",
-    the bf16 tensor-core dK/dV and dQ kernels, or "tma_fma", the f32 kernels
-    on TMA-fed FMA tiles."""
-    return "mma" if dtype == torch.bfloat16 else "tma_fma"
+def flash_bwd_path(dtype: torch.dtype, hd: Optional[int] = None) -> str:
+    """The route both backward kernels take (csrc run), chosen by dtype and
+    hd alone, before any launch: "tma_fma" for f32 (the kernels on TMA-fed
+    FMA tiles); for bf16 "wgmma" (the warpgroup kernels on TMA-fed tiles)
+    up to hd 128, and "mma" (the mma.sync kernels) past it, where the wgmma
+    plan's accumulators (dK and dV, or dQ, 64 x hd f32 a warpgroup) would
+    not fit a consumer thread's registers beside the scores. bf16 needs
+    hd."""
+    if dtype != torch.bfloat16:
+        return "tma_fma"
+    if hd is None:
+        raise ValueError("the bf16 backward's route depends on hd")
+    return "wgmma" if hd <= _WG_HD_MAX else "mma"
 
 
 def _bwd_smem_bytes(hd: int, bk: int, kernel: str = "dkv",
                     dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory of one bf16 backward block (csrc dkv_mma_smem,
-    dq_mma_smem), hd padded to its bucket and every row by 16 bytes: the
-    dK/dV kernel's K^T and V tiles, two Q and two dO tiles and two lse and
-    delta rows (f32); the dQ kernel's Q and dO tiles and two K^T and two V
-    tiles."""
+    """Shared memory of one bf16 mma.sync backward block (csrc
+    dkv_mma_smem, dq_mma_smem), hd padded to its bucket and every row by 16
+    bytes: the dK/dV kernel's K^T and V tiles, two Q and two dO tiles and
+    two lse and delta rows (f32); the dQ kernel's Q and dO tiles and two
+    K^T and two V tiles."""
     _bf16_only(dtype)
     hdp = _mma_hdp(hd)
     if kernel == "dkv":
@@ -265,15 +284,15 @@ def _bwd_smem_bytes(hd: int, bk: int, kernel: str = "dkv",
 def bwd_configs(hd: int, kernel: str = "dkv",
                 dtype: torch.dtype = torch.bfloat16) -> list:
     """(rows, K columns) per block the bf16 backward kernel `kernel` ("dkv"
-    or "dq") is built for, the default first: 64 then 32 columns up to a
-    padded hd of 128, 32 alone past it. At 64 columns each of the dK/dV
-    kernel's four warps owns 16 keys and all of hd, two accumulators of 16 x
-    hd; past a padded 128 those would not fit the registers, so there the
-    32-column tile splits hd's columns over the two warps of each key group.
-    f32 has none (ValueError)."""
+    or "dq") is built for at hd, on flash_bwd_path's route: up to hd 128 the
+    wgmma kernel's one tile (_WG_TILES: dK/dV (64, 128), dQ (128, 128));
+    past it the mma.sync kernel's 32 columns, where each of its four warps
+    splits a key group's hd columns with another. f32 has none
+    (ValueError)."""
     _bf16_only(dtype)
-    both = [(_BQ, 64), (_BQ, 32)] if _mma_hdp(hd) <= 128 else [(_BQ, 32)]
-    return [c for c in both
+    if hd <= _WG_HD_MAX:
+        return [_WG_TILES[kernel]]
+    return [c for c in [(_BQ, 32)]
             if _bwd_smem_bytes(hd, c[1], kernel, dtype) <= _SMEM_MAX]
 
 
@@ -449,9 +468,10 @@ class FlashAttentionBwd:
 
     `dkv` and `dq` run the two kernels one at a time (each with its plain
     version, `dkv_plain` and `dq_plain`); calling the object runs both.
-    The bf16 kernels each have their own K-tile width: `block_k` (dK/dV)
-    and `block_k_dq` (None for f32: one tile per hd bucket); `path` names
-    the route both kernels take (flash_bwd_path)."""
+    The bf16 kernels each have their own tile: (`block_q`, `block_k`)
+    (dK/dV) and (`block_q_dq`, `block_k_dq`) (None for f32: one tile per
+    hd bucket); `path` names the route both kernels take
+    (flash_bwd_path)."""
 
     def __init__(self, bh: int, s: int, hd: int, dtype: torch.dtype,
                  causal: bool, scale: float, bias_bh: int, dropout_p: float,
@@ -465,8 +485,8 @@ class FlashAttentionBwd:
         self.dropout_p = float(dropout_p)
         self.bias_grad = bool(bias_grad)
         self.block_q, self.block_k = config
-        self.block_k_dq = config_dq[1]
-        self.path = flash_bwd_path(dtype)
+        self.block_q_dq, self.block_k_dq = config_dq
+        self.path = flash_bwd_path(dtype, hd)
         self.thr = (_dropout_threshold(self.dropout_p)
                     if self.dropout_p > 0.0 else None)
         self.inv_keep = (1.0 / (1.0 - self.dropout_p)
@@ -498,7 +518,7 @@ class FlashAttentionBwd:
     def _launch(self, which, seed, q, kT, v, dout, lse, delta, bias):
         """Launch one kernel on CUDA operands; returns its outputs."""
         bh, s, hd = self.bh, self.s, self.hd
-        # both routes read 16-byte units (cp.async, TMA): an operand off
+        # every route reads 16-byte units (cp.async, TMA): an operand off
         # that alignment is copied first
         q, kT, v, dout = (_aligned16(t) for t in (q, kT, v, dout))
         # one column of each lane-broadcast statistic: (bh, s) f32
@@ -507,8 +527,7 @@ class FlashAttentionBwd:
             bias = bias.to(torch.float32).contiguous()
         head = (_ptr(q), _ptr(kT), _ptr(v), _ptr(dout), _ptr(lse),
                 _ptr(delta), _ptr(bias), 0 if self.bias_bh == 1 else s * s)
-        bk = self.block_k if which == "dkv" else self.block_k_dq
-        tail = (bh, s, hd, _TYPE_CODE[self.dtype], bk or 0, self.scale,
+        tail = (bh, s, hd, _TYPE_CODE[self.dtype], self.scale,
                 int(self.causal), int(self.thr is not None),
                 int(seed) & _M32 if self.thr is not None else 0,
                 self.thr or 0, self.inv_keep, *self.head_map,
@@ -624,10 +643,11 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     per-(batch*head) bias (bias_bh == bh), as the reference's. The tiling is
     chosen independently of the forward's: the dropout mask depends only on
     global coordinates. block_override=(bq, bk), the reference's TPU tile,
-    picks for each bf16 kernel the largest CUDA tile configuration within
-    it (bwd_configs); f32 (tma_fma, one tile per hd bucket) only checks that
-    it tiles s. head_map as build_flash_attention's: the mask replayed is
-    the one the forward with that map drew."""
+    must tile s; past hd 128 (the mma.sync kernels) it also bounds their
+    tile (bwd_configs), while the wgmma (bf16 up to hd 128) and tma_fma
+    (f32) kernels take one tile each whatever the override. head_map as
+    build_flash_attention's: the mask replayed is the one the forward with
+    that map drew."""
     if not supported(s, hd, dtype):
         raise ValueError(f"unsupported flash shape s={s} hd={hd} {dtype}")
     if not 0.0 <= dropout_p < 1.0:
@@ -635,10 +655,13 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     if bias_grad and bias_bh != bh:
         raise ValueError("bias_grad requires a per-(batch*head) bias")
     sc = float(scale) if scale is not None else float(hd) ** -0.5
-    bf16 = dtype == torch.bfloat16
+    _pick_config(s, None, block_override)
+    # the wgmma and tma_fma kernels take one tile each: block_override only
+    # has to tile s; the mma.sync ones take the tile within it
+    bound = block_override if flash_bwd_path(dtype, hd) == "mma" else None
     config, config_dq = (
-        _pick_config(s, bwd_configs(hd, k, dtype) if bf16 else None,
-                     block_override) for k in ("dkv", "dq"))
+        _pick_config(s, bwd_configs(hd, k, dtype), bound)
+        if dtype == torch.bfloat16 else (None, None) for k in ("dkv", "dq"))
     return FlashAttentionBwd(
         bh, s, hd, dtype, causal, sc, bias_bh, dropout_p, bias_grad,
         config, config_dq, head_map)

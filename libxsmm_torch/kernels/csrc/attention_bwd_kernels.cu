@@ -1,12 +1,16 @@
 // Hand-written Hopper (sm_90a) flash-attention backward for libxsmm_torch:
-// two kernels, as the reference splits it, each in two forms by operand
-// type (kernels/attention.py flash_bwd_path). Replaces the Pallas TPU
-// kernels of build_flash_attention_bwd
+// two kernels, as the reference splits it, each in three forms chosen by
+// operand type and hd (kernels/attention.py flash_bwd_path).
+// Replaces the Pallas TPU kernels of build_flash_attention_bwd
 // (libxsmm_tpu/kernels/attention_pallas.py:322):
-//   dK^T, dV (+ dbias) <- dkv_kernel (:387): flash_bwd_dkv_mma_kernel (bf16),
+//   dK^T, dV (+ dbias) <- dkv_kernel (:387): flash_bwd_dkv_wgmma_kernel
+//                                            (bf16, hd <= 128),
+//                                            flash_bwd_dkv_mma_kernel (bf16,
+//                                            hd > 128),
 //                                            flash_bwd_dkv_tma_fma_kernel (f32)
-//   dQ                 <- dq_kernel  (:485): flash_bwd_dq_mma_kernel (bf16),
-//                                            flash_bwd_dq_tma_fma_kernel (f32)
+//   dQ                 <- dq_kernel  (:485): flash_bwd_dq_wgmma_kernel,
+//                                            flash_bwd_dq_mma_kernel,
+//                                            flash_bwd_dq_tma_fma_kernel, alike
 //
 // Plain C interface, no torch headers: kernels/_build.py compiles this file
 // with nvcc into its own shared library (beside the forward's, built in
@@ -47,16 +51,45 @@
 //   dQ: one block owns one (b, 64-row Q tile); Q and dO stay in shared
 //   memory; the block walks the K tiles up to the diagonal when causal.
 //
-// bf16, on the tensor cores (the FlashAttention-2 backward on mma.sync
-// m16n8k16, f32 accumulators; kernels/csrc/xsmm_mma.cuh). Four warps a
-// block; hd is zero-padded to the forward's buckets (32 ... 256, exact);
+// bf16 on wgmma (route "wgmma", kernels/csrc/xsmm_flash_wgmma.cuh), for
+// every bf16 call at hd <= 128: a
+// producer warpgroup keeps TMA loads of 128-byte swizzled boxes in flight
+// into a ring (full and empty mbarriers) and hands its registers back
+// (setmaxnreg); two consumer warpgroups each own 64 rows of the block's
+// output and run wgmma with f32 accumulators in registers.
+//   dK/dV: one block owns (b, 128 keys); K^T and V land once; the ring
+//   streams 64-row Q and dO tiles with their lse and delta rows (from the
+//   first that reaches the diagonal when causal). Each group forms S^T = K
+//   Q^T (K^T through the transpose bit) and dP^T = V dO^T for its 64 keys,
+//   p~^T and dS^T in registers (rows are keys, so the hash takes (column,
+//   row)), and their bf16 pairs are the register A fragments of dV += p~^T
+//   dO and dK += dS^T Q (dO and Q MN-major through the transpose bit): no
+//   trip through shared memory. dK^T goes out through the group's K^T box,
+//   its (hd, s) rows in 16-byte units.
+//   dQ: one block owns (b, 128 query rows); Q and dO land once; the ring
+//   streams 128-key K^T and V tiles (up to the diagonal when causal).
+//   S = Q K^T (K^T MN-major), dP = dO V^T, dS in registers, and dQ += dS K
+//   with dS as register A and the K^T tile read K-major (its rows are hd).
+//   At a padded hd of 128 a consumer thread holds 192 accumulator
+//   registers under a budget of 240.
+// The per-element code between the products, not the products, set these
+// kernels' time, so it is lean: one instantiation per form (bias or not,
+// dropout or not), exp2 by ex2.approx.ftz, the causal test only on the
+// tiles that cross the diagonal, and each tile's scores converted in two
+// halves, the second while the tensor cores run the first half's
+// products.
+//
+// bf16 on mma.sync (route "mma": hd > 128; the FlashAttention-2 backward
+// on mma.sync m16n8k16, f32 accumulators; kernels/csrc/xsmm_mma.cuh). Four
+// warps a block, 32-column K tiles; hd is zero-padded to the forward's
+// buckets past 128 (192, 256);
 // tiles arrive in bf16 through a two-stage cp.async ring, every row padded
 // by 16 bytes so ldmatrix's rows fall in distinct banks; the softmax is
 // taken in log2 units (one exp2 per element), as the forward's.
-//   dK/dV computes the transposed scores directly: warp w owns 16 keys and,
-//   when BK = 32, half of hd's columns of dK and dV (the two warps of a key
-//   group recompute the same scores; past hd = 128 that keeps the two
-//   accumulators within the register file). S^T = K Q^T takes K from the
+//   dK/dV computes the transposed scores directly: warp w owns 16 keys and
+//   half of hd's columns of dK and dV (the two warps of a key group
+//   recompute the same scores, which keeps the two accumulators within the
+//   register file). S^T = K Q^T takes K from the
 //   (hd x keys) K^T tile by ldmatrix.trans and Q^T from row-major Q by
 //   ldmatrix; dP^T = V dO^T likewise. P~^T and dS^T are born as C fragments
 //   (row: key, column: query, so the dropout hash takes (column, row)),
@@ -107,6 +140,7 @@
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
 #include "xsmm_flash_fma.cuh"
+#include "xsmm_flash_wgmma.cuh"
 #include "xsmm_launches.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
@@ -552,6 +586,442 @@ __global__ void __launch_bounds__(MB_THREADS) flash_bwd_dq_mma_kernel(
                    acc[j][2 * h + 1] * a.scale);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on wgmma (route "wgmma"), hd padded to HDP = 64 or 128; the plan,
+// budgets and instructions are xsmm_flash_wgmma.cuh's. Threads 0-255 are
+// the consumer warpgroups (wg = tid / 128), 256-383 the producer.
+// ---------------------------------------------------------------------------
+
+// 2^x by the SFU, denormal results flushed to zero
+__device__ __forceinline__ float fw_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// grad_mma's p~ and ds for the wgmma kernels: the causal test only where
+// `mask` (a tile that crosses the diagonal), the bias (brow: the bias row of
+// `row`) only in the BIAS instantiations, the dropout hash only in the DROP
+// ones
+template <bool BIAS, bool DROP>
+__device__ __forceinline__ void fw_grad(const BwdArgs& a, const float* brow,
+                                        uint32_t hb, int row, int col,
+                                        bool mask, float sc, float dp,
+                                        float lse2, float delta,
+                                        float& p_drop, float& ds) {
+  const float x = BIAS ? (sc * a.scale + brow[col]) * LOG2E
+                       : sc * (a.scale * LOG2E);
+  float p = fw_exp2(x - lse2);
+  if (mask && col > row) p = 0.f;
+  p_drop = p;
+  if (DROP) {
+    const bool keep = rand_bits(a.seed, hb, (uint32_t)row, (uint32_t)col) >=
+                      a.thr;
+    p_drop = keep ? p * a.inv_keep : 0.f;
+    dp = keep ? dp * a.inv_keep : 0.f;
+  }
+  ds = p * (dp - delta);
+}
+
+// keeps the compiler from moving the reads of d[LO..HI) above this point:
+// the second half of a tile's scores is converted after the first half's
+// products are issued, so that the tensor cores run them meanwhile
+template <int LO, int HI, int N>
+__device__ __forceinline__ void fw_hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = LO; i < HI; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// dK^T, dV (+ dbias): one block per (b, 128 keys); warpgroup wg owns keys
+// kw = k0 + 64 wg .. + 64, and both of their accumulators (dV and dK, 64 x
+// HDP each). Per 64-row Q tile it forms S^T = K Q^T (A: its K^T box, MN-major;
+// B: the Q tile, K-major) and dP^T = V dO^T (A: its V rows, K-major; B: dO,
+// K-major), turns them into p~^T and dS^T in registers, and accumulates
+// dV += p~^T dO and dK += dS^T Q with those as register A fragments and dO
+// and Q as MN-major B, in two halves of 32 queries: the second half is
+// converted while the first half's products run.
+template <int HDP, bool BIAS, bool DROP>
+__global__ void __launch_bounds__(TF_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap kmap,   // kT: 64 keys x HDP rows
+    const __grid_constant__ CUtensorMap vmap,   // v: 64 x 64 boxes
+    const __grid_constant__ CUtensorMap qmap,   // q: 64 x 64 boxes
+    const __grid_constant__ CUtensorMap omap,   // dout: 64 x 64 boxes
+    const __grid_constant__ CUtensorMap lmap,   // lse (bh, s): 64 rows
+    const __grid_constant__ CUtensorMap dmap,   // delta (bh, s): 64 rows
+    const BwdArgs a) {
+  constexpr int NC = HDP / 64;          // 64-column boxes of hd
+  constexpr int KT_BOX = HDP * 128;     // a warpgroup's K^T: HDP rows x 64 keys
+  constexpr int TILE = NC * FW_BOX;     // 64 rows x HDP of Q, dO or V
+  constexpr int STAGE = 2 * TILE;       // a stage: Q and dO
+  constexpr int ST = FW_DKV_STAGES;
+  extern __shared__ __align__(16) unsigned char fw_raw[];
+  // the swizzle is a function of the shared address: 1024-byte aligned
+  unsigned char* base =
+      fw_raw + ((TF_ALIGN - (wg_smem(fw_raw) & (TF_ALIGN - 1))) &
+                (TF_ALIGN - 1));
+  unsigned char* kt = base;                  // [2][HDP][64 keys]
+  unsigned char* vs = kt + 2 * KT_BOX;       // [2][NC][64 keys][64]
+  unsigned char* ring = vs + 2 * TILE;       // [ST] {Q, dO}: [NC][64][64]
+  float* ls = reinterpret_cast<float*>(ring + ST * STAGE);   // [ST][64]
+  float* dls = ls + ST * FW_BQ;                              // [ST][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(dls + ST * FW_BQ);
+  uint64_t* empty = full + ST;
+  uint64_t* kvbar = empty + ST;
+
+  const int tid = threadIdx.x;
+  const int s = a.s, hd = a.hd;
+  const int b = blockIdx.x;
+  const int k0 = blockIdx.y * FW_BKV;   // causal: the first have most work
+  const int nq = s / FW_BQ;
+  // Q tiles entirely above this K tile's diagonal contribute nothing; their
+  // dbias blocks are zero (attention_pallas.py:425-432)
+  const int qstart = a.causal ? k0 / FW_BQ : 0;
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TF_CONSUMERS / 32);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= TF_CONSUMERS) {   // the producer: one thread starts TMA
+    tf_producer_regs();
+    if (tid == TF_CONSUMERS) {
+      mbar_arrive_expect_tx(kvbar, 2 * KT_BOX + 2 * TILE);
+      for (int w = 0; w < 2; ++w) {
+        tma_load_3d(kt + w * KT_BOX, &kmap, kvbar, k0 + 64 * w, 0, b);
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(vs + (w * NC + c) * FW_BOX, &vmap, kvbar, 64 * c,
+                      k0 + 64 * w, b);
+      }
+      for (int qi = qstart, it = 0; qi < nq; ++qi, ++it) {
+        const int st = it % ST;
+        if (it >= ST) mbar_wait(&empty[st], ((it / ST) - 1) & 1);
+        unsigned char* dst = ring + st * STAGE;
+        const int q0 = qi * FW_BQ;
+        mbar_arrive_expect_tx(&full[st], STAGE + 2 * FW_BQ * 4);
+        for (int c = 0; c < NC; ++c) {
+          tma_load_3d(dst + c * FW_BOX, &qmap, &full[st], 64 * c, q0, b);
+          tma_load_3d(dst + TILE + c * FW_BOX, &omap, &full[st], 64 * c, q0,
+                      b);
+        }
+        tma_load_2d(ls + st * FW_BQ, &lmap, &full[st], q0, b);
+        tma_load_2d(dls + st * FW_BQ, &dmap, &full[st], q0, b);
+      }
+    }
+    return;
+  }
+
+  tf_consumer_regs();
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw = k0 + 64 * wg;          // this warpgroup's first key
+  const int keyl = 16 * warp + g;       // fragment rows keyl, keyl + 8
+  const uint32_t hb = a.hm(b);          // the hash's batch-head
+  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
+  float* dbias_h = a.dbias ? a.dbias + (size_t)b * s * s : nullptr;
+
+  if (BIAS && dbias_h) {   // the skipped Q tiles' dbias: this group's keys
+    for (int i = t; i < qstart * FW_BQ * 16; i += 128) {
+      const int r = i >> 4, c = (i & 15) * 4;
+      st4s(dbias_h + (size_t)r * s + kw + c, 0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  float dv[HDP / 2], dk[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) dv[i] = dk[i] = 0.f;
+  const unsigned char* ktw = kt + wg * KT_BOX;
+  const unsigned char* vw = vs + wg * TILE;
+  mbar_wait(kvbar, 0);
+
+  for (int qi = qstart, it = 0; qi < nq; ++qi, ++it) {
+    const int st = it % ST;
+    mbar_wait(&full[st], (it / ST) & 1);
+    const unsigned char* qt = ring + st * STAGE;
+    const unsigned char* ot = qt + TILE;
+    // S^T = K Q^T and dP^T = V dO^T over hd: 64 keys x 64 queries
+    float sT[32], dpT[32];
+    wgmma_fence_operands(sT);
+    wgmma_fence_operands(dpT);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < HDP / 16; ++j) {
+      const int kb = (j >> 2) * FW_BOX + 32 * (j & 3);
+      Wg<64>::ss<1, 0>(sT, fw_mnmajor(ktw + 2048 * j, FW_BOX),
+                       fw_kmajor(qt + kb), j > 0);
+      Wg<64>::ss<0, 0>(dpT, fw_kmajor(vw + kb), fw_kmajor(ot + kb), j > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(sT);
+    wgmma_fence_operands(dpT);
+
+    // p~^T and dS^T: element (key row, query column), packed to bf16 pairs
+    // as the A fragments of the accumulating products
+    const int q0 = qi * FW_BQ;
+    const bool mask = a.causal && kw + 63 > q0;   // crosses the diagonal
+    const float* lrow = ls + st * FW_BQ;
+    const float* drow = dls + st * FW_BQ;
+    uint32_t pa[4][4], sa[4][4];
+    wgmma_fence_operands(dv);
+    wgmma_fence_operands(dk);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int j = 4 * half; j < 4 * half + 4; ++j) {
+      const int qc = 8 * j + 2 * t4;    // query columns qc, qc + 1
+      const float2 l2 = *reinterpret_cast<const float2*>(lrow + qc);
+      const float2 dl = *reinterpret_cast<const float2*>(drow + qc);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = kw + keyl + 8 * h;
+        float pd[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          fw_grad<BIAS, DROP>(
+              a, BIAS ? bias_h + (size_t)(q0 + qc + e) * s : nullptr, hb,
+              q0 + qc + e, key, mask, sT[4 * j + 2 * h + e],
+              dpT[4 * j + 2 * h + e], (e ? l2.y : l2.x) * LOG2E,
+              e ? dl.y : dl.x, pd[e], ds[e]);
+          if (BIAS && dbias_h)
+            dbias_h[(size_t)(q0 + qc + e) * s + key] = ds[e];
+        }
+        pa[j >> 1][2 * (j & 1) + h] = pack_bf16x2(pd[0], pd[1]);
+        sa[j >> 1][2 * (j & 1) + h] = pack_bf16x2(ds[0], ds[1]);
+      }
+    }
+
+    // dV += p~^T dO and dK += dS^T Q over the half's 32 queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
+      Wg<HDP>::template rs<1>(dv, pa[kk], fw_mnmajor(ot + 2048 * kk, FW_BOX),
+                              1);
+      Wg<HDP>::template rs<1>(dk, sa[kk], fw_mnmajor(qt + 2048 * kk, FW_BOX),
+                              1);
+    }
+    wgmma_commit();
+    fw_hold<16, 32>(sT);
+    fw_hold<16, 32>(dpT);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operands(dv);
+    wgmma_fence_operands(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // dV rows straight out, cast once
+  __nv_bfloat16* dvh = static_cast<__nv_bfloat16*>(a.dv) + (size_t)b * s * hd;
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = 8 * j + 2 * t4;
+      if (d < hd)   // hd % 8 == 0: the pair is all in or all out
+        store_pair(dvh + (size_t)(kw + keyl + 8 * h) * hd + d,
+                   dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+    }
+  // dK^T scaled and rounded once into this group's K^T box (plain [d][64]),
+  // then written along s in 16-byte units
+  fw_wg_sync(wg);   // every warp of the group is done with its K^T box
+  __nv_bfloat16* kst = reinterpret_cast<__nv_bfloat16*>(kt + wg * KT_BOX);
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        kst[(8 * j + 2 * t4 + e) * 64 + keyl + 8 * h] =
+            __float2bfloat16(dk[4 * j + 2 * h + e] * a.scale);
+  fw_wg_sync(wg);
+  __nv_bfloat16* dkh = static_cast<__nv_bfloat16*>(a.dkT) + (size_t)b * hd * s;
+  for (int i = t; i < hd * 8; i += 128) {
+    const int d = i >> 3, u = (i & 7) * 8;
+    *reinterpret_cast<uint4*>(dkh + (size_t)d * s + kw + u) =
+        *reinterpret_cast<const uint4*>(kst + d * 64 + u);
+  }
+}
+
+// dQ: one block per (b, 128 query rows); warpgroup wg owns rows q0 + 64 wg ..
+// + 64 and their dQ accumulator (64 x HDP). Per 128-key tile it forms S = Q
+// K^T (A: its Q rows, K-major; B: the K^T tile, MN-major) and dP = dO V^T
+// (A: its dO rows; B: the V tile, K-major), turns them into dS in
+// registers, and accumulates dQ += dS K with dS as register A fragments and
+// the K^T tile as K-major B (its rows are hd, its 128-byte rows keys), in
+// two halves of 64 keys: the second half is converted while the first
+// half's products run.
+template <int HDP, bool BIAS, bool DROP>
+__global__ void __launch_bounds__(TF_THREADS, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,   // q: 64 x 64 boxes
+    const __grid_constant__ CUtensorMap omap,   // dout: 64 x 64 boxes
+    const __grid_constant__ CUtensorMap kmap,   // kT: 64 keys x HDP rows
+    const __grid_constant__ CUtensorMap vmap,   // v: 64 hd x 128 keys boxes
+    const BwdArgs a) {
+  constexpr int NC = HDP / 64;
+  constexpr int TILE = NC * FW_BOX;          // 64 rows x HDP of Q or dO
+  constexpr int KT_BOX = HDP * 128;          // K^T: HDP rows x 64 keys
+  constexpr int V_BOX = FW_DQ_BK * 128;      // V: 128 keys x 64 hd
+  constexpr int STAGE = 2 * KT_BOX + NC * V_BOX;   // K^T and V
+  constexpr int ST = FW_DQ_STAGES;
+  extern __shared__ __align__(16) unsigned char fw_raw[];
+  unsigned char* base =
+      fw_raw + ((TF_ALIGN - (wg_smem(fw_raw) & (TF_ALIGN - 1))) &
+                (TF_ALIGN - 1));
+  unsigned char* qs = base;               // [2][NC][64 rows][64]
+  unsigned char* os = qs + 2 * TILE;      // [2][NC][64 rows][64]
+  unsigned char* ring = os + 2 * TILE;    // [ST] {K^T, V [NC][128][64]}
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * STAGE);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+
+  const int tid = threadIdx.x;
+  const int s = a.s, hd = a.hd;
+  const int nq = s / FW_DQ_BQ;
+  // causal: the bottom tiles have the most K steps; start them first
+  const int qi = a.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int b = blockIdx.x;
+  const int q0 = qi * FW_DQ_BQ;
+  // a K tile is visited iff its first column is <= the tile's last row
+  const int ntiles = a.causal ? qi + 1 : s / FW_DQ_BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TF_CONSUMERS / 32);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= TF_CONSUMERS) {   // the producer
+    tf_producer_regs();
+    if (tid == TF_CONSUMERS) {
+      mbar_arrive_expect_tx(qbar, 4 * TILE);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < NC; ++c) {
+          tma_load_3d(qs + (w * NC + c) * FW_BOX, &qmap, qbar, 64 * c,
+                      q0 + 64 * w, b);
+          tma_load_3d(os + (w * NC + c) * FW_BOX, &omap, qbar, 64 * c,
+                      q0 + 64 * w, b);
+        }
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % ST;
+        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
+        unsigned char* d = ring + st * STAGE;
+        const int k0 = t * FW_DQ_BK;
+        mbar_arrive_expect_tx(&full[st], STAGE);
+        for (int h = 0; h < 2; ++h)
+          tma_load_3d(d + h * KT_BOX, &kmap, &full[st], k0 + 64 * h, 0, b);
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(d + 2 * KT_BOX + c * V_BOX, &vmap, &full[st], 64 * c,
+                      k0, b);
+      }
+    }
+    return;
+  }
+
+  tf_consumer_regs();
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + 64 * wg + 16 * warp + g;   // fragment rows r0, r0 + 8
+  const uint32_t hb = a.hm(b);                   // the hash's batch-head
+  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
+  float lse2[2], del[2];
+  const float* brow[2];   // the bias rows of rows r0 and r0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse2[h] = a.lse[(size_t)b * s + r0 + 8 * h] * LOG2E;
+    del[h] = a.delta[(size_t)b * s + r0 + 8 * h];
+    brow[h] = BIAS ? bias_h + (size_t)(r0 + 8 * h) * s : nullptr;
+  }
+  float dq[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) dq[i] = 0.f;
+  const unsigned char* qw = qs + wg * TILE;
+  const unsigned char* ow = os + wg * TILE;
+  mbar_wait(qbar, 0);
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int st = kt % ST;
+    mbar_wait(&full[st], (kt / ST) & 1);
+    const unsigned char* kst = ring + st * STAGE;
+    const unsigned char* vst = kst + 2 * KT_BOX;
+    // S = Q K^T and dP = dO V^T over hd: 64 rows x 128 keys
+    float sc[64], dp[64];
+    wgmma_fence_operands(sc);
+    wgmma_fence_operands(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < HDP / 16; ++j) {
+      const int ab = (j >> 2) * FW_BOX + 32 * (j & 3);
+      Wg<128>::ss<0, 1>(sc, fw_kmajor(qw + ab),
+                        fw_mnmajor(kst + 2048 * j, KT_BOX), j > 0);
+      Wg<128>::ss<0, 0>(dp, fw_kmajor(ow + ab),
+                        fw_kmajor(vst + (j >> 2) * V_BOX + 32 * (j & 3)),
+                        j > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(sc);
+    wgmma_fence_operands(dp);
+
+    // dS, packed to bf16 pairs as the A fragments of dQ += dS K
+    const int k0 = kt * FW_DQ_BK;
+    // the tile crosses this group's diagonal
+    const bool mask = a.causal && k0 + FW_DQ_BK - 1 > q0 + 64 * wg;
+    uint32_t sa[8][4];
+    wgmma_fence_operands(dq);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int j = 8 * half; j < 8 * half + 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float pd[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          fw_grad<BIAS, DROP>(a, brow[h], hb, r0 + 8 * h,
+                              k0 + 8 * j + 2 * t4 + e, mask,
+                              sc[4 * j + 2 * h + e], dp[4 * j + 2 * h + e],
+                              lse2[h], del[h], pd[e], ds[e]);
+        sa[j >> 1][2 * (j & 1) + h] = pack_bf16x2(ds[0], ds[1]);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 4 * half; kk < 4 * half + 4; ++kk)
+      Wg<HDP>::template rs<0>(
+          dq, sa[kk], fw_kmajor(kst + (kk >> 2) * KT_BOX + 32 * (kk & 3)), 1);
+    wgmma_commit();
+    fw_hold<32, 64>(sc);
+    fw_hold<32, 64>(dp);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operands(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  __nv_bfloat16* dqh = static_cast<__nv_bfloat16*>(a.dq) + (size_t)b * s * hd;
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = 8 * j + 2 * t4;   // hd % 8 == 0: the pair is all in or
+      if (d < hd)                     // all out
+        store_pair(dqh + (size_t)(r0 + 8 * h) * hd + d,
+                   dq[4 * j + 2 * h] * a.scale,
+                   dq[4 * j + 2 * h + 1] * a.scale);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1204,6 +1674,100 @@ static int run_tma_fma(int which, const BwdArgs& a, int bh, void* stream) {
   return launch_dq_tma_fma<256>(bh, a, st);
 }
 
+// the bf16 TMA maps (128-byte swizzle, boxes 64 wide) and the launches; q,
+// kT, v, dout, lse and delta 16-byte aligned
+struct FwMaps {
+  cuuint64_t rows[3], rstr[2], cols[3], cstr[2];
+  FwMaps(int bh, int s, int hd) {
+    const cuuint64_t S = (cuuint64_t)s, H = (cuuint64_t)hd;
+    rows[0] = H; rows[1] = S; rows[2] = (cuuint64_t)bh;   // (bh, s, hd)
+    rstr[0] = H * 2; rstr[1] = S * H * 2;
+    cols[0] = S; cols[1] = H; cols[2] = (cuuint64_t)bh;   // (bh, hd, s)
+    cstr[0] = S * 2; cstr[1] = H * S * 2;
+  }
+  // boxes of 64 columns (hd) x h rows
+  bool rowmap(CUtensorMap* m, const void* p, cuuint32_t h) {
+    const cuuint32_t box[3] = {64, h, 1};
+    return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 3, rows, rstr,
+                      box);
+  }
+  // boxes of 64 columns (s) x h rows (hd)
+  bool colmap(CUtensorMap* m, const void* p, cuuint32_t h) {
+    const cuuint32_t box[3] = {64, h, 1};
+    return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 3, cols, cstr,
+                      box);
+  }
+};
+
+template <int HDP, bool BIAS, bool DROP>
+static int launch_dkv_wgmma(int bh, const BwdArgs& a, cudaStream_t st) {
+  FwMaps f(bh, a.s, a.hd);
+  TfMaps m(bh, a.s, a.hd);
+  CUtensorMap km, vm, qm, om, lm, dm;
+  if (!f.colmap(&km, a.kT, HDP) || !f.rowmap(&vm, a.v, 64) ||
+      !f.rowmap(&qm, a.q, 64) || !f.rowmap(&om, a.dout, 64) ||
+      !m.statmap(&lm, a.lse, FW_BQ) || !m.statmap(&dm, a.delta, FW_BQ))
+    return cudaErrorInvalidValue;
+  constexpr int smem = fw_dkv_smem(HDP);
+  auto kern = flash_bwd_dkv_wgmma_kernel<HDP, BIAS, DROP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  note_launch(kern);
+  kern<<<dim3(bh, a.s / FW_BKV), TF_THREADS, smem, st>>>(km, vm, qm, om, lm,
+                                                         dm, a);
+  return cudaGetLastError();
+}
+
+template <int HDP, bool BIAS, bool DROP>
+static int launch_dq_wgmma(int bh, const BwdArgs& a, cudaStream_t st) {
+  FwMaps f(bh, a.s, a.hd);
+  CUtensorMap qm, om, km, vm;
+  if (!f.rowmap(&qm, a.q, 64) || !f.rowmap(&om, a.dout, 64) ||
+      !f.colmap(&km, a.kT, HDP) || !f.rowmap(&vm, a.v, FW_DQ_BK))
+    return cudaErrorInvalidValue;
+  constexpr int smem = fw_dq_smem(HDP);
+  auto kern = flash_bwd_dq_wgmma_kernel<HDP, BIAS, DROP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  note_launch(kern);
+  kern<<<dim3(bh, a.s / FW_DQ_BQ), TF_THREADS, smem, st>>>(qm, om, km, vm, a);
+  return cudaGetLastError();
+}
+
+// bf16 at hd <= FW_HDP_MAX (128): the wgmma kernels, hd padded to 64 or 128
+// (kernels/attention.py flash_bwd_path names the route)
+static int run_wgmma(int which, const BwdArgs& a, int bh, void* stream) {
+  const int s = a.s, hd = a.hd;
+  if (s <= 0 || s % FW_BKV || s / FW_BKV > 65535 || hd <= 0 || hd % 8 ||
+      hd > FW_HDP_MAX || bh <= 0 || (a.dbias && !a.bias) ||
+      (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.kT) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout) |
+       reinterpret_cast<uintptr_t>(a.lse) |
+       reinterpret_cast<uintptr_t>(a.delta)) % 16)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the instantiation: hd's bucket, a bias (or dbias), dropout
+  const int k = (hd > 64) * 4 + (a.bias != nullptr) * 2 + (a.dropout != 0);
+  using Launch = int (*)(int, const BwdArgs&, cudaStream_t);
+  if (which == 0) {
+    constexpr Launch dkv[8] = {
+        launch_dkv_wgmma<64, false, false>, launch_dkv_wgmma<64, false, true>,
+        launch_dkv_wgmma<64, true, false>, launch_dkv_wgmma<64, true, true>,
+        launch_dkv_wgmma<128, false, false>,
+        launch_dkv_wgmma<128, false, true>,
+        launch_dkv_wgmma<128, true, false>, launch_dkv_wgmma<128, true, true>};
+    return dkv[k](bh, a, st);
+  }
+  constexpr Launch dq[8] = {
+      launch_dq_wgmma<64, false, false>, launch_dq_wgmma<64, false, true>,
+      launch_dq_wgmma<64, true, false>, launch_dq_wgmma<64, true, true>,
+      launch_dq_wgmma<128, false, false>, launch_dq_wgmma<128, false, true>,
+      launch_dq_wgmma<128, true, false>, launch_dq_wgmma<128, true, true>};
+  return dq[k](bh, a, st);
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -1233,40 +1797,26 @@ static int launch_mma_pair(int which, int bh, const BwdArgs& a,
                 dim3(bh, a.s / BQ), MB_THREADS, a, st);
 }
 
-// bf16: hd padded to the forward's buckets (kernels/attention.py _MMA_HDP);
-// 64- and 32-column K tiles up to a padded 128, 32 past it, where the dK/dV
-// kernel splits each key group's columns over two warps
-// (kernels/attention.bwd_configs mirrors this)
-static int launch_mma_hd(int which, int hd, int bk, int bh, const BwdArgs& a,
+// bf16 past hd 128: 32-column K tiles, hd padded to 192 or 256
+// (kernels/attention.py _MMA_HDP), the dK/dV kernel splitting each key
+// group's columns over two warps
+static int launch_mma_hd(int which, int hd, int bh, const BwdArgs& a,
                          cudaStream_t st) {
-  if (bk == 64) {
-    if (hd <= 32) return launch_mma_pair<32, 64>(which, bh, a, st);
-    if (hd <= 64) return launch_mma_pair<64, 64>(which, bh, a, st);
-    if (hd <= 96) return launch_mma_pair<96, 64>(which, bh, a, st);
-    if (hd <= 128) return launch_mma_pair<128, 64>(which, bh, a, st);
-    return cudaErrorInvalidValue;
-  }
-  if (bk == 32) {
-    if (hd <= 32) return launch_mma_pair<32, 32>(which, bh, a, st);
-    if (hd <= 64) return launch_mma_pair<64, 32>(which, bh, a, st);
-    if (hd <= 96) return launch_mma_pair<96, 32>(which, bh, a, st);
-    if (hd <= 128) return launch_mma_pair<128, 32>(which, bh, a, st);
-    if (hd <= 192) return launch_mma_pair<192, 32>(which, bh, a, st);
-    return launch_mma_pair<256, 32>(which, bh, a, st);
-  }
-  return cudaErrorInvalidValue;
+  if (hd <= 192) return launch_mma_pair<192, 32>(which, bh, a, st);
+  return launch_mma_pair<256, 32>(which, bh, a, st);
 }
 
-// the type picks the kernels: f32 the TMA-fed FMA ones (one tile per hd
-// bucket; bk unused), bf16 the tensor-core ones with bk-column K tiles
-static int run(int which, BwdArgs& a, int bh, int type, int bk,
-               void* stream) {
+// the type and hd pick the kernels (kernels/attention.py flash_bwd_path):
+// f32 the TMA-fed FMA ones (one tile per hd bucket), bf16 the wgmma ones up
+// to hd 128 and the mma.sync ones past it
+static int run(int which, BwdArgs& a, int bh, int type, void* stream) {
   if (type == T_F32) return run_tma_fma(which, a, bh, stream);
+  if (type != T_BF16) return cudaErrorInvalidValue;
+  if (a.hd <= FW_HDP_MAX) return run_wgmma(which, a, bh, stream);
   const int s = a.s, hd = a.hd;
-  if (type != T_BF16 || bk <= 0 || s <= 0 || s % BQ || s % bk ||
-      s / bk > 65535 || hd <= 0 || hd % 8 || hd > 256 || bh <= 0)
+  if (s <= 0 || s % BQ || s / 32 > 65535 || hd % 8 || hd > 256 || bh <= 0)
     return cudaErrorInvalidValue;
-  return launch_mma_hd(which, hd, bk, bh, a, static_cast<cudaStream_t>(stream));
+  return launch_mma_hd(which, hd, bh, a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" {
@@ -1278,9 +1828,9 @@ const char* xsmm_error_string(int err) {
 // q, v, dout: (bh, s, hd); kT: (bh, hd, s); lse, delta: f32 (bh, s); bias:
 // f32 (s, s) per head at bias + b * bias_stride, or null; dkT: (bh, hd, s);
 // dv: (bh, s, hd); dbias: f32 (bh, s, s) or null; q, kT, v, dout, lse and
-// delta 16-byte aligned. hd % 8 == 0, hd <= 256. bf16 runs the tensor-core
-// kernels (s % 64 == 0, s % bk == 0, bk in {32, 64}, 64 only for hd <=
-// 128), f32 the TMA-fed FMA ones (s % 128 == 0; bk unused). (b0, h0, nhl,
+// delta 16-byte aligned. hd % 8 == 0, hd <= 256. bf16 runs the wgmma
+// kernels up to hd 128 (s % 128 == 0) and the mma.sync ones past it
+// (s % 64 == 0), f32 the TMA-fed FMA ones (s % 128 == 0). (b0, h0, nhl,
 // nhg): the dropout hash's head map (HeadMap, xsmm_common.cuh); 0, 0, 1, 1
 // hashes the local batch-head. A refused map or launch returns its error;
 // the wrapper raises.
@@ -1288,7 +1838,7 @@ int xsmm_flash_bwd_dkv(const void* q, const void* kT, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const float* bias, long long bias_stride, void* dkT,
                        void* dv, float* dbias, int bh, int s, int hd, int type,
-                       int bk, float scale, int causal, int dropout,
+                       float scale, int causal, int dropout,
                        unsigned seed, unsigned thr, float inv_keep,
                        unsigned b0, unsigned h0, unsigned nhl, unsigned nhg,
                        void* stream) {
@@ -1296,14 +1846,14 @@ int xsmm_flash_bwd_dkv(const void* q, const void* kT, const void* v,
   BwdArgs a{q, kT, v, dout, lse, delta, bias, bias_stride, nullptr, dkT, dv,
             dbias, s, hd, scale, causal, dropout, seed, thr, inv_keep,
             HeadMap{b0, h0, nhl, nhg}};
-  return run(0, a, bh, type, bk, stream);
+  return run(0, a, bh, type, stream);
 }
 
 // the same operands; dq: (bh, s, hd)
 int xsmm_flash_bwd_dq(const void* q, const void* kT, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       const float* bias, long long bias_stride, void* dq,
-                      int bh, int s, int hd, int type, int bk, float scale,
+                      int bh, int s, int hd, int type, float scale,
                       int causal, int dropout, unsigned seed, unsigned thr,
                       float inv_keep, unsigned b0, unsigned h0, unsigned nhl,
                       unsigned nhg, void* stream) {
@@ -1311,7 +1861,7 @@ int xsmm_flash_bwd_dq(const void* q, const void* kT, const void* v,
   BwdArgs a{q, kT, v, dout, lse, delta, bias, bias_stride, dq, nullptr,
             nullptr, nullptr, s, hd, scale, causal, dropout, seed, thr,
             inv_keep, HeadMap{b0, h0, nhl, nhg}};
-  return run(1, a, bh, type, bk, stream);
+  return run(1, a, bh, type, stream);
 }
 
 }  // extern "C"

@@ -124,8 +124,8 @@ def test_bwd_plain_parity(dt, opt):
 def test_bwd_block_override_parity(dt):
     """The reference's multi-block schedule (block_override=(128, 128):
     dK/dV accumulate over two Q blocks, dQ over two K blocks, causal skips)
-    against the port at the same override, which picks the bf16 kernels'
-    CUDA tile (the f32 kernels have one tile per hd bucket)."""
+    against the port at the same override, which only has to tile s (the
+    bf16 wgmma kernels at this hd and the f32 ones take one tile each)."""
     bh, s, hd = 2, 256, 64
     kw = {"causal": True, "dropout_p": 0.1, "bias_bh": bh, "bias_grad": True}
     jargs, targs = bwd_operands(dt, bh, s, hd, kw, seed=7)
@@ -134,7 +134,7 @@ def test_bwd_block_override_parity(dt):
                                        **kw)(*jargs)
     fn = pa.build_flash_attention_bwd(bh, s, hd, TORCH[dt],
                                       block_override=(128, 128), **kw)
-    assert (fn.block_q, fn.block_k) == ((64, 64) if dt == BF16
+    assert (fn.block_q, fn.block_k) == ((64, 128) if dt == BF16
                                         else (None, None))
     for r, g in zip(ref, fn(*targs)):
         same(r, g, dt)
@@ -168,11 +168,15 @@ def test_bwd_factory_refusals_and_configs():
                                      bias_grad=True)
     with pytest.raises(ValueError, match="unsupported flash shape"):
         pa.build_flash_attention_bwd(2, 200, 32, torch.float32)
-    # the bf16 kernels' configurations; f32 takes one tile per hd bucket
-    for hd, want in ((32, [(64, 64), (64, 32)]), (128, [(64, 64), (64, 32)]),
-                     (192, [(64, 32)]), (256, [(64, 32)])):
-        assert pa.bwd_configs(hd) == pa.bwd_configs(hd, "dq") == want
-        assert pa._bwd_smem_bytes(hd, want[-1][1]) <= 232448
+    # the bf16 kernels' configurations (the wgmma tile up to hd 128, dQ's
+    # 128 rows; the mma.sync tile past it); f32 takes one tile per hd bucket
+    for hd, want, want_dq in ((32, (64, 128), (128, 128)),
+                              (128, (64, 128), (128, 128)),
+                              (192, (64, 32), (64, 32)),
+                              (256, (64, 32), (64, 32))):
+        assert pa.bwd_configs(hd) == [want]
+        assert pa.bwd_configs(hd, "dq") == [want_dq]
+    assert pa._bwd_smem_bytes(256, 32) <= 232448
     with pytest.raises(ValueError, match="one tile per hd bucket"):
         pa.bwd_configs(128, "dq", torch.float32)
     fn = pa.build_flash_attention_bwd(2, 256, 128, torch.float32)
@@ -185,7 +189,7 @@ def test_bwd_factory_refusals_and_configs():
                                      block_override=(100, 128))
     fn = pa.build_flash_attention_bwd(2, 256, 128, torch.bfloat16,
                                       block_override=(128, 128))
-    assert (fn.block_k, fn.block_k_dq) == (64, 64)
+    assert (fn.path, fn.block_k, fn.block_k_dq) == ("wgmma", 128, 128)
     fn = pa.build_flash_attention_bwd(2, 256, 256, torch.bfloat16,
                                       block_override=(256, 256))
     assert (fn.block_q, fn.block_k, fn.block_k_dq) == (64, 32, 32)

@@ -14,8 +14,9 @@ Tolerances (matdiff normf_rel, kernel against plain on the same inputs):
 summation order shows more than in the forward); 1e-2 for bf16 outputs and
 for dbias from bf16 inputs (p~ and dS are rounded to bf16 against scores
 that differ in the last f32 bits, then the outputs are rounded to bf16).
-bf16 runs the tensor-core kernels, f32 the TMA-fed FMA ones (route
-"tma_fma"); the tests set and assert TF32 off.
+bf16 runs the tensor-core kernels (route "wgmma" up to hd 128, "mma"
+past it), f32 the TMA-fed FMA ones (route "tma_fma"); the tests set and
+assert TF32 off.
 """
 
 import pytest
@@ -93,9 +94,14 @@ def _same(got, want, dtype):
                          ids=["f32", "bf16"])
 def test_bwd_kernels_match_plain(gen, dtype, hd, flag):
     fn, args = _bwd_case(gen, 3, 256, hd, dtype, flag)
-    assert fn.path == ("mma" if dtype == torch.bfloat16 else "tma_fma")
+    assert fn.path == ka.flash_bwd_path(dtype, hd) == (
+        "tma_fma" if dtype == torch.float32 else
+        "wgmma" if hd <= 128 else "mma")
     before = dict(ka.launches)
+    routes = {k: dict(v) for k, v in ka.path_launches.items()}
     got = fn(*args)
+    for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert ka.path_launches[k][fn.path] == routes[k][fn.path] + 1
     assert ka.launches["flash_attention_bwd_dkv"] == \
         before["flash_attention_bwd_dkv"] + 1
     assert ka.launches["flash_attention_bwd_dq"] == \
@@ -106,16 +112,18 @@ def test_bwd_kernels_match_plain(gen, dtype, hd, flag):
 
 
 @pytest.mark.parametrize("config", [(64, 64), (64, 32)])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("flag", ["plain", "causal_dropout_bias_grad"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_bwd_tile_configs(gen, dtype, flag, hd, config):
     fn, args = _bwd_case(gen, 2, 384, hd, dtype, flag,
                          block_override=config)
-    # the bf16 kernels take the override's tile; f32 keeps its own
-    assert (fn.block_q, fn.block_k, fn.block_k_dq) == (
-        config + config[1:] if dtype == torch.bfloat16 else (None,) * 3)
+    # an override only has to tile s on the wgmma (bf16 up to hd 128) and
+    # tma_fma (f32) routes; the mma.sync kernels take the tile within it
+    want = ((None,) * 3 if dtype == torch.float32 else (64, 128, 128)
+            if hd <= 128 else (64, 32, 32))
+    assert (fn.block_q, fn.block_k, fn.block_k_dq) == want
     _same(fn(*args), fn.plain(*args), dtype)
 
 
@@ -195,74 +203,90 @@ def test_bwd_f32_offset_view(gen):
     got = fn(*args)
     assert fn.path == "tma_fma"
     for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        assert ka.path_launches[k] == {"mma": before[k]["mma"],
-                                       "tma_fma": before[k]["tma_fma"] + 1}
+        assert ka.path_launches[k] == dict(before[k], tma_fma=before[k][
+            "tma_fma"] + 1)
     _same(got, fn.plain(*args), torch.float32)
 
 
-# bf16 head dims: every bucket of the tensor-core kernels
-# (kernels/attention.py _MMA_HDP: 32, 64, 96, 128, 192, 256) and head dims
-# zero-padded into them
-BUCKET_HDS = [32, 40, 64, 80, 96, 104, 128, 136, 192, 200, 256]
+# bf16 head dims past 128, the mma.sync kernels': both buckets
+# (kernels/attention.py _MMA_HDP: 192, 256) and head dims zero-padded into
+# them
+BUCKET_HDS = [136, 160, 192, 200, 232, 256]
 
 
 @pytest.mark.parametrize("flag", ["plain", "causal_dropout_bias_grad"])
 @pytest.mark.parametrize("hd", BUCKET_HDS)
 def test_bwd_mma_every_bucket(gen, hd, flag):
-    """The tensor-core dK/dV and dQ kernels at every bucket and at each of
-    its tile widths (64 and 32 key columns up to a padded 128, 32 past it)
-    against their plain versions."""
-    for config in ka.bwd_configs(hd, "dkv", torch.bfloat16):
-        fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, flag,
-                             block_override=config)
-        assert fn.path == "mma" and fn.block_k == fn.block_k_dq == config[1]
-        _same(fn(*args), fn.plain(*args), torch.bfloat16)
+    """The mma.sync dK/dV and dQ kernels at every bucket they take, on
+    their 32-column K tile, against their plain versions; the launches
+    count their route."""
+    fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, flag)
+    assert fn.path == "mma" and fn.block_k == fn.block_k_dq == 32
+    before = {k: dict(v) for k, v in ka.path_launches.items()}
+    got = fn(*args)
+    for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert ka.path_launches[k] == dict(before[k], mma=before[k][
+            "mma"] + 1)
+    _same(got, fn.plain(*args), torch.bfloat16)
 
 
-@pytest.mark.parametrize("config", [(64, 64), (64, 32)])
+@pytest.mark.parametrize("config", [None, (64, 32)])
 @pytest.mark.parametrize("s", [384, 640])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [192, 256])
 def test_bwd_mma_causal_odd_tile_counts(gen, hd, s, config):
-    """Causal at s = 384 and 640 (6 and 10 Q tiles, 6-20 K tiles: 128 | s
-    is the entry's envelope, so s is always a multiple of the key tile),
-    with dbias: the diagonal crosses each tile width's tiles differently,
-    and dbias is zero wherever the key follows the query."""
+    """Causal at s = 384 and 640 (6 and 10 Q tiles, 12 and 20 K tiles),
+    with dbias, by default and under the smallest override: the diagonal
+    crosses the tiles, and dbias is zero wherever the key follows the
+    query."""
     fn, args = _bwd_case(gen, 2, s, hd, torch.bfloat16,
                          "causal_dropout_bias_grad", block_override=config)
+    assert fn.path == "mma" and fn.block_k == 32
     got = fn(*args)
     _same(got, fn.plain(*args), torch.bfloat16)
     upper = torch.ones(s, s, dtype=torch.bool, device="cuda").triu(1)
     assert bool((got[3][:, upper] == 0).all())
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [136, 192, 256])
 def test_bwd_mma_dropout_each_gradient(gen, hd):
     """Dropout: dQ, dK^T and dV each against the plain version's, whose
     mask is the position hash of (query row i, key column j). The dK/dV
     kernel's fragments hold keys as rows, so a swapped (i, j) there would
     show in dK^T and dV even where dQ agrees."""
     fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, "dropout")
+    assert fn.path == "mma"
+    _each_gradient(fn, args)
+
+
+def _each_gradient(fn, args):
     want = fn.plain(*args)
-    dkT, dv = fn.dkv(*args)
+    dkv = fn.dkv(*args)    # dkT, dv (and dbias)
     dq = fn.dq(*args)
     torch.cuda.synchronize()
-    for g, w in zip((dq, dkT, dv), want):
+    assert len(dkv) + 1 == len(want)
+    for g, w in zip((dq,) + tuple(dkv), want):
         assert g.shape == w.shape and g.dtype == w.dtype
         check(w.float(), g.float(), margin=TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("flag", ["bias1", "bias_bh_grad"])
-@pytest.mark.parametrize("hd", [80, 128])
+@pytest.mark.parametrize("hd", [200, 256])
 def test_bwd_mma_bias(gen, hd, flag):
     """Broadcast bias (bias_bh 1) and a per-head bias with dbias."""
     fn, args = _bwd_case(gen, 3, 256, hd, torch.bfloat16, flag)
+    assert fn.path == "mma"
     _same(fn(*args), fn.plain(*args), torch.bfloat16)
 
 
 def test_bwd_mma_unaligned_views(gen):
     """q, kT, v and dout 2-14 bytes past a 16-byte boundary, lse and delta
     4 bytes past one: the wrapper copies them for the 16-byte staging."""
-    fn, args = _bwd_case(gen, 2, 256, 96, torch.bfloat16, "causal")
+    fn, args = _bwd_case(gen, 2, 256, 200, torch.bfloat16, "causal")
+    assert fn.path == "mma"
+    _unaligned(fn, args)
+
+
+def _unaligned(fn, args):
     seed, rest = args[0], args[1:7]
 
     def shifted(t, elems):
@@ -278,8 +302,99 @@ def test_bwd_mma_unaligned_views(gen):
 
 
 def test_bwd_mma_deterministic(gen):
-    fn, args = _bwd_case(gen, 2, 256, 128, torch.bfloat16,
+    fn, args = _bwd_case(gen, 2, 256, 256, torch.bfloat16,
                          "causal_dropout_bias_grad")
+    assert fn.path == "mma"
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# the wgmma route: both of its hd buckets (64, 128) and head dims zero-padded
+# into them
+WG_HDS = [8, 32, 40, 64, 72, 80, 96, 104, 128]
+
+
+@pytest.mark.parametrize("flag", FLAGS)
+@pytest.mark.parametrize("hd", WG_HDS)
+def test_bwd_wgmma_every_bucket(gen, hd, flag):
+    """The wgmma dK/dV and dQ kernels at every hd they take and every form
+    against their plain versions; the launches count their route."""
+    fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, flag)
+    assert fn.path == "wgmma" and fn.block_k == fn.block_k_dq == 128
+    before = {k: dict(v) for k, v in ka.path_launches.items()}
+    got = fn(*args)
+    for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert ka.path_launches[k] == dict(before[k], wgmma=before[k][
+            "wgmma"] + 1)
+    _same(got, fn.plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [384, 640, 1152])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_bwd_wgmma_causal_odd_tile_counts(gen, hd, s):
+    """Causal with dropout and dbias at 3, 5 and 9 blocks of 128 keys (6,
+    10 and 18 Q stages): the diagonal crosses the first stage of each
+    block, and dbias is zero wherever the key follows the query."""
+    fn, args = _bwd_case(gen, 2, s, hd, torch.bfloat16,
+                         "causal_dropout_bias_grad")
+    assert fn.path == "wgmma"
+    got = fn(*args)
+    _same(got, fn.plain(*args), torch.bfloat16)
+    upper = torch.ones(s, s, dtype=torch.bool, device="cuda").triu(1)
+    assert bool((got[3][:, upper] == 0).all())
+
+
+@pytest.mark.parametrize("flag", ["dropout", "causal_dropout_bias_grad"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_bwd_wgmma_dropout_each_gradient(gen, hd, flag):
+    """Dropout: dQ, dK^T and dV each against the plain version's. The
+    dK/dV kernel's accumulators hold keys as rows, so a swapped (i, j) in
+    its hash would show in dK^T and dV even where dQ agrees."""
+    fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, flag)
+    assert fn.path == "wgmma"
+    _each_gradient(fn, args)
+
+
+@pytest.mark.parametrize("flag", ["bias1", "bias_bh_grad"])
+@pytest.mark.parametrize("hd", [40, 80, 128])
+def test_bwd_wgmma_bias(gen, hd, flag):
+    """Broadcast bias (bias_bh 1) and a per-head bias with dbias."""
+    fn, args = _bwd_case(gen, 3, 512, hd, torch.bfloat16, flag)
+    assert fn.path == "wgmma"
+    _same(fn(*args), fn.plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [64, 96])
+def test_bwd_wgmma_unaligned_views(gen, hd):
+    """q, kT, v and dout 2-14 bytes past a 16-byte boundary, lse and delta
+    4 bytes past one: the wrapper copies them for TMA."""
+    fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, "causal")
+    assert fn.path == "wgmma"
+    _unaligned(fn, args)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_bwd_wgmma_head_map(gen, hd, causal):
+    """A head map under dropout: both kernels hash the global batch-head,
+    as the plain version does, and other bits than the local index draws."""
+    flag = ("causal_" if causal else "") + "dropout_head_map"
+    fn, args = _bwd_case(gen, 4, 256, hd, torch.bfloat16, flag)
+    assert fn.path == "wgmma" and fn.head_map != ka.NO_HEAD_MAP
+    got = fn(*args)
+    _same(got, fn.plain(*args), torch.bfloat16)
+    local = ka.build_flash_attention_bwd(4, 256, hd, torch.bfloat16,
+                                         causal=causal, dropout_p=0.2)
+    assert not torch.equal(local(*args)[2], got[2])
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_bwd_wgmma_deterministic(gen, hd):
+    """Each output tile has one writer: two calls give the same bits."""
+    fn, args = _bwd_case(gen, 2, 512, hd, torch.bfloat16,
+                         "causal_dropout_bias_grad")
+    assert fn.path == "wgmma"
     a, b = fn(*args), fn(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -42,8 +42,9 @@ def test_f32_takes_tma_fma_at_every_hd(hd):
     """The dtype picks the kernel: f32 runs tma_fma (one tile per hd
     bucket, so no tile to keep: block_q and block_k are None, and a
     block_override only has to tile s), bf16 the tensor cores."""
-    assert pa.flash_path(F32) == pa.flash_bwd_path(F32) == "tma_fma"
-    assert pa.flash_path(BF16) == pa.flash_bwd_path(BF16) == "mma"
+    assert pa.flash_path(F32) == pa.flash_bwd_path(F32, hd) == "tma_fma"
+    assert pa.flash_path(BF16) == "mma"
+    assert pa.flash_bwd_path(BF16, hd) == ("wgmma" if hd <= 128 else "mma")
     for override in (None, (128, 128), (256, 128)):
         fn = pa.build_flash_attention(2, 256, hd, F32, causal=True,
                                       block_override=override)
@@ -73,19 +74,22 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
     assert all(c == 0 for counts in pa.path_launches.values()
                for c in counts.values())
     assert set(pa.path_launches["flash_attention_bwd_dq"]) == \
-        {"mma", "tma_fma"} == set(pa.ROUTES)
+        {"mma", "tma_fma", "wgmma"} == set(pa.ROUTES)
 
 
 def test_entries_name_the_kernels_of_both_routes():
-    """Each counter names its bf16 and its f32 kernel, each defined in its
-    source, and nothing else."""
+    """Each counter names the kernels of its routes (bf16 and f32; the
+    backward's bf16 wgmma and mma.sync ones), each defined in its source,
+    and nothing else."""
     for counter, kernels in (
             ("flash_attention_fwd",
              ("flash_fwd_mma_kernel", "flash_fwd_tma_fma_kernel")),
             ("flash_attention_bwd_dkv",
-             ("flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_tma_fma_kernel")),
+             ("flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_tma_fma_kernel",
+              "flash_bwd_dkv_wgmma_kernel")),
             ("flash_attention_bwd_dq",
-             ("flash_bwd_dq_mma_kernel", "flash_bwd_dq_tma_fma_kernel"))):
+             ("flash_bwd_dq_mma_kernel", "flash_bwd_dq_tma_fma_kernel",
+              "flash_bwd_dq_wgmma_kernel"))):
         stem, names = pa.ENTRIES[counter]
         assert names == kernels
         text = (CSRC / f"{stem}.cu").read_text()

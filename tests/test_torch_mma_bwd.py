@@ -1,11 +1,13 @@
-"""The flash backward's tensor-core form, on the CPU: which CUDA kernels a
-backward call takes (`flash_bwd_path`, the predicate that mirrors the
-choice csrc makes), the bf16 tile configurations and their shared memory at
-every head-dim bucket, the f32 configurations unchanged, and the bf16
-wrapper at shapes that reach the tensor-core kernels on the card (hd 64 and
-a padded 80), held against the JAX package on the same numpy inputs. The
-port's wrapper runs its plain version on CPU tensors; the JAX side runs as
-its own tests run it (the Pallas kernels in interpret mode).
+"""The flash backward's tensor-core forms, on the CPU: which CUDA kernels
+a backward call takes (`flash_bwd_path`, the predicate that mirrors the
+choice csrc makes: the wgmma kernels up to hd 128, mma.sync past it), the
+bf16 tile configurations at every head-dim bucket and the mma.sync
+kernels' shared memory, the f32 configurations unchanged, and the bf16
+wrapper at shapes that reach the tensor-core kernels on the card (hd 64
+and a padded 80 on wgmma, a padded 200 on mma.sync) held against the JAX
+package on the same numpy inputs. The port's wrapper runs its plain
+version on CPU tensors; the JAX side runs as its own tests run it (the
+Pallas kernels in interpret mode).
 
 Tolerance (matdiff normf_rel): 1e-2 for the bf16 gradients (p~ and dS are
 rounded to bf16 against scores that differ in the last f32 bits, then each
@@ -30,11 +32,18 @@ TOL = 1e-2
 
 
 def test_flash_bwd_path():
-    """bf16 takes the tensor-core kernels, f32 the TMA-fed FMA ones (no
-    TF32)."""
-    assert pa.flash_bwd_path(BF16) == "mma"
+    """bf16 takes the wgmma kernels up to hd 128 and the mma.sync ones past
+    it, whatever the tile override; f32 the TMA-fed FMA ones (no TF32)."""
+    assert pa.flash_bwd_path(BF16, 40) == "wgmma"
+    assert pa.flash_bwd_path(BF16, 128) == "wgmma"
+    assert pa.flash_bwd_path(BF16, 136) == "mma"
     assert pa.flash_bwd_path(F32) == "tma_fma"
-    assert pa.build_flash_attention_bwd(2, 128, 40, BF16).path == "mma"
+    with pytest.raises(ValueError, match="depends on hd"):
+        pa.flash_bwd_path(BF16)
+    assert pa.build_flash_attention_bwd(2, 128, 40, BF16).path == "wgmma"
+    assert pa.build_flash_attention_bwd(
+        2, 128, 40, BF16, block_override=(64, 64)).path == "wgmma"
+    assert pa.build_flash_attention_bwd(2, 128, 136, BF16).path == "mma"
     assert pa.build_flash_attention_bwd(2, 128, 40, F32).path == "tma_fma"
 
 
@@ -43,16 +52,21 @@ def test_flash_bwd_path():
     (8, 32), (32, 32), (40, 64), (64, 64), (80, 96), (96, 96), (104, 128),
     (128, 128), (136, 192), (192, 192), (200, 256), (256, 256)])
 def test_bf16_bwd_configs(hd, hdp, kernel):
-    """64- then 32-column K tiles up to a padded 128, 32 alone past it;
-    every configuration's shared memory fits a block."""
+    """Up to a padded 128 the wgmma tile (128 K columns), past it the
+    mma.sync kernels' 32-column K tile, whose shared memory fits a block."""
     assert pa._mma_hdp(hd) == hdp
     configs = pa.bwd_configs(hd, kernel, BF16)
-    want = [(64, 64), (64, 32)] if hdp <= 128 else [(64, 32)]
-    assert configs == want
-    for _, bk in configs:
-        assert pa._bwd_smem_bytes(hd, bk, kernel, BF16) <= SMEM_MAX
+    wg = (64, 128) if kernel == "dkv" else (128, 128)
+    assert configs == ([wg] if hdp <= 128 else [(64, 32)])
+    if hdp > 128:
+        assert pa._bwd_smem_bytes(hd, 32, kernel, BF16) <= SMEM_MAX
     fn = pa.build_flash_attention_bwd(2, 256, hd, BF16)
-    assert (fn.block_q, fn.block_k, fn.block_k_dq) == (64,) + (want[0][1],) * 2
+    if hdp <= 128:
+        assert (fn.path, fn.block_q, fn.block_k, fn.block_q_dq,
+                fn.block_k_dq) == ("wgmma", 64, 128, 128, 128)
+    else:
+        assert (fn.path, fn.block_q, fn.block_k, fn.block_k_dq) == (
+            "mma", 64, 32, 32)
 
 
 def test_bf16_bwd_smem_bytes():
@@ -71,7 +85,7 @@ def test_bf16_bwd_smem_bytes():
 def test_f32_bwd_configs_keep_their_values():
     """The configurations are the bf16 kernels' (the default dtype); the
     f32 kernels take one tile per hd bucket, so f32 has none to pick."""
-    for hd, want in ((32, [(64, 64), (64, 32)]), (128, [(64, 64), (64, 32)]),
+    for hd, want in ((32, [(64, 128)]), (128, [(64, 128)]),
                      (192, [(64, 32)]), (256, [(64, 32)])):
         assert pa.bwd_configs(hd) == pa.bwd_configs(hd, "dkv", BF16) == want
     assert pa._bwd_smem_bytes(128, 64) == \
@@ -87,16 +101,21 @@ def test_f32_bwd_configs_keep_their_values():
 
 @pytest.mark.parametrize("hd", [40, 64, 128, 256])
 def test_bf16_bwd_block_override_picks(hd):
-    """The TPU tile stays an upper bound on each bf16 kernel's tile."""
-    wide = pa._mma_hdp(hd) <= 128
-    for override, want in (((128, 128), 64 if wide else 32),
-                           ((64, 32), 32), ((256, 64), 64 if wide else 32)):
+    """Up to hd 128 an override only has to tile s: the wgmma kernels keep
+    their one tile each. Past it the TPU tile stays an upper bound on the
+    mma.sync kernels' 32-column tile, and one under it is refused."""
+    wide = hd <= 128
+    for override in ((128, 128), (64, 32), (256, 64), (64, 16)):
+        if not wide and override == (64, 16):
+            with pytest.raises(ValueError, match="smaller than every"):
+                pa.build_flash_attention_bwd(2, 256, hd, BF16,
+                                             block_override=override)
+            continue
         fn = pa.build_flash_attention_bwd(2, 256, hd, BF16,
                                           block_override=override)
-        assert (fn.block_q, fn.block_k, fn.block_k_dq) == (64, want, want)
-    with pytest.raises(ValueError, match="smaller than every"):
-        pa.build_flash_attention_bwd(2, 256, hd, BF16,
-                                     block_override=(64, 16))
+        assert (fn.block_q, fn.block_k, fn.block_q_dq, fn.block_k_dq) == (
+            (64, 128, 128, 128) if wide else (64, 32, 64, 32))
+        assert fn.path == ("wgmma" if wide else "mma")
 
 
 def bwd_operands(bh, s, hd, kw, seed):
@@ -139,11 +158,12 @@ FLAGS = {
 
 
 @pytest.mark.parametrize("flag", list(FLAGS))
-@pytest.mark.parametrize("hd,s", [(64, 256), (80, 128)])
+@pytest.mark.parametrize("hd,s", [(64, 256), (80, 128), (200, 128)])
 def test_bf16_bwd_mma_shapes_parity(hd, s, flag):
-    """bf16 backward at hd 64 and 80 (padded to 96 on the card), each flag,
-    against the JAX package's two backward kernels on the same operands:
-    dQ, dK^T and dV (and dbias) each within the margin."""
+    """bf16 backward at hd 64 and 80 (the wgmma route; 80 padded to 128)
+    and 200 (the mma.sync route, padded to 256), each flag, against the JAX
+    package's two backward kernels on the same operands: dQ, dK^T and dV
+    (and dbias) each within the margin."""
     bh = 2
     kw = dict(FLAGS[flag])
     if kw.get("bias_bh") == "bh":
@@ -151,7 +171,9 @@ def test_bf16_bwd_mma_shapes_parity(hd, s, flag):
     jargs, targs = bwd_operands(bh, s, hd, kw, seed=hd + s)
     ref = ra.build_flash_attention_bwd(bh, s, hd, jnp.bfloat16, **kw)(*jargs)
     fn = pa.build_flash_attention_bwd(bh, s, hd, BF16, **kw)
-    assert fn.path == "mma" and (fn.block_k, fn.block_k_dq) == (64, 64)
+    assert fn.path == ("wgmma" if hd <= 128 else "mma")
+    assert (fn.block_k, fn.block_k_dq) == ((128, 128) if hd <= 128
+                                           else (32, 32))
     got = fn(*targs)
     assert len(got) == len(ref) == (4 if kw.get("bias_grad") else 3)
     for i, (r, g) in enumerate(zip(ref, got)):
