@@ -10,9 +10,10 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
 2. builds the hand-written kernels from libxsmm_torch/kernels/csrc/ with
    nvcc for sm_90a (one nvcc per source, all started together) and prints
    the build time, the spills per source and the registers and spills of
-   each pipelined kernel (the bf16 flash forward and backward, the BCSC
-   SpMM and the k-union SpMM on the tensor cores and on tma_fma (f32), the
-   packed BRGEMM's wgmma and tma_fma kernels
+   each pipelined kernel (the bf16 flash forward on wgmma, the backward on
+   wgmma and on mma.sync, the BCSC SpMM on wgmma and on mma.sync, the k-union SpMM on
+   mma.sync, both SpMMs on tma_fma (f32), the packed BRGEMM's wgmma and
+   tma_fma kernels
    and twins, the batched SMM's ring kernel, the BCSC lab's chunkN and
    dspipe probes, the BCSC densifier's two routes);
 3. drives the small-GEMM main path through the public entry points, with
@@ -49,8 +50,13 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    - the bf16 block seeded (dropout_p=0.1, seed=7): finite, repeatable,
      the FFN keep rate within 4 sigma of 0.9;
    - dispatch_flash_attention at bench.py's serving shape (bh=16, s=2048,
-     hd=128, bf16, the tensor-core kernel, asserted): plain, causal,
-     dropout, bias per head and broadcast, and the LSE output; f32 at
+     hd=128, bf16, the wgmma kernel, asserted by launches): plain, causal,
+     dropout with and without a head map, bias per head and broadcast, and
+     the LSE output, one call lowered (lower_text names the wgmma entry);
+     the same forms at the encoder block's (96, 512, 64) and past hd 128
+     at (2, 256, 192) and (16, 1024, 256), on wgmma's 64-key tiles there
+     (each route asserted by launches; one call lowered at the bench's
+     shape, the block's and (16, 1024, 256)); f32 at
      (4, 1024, 64) and hd=256 at (2, 256, 256) on the tma_fma route
      (asserted by route count): through the entry point, then plain,
      causal, dropout with a head map, bias per head and broadcast, causal
@@ -95,10 +101,12 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    case (m = 32768 rows of A through the bcsc20 and bcsc05 patterns), an
    f32 case (m = 4096), the f32 streaming case at full width (m = 32768,
    the bcsc20 pattern, f32 in and out) and a ragged one (m = 1000); each
-   result against the float64 dense product; the bf16 cases' "pallas",
-   "super" and union strategies must take the tensor-core kernels and the
-   f32 cases the TMA-fed FMA kernels (the path predicate and every call's
-   launch by route, asserted); union, union2 and union3 must
+   result against the float64 dense product; the bf16 cases' "pallas" and
+   "super" strategies must take the wgmma kernel, their union strategies
+   the mma.sync kernel, and the f32 cases the TMA-fed FMA kernels (the
+   path predicate and every call's launch by route, asserted); "pallas"
+   at 16 x 64 bf16 blocks the scheduled mma.sync kernel (asserted, against
+   float64); union, union2 and union3 must
    launch the RHS compactor and the union4 names and union5 must not (the
    counter read around each call); prints the auto picks, the clustering
    decision and both union depths; fails unless all five kernels were
@@ -248,9 +256,13 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     flash backward's dK/dV and dQ, the scheduled, union and supertile
     SpMM) it asserts the path and prints the achieved TFLOP/s (of the
     kernel's own products and of the useful ones) and the kernel / library
-    ratio; the bf16 backward's mma.sync kernels get rows of their own at
-    (16, 1024, 256), and its wgmma kernels' forms at both flash shapes,
-    causal and not, come from scripts/flash_bwd_time.rows_at beside SDPA's
+    ratio; the bf16 forward's wgmma kernel past hd 128 and the backward's
+    mma.sync kernels get rows of their own at (16, 1024, 256), the
+    scheduled SpMM's mma.sync kernel at
+    16 x 64 blocks; the wgmma rows (flash forward, scheduled and supertile
+    SpMM) carry device time and CUDA-graph replay beside their events, and
+    the flash wgmma kernels' forms at both flash shapes, causal and not,
+    come from scripts/flash_bwd_time.fwd_rows_at and rows_at beside SDPA's
     bf16 backends;
 15. drives the tooling at full width: Kernel.lower_text of
     dispatch_gemm_batched_packed at the headline (16384 x 32^3 f32) and of
@@ -384,11 +396,12 @@ COMPACTED = ("union", "union2", "union3")
 MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("gemm_kernels", "brgemm_partial_tma_fma_kernel"),
                ("gemm_kernels", "batched_gemm_ring_kernel"),
+               ("spmm_kernels", "bcsc_spmm_wgmma_kernel"),
                ("spmm_kernels", "bcsc_spmm_mma_kernel"),
                ("spmm_kernels", "bcsc_union_mma_kernel"),
                ("spmm_kernels", "bcsc_spmm_tma_fma_kernel"),
                ("spmm_kernels", "bcsc_union_tma_fma_kernel"),
-               ("attention_kernels", "flash_fwd_mma_kernel"),
+               ("attention_kernels", "flash_fwd_wgmma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dq_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_wgmma_kernel"),
@@ -403,10 +416,19 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("spmm_kernels", "bcsc_densify_kernel"))
 
 
+# outputs past this many elements are held on the card (_check)
+_ON_CARD = 1 << 22
+
+
 def _check(name, ref, out, margin, shape=None):
     """Hold `out` (a tensor or a tuple of them) against `ref`: shape,
     finiteness, then matdiff within `margin` (0: bit-exact). Returns the
-    largest normf_rel."""
+    largest normf_rel. Past _ON_CARD elements of a CUDA output, matdiff's
+    verdict is computed on the card in float64 (its normf_rel, the
+    Frobenius norm of the difference, equal pairs 0, over the reference's,
+    and its linf_abs; check's rule: either within the margin): matdiff
+    copies both operands to the host and takes seconds there at the
+    streaming SpMM's 32768 x 1024."""
     from libxsmm_torch.matdiff import check
     if isinstance(out, tuple):
         return max(_check(f"{name}[{i}]", r, o, margin)
@@ -419,7 +441,24 @@ def _check(name, ref, out, margin, shape=None):
         if not torch.equal(ref.to(out.dtype), out):
             raise AssertionError(f"{name}: output differs")
         return 0.0
-    return check(ref, out, margin=margin).normf_rel
+    if not (out.is_cuda and out.numel() > _ON_CARD):
+        return check(ref, out, margin=margin).normf_rel
+    r = torch.as_tensor(ref, device=out.device).double()
+    t_ = out.double()
+    if tuple(r.shape) != tuple(t_.shape):
+        raise AssertionError(f"{name}: shape {tuple(t_.shape)} against the "
+                             f"reference's {tuple(r.shape)}")
+    if not bool(torch.isfinite(r).all()):
+        raise AssertionError(f"{name}: non-finite values in the reference")
+    diff = torch.where(t_ == r, 0.0, t_ - r)
+    fro_ref = float(torch.linalg.vector_norm(r))
+    fro_diff = float(torch.linalg.vector_norm(diff))
+    normf = fro_diff / fro_ref if fro_ref > 0 else fro_diff
+    linf = float(diff.abs().max())
+    if not (normf <= margin or linf <= margin):
+        raise AssertionError(f"{name}: normf_rel={normf:.3e} linf_abs="
+                             f"{linf:.3e} (margin {margin:.1e}), on the card")
+    return normf
 
 
 def _max_abs(ref, out):
@@ -578,31 +617,74 @@ def encoder_path(randn, dev):
     q, v = randn(bh, s, hd, dtype=bf16), randn(bh, s, hd, dtype=bf16)
     kT = randn(bh, hd, s, dtype=bf16)
     bias_h, bias_1 = randn(bh, s, s, scale=0.5), randn(1, s, s, scale=0.5)
-    # bf16 takes the tensor-core kernel, aligned f32 the TMA-fed FMA kernel
-    for dt, want in ((bf16, "mma"), (f32, "tma_fma")):
-        if KA.flash_path(dt) != want:
-            raise AssertionError(f"flash {dt}: path {KA.flash_path(dt)}, "
-                                 f"expected {want}")
+    # bf16 takes the wgmma kernel at every hd, aligned f32 the TMA-fed FMA
+    # kernel, by dtype alone
+    for dt, hd_, want in ((bf16, hd, "wgmma"), (bf16, 64, "wgmma"),
+                          (bf16, 192, "wgmma"), (bf16, 256, "wgmma"),
+                          (f32, hd, "tma_fma")):
+        if KA.flash_path(dt, hd_) != want:
+            raise AssertionError(f"flash {dt} hd {hd_}: path "
+                                 f"{KA.flash_path(dt, hd_)}, expected {want}")
+    # the bench's shape through the entry point; then every form at the
+    # block's (96, 512, 64) and past hd 128 (64-key tiles: buckets 192 and
+    # 256), each against its plain version, its route asserted by
+    # launches
     for name, kw, call in (
             ("plain", {}, {}), ("causal", {"causal": True}, {}),
             ("dropout", {"dropout_p": 0.1}, {"seed": 5}),
+            ("dropout head map", {"dropout_p": 0.1,
+                                  "head_map": (1, 1, bh, bh + 2)},
+             {"seed": 5}),
             ("bias per head", {"bias_bh": bh}, {"bias": bias_h}),
             ("bias broadcast", {"bias_bh": 1}, {"bias": bias_1})):
         kern = xt.dispatch_flash_attention(bh, s, hd, Datatype.BF16, **kw)
+        routes0 = _routes()
         out = run(f"flash {name} bf16 {bh}x{s}x{hd}", ["flash_attention_fwd"],
                   lambda a, b, c, kern=kern, call=call: kern(a, b, c, **call),
                   q, kT, v)
+        _took_route(f"flash {name} bf16 {bh}x{s}x{hd}", routes0,
+                    ("flash_attention_fwd",), "wgmma")
         plain = KA.build_flash_attention(bh, s, hd, bf16, **kw).plain(
             call.get("seed", 0), q, kT, v, call.get("bias"))
         _check(f"flash {name} vs plain", plain, out, TOL_BF16_OUT,
                (bh, s, hd))
+    _lowered_flash(KA.build_flash_attention(bh, s, hd, bf16), (5, q, kT, v),
+                   ("flash_attention_fwd",))
     lse_fn = KA.build_flash_attention(bh, s, hd, bf16, return_lse=True)
+    routes0 = _routes()
     got = run(f"flash lse bf16 {bh}x{s}x{hd}", ["flash_attention_fwd"],
               lse_fn, 0, q, kT, v)
+    _took_route(f"flash lse bf16 {bh}x{s}x{hd}", routes0,
+                ("flash_attention_fwd",), "wgmma")
     want = lse_fn.plain(0, q, kT, v)
     _check("flash lse: out vs plain", want[0], got[0], TOL_BF16_OUT)
     _check("flash lse: lse vs plain", want[1], got[1], TOL_F32,
            (bh, s, 128))
+    for fbh, fs, fhd, route in ((96, 512, 64, "wgmma"),
+                                (2, 256, 192, "wgmma"),
+                                (16, 1024, 256, "wgmma")):
+        fq = randn(fbh, fs, fhd, dtype=bf16)
+        fkT, fv = randn(fbh, fhd, fs, dtype=bf16), randn(fbh, fs, fhd,
+                                                           dtype=bf16)
+        fb = randn(fbh, fs, fs, scale=0.5)
+        forms = [("plain", {}, None), ("causal", {"causal": True}, None),
+                 ("dropout", {"dropout_p": 0.1}, None)]
+        forms += _f32_flash_forms(fbh, fb)[2:]
+        for name, kw, fbias in forms:
+            fn = KA.build_flash_attention(fbh, fs, fhd, bf16, **kw)
+            tag = f"flash {name} bf16 {fbh}x{fs}x{fhd}"
+            if fn.path != route:
+                raise AssertionError(f"{tag} took {fn.path}")
+            routes0 = _routes()
+            got = run(tag, ["flash_attention_fwd"],
+                      lambda a, b_, c, fn=fn, fbias=fbias: fn(5, a, b_, c,
+                                                              fbias),
+                      fq, fkT, fv)
+            _took_route(tag, routes0, ("flash_attention_fwd",), route)
+            _check(f"{tag} vs plain", fn.plain(5, fq, fkT, fv, fbias), got,
+                   TOL_BF16_OUT)
+            if name == "plain" and fhd != 192:   # hd 64 and 256 lowered
+                _lowered_flash(fn, (5, fq, fkT, fv), ("flash_attention_fwd",))
     # f32 on the tma_fma route (asserted by route count): through the entry
     # point, then every form against the plain version, hd up to 256
     for fbh, fs, fhd in ((4, 1024, 64), (2, 256, 256)):
@@ -687,10 +769,11 @@ def encoder_path(randn, dev):
                                                       (96, 512, 64))))}
 
 
-def _lowered_bwd(fn, args):
-    """lower_text of one backward call (both kernels) on the card: each
-    counter launched once on the route the object names, and under each
-    exactly one entry, an instantiation of that route's kernel."""
+def _lowered_flash(fn, args, counters=BWD_KERNELS):
+    """lower_text of one flash call (the forward, or the backward's two
+    kernels) on the card: each counter launched once on the route the
+    object names, and under each exactly one entry, an instantiation of
+    that route's kernel."""
     import re
     import types
 
@@ -698,7 +781,9 @@ def _lowered_bwd(fn, args):
 
     class Lowered:   # what lower_text reads of a kernel
         name, descriptor = fn.name, None
-        info = types.SimpleNamespace(kind="flash_attention_bwd")
+        info = types.SimpleNamespace(kind="flash_attention_bwd"
+                                     if counters == BWD_KERNELS
+                                     else counters[0])
 
         def __call__(self, *a):
             return fn(*a)
@@ -706,11 +791,12 @@ def _lowered_bwd(fn, args):
     text = lowering.lower_text(Lowered(), args)
     launches = re.findall(r"^// launch (\w+) x(\d+): route cuda (\w+) x1,",
                           text, re.M)
-    want = [(k, "1", fn.path) for k in BWD_KERNELS]
+    want = [(k, "1", fn.path) for k in counters]
     entries = [lowering.kernel_of(e) for e in
                re.findall(r"^// entry (\S+) x1:", text, re.M)]
     names = [f"flash_bwd_{k.rsplit('_', 1)[1]}_{fn.path}_kernel"
-             for k in BWD_KERNELS]
+             if k in BWD_KERNELS else f"flash_fwd_{fn.path}_kernel"
+             for k in counters]
     if sorted(launches) != want or sorted(entries) != sorted(names):
         raise AssertionError(f"lower_text of {fn.name}: launches {launches}"
                              f", entries {entries}; want {want}, {names}")
@@ -866,7 +952,7 @@ def training_path(randn, dev):
             _check(f"flash bwd {name} {bh}x{s}x{hd} vs plain",
                    fn.plain(*args), got, TOL_BF16_OUT)
             if name == "plain":
-                _lowered_bwd(fn, args)
+                _lowered_flash(fn, args)
             # the rows' operands: the bench shape's, the hd-256 shape's
             if name == "plain" and (route == "mma" or route not in ops):
                 ops[route] = args
@@ -951,9 +1037,11 @@ def sparse_path(randn, dev):
     "auto" at bench.py's bcsc20, bcsc05 and bcsc_cluster cases, a streaming
     case, an f32 case at m 4096 and the f32 streaming case at full width
     (m 32768), each against the float64 dense product, each SpMM call held
-    to its route (mma for bf16, tma_fma for f32). Returns the phases (to
-    time), the counts, the f32 cases' launches by route, auto's picks and
-    the streaming operands the per-kernel rows reuse."""
+    to its route (bf16 at 32 x 32: wgmma for the scheduled and supertile
+    kernels, mma for the union; f32: tma_fma), and the scheduled kernel
+    at 16 x 64 blocks in bf16 (its mma.sync route). Returns the phases (to
+    time), the counts, the launches by route (all, and the f32 cases'),
+    auto's picks and the streaming operands the per-kernel rows reuse."""
     import numpy as np
 
     import libxsmm_torch as xt
@@ -978,23 +1066,30 @@ def sparse_path(randn, dev):
         dense_b = KS.build_bcsc_densify(shape, cfg, indptr, indices,
                                         dev).plain(v)
         want = a.double() @ dense_b.double()
-        # bf16 operands take the tensor-core kernels at the case's blocking
-        # ("pallas" and the union strategies) and at the supertiles
-        # ("super"); f32 the TMA-fed FMA kernels
-        path = "mma" if a.dtype == bf16 else "tma_fma"
-        for bk_, bn_, union in ((cfg.bk, cfg.bn, False),
-                                (KS.SUPER, KS.SUPER, False),
-                                (cfg.bk, cfg.bn, True)):
-            if KS.spmm_path(a.dtype, bk_, bn_, union) != path:
+        # bf16 operands at 32 x 32 blocks take the wgmma kernel for the
+        # scheduled ("pallas") and supertile ("super") strategies and the
+        # mma.sync kernel for the union strategies; f32 the TMA-fed FMA
+        # kernels
+        bf = a.dtype == bf16
+        path = {"bcsc_spmm": "wgmma" if bf else "tma_fma",
+                "bcsc_spmm_super": "wgmma" if bf else "tma_fma",
+                "bcsc_spmm_union": "mma" if bf else "tma_fma"}
+        for counter, bk_, bn_, union in (
+                ("bcsc_spmm", cfg.bk, cfg.bn, False),
+                ("bcsc_spmm_super", KS.SUPER, KS.SUPER, False),
+                ("bcsc_spmm_union", cfg.bk, cfg.bn, True)):
+            if KS.spmm_path(a.dtype, bk_, bn_, union) != path[counter]:
                 raise AssertionError(
                     f"bcsc {case}: {bk_}x{bn_} blocks take "
                     f"{KS.spmm_path(a.dtype, bk_, bn_, union)}"
-                    f"{' in the union' if union else ''}, expected {path}")
+                    f"{' in the union' if union else ''}, expected "
+                    f"{path[counter]}")
         union_path = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices,
                                               dev).path
-        if union_path != path:
+        if union_path != path["bcsc_spmm_union"]:
             raise AssertionError(f"bcsc {case}: the union takes "
-                                 f"{union_path}, expected {path}")
+                                 f"{union_path}, expected "
+                                 f"{path['bcsc_spmm_union']}")
         worst, pick = 0.0, None
         for s in STRATEGIES + ("auto",):
             kern = xt.create_packed_spgemm_bcsc(
@@ -1011,9 +1106,10 @@ def sparse_path(randn, dev):
                     and _count("bcsc_union_compact") != compactions):
                 raise AssertionError(f"bcsc {case} {s}: the compactor ran "
                                      f"for {got}")
-            _took_route(f"bcsc {case} {s}", routes,
-                        [k_ for k_ in kernels if k_ in KS.path_launches],
-                        path, KS)
+            for k_ in kernels:
+                if k_ in KS.path_launches:
+                    _took_route(f"bcsc {case} {s}", routes, [k_], path[k_],
+                                KS)
             worst = max(worst, _check(f"bcsc {case} {s} vs float64", want,
                                       out, tol, (shape.m, shape.n)))
             if s == "auto":
@@ -1021,8 +1117,8 @@ def sparse_path(randn, dev):
         print(f"  bcsc {case} ({shape.m}x{shape.n}x{shape.k}, "
               f"{len(indices)} blocks of {cfg.bk}x{cfg.bn}): "
               f"{len(STRATEGIES) + 1} strategies, worst normf_rel vs "
-              f"float64 {worst:.3e}; pallas/super/union path {path}; auto "
-              f"-> {pick}")
+              f"float64 {worst:.3e}; pallas/super/union paths "
+              f"{'/'.join(path.values())}; auto -> {pick}")
         return pick
 
     KS.reset_launches()
@@ -1083,6 +1179,32 @@ def sparse_path(randn, dev):
         f32_counts[rows_] = {k_: {r: now[k_][r] - before[k_][r]
                                   for r in now[k_]} for k_ in now}
 
+    # bf16 at 16 x 64 blocks (the bcsc20 pattern's density from
+    # default_rng(2)): the scheduled SpMM's mma.sync kernel, the only
+    # blocking of the path it serves, held against float64 with its route
+    # asserted by launches
+    rng = np.random.default_rng(2)
+    b16 = _bcsc_pattern(rng, k, n, 16, 64, 0.2)
+    a16 = on_dev(rng.standard_normal((m, k)), bf16)
+    v16 = on_dev(b16.data, bf16)
+    s16 = GemmShape(m, n, k, BF16, BF16, F32)
+    cfg16 = SpgemmConfig(1, 16, 64)
+    sched16 = xt.create_packed_spgemm_bcsc(
+        s16, GemmFlags.BETA_0, cfg16, b16.indptr, b16.indices,
+        strategy="pallas")
+    if KS.spmm_path(bf16, 16, 64) != "mma":
+        raise AssertionError("bcsc 16x64: the scheduled SpMM takes "
+                             f"{KS.spmm_path(bf16, 16, 64)}")
+    routes = _routes(KS)
+    got16 = run("bcsc 16x64 pallas", ("bcsc_spmm",), sched16, a16, v16)
+    _took_route("bcsc 16x64 pallas", routes, ["bcsc_spmm"], "mma", KS)
+    d16 = KS.build_bcsc_densify(s16, cfg16, b16.indptr, b16.indices,
+                                dev).plain(v16)
+    err16 = _check("bcsc 16x64 pallas vs float64", a16.double() @ d16.double(),
+                   got16, TOL_SPARSE_BF16, (m, n))
+    print(f"  bcsc 16x64 (1024^3, {b16.nblocks} blocks) pallas [mma]: "
+          f"normf_rel vs float64 {err16:.3e}")
+
     # ragged: 1000 rows (the last 64-row tile cut) through bcsc05
     bcsc, v = pats[0.05]
     rshape, ra = GemmShape(1000, n, k, BF16, BF16, F32), randn(1000, k,
@@ -1101,8 +1223,8 @@ def sparse_path(randn, dev):
                              f"{missing}")
     bcsc, v = pats[0.2]
     return {"phases": phases, "counts": counts, "f32_counts": f32_counts,
-            "auto": picks, "stream": (sshape, cfg, bcsc, a_stream, v),
-            "small": small}
+            "routes": _routes(KS), "auto": picks,
+            "stream": (sshape, cfg, bcsc, a_stream, v), "small": small}
 
 
 def _kernel_modules():
@@ -1673,9 +1795,13 @@ def mma_rate(row, flops, useful):
           f"kernel / library {row['ms'] / row['library_ms']:.3f}")
 
 
-def sparse_rows(record, rows, stream, small, ms, geo):
+def sparse_rows(record, rows, stream, small, ms, geo, routes):
     """The five sparse kernels at the streaming case, each against its
-    plain version. Bound: A, the kernel's value operand and C each moved
+    plain version; the scheduled and supertile SpMMs on their wgmma route
+    (device time and CUDA-graph replay beside events, launches: the
+    path's on that route) and the scheduled SpMM once more on its
+    mma.sync route, at 16 x 64 blocks ("bcsc_spmm_mma"; launches: the
+    path's 16 x 64 case). Bound: A, the kernel's value operand and C each moved
     once, and the useful products 2 * nblocks * bk * bn * m at the bf16
     tensor cores' peak. Yardstick for the SpMM kernels: torch.mm on the
     densified B with an f32 output; for densify: PyTorch's BSC tensor
@@ -1690,6 +1816,9 @@ def sparse_rows(record, rows, stream, small, ms, geo):
     this case, or it fails). At the m ~ 1024 cases (`small`:
     bcsc20, bcsc05, ragged) the compacted form is held against the fused
     form and both are timed by events, replay and host."""
+    import numpy as np
+
+    from libxsmm_torch.descriptor import SpgemmConfig
     from libxsmm_torch.kernels import spmm as KS
     from libxsmm_torch.ops.sparse import assemble_supertiles, supertile_plan
 
@@ -1706,13 +1835,33 @@ def sparse_rows(record, rows, stream, small, ms, geo):
     src = "spmm_kernels.cu"
     peak = geo.peak_bf16_tflops
     sched = KS.build_bcsc_spmm(shape, cfg, indptr, indices, dev)
-    if sched.path != "mma":
+    if sched.path != "wgmma":
         raise AssertionError(f"bcsc_spmm at the streaming case took "
                              f"{sched.path}")
     record("bcsc_spmm", src, "libxsmm_tpu/kernels/spmm_pallas.py:88",
            sched, (a, v), TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak,
-           lib_mm)
+           lib_mm, path=sched.path, graph_ms=graph_ms(lambda: sched(a, v)),
+           device_ms=device_ms(lambda: sched(a, v)),
+           launches=routes["bcsc_spmm"]["wgmma"])
     mma_rate(rows[-1], useful, useful)
+    # the scheduled kernel's mma.sync route, at 16 x 64 blocks of the same
+    # density through the same A (its pattern from default_rng(2)), beside
+    # torch.mm on its densified B; launches: the path's 16 x 64 case
+    b16 = _bcsc_pattern(np.random.default_rng(2), k, n, 16, 64, 0.2)
+    cfg16 = SpgemmConfig(1, 16, 64)
+    v16 = torch.as_tensor(b16.data, device=dev).to(torch.bfloat16)
+    s16 = KS.build_bcsc_spmm(shape, cfg16, b16.indptr, b16.indices, dev)
+    if s16.path != "mma":
+        raise AssertionError(f"bcsc_spmm at 16 x 64 took {s16.path}")
+    d16 = KS.build_bcsc_densify(shape, cfg16, b16.indptr, b16.indices,
+                                dev).plain(v16)
+    useful16 = 2 * b16.nblocks * 16 * 64 * m
+    record("bcsc_spmm", src, "libxsmm_tpu/kernels/spmm_pallas.py:88", s16,
+           (a, v16), TOL_SPARSE_BF16, io + 2 * v16.numel(), useful16, peak,
+           ms(lambda x, y: torch.mm(x, y, out_dtype=torch.float32), a, d16),
+           path=s16.path, shape=[m, n, k, 16, 64])
+    rows[-1].update(name="bcsc_spmm_mma", launches=routes["bcsc_spmm"]["mma"])
+    mma_rate(rows[-1], useful16, useful16)
     union = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev)
     union_c = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev,
                                        compact=True)
@@ -1769,11 +1918,13 @@ def sparse_rows(record, rows, stream, small, ms, geo):
     sup = assemble_supertiles(v, torch.as_tensor(sgmap, device=dev),
                               torch.bfloat16)
     sfn = KS.build_bcsc_spmm_super(shape, s_indptr, s_indices, dev)
-    if sfn.path != "mma":
+    if sfn.path != "wgmma":
         raise AssertionError(f"bcsc_spmm_super took {sfn.path}")
     record("bcsc_spmm_super", src, "libxsmm_tpu/kernels/spmm_pallas.py:942",
            sfn, (a, sup), TOL_SPARSE_BF16, io + 2 * sup.numel(), useful, peak,
-           lib_mm)
+           lib_mm, path=sfn.path, graph_ms=graph_ms(lambda: sfn(a, sup)),
+           device_ms=device_ms(lambda: sfn(a, sup)),
+           launches=routes["bcsc_spmm_super"]["wgmma"])
     # its own products: every occupied supertile in full
     mma_rate(rows[-1], 2 * m * KS.SUPER * KS.SUPER * len(s_indices), useful)
     ccol = torch.as_tensor(indptr.astype("int64"), device=dev)
@@ -2029,6 +2180,64 @@ def bf16_flash_bwd_rows():
                 for n, t_ in sdpa.items())
                 + f"; yardstick {x['yardstick']}")
             out[(shape, form)] = x
+    return out
+
+
+def bf16_flash_fwd_rows():
+    """The bf16 flash forward at both shapes of F32_FLASH_SHAPES,
+    non-causal and causal, measured by scripts/flash_bwd_time.fwd_rows_at:
+    held against its plain version (normf_rel within TOL_BF16_OUT), timed
+    by CUDA events, CUDA-graph replay and device time beside its bound (4
+    x hd operations per (query, key) pair the data needs at the bf16
+    tensor-core peak, causal pairs only where causal; bytes q, kT, v once
+    and out once), and F.scaled_dot_product_attention's forward on the
+    same operands under each bf16 backend by CUDA events, the fastest that
+    takes them the yardstick: in this long run the profiler recorded no
+    kernel of SDPA's forward in three sessions running (its device times
+    come from the script's short process). As for the backward, the
+    kernel's TFLOP/s and share of the bound come from replay. Every call
+    takes the route flash_path names (wgmma), asserted by its launches.
+    Returns {"shape form": row with "sdpa" and "yardstick"}."""
+    from libxsmm_torch.kernels import attention as KA
+    from libxsmm_torch.scripts import flash_bwd_time as FT
+    from libxsmm_torch.scripts import timing
+
+    out = {}
+    for shape, (bh, s, hd) in F32_FLASH_SHAPES.items():
+        if FT.SHAPES[shape] != (bh, s, hd) or FT.TOL != TOL_BF16_OUT:
+            raise AssertionError("flash_bwd_time measures other shapes or "
+                                 "holds another margin")
+        for form in ("plain", "causal"):
+            tag = f"bf16 flash fwd {shape} {form}"
+            routes0 = _routes()
+            (r,) = FT.fwd_rows_at(shape, form, seed=0,
+                                  sdpa_timer=timing.events_ms)
+            if r["route"] != "wgmma" or KA.flash_path(torch.bfloat16,
+                                                       hd) != "wgmma":
+                raise AssertionError(f"{tag}: took {r['route']}")
+            _took_route(tag, routes0, ("flash_attention_fwd",), "wgmma")
+            if not r["device_ms"]:
+                raise AssertionError(f"{tag}: the profiler recorded no "
+                                     "kernel")
+            sdpa = r.pop("sdpa_ms")
+            took = {n: t_ for n, t_ in sdpa.items() if isinstance(t_, float)}
+            pairs = bh * (s * (s + 1) // 2 if form == "causal" else s * s)
+            r["replay_tflops"] = 4 * pairs * hd / r["graph_ms"] / 1e9
+            r["replay_of_bound"] = r["bound_ms"] / r["graph_ms"]
+            r["sdpa"] = sdpa
+            r["yardstick"] = min(took, key=took.get, default=None)
+            print(f"  {tag} ({bh}, {s}, {hd}) [wgmma]: events {r['ms']:.4f}"
+                  f" ms, replay {r['graph_ms']:.4f} ms "
+                  f"({r['replay_tflops']:.1f} TFLOP/s, "
+                  f"{r['replay_of_bound']:.3f} of its bound "
+                  f"{r['bound_ms']:.4f} ms), device {r['device_ms']:.4f} ms;"
+                  f" max_abs_err {r['max_abs_err']:.3e}")
+            print("    sdpa forward by events: " + "; ".join(
+                f"{n} {t_:.4f} ms (kernel events / sdpa "
+                f"{r['ms'] / t_:.3f})" if isinstance(t_, float)
+                else f"{n} refused ({t_})" for n, t_ in sdpa.items())
+                + f"; yardstick {r['yardstick']}")
+            out[f"{shape} {form}"] = r
     return out
 
 
@@ -2737,7 +2946,7 @@ def _par_attention(res, randn, world, dev):
                 out = fn(*ops).to_local()
                 torch.cuda.synchronize()
                 _took_route(tag, routes0, ("flash_attention_fwd",),
-                            "mma" if dt == torch.bfloat16 else "tma_fma")
+                            KA.flash_path(dt, hd))
                 want = model(bh, s, hd, world, dt)
                 if C.logged_bytes() != want:
                     raise AssertionError(f"{tag}: logged "
@@ -4614,15 +4823,33 @@ def main() -> int:
         return torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal)
 
-    if flash.path != "mma":
+    if flash.path != "wgmma":
         raise AssertionError(f"flash forward bf16 took {flash.path}")
     flash_ops = 4 * fbh * fs * fs * fhd
     record("flash_attention_fwd", "attention_kernels.cu",
            "libxsmm_tpu/kernels/attention_pallas.py:159", flash,
            (0, fq, fkT, fv), TOL_BF16_OUT,
            4 * fbh * fs * fhd * 2, flash_ops,
-           geo.peak_bf16_tflops, ms(sdpa, *sdpa_operands(fq, fkT, fv)))
+           geo.peak_bf16_tflops, ms(sdpa, *sdpa_operands(fq, fkT, fv)),
+           path=flash.path,
+           launches=flash_routes["flash_attention_fwd"]["wgmma"])
     mma_rate(rows[-1], flash_ops, flash_ops)
+    # the same kernel past hd 128 (64-key tiles) at the training path's
+    # hd-256 shape; launches: the route's on the serving and training paths
+    hq, hv = (randn(16, 1024, 256, dtype=torch.bfloat16) for _ in range(2))
+    hkT = randn(16, 256, 1024, dtype=torch.bfloat16)
+    wflash = KA.build_flash_attention(16, 1024, 256, torch.bfloat16)
+    if (wflash.path, wflash.block_k) != ("wgmma", 64):
+        raise AssertionError(f"flash forward bf16 hd 256 took {wflash.path}"
+                             f" with {wflash.block_k}-key tiles")
+    record("flash_attention_fwd", "attention_kernels.cu",
+           "libxsmm_tpu/kernels/attention_pallas.py:159", wflash,
+           (0, hq, hkT, hv), TOL_BF16_OUT, 4 * 16 * 1024 * 256 * 2,
+           4 * 16 * 1024 * 1024 * 256, geo.peak_bf16_tflops,
+           ms(sdpa, *sdpa_operands(hq, hkT, hv)), path=wflash.path,
+           shape=[16, 1024, 256])
+    rows[-1].update(name="flash_attention_fwd_hd256",
+                    launches=flash_routes["flash_attention_fwd"]["wgmma"])
     # dropout at the FFN shape: x read once, out and the mask written once
     # (bytes: one a element; packed: the BITMASK_2BYTEMULT bits; none); the
     # yardstick is torch's dropout (its own random bits, no mask). The row
@@ -4733,7 +4960,8 @@ def main() -> int:
                         launches=flash_routes[name]["mma"])
     global_position_forms(rows, ms, KA, KE, fq, fkT, fv, bargs, dx)
 
-    sparse_rows(record, rows, sp["stream"], sp["small"], ms, geo)
+    sparse_rows(record, rows, sp["stream"], sp["small"], ms, geo,
+                sp["routes"])
 
     # the bf16 backward on wgmma at both shapes, causal and not, beside
     # SDPA's bf16 backends; its forms join the two backward rows
@@ -4769,25 +4997,10 @@ def main() -> int:
         print(f"  stochastic_round f32->{tname.lower()} {tuple(sx.shape)}: "
               f"{ms(KE.stochastic_round, sx, 7, Datatype[tname]):.4f} ms")
 
-    # the tile configurations of the flash kernel, at the bench shape and at
-    # the encoder block's (bh=96, s=512, hd=64), with the yardstick beside
-    bq, bkT, bv = enc["block_operands"]
-    for name, (q_, kT_, v_) in (("bench", (fq, fkT, fv)),
-                                ("block", (bq, bkT, bv))):
-        bh_, s_, hd_ = q_.shape
-        for causal in (False, True):
-            t_lib = ms(sdpa, *sdpa_operands(q_, kT_, v_), causal)
-            for cfg_ in KA.flash_configs(hd_, q_.dtype):
-                fn_ = KA.build_flash_attention(bh_, s_, hd_, q_.dtype,
-                                               causal=causal,
-                                               block_override=cfg_)
-                t_ = ms(fn_, 0, q_, kT_, v_)
-                ops_ = 4 * bh_ * s_ * s_ * hd_ / (2 if causal else 1)
-                print(f"  flash {name} {tuple(q_.shape)} causal={causal} "
-                      f"tile={cfg_} path={fn_.path}: {t_:.4f} ms, "
-                      f"{ops_ / t_ / 1e9:.1f} TFLOP/s, kernel / sdpa "
-                      f"{t_ / t_lib:.3f}")
-            print(f"  sdpa {name} causal={causal}: {t_lib:.4f} ms")
+    # the bf16 forward on wgmma at both shapes, causal and not, beside
+    # SDPA's bf16 backends; its forms join the forward's row
+    row = next(r for r in rows if r["name"] == "flash_attention_fwd")
+    row["forms"] = bf16_flash_fwd_rows()
 
     # the yardstick of the backward rows once more, by device time and by
     # CUDA events around back-to-back calls (host cost included)

@@ -20,19 +20,18 @@ a larger one (a rank's share of a data- and head-sharded attention)
 hashes each head's global batch-head index, so its dropout mask is its
 block of the whole attention's; without one, the local index is hashed.
 
-The forward has two CUDA routes, one per operand type: bf16 runs on the
-tensor cores ("mma": mma.sync, f32 accumulators, hd padded to a bucket of
-`_MMA_HDP`, tile configurations to choose among: `flash_configs`), f32 on
-the CUDA cores' f32 FMAs fed by TMA ("tma_fma": a producer warpgroup's ring
-of tiles, 8 x 8 micro-tiles, one tile per hd bucket: 64, 128 or 256; f32
-means f32, no TF32). The backward has three: f32 "tma_fma"; bf16 "wgmma"
-(Hopper's warpgroup products on TMA-fed 128-byte swizzled tiles, hd padded
-to 64 or 128, one tile per kernel: `_WG_TILES`) up to hd 128, and "mma"
-(mma.sync, 32-column K tiles) past it. `flash_path` and `flash_bwd_path`
-name the route a call takes, as the C entry points choose it (by dtype and
-hd, before any launch), and each wrapper reports it as `.path`; an operand
-off 16-byte alignment is copied first, and a failed build or launch raises:
-there is no fallback between the routes.
+The CUDA routes: f32 on the CUDA cores' f32 FMAs fed by TMA ("tma_fma",
+forward and backward: a producer warpgroup's ring of tiles, 8 x 8
+micro-tiles, one tile per hd bucket: 64, 128 or 256; f32 means f32, no
+TF32); bf16 on Hopper's warpgroup products ("wgmma": TMA-fed 128-byte
+swizzled tiles; the forward at every hd, padded to 64, 128, 192 or 256,
+one tile per bucket: `_fwd_tile`; the backward up to hd 128, one tile per
+kernel: `_WG_TILES`); the bf16 backward past hd 128 on mma.sync ("mma", hd
+padded to 192 or 256, 32-column K tiles). `flash_path` and
+`flash_bwd_path` name the route a call takes, as the C entry points
+choose it (by dtype and hd, before any launch), and each wrapper reports
+it as `.path`; an operand off 16-byte alignment is copied first, and a
+failed build or launch raises: there is no fallback between the routes.
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ path_launches = {name: dict.fromkeys(ROUTES, 0) for name in launches}
 # the source behind each counter and the CUDA kernels its launches run, by
 # name (lowering.py files each logged entry under its counter)
 ENTRIES = {"flash_attention_fwd": ("attention_kernels", (
-               "flash_fwd_mma_kernel", "flash_fwd_tma_fma_kernel")),
+               "flash_fwd_tma_fma_kernel", "flash_fwd_wgmma_kernel")),
            "flash_attention_bwd_dkv": ("attention_bwd_kernels", (
                "flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_tma_fma_kernel",
                "flash_bwd_dkv_wgmma_kernel")),
@@ -77,7 +76,7 @@ def reset_launches() -> None:
 
 
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BQ = 64                      # the bf16 kernels' query rows (csrc BQ)
+_BQ = 64                      # the mma.sync backward's query rows
 _lib = None
 _bwd_lib = None
 
@@ -90,8 +89,8 @@ def _kernels() -> ctypes.CDLL:
         lib = _build.load("attention_kernels")
         P, I, LL, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float, ctypes.c_uint)
-        lib.xsmm_flash_fwd.argtypes = [P, P, P, P, LL, P, P, I, I, I, I, I,
-                                       F, I, I, U, U, F, U, U, U, U, P]
+        lib.xsmm_flash_fwd.argtypes = [P, P, P, P, LL, P, P, I, I, I, I, F,
+                                       I, I, U, U, F, U, U, U, U, P]
         lib.xsmm_flash_fwd.restype = I
         lib.xsmm_error_string.argtypes = [I]
         lib.xsmm_error_string.restype = ctypes.c_char_p
@@ -200,21 +199,36 @@ def _rand_bits(seed, b, row, col):
 # launch configurations
 # ---------------------------------------------------------------------------
 
-_MMA_HDP = (32, 64, 96, 128, 192, 256)   # csrc launch_mma_hd's buckets
+# hd's buckets on the mma.sync route (csrc attention_bwd_kernels.cu: the
+# backward serves bf16 past hd 128 there, padded to 192 or 256)
+_MMA_HDP = (192, 256)
 _SMEM_MAX = 232448                        # a block's shared memory on sm_90
-# the backward's wgmma kernels (csrc xsmm_flash_wgmma.cuh) serve bf16 up to
-# hd 128 (FW_HDP_MAX), one tile each, (rows, K columns): dK/dV 64-row Q
-# tiles against a block of 128 keys, dQ a block of 128 rows against 128-key
-# tiles
+# the wgmma backward (csrc xsmm_flash_wgmma.cuh) serves bf16 up to hd 128
+# (FW_HDP_MAX), one tile a kernel, (rows, K columns): dQ a block of 128
+# rows against 128-key tiles, dK/dV 64-row Q tiles against a block of 128
+# keys
 _WG_HD_MAX = 128
 _WG_TILES = {"dkv": (64, 128), "dq": (128, 128)}
 
 
-def flash_path(dtype: torch.dtype) -> str:
-    """The forward route that serves `dtype` (csrc xsmm_flash_fwd): "mma",
-    the bf16 tensor-core kernel, or "tma_fma", the f32 kernel on the CUDA
-    cores' FMAs fed by TMA (f32 means f32: no TF32)."""
-    return "mma" if dtype == torch.bfloat16 else "tma_fma"
+def flash_path(dtype: torch.dtype, hd: Optional[int] = None) -> str:
+    """The forward route (csrc xsmm_flash_fwd), chosen by dtype alone,
+    before any launch, at every hd the kernels take (hd <= 256): "tma_fma"
+    for f32 (the kernel on the CUDA cores' FMAs fed by TMA; f32 means f32,
+    no TF32), "wgmma" for bf16 (the warpgroup kernel on TMA-fed tiles; past
+    hd 128 its K tiles narrow to 64 keys so that O, 64 x hd f32 a
+    warpgroup, fits a consumer thread's registers beside the scores and
+    P: `_fwd_tile`). hd is taken for symmetry with flash_bwd_path."""
+    return "wgmma" if dtype == torch.bfloat16 else "tma_fma"
+
+
+def _fwd_tile(dtype: torch.dtype, hd: int) -> Tuple:
+    """The forward kernel's (rows, K columns) (csrc fw_fwd_bk): bf16
+    blocks of 128 rows against 128-key tiles up to hd 128 and 64-key tiles
+    past it; f32 (None, None): one tile per hd bucket, not named here."""
+    if dtype != torch.bfloat16:
+        return None, None
+    return (128, 128) if hd <= _WG_HD_MAX else (128, 64)
 
 
 def _bf16_only(dtype: torch.dtype) -> None:
@@ -225,29 +239,12 @@ def _bf16_only(dtype: torch.dtype) -> None:
 
 
 def _mma_hdp(hd: int) -> int:
-    """hd padded with zeros to the tensor-core kernel's bucket."""
+    """hd padded with zeros to the mma.sync backward's bucket, past hd
+    128; up to it the wgmma kernels serve (ValueError)."""
+    if hd <= _WG_HD_MAX:
+        raise ValueError(f"hd {hd}: the bf16 backward runs the wgmma "
+                         f"kernels up to hd {_WG_HD_MAX}")
     return next(p for p in _MMA_HDP if hd <= p)
-
-
-def _smem_bytes(hd: int, bk: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory of one bf16 forward block (csrc mma_smem_bytes): Q and
-    two K^T and V tiles each, in bf16, hd padded to its bucket, every row
-    padded by 16 bytes."""
-    _bf16_only(dtype)
-    hdp = _mma_hdp(hd)
-    return (_BQ * (hdp + 8) + 2 * hdp * (bk + 8) + 2 * bk * (hdp + 8)) * 2
-
-
-def flash_configs(hd: int, dtype: torch.dtype = torch.bfloat16) -> list:
-    """(rows, K columns) per block the bf16 kernel is built for; the first
-    is the default for this head dim: 64 columns up to hd = 128, where the
-    f32 S fragments cost 32 registers a thread beside O's 64; past it O
-    alone takes up to 128, so 32 columns. f32 has none (ValueError)."""
-    _bf16_only(dtype)
-    wide = (_BQ, 64)
-    narrow = (_BQ, 32)
-    order = [wide, narrow] if _mma_hdp(hd) <= 128 else [narrow, wide]
-    return [c for c in order if _smem_bytes(hd, c[1], dtype) <= _SMEM_MAX]
 
 
 def flash_bwd_path(dtype: torch.dtype, hd: Optional[int] = None) -> str:
@@ -268,8 +265,8 @@ def flash_bwd_path(dtype: torch.dtype, hd: Optional[int] = None) -> str:
 def _bwd_smem_bytes(hd: int, bk: int, kernel: str = "dkv",
                     dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory of one bf16 mma.sync backward block (csrc
-    dkv_mma_smem, dq_mma_smem), hd padded to its bucket and every row by 16
-    bytes: the dK/dV kernel's K^T and V tiles, two Q and two dO tiles and
+    dkv_mma_smem, dq_mma_smem), past hd 128, hd padded to its bucket and
+    every row by 16 bytes: the dK/dV kernel's K^T and V tiles, two Q and two dO tiles and
     two lse and delta rows (f32); the dQ kernel's Q and dO tiles and two
     K^T and two V tiles."""
     _bf16_only(dtype)
@@ -336,9 +333,9 @@ class FlashAttention:
         self.bias_bh = int(bias_bh)
         self.dropout_p = float(dropout_p)
         self.return_lse = bool(return_lse)
-        # the bf16 kernel's tile; None, None for f32 (one tile a hd bucket)
+        # the bf16 kernel's tile (_fwd_tile); None, None for f32
         self.block_q, self.block_k = config
-        self.path = flash_path(dtype)
+        self.path = flash_path(dtype, hd)
         self.thr = (_dropout_threshold(self.dropout_p)
                     if self.dropout_p > 0.0 else None)
         self.inv_keep = (1.0 / (1.0 - self.dropout_p)
@@ -368,11 +365,12 @@ class FlashAttention:
         if not _on_cuda(q, kT, v, bias):
             return self.plain(seed, q, kT, v, bias)
         bh, s, hd = self.bh, self.s, self.hd
-        # both kernels read 16-byte units (cp.async, TMA): an operand off
-        # that alignment is copied first
+        # every kernel reads 16-byte units (cp.async, TMA): an operand off
+        # that alignment is copied first (the wgmma kernel reads the bias
+        # in pairs)
         q, kT, v = (_aligned16(t) for t in (q, kT, v))
         if bias is not None:
-            bias = bias.to(torch.float32).contiguous()
+            bias = _aligned16(bias.to(torch.float32))
         out = torch.empty((bh, s, hd), dtype=self.dtype, device=q.device)
         lse = (torch.empty((bh, s, 128), dtype=torch.float32,
                            device=q.device) if self.return_lse else None)
@@ -381,8 +379,7 @@ class FlashAttention:
             err = lib.xsmm_flash_fwd(
                 _ptr(q), _ptr(kT), _ptr(v), _ptr(bias),
                 0 if self.bias_bh == 1 else s * s, _ptr(out), _ptr(lse),
-                bh, s, hd, _TYPE_CODE[self.dtype], self.block_k or 0,
-                self.scale, int(self.causal), int(self.thr is not None),
+                bh, s, hd, _TYPE_CODE[self.dtype], self.scale, int(self.causal), int(self.thr is not None),
                 int(seed) & _M32 if self.thr is not None else 0,
                 self.thr or 0, self.inv_keep, *self.head_map,
                 _stream(q.device))
@@ -437,23 +434,19 @@ def build_flash_attention(bh: int, s: int, hd: int, dtype: torch.dtype,
     in {0 (none), 1 (broadcast), bh}; lse is (bh, s, 128) f32, the row's
     log-sum-exp in every column. seed is an int (read only when
     dropout_p > 0). block_override=(bq, bk), the reference's TPU tile,
-    picks the largest CUDA tile configuration within it (flash_configs).
-    head_map=(b0, h0, nh_local, nh_global): the dropout hash reads each
-    local batch-head's global index (check_head_map); None hashes the local
-    index, as before. The dtype picks the kernel (flash_path): bf16 the
-    tensor-core kernel, with the tile block_override bounds; f32 the
-    tma_fma kernel, one tile per hd bucket (block_override must tile s and
-    changes nothing)."""
+    must tile s; the kernels take one tile per hd bucket whatever the
+    override (_fwd_tile). head_map=(b0, h0, nh_local, nh_global): the
+    dropout hash reads each local batch-head's global index
+    (check_head_map); None hashes the local index, as before. The dtype
+    picks the kernel (flash_path)."""
     if not supported(s, hd, dtype):
         raise ValueError(f"unsupported flash shape s={s} hd={hd} {dtype}")
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
     sc = float(scale) if scale is not None else float(hd) ** -0.5
-    bf16 = dtype == torch.bfloat16
-    config = _pick_config(s, flash_configs(hd, dtype) if bf16 else None,
-                          block_override)
+    _pick_config(s, None, block_override)
     return FlashAttention(bh, s, hd, dtype, causal, sc, bias_bh, dropout_p,
-                          return_lse, config, head_map)
+                          return_lse, _fwd_tile(dtype, hd), head_map)
 
 
 # ---------------------------------------------------------------------------

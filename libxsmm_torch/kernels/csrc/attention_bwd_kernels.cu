@@ -594,13 +594,6 @@ __global__ void __launch_bounds__(MB_THREADS) flash_bwd_dq_mma_kernel(
 // the consumer warpgroups (wg = tid / 128), 256-383 the producer.
 // ---------------------------------------------------------------------------
 
-// 2^x by the SFU, denormal results flushed to zero
-__device__ __forceinline__ float fw_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // grad_mma's p~ and ds for the wgmma kernels: the causal test only where
 // `mask` (a tile that crosses the diagonal), the bias (brow: the bias row of
 // `row`) only in the BIAS instantiations, the dropout hash only in the DROP
@@ -623,15 +616,6 @@ __device__ __forceinline__ void fw_grad(const BwdArgs& a, const float* brow,
     dp = keep ? dp * a.inv_keep : 0.f;
   }
   ds = p * (dp - delta);
-}
-
-// keeps the compiler from moving the reads of d[LO..HI) above this point:
-// the second half of a tile's scores is converted after the first half's
-// products are issued, so that the tensor cores run them meanwhile
-template <int LO, int HI, int N>
-__device__ __forceinline__ void fw_hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = LO; i < HI; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // dK^T, dV (+ dbias): one block per (b, 128 keys); warpgroup wg owns keys

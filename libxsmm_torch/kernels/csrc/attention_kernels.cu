@@ -26,22 +26,15 @@
 // balance point, so operations bound it (0.035 ms on the bf16 tensor
 // cores). Two kernels, by operand type (kernels/attention.py flash_path):
 //
-// flash_fwd_mma_kernel, bf16 (the FlashAttention-2 shape). One block of
-// four warps takes one (b, 64-row Q tile); each warp owns 16 query rows. Q
-// is staged once; K^T tiles (hd rows of BK contiguous key columns of kT)
-// and V tiles (BK rows of hd) arrive in bf16 through a 2-stage cp.async
-// ring, tile t+1's copies in flight while tile t is multiplied. S = Q K^T
-// runs on the tensor cores (mma.sync m16n8k16, Q's fragments by ldmatrix,
-// kept in registers up to hd = 128, K^T's by ldmatrix.trans) into f32
-// register fragments; the online softmax works on those fragments in log2
-// units (scores times log2(e): one exp2 per exponential), the row
-// max and sum by shuffles within the quad of lanes that shares a row, m, l
-// and the f32 O accumulator in registers. The dropped, rescaled
-// exponentials are rounded to bf16 in registers (the reference's astype)
-// and feed P V as the A operand with no trip through shared memory; V's
-// fragments by ldmatrix.trans. hd is padded with zeros to a multiple of 16
-// (exact); rows in shared memory are padded by 16 bytes so ldmatrix's rows
-// fall in distinct banks.
+// flash_fwd_wgmma_kernel, bf16 (route "wgmma"; its section below, the plan
+// in xsmm_flash_wgmma.cuh). One block of one producer warpgroup (TMA into a
+// ring of K^T and V tiles, 128 keys up to hd 128 and 64 past it, full and
+// empty mbarriers, registers handed back by setmaxnreg) and two consumer
+// warpgroups of 64 query rows each takes one (b, 128-row Q tile): S = Q K^T
+// and O += P V by wgmma, S, O and P in registers (160 a thread at hd 128),
+// the softmax on S's accumulator fragments, P fed from registers as A;
+// each group's softmax runs while its last tile's P V and the other
+// group's products do.
 //
 // flash_fwd_tma_fma_kernel, f32 (route "tma_fma"): f32 FMAs on the CUDA
 // cores (67 TFLOP/s, a 0.51 ms floor at the bench shape; f32
@@ -80,233 +73,299 @@
 
 #include "xsmm_common.cuh"
 #include "xsmm_mma.cuh"
-#include "xsmm_flash_fma.cuh"
+#include "xsmm_flash_wgmma.cuh"
 #include "xsmm_launches.cuh"
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
-constexpr int BQ = 64;        // query rows per block (the bf16 kernel)
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores. HDP: hd padded to a multiple of 16 (a bucket of
-// kernels/attention.py _mma_hdp); BK: key columns per tile.
-// ---------------------------------------------------------------------------
-
-constexpr int MQ_THREADS = 128;   // four warps of 16 query rows: BQ rows
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__host__ __device__ constexpr int mma_smem_bytes(int hdp, int bk) {
-  // Q (BQ x hdp), two K^T tiles (hdp x bk), two V tiles (bk x hdp), bf16,
-  // every row padded by 16 bytes
-  return (BQ * (hdp + 8) + 2 * hdp * (bk + 8) + 2 * bk * (hdp + 8)) * 2;
-}
+// ---------------------------------------------------------------------------
+// bf16 on wgmma (route "wgmma"), hd padded to HDP = 64, 128, 192 or 256;
+// the plan, budgets and instructions are xsmm_flash_wgmma.cuh's (up to hd
+// 128 the tiles of the backward's dQ kernel; past it 64-key tiles,
+// fw_fwd_bk). Threads 0-255 are the consumer warpgroups (wg = tid / 128),
+// 256-383 the producer.
+//
+// One block per (b, 128 query rows); warpgroup wg owns rows q0 + 64 wg ..
+// + 64: their running max m and denominator l (log2 units) and their O
+// accumulator (64 x HDP f32) in registers. Per BK-key tile it forms S = Q
+// K^T (A: its Q rows, K-major; B: the K^T tile, MN-major), scales, biases
+// and masks S on its accumulator fragments (the causal test only on the
+// tiles that cross the group's diagonal), takes the row max over the quad
+// of lanes that shares a row (two shuffles), rescales O and l by the change
+// of the max, and accumulates O += P V with P (the dropped, rescaled
+// exponentials rounded to bf16) as register A fragments and the V tile as
+// MN-major B. The exponentials, not the products, would set the time (the
+// backward's finding), so they run while the tensor cores work: each group
+// issues tile kt's S with tile kt - 1's P V and takes tile kt's softmax
+// while both run, and the two groups take turns issuing (ping-pong on two
+// named barriers), so one group's softmax overlaps the other's products.
+// A consumer thread holds S (BK / 2), O (HDP / 2) and P (BK / 4 bf16
+// pairs): 160 registers at hd 128, 176 at hd 256. Past hd 128, O += P V runs
+// in chunks of 128 columns of hd (and one of 64 at hd 192).
+// ---------------------------------------------------------------------------
 
-template <int HDP, int BK>
-__global__ void __launch_bounds__(MQ_THREADS) flash_fwd_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kT,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-    long long bias_stride, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int s, int hd, float scale, int causal,
-    int dropout, uint32_t seed, HeadMap hm, uint32_t thr,
+template <int HDP, bool BIAS, bool DROP>
+__global__ void __launch_bounds__(TF_THREADS, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,   // q: 64 x 64 boxes
+    const __grid_constant__ CUtensorMap kmap,   // kT: 64 keys x HDP rows
+    const __grid_constant__ CUtensorMap vmap,   // v: 64 hd x BK keys boxes
+    const float* __restrict__ bias, long long bias_stride,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int s, int hd,
+    float scale, int causal, uint32_t seed, HeadMap hm, uint32_t thr,
     float inv_keep) {
-  constexpr int LDQ = HDP + 8, LDK = BK + 8;  // LDQ is also V's row stride
-  constexpr int DT = HDP / 8;                 // n8 tiles of O
-  constexpr int KT = BK / 8;                  // n8 tiles of S
-  constexpr int DU = HDP / 8, KU = BK / 8;    // 16-byte units per row
-  constexpr bool QREG = HDP <= 128;           // Q's fragments in registers
-  extern __shared__ __align__(16) unsigned char mq_smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mq_smem);
-  __nv_bfloat16* ks = qs + BQ * LDQ;          // [2][HDP][LDK]
-  __nv_bfloat16* vs = ks + 2 * HDP * LDK;     // [2][BK][LDQ]
+  constexpr int BK = fw_fwd_bk(HDP);         // keys a tile
+  constexpr int NC = HDP / 64;               // 64-column boxes of hd
+  constexpr int TILE = NC * FW_BOX;          // 64 rows x HDP of Q
+  constexpr int KT_BOX = HDP * 128;          // K^T: HDP rows x 64 keys
+  constexpr int V_BOX = BK * 128;            // V: BK keys x 64 hd
+  constexpr int STAGE = BK / 64 * KT_BOX + NC * V_BOX;   // K^T and V
+  constexpr int ST = fw_fwd_stages(HDP);
+  constexpr int SN = BK / 2;                 // S's accumulators a thread
+  constexpr int KS = BK / 16;                // P V's k16 steps
+  extern __shared__ __align__(16) unsigned char fw_raw[];
+  // the swizzle is a function of the shared address: 1024-byte aligned
+  unsigned char* base =
+      fw_raw + ((TF_ALIGN - (wg_smem(fw_raw) & (TF_ALIGN - 1))) &
+                (TF_ALIGN - 1));
+  unsigned char* qs = base;               // [2][NC][64 rows][64]
+  unsigned char* ring = qs + 2 * TILE;    // [ST] {K^T, V [NC][BK][64]}
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * STAGE);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int nq = s / BQ;
+  const int tid = threadIdx.x;
+  const int nq = s / FW_DQ_BQ;
   // causal: the tiles nearest the bottom have the most K steps; start them
   // first so the short ones fill in behind
   const int qi = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
   const int b = blockIdx.x;
-  const uint32_t hb = hm(b);      // the hash's batch-head
-  const int q0 = qi * BQ;
-  const int wrow = q0 + warp * 16;            // this warp's first row
-  const size_t head = (size_t)b * s * hd;
-  const __nv_bfloat16* qh = q + head;
-  const __nv_bfloat16* kh = kT + head;
-  const __nv_bfloat16* vh = v + head;
-  const float* bias_h = bias ? bias + (size_t)b * bias_stride : nullptr;
-
-  // group 0: Q, K^T tile 0, V tile 0; columns of hd's padding read zeros
-  for (int i = tid; i < BQ * DU; i += MQ_THREADS) {
-    const int r = i / DU, d = (i - r * DU) * 8;
-    const bool ok = d < hd;
-    cp_async16(qs + r * LDQ + d, ok ? qh + (size_t)(q0 + r) * hd + d : qh,
-               ok);
-  }
-  auto stage_kv = [&](int t) {
-    const int k0 = t * BK;
-    __nv_bfloat16* kd = ks + (t & 1) * HDP * LDK;
-    __nv_bfloat16* vd = vs + (t & 1) * BK * LDQ;
-    for (int i = tid; i < HDP * KU; i += MQ_THREADS) {
-      const int d = i / KU, c = (i - d * KU) * 8;
-      const bool ok = d < hd;
-      cp_async16(kd + d * LDK + c, ok ? kh + (size_t)d * s + k0 + c : kh, ok);
-    }
-    for (int i = tid; i < BK * DU; i += MQ_THREADS) {
-      const int r = i / DU, d = (i - r * DU) * 8;
-      const bool ok = d < hd;
-      cp_async16(vd + r * LDQ + d, ok ? vh + (size_t)(k0 + r) * hd + d : vh,
-                 ok);
-    }
-  };
-  stage_kv(0);
-  cp_async_commit();
-
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  const float scale_l2 = scale * LOG2E;
-  float m_r[2] = {-FLT_MAX, -FLT_MAX};   // rows g and g + 8, log2 units
-  float l_r[2] = {0.f, 0.f};             // this lane's share of the sums
-  uint32_t qf[QREG ? HDP / 16 : 1][4];
-
+  const int q0 = qi * FW_DQ_BQ;
   // a K tile is visited iff its first column is <= the tile's last row
-  const int ntiles = causal ? (q0 + BQ) / BK : s / BK;
-  for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<0>();    // tile t has landed ...
-    __syncthreads();       // ... for every thread, and tile t - 1's buffers
-                           // are free
-    if (t + 1 < ntiles) stage_kv(t + 1);
-    cp_async_commit();
-    if (QREG && t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < HDP / 16; ++kk)
-        ldsm_x4(qf[QREG ? kk : 0],
-                qs + (warp * 16 + (lane & 15)) * LDQ + kk * 16 +
-                    (lane >> 4) * 8);
-    }
-    const int k0 = t * BK;
-    if (causal && k0 > wrow + 15) continue;   // above this warp's diagonal
-    const __nv_bfloat16* kb = ks + (t & 1) * HDP * LDK;
-    const __nv_bfloat16* vb = vs + (t & 1) * BK * LDQ;
+  const int ntiles = causal ? (q0 + FW_DQ_BQ) / BK : s / BK;
 
-    // S = Q K^T
-    float sc[KT][4];
-#pragma unroll
-    for (int j = 0; j < KT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-      uint32_t qa[4];
-      if (QREG) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qa[e] = qf[QREG ? kk : 0][e];
-      } else {
-        ldsm_x4(qa, qs + (warp * 16 + (lane & 15)) * LDQ + kk * 16 +
-                        (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int p = 0; p < KT / 2; ++p) {
-        uint32_t kf[4];
-        ldsm_x4_trans(kf, kb + (kk * 16 + (lane & 7) + (lane & 8)) * LDK +
-                              p * 16 + (lane >> 4) * 8);
-        mma_bf16(sc[2 * p], qa, kf[0], kf[1]);
-        mma_bf16(sc[2 * p + 1], qa, kf[2], kf[3]);
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TF_CONSUMERS / 32);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= TF_CONSUMERS) {   // the producer: one thread starts TMA
+    tf_producer_regs();
+    if (tid == TF_CONSUMERS) {
+      mbar_arrive_expect_tx(qbar, 2 * TILE);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(qs + (w * NC + c) * FW_BOX, &qmap, qbar, 64 * c,
+                      q0 + 64 * w, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % ST;
+        if (t >= ST) mbar_wait(&empty[st], ((t / ST) - 1) & 1);
+        unsigned char* d = ring + st * STAGE;
+        const int k0 = t * BK;
+        mbar_arrive_expect_tx(&full[st], STAGE);
+        for (int h = 0; h < BK / 64; ++h)
+          tma_load_3d(d + h * KT_BOX, &kmap, &full[st], k0 + 64 * h, 0, b);
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(d + BK / 64 * KT_BOX + c * V_BOX, &vmap, &full[st],
+                      64 * c, k0, b);
       }
     }
+    return;
+  }
 
-    // scale, bias, causal mask, in log2 units (x log2(e), so exp2 is one
-    // instruction); the row max over the quad
-    const bool masked = causal && k0 + BK - 1 > wrow;
+  tf_consumer_regs();
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + 64 * wg + 16 * warp + g;   // fragment rows r0, r0 + 8
+  const uint32_t hb = hm(b);                     // the hash's batch-head
+  const float* brow[2];   // the bias rows of rows r0 and r0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    brow[h] = BIAS ? bias + (size_t)b * bias_stride + (size_t)(r0 + 8 * h) * s
+                   : nullptr;
+  const float scale_l2 = scale * LOG2E;
+  float o[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {-FLT_MAX, -FLT_MAX};   // rows r0, r0 + 8, log2 units
+  float l_r[2] = {0.f, 0.f};             // this lane's share of the sums
+  const unsigned char* qw = qs + wg * TILE;
+  mbar_wait(qbar, 0);
+
+  // the pieces of a tile: S's product (async); the softmax on S's
+  // fragments (scale, bias and causal mask in log2 units, the row max over
+  // the quad, l updated with the undropped exponentials, the exponentials
+  // then dropped and rescaled in place, O's rescale returned in alpha); P
+  // packed to bf16 pairs (the A fragments of P V); O's rescale and O += P
+  // V (async)
+  auto s_product = [&](float (&sc)[SN], const unsigned char* kst) {
+    wgmma_fence_operands(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < HDP / 16; ++j)
+      Wg<BK>::template ss<0, 1>(
+          sc, fw_kmajor(qw + (j >> 2) * FW_BOX + 32 * (j & 3)),
+          fw_mnmajor(kst + 2048 * j, KT_BOX), j > 0);
+    wgmma_commit();
+  };
+  auto softmax = [&](float (&sc)[SN], int kt, float (&alpha)[2]) {
+    const int k0 = kt * BK;
+    const bool mask = causal && k0 + BK - 1 > q0 + 64 * wg;
     float mx[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
-    for (int j = 0; j < KT; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = wrow + g + (e >> 1) * 8;
-        const int col = k0 + j * 8 + t4 * 2 + (e & 1);
-        float x = bias_h ? (sc[j][e] * scale + bias_h[(size_t)row * s + col])
-                             * LOG2E
-                         : sc[j][e] * scale_l2;
-        if (masked && col > row) x = -FLT_MAX;
-        sc[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int h = 0; h < 2; ++h) {
+        const int col = k0 + 8 * j + 2 * t4;
+        float2 x = make_float2(sc[4 * j + 2 * h] * scale_l2,
+                               sc[4 * j + 2 * h + 1] * scale_l2);
+        if (BIAS) {
+          const float2 bv = *reinterpret_cast<const float2*>(brow[h] + col);
+          x.x = (sc[4 * j + 2 * h] * scale + bv.x) * LOG2E;
+          x.y = (sc[4 * j + 2 * h + 1] * scale + bv.y) * LOG2E;
+        }
+        if (mask) {
+          const int row = r0 + 8 * h;
+          if (col > row) x.x = -FLT_MAX;
+          if (col + 1 > row) x.y = -FLT_MAX;
+        }
+        sc[4 * j + 2 * h] = x.x;
+        sc[4 * j + 2 * h + 1] = x.y;
+        mx[h] = fmaxf(mx[h], fmaxf(x.x, x.y));
       }
-    float alpha[2], m_new[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      m_new[h] = fmaxf(m_r[h], mx[h]);
-      alpha[h] = exp2f(m_r[h] - m_new[h]);
-      m_r[h] = m_new[h];
-    }
-
-    // exponentials: l sums the undropped ones; P (dropped, rescaled,
-    // rounded to bf16) is packed as the A operand of P V
-    uint32_t pf[KT][2];
-    float rs[2] = {0.f, 0.f};
+      const float m_new = fmaxf(m_r[h], mx[h]);
+      alpha[h] = fw_exp2(m_r[h] - m_new);
+      m_r[h] = m_new;
+      float rs = 0.f;
 #pragma unroll
-    for (int j = 0; j < KT; ++j)
+      for (int j = 0; j < BK / 8; ++j) {
+        sc[4 * j + 2 * h] = fw_exp2(sc[4 * j + 2 * h] - m_new);
+        sc[4 * j + 2 * h + 1] = fw_exp2(sc[4 * j + 2 * h + 1] - m_new);
+        rs += sc[4 * j + 2 * h] + sc[4 * j + 2 * h + 1];
+      }
+      l_r[h] = l_r[h] * alpha[h] + rs;
+      if (DROP) {   // e_use: dropped and rescaled, after l's sum
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float e0 = exp2f(sc[j][2 * h] - m_new[h]);
-        float e1 = exp2f(sc[j][2 * h + 1] - m_new[h]);
-        rs[h] += e0 + e1;
-        if (dropout) {
-          const uint32_t row = (uint32_t)(wrow + g + h * 8);
-          const uint32_t col = (uint32_t)(k0 + j * 8 + t4 * 2);
-          e0 = rand_bits(seed, hb, row, col) >= thr ? e0 * inv_keep
-                                                              : 0.f;
-          e1 = rand_bits(seed, hb, row, col + 1) >= thr
-                   ? e1 * inv_keep : 0.f;
+        for (int j = 0; j < BK / 8; ++j) {
+          const uint32_t row = (uint32_t)(r0 + 8 * h);
+          const uint32_t col = (uint32_t)(k0 + 8 * j + 2 * t4);
+          sc[4 * j + 2 * h] = rand_bits(seed, hb, row, col) >= thr
+                                  ? sc[4 * j + 2 * h] * inv_keep : 0.f;
+          sc[4 * j + 2 * h + 1] = rand_bits(seed, hb, row, col + 1) >= thr
+                                      ? sc[4 * j + 2 * h + 1] * inv_keep
+                                      : 0.f;
         }
-        pf[j][h] = pack_bf16x2(e0, e1);
       }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l_r[h] = l_r[h] * alpha[h] + rs[h];
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
     }
+  };
+  auto pack = [&](const float (&sc)[SN], uint32_t (&pa)[KS][4]) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        pa[j >> 1][2 * (j & 1) + h] =
+            pack_bf16x2(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]);
+  };
+  // O's columns 128 c .. in o[64 c ..]: a chunk of 128 columns is two
+  // boxes of V (the leading offset V_BOX between them), a last chunk of 64
+  // one box
+  auto pv = [&](const float (&alpha)[2], uint32_t (&pa)[KS][4],
+                const unsigned char* vst) {
+    wgmma_fence_operands(o);
+#pragma unroll
+    for (int j = 0; j < HDP / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[4 * j + i] *= alpha[i >> 1];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int c = 0; c < HDP / 128; ++c)
+        Wg<128>::template rs<1>(
+            *reinterpret_cast<float(*)[64]>(o + 64 * c), pa[kk],
+            fw_mnmajor(vst + 2 * c * V_BOX + 2048 * kk, V_BOX), 1);
+      if constexpr (HDP % 128 != 0)
+        Wg<64>::template rs<1>(
+            *reinterpret_cast<float(*)[32]>(o + HDP / 2 - 32), pa[kk],
+            fw_mnmajor(vst + (NC - 1) * V_BOX + 2048 * kk, V_BOX), 1);
+    }
+    wgmma_commit();
+  };
+  // ping-pong: a warpgroup issues its products only on its turn (named
+  // barrier 5 + wg, which the other group's pass() completes), so one
+  // group's softmax runs while the other's products do
+  auto turn = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(5 + wg) : "memory");
+  };
+  auto pass = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(6 - wg) : "memory");
+  };
+  auto stage_of = [&](int kt) { return ring + (kt % ST) * STAGE; };
 
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
-                              pf[2 * kk + 1][1]};
-#pragma unroll
-      for (int p = 0; p < DT / 2; ++p) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, vb + (kk * 16 + (lane & 7) + (lane & 8)) * LDQ +
-                              p * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * p], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * p + 1], pa, vf[2], vf[3]);
-      }
-    }
+  // S of tile kt is issued with O += P V of tile kt - 1, and tile kt's
+  // softmax runs while the latter's products do
+  float sc[SN], alpha[2];
+  uint32_t pa[KS][4];
+  if (wg == 1) pass();   // warpgroup 0 takes the first turn
+  mbar_wait(&full[0], 0);
+  turn();
+  s_product(sc, stage_of(0));
+  pass();
+  wgmma_wait<0>();
+  wgmma_fence_operands(sc);
+  softmax(sc, 0, alpha);
+  pack(sc, pa);
+  for (int kt = 1; kt < ntiles; ++kt) {
+    const int st = kt % ST;
+    mbar_wait(&full[st], (kt / ST) & 1);
+    turn();
+    s_product(sc, stage_of(kt));
+    pv(alpha, pa, stage_of(kt - 1) + BK / 64 * KT_BOX);
+    pass();
+    wgmma_wait<1>();   // S of tile kt
+    wgmma_fence_operands(sc);
+    softmax(sc, kt, alpha);
+    wgmma_wait<0>();   // P V of tile kt - 1: its stage goes back
+    wgmma_fence_operands(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(kt - 1) % ST]);
+    pack(sc, pa);
   }
-  cp_async_wait<0>();
+  turn();
+  pv(alpha, pa, stage_of(ntiles - 1) + BK / 64 * KT_BOX);
+  pass();
+  wgmma_wait<0>();
+  wgmma_fence_operands(o);
+  if (wg == 0) turn();   // warpgroup 1's first pass()
 
+  // out = O / l, cast once; lse = m + log(l) in all 128 columns of the row,
+  // 32 a lane of the quad
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_r[h];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = wrow + g + h * 8;
-    __nv_bfloat16* orow = out + head + (size_t)row * hd;
+    const int row = r0 + 8 * h;
+    __nv_bfloat16* orow = out + ((size_t)b * s + row) * hd;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int d = j * 8 + t4 * 2;   // hd % 8 == 0: the pair is all in or
+    for (int j = 0; j < HDP / 8; ++j) {
+      const int d = 8 * j + 2 * t4;   // hd % 8 == 0: the pair is all in or
       if (d < hd)                     // all out
-        store_pair(orow + d, o[j][2 * h] / l, o[j][2 * h + 1] / l);
+        store_pair(orow + d, o[4 * j + 2 * h] / l, o[4 * j + 2 * h + 1] / l);
     }
-    if (lse) {   // the quad's four lanes write the row's 128 columns
+    if (lse) {
       const float val = m_r[h] * LN2 + logf(l);   // m back in natural units
       float4* lrow = reinterpret_cast<float4*>(
           lse + ((size_t)b * s + row) * 128 + t4 * 32);
@@ -316,46 +375,42 @@ __global__ void __launch_bounds__(MQ_THREADS) flash_fwd_mma_kernel(
   }
 }
 
-template <int HDP, int BK>
-static int launch_flash_mma(const void* q, const void* kT, const void* v,
-                            const void* bias, long long bias_stride,
-                            void* out, void* lse, int bh, int s, int hd,
-                            float scale, int causal, int dropout,
-                            uint32_t seed, HeadMap hm, uint32_t thr,
-                            float inv_keep,
-                            cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes(HDP, BK);
-  auto kern = flash_fwd_mma_kernel<HDP, BK>;
-  // above 48 KB only as dynamic shared memory, after the opt-in; set on
-  // every launch, since the attribute is held per device
+// q, kT, v bf16 and 16-byte aligned: the three TMA maps (128-byte swizzle,
+// boxes 64 wide: q in 64 x 64 boxes, kT in boxes of 64 keys x HDP rows, v in
+// boxes of 64 hd x BK keys), then the launch
+template <int HDP, bool BIAS, bool DROP>
+static int launch_flash_wgmma(const void* q, const void* kT, const void* v,
+                              const void* bias, long long bias_stride,
+                              void* out, void* lse, int bh, int s, int hd,
+                              float scale, int causal, uint32_t seed,
+                              HeadMap hm, uint32_t thr, float inv_keep,
+                              cudaStream_t stream) {
+  const cuuint64_t S = (cuuint64_t)s, H = (cuuint64_t)hd;
+  const cuuint64_t rows[3] = {H, S, (cuuint64_t)bh};     // q, v: (bh, s, hd)
+  const cuuint64_t rstr[2] = {H * 2, S * H * 2};
+  const cuuint64_t cols[3] = {S, H, (cuuint64_t)bh};     // kT: (bh, hd, s)
+  const cuuint64_t cstr[2] = {S * 2, H * S * 2};
+  const cuuint32_t qbox[3] = {64, 64, 1};
+  const cuuint32_t kbox[3] = {64, HDP, 1};
+  const cuuint32_t vbox[3] = {64, fw_fwd_bk(HDP), 1};
+  CUtensorMap qmap, kmap, vmap;
+  const CUtensorMapDataType B = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode_map(&qmap, B, q, 3, rows, rstr, qbox) ||
+      !encode_map(&kmap, B, kT, 3, cols, cstr, kbox) ||
+      !encode_map(&vmap, B, v, 3, rows, rstr, vbox))
+    return cudaErrorInvalidValue;
+  constexpr int smem = fw_fwd_smem(HDP);
+  auto kern = flash_fwd_wgmma_kernel<HDP, BIAS, DROP>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, s / BQ);   // x runs fastest: every head's tile qi, then qi+1
+  const dim3 grid(bh, s / FW_DQ_BQ);
   note_launch(kern);
-  kern<<<grid, MQ_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(kT),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      bias_stride, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), s, hd, scale, causal, dropout, seed, hm, thr,
-      inv_keep);
+  kern<<<grid, TF_THREADS, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<const float*>(bias), bias_stride,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), s, hd,
+      scale, causal, seed, hm, thr, inv_keep);
   return cudaGetLastError();
-}
-
-template <int BK>
-static int launch_mma_hd(int hd, const void* q, const void* kT, const void* v,
-                         const void* bias, long long bias_stride, void* out,
-                         void* lse, int bh, int s, float scale, int causal,
-                         int dropout, uint32_t seed, HeadMap hm, uint32_t thr,
-                         float inv_keep, cudaStream_t st) {
-  // the buckets of kernels/attention.py _MMA_HDP
-  if (hd <= 32) return launch_flash_mma<32, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-  if (hd <= 64) return launch_flash_mma<64, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-  if (hd <= 96) return launch_flash_mma<96, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-  if (hd <= 128) return launch_flash_mma<128, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-  if (hd <= 192) return launch_flash_mma<192, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-  return launch_flash_mma<256, BK>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -671,19 +726,19 @@ const char* xsmm_error_string(int err) {
 // q, v: (bh, s, hd); kT: (bh, hd, s); bias: f32 (s, s) per head at
 // bias + b * bias_stride, or null; out: (bh, s, hd); lse: (bh, s, 128) f32
 // or null. s % 64 == 0, hd % 8 == 0, hd <= 256; q, kT and v 16-byte
-// aligned. The type picks the kernel: bf16 the tensor-core kernel with
-// bk-column K tiles (bk in {32, 64}), f32 the TMA-fed FMA kernel (one tile
-// per hd bucket; bk unused). (b0, h0, nhl, nhg): the dropout hash's head
-// map (HeadMap); 0, 0, 1, 1 hashes the local batch-head index. A refused
-// map or launch returns its error; the wrapper raises.
+// aligned. The type picks the kernel (kernels/attention.py flash_path): f32
+// the TMA-fed FMA kernel, bf16 the wgmma kernel (s % 128 == 0), one tile
+// per hd bucket each. (b0, h0, nhl, nhg): the dropout hash's head map
+// (HeadMap); 0, 0, 1, 1 hashes the local batch-head index. A refused map or
+// launch returns its error; the wrapper raises.
 int xsmm_flash_fwd(const void* q, const void* kT, const void* v,
                    const void* bias, long long bias_stride, void* out,
-                   void* lse, int bh, int s, int hd, int type, int bk,
-                   float scale, int causal, int dropout, unsigned seed,
-                   unsigned thr, float inv_keep, unsigned b0, unsigned h0,
-                   unsigned nhl, unsigned nhg, void* stream) {
+                   void* lse, int bh, int s, int hd, int type, float scale,
+                   int causal, int dropout, unsigned seed, unsigned thr,
+                   float inv_keep, unsigned b0, unsigned h0, unsigned nhl,
+                   unsigned nhg, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s <= 0 || s % BQ || s / BQ > 65535 || hd <= 0 || hd % 8 || hd > 256 ||
+  if (s <= 0 || s % 64 || s / 64 > 65535 || hd <= 0 || hd % 8 || hd > 256 ||
       bh <= 0 || nhl == 0 || nhg == 0 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kT) |
        reinterpret_cast<uintptr_t>(v)) % 16)
@@ -696,11 +751,31 @@ int xsmm_flash_fwd(const void* q, const void* kT, const void* v,
       return launch_flash_tma_fma<128>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
     return launch_flash_tma_fma<256>(q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale, causal, dropout, seed, hm, thr, inv_keep, st);
   }
-  if (type == T_BF16 && bk == 64)
-    return launch_mma_hd<64>(hd, q, kT, v, bias, bias_stride, out, lse, bh, s, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-  if (type == T_BF16 && bk == 32)
-    return launch_mma_hd<32>(hd, q, kT, v, bias, bias_stride, out, lse, bh, s, scale, causal, dropout, seed, hm, thr, inv_keep, st);
-  return cudaErrorInvalidValue;
+  if (type != T_BF16 || s % FW_DQ_BQ) return cudaErrorInvalidValue;
+  // the instantiation: hd's bucket (64, 128, 192, 256), a bias, dropout
+  const int k = ((hd - 1) / 64) * 4 + (bias != nullptr) * 2 + (dropout != 0);
+  using Launch = int (*)(const void*, const void*, const void*, const void*,
+                         long long, void*, void*, int, int, int, float, int,
+                         uint32_t, HeadMap, uint32_t, float, cudaStream_t);
+  constexpr Launch fwd[16] = {
+      launch_flash_wgmma<64, false, false>,
+      launch_flash_wgmma<64, false, true>,
+      launch_flash_wgmma<64, true, false>,
+      launch_flash_wgmma<64, true, true>,
+      launch_flash_wgmma<128, false, false>,
+      launch_flash_wgmma<128, false, true>,
+      launch_flash_wgmma<128, true, false>,
+      launch_flash_wgmma<128, true, true>,
+      launch_flash_wgmma<192, false, false>,
+      launch_flash_wgmma<192, false, true>,
+      launch_flash_wgmma<192, true, false>,
+      launch_flash_wgmma<192, true, true>,
+      launch_flash_wgmma<256, false, false>,
+      launch_flash_wgmma<256, false, true>,
+      launch_flash_wgmma<256, true, false>,
+      launch_flash_wgmma<256, true, true>};
+  return fwd[k](q, kT, v, bias, bias_stride, out, lse, bh, s, hd, scale,
+                causal, seed, hm, thr, inv_keep, st);
 }
 
 }  // extern "C"

@@ -21,12 +21,17 @@
 // owns each output tile and writes it once: no atomics, so results repeat
 // bit for bit from run to run.
 //
-// Three kernels serve the scheduled and supertile strategies, and three the
+// Four kernels serve the scheduled and supertile strategies, and three the
 // union strategies; spmm_entry and union_entry take the one spmm_route
 // names (kernels/spmm.py spmm_path mirrors the rule):
+// - bcsc_spmm_wgmma_kernel, route "wgmma", for the scheduled and supertile
+//   strategies on bf16 operands wherever bk % 32 == 0 and bn % 32 == 0
+//   (32 x 32, 64 x 128, the 128 x 128 supertiles): TMA-fed swizzled tiles,
+//   products by wgmma (see its section below);
 // - bcsc_spmm_mma_kernel and bcsc_union_mma_kernel, route "mma", for bf16
-//   operands wherever bk % 16 == 0 and bn % 8 == 0 (32 x 32, 16 x 64,
-//   64 x 128, 16 x 8, the 128 x 128 supertiles): bf16 tiles staged
+//   operands wherever bk % 16 == 0 and bn % 8 == 0 and the wgmma kernel
+//   does not serve (the scheduled kernel: 16 x 64, 48 x 24, 16 x 8; the
+//   union: every such blocking, 32 x 32 included): bf16 tiles staged
 //   unwidened by cp.async in a 3-slice ring, products on the tensor cores
 //   (mma.sync m16n8k16, f32 accumulator in registers);
 // - bcsc_spmm_tma_fma_kernel and bcsc_union_tma_fma_kernel, route
@@ -44,7 +49,7 @@
 // the bf16 tensor cores, 0.21 ms on the f32 FMA units). The supertile
 // strategy multiplies whole occupied 128 x 128 supertiles: at that density
 // 97% of them, 67 GFLOP (0.068 ms on the tensor cores).
-// Design of the tensor-core kernel: one 256-thread block owns a 128-row tile
+// Design of the mma.sync kernel: one 256-thread block owns a 128-row tile
 // of one block column (32, 64 or 128 columns wide; a wider block column is
 // cut into 128-column chunks) and walks the column's schedule in slices of
 // 16-64 rows of depth. Slices of A's panel (128 x kc) and of the value block
@@ -172,7 +177,9 @@ __global__ void __launch_bounds__(128) bcsc_spmm_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The same schedule on the bf16 tensor cores (bk % 16 == 0, bn % 8 == 0)
+// The same schedule on the bf16 tensor cores by mma.sync (bk % 16 == 0,
+// bn % 8 == 0, where the wgmma kernel below does not serve: bk or bn not a
+// multiple of 32)
 //
 // Block (x, y): block column jb = x / nchunk, columns [c0, c0 + TN) of it
 // with c0 = (x % nchunk) * TN, rows [128 y, 128 y + 128). Iteration i of the
@@ -893,6 +900,173 @@ __global__ void __launch_bounds__(SF_THREADS, 1) bcsc_union_tma_fma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// The scheduled and supertile SpMMs in bf16 on wgmma with TMA-fed tiles
+// (route "wgmma", kernels/spmm.py spmm_path: bf16 operands whose blocks are
+// whole 32-deep and 32-wide pieces, bk % 32 == 0 and bn % 32 == 0:
+// stream20's 32 x 32, 64 x 128, the 128 x 128 supertiles; the k-union keeps
+// its mma.sync kernel). It computes what bcsc_spmm_mma_kernel computes: each
+// step's product summed in schedule order in f32 registers, rounded once on
+// the store, one writer per output tile, no atomics.
+//
+// Bound: at the streaming case (m = 32768, k = n = 1024, 32 x 32 blocks at
+// density 0.2, bf16 in, f32 out) device memory, 0.060 ms for A and C at
+// 3.35 TB/s; A is re-read from L2 once per block column (about 430 MB), and
+// each product is small (m64n32k16), so TMA and L2 set the pace, not the
+// tensor cores. At the supertiles (128 x 128, 97% of them occupied) its own
+// products are 67.65 GFLOP, 0.068 ms at the bf16 peak.
+//
+// Design: the f32 tma_fma kernel's producer with the bf16 BRGEMM's wgmma
+// consumers. One block per output tile of 128 rows and TN = 32, 64 or 128
+// columns of one block column (a wider block column is cut into TN-column
+// chunks; columns past bn arrive as TMA's zero fill and are not stored). One
+// producer warp keeps a ring of KC-deep slices in flight, KC = 64 where bk
+// allows it, else 32, paced by full and empty mbarriers: A's 128 x KC slice
+// from a 2-D map over A (m, k), at column rows[s] * bk + k0, and the value
+// block's KC x TN slice from a 3-D map over the value store (bn, bk,
+// nblocks), one box of up to 64 columns at a time. The zero block (an empty
+// column's step) is loaded at block index nblocks (or 1 for an empty
+// store), past the map's extent: TMA fills it with zeros and still counts
+// its bytes, nothing is read from the value store, and a non-finite A in
+// block row 0 still turns the column into NaN, as in the reference. Both
+// slices land swizzled, 128-byte where their rows are 64 bf16 (KC = 64,
+// value boxes 64 wide) and 64-byte where they are 32 (KC = 32, TN = 32):
+// xsmm_wgmma.cuh's layouts. Two consumer warpgroups each own 64 rows of the
+// tile and run wgmma.m64nTNk16 per k16 step, A K-major, the row-major value
+// slice MN-major (the transpose bit), one slice's products in flight while
+// the next slice is issued. The grid's x runs over the block columns, so
+// the blocks that share A's row panel run together and read it from L2.
+// ---------------------------------------------------------------------------
+
+constexpr int SW_CONSUMERS = 256;               // two consumer warpgroups
+constexpr int SW_THREADS = SW_CONSUMERS + 32;   // + the producer warp
+constexpr int SW_TM = 128;                      // output rows a block
+
+// the tile of TN columns and KC-deep slices: A's slice, the value slice as
+// NB boxes of BOX_N columns, the ring
+template <int TN, int KC>
+struct SwTile {
+  static constexpr int A_BYTES = SW_TM * KC * 2;
+  static constexpr int BOX_N = TN < 64 ? TN : 64;
+  static constexpr int NB = TN / BOX_N;
+  static constexpr int V_BOX = KC * BOX_N * 2;
+  static constexpr int STAGE = A_BYTES + NB * V_BOX;
+  static constexpr int STAGES = KC == 64 ? 3 : 4;
+  static constexpr int SMEM = SF_ALIGN + STAGES * STAGE + 2 * STAGES * 8;
+  static_assert(STAGE % 1024 == 0 && V_BOX % 512 == 0,
+                "every box starts on its swizzle's alignment");
+  static_assert(2 * SMEM <= SF_SMEM_MAX, "two blocks an SM");
+};
+
+// the descriptors of k16 step j: A's (K-major) at `as`, the value slice's
+// (MN-major) at `vs`, each in its slice's swizzle
+template <int KC>
+__device__ __forceinline__ uint64_t sw_adesc(const unsigned char* as, int j) {
+  return KC == 64 ? wgmma_desc_sw128(as + 32 * j, 16, 1024)
+                  : wgmma_desc_sw64(as + 32 * j, 16, 512);
+}
+
+template <int TN, int KC>
+__device__ __forceinline__ uint64_t sw_vdesc(const unsigned char* vs, int j) {
+  using T = SwTile<TN, KC>;
+  return T::BOX_N == 64 ? wgmma_desc_sw128(vs + 2048 * j, T::V_BOX, 1024)
+                        : wgmma_desc_sw64(vs + 1024 * j, T::V_BOX, 512);
+}
+
+// Block (x, y): block column jb = x / nchunk, columns [c0, c0 + TN) of it
+// with c0 = (x % nchunk) TN, rows [128 y, 128 y + 128). Iteration i covers
+// schedule step ptr[jb] + i / nsl, depth [KC (i % nsl), + KC) of its
+// blocks. vzero: the value map's block extent (the zero block's index).
+template <typename TO, int TN, int KC>
+__global__ void __launch_bounds__(SW_THREADS, 2) bcsc_spmm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap vmap, const int* __restrict__ ptr,
+    const int* __restrict__ rows, const int* __restrict__ vidx,
+    TO* __restrict__ out, int m, int n, int bk, int bn, int nzero,
+    int nchunk, int vzero) {
+  using T = SwTile<TN, KC>;
+  extern __shared__ __align__(16) unsigned char sw_raw[];
+  unsigned char* ring = sf_ring(sw_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+
+  const int tid = threadIdx.x;
+  const int jb = blockIdx.x / nchunk;
+  const int c0 = (blockIdx.x % nchunk) * TN;
+  const int row0 = blockIdx.y * SW_TM;
+  const int s0 = ptr[jb];
+  const int nsl = bk / KC;
+  const int total = (ptr[jb + 1] - s0) * nsl;
+
+  if (tid == 0) sf_init(full, empty, T::STAGES);
+  __syncthreads();
+
+  if (tid >= SW_CONSUMERS) {   // the producer warp: one thread starts TMA
+    if (tid == SW_CONSUMERS) {
+      for (int it = 0; it < total; ++it) {
+        const int st = it % T::STAGES;
+        if (it >= T::STAGES) mbar_wait(&empty[st], ((it / T::STAGES) - 1) & 1);
+        const int s = s0 + it / nsl, k0 = (it % nsl) * KC;
+        const int v = vidx[s];
+        unsigned char* sp = ring + st * T::STAGE;
+        mbar_arrive_expect_tx(&full[st], T::STAGE);
+        tma_load_2d(sp, &amap, &full[st], rows[s] * bk + k0, row0);
+#pragma unroll
+        for (int h = 0; h < T::NB; ++h)
+          tma_load_3d(sp + T::A_BYTES + h * T::V_BOX, &vmap, &full[st],
+                      c0 + h * T::BOX_N, k0, v == nzero ? vzero : v);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7, lane = tid & 31;
+  float acc[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < total; ++it) {
+    const int st = it % T::STAGES;
+    mbar_wait(&full[st], (it / T::STAGES) & 1);
+    const unsigned char* sp = ring + st * T::STAGE;
+    const unsigned char* as = sp + wg * (T::A_BYTES / 2);
+    wgmma_fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KC / 16; ++j)
+      Wg<TN>::template ss<0, 1>(acc, sw_adesc<KC>(as, j),
+                                sw_vdesc<TN, KC>(sp + T::A_BYTES, j), 1);
+    wgmma_commit();
+    // the slice before this one is done: its stage goes back to the
+    // producer while this slice's products run
+    wgmma_wait<1>();
+    wgmma_fence_operands(acc);
+    if (it > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % T::STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  wgmma_fence_operands(acc);
+
+  // fragment rows and column pairs as in xsmm_wgmma.cuh; bn % 32 == 0: a
+  // pair is whole or past the block column
+  const int width = min(TN, bn - c0);
+  TO* op = out + (long long)jb * bn + c0;
+  const int r0 = row0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    if (col >= width) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = r0 + 8 * h;
+      if (gr < m)
+        store_pair(op + (long long)gr * n + col, acc[4 * j + 2 * h],
+                   acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Union RHS compactor (build_union_compact_rhs): out (n/128, U*bk, 128) from
 // the gather map (n/128, U, W) of value indices, out[g, u bk + r, w bn + c]
 // = vals[gmap[g, u, w], r, c] (nzero: zeros, so pad slots hold zeros and
@@ -1354,6 +1528,80 @@ static int launch_union_tma_fma(const void* a, const void* vals,
                     (int)vrows);
 }
 
+// the wgmma kernel at one column width TN (32, 64 or 128) and slice depth
+// KC (64 or 32); a, vals bf16 and 16-byte aligned, bk % 32 == 0, bn % 32 ==
+// 0. A's map: (k, m) in boxes of KC x 128; the values' map: (bn, bk,
+// nblocks) in boxes of BOX_N x KC x 1 (an empty store: one block of A's
+// memory, never read in bounds), the zero block at block index vzero, the
+// extent
+template <typename TO, int TN, int KC>
+static int launch_spmm_wgmma_tn(const void* a, const void* vals,
+                                const int* ptr, const int* rows,
+                                const int* vidx, void* out, int m, int k,
+                                int n, int bk, int bn, int nzero,
+                                cudaStream_t st) {
+  using T = SwTile<TN, KC>;
+  const int nchunk = (bn + TN - 1) / TN;
+  const long long gx = (long long)(n / bn) * nchunk;
+  const long long gy = (m + SW_TM - 1) / SW_TM;
+  const int vzero = nzero > 0 ? nzero : 1;
+  if (gx > 2147483647LL || gy > 65535) return cudaErrorInvalidConfiguration;
+  const CUtensorMapDataType B = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t adims[2] = {(cuuint64_t)k, (cuuint64_t)m};
+  const cuuint64_t astr[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t abox[2] = {KC, SW_TM};
+  const cuuint64_t vdims[3] = {(cuuint64_t)bn, (cuuint64_t)bk,
+                               (cuuint64_t)vzero};
+  const cuuint64_t vstr[2] = {(cuuint64_t)bn * 2, (cuuint64_t)bk * bn * 2};
+  const cuuint32_t vbox[3] = {T::BOX_N, KC, 1};
+  CUtensorMap amap, vmap;
+  if (!encode_map(&amap, B, a, 2, adims, astr, abox,
+                  KC == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_map(&vmap, B, nzero > 0 ? vals : a, 3, vdims, vstr, vbox,
+                  T::BOX_N == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  auto kern = bcsc_spmm_wgmma_kernel<TO, TN, KC>;
+  // above 48 KB only as dynamic shared memory, after the opt-in
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  note_launch(kern);
+  kern<<<dim3((unsigned)gx, (unsigned)gy), SW_THREADS, T::SMEM, st>>>(
+      amap, vmap, ptr, rows, vidx, static_cast<TO*>(out), m, n, bk, bn,
+      nzero, nchunk, vzero);
+  return cudaGetLastError();
+}
+
+template <typename TO, int KC>
+static int launch_spmm_wgmma_kc(const void* a, const void* vals,
+                                const int* ptr, const int* rows,
+                                const int* vidx, void* out, int m, int k,
+                                int n, int bk, int bn, int nzero,
+                                cudaStream_t st) {
+  if (bn <= 32)
+    return launch_spmm_wgmma_tn<TO, 32, KC>(a, vals, ptr, rows, vidx, out, m,
+                                            k, n, bk, bn, nzero, st);
+  if (bn <= 64)
+    return launch_spmm_wgmma_tn<TO, 64, KC>(a, vals, ptr, rows, vidx, out, m,
+                                            k, n, bk, bn, nzero, st);
+  return launch_spmm_wgmma_tn<TO, 128, KC>(a, vals, ptr, rows, vidx, out, m,
+                                           k, n, bk, bn, nzero, st);
+}
+
+template <typename TO>
+static int launch_spmm_wgmma(const void* a, const void* vals, const int* ptr,
+                             const int* rows, const int* vidx, void* out,
+                             int m, int k, int n, int bk, int bn, int nzero,
+                             cudaStream_t st) {
+  if (bk % 64 == 0)
+    return launch_spmm_wgmma_kc<TO, 64>(a, vals, ptr, rows, vidx, out, m, k,
+                                        n, bk, bn, nzero, st);
+  return launch_spmm_wgmma_kc<TO, 32>(a, vals, ptr, rows, vidx, out, m, k, n,
+                                      bk, bn, nzero, st);
+}
+
 static int ilog2(int x) { return 31 - __builtin_clz((unsigned)x); }
 
 // the compactor's route (kernels/spmm.py compact_route mirrors it)
@@ -1457,14 +1705,18 @@ static int launch_densify(const void* vals, const int* gmap, void* out,
   return cudaErrorInvalidValue;
 
 // the routes of the three SpMM entries
-enum { SP_FMA, SP_MMA, SP_TMA_FMA };
+enum { SP_FMA, SP_MMA, SP_TMA_FMA, SP_WGMMA };
 
-// the kernel a call takes (kernels/spmm.py spmm_path mirrors it): the
-// tensor-core kernel for bf16 tiles whose depth is whole k16 steps and whose
-// rows are whole 16-byte units; the TMA-fed FMA kernel for f32 blocks whose rows and depth are whole 16-byte units (TMA's
-// strides), in the union at most SF_UNION_BOXES value blocks a group; the
-// FMA kernel for the rest
+// the kernel a call takes (kernels/spmm.py spmm_path mirrors it): the wgmma
+// kernel for bf16 scheduled and supertile calls whose blocks are whole
+// 32-deep, 32-wide pieces; the mma.sync kernel for the other bf16 tiles
+// whose depth is whole k16 steps and whose rows are whole 16-byte units,
+// and for every such k-union; the TMA-fed FMA kernel for f32 blocks whose
+// rows and depth are whole 16-byte units (TMA's strides), in the union at
+// most SF_UNION_BOXES value blocks a group; the FMA kernel for the rest
 static int spmm_route(int in_type, int bk, int bn, bool uni) {
+  if (in_type == T_BF16 && !uni && bk % 32 == 0 && bn % 32 == 0)
+    return SP_WGMMA;
   if (in_type == T_BF16 && bk % 16 == 0 && bn % 8 == 0) return SP_MMA;
   if (in_type == T_F32 && bk % 4 == 0 && bn % 4 == 0 &&
       (!uni || GW / bn <= SF_UNION_BOXES))
@@ -1481,6 +1733,15 @@ static int spmm_entry(const void* a, const void* vals, const int* ptr,
     return cudaErrorInvalidValue;
   if (m == 0 || n == 0) return cudaSuccess;
   const int route = spmm_route(in_type, bk, bn, false);
+  if (route == SP_WGMMA) {
+    if (out_type == T_F32)
+      return launch_spmm_wgmma<float>(a, vals, ptr, rows, vidx, out, m, k, n,
+                                      bk, bn, nzero, st);
+    if (out_type == T_BF16)
+      return launch_spmm_wgmma<__nv_bfloat16>(a, vals, ptr, rows, vidx, out,
+                                              m, k, n, bk, bn, nzero, st);
+    return cudaErrorInvalidValue;
+  }
   if (route == SP_MMA) {
     if (out_type == T_F32)
       return launch_spmm_mma<float>(a, vals, ptr, rows, vidx, out, m, k, n,

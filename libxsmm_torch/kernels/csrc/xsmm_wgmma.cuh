@@ -3,13 +3,15 @@
 // (TMA) loads and the 1-D bulk copy that complete on an mbarrier, 4- and
 // 16-byte cp.async whose completion arrives on an mbarrier, the
 // programmatic dependent launch's wait and trigger, the wgmma
-// fence/commit/wait, the shared-memory matrix descriptor of a 128-byte
-// swizzled tile and wgmma.m64n128k16 with bf16 operands and f32
-// accumulators; on the host, encode_map (cuTensorMapEncodeTiled) for the
-// TMA maps of every source that includes it (gemm_kernels.cu,
-// spmm_lab_kernels.cu, and through xsmm_flash_fma.cuh the two attention
-// sources). kernels/_build.py hashes this header into the name
-// of every library it builds, so an edit here rebuilds them all.
+// fence/commit/wait, the shared-memory matrix descriptors of 128- and
+// 64-byte swizzled tiles, wgmma.m64n128k16 with bf16 operands and f32
+// accumulators and the Wg<N> wrappers of wgmma.m64nNk16 (N = 32, 64, 128)
+// in both forms (A from shared memory or from registers); on the host,
+// encode_map (cuTensorMapEncodeTiled) for the TMA maps of every source that
+// includes it (gemm_kernels.cu, spmm_kernels.cu, spmm_lab_kernels.cu, and
+// through xsmm_flash_fma.cuh the two attention sources). kernels/_build.py
+// hashes this header into the name of every library it builds, so an edit
+// here rebuilds them all.
 //
 // Layouts (PTX ISA, "Matrix Descriptor" and "Shared Memory Matrix Layout"):
 // a TMA box whose inner extent is 128 bytes, loaded with
@@ -187,6 +189,24 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p,
   return d;
 }
 
+// a descriptor of a 64-byte swizzled tile at `p` (layout type 2): a TMA box
+// whose inner extent is 64 bytes, loaded with CU_TENSOR_MAP_SWIZZLE_64B into
+// a 512-byte aligned buffer, stores row r at byte r * 64 with its 16-byte
+// chunk c at chunk c ^ ((r / 2) % 4). K-major (rows of M, 32 bf16 of K in
+// each row): SBO 512 bytes (8 rows), the k16 step j at 32 * j bytes into the
+// row; MN-major (rows of K, 32 bf16 of N in each row, the transpose bit):
+// SBO 512 bytes between 8-row groups of K, LBO between 32-column boxes of N,
+// the k16 step at 16 * 64 bytes
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(const void* p,
+                                                    uint32_t lbo,
+                                                    uint32_t sbo) {
+  uint64_t d = (uint64_t)((wg_smem(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)2 << 62;   // layout type 2: 64-byte swizzle
+  return d;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -241,6 +261,149 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
+
+// ---------------------------------------------------------------------------
+// wgmma.m64nNk16 (N = 32, 64, 128), bf16 x bf16 -> f32 (the Wg<N>
+// wrappers of the warp-specialised kernels). d[4 j + i] of thread t (warp w = t /
+// 32 of the warpgroup, lane l) is row 16 w + l / 4 + 8 (i / 2), column 8 j +
+// 2 (l % 4) + (i % 2). SS: TA / TB are the transpose bits (0: K-major, 1:
+// MN-major). RS: a[0..3] is the warp's 16 x 16 slice of A at rows 16 w..,
+// the fragment of mma.m16n8k16: a[0] (row l / 4, columns 2 (l % 4) + {0,
+// 1}), a[1] (row + 8), a[2] (columns + 8), a[3] (both), the lower column in
+// the low half. So the accumulators d[8 k + 0..7] of a product with N >= 16,
+// packed to bf16 pairs in order, are the A fragment of the k16 step k of
+// the next product: a[2 (j & 1) + h] = {d[4 j + 2 h], d[4 j + 2 h + 1]},
+// j = 2 k, 2 k + 1. scale_d = 0 ignores d's values (the first k16 step).
+// ---------------------------------------------------------------------------
+
+#define WG_ACC16(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+#define WG_ACC32(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+
+#define WG_ACC64(d)                                                        \
+  WG_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),     \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),     \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),     \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),     \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),     \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define WG_REGS16                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+#define WG_REGS32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+
+#define WG_REGS64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+template <int N>
+struct Wg;
+
+template <>
+struct Wg<32> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_REGS16
+        ", %16, %17, p, 1, 1, %19, %20;\n"
+        "}\n"
+        : WG_ACC16(d)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct Wg<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+        ", %32, %33, p, 1, 1, %35, %36;\n"
+        "}\n"
+        : WG_ACC32(d)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : WG_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <>
+struct Wg<128> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+        ", %64, %65, p, 1, 1, %67, %68;\n"
+        "}\n"
+        : WG_ACC64(d)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+        "}\n"
+        : WG_ACC64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+#undef WG_ACC16
+#undef WG_ACC32
+#undef WG_ACC64
+#undef WG_REGS16
+#undef WG_REGS32
+#undef WG_REGS64
 
 // ---------------------------------------------------------------------------
 // Host: cuTensorMapEncodeTiled, looked up at run time through the CUDA

@@ -98,8 +98,9 @@ def test_flash_dispatch_parity(dt, opt):
 def test_flash_lse_multiblock_parity(dt):
     """The reference's online recurrence over two K blocks
     (block_override=(128, 128)) against the port at the same override (the
-    bf16 kernel's tile within it; the f32 kernel keeps its one tile per hd
-    bucket), with the LSE output in the (bh, s, 128) layout."""
+    bf16 wgmma kernel and the f32 kernel keep their one tile, which the
+    override need only tile), with the LSE output in the (bh, s, 128)
+    layout."""
     bh, s, hd = 2, 256, 64
     (qj, kj, vj), (qt, kt, vt) = operands(5, bh, s, hd, dt)
     jfn = ra.build_flash_attention(bh, s, hd, JNP[dt], causal=True,
@@ -108,7 +109,7 @@ def test_flash_lse_multiblock_parity(dt):
     pfn = pa.build_flash_attention(bh, s, hd, TORCH[dt], causal=True,
                                    return_lse=True,
                                    block_override=(128, 128))
-    assert (pfn.block_q, pfn.block_k) == ((64, 64) if dt == BF16
+    assert (pfn.block_q, pfn.block_k) == ((128, 128) if dt == BF16
                                           else (None, None))
     out_j, lse_j = jfn(0, qj, kj, vj)
     out_p, lse_p = pfn(0, qt, kt, vt)
@@ -241,19 +242,20 @@ def test_flash_bad_args():
 
 
 def test_block_override_picks_a_cuda_tile():
-    """The bf16 kernel takes its largest tile within the override; the f32
-    kernel has one tile per hd bucket, which the override leaves as is."""
+    """The bf16 wgmma kernel and the f32 kernel have one tile per hd
+    bucket (bf16: 128 rows against 128-key tiles up to hd 128, 64-key
+    tiles past it), which the override leaves as is."""
     bf16, f32 = torch.bfloat16, torch.float32
-    for hd, want in ((64, (64, 64)), (256, (64, 32))):
+    for hd, want in ((64, (128, 128)), (256, (128, 64))):
         assert pa.build_flash_attention(2, 256, hd, bf16).block_k == want[1]
         assert pa.build_flash_attention(2, 256, hd, f32).block_k is None
-    for override, want in (((128, 128), (64, 64)), ((64, 32), (64, 32)),
-                           ((256, 64), (64, 64))):
+    for override in ((128, 128), (64, 32), (256, 64), (32, 32)):
+        fn = pa.build_flash_attention(2, 256, 256, bf16,
+                                      block_override=override)
+        assert (fn.path, fn.block_q, fn.block_k) == ("wgmma", 128, 64)
         fn = pa.build_flash_attention(2, 256, 64, bf16,
                                       block_override=override)
-        assert (fn.block_q, fn.block_k) == want
-    with pytest.raises(ValueError, match="smaller than every"):
-        pa.build_flash_attention(2, 256, 64, bf16, block_override=(32, 32))
+        assert (fn.path, fn.block_q, fn.block_k) == ("wgmma", 128, 128)
     fn = pa.build_flash_attention(2, 256, 64, f32, block_override=(32, 32))
     assert (fn.path, fn.block_q, fn.block_k) == ("tma_fma", None, None)
     for dt in (bf16, f32):

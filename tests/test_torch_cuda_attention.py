@@ -10,7 +10,9 @@ machine run:
 package's tests, and this file imports nothing of JAX or libxsmm_tpu.)
 
 f32 runs the TMA-fed FMA kernel ("tma_fma"), held against the plain
-version at every form; the tests set and assert TF32 off.
+version at every form; the tests set and assert TF32 off. bf16 runs the
+wgmma kernel ("wgmma") at every hd, 128-key tiles up to hd 128 and 64-key
+tiles past it, held against the plain version at every form.
 
 Tolerances (matdiff normf_rel, kernel against plain on the same inputs):
 1e-5 for f32 flash outputs and the LSE (the online softmax rescales per K
@@ -18,8 +20,8 @@ tile where the plain version takes the row's max at once: rounding only);
 1e-2 for bf16 flash outputs (the exponentials are rounded to bf16 against a
 per-tile running max, so they round at other points than the plain
 version's, then the output is rounded to bf16; the same margin for the
-bf16 tensor-core kernel, whose bf16 products are exact in its f32
-accumulator). Dropout is bit-exact: the
+bf16 tensor-core kernels, whose bf16 products are exact in their f32
+accumulators). Dropout is bit-exact: the
 kernel and its plain version compute the same hash and the same f32
 arithmetic.
 """
@@ -81,17 +83,21 @@ def _flash_case(gen, bh, s, hd, dtype, flag, block_override=None):
 
 
 @pytest.mark.parametrize("flag", FLAGS)
-@pytest.mark.parametrize("hd", [32, 40, 64, 72, 128, 256])
+@pytest.mark.parametrize("hd", [8, 32, 40, 64, 72, 96, 128, 136, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_kernel_matches_plain(gen, dtype, hd, flag):
-    """Every flag at every depth; bf16 on the tensor cores (hd 40 and 72
-    padded with zeros to 64 and 96), f32 on the TMA-fed FMA kernel."""
+    """Every flag at every depth; bf16 on wgmma (hd padded with zeros to
+    64, 128, 192 or 256), f32 on the TMA-fed FMA kernel; the launch counted
+    on the route flash_path names."""
     fn, args = _flash_case(gen, 3, 256, hd, dtype, flag)
-    assert fn.path == ("mma" if dtype == torch.bfloat16 else "tma_fma")
+    assert fn.path == ka.flash_path(dtype, hd) == (
+        "tma_fma" if dtype == torch.float32 else "wgmma")
+    routed = ka.path_launches["flash_attention_fwd"][fn.path]
     before = ka.launches["flash_attention_fwd"]
     got = fn(*args)
     assert ka.launches["flash_attention_fwd"] == before + 1
+    assert ka.path_launches["flash_attention_fwd"][fn.path] == routed + 1
     want = fn.plain(*args)
     torch.cuda.synchronize()
     if flag == "lse":
@@ -110,9 +116,10 @@ def test_flash_kernel_matches_plain(gen, dtype, hd, flag):
 def test_flash_tile_configs(gen, dtype, flag, config):
     fn, args = _flash_case(gen, 2, 384, 64, dtype, flag,
                            block_override=config)
-    # the bf16 kernel takes the override's tile; f32 keeps its own
+    # the override only has to tile s: bf16 at hd 64 keeps the wgmma
+    # kernel's tile, f32 its own
     assert (fn.block_q, fn.block_k) == (
-        config if dtype == torch.bfloat16 else (None, None))
+        (128, 128) if dtype == torch.bfloat16 else (None, None))
     got = fn(*args)
     check(fn.plain(*args).float(), got.float(), margin=TOL[dtype])
 
@@ -120,12 +127,14 @@ def test_flash_tile_configs(gen, dtype, flag, config):
 @pytest.mark.parametrize("flag", ["plain", "causal_dropout_bias", "lse"])
 @pytest.mark.parametrize("hd", [40, 128, 256])
 def test_flash_bf16_tile_configs(gen, hd, flag):
-    """Each tile configuration of the bf16 tensor-core kernel, reached
-    through block_override."""
-    for config in ka.flash_configs(hd, torch.bfloat16):
+    """The bf16 kernel's one tile of hd's bucket (128 rows against
+    128-key tiles up to hd 128, 64-key tiles past it), whatever the
+    block_override."""
+    for override in (None, (64, 32), (128, 128)):
         fn, args = _flash_case(gen, 2, 384, hd, torch.bfloat16, flag,
-                               block_override=config)
-        assert (fn.block_q, fn.block_k) == config and fn.path == "mma"
+                               block_override=override)
+        assert (fn.block_q, fn.block_k) == (128, 128 if hd <= 128 else 64)
+        assert fn.path == ka.flash_path(torch.bfloat16, hd) == "wgmma"
         got, want = fn(*args), fn.plain(*args)
         torch.cuda.synchronize()
         if flag == "lse":
@@ -147,6 +156,90 @@ def test_flash_bf16_unaligned_views(gen):
     got = fn(0, q, kT, v)
     check(fn.plain(0, q, kT, v).float(), got.float(),
           margin=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("flag", ["causal", "causal_dropout_bias", "lse"])
+@pytest.mark.parametrize("s", [384, 640])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+def test_flash_wgmma_causal_odd_tile_counts(gen, hd, s, flag):
+    """Causal at s = 384 and 640 (3 and 5 Q tiles of 128 rows): the
+    diagonal crosses each warpgroup's rows, the longest tiles start
+    first; past hd 128 a block's last 64-key tile lies wholly above the
+    first warpgroup's rows."""
+    fn, args = _flash_case(gen, 2, s, hd, torch.bfloat16, flag)
+    assert fn.path == "wgmma"
+    got, want = fn(*args), fn.plain(*args)
+    torch.cuda.synchronize()
+    if flag == "lse":
+        (got, got_lse), (want, want_lse) = got, want
+        check(want_lse, got_lse, margin=1e-5)
+    check(want.float(), got.float(), margin=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128, 200, 256])
+def test_flash_wgmma_dropout_head_map(gen, hd):
+    """Dropout under a head map: the kernel draws the plain version's
+    bits of the global batch-heads, not the local ones."""
+    fn, args = _flash_case(gen, 3, 256, hd, torch.bfloat16,
+                           "dropout_head_map")
+    assert fn.path == "wgmma" and fn.head_map == (1, 2, 3, 6)
+    got = fn(*args)
+    check(fn.plain(*args).float(), got.float(), margin=TOL[torch.bfloat16])
+    local = ka.build_flash_attention(3, 256, hd, torch.bfloat16,
+                                     dropout_p=fn.dropout_p)
+    torch.cuda.synchronize()
+    assert not torch.equal(local(*args), got)
+
+
+@pytest.mark.parametrize("flag", ["plain", "causal_dropout_bias", "bias_bh",
+                                  "lse"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_wgmma_repeats_bit_for_bit(gen, hd, flag):
+    """Two calls on the same operands give the same bits: one block owns
+    each output tile, and the sums run in one order."""
+    fn, args = _flash_case(gen, 2, 512, hd, torch.bfloat16, flag)
+    assert fn.path == "wgmma"
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(a if flag == "lse" else (a,), b if flag == "lse" else (b,)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_wgmma_unaligned_views_and_bias(gen, hd):
+    """q, kT, v and a per-head bias off 16-byte alignment: the wrapper
+    copies them for the kernel's TMA maps and its bias pairs."""
+    bh, s = 2, 256
+    n = bh * s * hd
+    q, kT, v = (randn(gen, n + 1, dtype=torch.bfloat16)[1:] for _ in range(3))
+    q, v, kT = q.view(bh, s, hd), v.view(bh, s, hd), kT.view(bh, hd, s)
+    bias = randn(gen, bh * s * s + 1, scale=0.5)[1:].view(bh, s, s)
+    assert q.data_ptr() % 16 == 2 and bias.data_ptr() % 16 == 4
+    fn = ka.build_flash_attention(bh, s, hd, torch.bfloat16, causal=True,
+                                  bias_bh=bh)
+    assert fn.path == "wgmma"
+    check(fn.plain(0, q, kT, v, bias).float(), fn(0, q, kT, v, bias).float(),
+          margin=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("flag", ["plain", "causal", "dropout",
+                                  "dropout_head_map", "bias1", "bias_bh",
+                                  "lse"])
+@pytest.mark.parametrize("bh,s,hd", [(16, 2048, 128), (96, 512, 64)])
+def test_flash_wgmma_main_shapes(gen, bh, s, hd, flag):
+    """The bench's serving shape and the encoder block's, every form, on
+    the wgmma route (counted by route)."""
+    fn, args = _flash_case(gen, bh, s, hd, torch.bfloat16, flag)
+    routed = ka.path_launches["flash_attention_fwd"]["wgmma"]
+    got = fn(*args)
+    assert fn.path == "wgmma"
+    assert ka.path_launches["flash_attention_fwd"]["wgmma"] == routed + 1
+    want = fn.plain(*args)
+    torch.cuda.synchronize()
+    if flag == "lse":
+        (got, got_lse), (want, want_lse) = got, want
+        check(want_lse, got_lse, margin=1e-5)
+    check(want.float(), got.float(), margin=TOL[torch.bfloat16])
 
 
 def test_flash_deterministic_and_seeded(gen):

@@ -12,10 +12,12 @@ Tolerances (matdiff normf_rel): 1e-5 for f32 in and out and 1e-4 for bf16
 in / f32 out (the sums run in another order than the plain version's);
 1e-2 for bf16 outputs (one rounding, at another point of the sum); the
 densify kernel, the union RHS compactor, empty block columns and empty
-patterns exact. bf16 operands at blockings of whole k16 steps and 16-byte
-rows (32 x 32, 16 x 64, 128 x 128; for the union also 64 x 128 and 16 x 8)
-run the tensor-core kernels, at the same margins: their bf16 products are
-exact in the f32 accumulator. f32 operands at blockings of whole 16-byte
+patterns exact. bf16 operands at blockings of whole 32-deep, 32-wide
+pieces (32 x 32, 64 x 128, 128 x 128) run the scheduled and supertile
+SpMMs on wgmma ("wgmma"); other blockings of whole k16 steps and 16-byte
+rows (16 x 64, 16 x 8), and every such union, run the mma.sync kernels
+("mma"), all at the same margins: their bf16 products are exact in the
+f32 accumulator. f32 operands at blockings of whole 16-byte
 units run the TMA-fed FMA kernels ("tma_fma"; the union at bn >= 32), at
 the same margins; TF32 stays off. The FMA kernels ("fma") are held at the
 blockings the rule sends to them.
@@ -117,8 +119,8 @@ def test_bcsc_spmm_super(gen, m, a_dt, o_dt):
     assert bool((got[:, 128:256] == 0).all())
 
 
-# blockings the tensor-core kernel serves with bf16 operands (bk % 16 == 0,
-# bn % 8 == 0)
+# blockings the tensor-core kernels serve with bf16 operands (bk % 16 == 0,
+# bn % 8 == 0): wgmma at 32 x 32 and 128 x 128, mma.sync at 16 x 64
 MMA_BLOCKINGS = [(32, 32), (16, 64), (128, 128)]
 
 
@@ -126,15 +128,17 @@ MMA_BLOCKINGS = [(32, 32), (16, 64), (128, 128)]
 @pytest.mark.parametrize("m", [1, 37, 200, 32768])
 @pytest.mark.parametrize("bk,bn", MMA_BLOCKINGS)
 def test_bcsc_spmm_mma(gen, bk, bn, m, o_dt):
-    """The tensor-core kernel: ragged and streaming m, an empty block
-    column (its zero-block step multiplied), both output types."""
+    """The tensor-core kernels: ragged and streaming m, an empty block
+    column (its zero-block step multiplied), both output types, each on
+    the route spmm_path names for its blocking."""
     k, n = 512, 384
     indptr, indices = pattern(k, n, bk, bn, 0.3, seed=m + bk,
                               empty_cols=(1,))
     shape = GemmShape(m, n, k, BF16, BF16, o_dt)
     fn = pk.build_bcsc_spmm(shape, SpgemmConfig(1, bk, bn), indptr, indices,
                             "cuda")
-    assert fn.path == "mma"
+    assert fn.path == pk.spmm_path(torch.bfloat16, bk, bn) == (
+        "mma" if bk == 16 else "wgmma")
     a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
     got = launched("bcsc_spmm", fn, a, v)
     same(fn.plain(a, v), got, tol(BF16, o_dt))
@@ -148,7 +152,7 @@ def test_bcsc_spmm_super_mma(gen, m, o_dt):
     indptr, indices = pattern(k, n, 128, 128, 0.6, seed=m, empty_cols=(2,))
     shape = GemmShape(m, n, k, BF16, BF16, o_dt)
     fn = pk.build_bcsc_spmm_super(shape, indptr, indices, "cuda")
-    assert fn.path == "mma"
+    assert fn.path == "wgmma"
     a = rand(gen, (m, k), BF16)
     sup = rand(gen, (len(indices), 128, 128), BF16)
     got = launched("bcsc_spmm_super", fn, a, sup)
@@ -177,14 +181,93 @@ def test_bcsc_spmm_mma_nan_in_block_row_0(gen, bk, bn):
     assert bool((got[torch.arange(m, device="cuda") != 5, :bn] == 0).all())
 
 
+# the wgmma kernel's tiles: 32 / 64 / 128 columns (a wider block column in
+# 128-column chunks, the last cut), 32- or 64-deep slices
+WGMMA_BLOCKINGS = [(32, 32), (64, 128), (128, 128), (32, 96), (64, 32),
+                   (96, 64), (64, 256)]
+
+
 @pytest.mark.parametrize("o_dt", [F32, BF16])
-def test_bcsc_spmm_mma_unaligned_views(gen, o_dt):
+@pytest.mark.parametrize("m", [1, 37, 200, 1000, 32768])
+@pytest.mark.parametrize("bk,bn", WGMMA_BLOCKINGS)
+def test_bcsc_spmm_wgmma(gen, bk, bn, m, o_dt):
+    """The wgmma kernel at each of its tiles: ragged and streaming m, an
+    empty block column (the zero block loaded past the value map), both
+    output types; the launch counted on route wgmma."""
+    k, n = 384, 512 if bn != 96 else 384
+    indptr, indices = pattern(k, n, bk, bn, 0.35, seed=m + bk + bn,
+                              empty_cols=(1,))
+    shape = GemmShape(m, n, k, BF16, BF16, o_dt)
+    fn = pk.build_bcsc_spmm(shape, SpgemmConfig(1, bk, bn), indptr, indices,
+                            "cuda")
+    assert fn.path == "wgmma"
+    a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
+    routed = pk.path_launches["bcsc_spmm"]["wgmma"]
+    got = launched("bcsc_spmm", fn, a, v)
+    assert pk.path_launches["bcsc_spmm"]["wgmma"] == routed + 1
+    same(fn.plain(a, v), got, tol(BF16, o_dt))
+    assert bool((got[:, bn:2 * bn] == 0).all())
+
+
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("bk,bn", [(32, 32), (128, 128)])
+def test_bcsc_spmm_wgmma_empty_store(gen, bk, bn, o_dt):
+    """No block at all: every column's one step multiplies A's block row 0
+    by the zero block (the value map over A's memory, never read in
+    bounds): zeros, and NaN where block row 0 holds one."""
+    m, k, n = 150, 256, 256
+    indptr = np.zeros(n // bn + 1, np.int32)
+    indices = np.zeros(0, np.int32)
+    fn = pk.build_bcsc_spmm(GemmShape(m, n, k, BF16, BF16, o_dt),
+                            SpgemmConfig(1, bk, bn), indptr, indices, "cuda")
+    assert fn.path == "wgmma"
+    a, v = rand(gen, (m, k), BF16), rand(gen, (0, bk, bn), BF16)
+    got = launched("bcsc_spmm", fn, a, v)
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())
+    a[7, bk - 1] = float("nan")
+    got = launched("bcsc_spmm", fn, a, v)
+    want = fn.plain(a, v)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[7]).all())
+
+
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("bk,bn", [(32, 32), (64, 128), (128, 128)])
+def test_bcsc_spmm_wgmma_repeats_bit_for_bit(gen, bk, bn, o_dt):
+    """One block writes each output tile once, summing in schedule order:
+    two calls give the same bits, the scheduled and supertile entries
+    alike."""
+    m, k, n = 3000, 512, 512
+    indptr, indices = pattern(k, n, bk, bn, 0.5, seed=bk + bn)
+    shape = GemmShape(m, n, k, BF16, BF16, o_dt)
+    a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
+    fns = [pk.build_bcsc_spmm(shape, SpgemmConfig(1, bk, bn), indptr,
+                              indices, "cuda")]
+    if bk == bn == 128:
+        fns.append(pk.build_bcsc_spmm_super(shape, indptr, indices, "cuda"))
+    for fn in fns:
+        assert fn.path == "wgmma"
+        x, y = fn(a, v), fn(a, v)
+        torch.cuda.synchronize()
+        assert torch.equal(x, y)
+        same(fn.plain(a, v), x, tol(BF16, o_dt))
+
+
+@pytest.mark.parametrize("bk,bn,route", [(32, 32, "wgmma"),
+                                         (128, 128, "wgmma"),
+                                         (16, 64, "mma")])
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+def test_bcsc_spmm_mma_unaligned_views(gen, o_dt, bk, bn, route):
     """A and the values 6 and 2 bytes past a 16-byte boundary: the wrapper
-    copies them into fresh tensors for the kernel's 16-byte staging."""
-    m, k, n, bk, bn = 100, 256, 256, 32, 32
+    copies them into fresh tensors for the kernel's TMA maps (wgmma) or its
+    16-byte loads (mma.sync, 16 x 64)."""
+    m, k, n = 100, 256, 256
     indptr, indices = pattern(k, n, bk, bn, 0.4, seed=9)
     fn = pk.build_bcsc_spmm(GemmShape(m, n, k, BF16, BF16, o_dt),
                             SpgemmConfig(1, bk, bn), indptr, indices, "cuda")
+    assert fn.path == route
     a = rand(gen, (m * k + 3,), BF16)[3:].view(m, k)
     v = rand(gen, (len(indices) * bk * bn + 1,), BF16)[1:].view(
         len(indices), bk, bn)

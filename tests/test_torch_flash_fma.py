@@ -41,9 +41,11 @@ TOL_FWD, TOL_BWD = 1e-5, 1e-4
 def test_f32_takes_tma_fma_at_every_hd(hd):
     """The dtype picks the kernel: f32 runs tma_fma (one tile per hd
     bucket, so no tile to keep: block_q and block_k are None, and a
-    block_override only has to tile s), bf16 the tensor cores."""
+    block_override only has to tile s), bf16 the tensor cores (the
+    forward wgmma at every hd; the backward wgmma up to hd 128, mma.sync
+    past it)."""
     assert pa.flash_path(F32) == pa.flash_bwd_path(F32, hd) == "tma_fma"
-    assert pa.flash_path(BF16) == "mma"
+    assert pa.flash_path(BF16, hd) == "wgmma"
     assert pa.flash_bwd_path(BF16, hd) == ("wgmma" if hd <= 128 else "mma")
     for override in (None, (128, 128), (256, 128)):
         fn = pa.build_flash_attention(2, 256, hd, F32, causal=True,
@@ -60,7 +62,7 @@ def test_f32_takes_tma_fma_at_every_hd(hd):
         with pytest.raises(ValueError, match="does not tile"):
             pa.build_flash_attention_bwd(2, 256, hd, F32, block_override=bad)
     with pytest.raises(ValueError, match="one tile per hd bucket"):
-        pa.flash_configs(hd, F32)
+        pa.bwd_configs(hd, "dkv", F32)
 
 
 def test_cpu_calls_run_the_plain_version_and_count_nothing():
@@ -79,11 +81,11 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
 
 def test_entries_name_the_kernels_of_both_routes():
     """Each counter names the kernels of its routes (bf16 and f32; the
-    backward's bf16 wgmma and mma.sync ones), each defined in its source,
-    and nothing else."""
+    bf16 wgmma ones and the backward's mma.sync ones), each defined in
+    its source, and nothing else."""
     for counter, kernels in (
             ("flash_attention_fwd",
-             ("flash_fwd_mma_kernel", "flash_fwd_tma_fma_kernel")),
+             ("flash_fwd_tma_fma_kernel", "flash_fwd_wgmma_kernel")),
             ("flash_attention_bwd_dkv",
              ("flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_tma_fma_kernel",
               "flash_bwd_dkv_wgmma_kernel")),

@@ -1,7 +1,8 @@
 """The tensor-core paths of the port, on the CPU: which CUDA kernel a
 scheduled/supertile/union BCSC SpMM and a flash forward take (the
-predicates that mirror the choice csrc makes), the bf16 flash tile
-configurations and their shared memory, and the bf16 wrappers at shapes
+predicates that mirror the choice csrc makes: wgmma, mma.sync, or the FMA
+kernels), the bf16 flash forward's tile of each hd bucket, and the bf16
+wrappers at shapes
 that reach the tensor-core kernels on the card (the union in both forms,
 with pad slots, a clustered plan and ragged m), held against the JAX
 package on the same numpy inputs.
@@ -31,27 +32,41 @@ from libxsmm_tpu.ops import sparse as ro
 torch.set_num_threads(1)
 
 BF16, F32 = torch.bfloat16, torch.float32
-SMEM_MAX = 232448            # a block's shared memory on sm_90
 
 
 @pytest.mark.parametrize("dtype,bk,bn,want", [
-    (BF16, 32, 32, "mma"), (BF16, 16, 64, "mma"), (BF16, 128, 128, "mma"),
-    (BF16, 48, 24, "mma"), (BF16, 16, 8, "mma"), (BF16, 64, 256, "mma"),
-    (BF16, 8, 8, "fma"), (BF16, 4, 48, "fma"), (BF16, 32, 4, "fma"),
-    (BF16, 24, 32, "fma"), (F32, 32, 32, "tma_fma"),
+    (BF16, 32, 32, "wgmma"), (BF16, 16, 64, "mma"),
+    (BF16, 128, 128, "wgmma"), (BF16, 48, 24, "mma"), (BF16, 16, 8, "mma"),
+    (BF16, 64, 256, "wgmma"), (BF16, 8, 8, "fma"), (BF16, 4, 48, "fma"),
+    (BF16, 32, 4, "fma"), (BF16, 24, 32, "fma"), (F32, 32, 32, "tma_fma"),
     (F32, 128, 128, "tma_fma"), (F32, 2, 2, "fma"),
-    (torch.float16, 32, 32, "fma")])
+    (torch.float16, 32, 32, "fma"), (BF16, 64, 128, "wgmma"),
+    (BF16, 32, 96, "wgmma"), (BF16, 48, 32, "mma"), (BF16, 32, 48, "mma")])
 def test_spmm_path(dtype, bk, bn, want):
-    """bf16 tiles of whole k16 steps and whole 16-byte rows take the
-    tensor-core kernel; f32 (no TF32) blocks of whole 16-byte units the
+    """bf16 blocks of whole 32-deep, 32-wide pieces take the wgmma kernel;
+    other bf16 tiles of whole k16 steps and whole 16-byte rows the
+    mma.sync kernel; f32 (no TF32) blocks of whole 16-byte units the
     TMA-fed FMA kernel; other blockings the FMA one."""
     assert pk.spmm_path(dtype, bk, bn) == want
 
 
+@pytest.mark.parametrize("bk,bn,want", [
+    (32, 32, "mma"), (128, 128, "mma"), (64, 128, "mma"), (16, 64, "mma"),
+    (16, 8, "mma"), (8, 8, "fma")])
+def test_spmm_path_union_keeps_mma(bk, bn, want):
+    """The k-union is its own kernel: bf16 unions stay on mma.sync at every
+    blocking it serves, those the wgmma route takes for the scheduled
+    SpMM included."""
+    assert pk.spmm_path(BF16, bk, bn, union=True) == want
+
+
 @pytest.mark.parametrize("a_dt,bk,bn,want", [
-    (xp.Datatype.BF16, 32, 32, "mma"), (xp.Datatype.BF16, 16, 64, "mma"),
+    (xp.Datatype.BF16, 32, 32, "wgmma"), (xp.Datatype.BF16, 16, 64, "mma"),
     (xp.Datatype.BF16, 8, 8, "fma"), (xp.Datatype.F32, 32, 32, "tma_fma")])
 def test_spmm_wrappers_name_their_path(a_dt, bk, bn, want):
+    """The scheduled wrapper names the route of its blocking, the
+    supertile wrapper (128 x 128) wgmma in bf16, and the union wrapper at
+    the same blocking mma.sync where the scheduled one takes wgmma."""
     k, n = 256, 256
     indptr = np.arange(n // bn + 1, dtype=np.int32)     # one block a column
     indices = np.zeros(n // bn, np.int32)
@@ -61,53 +76,43 @@ def test_spmm_wrappers_name_their_path(a_dt, bk, bn, want):
     assert fn.path == want
     sup = pk.build_bcsc_spmm_super(shape, np.array([0, 1, 1], np.int32),
                                    np.zeros(1, np.int32), "cpu")
-    assert sup.path == ("mma" if a_dt == xp.Datatype.BF16 else "tma_fma")
+    assert sup.path == ("wgmma" if a_dt == xp.Datatype.BF16 else "tma_fma")
+    union = pk.build_bcsc_spmm_union(shape, xp.SpgemmConfig(1, bk, bn),
+                                     indptr, indices, "cpu")
+    assert union.path == ("mma" if want == "wgmma" else want)
 
 
 def test_flash_path():
-    """bf16 takes the tensor-core kernel, f32 the TMA-fed FMA kernel."""
-    assert pa.flash_path(BF16) == "mma"
+    """bf16 takes the wgmma kernel at every hd, f32 the TMA-fed FMA kernel,
+    by dtype alone."""
+    for hd in (8, 40, 64, 128, 136, 192, 256):
+        assert pa.flash_path(BF16, hd) == "wgmma"
+        assert pa.build_flash_attention(2, 128, hd, BF16).path == "wgmma"
+        assert pa.flash_path(F32, hd) == "tma_fma"
     assert pa.flash_path(F32) == "tma_fma"
-    assert pa.build_flash_attention(2, 128, 40, BF16).path == "mma"
+    assert pa.flash_path(BF16) == "wgmma"
     assert pa.build_flash_attention(2, 128, 40, F32).path == "tma_fma"
 
 
 @pytest.mark.parametrize("hd,hdp", [
-    (8, 32), (32, 32), (40, 64), (64, 64), (72, 96), (96, 96), (104, 128),
+    (8, 64), (32, 64), (40, 64), (64, 64), (72, 128), (96, 128), (104, 128),
     (128, 128), (136, 192), (192, 192), (200, 256), (256, 256)])
 def test_bf16_flash_configs(hd, hdp):
-    """hd padded to its bucket; 64-column K tiles first up to a padded 128,
-    32 past it; every configuration's shared memory fits a block."""
-    assert pa._mma_hdp(hd) == hdp
-    configs = pa.flash_configs(hd, BF16)
-    want = [(64, 64), (64, 32)] if hdp <= 128 else [(64, 32), (64, 64)]
-    assert configs == want
-    for _, bk in configs:
-        assert pa._smem_bytes(hd, bk, BF16) <= SMEM_MAX
-    assert pa.build_flash_attention(2, 256, hd, BF16).block_k == want[0][1]
-
-
-def test_bf16_smem_bytes():
-    """Q (64 x hdp), two K^T (hdp x bk) and two V (bk x hdp) tiles in bf16,
-    each row padded by 8 elements (csrc mma_smem_bytes)."""
-    for hd, bk, want in ((128, 64, 89088), (128, 32, 55296),
-                         (256, 64, 175104), (256, 32, 108544),
-                         (40, 64, 46080), (72, 32, 41984)):
-        assert pa._smem_bytes(hd, bk, BF16) == want, (hd, bk)
+    """One tile per hd bucket of the wgmma kernel (csrc fw_fwd_bk): 128
+    rows against 128-key tiles up to a padded 128, 64-key tiles at 192 and
+    256, named in the kernel object's name."""
+    want = (128, 128) if hdp <= 128 else (128, 64)
+    assert pa._fwd_tile(BF16, hd) == want
+    fn = pa.build_flash_attention(2, 256, hd, BF16)
+    assert (fn.path, fn.block_q, fn.block_k) == ("wgmma",) + want
+    assert fn.name.endswith(f"_wgmma_bk{want[1]}")
 
 
 def test_f32_flash_configs_keep_their_values():
-    """The configurations are the bf16 kernel's (the default dtype); the
-    f32 kernel takes one tile per hd bucket, so f32 has none to pick and a
-    block_override only has to tile s."""
-    assert pa.flash_configs(64) == pa.flash_configs(64, BF16) == \
-        [(64, 64), (64, 32)]
-    assert pa.flash_configs(256) == [(64, 32), (64, 64)]
-    assert pa._smem_bytes(128, 64) == pa._smem_bytes(128, 64, BF16) == 89088
-    for call in (lambda: pa.flash_configs(64, F32),
-                 lambda: pa._smem_bytes(128, 64, F32)):
-        with pytest.raises(ValueError, match="one tile per hd bucket"):
-            call()
+    """The f32 kernel takes one tile per hd bucket, so f32 names none and
+    a block_override only has to tile s."""
+    for hd in (40, 128, 256):
+        assert pa._fwd_tile(F32, hd) == (None, None)
     fn = pa.build_flash_attention(2, 256, 128, F32, block_override=(32, 32))
     assert fn.path == "tma_fma" and (fn.block_q, fn.block_k) == (None, None)
     assert fn.name == "flash_fwd_2x256x128_float32_tma_fma"
@@ -117,14 +122,17 @@ def test_f32_flash_configs_keep_their_values():
 
 @pytest.mark.parametrize("hd", [40, 64, 128, 256])
 def test_bf16_block_override_picks(hd):
-    """The TPU tile stays an upper bound on the bf16 kernel's tile."""
-    for override, want in (((128, 128), (64, 64)), ((64, 32), (64, 32)),
-                           ((256, 64), (64, 64)), ((64, 64), (64, 64))):
+    """The wgmma kernel keeps its one tile of hd's bucket whatever the
+    override, which only has to tile s: every override taken before is
+    still taken, and (32, 32) too."""
+    want = (128, 128) if hd <= 128 else (128, 64)
+    for override in ((128, 128), (64, 32), (256, 64), (64, 64), (32, 32)):
         fn = pa.build_flash_attention(2, 256, hd, BF16,
                                       block_override=override)
         assert (fn.block_q, fn.block_k) == want
-    with pytest.raises(ValueError, match="smaller than every"):
-        pa.build_flash_attention(2, 256, hd, BF16, block_override=(32, 32))
+        assert fn.path == pa.flash_path(BF16, hd) == "wgmma"
+    with pytest.raises(ValueError, match="does not tile"):
+        pa.build_flash_attention(2, 256, hd, BF16, block_override=(96, 128))
 
 
 def flash_operands(seed, bh, s, hd):
@@ -141,8 +149,8 @@ def flash_operands(seed, bh, s, hd):
 @pytest.mark.parametrize("flag", ["plain", "causal", "dropout", "lse"])
 @pytest.mark.parametrize("hd", [40, 72])
 def test_bf16_flash_padded_depth_parity(hd, flag):
-    """hd 40 and 72 (padded to 64 and 96 on the card) against the JAX
-    package's flash kernel on the same inputs."""
+    """hd 40 and 72 (padded to 64 and 128 on the card's wgmma route)
+    against the JAX package's flash kernel on the same inputs."""
     bh, s = 2, 128
     kw = {"causal": flag == "causal", "return_lse": flag == "lse",
           "dropout_p": 0.2 if flag == "dropout" else 0.0}
@@ -150,7 +158,7 @@ def test_bf16_flash_padded_depth_parity(hd, flag):
     want = ra.build_flash_attention(bh, s, hd, jnp.bfloat16, **kw)(
         -77, qj, kj, vj)
     fn = pa.build_flash_attention(bh, s, hd, BF16, **kw)
-    assert fn.path == "mma" and (fn.block_q, fn.block_k) == (64, 64)
+    assert fn.path == "wgmma" and (fn.block_q, fn.block_k) == (128, 128)
     got = fn(-77, qt, kt, vt)
     if flag == "lse":
         (want, want_lse), (got, got_lse) = want, got

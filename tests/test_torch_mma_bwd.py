@@ -53,8 +53,13 @@ def test_flash_bwd_path():
     (128, 128), (136, 192), (192, 192), (200, 256), (256, 256)])
 def test_bf16_bwd_configs(hd, hdp, kernel):
     """Up to a padded 128 the wgmma tile (128 K columns), past it the
-    mma.sync kernels' 32-column K tile, whose shared memory fits a block."""
-    assert pa._mma_hdp(hd) == hdp
+    mma.sync kernels' 32-column K tile, whose shared memory fits a block;
+    the mma.sync buckets are 192 and 256 only."""
+    if hdp <= 128:
+        with pytest.raises(ValueError, match="wgmma"):
+            pa._mma_hdp(hd)
+    else:
+        assert pa._mma_hdp(hd) == hdp
     configs = pa.bwd_configs(hd, kernel, BF16)
     wg = (64, 128) if kernel == "dkv" else (128, 128)
     assert configs == ([wg] if hdp <= 128 else [(64, 32)])
@@ -73,13 +78,16 @@ def test_bf16_bwd_smem_bytes():
     """dK/dV: K^T (hdp x bk), V (bk x hdp), two Q and two dO (64 x hdp),
     bf16 with rows padded by 8 elements, and two lse and delta rows of 64
     f32; dQ: Q and dO, two K^T and two V tiles (csrc dkv_mma_smem,
-    dq_mma_smem)."""
-    for hd, bk, dkv, dq in ((128, 64, 106496, 106496),
-                            (128, 32, 89600, 72704),
+    dq_mma_smem); past hd 128 only, where the mma.sync kernels serve."""
+    for hd, bk, dkv, dq in ((256, 64, 206848, 208896),
                             (256, 32, 173568, 142336),
-                            (64, 64, 56320, 55296), (40, 32, 47616, 37888)):
+                            (192, 32, 131584, 107520),
+                            (136, 32, 131584, 107520)):
         assert pa._bwd_smem_bytes(hd, bk, "dkv", BF16) == dkv, (hd, bk)
         assert pa._bwd_smem_bytes(hd, bk, "dq", BF16) == dq, (hd, bk)
+    for hd in (40, 64, 128):
+        with pytest.raises(ValueError, match="wgmma"):
+            pa._bwd_smem_bytes(hd, 32, "dkv", BF16)
 
 
 def test_f32_bwd_configs_keep_their_values():
@@ -88,10 +96,10 @@ def test_f32_bwd_configs_keep_their_values():
     for hd, want in ((32, [(64, 128)]), (128, [(64, 128)]),
                      (192, [(64, 32)]), (256, [(64, 32)])):
         assert pa.bwd_configs(hd) == pa.bwd_configs(hd, "dkv", BF16) == want
-    assert pa._bwd_smem_bytes(128, 64) == \
-        pa._bwd_smem_bytes(128, 64, "dkv", BF16) == 106496
+    assert pa._bwd_smem_bytes(256, 32) == \
+        pa._bwd_smem_bytes(256, 32, "dkv", BF16) == 173568
     for call in (lambda: pa.bwd_configs(128, "dq", F32),
-                 lambda: pa._bwd_smem_bytes(128, 64, "dkv", F32)):
+                 lambda: pa._bwd_smem_bytes(256, 32, "dkv", F32)):
         with pytest.raises(ValueError, match="one tile per hd bucket"):
             call()
     fn = pa.build_flash_attention_bwd(2, 256, 128, F32)
