@@ -82,8 +82,9 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
      encoder block's (plain, causal, dropout, bias per head with
      bias_grad, broadcast bias, dropout with a head map; bf16, the wgmma
      kernels, asserted by launches), at hd 192 and 256 ((2, 256, 192),
-     (16, 1024, 256), the same forms on the mma.sync kernels, asserted by
-     launches), and in f32 at (4, 1024, 64) and hd=256
+     (16, 1024, 256), the same forms on the wide wgmma kernels, asserted
+     by launches by route and by kernel), and in f32 at (4, 1024, 64) and
+     hd=256
      at (2, 256, 256) (the tma_fma kernels, asserted: dropout causal and
      not, dropout with a head map, bias per head with dbias, broadcast
      bias), each against its plain version;
@@ -101,12 +102,12 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    case (m = 32768 rows of A through the bcsc20 and bcsc05 patterns), an
    f32 case (m = 4096), the f32 streaming case at full width (m = 32768,
    the bcsc20 pattern, f32 in and out) and a ragged one (m = 1000); each
-   result against the float64 dense product; the bf16 cases' "pallas" and
-   "super" strategies must take the wgmma kernel, their union strategies
-   the mma.sync kernel, and the f32 cases the TMA-fed FMA kernels (the
-   path predicate and every call's launch by route, asserted); "pallas"
-   at 16 x 64 bf16 blocks the scheduled mma.sync kernel (asserted, against
-   float64); union, union2 and union3 must
+   result against the float64 dense product; the bf16 cases' "pallas",
+   "super" and union strategies must take the wgmma kernels, and the f32
+   cases the TMA-fed FMA kernels (the path predicate and every call's
+   launch by route, asserted); "pallas", "union4" and "union" at 16 x 64
+   bf16 blocks the mma.sync kernels (asserted, against float64); union,
+   union2 and union3 must
    launch the RHS compactor and the union4 names and union5 must not (the
    counter read around each call); prints the auto picks, the clustering
    decision and both union depths; fails unless all five kernels were
@@ -257,10 +258,10 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     SpMM) it asserts the path and prints the achieved TFLOP/s (of the
     kernel's own products and of the useful ones) and the kernel / library
     ratio; the bf16 forward's wgmma kernel past hd 128 and the backward's
-    mma.sync kernels get rows of their own at (16, 1024, 256), the
-    scheduled SpMM's mma.sync kernel at
-    16 x 64 blocks; the wgmma rows (flash forward, scheduled and supertile
-    SpMM) carry device time and CUDA-graph replay beside their events, and
+    wide wgmma kernels get rows of their own at (16, 1024, 256), the
+    scheduled and union SpMMs' mma.sync kernels at 16 x 64 blocks; the
+    wgmma rows (flash forward, scheduled, union and supertile SpMM) carry
+    device time and CUDA-graph replay beside their events, and
     the flash wgmma kernels' forms at both flash shapes, causal and not,
     come from scripts/flash_bwd_time.fwd_rows_at and rows_at beside SDPA's
     bf16 backends;
@@ -398,14 +399,15 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("gemm_kernels", "batched_gemm_ring_kernel"),
                ("spmm_kernels", "bcsc_spmm_wgmma_kernel"),
                ("spmm_kernels", "bcsc_spmm_mma_kernel"),
+               ("spmm_kernels", "bcsc_union_wgmma_kernel"),
                ("spmm_kernels", "bcsc_union_mma_kernel"),
                ("spmm_kernels", "bcsc_spmm_tma_fma_kernel"),
                ("spmm_kernels", "bcsc_union_tma_fma_kernel"),
                ("attention_kernels", "flash_fwd_wgmma_kernel"),
-               ("attention_bwd_kernels", "flash_bwd_dkv_mma_kernel"),
-               ("attention_bwd_kernels", "flash_bwd_dq_mma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_wgmma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dq_wgmma_kernel"),
+               ("attention_bwd_kernels", "flash_bwd_dkv_wgmma_wide_kernel"),
+               ("attention_bwd_kernels", "flash_bwd_dq_wgmma_wide_kernel"),
                ("attention_kernels", "flash_fwd_tma_fma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dkv_tma_fma_kernel"),
                ("attention_bwd_kernels", "flash_bwd_dq_tma_fma_kernel"),
@@ -505,6 +507,12 @@ def _routes(mod=None):
     if mod is None:
         from libxsmm_torch.kernels import attention as mod
     return {k: dict(v) for k, v in mod.path_launches.items()}
+
+
+def _bwd_kernel_counts():
+    """The flash backward's launch counts by CUDA kernel (a copy)."""
+    from libxsmm_torch.kernels import attention as KA
+    return dict(KA.kernel_launches)
 
 
 def _took_route(name, before, kernels, route, mod=None):
@@ -760,6 +768,7 @@ def encoder_path(randn, dev):
     block_ops = (randn(96, 512, 64, dtype=bf16), randn(96, 64, 512, dtype=bf16),
                  randn(96, 512, 64, dtype=bf16))
     return {"phases": phases, "counts": counts, "routes": _routes(),
+            "kernels": _bwd_kernel_counts(),
             "flash_operands": (q, kT, v), "block_operands": block_ops,
             "dropout_operand": randn(m, n, dtype=bf16),
             "block": (block, x),
@@ -794,9 +803,8 @@ def _lowered_flash(fn, args, counters=BWD_KERNELS):
     want = [(k, "1", fn.path) for k in counters]
     entries = [lowering.kernel_of(e) for e in
                re.findall(r"^// entry (\S+) x1:", text, re.M)]
-    names = [f"flash_bwd_{k.rsplit('_', 1)[1]}_{fn.path}_kernel"
-             if k in BWD_KERNELS else f"flash_fwd_{fn.path}_kernel"
-             for k in counters]
+    names = [fn.kernels[k.rsplit('_', 1)[1]] if k in BWD_KERNELS
+             else f"flash_fwd_{fn.path}_kernel" for k in counters]
     if sorted(launches) != want or sorted(entries) != sorted(names):
         raise AssertionError(f"lower_text of {fn.name}: launches {launches}"
                              f", entries {entries}; want {want}, {names}")
@@ -922,13 +930,13 @@ def training_path(randn, dev):
             bh, s, 128)
         return (5, q, kT, v, dout, lse, delta, bias)
 
-    # bf16 at the bench's shape and the encoder block's (96, 512, 64), every
-    # form on the wgmma route, and at hd 192 and 256 on the mma.sync route
-    # (the launches counted by route); one call of each shape lowered:
-    # lower_text names the entries of the route that ran
-    ops = {}
-    for bh, s, hd, route in ((16, 2048, 128, "wgmma"), (96, 512, 64, "wgmma"),
-                             (2, 256, 192, "mma"), (16, 1024, 256, "mma")):
+    # bf16 at the bench's shape and the encoder block's (96, 512, 64), and
+    # at hd 192 and 256 (the wide kernels), every form on the wgmma route
+    # (the launches counted by route and by kernel); one call of each shape
+    # lowered: lower_text names the entries of the kernels that ran
+    ops, route = {}, "wgmma"
+    for bh, s, hd in ((16, 2048, 128), (96, 512, 64), (2, 256, 192),
+                      (16, 1024, 256)):
         cases = [("plain", {}, None), ("causal", {"causal": True}, None),
                  ("dropout", {"dropout_p": 0.1}, None),
                  ("bias per head + grad", {"bias_bh": bh, "bias_grad": True},
@@ -945,17 +953,24 @@ def training_path(randn, dev):
                 raise AssertionError(f"flash bwd {name} bf16 {bh}x{s}x{hd} "
                                      f"took {fn.path}")
             routes0 = _routes()
+            kern0 = _bwd_kernel_counts()
             got = run(f"flash bwd {name} bf16 {bh}x{s}x{hd}", BWD_KERNELS,
                       fn, *args)
             _took_route(f"flash bwd {name} bf16 {bh}x{s}x{hd}", routes0,
                         BWD_KERNELS, route)
+            moved = {k: n - kern0[k] for k, n in KA.kernel_launches.items()
+                     if n != kern0[k]}
+            if moved != {fn.kernels["dkv"]: 1, fn.kernels["dq"]: 1}:
+                raise AssertionError(f"flash bwd {name} bf16 {bh}x{s}x{hd}"
+                                     f" launched {moved}, expected "
+                                     f"{fn.kernels}")
             _check(f"flash bwd {name} {bh}x{s}x{hd} vs plain",
                    fn.plain(*args), got, TOL_BF16_OUT)
             if name == "plain":
                 _lowered_flash(fn, args)
             # the rows' operands: the bench shape's, the hd-256 shape's
-            if name == "plain" and (route == "mma" or route not in ops):
-                ops[route] = args
+            if name == "plain":
+                ops[hd] = args
     for fbh, fs, fhd in ((4, 1024, 64), (2, 256, 256)):
         fb = randn(fbh, fs, fs, scale=0.5)
         forms = [(f"causal={c} dropout", {"causal": c, "dropout_p": 0.1},
@@ -996,7 +1011,8 @@ def training_path(randn, dev):
         raise AssertionError(f"kernels not launched on the training path: "
                              f"{missing}")
     return {"phases": phases, "counts": counts, "routes": _routes(),
-            "bwd_operands": ops["wgmma"], "bwd_operands_mma": ops["mma"],
+            "kernels": _bwd_kernel_counts(),
+            "bwd_operands": ops[128], "bwd_operands_wide": ops[256],
             "step": (params, x, y, cfg),
             "step_f32": (params_f32, xf, yf, cfg_f32)}
 
@@ -1037,9 +1053,9 @@ def sparse_path(randn, dev):
     "auto" at bench.py's bcsc20, bcsc05 and bcsc_cluster cases, a streaming
     case, an f32 case at m 4096 and the f32 streaming case at full width
     (m 32768), each against the float64 dense product, each SpMM call held
-    to its route (bf16 at 32 x 32: wgmma for the scheduled and supertile
-    kernels, mma for the union; f32: tma_fma), and the scheduled kernel
-    at 16 x 64 blocks in bf16 (its mma.sync route). Returns the phases (to
+    to its route (bf16 at 32 x 32: wgmma; f32: tma_fma), and the scheduled
+    and union kernels at 16 x 64 blocks in bf16 (their mma.sync route,
+    the union in both forms). Returns the phases (to
     time), the counts, the launches by route (all, and the f32 cases'),
     auto's picks and the streaming operands the per-kernel rows reuse."""
     import numpy as np
@@ -1066,14 +1082,13 @@ def sparse_path(randn, dev):
         dense_b = KS.build_bcsc_densify(shape, cfg, indptr, indices,
                                         dev).plain(v)
         want = a.double() @ dense_b.double()
-        # bf16 operands at 32 x 32 blocks take the wgmma kernel for the
-        # scheduled ("pallas") and supertile ("super") strategies and the
-        # mma.sync kernel for the union strategies; f32 the TMA-fed FMA
-        # kernels
+        # bf16 operands at 32 x 32 blocks take the wgmma kernels for the
+        # scheduled ("pallas"), supertile ("super") and union strategies;
+        # f32 the TMA-fed FMA kernels
         bf = a.dtype == bf16
-        path = {"bcsc_spmm": "wgmma" if bf else "tma_fma",
-                "bcsc_spmm_super": "wgmma" if bf else "tma_fma",
-                "bcsc_spmm_union": "mma" if bf else "tma_fma"}
+        path = dict.fromkeys(("bcsc_spmm", "bcsc_spmm_super",
+                              "bcsc_spmm_union"),
+                             "wgmma" if bf else "tma_fma")
         for counter, bk_, bn_, union in (
                 ("bcsc_spmm", cfg.bk, cfg.bn, False),
                 ("bcsc_spmm_super", KS.SUPER, KS.SUPER, False),
@@ -1180,9 +1195,9 @@ def sparse_path(randn, dev):
                                   for r in now[k_]} for k_ in now}
 
     # bf16 at 16 x 64 blocks (the bcsc20 pattern's density from
-    # default_rng(2)): the scheduled SpMM's mma.sync kernel, the only
-    # blocking of the path it serves, held against float64 with its route
-    # asserted by launches
+    # default_rng(2)): the scheduled and union SpMMs' mma.sync kernels, the
+    # only blocking of the path they serve, held against float64 with their
+    # routes asserted by launches (the union in both forms)
     rng = np.random.default_rng(2)
     b16 = _bcsc_pattern(rng, k, n, 16, 64, 0.2)
     a16 = on_dev(rng.standard_normal((m, k)), bf16)
@@ -1192,9 +1207,11 @@ def sparse_path(randn, dev):
     sched16 = xt.create_packed_spgemm_bcsc(
         s16, GemmFlags.BETA_0, cfg16, b16.indptr, b16.indices,
         strategy="pallas")
-    if KS.spmm_path(bf16, 16, 64) != "mma":
-        raise AssertionError("bcsc 16x64: the scheduled SpMM takes "
-                             f"{KS.spmm_path(bf16, 16, 64)}")
+    for union in (False, True):
+        what = "union" if union else "scheduled"
+        if KS.spmm_path(bf16, 16, 64, union) != "mma":
+            raise AssertionError(f"bcsc 16x64: the {what} SpMM takes "
+                                 f"{KS.spmm_path(bf16, 16, 64, union)}")
     routes = _routes(KS)
     got16 = run("bcsc 16x64 pallas", ("bcsc_spmm",), sched16, a16, v16)
     _took_route("bcsc 16x64 pallas", routes, ["bcsc_spmm"], "mma", KS)
@@ -1204,6 +1221,23 @@ def sparse_path(randn, dev):
                    got16, TOL_SPARSE_BF16, (m, n))
     print(f"  bcsc 16x64 (1024^3, {b16.nblocks} blocks) pallas [mma]: "
           f"normf_rel vs float64 {err16:.3e}")
+    for strat in ("union4", "union"):
+        u16 = xt.create_packed_spgemm_bcsc(
+            s16, GemmFlags.BETA_0, cfg16, b16.indptr, b16.indices,
+            strategy=strat)
+        if u16.name.split("_")[3] != strat:
+            raise AssertionError(f"bcsc 16x64 {strat}: built {u16.name}")
+        kernels = ("bcsc_spmm_union",) + (
+            ("bcsc_union_compact",) if strat in COMPACTED else ())
+        routes = _routes(KS)
+        gotu = run(f"bcsc 16x64 {strat}", kernels, u16, a16, v16)
+        _took_route(f"bcsc 16x64 {strat}", routes, ["bcsc_spmm_union"],
+                    "mma", KS)
+        erru = _check(f"bcsc 16x64 {strat} vs float64",
+                      a16.double() @ d16.double(), gotu, TOL_SPARSE_BF16,
+                      (m, n))
+        print(f"  bcsc 16x64 {strat} [mma]: normf_rel vs float64 "
+              f"{erru:.3e}")
 
     # ragged: 1000 rows (the last 64-row tile cut) through bcsc05
     bcsc, v = pats[0.05]
@@ -1797,14 +1831,15 @@ def mma_rate(row, flops, useful):
 
 def sparse_rows(record, rows, stream, small, ms, geo, routes):
     """The five sparse kernels at the streaming case, each against its
-    plain version; the scheduled and supertile SpMMs on their wgmma route
-    (device time and CUDA-graph replay beside events, launches: the
-    path's on that route) and the scheduled SpMM once more on its
-    mma.sync route, at 16 x 64 blocks ("bcsc_spmm_mma"; launches: the
-    path's 16 x 64 case). Bound: A, the kernel's value operand and C each moved
-    once, and the useful products 2 * nblocks * bk * bn * m at the bf16
-    tensor cores' peak. Yardstick for the SpMM kernels: torch.mm on the
-    densified B with an f32 output; for densify: PyTorch's BSC tensor
+    plain version; the scheduled, supertile and union SpMMs on their wgmma
+    route (device time and CUDA-graph replay beside events, launches: the
+    path's on that route) and the scheduled and union SpMMs once more on
+    their mma.sync route, at 16 x 64 blocks ("bcsc_spmm_mma",
+    "bcsc_spmm_union_mma"; launches: the path's 16 x 64 cases). Bound:
+    A, the kernel's value operand and C each moved once, and the useful
+    products 2 * nblocks * bk * bn * m at the bf16 tensor cores' peak.
+    Yardstick for the SpMM kernels: torch.mm on the densified B with an
+    f32 output; for densify: PyTorch's BSC tensor
     to_dense. The union row carries the compacted form's time (compactor,
     then the kernel over its RHS) as "compact_ms"; the compactor's row
     moves the value store once and writes the compacted RHS once, and since
@@ -1856,24 +1891,26 @@ def sparse_rows(record, rows, stream, small, ms, geo, routes):
     d16 = KS.build_bcsc_densify(shape, cfg16, b16.indptr, b16.indices,
                                 dev).plain(v16)
     useful16 = 2 * b16.nblocks * 16 * 64 * m
+    lib16 = ms(lambda x, y: torch.mm(x, y, out_dtype=torch.float32), a, d16)
     record("bcsc_spmm", src, "libxsmm_tpu/kernels/spmm_pallas.py:88", s16,
            (a, v16), TOL_SPARSE_BF16, io + 2 * v16.numel(), useful16, peak,
-           ms(lambda x, y: torch.mm(x, y, out_dtype=torch.float32), a, d16),
-           path=s16.path, shape=[m, n, k, 16, 64])
+           lib16, path=s16.path, shape=[m, n, k, 16, 64])
     rows[-1].update(name="bcsc_spmm_mma", launches=routes["bcsc_spmm"]["mma"])
     mma_rate(rows[-1], useful16, useful16)
     union = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev)
     union_c = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev,
                                        compact=True)
-    if (union.path, union_c.path) != ("mma", "mma"):
+    if (union.path, union_c.path) != ("wgmma", "wgmma"):
         raise AssertionError(f"bcsc_spmm_union at the streaming case took "
                              f"{union.path} / {union_c.path}")
     _check("bcsc_spmm_union compacted form vs fused form", union(a, v),
            union_c(a, v), TOL_SPARSE_BF16)
     record("bcsc_spmm_union", src, "libxsmm_tpu/kernels/spmm_pallas.py:258",
            union, (a, v), TOL_SPARSE_BF16, io + 2 * v.numel(), useful, peak,
-           lib_mm, compact_ms=ms(union_c, a, v),
-           compact_graph_ms=graph_ms(lambda: union_c(a, v)))
+           lib_mm, path=union.path, compact_ms=ms(union_c, a, v),
+           compact_graph_ms=graph_ms(lambda: union_c(a, v)),
+           device_ms=device_ms(lambda: union(a, v)),
+           launches=routes["bcsc_spmm_union"]["wgmma"])
     # its own products: every live union slot of every group, bk deep and
     # 128 wide (the pad slots are skipped)
     live = (union.gmap.view(union.nsg, union.U, union.W)
@@ -1885,6 +1922,21 @@ def sparse_rows(record, rows, stream, small, ms, geo, routes):
           f"{t_c:.4f} ms, {own / t_c / 1e9:.1f} TFLOP/s of its own products,"
           f" {useful / t_c / 1e9:.1f} TFLOP/s useful; kernel / library "
           f"{t_c / lib_mm:.3f}; {live} live slots of {union.nsg * union.U}")
+    # the union's mma.sync kernel at the 16 x 64 blocks above (the fused
+    # form; the path holds both forms), beside torch.mm on their densified
+    # B; launches: the path's 16 x 64 unions
+    u16 = KS.build_bcsc_spmm_union(shape, cfg16, b16.indptr, b16.indices,
+                                   dev)
+    if u16.path != "mma":
+        raise AssertionError(f"bcsc_spmm_union at 16 x 64 took {u16.path}")
+    record("bcsc_spmm_union", src, "libxsmm_tpu/kernels/spmm_pallas.py:258",
+           u16, (a, v16), TOL_SPARSE_BF16, io + 2 * v16.numel(), useful16,
+           peak, lib16, path=u16.path, shape=[m, n, k, 16, 64])
+    rows[-1].update(name="bcsc_spmm_union_mma",
+                    launches=routes["bcsc_spmm_union"]["mma"])
+    live16 = (u16.gmap.view(u16.nsg, u16.U, u16.W)
+              != u16.nblocks).any(-1).sum().item()
+    mma_rate(rows[-1], 2 * m * live16 * 16 * KS.GROUP, useful16)
     comp = union_c.compactor
     rhs = comp(v)
     route = comp.route(v, rhs)[0]
@@ -4596,6 +4648,11 @@ def main() -> int:
     flash_routes = {k: {r: enc["routes"][k][r] + tr["routes"][k][r]
                         for r in v} for k, v in tr["routes"].items()}
     print(f"  flash launches by route (serve + train): {flash_routes}")
+    # the backward's by CUDA kernel (the 128-key plan's, the wide ones)
+    flash_kernels = {k: enc["kernels"][k] + tr["kernels"][k]
+                     for k in tr["kernels"]}
+    print(f"  flash backward launches by kernel (serve + train): "
+          f"{flash_kernels}")
     step_breakdown(*tr["step"])
     step_trace(*tr["step"])
     step_breakdown(*tr["step_f32"], label="f32 8x512")
@@ -4930,34 +4987,43 @@ def main() -> int:
                bargs, TOL_BF16_OUT,
                ops_in + nout * fbh * fs * fhd * 2,
                useful_, geo.peak_bf16_tflops, lib_bwd, path=bwd.path)
-        rows[-1]["launches"] = flash_routes[name]["wgmma"]
+        rows[-1]["launches"] = flash_kernels[bwd.kernels[name.rsplit("_",
+                                                                     1)[1]]]
         # its own products, hd padded to its bucket (64 or 128)
         mma_rate(rows[-1], nmm * fbh * fs * fs * 64 * -(-fhd // 64), useful_)
     t_pair = rows[-2]["ms"] + rows[-1]["ms"]
     print(f"  flash backward dkv + dq {t_pair:.4f} ms; kernels / sdpa "
           f"backward {t_pair / lib_bwd:.3f}")
-    # the mma.sync kernels (bf16 past hd 128) at the training path's hd-256
-    # shape; launches: theirs on the serving and training paths
-    margs = tr["bwd_operands_mma"]
+    # the wide wgmma kernels (bf16 past hd 128) at the training path's
+    # hd-256 shape; launches: theirs on the serving and training paths
+    margs = tr["bwd_operands_wide"]
     hbh, hs, hhd = margs[1].shape
     mbwd = KA.build_flash_attention_bwd(hbh, hs, hhd, torch.bfloat16)
-    if mbwd.path != "mma":
-        raise AssertionError(f"flash backward bf16 hd {hhd} took {mbwd.path}")
-    lib_mma = sdpa_bwd_ms(*margs[1:5])
+    if mbwd.path != "wgmma" or "wide" not in mbwd.kernels["dq"]:
+        raise AssertionError(f"flash backward bf16 hd {hhd} took "
+                             f"{mbwd.path} {mbwd.kernels}")
+    lib_wide = sdpa_bwd_ms(*margs[1:5])
     hin = 4 * hbh * hs * hhd * 2 + 2 * hbh * hs * 4
-    for name, part, plain, nout, nmm in (
-            ("flash_attention_bwd_dkv", mbwd.dkv, mbwd.dkv_plain, 2, 8),
-            ("flash_attention_bwd_dq", mbwd.dq, mbwd.dq_plain, 1, 6)):
+    hdp = 64 * -(-hhd // 64)
+    for name, part, plain, nout, nmm, nown in (
+            ("flash_attention_bwd_dkv", mbwd.dkv, mbwd.dkv_plain, 2, 8, 12),
+            ("flash_attention_bwd_dq", mbwd.dq, mbwd.dq_plain, 1, 6, 6)):
         fn_ = functools.partial(part)
         fn_.plain = plain
         record(name, "attention_bwd_kernels.cu",
                "libxsmm_tpu/kernels/attention_pallas.py:387" if nmm == 8
                else "libxsmm_tpu/kernels/attention_pallas.py:485", fn_,
                margs, TOL_BF16_OUT, hin + nout * hbh * hs * hhd * 2,
-               nmm * hbh * hs * hs * hhd, geo.peak_bf16_tflops, lib_mma,
-               path=mbwd.path, shape=[hbh, hs, hhd])
-        rows[-1].update(name=f"{name}_mma",
-                        launches=flash_routes[name]["mma"])
+               nmm * hbh * hs * hs * hhd, geo.peak_bf16_tflops, lib_wide,
+               path=mbwd.path, shape=[hbh, hs, hhd],
+               graph_ms=graph_ms(lambda: fn_(*margs)),
+               device_ms=device_ms(lambda: fn_(*margs)))
+        rows[-1].update(name=f"{name}_wide", launches=flash_kernels[
+            mbwd.kernels[name.rsplit("_", 1)[1]]])
+        # its own products: hd padded to its bucket, and in dK/dV S^T and
+        # dP^T formed by both warpgroups (12 x hd a pair against 8)
+        mma_rate(rows[-1], nown * hbh * hs * hs * hdp,
+                 nmm * hbh * hs * hs * hhd)
     global_position_forms(rows, ms, KA, KE, fq, fkT, fv, bargs, dx)
 
     sparse_rows(record, rows, sp["stream"], sp["small"], ms, geo,

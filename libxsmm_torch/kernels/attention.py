@@ -24,12 +24,11 @@ The CUDA routes: f32 on the CUDA cores' f32 FMAs fed by TMA ("tma_fma",
 forward and backward: a producer warpgroup's ring of tiles, 8 x 8
 micro-tiles, one tile per hd bucket: 64, 128 or 256; f32 means f32, no
 TF32); bf16 on Hopper's warpgroup products ("wgmma": TMA-fed 128-byte
-swizzled tiles; the forward at every hd, padded to 64, 128, 192 or 256,
-one tile per bucket: `_fwd_tile`; the backward up to hd 128, one tile per
-kernel: `_WG_TILES`); the bf16 backward past hd 128 on mma.sync ("mma", hd
-padded to 192 or 256, 32-column K tiles). `flash_path` and
-`flash_bwd_path` name the route a call takes, as the C entry points
-choose it (by dtype and hd, before any launch), and each wrapper reports
+swizzled tiles, hd padded to 64, 128, 192 or 256; the forward one tile per
+bucket: `_fwd_tile`; the backward one tile per kernel up to hd 128 and
+another past it: `bwd_configs`). `flash_path` and `flash_bwd_path` name
+the route a call takes, as the C entry points choose it (by dtype, before
+any launch), and each wrapper reports
 it as `.path`; an operand off 16-byte alignment is copied first, and a
 failed build or launch raises: there is no fallback between the routes.
 """
@@ -51,7 +50,7 @@ _M32 = 0xFFFFFFFF
 # it launches its CUDA kernel, and nowhere else
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
             "flash_attention_bwd_dq": 0}
-ROUTES = ("mma", "tma_fma", "wgmma")
+ROUTES = ("tma_fma", "wgmma")
 # the same launches split by the route that served them (flash_path,
 # flash_bwd_path)
 path_launches = {name: dict.fromkeys(ROUTES, 0) for name in launches}
@@ -60,11 +59,18 @@ path_launches = {name: dict.fromkeys(ROUTES, 0) for name in launches}
 ENTRIES = {"flash_attention_fwd": ("attention_kernels", (
                "flash_fwd_tma_fma_kernel", "flash_fwd_wgmma_kernel")),
            "flash_attention_bwd_dkv": ("attention_bwd_kernels", (
-               "flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_tma_fma_kernel",
-               "flash_bwd_dkv_wgmma_kernel")),
+               "flash_bwd_dkv_tma_fma_kernel", "flash_bwd_dkv_wgmma_kernel",
+               "flash_bwd_dkv_wgmma_wide_kernel")),
            "flash_attention_bwd_dq": ("attention_bwd_kernels", (
-               "flash_bwd_dq_mma_kernel", "flash_bwd_dq_tma_fma_kernel",
-               "flash_bwd_dq_wgmma_kernel"))}
+               "flash_bwd_dq_tma_fma_kernel", "flash_bwd_dq_wgmma_kernel",
+               "flash_bwd_dq_wgmma_wide_kernel"))}
+
+
+# the backward's launches split by the CUDA kernel that served them
+# (bwd_kernel: on the wgmma route, the 128-key plan's kernels up to hd 128,
+# the wide ones past it)
+kernel_launches = dict.fromkeys(ENTRIES["flash_attention_bwd_dkv"][1]
+                                + ENTRIES["flash_attention_bwd_dq"][1], 0)
 
 
 def reset_launches() -> None:
@@ -73,10 +79,21 @@ def reset_launches() -> None:
     for counts in path_launches.values():
         for route in counts:
             counts[route] = 0
+    for name in kernel_launches:
+        kernel_launches[name] = 0
+
+
+def bwd_kernel(part: str, dtype: torch.dtype, hd: int) -> str:
+    """The CUDA kernel the backward's `part` ("dkv" or "dq") runs at dtype
+    and hd (csrc run): flash_bwd_<part>_tma_fma_kernel for f32, and for
+    bf16 flash_bwd_<part>_wgmma_kernel up to hd 128 and
+    flash_bwd_<part>_wgmma_wide_kernel past it."""
+    route = flash_bwd_path(dtype, hd)
+    wide = "_wide" if route == "wgmma" and hd > _WG_HD_MAX else ""
+    return f"flash_bwd_{part}_{route}{wide}_kernel"
 
 
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BQ = 64                      # the mma.sync backward's query rows
 _lib = None
 _bwd_lib = None
 
@@ -199,16 +216,15 @@ def _rand_bits(seed, b, row, col):
 # launch configurations
 # ---------------------------------------------------------------------------
 
-# hd's buckets on the mma.sync route (csrc attention_bwd_kernels.cu: the
-# backward serves bf16 past hd 128 there, padded to 192 or 256)
-_MMA_HDP = (192, 256)
-_SMEM_MAX = 232448                        # a block's shared memory on sm_90
-# the wgmma backward (csrc xsmm_flash_wgmma.cuh) serves bf16 up to hd 128
-# (FW_HDP_MAX), one tile a kernel, (rows, K columns): dQ a block of 128
-# rows against 128-key tiles, dK/dV 64-row Q tiles against a block of 128
-# keys
+# the wgmma backward (csrc xsmm_flash_wgmma.cuh): one tile a kernel, (rows,
+# K columns), up to a padded hd of 128 (FW_HDP_MAX): dQ a block of 128 rows
+# against 128-key tiles, dK/dV 64-row Q tiles against a block of 128 keys;
+# past it (the wide kernels): dQ 128 rows against 64-key units, dK/dV
+# 64-row Q tiles against a block of 64 keys
 _WG_HD_MAX = 128
 _WG_TILES = {"dkv": (64, 128), "dq": (128, 128)}
+_WG_WIDE_TILES = {"dkv": (64, 64), "dq": (128, 64)}
+_ALIGN = 1024                             # csrc TF_ALIGN
 
 
 def flash_path(dtype: torch.dtype, hd: Optional[int] = None) -> str:
@@ -238,80 +254,69 @@ def _bf16_only(dtype: torch.dtype) -> None:
                          f"one tile per hd bucket")
 
 
-def _mma_hdp(hd: int) -> int:
-    """hd padded with zeros to the mma.sync backward's bucket, past hd
-    128; up to it the wgmma kernels serve (ValueError)."""
-    if hd <= _WG_HD_MAX:
-        raise ValueError(f"hd {hd}: the bf16 backward runs the wgmma "
-                         f"kernels up to hd {_WG_HD_MAX}")
-    return next(p for p in _MMA_HDP if hd <= p)
-
-
 def flash_bwd_path(dtype: torch.dtype, hd: Optional[int] = None) -> str:
-    """The route both backward kernels take (csrc run), chosen by dtype and
-    hd alone, before any launch: "tma_fma" for f32 (the kernels on TMA-fed
-    FMA tiles); for bf16 "wgmma" (the warpgroup kernels on TMA-fed tiles)
-    up to hd 128, and "mma" (the mma.sync kernels) past it, where the wgmma
-    plan's accumulators (dK and dV, or dQ, 64 x hd f32 a warpgroup) would
-    not fit a consumer thread's registers beside the scores. bf16 needs
-    hd."""
-    if dtype != torch.bfloat16:
-        return "tma_fma"
-    if hd is None:
-        raise ValueError("the bf16 backward's route depends on hd")
-    return "wgmma" if hd <= _WG_HD_MAX else "mma"
+    """The route both backward kernels take (csrc run), chosen by dtype
+    alone, before any launch, at every hd the kernels take (hd <= 256):
+    "tma_fma" for f32 (the kernels on TMA-fed FMA tiles), "wgmma" for bf16
+    (the warpgroup kernels on TMA-fed tiles; past hd 128 the wide ones,
+    whose dK/dV block owns 64 keys and splits hd's columns over its two
+    warpgroups, and whose dQ block streams 64-key tiles, so that the
+    accumulators fit a consumer thread's registers: `bwd_configs`). hd is
+    taken for symmetry with flash_path."""
+    return "wgmma" if dtype == torch.bfloat16 else "tma_fma"
 
 
-def _bwd_smem_bytes(hd: int, bk: int, kernel: str = "dkv",
+def _bwd_hdp(hd: int) -> int:
+    """hd padded with zeros to the wgmma backward's bucket: 64, 128, 192 or
+    256."""
+    return next(p for p in (64, 128, 192, 256) if hd <= p)
+
+
+def _bwd_smem_bytes(hd: int, kernel: str = "dkv",
                     dtype: torch.dtype = torch.bfloat16) -> int:
-    """Shared memory of one bf16 mma.sync backward block (csrc
-    dkv_mma_smem, dq_mma_smem), past hd 128, hd padded to its bucket and
-    every row by 16 bytes: the dK/dV kernel's K^T and V tiles, two Q and two dO tiles and
-    two lse and delta rows (f32); the dQ kernel's Q and dO tiles and two
-    K^T and two V tiles."""
+    """Shared memory of one bf16 wgmma backward block (csrc fw_dkv_smem,
+    fw_dq_smem, fw_dkv_wide_smem, fw_dq_wide_smem), hd padded to its
+    bucket: the alignment slack, the tiles that land once, the ring and its
+    barriers. dK/dV: K^T and V of the block's keys once, a ring of stages
+    of a 64-row Q and dO tile with their lse and delta rows (three stages
+    up to hd 128; past it two, the tiles 256 columns wide at either
+    bucket); dQ: Q and dO of its 128 rows once, a ring of two 128-key K^T
+    and V stages, past hd 128 of 64-key K^T or V units (four, three at
+    256)."""
     _bf16_only(dtype)
-    hdp = _mma_hdp(hd)
+    hdp = _bwd_hdp(hd)
+    rows, keys = bwd_configs(hd, kernel, dtype)[0]
     if kernel == "dkv":
-        return (hdp * (bk + 8) + bk * (hdp + 8)
-                + 4 * _BQ * (hdp + 8)) * 2 + 4 * _BQ * 4
-    return (2 * _BQ * (hdp + 8) + 2 * hdp * (bk + 8)
-            + 2 * bk * (hdp + 8)) * 2
+        stages, width = (3, hdp) if hdp <= _WG_HD_MAX else (2, 256)
+        ring = stages * (2 * rows * width * 2 + 2 * rows * 4)
+        return _ALIGN + 2 * keys * hdp * 2 + ring + (2 * stages + 1) * 8
+    if hdp <= _WG_HD_MAX:
+        stages, unit = 2, 2 * keys * hdp * 2
+    else:
+        stages, unit = (4 if hdp <= 192 else 3), keys * hdp * 2
+    return (_ALIGN + 2 * rows * hdp * 2 + stages * unit
+            + (2 * stages + 1) * 8)
 
 
 def bwd_configs(hd: int, kernel: str = "dkv",
                 dtype: torch.dtype = torch.bfloat16) -> list:
     """(rows, K columns) per block the bf16 backward kernel `kernel` ("dkv"
-    or "dq") is built for at hd, on flash_bwd_path's route: up to hd 128 the
-    wgmma kernel's one tile (_WG_TILES: dK/dV (64, 128), dQ (128, 128));
-    past it the mma.sync kernel's 32 columns, where each of its four warps
-    splits a key group's hd columns with another. f32 has none
-    (ValueError)."""
+    or "dq") takes at hd, on the wgmma route: up to hd 128 dK/dV (64, 128)
+    and dQ (128, 128) (_WG_TILES), past it dK/dV (64, 64) and dQ (128, 64)
+    (_WG_WIDE_TILES). One tile a kernel and hd bucket, so block_override
+    only has to tile s. f32 has none (ValueError)."""
     _bf16_only(dtype)
-    if hd <= _WG_HD_MAX:
-        return [_WG_TILES[kernel]]
-    return [c for c in [(_BQ, 32)]
-            if _bwd_smem_bytes(hd, c[1], kernel, dtype) <= _SMEM_MAX]
+    return [(_WG_TILES if hd <= _WG_HD_MAX else _WG_WIDE_TILES)[kernel]]
 
 
-def _pick_config(s: int, configs, block_override) -> Tuple:
-    """The bf16 kernel's (rows, K columns) within block_override (the
-    reference's TPU tile, an upper bound here), or its default. configs None
-    (f32: one tile per hd bucket) picks nothing: (None, None), after the
-    same check that the override tiles s."""
+def _check_override(s: int, block_override) -> None:
+    """block_override, the reference's TPU tile, must tile s; the CUDA
+    kernels take one tile a kernel and hd bucket whatever it is."""
     if block_override is not None:
         bq, bk = (int(x) for x in block_override)
         if bq <= 0 or bk <= 0 or s % bq or s % bk:
             raise ValueError(f"block_override {block_override} does not "
                              f"tile s={s}")
-    if configs is None:
-        return None, None
-    if block_override is None:
-        return configs[0]
-    for cbq, cbk in sorted(configs, key=lambda c: -c[1]):
-        if cbq <= bq and cbk <= bk:
-            return cbq, cbk
-    raise ValueError(f"block_override {block_override} is smaller than "
-                     f"every CUDA tile configuration {configs}")
 
 
 # ---------------------------------------------------------------------------
@@ -444,7 +449,7 @@ def build_flash_attention(bh: int, s: int, hd: int, dtype: torch.dtype,
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
     sc = float(scale) if scale is not None else float(hd) ** -0.5
-    _pick_config(s, None, block_override)
+    _check_override(s, block_override)
     return FlashAttention(bh, s, hd, dtype, causal, sc, bias_bh, dropout_p,
                           return_lse, _fwd_tile(dtype, hd), head_map)
 
@@ -464,7 +469,7 @@ class FlashAttentionBwd:
     The bf16 kernels each have their own tile: (`block_q`, `block_k`)
     (dK/dV) and (`block_q_dq`, `block_k_dq`) (None for f32: one tile per
     hd bucket); `path` names the route both kernels take
-    (flash_bwd_path)."""
+    (flash_bwd_path), `kernels` the CUDA kernel of each (bwd_kernel)."""
 
     def __init__(self, bh: int, s: int, hd: int, dtype: torch.dtype,
                  causal: bool, scale: float, bias_bh: int, dropout_p: float,
@@ -480,6 +485,8 @@ class FlashAttentionBwd:
         self.block_q, self.block_k = config
         self.block_q_dq, self.block_k_dq = config_dq
         self.path = flash_bwd_path(dtype, hd)
+        # the CUDA kernel of each part (bwd_kernel)
+        self.kernels = {p: bwd_kernel(p, dtype, hd) for p in ("dkv", "dq")}
         self.thr = (_dropout_threshold(self.dropout_p)
                     if self.dropout_p > 0.0 else None)
         self.inv_keep = (1.0 / (1.0 - self.dropout_p)
@@ -536,6 +543,7 @@ class FlashAttentionBwd:
             _raise_on_error(err, f"{self.name} dkv", lib)
             launches["flash_attention_bwd_dkv"] += 1
             path_launches["flash_attention_bwd_dkv"][self.path] += 1
+            kernel_launches[self.kernels["dkv"]] += 1
             return (dkT, dv, dbias) if self.bias_grad else (dkT, dv)
         dq = torch.empty_like(q)
         with torch.cuda.device(q.device):
@@ -543,6 +551,7 @@ class FlashAttentionBwd:
         _raise_on_error(err, f"{self.name} dq", lib)
         launches["flash_attention_bwd_dq"] += 1
         path_launches["flash_attention_bwd_dq"][self.path] += 1
+        kernel_launches[self.kernels["dq"]] += 1
         return dq
 
     def dkv(self, seed, q, kT, v, dout, lse, delta, bias=None):
@@ -636,9 +645,8 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     per-(batch*head) bias (bias_bh == bh), as the reference's. The tiling is
     chosen independently of the forward's: the dropout mask depends only on
     global coordinates. block_override=(bq, bk), the reference's TPU tile,
-    must tile s; past hd 128 (the mma.sync kernels) it also bounds their
-    tile (bwd_configs), while the wgmma (bf16 up to hd 128) and tma_fma
-    (f32) kernels take one tile each whatever the override. head_map as
+    must tile s; the wgmma (bf16) and tma_fma (f32) kernels take one tile
+    each whatever the override (bwd_configs). head_map as
     build_flash_attention's: the mask replayed is the one the forward with
     that map drew."""
     if not supported(s, hd, dtype):
@@ -648,13 +656,10 @@ def build_flash_attention_bwd(bh: int, s: int, hd: int, dtype: torch.dtype,
     if bias_grad and bias_bh != bh:
         raise ValueError("bias_grad requires a per-(batch*head) bias")
     sc = float(scale) if scale is not None else float(hd) ** -0.5
-    _pick_config(s, None, block_override)
-    # the wgmma and tma_fma kernels take one tile each: block_override only
-    # has to tile s; the mma.sync ones take the tile within it
-    bound = block_override if flash_bwd_path(dtype, hd) == "mma" else None
+    _check_override(s, block_override)
     config, config_dq = (
-        _pick_config(s, bwd_configs(hd, k, dtype), bound)
-        if dtype == torch.bfloat16 else (None, None) for k in ("dkv", "dq"))
+        bwd_configs(hd, k, dtype)[0] if dtype == torch.bfloat16
+        else (None, None) for k in ("dkv", "dq"))
     return FlashAttentionBwd(
         bh, s, hd, dtype, causal, sc, bias_bh, dropout_p, bias_grad,
         config, config_dq, head_map)

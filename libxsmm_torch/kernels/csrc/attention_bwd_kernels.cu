@@ -1,15 +1,15 @@
 // Hand-written Hopper (sm_90a) flash-attention backward for libxsmm_torch:
-// two kernels, as the reference splits it, each in three forms chosen by
-// operand type and hd (kernels/attention.py flash_bwd_path).
+// two kernels, as the reference splits it, each in a form chosen by operand
+// type and hd (kernels/attention.py flash_bwd_path).
 // Replaces the Pallas TPU kernels of build_flash_attention_bwd
 // (libxsmm_tpu/kernels/attention_pallas.py:322):
 //   dK^T, dV (+ dbias) <- dkv_kernel (:387): flash_bwd_dkv_wgmma_kernel
 //                                            (bf16, hd <= 128),
-//                                            flash_bwd_dkv_mma_kernel (bf16,
-//                                            hd > 128),
+//                                            flash_bwd_dkv_wgmma_wide_kernel
+//                                            (bf16, hd > 128),
 //                                            flash_bwd_dkv_tma_fma_kernel (f32)
 //   dQ                 <- dq_kernel  (:485): flash_bwd_dq_wgmma_kernel,
-//                                            flash_bwd_dq_mma_kernel,
+//                                            flash_bwd_dq_wgmma_wide_kernel,
 //                                            flash_bwd_dq_tma_fma_kernel, alike
 //
 // Plain C interface, no torch headers: kernels/_build.py compiles this file
@@ -51,12 +51,12 @@
 //   dQ: one block owns one (b, 64-row Q tile); Q and dO stay in shared
 //   memory; the block walks the K tiles up to the diagonal when causal.
 //
-// bf16 on wgmma (route "wgmma", kernels/csrc/xsmm_flash_wgmma.cuh), for
-// every bf16 call at hd <= 128: a
-// producer warpgroup keeps TMA loads of 128-byte swizzled boxes in flight
-// into a ring (full and empty mbarriers) and hands its registers back
-// (setmaxnreg); two consumer warpgroups each own 64 rows of the block's
-// output and run wgmma with f32 accumulators in registers.
+// bf16 on wgmma (route "wgmma", kernels/csrc/xsmm_flash_wgmma.cuh), for every
+// bf16 call; up to hd 128 as follows, past it the wide plan (its section
+// below). A producer warpgroup keeps TMA loads of 128-byte swizzled boxes in
+// flight into a ring (full and empty mbarriers) and hands its registers back
+// (setmaxnreg); two consumer warpgroups each own 64 rows of the block's output
+// and run wgmma with f32 accumulators in registers.
 //   dK/dV: one block owns (b, 128 keys); K^T and V land once; the ring
 //   streams 64-row Q and dO tiles with their lse and delta rows (from the
 //   first that reaches the diagonal when causal). Each group forms S^T = K
@@ -78,28 +78,6 @@
 // tiles that cross the diagonal, and each tile's scores converted in two
 // halves, the second while the tensor cores run the first half's
 // products.
-//
-// bf16 on mma.sync (route "mma": hd > 128; the FlashAttention-2 backward
-// on mma.sync m16n8k16, f32 accumulators; kernels/csrc/xsmm_mma.cuh). Four
-// warps a block, 32-column K tiles; hd is zero-padded to the forward's
-// buckets past 128 (192, 256);
-// tiles arrive in bf16 through a two-stage cp.async ring, every row padded
-// by 16 bytes so ldmatrix's rows fall in distinct banks; the softmax is
-// taken in log2 units (one exp2 per element), as the forward's.
-//   dK/dV computes the transposed scores directly: warp w owns 16 keys and
-//   half of hd's columns of dK and dV (the two warps of a key group
-//   recompute the same scores, which keeps the two accumulators within the
-//   register file). S^T = K Q^T takes K from the
-//   (hd x keys) K^T tile by ldmatrix.trans and Q^T from row-major Q by
-//   ldmatrix; dP^T = V dO^T likewise. P~^T and dS^T are born as C fragments
-//   (row: key, column: query, so the dropout hash takes (column, row)),
-//   rounded by RNE to bf16 in registers and fed as A fragments to
-//   dV += P~^T dO and dK += dS^T Q, with dO and Q read by ldmatrix.trans:
-//   no shared-memory round trip. dK^T goes out through shared memory, so
-//   its (hd, s) rows are written in 16-byte units.
-//   dQ: warp w owns 16 query rows. S = Q K (K^T tiles by ldmatrix.trans),
-//   dP = dO V^T (V by ldmatrix), dS = P (dP - delta) as A fragments, and
-//   dQ += dS K with K read from the K^T tile by a plain ldmatrix.
 //
 // f32 on TMA-fed FMA tiles (route "tma_fma"), on the CUDA cores' FMAs (67
 // TFLOP/s: floors of 1.03 and 0.77 ms at the bench shape; f32 means f32,
@@ -145,8 +123,6 @@
 
 enum { T_F32 = 0, T_BF16 = 1 };
 
-constexpr int BQ = 64;        // query rows per tile (the bf16 kernels)
-
 struct BwdArgs {
   const void* q;        // (bh, s, hd)
   const void* kT;       // (bh, hd, s)
@@ -168,425 +144,7 @@ struct BwdArgs {
   HeadMap hm;           // the hash's head map (xsmm_common.cuh)
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores. HDP: hd padded to a multiple of 16 (a bucket of
-// kernels/attention.py _MMA_HDP); BK: key columns per K tile.
-// ---------------------------------------------------------------------------
-
-constexpr int MB_THREADS = 128;   // four warps
 constexpr float LOG2E = 1.4426950408889634f;
-
-// shared memory of the dK/dV kernel: the K^T tile (hdp x bk) and the V tile
-// (bk x hdp) once, two Q and two dO tiles (BQ x hdp), bf16, every row
-// padded by 16 bytes; two lse and two delta rows (BQ) in f32
-__host__ __device__ constexpr int dkv_mma_smem(int hdp, int bk) {
-  return (hdp * (bk + 8) + bk * (hdp + 8) + 4 * BQ * (hdp + 8)) * 2 +
-         4 * BQ * 4;
-}
-
-// shared memory of the dQ kernel: the Q and dO tiles (BQ x hdp) once, two
-// K^T tiles (hdp x bk) and two V tiles (bk x hdp), bf16, rows padded
-__host__ __device__ constexpr int dq_mma_smem(int hdp, int bk) {
-  return (2 * BQ * (hdp + 8) + 2 * hdp * (bk + 8) + 2 * bk * (hdp + 8)) * 2;
-}
-
-// ROWS rows of a row-major (., hd) bf16 array into dst[ROWS][HDP + 8];
-// columns hd..HDP-1 arrive as zero fill
-template <int HDP, int ROWS>
-__device__ __forceinline__ void cp_rows(__nv_bfloat16* dst,
-                                        const __nv_bfloat16* src, int hd) {
-  constexpr int DU = HDP / 8, LD = HDP + 8;
-  for (int i = threadIdx.x; i < ROWS * DU; i += MB_THREADS) {
-    const int r = i / DU, d = (i - r * DU) * 8;
-    const bool ok = d < hd;
-    cp_async16(dst + r * LD + d, ok ? src + (size_t)r * hd + d : src, ok);
-  }
-}
-
-// columns [0, COLS) of the (hd, s) array kT (pre-offset to the tile) into
-// dst[HDP][COLS + 8], as they lie; rows hd..HDP-1 arrive as zero fill
-template <int HDP, int COLS>
-__device__ __forceinline__ void cp_kt(__nv_bfloat16* dst,
-                                      const __nv_bfloat16* src, int hd,
-                                      int s) {
-  constexpr int KU = COLS / 8, LD = COLS + 8;
-  for (int i = threadIdx.x; i < HDP * KU; i += MB_THREADS) {
-    const int d = i / KU, c = (i - d * KU) * 8;
-    const bool ok = d < hd;
-    cp_async16(dst + d * LD + c, ok ? src + (size_t)d * s + c : src, ok);
-  }
-}
-
-// ldmatrix lane addresses, lane = l (PTX ISA fragment layouts):
-//   A (16 x 16) from a row-major [m][k] tile:   (m0 + (l & 15), k0 + (l >> 4) 8)
-//   A from a [k][m] tile, .trans:               (k0 + (l & 7) + (l & 16) / 2, m0 + (l & 8))
-//   B, two n8 tiles, from an [n][k] tile:       (n0 + (l & 7) + (l & 16) / 2, k0 + (l & 8))
-//   B, two n8 tiles, from a [k][n] tile, .trans: (k0 + (l & 7) + (l & 8), n0 + (l >> 4) 8)
-__device__ __forceinline__ int a_row(int l) { return l & 15; }
-__device__ __forceinline__ int a_col(int l) { return (l >> 4) * 8; }
-__device__ __forceinline__ int nk_row(int l) { return (l & 7) + ((l & 16) >> 1); }
-__device__ __forceinline__ int nk_col(int l) { return l & 8; }
-__device__ __forceinline__ int kn_row(int l) { return (l & 7) + (l & 8); }
-__device__ __forceinline__ int kn_col(int l) { return (l >> 4) * 8; }
-
-// p~ and ds of one score element from its raw dot products (sc = q . k,
-// dp = dout . v), in log2 units: lse2 = lse_i log2(e)
-__device__ __forceinline__ void grad_mma(const BwdArgs& a, const float* bias_h,
-                                         uint32_t hb, int row, int col,
-                                         float sc, float dp, float lse2,
-                                         float delta, float& p_drop,
-                                         float& ds) {
-  const float x = bias_h ? (sc * a.scale + bias_h[(size_t)row * a.s + col]) *
-                               LOG2E
-                         : sc * (a.scale * LOG2E);
-  const float p = (a.causal && col > row) ? 0.f : exp2f(x - lse2);
-  p_drop = p;
-  if (a.dropout) {
-    const bool keep = rand_bits(a.seed, hb, (uint32_t)row,
-                                (uint32_t)col) >= a.thr;
-    p_drop = keep ? p * a.inv_keep : 0.f;
-    dp = keep ? dp * a.inv_keep : 0.f;
-  }
-  ds = p * (dp - delta);
-}
-
-// ---------------------------------------------------------------------------
-// dK^T, dV (+ dbias) on the tensor cores: one block per (b, K tile)
-//
-// Warp w owns keys k0 + 16 (w % KG) .. +16 and dK/dV columns DW (w / KG) ..
-// + DW. Each Q tile is taken in sub-tiles of QW queries, so the S^T and
-// dP^T fragments of a sub-tile (QW / 2 registers each) sit beside the
-// accumulators (DW registers in all).
-// ---------------------------------------------------------------------------
-
-template <int HDP, int BK>
-__global__ void __launch_bounds__(MB_THREADS) flash_bwd_dkv_mma_kernel(
-    const BwdArgs a) {
-  constexpr int LDH = HDP + 8, LDK = BK + 8;
-  constexpr int KG = BK / 16;          // key groups of 16
-  constexpr int DW = HDP * KG / 4;     // dK/dV columns per warp
-  constexpr int DT = DW / 8;           // their n8 tiles
-  constexpr int QW = DW >= 128 ? 32 : 64;   // queries per sub-tile
-  constexpr int QT = QW / 8;           // n8 tiles of S^T
-  static_assert(4 % KG == 0 && DW % 16 == 0 && BQ % QW == 0, "tiling");
-  extern __shared__ __align__(16) unsigned char mb_smem[];
-  __nv_bfloat16* kts = reinterpret_cast<__nv_bfloat16*>(mb_smem);  // [HDP][LDK]
-  __nv_bfloat16* vs = kts + HDP * LDK;                             // [BK][LDH]
-  __nv_bfloat16* qs = vs + BK * LDH;                               // [2][BQ][LDH]
-  __nv_bfloat16* os = qs + 2 * BQ * LDH;                           // [2][BQ][LDH]
-  float* ls = reinterpret_cast<float*>(os + 2 * BQ * LDH);         // [2][BQ]
-  float* dls = ls + 2 * BQ;                                        // [2][BQ]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int kw = (warp % KG) * 16;     // this warp's first key in the tile
-  const int cw = (warp / KG) * DW;     // and its first dK/dV column
-  const int s = a.s, hd = a.hd;
-  const int b = blockIdx.x;
-  const uint32_t hb = a.hm(b);    // the hash's batch-head
-  const int k0 = blockIdx.y * BK;      // causal: the first tiles have most work
-  const size_t head = (size_t)b * s * hd;
-  const __nv_bfloat16* qh = static_cast<const __nv_bfloat16*>(a.q) + head;
-  const __nv_bfloat16* oh = static_cast<const __nv_bfloat16*>(a.dout) + head;
-  const __nv_bfloat16* kh = static_cast<const __nv_bfloat16*>(a.kT) + head;
-  const __nv_bfloat16* vh = static_cast<const __nv_bfloat16*>(a.v) + head;
-  const float* lse_h = a.lse + (size_t)b * s;
-  const float* del_h = a.delta + (size_t)b * s;
-  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
-  float* dbias_h = a.dbias ? a.dbias + (size_t)b * s * s : nullptr;
-
-  // Q tiles entirely above this K tile's diagonal contribute nothing; their
-  // dbias blocks are zero (attention_pallas.py:425-432)
-  const int nq = s / BQ;
-  const int qstart = a.causal ? k0 / BQ : 0;
-  if (dbias_h) {
-    for (int i = tid; i < qstart * BQ * BK; i += MB_THREADS) {
-      const int r = i / BK, c = i - r * BK;
-      dbias_h[(size_t)r * s + k0 + c] = 0.f;
-    }
-  }
-
-  auto stage_q = [&](int qi) {
-    const int q0 = qi * BQ, buf = qi & 1;
-    cp_rows<HDP, BQ>(qs + buf * BQ * LDH, qh + (size_t)q0 * hd, hd);
-    cp_rows<HDP, BQ>(os + buf * BQ * LDH, oh + (size_t)q0 * hd, hd);
-    for (int i = tid; i < BQ / 2; i += MB_THREADS) {   // 4 floats a unit
-      const int c = (i % (BQ / 4)) * 4;
-      if (i < BQ / 4)
-        cp_async16(ls + buf * BQ + c, lse_h + q0 + c, true);
-      else
-        cp_async16(dls + buf * BQ + c, del_h + q0 + c, true);
-    }
-  };
-  // group 0: K^T, V and the first Q tile
-  cp_kt<HDP, BK>(kts, kh + k0, hd, s);
-  cp_rows<HDP, BK>(vs, vh + (size_t)k0 * hd, hd);
-  if (qstart < nq) stage_q(qstart);
-  cp_async_commit();
-
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  for (int qi = qstart; qi < nq; ++qi) {
-    cp_async_wait<0>();    // tile qi has landed ...
-    __syncthreads();       // ... for every thread, and tile qi - 1's
-                           // buffers are free
-    if (qi + 1 < nq) stage_q(qi + 1);
-    cp_async_commit();
-    const int buf = qi & 1;
-    const __nv_bfloat16* qb = qs + buf * BQ * LDH;
-    const __nv_bfloat16* ob = os + buf * BQ * LDH;
-    const float* lb = ls + buf * BQ;
-    const float* db = dls + buf * BQ;
-
-#pragma unroll 1
-    for (int q1 = 0; q1 < BQ; q1 += QW) {
-      const int q0 = qi * BQ;
-      // a sub-tile wholly above this warp's diagonal adds nothing (its
-      // dbias, when asked for, is written as the zeros it computes)
-      if (a.causal && !dbias_h && q0 + q1 + QW - 1 < k0 + kw) continue;
-      // S^T = K Q^T and dP^T = V dO^T over hd: 16 keys x QW queries
-      float st[QT][4], dpt[QT][4];
-#pragma unroll
-      for (int j = 0; j < QT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HDP; kk += 16) {
-        uint32_t ka[4], va[4];
-        ldsm_x4_trans(ka, kts + (kk + nk_row(lane)) * LDK + kw + nk_col(lane));
-        ldsm_x4(va, vs + (kw + a_row(lane)) * LDH + kk + a_col(lane));
-#pragma unroll
-        for (int p = 0; p < QT / 2; ++p) {
-          uint32_t qf[4], of[4];
-          const int off = (q1 + p * 16 + nk_row(lane)) * LDH + kk + nk_col(lane);
-          ldsm_x4(qf, qb + off);
-          ldsm_x4(of, ob + off);
-          mma_bf16(st[2 * p], ka, qf[0], qf[1]);
-          mma_bf16(st[2 * p + 1], ka, qf[2], qf[3]);
-          mma_bf16(dpt[2 * p], va, of[0], of[1]);
-          mma_bf16(dpt[2 * p + 1], va, of[2], of[3]);
-        }
-      }
-
-      // p~^T and dS^T: element (key row, query column), packed to bf16
-      // pairs as the A fragments of the accumulating products
-      uint32_t pf[QT][2], sf[QT][2];
-#pragma unroll
-      for (int j = 0; j < QT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int key = k0 + kw + g + h * 8;
-          float pd[2], ds[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qc = q1 + j * 8 + t4 * 2 + e;   // query in the tile
-            grad_mma(a, bias_h, hb, q0 + qc, key, st[j][2 * h + e],
-                     dpt[j][2 * h + e], lb[qc] * LOG2E, db[qc], pd[e], ds[e]);
-            if (dbias_h) dbias_h[(size_t)(q0 + qc) * s + key] = ds[e];
-          }
-          pf[j][h] = pack_bf16x2(pd[0], pd[1]);
-          sf[j][h] = pack_bf16x2(ds[0], ds[1]);
-        }
-
-      // dV += p~^T dO and dK += dS^T Q over the sub-tile's queries
-#pragma unroll
-      for (int kk = 0; kk < QW / 16; ++kk) {
-        const uint32_t pa[4] = {pf[2 * kk][0], pf[2 * kk][1],
-                                pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
-        const uint32_t sa[4] = {sf[2 * kk][0], sf[2 * kk][1],
-                                sf[2 * kk + 1][0], sf[2 * kk + 1][1]};
-#pragma unroll
-        for (int p = 0; p < DT / 2; ++p) {
-          uint32_t of[4], qf[4];
-          const int off = (q1 + kk * 16 + kn_row(lane)) * LDH + cw + p * 16 +
-                          kn_col(lane);
-          ldsm_x4_trans(of, ob + off);
-          ldsm_x4_trans(qf, qb + off);
-          mma_bf16(dv[2 * p], pa, of[0], of[1]);
-          mma_bf16(dv[2 * p + 1], pa, of[2], of[3]);
-          mma_bf16(dk[2 * p], sa, qf[0], qf[1]);
-          mma_bf16(dk[2 * p + 1], sa, qf[2], qf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // every warp is done with the Q ring: it becomes the
-                     // dK^T staging tile [HDP][LDK]
-
-  // dV rows straight out; dK^T scaled and rounded once into shared memory,
-  // then written along s in 16-byte units
-  __nv_bfloat16* dvh = static_cast<__nv_bfloat16*>(a.dv) + head;
-  __nv_bfloat16* dkh = static_cast<__nv_bfloat16*>(a.dkT) + head;
-  __nv_bfloat16* kst = qs;
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kl = kw + g + h * 8;
-      const int d = cw + j * 8 + t4 * 2;
-      if (d < hd)   // hd % 8 == 0: the pair is all in or all out
-        store_pair(dvh + (size_t)(k0 + kl) * hd + d, dv[j][2 * h],
-                   dv[j][2 * h + 1]);
-      kst[d * LDK + kl] = __float2bfloat16(dk[j][2 * h] * a.scale);
-      kst[(d + 1) * LDK + kl] = __float2bfloat16(dk[j][2 * h + 1] * a.scale);
-    }
-  __syncthreads();
-  constexpr int KU = BK / 8;
-  for (int i = tid; i < hd * KU; i += MB_THREADS) {
-    const int d = i / KU, c = (i - d * KU) * 8;
-    *reinterpret_cast<uint4*>(dkh + (size_t)d * s + k0 + c) =
-        *reinterpret_cast<const uint4*>(kst + d * LDK + c);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dQ on the tensor cores: one block per (b, Q tile); warp w owns query rows
-// q0 + 16 w .. +16
-// ---------------------------------------------------------------------------
-
-template <int HDP, int BK>
-__global__ void __launch_bounds__(MB_THREADS) flash_bwd_dq_mma_kernel(
-    const BwdArgs a) {
-  constexpr int LDH = HDP + 8, LDK = BK + 8;
-  constexpr int KT = BK / 8;           // n8 tiles of S (keys)
-  constexpr int DT = HDP / 8;          // n8 tiles of dQ
-  extern __shared__ __align__(16) unsigned char mb_smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mb_smem);  // [BQ][LDH]
-  __nv_bfloat16* os = qs + BQ * LDH;                               // [BQ][LDH]
-  __nv_bfloat16* kts = os + BQ * LDH;                              // [2][HDP][LDK]
-  __nv_bfloat16* vs = kts + 2 * HDP * LDK;                         // [2][BK][LDH]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int s = a.s, hd = a.hd;
-  const int nq = s / BQ;
-  // causal: the bottom tiles have the most K steps; start them first
-  const int qi = a.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int b = blockIdx.x;
-  const uint32_t hb = a.hm(b);    // the hash's batch-head
-  const int q0 = qi * BQ;
-  const int wrow = q0 + warp * 16;     // this warp's first row
-  const size_t head = (size_t)b * s * hd;
-  const __nv_bfloat16* kh = static_cast<const __nv_bfloat16*>(a.kT) + head;
-  const __nv_bfloat16* vh = static_cast<const __nv_bfloat16*>(a.v) + head;
-  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
-
-  auto stage_kv = [&](int t) {
-    const int k0 = t * BK, buf = t & 1;
-    cp_kt<HDP, BK>(kts + buf * HDP * LDK, kh + k0, hd, s);
-    cp_rows<HDP, BK>(vs + buf * BK * LDH, vh + (size_t)k0 * hd, hd);
-  };
-  // group 0: Q, dO and K/V tile 0
-  cp_rows<HDP, BQ>(qs, static_cast<const __nv_bfloat16*>(a.q) + head +
-                           (size_t)q0 * hd, hd);
-  cp_rows<HDP, BQ>(os, static_cast<const __nv_bfloat16*>(a.dout) + head +
-                           (size_t)q0 * hd, hd);
-  stage_kv(0);
-  cp_async_commit();
-
-  float lse2[2], del[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse2[h] = a.lse[(size_t)b * s + wrow + g + h * 8] * LOG2E;
-    del[h] = a.delta[(size_t)b * s + wrow + g + h * 8];
-  }
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  // a K tile is visited iff its first column is <= the tile's last row
-  const int ntiles = a.causal ? (q0 + BQ) / BK : s / BK;
-  for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<0>();    // tile t has landed ...
-    __syncthreads();       // ... for every thread, and tile t - 1's buffers
-                           // are free
-    if (t + 1 < ntiles) stage_kv(t + 1);
-    cp_async_commit();
-    const int k0 = t * BK;
-    if (a.causal && k0 > wrow + 15) continue;   // above this warp's diagonal
-    const __nv_bfloat16* kb = kts + (t & 1) * HDP * LDK;
-    const __nv_bfloat16* vb = vs + (t & 1) * BK * LDH;
-
-    // S = Q K^T and dP = dO V^T over hd: 16 rows x BK keys
-    float sc[KT][4], dp[KT][4];
-#pragma unroll
-    for (int j = 0; j < KT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HDP; kk += 16) {
-      uint32_t qa[4], oa[4];
-      const int aoff = (warp * 16 + a_row(lane)) * LDH + kk + a_col(lane);
-      ldsm_x4(qa, qs + aoff);
-      ldsm_x4(oa, os + aoff);
-#pragma unroll
-      for (int p = 0; p < KT / 2; ++p) {
-        uint32_t kf[4], vf[4];
-        ldsm_x4_trans(kf, kb + (kk + kn_row(lane)) * LDK + p * 16 +
-                              kn_col(lane));
-        ldsm_x4(vf, vb + (p * 16 + nk_row(lane)) * LDH + kk + nk_col(lane));
-        mma_bf16(sc[2 * p], qa, kf[0], kf[1]);
-        mma_bf16(sc[2 * p + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * p], oa, vf[0], vf[1]);
-        mma_bf16(dp[2 * p + 1], oa, vf[2], vf[3]);
-      }
-    }
-
-    // dS, packed to bf16 pairs as the A fragments of dQ += dS K
-    uint32_t sf[KT][2];
-#pragma unroll
-    for (int j = 0; j < KT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wrow + g + h * 8;
-        float pd[2], ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          grad_mma(a, bias_h, hb, row, k0 + j * 8 + t4 * 2 + e,
-                   sc[j][2 * h + e], dp[j][2 * h + e], lse2[h], del[h],
-                   pd[e], ds[e]);
-        sf[j][h] = pack_bf16x2(ds[0], ds[1]);
-      }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t sa[4] = {sf[2 * kk][0], sf[2 * kk][1],
-                              sf[2 * kk + 1][0], sf[2 * kk + 1][1]};
-#pragma unroll
-      for (int p = 0; p < DT / 2; ++p) {
-        uint32_t kf[4];
-        ldsm_x4(kf, kb + (p * 16 + nk_row(lane)) * LDK + kk * 16 +
-                        nk_col(lane));
-        mma_bf16(acc[2 * p], sa, kf[0], kf[1]);
-        mma_bf16(acc[2 * p + 1], sa, kf[2], kf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  __nv_bfloat16* dqh = static_cast<__nv_bfloat16*>(a.dq) + head;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = wrow + g + h * 8;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int d = j * 8 + t4 * 2;   // hd % 8 == 0: the pair is all in or
-      if (d < hd)                     // all out
-        store_pair(dqh + (size_t)row * hd + d, acc[j][2 * h] * a.scale,
-                   acc[j][2 * h + 1] * a.scale);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on wgmma (route "wgmma"), hd padded to HDP = 64 or 128; the plan,
@@ -1006,6 +564,442 @@ __global__ void __launch_bounds__(TF_THREADS, 1) flash_bwd_dq_wgmma_kernel(
                    dq[4 * j + 2 * h] * a.scale,
                    dq[4 * j + 2 * h + 1] * a.scale);
     }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on wgmma past hd 128 (route "wgmma"), hd padded to HDP = 192 or
+// 256; the plan and budgets are xsmm_flash_wgmma.cuh's (fw_dkv_wide_smem,
+// fw_dq_wide_smem). At HDP 256 the hd <= 128 plan's accumulators (dK and dV,
+// or dQ, 64 x HDP f32 a warpgroup) would take 256 registers a consumer
+// thread, and its tiles more than 227 KB, so:
+//   dK/dV: a block owns 64 keys; K^T and V land once (64 KB at HDP 256).
+//   Both warpgroups form S^T and dP^T for the 64 keys against each 64-row
+//   Q tile (a third of the block's products repeat, which keeps the two
+//   accumulators within the register file), and warpgroup wg accumulates
+//   dV and dK over hd's columns 128 wg .. + 128 (at HDP 192 the last 64
+//   are zeros, never stored). A consumer thread holds S^T and dP^T (32
+//   each), dV and dK (64 each) and the 32 bf16 A fragments: the hd <= 128
+//   kernel's count.
+//   dQ: a block owns 128 query rows, 64 a warpgroup, with Q and dO landed
+//   once (128 KB at HDP 256); the ring streams 64-key K^T and V tiles as
+//   separate units, V before K^T: V's unit goes back to the producer as
+//   soon as dP is formed, K^T's after dQ += dS K, so the next tile's units
+//   land while this tile's dQ products run. A consumer thread holds dQ (two
+//   accumulators of 128 and HDP - 128 columns: 128 registers at HDP 256),
+//   S and dP (32 each) and dS's 16 A fragments.
+// ---------------------------------------------------------------------------
+
+// dK^T, dV (+ dbias) past hd 128: one block per (b, 64 keys k0 .. + 64);
+// warpgroup wg owns the dV and dK columns c0 = 128 wg .. + 128. Per Q tile
+// both groups form S^T = K Q^T (A: the K^T tile, MN-major; B: the Q tile,
+// K-major) and dP^T = V dO^T over hd, turn them into p~^T and dS^T in
+// registers, and accumulate dV += p~^T dO and dK += dS^T Q over their
+// columns (dO and Q MN-major, from the box of column c0), in two halves of
+// 32 queries. The ring's Q and dO tiles are 256 columns wide at either
+// bucket: at HDP 192 their fourth box lies past hd, so TMA fills it with
+// zeros (no bytes read) and the second group's last 64 columns accumulate
+// zeros, never stored. Each group writes dbias for its half of the queries
+// (both form the same dS).
+template <int HDP, bool BIAS, bool DROP>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+    flash_bwd_dkv_wgmma_wide_kernel(
+        const __grid_constant__ CUtensorMap kmap,   // kT: 64 keys x HDP rows
+        const __grid_constant__ CUtensorMap vmap,   // v: 64 x 64 boxes
+        const __grid_constant__ CUtensorMap qmap,   // q: 64 x 64 boxes
+        const __grid_constant__ CUtensorMap omap,   // dout: 64 x 64 boxes
+        const __grid_constant__ CUtensorMap lmap,   // lse (bh, s): 64 rows
+        const __grid_constant__ CUtensorMap dmap,   // delta (bh, s): 64 rows
+        const BwdArgs a) {
+  constexpr int NC = HDP / 64;          // 64-column boxes of hd
+  constexpr int KT = HDP * 128;         // K^T: HDP rows x 64 keys
+  constexpr int TILE = 4 * FW_BOX;      // 64 rows x 256 of Q or dO
+  constexpr int STAGE = 2 * TILE;       // a stage: Q and dO
+  constexpr int ST = FW_DKV_WIDE_STAGES;
+  extern __shared__ __align__(16) unsigned char fw_raw[];
+  // the swizzle is a function of the shared address: 1024-byte aligned
+  unsigned char* base =
+      fw_raw + ((TF_ALIGN - (wg_smem(fw_raw) & (TF_ALIGN - 1))) &
+                (TF_ALIGN - 1));
+  unsigned char* kt = base;                 // [HDP][64 keys]
+  unsigned char* vs = kt + KT;              // [NC][64 keys][64]
+  unsigned char* ring = vs + NC * FW_BOX;   // [ST] {Q, dO}: [4][64][64]
+  float* ls = reinterpret_cast<float*>(ring + ST * STAGE);   // [ST][64]
+  float* dls = ls + ST * FW_BQ;                              // [ST][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(dls + ST * FW_BQ);
+  uint64_t* empty = full + ST;
+  uint64_t* kvbar = empty + ST;
+
+  const int tid = threadIdx.x;
+  const int s = a.s, hd = a.hd;
+  const int b = blockIdx.x;
+  const int k0 = blockIdx.y * FW_WIDE_BKV;   // causal: the first have most
+  const int nq = s / FW_BQ;
+  // Q tiles entirely above this K tile's diagonal contribute nothing; their
+  // dbias blocks are zero (attention_pallas.py:425-432)
+  const int qstart = a.causal ? k0 / FW_BQ : 0;
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TF_CONSUMERS / 32);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= TF_CONSUMERS) {   // the producer: one thread starts TMA
+    tf_producer_regs();
+    if (tid == TF_CONSUMERS) {
+      mbar_arrive_expect_tx(kvbar, KT + NC * FW_BOX);
+      tma_load_3d(kt, &kmap, kvbar, k0, 0, b);
+      for (int c = 0; c < NC; ++c)
+        tma_load_3d(vs + c * FW_BOX, &vmap, kvbar, 64 * c, k0, b);
+      for (int qi = qstart, it = 0; qi < nq; ++qi, ++it) {
+        const int st = it % ST;
+        if (it >= ST) mbar_wait(&empty[st], ((it / ST) - 1) & 1);
+        unsigned char* dst = ring + st * STAGE;
+        const int q0 = qi * FW_BQ;
+        mbar_arrive_expect_tx(&full[st], STAGE + 2 * FW_BQ * 4);
+        for (int c = 0; c < 4; ++c) {
+          tma_load_3d(dst + c * FW_BOX, &qmap, &full[st], 64 * c, q0, b);
+          tma_load_3d(dst + TILE + c * FW_BOX, &omap, &full[st], 64 * c, q0,
+                      b);
+        }
+        tma_load_2d(ls + st * FW_BQ, &lmap, &full[st], q0, b);
+        tma_load_2d(dls + st * FW_BQ, &dmap, &full[st], q0, b);
+      }
+    }
+    return;
+  }
+
+  tf_consumer_regs();
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = 128 * wg;              // this group's columns of hd
+  const int cb = 2 * wg * FW_BOX;       // and their box in a tile
+  const int keyl = 16 * warp + g;       // fragment rows keyl, keyl + 8
+  const uint32_t hb = a.hm(b);          // the hash's batch-head
+  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
+  float* dbias_h = a.dbias ? a.dbias + (size_t)b * s * s : nullptr;
+
+  if (BIAS && dbias_h) {   // the skipped Q tiles' dbias, over both groups
+    for (int i = tid; i < qstart * FW_BQ * 16; i += TF_CONSUMERS) {
+      const int r = i >> 4, c = (i & 15) * 4;
+      st4s(dbias_h + (size_t)r * s + k0 + c, 0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  float dv[64], dk[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dv[i] = dk[i] = 0.f;
+  mbar_wait(kvbar, 0);
+
+  for (int qi = qstart, it = 0; qi < nq; ++qi, ++it) {
+    const int st = it % ST;
+    mbar_wait(&full[st], (it / ST) & 1);
+    const unsigned char* qt = ring + st * STAGE;
+    const unsigned char* ot = qt + TILE;
+    // S^T = K Q^T and dP^T = V dO^T over hd: 64 keys x 64 queries
+    float sT[32], dpT[32];
+    wgmma_fence_operands(sT);
+    wgmma_fence_operands(dpT);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < HDP / 16; ++j) {
+      const int kb = (j >> 2) * FW_BOX + 32 * (j & 3);
+      Wg<64>::ss<1, 0>(sT, fw_mnmajor(kt + 2048 * j, FW_BOX),
+                       fw_kmajor(qt + kb), j > 0);
+      Wg<64>::ss<0, 0>(dpT, fw_kmajor(vs + kb), fw_kmajor(ot + kb), j > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(sT);
+    wgmma_fence_operands(dpT);
+
+    // p~^T and dS^T: element (key row, query column), packed to bf16 pairs
+    // as the A fragments of the accumulating products
+    const int q0 = qi * FW_BQ;
+    const bool mask = a.causal && k0 + 63 > q0;   // crosses the diagonal
+    const float* lrow = ls + st * FW_BQ;
+    const float* drow = dls + st * FW_BQ;
+    uint32_t pa[4][4], sa[4][4];
+    wgmma_fence_operands(dv);
+    wgmma_fence_operands(dk);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int j = 4 * half; j < 4 * half + 4; ++j) {
+        const int qc = 8 * j + 2 * t4;    // query columns qc, qc + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(lrow + qc);
+        const float2 dl = *reinterpret_cast<const float2*>(drow + qc);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = k0 + keyl + 8 * h;
+          float pd[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            fw_grad<BIAS, DROP>(
+                a, BIAS ? bias_h + (size_t)(q0 + qc + e) * s : nullptr, hb,
+                q0 + qc + e, key, mask, sT[4 * j + 2 * h + e],
+                dpT[4 * j + 2 * h + e], (e ? l2.y : l2.x) * LOG2E,
+                e ? dl.y : dl.x, pd[e], ds[e]);
+            if (BIAS && dbias_h && half == wg)
+              dbias_h[(size_t)(q0 + qc + e) * s + key] = ds[e];
+          }
+          pa[j >> 1][2 * (j & 1) + h] = pack_bf16x2(pd[0], pd[1]);
+          sa[j >> 1][2 * (j & 1) + h] = pack_bf16x2(ds[0], ds[1]);
+        }
+      }
+
+      // dV += p~^T dO and dK += dS^T Q over the half's 32 queries
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
+        Wg<128>::rs<1>(dv, pa[kk], fw_mnmajor(ot + cb + 2048 * kk, FW_BOX),
+                       1);
+        Wg<128>::rs<1>(dk, sa[kk], fw_mnmajor(qt + cb + 2048 * kk, FW_BOX),
+                       1);
+      }
+      wgmma_commit();
+      fw_hold<16, 32>(sT);
+      fw_hold<16, 32>(dpT);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operands(dv);
+    wgmma_fence_operands(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // dV rows straight out, cast once
+  __nv_bfloat16* dvh = static_cast<__nv_bfloat16*>(a.dv) + (size_t)b * s * hd;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = c0 + 8 * j + 2 * t4;
+      if (d < hd)   // hd % 8 == 0: the pair is all in or all out
+        store_pair(dvh + (size_t)(k0 + keyl + 8 * h) * hd + d,
+                   dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+    }
+  // dK^T scaled and rounded once into the K^T tile's rows c0 .. (plain
+  // [d][64], rows under hd), once both groups are done reading it, then
+  // written along s in 16-byte units
+  tf_sync();
+  __nv_bfloat16* kst = reinterpret_cast<__nv_bfloat16*>(kt);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = c0 + 8 * j + 2 * t4 + e;
+      if (d < hd)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          kst[d * 64 + keyl + 8 * h] =
+              __float2bfloat16(dk[4 * j + 2 * h + e] * a.scale);
+    }
+  fw_wg_sync(wg);
+  __nv_bfloat16* dkh = static_cast<__nv_bfloat16*>(a.dkT) + (size_t)b * hd * s;
+  for (int i = t; i < 128 * 8; i += 128) {
+    const int d = c0 + (i >> 3), u = (i & 7) * 8;
+    if (d < hd)
+      *reinterpret_cast<uint4*>(dkh + (size_t)d * s + k0 + u) =
+          *reinterpret_cast<const uint4*>(kst + d * 64 + u);
+  }
+}
+
+// dQ past hd 128: one block per (b, 128 query rows); warpgroup wg owns rows
+// q0 + 64 wg .. + 64 and their dQ (columns 0-127 in dq0, 128 .. HDP in dq1).
+// Per 64-key tile it forms S = Q K^T (A: its Q rows, K-major; B: the K^T
+// unit, MN-major) and dP = dO V^T (B: the V unit, K-major), hands V's unit
+// back, turns S and dP into dS in registers, and accumulates dQ += dS K
+// with dS as register A fragments and the K^T unit as K-major B (its rows
+// are hd, its 128-byte rows keys), in two halves of 32 keys.
+template <int HDP, bool BIAS, bool DROP>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+    flash_bwd_dq_wgmma_wide_kernel(
+        const __grid_constant__ CUtensorMap qmap,   // q: 64 x 64 boxes
+        const __grid_constant__ CUtensorMap omap,   // dout: 64 x 64 boxes
+        const __grid_constant__ CUtensorMap kmap,   // kT: 64 keys x HDP rows
+        const __grid_constant__ CUtensorMap vmap,   // v: 64 x 64 boxes
+        const BwdArgs a) {
+  constexpr int NC = HDP / 64;
+  constexpr int TILE = NC * FW_BOX;   // 64 rows x HDP of Q or dO; a unit:
+                                      // K^T (HDP rows x 64 keys) or V
+  constexpr int ST = fw_dq_wide_units(HDP);
+  constexpr int N1 = HDP - 128;       // dq1's columns
+  extern __shared__ __align__(16) unsigned char fw_raw[];
+  unsigned char* base =
+      fw_raw + ((TF_ALIGN - (wg_smem(fw_raw) & (TF_ALIGN - 1))) &
+                (TF_ALIGN - 1));
+  unsigned char* qs = base;               // [2][NC][64 rows][64]
+  unsigned char* os = qs + 2 * TILE;      // [2][NC][64 rows][64]
+  unsigned char* ring = os + 2 * TILE;    // [ST] units
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * TILE);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+
+  const int tid = threadIdx.x;
+  const int s = a.s, hd = a.hd;
+  const int nq = s / FW_DQ_BQ;
+  // causal: the bottom tiles have the most K steps; start them first
+  const int qi = a.causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int b = blockIdx.x;
+  const int q0 = qi * FW_DQ_BQ;
+  // a K tile is visited iff its first column is <= the block's last row
+  const int ntiles = a.causal ? (q0 + FW_DQ_BQ) / FW_WIDE_BK
+                              : s / FW_WIDE_BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], TF_CONSUMERS / 32);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= TF_CONSUMERS) {   // the producer
+    tf_producer_regs();
+    if (tid == TF_CONSUMERS) {
+      mbar_arrive_expect_tx(qbar, 4 * TILE);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < NC; ++c) {
+          tma_load_3d(qs + (w * NC + c) * FW_BOX, &qmap, qbar, 64 * c,
+                      q0 + 64 * w, b);
+          tma_load_3d(os + (w * NC + c) * FW_BOX, &omap, qbar, 64 * c,
+                      q0 + 64 * w, b);
+        }
+      // unit 2 t: V of K tile t; unit 2 t + 1: its K^T
+      for (int u = 0; u < 2 * ntiles; ++u) {
+        const int st = u % ST;
+        if (u >= ST) mbar_wait(&empty[st], ((u / ST) - 1) & 1);
+        unsigned char* d = ring + st * TILE;
+        const int k0 = (u >> 1) * FW_WIDE_BK;
+        mbar_arrive_expect_tx(&full[st], TILE);
+        if (u & 1) {
+          tma_load_3d(d, &kmap, &full[st], k0, 0, b);
+        } else {
+          for (int c = 0; c < NC; ++c)
+            tma_load_3d(d + c * FW_BOX, &vmap, &full[st], 64 * c, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  tf_consumer_regs();
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + 64 * wg + 16 * warp + g;   // fragment rows r0, r0 + 8
+  const uint32_t hb = a.hm(b);                   // the hash's batch-head
+  const float* bias_h = a.bias ? a.bias + (size_t)b * a.bias_stride : nullptr;
+  float lse2[2], del[2];
+  const float* brow[2];   // the bias rows of rows r0 and r0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse2[h] = a.lse[(size_t)b * s + r0 + 8 * h] * LOG2E;
+    del[h] = a.delta[(size_t)b * s + r0 + 8 * h];
+    brow[h] = BIAS ? bias_h + (size_t)(r0 + 8 * h) * s : nullptr;
+  }
+  float dq0[64], dq1[N1 / 2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N1 / 2; ++i) dq1[i] = 0.f;
+  const unsigned char* qw = qs + wg * TILE;
+  const unsigned char* ow = os + wg * TILE;
+  mbar_wait(qbar, 0);
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int sv = (2 * kt) % ST, sk = (2 * kt + 1) % ST;
+    mbar_wait(&full[sv], ((2 * kt) / ST) & 1);
+    mbar_wait(&full[sk], ((2 * kt + 1) / ST) & 1);
+    const unsigned char* vst = ring + sv * TILE;
+    const unsigned char* kst = ring + sk * TILE;
+    // S = Q K^T and dP = dO V^T over hd: 64 rows x 64 keys
+    float sc[32], dp[32];
+    wgmma_fence_operands(sc);
+    wgmma_fence_operands(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < HDP / 16; ++j) {
+      const int ab = (j >> 2) * FW_BOX + 32 * (j & 3);
+      Wg<64>::ss<0, 1>(sc, fw_kmajor(qw + ab),
+                       fw_mnmajor(kst + 2048 * j, FW_BOX), j > 0);
+      Wg<64>::ss<0, 0>(dp, fw_kmajor(ow + ab), fw_kmajor(vst + ab), j > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(sc);
+    wgmma_fence_operands(dp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[sv]);   // V's unit is free
+
+    // dS, packed to bf16 pairs as the A fragments of dQ += dS K
+    const int k0 = kt * FW_WIDE_BK;
+    // the tile crosses this group's diagonal
+    const bool mask = a.causal && k0 + FW_WIDE_BK - 1 > q0 + 64 * wg;
+    uint32_t sa[4][4];
+    wgmma_fence_operands(dq0);
+    wgmma_fence_operands(dq1);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int j = 4 * half; j < 4 * half + 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float pd[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            fw_grad<BIAS, DROP>(a, brow[h], hb, r0 + 8 * h,
+                                k0 + 8 * j + 2 * t4 + e, mask,
+                                sc[4 * j + 2 * h + e], dp[4 * j + 2 * h + e],
+                                lse2[h], del[h], pd[e], ds[e]);
+          sa[j >> 1][2 * (j & 1) + h] = pack_bf16x2(ds[0], ds[1]);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 2 * half; kk < 2 * half + 2; ++kk) {
+        Wg<128>::rs<0>(dq0, sa[kk], fw_kmajor(kst + 32 * kk), 1);
+        Wg<N1>::template rs<0>(dq1, sa[kk],
+                               fw_kmajor(kst + 128 * 128 + 32 * kk), 1);
+      }
+      wgmma_commit();
+      fw_hold<16, 32>(sc);
+      fw_hold<16, 32>(dp);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operands(dq0);
+    wgmma_fence_operands(dq1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[sk]);   // K^T's unit is free
+  }
+
+  __nv_bfloat16* dqh = static_cast<__nv_bfloat16*>(a.dq) + (size_t)b * s * hd;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    __nv_bfloat16* row = dqh + (size_t)(r0 + 8 * h) * hd;
+    // hd % 8 == 0: a pair is all in or all out
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int d = 8 * j + 2 * t4;
+      if (d < hd)
+        store_pair(row + d, dq0[4 * j + 2 * h] * a.scale,
+                   dq0[4 * j + 2 * h + 1] * a.scale);
+    }
+#pragma unroll
+    for (int j = 0; j < N1 / 8; ++j) {
+      const int d = 128 + 8 * j + 2 * t4;
+      if (d < hd)
+        store_pair(row + d, dq1[4 * j + 2 * h] * a.scale,
+                   dq1[4 * j + 2 * h + 1] * a.scale);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1683,6 +1677,21 @@ struct FwMaps {
   }
 };
 
+// a kernel of the wgmma route with its maps, on TF_THREADS threads
+template <typename K, typename... Maps>
+static int launch_fw(K kern, int smem, dim3 grid, cudaStream_t st,
+                     const BwdArgs& a, const Maps&... maps) {
+  // above 48 KB only as dynamic shared memory, after the opt-in
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  note_launch(kern);
+  kern<<<grid, TF_THREADS, smem, st>>>(maps..., a);
+  return cudaGetLastError();
+}
+
+// dK/dV: the 128-key plan up to a padded hd of 128, the wide (64-key) plan
+// past it
 template <int HDP, bool BIAS, bool DROP>
 static int launch_dkv_wgmma(int bh, const BwdArgs& a, cudaStream_t st) {
   FwMaps f(bh, a.s, a.hd);
@@ -1692,40 +1701,43 @@ static int launch_dkv_wgmma(int bh, const BwdArgs& a, cudaStream_t st) {
       !f.rowmap(&qm, a.q, 64) || !f.rowmap(&om, a.dout, 64) ||
       !m.statmap(&lm, a.lse, FW_BQ) || !m.statmap(&dm, a.delta, FW_BQ))
     return cudaErrorInvalidValue;
-  constexpr int smem = fw_dkv_smem(HDP);
-  auto kern = flash_bwd_dkv_wgmma_kernel<HDP, BIAS, DROP>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  note_launch(kern);
-  kern<<<dim3(bh, a.s / FW_BKV), TF_THREADS, smem, st>>>(km, vm, qm, om, lm,
-                                                         dm, a);
-  return cudaGetLastError();
+  if constexpr (HDP > FW_HDP_MAX)
+    return launch_fw(flash_bwd_dkv_wgmma_wide_kernel<HDP, BIAS, DROP>,
+                     fw_dkv_wide_smem(HDP), dim3(bh, a.s / FW_WIDE_BKV), st,
+                     a, km, vm, qm, om, lm, dm);
+  else
+    return launch_fw(flash_bwd_dkv_wgmma_kernel<HDP, BIAS, DROP>,
+                     fw_dkv_smem(HDP), dim3(bh, a.s / FW_BKV), st, a, km, vm,
+                     qm, om, lm, dm);
 }
 
+// dQ: 128-key tiles up to a padded hd of 128, 64-key units past it
 template <int HDP, bool BIAS, bool DROP>
 static int launch_dq_wgmma(int bh, const BwdArgs& a, cudaStream_t st) {
+  constexpr bool wide = HDP > FW_HDP_MAX;
   FwMaps f(bh, a.s, a.hd);
   CUtensorMap qm, om, km, vm;
   if (!f.rowmap(&qm, a.q, 64) || !f.rowmap(&om, a.dout, 64) ||
-      !f.colmap(&km, a.kT, HDP) || !f.rowmap(&vm, a.v, FW_DQ_BK))
+      !f.colmap(&km, a.kT, HDP) ||
+      !f.rowmap(&vm, a.v, wide ? FW_WIDE_BK : FW_DQ_BK))
     return cudaErrorInvalidValue;
-  constexpr int smem = fw_dq_smem(HDP);
-  auto kern = flash_bwd_dq_wgmma_kernel<HDP, BIAS, DROP>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  note_launch(kern);
-  kern<<<dim3(bh, a.s / FW_DQ_BQ), TF_THREADS, smem, st>>>(qm, om, km, vm, a);
-  return cudaGetLastError();
+  if constexpr (wide)
+    return launch_fw(flash_bwd_dq_wgmma_wide_kernel<HDP, BIAS, DROP>,
+                     fw_dq_wide_smem(HDP), dim3(bh, a.s / FW_DQ_BQ), st, a,
+                     qm, om, km, vm);
+  else
+    return launch_fw(flash_bwd_dq_wgmma_kernel<HDP, BIAS, DROP>,
+                     fw_dq_smem(HDP), dim3(bh, a.s / FW_DQ_BQ), st, a, qm,
+                     om, km, vm);
 }
 
-// bf16 at hd <= FW_HDP_MAX (128): the wgmma kernels, hd padded to 64 or 128
-// (kernels/attention.py flash_bwd_path names the route)
+// bf16 at every hd the entries take (<= 256): the wgmma kernels, hd padded
+// to 64, 128, 192 or 256 (kernels/attention.py flash_bwd_path names the
+// route, bwd_configs the tile)
 static int run_wgmma(int which, const BwdArgs& a, int bh, void* stream) {
   const int s = a.s, hd = a.hd;
-  if (s <= 0 || s % FW_BKV || s / FW_BKV > 65535 || hd <= 0 || hd % 8 ||
-      hd > FW_HDP_MAX || bh <= 0 || (a.dbias && !a.bias) ||
+  if (s <= 0 || s % FW_BKV || s / FW_WIDE_BKV > 65535 || hd <= 0 ||
+      hd % 8 || hd > FW_FWD_HDP_MAX || bh <= 0 || (a.dbias && !a.bias) ||
       (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.kT) |
        reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout) |
        reinterpret_cast<uintptr_t>(a.lse) |
@@ -1733,74 +1745,34 @@ static int run_wgmma(int which, const BwdArgs& a, int bh, void* stream) {
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the instantiation: hd's bucket, a bias (or dbias), dropout
-  const int k = (hd > 64) * 4 + (a.bias != nullptr) * 2 + (a.dropout != 0);
+  const int bucket = hd <= 64 ? 0 : hd <= 128 ? 1 : hd <= 192 ? 2 : 3;
+  const int k = bucket * 4 + (a.bias != nullptr) * 2 + (a.dropout != 0);
   using Launch = int (*)(int, const BwdArgs&, cudaStream_t);
+#define XSMM_FW_BUCKET(L, HDP)                                   \
+  L<HDP, false, false>, L<HDP, false, true>, L<HDP, true, false>, \
+      L<HDP, true, true>
   if (which == 0) {
-    constexpr Launch dkv[8] = {
-        launch_dkv_wgmma<64, false, false>, launch_dkv_wgmma<64, false, true>,
-        launch_dkv_wgmma<64, true, false>, launch_dkv_wgmma<64, true, true>,
-        launch_dkv_wgmma<128, false, false>,
-        launch_dkv_wgmma<128, false, true>,
-        launch_dkv_wgmma<128, true, false>, launch_dkv_wgmma<128, true, true>};
+    constexpr Launch dkv[16] = {XSMM_FW_BUCKET(launch_dkv_wgmma, 64),
+                                XSMM_FW_BUCKET(launch_dkv_wgmma, 128),
+                                XSMM_FW_BUCKET(launch_dkv_wgmma, 192),
+                                XSMM_FW_BUCKET(launch_dkv_wgmma, 256)};
     return dkv[k](bh, a, st);
   }
-  constexpr Launch dq[8] = {
-      launch_dq_wgmma<64, false, false>, launch_dq_wgmma<64, false, true>,
-      launch_dq_wgmma<64, true, false>, launch_dq_wgmma<64, true, true>,
-      launch_dq_wgmma<128, false, false>, launch_dq_wgmma<128, false, true>,
-      launch_dq_wgmma<128, true, false>, launch_dq_wgmma<128, true, true>};
+  constexpr Launch dq[16] = {XSMM_FW_BUCKET(launch_dq_wgmma, 64),
+                             XSMM_FW_BUCKET(launch_dq_wgmma, 128),
+                             XSMM_FW_BUCKET(launch_dq_wgmma, 192),
+                             XSMM_FW_BUCKET(launch_dq_wgmma, 256)};
+#undef XSMM_FW_BUCKET
   return dq[k](bh, a, st);
 }
 
-// ---------------------------------------------------------------------------
-// launches
-// ---------------------------------------------------------------------------
-
-template <typename K>
-static int launch(K kern, size_t smem, dim3 grid, int threads,
-                  const BwdArgs& a, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    // above 48 KB only as dynamic shared memory, after the opt-in; set on
-    // every launch, since the attribute is held per device
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  note_launch(kern);
-  kern<<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int HDP, int BK>
-static int launch_mma_pair(int which, int bh, const BwdArgs& a,
-                           cudaStream_t st) {
-  if (which == 0)
-    return launch(flash_bwd_dkv_mma_kernel<HDP, BK>, dkv_mma_smem(HDP, BK),
-                  dim3(bh, a.s / BK), MB_THREADS, a, st);
-  return launch(flash_bwd_dq_mma_kernel<HDP, BK>, dq_mma_smem(HDP, BK),
-                dim3(bh, a.s / BQ), MB_THREADS, a, st);
-}
-
-// bf16 past hd 128: 32-column K tiles, hd padded to 192 or 256
-// (kernels/attention.py _MMA_HDP), the dK/dV kernel splitting each key
-// group's columns over two warps
-static int launch_mma_hd(int which, int hd, int bh, const BwdArgs& a,
-                         cudaStream_t st) {
-  if (hd <= 192) return launch_mma_pair<192, 32>(which, bh, a, st);
-  return launch_mma_pair<256, 32>(which, bh, a, st);
-}
-
-// the type and hd pick the kernels (kernels/attention.py flash_bwd_path):
-// f32 the TMA-fed FMA ones (one tile per hd bucket), bf16 the wgmma ones up
-// to hd 128 and the mma.sync ones past it
+// the type picks the kernels (kernels/attention.py flash_bwd_path): f32 the
+// TMA-fed FMA ones (one tile per hd bucket), bf16 the wgmma ones (one plan
+// up to a padded hd of 128, the wide one past it)
 static int run(int which, BwdArgs& a, int bh, int type, void* stream) {
   if (type == T_F32) return run_tma_fma(which, a, bh, stream);
   if (type != T_BF16) return cudaErrorInvalidValue;
-  if (a.hd <= FW_HDP_MAX) return run_wgmma(which, a, bh, stream);
-  const int s = a.s, hd = a.hd;
-  if (s <= 0 || s % BQ || s / 32 > 65535 || hd % 8 || hd > 256 || bh <= 0)
-    return cudaErrorInvalidValue;
-  return launch_mma_hd(which, hd, bh, a, static_cast<cudaStream_t>(stream));
+  return run_wgmma(which, a, bh, stream);
 }
 
 extern "C" {
@@ -1812,12 +1784,11 @@ const char* xsmm_error_string(int err) {
 // q, v, dout: (bh, s, hd); kT: (bh, hd, s); lse, delta: f32 (bh, s); bias:
 // f32 (s, s) per head at bias + b * bias_stride, or null; dkT: (bh, hd, s);
 // dv: (bh, s, hd); dbias: f32 (bh, s, s) or null; q, kT, v, dout, lse and
-// delta 16-byte aligned. hd % 8 == 0, hd <= 256. bf16 runs the wgmma
-// kernels up to hd 128 (s % 128 == 0) and the mma.sync ones past it
-// (s % 64 == 0), f32 the TMA-fed FMA ones (s % 128 == 0). (b0, h0, nhl,
-// nhg): the dropout hash's head map (HeadMap, xsmm_common.cuh); 0, 0, 1, 1
-// hashes the local batch-head. A refused map or launch returns its error;
-// the wrapper raises.
+// delta 16-byte aligned. hd % 8 == 0, hd <= 256, s % 128 == 0. bf16 runs
+// the wgmma kernels (the wide ones past hd 128), f32 the TMA-fed FMA ones.
+// (b0, h0, nhl, nhg): the dropout hash's head map (HeadMap,
+// xsmm_common.cuh); 0, 0, 1, 1 hashes the local batch-head. A refused map or
+// launch returns its error; the wrapper raises.
 int xsmm_flash_bwd_dkv(const void* q, const void* kT, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const float* bias, long long bias_stride, void* dkT,

@@ -21,19 +21,18 @@
 // owns each output tile and writes it once: no atomics, so results repeat
 // bit for bit from run to run.
 //
-// Four kernels serve the scheduled and supertile strategies, and three the
+// Four kernels serve the scheduled and supertile strategies, and four the
 // union strategies; spmm_entry and union_entry take the one spmm_route
 // names (kernels/spmm.py spmm_path mirrors the rule):
-// - bcsc_spmm_wgmma_kernel, route "wgmma", for the scheduled and supertile
-//   strategies on bf16 operands wherever bk % 32 == 0 and bn % 32 == 0
-//   (32 x 32, 64 x 128, the 128 x 128 supertiles): TMA-fed swizzled tiles,
-//   products by wgmma (see its section below);
+// - bcsc_spmm_wgmma_kernel and bcsc_union_wgmma_kernel, route "wgmma", for
+//   bf16 operands wherever bk % 32 == 0 and bn % 32 == 0 (32 x 32, 64 x
+//   128, 128 x 128 and the supertiles): TMA-fed swizzled tiles, products
+//   by wgmma (see their sections below);
 // - bcsc_spmm_mma_kernel and bcsc_union_mma_kernel, route "mma", for bf16
-//   operands wherever bk % 16 == 0 and bn % 8 == 0 and the wgmma kernel
-//   does not serve (the scheduled kernel: 16 x 64, 48 x 24, 16 x 8; the
-//   union: every such blocking, 32 x 32 included): bf16 tiles staged
-//   unwidened by cp.async in a 3-slice ring, products on the tensor cores
-//   (mma.sync m16n8k16, f32 accumulator in registers);
+//   operands wherever bk % 16 == 0 and bn % 8 == 0 and the wgmma kernels
+//   do not serve (16 x 64, 48 x 24, 16 x 8, 48 x 32, 32 x 16): bf16 tiles
+//   staged unwidened by cp.async in a 3-slice ring, products on the tensor
+//   cores (mma.sync m16n8k16, f32 accumulator in registers);
 // - bcsc_spmm_tma_fma_kernel and bcsc_union_tma_fma_kernel, route
 //   "tma_fma", for f32 operands wherever bk % 4 == 0 and bn % 4 == 0 (the
 //   union: also bn >= 32): f32 tiles fed by TMA into the CUDA cores' FMAs
@@ -903,8 +902,8 @@ __global__ void __launch_bounds__(SF_THREADS, 1) bcsc_union_tma_fma_kernel(
 // The scheduled and supertile SpMMs in bf16 on wgmma with TMA-fed tiles
 // (route "wgmma", kernels/spmm.py spmm_path: bf16 operands whose blocks are
 // whole 32-deep and 32-wide pieces, bk % 32 == 0 and bn % 32 == 0:
-// stream20's 32 x 32, 64 x 128, the 128 x 128 supertiles; the k-union keeps
-// its mma.sync kernel). It computes what bcsc_spmm_mma_kernel computes: each
+// stream20's 32 x 32, 64 x 128, the 128 x 128 supertiles; the k-union has
+// its own kernel below). It computes what bcsc_spmm_mma_kernel computes: each
 // step's product summed in schedule order in f32 registers, rounded once on
 // the store, one writer per output tile, no atomics.
 //
@@ -942,11 +941,11 @@ constexpr int SW_THREADS = SW_CONSUMERS + 32;   // + the producer warp
 constexpr int SW_TM = 128;                      // output rows a block
 
 // the tile of TN columns and KC-deep slices: A's slice, the value slice as
-// NB boxes of BOX_N columns, the ring
-template <int TN, int KC>
+// NB boxes of BOX_N columns (at most 64: a 128-byte swizzled row), the ring
+template <int TN, int KC, int BOX = (TN < 64 ? TN : 64)>
 struct SwTile {
   static constexpr int A_BYTES = SW_TM * KC * 2;
-  static constexpr int BOX_N = TN < 64 ? TN : 64;
+  static constexpr int BOX_N = BOX;
   static constexpr int NB = TN / BOX_N;
   static constexpr int V_BOX = KC * BOX_N * 2;
   static constexpr int STAGE = A_BYTES + NB * V_BOX;
@@ -965,11 +964,48 @@ __device__ __forceinline__ uint64_t sw_adesc(const unsigned char* as, int j) {
                   : wgmma_desc_sw64(as + 32 * j, 16, 512);
 }
 
-template <int TN, int KC>
+template <int TN, int KC, int BOX = (TN < 64 ? TN : 64)>
 __device__ __forceinline__ uint64_t sw_vdesc(const unsigned char* vs, int j) {
-  using T = SwTile<TN, KC>;
+  using T = SwTile<TN, KC, BOX>;
   return T::BOX_N == 64 ? wgmma_desc_sw128(vs + 2048 * j, T::V_BOX, 1024)
                         : wgmma_desc_sw64(vs + 1024 * j, T::V_BOX, 512);
+}
+
+// the consumer warpgroups' loop of the wgmma SpMM kernels over `total`
+// slices of the ring T: warpgroup wg's 64 x TN tile in acc (zeroed here),
+// each slice's products issued while the last slice's run, whose stage
+// then goes back to the producer
+template <typename T, int TN, int KC>
+__device__ __forceinline__ void sw_consume(float (&acc)[TN / 2],
+                                           const unsigned char* ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           int total, int wg, int lane) {
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < total; ++it) {
+    const int st = it % T::STAGES;
+    mbar_wait(&full[st], (it / T::STAGES) & 1);
+    const unsigned char* sp = ring + st * T::STAGE;
+    const unsigned char* as = sp + wg * (T::A_BYTES / 2);
+    wgmma_fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KC / 16; ++j)
+      Wg<TN>::template ss<0, 1>(
+          acc, sw_adesc<KC>(as, j),
+          sw_vdesc<TN, KC, T::BOX_N>(sp + T::A_BYTES, j), 1);
+    wgmma_commit();
+    // the slice before this one is done: its stage goes back to the
+    // producer while this slice's products run
+    wgmma_wait<1>();
+    wgmma_fence_operands(acc);
+    if (it > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % T::STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  wgmma_fence_operands(acc);
 }
 
 // Block (x, y): block column jb = x / nchunk, columns [c0, c0 + TN) of it
@@ -1021,31 +1057,7 @@ __global__ void __launch_bounds__(SW_THREADS, 2) bcsc_spmm_wgmma_kernel(
 
   const int wg = tid >> 7, lane = tid & 31;
   float acc[TN / 2];
-#pragma unroll
-  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
-  for (int it = 0; it < total; ++it) {
-    const int st = it % T::STAGES;
-    mbar_wait(&full[st], (it / T::STAGES) & 1);
-    const unsigned char* sp = ring + st * T::STAGE;
-    const unsigned char* as = sp + wg * (T::A_BYTES / 2);
-    wgmma_fence_operands(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < KC / 16; ++j)
-      Wg<TN>::template ss<0, 1>(acc, sw_adesc<KC>(as, j),
-                                sw_vdesc<TN, KC>(sp + T::A_BYTES, j), 1);
-    wgmma_commit();
-    // the slice before this one is done: its stage goes back to the
-    // producer while this slice's products run
-    wgmma_wait<1>();
-    wgmma_fence_operands(acc);
-    if (it > 0) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[(it - 1) % T::STAGES]);
-    }
-  }
-  wgmma_wait<0>();
-  wgmma_fence_operands(acc);
+  sw_consume<T, TN, KC>(acc, ring, full, empty, total, wg, lane);
 
   // fragment rows and column pairs as in xsmm_wgmma.cuh; bn % 32 == 0: a
   // pair is whole or past the block column
@@ -1063,6 +1075,144 @@ __global__ void __launch_bounds__(SW_THREADS, 2) bcsc_spmm_wgmma_kernel(
         store_pair(op + (long long)gr * n + col, acc[4 * j + 2 * h],
                    acc[4 * j + 2 * h + 1]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The k-union in bf16 on wgmma (route "wgmma" for the union too: bf16
+// operands, bk % 32 == 0 and bn % 32 == 0, so stream20's 32 x 32, 64 x 128
+// and 128 x 128, in both forms). It computes what bcsc_union_mma_kernel
+// computes: per 128-column group and 128-row tile, the live union slots'
+// products (A's rows x bk panel at block row krows[slot] times the slot's
+// bk x 128 right-hand side) summed in slot order in f32 registers, rounded
+// once on the store, group column c stored at the caller's column
+// ocol[grp W + c / bn] bn + c % bn, one writer per tile, no atomics.
+//
+// Bound: at the streaming case (U = 21 slots a group) its own products are
+// 45 GFLOP, 0.046 ms at the bf16 peak, against 0.060 ms for A and C at 3.35
+// TB/s; the mma.sync kernel ran them at a fifth of the peak, held by its
+// mma.sync steps and the shared-memory reads that fed them.
+//
+// Design: bcsc_spmm_wgmma_kernel's plan at TN = 128 with the union's
+// schedule (bcsc_union_tma_fma_kernel's producer). The live slots are found
+// block-uniformly from the map (a slot whose W entries are all the zero
+// block is padding and is skipped); the producer walks (live slot, KC-deep
+// slice) and stages A's 128 x KC slice at column krows[slot] bk + k0 and
+// the slot's KC x 128 right-hand side as 128 / BOX boxes of BOX columns:
+// in the fused form (union4, union4a, union4d, union5) bn / BOX boxes of
+// each of the W value blocks the gather map names, from the 3-D value map,
+// the zero block loaded at the map's extent (vzero) so that TMA fills it
+// with zeros and still counts its bytes; in the compacted form (union,
+// union2, union3) two 64-column boxes of the compactor's (n/128, U bk,
+// 128) output, after the programmatic launch's wait. Both forms land the
+// same layout (BOX = 32: 64-byte swizzled rows, the fused form at bn = 32;
+// else 128-byte), the boxes V_BOX bytes apart, which is the MN-major
+// descriptor's leading offset (sw_vdesc), so the consumers do not depend
+// on the form. Two consumer warpgroups each own 64 rows and run
+// wgmma.m64n128k16 per k16 step, one slice's products in flight while the
+// next slice is issued. The grid's x runs over the groups, so the blocks
+// that share A's row tile read it from L2 together.
+// ---------------------------------------------------------------------------
+
+// Block (x, y): column group grp = x, rows [128 y, 128 y + 128). amap: A
+// over (k, m) in boxes of KC x 128; rmap: the fused form's values over (bn,
+// bk, nblocks) or the compacted RHS over (128, U bk, n / 128), in boxes of
+// BOX x KC x 1; vzero: the value map's block extent (the zero block's
+// index).
+template <typename TO, int KC, int BOX, bool COMPACT>
+__global__ void __launch_bounds__(SW_THREADS, 2) bcsc_union_wgmma_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap rmap, const int* __restrict__ krows,
+    const int* __restrict__ gmap, const int* __restrict__ ocol,
+    TO* __restrict__ out, int m, int n, int bk, int bn, int U, int nzero,
+    int vzero) {
+  using T = SwTile<GW, KC, BOX>;
+  extern __shared__ __align__(16) unsigned char sw_raw[];
+  unsigned char* ring = sf_ring(sw_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+
+  const int tid = threadIdx.x;
+  const int grp = blockIdx.x;
+  const int row0 = blockIdx.y * SW_TM;
+  const int W = GW / bn;
+  const int nsl = bk / KC;
+  const long long slot0 = (long long)grp * U;
+  const int* gm = gmap + slot0 * W;
+  // a slot whose W map entries are all the zero block is padding
+  auto live = [&](int u) {
+    for (int w = 0; w < W; ++w)
+      if (gm[u * W + w] != nzero) return true;
+    return false;
+  };
+  int nlive = 0;   // the threads test the slots in parallel
+  for (int u0 = 0; u0 < U; u0 += SW_THREADS)
+    nlive += __syncthreads_count(u0 + tid < U && live(u0 + tid));
+  const int total = nlive * nsl;
+
+  if (tid == 0) sf_init(full, empty, T::STAGES);
+  __syncthreads();
+  // the compacted RHS is the compactor's output: with a programmatic
+  // launch this block may start before the compactor ends
+  if constexpr (COMPACT) pdl_wait();
+
+  if (tid >= SW_CONSUMERS) {   // the producer warp: one thread starts TMA
+    if (tid == SW_CONSUMERS) {
+      int pu = 0, pk = 0;      // the next slice: pk of live slot pu
+      while (pu < U && !live(pu)) ++pu;
+      for (int it = 0; it < total; ++it) {
+        const int st = it % T::STAGES;
+        if (it >= T::STAGES) mbar_wait(&empty[st], ((it / T::STAGES) - 1) & 1);
+        const int k0 = pk * KC;
+        unsigned char* sp = ring + st * T::STAGE;
+        unsigned char* rs = sp + T::A_BYTES;
+        mbar_arrive_expect_tx(&full[st], T::STAGE);
+        tma_load_2d(sp, &amap, &full[st], krows[slot0 + pu] * bk + k0, row0);
+        if constexpr (COMPACT) {
+#pragma unroll
+          for (int h = 0; h < T::NB; ++h)
+            tma_load_3d(rs + h * T::V_BOX, &rmap, &full[st], h * BOX,
+                        pu * bk + k0, grp);
+        } else {
+          const int nbox = bn / BOX;   // boxes a value block
+          for (int w = 0; w < W; ++w) {
+            const int v = gm[pu * W + w];
+            for (int h = 0; h < nbox; ++h)
+              tma_load_3d(rs + (w * nbox + h) * T::V_BOX, &rmap, &full[st],
+                          h * BOX, k0, v == nzero ? vzero : v);
+          }
+        }
+        if (++pk == nsl) {
+          pk = 0;
+          do ++pu; while (pu < U && !live(pu));
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7, lane = tid & 31;
+  float acc[GW / 2];
+  sw_consume<T, GW, KC>(acc, ring, full, empty, total, wg, lane);
+
+  // fragment rows and column pairs as in xsmm_wgmma.cuh; group column c
+  // holds the caller's column ocol[grp W + c / bn] bn + c % bn. bn % 32 ==
+  // 0, so each 32-column piece q of the group lies in one block column,
+  // and starts at the caller's column cq[q]: a fragment's pieces are known
+  // at compile time, and four loads serve the store
+  const int r0 = row0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  int cq[GW / 32];
+#pragma unroll
+  for (int q = 0; q < GW / 32; ++q)
+    cq[q] = ocol[grp * W + 32 * q / bn] * bn + (32 * q) % bn;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r0 + 8 * h >= m) continue;
+    TO* orow = out + (long long)(r0 + 8 * h) * n + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < GW / 8; ++j)
+      store_pair(orow + cq[j / 4] + 8 * (j % 4), acc[4 * j + 2 * h],
+                 acc[4 * j + 2 * h + 1]);
   }
 }
 
@@ -1602,6 +1752,85 @@ static int launch_spmm_wgmma(const void* a, const void* vals, const int* ptr,
                                       bk, bn, nzero, st);
 }
 
+// the wgmma union kernel at slice depth KC and box width BOX, in one form;
+// a, vals bf16 and 16-byte aligned, bk % 32 == 0, bn % 32 == 0. A's map as
+// the scheduled kernel's; the right-hand side's: the fused form's values
+// over (bn, bk, nblocks) (an empty store: one block of A's memory, never
+// read in bounds; the zero block at block index vzero, the extent), the
+// compacted form's RHS over (128, U bk, n / 128), in boxes of BOX x KC x 1.
+// The compacted form runs right after the compactor and is launched
+// programmatically.
+template <typename TO, int KC, int BOX, bool COMPACT>
+static int launch_union_wgmma_at(const void* a, const void* vals,
+                                 const int* krows, const int* gmap,
+                                 const int* ocol, void* out, int m, int k,
+                                 int n, int bk, int bn, int U, int nzero,
+                                 cudaStream_t st) {
+  using T = SwTile<GW, KC, BOX>;
+  const long long gy = (m + SW_TM - 1) / SW_TM;
+  const int vzero = nzero > 0 ? nzero : 1;
+  if (gy > 65535 || (long long)U * bk > 2147483647LL)
+    return cudaErrorInvalidConfiguration;
+  const CUtensorMapDataType B = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t adims[2] = {(cuuint64_t)k, (cuuint64_t)m};
+  const cuuint64_t astr[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t abox[2] = {KC, SW_TM};
+  const cuuint64_t rdims[3] = {
+      (cuuint64_t)(COMPACT ? GW : bn), (cuuint64_t)(COMPACT ? U * bk : bk),
+      (cuuint64_t)(COMPACT ? n / GW : vzero)};
+  const cuuint64_t rstr[2] = {(cuuint64_t)rdims[0] * 2,
+                              (cuuint64_t)rdims[0] * rdims[1] * 2};
+  const cuuint32_t rbox[3] = {BOX, KC, 1};
+  CUtensorMap amap, rmap;
+  if (!encode_map(&amap, B, a, 2, adims, astr, abox,
+                  KC == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_map(&rmap, B, COMPACT || nzero > 0 ? vals : a, 3, rdims, rstr,
+                  rbox,
+                  BOX == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  auto kern = bcsc_union_wgmma_kernel<TO, KC, BOX, COMPACT>;
+  // above 48 KB only as dynamic shared memory, after the opt-in
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  return launch_pdl(kern, dim3(n / GW, (unsigned)gy), SW_THREADS, T::SMEM,
+                    st, COMPACT, amap, rmap, krows, gmap, ocol,
+                    static_cast<TO*>(out), m, n, bk, bn, U, nzero, vzero);
+}
+
+// KC = 64 where bk allows it, else 32; the compacted RHS in 64-column
+// boxes, the fused form's in boxes of min(bn, 64)
+template <typename TO, int KC>
+static int launch_union_wgmma_kc(const void* a, const void* vals,
+                                 const int* krows, const int* gmap,
+                                 const int* ocol, void* out, int m, int k,
+                                 int n, int bk, int bn, int U, int nzero,
+                                 bool compact, cudaStream_t st) {
+  if (compact)
+    return launch_union_wgmma_at<TO, KC, 64, true>(
+        a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U, nzero, st);
+  if (bn == 32)
+    return launch_union_wgmma_at<TO, KC, 32, false>(
+        a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U, nzero, st);
+  return launch_union_wgmma_at<TO, KC, 64, false>(
+      a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U, nzero, st);
+}
+
+template <typename TO>
+static int launch_union_wgmma(const void* a, const void* vals,
+                              const int* krows, const int* gmap,
+                              const int* ocol, void* out, int m, int k, int n,
+                              int bk, int bn, int U, int nzero, bool compact,
+                              cudaStream_t st) {
+  if (bk % 64 == 0)
+    return launch_union_wgmma_kc<TO, 64>(a, vals, krows, gmap, ocol, out, m,
+                                         k, n, bk, bn, U, nzero, compact, st);
+  return launch_union_wgmma_kc<TO, 32>(a, vals, krows, gmap, ocol, out, m, k,
+                                       n, bk, bn, U, nzero, compact, st);
+}
+
 static int ilog2(int x) { return 31 - __builtin_clz((unsigned)x); }
 
 // the compactor's route (kernels/spmm.py compact_route mirrors it)
@@ -1708,15 +1937,14 @@ static int launch_densify(const void* vals, const int* gmap, void* out,
 enum { SP_FMA, SP_MMA, SP_TMA_FMA, SP_WGMMA };
 
 // the kernel a call takes (kernels/spmm.py spmm_path mirrors it): the wgmma
-// kernel for bf16 scheduled and supertile calls whose blocks are whole
-// 32-deep, 32-wide pieces; the mma.sync kernel for the other bf16 tiles
-// whose depth is whole k16 steps and whose rows are whole 16-byte units,
-// and for every such k-union; the TMA-fed FMA kernel for f32 blocks whose
+// kernels for bf16 calls whose blocks are whole 32-deep, 32-wide pieces
+// (scheduled, supertile and k-union alike); the mma.sync kernels for the
+// other bf16 tiles whose depth is whole k16 steps and whose rows are whole
+// 16-byte units; the TMA-fed FMA kernel for f32 blocks whose
 // rows and depth are whole 16-byte units (TMA's strides), in the union at
 // most SF_UNION_BOXES value blocks a group; the FMA kernel for the rest
 static int spmm_route(int in_type, int bk, int bn, bool uni) {
-  if (in_type == T_BF16 && !uni && bk % 32 == 0 && bn % 32 == 0)
-    return SP_WGMMA;
+  if (in_type == T_BF16 && bk % 32 == 0 && bn % 32 == 0) return SP_WGMMA;
   if (in_type == T_BF16 && bk % 16 == 0 && bn % 8 == 0) return SP_MMA;
   if (in_type == T_F32 && bk % 4 == 0 && bn % 4 == 0 &&
       (!uni || GW / bn <= SF_UNION_BOXES))
@@ -1808,6 +2036,14 @@ static int union_entry(const void* a, const void* vals, const int* krows,
   if (m == 0) return cudaSuccess;
   // the route by spmm_entry's rule (kernels/spmm.py spmm_path)
   const int route = spmm_route(in_type, bk, bn, true);
+  if (route == SP_WGMMA) {
+    if (out_type == T_F32)
+      return launch_union_wgmma<float>(a, vals, krows, gmap, ocol, out, m, k,
+                                       n, bk, bn, U, nzero, compact, st);
+    return launch_union_wgmma<__nv_bfloat16>(a, vals, krows, gmap, ocol, out,
+                                             m, k, n, bk, bn, U, nzero,
+                                             compact, st);
+  }
   if (route == SP_MMA) {
     if (out_type == T_F32)
       return launch_union_mma<float>(a, vals, krows, gmap, ocol, out, m, k, n,

@@ -1,10 +1,14 @@
 // Building blocks of the bf16 flash attention on wgmma (route "wgmma":
 // flash_fwd_wgmma_kernel in attention_kernels.cu, flash_bwd_dkv_wgmma_kernel
-// and flash_bwd_dq_wgmma_kernel in attention_bwd_kernels.cu): the tile
-// plans, the shared-memory budgets, a warpgroup's own barrier, exp2 by the
-// SFU and the hold that orders a tile's second half after its first half's
-// products. The products are xsmm_wgmma.cuh's Wg<N> (wgmma m64nNk16, bf16
-// operands, f32 accumulators, A from shared memory or from registers).
+// and flash_bwd_dq_wgmma_kernel in attention_bwd_kernels.cu): the tile plans,
+// the shared-memory budgets, a warpgroup's own barrier, exp2 by the SFU and the
+// hold that orders a tile's second half after its first half's products. The
+// backward has two plans: up to a padded hd of 128 a dK/dV block owns 128 keys
+// and a dQ block streams 128-key tiles; past it (the "wide" kernels, hd padded
+// to 192 or 256) a dK/dV block owns 64 keys, its two warpgroups splitting hd's
+// columns of dK and dV, and a dQ block streams 64-key K^T and V tiles as
+// separate ring units. The products are xsmm_wgmma.cuh's Wg<N> (wgmma m64nNk16,
+// bf16 operands, f32 accumulators, A from shared memory or from registers).
 // kernels/_build.py hashes this header into the name of every library it
 // builds.
 //
@@ -16,7 +20,10 @@
 // thread holds 192 accumulator registers in the backward (dK/dV: S^T and
 // dP^T 32 each, dV and dK 64 each; dQ: S and dP 64 each, dQ 64) and 160 in
 // the forward (S 64, O 64, P as 32 bf16 pairs); past hd 128 the forward's
-// 64-key tiles hold it to 176 at hd 256 (S 32, O 128, P 16).
+// 64-key tiles hold it to 176 at hd 256 (S 32, O 128, P 16), and the wide
+// backward's plans to 224 (dK/dV: S^T and dP^T 32 each, dV and dK 64 each
+// over half of hd, p~ and dS 16 bf16 pairs each) and 208 (dQ: S and dP 32
+// each, dQ 128, dS 16 pairs).
 //
 // Every tile is a set of 128-byte swizzled TMA boxes whose inner extent is
 // 64 bf16 (xsmm_wgmma.cuh's layouts): a row-major (rows, hd) operand (Q,
@@ -37,8 +44,12 @@ constexpr int FW_DQ_BK = 128;      // dQ: keys a ring stage
 constexpr int FW_DKV_STAGES = 3;   // the dK/dV ring
 constexpr int FW_DQ_STAGES = 2;    // the dQ ring
 constexpr int FW_BOX = 8192;       // a 64 x 64 bf16 box: 64 rows of 128 B
-constexpr int FW_HDP_MAX = 128;    // the largest padded hd the backward takes
-constexpr int FW_FWD_HDP_MAX = 256;   // the forward's: every hd the entry takes
+constexpr int FW_HDP_MAX = 128;    // the largest padded hd of the backward's
+                                   // 128-key plan; past it the wide plan's
+constexpr int FW_WIDE_BKV = 64;    // wide dK/dV: keys a block, both groups
+constexpr int FW_DKV_WIDE_STAGES = 2;   // wide dK/dV: its ring
+constexpr int FW_WIDE_BK = 64;     // wide dQ: keys a ring unit
+constexpr int FW_FWD_HDP_MAX = 256;   // every hd the entries take
 
 static_assert(FW_DQ_BQ == FW_DQ_BK,
               "causal dQ: the K tiles up to the diagonal are qi + 1");
@@ -59,6 +70,31 @@ __host__ __device__ constexpr int fw_dq_smem(int hdp) {
   // (128 keys x hdp); full/empty + the Q/dO barrier
   return TF_ALIGN + 2 * FW_DQ_BQ * hdp * 2 +
          FW_DQ_STAGES * 2 * FW_DQ_BK * hdp * 2 + (2 * FW_DQ_STAGES + 1) * 8;
+}
+
+// past hd 128 (hd padded to 192 or 256), the wide dK/dV kernel: K^T
+// (hdp x 64 keys) and V (64 keys x hdp) once; a stage: Q and dO 256
+// columns wide at either bucket (each warpgroup's 128 columns of dV and dK
+// read whole boxes; at 192 the last box is TMA's zero fill), the stage's
+// lse and delta rows (64 f32 each); full/empty + the K/V barrier. Two
+// stages: three would not fit
+__host__ __device__ constexpr int fw_dkv_wide_smem(int hdp) {
+  return TF_ALIGN + 2 * FW_WIDE_BKV * hdp * 2 +
+         FW_DKV_WIDE_STAGES * (2 * FW_BQ * 256 * 2 + 2 * FW_BQ * 4) +
+         (2 * FW_DKV_WIDE_STAGES + 1) * 8;
+}
+
+// the wide dQ kernel's ring units (a 64-key K^T or V tile each): four at
+// 192, three at 256
+__host__ __device__ constexpr int fw_dq_wide_units(int hdp) {
+  return hdp <= 192 ? 4 : 3;
+}
+
+// Q and dO (128 x hdp each) once; the units; full/empty + the Q/dO barrier
+__host__ __device__ constexpr int fw_dq_wide_smem(int hdp) {
+  return TF_ALIGN + 2 * FW_DQ_BQ * hdp * 2 +
+         fw_dq_wide_units(hdp) * FW_WIDE_BK * hdp * 2 +
+         (2 * fw_dq_wide_units(hdp) + 1) * 8;
 }
 
 // the forward's K tile, hd padded to 64, 128, 192 or 256: 128 keys up to hd
@@ -85,7 +121,11 @@ static_assert(fw_dkv_smem(FW_HDP_MAX) <= TF_SMEM_MAX &&
                   fw_dq_smem(FW_HDP_MAX) <= TF_SMEM_MAX &&
                   fw_fwd_smem(128) <= TF_SMEM_MAX &&
                   fw_fwd_smem(192) <= TF_SMEM_MAX &&
-                  fw_fwd_smem(FW_FWD_HDP_MAX) <= TF_SMEM_MAX,
+                  fw_fwd_smem(FW_FWD_HDP_MAX) <= TF_SMEM_MAX &&
+                  fw_dkv_wide_smem(192) <= TF_SMEM_MAX &&
+                  fw_dkv_wide_smem(256) <= TF_SMEM_MAX &&
+                  fw_dq_wide_smem(192) <= TF_SMEM_MAX &&
+                  fw_dq_wide_smem(256) <= TF_SMEM_MAX,
               "a block's tiles and ring fit 227 KB");
 
 // one consumer warpgroup's own barrier (ids 3 and 4; xsmm_flash_fma.cuh

@@ -34,13 +34,13 @@ The port of `libxsmm_tpu/kernels/spmm_pallas.py`: the schedule helpers
 
 The scheduled, supertile and union strategies run on one of four CUDA
 kernels, the route (`spmm_path`, as csrc spmm_route takes it): "wgmma",
-Hopper's warpgroup products on TMA-fed tiles, for the scheduled and
-supertile strategies wherever the operands are bf16 and the blocks are
-whole 32-deep, 32-wide pieces (bk % 32 == 0, bn % 32 == 0: 32 x 32,
-64 x 128, the 128 x 128 supertiles); "mma", the bf16 tensor cores by
-mma.sync, wherever the operands are bf16 and the blocks are whole k16 steps
-deep and whole 16-byte units wide (bk % 16 == 0, bn % 8 == 0) and wgmma
-does not serve (16 x 64, 16 x 8, and every such k-union); "tma_fma",
+Hopper's warpgroup products on TMA-fed tiles, wherever the operands are
+bf16 and the blocks are whole 32-deep, 32-wide pieces (bk % 32 == 0, bn %
+32 == 0: 32 x 32, 64 x 128, 128 x 128, the supertiles), the k-union in
+both forms included; "mma", the bf16 tensor cores by mma.sync, wherever
+the operands are bf16 and the blocks are whole k16 steps deep and whole
+16-byte units wide (bk % 16 == 0, bn % 8 == 0) and wgmma does not serve
+(16 x 64, 16 x 8, 48 x 32, 32 x 16); "tma_fma",
 f32 tiles fed by TMA into the CUDA cores' FMAs (f32 means f32, no TF32),
 wherever the operands are f32 and the blocks' rows and depth are whole
 16-byte units (bk % 4 == 0, bn % 4 == 0; the union also bn >= 32, at most
@@ -97,7 +97,8 @@ ENTRIES = {"bcsc_spmm": ("spmm_kernels", _SCHEDULED),
            "bcsc_spmm_super": ("spmm_kernels", _SCHEDULED),
            "bcsc_spmm_union": ("spmm_kernels", ("bcsc_union_kernel",
                                                  "bcsc_union_mma_kernel",
-                                                 "bcsc_union_tma_fma_kernel")),
+                                                 "bcsc_union_tma_fma_kernel",
+                                                 "bcsc_union_wgmma_kernel")),
            "bcsc_union_compact": ("spmm_kernels", (
                "bcsc_union_compact_bulk_kernel",
                "bcsc_union_compact_kernel")),
@@ -152,14 +153,14 @@ def spmm_path(in_dtype: torch.dtype, bk: int, bn: int,
               union: bool = False) -> str:
     """The kernel that serves the scheduled, supertile and (`union`) k-union
     SpMM (csrc spmm_route), chosen by dtype, blocking and union alone,
-    before any launch: "wgmma", the warpgroup kernel on TMA-fed tiles, for
-    the scheduled and supertile SpMM on bf16 operands whose blocks are
-    whole 32-deep, 32-wide pieces (bk % 32 == 0, bn % 32 == 0: a k16 step
-    of its slices and a 64-byte swizzled row of A's and of the values');
-    "mma", the bf16 mma.sync kernel, for the other bf16 blocks that are
-    whole k16 steps deep (bk % 16 == 0) and whole 16-byte units wide (bn %
-    8 == 0), and for every such k-union (its own kernel, not yet on
-    wgmma);
+    before any launch: "wgmma", the warpgroup kernels on TMA-fed tiles,
+    for bf16 operands whose blocks are whole 32-deep, 32-wide pieces (bk %
+    32 == 0, bn % 32 == 0: a k16 step of its slices and a 64-byte swizzled
+    row of A's and of the values), scheduled, supertile and k-union (both
+    forms) alike; "mma", the bf16 mma.sync kernels, for the other bf16
+    blocks that are whole k16 steps deep (bk % 16 == 0) and whole 16-byte
+    units wide (bn % 8 == 0: 16 x 64, 16 x 8, 48 x 32, 32 x 16, in every
+    strategy);
     "tma_fma", the f32 kernel on TMA-fed FMA tiles, for f32 operands whose
     blocks' rows and depth are whole 16-byte units (bk % 4 == 0, bn % 4 ==
     0: TMA's strides; f32 means f32, no TF32) and, in the union, at most
@@ -167,8 +168,7 @@ def spmm_path(in_dtype: torch.dtype, bk: int, bn: int,
     stage, read without bank conflicts); "fma", the FMA kernel with its own
     loads, for every other case (blockings such as 8 x 8 or 4 x 48 in bf16,
     2 x 2 in f32)."""
-    if (in_dtype == torch.bfloat16 and not union and bk % 32 == 0
-            and bn % 32 == 0):
+    if in_dtype == torch.bfloat16 and bk % 32 == 0 and bn % 32 == 0:
         return "wgmma"
     if in_dtype == torch.bfloat16 and bk % 16 == 0 and bn % 8 == 0:
         return "mma"

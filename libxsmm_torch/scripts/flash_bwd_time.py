@@ -1,10 +1,10 @@
 """Timing of the bf16 flash-attention kernels on the card: the forward of
 `build_flash_attention` and the dK/dV and dQ kernels of
 `build_flash_attention_bwd`, at bench.py's serving shape (bh 16, s 2048, hd
-128), at the BERT-base encoder block's (8 x 12 heads, s 512, hd 64) and at
-(16, 1024, 256) (the forward's 64-key tiles; the backward's mma.sync
-kernels, past its wgmma route's hd), non-causal and causal, and
-non-causal at dropout 0.1.
+128), at the BERT-base encoder block's (8 x 12 heads, s 512, hd 64), at
+(16, 1024, 256) and at the training path's (2, 256, 192) (past hd 128: the
+forward's 64-key tiles, the backward's wide kernels), non-causal and
+causal, and non-causal at dropout 0.1.
 Each kernel is held against its plain version on the same operands
 (matdiff normf_rel within 1e-2, the bf16 outputs' margin; max |diff|
 printed) and timed three ways (scripts/timing.py): CUDA events around 20
@@ -52,7 +52,7 @@ except ImportError:
     import timing   # is sys.path[0]
 
 SHAPES = {"bench": (16, 2048, 128), "encoder": (96, 512, 64),
-          "hd256": (16, 1024, 256)}
+          "hd256": (16, 1024, 256), "hd192": (2, 256, 192)}
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
 FORMS = {"plain": {}, "causal": {"causal": True},

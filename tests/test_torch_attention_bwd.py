@@ -169,14 +169,15 @@ def test_bwd_factory_refusals_and_configs():
     with pytest.raises(ValueError, match="unsupported flash shape"):
         pa.build_flash_attention_bwd(2, 200, 32, torch.float32)
     # the bf16 kernels' configurations (the wgmma tile up to hd 128, dQ's
-    # 128 rows; the mma.sync tile past it); f32 takes one tile per hd bucket
+    # 128 rows; the wide kernels' 64 keys past it); f32 takes one tile per
+    # hd bucket
     for hd, want, want_dq in ((32, (64, 128), (128, 128)),
                               (128, (64, 128), (128, 128)),
-                              (192, (64, 32), (64, 32)),
-                              (256, (64, 32), (64, 32))):
+                              (192, (64, 64), (128, 64)),
+                              (256, (64, 64), (128, 64))):
         assert pa.bwd_configs(hd) == [want]
         assert pa.bwd_configs(hd, "dq") == [want_dq]
-    assert pa._bwd_smem_bytes(256, 32) <= 232448
+    assert pa._bwd_smem_bytes(256, "dq") <= 232448
     with pytest.raises(ValueError, match="one tile per hd bucket"):
         pa.bwd_configs(128, "dq", torch.float32)
     fn = pa.build_flash_attention_bwd(2, 256, 128, torch.float32)
@@ -192,7 +193,7 @@ def test_bwd_factory_refusals_and_configs():
     assert (fn.path, fn.block_k, fn.block_k_dq) == ("wgmma", 128, 128)
     fn = pa.build_flash_attention_bwd(2, 256, 256, torch.bfloat16,
                                       block_override=(256, 256))
-    assert (fn.block_q, fn.block_k, fn.block_k_dq) == (64, 32, 32)
+    assert (fn.block_q, fn.block_k, fn.block_k_dq) == (64, 64, 64)
     fn = pa.build_flash_attention_bwd(2, 128, 32, torch.float32)
     q = torch.zeros(2, 128, 32)
     kT = torch.zeros(2, 32, 128)

@@ -13,10 +13,10 @@ in / f32 out (the sums run in another order than the plain version's);
 1e-2 for bf16 outputs (one rounding, at another point of the sum); the
 densify kernel, the union RHS compactor, empty block columns and empty
 patterns exact. bf16 operands at blockings of whole 32-deep, 32-wide
-pieces (32 x 32, 64 x 128, 128 x 128) run the scheduled and supertile
-SpMMs on wgmma ("wgmma"); other blockings of whole k16 steps and 16-byte
-rows (16 x 64, 16 x 8), and every such union, run the mma.sync kernels
-("mma"), all at the same margins: their bf16 products are exact in the
+pieces (32 x 32, 64 x 128, 128 x 128) run the scheduled, supertile and
+union SpMMs on wgmma ("wgmma"); other blockings of whole k16 steps and
+16-byte rows (16 x 64, 16 x 8) run the mma.sync kernels ("mma"), all at
+the same margins: their bf16 products are exact in the
 f32 accumulator. f32 operands at blockings of whole 16-byte
 units run the TMA-fed FMA kernels ("tma_fma"; the union at bn >= 32), at
 the same margins; TF32 stays off. The FMA kernels ("fma") are held at the
@@ -552,23 +552,38 @@ def test_compactor_element_route_on_aligned_values(gen):
         torch.cuda.current_stream().cuda_stream) != 0
 
 
-# blockings the union's tensor-core form serves with bf16 operands
-# (bk % 16 == 0, bn % 8 == 0, bn | 128)
-UNION_MMA_BLOCKINGS = [(32, 32), (16, 64), (64, 128), (16, 8)]
+# blockings the union's tensor-core kernels serve with bf16 operands (bk %
+# 16 == 0, bn % 8 == 0, bn | 128): wgmma at whole 32-deep, 32-wide blocks,
+# mma.sync at the others
+UNION_WGMMA_BLOCKINGS = [(32, 32), (64, 128), (128, 128)]
+UNION_MMA_BLOCKINGS = [(16, 64), (16, 8)]
 FORMS = {"fused": False, "compacted": True}
 
 
-def union_mma(gen, m, k, n, bk, bn, o_dt, form, seed, **kw):
+def union_plan(gen, m, k, n, bk, bn, o_dt, form, seed, **kw):
     """A bf16 union plan on the card in one form, with block group 0 empty,
-    and its operands."""
+    and its operands; its route is the one spmm_path names for the
+    blocking."""
     indptr, indices = pattern(k, n, bk, bn, 0.3, seed=seed,
                               empty_cols=range(128 // bn))
     fn = pk.build_bcsc_spmm_union(GemmShape(m, n, k, BF16, BF16, o_dt),
                                   SpgemmConfig(1, bk, bn), indptr, indices,
                                   "cuda", compact=FORMS[form], **kw)
-    assert fn.path == "mma"
+    assert fn.path == pk.spmm_path(torch.bfloat16, bk, bn, union=True)
     a = rand(gen, (m, k), BF16)
     v = rand(gen, (len(indices), bk, bn), BF16)
+    return fn, a, v
+
+
+def union_mma(gen, *args, **kw):
+    fn, a, v = union_plan(gen, *args, **kw)
+    assert fn.path == "mma"
+    return fn, a, v
+
+
+def union_wgmma(gen, *args, **kw):
+    fn, a, v = union_plan(gen, *args, **kw)
+    assert fn.path == "wgmma"
     return fn, a, v
 
 
@@ -577,44 +592,93 @@ def union_mma(gen, m, k, n, bk, bn, o_dt, form, seed, **kw):
 @pytest.mark.parametrize("m", [1, 37, 200])
 @pytest.mark.parametrize("bk,bn", UNION_MMA_BLOCKINGS)
 def test_bcsc_spmm_union_mma(gen, bk, bn, m, o_dt, form):
-    """The union's tensor-core form at every blocking that takes it, both
-    forms, ragged m (rows past m neither computed into nor stored), an
+    """The union's mma.sync kernel at the blockings that still take it,
+    both forms, ragged m (rows past m neither computed into nor stored), an
     empty group (all slots dead: zeros), both output types."""
     fn, a, v = union_mma(gen, m, 512, 384, bk, bn, o_dt, form, seed=m + bk)
-    got = launched("bcsc_spmm_union", fn, a, v)
+    got = on_route("bcsc_spmm_union", "mma", fn, a, v)
     same(fn.plain(a, v), got, tol(BF16, o_dt))
     assert bool((got[:, :128] == 0).all())
 
 
 @pytest.mark.parametrize("form", list(FORMS))
 @pytest.mark.parametrize("u_align", [4, 16])
-@pytest.mark.parametrize("bk,bn", [(32, 32), (16, 8)])
+@pytest.mark.parametrize("bk,bn", UNION_MMA_BLOCKINGS)
 def test_bcsc_spmm_union_mma_pad_slots(gen, bk, bn, u_align, form):
-    """u_align pads each group's union with dead slots (union4a; 16 is the
-    full depth at bk = 32, union4d): they are skipped, block-uniformly."""
+    """u_align pads each group's union with dead slots (union4a): they are
+    skipped, block-uniformly."""
     fn, a, v = union_mma(gen, 100, 512, 384, bk, bn, F32, form, seed=u_align,
                          u_align=u_align)
-    same(fn.plain(a, v), launched("bcsc_spmm_union", fn, a, v), 1e-4)
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", "mma", fn, a, v), 1e-4)
 
 
 @pytest.mark.parametrize("form", list(FORMS))
 @pytest.mark.parametrize("o_dt", [F32, BF16])
 def test_bcsc_spmm_union_mma_streaming(gen, o_dt, form):
-    """m = 32768 (256 row tiles) through a 0.2-density pattern."""
-    indptr, indices = pattern(1024, 1024, 32, 32, 0.2, seed=3)
+    """m = 32768 (256 row tiles) through a 0.2-density pattern of 16 x 64
+    blocks."""
+    indptr, indices = pattern(1024, 1024, 16, 64, 0.2, seed=3)
     fn = pk.build_bcsc_spmm_union(GemmShape(32768, 1024, 1024, BF16, BF16,
-                                            o_dt), SpgemmConfig(1, 32, 32),
+                                            o_dt), SpgemmConfig(1, 16, 64),
                                   indptr, indices, "cuda",
                                   compact=FORMS[form])
+    assert fn.path == "mma"
     a = rand(gen, (32768, 1024), BF16)
-    v = rand(gen, (len(indices), 32, 32), BF16)
-    same(fn.plain(a, v), launched("bcsc_spmm_union", fn, a, v),
+    v = rand(gen, (len(indices), 16, 64), BF16)
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", "mma", fn, a, v),
          tol(BF16, o_dt))
 
 
 @pytest.mark.parametrize("form", list(FORMS))
 @pytest.mark.parametrize("o_dt", [F32, BF16])
-def test_bcsc_spmm_union_mma_clustered(gen, o_dt, form):
+@pytest.mark.parametrize("m", [1, 37, 200, 1000])
+@pytest.mark.parametrize("bk,bn", UNION_WGMMA_BLOCKINGS)
+def test_bcsc_spmm_union_wgmma(gen, bk, bn, m, o_dt, form):
+    """The union's wgmma kernel at each blocking that takes it (boxes of 32
+    columns at 32 x 32 in the fused form, of 64 otherwise), both forms,
+    ragged m, an empty group (all slots dead: zeros), both output types;
+    the launch counted on route wgmma."""
+    fn, a, v = union_wgmma(gen, m, 512, 384, bk, bn, o_dt, form,
+                           seed=m + bk + bn)
+    got = on_route("bcsc_spmm_union", "wgmma", fn, a, v)
+    same(fn.plain(a, v), got, tol(BF16, o_dt))
+    assert bool((got[:, :128] == 0).all())
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("u_align", [4, 16])
+@pytest.mark.parametrize("bk,bn", [(32, 32), (64, 128)])
+def test_bcsc_spmm_union_wgmma_pad_slots(gen, bk, bn, u_align, form):
+    """u_align pads each group's union with dead slots (union4a; 16 is the
+    full depth at bk = 32, union4d; at bk = 64 the depth is capped at k /
+    bk): they are skipped, block-uniformly."""
+    fn, a, v = union_wgmma(gen, 100, 512, 384, bk, bn, F32, form,
+                           seed=u_align + bk, u_align=u_align)
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", "wgmma", fn, a, v),
+         1e-4)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("bk,bn", [(32, 32), (64, 128)])
+def test_bcsc_spmm_union_wgmma_streaming(gen, bk, bn, o_dt, form):
+    """m = 32768 (256 row tiles) through a 0.2-density pattern, stream20's
+    shape at 32 x 32."""
+    indptr, indices = pattern(1024, 1024, bk, bn, 0.2, seed=3)
+    fn = pk.build_bcsc_spmm_union(GemmShape(32768, 1024, 1024, BF16, BF16,
+                                            o_dt), SpgemmConfig(1, bk, bn),
+                                  indptr, indices, "cuda",
+                                  compact=FORMS[form])
+    assert fn.path == "wgmma"
+    a = rand(gen, (32768, 1024), BF16)
+    v = rand(gen, (len(indices), bk, bn), BF16)
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", "wgmma", fn, a, v),
+         tol(BF16, o_dt))
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+def test_bcsc_spmm_union_wgmma_clustered(gen, o_dt, form):
     """bench.py's two-family pattern in bf16: bf16 out clusters (the column
     restore folded into the store), f32 out keeps the plain plan."""
     indptr, indices = cluster_pattern()
@@ -622,48 +686,65 @@ def test_bcsc_spmm_union_mma_clustered(gen, o_dt, form):
                                             o_dt), SpgemmConfig(1, 32, 32),
                                   indptr, indices, "cuda",
                                   compact=FORMS[form])
-    assert fn.path == "mma" and fn.clustered == (o_dt == BF16)
+    assert fn.path == "wgmma" and fn.clustered == (o_dt == BF16)
     a = rand(gen, (96, 2048), BF16)
     v = rand(gen, (len(indices), 32, 32), BF16)
-    same(fn.plain(a, v), launched("bcsc_spmm_union", fn, a, v),
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", "wgmma", fn, a, v),
          tol(BF16, o_dt))
 
 
 @pytest.mark.parametrize("form", list(FORMS))
-def test_bcsc_spmm_union_mma_unaligned_views(gen, form):
+@pytest.mark.parametrize("bk,bn,route", [(32, 32, "wgmma"),
+                                         (64, 128, "wgmma"),
+                                         (16, 64, "mma")])
+def test_bcsc_spmm_union_unaligned_views(gen, bk, bn, route, form):
     """A and the values 6 and 2 bytes past a 16-byte boundary: copied into
-    fresh tensors for the kernel's 16-byte staging."""
-    m, k, n, bk, bn = 100, 256, 256, 32, 32
+    fresh tensors for the kernels' 16-byte staging (TMA on wgmma)."""
+    m, k, n = 100, 256, 256
     indptr, indices = pattern(k, n, bk, bn, 0.4, seed=9)
     fn = pk.build_bcsc_spmm_union(GemmShape(m, n, k, BF16, BF16, F32),
                                   SpgemmConfig(1, bk, bn), indptr, indices,
                                   "cuda", compact=FORMS[form])
+    assert fn.path == route
     a = rand(gen, (m * k + 3,), BF16)[3:].view(m, k)
     v = rand(gen, (len(indices) * bk * bn + 1,), BF16)[1:].view(
         len(indices), bk, bn)
     assert a.data_ptr() % 16 == 6 and v.data_ptr() % 16 == 2
-    same(fn.plain(a, v), launched("bcsc_spmm_union", fn, a, v), 1e-4)
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", route, fn, a, v),
+         1e-4)
 
 
-@pytest.mark.parametrize("form", list(FORMS))
-@pytest.mark.parametrize("bk,bn", [(32, 32), (16, 8)])
-def test_bcsc_spmm_union_mma_deterministic(gen, bk, bn, form):
-    """One writer per output tile, no atomics: two runs bit for bit."""
-    fn, a, v = union_mma(gen, 300, 512, 384, bk, bn, F32, form, seed=bk)
+def _twice_bit_for_bit(fn, a, v):
     x, y = fn(a, v), fn(a, v)
     torch.cuda.synchronize()
     assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("form", list(FORMS))
-@pytest.mark.parametrize("bk,bn", [(32, 32), (16, 8)])
-def test_bcsc_spmm_union_mma_nan_in_block_row_0(gen, bk, bn, form):
+@pytest.mark.parametrize("bk,bn", UNION_MMA_BLOCKINGS)
+def test_bcsc_spmm_union_mma_deterministic(gen, bk, bn, form):
+    """One writer per output tile, no atomics: two runs bit for bit."""
+    _twice_bit_for_bit(*union_mma(gen, 300, 512, 384, bk, bn, F32, form,
+                                  seed=bk))
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("o_dt", [F32, BF16])
+@pytest.mark.parametrize("bk,bn", UNION_WGMMA_BLOCKINGS)
+def test_bcsc_spmm_union_wgmma_deterministic(gen, bk, bn, o_dt, form):
+    """One writer per output tile, no atomics, the slots summed in order:
+    two runs bit for bit."""
+    _twice_bit_for_bit(*union_wgmma(gen, 3000, 512, 384, bk, bn, o_dt, form,
+                                    seed=bk + bn))
+
+
+def _nan_in_block_row_0(gen, bk, bn, form, route):
     """A NaN in A's block row 0, read by a live slot of group 1 (its union
     holds block row 0): NaN across that group's row, as the plain version
     (the slot's dead blocks are zeros, multiplied). Group 0 (no block: all
     slots dead) and group 2 (block row 0 not in its union) stay finite:
     their pad slots, which the plain version multiplies with krows 0, are
-    skipped (the recorded divergence of the union kernel)."""
+    skipped (the recorded divergence of the union kernels)."""
     m, k, n = 70, 256, 384
     indptr, indices = pattern(k, n, bk, bn, 0.3, seed=bk,
                               empty_cols=range(128 // bn))
@@ -679,9 +760,10 @@ def test_bcsc_spmm_union_mma_nan_in_block_row_0(gen, bk, bn, form):
     fn = pk.build_bcsc_spmm_union(GemmShape(m, n, k, BF16, BF16, F32),
                                   SpgemmConfig(1, bk, bn), indptr, indices,
                                   "cuda", cluster=False, compact=FORMS[form])
+    assert fn.path == route
     a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
     a[5, 3] = float("nan")
-    got = launched("bcsc_spmm_union", fn, a, v)
+    got = on_route("bcsc_spmm_union", route, fn, a, v)
     want = fn.plain(a, v)
     torch.cuda.synchronize()
     nan = torch.zeros_like(got, dtype=torch.bool)
@@ -691,6 +773,20 @@ def test_bcsc_spmm_union_mma_nan_in_block_row_0(gen, bk, bn, form):
     keep_ = ~torch.isnan(want)
     check(want[keep_].double().cpu().numpy(),
           got[keep_].double().cpu().numpy(), margin=1e-4)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("bk,bn", UNION_MMA_BLOCKINGS)
+def test_bcsc_spmm_union_mma_nan_in_block_row_0(gen, bk, bn, form):
+    """_nan_in_block_row_0 on the mma.sync kernel."""
+    _nan_in_block_row_0(gen, bk, bn, form, "mma")
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("bk,bn", UNION_WGMMA_BLOCKINGS)
+def test_bcsc_spmm_union_wgmma_nan_in_block_row_0(gen, bk, bn, form):
+    """_nan_in_block_row_0 on the wgmma kernel."""
+    _nan_in_block_row_0(gen, bk, bn, form, "wgmma")
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,9 @@ Tolerances (matdiff normf_rel, kernel against plain on the same inputs):
 summation order shows more than in the forward); 1e-2 for bf16 outputs and
 for dbias from bf16 inputs (p~ and dS are rounded to bf16 against scores
 that differ in the last f32 bits, then the outputs are rounded to bf16).
-bf16 runs the tensor-core kernels (route "wgmma" up to hd 128, "mma"
-past it), f32 the TMA-fed FMA ones (route "tma_fma"); the tests set and
-assert TF32 off.
+bf16 runs the wgmma kernels (route "wgmma": the 128-key plan up to hd
+128, the wide kernels past it), f32 the TMA-fed FMA ones (route
+"tma_fma"); the tests set and assert TF32 off.
 """
 
 import pytest
@@ -95,8 +95,7 @@ def _same(got, want, dtype):
 def test_bwd_kernels_match_plain(gen, dtype, hd, flag):
     fn, args = _bwd_case(gen, 3, 256, hd, dtype, flag)
     assert fn.path == ka.flash_bwd_path(dtype, hd) == (
-        "tma_fma" if dtype == torch.float32 else
-        "wgmma" if hd <= 128 else "mma")
+        "tma_fma" if dtype == torch.float32 else "wgmma")
     before = dict(ka.launches)
     routes = {k: dict(v) for k, v in ka.path_launches.items()}
     got = fn(*args)
@@ -119,10 +118,10 @@ def test_bwd_kernels_match_plain(gen, dtype, hd, flag):
 def test_bwd_tile_configs(gen, dtype, flag, hd, config):
     fn, args = _bwd_case(gen, 2, 384, hd, dtype, flag,
                          block_override=config)
-    # an override only has to tile s on the wgmma (bf16 up to hd 128) and
-    # tma_fma (f32) routes; the mma.sync kernels take the tile within it
+    # an override only has to tile s on the wgmma (bf16) and tma_fma (f32)
+    # routes: each kernel keeps its tile (64 keys past hd 128)
     want = ((None,) * 3 if dtype == torch.float32 else (64, 128, 128)
-            if hd <= 128 else (64, 32, 32))
+            if hd <= 128 else (64, 64, 64))
     assert (fn.block_q, fn.block_k, fn.block_k_dq) == want
     _same(fn(*args), fn.plain(*args), dtype)
 
@@ -208,25 +207,34 @@ def test_bwd_f32_offset_view(gen):
     _same(got, fn.plain(*args), torch.float32)
 
 
-# bf16 head dims past 128, the mma.sync kernels': both buckets
-# (kernels/attention.py _MMA_HDP: 192, 256) and head dims zero-padded into
-# them
+# bf16 head dims past 128, the wide wgmma kernels': both buckets (192,
+# 256) and head dims zero-padded into them
 BUCKET_HDS = [136, 160, 192, 200, 232, 256]
 
 
-@pytest.mark.parametrize("flag", ["plain", "causal_dropout_bias_grad"])
+def _wide(fn):
+    """The wide wgmma plan: dK/dV blocks of 64 keys, dQ 64-key units."""
+    return (fn.path == "wgmma" and fn.block_k == fn.block_k_dq == 64
+            and fn.kernels == {"dkv": "flash_bwd_dkv_wgmma_wide_kernel",
+                               "dq": "flash_bwd_dq_wgmma_wide_kernel"})
+
+
+@pytest.mark.parametrize("flag", FLAGS)
 @pytest.mark.parametrize("hd", BUCKET_HDS)
 def test_bwd_mma_every_bucket(gen, hd, flag):
-    """The mma.sync dK/dV and dQ kernels at every bucket they take, on
-    their 32-column K tile, against their plain versions; the launches
-    count their route."""
+    """The wide wgmma dK/dV and dQ kernels at every bucket they take and
+    every form, against their plain versions; the launches count their
+    route and their kernels."""
     fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, flag)
-    assert fn.path == "mma" and fn.block_k == fn.block_k_dq == 32
+    assert _wide(fn)
     before = {k: dict(v) for k, v in ka.path_launches.items()}
+    kernels = dict(ka.kernel_launches)
     got = fn(*args)
     for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        assert ka.path_launches[k] == dict(before[k], mma=before[k][
-            "mma"] + 1)
+        assert ka.path_launches[k] == dict(before[k], wgmma=before[k][
+            "wgmma"] + 1)
+    assert ka.kernel_launches == dict(
+        kernels, **{n: kernels[n] + 1 for n in fn.kernels.values()})
     _same(got, fn.plain(*args), torch.bfloat16)
 
 
@@ -234,13 +242,13 @@ def test_bwd_mma_every_bucket(gen, hd, flag):
 @pytest.mark.parametrize("s", [384, 640])
 @pytest.mark.parametrize("hd", [192, 256])
 def test_bwd_mma_causal_odd_tile_counts(gen, hd, s, config):
-    """Causal at s = 384 and 640 (6 and 10 Q tiles, 12 and 20 K tiles),
-    with dbias, by default and under the smallest override: the diagonal
-    crosses the tiles, and dbias is zero wherever the key follows the
-    query."""
+    """Causal at s = 384 and 640 (3 and 5 dQ blocks of 128 rows, 6 and 10
+    dK/dV blocks of 64 keys), with dbias, by default and under a small
+    override (the wide kernels keep their tile): the diagonal crosses the
+    tiles, and dbias is zero wherever the key follows the query."""
     fn, args = _bwd_case(gen, 2, s, hd, torch.bfloat16,
                          "causal_dropout_bias_grad", block_override=config)
-    assert fn.path == "mma" and fn.block_k == 32
+    assert _wide(fn)
     got = fn(*args)
     _same(got, fn.plain(*args), torch.bfloat16)
     upper = torch.ones(s, s, dtype=torch.bool, device="cuda").triu(1)
@@ -254,7 +262,7 @@ def test_bwd_mma_dropout_each_gradient(gen, hd):
     kernel's fragments hold keys as rows, so a swapped (i, j) there would
     show in dK^T and dV even where dQ agrees."""
     fn, args = _bwd_case(gen, 2, 256, hd, torch.bfloat16, "dropout")
-    assert fn.path == "mma"
+    assert _wide(fn)
     _each_gradient(fn, args)
 
 
@@ -274,7 +282,7 @@ def _each_gradient(fn, args):
 def test_bwd_mma_bias(gen, hd, flag):
     """Broadcast bias (bias_bh 1) and a per-head bias with dbias."""
     fn, args = _bwd_case(gen, 3, 256, hd, torch.bfloat16, flag)
-    assert fn.path == "mma"
+    assert _wide(fn)
     _same(fn(*args), fn.plain(*args), torch.bfloat16)
 
 
@@ -282,7 +290,7 @@ def test_bwd_mma_unaligned_views(gen):
     """q, kT, v and dout 2-14 bytes past a 16-byte boundary, lse and delta
     4 bytes past one: the wrapper copies them for the 16-byte staging."""
     fn, args = _bwd_case(gen, 2, 256, 200, torch.bfloat16, "causal")
-    assert fn.path == "mma"
+    assert _wide(fn)
     _unaligned(fn, args)
 
 
@@ -304,7 +312,7 @@ def _unaligned(fn, args):
 def test_bwd_mma_deterministic(gen):
     fn, args = _bwd_case(gen, 2, 256, 256, torch.bfloat16,
                          "causal_dropout_bias_grad")
-    assert fn.path == "mma"
+    assert _wide(fn)
     a, b = fn(*args), fn(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -375,7 +383,7 @@ def test_bwd_wgmma_unaligned_views(gen, hd):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_bwd_wgmma_head_map(gen, hd, causal):
     """A head map under dropout: both kernels hash the global batch-head,
     as the plain version does, and other bits than the local index draws."""
@@ -462,10 +470,10 @@ def test_bwd_refusals(gen):
     with pytest.raises(ValueError, match="per-\\(batch\\*head\\)"):
         ka.build_flash_attention_bwd(4, 256, 64, torch.float32, bias_bh=1,
                                      bias_grad=True)
-    assert ka.bwd_configs(256) == [(64, 32)]
-    with pytest.raises(ValueError, match="smaller than every"):
-        ka.build_flash_attention_bwd(4, 256, 256, torch.bfloat16,
-                                     block_override=(64, 16))
+    assert ka.bwd_configs(256) == [(64, 64)]
+    # the wide kernels keep their tile: a small override only has to tile s
+    assert ka.build_flash_attention_bwd(
+        4, 256, 256, torch.bfloat16, block_override=(64, 16)).block_k == 64
     with pytest.raises(ValueError, match="does not tile"):
         ka.build_flash_attention_bwd(4, 256, 256, torch.float32,
                                      block_override=(96, 16))

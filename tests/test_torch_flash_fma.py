@@ -42,11 +42,10 @@ def test_f32_takes_tma_fma_at_every_hd(hd):
     """The dtype picks the kernel: f32 runs tma_fma (one tile per hd
     bucket, so no tile to keep: block_q and block_k are None, and a
     block_override only has to tile s), bf16 the tensor cores (the
-    forward wgmma at every hd; the backward wgmma up to hd 128, mma.sync
-    past it)."""
+    forward and the backward wgmma at every hd)."""
     assert pa.flash_path(F32) == pa.flash_bwd_path(F32, hd) == "tma_fma"
     assert pa.flash_path(BF16, hd) == "wgmma"
-    assert pa.flash_bwd_path(BF16, hd) == ("wgmma" if hd <= 128 else "mma")
+    assert pa.flash_bwd_path(BF16, hd) == "wgmma"
     for override in (None, (128, 128), (256, 128)):
         fn = pa.build_flash_attention(2, 256, hd, F32, causal=True,
                                       block_override=override)
@@ -76,22 +75,23 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
     assert all(c == 0 for counts in pa.path_launches.values()
                for c in counts.values())
     assert set(pa.path_launches["flash_attention_bwd_dq"]) == \
-        {"mma", "tma_fma", "wgmma"} == set(pa.ROUTES)
+        {"tma_fma", "wgmma"} == set(pa.ROUTES)
+    assert all(c == 0 for c in pa.kernel_launches.values())
 
 
 def test_entries_name_the_kernels_of_both_routes():
     """Each counter names the kernels of its routes (bf16 and f32; the
-    bf16 wgmma ones and the backward's mma.sync ones), each defined in
-    its source, and nothing else."""
+    bf16 wgmma ones, the backward's wide ones past hd 128 among them),
+    each defined in its source, and nothing else."""
     for counter, kernels in (
             ("flash_attention_fwd",
              ("flash_fwd_tma_fma_kernel", "flash_fwd_wgmma_kernel")),
             ("flash_attention_bwd_dkv",
-             ("flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_tma_fma_kernel",
-              "flash_bwd_dkv_wgmma_kernel")),
+             ("flash_bwd_dkv_tma_fma_kernel", "flash_bwd_dkv_wgmma_kernel",
+              "flash_bwd_dkv_wgmma_wide_kernel")),
             ("flash_attention_bwd_dq",
-             ("flash_bwd_dq_mma_kernel", "flash_bwd_dq_tma_fma_kernel",
-              "flash_bwd_dq_wgmma_kernel"))):
+             ("flash_bwd_dq_tma_fma_kernel", "flash_bwd_dq_wgmma_kernel",
+              "flash_bwd_dq_wgmma_wide_kernel"))):
         stem, names = pa.ENTRIES[counter]
         assert names == kernels
         text = (CSRC / f"{stem}.cu").read_text()

@@ -1,10 +1,11 @@
 """The flash backward's wgmma route, on the CPU: which bf16 shapes take it
-(`flash_bwd_path`, the predicate that mirrors csrc run: hd up to 128,
-whatever the tile override), the block_override picks, the counters'
-entries, and the port at each hd bucket of the route held against the JAX
-package's `build_flash_attention_bwd` (its Pallas kernels in interpret
-mode) on the same numpy inputs, at every flag and with a head map under
-dropout. The port's wrapper runs its plain version on CPU tensors.
+(`flash_bwd_path`, the predicate that mirrors csrc run: every bf16 hd,
+whatever the tile override; past hd 128 the wide kernels), the
+block_override picks, the counters' entries, and the port at each hd
+bucket of the route (64, 128, 192, 256) held against the JAX package's
+`build_flash_attention_bwd` (its Pallas kernels in interpret mode) on the
+same numpy inputs, at every flag and with a head map under dropout. The
+port's wrapper runs its plain version on CPU tensors.
 
 Tolerance (matdiff normf_rel): 1e-2 for the bf16 gradients and for dbias
 from bf16 inputs (p~ and dS are rounded to bf16 against scores that differ
@@ -40,10 +41,10 @@ TOL = 1e-2
                                       (256, 256)])
 @pytest.mark.parametrize("hd,want", [
     (8, "wgmma"), (40, "wgmma"), (64, "wgmma"), (72, "wgmma"),
-    (128, "wgmma"), (136, "mma"), (192, "mma"), (256, "mma")])
+    (128, "wgmma"), (136, "wgmma"), (192, "wgmma"), (256, "wgmma")])
 def test_route_by_shape_and_override(hd, want, override):
-    """bf16 takes the wgmma kernels at hd <= 128 and the mma.sync ones past
-    it, whatever the override; the built object names the same route; f32
+    """bf16 takes the wgmma kernels at every hd (the wide ones past 128),
+    whatever the override; the built object names the same route; f32
     keeps tma_fma."""
     assert pa.flash_bwd_path(BF16, hd) == want
     fn = pa.build_flash_attention_bwd(2, 256, hd, BF16,
@@ -57,26 +58,28 @@ def test_route_by_shape_and_override(hd, want, override):
         == "tma_fma"
 
 
-@pytest.mark.parametrize("hd", [40, 64, 128])
+@pytest.mark.parametrize("hd", [40, 64, 128, 200, 256])
 @pytest.mark.parametrize("override", [
     None, (128, 128), (512, 512), (128, 64), (64, 128), (64, 32), (512, 32),
     (64, 16)])
 def test_block_override_picks(hd, override):
-    """The wgmma kernels take one tile each (dK/dV 64 x 128, dQ 128 x 128):
-    an override only has to tile s, as on the f32 route; every override the
-    port took before is still taken."""
+    """The wgmma kernels take one tile each (dK/dV 64 x 128 and dQ 128 x
+    128 up to hd 128; past it 64 x 64 and 128 x 64): an override only has
+    to tile s, as on the f32 route; every override the port took before is
+    still taken."""
     fn = pa.build_flash_attention_bwd(2, 512, hd, BF16,
                                       block_override=override)
+    keys = 128 if hd <= 128 else 64
     assert (fn.block_q, fn.block_k, fn.block_q_dq, fn.block_k_dq) == (
-        64, 128, 128, 128)
+        64, keys, 128, keys)
 
 
 def test_block_override_refusals():
     """An override that does not tile s is refused on every route; past hd
-    128 one under the mma.sync kernels' 64 x 32 tile is too."""
-    with pytest.raises(ValueError, match="smaller than every"):
-        pa.build_flash_attention_bwd(2, 256, 256, BF16,
-                                     block_override=(64, 16))
+    128 one under the retired mma.sync kernels' 64 x 32 tile is now
+    taken."""
+    assert pa.build_flash_attention_bwd(
+        2, 256, 256, BF16, block_override=(64, 16)).block_k == 64
     for hd in (64, 256):
         with pytest.raises(ValueError, match="does not tile"):
             pa.build_flash_attention_bwd(2, 256, hd, BF16,
@@ -84,18 +87,20 @@ def test_block_override_refusals():
 
 
 def test_entries_name_the_wgmma_kernels():
-    """Both backward counters name their wgmma kernel beside the mma.sync
-    and tma_fma ones, each a kernel of the source; the route has its own
-    launch counts."""
+    """Both backward counters name their wgmma kernels (the 128-key plan's
+    and the wide ones) beside the tma_fma one, each a kernel of the source;
+    the route has its own launch counts, each kernel its own."""
     src = (CSRC / "attention_bwd_kernels.cu").read_text()
     for counter in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         stem, names = pa.ENTRIES[counter]
         part = counter.rsplit("_", 1)[1]
         assert stem == "attention_bwd_kernels"
-        assert f"flash_bwd_{part}_wgmma_kernel" in names
-        assert f"flash_bwd_{part}_wgmma_kernel(" in src
+        for kernel in (f"flash_bwd_{part}_wgmma_kernel",
+                       f"flash_bwd_{part}_wgmma_wide_kernel"):
+            assert kernel in names and f"{kernel}(" in src
+            assert pa.kernel_launches[kernel] == 0
         assert pa.path_launches[counter]["wgmma"] == 0
-    assert "wgmma" in pa.ROUTES
+    assert "wgmma" in pa.ROUTES and "mma" not in pa.ROUTES
 
 
 # ---------------------------------------------------------------------------
@@ -155,12 +160,13 @@ FLAGS = {
 
 @pytest.mark.parametrize("flag", list(FLAGS))
 @pytest.mark.parametrize("hd,s", [(40, 128), (64, 256), (80, 128),
-                                  (128, 256)])
+                                  (128, 256), (192, 256), (256, 256)])
 def test_wgmma_parity(hd, s, flag):
-    """bf16 backward on the wgmma route at both hd buckets (64: hd 40 and
-    64; 128: hd 80 and 128, zero-padded on the card), each flag, against
-    the JAX package's two backward kernels on the same operands: dQ, dK^T
-    and dV (and dbias) each within the margin."""
+    """bf16 backward on the wgmma route at every hd bucket (64: hd 40 and
+    64; 128: hd 80 and 128, zero-padded on the card; 192 and 256, the wide
+    kernels), each flag, against the JAX package's two backward kernels on
+    the same operands: dQ, dK^T and dV (and dbias) each within the
+    margin."""
     bh = 2
     kw = dict(FLAGS[flag])
     if kw.get("bias_bh") == "bh":
@@ -169,13 +175,14 @@ def test_wgmma_parity(hd, s, flag):
     ref = ra.build_flash_attention_bwd(bh, s, hd, jnp.bfloat16, **kw)(*jargs)
     fn = pa.build_flash_attention_bwd(bh, s, hd, BF16, **kw)
     assert fn.path == "wgmma"
+    keys = 128 if hd <= 128 else 64
     assert (fn.block_q, fn.block_k, fn.block_q_dq, fn.block_k_dq) == (
-        64, 128, 128, 128)
+        64, keys, 128, keys)
     held(ref, fn(*targs))
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_wgmma_head_map_dropout_parity(hd, causal):
     """A block of heads under a head map hashes its global batch-heads: the
     port on batch 1, heads 2-3 of 2 x 4 (head_map (1, 2, 2, 4)) with

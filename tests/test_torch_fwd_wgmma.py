@@ -91,6 +91,8 @@ def test_entries_name_the_wgmma_kernels():
         assert pk.path_launches[counter]["wgmma"] == 0
     assert "bcsc_spmm_wgmma_kernel(" in src
     assert "bcsc_spmm_wgmma_kernel" not in pk.ENTRIES["bcsc_spmm_union"][1]
+    assert "bcsc_union_wgmma_kernel" in pk.ENTRIES["bcsc_spmm_union"][1]
+    assert "bcsc_union_wgmma_kernel(" in src
     assert "wgmma" in pa.ROUTES and "wgmma" in pk.ROUTES
 
 
@@ -98,10 +100,10 @@ def test_entries_name_the_wgmma_kernels():
                                    (32, 96), (64, 32), (96, 64)])
 def test_spmm_wgmma_route_by_blocking(bk, bn):
     """bf16 blocks of whole 32-deep, 32-wide pieces take wgmma in the
-    scheduled and supertile SpMMs and mma.sync in the union; f32 at the
-    same blocking keeps tma_fma."""
+    scheduled and supertile SpMMs and in the union (its own kernel); f32 at
+    the same blocking keeps tma_fma."""
     assert pk.spmm_path(BF16, bk, bn) == "wgmma"
-    assert pk.spmm_path(BF16, bk, bn, union=True) == "mma"
+    assert pk.spmm_path(BF16, bk, bn, union=True) == "wgmma"
     assert pk.spmm_path(F32, bk, bn) == "tma_fma"
 
 

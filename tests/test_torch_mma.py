@@ -51,12 +51,14 @@ def test_spmm_path(dtype, bk, bn, want):
 
 
 @pytest.mark.parametrize("bk,bn,want", [
-    (32, 32, "mma"), (128, 128, "mma"), (64, 128, "mma"), (16, 64, "mma"),
-    (16, 8, "mma"), (8, 8, "fma")])
+    (32, 32, "wgmma"), (128, 128, "wgmma"), (64, 128, "wgmma"),
+    (16, 64, "mma"), (16, 8, "mma"), (48, 32, "mma"), (32, 16, "mma"),
+    (8, 8, "fma")])
 def test_spmm_path_union_keeps_mma(bk, bn, want):
-    """The k-union is its own kernel: bf16 unions stay on mma.sync at every
-    blocking it serves, those the wgmma route takes for the scheduled
-    SpMM included."""
+    """The k-union takes the route the scheduled SpMM takes at its
+    blocking: its own wgmma kernel at whole 32-deep, 32-wide blocks, and
+    mma.sync at the other blockings of whole k16 steps and 16-byte rows,
+    chosen by blocking alone."""
     assert pk.spmm_path(BF16, bk, bn, union=True) == want
 
 
@@ -66,7 +68,7 @@ def test_spmm_path_union_keeps_mma(bk, bn, want):
 def test_spmm_wrappers_name_their_path(a_dt, bk, bn, want):
     """The scheduled wrapper names the route of its blocking, the
     supertile wrapper (128 x 128) wgmma in bf16, and the union wrapper at
-    the same blocking mma.sync where the scheduled one takes wgmma."""
+    the same blocking the same route."""
     k, n = 256, 256
     indptr = np.arange(n // bn + 1, dtype=np.int32)     # one block a column
     indices = np.zeros(n // bn, np.int32)
@@ -79,7 +81,7 @@ def test_spmm_wrappers_name_their_path(a_dt, bk, bn, want):
     assert sup.path == ("wgmma" if a_dt == xp.Datatype.BF16 else "tma_fma")
     union = pk.build_bcsc_spmm_union(shape, xp.SpgemmConfig(1, bk, bn),
                                      indptr, indices, "cpu")
-    assert union.path == ("mma" if want == "wgmma" else want)
+    assert union.path == want
 
 
 def test_flash_path():
@@ -209,16 +211,16 @@ def test_bf16_spmm_mma_shapes_parity(strategy, bk, bn, o_dt):
 # whole k16 steps and 16-byte rows; the reference's names run its own union
 # lowerings (interpret mode), the port's the compacted form (union) or the
 # fused one (union4, union4a with u_align pad slots, union4d at full depth)
-UNION_BLOCKINGS = [(32, 32), (16, 64), (64, 128), (16, 8)]
+UNION_BLOCKINGS = [(32, 32), (16, 64), (64, 128), (128, 128), (16, 8)]
 
 
 @pytest.mark.parametrize("dtype,bk,bn,want", [
-    (BF16, 32, 32, "mma"), (BF16, 16, 64, "mma"), (BF16, 64, 128, "mma"),
+    (BF16, 32, 32, "wgmma"), (BF16, 16, 64, "mma"), (BF16, 64, 128, "wgmma"),
     (BF16, 16, 8, "mma"), (BF16, 8, 8, "fma"), (BF16, 16, 4, "fma"),
     (BF16, 8, 32, "fma"), (F32, 32, 32, "tma_fma"), (F32, 16, 8, "fma")])
 def test_union_wrapper_names_its_path(dtype, bk, bn, want):
-    """The union wrapper takes the tensor-core kernel exactly where the
-    scheduled SpMM does, and the TMA-fed FMA kernel where the scheduled
+    """The union wrapper takes the wgmma and mma.sync kernels exactly where
+    the scheduled SpMM does, and the TMA-fed FMA kernel where the scheduled
     SpMM does and a group holds at most four value blocks (spmm_path with
     union=True; f32 16 x 8: eight blocks a group, the FMA kernel), in both
     forms."""
@@ -272,9 +274,10 @@ def union_pair(shape, bk, bn, bm, strategy):
 @pytest.mark.parametrize("strategy", ["union", "union4", "union4a"])
 @pytest.mark.parametrize("bk,bn", UNION_BLOCKINGS)
 def test_bf16_union_mma_shapes_parity(bk, bn, strategy, o_dt):
-    """bf16 union SpMM at the tensor-core blockings, compacted (union) and
-    fused (union4; union4a with u_align pad slots), m = 208 (a 128-row tile
-    and a ragged one on the card; the reference needs 16 | m for bf16), an
+    """bf16 union SpMM at the tensor-core blockings (32 x 32, 64 x 128 and
+    128 x 128 on wgmma, 16 x 64 and 16 x 8 on mma.sync), compacted (union)
+    and fused (union4; union4a with u_align pad slots), m = 208 (a 128-row
+    tile and a ragged one on the card; the reference needs 16 | m for bf16), an
     empty block column and an empty 128-column group, against the JAX
     package's union lowering. 16 x 8 blocks run at k = 64, which keeps the
     reference's interpret-mode gather of W = 16 blocks a slot short."""
@@ -293,14 +296,15 @@ def test_bf16_union_mma_shapes_parity(bk, bn, strategy, o_dt):
           margin=1e-2 if o_dt == Datatype.BF16 else 1e-4)
 
 
+@pytest.mark.parametrize("bk,bn", [(32, 32), (64, 128)])
 @pytest.mark.parametrize("strategy", ["union", "union4d"])
 @pytest.mark.parametrize("o_dt", [Datatype.F32, Datatype.BF16])
-def test_bf16_union_ragged_m(o_dt, strategy):
+def test_bf16_union_ragged_m(o_dt, strategy, bk, bn):
     """m = 37: the reference refuses the sublane-unaligned m (a Mosaic
     limit), the port serves it (on the card: rows past m zero-filled, not
     stored); union4d pads every group to the full depth with dead slots.
-    Held against the float64 product."""
-    m, k, n, bk, bn = 37, 256, 384, 32, 32
+    Held against the float64 product, at both wgmma blockings."""
+    m, k, n = 37, 256, 384
     (a, v), (at, vt), bm = union_case(m, k, n, bk, bn, seed=37)
     shape = GemmShape(m, n, k, Datatype.BF16, Datatype.BF16, o_dt)
     ref, port = union_pair(shape, bk, bn, bm, strategy)
@@ -339,7 +343,7 @@ def test_bf16_union_clustered_parity(strategy, o_dt):
         xp.GemmShape(m, n, k, xp.Datatype.BF16, xp.Datatype.BF16,
                      xp.Datatype[o_dt.name]), xp.SpgemmConfig(1, bk, bn),
         indptr, indices, "cpu")
-    assert plan.path == "mma"
+    assert plan.path == "wgmma"
     at, vt = (torch.from_numpy(np.asarray(x, np.float32)).to(BF16)
               for x in (a, v))
     got = port(at, vt)

@@ -1,18 +1,20 @@
 """The flash backward's tensor-core forms, on the CPU: which CUDA kernels
-a backward call takes (`flash_bwd_path`, the predicate that mirrors the
-choice csrc makes: the wgmma kernels up to hd 128, mma.sync past it), the
-bf16 tile configurations at every head-dim bucket and the mma.sync
-kernels' shared memory, the f32 configurations unchanged, and the bf16
-wrapper at shapes that reach the tensor-core kernels on the card (hd 64
-and a padded 80 on wgmma, a padded 200 on mma.sync) held against the JAX
-package on the same numpy inputs. The port's wrapper runs its plain
-version on CPU tensors; the JAX side runs as its own tests run it (the
-Pallas kernels in interpret mode).
+a backward call takes (`flash_bwd_path` and `bwd_kernel`, the predicates
+that mirror the choice csrc makes: the wgmma kernels at every bf16 hd, the
+128-key plan up to hd 128 and the wide kernels past it), the bf16 tile
+plan and shared-memory budget of every head-dim bucket, the override
+acceptance, the f32 configurations unchanged, and the bf16 wrapper at
+shapes that reach both plans on the card (hd 64 and a padded 80, a padded
+200) held against the JAX package on the same numpy inputs. The port's
+wrapper runs its plain version on CPU tensors; the JAX side runs as its
+own tests run it (the Pallas kernels in interpret mode).
 
 Tolerance (matdiff normf_rel): 1e-2 for the bf16 gradients (p~ and dS are
 rounded to bf16 against scores that differ in the last f32 bits, then each
 output is rounded to bf16) and for dbias from bf16 inputs.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -32,74 +34,93 @@ TOL = 1e-2
 
 
 def test_flash_bwd_path():
-    """bf16 takes the wgmma kernels up to hd 128 and the mma.sync ones past
-    it, whatever the tile override; f32 the TMA-fed FMA ones (no TF32)."""
-    assert pa.flash_bwd_path(BF16, 40) == "wgmma"
-    assert pa.flash_bwd_path(BF16, 128) == "wgmma"
-    assert pa.flash_bwd_path(BF16, 136) == "mma"
+    """bf16 takes the wgmma kernels at every hd, whatever the tile override
+    (the wide ones past hd 128); f32 the TMA-fed FMA ones (no TF32)."""
+    for hd in (40, 128, 136, 256):
+        assert pa.flash_bwd_path(BF16, hd) == "wgmma"
+    assert pa.flash_bwd_path(BF16) == "wgmma"
     assert pa.flash_bwd_path(F32) == "tma_fma"
-    with pytest.raises(ValueError, match="depends on hd"):
-        pa.flash_bwd_path(BF16)
+    for hd, plan in ((40, "wgmma"), (128, "wgmma"), (136, "wgmma_wide"),
+                     (256, "wgmma_wide")):
+        assert pa.bwd_kernel("dq", BF16, hd) == f"flash_bwd_dq_{plan}_kernel"
+        assert pa.bwd_kernel("dkv", BF16, hd) == \
+            f"flash_bwd_dkv_{plan}_kernel"
+        assert pa.bwd_kernel("dkv", F32, hd) == "flash_bwd_dkv_tma_fma_kernel"
     assert pa.build_flash_attention_bwd(2, 128, 40, BF16).path == "wgmma"
     assert pa.build_flash_attention_bwd(
         2, 128, 40, BF16, block_override=(64, 64)).path == "wgmma"
-    assert pa.build_flash_attention_bwd(2, 128, 136, BF16).path == "mma"
+    wide = pa.build_flash_attention_bwd(2, 128, 136, BF16)
+    assert wide.path == "wgmma" and wide.kernels == {
+        "dkv": "flash_bwd_dkv_wgmma_wide_kernel",
+        "dq": "flash_bwd_dq_wgmma_wide_kernel"}
     assert pa.build_flash_attention_bwd(2, 128, 40, F32).path == "tma_fma"
+
+
+# (dK/dV, dQ) shared memory of a block by padded hd: csrc fw_dkv_smem and
+# fw_dq_smem (64, 128), fw_dkv_wide_smem and fw_dq_wide_smem (192, 256)
+SMEM = {64: (84536, 99368), 128: (166456, 197672), 192: (182312, 197704),
+        256: (198696, 230456)}
 
 
 @pytest.mark.parametrize("kernel", ["dkv", "dq"])
 @pytest.mark.parametrize("hd,hdp", [
-    (8, 32), (32, 32), (40, 64), (64, 64), (80, 96), (96, 96), (104, 128),
+    (8, 64), (32, 64), (40, 64), (64, 64), (80, 128), (96, 128), (104, 128),
     (128, 128), (136, 192), (192, 192), (200, 256), (256, 256)])
 def test_bf16_bwd_configs(hd, hdp, kernel):
-    """Up to a padded 128 the wgmma tile (128 K columns), past it the
-    mma.sync kernels' 32-column K tile, whose shared memory fits a block;
-    the mma.sync buckets are 192 and 256 only."""
-    if hdp <= 128:
-        with pytest.raises(ValueError, match="wgmma"):
-            pa._mma_hdp(hd)
-    else:
-        assert pa._mma_hdp(hd) == hdp
+    """The tile plan by hd bucket: up to a padded 128 dK/dV 64-row Q tiles
+    against a block of 128 keys and dQ 128 rows against 128-key tiles;
+    past it (the wide kernels) blocks of 64 keys and 64-key tiles; one tile
+    a kernel, which the built object names, and a block's shared memory
+    within 227 KB."""
+    assert pa._bwd_hdp(hd) == hdp
     configs = pa.bwd_configs(hd, kernel, BF16)
-    wg = (64, 128) if kernel == "dkv" else (128, 128)
-    assert configs == ([wg] if hdp <= 128 else [(64, 32)])
-    if hdp > 128:
-        assert pa._bwd_smem_bytes(hd, 32, kernel, BF16) <= SMEM_MAX
+    keys = 128 if hdp <= 128 else 64
+    assert configs == [(64, keys) if kernel == "dkv" else (128, keys)]
+    smem = pa._bwd_smem_bytes(hd, kernel, BF16)
+    assert smem == SMEM[hdp][kernel == "dq"] <= SMEM_MAX
     fn = pa.build_flash_attention_bwd(2, 256, hd, BF16)
-    if hdp <= 128:
-        assert (fn.path, fn.block_q, fn.block_k, fn.block_q_dq,
-                fn.block_k_dq) == ("wgmma", 64, 128, 128, 128)
-    else:
-        assert (fn.path, fn.block_q, fn.block_k, fn.block_k_dq) == (
-            "mma", 64, 32, 32)
+    assert (fn.path, fn.block_q, fn.block_k, fn.block_q_dq,
+            fn.block_k_dq) == ("wgmma", 64, keys, 128, keys)
+    assert fn.name.endswith(f"_wgmma_bk{keys}_{keys}")
 
 
 def test_bf16_bwd_smem_bytes():
-    """dK/dV: K^T (hdp x bk), V (bk x hdp), two Q and two dO (64 x hdp),
-    bf16 with rows padded by 8 elements, and two lse and delta rows of 64
-    f32; dQ: Q and dO, two K^T and two V tiles (csrc dkv_mma_smem,
-    dq_mma_smem); past hd 128 only, where the mma.sync kernels serve."""
-    for hd, bk, dkv, dq in ((256, 64, 206848, 208896),
-                            (256, 32, 173568, 142336),
-                            (192, 32, 131584, 107520),
-                            (136, 32, 131584, 107520)):
-        assert pa._bwd_smem_bytes(hd, bk, "dkv", BF16) == dkv, (hd, bk)
-        assert pa._bwd_smem_bytes(hd, bk, "dq", BF16) == dq, (hd, bk)
-    for hd in (40, 64, 128):
-        with pytest.raises(ValueError, match="wgmma"):
-            pa._bwd_smem_bytes(hd, 32, "dkv", BF16)
+    """dK/dV: the alignment slack, K^T and V of the block's keys, a ring of
+    64-row Q and dO tiles with their lse and delta rows (three stages up to
+    hd 128; past it two, the tiles 256 columns wide) and its barriers; dQ:
+    Q and dO of 128 rows, two 128-key K^T and V stages up to hd 128, past
+    it three or four 64-key K^T or V units (csrc xsmm_flash_wgmma.cuh),
+    mirrored term by term; the C header's static assertion holds the same
+    budgets."""
+    for hdp, (dkv, dq) in SMEM.items():
+        keys = 128 if hdp <= 128 else 64
+        stages, width = (3, hdp) if hdp <= 128 else (2, 256)
+        assert dkv == (1024 + 2 * keys * hdp * 2
+                       + stages * (2 * 64 * width * 2 + 2 * 64 * 4)
+                       + (2 * stages + 1) * 8)
+        units, unit = ((2, 2 * 128 * hdp * 2) if hdp <= 128 else
+                       (4 if hdp <= 192 else 3, 64 * hdp * 2))
+        assert dq == (1024 + 2 * 128 * hdp * 2 + units * unit
+                      + (2 * units + 1) * 8)
+        assert pa._bwd_smem_bytes(hdp, "dkv", BF16) == dkv
+        assert pa._bwd_smem_bytes(hdp, "dq", BF16) == dq
+    head = (pathlib.Path(pa.__file__).parent / "csrc"
+            / "xsmm_flash_wgmma.cuh").read_text()
+    for fn in ("fw_dkv_wide_smem(192)", "fw_dkv_wide_smem(256)",
+               "fw_dq_wide_smem(192)", "fw_dq_wide_smem(256)"):
+        assert f"{fn} <= TF_SMEM_MAX" in head
 
 
 def test_f32_bwd_configs_keep_their_values():
     """The configurations are the bf16 kernels' (the default dtype); the
     f32 kernels take one tile per hd bucket, so f32 has none to pick."""
     for hd, want in ((32, [(64, 128)]), (128, [(64, 128)]),
-                     (192, [(64, 32)]), (256, [(64, 32)])):
+                     (192, [(64, 64)]), (256, [(64, 64)])):
         assert pa.bwd_configs(hd) == pa.bwd_configs(hd, "dkv", BF16) == want
-    assert pa._bwd_smem_bytes(256, 32) == \
-        pa._bwd_smem_bytes(256, 32, "dkv", BF16) == 173568
+    assert pa._bwd_smem_bytes(256) == \
+        pa._bwd_smem_bytes(256, "dkv", BF16) == 198696
     for call in (lambda: pa.bwd_configs(128, "dq", F32),
-                 lambda: pa._bwd_smem_bytes(256, 32, "dkv", F32)):
+                 lambda: pa._bwd_smem_bytes(256, "dkv", F32)):
         with pytest.raises(ValueError, match="one tile per hd bucket"):
             call()
     fn = pa.build_flash_attention_bwd(2, 256, 128, F32)
@@ -109,21 +130,16 @@ def test_f32_bwd_configs_keep_their_values():
 
 @pytest.mark.parametrize("hd", [40, 64, 128, 256])
 def test_bf16_bwd_block_override_picks(hd):
-    """Up to hd 128 an override only has to tile s: the wgmma kernels keep
-    their one tile each. Past it the TPU tile stays an upper bound on the
-    mma.sync kernels' 32-column tile, and one under it is refused."""
-    wide = hd <= 128
+    """An override only has to tile s, at every hd: the wgmma kernels keep
+    their one tile each (the wide ones' past hd 128), and every override
+    the port took before is still taken, (64, 16) past hd 128 too."""
+    keys = 128 if hd <= 128 else 64
     for override in ((128, 128), (64, 32), (256, 64), (64, 16)):
-        if not wide and override == (64, 16):
-            with pytest.raises(ValueError, match="smaller than every"):
-                pa.build_flash_attention_bwd(2, 256, hd, BF16,
-                                             block_override=override)
-            continue
         fn = pa.build_flash_attention_bwd(2, 256, hd, BF16,
                                           block_override=override)
         assert (fn.block_q, fn.block_k, fn.block_q_dq, fn.block_k_dq) == (
-            (64, 128, 128, 128) if wide else (64, 32, 64, 32))
-        assert fn.path == ("wgmma" if wide else "mma")
+            64, keys, 128, keys)
+        assert fn.path == "wgmma"
 
 
 def bwd_operands(bh, s, hd, kw, seed):
@@ -168,8 +184,8 @@ FLAGS = {
 @pytest.mark.parametrize("flag", list(FLAGS))
 @pytest.mark.parametrize("hd,s", [(64, 256), (80, 128), (200, 128)])
 def test_bf16_bwd_mma_shapes_parity(hd, s, flag):
-    """bf16 backward at hd 64 and 80 (the wgmma route; 80 padded to 128)
-    and 200 (the mma.sync route, padded to 256), each flag, against the JAX
+    """bf16 backward at hd 64 and 80 (the 128-key plan; 80 padded to 128)
+    and 200 (the wide kernels, padded to 256), each flag, against the JAX
     package's two backward kernels on the same operands: dQ, dK^T and dV
     (and dbias) each within the margin."""
     bh = 2
@@ -179,9 +195,9 @@ def test_bf16_bwd_mma_shapes_parity(hd, s, flag):
     jargs, targs = bwd_operands(bh, s, hd, kw, seed=hd + s)
     ref = ra.build_flash_attention_bwd(bh, s, hd, jnp.bfloat16, **kw)(*jargs)
     fn = pa.build_flash_attention_bwd(bh, s, hd, BF16, **kw)
-    assert fn.path == ("wgmma" if hd <= 128 else "mma")
+    assert fn.path == "wgmma"
     assert (fn.block_k, fn.block_k_dq) == ((128, 128) if hd <= 128
-                                           else (32, 32))
+                                           else (64, 64))
     got = fn(*targs)
     assert len(got) == len(ref) == (4 if kw.get("bias_grad") else 3)
     for i, (r, g) in enumerate(zip(ref, got)):

@@ -59,12 +59,12 @@ def pshape(m, n, k, o_dt=F32):
     (torch.float32, 16, 16, True, "fma"), (torch.float32, 8, 4, True, "fma"),
     (torch.bfloat16, 8, 8, False, "fma"), (torch.bfloat16, 4, 48, False, "fma"),
     (torch.bfloat16, 32, 32, False, "wgmma"),
-    (torch.bfloat16, 32, 32, True, "mma"),
+    (torch.bfloat16, 32, 32, True, "wgmma"),
     (torch.bfloat16, 16, 8, True, "mma")])
 def test_route_planner(dtype, bk, bn, union, want):
     """f32 blocks of whole 16-byte units take tma_fma (the union only with
     at most four value blocks a group); bf16 of whole 32-deep, 32-wide
-    pieces wgmma outside the union; other bf16 of whole k16 steps and
+    pieces wgmma, in the union too; other bf16 of whole k16 steps and
     16-byte rows mma; the rest fma."""
     assert pk.spmm_path(dtype, bk, bn, union) == want
 
