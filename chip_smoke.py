@@ -10,11 +10,10 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
 2. builds the hand-written kernels from libxsmm_torch/kernels/csrc/ with
    nvcc for sm_90a (one nvcc per source, all started together) and prints
    the build time, the spills per source and the registers and spills of
-   each pipelined kernel (the bf16 flash forward on wgmma, the backward on
-   wgmma and on mma.sync, the BCSC SpMM on wgmma and on mma.sync, the k-union SpMM on
-   mma.sync, both SpMMs on tma_fma (f32), the packed BRGEMM's wgmma and
-   tma_fma kernels
-   and twins, the batched SMM's ring kernel, the BCSC lab's chunkN and
+   each pipelined kernel (the bf16 flash forward and backward on wgmma,
+   the BCSC scheduled and k-union SpMMs on wgmma at every instantiation,
+   both SpMMs on tma_fma (f32), the packed BRGEMM's wgmma and tma_fma
+   kernels and twins, the batched SMM's ring kernel, the BCSC lab's chunkN and
    dspipe probes, the BCSC densifier's two routes);
 3. drives the small-GEMM main path through the public entry points, with
    every kernel's launch count set to 0 just before and read just after:
@@ -105,9 +104,10 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
    result against the float64 dense product; the bf16 cases' "pallas",
    "super" and union strategies must take the wgmma kernels, and the f32
    cases the TMA-fed FMA kernels (the path predicate and every call's
-   launch by route, asserted); "pallas", "union4" and "union" at 16 x 64
-   bf16 blocks the mma.sync kernels (asserted, against float64); union,
-   union2 and union3 must
+   launch by route, asserted); "pallas", "union4" and "union" at the
+   narrow bf16 blockings 16 x 64, 16 x 8 and 48 x 32 the wgmma kernels'
+   16-deep slices and narrow boxes (asserted by launches, against float64
+   and against the plain versions); union, union2 and union3 must
    launch the RHS compactor and the union4 names and union5 must not (the
    counter read around each call); prints the auto picks, the clustering
    decision and both union depths; fails unless all five kernels were
@@ -259,8 +259,10 @@ toolkit's nvcc, and imports nothing of JAX or libxsmm_tpu. In order:
     kernel's own products and of the useful ones) and the kernel / library
     ratio; the bf16 forward's wgmma kernel past hd 128 and the backward's
     wide wgmma kernels get rows of their own at (16, 1024, 256), the
-    scheduled and union SpMMs' mma.sync kernels at 16 x 64 blocks; the
-    wgmma rows (flash forward, scheduled, union and supertile SpMM) carry
+    scheduled and union SpMMs' narrow wgmma plan at 16 x 64 blocks
+    (bcsc_spmm_16x64, bcsc_spmm_union_16x64, with ptxas' registers, the
+    instantiation each form launched held to wgmma_plan on a line of its
+    own); the wgmma rows (flash forward, scheduled, union and supertile SpMM) carry
     device time and CUDA-graph replay beside their events, and
     the flash wgmma kernels' forms at both flash shapes, causal and not,
     come from scripts/flash_bwd_time.fwd_rows_at and rows_at beside SDPA's
@@ -391,6 +393,9 @@ SPARSE_KERNELS = ("bcsc_spmm", "bcsc_spmm_union", "bcsc_densify",
 SPARSE_KERNEL_OF = {"pallas": ("bcsc_spmm",), "super": ("bcsc_spmm_super",),
                     "dense": ("bcsc_densify",), "sparse": ()}
 COMPACTED = ("union", "union2", "union3")
+# bf16 blockings of the wgmma route that are not whole 32-wide pieces, on
+# the sparse path at m = 1024 (16 x 64 also at the streaming case's rows)
+NARROW_BLOCKINGS = ((16, 64), (16, 8), (48, 32))
 # the pipelined Hopper kernels (tensor-core, TMA- and bulk-copy-fed) and
 # the densifier's two routes:
 # (source stem, kernel name in the ptxas report)
@@ -398,9 +403,7 @@ MMA_KERNELS = (("gemm_kernels", "brgemm_partial_wgmma_kernel"),
                ("gemm_kernels", "brgemm_partial_tma_fma_kernel"),
                ("gemm_kernels", "batched_gemm_ring_kernel"),
                ("spmm_kernels", "bcsc_spmm_wgmma_kernel"),
-               ("spmm_kernels", "bcsc_spmm_mma_kernel"),
                ("spmm_kernels", "bcsc_union_wgmma_kernel"),
-               ("spmm_kernels", "bcsc_union_mma_kernel"),
                ("spmm_kernels", "bcsc_spmm_tma_fma_kernel"),
                ("spmm_kernels", "bcsc_union_tma_fma_kernel"),
                ("attention_kernels", "flash_fwd_wgmma_kernel"),
@@ -1054,10 +1057,11 @@ def sparse_path(randn, dev):
     case, an f32 case at m 4096 and the f32 streaming case at full width
     (m 32768), each against the float64 dense product, each SpMM call held
     to its route (bf16 at 32 x 32: wgmma; f32: tma_fma), and the scheduled
-    and union kernels at 16 x 64 blocks in bf16 (their mma.sync route,
-    the union in both forms). Returns the phases (to
-    time), the counts, the launches by route (all, and the f32 cases'),
-    auto's picks and the streaming operands the per-kernel rows reuse."""
+    and union kernels at the narrow bf16 blockings (NARROW_BLOCKINGS: the
+    wgmma route's 16-deep slices and narrow value boxes, the union in both
+    forms). Returns the phases (to time), the counts, the launches by route
+    (all, and the f32 cases'), the narrow blockings' launches, auto's picks
+    and the streaming operands the per-kernel rows reuse."""
     import numpy as np
 
     import libxsmm_torch as xt
@@ -1194,50 +1198,56 @@ def sparse_path(randn, dev):
         f32_counts[rows_] = {k_: {r: now[k_][r] - before[k_][r]
                                   for r in now[k_]} for k_ in now}
 
-    # bf16 at 16 x 64 blocks (the bcsc20 pattern's density from
-    # default_rng(2)): the scheduled and union SpMMs' mma.sync kernels, the
-    # only blocking of the path they serve, held against float64 with their
-    # routes asserted by launches (the union in both forms)
-    rng = np.random.default_rng(2)
-    b16 = _bcsc_pattern(rng, k, n, 16, 64, 0.2)
-    a16 = on_dev(rng.standard_normal((m, k)), bf16)
-    v16 = on_dev(b16.data, bf16)
-    s16 = GemmShape(m, n, k, BF16, BF16, F32)
-    cfg16 = SpgemmConfig(1, 16, 64)
-    sched16 = xt.create_packed_spgemm_bcsc(
-        s16, GemmFlags.BETA_0, cfg16, b16.indptr, b16.indices,
-        strategy="pallas")
-    for union in (False, True):
-        what = "union" if union else "scheduled"
-        if KS.spmm_path(bf16, 16, 64, union) != "mma":
-            raise AssertionError(f"bcsc 16x64: the {what} SpMM takes "
-                                 f"{KS.spmm_path(bf16, 16, 64, union)}")
-    routes = _routes(KS)
-    got16 = run("bcsc 16x64 pallas", ("bcsc_spmm",), sched16, a16, v16)
-    _took_route("bcsc 16x64 pallas", routes, ["bcsc_spmm"], "mma", KS)
-    d16 = KS.build_bcsc_densify(s16, cfg16, b16.indptr, b16.indices,
-                                dev).plain(v16)
-    err16 = _check("bcsc 16x64 pallas vs float64", a16.double() @ d16.double(),
-                   got16, TOL_SPARSE_BF16, (m, n))
-    print(f"  bcsc 16x64 (1024^3, {b16.nblocks} blocks) pallas [mma]: "
-          f"normf_rel vs float64 {err16:.3e}")
-    for strat in ("union4", "union"):
-        u16 = xt.create_packed_spgemm_bcsc(
-            s16, GemmFlags.BETA_0, cfg16, b16.indptr, b16.indices,
-            strategy=strat)
-        if u16.name.split("_")[3] != strat:
-            raise AssertionError(f"bcsc 16x64 {strat}: built {u16.name}")
-        kernels = ("bcsc_spmm_union",) + (
-            ("bcsc_union_compact",) if strat in COMPACTED else ())
-        routes = _routes(KS)
-        gotu = run(f"bcsc 16x64 {strat}", kernels, u16, a16, v16)
-        _took_route(f"bcsc 16x64 {strat}", routes, ["bcsc_spmm_union"],
-                    "mma", KS)
-        erru = _check(f"bcsc 16x64 {strat} vs float64",
-                      a16.double() @ d16.double(), gotu, TOL_SPARSE_BF16,
-                      (m, n))
-        print(f"  bcsc 16x64 {strat} [mma]: normf_rel vs float64 "
-              f"{erru:.3e}")
+    # bf16 at the narrow blockings, the bcsc20 pattern's density from
+    # default_rng(2): 16 x 64, 16 x 8 and 48 x 32 blocks (k 1008 at bk 48),
+    # the scheduled and union SpMMs (both forms) on the wgmma route's
+    # 16-deep slices, held against float64 and against their plain
+    # versions, the route asserted by launches; their launches by blocking
+    narrow = {}
+    for nbk, nbn in NARROW_BLOCKINGS:
+        tag = f"bcsc {nbk}x{nbn}"
+        nk = k - k % nbk
+        rng = np.random.default_rng(2)
+        bnar = _bcsc_pattern(rng, nk, n, nbk, nbn, 0.2)
+        anar = on_dev(rng.standard_normal((m, nk)), bf16)
+        vnar = on_dev(bnar.data, bf16)
+        snar = GemmShape(m, n, nk, BF16, BF16, F32)
+        cfgn = SpgemmConfig(1, nbk, nbn)
+        for union in (False, True):
+            if KS.spmm_path(bf16, nbk, nbn, union) != "wgmma":
+                raise AssertionError(
+                    f"{tag}: the {'union' if union else 'scheduled'} SpMM "
+                    f"takes {KS.spmm_path(bf16, nbk, nbn, union)}")
+        dnar = KS.build_bcsc_densify(snar, cfgn, bnar.indptr, bnar.indices,
+                                     dev).plain(vnar)
+        want = anar.double() @ dnar.double()
+        before = {c: _count(c) for c in ("bcsc_spmm", "bcsc_spmm_union")}
+        for strat in ("pallas", "union4", "union"):
+            kern = xt.create_packed_spgemm_bcsc(
+                snar, GemmFlags.BETA_0, cfgn, bnar.indptr, bnar.indices,
+                strategy=strat)
+            if kern.name.split("_")[3] != strat:
+                raise AssertionError(f"{tag} {strat}: built {kern.name}")
+            counter = "bcsc_spmm" if strat == "pallas" else "bcsc_spmm_union"
+            kernels = (counter,) + (
+                ("bcsc_union_compact",) if strat in COMPACTED else ())
+            routes = _routes(KS)
+            got = run(f"{tag} {strat}", kernels, kern, anar, vnar)
+            _took_route(f"{tag} {strat}", routes, [counter], "wgmma", KS)
+            err = _check(f"{tag} {strat} vs float64", want, got,
+                         TOL_SPARSE_BF16, (m, n))
+            plain = (KS.build_bcsc_spmm(snar, cfgn, bnar.indptr,
+                                        bnar.indices, dev)
+                     if strat == "pallas" else
+                     KS.build_bcsc_spmm_union(snar, cfgn, bnar.indptr,
+                                              bnar.indices, dev,
+                                              compact=strat == "union"))
+            perr = _check(f"{tag} {strat} vs plain", plain.plain(anar, vnar),
+                          got, TOL_SPARSE_BF16, (m, n))
+            print(f"  {tag} ({m}x{n}x{nk}, {bnar.nblocks} blocks) {strat} "
+                  f"[wgmma]: normf_rel vs float64 {err:.3e}, vs plain "
+                  f"{perr:.3e}")
+        narrow[(nbk, nbn)] = {c: _count(c) - before[c] for c in before}
 
     # ragged: 1000 rows (the last 64-row tile cut) through bcsc05
     bcsc, v = pats[0.05]
@@ -1257,7 +1267,7 @@ def sparse_path(randn, dev):
                              f"{missing}")
     bcsc, v = pats[0.2]
     return {"phases": phases, "counts": counts, "f32_counts": f32_counts,
-            "routes": _routes(KS), "auto": picks,
+            "routes": _routes(KS), "auto": picks, "narrow": narrow,
             "stream": (sshape, cfg, bcsc, a_stream, v), "small": small}
 
 
@@ -1819,6 +1829,46 @@ def cnn_breakdown(convs, cnn, ms):
           f" train step {t_step:.4f} ms")
 
 
+def _regs(kernel, args):
+    """[registers, spill store bytes, spill load bytes] of the one
+    instantiation of spmm_kernels.cu's `kernel` whose mangled template
+    arguments hold `args`, from this process's build (None when the
+    library was built before it)."""
+    from libxsmm_torch.kernels import _build
+    found = [list(r[1:]) for r in _build.kernel_resources("spmm_kernels",
+                                                           kernel)
+             if args in r[0]]
+    return found[0] if len(found) == 1 else None
+
+
+def _launched_plan(label, fn, args, bk, bn, union=False, compact=False):
+    """Call `fn` once between two reads of the libraries' launch logs and
+    hold the wgmma instantiation it launched to kernels.spmm.wgmma_plan's
+    tile at the blocking (the scheduled kernel's TN and KC; the union's
+    KC, box and pair width, and its form); print the plan and the entry
+    on a line of their own. Raises unless exactly that one instantiation
+    ran."""
+    from libxsmm_torch import lowering
+    from libxsmm_torch.kernels import _build
+    from libxsmm_torch.kernels import spmm as KS
+    plan = KS.wgmma_plan(bk, bn, union=union, compact=compact)
+    torch.cuda.synchronize()
+    before = _build.launch_log()
+    fn(*args)
+    torch.cuda.synchronize()
+    ran = [e for e in lowering.launched_entries(
+        before, _build.launch_log()).get("spmm_kernels", {}) if "wgmma" in e]
+    if union:
+        want = (f"bcsc_union_wgmma_kernelIfLi{plan['kc']}ELi{plan['box']}E"
+                f"Li{32 if bn % 32 == 0 else 8}ELb{int(compact)}E")
+    else:
+        want = f"bcsc_spmm_wgmma_kernelIfLi{plan['tn']}ELi{plan['kc']}E"
+    if len(ran) != 1 or want not in ran[0]:
+        raise AssertionError(f"{label}: launched {ran}, the plan names "
+                             f"{want}")
+    print(f"  {label} wgmma plan {json.dumps(plan)}, launched {ran[0]}")
+
+
 def mma_rate(row, flops, useful):
     """Print a tensor-core kernel's achieved rate (its own products and the
     useful ones, over its time in this run) and its ratio to the library
@@ -1829,13 +1879,17 @@ def mma_rate(row, flops, useful):
           f"kernel / library {row['ms'] / row['library_ms']:.3f}")
 
 
-def sparse_rows(record, rows, stream, small, ms, geo, routes):
+def sparse_rows(record, rows, stream, small, ms, geo, routes, narrow):
     """The five sparse kernels at the streaming case, each against its
     plain version; the scheduled, supertile and union SpMMs on their wgmma
     route (device time and CUDA-graph replay beside events, launches: the
-    path's on that route) and the scheduled and union SpMMs once more on
-    their mma.sync route, at 16 x 64 blocks ("bcsc_spmm_mma",
-    "bcsc_spmm_union_mma"; launches: the path's 16 x 64 cases). Bound:
+    path's on that route) and the scheduled and union SpMMs once more at
+    16 x 64 blocks, the wgmma route's narrow plan ("bcsc_spmm_16x64",
+    "bcsc_spmm_union_16x64", the union's compacted form as compact_ms;
+    launches: the path's 16 x 64 cases; `regs`: ptxas' registers and spill
+    bytes of the instantiation that ran, from this process's build; the
+    instantiation each 16 x 64 form launches, read from the launch log,
+    held to kernels.spmm.wgmma_plan and printed with it). Bound:
     A, the kernel's value operand and C each moved once, and the useful
     products 2 * nblocks * bk * bn * m at the bf16 tensor cores' peak.
     Yardstick for the SpMM kernels: torch.mm on the densified B with an
@@ -1879,14 +1933,14 @@ def sparse_rows(record, rows, stream, small, ms, geo, routes):
            device_ms=device_ms(lambda: sched(a, v)),
            launches=routes["bcsc_spmm"]["wgmma"])
     mma_rate(rows[-1], useful, useful)
-    # the scheduled kernel's mma.sync route, at 16 x 64 blocks of the same
+    # the scheduled kernel's narrow plan, at 16 x 64 blocks of the same
     # density through the same A (its pattern from default_rng(2)), beside
     # torch.mm on its densified B; launches: the path's 16 x 64 case
     b16 = _bcsc_pattern(np.random.default_rng(2), k, n, 16, 64, 0.2)
     cfg16 = SpgemmConfig(1, 16, 64)
     v16 = torch.as_tensor(b16.data, device=dev).to(torch.bfloat16)
     s16 = KS.build_bcsc_spmm(shape, cfg16, b16.indptr, b16.indices, dev)
-    if s16.path != "mma":
+    if s16.path != "wgmma":
         raise AssertionError(f"bcsc_spmm at 16 x 64 took {s16.path}")
     d16 = KS.build_bcsc_densify(shape, cfg16, b16.indptr, b16.indices,
                                 dev).plain(v16)
@@ -1894,8 +1948,12 @@ def sparse_rows(record, rows, stream, small, ms, geo, routes):
     lib16 = ms(lambda x, y: torch.mm(x, y, out_dtype=torch.float32), a, d16)
     record("bcsc_spmm", src, "libxsmm_tpu/kernels/spmm_pallas.py:88", s16,
            (a, v16), TOL_SPARSE_BF16, io + 2 * v16.numel(), useful16, peak,
-           lib16, path=s16.path, shape=[m, n, k, 16, 64])
-    rows[-1].update(name="bcsc_spmm_mma", launches=routes["bcsc_spmm"]["mma"])
+           lib16, path=s16.path, shape=[m, n, k, 16, 64],
+           regs=_regs("bcsc_spmm_wgmma_kernel", "IfLi64ELi16E"),
+           device_ms=device_ms(lambda: s16(a, v16)))
+    rows[-1].update(name="bcsc_spmm_16x64",
+                    launches=narrow[(16, 64)]["bcsc_spmm"])
+    _launched_plan("bcsc_spmm_16x64", s16, (a, v16), 16, 64)
     mma_rate(rows[-1], useful16, useful16)
     union = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev)
     union_c = KS.build_bcsc_spmm_union(shape, cfg, indptr, indices, dev,
@@ -1922,21 +1980,40 @@ def sparse_rows(record, rows, stream, small, ms, geo, routes):
           f"{t_c:.4f} ms, {own / t_c / 1e9:.1f} TFLOP/s of its own products,"
           f" {useful / t_c / 1e9:.1f} TFLOP/s useful; kernel / library "
           f"{t_c / lib_mm:.3f}; {live} live slots of {union.nsg * union.U}")
-    # the union's mma.sync kernel at the 16 x 64 blocks above (the fused
-    # form; the path holds both forms), beside torch.mm on their densified
-    # B; launches: the path's 16 x 64 unions
+    # the union's narrow plan at the 16 x 64 blocks above, the fused form
+    # timed (ms) and the compacted one (compact_ms, the compactor
+    # included), each held against its plain version, beside torch.mm on
+    # their densified B; launches: the path's 16 x 64 unions
     u16 = KS.build_bcsc_spmm_union(shape, cfg16, b16.indptr, b16.indices,
                                    dev)
-    if u16.path != "mma":
-        raise AssertionError(f"bcsc_spmm_union at 16 x 64 took {u16.path}")
+    u16c = KS.build_bcsc_spmm_union(shape, cfg16, b16.indptr, b16.indices,
+                                    dev, compact=True)
+    if (u16.path, u16c.path) != ("wgmma", "wgmma"):
+        raise AssertionError(f"bcsc_spmm_union at 16 x 64 took {u16.path} "
+                             f"/ {u16c.path}")
+    _check("bcsc_spmm_union 16x64 compacted form vs plain",
+           u16c.plain(a, v16), u16c(a, v16), TOL_SPARSE_BF16)
     record("bcsc_spmm_union", src, "libxsmm_tpu/kernels/spmm_pallas.py:258",
            u16, (a, v16), TOL_SPARSE_BF16, io + 2 * v16.numel(), useful16,
-           peak, lib16, path=u16.path, shape=[m, n, k, 16, 64])
-    rows[-1].update(name="bcsc_spmm_union_mma",
-                    launches=routes["bcsc_spmm_union"]["mma"])
+           peak, lib16, path=u16.path, shape=[m, n, k, 16, 64],
+           compact_ms=ms(u16c, a, v16),
+           regs=_regs("bcsc_union_wgmma_kernel", "IfLi16ELi64ELi32ELb0E"),
+           compact_regs=_regs("bcsc_union_wgmma_kernel",
+                              "IfLi16ELi64ELi32ELb1E"),
+           device_ms=device_ms(lambda: u16(a, v16)))
+    rows[-1].update(name="bcsc_spmm_union_16x64",
+                    launches=narrow[(16, 64)]["bcsc_spmm_union"])
+    for form, fn_ in (("fused", u16), ("compacted", u16c)):
+        _launched_plan(f"bcsc_spmm_union_16x64 {form}", fn_, (a, v16), 16,
+                       64, union=True, compact=fn_ is u16c)
     live16 = (u16.gmap.view(u16.nsg, u16.U, u16.W)
               != u16.nblocks).any(-1).sum().item()
     mma_rate(rows[-1], 2 * m * live16 * 16 * KS.GROUP, useful16)
+    t_c = rows[-1]["compact_ms"]
+    print(f"  bcsc_spmm_union_16x64 compacted form (compactor included): "
+          f"{t_c:.4f} ms, kernel / library {t_c / lib16:.3f}; {live16} live "
+          f"slots of {u16.nsg * u16.U}; registers {rows[-1]['regs']} fused, "
+          f"{rows[-1]['compact_regs']} compacted")
     comp = union_c.compactor
     rhs = comp(v)
     route = comp.route(v, rhs)[0]
@@ -5027,7 +5104,7 @@ def main() -> int:
     global_position_forms(rows, ms, KA, KE, fq, fkT, fv, bargs, dx)
 
     sparse_rows(record, rows, sp["stream"], sp["small"], ms, geo,
-                sp["routes"])
+                sp["routes"], sp["narrow"])
 
     # the bf16 backward on wgmma at both shapes, causal and not, beside
     # SDPA's bf16 backends; its forms join the two backward rows

@@ -21,18 +21,13 @@
 // owns each output tile and writes it once: no atomics, so results repeat
 // bit for bit from run to run.
 //
-// Four kernels serve the scheduled and supertile strategies, and four the
+// Three kernels serve the scheduled and supertile strategies, and three the
 // union strategies; spmm_entry and union_entry take the one spmm_route
 // names (kernels/spmm.py spmm_path mirrors the rule):
 // - bcsc_spmm_wgmma_kernel and bcsc_union_wgmma_kernel, route "wgmma", for
-//   bf16 operands wherever bk % 32 == 0 and bn % 32 == 0 (32 x 32, 64 x
-//   128, 128 x 128 and the supertiles): TMA-fed swizzled tiles, products
-//   by wgmma (see their sections below);
-// - bcsc_spmm_mma_kernel and bcsc_union_mma_kernel, route "mma", for bf16
-//   operands wherever bk % 16 == 0 and bn % 8 == 0 and the wgmma kernels
-//   do not serve (16 x 64, 48 x 24, 16 x 8, 48 x 32, 32 x 16): bf16 tiles
-//   staged unwidened by cp.async in a 3-slice ring, products on the tensor
-//   cores (mma.sync m16n8k16, f32 accumulator in registers);
+//   bf16 operands wherever bk % 16 == 0 and bn % 8 == 0 (32 x 32, 16 x 64,
+//   16 x 8, 48 x 32, 32 x 16, 64 x 128, 128 x 128 and the supertiles):
+//   TMA-fed swizzled tiles, products by wgmma (see their sections below);
 // - bcsc_spmm_tma_fma_kernel and bcsc_union_tma_fma_kernel, route
 //   "tma_fma", for f32 operands wherever bk % 4 == 0 and bn % 4 == 0 (the
 //   union: also bn >= 32): f32 tiles fed by TMA into the CUDA cores' FMAs
@@ -48,48 +43,21 @@
 // the bf16 tensor cores, 0.21 ms on the f32 FMA units). The supertile
 // strategy multiplies whole occupied 128 x 128 supertiles: at that density
 // 97% of them, 67 GFLOP (0.068 ms on the tensor cores).
-// Design of the mma.sync kernel: one 256-thread block owns a 128-row tile
-// of one block column (32, 64 or 128 columns wide; a wider block column is
-// cut into 128-column chunks) and walks the column's schedule in slices of
-// 16-64 rows of depth. Slices of A's panel (128 x kc) and of the value block
-// (kc x bn) are in flight two slices ahead of the one being multiplied;
-// rows past m, columns past bn and the zero block arrive as cp.async's zero
-// fill. Eight warps each keep a 32 x (width/2) f32 tile in
-// registers; A's fragments come from ldmatrix, the row-major value block's
-// from ldmatrix.trans. Rows are padded by 16 bytes in shared memory so the
-// ldmatrix rows fall in distinct banks. The grid's x runs over the block
-// columns, so the blocks that share a row panel of A run together and read
-// it from L2 (A is 64 MB at the streaming case, more than the 50 MB L2).
-// The tensor-core union kernel runs the same pipeline over a 128 x 128
-// tile (one row tile of one 128-column group): its schedule is the
-// flattened (live union slot, depth slice) list of the group, so a slice
-// never straddles two slots. Its fused form (union4, union4a, union4d,
-// union5) assembles each slice of the slot's right-hand side in the ring
-// from the W = 128 / bn value blocks of the slot's gather map, one 16-byte
-// cp.async per bn-wide row piece (the zero block arrives as zero fill); its
-// compacted form (union, union2, union3) copies contiguous rows of the
-// (n/128, U*bk, 128) RHS that the compactor writes just before, on the same
-// stream and from the same host call, as the reference splits the work; it
-// is a programmatic dependent launch that waits for the compactor only
-// before its first read of that RHS. At the streaming case
-// (U = 21) the union products are 45 GFLOP, 0.046 ms at the tensor cores'
-// peak, so the kernel is bound by the rate of its mma.sync steps and the
-// shared-memory reads that feed them, not by device memory.
-// The TMA-fed FMA kernels: see their section below. The FMA kernel keeps a
-// 64 x 32 f32 tile in registers (4 x 4 per thread) and stages 32-deep
-// slices of A's panel and of the value block, widened, in shared memory by
-// plain loads between two barriers; the FMA union kernel keeps a 64 x 128
-// tile (4 x 8 per thread) and assembles each slot's RHS the same way,
-// element by element. A is re-read from L2 for every block of a column; the
-// FMA kernels are bound by their shared-memory traffic, not by device
-// memory. The compactor
-// moves bytes only (values read once, the compacted RHS written once) on
-// the bulk-copy engine where the blocks' rows are whole 16-byte units.
+// The wgmma and TMA-fed FMA kernels: see their sections below. The FMA
+// kernel keeps a 64 x 32 f32 tile in registers (4 x 4 per thread) and
+// stages 32-deep slices of A's panel and of the value block, widened, in
+// shared memory by plain loads between two barriers; the FMA union kernel
+// keeps a 64 x 128 tile (4 x 8 per thread) and assembles each slot's RHS the
+// same way, element by element. A is re-read from L2 for every block of a
+// column; the FMA kernels are bound by their shared-memory traffic, not by
+// device memory. The compactor moves bytes only (values read once, the
+// compacted RHS written once) on the bulk-copy engine where the blocks'
+// rows are whole 16-byte units.
 
 #include <cuda_runtime.h>
 
 #include "xsmm_common.cuh"
-#include "xsmm_mma.cuh"
+#include "xsmm_mma.cuh"   // store_pair
 #include "xsmm_wgmma.cuh"
 #include "xsmm_launches.cuh"
 
@@ -176,152 +144,6 @@ __global__ void __launch_bounds__(128) bcsc_spmm_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The same schedule on the bf16 tensor cores by mma.sync (bk % 16 == 0,
-// bn % 8 == 0, where the wgmma kernel below does not serve: bk or bn not a
-// multiple of 32)
-//
-// Block (x, y): block column jb = x / nchunk, columns [c0, c0 + TN) of it
-// with c0 = (x % nchunk) * TN, rows [128 y, 128 y + 128). Iteration i of the
-// block covers schedule step ptr[jb] + i / nsl, depth [k0, k0 + kc) of its
-// blocks with k0 = (i % nsl) kc. Warp w multiplies rows 32 (w / 2) .. +32
-// by columns (TN / 2) (w % 2) .. + TN / 2.
-// ---------------------------------------------------------------------------
-
-constexpr int MM_TM = 128;     // output rows per block
-constexpr int MM_THREADS = 256;
-constexpr int MM_STAGES = 3;   // slices in the shared-memory ring
-
-__host__ __device__ constexpr int mm_stage_elems(int kc, int tn) {
-  return MM_TM * (kc + 8) + kc * (tn + 8);    // rows padded by 16 bytes
-}
-
-// one kc-deep slice of a 128 x TN tile: warp (wm, wn) adds A's rows
-// 32 wm .. +32 (as: 128 x kc at row stride kc + 8) times the RHS's columns
-// (TN / 2) wn .. + TN / 2 (vs: kc x TN at row stride TN + 8) into acc
-template <int TN>
-__device__ __forceinline__ void mma_slice(float (&acc)[2][TN / 16][4],
-                                          const __nv_bfloat16* as,
-                                          const __nv_bfloat16* vs, int kc,
-                                          int wm, int wn, int lane) {
-  constexpr int WN = TN / 2, NT = WN / 8, ldv = TN + 8;
-  const int lda = kc + 8;
-  for (int kk = 0; kk < kc; kk += 16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      ldsm_x4(af[i], as + (wm * 32 + i * 16 + (lane & 15)) * lda + kk +
-                         (lane >> 4) * 8);
-#pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, vs + (kk + (lane & 7) + (lane & 8)) * ldv + wn * WN +
-                            p * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mma_bf16(acc[i][2 * p], af[i], bf[0], bf[1]);
-        mma_bf16(acc[i][2 * p + 1], af[i], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// depth of one staged slice: the largest of 64, 32, 16 that divides bk, so
-// a slice never straddles two value blocks
-__host__ __device__ constexpr int mm_kc(int bk) {
-  return bk % 64 == 0 ? 64 : bk % 32 == 0 ? 32 : 16;
-}
-
-template <typename TO, int TN>
-__global__ void __launch_bounds__(MM_THREADS, 2) bcsc_spmm_mma_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ vals,
-    const int* __restrict__ ptr, const int* __restrict__ rows,
-    const int* __restrict__ vidx, TO* __restrict__ out, int m, int k, int n,
-    int bk, int bn, int nzero, int nchunk, int kc) {
-  constexpr int WN = TN / 2;     // columns per warp
-  constexpr int NT = WN / 8;     // its n8 tiles
-  constexpr int MT = 2;          // its m16 tiles: 32 rows
-  extern __shared__ __align__(16) unsigned char mm_smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(mm_smem);
-  const int lda = kc + 8, ldv = TN + 8;
-  const int a_elems = MM_TM * lda;
-  const int st_elems = mm_stage_elems(kc, TN);
-
-  const int jb = blockIdx.x / nchunk;
-  const int c0 = (blockIdx.x % nchunk) * TN;
-  const int row0 = blockIdx.y * MM_TM;
-  const int width = min(TN, bn - c0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int s0 = ptr[jb];
-  const int nsl = bk / kc;
-  const int total = (ptr[jb + 1] - s0) * nsl;
-
-  // stage iteration `it` into its ring slot; always commits a group, empty
-  // past the end, so the wait below counts groups uniformly
-  auto stage = [&](int it) {
-    if (it < total) {
-      __nv_bfloat16* as = ring + (it % MM_STAGES) * st_elems;
-      __nv_bfloat16* vs = as + a_elems;
-      const int s = s0 + it / nsl, k0 = (it % nsl) * kc;
-      const __nv_bfloat16* ap = a + (long long)rows[s] * bk + k0;
-      const int v = vidx[s];
-      const int cpr = kc / 8;                 // 16-byte units per A row
-      for (int i = tid; i < MM_TM * cpr; i += MM_THREADS) {
-        const int r = i / cpr, c = (i - r * cpr) * 8, gr = row0 + r;
-        const bool ok = gr < m;
-        cp_async16(as + r * lda + c, ok ? ap + (long long)gr * k + c : a, ok);
-      }
-      constexpr int vpr = TN / 8;             // 16-byte units per value row
-      for (int i = tid; i < kc * vpr; i += MM_THREADS) {
-        const int r = i / vpr, c = (i - r * vpr) * 8;
-        const bool ok = v != nzero && c < width;
-        cp_async16(vs + r * ldv + c,
-                   ok ? vals + ((long long)v * bk + k0 + r) * bn + c0 + c : a,
-                   ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int i = 0; i < MM_STAGES - 1; ++i) stage(i);
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<MM_STAGES - 2>();   // slice `it` has landed ...
-    __syncthreads();                  // ... for every thread, and slot
-                                      // it - 1 is free
-    stage(it + MM_STAGES - 1);
-    const __nv_bfloat16* as = ring + (it % MM_STAGES) * st_elems;
-    mma_slice<TN>(acc, as, as + a_elems, kc, wm, wn, lane);
-  }
-  cp_async_wait<0>();
-
-  const int g = lane >> 2, t4 = lane & 3;
-  TO* op = out + (long long)jb * bn + c0;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = wn * WN + j * 8 + t4 * 2;   // width % 8 == 0: the pair
-    if (col >= width) continue;                 // is all in or all out
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gr = row0 + wm * 32 + i * 16 + g + h * 8;
-        if (gr < m)
-          store_pair(op + (long long)gr * n + col, acc[i][j][2 * h],
-                     acc[i][j][2 * h + 1]);
-      }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K-union SpMM (build_bcsc_spmm_union, every union strategy)
 //
 // Block (x, y): column group g = x (W = 128 / bn block columns), rows
@@ -357,7 +179,7 @@ __global__ void __launch_bounds__(256) bcsc_union_kernel(
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  if constexpr (COMPACT) pdl_wait();   // as the tensor-core kernel's
+  if constexpr (COMPACT) pdl_wait();   // as the wgmma kernel's
   for (int u = 0; u < U; ++u) {
     const long long slot = (long long)g * U + u;
     const int* gm = gmap + slot * W;
@@ -415,133 +237,6 @@ __global__ void __launch_bounds__(256) bcsc_union_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The k-union on the bf16 tensor cores (bk % 16 == 0, bn % 8 == 0)
-//
-// Block (x, y): column group grp = x, rows [128 y, 128 y + 128). Its
-// schedule is the flattened list of (live slot u, depth slice) of the
-// group, nsl = bk / kc slices per slot; iteration i stages A's 128 x kc
-// slice at block row krows[grp U + u] and the slot's kc x 128 RHS slice
-// into ring slot i % 3, two iterations ahead of the one multiplied. Every
-// thread reads the same map to find the live slots, so the schedule (and
-// the ring's cp.async group count) is block-uniform. Warp w multiplies
-// rows 32 (w / 2) .. +32 by group columns 64 (w % 2) .. +64.
-// ---------------------------------------------------------------------------
-
-template <typename TO, bool COMPACT>
-__global__ void __launch_bounds__(MM_THREADS, 2) bcsc_union_mma_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ vals,
-    const int* __restrict__ krows, const int* __restrict__ gmap,
-    const int* __restrict__ ocol, TO* __restrict__ out, int m, int k, int n,
-    int bk, int bn, int U, int nzero, int kc) {
-  constexpr int TN = GW;
-  constexpr int WN = TN / 2, NT = WN / 8, MT = 2;
-  extern __shared__ __align__(16) unsigned char mm_smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(mm_smem);
-  const int lda = kc + 8, ldv = TN + 8;
-  const int a_elems = MM_TM * lda;
-  const int st_elems = mm_stage_elems(kc, TN);
-
-  const int grp = blockIdx.x;
-  const int row0 = blockIdx.y * MM_TM;
-  const int W = GW / bn;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int nsl = bk / kc;
-  const long long slot0 = (long long)grp * U;
-  const int* gm = gmap + slot0 * W;
-  // a slot whose W map entries are all the zero block is padding
-  auto live = [&](int u) {
-    for (int w = 0; w < W; ++w)
-      if (gm[u * W + w] != nzero) return true;
-    return false;
-  };
-  int nlive = 0;   // the threads test the slots in parallel
-  for (int u0 = 0; u0 < U; u0 += MM_THREADS)
-    nlive += __syncthreads_count(u0 + tid < U && live(u0 + tid));
-  const int total = nlive * nsl;
-
-  // the next iteration to stage: slice pk of slot pu
-  int pu = 0, pk = 0;
-  while (pu < U && !live(pu)) ++pu;
-  // this thread's RHS units all lie in one 16-byte column c of the group
-  // (256 threads, 16 units per row), so in one value block w = c / bn
-  const int rc = (tid & 15) * 8;
-  auto stage = [&](int it) {
-    if (it < total) {
-      __nv_bfloat16* as = ring + (it % MM_STAGES) * st_elems;
-      __nv_bfloat16* vs = as + a_elems;
-      const long long slot = slot0 + pu;
-      const int k0 = pk * kc;
-      const __nv_bfloat16* ap = a + (long long)krows[slot] * bk + k0;
-      const int cpr = kc / 8;                 // 16-byte units per A row
-      for (int i = tid; i < MM_TM * cpr; i += MM_THREADS) {
-        const int r = i / cpr, c = (i - r * cpr) * 8, gr = row0 + r;
-        const bool ok = gr < m;
-        cp_async16(as + r * lda + c, ok ? ap + (long long)gr * k + c : a, ok);
-      }
-      if constexpr (COMPACT) {
-        const __nv_bfloat16* rp = vals + (slot * bk + k0) * GW + rc;
-        for (int r = tid >> 4; r < kc; r += MM_THREADS / 16)
-          cp_async16(vs + r * ldv + rc, rp + (long long)r * GW, true);
-      } else {
-        const int v = gm[pu * W + rc / bn];
-        const bool ok = v != nzero;
-        const __nv_bfloat16* rp =
-            ok ? vals + ((long long)v * bk + k0) * bn + rc % bn : a;
-        for (int r = tid >> 4; r < kc; r += MM_THREADS / 16)
-          cp_async16(vs + r * ldv + rc, ok ? rp + (long long)r * bn : a, ok);
-      }
-      if (++pk == nsl) {
-        pk = 0;
-        do ++pu; while (pu < U && !live(pu));
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  // the compacted RHS is the compactor's output: with a programmatic
-  // launch this block may start before the compactor ends
-  if constexpr (COMPACT) pdl_wait();
-#pragma unroll
-  for (int i = 0; i < MM_STAGES - 1; ++i) stage(i);
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<MM_STAGES - 2>();   // slice `it` has landed ...
-    __syncthreads();                  // ... for every thread, and slot
-                                      // it - 1 is free
-    stage(it + MM_STAGES - 1);
-    const __nv_bfloat16* as = ring + (it % MM_STAGES) * st_elems;
-    mma_slice<TN>(acc, as, as + a_elems, kc, wm, wn, lane);
-  }
-  cp_async_wait<0>();
-
-  // group column c holds the caller's column ocol[grp W + c / bn] * bn +
-  // c % bn; bn % 8 == 0, so a pair never straddles two block columns
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int c = wn * WN + j * 8 + t4 * 2;
-    const long long col = (long long)ocol[grp * W + c / bn] * bn + c % bn;
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gr = row0 + wm * 32 + i * 16 + g + h * 8;
-        if (gr < m)
-          store_pair(out + (long long)gr * n + col, acc[i][j][2 * h],
-                     acc[i][j][2 * h + 1]);
-      }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // The scheduled, supertile and k-union SpMMs in f32 on TMA-fed FMA tiles
 // (route "tma_fma", kernels/spmm.py spmm_path: f32 operands whose blocks are
 // whole 16-byte units deep and wide, bk % 4 == 0 and bn % 4 == 0; the union
@@ -585,7 +280,7 @@ __global__ void __launch_bounds__(MM_THREADS, 2) bcsc_union_mma_kernel(
 // K-union (bcsc_union_tma_fma_kernel): one block per 128 x 128 tile, one
 // row tile of one 128-column group, over the flattened list of (live slot,
 // 32-deep slice) of the group, found block-uniformly from the map as the
-// tensor-core kernel does (dead slots are skipped). A stage holds A's 128 x
+// wgmma kernel does (dead slots are skipped). A stage holds A's 128 x
 // 32 slice at column krows[slot] * bk + k0 and the slot's 32 x 128
 // right-hand side: in the fused form (union4, union4a, union4d, union5) W =
 // 128 / bn boxes of the value map, one per gather-map entry; in the
@@ -901,34 +596,37 @@ __global__ void __launch_bounds__(SF_THREADS, 1) bcsc_union_tma_fma_kernel(
 // ---------------------------------------------------------------------------
 // The scheduled and supertile SpMMs in bf16 on wgmma with TMA-fed tiles
 // (route "wgmma", kernels/spmm.py spmm_path: bf16 operands whose blocks are
-// whole 32-deep and 32-wide pieces, bk % 32 == 0 and bn % 32 == 0:
-// stream20's 32 x 32, 64 x 128, the 128 x 128 supertiles; the k-union has
-// its own kernel below). It computes what bcsc_spmm_mma_kernel computes: each
-// step's product summed in schedule order in f32 registers, rounded once on
+// whole k16 steps deep and whole 16-byte rows wide, bk % 16 == 0 and bn % 8
+// == 0: stream20's 32 x 32, 16 x 64, 16 x 8, 48 x 32, 32 x 16, 64 x 128, the
+// 128 x 128 supertiles; the k-union has its own kernel below). Each step's
+// product is summed in schedule order in f32 registers and rounded once on
 // the store, one writer per output tile, no atomics.
 //
 // Bound: at the streaming case (m = 32768, k = n = 1024, 32 x 32 blocks at
 // density 0.2, bf16 in, f32 out) device memory, 0.060 ms for A and C at
-// 3.35 TB/s; A is re-read from L2 once per block column (about 430 MB), and
-// each product is small (m64n32k16), so TMA and L2 set the pace, not the
-// tensor cores. At the supertiles (128 x 128, 97% of them occupied) its own
-// products are 67.65 GFLOP, 0.068 ms at the bf16 peak.
+// 3.35 TB/s; A is re-read from L2 once per block column (about 430 MB at
+// 32 x 32, half of it at 16 x 64), and each product is small (m64nTNk16),
+// so TMA and L2 set the pace, not the tensor cores. At the supertiles (128
+// x 128, 97% of them occupied) its own products are 67.65 GFLOP, 0.068 ms at
+// the bf16 peak.
 //
 // Design: the f32 tma_fma kernel's producer with the bf16 BRGEMM's wgmma
-// consumers. One block per output tile of 128 rows and TN = 32, 64 or 128
-// columns of one block column (a wider block column is cut into TN-column
-// chunks; columns past bn arrive as TMA's zero fill and are not stored). One
-// producer warp keeps a ring of KC-deep slices in flight, KC = 64 where bk
-// allows it, else 32, paced by full and empty mbarriers: A's 128 x KC slice
-// from a 2-D map over A (m, k), at column rows[s] * bk + k0, and the value
-// block's KC x TN slice from a 3-D map over the value store (bn, bk,
-// nblocks), one box of up to 64 columns at a time. The zero block (an empty
-// column's step) is loaded at block index nblocks (or 1 for an empty
-// store), past the map's extent: TMA fills it with zeros and still counts
-// its bytes, nothing is read from the value store, and a non-finite A in
-// block row 0 still turns the column into NaN, as in the reference. Both
-// slices land swizzled, 128-byte where their rows are 64 bf16 (KC = 64,
-// value boxes 64 wide) and 64-byte where they are 32 (KC = 32, TN = 32):
+// consumers. One block per output tile of 128 rows and TN columns of one
+// block column, TN the least of 8, 16, 32, 64, 128 that covers bn (a wider
+// block column is cut into 128-column chunks; columns past bn arrive as
+// TMA's zero fill and are not stored). One producer warp keeps a ring of
+// KC-deep slices in flight, KC the deepest of 64, 32, 16 that divides bk
+// (sw_kc), paced by full and empty mbarriers: A's 128 x KC slice from a 2-D
+// map over A (m, k), at column rows[s] * bk + k0, and the value block's KC x
+// TN slice from a 3-D map over the value store (bn, bk, nblocks), one box of
+// up to 64 columns at a time. The zero block (an empty column's step) is
+// loaded at block index nblocks (or 1 for an empty store), past the map's
+// extent: TMA fills it with zeros and still counts its bytes, nothing is
+// read from the value store, and a non-finite A in block row 0 still turns
+// the column into NaN, as in the reference. Every box lands in the swizzle
+// of its rows' width: 128-byte for rows of 64 bf16, 64-byte for 32, 32-byte
+// for 16 (A's slice at KC = 16, value boxes 16 wide), none for 8 (value
+// boxes 8 wide: 16-byte rows, wgmma's unswizzled core matrices);
 // xsmm_wgmma.cuh's layouts. Two consumer warpgroups each own 64 rows of the
 // tile and run wgmma.m64nTNk16 per k16 step, A K-major, the row-major value
 // slice MN-major (the transpose bit), one slice's products in flight while
@@ -940,35 +638,49 @@ constexpr int SW_CONSUMERS = 256;               // two consumer warpgroups
 constexpr int SW_THREADS = SW_CONSUMERS + 32;   // + the producer warp
 constexpr int SW_TM = 128;                      // output rows a block
 
+// the depth of one slice: the deepest of 64, 32, 16 that divides bk, so a
+// slice never straddles two value blocks
+__host__ __device__ constexpr int sw_kc(int bk) {
+  return bk % 64 == 0 ? 64 : bk % 32 == 0 ? 32 : 16;
+}
+
 // the tile of TN columns and KC-deep slices: A's slice, the value slice as
-// NB boxes of BOX_N columns (at most 64: a 128-byte swizzled row), the ring
+// NB boxes of BOX columns (at most 64: a 128-byte swizzled row), the ring.
+// A stage holds A's slice, then the boxes, and is padded to 1024 bytes (the
+// longest swizzle repeat); eight stages at KC = 16 keep as many bytes in
+// flight as four at KC = 32
 template <int TN, int KC, int BOX = (TN < 64 ? TN : 64)>
 struct SwTile {
   static constexpr int A_BYTES = SW_TM * KC * 2;
   static constexpr int BOX_N = BOX;
   static constexpr int NB = TN / BOX_N;
   static constexpr int V_BOX = KC * BOX_N * 2;
-  static constexpr int STAGE = A_BYTES + NB * V_BOX;
-  static constexpr int STAGES = KC == 64 ? 3 : 4;
+  static constexpr int LOAD = A_BYTES + NB * V_BOX;   // bytes TMA lands
+  static constexpr int STAGE = (LOAD + 1023) / 1024 * 1024;
+  static constexpr int STAGES = KC == 64 ? 3 : KC == 32 ? 4 : 8;
   static constexpr int SMEM = SF_ALIGN + STAGES * STAGE + 2 * STAGES * 8;
-  static_assert(STAGE % 1024 == 0 && V_BOX % 512 == 0,
-                "every box starts on its swizzle's alignment");
+  static_assert(A_BYTES % 1024 == 0 && V_BOX % (16 * BOX_N) == 0,
+                "every box starts on its swizzle's repeat");
   static_assert(2 * SMEM <= SF_SMEM_MAX, "two blocks an SM");
 };
 
 // the descriptors of k16 step j: A's (K-major) at `as`, the value slice's
-// (MN-major) at `vs`, each in its slice's swizzle
+// (MN-major, boxes of BOX columns V_BOX bytes apart) at `vs`, each in its
+// slice's swizzle
 template <int KC>
 __device__ __forceinline__ uint64_t sw_adesc(const unsigned char* as, int j) {
-  return KC == 64 ? wgmma_desc_sw128(as + 32 * j, 16, 1024)
-                  : wgmma_desc_sw64(as + 32 * j, 16, 512);
+  return KC == 64   ? wgmma_desc_sw128(as + 32 * j, 16, 1024)
+         : KC == 32 ? wgmma_desc_sw64(as + 32 * j, 16, 512)
+                    : wgmma_desc_sw32(as, 16, 256);
 }
 
-template <int TN, int KC, int BOX = (TN < 64 ? TN : 64)>
+template <int KC, int BOX>
 __device__ __forceinline__ uint64_t sw_vdesc(const unsigned char* vs, int j) {
-  using T = SwTile<TN, KC, BOX>;
-  return T::BOX_N == 64 ? wgmma_desc_sw128(vs + 2048 * j, T::V_BOX, 1024)
-                        : wgmma_desc_sw64(vs + 1024 * j, T::V_BOX, 512);
+  constexpr int V_BOX = KC * BOX * 2;
+  return BOX == 64   ? wgmma_desc_sw128(vs + 2048 * j, V_BOX, 1024)
+         : BOX == 32 ? wgmma_desc_sw64(vs + 1024 * j, V_BOX, 512)
+         : BOX == 16 ? wgmma_desc_sw32(vs + 512 * j, V_BOX, 256)
+                     : wgmma_desc_plain(vs + 256 * j, 128, V_BOX);
 }
 
 // the consumer warpgroups' loop of the wgmma SpMM kernels over `total`
@@ -991,9 +703,8 @@ __device__ __forceinline__ void sw_consume(float (&acc)[TN / 2],
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < KC / 16; ++j)
-      Wg<TN>::template ss<0, 1>(
-          acc, sw_adesc<KC>(as, j),
-          sw_vdesc<TN, KC, T::BOX_N>(sp + T::A_BYTES, j), 1);
+      Wg<TN>::template ss<0, 1>(acc, sw_adesc<KC>(as, j),
+                                sw_vdesc<KC, T::BOX_N>(sp + T::A_BYTES, j), 1);
     wgmma_commit();
     // the slice before this one is done: its stage goes back to the
     // producer while this slice's products run
@@ -1044,7 +755,7 @@ __global__ void __launch_bounds__(SW_THREADS, 2) bcsc_spmm_wgmma_kernel(
         const int s = s0 + it / nsl, k0 = (it % nsl) * KC;
         const int v = vidx[s];
         unsigned char* sp = ring + st * T::STAGE;
-        mbar_arrive_expect_tx(&full[st], T::STAGE);
+        mbar_arrive_expect_tx(&full[st], T::LOAD);
         tma_load_2d(sp, &amap, &full[st], rows[s] * bk + k0, row0);
 #pragma unroll
         for (int h = 0; h < T::NB; ++h)
@@ -1059,7 +770,7 @@ __global__ void __launch_bounds__(SW_THREADS, 2) bcsc_spmm_wgmma_kernel(
   float acc[TN / 2];
   sw_consume<T, TN, KC>(acc, ring, full, empty, total, wg, lane);
 
-  // fragment rows and column pairs as in xsmm_wgmma.cuh; bn % 32 == 0: a
+  // fragment rows and column pairs as in xsmm_wgmma.cuh; bn % 8 == 0: a
   // pair is whole or past the block column
   const int width = min(TN, bn - c0);
   TO* op = out + (long long)jb * bn + c0;
@@ -1080,18 +791,16 @@ __global__ void __launch_bounds__(SW_THREADS, 2) bcsc_spmm_wgmma_kernel(
 
 // ---------------------------------------------------------------------------
 // The k-union in bf16 on wgmma (route "wgmma" for the union too: bf16
-// operands, bk % 32 == 0 and bn % 32 == 0, so stream20's 32 x 32, 64 x 128
-// and 128 x 128, in both forms). It computes what bcsc_union_mma_kernel
-// computes: per 128-column group and 128-row tile, the live union slots'
-// products (A's rows x bk panel at block row krows[slot] times the slot's
-// bk x 128 right-hand side) summed in slot order in f32 registers, rounded
-// once on the store, group column c stored at the caller's column
-// ocol[grp W + c / bn] bn + c % bn, one writer per tile, no atomics.
+// operands, bk % 16 == 0 and bn % 8 == 0, in both forms). Per 128-column
+// group and 128-row tile, the live union slots' products (A's rows x bk
+// panel at block row krows[slot] times the slot's bk x 128 right-hand side)
+// are summed in slot order in f32 registers and rounded once on the store,
+// group column c stored at the caller's column ocol[grp W + c / bn] bn + c %
+// bn, one writer per tile, no atomics.
 //
 // Bound: at the streaming case (U = 21 slots a group) its own products are
 // 45 GFLOP, 0.046 ms at the bf16 peak, against 0.060 ms for A and C at 3.35
-// TB/s; the mma.sync kernel ran them at a fifth of the peak, held by its
-// mma.sync steps and the shared-memory reads that fed them.
+// TB/s.
 //
 // Design: bcsc_spmm_wgmma_kernel's plan at TN = 128 with the union's
 // schedule (bcsc_union_tma_fma_kernel's producer). The live slots are found
@@ -1099,27 +808,32 @@ __global__ void __launch_bounds__(SW_THREADS, 2) bcsc_spmm_wgmma_kernel(
 // block is padding and is skipped); the producer walks (live slot, KC-deep
 // slice) and stages A's 128 x KC slice at column krows[slot] bk + k0 and
 // the slot's KC x 128 right-hand side as 128 / BOX boxes of BOX columns:
-// in the fused form (union4, union4a, union4d, union5) bn / BOX boxes of
-// each of the W value blocks the gather map names, from the 3-D value map,
-// the zero block loaded at the map's extent (vzero) so that TMA fills it
-// with zeros and still counts its bytes; in the compacted form (union,
-// union2, union3) two 64-column boxes of the compactor's (n/128, U bk,
-// 128) output, after the programmatic launch's wait. Both forms land the
-// same layout (BOX = 32: 64-byte swizzled rows, the fused form at bn = 32;
-// else 128-byte), the boxes V_BOX bytes apart, which is the MN-major
-// descriptor's leading offset (sw_vdesc), so the consumers do not depend
-// on the form. Two consumer warpgroups each own 64 rows and run
-// wgmma.m64n128k16 per k16 step, one slice's products in flight while the
-// next slice is issued. The grid's x runs over the groups, so the blocks
-// that share A's row tile read it from L2 together.
+// in the compacted form (union, union2, union3) two 64-column boxes of the
+// compactor's (n/128, U bk, 128) output, after the programmatic launch's
+// wait; in the fused form (union4, union4a, union4d, union5) bn / BOX
+// boxes of each of the W value blocks the gather map names, BOX = min(bn,
+// 64), from the 3-D value map. There lane w of the producer warp issues
+// block w's boxes, the W lanes side by side (one thread issuing 17 boxes a
+// stage at 16 x 8 set the pace), and a dead entry, the zero block, is
+// loaded at the map's extent (vzero), where TMA fills zeros and still
+// counts its bytes, unless its place in the stage already holds that zero
+// fill from the stage's last use (most places of a slot are dead at 16 x 8
+// and 32 x 16). Each box lands in the swizzle of its rows' width, as in the
+// scheduled kernel, the boxes V_BOX bytes apart, which is the MN-major
+// descriptor's stride between column groups (sw_vdesc), so the consumers
+// take either form's layout. Two consumer warpgroups each own 64 rows and
+// run wgmma.m64n128k16 per k16 step, one slice's products in flight while
+// the next slice is issued. The grid's x runs over the groups, so the
+// blocks that share A's row tile read it from L2 together.
 // ---------------------------------------------------------------------------
 
 // Block (x, y): column group grp = x, rows [128 y, 128 y + 128). amap: A
 // over (k, m) in boxes of KC x 128; rmap: the fused form's values over (bn,
 // bk, nblocks) or the compacted RHS over (128, U bk, n / 128), in boxes of
 // BOX x KC x 1; vzero: the value map's block extent (the zero block's
-// index).
-template <typename TO, int KC, int BOX, bool COMPACT>
+// index). PW: the columns of a piece of the store, 32 where bn % 32 == 0,
+// else 8.
+template <typename TO, int KC, int BOX, int PW, bool COMPACT>
 __global__ void __launch_bounds__(SW_THREADS, 2) bcsc_union_wgmma_kernel(
     const __grid_constant__ CUtensorMap amap,
     const __grid_constant__ CUtensorMap rmap, const int* __restrict__ krows,
@@ -1156,36 +870,50 @@ __global__ void __launch_bounds__(SW_THREADS, 2) bcsc_union_wgmma_kernel(
   // launch this block may start before the compactor ends
   if constexpr (COMPACT) pdl_wait();
 
-  if (tid >= SW_CONSUMERS) {   // the producer warp: one thread starts TMA
-    if (tid == SW_CONSUMERS) {
-      int pu = 0, pk = 0;      // the next slice: pk of live slot pu
-      while (pu < U && !live(pu)) ++pu;
-      for (int it = 0; it < total; ++it) {
-        const int st = it % T::STAGES;
-        if (it >= T::STAGES) mbar_wait(&empty[st], ((it / T::STAGES) - 1) & 1);
-        const int k0 = pk * KC;
-        unsigned char* sp = ring + st * T::STAGE;
-        unsigned char* rs = sp + T::A_BYTES;
-        mbar_arrive_expect_tx(&full[st], T::STAGE);
-        tma_load_2d(sp, &amap, &full[st], krows[slot0 + pu] * bk + k0, row0);
-        if constexpr (COMPACT) {
+  if (tid >= SW_CONSUMERS) {   // the producer warp
+    const int lane = tid & 31;
+    if (COMPACT && lane != 0) return;   // one thread starts TMA
+    // the fused form: lane w < W loads the slot's w-th value block, bit s
+    // of zst set while its place in stage s holds TMA's zero fill
+    const int blk = KC * bn * 2;        // a value block's bytes a slice
+    unsigned zst = 0;
+    int pu = 0, pk = 0;                 // the next slice: pk of live slot pu
+    while (pu < U && !live(pu)) ++pu;
+    for (int it = 0; it < total; ++it) {
+      const int st = it % T::STAGES;
+      if (it >= T::STAGES) mbar_wait(&empty[st], ((it / T::STAGES) - 1) & 1);
+      const int k0 = pk * KC;
+      const int ak = krows[slot0 + pu] * bk + k0;
+      unsigned char* sp = ring + st * T::STAGE;
+      unsigned char* rs = sp + T::A_BYTES;
+      if constexpr (COMPACT) {
+        mbar_arrive_expect_tx(&full[st], T::LOAD);
+        tma_load_2d(sp, &amap, &full[st], ak, row0);
 #pragma unroll
-          for (int h = 0; h < T::NB; ++h)
-            tma_load_3d(rs + h * T::V_BOX, &rmap, &full[st], h * BOX,
-                        pu * bk + k0, grp);
-        } else {
-          const int nbox = bn / BOX;   // boxes a value block
-          for (int w = 0; w < W; ++w) {
-            const int v = gm[pu * W + w];
-            for (int h = 0; h < nbox; ++h)
-              tma_load_3d(rs + (w * nbox + h) * T::V_BOX, &rmap, &full[st],
-                          h * BOX, k0, v == nzero ? vzero : v);
-          }
+        for (int h = 0; h < T::NB; ++h)
+          tma_load_3d(rs + h * T::V_BOX, &rmap, &full[st], h * BOX,
+                      pu * bk + k0, grp);
+      } else {
+        // a dead entry (the zero block) loads from the map's extent, where
+        // TMA fills zeros, unless its place already holds them; the lanes
+        // issue their boxes side by side
+        const int v = lane < W ? gm[pu * W + lane] : nzero;
+        const bool load = lane < W && (v != nzero || !((zst >> st) & 1));
+        const int nload = __popc(__ballot_sync(~0u, load));
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[st], T::A_BYTES + nload * blk);
+          tma_load_2d(sp, &amap, &full[st], ak, row0);
         }
-        if (++pk == nsl) {
-          pk = 0;
-          do ++pu; while (pu < U && !live(pu));
-        }
+        __syncwarp();
+        if (load)
+          for (int h = 0; h < bn / BOX; ++h)
+            tma_load_3d(rs + lane * blk + h * T::V_BOX, &rmap, &full[st],
+                        h * BOX, k0, v == nzero ? vzero : v);
+        zst = v == nzero ? zst | 1u << st : zst & ~(1u << st);
+      }
+      if (++pk == nsl) {
+        pk = 0;
+        do ++pu; while (pu < U && !live(pu));
       }
     }
     return;
@@ -1196,22 +924,23 @@ __global__ void __launch_bounds__(SW_THREADS, 2) bcsc_union_wgmma_kernel(
   sw_consume<T, GW, KC>(acc, ring, full, empty, total, wg, lane);
 
   // fragment rows and column pairs as in xsmm_wgmma.cuh; group column c
-  // holds the caller's column ocol[grp W + c / bn] bn + c % bn. bn % 32 ==
-  // 0, so each 32-column piece q of the group lies in one block column,
-  // and starts at the caller's column cq[q]: a fragment's pieces are known
-  // at compile time, and four loads serve the store
+  // holds the caller's column ocol[grp W + c / bn] bn + c % bn. Each
+  // PW-column piece q of the group lies in one block column (PW divides
+  // bn) and starts at the caller's column cq[q]: a fragment's pieces are
+  // known at compile time, and 128 / PW loads serve the store
+  constexpr int QJ = PW / 8;   // a piece's 8-column fragments
   const int r0 = row0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
-  int cq[GW / 32];
+  int cq[GW / PW];
 #pragma unroll
-  for (int q = 0; q < GW / 32; ++q)
-    cq[q] = ocol[grp * W + 32 * q / bn] * bn + (32 * q) % bn;
+  for (int q = 0; q < GW / PW; ++q)
+    cq[q] = ocol[grp * W + PW * q / bn] * bn + (PW * q) % bn;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (r0 + 8 * h >= m) continue;
     TO* orow = out + (long long)(r0 + 8 * h) * n + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < GW / 8; ++j)
-      store_pair(orow + cq[j / 4] + 8 * (j % 4), acc[4 * j + 2 * h],
+      store_pair(orow + cq[j / QJ] + 8 * (j % QJ), acc[4 * j + 2 * h],
                  acc[4 * j + 2 * h + 1]);
   }
 }
@@ -1471,47 +1200,6 @@ static int launch_spmm(const void* a, const void* vals, const int* ptr,
   return cudaGetLastError();
 }
 
-// the tensor-core kernel at one column width TN (32, 64 or 128)
-template <typename TO, int TN>
-static int launch_spmm_mma_tn(const void* a, const void* vals, const int* ptr,
-                              const int* rows, const int* vidx, void* out,
-                              int m, int k, int n, int bk, int bn, int nzero,
-                              cudaStream_t st) {
-  const int nchunk = (bn + TN - 1) / TN;
-  const int kc = mm_kc(bk);
-  const long long gx = (long long)(n / bn) * nchunk;
-  const long long gy = (m + MM_TM - 1) / MM_TM;
-  if (gx > 2147483647LL || gy > 65535) return cudaErrorInvalidConfiguration;
-  const int smem = MM_STAGES * mm_stage_elems(kc, TN) * 2;
-  auto kern = bcsc_spmm_mma_kernel<TO, TN>;
-  // above 48 KB only as dynamic shared memory, after the opt-in; set on
-  // every launch, since the attribute is held per device
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  note_launch(kern);
-  kern<<<dim3((unsigned)gx, (unsigned)gy), MM_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(vals), ptr, rows, vidx,
-      static_cast<TO*>(out), m, k, n, bk, bn, nzero, nchunk, kc);
-  return cudaGetLastError();
-}
-
-template <typename TO>
-static int launch_spmm_mma(const void* a, const void* vals, const int* ptr,
-                           const int* rows, const int* vidx, void* out, int m,
-                           int k, int n, int bk, int bn, int nzero,
-                           cudaStream_t st) {
-  if (bn <= 32)
-    return launch_spmm_mma_tn<TO, 32>(a, vals, ptr, rows, vidx, out, m, k, n,
-                                      bk, bn, nzero, st);
-  if (bn <= 64)
-    return launch_spmm_mma_tn<TO, 64>(a, vals, ptr, rows, vidx, out, m, k, n,
-                                      bk, bn, nzero, st);
-  return launch_spmm_mma_tn<TO, 128>(a, vals, ptr, rows, vidx, out, m, k, n,
-                                     bk, bn, nzero, st);
-}
-
 // a launch on `st`; with `pdl` a programmatic dependent launch, which may
 // begin while the kernel before it on the stream still runs (the kernel
 // calls pdl_wait before it reads that kernel's output)
@@ -1532,30 +1220,6 @@ static int launch_pdl(void (*kern)(Exp...), dim3 grid, int threads, int smem,
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
-}
-
-// the tensor-core union kernel; its compacted form runs right after the
-// compactor and is launched programmatically
-template <typename TO>
-static int launch_union_mma(const void* a, const void* vals, const int* krows,
-                            const int* gmap, const int* ocol, void* out, int m,
-                            int k, int n, int bk, int bn, int U, int nzero,
-                            bool compact, cudaStream_t st) {
-  const long long gy = (m + MM_TM - 1) / MM_TM;
-  if (gy > 65535) return cudaErrorInvalidConfiguration;
-  const int kc = mm_kc(bk);
-  const int smem = MM_STAGES * mm_stage_elems(kc, GW) * 2;
-  auto kern = compact ? bcsc_union_mma_kernel<TO, true>
-                      : bcsc_union_mma_kernel<TO, false>;
-  // above 48 KB only as dynamic shared memory, after the opt-in
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  return launch_pdl(kern, dim3(n / GW, (unsigned)gy), MM_THREADS, smem, st,
-                    compact, static_cast<const __nv_bfloat16*>(a),
-                    static_cast<const __nv_bfloat16*>(vals), krows, gmap,
-                    ocol, static_cast<TO*>(out), m, k, n, bk, bn, U, nzero,
-                    kc);
 }
 
 template <typename TI, typename TO>
@@ -1678,12 +1342,31 @@ static int launch_union_tma_fma(const void* a, const void* vals,
                     (int)vrows);
 }
 
-// the wgmma kernel at one column width TN (32, 64 or 128) and slice depth
-// KC (64 or 32); a, vals bf16 and 16-byte aligned, bk % 32 == 0, bn % 32 ==
-// 0. A's map: (k, m) in boxes of KC x 128; the values' map: (bn, bk,
-// nblocks) in boxes of BOX_N x KC x 1 (an empty store: one block of A's
-// memory, never read in bounds), the zero block at block index vzero, the
-// extent
+// the TMA swizzle of a box whose rows are `bytes` wide (SwTile's layouts:
+// 16-byte rows unswizzled)
+static CUtensorMapSwizzle sw_swizzle(int bytes) {
+  return bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+         : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
+// A (m, k) bf16 in boxes of KC columns x 128 rows, in the swizzle of KC
+// bf16
+template <int KC>
+static bool sw_amap(CUtensorMap* map, const void* a, int m, int k) {
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t box[2] = {KC, SW_TM};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, 2, dims,
+                    strides, box, sw_swizzle(KC * 2));
+}
+
+// the wgmma kernel at one column width TN (8, 16, 32, 64 or 128) and slice
+// depth KC (64, 32 or 16); a, vals bf16 and 16-byte aligned, bk % KC == 0,
+// bn % 8 == 0. A's map: sw_amap; the values' map: (bn, bk, nblocks) in
+// boxes of BOX_N x KC x 1 (an empty store: one block of A's memory, never
+// read in bounds), the zero block at block index vzero, the extent
 template <typename TO, int TN, int KC>
 static int launch_spmm_wgmma_tn(const void* a, const void* vals,
                                 const int* ptr, const int* rows,
@@ -1696,21 +1379,15 @@ static int launch_spmm_wgmma_tn(const void* a, const void* vals,
   const long long gy = (m + SW_TM - 1) / SW_TM;
   const int vzero = nzero > 0 ? nzero : 1;
   if (gx > 2147483647LL || gy > 65535) return cudaErrorInvalidConfiguration;
-  const CUtensorMapDataType B = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint64_t adims[2] = {(cuuint64_t)k, (cuuint64_t)m};
-  const cuuint64_t astr[1] = {(cuuint64_t)k * 2};
-  const cuuint32_t abox[2] = {KC, SW_TM};
   const cuuint64_t vdims[3] = {(cuuint64_t)bn, (cuuint64_t)bk,
                                (cuuint64_t)vzero};
   const cuuint64_t vstr[2] = {(cuuint64_t)bn * 2, (cuuint64_t)bk * bn * 2};
   const cuuint32_t vbox[3] = {T::BOX_N, KC, 1};
   CUtensorMap amap, vmap;
-  if (!encode_map(&amap, B, a, 2, adims, astr, abox,
-                  KC == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !encode_map(&vmap, B, nzero > 0 ? vals : a, 3, vdims, vstr, vbox,
-                  T::BOX_N == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : CU_TENSOR_MAP_SWIZZLE_64B))
+  if (!sw_amap<KC>(&amap, a, m, k) ||
+      !encode_map(&vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  nzero > 0 ? vals : a, 3, vdims, vstr, vbox,
+                  sw_swizzle(T::BOX_N * 2)))
     return cudaErrorInvalidValue;
   auto kern = bcsc_spmm_wgmma_kernel<TO, TN, KC>;
   // above 48 KB only as dynamic shared memory, after the opt-in
@@ -1724,12 +1401,19 @@ static int launch_spmm_wgmma_tn(const void* a, const void* vals,
   return cudaGetLastError();
 }
 
+// TN: the least of 8, 16, 32, 64, 128 that covers bn
 template <typename TO, int KC>
 static int launch_spmm_wgmma_kc(const void* a, const void* vals,
                                 const int* ptr, const int* rows,
                                 const int* vidx, void* out, int m, int k,
                                 int n, int bk, int bn, int nzero,
                                 cudaStream_t st) {
+  if (bn <= 8)
+    return launch_spmm_wgmma_tn<TO, 8, KC>(a, vals, ptr, rows, vidx, out, m,
+                                           k, n, bk, bn, nzero, st);
+  if (bn <= 16)
+    return launch_spmm_wgmma_tn<TO, 16, KC>(a, vals, ptr, rows, vidx, out, m,
+                                            k, n, bk, bn, nzero, st);
   if (bn <= 32)
     return launch_spmm_wgmma_tn<TO, 32, KC>(a, vals, ptr, rows, vidx, out, m,
                                             k, n, bk, bn, nzero, st);
@@ -1745,22 +1429,27 @@ static int launch_spmm_wgmma(const void* a, const void* vals, const int* ptr,
                              const int* rows, const int* vidx, void* out,
                              int m, int k, int n, int bk, int bn, int nzero,
                              cudaStream_t st) {
-  if (bk % 64 == 0)
-    return launch_spmm_wgmma_kc<TO, 64>(a, vals, ptr, rows, vidx, out, m, k,
-                                        n, bk, bn, nzero, st);
-  return launch_spmm_wgmma_kc<TO, 32>(a, vals, ptr, rows, vidx, out, m, k, n,
+  switch (sw_kc(bk)) {
+    case 64:
+      return launch_spmm_wgmma_kc<TO, 64>(a, vals, ptr, rows, vidx, out, m, k,
+                                          n, bk, bn, nzero, st);
+    case 32:
+      return launch_spmm_wgmma_kc<TO, 32>(a, vals, ptr, rows, vidx, out, m, k,
+                                          n, bk, bn, nzero, st);
+  }
+  return launch_spmm_wgmma_kc<TO, 16>(a, vals, ptr, rows, vidx, out, m, k, n,
                                       bk, bn, nzero, st);
 }
 
-// the wgmma union kernel at slice depth KC and box width BOX, in one form;
-// a, vals bf16 and 16-byte aligned, bk % 32 == 0, bn % 32 == 0. A's map as
-// the scheduled kernel's; the right-hand side's: the fused form's values
+// the wgmma union kernel at slice depth KC, box width BOX and store piece
+// PW, in one form; a, vals bf16 and 16-byte aligned, bk % KC == 0, bn % 8
+// == 0. A's map: sw_amap; the right-hand side's: the fused form's values
 // over (bn, bk, nblocks) (an empty store: one block of A's memory, never
 // read in bounds; the zero block at block index vzero, the extent), the
 // compacted form's RHS over (128, U bk, n / 128), in boxes of BOX x KC x 1.
 // The compacted form runs right after the compactor and is launched
 // programmatically.
-template <typename TO, int KC, int BOX, bool COMPACT>
+template <typename TO, int KC, int BOX, int PW, bool COMPACT>
 static int launch_union_wgmma_at(const void* a, const void* vals,
                                  const int* krows, const int* gmap,
                                  const int* ocol, void* out, int m, int k,
@@ -1771,10 +1460,6 @@ static int launch_union_wgmma_at(const void* a, const void* vals,
   const int vzero = nzero > 0 ? nzero : 1;
   if (gy > 65535 || (long long)U * bk > 2147483647LL)
     return cudaErrorInvalidConfiguration;
-  const CUtensorMapDataType B = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint64_t adims[2] = {(cuuint64_t)k, (cuuint64_t)m};
-  const cuuint64_t astr[1] = {(cuuint64_t)k * 2};
-  const cuuint32_t abox[2] = {KC, SW_TM};
   const cuuint64_t rdims[3] = {
       (cuuint64_t)(COMPACT ? GW : bn), (cuuint64_t)(COMPACT ? U * bk : bk),
       (cuuint64_t)(COMPACT ? n / GW : vzero)};
@@ -1782,15 +1467,12 @@ static int launch_union_wgmma_at(const void* a, const void* vals,
                               (cuuint64_t)rdims[0] * rdims[1] * 2};
   const cuuint32_t rbox[3] = {BOX, KC, 1};
   CUtensorMap amap, rmap;
-  if (!encode_map(&amap, B, a, 2, adims, astr, abox,
-                  KC == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !encode_map(&rmap, B, COMPACT || nzero > 0 ? vals : a, 3, rdims, rstr,
-                  rbox,
-                  BOX == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                            : CU_TENSOR_MAP_SWIZZLE_64B))
+  if (!sw_amap<KC>(&amap, a, m, k) ||
+      !encode_map(&rmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  COMPACT || nzero > 0 ? vals : a, 3, rdims, rstr, rbox,
+                  sw_swizzle(BOX * 2)))
     return cudaErrorInvalidValue;
-  auto kern = bcsc_union_wgmma_kernel<TO, KC, BOX, COMPACT>;
+  auto kern = bcsc_union_wgmma_kernel<TO, KC, BOX, PW, COMPACT>;
   // above 48 KB only as dynamic shared memory, after the opt-in
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
@@ -1800,21 +1482,30 @@ static int launch_union_wgmma_at(const void* a, const void* vals,
                     static_cast<TO*>(out), m, n, bk, bn, U, nzero, vzero);
 }
 
-// KC = 64 where bk allows it, else 32; the compacted RHS in 64-column
-// boxes, the fused form's in boxes of min(bn, 64)
+// the compacted RHS in 64-column boxes, the fused form's in boxes of
+// min(bn, 64); the store in pieces of 32 columns where bn % 32 == 0, else 8
 template <typename TO, int KC>
 static int launch_union_wgmma_kc(const void* a, const void* vals,
                                  const int* krows, const int* gmap,
                                  const int* ocol, void* out, int m, int k,
                                  int n, int bk, int bn, int U, int nzero,
                                  bool compact, cudaStream_t st) {
+  if (compact && bn % 32 == 0)
+    return launch_union_wgmma_at<TO, KC, 64, 32, true>(
+        a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U, nzero, st);
   if (compact)
-    return launch_union_wgmma_at<TO, KC, 64, true>(
+    return launch_union_wgmma_at<TO, KC, 64, 8, true>(
+        a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U, nzero, st);
+  if (bn == 8)
+    return launch_union_wgmma_at<TO, KC, 8, 8, false>(
+        a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U, nzero, st);
+  if (bn == 16)
+    return launch_union_wgmma_at<TO, KC, 16, 8, false>(
         a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U, nzero, st);
   if (bn == 32)
-    return launch_union_wgmma_at<TO, KC, 32, false>(
+    return launch_union_wgmma_at<TO, KC, 32, 32, false>(
         a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U, nzero, st);
-  return launch_union_wgmma_at<TO, KC, 64, false>(
+  return launch_union_wgmma_at<TO, KC, 64, 32, false>(
       a, vals, krows, gmap, ocol, out, m, k, n, bk, bn, U, nzero, st);
 }
 
@@ -1824,10 +1515,17 @@ static int launch_union_wgmma(const void* a, const void* vals,
                               const int* ocol, void* out, int m, int k, int n,
                               int bk, int bn, int U, int nzero, bool compact,
                               cudaStream_t st) {
-  if (bk % 64 == 0)
-    return launch_union_wgmma_kc<TO, 64>(a, vals, krows, gmap, ocol, out, m,
-                                         k, n, bk, bn, U, nzero, compact, st);
-  return launch_union_wgmma_kc<TO, 32>(a, vals, krows, gmap, ocol, out, m, k,
+  switch (sw_kc(bk)) {
+    case 64:
+      return launch_union_wgmma_kc<TO, 64>(a, vals, krows, gmap, ocol, out, m,
+                                           k, n, bk, bn, U, nzero, compact,
+                                           st);
+    case 32:
+      return launch_union_wgmma_kc<TO, 32>(a, vals, krows, gmap, ocol, out, m,
+                                           k, n, bk, bn, U, nzero, compact,
+                                           st);
+  }
+  return launch_union_wgmma_kc<TO, 16>(a, vals, krows, gmap, ocol, out, m, k,
                                        n, bk, bn, U, nzero, compact, st);
 }
 
@@ -1934,18 +1632,16 @@ static int launch_densify(const void* vals, const int* gmap, void* out,
   return cudaErrorInvalidValue;
 
 // the routes of the three SpMM entries
-enum { SP_FMA, SP_MMA, SP_TMA_FMA, SP_WGMMA };
+enum { SP_FMA, SP_TMA_FMA, SP_WGMMA };
 
 // the kernel a call takes (kernels/spmm.py spmm_path mirrors it): the wgmma
-// kernels for bf16 calls whose blocks are whole 32-deep, 32-wide pieces
-// (scheduled, supertile and k-union alike); the mma.sync kernels for the
-// other bf16 tiles whose depth is whole k16 steps and whose rows are whole
-// 16-byte units; the TMA-fed FMA kernel for f32 blocks whose
-// rows and depth are whole 16-byte units (TMA's strides), in the union at
-// most SF_UNION_BOXES value blocks a group; the FMA kernel for the rest
+// kernels for bf16 calls whose blocks are whole k16 steps deep and whose
+// rows are whole 16-byte units (scheduled, supertile and k-union alike);
+// the TMA-fed FMA kernel for f32 blocks whose rows and depth are whole
+// 16-byte units (TMA's strides), in the union at most SF_UNION_BOXES value
+// blocks a group; the FMA kernel for the rest
 static int spmm_route(int in_type, int bk, int bn, bool uni) {
-  if (in_type == T_BF16 && bk % 32 == 0 && bn % 32 == 0) return SP_WGMMA;
-  if (in_type == T_BF16 && bk % 16 == 0 && bn % 8 == 0) return SP_MMA;
+  if (in_type == T_BF16 && bk % 16 == 0 && bn % 8 == 0) return SP_WGMMA;
   if (in_type == T_F32 && bk % 4 == 0 && bn % 4 == 0 &&
       (!uni || GW / bn <= SF_UNION_BOXES))
     return SP_TMA_FMA;
@@ -1968,15 +1664,6 @@ static int spmm_entry(const void* a, const void* vals, const int* ptr,
     if (out_type == T_BF16)
       return launch_spmm_wgmma<__nv_bfloat16>(a, vals, ptr, rows, vidx, out,
                                               m, k, n, bk, bn, nzero, st);
-    return cudaErrorInvalidValue;
-  }
-  if (route == SP_MMA) {
-    if (out_type == T_F32)
-      return launch_spmm_mma<float>(a, vals, ptr, rows, vidx, out, m, k, n,
-                                    bk, bn, nzero, st);
-    if (out_type == T_BF16)
-      return launch_spmm_mma<__nv_bfloat16>(a, vals, ptr, rows, vidx, out, m,
-                                            k, n, bk, bn, nzero, st);
     return cudaErrorInvalidValue;
   }
   if (route == SP_TMA_FMA) {
@@ -2043,14 +1730,6 @@ static int union_entry(const void* a, const void* vals, const int* krows,
     return launch_union_wgmma<__nv_bfloat16>(a, vals, krows, gmap, ocol, out,
                                              m, k, n, bk, bn, U, nzero,
                                              compact, st);
-  }
-  if (route == SP_MMA) {
-    if (out_type == T_F32)
-      return launch_union_mma<float>(a, vals, krows, gmap, ocol, out, m, k, n,
-                                     bk, bn, U, nzero, compact, st);
-    return launch_union_mma<__nv_bfloat16>(a, vals, krows, gmap, ocol, out, m,
-                                           k, n, bk, bn, U, nzero, compact,
-                                           st);
   }
   if (route == SP_TMA_FMA) {
     if (out_type == T_F32)

@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels of libxsmm_torch's BCSC lab (the
 // port's scripts/bcsc_lab.py): probes of the k-union SpMM kernel
-// (spmm_kernels.cu bcsc_union_mma_kernel), each keeping one property of a
+// (spmm_kernels.cu bcsc_union_wgmma_kernel), each keeping one property of a
 // candidate schedule so the lab can time it against the union kernel. They
 // replace the Pallas probes of scripts/bcsc_lab.py make_variants (:67):
 //   xsmm_bcsc_lab_minimal  `minimal` (:100): the dot floor over a constant,
@@ -25,7 +25,7 @@
 // its output tile once, with no atomics: a repeat is bit for bit.
 //
 // Math. All three run on the bf16 tensor cores, as the library's union
-// kernel does since it moved there. chunkN and dspipe: mma.sync m16n8k16
+// kernel does (on wgmma). chunkN and dspipe: mma.sync m16n8k16
 // with an f32 accumulator on fragments that ldmatrix loads from the staged
 // bf16 tiles (xsmm_mma.cuh); consumer warps own (16 MT) x 16 strips of the
 // tile (MT m16 tiles, two n8 tiles): two warps down a tile of 32 rows or

@@ -3,10 +3,11 @@
 // (TMA) loads and the 1-D bulk copy that complete on an mbarrier, 4- and
 // 16-byte cp.async whose completion arrives on an mbarrier, the
 // programmatic dependent launch's wait and trigger, the wgmma
-// fence/commit/wait, the shared-memory matrix descriptors of 128- and
-// 64-byte swizzled tiles, wgmma.m64n128k16 with bf16 operands and f32
-// accumulators and the Wg<N> wrappers of wgmma.m64nNk16 (N = 32, 64, 128)
-// in both forms (A from shared memory or from registers); on the host,
+// fence/commit/wait, the shared-memory matrix descriptors of 128-, 64- and
+// 32-byte swizzled tiles and of unswizzled core matrices, wgmma.m64n128k16
+// with bf16 operands and f32 accumulators and the Wg<N> wrappers of
+// wgmma.m64nNk16 (N = 8, 16, 32, 64, 128; N = 64 and 128 also with A from
+// registers); on the host,
 // encode_map (cuTensorMapEncodeTiled) for the TMA maps of every source that
 // includes it (gemm_kernels.cu, spmm_kernels.cu, spmm_lab_kernels.cu, and
 // through xsmm_flash_fma.cuh the two attention sources). kernels/_build.py
@@ -178,15 +179,22 @@ __device__ __forceinline__ void pdl_trigger() {
 // wgmma
 // ---------------------------------------------------------------------------
 
+// a descriptor of the tile at `p`: start address, leading and stride byte
+// offsets, layout type (0 none, 1 128-byte, 2 64-byte, 3 32-byte swizzle)
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo, uint32_t type) {
+  uint64_t d = (uint64_t)((wg_smem(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)type << 62;
+  return d;
+}
+
 // a descriptor of a 128-byte swizzled tile at `p` (byte offsets as above)
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p,
                                                      uint32_t lbo,
                                                      uint32_t sbo) {
-  uint64_t d = (uint64_t)((wg_smem(p) & 0x3FFFF) >> 4);
-  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
-  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
-  d |= (uint64_t)1 << 62;   // layout type 1: 128-byte swizzle
-  return d;
+  return wgmma_desc(p, lbo, sbo, 1);
 }
 
 // a descriptor of a 64-byte swizzled tile at `p` (layout type 2): a TMA box
@@ -200,11 +208,34 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p,
 __device__ __forceinline__ uint64_t wgmma_desc_sw64(const void* p,
                                                     uint32_t lbo,
                                                     uint32_t sbo) {
-  uint64_t d = (uint64_t)((wg_smem(p) & 0x3FFFF) >> 4);
-  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
-  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
-  d |= (uint64_t)2 << 62;   // layout type 2: 64-byte swizzle
-  return d;
+  return wgmma_desc(p, lbo, sbo, 2);
+}
+
+// a descriptor of a 32-byte swizzled tile at `p` (layout type 3): a TMA box
+// whose inner extent is 32 bytes, loaded with CU_TENSOR_MAP_SWIZZLE_32B into
+// a 256-byte aligned buffer, stores row r at byte r * 32 with its 16-byte
+// chunk c at chunk c ^ ((r / 4) % 2). K-major (rows of M, 16 bf16 of K in
+// each row: one k16 step): SBO 256 bytes (8 rows); MN-major (rows of K, 16
+// bf16 of N in each row, the transpose bit): SBO 256 bytes between 8-row
+// groups of K, LBO between 16-column boxes of N, the k16 step at 16 * 32
+// bytes
+__device__ __forceinline__ uint64_t wgmma_desc_sw32(const void* p,
+                                                    uint32_t lbo,
+                                                    uint32_t sbo) {
+  return wgmma_desc(p, lbo, sbo, 3);
+}
+
+// a descriptor of unswizzled core matrices at `p` (layout type 0): a core
+// matrix is 8 rows of 16 bytes, 128 contiguous bytes, as a TMA box whose
+// inner extent is 16 bytes lands them (CU_TENSOR_MAP_SWIZZLE_NONE into a
+// 128-byte aligned buffer: row r at byte r * 16). MN-major (rows of K, 8
+// bf16 of N in each row, the transpose bit): LBO the stride between core
+// matrices along K (the next 8 rows, 128 bytes in such a box), SBO between
+// 8-column groups of N; the k16 step at 16 * 16 bytes
+__device__ __forceinline__ uint64_t wgmma_desc_plain(const void* p,
+                                                     uint32_t lbo,
+                                                     uint32_t sbo) {
+  return wgmma_desc(p, lbo, sbo, 0);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -263,7 +294,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
 }
 
 // ---------------------------------------------------------------------------
-// wgmma.m64nNk16 (N = 32, 64, 128), bf16 x bf16 -> f32 (the Wg<N>
+// wgmma.m64nNk16 (N = 8, 16, 32, 64, 128), bf16 x bf16 -> f32 (the Wg<N>
 // wrappers of the warp-specialised kernels). d[4 j + i] of thread t (warp w = t /
 // 32 of the warpgroup, lane l) is row 16 w + l / 4 + 8 (i / 2), column 8 j +
 // 2 (l % 4) + (i % 2). SS: TA / TB are the transpose bits (0: K-major, 1:
@@ -275,6 +306,11 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
 // the next product: a[2 (j & 1) + h] = {d[4 j + 2 h], d[4 j + 2 h + 1]},
 // j = 2 k, 2 k + 1. scale_d = 0 ignores d's values (the first k16 step).
 // ---------------------------------------------------------------------------
+
+#define WG_ACC4(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+
+#define WG_ACC8(d)                                                         \
+  WG_ACC4(d), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
 
 #define WG_ACC16(d)                                                        \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
@@ -299,6 +335,10 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),     \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
+#define WG_REGS4 "{%0, %1, %2, %3}"
+
+#define WG_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+
 #define WG_REGS16                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 
@@ -316,6 +356,40 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
 
 template <int N>
 struct Wg;
+
+template <>
+struct Wg<8> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 " WG_REGS4
+        ", %4, %5, p, 1, 1, %7, %8;\n"
+        "}\n"
+        : WG_ACC4(d)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct Wg<16> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " WG_REGS8
+        ", %8, %9, p, 1, 1, %11, %12;\n"
+        "}\n"
+        : WG_ACC8(d)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
 
 template <>
 struct Wg<32> {
@@ -398,9 +472,13 @@ struct Wg<128> {
   }
 };
 
+#undef WG_ACC4
+#undef WG_ACC8
 #undef WG_ACC16
 #undef WG_ACC32
 #undef WG_ACC64
+#undef WG_REGS4
+#undef WG_REGS8
 #undef WG_REGS16
 #undef WG_REGS32
 #undef WG_REGS64

@@ -32,22 +32,19 @@ The port of `libxsmm_tpu/kernels/spmm_pallas.py`: the schedule helpers
 * build_bcsc_spmm_super — strategy "super": the scheduled kernel over the
   occupied 128 x 128 supertiles.
 
-The scheduled, supertile and union strategies run on one of four CUDA
+The scheduled, supertile and union strategies run on one of three CUDA
 kernels, the route (`spmm_path`, as csrc spmm_route takes it): "wgmma",
 Hopper's warpgroup products on TMA-fed tiles, wherever the operands are
-bf16 and the blocks are whole 32-deep, 32-wide pieces (bk % 32 == 0, bn %
-32 == 0: 32 x 32, 64 x 128, 128 x 128, the supertiles), the k-union in
-both forms included; "mma", the bf16 tensor cores by mma.sync, wherever
-the operands are bf16 and the blocks are whole k16 steps deep and whole
-16-byte units wide (bk % 16 == 0, bn % 8 == 0) and wgmma does not serve
-(16 x 64, 16 x 8, 48 x 32, 32 x 16); "tma_fma",
-f32 tiles fed by TMA into the CUDA cores' FMAs (f32 means f32, no TF32),
-wherever the operands are f32 and the blocks' rows and depth are whole
-16-byte units (bk % 4 == 0, bn % 4 == 0; the union also bn >= 32, at most
-four value blocks a stage); "fma", the FMA kernel with its own loads, for
-every other case. The route follows from the shape alone and is fixed
-at create time (`.path`); there is no fallback between the kernels: a
-build or launch that fails raises.
+bf16 and the blocks are whole k16 steps deep and whole 16-byte rows wide
+(bk % 16 == 0, bn % 8 == 0: 32 x 32, 16 x 64, 16 x 8, 48 x 32, 32 x 16,
+64 x 128, 128 x 128, the supertiles), the k-union in both forms included,
+on the tile `wgmma_plan` describes; "tma_fma", f32 tiles fed by TMA into
+the CUDA cores' FMAs (f32 means f32, no TF32), wherever the operands are
+f32 and the blocks' rows and depth are whole 16-byte units (bk % 4 == 0,
+bn % 4 == 0; the union also bn >= 32, at most four value blocks a stage);
+"fma", the FMA kernel with its own loads, for every other case. The route
+follows from the shape alone and is fixed at create time (`.path`); there
+is no fallback between the kernels: a build or launch that fails raises.
 
 Every builder makes its plan (schedule, unions, gather maps) once, in numpy,
 and puts it on `device`; a call never re-uploads it. Calling the returned
@@ -85,18 +82,17 @@ launches = {"bcsc_spmm": 0, "bcsc_spmm_union": 0, "bcsc_densify": 0,
             "bcsc_spmm_super": 0, "bcsc_union_compact": 0}
 # the SpMM kernels' launches split by the route that served them
 # (spmm_path)
-ROUTES = ("mma", "tma_fma", "fma", "wgmma")
+ROUTES = ("tma_fma", "fma", "wgmma")
 path_launches = {name: {r: 0 for r in ROUTES}
                  for name in ("bcsc_spmm", "bcsc_spmm_super",
                               "bcsc_spmm_union")}
 # the source behind each counter and the CUDA kernels its launches run, by
 # name (lowering.py files each logged entry under its counter)
-_SCHEDULED = ("bcsc_spmm_kernel", "bcsc_spmm_mma_kernel",
-              "bcsc_spmm_tma_fma_kernel", "bcsc_spmm_wgmma_kernel")
+_SCHEDULED = ("bcsc_spmm_kernel", "bcsc_spmm_tma_fma_kernel",
+              "bcsc_spmm_wgmma_kernel")
 ENTRIES = {"bcsc_spmm": ("spmm_kernels", _SCHEDULED),
            "bcsc_spmm_super": ("spmm_kernels", _SCHEDULED),
            "bcsc_spmm_union": ("spmm_kernels", ("bcsc_union_kernel",
-                                                 "bcsc_union_mma_kernel",
                                                  "bcsc_union_tma_fma_kernel",
                                                  "bcsc_union_wgmma_kernel")),
            "bcsc_union_compact": ("spmm_kernels", (
@@ -154,28 +150,65 @@ def spmm_path(in_dtype: torch.dtype, bk: int, bn: int,
     """The kernel that serves the scheduled, supertile and (`union`) k-union
     SpMM (csrc spmm_route), chosen by dtype, blocking and union alone,
     before any launch: "wgmma", the warpgroup kernels on TMA-fed tiles,
-    for bf16 operands whose blocks are whole 32-deep, 32-wide pieces (bk %
-    32 == 0, bn % 32 == 0: a k16 step of its slices and a 64-byte swizzled
-    row of A's and of the values), scheduled, supertile and k-union (both
-    forms) alike; "mma", the bf16 mma.sync kernels, for the other bf16
-    blocks that are whole k16 steps deep (bk % 16 == 0) and whole 16-byte
-    units wide (bn % 8 == 0: 16 x 64, 16 x 8, 48 x 32, 32 x 16, in every
-    strategy);
-    "tma_fma", the f32 kernel on TMA-fed FMA tiles, for f32 operands whose
-    blocks' rows and depth are whole 16-byte units (bk % 4 == 0, bn % 4 ==
-    0: TMA's strides; f32 means f32, no TF32) and, in the union, at most
-    four value blocks a 128-column group (bn >= 32: each is one box of a
-    stage, read without bank conflicts); "fma", the FMA kernel with its own
-    loads, for every other case (blockings such as 8 x 8 or 4 x 48 in bf16,
-    2 x 2 in f32)."""
-    if in_dtype == torch.bfloat16 and bk % 32 == 0 and bn % 32 == 0:
-        return "wgmma"
+    for bf16 operands whose blocks are whole k16 steps deep (bk % 16 == 0:
+    a slice is one, two or four k16 steps) and whole 16-byte rows wide (bn
+    % 8 == 0: TMA's row stride and wgmma's n8 steps; 32 x 32, 16 x 64, 16 x
+    8, 48 x 32, 32 x 16, 64 x 128, 128 x 128), scheduled, supertile and
+    k-union (both forms) alike, on `wgmma_plan`'s tile; "tma_fma", the f32
+    kernel on TMA-fed FMA tiles, for f32 operands whose blocks' rows and
+    depth are whole 16-byte units (bk % 4 == 0, bn % 4 == 0: TMA's strides;
+    f32 means f32, no TF32) and, in the union, at most four value blocks a
+    128-column group (bn >= 32: each is one box of a stage, read without
+    bank conflicts); "fma", the FMA kernel with its own loads, for every
+    other case (blockings such as 8 x 8 or 4 x 48 in bf16, 2 x 2 in
+    f32)."""
     if in_dtype == torch.bfloat16 and bk % 16 == 0 and bn % 8 == 0:
-        return "mma"
+        return "wgmma"
     if (in_dtype == torch.float32 and bk % 4 == 0 and bn % 4 == 0
             and (not union or GROUP // bn <= _UNION_BOXES)):
         return "tma_fma"
     return "fma"
+
+
+_SW_TM = 128         # output rows of a wgmma tile (csrc SW_TM)
+_SW_ALIGN = 1024     # slack to align the ring (csrc SF_ALIGN)
+_SW_SMEM_MAX = 232448   # a block's shared memory on sm_90 (csrc SF_SMEM_MAX)
+
+
+def wgmma_plan(bk: int, bn: int, union: bool = False,
+               compact: bool = False) -> dict:
+    """The tile of the "wgmma" route at a bf16 blocking (csrc SwTile and
+    the launchers that pick it): `kc` the slice depth, the deepest of 64,
+    32, 16 that divides bk; `tn` the tile's columns (the scheduled kernel:
+    the least of 8, 16, 32, 64, 128 that covers bn; the union: its
+    128-column group); `box` the columns of a value box (at most 64, a
+    128-byte swizzled row; the fused union's at most bn, so a box never
+    straddles two value blocks; the compacted union's 64); `boxes` the TMA
+    boxes a stage lands, A's slice included, and `load` their bytes (the
+    fused union's at most: a dead entry whose place in the stage already
+    holds TMA's zero fill lands none); `stage`
+    the bytes of a stage, padded to 1024; `stages` the ring's depth (3, 4
+    or 8 at kc 64, 32, 16); `smem` a block's dynamic shared memory, two
+    blocks an SM. Raises ValueError where the route does not serve the
+    blocking (bk % 16, bn % 8; the union also 128 % bn)."""
+    if bk <= 0 or bn <= 0 or bk % 16 or bn % 8 or (union and GROUP % bn):
+        raise ValueError(f"no wgmma tile for a {bk} x {bn} "
+                         f"{'union' if union else 'scheduled'} blocking")
+    kc = 64 if bk % 64 == 0 else 32 if bk % 32 == 0 else 16
+    if union:
+        tn = GROUP
+        box = 64 if compact else min(bn, 64)
+    else:
+        tn = next(t for t in (8, 16, 32, 64, 128) if t >= min(bn, 128))
+        box = min(tn, 64)
+    vboxes = tn // box
+    load = _SW_TM * kc * 2 + vboxes * kc * box * 2
+    stage = -(-load // 1024) * 1024
+    stages = {64: 3, 32: 4, 16: 8}[kc]
+    smem = _SW_ALIGN + stages * stage + 2 * stages * 8
+    assert 2 * smem <= _SW_SMEM_MAX
+    return {"kc": kc, "tn": tn, "box": box, "boxes": 1 + vboxes,
+            "load": load, "stage": stage, "stages": stages, "smem": smem}
 
 
 def _index(x, device) -> torch.Tensor:

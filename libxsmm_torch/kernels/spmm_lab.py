@@ -23,8 +23,8 @@ clustering (krows (n/128, U), gmap (n/128, U, 4), nblocks = the zero block):
   union issued before this group's math.
 
 chunkN and dspipe multiply on the bf16 tensor cores too (path "mma":
-mma.sync m16n8k16, f32 accumulators), as the library's union kernel does,
-over a cp.async staging whose tile `chunk_plan` and `dspipe_plan` choose
+mma.sync m16n8k16, f32 accumulators; the library's union kernel runs
+wgmma), over a cp.async staging whose tile `chunk_plan` and `dspipe_plan` choose
 (the launcher in the CUDA source mirrors them); a union too deep for any
 of their tiles is refused.
 

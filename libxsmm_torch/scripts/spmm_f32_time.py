@@ -12,8 +12,9 @@ graph of 20 calls (graph_ms) and by its kernels' device time
 yardstick: torch.mm of A and the densified B (f32 out) timed the same
 three ways. The pattern is bench.py's
 (make_bcsc_cases): a standard-normal (k, n) whose blocks are kept at
-`--density`, from default_rng(`--seed`); n is 1024, or the least multiple
-of both bn and 128 past it.
+`--density`, from default_rng(`--seed`); k is 1024 cut to a multiple of bk
+(1008 at bk 48), n is 1024, or the least multiple of both bn and 128 past
+it.
 
 It uses only entry points that earlier trees of the port have too, so it
 also times a checkout of one, whose kernels may take other routes at the
@@ -76,7 +77,7 @@ def rows_at(bk: int, bn: int, m: int, density: float, seed: int,
     from libxsmm_torch.ops.sparse import assemble_supertiles, supertile_plan
     import libxsmm_torch as xt
 
-    k = 1024
+    k = 1024 - 1024 % bk
     step = bn * 128 // math.gcd(bn, 128)
     n = 1024 if 1024 % bn == 0 else -(-1024 // step) * step
     bcsc = _pattern(np.random.default_rng(seed), k, n, bk, bn, density)

@@ -12,12 +12,12 @@ Tolerances (matdiff normf_rel): 1e-5 for f32 in and out and 1e-4 for bf16
 in / f32 out (the sums run in another order than the plain version's);
 1e-2 for bf16 outputs (one rounding, at another point of the sum); the
 densify kernel, the union RHS compactor, empty block columns and empty
-patterns exact. bf16 operands at blockings of whole 32-deep, 32-wide
-pieces (32 x 32, 64 x 128, 128 x 128) run the scheduled, supertile and
-union SpMMs on wgmma ("wgmma"); other blockings of whole k16 steps and
-16-byte rows (16 x 64, 16 x 8) run the mma.sync kernels ("mma"), all at
-the same margins: their bf16 products are exact in the
-f32 accumulator. f32 operands at blockings of whole 16-byte
+patterns exact. bf16 operands at blockings of whole k16 steps and
+16-byte rows run the scheduled, supertile and union SpMMs on wgmma
+("wgmma"): 32 x 32, 64 x 128, 128 x 128 and the narrow blockings 16 x 64,
+16 x 8, 48 x 24, 48 x 32, 32 x 16 (16-deep slices, value boxes 8 or 16
+wide), all at the same margins: their bf16 products are exact in the f32
+accumulator. f32 operands at blockings of whole 16-byte
 units run the TMA-fed FMA kernels ("tma_fma"; the union at bn >= 32), at
 the same margins; TF32 stays off. The FMA kernels ("fma") are held at the
 blockings the rule sends to them.
@@ -120,29 +120,70 @@ def test_bcsc_spmm_super(gen, m, a_dt, o_dt):
 
 
 # blockings the tensor-core kernels serve with bf16 operands (bk % 16 == 0,
-# bn % 8 == 0): wgmma at 32 x 32 and 128 x 128, mma.sync at 16 x 64
+# bn % 8 == 0), all on wgmma (the f32 tests below take the first three)
 MMA_BLOCKINGS = [(32, 32), (16, 64), (128, 128)]
+# the narrow ones: 16-deep slices (bk 16, 48), value boxes 8, 16 or 32 wide
+# with columns past bn zero-filled (bn 8, 24, 16)
+NARROW_BLOCKINGS = [(16, 8), (48, 24), (48, 32), (32, 16)]
+
+
+def depth(bk, k=512):
+    """k cut to a multiple of bk (480 at bk = 48)."""
+    return k - k % bk
 
 
 @pytest.mark.parametrize("o_dt", [F32, BF16])
 @pytest.mark.parametrize("m", [1, 37, 200, 32768])
-@pytest.mark.parametrize("bk,bn", MMA_BLOCKINGS)
+@pytest.mark.parametrize("bk,bn", MMA_BLOCKINGS + NARROW_BLOCKINGS)
 def test_bcsc_spmm_mma(gen, bk, bn, m, o_dt):
-    """The tensor-core kernels: ragged and streaming m, an empty block
-    column (its zero-block step multiplied), both output types, each on
-    the route spmm_path names for its blocking."""
-    k, n = 512, 384
+    """The tensor-core kernel at every blocking class: ragged and
+    streaming m, an empty block column (its zero-block step multiplied),
+    both output types, the launch counted on route wgmma."""
+    k, n = depth(bk), 384
     indptr, indices = pattern(k, n, bk, bn, 0.3, seed=m + bk,
                               empty_cols=(1,))
     shape = GemmShape(m, n, k, BF16, BF16, o_dt)
     fn = pk.build_bcsc_spmm(shape, SpgemmConfig(1, bk, bn), indptr, indices,
                             "cuda")
-    assert fn.path == pk.spmm_path(torch.bfloat16, bk, bn) == (
-        "mma" if bk == 16 else "wgmma")
+    assert fn.path == pk.spmm_path(torch.bfloat16, bk, bn) == "wgmma"
     a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
-    got = launched("bcsc_spmm", fn, a, v)
+    got = on_route("bcsc_spmm", "wgmma", fn, a, v)
     same(fn.plain(a, v), got, tol(BF16, o_dt))
     assert bool((got[:, bn:2 * bn] == 0).all())
+
+
+@pytest.mark.parametrize("bk,bn,union,compact", [
+    (16, 8, False, False), (48, 24, False, False), (32, 16, False, False),
+    (16, 64, False, False), (16, 8, True, False), (16, 8, True, True),
+    (32, 16, True, False), (48, 32, True, True)])
+def test_wgmma_plan_is_the_launched_tile(gen, bk, bn, union, compact):
+    """kernels.spmm.wgmma_plan names the instantiation that runs: the
+    launched entry's template arguments (the library's launch log) carry
+    the plan's TN and KC (scheduled) or KC and box (union)."""
+    from libxsmm_torch import lowering
+    from libxsmm_torch.kernels import _build
+    m, k, n = 200, depth(bk, 256), 384
+    indptr, indices = pattern(k, n, bk, bn, 0.3, seed=bk + bn)
+    shape, cfg = GemmShape(m, n, k, BF16, BF16, F32), SpgemmConfig(1, bk, bn)
+    fn = (pk.build_bcsc_spmm_union(shape, cfg, indptr, indices, "cuda",
+                                   compact=compact) if union else
+          pk.build_bcsc_spmm(shape, cfg, indptr, indices, "cuda"))
+    a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
+    fn(a, v)
+    torch.cuda.synchronize()
+    before = _build.launch_log()
+    got = on_route(fn.counter, "wgmma", fn, a, v)
+    torch.cuda.synchronize()
+    ran = [e for e in lowering.launched_entries(
+        before, _build.launch_log()).get("spmm_kernels", {}) if "wgmma" in e]
+    plan = pk.wgmma_plan(bk, bn, union=union, compact=compact)
+    if union:
+        want = (f"bcsc_union_wgmma_kernelIfLi{plan['kc']}ELi{plan['box']}E"
+                f"Li{32 if bn % 32 == 0 else 8}ELb{int(compact)}E")
+    else:
+        want = f"bcsc_spmm_wgmma_kernelIfLi{plan['tn']}ELi{plan['kc']}E"
+    assert len(ran) == 1 and want in ran[0], ran
+    same(fn.plain(a, v), got, 1e-4)
 
 
 @pytest.mark.parametrize("o_dt", [F32, BF16])
@@ -160,17 +201,18 @@ def test_bcsc_spmm_super_mma(gen, m, o_dt):
     assert bool((got[:, 256:] == 0).all())
 
 
-@pytest.mark.parametrize("bk,bn", MMA_BLOCKINGS)
+@pytest.mark.parametrize("bk,bn", MMA_BLOCKINGS + NARROW_BLOCKINGS)
 def test_bcsc_spmm_mma_nan_in_block_row_0(gen, bk, bn):
     """An empty block column multiplies A's block row 0 by the zero block,
     as the reference does: a NaN there gives NaN, as the plain version."""
-    m, k, n = 70, 256, 256
+    m, k, n = 70, depth(bk, 256), 384
     indptr, indices = pattern(k, n, bk, bn, 0.4, seed=bk, empty_cols=(0,))
     fn = pk.build_bcsc_spmm(GemmShape(m, n, k, BF16, BF16, F32),
                             SpgemmConfig(1, bk, bn), indptr, indices, "cuda")
+    assert fn.path == "wgmma"
     a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
     a[5, 3] = float("nan")
-    got = launched("bcsc_spmm", fn, a, v)
+    got = on_route("bcsc_spmm", "wgmma", fn, a, v)
     want = fn.plain(a, v)
     torch.cuda.synchronize()
     assert bool(torch.isnan(got[5, :bn]).all())
@@ -210,19 +252,20 @@ def test_bcsc_spmm_wgmma(gen, bk, bn, m, o_dt):
 
 
 @pytest.mark.parametrize("o_dt", [F32, BF16])
-@pytest.mark.parametrize("bk,bn", [(32, 32), (128, 128)])
+@pytest.mark.parametrize("bk,bn", [(32, 32), (128, 128), (16, 64)]
+                         + NARROW_BLOCKINGS)
 def test_bcsc_spmm_wgmma_empty_store(gen, bk, bn, o_dt):
     """No block at all: every column's one step multiplies A's block row 0
     by the zero block (the value map over A's memory, never read in
     bounds): zeros, and NaN where block row 0 holds one."""
-    m, k, n = 150, 256, 256
+    m, k, n = 150, depth(bk, 256), 384
     indptr = np.zeros(n // bn + 1, np.int32)
     indices = np.zeros(0, np.int32)
     fn = pk.build_bcsc_spmm(GemmShape(m, n, k, BF16, BF16, o_dt),
                             SpgemmConfig(1, bk, bn), indptr, indices, "cuda")
     assert fn.path == "wgmma"
     a, v = rand(gen, (m, k), BF16), rand(gen, (0, bk, bn), BF16)
-    got = launched("bcsc_spmm", fn, a, v)
+    got = on_route("bcsc_spmm", "wgmma", fn, a, v)
     torch.cuda.synchronize()
     assert bool((got == 0).all())
     a[7, bk - 1] = float("nan")
@@ -234,12 +277,13 @@ def test_bcsc_spmm_wgmma_empty_store(gen, bk, bn, o_dt):
 
 
 @pytest.mark.parametrize("o_dt", [F32, BF16])
-@pytest.mark.parametrize("bk,bn", [(32, 32), (64, 128), (128, 128)])
+@pytest.mark.parametrize("bk,bn", [(32, 32), (64, 128), (128, 128), (16, 64)]
+                         + NARROW_BLOCKINGS)
 def test_bcsc_spmm_wgmma_repeats_bit_for_bit(gen, bk, bn, o_dt):
     """One block writes each output tile once, summing in schedule order:
     two calls give the same bits, the scheduled and supertile entries
     alike."""
-    m, k, n = 3000, 512, 512
+    m, k, n = 3000, depth(bk), 384 if bn % 24 == 0 else 512
     indptr, indices = pattern(k, n, bk, bn, 0.5, seed=bk + bn)
     shape = GemmShape(m, n, k, BF16, BF16, o_dt)
     a, v = rand(gen, (m, k), BF16), rand(gen, (len(indices), bk, bn), BF16)
@@ -257,13 +301,14 @@ def test_bcsc_spmm_wgmma_repeats_bit_for_bit(gen, bk, bn, o_dt):
 
 @pytest.mark.parametrize("bk,bn,route", [(32, 32, "wgmma"),
                                          (128, 128, "wgmma"),
-                                         (16, 64, "mma")])
+                                         (16, 64, "wgmma"), (16, 8, "wgmma"),
+                                         (48, 24, "wgmma"),
+                                         (32, 16, "wgmma")])
 @pytest.mark.parametrize("o_dt", [F32, BF16])
 def test_bcsc_spmm_mma_unaligned_views(gen, o_dt, bk, bn, route):
     """A and the values 6 and 2 bytes past a 16-byte boundary: the wrapper
-    copies them into fresh tensors for the kernel's TMA maps (wgmma) or its
-    16-byte loads (mma.sync, 16 x 64)."""
-    m, k, n = 100, 256, 256
+    copies them into fresh tensors for the kernel's TMA maps."""
+    m, k, n = 100, depth(bk, 256), 384
     indptr, indices = pattern(k, n, bk, bn, 0.4, seed=9)
     fn = pk.build_bcsc_spmm(GemmShape(m, n, k, BF16, BF16, o_dt),
                             SpgemmConfig(1, bk, bn), indptr, indices, "cuda")
@@ -272,7 +317,7 @@ def test_bcsc_spmm_mma_unaligned_views(gen, o_dt, bk, bn, route):
     v = rand(gen, (len(indices) * bk * bn + 1,), BF16)[1:].view(
         len(indices), bk, bn)
     assert a.data_ptr() % 16 == 6 and v.data_ptr() % 16 == 2
-    got = launched("bcsc_spmm", fn, a, v)
+    got = on_route("bcsc_spmm", route, fn, a, v)
     same(fn.plain(a, v), got, tol(BF16, o_dt))
 
 
@@ -552,11 +597,11 @@ def test_compactor_element_route_on_aligned_values(gen):
         torch.cuda.current_stream().cuda_stream) != 0
 
 
-# blockings the union's tensor-core kernels serve with bf16 operands (bk %
-# 16 == 0, bn % 8 == 0, bn | 128): wgmma at whole 32-deep, 32-wide blocks,
-# mma.sync at the others
+# blockings the union's wgmma kernel serves with bf16 operands (bk % 16 ==
+# 0, bn % 8 == 0, bn | 128): whole 32-deep, 32-wide blocks, and the narrow
+# ones (16-deep slices; the fused form's value boxes 8 or 16 wide)
 UNION_WGMMA_BLOCKINGS = [(32, 32), (64, 128), (128, 128)]
-UNION_MMA_BLOCKINGS = [(16, 64), (16, 8)]
+UNION_MMA_BLOCKINGS = [(16, 64), (16, 8), (32, 16), (48, 32)]
 FORMS = {"fused": False, "compacted": True}
 
 
@@ -575,9 +620,10 @@ def union_plan(gen, m, k, n, bk, bn, o_dt, form, seed, **kw):
     return fn, a, v
 
 
-def union_mma(gen, *args, **kw):
-    fn, a, v = union_plan(gen, *args, **kw)
-    assert fn.path == "mma"
+def union_mma(gen, m, k, n, bk, *args, **kw):
+    """union_plan at a narrow blocking, k cut to a multiple of bk."""
+    fn, a, v = union_plan(gen, m, depth(bk, k), n, bk, *args, **kw)
+    assert fn.path == "wgmma"
     return fn, a, v
 
 
@@ -592,11 +638,11 @@ def union_wgmma(gen, *args, **kw):
 @pytest.mark.parametrize("m", [1, 37, 200])
 @pytest.mark.parametrize("bk,bn", UNION_MMA_BLOCKINGS)
 def test_bcsc_spmm_union_mma(gen, bk, bn, m, o_dt, form):
-    """The union's mma.sync kernel at the blockings that still take it,
-    both forms, ragged m (rows past m neither computed into nor stored), an
-    empty group (all slots dead: zeros), both output types."""
+    """The union's wgmma kernel at the narrow blockings, both forms,
+    ragged m (rows past m neither computed into nor stored), an empty group
+    (all slots dead: zeros), both output types."""
     fn, a, v = union_mma(gen, m, 512, 384, bk, bn, o_dt, form, seed=m + bk)
-    got = on_route("bcsc_spmm_union", "mma", fn, a, v)
+    got = on_route("bcsc_spmm_union", "wgmma", fn, a, v)
     same(fn.plain(a, v), got, tol(BF16, o_dt))
     assert bool((got[:, :128] == 0).all())
 
@@ -609,23 +655,24 @@ def test_bcsc_spmm_union_mma_pad_slots(gen, bk, bn, u_align, form):
     skipped, block-uniformly."""
     fn, a, v = union_mma(gen, 100, 512, 384, bk, bn, F32, form, seed=u_align,
                          u_align=u_align)
-    same(fn.plain(a, v), on_route("bcsc_spmm_union", "mma", fn, a, v), 1e-4)
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", "wgmma", fn, a, v),
+         1e-4)
 
 
 @pytest.mark.parametrize("form", list(FORMS))
 @pytest.mark.parametrize("o_dt", [F32, BF16])
 def test_bcsc_spmm_union_mma_streaming(gen, o_dt, form):
     """m = 32768 (256 row tiles) through a 0.2-density pattern of 16 x 64
-    blocks."""
+    blocks, on wgmma."""
     indptr, indices = pattern(1024, 1024, 16, 64, 0.2, seed=3)
     fn = pk.build_bcsc_spmm_union(GemmShape(32768, 1024, 1024, BF16, BF16,
                                             o_dt), SpgemmConfig(1, 16, 64),
                                   indptr, indices, "cuda",
                                   compact=FORMS[form])
-    assert fn.path == "mma"
+    assert fn.path == "wgmma"
     a = rand(gen, (32768, 1024), BF16)
     v = rand(gen, (len(indices), 16, 64), BF16)
-    same(fn.plain(a, v), on_route("bcsc_spmm_union", "mma", fn, a, v),
+    same(fn.plain(a, v), on_route("bcsc_spmm_union", "wgmma", fn, a, v),
          tol(BF16, o_dt))
 
 
@@ -696,7 +743,8 @@ def test_bcsc_spmm_union_wgmma_clustered(gen, o_dt, form):
 @pytest.mark.parametrize("form", list(FORMS))
 @pytest.mark.parametrize("bk,bn,route", [(32, 32, "wgmma"),
                                          (64, 128, "wgmma"),
-                                         (16, 64, "mma")])
+                                         (16, 64, "wgmma"),
+                                         (16, 8, "wgmma")])
 def test_bcsc_spmm_union_unaligned_views(gen, bk, bn, route, form):
     """A and the values 6 and 2 bytes past a 16-byte boundary: copied into
     fresh tensors for the kernels' 16-byte staging (TMA on wgmma)."""
@@ -745,7 +793,7 @@ def _nan_in_block_row_0(gen, bk, bn, form, route):
     slots dead) and group 2 (block row 0 not in its union) stay finite:
     their pad slots, which the plain version multiplies with krows 0, are
     skipped (the recorded divergence of the union kernels)."""
-    m, k, n = 70, 256, 384
+    m, k, n = 70, depth(bk, 256), 384
     indptr, indices = pattern(k, n, bk, bn, 0.3, seed=bk,
                               empty_cols=range(128 // bn))
     # block row 0 in group 1's union and not in group 2's
@@ -778,8 +826,8 @@ def _nan_in_block_row_0(gen, bk, bn, form, route):
 @pytest.mark.parametrize("form", list(FORMS))
 @pytest.mark.parametrize("bk,bn", UNION_MMA_BLOCKINGS)
 def test_bcsc_spmm_union_mma_nan_in_block_row_0(gen, bk, bn, form):
-    """_nan_in_block_row_0 on the mma.sync kernel."""
-    _nan_in_block_row_0(gen, bk, bn, form, "mma")
+    """_nan_in_block_row_0 on the wgmma kernel at the narrow blockings."""
+    _nan_in_block_row_0(gen, bk, bn, form, "wgmma")
 
 
 @pytest.mark.parametrize("form", list(FORMS))

@@ -97,9 +97,10 @@ def test_entries_name_the_wgmma_kernels():
 
 
 @pytest.mark.parametrize("bk,bn", [(32, 32), (64, 128), (128, 128),
-                                   (32, 96), (64, 32), (96, 64)])
+                                   (32, 96), (64, 32), (96, 64), (16, 64),
+                                   (16, 8), (48, 32), (32, 16)])
 def test_spmm_wgmma_route_by_blocking(bk, bn):
-    """bf16 blocks of whole 32-deep, 32-wide pieces take wgmma in the
+    """bf16 blocks of whole k16 steps and 16-byte rows take wgmma in the
     scheduled and supertile SpMMs and in the union (its own kernel); f32 at
     the same blocking keeps tma_fma."""
     assert pk.spmm_path(BF16, bk, bn) == "wgmma"

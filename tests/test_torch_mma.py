@@ -1,9 +1,8 @@
 """The tensor-core paths of the port, on the CPU: which CUDA kernel a
 scheduled/supertile/union BCSC SpMM and a flash forward take (the
-predicates that mirror the choice csrc makes: wgmma, mma.sync, or the FMA
-kernels), the bf16 flash forward's tile of each hd bucket, and the bf16
-wrappers at shapes
-that reach the tensor-core kernels on the card (the union in both forms,
+predicates that mirror the choice csrc makes: wgmma or the FMA kernels),
+the bf16 flash forward's tile of each hd bucket, and the bf16 wrappers at
+shapes that reach the tensor-core kernels on the card (the union in both forms,
 with pad slots, a clustered plan and ragged m), held against the JAX
 package on the same numpy inputs.
 The port's wrappers run their plain versions on CPU tensors; the JAX side
@@ -35,35 +34,36 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.parametrize("dtype,bk,bn,want", [
-    (BF16, 32, 32, "wgmma"), (BF16, 16, 64, "mma"),
-    (BF16, 128, 128, "wgmma"), (BF16, 48, 24, "mma"), (BF16, 16, 8, "mma"),
-    (BF16, 64, 256, "wgmma"), (BF16, 8, 8, "fma"), (BF16, 4, 48, "fma"),
-    (BF16, 32, 4, "fma"), (BF16, 24, 32, "fma"), (F32, 32, 32, "tma_fma"),
-    (F32, 128, 128, "tma_fma"), (F32, 2, 2, "fma"),
+    (BF16, 32, 32, "wgmma"), (BF16, 16, 64, "wgmma"),
+    (BF16, 128, 128, "wgmma"), (BF16, 48, 24, "wgmma"),
+    (BF16, 16, 8, "wgmma"), (BF16, 64, 256, "wgmma"), (BF16, 8, 8, "fma"),
+    (BF16, 4, 48, "fma"), (BF16, 32, 4, "fma"), (BF16, 24, 32, "fma"),
+    (F32, 32, 32, "tma_fma"), (F32, 128, 128, "tma_fma"), (F32, 2, 2, "fma"),
     (torch.float16, 32, 32, "fma"), (BF16, 64, 128, "wgmma"),
-    (BF16, 32, 96, "wgmma"), (BF16, 48, 32, "mma"), (BF16, 32, 48, "mma")])
+    (BF16, 32, 96, "wgmma"), (BF16, 48, 32, "wgmma"),
+    (BF16, 32, 48, "wgmma")])
 def test_spmm_path(dtype, bk, bn, want):
-    """bf16 blocks of whole 32-deep, 32-wide pieces take the wgmma kernel;
-    other bf16 tiles of whole k16 steps and whole 16-byte rows the
-    mma.sync kernel; f32 (no TF32) blocks of whole 16-byte units the
-    TMA-fed FMA kernel; other blockings the FMA one."""
+    """bf16 blocks of whole k16 steps and whole 16-byte rows take the
+    wgmma kernel, whether or not they are whole 32-wide pieces; f32 (no
+    TF32) blocks of whole 16-byte units the TMA-fed FMA kernel; other
+    blockings the FMA one."""
     assert pk.spmm_path(dtype, bk, bn) == want
 
 
 @pytest.mark.parametrize("bk,bn,want", [
     (32, 32, "wgmma"), (128, 128, "wgmma"), (64, 128, "wgmma"),
-    (16, 64, "mma"), (16, 8, "mma"), (48, 32, "mma"), (32, 16, "mma"),
-    (8, 8, "fma")])
+    (16, 64, "wgmma"), (16, 8, "wgmma"), (48, 32, "wgmma"),
+    (32, 16, "wgmma"), (8, 8, "fma")])
 def test_spmm_path_union_keeps_mma(bk, bn, want):
     """The k-union takes the route the scheduled SpMM takes at its
-    blocking: its own wgmma kernel at whole 32-deep, 32-wide blocks, and
-    mma.sync at the other blockings of whole k16 steps and 16-byte rows,
-    chosen by blocking alone."""
+    blocking: its own wgmma kernel at every blocking of whole k16 steps and
+    16-byte rows (the mma.sync kernels are gone), chosen by blocking
+    alone."""
     assert pk.spmm_path(BF16, bk, bn, union=True) == want
 
 
 @pytest.mark.parametrize("a_dt,bk,bn,want", [
-    (xp.Datatype.BF16, 32, 32, "wgmma"), (xp.Datatype.BF16, 16, 64, "mma"),
+    (xp.Datatype.BF16, 32, 32, "wgmma"), (xp.Datatype.BF16, 16, 64, "wgmma"),
     (xp.Datatype.BF16, 8, 8, "fma"), (xp.Datatype.F32, 32, 32, "tma_fma")])
 def test_spmm_wrappers_name_their_path(a_dt, bk, bn, want):
     """The scheduled wrapper names the route of its blocking, the
@@ -173,9 +173,10 @@ def test_bf16_flash_padded_depth_parity(hd, flag):
 
 @pytest.mark.parametrize("strategy,bk,bn,o_dt", [
     ("pallas", 32, 32, Datatype.F32), ("pallas", 16, 64, Datatype.F32),
-    ("pallas", 32, 32, Datatype.BF16), ("super", 32, 32, Datatype.F32)])
+    ("pallas", 32, 32, Datatype.BF16), ("super", 32, 32, Datatype.F32),
+    ("pallas", 32, 16, Datatype.F32), ("pallas", 16, 8, Datatype.BF16)])
 def test_bf16_spmm_mma_shapes_parity(strategy, bk, bn, o_dt):
-    """bf16 SpMM at blockings the tensor-core kernel serves, with m = 40
+    """bf16 SpMM at blockings the wgmma kernel serves, with m = 40
     (a part of the card's 128-row tile; the reference's Pallas kernel needs
     8 | m) and an empty block column, against the JAX package's lowering."""
     m, k, n = 40, 256, 256
@@ -215,12 +216,13 @@ UNION_BLOCKINGS = [(32, 32), (16, 64), (64, 128), (128, 128), (16, 8)]
 
 
 @pytest.mark.parametrize("dtype,bk,bn,want", [
-    (BF16, 32, 32, "wgmma"), (BF16, 16, 64, "mma"), (BF16, 64, 128, "wgmma"),
-    (BF16, 16, 8, "mma"), (BF16, 8, 8, "fma"), (BF16, 16, 4, "fma"),
-    (BF16, 8, 32, "fma"), (F32, 32, 32, "tma_fma"), (F32, 16, 8, "fma")])
+    (BF16, 32, 32, "wgmma"), (BF16, 16, 64, "wgmma"),
+    (BF16, 64, 128, "wgmma"), (BF16, 16, 8, "wgmma"), (BF16, 8, 8, "fma"),
+    (BF16, 16, 4, "fma"), (BF16, 8, 32, "fma"), (F32, 32, 32, "tma_fma"),
+    (F32, 16, 8, "fma")])
 def test_union_wrapper_names_its_path(dtype, bk, bn, want):
-    """The union wrapper takes the wgmma and mma.sync kernels exactly where
-    the scheduled SpMM does, and the TMA-fed FMA kernel where the scheduled
+    """The union wrapper takes the wgmma kernel exactly where the
+    scheduled SpMM does, and the TMA-fed FMA kernel where the scheduled
     SpMM does and a group holds at most four value blocks (spmm_path with
     union=True; f32 16 x 8: eight blocks a group, the FMA kernel), in both
     forms."""
@@ -274,8 +276,8 @@ def union_pair(shape, bk, bn, bm, strategy):
 @pytest.mark.parametrize("strategy", ["union", "union4", "union4a"])
 @pytest.mark.parametrize("bk,bn", UNION_BLOCKINGS)
 def test_bf16_union_mma_shapes_parity(bk, bn, strategy, o_dt):
-    """bf16 union SpMM at the tensor-core blockings (32 x 32, 64 x 128 and
-    128 x 128 on wgmma, 16 x 64 and 16 x 8 on mma.sync), compacted (union)
+    """bf16 union SpMM at the wgmma blockings (32 x 32, 64 x 128, 128 x
+    128, 16 x 64 and 16 x 8), compacted (union)
     and fused (union4; union4a with u_align pad slots), m = 208 (a 128-row
     tile and a ragged one on the card; the reference needs 16 | m for bf16), an
     empty block column and an empty 128-column group, against the JAX

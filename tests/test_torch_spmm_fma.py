@@ -60,12 +60,11 @@ def pshape(m, n, k, o_dt=F32):
     (torch.bfloat16, 8, 8, False, "fma"), (torch.bfloat16, 4, 48, False, "fma"),
     (torch.bfloat16, 32, 32, False, "wgmma"),
     (torch.bfloat16, 32, 32, True, "wgmma"),
-    (torch.bfloat16, 16, 8, True, "mma")])
+    (torch.bfloat16, 16, 8, True, "wgmma")])
 def test_route_planner(dtype, bk, bn, union, want):
     """f32 blocks of whole 16-byte units take tma_fma (the union only with
-    at most four value blocks a group); bf16 of whole 32-deep, 32-wide
-    pieces wgmma, in the union too; other bf16 of whole k16 steps and
-    16-byte rows mma; the rest fma."""
+    at most four value blocks a group); bf16 of whole k16 steps and
+    16-byte rows wgmma, in the union too; the rest fma."""
     assert pk.spmm_path(dtype, bk, bn, union) == want
 
 
@@ -101,8 +100,7 @@ def test_path_launches_count_by_route():
     assert set(pk.path_launches) == {"bcsc_spmm", "bcsc_spmm_super",
                                      "bcsc_spmm_union"}
     for counts in pk.path_launches.values():
-        assert set(counts) == set(pk.ROUTES) == {"mma", "tma_fma", "fma",
-                                                 "wgmma"}
+        assert set(counts) == set(pk.ROUTES) == {"tma_fma", "fma", "wgmma"}
     shape = pshape(8, 128, 64)
     indptr, indices = _pattern(64, 128, 32, 32)
     fn = pk.build_bcsc_spmm(shape, xp.SpgemmConfig(1, 32, 32), indptr,
